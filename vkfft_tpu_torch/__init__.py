@@ -1,0 +1,46 @@
+"""vkfft_tpu_torch — the port of ``vkfft_tpu`` to PyTorch and CUDA.
+
+The JAX package ``vkfft_tpu`` stays in the repository as the reference; this
+package imports nothing of it (nor JAX) and keeps its own copies of the host
+modules.  Layer map:
+  planner/   — size factorization, algorithm selection, axis plans (copy)
+  luts       — host fp64 twiddle/chirp/Rader tables (copy)
+  pcomplex   — planar (re, im) torch tensors
+  ops/       — torch_engine (plain tensor ops, the CPU path and oracle),
+               cuda_kernels (hand-written CUDA kernels for sm_90a, built
+               with nvcc at first use) and cuda_engine (dispatch onto them)
+  api        — FFTApplication and the functional C2C API
+"""
+from vkfft_tpu_torch.config import (
+    FFTConfig,
+    Precision,
+    TransformKind,
+    config_from_reference,
+)
+from vkfft_tpu_torch.errors import FFTError, FFTResult, error_string
+from vkfft_tpu_torch.pcomplex import (
+    Planar,
+    from_complex,
+    from_numpy_planar,
+    planar_table,
+    to_complex,
+    to_numpy,
+)
+from vkfft_tpu_torch.api import (
+    FFTApplication,
+    get_application,
+    fft,
+    ifft,
+    fft2,
+    ifft2,
+    fftn,
+    ifftn,
+)
+
+__version__ = "0.1.0"
+
+
+def get_version() -> tuple[int, int, int]:
+    """``VkFFTGetVersion`` analog (reference: ``vkFFT/vkFFT.h:109``)."""
+    major, minor, patch = (int(v) for v in __version__.split("."))
+    return major, minor, patch

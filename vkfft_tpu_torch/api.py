@@ -1,0 +1,243 @@
+"""Application layer — plan/execute lifecycle, C2C core.
+
+Port of the C2C core of ``vkfft_tpu/api.py``: ``FFTApplication`` plans every
+transformed axis at construction (``initializeVkFFT``,
+``vkFFT_InitializeApp.h:1468``) and its ``forward``/``inverse`` walk the
+axes (``VkFFTAppend``, ``vkFFT_RunApp.h:79``), folding the inverse's 1/N
+into the last axis pass.  On an engine with a pair kernel
+(``pair_supports``) the two minor axes run as one pass.  The functional
+API (`fft`, `ifft`, ...) wraps a keyed application cache.
+
+Engines: ``torch`` (`ops.torch_engine`, plain tensor ops) runs CPU tensors;
+``cuda`` (`ops.cuda_engine`, the port's kernels) runs CUDA tensors.  With no
+engine named, each call picks by the device of its planes.  Host numpy
+input goes to the application's ``device``, ``"cuda"`` unless the caller
+asks for ``"cpu"``; without a CUDA device that raises rather than carry on
+on the CPU.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
+item: R2C and R2R kinds, precisions other than SINGLE, zero-pad windows and
+keep_intermediate_order.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vkfft_tpu_torch.config import FFTConfig, Precision, TransformKind
+from vkfft_tpu_torch.errors import InvalidConfigError
+from vkfft_tpu_torch.pcomplex import Planar, from_complex, to_complex, to_numpy
+from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
+
+ENGINES = ("torch", "cuda")
+
+
+def _engine(name: str):
+    """Engine registry: 'torch' plain tensor ops, 'cuda' the kernels."""
+    if name == "torch":
+        from vkfft_tpu_torch.ops import torch_engine
+        return torch_engine
+    if name == "cuda":
+        from vkfft_tpu_torch.ops import cuda_engine
+        return cuda_engine
+    raise InvalidConfigError(f"unknown engine {name!r}")
+
+
+def engine_for(x: Planar) -> str:
+    """The engine for planes on their device."""
+    return "cuda" if x.device.type == "cuda" else "torch"
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: host input goes to device='cuda' by default; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _check_slice(config: FFTConfig) -> None:
+    if config.convolution:
+        raise InvalidConfigError(
+            "convolution configs are executed by ConvolutionApplication "
+            "(not ported yet: ROADMAP queue 1 item 7)")
+    if config.kind is TransformKind.R2C:
+        raise NotImplementedError("R2C is ROADMAP queue 1 item 5")
+    if config.kind is not TransformKind.C2C:
+        raise NotImplementedError("DCT/DST are ROADMAP queue 1 item 9")
+    if config.precision is not Precision.SINGLE:
+        raise NotImplementedError(
+            f"precision {config.precision.value} is ROADMAP queue 1 item 10")
+    if config.zeropad_input is not None or config.zeropad_output is not None:
+        raise NotImplementedError("zero-pad windows are ROADMAP queue 1 item 8")
+    if config.keep_intermediate_order:
+        raise NotImplementedError(
+            "keep_intermediate_order is ROADMAP queue 1 item 8")
+
+
+def _storages(x: Planar) -> set:
+    return {x.re.untyped_storage().data_ptr(),
+            x.im.untyped_storage().data_ptr()}
+
+
+class FFTApplication:
+    """Planned, reusable C2C executor for a fixed configuration.
+
+    ``engine``: 'torch', 'cuda', or None to pick by the device of each
+    call's planes.  ``device``: where host numpy input is placed."""
+
+    def __init__(self, config: FFTConfig, engine: Optional[str] = None,
+                 device="cuda"):
+        _check_slice(config)
+        if engine is not None and engine not in ENGINES:
+            raise InvalidConfigError(f"unknown engine {engine!r}")
+        self.config = config
+        self.engine_name = engine
+        self.device = torch.device(device)
+        self.axis_plans: dict[int, AxisPlan] = {
+            ax: plan_axis(config.shape[ax]) for ax in config.axes
+        }
+
+    def _check_batch(self, x, trailing_ndim: int):
+        """Validate the declared batch count (reference ``numberBatches``,
+        vkFFT_Structs.h:152): leading dims ahead of the transform block must
+        multiply to ``config.batch`` when it is declared (> 1)."""
+        if self.config.batch > 1:
+            lead = x.shape[: x.ndim - trailing_ndim]
+            total = math.prod(lead)
+            if total != self.config.batch:
+                raise InvalidConfigError(
+                    f"configured batch={self.config.batch} but input leading "
+                    f"dims {lead} give {total}")
+
+    def _transform(self, x: Planar, inverse: bool) -> Planar:
+        cfg = self.config
+        ndim = len(cfg.shape)
+        if x.shape[-ndim:] != cfg.shape:
+            raise InvalidConfigError(
+                f"input trailing shape {x.shape[-ndim:]} != configured "
+                f"{cfg.shape}")
+        self._check_batch(x, ndim)
+        eng = _engine(self.engine_name or engine_for(x))
+        axes = cfg.axes if not inverse else tuple(reversed(cfg.axes))
+        # in-kernel normalization: fold 1/N into the LAST inverse axis pass
+        # (reference stageNormalization, ``vkFFT_RadixShuffle.h:49-65``)
+        norm_scale = 1.0
+        if inverse and cfg.normalize:
+            for ax in cfg.axes:
+                norm_scale /= cfg.shape[ax]
+        lead = x.ndim - ndim
+        caller = _storages(x)
+
+        def owned(y: Planar) -> bool:
+            # a pass may write in place only over planes the walk made
+            # itself (a length-1 axis hands back the caller's planes)
+            return _storages(y).isdisjoint(caller)
+
+        ay, az = ndim - 2, ndim - 1
+        pair_ok = getattr(eng, "pair_supports", None)
+        if (pair_ok is not None and ay in cfg.axes and az in cfg.axes
+                and pair_ok(cfg.shape[ay], cfg.shape[az])):
+            # the two minor axes as one pass (reference single-upload 2-D
+            # regime, ``vkFFT_Scheduler.h`` numAxisUploads == 1): first in
+            # the forward, last (with the 1/N) in the inverse
+            ny, nz = cfg.shape[ay], cfg.shape[az]
+            rest = [ax for ax in axes if ax < ay]
+            if not inverse:
+                x = eng.fft_pair_p(x, ny, nz, False)
+            for ax in rest:
+                x = eng.fft_axis_p(x, lead + ax, self.axis_plans[ax], inverse,
+                                   donate=owned(x))
+            if inverse:
+                x = eng.fft_pair_p(x, ny, nz, True, scale=norm_scale,
+                                   donate=owned(x))
+            return x
+        for i, ax in enumerate(axes):
+            s = norm_scale if i == len(axes) - 1 else 1.0
+            x = eng.fft_axis_p(x, lead + ax, self.axis_plans[ax], inverse,
+                               scale=s, donate=owned(x))
+        return x
+
+    def _run(self, x, inverse: bool):
+        if isinstance(x, Planar):
+            return self._transform(x, inverse)
+        if isinstance(x, torch.Tensor):
+            return to_complex(self._transform(from_complex(x), inverse))
+        p = from_complex(np.asarray(x), _resolve_device(self.device))
+        return to_numpy(self._transform(p, inverse))
+
+    def forward(self, x):
+        """``VkFFTAppend(app, -1, ...)`` analog.  Takes a ``Planar`` (result
+        a ``Planar`` on the same device), a torch tensor (result a complex
+        tensor on its device) or a host array (placed on ``device``, result
+        a numpy complex array)."""
+        return self._run(x, False)
+
+    def inverse(self, x):
+        """``VkFFTAppend(app, 1, ...)`` analog (inverse transform)."""
+        return self._run(x, True)
+
+
+# ---------------------------------------------------------------------------
+# Functional numpy-style façade with an application cache.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=512)
+def _cached_app(config: FFTConfig, engine: Optional[str],
+                device: str) -> FFTApplication:
+    return FFTApplication(config, engine=engine, device=device)
+
+
+def get_application(config: FFTConfig, engine: Optional[str] = None,
+                    device="cuda") -> FFTApplication:
+    return _cached_app(config, engine, str(torch.device(device)))
+
+
+def fftn(x, axes=None, engine: Optional[str] = None, inverse: bool = False,
+         normalize: Optional[bool] = None, device="cuda"):
+    """N-D complex-to-complex DFT over ``axes`` (default all).  Accepts a
+    ``Planar``, a torch tensor, or a host array (placed on ``device``);
+    returns the same kind.  The inverse is normalized by default."""
+    if not isinstance(x, (Planar, torch.Tensor)):
+        x = np.asarray(x)
+    ndim = len(x.shape)
+    if axes is None:
+        axes = tuple(range(ndim))
+    else:
+        axes = tuple(a % ndim for a in (axes if isinstance(axes, (tuple, list))
+                                        else (axes,)))
+    # the configuration covers the trailing block of dims holding every
+    # transformed axis; leading dims are batch
+    lead = min(axes)
+    cfg = FFTConfig(shape=tuple(x.shape[lead:]),
+                    fft_axes=tuple(a - lead for a in axes),
+                    normalize=True if normalize is None else normalize)
+    app = get_application(cfg, engine, device)
+    return app.inverse(x) if inverse else app.forward(x)
+
+
+def fft(x, axis: int = -1, engine: Optional[str] = None, device="cuda"):
+    """1-D forward DFT along ``axis`` (unnormalized, numpy convention)."""
+    return fftn(x, axes=(axis,), engine=engine, device=device)
+
+
+def ifft(x, axis: int = -1, engine: Optional[str] = None, device="cuda"):
+    """1-D inverse DFT along ``axis`` (normalized by 1/n)."""
+    return fftn(x, axes=(axis,), engine=engine, inverse=True, device=device)
+
+
+def fft2(x, axes=(-2, -1), engine: Optional[str] = None, device="cuda"):
+    return fftn(x, axes=axes, engine=engine, device=device)
+
+
+def ifft2(x, axes=(-2, -1), engine: Optional[str] = None, device="cuda"):
+    return fftn(x, axes=axes, engine=engine, inverse=True, device=device)
+
+
+def ifftn(x, axes=None, engine: Optional[str] = None, device="cuda"):
+    return fftn(x, axes=axes, engine=engine, inverse=True, device=device)

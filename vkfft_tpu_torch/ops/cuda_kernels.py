@@ -1,0 +1,474 @@
+"""The port's hand-written CUDA kernels, their plain versions, and the build.
+
+Three kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
+
+* `fft_lines` (``csrc/fft_lines.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``: batched C2C of
+  contiguous (B, n) fp32 planes, natural order, scale in the kernel.
+* `fft_strided` (``csrc/fft_strided.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``: C2C along the
+  middle dim of (P, n, S) fp32 planes, S contiguous, scale in the kernel.
+  It also computes what ``pallas_engine.py:4001 _outer_kernel`` does (dim 1
+  of (P, n, R, nz) planes): on the card that layout is the (P, n, R*nz)
+  view of the same memory, so one kernel serves both.
+* `fft_pair` (``csrc/fft_pair.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``: 2-D C2C of the two
+  minor axes of (B, ny, nz) fp32 planes in one pass, a plane held in the
+  shared memory of a thread-block cluster.
+
+All three are bound by bytes (one read and one write of each point) and
+keep every stage of a line or column tile in shared memory; the source
+notes in the ``.cu`` files say how.  They take any 2 <= n <= 8192 whose
+prime factors are all <= 64 (`kernel_radices`), a superset-equal of the JAX
+package's ``_v3_plan`` coverage; `fft_pair` takes the planes `pair_cluster`
+finds a cluster for.
+
+Each wrapper checks its tensors, then runs the plain version when they lie
+on the CPU and launches the kernel when they lie on a CUDA device; there is
+no other fallback.  `launches` counts kernel launches per wrapper.
+
+Build: at first use, ``nvcc`` compiles each ``.cu`` into its own shared
+library with a C interface (all sources at once, in parallel) under
+``vkfft_tpu_torch/_build``, keyed by a hash of the sources and flags, and
+``ctypes`` loads them.  Nothing is built or imported from CUDA while this
+module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vkfft_tpu_torch.ops import torch_engine
+from vkfft_tpu_torch.pcomplex import Planar
+from vkfft_tpu_torch.planner.factorize import prime_factors
+from vkfft_tpu_torch.planner.plan import plan_axis
+
+KERNEL_MAX_N = 8192
+KERNEL_MAX_PRIME = 64
+_MAX_STAGES = 16  # vkfft::kMaxStages in csrc/stockham.cuh
+# Radices with a butterfly of their own in csrc/stockham.cuh; every other
+# radix reads its roots w_r^k from the table.
+_BUTTERFLY_RADICES = (2, 4, 8)
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair")
+# Shared memory per block of `fft_pair` (two buffers of its share of a
+# plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
+# as a block of `fft_lines`), or else to its largest size, as long as a
+# block needs at most PAIR_MAX_BLOCK_BYTES.  A larger plane runs as two
+# axis passes.
+PAIR_BLOCK_BYTES = 32 * 1024
+PAIR_MAX_BLOCK_BYTES = 128 * 1024
+PAIR_CLUSTERS = (1, 2, 4, 8, 16)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel launches per wrapper, counted where the wrapper launches.
+launches = {name: 0 for name in KERNEL_SOURCES}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plan and tables shared by the kernels and their plain versions.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def kernel_radices(n: int) -> Optional[tuple[int, ...]]:
+    """Stage radices the kernels run for length n, or None when n is out of
+    their range.  Powers of two go as radix 8 (one 8*2 becomes 4*4, so no
+    radix-2 stage when a radix-8 one exists), then every odd prime as a
+    stage of its own, largest first."""
+    if n < 2 or n > KERNEL_MAX_N:
+        return None
+    primes = prime_factors(n)
+    if primes[-1] > KERNEL_MAX_PRIME:
+        return None
+    twos = primes.count(2)
+    rad = [8] * (twos // 3)
+    if twos % 3 == 2:
+        rad.append(4)
+    elif twos % 3 == 1:
+        if rad:
+            rad[-1] = 4
+            rad.append(4)
+        else:
+            rad.append(2)
+    rad += sorted((p for p in primes if p != 2), reverse=True)
+    assert len(rad) <= _MAX_STAGES, (n, rad)
+    return tuple(rad)
+
+
+def kernel_supports(n: int) -> bool:
+    return kernel_radices(n) is not None
+
+
+@functools.lru_cache(maxsize=1024)
+def pair_cluster(ny: int, nz: int) -> Optional[int]:
+    """Blocks of the cluster that holds one (ny, nz) plane in `fft_pair`
+    (see PAIR_BLOCK_BYTES), or None when the plane does not fit or an axis
+    is outside the kernels' range."""
+    if not (kernel_supports(ny) and kernel_supports(nz)):
+        return None
+    fits = [c for c in PAIR_CLUSTERS if ny % c == 0 and nz % c == 0
+            and 16 * ny * nz // c <= PAIR_MAX_BLOCK_BYTES]
+    for c in fits:
+        if 16 * ny * nz // c <= PAIR_BLOCK_BYTES:
+            return c
+    return fits[-1] if fits else None
+
+
+def _unsupported(n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"length {n} is outside the CUDA kernels' range (2 <= n <= "
+        f"{KERNEL_MAX_N}, prime factors <= {KERNEL_MAX_PRIME}); longer and "
+        "prime-heavy lengths are ROADMAP queue 1 item 6")
+
+
+@functools.lru_cache(maxsize=256)
+def stage_tables(n: int, inverse: bool, scale: float = 1.0):
+    """(plan ints, complex128 table) for length n.  Per stage the (r, Mp)
+    twiddle block w_M^(i*m), with ``scale`` folded into stage 0 (the
+    reference's stageNormalization, ``vkFFT_RadixShuffle.h:49-65``), and for
+    radices without a butterfly of their own the roots w_r^k.  Computed in
+    fp64 like ``_v3_tables_impl``; the kernels read it cast to fp32."""
+    radices = kernel_radices(n)
+    if radices is None:
+        raise _unsupported(n)
+    sign = 2.0j if inverse else -2.0j
+    parts, tw_off, dft_off = [], [], []
+    off, M = 0, n
+    for s, r in enumerate(radices):
+        Mp = M // r
+        tw = np.exp(sign * np.pi / M
+                    * (np.outer(np.arange(r), np.arange(Mp)) % M))
+        if s == 0:
+            tw = tw * scale
+        tw_off.append(off)
+        parts.append(tw.ravel())
+        off += r * Mp
+        if r in _BUTTERFLY_RADICES:
+            dft_off.append(-1)
+        else:
+            dft_off.append(off)
+            parts.append(np.exp(sign * np.pi / r * np.arange(r)))
+            off += r
+        M = Mp
+    pad = [0] * (_MAX_STAGES - len(radices))
+    ints = ([n, len(radices), int(inverse)] + list(radices) + pad
+            + tw_off + pad + dft_off + [-1] * len(pad))
+    return tuple(ints), np.concatenate(parts)
+
+
+# Device copies of the tables, per (n, inverse, scale, device).
+_DEVICE_TABLES: dict = {}
+
+
+def _device_table(n: int, inverse: bool, scale: float,
+                  device: torch.device) -> torch.Tensor:
+    key = (n, inverse, scale, str(device))
+    tab = _DEVICE_TABLES.get(key)
+    if tab is None:
+        _, t = stage_tables(n, inverse, scale)
+        host = np.stack([t.real, t.imag], axis=-1).astype(np.float32)
+        tab = torch.from_numpy(host).to(device)
+        _DEVICE_TABLES[key] = tab
+    return tab
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the same functions through the plain engine, which plans
+# and tables its own stages (`torch_engine`), so they share nothing with
+# the kernels but the definition of the DFT.
+# ---------------------------------------------------------------------------
+
+def fft_lines_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
+                    scale: float = 1.0):
+    """Plain torch version of `fft_lines`."""
+    y = torch_engine.lines_plain(Planar(re, im), plan_axis(re.shape[1]),
+                                 inverse, scale)
+    return y.re, y.im
+
+
+def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
+                      scale: float = 1.0):
+    """Plain torch version of `fft_strided`: move the transform dim last,
+    run `fft_lines_plain`, move it back."""
+    P, n, S = re.shape
+
+    def lines(t):
+        return t.permute(0, 2, 1).reshape(P * S, n)
+
+    yr, yi = fft_lines_plain(lines(re), lines(im), inverse, scale)
+    return (yr.reshape(P, S, n).permute(0, 2, 1).contiguous(),
+            yi.reshape(P, S, n).permute(0, 2, 1).contiguous())
+
+
+def fft_pair_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
+                   scale: float = 1.0):
+    """Plain torch version of `fft_pair`: the z axis as lines, then the y
+    axis as a strided pass with the scale."""
+    B, ny, nz = re.shape
+    zr, zi = fft_lines_plain(re.reshape(B * ny, nz), im.reshape(B * ny, nz),
+                             inverse)
+    return fft_strided_plain(zr.reshape(B, ny, nz), zi.reshape(B, ny, nz),
+                             inverse, scale)
+
+
+# ---------------------------------------------------------------------------
+# Build and load.
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "nvcc on the machine that has the card")
+
+
+def _source_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}-{_source_key()}.so")
+
+
+def build_kernels() -> dict:
+    """Compile every kernel library that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns {name: path}; the compiler's
+    messages (with ``-Xptxas -v``: registers, shared memory, spills) go to
+    a ``.log`` beside each library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {name: library_path(name) for name in KERNEL_SOURCES}
+    todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for name, path in todo.items():
+            tmp = f"{path}.tmp{os.getpid()}"
+            log = open(path[:-3] + ".log", "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, name + ".cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT),
+                           log, tmp)
+        failed = []
+        for name, (proc, log, tmp) in procs.items():
+            rc = proc.wait()
+            log.close()
+            if rc == 0:
+                os.replace(tmp, todo[name])
+            else:
+                failed.append(name)
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        msgs = []
+        for name in failed:
+            with open(todo[name][:-3] + ".log") as f:
+                msgs.append(f"--- {name} ---\n{f.read()[-4000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+    return paths
+
+
+_LIBS: dict = {}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    path = build_kernels()[name]
+    lib = ctypes.CDLL(path)
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    fn = getattr(lib, "vk_" + name)
+    if name == "fft_lines":
+        fn.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
+    elif name == "fft_strided":
+        fn.argtypes = [vp, vp, vp, vp, i64, i64, vp, vp, vp]
+    else:
+        fn.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
+    lib.vk_error_string.argtypes = [ctypes.c_int]
+    lib.vk_error_string.restype = ctypes.c_char_p
+    _LIBS[name] = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+# ---------------------------------------------------------------------------
+
+def _check_planes(re, im, ndim: int, what: str) -> None:
+    if not (isinstance(re, torch.Tensor) and isinstance(im, torch.Tensor)):
+        raise TypeError(f"{what}: re and im must be torch tensors")
+    if re.shape != im.shape or re.ndim != ndim:
+        raise ValueError(f"{what}: planes must both be {ndim}-D of one shape, "
+                         f"got {tuple(re.shape)} and {tuple(im.shape)}")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise TypeError(f"{what}: planes must be float32, got {re.dtype}/"
+                        f"{im.dtype} (other precisions are ROADMAP queue 1 "
+                        "item 10)")
+    if re.device != im.device:
+        raise ValueError(f"{what}: planes on {re.device} and {im.device}")
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError(f"{what}: planes must be contiguous")
+
+
+def _check_length(n: int) -> None:
+    if not kernel_supports(n):
+        raise _unsupported(n)
+
+
+def _check_out(re, out) -> None:
+    for y in out:
+        if (y.shape != re.shape or y.dtype != re.dtype
+                or y.device != re.device or not y.is_contiguous()):
+            raise ValueError("out planes must match the input planes")
+
+
+def _plan(n: int, inverse: bool, scale: float, device: torch.device):
+    """(plan ints as a C array, device table) of one axis for a launch."""
+    ints, _ = stage_tables(n, inverse, scale)
+    return ((ctypes.c_int * len(ints))(*ints),
+            _device_table(n, inverse, scale, device))
+
+
+def _run(name: str, plain, re, im, inverse: bool, scale: float, out,
+         kernel_args):
+    """Shared body of the wrappers: the plain version for CPU planes, one
+    kernel launch for CUDA planes.  ``kernel_args()`` gives the kernel's
+    arguments between the four plane pointers and the stream."""
+    if out is not None:
+        _check_out(re, out)
+    if re.device.type == "cpu":
+        yr, yi = plain(re, im, inverse, scale)
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    yr, yi = out if out is not None else (torch.empty_like(re),
+                                          torch.empty_like(im))
+    if re.numel() == 0:
+        return yr, yi
+    lib = _library(name)
+    args = kernel_args()
+    c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
+              else a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        err = getattr(lib, "vk_" + name)(
+            re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            *c_args, stream)
+    if err:
+        msg = lib.vk_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    launches[name] += 1
+    return yr, yi
+
+
+def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+              scale: float = 1.0, out=None):
+    """DFT of each line of (B, n) float32 planes, times ``scale``.  ``out``
+    may name the output planes, which may be the input planes themselves
+    (in place).  CPU tensors run `fft_lines_plain`; CUDA tensors launch the
+    kernel on the current stream.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``.  Bound
+    by bytes (16 B a point, read once and written once); the kernel keeps
+    every stage of ⌊2048/n⌋ lines in shared memory, so device memory sees
+    only that traffic (``csrc/fft_lines.cu``)."""
+    _check_planes(re, im, 2, "fft_lines")
+    B, n = re.shape
+    _check_length(n)
+
+    def args():
+        plan, table = _plan(n, inverse, scale, re.device)
+        return (B, plan, table)
+
+    return _run("fft_lines", fft_lines_plain, re, im, inverse, scale, out,
+                args)
+
+
+def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                scale: float = 1.0, out=None):
+    """DFT along the middle dim of (P, n, S) float32 planes, times
+    ``scale``.  ``out`` as for `fft_lines`.  CPU tensors run
+    `fft_strided_plain`; CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``,
+    and ``:4001 _outer_kernel`` through the (P, n, R*nz) view.  Bound by
+    bytes (16 B a point); a block transforms a tile of min(32, 4096/n)
+    neighbouring columns across all n rows in shared memory, reading each
+    row of the tile as one contiguous run (``csrc/fft_strided.cu``)."""
+    _check_planes(re, im, 3, "fft_strided")
+    P, n, S = re.shape
+    _check_length(n)
+
+    def args():
+        plan, table = _plan(n, inverse, scale, re.device)
+        return (P, S, plan, table)
+
+    return _run("fft_strided", fft_strided_plain, re, im, inverse, scale, out,
+                args)
+
+
+def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+             scale: float = 1.0, out=None):
+    """2-D DFT over the two minor axes of (B, ny, nz) float32 planes, times
+    ``scale``, in one pass.  ``out`` as for `fft_lines`.  CPU tensors run
+    `fft_pair_plain`; CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``.  Bound by
+    bytes (16 B a point for both axes); a cluster of `pair_cluster` blocks
+    holds each plane in its shared memory, runs the z stages on rows, moves
+    column tiles between its blocks over distributed shared memory and runs
+    the y stages there (``csrc/fft_pair.cu``)."""
+    _check_planes(re, im, 3, "fft_pair")
+    B, ny, nz = re.shape
+    _check_length(ny)
+    _check_length(nz)
+    cluster = pair_cluster(ny, nz)
+    if cluster is None:
+        raise NotImplementedError(
+            f"a ({ny}, {nz}) plane does not fit a cluster of fft_pair "
+            "(at most 16 blocks of 128 KB); larger planes are ROADMAP queue "
+            "2 item 3")
+
+    def args():
+        plan_y, table_y = _plan(ny, inverse, scale, re.device)
+        plan_z, table_z = _plan(nz, inverse, 1.0, re.device)
+        return (B, plan_y, plan_z, table_y, table_z, cluster)
+
+    return _run("fft_pair", fft_pair_plain, re, im, inverse, scale, out, args)
