@@ -6,29 +6,43 @@ Phases (each asserts; any failure exits non-zero before the result line):
   1. device and toolchain: the card's name and power limit, torch, CUDA and
      nvcc versions; builds the CUDA kernels from vkfft_tpu_torch/csrc;
   2. each kernel against its plain torch version on the card (<= 1e-5 of
-     max|ref|), at every length the kernels take, and on a subset against
-     numpy fp64 (<= 5e-6); then the API's other routes (axis subsets, odd,
-     tiny and length-1 axes, complex tensors, inputs left unchanged,
-     refusals outside the slice);
-  3. the main path at full width through FFTApplication: batched 1-D C2C
-     at n = 256, 1024, 4096 with 128 MB of planar data each (forward plus
-     normalized inverse), and fftn/ifftn of a 256^3 cube (the pair kernel
-     on the two minor axes, the strided kernel on the leading one); every
-     kernel's launch counter must rise and the plain engine's must not;
+     max|ref|), at every length the kernels take (the real kernels at
+     every even n whose n/2 they take, up to 16384, alternating direction
+     and layout), and on a subset against numpy fp64 (<= 5e-6); then the
+     API's other routes (axis subsets, odd, tiny and length-1 axes, complex
+     tensors, the real transforms' merged, tiny and explicit-n routes, the
+     numpy rule for Im(DC/Nyquist), inputs left unchanged, refusals outside
+     the slice);
+  3. the main path at full width, each part with the launch counters set
+     to 0 just before it and read just after: C2C through FFTApplication,
+     batched 1-D at n = 256, 1024, 4096 with 128 MB of planar data each
+     (forward plus normalized inverse) and fftn/ifftn of a 256^3 cube (the
+     pair kernel on the two minor axes, the strided kernel on the leading
+     one), where every C2C kernel's counter must rise; then three R2C
+     paths, each counted apart and held to the exact launches it must
+     make: bench.py's r2c row (1-D n = 1024, 32768 lines, 128 MB of real
+     data) through FFTApplication (2 of fft_r2c), the same through
+     rfft/irfft on a real tensor (2 of fft_r2c), and rfftn/irfftn of a
+     real 256^3 cube (2 of the real pair kernel on axes 1-2, 2 of the
+     strided kernel on axis 0 of the half spectrum); the plain engine's
+     counter must stay 0 throughout;
   4. times with CUDA events (warm-up, then the median of 20 runs of 10
-     back-to-back calls): each kernel at the main path's shapes, held
-     against its plain version there (<= 1e-5 of max|ref|), and each
-     end-to-end round trip, beside the HBM-bandwidth bound and the
-     torch.fft time of the same function.
+     back-to-back calls): each kernel at the main path's shapes (the
+     strided kernel also on the real cube's (1, 256, 33024) half spectrum,
+     both directions), held against its plain version there (<= 1e-5 of
+     max|ref|), and each end-to-end round trip, beside the HBM-bandwidth
+     bound and the torch.fft time of the same function.
 
-Every number is printed as it is measured.  The last lines are a JSON
-object describing each kernel, the card's name and power limit, and
+Every number is printed as it is measured; the whole record also goes to
+chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
+each kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -44,6 +58,10 @@ NUMPY_TOL = 5e-6              # vs numpy fp64, the gate of tests/test_pallas.py
 TARGET_BYTES = 128 * 1024 * 1024
 ROWS_1D = (256, 1024, 4096)
 CUBE = (256, 256, 256)
+R2C_N = 1024                  # bench.py's r2c row: 128 MB of real data
+R2C_LINES = TARGET_BYTES // (4 * R2C_N)
+C2C_KERNELS = ("fft_lines", "fft_strided", "fft_pair")
+R2C_KERNELS = ("fft_r2c", "fft_r2c_pair")
 REPS = 20
 INNER = 10
 
@@ -207,10 +225,10 @@ def phase_kernels_vs_plain(ck, dev) -> dict:
     out["sweep"] = sweep
     _log(f"[kernels] sweep over every covered length: {sweep}")
     worst = {k: max(r["rel_err_plain"] for r in out[k])
-             for k in ck.KERNEL_SOURCES}
+             for k in C2C_KERNELS}
     _log(f"[kernels] worst rel err vs plain: {worst}")
     worst_np = {k: max(r.get("rel_err_numpy", 0.0) for r in out[k])
-                for k in ck.KERNEL_SOURCES}
+                for k in C2C_KERNELS}
     _log(f"[kernels] worst rel err vs numpy fp64: {worst_np}")
     return out
 
@@ -276,7 +294,7 @@ def phase_main_path(vt, ck, torch_engine, dev) -> dict:
     plain_calls = torch_engine.calls
 
     _log(f"[main] launches {launches}, plain engine calls {plain_calls}")
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in C2C_KERNELS), launches
     assert plain_calls == 0, plain_calls
     rows = []
     for n in ROWS_1D:
@@ -332,7 +350,7 @@ def phase_times(vt, ck, dev) -> dict:
     """Kernels at the main path's shapes (each held against its plain
     version there), and the end-to-end round trips."""
     _log(f"[time] card: {_smi()}")
-    kernels = {name: [] for name in ck.KERNEL_SOURCES}
+    kernels = {name: [] for name in C2C_KERNELS}
     lines_shapes = [(TARGET_BYTES // (8 * n), n) for n in ROWS_1D]
     for B, n in lines_shapes:
         xr, xi = _planes((B, n), n, dev)
@@ -421,6 +439,424 @@ def phase_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+def _numpy_rel(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.double().cpu().numpy()
+
+
+def phase_real_kernels_vs_plain(ck, dev) -> dict:
+    """fft_r2c/fft_c2r and fft_r2c_pair against their plain versions (and
+    numpy fp64 on a subset), in both directions and both layouts."""
+    out = {"fft_r2c": [], "fft_r2c_pair": []}
+    for n in (4, 6, 94, 120, 1000, 1024, 2048, 4096, 16384):
+        B = 33
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((B, n), generator=g, device=dev)
+        want = np.fft.rfft(_host(x), axis=1)
+        m = n // 2
+        for packed in (False, True):
+            yr, yi = ck.fft_r2c(x, packed)
+            torch.cuda.synchronize()
+            pr, pi = ck.fft_r2c_plain(x, packed)
+            row = {"n": n, "B": B, "packed": packed,
+                   "rel_err_plain": _rel(torch.complex(yr, yi),
+                                         torch.complex(pr, pi))}
+            if packed:
+                yr, yi = ck.packed_to_numpy_layout(yr, yi)
+            else:
+                # stored, not rounded: Im(DC) and Im(Nyquist) are 0
+                row["im_dc_nyquist"] = float(
+                    yi[:, [0, m]].abs().max().item())
+                assert row["im_dc_nyquist"] == 0.0, row
+            row["rel_err_numpy"] = _numpy_rel(
+                _host(yr) + 1j * _host(yi), want)
+            # the inverse of numpy's spectrum, scaled 2/n to numpy irfft
+            sr = torch.tensor(want.real, dtype=torch.float32, device=dev)
+            si = torch.tensor(want.imag, dtype=torch.float32, device=dev)
+            if packed:
+                sr, si = ck.numpy_to_packed_layout(sr, si)
+                sr, si = sr.contiguous(), si.contiguous()
+            z = ck.fft_c2r(sr, si, n, 2.0 / n, packed)
+            torch.cuda.synchronize()
+            row["rel_err_plain_inverse"] = _rel(
+                z, ck.fft_c2r_plain(sr, si, n, 2.0 / n, packed))
+            row["rel_err_numpy_inverse"] = _numpy_rel(_host(z), _host(x))
+            assert max(row["rel_err_plain"],
+                       row["rel_err_plain_inverse"]) <= KERNEL_TOL, row
+            assert max(row["rel_err_numpy"],
+                       row["rel_err_numpy_inverse"]) <= NUMPY_TOL, row
+            out["fft_r2c"].append(row)
+    pair_shapes = [(2, 8, 8), (3, 16, 16), (2, 47, 60), (2, 64, 64),
+                   (2, 64, 128), (3, 128, 128), (2, 128, 256), (4, 256, 256),
+                   (2, 8, 16384), (256, 256, 256)]
+    for (B, ny, nz) in pair_shapes:
+        g = torch.Generator(device=dev).manual_seed(B + ny * nz)
+        x = torch.randn((B, ny, nz), generator=g, device=dev)
+        yr, yi = ck.fft_r2c_pair(x)
+        torch.cuda.synchronize()
+        pr, pi = ck.fft_r2c_pair_plain(x)
+        z = ck.fft_c2r_pair(pr, pi, nz, 1.0 / ny, 2.0 / nz)
+        torch.cuda.synchronize()
+        row = {"shape": [B, ny, nz], "cluster": ck.r2c_pair_cluster(ny, nz),
+               "rel_err_plain": _rel(torch.complex(yr, yi),
+                                     torch.complex(pr, pi)),
+               "rel_err_plain_inverse": _rel(z, ck.fft_c2r_pair_plain(
+                   pr, pi, nz, 1.0 / ny, 2.0 / nz))}
+        assert max(row["rel_err_plain"],
+                   row["rel_err_plain_inverse"]) <= KERNEL_TOL, row
+        if B * ny * nz <= 1 << 20:
+            xh = _host(x)
+            want = np.fft.rfft2(xh)
+            row["rel_err_numpy"] = _numpy_rel(_host(yr) + 1j * _host(yi), want)
+            sr = torch.tensor(want.real, dtype=torch.float32, device=dev)
+            si = torch.tensor(want.imag, dtype=torch.float32, device=dev)
+            zn = ck.fft_c2r_pair(sr, si, nz, 1.0 / ny, 2.0 / nz)
+            row["rel_err_numpy_inverse"] = _numpy_rel(_host(zn), xh)
+            assert max(row["rel_err_numpy"],
+                       row["rel_err_numpy_inverse"]) <= NUMPY_TOL, row
+        out["fft_r2c_pair"].append(row)
+    # every even n whose n/2 the kernels take, up to 16384: directions
+    # alternate, and layouts every second length
+    covered = [2 * m for m in range(2, ck.KERNEL_MAX_N + 1)
+               if ck.kernel_supports(m)]
+    sweep = {"lengths": len(covered), "worst": 0.0}
+    for i, n in enumerate(covered):
+        inverse, packed = bool(i % 2), bool((i // 2) % 2)
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((3, n), generator=g, device=dev)
+        if inverse:
+            sr, si = ck.fft_r2c_plain(x, packed)
+            err = _rel(ck.fft_c2r(sr, si, n, 0.5, packed),
+                       ck.fft_c2r_plain(sr, si, n, 0.5, packed))
+        else:
+            err = _rel(torch.complex(*ck.fft_r2c(x, packed)),
+                       torch.complex(*ck.fft_r2c_plain(x, packed)))
+        assert err <= KERNEL_TOL, ("fft_r2c sweep", n, inverse, packed, err)
+        sweep["worst"] = max(sweep["worst"], err)
+    out["sweep"] = sweep
+    _log(f"[real kernels] sweep over every covered even length: {sweep}")
+    for k in R2C_KERNELS:
+        worst = max(max(r["rel_err_plain"], r["rel_err_plain_inverse"])
+                    for r in out[k])
+        worst_np = max(max(r.get("rel_err_numpy", 0.0),
+                           r.get("rel_err_numpy_inverse", 0.0))
+                       for r in out[k])
+        _log(f"[real kernels] {k}: worst rel err vs plain {worst}, "
+             f"vs numpy fp64 {worst_np}")
+    return out
+
+
+def phase_real_routes(vt, dev) -> dict:
+    """The real transforms' other routes on the card, against numpy fp64
+    (or torch.fft on shapes too large for the host): a non-minor axis, odd
+    n (merged sequences on fft_lines), n = 2 and 3, an explicit n, rfftn
+    axis subsets, the numpy rule for Im(DC/Nyquist), inputs left unchanged,
+    and a refusal outside the kernels."""
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def real(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def check(what, got, want, tol=NUMPY_TOL):
+        err = _numpy_rel(got, want)
+        rows.append({"case": what, "rel_err": err})
+        assert err <= tol, (what, err)
+
+    for shape, axis in (((64, 5, 3), 0), ((3, 1000, 4), 1), ((5, 47), -1),
+                        ((1, 47), -1), ((4, 2), -1), ((4, 3), -1),
+                        ((2, 3), -1), ((3, 60), -1)):
+        x = real(shape)
+        keep = x.clone()
+        X = vt.rfft(x, axis=axis)
+        want = np.fft.rfft(_host(x), axis=axis)
+        check(f"rfft {shape} axis {axis}", X.cpu().numpy(), want)
+        n = shape[axis]
+        z = vt.irfft(X, n=n, axis=axis)
+        check(f"irfft {shape} axis {axis}", _host(z), _host(x))
+        assert torch.equal(x, keep), ("rfft changed its input", shape)
+    # an explicit n: crop and zero-pad the spectrum as numpy does
+    x = real((4, 64))
+    X = vt.rfft(x)
+    Xh = X.cpu().numpy().astype(np.complex128)
+    for n in (64, 60, 70, 63):
+        check(f"irfft n={n}", _host(vt.irfft(X, n=n)),
+              np.fft.irfft(Xh, n=n))
+    # a spectrum with nonzero Im(DC) and Im(Nyquist): numpy ignores them
+    for n in (64, 63, 1024):
+        Xh = np.fft.rfft(np.random.default_rng(n).standard_normal((6, n)))
+        Xh[:, 0] += 3j
+        Xh[:, -1] -= 2j
+        Xd = torch.tensor(Xh.astype(np.complex64), device=dev)
+        keep = Xd.clone()
+        check(f"irfft Im(DC/Nyquist) n={n}", _host(vt.irfft(Xd, n=n)),
+              np.fft.irfft(Xh, n=n))
+        assert torch.equal(Xd, keep), "irfft changed its input"
+    Xh = np.fft.rfftn(np.random.default_rng(1).standard_normal((3, 16, 12)),
+                      axes=(1, 2))
+    Xh[:, :, 0] += 1j
+    Xh[:, :, -1] -= 0.5j
+    check("irfftn Im(DC/Nyquist) pair",
+          _host(vt.irfftn(torch.tensor(Xh.astype(np.complex64), device=dev),
+                          axes=(1, 2))),
+          np.fft.irfftn(Xh, axes=(1, 2)))
+    for shape, axes in (((4, 6, 8), None), ((4, 6, 8), (0, 2)),
+                        ((2, 3, 8, 12), (1, 3)), ((3, 8, 12), (0, 1)),
+                        ((16, 17), None), ((5, 64, 60), (1, 2)),
+                        ((2, 47, 60), None), ((2, 512, 512), (1, 2)),
+                        ((1, 1024, 1024), (1, 2))):
+        x = real(shape)
+        keep = x.clone()
+        X = vt.rfftn(x, axes=axes)
+        ax = tuple(range(len(shape))) if axes is None else axes
+        want = np.fft.rfftn(_host(x), axes=ax)
+        check(f"rfftn {shape} axes {axes}", X.cpu().numpy(), want)
+        z = vt.irfftn(X, s=tuple(shape[a] for a in ax), axes=axes)
+        check(f"irfftn {shape} axes {axes}", _host(z), _host(x))
+        assert torch.equal(x, keep), ("rfftn changed its input", shape)
+    for n in (262, 134):   # n/2 = 131 (Rader), 67 (a prime above 64)
+        try:
+            vt.rfft(vt.Planar(real((2, n)), real((2, n))))
+        except NotImplementedError as e:
+            assert "ROADMAP" in str(e), e
+            rows.append({"case": f"rfft n={n} refused", "message": str(e)})
+            continue
+        raise AssertionError(f"rfft n={n} is outside the slice but ran")
+    _log(f"[real routes] {len(rows)} cases, worst "
+         f"{max(r.get('rel_err', 0.0) for r in rows)}")
+    return {"cases": rows}
+
+
+def phase_real_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The real part of the main path, through the entry points a user
+    calls: bench.py's r2c row through FFTApplication (Planar in, real
+    planes out) and through rfft/irfft on a real tensor, and the real
+    256^3 cube through rfftn/irfftn."""
+    app = vt.FFTApplication(vt.FFTConfig(shape=(R2C_N,),
+                                         kind=vt.TransformKind.R2C))
+    x = _planes((R2C_LINES, R2C_N), 11, dev)[0]
+    xp = vt.Planar(x, torch.zeros_like(x))
+    cube = _planes(CUBE, 13, dev)[0]
+    cube_p = vt.Planar(cube, torch.zeros_like(cube))
+    keep = (x.clone(), cube.clone())
+    torch.cuda.synchronize()
+
+    def forward_inverse(fwd, inv, data):
+        spec = fwd(data)
+        return spec, inv(spec)
+
+    # each path with the counts from 0, held to the launches it must make:
+    # one real-lines launch per direction in 1-D, and for the cube one
+    # real-pair and one strided launch per direction
+    paths = (("1d_r2c_n1024", lambda: forward_inverse(app.forward,
+                                                      app.inverse, xp),
+              {"fft_r2c": 2}),
+             ("1d_r2c_n1024_public", lambda: forward_inverse(vt.rfft,
+                                                             vt.irfft, x),
+              {"fft_r2c": 2}),
+             ("3d_r2c_256^3", lambda: forward_inverse(vt.rfftn, vt.irfftn,
+                                                      cube_p),
+              {"fft_r2c_pair": 2, "fft_strided": 2}))
+    results, by_path, plain_calls = {}, {}, 0
+    for name, drive, want in paths:
+        ck.reset_launches()
+        torch_engine.calls = 0
+        results[name] = drive()
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_path[name] = got
+        plain_calls += torch_engine.calls
+        _log(f"[main r2c] {name}: launches {got}, plain engine calls "
+             f"{torch_engine.calls}")
+        assert got == {k: want.get(k, 0) for k in got}, (name, got, want)
+        assert torch_engine.calls == 0, (name, torch_engine.calls)
+    launches = {k: sum(c[k] for c in by_path.values()) for k in ck.launches}
+    assert torch.equal(x, keep[0]) and torch.equal(cube, keep[1])
+    Y, z = results["1d_r2c_n1024"]
+    Yt, zt = results["1d_r2c_n1024_public"]
+    Y3, Z3 = results["3d_r2c_256^3"]
+
+    rows = []
+    ref = torch.fft.rfft(x)
+    h = R2C_N // 2 + 1
+    for name, spec, back in (("1d_r2c_n1024", torch.complex(Y.re, Y.im), z),
+                             ("1d_r2c_n1024_public", Yt, zt)):
+        row = {"row": name, "shape": [R2C_LINES, R2C_N],
+               "rel_err_fwd_vs_torch_fft": _rel(spec, ref),
+               "rel_err_round_trip": _rel(back, x),
+               "finite": bool(torch.isfinite(spec).all()
+                              and torch.isfinite(back).all())}
+        _log(f"[main r2c] {row}")
+        assert row["finite"] and spec.shape == (R2C_LINES, h) \
+            and back.shape == x.shape, row
+        assert row["rel_err_fwd_vs_torch_fft"] <= NUMPY_TOL \
+            and row["rel_err_round_trip"] <= NUMPY_TOL, row
+        rows.append(row)
+    # the cube: torch.fft as the reference on the card, numpy on one plane
+    ref3 = torch.fft.rfftn(cube)
+    spec3 = torch.complex(Y3.re, Y3.im)
+    row = {"row": "3d_r2c_256^3", "shape": list(CUBE),
+           "rel_err_fwd_vs_torch_fft": _rel(spec3, ref3),
+           "rel_err_round_trip": _rel(Z3, cube),
+           "finite": bool(torch.isfinite(spec3).all()
+                          and torch.isfinite(Z3).all())}
+    del ref3
+    _log(f"[main r2c] {row}")
+    assert row["finite"] and Y3.shape == CUBE[:-1] + (CUBE[-1] // 2 + 1,) \
+        and Z3.shape == CUBE, row
+    assert row["rel_err_fwd_vs_torch_fft"] <= NUMPY_TOL \
+        and row["rel_err_round_trip"] <= NUMPY_TOL, row
+    rows.append(row)
+    return {"launches": launches, "launches_by_path": by_path,
+            "plain_engine_calls": plain_calls, "rows": rows}
+
+
+def phase_real_times(vt, ck, dev) -> dict:
+    """The real kernels at the main path's shapes (each held against its
+    plain version there), both layouts of fft_r2c, and the real round
+    trips, beside the HBM bound and torch.fft."""
+    _log(f"[time] card: {_smi()}")
+    kernels = {name: [] for name in R2C_KERNELS}
+    B, n = R2C_LINES, R2C_N
+    m = n // 2
+    x = _planes((B, n), 21, dev)[0]
+    for packed in (False, True):
+        w = m if packed else m + 1
+        nbytes = 4.0 * B * n + 8.0 * B * w
+        bound, by = _bound(nbytes, _fft_ops(B * m, m) + 10.0 * B * m)
+        yr, yi = ck.fft_r2c(x, packed)
+        err = _errors((yr, yi), ck.fft_r2c_plain(x, packed),
+                      ("fft_r2c", B, n, packed))
+        row = {"shape": [B, n], "direction": "r2c", "packed": packed,
+               "ms": _time_ms(lambda: ck.fft_r2c(x, packed)),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+               "plain_ms": _time_ms(lambda: ck.fft_r2c_plain(x, packed),
+                                    reps=5, inner=1, warmup=1),
+               "library_ms": _time_ms(lambda: torch.fft.rfft(x))}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] fft_r2c {row}")
+        kernels["fft_r2c"].append(row)
+        sr, si = yr, yi
+        z = ck.fft_c2r(sr, si, n, 2.0 / n, packed)
+        pz = ck.fft_c2r_plain(sr, si, n, 2.0 / n, packed)
+        rel = _rel(z, pz)
+        assert rel <= KERNEL_TOL, ("fft_c2r", packed, rel)
+        Xc = torch.complex(*(ck.packed_to_numpy_layout(sr, si) if packed
+                             else (sr, si)))
+        row = {"shape": [B, n], "direction": "c2r", "packed": packed,
+               "ms": _time_ms(lambda: ck.fft_c2r(sr, si, n, 2.0 / n, packed)),
+               "bound_ms": bound, "bound_by": by,
+               "max_abs_err": (z - pz).abs().max().item(),
+               "plain_ms": _time_ms(
+                   lambda: ck.fft_c2r_plain(sr, si, n, 2.0 / n, packed),
+                   reps=5, inner=1, warmup=1),
+               "library_ms": _time_ms(lambda: torch.fft.irfft(Xc, n=n))}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] fft_c2r {row}")
+        kernels["fft_r2c"].append(row)
+        del z, pz, Xc
+    del x
+    P, ny, nz = CUBE
+    h = nz // 2 + 1
+    cube = _planes(CUBE, 23, dev)[0]
+    nbytes = 4.0 * P * ny * nz + 8.0 * P * ny * h
+    ops = _fft_ops(P * ny * (nz // 2), ny * (nz // 2)) + 10.0 * P * ny * nz
+    bound, by = _bound(nbytes, ops)
+    yr, yi = ck.fft_r2c_pair(cube)
+    err = _errors((yr, yi), ck.fft_r2c_pair_plain(cube), ("fft_r2c_pair",))
+    row = {"shape": list(CUBE), "direction": "r2c",
+           "cluster": ck.r2c_pair_cluster(ny, nz),
+           "ms": _time_ms(lambda: ck.fft_r2c_pair(cube)), "bound_ms": bound,
+           "bound_by": by, "max_abs_err": err,
+           "plain_ms": _time_ms(lambda: ck.fft_r2c_pair_plain(cube), reps=5,
+                                inner=1, warmup=1),
+           "library_ms": _time_ms(lambda: torch.fft.rfft2(cube))}
+    row["GBs"] = nbytes / row["ms"] / 1e6
+    _log(f"[time] fft_r2c_pair {row}")
+    kernels["fft_r2c_pair"].append(row)
+    z = ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny, 2.0 / nz)
+    pz = ck.fft_c2r_pair_plain(yr, yi, nz, 1.0 / ny, 2.0 / nz)
+    rel = _rel(z, pz)
+    assert rel <= KERNEL_TOL, ("fft_c2r_pair", rel)
+    Xc = torch.complex(yr, yi)
+    row = {"shape": list(CUBE), "direction": "c2r",
+           "cluster": ck.r2c_pair_cluster(ny, nz),
+           "ms": _time_ms(lambda: ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny,
+                                                  2.0 / nz)),
+           "bound_ms": bound, "bound_by": by,
+           "max_abs_err": (z - pz).abs().max().item(),
+           "plain_ms": _time_ms(lambda: ck.fft_c2r_pair_plain(
+               yr, yi, nz, 1.0 / ny, 2.0 / nz), reps=5, inner=1, warmup=1),
+           "library_ms": _time_ms(lambda: torch.fft.irfft2(Xc, s=(ny, nz)))}
+    row["GBs"] = nbytes / row["ms"] / 1e6
+    _log(f"[time] fft_c2r_pair {row}")
+    kernels["fft_r2c_pair"].append(row)
+    del z, pz, Xc, yr, yi
+    # fft_strided on the main path's real cube: axis 0 of the (1, 256,
+    # 256*129) half spectrum, forward and unscaled inverse
+    shape = (1, P, ny * h)
+    sr, si = _planes(shape, 27, dev)
+    sc = torch.complex(sr, si)
+    nbytes = 16.0 * math.prod(shape)
+    bound, by = _bound(nbytes, _fft_ops(math.prod(shape), P))
+    kernels["fft_strided"] = []
+    for inverse in (False, True):
+        lib = torch.fft.ifft if inverse else torch.fft.fft
+        err = _errors(ck.fft_strided(sr, si, inverse),
+                      ck.fft_strided_plain(sr, si, inverse),
+                      ("fft_strided", shape, inverse))
+        row = {"shape": list(shape), "inverse": inverse,
+               "ms": _time_ms(lambda: ck.fft_strided(sr, si, inverse)),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+               "plain_ms": _time_ms(
+                   lambda: ck.fft_strided_plain(sr, si, inverse), reps=5,
+                   inner=1, warmup=1),
+               "library_ms": _time_ms(
+                   lambda: lib(sc, dim=1, norm="forward" if inverse
+                               else "backward"))}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] fft_strided {row}")
+        kernels["fft_strided"].append(row)
+    del sr, si, sc
+
+    e2e = []
+    app = vt.FFTApplication(vt.FFTConfig(shape=(n,), kind=vt.TransformKind.R2C))
+    x = _planes((B, n), 25, dev)[0]
+    xp = vt.Planar(x, torch.zeros_like(x))
+    nbytes = 2 * (4.0 * B * n + 8.0 * B * (m + 1))
+    bound, by = _bound(nbytes, 2 * _fft_ops(B * m, m))
+    tf = _time_ms(lambda: torch.fft.irfft(torch.fft.rfft(x), n=n))
+    for name, fn in (("1d_r2c_n1024", lambda: app.inverse(app.forward(xp))),
+                     ("1d_r2c_n1024_public", lambda: vt.irfft(vt.rfft(x)))):
+        row = {"row": name, "shape": [B, n], "ms": _time_ms(fn),
+               "bound_ms": bound, "bound_by": by, "torch_fft_ms": tf}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        row["vs_torch_fft"] = tf / row["ms"]
+        _log(f"[time] e2e {row}")
+        e2e.append(row)
+    del x, xp
+    cube_p = vt.Planar(cube, torch.zeros_like(cube))
+    points = math.prod(CUBE)
+    half = P * ny * h
+    # per direction: the pair pass (real plane + half spectrum) and the
+    # strided pass over the half spectrum (read + write of both planes)
+    nbytes = 2 * ((4.0 * points + 8.0 * half) + 16.0 * half)
+    bound, by = _bound(nbytes, 2 * _fft_ops(points // 2, points // 2))
+    row = {"row": "3d_r2c_256^3", "shape": list(CUBE),
+           "ms": _time_ms(lambda: vt.irfftn(vt.rfftn(cube_p))),
+           "bound_ms": bound, "bound_by": by, "axis_passes_per_dir": 2,
+           "torch_fft_ms": _time_ms(
+               lambda: torch.fft.irfftn(torch.fft.rfftn(cube), s=CUBE))}
+    row["GBs"] = nbytes / row["ms"] / 1e6
+    row["vs_torch_fft"] = row["torch_fft_ms"] / row["ms"]
+    _log(f"[time] e2e {row}")
+    e2e.append(row)
+    return {"kernels": kernels, "e2e": e2e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -441,9 +877,14 @@ def main() -> int:
     record = {}
     phases = [("toolchain", lambda: phase_toolchain(ck)),
               ("kernels", lambda: phase_kernels_vs_plain(ck, dev)),
+              ("real_kernels", lambda: phase_real_kernels_vs_plain(ck, dev)),
               ("routes", lambda: phase_routes(vt, dev)),
+              ("real_routes", lambda: phase_real_routes(vt, dev)),
               ("main_path", lambda: phase_main_path(vt, ck, torch_engine, dev)),
-              ("times", lambda: phase_times(vt, ck, dev))]
+              ("real_main_path",
+               lambda: phase_real_main_path(vt, ck, torch_engine, dev)),
+              ("times", lambda: phase_times(vt, ck, dev)),
+              ("real_times", lambda: phase_real_times(vt, ck, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -457,28 +898,44 @@ def main() -> int:
         torch.cuda.empty_cache()
     record["total_s"] = time.perf_counter() - t0
 
-    launches = record["main_path"]["launches"]
-    sources = {"fft_lines": ("vkfft_tpu_torch/csrc/fft_lines.cu",
-                             "vkfft_tpu/ops/pallas_engine.py:1563"),
+    # launches over the whole main path: the C2C part and each R2C path,
+    # each counted from 0
+    by_path = dict({"c2c": record["main_path"]["launches"]},
+                   **record["real_main_path"]["launches_by_path"])
+    launches = {k: sum(c[k] for c in by_path.values())
+                for k in ck.KERNEL_SOURCES}
+    pe = "vkfft_tpu/ops/pallas_engine.py"
+    sources = {"fft_lines": ("vkfft_tpu_torch/csrc/fft_lines.cu", f"{pe}:1563"),
                "fft_strided": ("vkfft_tpu_torch/csrc/fft_strided.cu",
-                               "vkfft_tpu/ops/pallas_engine.py:3489"),
-               "fft_pair": ("vkfft_tpu_torch/csrc/fft_pair.cu",
-                            "vkfft_tpu/ops/pallas_engine.py:1982")}
+                               f"{pe}:3489"),
+               "fft_pair": ("vkfft_tpu_torch/csrc/fft_pair.cu", f"{pe}:1982"),
+               "fft_r2c": ("vkfft_tpu_torch/csrc/fft_r2c.cu", f"{pe}:2461"),
+               "fft_r2c_pair": ("vkfft_tpu_torch/csrc/fft_r2c_pair.cu",
+                                f"{pe}:3204")}
     # the leading axis of the cube, which the JAX package runs in
-    # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view
-    also = {"fft_strided": ["vkfft_tpu/ops/pallas_engine.py:4001"]}
+    # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
+    # source holds both directions
+    also = {"fft_strided": [f"{pe}:4001"], "fft_r2c": [f"{pe}:2507"],
+            "fft_r2c_pair": [f"{pe}:3229"]}
+    timed = {k: record["times"]["kernels"].get(k, [])
+             + record["real_times"]["kernels"].get(k, [])
+             for k in ck.KERNEL_SOURCES}
     entries = []
-    for name, rows in record["times"]["kernels"].items():
+    for name, rows in timed.items():
         head = rows[0]
         entries.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "also_replaces": also.get(name, []),
             "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
     print(json.dumps({"kernels": entries}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -233,7 +233,7 @@ def test_cuda_route_refuses_options_outside_the_slice():
     with pytest.raises(NotImplementedError, match="item 8"):
         cuda_engine.fft_axis_p(x, 1, plan_axis(16), out_keep=4)
     refused = [
-        dict(kind=vt.TransformKind.R2C),
+        dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DCT),
         dict(precision=vt.Precision.DOUBLE),
         dict(precision=vt.Precision.BFLOAT16),

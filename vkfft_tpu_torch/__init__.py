@@ -10,6 +10,7 @@ modules.  Layer map:
                cuda_kernels (hand-written CUDA kernels for sm_90a, built
                with nvcc at first use) and cuda_engine (dispatch onto them)
   api        — FFTApplication and the functional C2C API
+  transforms/ — r2c: rfft/irfft, rfft2/irfft2, rfftn/irfftn
 """
 from vkfft_tpu_torch.config import (
     FFTConfig,
@@ -35,6 +36,14 @@ from vkfft_tpu_torch.api import (
     ifft2,
     fftn,
     ifftn,
+)
+from vkfft_tpu_torch.transforms.r2c import (
+    rfft,
+    irfft,
+    rfft2,
+    irfft2,
+    rfftn,
+    irfftn,
 )
 
 __version__ = "0.1.0"

@@ -1,22 +1,26 @@
-"""Application layer — plan/execute lifecycle, C2C core.
+"""Application layer — plan/execute lifecycle, C2C and R2C.
 
-Port of the C2C core of ``vkfft_tpu/api.py``: ``FFTApplication`` plans every
-transformed axis at construction (``initializeVkFFT``,
+Port of the C2C and R2C core of ``vkfft_tpu/api.py``: ``FFTApplication``
+plans every transformed axis at construction (``initializeVkFFT``,
 ``vkFFT_InitializeApp.h:1468``) and its ``forward``/``inverse`` walk the
 axes (``VkFFTAppend``, ``vkFFT_RunApp.h:79``), folding the inverse's 1/N
 into the last axis pass.  On an engine with a pair kernel
-(``pair_supports``) the two minor axes run as one pass.  The functional
-API (`fft`, `ifft`, ...) wraps a keyed application cache.
+(``pair_supports``) the two minor axes run as one pass.  The R2C kind runs
+`transforms.r2c.rfftn`/`irfftn` (``_real_transform``, ``api.py:293-315`` of
+the JAX package).  The functional API (`fft`, `ifft`, ...) wraps a keyed
+application cache.
 
 Engines: ``torch`` (`ops.torch_engine`, plain tensor ops) runs CPU tensors;
 ``cuda`` (`ops.cuda_engine`, the port's kernels) runs CUDA tensors.  With no
 engine named, each call picks by the device of its planes.  Host numpy
 input goes to the application's ``device``, ``"cuda"`` unless the caller
 asks for ``"cpu"``; without a CUDA device that raises rather than carry on
-on the CPU.
+on the CPU.  Host input becomes float32 planes, the SINGLE precision of
+every configuration the port takes (as the JAX package narrows it,
+``vkfft_tpu/api.py:804-808``); ``Planar`` and tensor input keep their dtype.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: R2C and R2R kinds, precisions other than SINGLE, zero-pad windows and
+item: R2R kinds, precisions other than SINGLE, zero-pad windows and
 keep_intermediate_order.
 """
 from __future__ import annotations
@@ -36,7 +40,7 @@ from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 ENGINES = ("torch", "cuda")
 
 
-def _engine(name: str):
+def get_engine(name: str):
     """Engine registry: 'torch' plain tensor ops, 'cuda' the kernels."""
     if name == "torch":
         from vkfft_tpu_torch.ops import torch_engine
@@ -52,7 +56,7 @@ def engine_for(x: Planar) -> str:
     return "cuda" if x.device.type == "cuda" else "torch"
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -66,9 +70,7 @@ def _check_slice(config: FFTConfig) -> None:
         raise InvalidConfigError(
             "convolution configs are executed by ConvolutionApplication "
             "(not ported yet: ROADMAP queue 1 item 7)")
-    if config.kind is TransformKind.R2C:
-        raise NotImplementedError("R2C is ROADMAP queue 1 item 5")
-    if config.kind is not TransformKind.C2C:
+    if config.kind not in (TransformKind.C2C, TransformKind.R2C):
         raise NotImplementedError("DCT/DST are ROADMAP queue 1 item 9")
     if config.precision is not Precision.SINGLE:
         raise NotImplementedError(
@@ -80,13 +82,19 @@ def _check_slice(config: FFTConfig) -> None:
             "keep_intermediate_order is ROADMAP queue 1 item 8")
 
 
-def _storages(x: Planar) -> set:
-    return {x.re.untyped_storage().data_ptr(),
-            x.im.untyped_storage().data_ptr()}
+def _storages(*ts: torch.Tensor) -> set:
+    return {t.untyped_storage().data_ptr() for t in ts}
+
+
+def owned_by_walk(*caller: torch.Tensor):
+    """A test of whether planes are an axis walk's own, so a pass may write
+    in place over them: a length-1 axis hands back the caller's planes."""
+    theirs = _storages(*caller)
+    return lambda y: _storages(y.re, y.im).isdisjoint(theirs)
 
 
 class FFTApplication:
-    """Planned, reusable C2C executor for a fixed configuration.
+    """Planned, reusable C2C or R2C executor for a fixed configuration.
 
     ``engine``: 'torch', 'cuda', or None to pick by the device of each
     call's planes.  ``device``: where host numpy input is placed."""
@@ -123,7 +131,7 @@ class FFTApplication:
                 f"input trailing shape {x.shape[-ndim:]} != configured "
                 f"{cfg.shape}")
         self._check_batch(x, ndim)
-        eng = _engine(self.engine_name or engine_for(x))
+        eng = get_engine(self.engine_name or engine_for(x))
         axes = cfg.axes if not inverse else tuple(reversed(cfg.axes))
         # in-kernel normalization: fold 1/N into the LAST inverse axis pass
         # (reference stageNormalization, ``vkFFT_RadixShuffle.h:49-65``)
@@ -132,13 +140,7 @@ class FFTApplication:
             for ax in cfg.axes:
                 norm_scale /= cfg.shape[ax]
         lead = x.ndim - ndim
-        caller = _storages(x)
-
-        def owned(y: Planar) -> bool:
-            # a pass may write in place only over planes the walk made
-            # itself (a length-1 axis hands back the caller's planes)
-            return _storages(y).isdisjoint(caller)
-
+        owned = owned_by_walk(x.re, x.im)
         ay, az = ndim - 2, ndim - 1
         pair_ok = getattr(eng, "pair_supports", None)
         if (pair_ok is not None and ay in cfg.axes and az in cfg.axes
@@ -163,23 +165,57 @@ class FFTApplication:
                                scale=s, donate=owned(x))
         return x
 
+    def _real_transform(self, x, inverse: bool):
+        """R2C execution (``_real_transform``, ``vkfft_tpu/api.py:293-315``):
+        the forward takes real data of the configured shape and returns the
+        half spectrum along the last configured axis; the inverse takes
+        that spectrum and returns real data, normalized by 1/N whatever
+        ``normalize`` says, as the JAX package's R2C inverse is."""
+        from vkfft_tpu_torch.transforms import r2c
+        cfg = self.config
+        ndim = len(cfg.shape)
+        if not isinstance(x, (Planar, torch.Tensor)):
+            x = np.asarray(x)
+        # negative axes relative to the trailing transform block, so leading
+        # batch dims pass through
+        axes = tuple(a - ndim for a in cfg.axes)
+        last = cfg.axes[-1]
+        want = list(cfg.shape)
+        if inverse:
+            want[last] = cfg.shape[last] // 2 + 1
+        if tuple(x.shape[-ndim:]) != tuple(want):
+            raise InvalidConfigError(
+                f"R2C {'inverse' if inverse else 'forward'} input trailing "
+                f"shape {tuple(x.shape[-ndim:])} != {tuple(want)}")
+        self._check_batch(x, ndim)
+        kw = dict(engine=self.engine_name, device=self.device)
+        if not inverse:
+            return r2c.rfftn(x, axes=axes, **kw)
+        return r2c.irfftn(x, s=tuple(cfg.shape[a] for a in cfg.axes),
+                          axes=axes, **kw)
+
     def _run(self, x, inverse: bool):
+        if self.config.kind is TransformKind.R2C:
+            return self._real_transform(x, inverse)
         if isinstance(x, Planar):
             return self._transform(x, inverse)
         if isinstance(x, torch.Tensor):
             return to_complex(self._transform(from_complex(x), inverse))
-        p = from_complex(np.asarray(x), _resolve_device(self.device))
+        p = from_complex(np.asarray(x), resolve_device(self.device))
         return to_numpy(self._transform(p, inverse))
 
     def forward(self, x):
         """``VkFFTAppend(app, -1, ...)`` analog.  Takes a ``Planar`` (result
         a ``Planar`` on the same device), a torch tensor (result a complex
         tensor on its device) or a host array (placed on ``device``, result
-        a numpy complex array)."""
+        a numpy complex array).  R2C: real data in (a ``Planar``'s real
+        plane), the half spectrum out."""
         return self._run(x, False)
 
     def inverse(self, x):
-        """``VkFFTAppend(app, 1, ...)`` analog (inverse transform)."""
+        """``VkFFTAppend(app, 1, ...)`` analog (inverse transform).  R2C:
+        the half spectrum in, real data out (a tensor, or a numpy array
+        for host input)."""
         return self._run(x, True)
 
 

@@ -1,5 +1,5 @@
 """CUDA execution engine: the dispatch half of
-``vkfft_tpu/ops/pallas_engine.py`` on the port's three kernels.
+``vkfft_tpu/ops/pallas_engine.py`` on the port's kernels.
 
 Routing is the port's own (none of the TPU's lane-tile gates): a DIRECT
 line length in the kernels' range runs `cuda_kernels.fft_lines` along the
@@ -7,7 +7,10 @@ minor axis and `cuda_kernels.fft_strided` along any other axis, in place on
 the (P, n, S) view, with no transposes.  The two minor axes together run
 `cuda_kernels.fft_pair` in one pass when `pair_supports` finds a cluster
 for their plane.  Lengths n <= 4 on the minor axis run as plain tensor
-butterflies, as ``pallas_engine._tiny_dft_p`` does.
+butterflies, as ``pallas_engine._tiny_dft_p`` does.  Real lines of even
+length run `cuda_kernels.fft_r2c`/`fft_c2r` where `r2c_supports` holds, and
+the two minor axes of real data `cuda_kernels.fft_r2c_pair` where
+`r2c_pair_supports` finds a cluster for their plane.
 
 Everything else raises ``NotImplementedError`` naming its ROADMAP item:
 Rader, Bluestein, SPLIT (the planner splits only around a Rader prime),
@@ -42,6 +45,15 @@ def pair_supports(ny: int, nz: int) -> bool:
             and ck.pair_cluster(ny, nz) is not None)
 
 
+r2c_supports = ck.r2c_supports
+
+
+def r2c_pair_supports(ny: int, nz: int) -> bool:
+    """Whether `rfft_pair_p`/`irfft_pair_p` run real (ny, nz) planes in one
+    kernel pass."""
+    return ck.r2c_pair_cluster(ny, nz) is not None
+
+
 def _check_plan(plan: AxisPlan) -> None:
     if supports(plan):
         return
@@ -53,7 +65,7 @@ def _check_plan(plan: AxisPlan) -> None:
         "ROADMAP queue 1 item 6 (kernels: queue 2)")
 
 
-def _check_dtype(x: Planar) -> None:
+def _check_dtype(x) -> None:
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"CUDA engine runs float32 planes; {x.dtype} is ROADMAP queue 1 "
@@ -161,3 +173,48 @@ def fft_pair_p(x: Planar, ny: int, nz: int, inverse: bool = False,
     rr, ii = ck.fft_pair(xr, xi, inverse, scale,
                          out=(xr, xi) if donate else None)
     return Planar(rr.reshape(shape), ii.reshape(shape))
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous real tensor the real kernels can read as float2 pairs
+    (a view may start at an odd float)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 8 == 0 else x.clone()
+
+
+def rfft_lines_p(x: torch.Tensor) -> Planar:
+    """numpy ``rfft`` (B, n/2+1) half spectrum of real (B, n) lines, n
+    even, through `fft_r2c`."""
+    _check_dtype(x)
+    return Planar(*ck.fft_r2c(_aligned(x)))
+
+
+def irfft_lines_p(X: Planar, n: int, scale: float = 1.0) -> torch.Tensor:
+    """Real (B, n) lines from their (B, n/2+1) half spectrum through
+    `fft_c2r`, scaled by (n/2)*``scale``."""
+    _check_dtype(X)
+    X = X.contiguous()
+    return ck.fft_c2r(X.re, X.im, n, scale)
+
+
+def rfft_pair_p(x: torch.Tensor) -> Planar:
+    """numpy ``rfft2`` over the two minor axes of real (..., ny, nz) data
+    in one `fft_r2c_pair` pass."""
+    _check_dtype(x)
+    *lead, ny, nz = x.shape
+    yr, yi = ck.fft_r2c_pair(_aligned(x).reshape(-1, ny, nz))
+    h = nz // 2 + 1
+    return Planar(yr.reshape(*lead, ny, h), yi.reshape(*lead, ny, h))
+
+
+def irfft_pair_p(X: Planar, nz: int, scale_y: float = 1.0,
+                 scale_z: float = 1.0) -> torch.Tensor:
+    """Real (..., ny, nz) data from the half spectrum of its two minor
+    axes in one `fft_c2r_pair` pass, scaled by ny*``scale_y`` *
+    (nz/2)*``scale_z``."""
+    _check_dtype(X)
+    *lead, ny, h = X.shape
+    X = X.contiguous()
+    y = ck.fft_c2r_pair(X.re.reshape(-1, ny, h), X.im.reshape(-1, ny, h),
+                        nz, scale_y, scale_z)
+    return y.reshape(*lead, ny, nz)

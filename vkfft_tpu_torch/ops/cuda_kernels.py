@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their plain versions, and the build.
 
-Three kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
+Five kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
 
 * `fft_lines` (``csrc/fft_lines.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``: batched C2C of
@@ -15,17 +15,28 @@ Three kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``: 2-D C2C of the two
   minor axes of (B, ny, nz) fp32 planes in one pass, a plane held in the
   shared memory of a thread-block cluster.
+* `fft_r2c` / `fft_c2r` (``csrc/fft_r2c.cu``) replace
+  ``vkfft_tpu/ops/pallas_engine.py:2461 _r2c_kernel`` and ``:2507
+  _c2r_kernel``: real (B, n) lines, n even, to their half spectrum in the
+  numpy or the packed layout, and back, as an n/2-point complex FFT and an
+  in-place untangle.
+* `fft_r2c_pair` / `fft_c2r_pair` (``csrc/fft_r2c_pair.cu``) replace
+  ``vkfft_tpu/ops/pallas_engine.py:3204 _r2c_pair_kernel`` and ``:3229
+  _c2r_pair_kernel``: numpy ``rfft2``/``irfft2`` of the two minor axes of
+  real (B, ny, nz) planes in one pass, a plane held in a cluster.
 
-All three are bound by bytes (one read and one write of each point) and
-keep every stage of a line or column tile in shared memory; the source
-notes in the ``.cu`` files say how.  They take any 2 <= n <= 8192 whose
-prime factors are all <= 64 (`kernel_radices`), a superset-equal of the JAX
-package's ``_v3_plan`` coverage; `fft_pair` takes the planes `pair_cluster`
-finds a cluster for.
+All are bound by bytes (one read and one write of each point) and keep
+every stage of a line or column tile in shared memory; the source notes in
+the ``.cu`` files say how.  They take any 2 <= n <= 8192 whose prime
+factors are all <= 64 (`kernel_radices`), a superset-equal of the JAX
+package's ``_v3_plan`` coverage, and the real kernels every even n whose
+n/2 that is (`r2c_supports`); `fft_pair` and `fft_r2c_pair` take the planes
+`pair_cluster` and `r2c_pair_cluster` find a cluster for.
 
 Each wrapper checks its tensors, then runs the plain version when they lie
 on the CPU and launches the kernel when they lie on a CUDA device; there is
-no other fallback.  `launches` counts kernel launches per wrapper.
+no other fallback.  `launches` counts kernel launches per source, where
+the wrappers launch.
 
 Build: at first use, ``nvcc`` compiles each ``.cu`` into its own shared
 library with a C interface (all sources at once, in parallel) under
@@ -61,7 +72,8 @@ _BUTTERFLY_RADICES = (2, 4, 8)
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair")
+KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
+                  "fft_r2c_pair")
 # Shared memory per block of `fft_pair` (two buffers of its share of a
 # plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
 # as a block of `fft_lines`), or else to its largest size, as long as a
@@ -116,6 +128,23 @@ def kernel_supports(n: int) -> bool:
     return kernel_radices(n) is not None
 
 
+def r2c_supports(n: int) -> bool:
+    """Whether `fft_r2c`/`fft_c2r` take real lines of length n: n even and
+    n/2 a length the stages take (n up to 16384)."""
+    return n % 2 == 0 and kernel_supports(n // 2)
+
+
+def _cluster(ny: int, cols: int) -> Optional[int]:
+    """Blocks of a cluster that holds ny x cols complex points (see
+    PAIR_BLOCK_BYTES), each block ny/C rows or cols/C columns, or None."""
+    fits = [c for c in PAIR_CLUSTERS if ny % c == 0 and cols % c == 0
+            and 16 * ny * cols // c <= PAIR_MAX_BLOCK_BYTES]
+    for c in fits:
+        if 16 * ny * cols // c <= PAIR_BLOCK_BYTES:
+            return c
+    return fits[-1] if fits else None
+
+
 @functools.lru_cache(maxsize=1024)
 def pair_cluster(ny: int, nz: int) -> Optional[int]:
     """Blocks of the cluster that holds one (ny, nz) plane in `fft_pair`
@@ -123,12 +152,18 @@ def pair_cluster(ny: int, nz: int) -> Optional[int]:
     is outside the kernels' range."""
     if not (kernel_supports(ny) and kernel_supports(nz)):
         return None
-    fits = [c for c in PAIR_CLUSTERS if ny % c == 0 and nz % c == 0
-            and 16 * ny * nz // c <= PAIR_MAX_BLOCK_BYTES]
-    for c in fits:
-        if 16 * ny * nz // c <= PAIR_BLOCK_BYTES:
-            return c
-    return fits[-1] if fits else None
+    return _cluster(ny, nz)
+
+
+@functools.lru_cache(maxsize=1024)
+def r2c_pair_cluster(ny: int, nz: int) -> Optional[int]:
+    """Blocks of the cluster that holds one real (ny, nz) plane in
+    `fft_r2c_pair`: the rule of `pair_cluster` on its (ny, nz/2) complex
+    points, or None when nz is odd, an axis is outside the kernels' range
+    or the plane does not fit."""
+    if not (nz % 2 == 0 and kernel_supports(ny) and kernel_supports(nz // 2)):
+        return None
+    return _cluster(ny, nz // 2)
 
 
 def _unsupported(n: int) -> NotImplementedError:
@@ -173,16 +208,27 @@ def stage_tables(n: int, inverse: bool, scale: float = 1.0):
     return tuple(ints), np.concatenate(parts)
 
 
-# Device copies of the tables, per (n, inverse, scale, device).
+@functools.lru_cache(maxsize=256)
+def r2c_tables(n: int, inverse: bool, scale: float = 1.0):
+    """(plan ints, complex128 table, post offset) of the real kernels for
+    even length n: the n/2-point `stage_tables` followed, at ``post``, by
+    the untangle's w^k = e^{-2 pi i k / n} for k <= n/4 (the inverse
+    conjugates them in the kernel)."""
+    ints, stages = stage_tables(n // 2, inverse, scale)
+    post = np.exp(-2j * np.pi / n * np.arange(n // 4 + 1))
+    return ints, np.concatenate([stages, post]), len(stages)
+
+
+# Device copies of the tables, per (real, n, inverse, scale, device).
 _DEVICE_TABLES: dict = {}
 
 
 def _device_table(n: int, inverse: bool, scale: float,
-                  device: torch.device) -> torch.Tensor:
-    key = (n, inverse, scale, str(device))
+                  device: torch.device, real: bool = False) -> torch.Tensor:
+    key = (real, n, inverse, scale, str(device))
     tab = _DEVICE_TABLES.get(key)
     if tab is None:
-        _, t = stage_tables(n, inverse, scale)
+        t = (r2c_tables if real else stage_tables)(n, inverse, scale)[1]
         host = np.stack([t.real, t.imag], axis=-1).astype(np.float32)
         tab = torch.from_numpy(host).to(device)
         _DEVICE_TABLES[key] = tab
@@ -226,6 +272,32 @@ def fft_pair_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                              inverse)
     return fft_strided_plain(zr.reshape(B, ny, nz), zi.reshape(B, ny, nz),
                              inverse, scale)
+
+
+def fft_r2c_plain(x: torch.Tensor, packed: bool = False):
+    """Plain torch version of `fft_r2c` (`torch_engine.rfft_lines_plain`)."""
+    y = torch_engine.rfft_lines_plain(x, packed)
+    return y.re, y.im
+
+
+def fft_c2r_plain(re: torch.Tensor, im: torch.Tensor, n: int,
+                  scale: float = 1.0, packed: bool = False) -> torch.Tensor:
+    """Plain torch version of `fft_c2r`."""
+    return torch_engine.irfft_lines_plain(Planar(re, im), n, scale, packed)
+
+
+def fft_r2c_pair_plain(x: torch.Tensor):
+    """Plain torch version of `fft_r2c_pair`."""
+    y = torch_engine.rfft2_pair_plain(x)
+    return y.re, y.im
+
+
+def fft_c2r_pair_plain(re: torch.Tensor, im: torch.Tensor, nz: int,
+                       scale_y: float = 1.0,
+                       scale_z: float = 1.0) -> torch.Tensor:
+    """Plain torch version of `fft_c2r_pair`."""
+    return torch_engine.irfft2_pair_plain(Planar(re, im), nz, scale_y,
+                                          scale_z)
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +374,18 @@ def build_kernels() -> dict:
 
 _LIBS: dict = {}
 
+# C entry points of each library and their arguments before the stream
+# (p: pointer, q: 64-bit int, i: int).
+_ENTRIES = {
+    "fft_lines": {"fft_lines": "ppppqpp"},
+    "fft_strided": {"fft_strided": "ppppqqpp"},
+    "fft_pair": {"fft_pair": "ppppqppppi"},
+    "fft_r2c": {"fft_r2c": "pppqippi", "fft_c2r": "pppqippi"},
+    "fft_r2c_pair": {"fft_r2c_pair": "pppqppppii",
+                     "fft_c2r_pair": "pppqppppii"},
+}
+_CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
+
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
@@ -309,19 +393,32 @@ def _library(name: str) -> ctypes.CDLL:
         return lib
     path = build_kernels()[name]
     lib = ctypes.CDLL(path)
-    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
-    fn = getattr(lib, "vk_" + name)
-    if name == "fft_lines":
-        fn.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
-    elif name == "fft_strided":
-        fn.argtypes = [vp, vp, vp, vp, i64, i64, vp, vp, vp]
-    else:
-        fn.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, ctypes.c_int, vp]
-    fn.restype = ctypes.c_int
+    for entry, sig in _ENTRIES[name].items():
+        fn = getattr(lib, "vk_" + entry)
+        fn.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.vk_error_string.argtypes = [ctypes.c_int]
     lib.vk_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib
+
+
+def _launch(name: str, entry: str, device: torch.device, args) -> None:
+    """One launch of C entry ``vk_<entry>`` of library ``name`` on the
+    current stream of ``device``; tensors pass as their data pointers and
+    ctypes arrays by address.  Raises on a refused launch and counts it
+    in `launches` otherwise."""
+    lib = _library(name)
+    c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
+              else a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, "vk_" + entry)(*c_args, stream)
+    if err:
+        msg = lib.vk_error_string(err).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
+    launches[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -334,19 +431,37 @@ def _check_planes(re, im, ndim: int, what: str) -> None:
     if re.shape != im.shape or re.ndim != ndim:
         raise ValueError(f"{what}: planes must both be {ndim}-D of one shape, "
                          f"got {tuple(re.shape)} and {tuple(im.shape)}")
-    if re.dtype != torch.float32 or im.dtype != torch.float32:
-        raise TypeError(f"{what}: planes must be float32, got {re.dtype}/"
-                        f"{im.dtype} (other precisions are ROADMAP queue 1 "
-                        "item 10)")
+    for t in (re, im):
+        _check_real(t, ndim, what)
     if re.device != im.device:
         raise ValueError(f"{what}: planes on {re.device} and {im.device}")
-    if not (re.is_contiguous() and im.is_contiguous()):
+
+
+def _check_real(x, ndim: int, what: str) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what}: input must be a torch tensor")
+    if x.ndim != ndim:
+        raise ValueError(f"{what}: input must be {ndim}-D, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: planes must be float32, got {x.dtype} "
+                        "(other precisions are ROADMAP queue 1 item 10)")
+    if not x.is_contiguous():
         raise ValueError(f"{what}: planes must be contiguous")
 
 
 def _check_length(n: int) -> None:
     if not kernel_supports(n):
         raise _unsupported(n)
+
+
+def _check_r2c_length(n: int) -> None:
+    if not r2c_supports(n):
+        raise NotImplementedError(
+            f"real length {n} is outside the real kernels' range (n even, "
+            f"n/2 a length of the CUDA kernels: 2 <= n/2 <= {KERNEL_MAX_N}, "
+            f"prime factors <= {KERNEL_MAX_PRIME}); other lengths are "
+            "ROADMAP queue 1 item 6")
 
 
 def _check_out(re, out) -> None:
@@ -363,11 +478,19 @@ def _plan(n: int, inverse: bool, scale: float, device: torch.device):
             _device_table(n, inverse, scale, device))
 
 
+def _r2c_plan(n: int, inverse: bool, scale: float, device: torch.device):
+    """(plan ints as a C array, device table, post offset) of a real axis
+    of even length n for a launch."""
+    ints, _, post = r2c_tables(n, inverse, scale)
+    return ((ctypes.c_int * len(ints))(*ints),
+            _device_table(n, inverse, scale, device, real=True), post)
+
+
 def _run(name: str, plain, re, im, inverse: bool, scale: float, out,
          kernel_args):
-    """Shared body of the wrappers: the plain version for CPU planes, one
-    kernel launch for CUDA planes.  ``kernel_args()`` gives the kernel's
-    arguments between the four plane pointers and the stream."""
+    """Shared body of the C2C wrappers: the plain version for CPU planes,
+    one kernel launch for CUDA planes.  ``kernel_args()`` gives the
+    kernel's arguments between the four plane pointers and the stream."""
     if out is not None:
         _check_out(re, out)
     if re.device.type == "cpu":
@@ -381,20 +504,7 @@ def _run(name: str, plain, re, im, inverse: bool, scale: float, out,
                                           torch.empty_like(im))
     if re.numel() == 0:
         return yr, yi
-    lib = _library(name)
-    args = kernel_args()
-    c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
-              else a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args]
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = getattr(lib, "vk_" + name)(
-            re.data_ptr(), im.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            *c_args, stream)
-    if err:
-        msg = lib.vk_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-    launches[name] += 1
+    _launch(name, name, re.device, [re, im, yr, yi, *kernel_args()])
     return yr, yi
 
 
@@ -461,10 +571,7 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     _check_length(nz)
     cluster = pair_cluster(ny, nz)
     if cluster is None:
-        raise NotImplementedError(
-            f"a ({ny}, {nz}) plane does not fit a cluster of fft_pair "
-            "(at most 16 blocks of 128 KB); larger planes are ROADMAP queue "
-            "2 item 3")
+        raise _no_cluster("fft_pair", ny, nz)
 
     def args():
         plan_y, table_y = _plan(ny, inverse, scale, re.device)
@@ -472,3 +579,150 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         return (B, plan_y, plan_z, table_y, table_z, cluster)
 
     return _run("fft_pair", fft_pair_plain, re, im, inverse, scale, out, args)
+
+
+def _no_cluster(what: str, ny: int, nz: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"a ({ny}, {nz}) plane does not fit a cluster of {what} (at most 16 "
+        "blocks of 128 KB); larger planes are ROADMAP queue 2 item 3")
+
+
+def _check_aligned(x: torch.Tensor, what: str) -> None:
+    """The real kernels read a line as float2 pairs: 8-byte alignment."""
+    if x.device.type != "cpu" and x.data_ptr() % 8:
+        raise ValueError(f"{what}: the real input must be 8-byte aligned "
+                         "(pass a fresh contiguous tensor)")
+
+
+def _check_spectrum(re, im, n: int, packed: bool, what: str) -> None:
+    want = n // 2 if packed else n // 2 + 1
+    if re.shape[-1] != want:
+        raise ValueError(f"{what}: a{' packed' if packed else ''} half "
+                         f"spectrum of length {n} has {want} bins, got "
+                         f"{re.shape[-1]}")
+
+
+def fft_r2c(x: torch.Tensor, packed: bool = False):
+    """Half spectrum (re, im) of each real line of (B, n) float32 ``x``, n
+    even: numpy ``rfft`` values as (B, n/2+1) planes with Im(DC) and
+    Im(Nyquist) exactly 0, or with ``packed`` (B, n/2) planes holding the
+    real Nyquist bin in Im(bin 0).  CPU tensors run `fft_r2c_plain`; CUDA
+    tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:2461 _r2c_kernel``.  Bound by
+    bytes (4 B a real point read, 8 B a bin written); a block reads its
+    lines as float2 pairs, runs the n/2-point stages in shared memory and
+    untangles there (``csrc/fft_r2c.cu``)."""
+    _check_real(x, 2, "fft_r2c")
+    B, n = x.shape
+    _check_r2c_length(n)
+    _check_aligned(x, "fft_r2c")
+    if x.device.type == "cpu":
+        return fft_r2c_plain(x, packed)
+    w = n // 2 if packed else n // 2 + 1
+    yr, yi = x.new_empty((B, w)), x.new_empty((B, w))
+    if B:
+        plan, table, post = _r2c_plan(n, False, 1.0, x.device)
+        _launch("fft_r2c", "fft_r2c", x.device,
+                [x, yr, yi, B, int(packed), plan, table, post])
+    return yr, yi
+
+
+def fft_c2r(re: torch.Tensor, im: torch.Tensor, n: int, scale: float = 1.0,
+            packed: bool = False) -> torch.Tensor:
+    """Real (B, n) float32 lines from their half spectrum planes, (B,
+    n/2+1) or ``packed`` (B, n/2), scaled by (n/2)*``scale`` (``scale=2/n``
+    gives numpy ``irfft``).  Im(DC) and Im(Nyquist) are not read, as numpy
+    ignores them.  CPU tensors run `fft_c2r_plain`; CUDA tensors launch the
+    kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:2507 _c2r_kernel``; bound and
+    design as `fft_r2c`, backwards (``csrc/fft_r2c.cu``)."""
+    _check_planes(re, im, 2, "fft_c2r")
+    _check_r2c_length(n)
+    _check_spectrum(re, im, n, packed, "fft_c2r")
+    if re.device.type == "cpu":
+        return fft_c2r_plain(re, im, n, scale, packed)
+    B = re.shape[0]
+    y = re.new_empty((B, n))
+    if B:
+        plan, table, post = _r2c_plan(n, True, scale, re.device)
+        _launch("fft_r2c", "fft_c2r", re.device,
+                [re, im, y, B, int(packed), plan, table, post])
+    return y
+
+
+def packed_to_numpy_layout(re: torch.Tensor, im: torch.Tensor):
+    """(B, m) packed half spectrum -> (B, m+1) numpy ``rfft`` layout
+    (``pallas_engine.py:2712``)."""
+    nyq = im[:, :1]
+    zero = torch.zeros_like(nyq)
+    return (torch.cat([re, nyq], -1), torch.cat([zero, im[:, 1:], zero], -1))
+
+
+def numpy_to_packed_layout(re: torch.Tensor, im: torch.Tensor):
+    """(B, m+1) numpy ``rfft`` layout -> (B, m) packed half spectrum, the
+    imaginary parts of DC and Nyquist dropped (``pallas_engine.py:2721``)."""
+    return re[:, :-1], torch.cat([re[:, -1:], im[:, 1:-1]], -1)
+
+
+def fft_r2c_pair(x: torch.Tensor):
+    """numpy ``rfft2`` (re, im) of the two minor axes of real (B, ny, nz)
+    float32 ``x``, nz even, as (B, ny, nz/2+1) planes, in one pass.  CPU
+    tensors run `fft_r2c_pair_plain`; CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:3204 _r2c_pair_kernel``.
+    Bound by bytes (4 B a real point, 8 B a bin, for both axes); a cluster
+    of `r2c_pair_cluster` blocks holds each plane, runs the rows as real
+    lines, gathers column tiles over distributed shared memory and runs the
+    y stages there, the DC and Nyquist columns riding one complex column
+    (``csrc/fft_r2c_pair.cu``)."""
+    _check_real(x, 3, "fft_r2c_pair")
+    B, ny, nz = x.shape
+    cluster = _pair_gate(ny, nz)
+    _check_aligned(x, "fft_r2c_pair")
+    if x.device.type == "cpu":
+        return fft_r2c_pair_plain(x)
+    yr = x.new_empty((B, ny, nz // 2 + 1))
+    yi = torch.empty_like(yr)
+    if B:
+        plan_y, table_y = _plan(ny, False, 1.0, x.device)
+        plan_z, table_z, post = _r2c_plan(nz, False, 1.0, x.device)
+        _launch("fft_r2c_pair", "fft_r2c_pair", x.device,
+                [x, yr, yi, B, plan_y, plan_z, table_y, table_z, post,
+                 cluster])
+    return yr, yi
+
+
+def fft_c2r_pair(re: torch.Tensor, im: torch.Tensor, nz: int,
+                 scale_y: float = 1.0, scale_z: float = 1.0) -> torch.Tensor:
+    """Real (B, ny, nz) float32 planes from their (B, ny, nz/2+1) half
+    spectrum, in one pass, scaled by ny*``scale_y`` * (nz/2)*``scale_z``
+    (``scale_y=1/ny``, ``scale_z=2/nz`` give numpy ``irfft2``).  CPU
+    tensors run `fft_c2r_pair_plain`; CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:3229 _c2r_pair_kernel``;
+    bound and design as `fft_r2c_pair`, backwards."""
+    _check_planes(re, im, 3, "fft_c2r_pair")
+    B, ny, _ = re.shape
+    cluster = _pair_gate(ny, nz)
+    _check_spectrum(re, im, nz, False, "fft_c2r_pair")
+    if re.device.type == "cpu":
+        return fft_c2r_pair_plain(re, im, nz, scale_y, scale_z)
+    y = re.new_empty((B, ny, nz))
+    if B:
+        plan_y, table_y = _plan(ny, True, scale_y, re.device)
+        plan_z, table_z, post = _r2c_plan(nz, True, scale_z, re.device)
+        _launch("fft_r2c_pair", "fft_c2r_pair", re.device,
+                [re, im, y, B, plan_y, plan_z, table_y, table_z, post,
+                 cluster])
+    return y
+
+
+def _pair_gate(ny: int, nz: int) -> int:
+    _check_length(ny)
+    _check_r2c_length(nz)
+    cluster = r2c_pair_cluster(ny, nz)
+    if cluster is None:
+        raise _no_cluster("fft_r2c_pair", ny, nz)
+    return cluster

@@ -22,14 +22,15 @@ import numpy as np
 import torch
 
 from vkfft_tpu_torch import luts
-from vkfft_tpu_torch.pcomplex import Planar, planar_table
+from vkfft_tpu_torch.pcomplex import Planar, mul_i, mul_neg_i, planar_table
 from vkfft_tpu_torch.planner.factorize import Algorithm
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 
-# Calls of `fft_lines_p`, the function every transform of this engine runs
-# through: a run that must stay on the kernels reads it to show that the
-# plain engine was not reached.  The kernels' plain versions enter below it
-# (`lines_plain`) and are not counted.
+# Calls of `fft_lines_p`, `rfft_lines_p` and `irfft_lines_p`, the functions
+# every transform of this engine runs through: a run that must stay on the
+# kernels reads it to show that the plain engine was not reached.  The
+# kernels' plain versions enter below them (`lines_plain`,
+# `rfft_lines_plain`, ...) and are not counted.
 calls = 0
 
 
@@ -147,6 +148,102 @@ def lines_plain(x: Planar, plan: AxisPlan, inverse: bool = False,
     if inverse:  # RADER: the inverse by conjugation
         return lines_plain(x.conj(), plan, False).conj()
     return _fft_rader_p(x, plan, tabs)
+
+
+# ---------------------------------------------------------------------------
+# Real transforms of even n as a half-size complex FFT (``r2c.py:168-182``
+# and ``:224-235`` of the JAX package, reference ``vkFFT_Plan_R2C.h:30``):
+# z[j] = x[2j] + i x[2j+1] runs an m = n/2 point C2C, then the untangle
+# E = (Z[k] + conj Z[m-k])/2, O = -i (Z[k] - conj Z[m-k])/2,
+# X[k] = E + w_n^k O.  These are the plain versions of the CUDA kernels
+# `fft_r2c`/`fft_c2r` and `fft_r2c_pair` and run under `lines_plain`, so they
+# do not count in `calls`; `rfft_lines_p`/`irfft_lines_p` below are the
+# engine's counted entry points.
+# ---------------------------------------------------------------------------
+
+def rfft_lines_plain(x: torch.Tensor, packed: bool = False) -> Planar:
+    """Half spectrum of real (B, n) lines, n even and >= 4: numpy ``rfft``
+    values as (B, n/2+1) planes with Im(DC) = Im(Nyquist) = 0, or with
+    ``packed`` (B, n/2) planes holding the real Nyquist bin in Im(bin 0)."""
+    B, n = x.shape
+    m = n // 2
+    Z = lines_plain(Planar(x[:, 0::2], x[:, 1::2]), plan_axis(m))
+    Zk = Z[:, np.arange(m + 1) % m]
+    Zr = Z[:, (-np.arange(m + 1)) % m].conj()
+    E = (Zk + Zr) * 0.5
+    O = mul_neg_i((Zk - Zr) * 0.5)
+    X = E + planar_table(luts.r2c_post_twiddle(n), x.dtype, x.device)[None] * O
+    if packed:
+        return Planar(X.re[:, :m].contiguous(),
+                      torch.cat([X.re[:, m:], X.im[:, 1:m]], 1))
+    zero = X.im[:, :1] * 0
+    return Planar(X.re, torch.cat([zero, X.im[:, 1:m], zero], 1))
+
+
+def irfft_lines_plain(X: Planar, n: int, scale: float = 1.0,
+                      packed: bool = False) -> torch.Tensor:
+    """Real (B, n) lines from their (B, n/2+1) half spectrum (or the
+    ``packed`` (B, n/2) form), scaled by (n/2)*``scale``: ``scale=2/n``
+    gives numpy ``irfft``.  Im(DC) and Im(Nyquist) are ignored, as numpy
+    ignores them."""
+    m = n // 2
+    dc = X.re[:, :1]
+    nyq = X.im[:, :1] if packed else X.re[:, m:m + 1]
+    zero = dc * 0
+    F = Planar(torch.cat([dc, X.re[:, 1:m], nyq], 1),
+               torch.cat([zero, X.im[:, 1:m], zero], 1))
+    Xk = F[:, :m]
+    Xr = F[:, m - np.arange(m)].conj()
+    E = (Xk + Xr) * 0.5
+    tw = planar_table(np.conj(luts.r2c_post_twiddle(n))[:m], X.dtype, X.device)
+    O = tw[None] * ((Xk - Xr) * 0.5)
+    z = lines_plain(E + mul_i(O), plan_axis(m), True, scale)
+    return torch.stack([z.re, z.im], -1).reshape(-1, n)
+
+
+def _lines_along_y(x: Planar, inverse: bool, scale: float = 1.0) -> Planar:
+    """`lines_plain` along the middle axis of (B, ny, nz) planes."""
+    B, ny, nz = x.shape
+    t = Planar(x.re.transpose(1, 2).reshape(B * nz, ny),
+               x.im.transpose(1, 2).reshape(B * nz, ny))
+    y = lines_plain(t, plan_axis(ny), inverse, scale)
+    return Planar(y.re.reshape(B, nz, ny).transpose(1, 2).contiguous(),
+                  y.im.reshape(B, nz, ny).transpose(1, 2).contiguous())
+
+
+def rfft2_pair_plain(x: torch.Tensor) -> Planar:
+    """numpy ``rfft2`` of real (B, ny, nz) planes, nz even and >= 4: the
+    real transform along z, then the complex one along y."""
+    B, ny, nz = x.shape
+    X = rfft_lines_plain(x.reshape(B * ny, nz)).reshape(B, ny, nz // 2 + 1)
+    return _lines_along_y(X, False)
+
+
+def irfft2_pair_plain(X: Planar, nz: int, scale_y: float = 1.0,
+                      scale_z: float = 1.0) -> torch.Tensor:
+    """Real (B, ny, nz) planes from their (B, ny, nz/2+1) half spectrum,
+    scaled by ny*``scale_y`` * (nz/2)*``scale_z``: the complex inverse
+    along y, then the real one along z (``scale_y=1/ny``,
+    ``scale_z=2/nz`` give numpy ``irfft2``)."""
+    B, ny, h = X.shape
+    Y = _lines_along_y(X, True, scale_y).reshape(B * ny, h)
+    return irfft_lines_plain(Y, nz, scale_z).reshape(B, ny, nz)
+
+
+def rfft_lines_p(x: torch.Tensor) -> Planar:
+    """The engine's real transform of (B, n) lines, n even and >= 4, to
+    the numpy (B, n/2+1) half spectrum."""
+    global calls
+    calls += 1
+    return rfft_lines_plain(x)
+
+
+def irfft_lines_p(X: Planar, n: int, scale: float = 1.0) -> torch.Tensor:
+    """The engine's inverse real transform of (B, n/2+1) half spectra to
+    (B, n) lines, n even and >= 4, scaled by (n/2)*``scale``."""
+    global calls
+    calls += 1
+    return irfft_lines_plain(X, n, scale)
 
 
 def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,

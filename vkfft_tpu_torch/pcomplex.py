@@ -49,6 +49,7 @@ class Planar:
         return Planar(self.re.contiguous(), self.im.contiguous())
 
     def __getitem__(self, idx):
+        idx = _torch_index(idx, self.shape, self.re.device)
         return Planar(self.re[idx], self.im[idx])
 
     # -- arithmetic --------------------------------------------------------
@@ -75,9 +76,32 @@ class Planar:
         return Planar(self.re, -self.im)
 
 
+def _torch_index(idx, shape, device):
+    """A numpy-style index as torch takes it: integer arrays become index
+    tensors on ``device``, and slices with a negative step (which torch
+    refuses) become the index tensors of the positions they pick."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    named = sum(1 for e in idx if e is not None and e is not Ellipsis)
+    out, d = [], 0
+    for e in idx:
+        if e is Ellipsis:
+            d += len(shape) - named
+        elif e is not None:
+            if isinstance(e, slice) and e.step is not None and e.step < 0:
+                e = np.arange(shape[d])[e]
+            if isinstance(e, (np.ndarray, list)):
+                e = torch.as_tensor(np.array(e), device=device)
+            d += 1
+        out.append(e)
+    return tuple(out)
+
+
 def from_complex(x, device=None) -> Planar:
-    """Complex array -> planes.  numpy input is placed on ``device`` (CPU
-    when None); a torch tensor keeps its own device."""
+    """Complex array -> planes.  A torch tensor keeps its own device and
+    dtype; host input becomes float32 planes on ``device`` (CPU when None),
+    the SINGLE precision of every configuration the port takes, as the JAX
+    package narrows host input at its boundary (``vkfft_tpu/api.py:804-808``)."""
     if isinstance(x, Planar):
         return x
     if isinstance(x, torch.Tensor):
@@ -85,10 +109,8 @@ def from_complex(x, device=None) -> Planar:
             return Planar(x.real.contiguous(), x.imag.contiguous())
         return Planar(x.contiguous(), torch.zeros_like(x))
     x = np.asarray(x)
-    if not np.iscomplexobj(x):
-        x = x.astype(np.complex64 if x.dtype != np.float64 else np.complex128)
-    dt = np.float32 if x.dtype == np.complex64 else np.float64
-    return from_numpy_planar(x.real.astype(dt), x.imag.astype(dt), device)
+    return from_numpy_planar(np.real(x).astype(np.float32),
+                             np.imag(x).astype(np.float32), device)
 
 
 def from_numpy_planar(re: np.ndarray, im: np.ndarray, device=None) -> Planar:
@@ -118,3 +140,18 @@ def planar_table(tab: np.ndarray, dtype=torch.float32, device=None) -> Planar:
     """Host complex constant table -> planar tensors on ``device``."""
     return Planar(torch.as_tensor(np.real(tab), dtype=dtype, device=device),
                   torch.as_tensor(np.imag(tab), dtype=dtype, device=device))
+
+
+def mul_i(p: Planar) -> Planar:
+    """Multiply by +i: (a+bi)*i = -b + ai."""
+    return Planar(-p.im, p.re)
+
+
+def mul_neg_i(p: Planar) -> Planar:
+    """Multiply by -i."""
+    return Planar(p.im, -p.re)
+
+
+def real_planar(x: torch.Tensor) -> Planar:
+    """Wrap a real tensor as a planar complex with zero imaginary part."""
+    return Planar(x, torch.zeros_like(x))
