@@ -31,7 +31,18 @@ Phases (each asserts; any failure exits non-zero before the result line):
      strided kernel also on the real cube's (1, 256, 33024) half spectrum,
      both directions), held against its plain version there (<= 1e-5 of
      max|ref|), and each end-to-end round trip, beside the HBM-bandwidth
-     bound and the torch.fft time of the same function.
+     bound and the torch.fft time of the same function;
+  5. lengths of any size: fft_conv, fft_twofactor, fft_conv_inv and
+     fft_conv_pair against their plain versions at every third length
+     they serve on the routes of the 1-D plans of 5..16384 (and numpy on
+     a subset); every third n in 5..16384, and named ones, through
+     vt.fft/vt.ifft against numpy, where none may raise (SWEEP_STRIDE = 1
+     takes every length); Rader and Bluestein non-minor axes; rfft/irfft
+     of the half-length route;
+  6. the reference's sample 7 (n = 10007 Bluestein, 7919 Rader, 10006
+     SPLIT, 10240 DIRECT; 64 MiB each) through FFTApplication, each row
+     counted from 0 and held to its exact launches, then the four new
+     kernels at those shapes and the rows' round trips timed as in 4.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -258,7 +269,7 @@ def phase_routes(vt, dev) -> dict:
     yc = vt.fft(xc)
     assert yc.is_complex() and yc.device == xc.device
     assert _rel(yc, torch.fft.fft(xc)) <= NUMPY_TOL
-    for n in (131, 263, 67):
+    for n in (20480, 65537):   # the long tier
         p = vt.Planar(*_planes((2, n), n, dev))
         try:
             vt.fft(p)
@@ -617,7 +628,7 @@ def phase_real_routes(vt, dev) -> dict:
         z = vt.irfftn(X, s=tuple(shape[a] for a in ax), axes=axes)
         check(f"irfftn {shape} axes {axes}", _host(z), _host(x))
         assert torch.equal(x, keep), ("rfftn changed its input", shape)
-    for n in (262, 134):   # n/2 = 131 (Rader), 67 (a prime above 64)
+    for n in (40960, 65542):   # n/2 = 20480, 32771: the long tier
         try:
             vt.rfft(vt.Planar(real((2, n)), real((2, n))))
         except NotImplementedError as e:
@@ -857,12 +868,447 @@ def phase_real_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# Lengths of any size: Rader, Bluestein, SPLIT and the two-factor tier.
+# ---------------------------------------------------------------------------
+
+def _served(ce) -> dict:
+    """The lengths each new kernel serves on the routes of every 1-D plan
+    of length 5..16384 (SPLIT factors included), as the engine's `route`
+    names them: fft_conv's Rader primes and Bluestein (n, m),
+    fft_twofactor's lengths, fft_conv_inv's Rader primes and Bluestein
+    (n, m), fft_conv_pair's Bluestein (n, m)."""
+    from vkfft_tpu_torch.planner.factorize import Algorithm
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    out = {"conv_rader": set(), "conv_blu": set(), "twofactor": set(),
+           "conv_inv_rader": set(), "conv_inv_blu": set(), "conv_pair": set()}
+    for n in range(5, 16385):
+        for kernel, plan, m in ce.route(plan_axis(n)) or ():
+            rader = plan.algorithm is Algorithm.RADER
+            case = plan.n if rader else (plan.n, m)
+            if kernel == "fft_twofactor":
+                out["twofactor"].add(m)
+            elif kernel == "fft_conv":
+                out["conv_rader" if rader else "conv_blu"].add(case)
+            elif kernel == "fft_conv_inv":
+                out["conv_inv_rader" if rader else "conv_inv_blu"].add(case)
+            elif kernel == "fft_conv_pair":
+                out["conv_pair"].add(case)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _host_planes(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+# The sweeps below take every SWEEP_STRIDE-th length (and the last), so the
+# whole run stays near three minutes of command time on the H100; with a
+# stride of 1 they take every length (16380 route lengths and 7122 kernel
+# cases, 227-269 s on their own on an H100 80GB HBM3 at 700 W; PERF.md).
+SWEEP_STRIDE = 3
+
+
+def _every_stride(items: list) -> list:
+    picked = items[::SWEEP_STRIDE]
+    if items and (len(items) - 1) % SWEEP_STRIDE:
+        picked.append(items[-1])
+    return picked
+
+
+def phase_any_kernels_vs_plain(ck, ce, dev) -> dict:
+    """fft_conv, fft_twofactor, fft_conv_inv and fft_conv_pair against
+    their plain versions at every SWEEP_STRIDE-th length they serve (batch
+    2; fft_twofactor cycles through both orders and both directions from
+    one length to the next), one odd batch each, and numpy fp64 on a
+    subset."""
+    from vkfft_tpu_torch import luts
+    served = _served(ce)
+    count = {"fft_conv": len(served["conv_rader"]) + len(served["conv_blu"]),
+             "fft_twofactor": len(served["twofactor"]),
+             "fft_conv_inv": len(served["conv_inv_rader"])
+             + len(served["conv_inv_blu"]),
+             "fft_conv_pair": len(served["conv_pair"])}
+    served = {k: _every_stride(v) for k, v in served.items()}
+    out = {k: {"lengths": c, "checked": 0, "worst": 0.0, "worst_numpy": 0.0}
+           for k, c in count.items()}
+    t0 = time.perf_counter()
+
+    def check(kernel, what, got, plain, want=None):
+        err = _rel(torch.complex(*got), torch.complex(*plain))
+        assert err <= KERNEL_TOL, (kernel, what, err)
+        out[kernel]["checked"] += 1
+        out[kernel]["worst"] = max(out[kernel]["worst"], err)
+        if want is not None:
+            e = _numpy_rel(_host(got[0]) + 1j * _host(got[1]), want)
+            assert e <= NUMPY_TOL, (kernel, what, "numpy", e)
+            out[kernel]["worst_numpy"] = max(out[kernel]["worst_numpy"], e)
+
+    def planes(shape, seed):
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in _host_planes(shape, seed))
+
+    def numpy_of(x):
+        return _host(x[0]) + 1j * _host(x[1])
+
+    # fft_conv: Rader's p-1 (scalar table) and Bluestein's m it holds
+    for i, p in enumerate(served["conv_rader"]):
+        B = 33 if i == 0 else 2
+        x = planes((B, p - 1), p)
+        spec = ck.rader_spectrum(p, 1.0, dev)
+        want = None
+        if i % 50 == 0:
+            # the unnormalized inverse of the spectrum times b / (p - 1)
+            want = np.fft.ifft(np.fft.fft(numpy_of(x))
+                               * luts.rader_tables(p)[2])
+        check("fft_conv", ("rader", p), ck.fft_conv(*x, spec),
+              ck.fft_conv_plain(*x, spec), want)
+    for i, (n, m) in enumerate(served["conv_blu"]):
+        inverse = bool(i % 2)
+        x = planes((33 if i == 0 else 2, n), n)
+        spec = ck.bluestein_spectrum(n, m, inverse, 1.0, dev)
+        chirp = ck.bluestein_chirp(n, m, inverse, dev)
+        want = None
+        if i % 25 == 0:
+            want = (np.fft.ifft(numpy_of(x)) * n if inverse
+                    else np.fft.fft(numpy_of(x)))
+        check("fft_conv", ("bluestein", n, m), ck.fft_conv(*x, spec, chirp),
+              ck.fft_conv_plain(*x, spec, chirp), want)
+    # fft_twofactor: every length it serves, orders and directions in turn
+    for i, n in enumerate(served["twofactor"]):
+        inverse, swapped = bool(i % 2), bool((i // 2) % 2)
+        scale = 1.0 / n if inverse else 1.0
+        x = planes((33 if i == 0 else 2, n), n)
+        want = None
+        if i % 100 == 0 and not swapped:
+            want = (np.fft.ifft(numpy_of(x)) if inverse
+                    else np.fft.fft(numpy_of(x)))
+        check("fft_twofactor", (n, inverse, swapped),
+              ck.fft_twofactor(*x, inverse, scale, swapped),
+              ck.fft_twofactor_plain(*x, inverse, scale, swapped), want)
+    # fft_conv_inv: Rader's p-1 with the x0 term, Bluestein's m without
+    for i, p in enumerate(served["conv_inv_rader"]):
+        B = 33 if i == 0 else 2
+        x = planes((B, p - 1), p)
+        dc = tuple(t.contiguous() for t in planes((B,), p + 1))
+        spec = ck.rader_spectrum(p, 1.0, dev, "swapped")
+        want = None
+        if i % 25 == 0:
+            # x is a spectrum in the swapped order: back to natural order,
+            # times b, the unnormalized inverse over p - 1 points, plus dc
+            n1, n2 = ck.twofactor_split(p - 1)
+            natural = numpy_of(x).reshape(B, n2, n1).transpose(0, 2, 1)
+            want = (np.fft.ifft(natural.reshape(B, p - 1)
+                                * luts.rader_tables(p)[2])
+                    + numpy_of(dc)[:, None])
+        check("fft_conv_inv", ("rader", p), ck.fft_conv_inv(*x, spec, dc),
+              ck.fft_conv_inv_plain(*x, spec, dc), want)
+    for n, m in served["conv_inv_blu"]:
+        x = planes((2, m), m)
+        spec = ck.bluestein_spectrum(n, m, False, 1.0, dev, "swapped")
+        check("fft_conv_inv", ("bluestein", n, m), ck.fft_conv_inv(*x, spec),
+              ck.fft_conv_inv_plain(*x, spec))
+    # fft_conv_pair: every Bluestein n it serves
+    for i, (n, m) in enumerate(served["conv_pair"]):
+        inverse = bool(i % 2)
+        x = planes((33 if i == 0 else 2, n), n)
+        spec = ck.bluestein_spectrum(n, m, inverse, 1.0, dev, "pair")
+        chirp = ck.bluestein_chirp(n, m, inverse, dev)
+        want = None
+        if i % 100 == 0:
+            want = (np.fft.ifft(numpy_of(x)) * n if inverse
+                    else np.fft.fft(numpy_of(x)))
+        check("fft_conv_pair", (n, m), ck.fft_conv_pair(*x, spec, chirp),
+              ck.fft_conv_pair_plain(*x, spec, chirp), want)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    _log(f"[any kernels] {out}")
+    return out
+
+
+# the lengths in 5..16384 that raise on the card: none; the long tier
+# (DIRECT n > 16384, Bluestein padded beyond 2^16) starts above 16384
+LONG_TIER_TO_16384 = ()
+# every SWEEP_STRIDE-th length, and always sample 7's, sample 14's up to
+# 16384 (vkfft_tpu/cli.py:323), the lengths the JAX package sends to its
+# long tier (8133) or to its TypeError (8215, 8246), and the last one
+ROUTE_LENGTHS = sorted(set(range(5, 16385, SWEEP_STRIDE))
+                       | {10007, 7919, 10006, 10240, 17, 31, 61, 67, 97, 101,
+                          257, 641, 1009, 919, 8133, 8215, 8246, 16384})
+
+
+def phase_any_routes(vt, ce, dev) -> dict:
+    """The lengths of ROUTE_LENGTHS in 5..16384 through vt.fft/vt.ifft on
+    the card (batch 2) against numpy fp64, with the round trip; the lengths
+    that raise must be exactly the long tier's.  Then Rader and Bluestein
+    axes as non-minor
+    axes of fftn/FFTApplication, and rfft/irfft of n = 262, 15838, 20014
+    (the half-length route), against numpy."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    t0 = time.perf_counter()
+    raised, worst = [], {"fwd": 0.0, "round_trip": 0.0}
+    for n in ROUTE_LENGTHS:
+        xr, xi = _host_planes((2, n), n)
+        x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
+        try:
+            y = vt.fft(x)
+        except NotImplementedError as e:
+            assert "queue 2 item 7" in str(e), (n, e)
+            assert not ce.supports(plan_axis(n)), n
+            raised.append(n)
+            continue
+        z = vt.ifft(y)
+        h = torch.stack([y.re, y.im, z.re, z.im]).double().cpu().numpy()
+        xc = xr.astype(np.float64) + 1j * xi
+        e_f = _numpy_rel(h[0] + 1j * h[1], np.fft.fft(xc))
+        e_r = _numpy_rel(h[2] + 1j * h[3], xc)
+        assert e_f <= NUMPY_TOL and e_r <= NUMPY_TOL, (n, e_f, e_r)
+        worst["fwd"] = max(worst["fwd"], e_f)
+        worst["round_trip"] = max(worst["round_trip"], e_r)
+    _log(f"[any routes] {len(ROUTE_LENGTHS)} lengths in 5..16384 (every "
+         f"{SWEEP_STRIDE}th and named ones): "
+         f"{len(ROUTE_LENGTHS) - len(raised)} lengths run, "
+         f"{len(raised)} raise {raised}, worst {worst}, "
+         f"{time.perf_counter() - t0:.1f} s")
+    assert tuple(raised) == LONG_TIER_TO_16384, raised
+    for n in (16400, 20480, 32771):
+        try:
+            vt.fft(vt.Planar(*_planes((2, n), n, dev)))
+        except NotImplementedError as e:
+            assert "queue 2 item 7" in str(e), e
+            continue
+        raise AssertionError(f"n={n} is in the long tier but ran")
+    cases = []
+
+    def check(what, got, want):
+        err = _numpy_rel(got, want)
+        cases.append({"case": what, "rel_err": err})
+        assert err <= NUMPY_TOL, (what, err)
+
+    for shape, axes in (((6, 131), None), ((131, 8, 4), None),
+                        ((3, 263, 12), (1, 2)), ((10007, 2), (0,))):
+        xr, xi = _host_planes(shape, sum(shape))
+        x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
+        keep = (x.re.clone(), x.im.clone())
+        ax = tuple(range(len(shape))) if axes is None else axes
+        xc = xr.astype(np.float64) + 1j * xi
+        y = vt.fftn(x, axes=axes)
+        check(f"fftn {shape} axes {axes}", _host(y.re) + 1j * _host(y.im),
+              np.fft.fftn(xc, axes=ax))
+        z = vt.ifftn(y, axes=axes)
+        check(f"ifftn {shape} axes {axes}", _host(z.re) + 1j * _host(z.im), xc)
+        assert torch.equal(x.re, keep[0]) and torch.equal(x.im, keep[1]), shape
+    app = vt.FFTApplication(vt.FFTConfig(shape=(263, 12), normalize=True))
+    xr, xi = _host_planes((2, 263, 12), 5)
+    x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
+    xc = xr.astype(np.float64) + 1j * xi
+    y = app.forward(x)
+    check("FFTApplication (263, 12)", _host(y.re) + 1j * _host(y.im),
+          np.fft.fftn(xc, axes=(1, 2)))
+    z = app.inverse(y)
+    check("FFTApplication (263, 12) inverse", _host(z.re) + 1j * _host(z.im),
+          xc)
+    for n in (262, 15838, 20014):
+        xh = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+        X = vt.rfft(torch.from_numpy(xh).to(dev))
+        want = np.fft.rfft(xh.astype(np.float64))
+        check(f"rfft n={n}", X.cpu().numpy(), want)
+        check(f"irfft n={n}", _host(vt.irfft(X, n=n)), xh.astype(np.float64))
+        bent = want.copy()
+        bent[:, 0] += 3j
+        bent[:, -1] -= 2j
+        got = vt.irfft(torch.from_numpy(bent.astype(np.complex64)).to(dev), n=n)
+        check(f"irfft n={n} Im(DC/Nyquist)", _host(got),
+              np.fft.irfft(bent, n=n))
+    _log(f"[any routes] {len(cases)} axis and real cases, worst "
+         f"{max(c['rel_err'] for c in cases)}")
+    return {"lengths_run": len(ROUTE_LENGTHS) - len(raised), "raised": raised,
+            "worst": worst, "cases": cases,
+            "seconds": time.perf_counter() - t0}
+
+
+SAMPLE_7 = (10007, 7919, 10006, 10240)    # vkfft_tpu/cli.py:251-260
+SAMPLE_7_BYTES = 64 * 1024 * 1024         # cli.py:139-171 batches to 64 MiB
+SAMPLE_7_LAUNCHES = {10007: {"fft_conv_pair": 2},
+                     7919: {"fft_twofactor": 2, "fft_conv_inv": 2},
+                     10006: {"fft_conv": 2},
+                     10240: {"fft_twofactor": 2}}
+
+
+def _sample_7_batch(n: int) -> int:
+    return SAMPLE_7_BYTES // (8 * n)
+
+
+def phase_any_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The reference's sample 7 on the card: each row at 64 MiB of planar
+    fp32 data, forward then inverse through FFTApplication(normalize=False),
+    the counts set to 0 just before each row and read just after; each row
+    must make exactly its launches and no plain-engine call."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    rows, by_row = [], {}
+    for n in SAMPLE_7:
+        B = _sample_7_batch(n)
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=False))
+        x = vt.Planar(*_planes((B, n), n, dev))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        y = app.forward(x)
+        z = app.inverse(y)
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_row[f"sample7_n{n}"] = got
+        want = SAMPLE_7_LAUNCHES[n]
+        _log(f"[main any] n={n}: launches {got}, plain engine calls "
+             f"{torch_engine.calls}")
+        assert got == {k: want.get(k, 0) for k in got}, (n, got, want)
+        assert torch_engine.calls == 0, (n, torch_engine.calls)
+        xc = torch.complex(x.re, x.im)
+        row = {"row": f"sample7_n{n}", "shape": [B, n],
+               "plan": plan_axis(n).algorithm.value,
+               "rel_err_fwd_vs_torch_fft": _rel(torch.complex(y.re, y.im),
+                                                torch.fft.fft(xc)),
+               "rel_err_round_trip": _rel(torch.complex(z.re, z.im) / n, xc),
+               "finite": _finite(y, z)}
+        _log(f"[main any] {row}")
+        assert row["finite"] and y.shape == x.shape and z.shape == x.shape, row
+        assert row["rel_err_fwd_vs_torch_fft"] <= NUMPY_TOL \
+            and row["rel_err_round_trip"] <= NUMPY_TOL, row
+        rows.append(row)
+        del x, y, z, xc
+    launches = {k: sum(c[k] for c in by_row.values()) for k in ck.launches}
+    return {"launches": launches, "launches_by_path": by_row,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def _cmul_ops(count: float) -> float:
+    return 6.0 * count
+
+
+def phase_any_times(vt, ck, dev) -> dict:
+    """The four new kernels at the main path's shapes (each held against
+    its plain version there) and sample 7's round trips, beside the bound
+    and torch.fft on the same data."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    _log(f"[time] card: {_smi()}")
+    kernels = {k: [] for k in ("fft_conv", "fft_twofactor", "fft_conv_inv",
+                               "fft_conv_pair")}
+
+    def row_of(name, shape, fn, plain, nbytes, ops, library, extra=None):
+        got = fn()
+        err = _errors(got, plain(), (name, shape))
+        bound, by = _bound(nbytes, ops)
+        row = dict(extra or {})
+        row.update({"shape": list(shape), "ms": _time_ms(fn),
+                    "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                    "plain_ms": _time_ms(plain, reps=5, inner=1, warmup=1),
+                    "library_ms": library and _time_ms(library)})
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] {name} {row}")
+        kernels[name].append(row)
+
+    # fft_conv: the 10006 row's Rader 5003 on (2 * 838, 5002), scalar table
+    B, p = 2 * _sample_7_batch(10006), 5003
+    m = p - 1
+    xr, xi = _planes((B, m), 31, dev)
+    spec = ck.rader_spectrum(p, 1.0, dev)
+    xc = torch.complex(xr, xi)
+    row_of("fft_conv", (B, m), lambda: ck.fft_conv(xr, xi, spec),
+           lambda: ck.fft_conv_plain(xr, xi, spec),
+           16.0 * B * m + 8.0 * m,
+           B * (2 * _fft_ops(m, m) + _cmul_ops(m)), None,
+           {"mode": "rader p=5003",
+            "torch_fft_ms": _time_ms(lambda: torch.fft.fft(xc))})
+    del xr, xi, xc
+    # fft_twofactor: the 10240 row (natural both ways), and the 7919 row's
+    # forward in swapped order on (1059, 7918)
+    for n, B, inverse, swapped in ((10240, _sample_7_batch(10240), False, False),
+                                   (10240, _sample_7_batch(10240), True, False),
+                                   (7918, _sample_7_batch(7919), False, True)):
+        xr, xi = _planes((B, n), n + inverse, dev)
+        xc = torch.complex(xr, xi)
+        lib = torch.fft.ifft if inverse else torch.fft.fft
+        row_of("fft_twofactor", (B, n),
+               lambda: ck.fft_twofactor(xr, xi, inverse, 1.0, swapped),
+               lambda: ck.fft_twofactor_plain(xr, xi, inverse, 1.0, swapped),
+               16.0 * B * n + 8.0 * n, B * (_fft_ops(n, n) + _cmul_ops(n)),
+               None if swapped else (lambda: lib(xc, norm="forward")
+                                     if inverse else lib(xc)),
+               {"inverse": inverse, "swapped": swapped,
+                "split": list(ck.twofactor_split(n))})
+        del xr, xi, xc
+    # fft_conv_inv: the 7919 row's multiply and inverse with the x0 term
+    B, p = _sample_7_batch(7919), 7919
+    m = p - 1
+    xr, xi = _planes((B, m), 37, dev)
+    dc = tuple(t.contiguous() for t in _planes((B,), 38, dev))
+    spec = ck.rader_spectrum(p, 1.0, dev, "swapped")
+    xc = torch.complex(xr, xi)
+    row_of("fft_conv_inv", (B, m), lambda: ck.fft_conv_inv(xr, xi, spec, dc),
+           lambda: ck.fft_conv_inv_plain(xr, xi, spec, dc),
+           16.0 * B * m + 8.0 * m + 8.0 * B,
+           B * (_fft_ops(m, m) + _cmul_ops(2 * m) + 2 * m), None,
+           {"mode": "rader p=7919, dc",
+            "torch_fft_ms": _time_ms(lambda: torch.fft.ifft(xc))})
+    del xr, xi, xc
+    # fft_conv_pair: the 10007 row's forward, m = 32768.  The function is
+    # an n-point DFT of each line: its bound counts 5 n log2 n operations
+    # a line, not the two m-point FFTs of the padded length the planner
+    # chose; those stand apart as algorithm_ops_ms
+    n = 10007
+    B, m = _sample_7_batch(n), plan_axis(n).decomp.bluestein_size
+    blu_ops = B * (2 * _fft_ops(m, m) + _cmul_ops(2 * n + 3 * m))
+    xr, xi = _planes((B, n), 41, dev)
+    spec = ck.bluestein_spectrum(n, m, False, 1.0, dev, "pair")
+    chirp = ck.bluestein_chirp(n, m, False, dev)
+    xc = torch.complex(xr, xi)
+    row_of("fft_conv_pair", (B, n),
+           lambda: ck.fft_conv_pair(xr, xi, spec, chirp),
+           lambda: ck.fft_conv_pair_plain(xr, xi, spec, chirp),
+           16.0 * B * n + 8.0 * (2 * m + n), _fft_ops(B * n, n),
+           lambda: torch.fft.fft(xc),
+           {"m": m, "plane": list(ck.conv_pair_plan(m)),
+            "algorithm_ops_ms": blu_ops / FP32_FLOP_PER_S * 1e3})
+    del xr, xi, xc
+
+    e2e = []
+    for n in SAMPLE_7:
+        B = _sample_7_batch(n)
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=False))
+        x = vt.Planar(*_planes((B, n), n + 1, dev))
+        xc = torch.complex(x.re, x.im)
+        plan = plan_axis(n)
+        # cli.py's nominal bytes (fwd + inv, one read and one write) and
+        # the nominal 5 n log2 n operations of an n-point DFT a line and
+        # direction; the two FFTs of the convolution length that Rader
+        # (n - 1) or Bluestein (the padded m) run stand apart
+        nbytes = 4 * 8.0 * B * n
+        bound, by = _bound(nbytes, 2 * _fft_ops(B * n, n))
+        core = {"bluestein": plan.decomp.bluestein_size, "rader": n - 1}.get(
+            plan.algorithm.value)
+        ms = _time_ms(lambda: app.inverse(app.forward(x)))
+        row = {"row": f"sample7_n{n}", "shape": [B, n],
+               "plan": plan.algorithm.value, "ms": ms,
+               "GBs": nbytes / ms / 1e6, "bound_ms": bound, "bound_by": by,
+               "algorithm_ops_ms": core and 2 * B * 2 * _fft_ops(core, core)
+               / FP32_FLOP_PER_S * 1e3,
+               "torch_fft_ms": _time_ms(
+                   lambda: torch.fft.ifft(torch.fft.fft(xc), norm="forward"))}
+        row["vs_torch_fft"] = row["torch_fft_ms"] / ms
+        _log(f"[time] e2e {row}")
+        e2e.append(row)
+        del x, xc
+    return {"kernels": kernels, "e2e": e2e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
         import vkfft_tpu_torch as vt
+        from vkfft_tpu_torch.ops import cuda_engine as ce
         from vkfft_tpu_torch.ops import cuda_kernels as ck
         from vkfft_tpu_torch.ops import torch_engine
     except ImportError as e:
@@ -884,7 +1330,12 @@ def main() -> int:
               ("real_main_path",
                lambda: phase_real_main_path(vt, ck, torch_engine, dev)),
               ("times", lambda: phase_times(vt, ck, dev)),
-              ("real_times", lambda: phase_real_times(vt, ck, dev))]
+              ("real_times", lambda: phase_real_times(vt, ck, dev)),
+              ("any_kernels", lambda: phase_any_kernels_vs_plain(ck, ce, dev)),
+              ("any_routes", lambda: phase_any_routes(vt, ce, dev)),
+              ("any_main_path",
+               lambda: phase_any_main_path(vt, ck, torch_engine, dev)),
+              ("any_times", lambda: phase_any_times(vt, ck, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -901,7 +1352,8 @@ def main() -> int:
     # launches over the whole main path: the C2C part and each R2C path,
     # each counted from 0
     by_path = dict({"c2c": record["main_path"]["launches"]},
-                   **record["real_main_path"]["launches_by_path"])
+                   **record["real_main_path"]["launches_by_path"],
+                   **record["any_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -911,7 +1363,14 @@ def main() -> int:
                "fft_pair": ("vkfft_tpu_torch/csrc/fft_pair.cu", f"{pe}:1982"),
                "fft_r2c": ("vkfft_tpu_torch/csrc/fft_r2c.cu", f"{pe}:2461"),
                "fft_r2c_pair": ("vkfft_tpu_torch/csrc/fft_r2c_pair.cu",
-                                f"{pe}:3204")}
+                                f"{pe}:3204"),
+               "fft_conv": ("vkfft_tpu_torch/csrc/fft_conv.cu", f"{pe}:4579"),
+               "fft_twofactor": ("vkfft_tpu_torch/csrc/fft_twofactor.cu",
+                                 f"{pe}:897"),
+               "fft_conv_inv": ("vkfft_tpu_torch/csrc/fft_conv_inv.cu",
+                                f"{pe}:4421"),
+               "fft_conv_pair": ("vkfft_tpu_torch/csrc/fft_conv_pair.cu",
+                                 f"{pe}:2205")}
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
     # source holds both directions
@@ -919,6 +1378,7 @@ def main() -> int:
             "fft_r2c_pair": [f"{pe}:3229"]}
     timed = {k: record["times"]["kernels"].get(k, [])
              + record["real_times"]["kernels"].get(k, [])
+             + record["any_times"]["kernels"].get(k, [])
              for k in ck.KERNEL_SOURCES}
     entries = []
     for name, rows in timed.items():

@@ -375,15 +375,17 @@ def test_cuda_route_leaves_inputs_unchanged():
         assert torch.equal(p.re, keep.re) and torch.equal(p.im, keep.im)
 
 
-@pytest.mark.parametrize("n", [262, 134, 16386, 2 * 263])
+# even n whose n/2 is a long-tier length (DIRECT above 16384, Bluestein
+# padded beyond 2^16); other even n run the half-length route on the card
+@pytest.mark.parametrize("n", [32800, 40960, 65542, 33000])
 def test_cuda_route_refuses_real_lengths_outside_the_slice(n):
     x = torch.from_numpy(_real((2, n), seed=n))
     assert not cuda_engine.r2c_supports(n)
     calls = torch_engine.calls
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
         vt.rfft(x, engine="cuda")
     X = vt.rfft(x)   # the CPU route runs every length
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
         vt.irfft(X, n=n, engine="cuda")
     assert torch_engine.calls == calls + 1
     assert _rel(vt.irfft(X, n=n).numpy(), x.numpy()) <= NUMPY_TOL

@@ -1,5 +1,5 @@
-// Shared-memory Stockham FFT stages for the port's two kernels
-// (fft_lines.cu, fft_strided.cu), built for sm_90a.
+// Shared-memory Stockham FFT stages for the port's kernels (fft_lines.cu,
+// fft_strided.cu and every kernel built on them), built for sm_90a.
 //
 // A block holds `lines` complex sequences of length n in shared memory as
 // float2 (re, im).  Element k of sequence q sits at smem[q*qs + k*es]:
@@ -13,8 +13,9 @@
 // the radices already done and M the remaining length, a radix-r stage with
 // Mp = M / r maps
 //     A'[(i*L + l)*Mp + m] = w_M^(i*m) * sum_j w_r^(i*j) * A[l*r*Mp + j*Mp + m]
-// for i, j < r, l < L, m < Mp.  One thread computes one butterfly (l, m):
-// r reads, an r-point DFT in registers, r twiddled writes.
+// for i, j < r, l < L, m < Mp.  For radices 2..8 one thread computes one
+// butterfly (l, m): r reads, an r-point DFT in registers, r twiddled
+// writes; for larger primes one thread computes one output i of it.
 //
 // All constants come from one host table, computed in fp64 and cast to
 // fp32 (no __sinf/__cosf): per stage an (r, Mp) twiddle block at tw_off,
@@ -189,8 +190,11 @@ __device__ void stage_fixed(const float2* src, float2* dst, int lines, int qs,
   }
 }
 
-// Any other radix (the primes 11..61): each output is an r-term sum read
-// straight from shared memory, O(r^2) work per butterfly.
+// Any other radix (the primes 11..127): each output is an r-term sum read
+// straight from shared memory, O(r^2) work per butterfly.  One thread
+// takes one output i of one butterfly, the butterfly index fastest, so a
+// stage of few butterflies (a prime factor that is a whole line, or most
+// of it) still spreads over the block.
 template <bool SEQ_FAST>
 __device__ void stage_generic(const float2* src, float2* dst, int lines, int qs,
                               int es, int R, int L, int Mp, const float2* tw,
@@ -198,24 +202,24 @@ __device__ void stage_generic(const float2* src, float2* dst, int lines, int qs,
   const int total = lines * L * Mp;
   const int in_step = Mp * es;
   const int out_step = L * Mp * es;
-  for (int b = threadIdx.x; b < total; b += blockDim.x) {
+  for (int t = threadIdx.x; t < total * R; t += blockDim.x) {
+    const int i = t / total;
+    const int b = t - i * total;
     int q, l, m;
     split_index<SEQ_FAST>(b, lines, L, Mp, q, l, m);
     const float2* s = src + q * qs + (l * R * Mp + m) * es;
-    float2* d = dst + q * qs + (l * Mp + m) * es;
-    for (int i = 0; i < R; ++i) {
-      float2 acc = s[0];
-      int k = 0;
-      for (int j = 1; j < R; ++j) {
-        k += i;
-        if (k >= R) k -= R;
-        float2 x = s[j * in_step];
-        float2 t = __ldg(&w[k]);
-        acc.x = fmaf(x.x, t.x, fmaf(-x.y, t.y, acc.x));
-        acc.y = fmaf(x.x, t.y, fmaf(x.y, t.x, acc.y));
-      }
-      d[i * out_step] = cmul(acc, __ldg(&tw[i * Mp + m]));
+    float2 acc = s[0];
+    int k = 0;
+    for (int j = 1; j < R; ++j) {
+      k += i;
+      if (k >= R) k -= R;
+      const float2 x = s[j * in_step];
+      const float2 c = __ldg(&w[k]);
+      acc.x = fmaf(x.x, c.x, fmaf(-x.y, c.y, acc.x));
+      acc.y = fmaf(x.x, c.y, fmaf(x.y, c.x, acc.y));
     }
+    dst[q * qs + (l * Mp + m) * es + i * out_step] =
+        cmul(acc, __ldg(&tw[i * Mp + m]));
   }
 }
 

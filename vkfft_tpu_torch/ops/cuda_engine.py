@@ -1,41 +1,93 @@
 """CUDA execution engine: the dispatch half of
 ``vkfft_tpu/ops/pallas_engine.py`` on the port's kernels.
 
-Routing is the port's own (none of the TPU's lane-tile gates): a DIRECT
-line length in the kernels' range runs `cuda_kernels.fft_lines` along the
-minor axis and `cuda_kernels.fft_strided` along any other axis, in place on
-the (P, n, S) view, with no transposes.  The two minor axes together run
-`cuda_kernels.fft_pair` in one pass when `pair_supports` finds a cluster
-for their plane.  Lengths n <= 4 on the minor axis run as plain tensor
-butterflies, as ``pallas_engine._tiny_dft_p`` does.  Real lines of even
-length run `cuda_kernels.fft_r2c`/`fft_c2r` where `r2c_supports` holds, and
-the two minor axes of real data `cuda_kernels.fft_r2c_pair` where
-`r2c_pair_supports` finds a cluster for their plane.
+Routing is the port's own (none of the TPU's lane-tile gates), in the JAX
+package's order of tiers (``pallas_engine.fft_lines_p``, l.613-725):
 
-Everything else raises ``NotImplementedError`` naming its ROADMAP item:
-Rader, Bluestein, SPLIT (the planner splits only around a Rader prime),
-DIRECT lengths with a prime factor above 64 or above 8192, dtypes other
-than float32 and zero-pad keeps.  Nothing here falls back to the plain
-engine.
+* DIRECT: `cuda_kernels.fft_lines` where its stages take n (n <= 8192,
+  primes <= 64), else `cuda_kernels.fft_twofactor` (n <= 16384, primes <=
+  127), along the minor axis; along any other axis `fft_strided` in place
+  on the (P, n, S) view where the stages take n, else the lines of the
+  axis moved last.  The two minor axes together run `fft_pair` in one pass
+  when `pair_supports` finds a cluster for their plane.  Lengths n <= 4 run
+  as plain tensor butterflies, as ``pallas_engine._tiny_dft_p`` does.
+* RADER (prime p): the gather x[:, perm], then `fft_conv` where its stages
+  take p-1, else `fft_twofactor` (swapped order) and `fft_conv_inv` with
+  the x0 term fused into its store; the DC sum and the output gather are
+  tensor ops.  The inverse goes by conjugation, as in JAX.
+* BLUESTEIN (padded length m): `fft_conv` in its Bluestein mode where its
+  stages take m, else `fft_conv_pair` where `conv_pair_plan` finds a
+  cluster plane for m, else chirp and pad as tensor ops, `fft_twofactor`
+  (swapped) and `fft_conv_inv`, crop and chirp.
+* SPLIT (n = a*b around a Rader prime): the two factors' lines with the
+  swaps and the twiddle multiply as tensor ops, as in JAX.
+
+`route(plan)` makes that choice for the minor axis in one place: the
+dispatch below runs what it names, and the smoke run's kernel sweeps and
+the launch tests enumerate from it.
+
+Real lines of even length run `fft_r2c`/`fft_c2r` where `r2c_supports`
+holds, and otherwise the half-length route of the JAX package's
+``transforms/r2c.py:167-182`` and ``:223-235``: the n/2-point C2C on the
+card between tensor-op packing and untangling; the two minor axes of real
+data run `fft_r2c_pair` where `r2c_pair_supports` finds a cluster.
+
+What raises ``NotImplementedError`` naming its ROADMAP item: DIRECT
+lengths above 16384 and Bluestein lengths whose padded length fits none of
+the kernels above (m > 2^16, or beyond 16384 without a cluster plane): the
+long tier of queue 2 item 7; dtypes other than float32 (queue 1 item 10);
+zero-pad keeps (queue 1 item 8).  Nothing here falls back to the plain
+engine or to a kernel's plain version.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
+from vkfft_tpu_torch import luts
 from vkfft_tpu_torch.ops import cuda_kernels as ck
+from vkfft_tpu_torch.ops.half_length import c2r_pack, r2c_untangle
 from vkfft_tpu_torch.pcomplex import Planar
 from vkfft_tpu_torch.planner.factorize import Algorithm
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 
 
+def route(plan: AxisPlan) -> Optional[tuple[tuple[str, AxisPlan, int], ...]]:
+    """The kernels one direction of ``plan`` launches on (B, n) lines, in
+    launch order, as (kernel, the plan it serves, the length it holds)
+    triples; a SPLIT lists its factors' launches.  () for n <= 4, which runs
+    as tensor ops; None where no kernel holds the plan (the long tier).
+    This is the engine's one routing decision: `fft_lines_p` dispatches on
+    it and `supports` reads it."""
+    n, alg = plan.n, plan.algorithm
+    if n <= 4:
+        return ()
+    if alg is Algorithm.SPLIT:
+        parts = [route(plan_axis(f)) for f in plan.decomp.split]
+        return None if None in parts else parts[0] + parts[1]
+    if alg is Algorithm.DIRECT:
+        core = n
+    elif alg is Algorithm.RADER:
+        core = n - 1
+    else:
+        core = plan.decomp.bluestein_size
+    if ck.kernel_supports(core):
+        kernel = "fft_lines" if alg is Algorithm.DIRECT else "fft_conv"
+        return ((kernel, plan, core),)
+    if alg is Algorithm.BLUESTEIN and ck.conv_pair_plan(core) is not None:
+        return (("fft_conv_pair", plan, core),)
+    if ck.twofactor_supports(core):
+        inv = () if alg is Algorithm.DIRECT else (("fft_conv_inv", plan, core),)
+        return (("fft_twofactor", plan, core),) + inv
+    return None
+
+
 def supports(plan: AxisPlan) -> bool:
     """Whether this engine runs the plan (on the minor axis)."""
-    if plan.n <= 4:
-        return True
-    return plan.algorithm is Algorithm.DIRECT and ck.kernel_supports(plan.n)
+    return route(plan) is not None
 
 
 def pair_supports(ny: int, nz: int) -> bool:
@@ -54,15 +106,17 @@ def r2c_pair_supports(ny: int, nz: int) -> bool:
     return ck.r2c_pair_cluster(ny, nz) is not None
 
 
-def _check_plan(plan: AxisPlan) -> None:
-    if supports(plan):
-        return
-    alg = plan.algorithm
-    what = {Algorithm.RADER: "Rader", Algorithm.BLUESTEIN: "Bluestein",
-            Algorithm.DIRECT: "DIRECT", Algorithm.SPLIT: "SPLIT"}[alg]
+def _checked_route(plan: AxisPlan) -> tuple:
+    """`route` of the plan; raises where no kernel holds it."""
+    kernels = route(plan)
+    if kernels is not None:
+        return kernels
+    what = {Algorithm.BLUESTEIN: f"Bluestein (padded length "
+            f"{plan.decomp.bluestein_size})", Algorithm.DIRECT: "DIRECT",
+            Algorithm.SPLIT: "SPLIT", Algorithm.RADER: "Rader"}[plan.algorithm]
     raise NotImplementedError(
-        f"{what} plan for n={plan.n} is not on the CUDA engine yet: "
-        "ROADMAP queue 1 item 6 (kernels: queue 2)")
+        f"{what} plan for n={plan.n} needs the long tier, which is not on "
+        "the CUDA engine yet: ROADMAP queue 2 item 7")
 
 
 def _check_dtype(x) -> None:
@@ -70,16 +124,6 @@ def _check_dtype(x) -> None:
         raise NotImplementedError(
             f"CUDA engine runs float32 planes; {x.dtype} is ROADMAP queue 1 "
             "item 10")
-
-
-def core_fft_planar(xr: torch.Tensor, xi: torch.Tensor, n: int,
-                    inverse: bool, donate: bool = False, scale: float = 1.0):
-    """DFT of contiguous (B, n) planes through the lines kernel, scaled by
-    ``scale`` in the kernel; ``donate`` writes over the input planes."""
-    if xr.shape[-1] != n:
-        raise ValueError(f"planes have length {xr.shape[-1]}, not {n}")
-    return ck.fft_lines(xr, xi, inverse, scale,
-                        out=(xr, xi) if donate else None)
 
 
 def _tiny_dft_p(x: Planar, n: int, inverse: bool, scale: float) -> Planar:
@@ -107,9 +151,104 @@ def _tiny_dft_p(x: Planar, n: int, inverse: bool, scale: float) -> Planar:
     return y * scale if scale != 1.0 else y
 
 
+def _split_p(x: Planar, plan: AxisPlan, inverse: bool,
+             scale: float) -> Planar:
+    """SPLIT n = fa*fb (``pallas_engine.py:628-645``): the fa-point lines
+    of the (fb, fa) transpose, the twiddle, the fb-point lines of the (fa,
+    fb) transpose with the caller's scale, and the transpose back; the
+    transposes and the multiply are tensor ops."""
+    fa, fb = plan.decomp.split
+    B = x.shape[0]
+    tw = ck.table_planar(ck.device_array(
+        ("split", fa, fb, inverse), x.device,
+        lambda: luts.ct_twiddle(fa, fb, inverse))).reshape(fb, fa)
+
+    def swap(p, d1, d2):
+        return Planar(*(t.reshape(B, d1, d2).transpose(1, 2)
+                        for t in (p.re, p.im)))
+
+    y = swap(x, fa, fb).reshape(B * fb, fa)
+    y = fft_lines_p(y, plan_axis(fa), inverse, donate=True).reshape(B, fb, fa)
+    y = swap(y * tw[None], fb, fa).reshape(B * fa, fb)
+    y = fft_lines_p(y, plan_axis(fb), inverse, donate=True,
+                    scale=scale).reshape(B, fa, fb)
+    return swap(y, fa, fb).reshape(B, plan.n)
+
+
+_RADER_INDEX: dict = {}
+
+
+def _rader_index(p: int, device):
+    """Rader's gather g^q mod p and output order argsort(g^-q mod p) for
+    prime p, as index tensors on ``device``."""
+    key = (p, str(device))
+    if key not in _RADER_INDEX:
+        perm, inv_perm, _ = luts.rader_tables(p)
+        _RADER_INDEX[key] = (torch.as_tensor(perm, device=device),
+                             torch.as_tensor(np.argsort(inv_perm),
+                                             device=device))
+    return _RADER_INDEX[key]
+
+
+def _rader_p(x: Planar, p: int, scale: float, kernel: str) -> Planar:
+    """Forward Rader DFT of prime length p (``pallas_engine.py:675-725``):
+    the cyclic convolution of the p-1 gathered points in `fft_conv`, or in
+    `fft_twofactor` (swapped) + `fft_conv_inv` with X0 = x0 + F[0] riding
+    the forward's bin 0 and x0 the store (the DC-fused branch, l.686-716).
+    ``kernel`` is the first of them on `route`.  The gathers, the DC sum
+    and the concatenation are tensor ops."""
+    dev = x.device
+    perm, order = _rader_index(p, dev)
+    x0 = x[:, :1]
+    xg = Planar(x.re[:, perm], x.im[:, perm])
+    if kernel == "fft_conv":
+        X0 = Planar(x.re.sum(1, keepdim=True), x.im.sum(1, keepdim=True))
+        c = ck.fft_conv(xg.re, xg.im, ck.rader_spectrum(p, scale, dev),
+                        out=(xg.re, xg.im))
+        val = x0 * scale + Planar(*c)
+    else:
+        fr, fi = ck.fft_twofactor(xg.re, xg.im, swapped=True,
+                                  out=(xg.re, xg.im))
+        # bin 0 sits at position 0 of the swapped order; X0 is taken
+        # before fft_conv_inv writes over the spectrum
+        X0 = Planar(x0.re + fr[:, :1], x0.im + fi[:, :1])
+        dc = ((x0.re * scale).reshape(-1), (x0.im * scale).reshape(-1))
+        val = Planar(*ck.fft_conv_inv(
+            fr, fi, ck.rader_spectrum(p, scale, dev, "swapped"), dc=dc,
+            out=(fr, fi)))
+    X0 = X0 * scale
+    return Planar(torch.cat([X0.re, val.re[:, order]], 1),
+                  torch.cat([X0.im, val.im[:, order]], 1))
+
+
+def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
+                 kernel: str) -> Planar:
+    """Bluestein DFT through the padded length m
+    (``pallas_engine.py:648-672``): `fft_conv` (Bluestein mode), else
+    `fft_conv_pair`, else the chirp and the pad as tensor ops around
+    `fft_twofactor` (swapped) + `fft_conv_inv`, as ``kernel``, the first of
+    them on `route`, says.  1/m and the caller's scale ride the spectrum."""
+    n, m = plan.n, plan.decomp.bluestein_size
+    dev = x.device
+    chirp = ck.bluestein_chirp(n, m, inverse, dev)
+    if kernel == "fft_conv":
+        spec = ck.bluestein_spectrum(n, m, inverse, scale, dev)
+        return Planar(*ck.fft_conv(x.re, x.im, spec, chirp))
+    if kernel == "fft_conv_pair":
+        spec = ck.bluestein_spectrum(n, m, inverse, scale, dev, "pair")
+        return Planar(*ck.fft_conv_pair(x.re, x.im, spec, chirp))
+    a = ck.table_planar(chirp)[None]
+    y = x * a
+    y = Planar(*(torch.nn.functional.pad(t, (0, m - n)) for t in (y.re, y.im)))
+    fr, fi = ck.fft_twofactor(y.re, y.im, swapped=True, out=(y.re, y.im))
+    spec = ck.bluestein_spectrum(n, m, inverse, scale, dev, "swapped")
+    vr, vi = ck.fft_conv_inv(fr, fi, spec, out=(fr, fi))
+    return Planar(vr[:, :n], vi[:, :n]) * a
+
+
 def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
                 donate: bool = False, scale: float = 1.0) -> Planar:
-    """Planar DFT over (B, n) planes, scaled by ``scale`` in the kernel.
+    """Planar DFT over (B, n) planes, scaled by ``scale`` in the kernels.
     ``donate=True`` lets a DIRECT plan overwrite the caller's planes."""
     _check_dtype(x)
     n = plan.n
@@ -117,11 +256,20 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
         return x * scale if scale != 1.0 else x
     if n <= 4:
         return _tiny_dft_p(x, n, inverse, scale)
-    _check_plan(plan)
+    kernel = _checked_route(plan)[0][0]
+    alg = plan.algorithm
+    if alg is Algorithm.SPLIT:
+        return _split_p(x, plan, inverse, scale)
     x = x.contiguous()
-    rr, ii = core_fft_planar(x.re, x.im, n, inverse, donate=donate,
-                             scale=scale)
-    return Planar(rr, ii)
+    if alg is Algorithm.DIRECT:
+        run = ck.fft_lines if kernel == "fft_lines" else ck.fft_twofactor
+        return Planar(*run(x.re, x.im, inverse, scale,
+                           out=(x.re, x.im) if donate else None))
+    if alg is Algorithm.BLUESTEIN:
+        return _bluestein_p(x, plan, inverse, scale, kernel)
+    if inverse:   # Rader's inverse by conjugation (l.673-674)
+        return fft_lines_p(x.conj(), plan, False, scale=scale).conj()
+    return _rader_p(x, n, scale, kernel)
 
 
 def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
@@ -148,7 +296,14 @@ def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
         y = fft_lines_p(x.reshape(-1, n), plan, inverse, donate=donate,
                         scale=scale)
         return y.reshape(*shape)
-    _check_plan(plan)
+    if plan.algorithm is not Algorithm.DIRECT or not ck.kernel_supports(n):
+        # the contiguous route (``pallas_engine.py:817-827``): the axis
+        # moved last, its lines, and moved back
+        _checked_route(plan)
+        moved = Planar(x.re.movedim(axis, -1), x.im.movedim(axis, -1))
+        y = fft_lines_p(moved.reshape(-1, n), plan, inverse, donate=donate,
+                        scale=scale).reshape(*moved.shape)
+        return Planar(y.re.movedim(-1, axis), y.im.movedim(-1, axis))
     x = x.contiguous()
     P = math.prod(shape[:axis])
     S = math.prod(shape[axis + 1:])
@@ -184,17 +339,31 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def rfft_lines_p(x: torch.Tensor) -> Planar:
     """numpy ``rfft`` (B, n/2+1) half spectrum of real (B, n) lines, n
-    even, through `fft_r2c`."""
+    even: `fft_r2c` where `r2c_supports` holds, else the n/2-point C2C of
+    z[j] = x[2j] + i x[2j+1] on the card and the untangle as tensor ops
+    (``vkfft_tpu/transforms/r2c.py:167-182``)."""
     _check_dtype(x)
-    return Planar(*ck.fft_r2c(_aligned(x)))
+    n = x.shape[1]
+    if ck.r2c_supports(n):
+        return Planar(*ck.fft_r2c(_aligned(x)))
+    z = Planar(x[:, 0::2].contiguous(), x[:, 1::2].contiguous())
+    Z = fft_lines_p(z, plan_axis(n // 2), donate=True)
+    return r2c_untangle(Z, n)
 
 
 def irfft_lines_p(X: Planar, n: int, scale: float = 1.0) -> torch.Tensor:
-    """Real (B, n) lines from their (B, n/2+1) half spectrum through
-    `fft_c2r`, scaled by (n/2)*``scale``."""
+    """Real (B, n) lines from their (B, n/2+1) half spectrum, scaled by
+    (n/2)*``scale``: `fft_c2r` where `r2c_supports` holds, else the packing
+    as tensor ops and the n/2-point inverse C2C on the card
+    (``vkfft_tpu/transforms/r2c.py:223-235``); Im(DC) and Im(Nyquist) are
+    ignored either way."""
     _check_dtype(X)
     X = X.contiguous()
-    return ck.fft_c2r(X.re, X.im, n, scale)
+    if ck.r2c_supports(n):
+        return ck.fft_c2r(X.re, X.im, n, scale)
+    z = fft_lines_p(c2r_pack(X, n), plan_axis(n // 2), True,
+                    donate=True, scale=scale)
+    return torch.stack([z.re, z.im], -1).reshape(-1, n)
 
 
 def rfft_pair_p(x: torch.Tensor) -> Planar:

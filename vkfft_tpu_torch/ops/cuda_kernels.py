@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their plain versions, and the build.
 
-Five kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
+Nine kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
 
 * `fft_lines` (``csrc/fft_lines.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``: batched C2C of
@@ -24,14 +24,33 @@ Five kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   ``vkfft_tpu/ops/pallas_engine.py:3204 _r2c_pair_kernel`` and ``:3229
   _c2r_pair_kernel``: numpy ``rfft2``/``irfft2`` of the two minor axes of
   real (B, ny, nz) planes in one pass, a plane held in a cluster.
+* `fft_conv` (``csrc/fft_conv.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` (scalar table and
+  Bluestein modes): forward stages, a per-frequency multiply and inverse
+  stages of each line in one launch.
+* `fft_twofactor` (``csrc/fft_twofactor.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``: the two-factor
+  DFT n = n1*n2 <= 16384, natural or swapped digit order.
+* `fft_conv_inv` (``csrc/fft_conv_inv.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:4421 _conv_inv_kernel``: a spectrum in
+  `fft_twofactor`'s swapped order times a table, the two-factor inverse to
+  natural order, and a per-line constant added in the store.
+* `fft_conv_pair` (``csrc/fft_conv_pair.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in its
+  Bluestein mode: one padded line of m = nc*ns <= 2^16 points as a
+  four-step plane held in a cluster.
 
-All are bound by bytes (one read and one write of each point) and keep
-every stage of a line or column tile in shared memory; the source notes in
-the ``.cu`` files say how.  They take any 2 <= n <= 8192 whose prime
-factors are all <= 64 (`kernel_radices`), a superset-equal of the JAX
-package's ``_v3_plan`` coverage, and the real kernels every even n whose
-n/2 that is (`r2c_supports`); `fft_pair` and `fft_r2c_pair` take the planes
-`pair_cluster` and `r2c_pair_cluster` find a cluster for.
+The FFT kernels are bound by bytes (one read and one write of each point)
+and keep every stage of a line or column tile in shared memory; the source
+notes in the ``.cu`` files say how.  `fft_lines`, `fft_strided` and
+`fft_pair` take any 2 <= n <= 8192 whose prime factors are all <= 64
+(`kernel_radices`), a superset-equal of the JAX package's ``_v3_plan``
+coverage, and the real kernels every even n whose n/2 that is
+(`r2c_supports`); `fft_pair` and `fft_r2c_pair` take the planes
+`pair_cluster` and `r2c_pair_cluster` find a cluster for.  `fft_conv`
+holds the lengths of `fft_lines`; `fft_twofactor` and `fft_conv_inv` every
+n <= 16384 whose primes are <= 127 (`twofactor_split`); `fft_conv_pair`
+the padded lengths `conv_pair_plan` finds a cluster plane for.
 
 Each wrapper checks its tensors, then runs the plain version when they lie
 on the CPU and launches the kernel when they lie on a CUDA device; there is
@@ -46,6 +65,7 @@ module is imported.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -57,13 +77,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vkfft_tpu_torch import luts
 from vkfft_tpu_torch.ops import torch_engine
 from vkfft_tpu_torch.pcomplex import Planar
-from vkfft_tpu_torch.planner.factorize import prime_factors
+from vkfft_tpu_torch.planner.factorize import MAX_DIRECT_PRIME, prime_factors
 from vkfft_tpu_torch.planner.plan import plan_axis
 
 KERNEL_MAX_N = 8192
 KERNEL_MAX_PRIME = 64
+# `fft_twofactor`/`fft_conv_inv`: a line of up to 16384 points (128 KB)
+# in one block, each factor a Stockham run of primes up to the planner's
+# largest DIRECT prime.
+TWOFACTOR_MAX_N = 16384
+TWOFACTOR_TILE = 4096   # vkfft::kTileMax in csrc/twofactor.cuh
+# `fft_conv_pair`: padded Bluestein lengths up to 2^16, a plane of at most
+# PAIR_MAX_BLOCK_BYTES a block over a cluster of up to 16 blocks.
+CONV_PAIR_MAX_M = 1 << 16
 _MAX_STAGES = 16  # vkfft::kMaxStages in csrc/stockham.cuh
 # Radices with a butterfly of their own in csrc/stockham.cuh; every other
 # radix reads its roots w_r^k from the table.
@@ -73,7 +102,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
-                  "fft_r2c_pair")
+                  "fft_r2c_pair", "fft_conv", "fft_twofactor", "fft_conv_inv",
+                  "fft_conv_pair")
 # Shared memory per block of `fft_pair` (two buffers of its share of a
 # plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
 # as a block of `fft_lines`), or else to its largest size, as long as a
@@ -98,16 +128,17 @@ def reset_launches() -> None:
 # Plan and tables shared by the kernels and their plain versions.
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=1024)
-def kernel_radices(n: int) -> Optional[tuple[int, ...]]:
-    """Stage radices the kernels run for length n, or None when n is out of
-    their range.  Powers of two go as radix 8 (one 8*2 becomes 4*4, so no
-    radix-2 stage when a radix-8 one exists), then every odd prime as a
+@functools.lru_cache(maxsize=4096)
+def stage_radices(n: int) -> Optional[tuple[int, ...]]:
+    """Stage radices of one shared-memory Stockham run of length n
+    (``csrc/stockham.cuh``), or None unless 2 <= n <= 8192 with every prime
+    factor <= 127.  Powers of two go as radix 8 (one 8*2 becomes 4*4, so
+    no radix-2 stage when a radix-8 one exists), then every odd prime as a
     stage of its own, largest first."""
     if n < 2 or n > KERNEL_MAX_N:
         return None
     primes = prime_factors(n)
-    if primes[-1] > KERNEL_MAX_PRIME:
+    if primes[-1] > MAX_DIRECT_PRIME:
         return None
     twos = primes.count(2)
     rad = [8] * (twos // 3)
@@ -124,8 +155,73 @@ def kernel_radices(n: int) -> Optional[tuple[int, ...]]:
     return tuple(rad)
 
 
+@functools.lru_cache(maxsize=4096)
+def kernel_radices(n: int) -> Optional[tuple[int, ...]]:
+    """Stage radices of `fft_lines`, `fft_strided`, `fft_pair` and
+    `fft_conv` for length n, or None when n is out of their range (a prime
+    factor above 64)."""
+    rad = stage_radices(n)
+    if rad is None or prime_factors(n)[-1] > KERNEL_MAX_PRIME:
+        return None
+    return rad
+
+
 def kernel_supports(n: int) -> bool:
     return kernel_radices(n) is not None
+
+
+def _divisors(n: int) -> list[int]:
+    divs = [1]
+    for p, e in collections.Counter(prime_factors(n)).items():
+        divs = [d * p ** k for d in divs for k in range(e + 1)]
+    return sorted(divs)
+
+
+@functools.lru_cache(maxsize=4096)
+def twofactor_split(n: int) -> Optional[tuple[int, int]]:
+    """(n1, n2) of `fft_twofactor` for length n: n = n1*n2 viewed as an
+    (n2, n1) row-major matrix, each factor a Stockham run (`stage_radices`;
+    n2 may be 1 for a prime n), the larger factor as small as it can be and
+    n1 >= n2.  None unless 2 <= n <= 16384 with every prime factor <= 127.
+    The JAX package's v2 needs both factors <= 128 (``split_lane_major``);
+    here a factor is any Stockham run, so every such n has a split."""
+    if n < 2 or n > TWOFACTOR_MAX_N or prime_factors(n)[-1] > MAX_DIRECT_PRIME:
+        return None
+    best = None
+    for n1 in reversed(_divisors(n)):
+        n2 = n // n1
+        if n1 < n2:
+            break
+        if (stage_radices(n1) is not None
+                and (n2 == 1 or stage_radices(n2) is not None)
+                and n1 <= TWOFACTOR_TILE):
+            best = (n1, n2)
+    return best
+
+
+def twofactor_supports(n: int) -> bool:
+    return twofactor_split(n) is not None
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
+    """(nc, ns, cluster) of `fft_conv_pair` for a padded Bluestein length
+    m: the line as an (nc, ns) row-major plane, both factors lengths of the
+    stages (`kernel_supports`), as near square as the cluster rule of
+    `fft_pair` (`_cluster`) allows, ns >= nc; None when m > 2^16 or no
+    split fits a cluster."""
+    if m > CONV_PAIR_MAX_M:
+        return None
+    best = None
+    for nc in _divisors(m):
+        ns = m // nc
+        if nc > ns:
+            break
+        if kernel_supports(nc) and kernel_supports(ns):
+            c = _cluster(nc, ns)
+            if c is not None:
+                best = (nc, ns, c)
+    return best
 
 
 def r2c_supports(n: int) -> bool:
@@ -168,19 +264,25 @@ def r2c_pair_cluster(ny: int, nz: int) -> Optional[int]:
 
 def _unsupported(n: int) -> NotImplementedError:
     return NotImplementedError(
-        f"length {n} is outside the CUDA kernels' range (2 <= n <= "
-        f"{KERNEL_MAX_N}, prime factors <= {KERNEL_MAX_PRIME}); longer and "
-        "prime-heavy lengths are ROADMAP queue 1 item 6")
+        f"length {n} is outside the range of the CUDA kernel (2 <= n <= "
+        f"{KERNEL_MAX_N}, prime factors <= {KERNEL_MAX_PRIME}); the engine "
+        "runs other lengths on the kernels of their route, and lengths "
+        "beyond those are ROADMAP queue 2 item 7")
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=1024)
 def stage_tables(n: int, inverse: bool, scale: float = 1.0):
     """(plan ints, complex128 table) for length n.  Per stage the (r, Mp)
     twiddle block w_M^(i*m), with ``scale`` folded into stage 0 (the
     reference's stageNormalization, ``vkFFT_RadixShuffle.h:49-65``), and for
     radices without a butterfly of their own the roots w_r^k.  Computed in
-    fp64 like ``_v3_tables_impl``; the kernels read it cast to fp32."""
-    radices = kernel_radices(n)
+    fp64 like ``_v3_tables_impl``; the kernels read it cast to fp32.
+    n = 1 is the empty plan of a trivial factor of `fft_twofactor`."""
+    if n == 1:
+        return tuple([1, 0, int(inverse)] + [0] * _MAX_STAGES
+                     + [0] * _MAX_STAGES + [-1] * _MAX_STAGES), \
+            np.full(1, scale, np.complex128)
+    radices = stage_radices(n)
     if radices is None:
         raise _unsupported(n)
     sign = 2.0j if inverse else -2.0j
@@ -219,20 +321,96 @@ def r2c_tables(n: int, inverse: bool, scale: float = 1.0):
     return ints, np.concatenate([stages, post]), len(stages)
 
 
-# Device copies of the tables, per (real, n, inverse, scale, device).
+@functools.lru_cache(maxsize=256)
+def twofactor_twiddle(n: int, inverse: bool, scale: float = 1.0):
+    """`fft_twofactor`'s inter-factor twiddle w_n^(k2*j1) (w_n^(-k2*j1) for
+    the inverse) at [k2*n1 + j1], times ``scale`` (the JAX package folds
+    the scale into the same twiddle, ``_v2_tables``), complex128."""
+    n1, n2 = twofactor_split(n)
+    k2 = np.arange(n2, dtype=np.int64)[:, None]
+    j1 = np.arange(n1, dtype=np.int64)[None, :]
+    sign = 2.0j if inverse else -2.0j
+    return (np.exp(sign * np.pi / n * ((k2 * j1) % n)) * scale).ravel()
+
+
+def _pair_twiddle(nc: int, ns: int):
+    """`fft_conv_pair`'s four-step twiddle w_m^(kc*js) at [kc*ns + js],
+    m = nc*ns (``luts.fourstep_twiddle_full``); the inverse conjugates it
+    in the kernel."""
+    return luts.fourstep_twiddle_full(nc, ns).ravel()
+
+
+# Device copies of the tables, per (what, parameters..., device).
 _DEVICE_TABLES: dict = {}
 
 
-def _device_table(n: int, inverse: bool, scale: float,
-                  device: torch.device, real: bool = False) -> torch.Tensor:
-    key = (real, n, inverse, scale, str(device))
+def device_array(key: tuple, device: torch.device, build) -> torch.Tensor:
+    """Cached (L, 2) float32 device copy of the complex128 table
+    ``build()``: interleaved (re, im) pairs, read by the kernels as
+    float2."""
+    key = key + (str(device),)
     tab = _DEVICE_TABLES.get(key)
     if tab is None:
-        t = (r2c_tables if real else stage_tables)(n, inverse, scale)[1]
+        t = np.asarray(build(), np.complex128).ravel()
         host = np.stack([t.real, t.imag], axis=-1).astype(np.float32)
         tab = torch.from_numpy(host).to(device)
         _DEVICE_TABLES[key] = tab
     return tab
+
+
+def _device_table(n: int, inverse: bool, scale: float,
+                  device: torch.device, real: bool = False) -> torch.Tensor:
+    return device_array(
+        ("r2c" if real else "stages", n, inverse, scale), device,
+        lambda: (r2c_tables if real else stage_tables)(n, inverse, scale)[1])
+
+
+def _swapped(spec: np.ndarray) -> np.ndarray:
+    """A natural-order spectrum of length n in `fft_twofactor`'s swapped
+    order: position k2*n1 + k1 holds bin k1*n2 + k2 (the JAX package's
+    ``tab_sw = table.reshape(n1, n2).T``, ``pallas_engine.py:4548``)."""
+    n1, n2 = twofactor_split(len(spec))
+    return spec.reshape(n1, n2).T
+
+
+def _pair_order(spec: np.ndarray) -> np.ndarray:
+    """A natural-order spectrum of length m in `fft_conv_pair`'s plane
+    order: position kc*ns + ks holds bin ks*nc + kc."""
+    nc, ns, _ = conv_pair_plan(len(spec))
+    return spec.reshape(ns, nc).T
+
+
+_LAYOUTS = {"natural": lambda s: s, "swapped": _swapped, "pair": _pair_order}
+
+
+def rader_spectrum(p: int, scale: float, device,
+                   layout: str = "natural") -> torch.Tensor:
+    """Device table of Rader's convolution spectrum for prime p:
+    FFT_{p-1}(w_p^(g^-q)) * scale / (p-1) (``luts.rader_tables``; the JAX
+    package's table, ``pallas_engine.py:700,721``), in ``layout``:
+    "natural" for `fft_conv`, "swapped" for `fft_conv_inv`."""
+    return device_array(
+        ("rader", p, scale, layout), torch.device(device),
+        lambda: _LAYOUTS[layout](luts.rader_tables(p)[2] * (scale / (p - 1))))
+
+
+def bluestein_spectrum(n: int, m: int, inverse: bool, scale: float, device,
+                       layout: str = "natural") -> torch.Tensor:
+    """Device table of Bluestein's convolution spectrum FFT_m(b) * scale/m
+    (``luts.bluestein_chirp``; ``pallas_engine.py:4865``) in ``layout``:
+    "natural" for `fft_conv`, "swapped" for `fft_conv_inv`, "pair" for
+    `fft_conv_pair`."""
+    return device_array(
+        ("bluestein", n, m, inverse, scale, layout), torch.device(device),
+        lambda: _LAYOUTS[layout](luts.bluestein_chirp(n, m, inverse)[1]
+                                 * (scale / m)))
+
+
+def bluestein_chirp(n: int, m: int, inverse: bool, device) -> torch.Tensor:
+    """Device table of the chirp a[k] = exp(-+i pi k^2 / n), k < n, that
+    `fft_conv` and `fft_conv_pair` multiply on the read and the write."""
+    return device_array(("chirp", n, m, inverse), torch.device(device),
+                         lambda: luts.bluestein_chirp(n, m, inverse)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +476,81 @@ def fft_c2r_pair_plain(re: torch.Tensor, im: torch.Tensor, nz: int,
     """Plain torch version of `fft_c2r_pair`."""
     return torch_engine.irfft2_pair_plain(Planar(re, im), nz, scale_y,
                                           scale_z)
+
+
+def table_planar(tab: torch.Tensor) -> Planar:
+    """An (L, 2) device table as a length-L Planar."""
+    return Planar(tab[:, 0], tab[:, 1])
+
+
+def _swap_digits(x: Planar, rows: int, cols: int) -> Planar:
+    """(B, rows*cols) viewed as [row][col] -> [col][row], contiguous."""
+    B = x.shape[0]
+    return Planar(*(t.reshape(B, rows, cols).transpose(1, 2).reshape(B, -1)
+                    for t in (x.re, x.im)))
+
+
+def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
+                   spectrum: torch.Tensor, chirp: Optional[torch.Tensor] = None):
+    """Plain torch version of `fft_conv`: the unnormalized IDFT of
+    DFT(x) * spectrum over m = len(spectrum) points; with ``chirp``, x * a
+    zero-padded to m on the way in and the first n points times a on the
+    way out."""
+    m = spectrum.shape[0]
+    n = re.shape[1]
+    x = Planar(re, im)
+    if chirp is not None:
+        a = table_planar(chirp)[None]
+        x = x * a
+        x = Planar(*(torch.nn.functional.pad(t, (0, m - n))
+                     for t in (x.re, x.im)))
+    plan = plan_axis(m)
+    X = torch_engine.lines_plain(x, plan) * table_planar(spectrum)[None]
+    y = torch_engine.lines_plain(X, plan, True)
+    if chirp is not None:
+        y = y[:, :n] * a
+    return y.re.contiguous(), y.im.contiguous()
+
+
+def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
+                        scale: float = 1.0, swapped: bool = False):
+    """Plain torch version of `fft_twofactor`: the DFT of each line times
+    ``scale``; with ``swapped`` the forward's output and the inverse's input
+    are in the swapped digit order of `twofactor_split`."""
+    n = re.shape[1]
+    n1, n2 = twofactor_split(n)
+    x = Planar(re, im)
+    if inverse and swapped:
+        x = _swap_digits(x, n2, n1)
+    y = torch_engine.lines_plain(x, plan_axis(n), inverse, scale)
+    if swapped and not inverse:
+        y = _swap_digits(y, n1, n2)
+    return y.re.contiguous(), y.im.contiguous()
+
+
+def fft_conv_inv_plain(re: torch.Tensor, im: torch.Tensor,
+                       spectrum: torch.Tensor, dc=None):
+    """Plain torch version of `fft_conv_inv`: the spectrum (swapped order)
+    times the table (swapped order), the unnormalized inverse DFT to
+    natural order, plus the per-line constant ``dc`` = (re, im) of shape
+    (B,)."""
+    n = re.shape[1]
+    n1, n2 = twofactor_split(n)
+    y = _swap_digits(Planar(re, im) * table_planar(spectrum)[None], n2, n1)
+    z = torch_engine.lines_plain(y, plan_axis(n), True)
+    if dc is not None:
+        z = z + Planar(dc[0][:, None], dc[1][:, None])
+    return z.re.contiguous(), z.im.contiguous()
+
+
+def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
+                        spectrum: torch.Tensor, chirp: torch.Tensor):
+    """Plain torch version of `fft_conv_pair`: `fft_conv_plain` in
+    Bluestein mode with the spectrum back in natural order."""
+    m = spectrum.shape[0]
+    nc, ns, _ = conv_pair_plan(m)
+    natural = spectrum.reshape(nc, ns, 2).transpose(0, 1).reshape(m, 2)
+    return fft_conv_plain(re, im, natural, chirp)
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +636,10 @@ _ENTRIES = {
     "fft_r2c": {"fft_r2c": "pppqippi", "fft_c2r": "pppqippi"},
     "fft_r2c_pair": {"fft_r2c_pair": "pppqppppii",
                      "fft_c2r_pair": "pppqppppii"},
+    "fft_conv": {"fft_conv": "ppppqipppppp"},
+    "fft_twofactor": {"fft_twofactor": "ppppqpppppi"},
+    "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8},
+    "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "i"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
 
@@ -460,8 +717,9 @@ def _check_r2c_length(n: int) -> None:
         raise NotImplementedError(
             f"real length {n} is outside the real kernels' range (n even, "
             f"n/2 a length of the CUDA kernels: 2 <= n/2 <= {KERNEL_MAX_N}, "
-            f"prime factors <= {KERNEL_MAX_PRIME}); other lengths are "
-            "ROADMAP queue 1 item 6")
+            f"prime factors <= {KERNEL_MAX_PRIME}); the CUDA engine runs "
+            "other lengths on the C2C kernels (ROADMAP queue 1 items 5 "
+            "and 6)")
 
 
 def _check_out(re, out) -> None:
@@ -486,15 +744,16 @@ def _r2c_plan(n: int, inverse: bool, scale: float, device: torch.device):
             _device_table(n, inverse, scale, device, real=True), post)
 
 
-def _run(name: str, plain, re, im, inverse: bool, scale: float, out,
-         kernel_args):
-    """Shared body of the C2C wrappers: the plain version for CPU planes,
-    one kernel launch for CUDA planes.  ``kernel_args()`` gives the
-    kernel's arguments between the four plane pointers and the stream."""
+def _apply(name: str, re, im, out, plain, kernel_args):
+    """Shared body of the wrappers of complex planes: ``plain()`` for CPU
+    planes (copied
+    into ``out`` when given), one launch of kernel ``name`` for CUDA planes
+    with ``kernel_args()`` between the four plane pointers and the stream.
+    The output planes have the input's shape; ``out`` may be the input."""
     if out is not None:
         _check_out(re, out)
     if re.device.type == "cpu":
-        yr, yi = plain(re, im, inverse, scale)
+        yr, yi = plain()
         if out is None:
             return yr, yi
         out[0].copy_(yr)
@@ -502,9 +761,8 @@ def _run(name: str, plain, re, im, inverse: bool, scale: float, out,
         return out
     yr, yi = out if out is not None else (torch.empty_like(re),
                                           torch.empty_like(im))
-    if re.numel() == 0:
-        return yr, yi
-    _launch(name, name, re.device, [re, im, yr, yi, *kernel_args()])
+    if re.numel():
+        _launch(name, name, re.device, [re, im, yr, yi, *kernel_args()])
     return yr, yi
 
 
@@ -527,8 +785,8 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         plan, table = _plan(n, inverse, scale, re.device)
         return (B, plan, table)
 
-    return _run("fft_lines", fft_lines_plain, re, im, inverse, scale, out,
-                args)
+    return _apply("fft_lines", re, im, out,
+                  lambda: fft_lines_plain(re, im, inverse, scale), args)
 
 
 def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -550,8 +808,8 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         plan, table = _plan(n, inverse, scale, re.device)
         return (P, S, plan, table)
 
-    return _run("fft_strided", fft_strided_plain, re, im, inverse, scale, out,
-                args)
+    return _apply("fft_strided", re, im, out,
+                  lambda: fft_strided_plain(re, im, inverse, scale), args)
 
 
 def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -578,7 +836,8 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         plan_z, table_z = _plan(nz, inverse, 1.0, re.device)
         return (B, plan_y, plan_z, table_y, table_z, cluster)
 
-    return _run("fft_pair", fft_pair_plain, re, im, inverse, scale, out, args)
+    return _apply("fft_pair", re, im, out,
+                  lambda: fft_pair_plain(re, im, inverse, scale), args)
 
 
 def _no_cluster(what: str, ny: int, nz: int) -> NotImplementedError:
@@ -726,3 +985,193 @@ def _pair_gate(ny: int, nz: int) -> int:
     if cluster is None:
         raise _no_cluster("fft_r2c_pair", ny, nz)
     return cluster
+
+
+# ---------------------------------------------------------------------------
+# Convolution and two-factor wrappers (Rader, Bluestein and the lengths
+# beyond `fft_lines`).
+# ---------------------------------------------------------------------------
+
+def _table_length(tab, what: str) -> int:
+    if not isinstance(tab, torch.Tensor):
+        raise TypeError(f"{what}: the table must be a torch tensor")
+    return tab.shape[0]
+
+
+def _check_table(tab, length: int, like: torch.Tensor, what: str) -> None:
+    _table_length(tab, what)
+    if (tuple(tab.shape) != (length, 2) or tab.dtype != torch.float32
+            or not tab.is_contiguous()):
+        raise ValueError(f"{what}: the table must be a contiguous float32 "
+                         f"({length}, 2) tensor, got {tuple(tab.shape)} "
+                         f"{tab.dtype}")
+    if tab.device != like.device:
+        raise ValueError(f"{what}: table on {tab.device}, planes on "
+                         f"{like.device}")
+
+
+def _two_plans(n: int, inverse: bool, device):
+    n1, n2 = twofactor_split(n)
+    p1, t1 = _plan(n1, inverse, 1.0, device)
+    p2, t2 = _plan(n2, inverse, 1.0, device)
+    return p1, p2, t1, t2
+
+
+def _check_twofactor(n: int, what: str) -> None:
+    if not twofactor_supports(n):
+        raise NotImplementedError(
+            f"{what}: length {n} is outside the two-factor kernels' range "
+            f"(2 <= n <= {TWOFACTOR_MAX_N}, prime factors <= "
+            f"{MAX_DIRECT_PRIME}); longer lines are ROADMAP queue 2 item 7")
+
+
+def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
+             chirp: Optional[torch.Tensor] = None, out=None):
+    """Circular convolution of each line of (B, m) float32 planes: the
+    unnormalized inverse DFT of DFT(x) * ``spectrum`` (an (m, 2) table,
+    natural order, any normalization folded in: `rader_spectrum`).  With
+    ``chirp`` (an (n, 2) table, n < m) the Bluestein mode: (B, n) planes
+    times the chirp, zero-padded to m, convolved, cropped to n and times
+    the chirp again (`bluestein_chirp`, `bluestein_spectrum`).  ``out`` as
+    for `fft_lines`.  CPU tensors run `fft_conv_plain`; CUDA tensors launch
+    the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in its
+    scalar-table and Bluestein modes.  Bound by bytes (16 B a point of the
+    n-point lines, one read and one write): a block holds ⌊2048/m⌋ lines
+    (at least one) in shared memory through the forward stages, the
+    multiply and the inverse stages, and the pad never exists in device
+    memory (``csrc/fft_conv.cu``)."""
+    _check_planes(re, im, 2, "fft_conv")
+    B, n = re.shape
+    m = _table_length(spectrum, "fft_conv")
+    _check_length(m)
+    _check_table(spectrum, m, re, "fft_conv")
+    if chirp is None and n != m:
+        raise ValueError(f"fft_conv: lines of {n} points, a spectrum of {m}")
+    if chirp is not None:
+        if not 1 <= n < m:
+            raise ValueError(f"fft_conv: Bluestein lines of {n} points pad "
+                             f"to a longer spectrum than {m}")
+        _check_table(chirp, n, re, "fft_conv chirp")
+
+    def args():
+        pf, tf = _plan(m, False, 1.0, re.device)
+        pi, ti = _plan(m, True, 1.0, re.device)
+        return (B, n, pf, pi, tf, ti, spectrum, chirp)
+
+    return _apply("fft_conv", re, im, out,
+                  lambda: fft_conv_plain(re, im, spectrum, chirp), args)
+
+
+def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
+                  scale: float = 1.0, swapped: bool = False, out=None):
+    """DFT of each line of (B, n) float32 planes, n = n1*n2
+    (`twofactor_split`), times ``scale``.  The forward reads natural order
+    and writes natural order, or with ``swapped`` the digit order
+    [k2][k1] (position k2*n1 + k1 holds bin k1*n2 + k2); the inverse reads
+    natural or, with ``swapped``, that order and writes natural order.
+    ``out`` as for `fft_lines`.  CPU tensors run `fft_twofactor_plain`;
+    CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``.  Bound
+    by bytes (16 B a point, one read and one write): one block holds a line
+    of up to 16384 points (128 KB) in shared memory and runs the n2-point
+    column DFTs, the twiddle and the n1-point row DFTs on tiles of it
+    (``csrc/fft_twofactor.cu``)."""
+    _check_planes(re, im, 2, "fft_twofactor")
+    B, n = re.shape
+    _check_twofactor(n, "fft_twofactor")
+
+    def args():
+        p1, p2, t1, t2 = _two_plans(n, inverse, re.device)
+        tw = device_array(("twofactor", n, inverse, scale), re.device,
+                           lambda: twofactor_twiddle(n, inverse, scale))
+        return (B, p1, p2, t1, t2, tw, int(swapped))
+
+    return _apply("fft_twofactor", re, im, out,
+                  lambda: fft_twofactor_plain(re, im, inverse, scale, swapped),
+                  args)
+
+
+def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
+                 dc=None, out=None):
+    """Natural-order (B, n) float32 planes from a spectrum in
+    `fft_twofactor`'s swapped order: the spectrum times ``spectrum`` (an
+    (n, 2) table in the same swapped order, `rader_spectrum(...,
+    layout="swapped")`), the unnormalized two-factor inverse, plus the
+    per-line constant ``dc`` = (re, im), float32 (B,) tensors, when given.
+    ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_inv_plain`;
+    CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:4421 _conv_inv_kernel``
+    (``has_dc`` is ``dc``).  Bound by bytes, as `fft_twofactor`: the
+    multiply rides the read and the constant the write
+    (``csrc/fft_conv_inv.cu``)."""
+    _check_planes(re, im, 2, "fft_conv_inv")
+    B, n = re.shape
+    _check_twofactor(n, "fft_conv_inv")
+    _check_table(spectrum, n, re, "fft_conv_inv")
+    if dc is not None:
+        for t in dc:
+            _check_real(t, 1, "fft_conv_inv dc")
+            if t.shape[0] != B or t.device != re.device:
+                raise ValueError("fft_conv_inv: dc must be (B,) tensors on "
+                                 "the planes' device")
+
+    def args():
+        p1, p2, t1, t2 = _two_plans(n, True, re.device)
+        tw = device_array(("twofactor", n, True, 1.0), re.device,
+                           lambda: twofactor_twiddle(n, True))
+        d = dc if dc is not None else (None, None)
+        return (B, p1, p2, t1, t2, tw, spectrum, d[0], d[1])
+
+    return _apply("fft_conv_inv", re, im, out,
+                  lambda: fft_conv_inv_plain(re, im, spectrum, dc), args)
+
+
+def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
+                  chirp: torch.Tensor, out=None):
+    """Bluestein transform of each line of (B, n) float32 planes through a
+    padded length m = len(spectrum) that `conv_pair_plan` splits into an
+    (nc, ns) plane: the lines times ``chirp`` ((n, 2)), zero-padded to m,
+    convolved with the spectrum (an (m, 2) table in the plane order,
+    `bluestein_spectrum(..., layout="pair")`), cropped to n and times the
+    chirp again.  ``out`` as for `fft_lines`.  CPU tensors run
+    `fft_conv_pair_plain`; CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in
+    its Bluestein mode.  Bound by operations at m = 32768 (two m-point FFTs
+    a line for n points of traffic): a cluster of blocks holds the padded
+    line as a plane in shared memory, runs the nc and ns stages with the
+    four-step twiddle between them, multiplies and runs the inverse, and
+    moves column and row tiles between its blocks over distributed shared
+    memory (``csrc/fft_conv_pair.cu``)."""
+    _check_planes(re, im, 2, "fft_conv_pair")
+    B, n = re.shape
+    m = _table_length(spectrum, "fft_conv_pair")
+    plan = conv_pair_plan(m)
+    if plan is None:
+        raise NotImplementedError(
+            f"fft_conv_pair: a padded length {m} that fits no cluster plane "
+            "(m <= 2^16); longer Bluestein lengths are ROADMAP queue 2 item 7")
+    nc, ns, cluster = plan
+    _check_table(spectrum, m, re, "fft_conv_pair")
+    if not 1 <= n < m:
+        raise ValueError(f"fft_conv_pair: lines of {n} points for a padded "
+                         f"length {m}")
+    _check_table(chirp, n, re, "fft_conv_pair chirp")
+
+    def args():
+        dev = re.device
+        pcf, tcf = _plan(nc, False, 1.0, dev)
+        psf, tsf = _plan(ns, False, 1.0, dev)
+        psi, tsi = _plan(ns, True, 1.0, dev)
+        pci, tci = _plan(nc, True, 1.0, dev)
+        tw = device_array(("pair_twiddle", nc, ns), dev,
+                           lambda: _pair_twiddle(nc, ns))
+        return (B, n, pcf, psf, psi, pci, tcf, tsf, tsi, tci, tw, spectrum,
+                chirp, cluster)
+
+    return _apply("fft_conv_pair", re, im, out,
+                  lambda: fft_conv_pair_plain(re, im, spectrum, chirp), args)

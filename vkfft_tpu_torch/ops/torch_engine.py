@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from vkfft_tpu_torch import luts
-from vkfft_tpu_torch.pcomplex import Planar, mul_i, mul_neg_i, planar_table
+from vkfft_tpu_torch.ops.half_length import c2r_pack, r2c_untangle
+from vkfft_tpu_torch.pcomplex import Planar, planar_table
 from vkfft_tpu_torch.planner.factorize import Algorithm
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 
@@ -158,26 +159,17 @@ def lines_plain(x: Planar, plan: AxisPlan, inverse: bool = False,
 # X[k] = E + w_n^k O.  These are the plain versions of the CUDA kernels
 # `fft_r2c`/`fft_c2r` and `fft_r2c_pair` and run under `lines_plain`, so they
 # do not count in `calls`; `rfft_lines_p`/`irfft_lines_p` below are the
-# engine's counted entry points.
+# engine's counted entry points.  The untangle and the packing are
+# elementwise and live in `half_length`, which the CUDA engine's
+# half-length route imports too.
 # ---------------------------------------------------------------------------
 
 def rfft_lines_plain(x: torch.Tensor, packed: bool = False) -> Planar:
-    """Half spectrum of real (B, n) lines, n even and >= 4: numpy ``rfft``
-    values as (B, n/2+1) planes with Im(DC) = Im(Nyquist) = 0, or with
-    ``packed`` (B, n/2) planes holding the real Nyquist bin in Im(bin 0)."""
-    B, n = x.shape
-    m = n // 2
-    Z = lines_plain(Planar(x[:, 0::2], x[:, 1::2]), plan_axis(m))
-    Zk = Z[:, np.arange(m + 1) % m]
-    Zr = Z[:, (-np.arange(m + 1)) % m].conj()
-    E = (Zk + Zr) * 0.5
-    O = mul_neg_i((Zk - Zr) * 0.5)
-    X = E + planar_table(luts.r2c_post_twiddle(n), x.dtype, x.device)[None] * O
-    if packed:
-        return Planar(X.re[:, :m].contiguous(),
-                      torch.cat([X.re[:, m:], X.im[:, 1:m]], 1))
-    zero = X.im[:, :1] * 0
-    return Planar(X.re, torch.cat([zero, X.im[:, 1:m], zero], 1))
+    """Half spectrum of real (B, n) lines, n even and >= 4, as
+    `r2c_untangle` gives it."""
+    n = x.shape[1]
+    Z = lines_plain(Planar(x[:, 0::2], x[:, 1::2]), plan_axis(n // 2))
+    return r2c_untangle(Z, n, packed)
 
 
 def irfft_lines_plain(X: Planar, n: int, scale: float = 1.0,
@@ -186,18 +178,7 @@ def irfft_lines_plain(X: Planar, n: int, scale: float = 1.0,
     ``packed`` (B, n/2) form), scaled by (n/2)*``scale``: ``scale=2/n``
     gives numpy ``irfft``.  Im(DC) and Im(Nyquist) are ignored, as numpy
     ignores them."""
-    m = n // 2
-    dc = X.re[:, :1]
-    nyq = X.im[:, :1] if packed else X.re[:, m:m + 1]
-    zero = dc * 0
-    F = Planar(torch.cat([dc, X.re[:, 1:m], nyq], 1),
-               torch.cat([zero, X.im[:, 1:m], zero], 1))
-    Xk = F[:, :m]
-    Xr = F[:, m - np.arange(m)].conj()
-    E = (Xk + Xr) * 0.5
-    tw = planar_table(np.conj(luts.r2c_post_twiddle(n))[:m], X.dtype, X.device)
-    O = tw[None] * ((Xk - Xr) * 0.5)
-    z = lines_plain(E + mul_i(O), plan_axis(m), True, scale)
+    z = lines_plain(c2r_pack(X, n, packed), plan_axis(n // 2), True, scale)
     return torch.stack([z.re, z.im], -1).reshape(-1, n)
 
 
