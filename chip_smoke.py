@@ -42,7 +42,19 @@ Phases (each asserts; any failure exits non-zero before the result line):
   6. the reference's sample 7 (n = 10007 Bluestein, 7919 Rader, 10006
      SPLIT, 10240 DIRECT; 64 MiB each) through FFTApplication, each row
      counted from 0 and held to its exact launches, then the four new
-     kernels at those shapes and the rows' round trips timed as in 4.
+     kernels at those shapes and the rows' round trips timed as in 4;
+  7. DCT/DST types I-IV: fft_dct23, fft_dct1 and fft_dct4 against their
+     plain versions and scipy fp64 at every third length their gates take
+     (both flags, non-unit scales); every type of dct/dst/idct/idst at
+     every third n in 2..4096 and named ones (none may raise), dctn/dstn;
+     the reference's sample 100 (idct(dct(x, t), t), t = 2, 4, n = 256,
+     1024, 255 at 128 MiB), DCT-I/DST-I round trips at n = 1025/1023 and
+     sample 101 (FFTApplication(kind=DCT) of (96, 96) and (32, 32, 32),
+     t = 2, 3, batched to 128 MiB), each row counted from 0 and held to
+     its exact launches; then the three kernels and the rows timed as in
+     4, beside torch.fft.rfft + irfft of the same data (not the same
+     function: no PyTorch call computes a DCT) and, for the N-D rows, the
+     share of the round trip outside the kernels.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -1302,6 +1314,315 @@ def phase_any_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# Real-to-real transforms: DCT/DST types I-IV.
+# ---------------------------------------------------------------------------
+
+R2R_KERNELS = ("fft_dct23", "fft_dct1", "fft_dct4")
+R2R_TOL = 1e-5                # round trips, of max|x|
+
+
+def _r2r_cases(ck) -> dict:
+    """(kernel, call, plain, scipy type) per gate: the lengths each R2R
+    kernel takes (`dct23_supports`, `dct1_supports`, `dct4_supports`)."""
+    def dct23(type3):
+        return (lambda x, dst, s: (ck.fft_dct3 if type3 else ck.fft_dct2)(
+                    x, dst, s),
+                lambda x, dst, s: ck.fft_dct23_plain(x, type3, dst, s),
+                3 if type3 else 2)
+    return {"fft_dct23": ([n for n in range(2, ck.KERNEL_MAX_N + 1)
+                           if ck.dct23_supports(n)],
+                          (dct23(False), dct23(True))),
+            "fft_dct1": ([(n, dst) for dst in (False, True)
+                          for n in range(2, ck.KERNEL_MAX_N + 2)
+                          if ck.dct1_supports(n, dst)],
+                         ((ck.fft_dct1, ck.fft_dct1_plain, 1),)),
+            "fft_dct4": ([n for n in range(2, 2 * ck.KERNEL_MAX_N + 1)
+                          if ck.dct4_supports(n)],
+                         ((ck.fft_dct4, ck.fft_dct4_plain, 4),))}
+
+
+def phase_r2r_kernels_vs_plain(ck, dev) -> dict:
+    """fft_dct23, fft_dct1 and fft_dct4 against their plain versions on the
+    card and against scipy.fft fp64, at every SWEEP_STRIDE-th length each
+    gate takes (batch 2; fft_dct23 cycles through types II and III, every
+    kernel through both flags, the scale 0.5 or 1/(2n)), and at one odd
+    batch of 33 lines a kernel."""
+    import scipy.fft as sfft
+    t0 = time.perf_counter()
+    out = {}
+    for name, (lengths, calls) in _r2r_cases(ck).items():
+        picked = _every_stride(lengths)
+        row = {"lengths": len(lengths), "checked": 0, "worst": 0.0,
+               "worst_scipy": 0.0}
+        for i, case in enumerate(picked):
+            n, dst = case if isinstance(case, tuple) else (case, bool(i % 2))
+            call, plain, t = calls[(i // 2) % len(calls)]
+            scale = 0.5 if i % 3 else 1.0 / (2 * n)
+            B = 33 if i == 0 else 2
+            x = torch.from_numpy(_host_planes((B, n), n + i)[0]).to(dev)
+            y = call(x, dst, scale)
+            p = plain(x, dst, scale)
+            err = _rel(y, p)
+            want = (sfft.dst if dst else sfft.dct)(_host(x), type=t) * scale
+            e_s = _numpy_rel(_host(y), want)
+            assert err <= KERNEL_TOL and e_s <= NUMPY_TOL, \
+                (name, n, t, dst, err, e_s)
+            row["checked"] += 1
+            row["worst"] = max(row["worst"], err)
+            row["worst_scipy"] = max(row["worst_scipy"], e_s)
+        out[name] = row
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    _log(f"[r2r kernels] {out}")
+    return out
+
+
+# every SWEEP_STRIDE-th n in 2..4096, sample 16/17's and sample 100's
+# lengths, and two past the JAX package's gates (4099 prime; 8192, whose
+# 2n is beyond its kernels: here fft_dct23 and fft_dct4 take it)
+R2R_ROUTE_LENGTHS = sorted(set(range(2, 4097, SWEEP_STRIDE))
+                           | {16, 64, 100, 255, 256, 1000, 1024, 4096, 4099,
+                              8192})
+
+
+def phase_r2r_routes(vt, dev) -> dict:
+    """Every type of vt.dct/vt.dst and its inverse at R2R_ROUTE_LENGTHS
+    (batch 2) on the card: forward against scipy fp64, the round trip
+    against the input; none may raise.  Then dctn/dstn over axis subsets
+    and the input left unchanged."""
+    import scipy.fft as sfft
+    t0 = time.perf_counter()
+    worst = {"fwd": 0.0, "round_trip": 0.0}
+    cases = 0
+    fams = (("dct", vt.dct, vt.idct, sfft.dct), ("dst", vt.dst, vt.idst,
+                                                 sfft.dst))
+    for n in R2R_ROUTE_LENGTHS:
+        xh = _host_planes((2, n), n)[0]
+        x = torch.from_numpy(xh).to(dev)
+        xd = xh.astype(np.float64)
+        for fam, fwd, inv, sci in fams:
+            for t in (1, 2, 3, 4):
+                if fam == "dct" and t == 1 and n < 2:
+                    continue
+                y = fwd(x, type=t)
+                z = inv(y, type=t)
+                h = torch.stack([y, z]).double().cpu().numpy()
+                e_f = _numpy_rel(h[0], sci(xd, type=t))
+                e_r = _numpy_rel(h[1], xd)
+                assert e_f <= NUMPY_TOL and e_r <= R2R_TOL, (fam, t, n, e_f,
+                                                             e_r)
+                worst["fwd"] = max(worst["fwd"], e_f)
+                worst["round_trip"] = max(worst["round_trip"], e_r)
+                cases += 1
+    nd = []
+    for shape, axes in (((6, 96, 96), (1, 2)), ((3, 32, 32, 32), None),
+                        ((40, 7, 64), (0,)), ((5, 255, 12), (1,))):
+        xh = _host_planes(shape, sum(shape))[0]
+        x = torch.from_numpy(xh).to(dev)
+        keep = x.clone()
+        ax = tuple(range(len(shape))) if axes is None else axes
+        for t in (1, 2, 3, 4):
+            for fn, sci in ((vt.dctn, sfft.dctn), (vt.dstn, sfft.dstn)):
+                e = _numpy_rel(_host(fn(x, type=t, axes=axes)),
+                               sci(xh.astype(np.float64), type=t, axes=ax))
+                assert e <= NUMPY_TOL, (shape, axes, t, e)
+                nd.append(e)
+        assert torch.equal(x, keep), shape
+    out = {"lengths": len(R2R_ROUTE_LENGTHS), "cases": cases, "worst": worst,
+           "nd_cases": len(nd), "nd_worst": max(nd),
+           "seconds": time.perf_counter() - t0}
+    _log(f"[r2r routes] {out}")
+    return out
+
+
+R2R_BYTES = 128 * 1024 * 1024
+SAMPLE_100 = ((2, 256), (2, 1024), (2, 255), (4, 256), (4, 1024), (4, 255))
+SAMPLE_101 = ((96, 96), (32, 32, 32))      # vkfft_tpu/cli.py:952-973
+
+
+def _r2r_paths(vt, dev) -> list:
+    """(name, inputs, drive, launches it must make, check) of each main-path
+    R2R row: sample 100 (cli.py:424-446; idct(dct(x, t), t) at 128 MiB of
+    fp32 lines), the DCT-I and DST-I round trips at n = 1025 and 1023, and
+    sample 101 (FFTApplication(kind=DCT), forward then inverse, batched to
+    128 MiB)."""
+    paths = []
+    for t, n in SAMPLE_100:
+        B = R2R_BYTES // (4 * n)
+        x = _planes((B, n), t * n, dev)[0]
+        paths.append((f"sample100_dct{t}_n{n}", x,
+                      lambda x, t=t: _fwd_inv(lambda v: vt.dct(v, type=t),
+                                              lambda v: vt.idct(v, type=t), x),
+                      {"fft_dct4" if t == 4 else "fft_dct23": 2}, ("dct", t)))
+    for fam, n in (("dct", 1025), ("dst", 1023)):
+        fwd, inv = (vt.dct, vt.idct) if fam == "dct" else (vt.dst, vt.idst)
+        x = _planes((R2R_BYTES // (4 * n), n), n, dev)[0]
+        paths.append((f"{fam}1_n{n}", x,
+                      lambda x, fwd=fwd, inv=inv: _fwd_inv(
+                          lambda v: fwd(v, type=1), lambda v: inv(v, type=1),
+                          x),
+                      {"fft_dct1": 2}, (fam, 1)))
+    for shape in SAMPLE_101:
+        B = R2R_BYTES // (4 * math.prod(shape))
+        for t in (2, 3):
+            app = vt.FFTApplication(vt.FFTConfig(
+                shape=shape, kind=vt.TransformKind.DCT, rr_type=t))
+            x = _planes((B,) + shape, t + len(shape), dev)[0]
+            paths.append((f"sample101_dct{t}_{'x'.join(map(str, shape))}", x,
+                          lambda x, app=app: _fwd_inv(app.forward, app.inverse,
+                                                      x),
+                          {"fft_dct23": 2 * len(shape)}, ("dctn", t)))
+    return paths
+
+
+def _fwd_inv(fwd, inv, x):
+    y = fwd(x)
+    return y, inv(y)
+
+
+def phase_r2r_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The R2R rows through the entry points a user calls, each with the
+    counts set to 0 just before it and read just after, held to its exact
+    launches and no plain-engine call; the forward of the first 16 lines (or
+    volumes) against scipy fp64 and the whole round trip against the
+    input."""
+    import scipy.fft as sfft
+    rows, by_path = [], {}
+    for name, x, drive, want, (fam, t) in _r2r_paths(vt, dev):
+        keep = x[:16].clone()
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        y, z = drive(x)
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_path[name] = got
+        _log(f"[main r2r] {name}: launches {got}, plain engine calls "
+             f"{torch_engine.calls}")
+        assert got == {k: want.get(k, 0) for k in got}, (name, got, want)
+        assert torch_engine.calls == 0, (name, torch_engine.calls)
+        head = _host(x[:16])
+        sci = {"dct": sfft.dct, "dst": sfft.dst}.get(fam)
+        ref = (sci(head, type=t) if sci else
+               sfft.dctn(head, type=t, axes=tuple(range(1, x.ndim))))
+        row = {"row": name, "shape": list(x.shape),
+               "rel_err_fwd_vs_scipy": _numpy_rel(_host(y[:16]), ref),
+               "rel_err_round_trip": _rel(z, x),
+               "finite": bool(torch.isfinite(y).all()
+                              and torch.isfinite(z).all())}
+        _log(f"[main r2r] {row}")
+        assert row["finite"] and y.shape == x.shape and z.shape == x.shape, row
+        assert row["rel_err_fwd_vs_scipy"] <= NUMPY_TOL \
+            and row["rel_err_round_trip"] <= R2R_TOL, row
+        assert torch.equal(x[:16], keep), name
+        rows.append(row)
+        del x, y, z
+    launches = {k: sum(c[k] for c in by_path.values()) for k in ck.launches}
+    return {"launches": launches, "launches_by_path": by_path,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def phase_r2r_times(vt, ck, dev) -> dict:
+    """The R2R kernels at the main path's shapes (each held against its
+    plain version there) and the main-path rows' round trips: ms, GB/s by
+    the convention of one 4 B read and one 4 B write a point per kernel
+    pass and direction, the bound, and torch.fft.rfft + irfft of the same
+    lines as a yardstick that is not the same function (no PyTorch call
+    computes a DCT).  The N-D rows also print the share of the round trip
+    outside the kernels: the copies that move each non-minor axis last and
+    back."""
+    _log(f"[time] card: {_smi()}")
+    kernels = {k: [] for k in R2R_KERNELS}
+
+    def r2r_ops(B, n, points):
+        # a real FFT of n points (2.5 n log2 n) and O(n) rotations a line,
+        # on the points of the kernel's complex pipeline
+        return B * (2.5 * points * math.log2(max(points, 2)) + 6.0 * n)
+
+    def kernel_row(name, B, n, points, fn, plain, extra):
+        x = _planes((B, n), n + 7, dev)[0]
+        y, p = fn(x), plain(x)
+        rel = _rel(y, p)
+        assert rel <= KERNEL_TOL, (name, B, n, rel)
+        err = (y - p).abs().max().item()
+        del y, p
+        nbytes = 8.0 * B * n
+        bound, by = _bound(nbytes, r2r_ops(B, n, points))
+        row = dict(extra)
+        row.update({"shape": [B, n], "ms": _time_ms(lambda: fn(x)),
+                    "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                    "plain_ms": _time_ms(lambda: plain(x), reps=5, inner=1,
+                                         warmup=1),
+                    "library_ms": None,
+                    "rfft_irfft_ms_not_same_function": _time_ms(
+                        lambda: torch.fft.irfft(torch.fft.rfft(x), n=n))})
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] {name} {row}")
+        kernels[name].append(row)
+        return row["ms"]
+
+    for t, n in SAMPLE_100:
+        B = R2R_BYTES // (4 * n)
+        if t == 2:
+            for type3 in (False, True):
+                f = ck.fft_dct3 if type3 else ck.fft_dct2
+                s = 1.0 / (2 * n) if type3 else 1.0
+                kernel_row("fft_dct23", B, n, n,
+                           lambda x, f=f, s=s: f(x, False, s),
+                           lambda x, ty=type3, s=s: ck.fft_dct23_plain(
+                               x, ty, False, s),
+                           {"type": 3 if type3 else 2})
+        else:
+            kernel_row("fft_dct4", B, n, ck.dct4_length(n),
+                       lambda x: ck.fft_dct4(x, False, 1.0),
+                       lambda x: ck.fft_dct4_plain(x, False, 1.0),
+                       {"type": 4, "pipeline_points": ck.dct4_length(n)})
+    for dst, n in ((False, 1025), (True, 1023)):
+        kernel_row("fft_dct1", R2R_BYTES // (4 * n), n,
+                   ck.dct1_length(n, dst),
+                   lambda x, d=dst: ck.fft_dct1(x, d, 1.0),
+                   lambda x, d=dst: ck.fft_dct1_plain(x, d, 1.0),
+                   {"dst": dst})
+    # fft_dct23 on the lines of sample 101's axes (n = 96, 32)
+    axis_ms = {}
+    for shape in SAMPLE_101:
+        n = shape[-1]
+        B = R2R_BYTES // (4 * n)
+        axis_ms[shape] = sum(
+            kernel_row("fft_dct23", B, n, n,
+                       lambda x, f=f: f(x, False, 1.0),
+                       lambda x, ty=ty: ck.fft_dct23_plain(x, ty, False, 1.0),
+                       {"type": 3 if ty else 2, "axis_of": list(shape)})
+            for f, ty in ((ck.fft_dct2, False), (ck.fft_dct3, True)))
+
+    e2e = []
+    for name, x, drive, want, (fam, t) in _r2r_paths(vt, dev):
+        passes = sum(want.values()) // 2
+        n = x.shape[-1]
+        lines = x.numel() // n
+        nbytes = 2 * passes * 8.0 * x.numel()
+        bound, by = _bound(nbytes, 2 * passes * r2r_ops(lines, n, n))
+        ms = _time_ms(lambda: drive(x))
+        row = {"row": name, "shape": list(x.shape), "ms": ms,
+               "GBs": nbytes / ms / 1e6, "bound_ms": bound, "bound_by": by,
+               "kernel_passes_per_dir": passes,
+               "rfft_irfft_ms_not_same_function": _time_ms(
+                   lambda: torch.fft.irfftn(torch.fft.rfftn(
+                       x, dim=tuple(range(x.ndim - passes, x.ndim))),
+                       s=x.shape[x.ndim - passes:],
+                       dim=tuple(range(x.ndim - passes, x.ndim))))}
+        if passes > 1:
+            shape = tuple(x.shape[1:])
+            kms = passes * axis_ms[shape]
+            row["kernels_ms"] = kms
+            row["glue_share"] = 1.0 - kms / ms
+        _log(f"[time] e2e {row}")
+        e2e.append(row)
+        del x
+    return {"kernels": kernels, "e2e": e2e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1335,7 +1656,12 @@ def main() -> int:
               ("any_routes", lambda: phase_any_routes(vt, ce, dev)),
               ("any_main_path",
                lambda: phase_any_main_path(vt, ck, torch_engine, dev)),
-              ("any_times", lambda: phase_any_times(vt, ck, dev))]
+              ("any_times", lambda: phase_any_times(vt, ck, dev)),
+              ("r2r_kernels", lambda: phase_r2r_kernels_vs_plain(ck, dev)),
+              ("r2r_routes", lambda: phase_r2r_routes(vt, dev)),
+              ("r2r_main_path",
+               lambda: phase_r2r_main_path(vt, ck, torch_engine, dev)),
+              ("r2r_times", lambda: phase_r2r_times(vt, ck, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -1353,7 +1679,8 @@ def main() -> int:
     # each counted from 0
     by_path = dict({"c2c": record["main_path"]["launches"]},
                    **record["real_main_path"]["launches_by_path"],
-                   **record["any_main_path"]["launches_by_path"])
+                   **record["any_main_path"]["launches_by_path"],
+                   **record["r2r_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -1370,15 +1697,19 @@ def main() -> int:
                "fft_conv_inv": ("vkfft_tpu_torch/csrc/fft_conv_inv.cu",
                                 f"{pe}:4421"),
                "fft_conv_pair": ("vkfft_tpu_torch/csrc/fft_conv_pair.cu",
-                                 f"{pe}:2205")}
+                                 f"{pe}:2205"),
+               "fft_dct23": ("vkfft_tpu_torch/csrc/fft_dct23.cu", f"{pe}:2745"),
+               "fft_dct1": ("vkfft_tpu_torch/csrc/fft_dct1.cu", f"{pe}:2958"),
+               "fft_dct4": ("vkfft_tpu_torch/csrc/fft_dct4.cu", f"{pe}:3080")}
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
     # source holds both directions
     also = {"fft_strided": [f"{pe}:4001"], "fft_r2c": [f"{pe}:2507"],
-            "fft_r2c_pair": [f"{pe}:3229"]}
+            "fft_r2c_pair": [f"{pe}:3229"], "fft_dct23": [f"{pe}:2789"]}
     timed = {k: record["times"]["kernels"].get(k, [])
              + record["real_times"]["kernels"].get(k, [])
              + record["any_times"]["kernels"].get(k, [])
+             + record["r2r_times"]["kernels"].get(k, [])
              for k in ck.KERNEL_SOURCES}
     entries = []
     for name, rows in timed.items():

@@ -236,7 +236,8 @@ def test_cuda_route_refuses_options_outside_the_slice():
         cuda_engine.fft_axis_p(x, 1, plan_axis(16), out_keep=4)
     refused = [
         dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
-        dict(kind=vt.TransformKind.DCT),
+        dict(kind=vt.TransformKind.DCT, zeropad_input=((0, 8),)),
+        dict(kind=vt.TransformKind.DST, rr_type=1, zeropad_output=((8, 16),)),
         dict(precision=vt.Precision.DOUBLE),
         dict(precision=vt.Precision.BFLOAT16),
         dict(zeropad_input=((0, 8),)),

@@ -10,7 +10,8 @@ modules.  Layer map:
                cuda_kernels (hand-written CUDA kernels for sm_90a, built
                with nvcc at first use) and cuda_engine (dispatch onto them)
   api        — FFTApplication and the functional C2C API
-  transforms/ — r2c: rfft/irfft, rfft2/irfft2, rfftn/irfftn
+  transforms/ — r2c: rfft/irfft, rfft2/irfft2, rfftn/irfftn;
+               r2r: dct/idct/dst/idst/dctn/dstn, types I-IV
 """
 from vkfft_tpu_torch.config import (
     FFTConfig,
@@ -44,6 +45,14 @@ from vkfft_tpu_torch.transforms.r2c import (
     irfft2,
     rfftn,
     irfftn,
+)
+from vkfft_tpu_torch.transforms.r2r import (
+    dct,
+    idct,
+    dst,
+    idst,
+    dctn,
+    dstn,
 )
 
 __version__ = "0.1.0"

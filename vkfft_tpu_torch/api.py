@@ -1,13 +1,15 @@
-"""Application layer — plan/execute lifecycle, C2C and R2C.
+"""Application layer — plan/execute lifecycle, C2C, R2C and R2R.
 
-Port of the C2C and R2C core of ``vkfft_tpu/api.py``: ``FFTApplication``
+Port of the C2C, R2C and R2R core of ``vkfft_tpu/api.py``: ``FFTApplication``
 plans every transformed axis at construction (``initializeVkFFT``,
 ``vkFFT_InitializeApp.h:1468``) and its ``forward``/``inverse`` walk the
 axes (``VkFFTAppend``, ``vkFFT_RunApp.h:79``), folding the inverse's 1/N
 into the last axis pass.  On an engine with a pair kernel
 (``pair_supports``) the two minor axes run as one pass.  The R2C kind runs
-`transforms.r2c.rfftn`/`irfftn` (``_real_transform``, ``api.py:293-315`` of
-the JAX package).  The functional API (`fft`, `ifft`, ...) wraps a keyed
+`transforms.r2c.rfftn`/`irfftn`, the DCT and DST kinds
+`transforms.r2r.dctn`/`dstn` forward and `idct`/`idst` axis by axis in
+reverse order backward (``_real_transform``, ``api.py:293-330`` of the JAX
+package).  The functional API (`fft`, `ifft`, ...) wraps a keyed
 application cache.
 
 Engines: ``torch`` (`ops.torch_engine`, plain tensor ops) runs CPU tensors;
@@ -20,8 +22,8 @@ every configuration the port takes (as the JAX package narrows it,
 ``vkfft_tpu/api.py:804-808``); ``Planar`` and tensor input keep their dtype.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: R2R kinds, precisions other than SINGLE, zero-pad windows and
-keep_intermediate_order.
+item: precisions other than SINGLE, zero-pad windows (of every kind, R2R
+included) and keep_intermediate_order.
 """
 from __future__ import annotations
 
@@ -70,8 +72,6 @@ def _check_slice(config: FFTConfig) -> None:
         raise InvalidConfigError(
             "convolution configs are executed by ConvolutionApplication "
             "(not ported yet: ROADMAP queue 1 item 7)")
-    if config.kind not in (TransformKind.C2C, TransformKind.R2C):
-        raise NotImplementedError("DCT/DST are ROADMAP queue 1 item 9")
     if config.precision is not Precision.SINGLE:
         raise NotImplementedError(
             f"precision {config.precision.value} is ROADMAP queue 1 item 10")
@@ -94,7 +94,8 @@ def owned_by_walk(*caller: torch.Tensor):
 
 
 class FFTApplication:
-    """Planned, reusable C2C or R2C executor for a fixed configuration.
+    """Planned, reusable C2C, R2C or DCT/DST executor for a fixed
+    configuration.
 
     ``engine``: 'torch', 'cuda', or None to pick by the device of each
     call's planes.  ``device``: where host numpy input is placed."""
@@ -166,12 +167,15 @@ class FFTApplication:
         return x
 
     def _real_transform(self, x, inverse: bool):
-        """R2C execution (``_real_transform``, ``vkfft_tpu/api.py:293-315``):
-        the forward takes real data of the configured shape and returns the
-        half spectrum along the last configured axis; the inverse takes
-        that spectrum and returns real data, normalized by 1/N whatever
-        ``normalize`` says, as the JAX package's R2C inverse is."""
-        from vkfft_tpu_torch.transforms import r2c
+        """R2C, DCT and DST execution (``_real_transform``,
+        ``vkfft_tpu/api.py:293-330``).  R2C: the forward takes real data of
+        the configured shape and returns the half spectrum along the last
+        configured axis; the inverse takes that spectrum and returns real
+        data, normalized by 1/N whatever ``normalize`` says, as the JAX
+        package's R2C inverse is.  DCT/DST of ``rr_type``: real data of the
+        configured shape both ways, the forward unnormalized, the inverse
+        the exact inverse (`r2r.idct`/`idst` per axis)."""
+        from vkfft_tpu_torch.transforms import r2c, r2r
         cfg = self.config
         ndim = len(cfg.shape)
         if not isinstance(x, (Planar, torch.Tensor)):
@@ -181,21 +185,33 @@ class FFTApplication:
         axes = tuple(a - ndim for a in cfg.axes)
         last = cfg.axes[-1]
         want = list(cfg.shape)
-        if inverse:
+        r2c_kind = cfg.kind is TransformKind.R2C
+        if inverse and r2c_kind:
             want[last] = cfg.shape[last] // 2 + 1
         if tuple(x.shape[-ndim:]) != tuple(want):
             raise InvalidConfigError(
-                f"R2C {'inverse' if inverse else 'forward'} input trailing "
+                f"{cfg.kind.value.upper()} "
+                f"{'inverse' if inverse else 'forward'} input trailing "
                 f"shape {tuple(x.shape[-ndim:])} != {tuple(want)}")
         self._check_batch(x, ndim)
         kw = dict(engine=self.engine_name, device=self.device)
+        if r2c_kind:
+            if not inverse:
+                return r2c.rfftn(x, axes=axes, **kw)
+            return r2c.irfftn(x, s=tuple(cfg.shape[a] for a in cfg.axes),
+                              axes=axes, **kw)
+        dct = cfg.kind is TransformKind.DCT
         if not inverse:
-            return r2c.rfftn(x, axes=axes, **kw)
-        return r2c.irfftn(x, s=tuple(cfg.shape[a] for a in cfg.axes),
-                          axes=axes, **kw)
+            return (r2r.dctn if dct else r2r.dstn)(x, type=cfg.rr_type,
+                                                   axes=axes, **kw)
+        inv = r2r.idct if dct else r2r.idst
+        y, kind = r2r.real_input(x, self.device, cfg.kind.value)
+        for a in reversed(axes):
+            y = inv(y, type=cfg.rr_type, axis=a, engine=self.engine_name)
+        return r2r.real_output(y, kind)
 
     def _run(self, x, inverse: bool):
-        if self.config.kind is TransformKind.R2C:
+        if self.config.kind is not TransformKind.C2C:
             return self._real_transform(x, inverse)
         if isinstance(x, Planar):
             return self._transform(x, inverse)
@@ -209,7 +225,8 @@ class FFTApplication:
         a ``Planar`` on the same device), a torch tensor (result a complex
         tensor on its device) or a host array (placed on ``device``, result
         a numpy complex array).  R2C: real data in (a ``Planar``'s real
-        plane), the half spectrum out."""
+        plane), the half spectrum out.  DCT/DST: real data in and out (a
+        tensor, or a numpy array for host input)."""
         return self._run(x, False)
 
     def inverse(self, x):

@@ -32,6 +32,11 @@ holds, and otherwise the half-length route of the JAX package's
 card between tensor-op packing and untangling; the two minor axes of real
 data run `fft_r2c_pair` where `r2c_pair_supports` finds a cluster.
 
+Real-to-real lines (DCT/DST types I-IV) run `fft_dct23`, `fft_dct1` or
+`fft_dct4` where `r2r_route` names one; elsewhere `transforms/r2r.py` runs
+the JAX package's composition (extensions, Makhoul's permutation, the
+DCT-IV tricks) onto the real and complex routes above, on the card.
+
 What raises ``NotImplementedError`` naming its ROADMAP item: DIRECT
 lengths above 16384 and Bluestein lengths whose padded length fits none of
 the kernels above (m > 2^16, or beyond 16384 without a cluster plane): the
@@ -387,3 +392,28 @@ def irfft_pair_p(X: Planar, nz: int, scale_y: float = 1.0,
     y = ck.fft_c2r_pair(X.re.reshape(-1, ny, h), X.im.reshape(-1, ny, h),
                         nz, scale_y, scale_z)
     return y.reshape(*lead, ny, nz)
+
+
+def r2r_route(type: int, dst: bool, n: int) -> Optional[str]:
+    """The kernel that runs a DCT (``dst``: DST) of ``type`` 1..4 on (B, n)
+    lines, or None where its gate fails and `transforms/r2r.py` runs the
+    transform as its composition on the card's FFT routes: the R2R
+    counterpart of `route`."""
+    if type in (2, 3):
+        return "fft_dct23" if ck.dct23_supports(n) else None
+    if type == 1:
+        return "fft_dct1" if ck.dct1_supports(n, dst) else None
+    return "fft_dct4" if ck.dct4_supports(n) else None
+
+
+_R2R_KERNELS = {1: ck.fft_dct1, 2: ck.fft_dct2, 3: ck.fft_dct3,
+                4: ck.fft_dct4}
+
+
+def r2r_lines_p(x: torch.Tensor, type: int, dst: bool,
+                scale: float = 1.0) -> torch.Tensor:
+    """Unnormalized DCT (``dst``: DST) of ``type`` of real (B, n) lines,
+    times ``scale``, in the kernel `r2r_route` names (the kernel's wrapper
+    raises where it names none)."""
+    _check_dtype(x)
+    return _R2R_KERNELS[type](x.contiguous(), dst, scale)

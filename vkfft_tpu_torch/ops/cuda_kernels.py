@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their plain versions, and the build.
 
-Nine kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
+Twelve kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
 
 * `fft_lines` (``csrc/fft_lines.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``: batched C2C of
@@ -39,6 +39,16 @@ Nine kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in its
   Bluestein mode: one padded line of m = nc*ns <= 2^16 points as a
   four-step plane held in a cluster.
+* `fft_dct23` (``csrc/fft_dct23.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:2745 _dct2_kernel`` and ``:2789
+  _dct3_kernel``: DCT-II/DST-II and DCT-III/DST-III of real (B, n) lines,
+  two lines riding one n-point complex pipeline.
+* `fft_dct1` (``csrc/fft_dct1.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:2958 _dct1_kernel``: DCT-I/DST-I as the
+  real FFT of the extension, built as the line is read.
+* `fft_dct4` (``csrc/fft_dct4.cu``) replaces
+  ``vkfft_tpu/ops/pallas_engine.py:3080 _dct4_kernel``: DCT-IV/DST-IV, the
+  n/2 complex trick for even n and the 2n-point form for odd n.
 
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
@@ -50,7 +60,11 @@ coverage, and the real kernels every even n whose n/2 that is
 `pair_cluster` and `r2c_pair_cluster` find a cluster for.  `fft_conv`
 holds the lengths of `fft_lines`; `fft_twofactor` and `fft_conv_inv` every
 n <= 16384 whose primes are <= 127 (`twofactor_split`); `fft_conv_pair`
-the padded lengths `conv_pair_plan` finds a cluster plane for.
+the padded lengths `conv_pair_plan` finds a cluster plane for; the R2R
+kernels the n >= 4 (DCT-I/DST-I: n >= 3) whose stage length the stages
+take (`dct23_supports`, `dct1_supports`, `dct4_supports`), a superset of
+the JAX package's ``use_dct_kernel``, ``use_dct1_kernel``,
+``use_dst1_kernel`` and ``use_dct4_kernel``.
 
 Each wrapper checks its tensors, then runs the plain version when they lie
 on the CPU and launches the kernel when they lie on a CUDA device; there is
@@ -79,7 +93,7 @@ import torch
 
 from vkfft_tpu_torch import luts
 from vkfft_tpu_torch.ops import torch_engine
-from vkfft_tpu_torch.pcomplex import Planar
+from vkfft_tpu_torch.pcomplex import Planar, planar_table
 from vkfft_tpu_torch.planner.factorize import MAX_DIRECT_PRIME, prime_factors
 from vkfft_tpu_torch.planner.plan import plan_axis
 
@@ -103,7 +117,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
                   "fft_r2c_pair", "fft_conv", "fft_twofactor", "fft_conv_inv",
-                  "fft_conv_pair")
+                  "fft_conv_pair", "fft_dct23", "fft_dct1", "fft_dct4")
 # Shared memory per block of `fft_pair` (two buffers of its share of a
 # plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
 # as a block of `fft_lines`), or else to its largest size, as long as a
@@ -230,6 +244,38 @@ def r2c_supports(n: int) -> bool:
     return n % 2 == 0 and kernel_supports(n // 2)
 
 
+def dct1_length(n: int, dst: bool) -> int:
+    """Complex points of `fft_dct1`'s pipeline: the real FFT of the 2(n-1)
+    (DCT-I) or 2(n+1) (DST-I) point extension runs as half as many."""
+    return n + 1 if dst else n - 1
+
+
+def dct4_length(n: int) -> int:
+    """Complex points of `fft_dct4`'s pipeline: n/2 for even n, 2n for
+    odd n."""
+    return n // 2 if n % 2 == 0 else 2 * n
+
+
+def dct23_supports(n: int) -> bool:
+    """Whether `fft_dct23` takes lines of length n: n >= 4 and n a length
+    of the stages (every n the JAX package's ``use_dct_kernel`` takes,
+    whose 2n is one)."""
+    return n >= 4 and kernel_supports(n)
+
+
+def dct1_supports(n: int, dst: bool) -> bool:
+    """Whether `fft_dct1` takes lines of length n: n >= 3 and n -+ 1 a
+    length of the stages (``use_dct1_kernel``/``use_dst1_kernel`` want
+    2(n -+ 1) to be one)."""
+    return n >= 3 and kernel_supports(dct1_length(n, dst))
+
+
+def dct4_supports(n: int) -> bool:
+    """Whether `fft_dct4` takes lines of length n: n >= 4 and
+    `dct4_length` a length of the stages (``use_dct4_kernel`` wants 2n)."""
+    return n >= 4 and kernel_supports(dct4_length(n))
+
+
 def _cluster(ny: int, cols: int) -> Optional[int]:
     """Blocks of a cluster that holds ny x cols complex points (see
     PAIR_BLOCK_BYTES), each block ny/C rows or cols/C columns, or None."""
@@ -319,6 +365,38 @@ def r2c_tables(n: int, inverse: bool, scale: float = 1.0):
     ints, stages = stage_tables(n // 2, inverse, scale)
     post = np.exp(-2j * np.pi / n * np.arange(n // 4 + 1))
     return ints, np.concatenate([stages, post]), len(stages)
+
+
+@functools.lru_cache(maxsize=256)
+def dct23_tables(n: int, type3: bool, scale: float = 1.0):
+    """(plan ints, complex128 table, rotation offset) of `fft_dct23`: the
+    n-point stages (inverse for type III) followed by the rotations, 2
+    scale e^{-i pi k/2n} for type II, scale e^{+i pi k/2n} for type III."""
+    ints, stages = stage_tables(n, type3)
+    k = np.arange(n)
+    rot = (scale * np.exp(0.5j * np.pi * k / n) if type3
+           else 2.0 * scale * np.exp(-0.5j * np.pi * k / n))
+    return ints, np.concatenate([stages, rot]), len(stages)
+
+
+@functools.lru_cache(maxsize=256)
+def dct4_tables(n: int, scale: float = 1.0):
+    """(plan ints, complex128 table, pre offset, post offset) of
+    `fft_dct4`: the `dct4_length` stages, the pre-rotation and the
+    post-rotations with 2 ``scale`` folded in (``csrc/fft_dct4.cu``)."""
+    ints, stages = stage_tables(dct4_length(n), False)
+    if n % 2 == 0:
+        j = np.arange(n // 2)
+        pre = np.exp(-1j * np.pi * (4 * j + 1) / (4 * n))
+        post = np.concatenate([np.exp(-1j * np.pi * j / n),
+                               np.exp(1j * np.pi * (j + 1) / n)])
+    else:
+        j = np.arange(n)
+        pre = np.exp(-0.5j * np.pi * j / n)
+        post = np.exp(-0.25j * np.pi * (2 * j + 1) / n)
+    off = len(stages)
+    return (ints, np.concatenate([stages, pre, 2.0 * scale * post]), off,
+            off + len(pre))
 
 
 @functools.lru_cache(maxsize=256)
@@ -553,6 +631,77 @@ def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
     return fft_conv_plain(re, im, natural, chirp)
 
 
+# The R2R kernels' plain versions compute the TPU kernels' own forms
+# (``pallas_engine.py:2745-2880``, ``:2958-3050``, ``:3080-3150``): 2n-point
+# zero-padded pipelines with rotations and correction terms, so they share
+# no algorithm with the CUDA kernels, which permute and extend in shared
+# memory.
+
+
+def fft_dct23_plain(x: torch.Tensor, type3: bool, dst: bool = False,
+                    scale: float = 1.0) -> torch.Tensor:
+    """Plain torch version of `fft_dct23`.  Type II: H = rfft of x
+    zero-padded to 2n, DCT2[k] = Re(2 e^{-i pi k/2n} H[k]) and DST2[k] =
+    -Im(2 e^{-i pi (k+1)/2n} H[k+1]).  Type III: c = x times the
+    pre-rotation (DCT: 2 e^{-i pi j/2n}, c[0] = x[0]; DST: shifted one bin,
+    the end term halved) zero-extended to 2n, Z = DFT_2n(c), DCT3 = Re Z,
+    DST3 = -Im Z, on the first n bins.  All times ``scale``."""
+    pad = torch.nn.functional.pad
+    n = x.shape[1]
+    k = np.arange(n)
+    if not type3:
+        shift = 1 if dst else 0
+        rot = planar_table(2.0 * scale * np.exp(-0.5j * np.pi * (k + shift)
+                                                / n), x.dtype, x.device)
+        H = torch_engine.rfft_lines_plain(pad(x, (0, n)))
+        V = H[:, shift:shift + n] * rot[None]
+        return -V.im if dst else V.re
+    rot = 2.0 * np.exp(-0.5j * np.pi * (k + (1 if dst else 0)) / n)
+    if dst:
+        rot[-1] *= 0.5
+    else:
+        rot[0] = 1.0
+    rot = planar_table(rot, x.dtype, x.device)
+    c = Planar(*(pad(t, (1, n - 1) if dst else (0, n))
+                 for t in (x * rot.re, x * rot.im)))
+    Z = torch_engine.lines_plain(c, plan_axis(2 * n), False, scale)[:, :n]
+    return (-Z.im if dst else Z.re).contiguous()
+
+
+def fft_dct1_plain(x: torch.Tensor, dst: bool = False,
+                   scale: float = 1.0) -> torch.Tensor:
+    """Plain torch version of `fft_dct1`: H = rfft of x zero-padded to 2M
+    (DST-I: shifted one place), M = `dct1_length`; DCT1[k] = 2 Re H[k] -
+    x[0] - (-1)^k x[n-1], DST1[k] = -2 Im H[k+1]; times ``scale``."""
+    n = x.shape[1]
+    M = dct1_length(n, dst)
+    pad = (1, 2 * M - n - 1) if dst else (0, 2 * M - n)
+    H = torch_engine.rfft_lines_plain(torch.nn.functional.pad(x, pad))
+    if dst:
+        y = -2.0 * H.im[:, 1:n + 1]
+    else:
+        alt = torch.as_tensor(np.where(np.arange(n) % 2, -1.0, 1.0),
+                              dtype=x.dtype, device=x.device)
+        y = 2.0 * H.re[:, :n] - x[:, :1] - alt * x[:, n - 1:]
+    return (y * scale).contiguous()
+
+
+def fft_dct4_plain(x: torch.Tensor, dst: bool = False,
+                   scale: float = 1.0) -> torch.Tensor:
+    """Plain torch version of `fft_dct4`: c = x e^{-i pi j/2n}
+    zero-extended to 2n, Z = DFT_2n(c), DCT4[k] = 2 Re(t_k Z[k]), DST4[k] =
+    -2 Im(t_k Z[k]), t_k = e^{-i pi (2k+1)/4n}; times ``scale``."""
+    n = x.shape[1]
+    j = np.arange(n)
+    pre = planar_table(np.exp(-0.5j * np.pi * j / n), x.dtype, x.device)
+    post = planar_table(2.0 * scale * np.exp(-0.25j * np.pi * (2 * j + 1) / n),
+                        x.dtype, x.device)
+    c = Planar(*(torch.nn.functional.pad(t, (0, n))
+                 for t in (x * pre.re, x * pre.im)))
+    Z = torch_engine.lines_plain(c, plan_axis(2 * n))[:, :n] * post[None]
+    return (-Z.im if dst else Z.re).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Build and load.
 # ---------------------------------------------------------------------------
@@ -640,6 +789,9 @@ _ENTRIES = {
     "fft_twofactor": {"fft_twofactor": "ppppqpppppi"},
     "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8},
     "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "i"},
+    "fft_dct23": {"fft_dct2": "ppqippi", "fft_dct3": "ppqippi"},
+    "fft_dct1": {"fft_dct1": "ppqippi"},
+    "fft_dct4": {"fft_dct4": "ppqiippii"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
 
@@ -1175,3 +1327,113 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     return _apply("fft_conv_pair", re, im, out,
                   lambda: fft_conv_pair_plain(re, im, spectrum, chirp), args)
+
+
+# ---------------------------------------------------------------------------
+# Real-to-real wrappers (DCT/DST types I-IV).
+# ---------------------------------------------------------------------------
+
+def _r2r_gate(ok: bool, what: str, n: int, rule: str) -> None:
+    if not ok:
+        raise NotImplementedError(
+            f"{what}: length {n} is outside the kernel's range ({rule}, "
+            f"the stage length <= {KERNEL_MAX_N} with prime factors <= "
+            f"{KERNEL_MAX_PRIME}); the CUDA engine runs other lengths as the "
+            "composition onto its FFT kernels (transforms/r2r.py)")
+
+
+def _r2r_apply(name: str, entry: str, x: torch.Tensor, plain, tables,
+               key: tuple, *args) -> torch.Tensor:
+    """Shared body of the R2R wrappers: ``plain()`` for a CPU tensor, else
+    one launch of C entry ``vk_<entry>`` of library ``name`` on a fresh
+    (B, n) output.  ``tables()`` gives (plan ints, complex128 table,
+    offsets...), the table cached on the device under ``key``; ``args``
+    go between the batch and the plan."""
+    if x.device.type == "cpu":
+        return plain()
+    y = torch.empty_like(x)
+    if x.shape[0]:
+        ints, table, *offsets = tables()
+        dev_table = device_array(key, x.device, lambda: table)
+        _launch(name, entry, x.device,
+                [x, y, x.shape[0], *args, (ctypes.c_int * len(ints))(*ints),
+                 dev_table, *offsets])
+    return y
+
+
+def _dct23(x: torch.Tensor, type3: bool, dst: bool, scale: float):
+    what = "fft_dct3" if type3 else "fft_dct2"
+    _check_real(x, 2, what)
+    n = x.shape[1]
+    _r2r_gate(dct23_supports(n), what, n, "n >= 4")
+    return _r2r_apply("fft_dct23", what, x,
+                      lambda: fft_dct23_plain(x, type3, dst, scale),
+                      lambda: dct23_tables(n, type3, scale),
+                      ("dct23", n, type3, scale), int(dst))
+
+
+def fft_dct2(x: torch.Tensor, dst: bool = False,
+             scale: float = 1.0) -> torch.Tensor:
+    """Unnormalized DCT-II (``dst``: DST-II) of each real line of (B, n)
+    float32 ``x``, times ``scale``.  CPU tensors run `fft_dct23_plain`; CUDA
+    tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:2745 _dct2_kernel``.  Bound
+    by bytes (4 B a point in, 4 B out): a block stages its lines, reads them
+    in Makhoul's order as pairs z = v_a + i v_b, runs the n-point stages in
+    shared memory, splits the two spectra and rotates
+    (``csrc/fft_dct23.cu``)."""
+    return _dct23(x, False, dst, scale)
+
+
+def fft_dct3(x: torch.Tensor, dst: bool = False,
+             scale: float = 1.0) -> torch.Tensor:
+    """Unnormalized DCT-III (``dst``: DST-III) of each real line of (B, n)
+    float32 ``x``, times ``scale``; ``scale=1/(2n)`` inverts `fft_dct2`.
+    CPU tensors run `fft_dct23_plain`; CUDA tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:2789 _dct3_kernel``; bound and
+    design as `fft_dct2`, backwards: pre-rotation of the pair, the inverse
+    stages, and Makhoul's order undone on the store."""
+    return _dct23(x, True, dst, scale)
+
+
+def fft_dct1(x: torch.Tensor, dst: bool = False,
+             scale: float = 1.0) -> torch.Tensor:
+    """Unnormalized DCT-I (``dst``: DST-I) of each real line of (B, n)
+    float32 ``x``, times ``scale``.  CPU tensors run `fft_dct1_plain`; CUDA
+    tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:2958 _dct1_kernel``.  Bound
+    by bytes (4 B a point in, 4 B out): a block builds the 2(n -+ 1)-point
+    extension from its staged lines as n -+ 1 complex points, runs the
+    stages and `r2c.cuh`'s untangle in shared memory and writes the real
+    (DCT) or imaginary (DST) bins (``csrc/fft_dct1.cu``)."""
+    _check_real(x, 2, "fft_dct1")
+    n = x.shape[1]
+    _r2r_gate(dct1_supports(n, dst), "fft_dct1", n, "n >= 3")
+    return _r2r_apply("fft_dct1", "fft_dct1", x,
+                      lambda: fft_dct1_plain(x, dst, scale),
+                      lambda: r2c_tables(2 * dct1_length(n, dst), False,
+                                         scale),
+                      ("dct1", n, dst, scale), int(dst))
+
+
+def fft_dct4(x: torch.Tensor, dst: bool = False,
+             scale: float = 1.0) -> torch.Tensor:
+    """Unnormalized DCT-IV (``dst``: DST-IV) of each real line of (B, n)
+    float32 ``x``, times ``scale``.  CPU tensors run `fft_dct4_plain`; CUDA
+    tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:3080 _dct4_kernel``.  Bound
+    by bytes for even n (the n/2 complex trick: a pre-rotated n/2-point
+    pipeline whose two outputs of each bin interleave on the store); odd n
+    runs the TPU kernel's pre-rotated 2n-point form, four times the work
+    (``csrc/fft_dct4.cu``)."""
+    _check_real(x, 2, "fft_dct4")
+    n = x.shape[1]
+    _r2r_gate(dct4_supports(n), "fft_dct4", n, "n >= 4")
+    return _r2r_apply("fft_dct4", "fft_dct4", x,
+                      lambda: fft_dct4_plain(x, dst, scale),
+                      lambda: dct4_tables(n, scale), ("dct4", n, scale), n,
+                      int(dst))

@@ -41,18 +41,18 @@ from vkfft_tpu_torch.pcomplex import (Planar, from_complex, mul_neg_i,
 from vkfft_tpu_torch.planner.plan import plan_axis
 
 
-def _real_input(x, device):
+def _real_input(x, device, what: str = "rfft"):
     """(real tensor, kind) of a forward's input; kind is 'planar',
     'tensor' or 'host'."""
     if isinstance(x, Planar):
         return x.re, "planar"
     if isinstance(x, torch.Tensor):
         if x.is_complex():
-            raise TypeError("rfft input must be real")
+            raise TypeError(f"{what} input must be real")
         return x, "tensor"
     a = np.asarray(x)
     if np.iscomplexobj(a):
-        raise TypeError("rfft input must be real")
+        raise TypeError(f"{what} input must be real")
     t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
     return t.to(api.resolve_device(device)), "host"
 
