@@ -55,6 +55,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
      4, beside torch.fft.rfft + irfft of the same data (not the same
      function: no PyTorch call computes a DCT) and, for the N-D rows, the
      share of the round trip outside the kernels.
+  8. convolution (ConvolutionApplication): conv_kernels, the new modes of
+     fft_conv (rows, matrix mm = 2 and 3) and the 2-D mode of
+     fft_conv_pair against their plain versions, each with and without
+     conjugated data and cross-power, at the main path's shapes and a
+     spread of lengths (and numpy on the small cases); conv_routes, every
+     fusion mode, flag and composition case at small shapes against numpy,
+     and fftconvolve; conv_main_path, the reference's samples 50-52 and
+     the other modes' rows at 128 MiB of complex64 data (v3_1d at 4096 x
+     4096, sample 50's 3 x 3 matrix at 5461 x 3 x 1024, sample 52 / 51's
+     dense bench at 256 x 256 x 256 as pair, 64 x 512 x 512 as v3_rows, 8
+     x 32 x 256 x 256 as pair with per-slice spectra, 1638 x 10240 as
+     v2_2k, sample 51's zero-padded 3 x 3 matrix at 21 x 3 x 64^3 as the
+     composition), each counted from 0 and held to its exact launches, two
+     seeded items of each against numpy fp64; conv_times, the kernels at
+     those shapes (held against their plain versions) and each row's call
+     timed as in 4, beside the bound and the torch.fft composition of the
+     same function (fftn, the multiply or einsum, ifftn).
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -1623,6 +1640,404 @@ def phase_r2r_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# Convolution: ConvolutionApplication, its fused modes and the composition.
+# ---------------------------------------------------------------------------
+
+CONV_KERNELS = ("fft_conv", "fft_conv_pair")
+CONV_BYTES = 128 * 1024 * 1024   # of complex64 data a row
+# (row, shape, config flags, fusion mode, launches of one call): the
+# reference's samples 50-52 at full width (vkfft_tpu/cli.py:393, :411,
+# :885) and the modes' other rows, each batched to CONV_BYTES (4096, 5461,
+# 256, 64, 8, 1638 and 21 items; sample 51, the composition, at (64, 64,
+# 64) with 3 coordinates, 126 MiB)
+CONV_ROWS = (
+    ("v3_1d_n4096", (4096,), {}, "v3_1d", {"fft_conv": 1}),
+    ("sample50_mat3_n1024", (1024,),
+     dict(matrix_convolution=3, coordinate_features=3), "v3_mat",
+     {"fft_conv": 1}),
+    ("sample52_256x256", (256, 256), {}, "pair", {"fft_conv_pair": 1}),
+    ("rows_512x512", (512, 512), {}, "v3_rows",
+     {"fft_strided": 2, "fft_conv": 1}),
+    ("per_slice_32x256x256", (32, 256, 256), {}, "pair",
+     {"fft_strided": 2, "fft_conv_pair": 1}),
+    ("v2_2k_n10240", (10240,), {}, "v2_2k",
+     {"fft_twofactor": 1, "fft_conv_inv": 1}),
+    ("sample51_mat3_64cube", (64, 64, 64),
+     dict(matrix_convolution=3, coordinate_features=3,
+          zeropad_input=(None, None, (32, 64))), None,
+     {"fft_pair": 2, "fft_strided": 2}),
+)
+# small shapes of every mode, each flag and the composition's cases
+CONV_ROUTES = (
+    ((64,), {}), ((4096,), dict(conjugate_convolution=1)),
+    ((1000,), dict(conjugate_convolution=2)),
+    ((243,), dict(cross_power_spectrum_normalization=True)),
+    ((8192,), dict(conjugate_convolution=2,
+                   cross_power_spectrum_normalization=True)),
+    ((10240,), {}), ((12288,), dict(conjugate_convolution=1)),
+    ((10240,), dict(cross_power_spectrum_normalization=True)),
+    ((131,), {}), ((64,), dict(number_kernels=2)),
+    ((32,), dict(coordinate_features=2)),
+    ((256,), dict(matrix_convolution=2, coordinate_features=2)),
+    ((4096,), dict(matrix_convolution=3, coordinate_features=3,
+                   conjugate_convolution=2,
+                   cross_power_spectrum_normalization=True)),
+    ((8192,), dict(matrix_convolution=3, coordinate_features=3)),
+    ((64, 64), {}), ((96, 60), dict(conjugate_convolution=1)),
+    ((256, 512), dict(conjugate_convolution=2)),
+    ((128, 128), dict(cross_power_spectrum_normalization=True)),
+    ((512, 512), dict(conjugate_convolution=1)), ((67, 64), {}),
+    ((1024, 256), dict(cross_power_spectrum_normalization=True)),
+    ((4, 64, 128), {}), ((3, 5, 7), dict(conjugate_convolution=2)),
+    ((2, 3, 64, 64), {}), ((8, 10240), {}),
+    ((8, 16), dict(matrix_convolution=2, coordinate_features=2)),
+    ((64,), dict(zeropad_input=((24, 64),), zeropad_output=((39, 64),))),
+    ((64, 64), dict(zeropad_input=((32, 64), (32, 64)),
+                    zeropad_output=((48, 64), (48, 64)))),
+    ((8, 8, 32), dict(matrix_convolution=3, coordinate_features=3,
+                      zeropad_input=(None, None, (16, 32)))),
+)
+
+
+def _conv_shapes(cfg, batch: int):
+    """(kernel shape, data shape) of a convolution config."""
+    m, k = cfg.matrix_convolution, cfg.number_kernels
+    feats = () if m == 1 and cfg.coordinate_features == 1 else (
+        m if m > 1 else cfg.coordinate_features,)
+    kshape = (((k,) if k > 1 else ()) + ((m, m) if m > 1 else feats)
+              + cfg.shape)
+    return kshape, (batch,) + feats + cfg.shape
+
+
+def _conv_oracle(cfg, x: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """numpy fp64 of the convolution of data x with the kernel h: the zero
+    pad masks, fftn, the conjugations, the multiply (the matrix einsum, the
+    kernel batch), the cross-power normalization and ifftn."""
+    ndim = len(cfg.shape)
+    axes = tuple(range(-ndim, 0))
+
+    def mask(a, spec):
+        for ax, w in enumerate(spec or ()):
+            if w is not None:
+                idx = [slice(None)] * a.ndim
+                idx[a.ndim - ndim + ax] = slice(w[0], w[1])
+                a[tuple(idx)] = 0
+        return a
+
+    X = np.fft.fftn(mask(x.astype(np.complex128), cfg.zeropad_input),
+                    axes=axes)
+    H = np.fft.fftn(h.astype(np.complex128), axes=axes)
+    if cfg.conjugate_convolution == 1:
+        H = np.conj(H)
+    elif cfg.conjugate_convolution == 2:
+        X = np.conj(X)
+    if cfg.matrix_convolution > 1:
+        k = "k" if cfg.number_kernels > 1 else ""
+        Y = np.einsum(f"{k}oi...,bi...->{k}bo...", H, X)
+    elif cfg.number_kernels > 1:
+        Y = H.reshape(H.shape[:1] + (1,) * (X.ndim - H.ndim + 1)
+                      + H.shape[1:]) * X[None]
+    else:
+        Y = X * H
+    if cfg.cross_power_spectrum_normalization:
+        Y = Y / np.maximum(np.abs(Y), 1e-30)
+    return mask(np.fft.ifftn(Y, axes=axes), cfg.zeropad_output)
+
+
+def _cplx2(re: torch.Tensor, im: torch.Tensor) -> np.ndarray:
+    return _host(re) + 1j * _host(im)
+
+
+def _cplx(p) -> np.ndarray:
+    return _cplx2(p.re, p.im)
+
+
+def _conv_mode_numpy(x, t, pair: bool, scale: float, conj_data: bool,
+                     xpow: bool) -> np.ndarray:
+    """numpy fp64 of a kernel mode: data x ((B, n), (B, mm, n) or (B, ny,
+    nz)), the table t raveled; item b takes row (or plane) b % rows."""
+    axes = (-2, -1) if pair else (-1,)
+    X = np.fft.fftn(x, axes=axes)
+    if conj_data:
+        X = np.conj(X)
+    if x.ndim == 3 and not pair:
+        mm, n = x.shape[1:]
+        Y = np.einsum("oin,bin->bon", t.reshape(mm, mm, n), X)
+    else:
+        K = t.reshape((-1,) + x.shape[1:])
+        Y = X * K[np.arange(x.shape[0]) % K.shape[0]]
+    if xpow:
+        Y = Y / np.maximum(np.abs(Y), 1e-30)
+    return np.fft.ifftn(Y, axes=axes) * (
+        math.prod(x.shape[len(x.shape) - len(axes):]) * scale)
+
+
+def _conv_mode_cases(ck):
+    """(what, planes shape, spectrum length, call kw) of each new mode of
+    the two kernels at the main path's shapes and a spread of lengths
+    their gates take, each flag combination on each."""
+    flags = [dict(conj_data=c, xpow=x) for c in (False, True)
+             for x in (False, True)]
+    cases = []
+    spread = [n for n in (2, 3, 5, 8, 13, 17, 31, 49, 61, 64, 96, 100, 243,
+                          256, 343, 512, 625, 1000, 1024, 2048, 2187, 3125,
+                          4096, 6561, 8192) if ck.kernel_supports(n)]
+    for i, n in enumerate(spread):
+        rows = (2, 3, 7)[i % 3]
+        for f in flags:
+            cases.append(("fft_conv", f"rows {rows} n={n}", (2 * rows, n),
+                          rows * n, f))
+        for mm in (2, 3):
+            if ck.conv_matrix_supports(n, mm):
+                for f in flags:
+                    cases.append(("fft_conv", f"matrix {mm} n={n}",
+                                  (2, mm, n), mm * mm * n, f))
+    for f in flags:   # the main path's shapes
+        cases += [("fft_conv", "scalar 4096x4096", (4096, 4096), 4096, f),
+                  ("fft_conv", "matrix 3 5461x1024", (5461, 3, 1024),
+                   9 * 1024, f),
+                  ("fft_conv", "rows 512 32768x512", (32768, 512), 512 * 512,
+                   f),
+                  ("fft_conv_pair", "2-D 256x256x256", (256, 256, 256),
+                   256 * 256, f),
+                  ("fft_conv_pair", "2-D hp=32 256x256x256", (256, 256, 256),
+                   32 * 256 * 256, f)]
+    for i, (ny, nz) in enumerate(((2, 2), (3, 5), (8, 8), (16, 60), (64, 64),
+                                  (100, 128), (128, 128), (243, 81),
+                                  (256, 512), (512, 256), (4096, 2))):
+        if ck.pair_cluster(ny, nz) is None:
+            continue
+        hp = (1, 3)[i % 2]
+        for f in flags:
+            cases.append(("fft_conv_pair", f"2-D hp={hp} {ny}x{nz}",
+                          (3 * hp, ny, nz), hp * ny * nz, f))
+    return cases
+
+
+def phase_conv_kernels_vs_plain(ck, dev) -> dict:
+    """The new modes of fft_conv (rows, matrix mm = 2 and 3) and the 2-D
+    mode of fft_conv_pair against their plain versions (<= 1e-5 of
+    max|ref|), with and without conjugated data and cross-power, at the
+    main path's shapes and a spread of lengths, and on the small cases
+    against numpy fp64 (<= 5e-6)."""
+    worst, worst_np, count, vs_numpy = {}, 0.0, 0, 0
+    for i, (kernel, what, shape, L, kw) in enumerate(_conv_mode_cases(ck)):
+        xr, xi = _planes(shape, 500 + i, dev)
+        spec = torch.randn((L, 2), generator=torch.Generator(
+            device=dev).manual_seed(900 + i), device=dev)
+        ndim2 = kernel == "fft_conv_pair"
+        scale = 1.0 / (shape[-1] * (shape[-2] if ndim2 else 1))
+        run = ck.fft_conv_pair if ndim2 else ck.fft_conv
+        plain = ck.fft_conv_pair_plain if ndim2 else ck.fft_conv_plain
+        y = run(xr, xi, spec, None, conj_data=kw["conj_data"],
+                xpow=kw["xpow"], scale=scale)
+        p = plain(xr, xi, spec, None, kw["conj_data"], kw["xpow"], scale)
+        rel = _rel(torch.complex(*y), torch.complex(*p))
+        key = f"{kernel} {what.split(' ')[0]}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        assert rel <= KERNEL_TOL, (kernel, what, kw, rel)
+        count += 1
+        if math.prod(shape) <= 1 << 16:
+            rel_np = _numpy_rel(_cplx2(*y), _conv_mode_numpy(
+                _cplx2(xr, xi), _cplx2(spec[:, 0], spec[:, 1]), ndim2,
+                scale, **kw))
+            assert rel_np <= NUMPY_TOL, (kernel, what, kw, rel_np)
+            worst_np = max(worst_np, rel_np)
+            vs_numpy += 1
+        del xr, xi, y, p
+    _log(f"[conv kernels] {count} cases, worst vs plain {worst}, "
+         f"{vs_numpy} vs numpy, worst {worst_np:.3e}")
+    return {"cases": count, "worst_rel_vs_plain": worst,
+            "vs_numpy": vs_numpy, "worst_rel_vs_numpy": worst_np}
+
+
+def phase_conv_routes(vt, dev) -> dict:
+    """ConvolutionApplication over small shapes of every fusion mode, each
+    flag and the composition (kernel batches, coordinate features, N-D
+    matrix kernels, a Rader axis, zero-padded linear convolution) on the
+    card, against numpy fp64 (<= 5e-6 of max|ref|); the input left
+    unchanged; fftconvolve."""
+    rows, worst = [], 0.0
+    for i, (shape, flags) in enumerate(CONV_ROUTES):
+        cfg = vt.FFTConfig(shape=shape, convolution=True, **flags)
+        kshape, xshape = _conv_shapes(cfg, 2)
+        rng = np.random.default_rng(700 + i)
+        h = (rng.standard_normal(kshape)
+             + 1j * rng.standard_normal(kshape)).astype(np.complex64)
+        x = (rng.standard_normal(xshape)
+             + 1j * rng.standard_normal(xshape)).astype(np.complex64)
+        app = vt.ConvolutionApplication(cfg, h, device=dev)
+        p = vt.from_complex(torch.from_numpy(x).to(dev))
+        keep = p.re.clone()
+        got = _cplx(app(p))
+        assert torch.equal(p.re, keep), (shape, flags)
+        rel = _numpy_rel(got, _conv_oracle(cfg, x, h))
+        assert rel <= NUMPY_TOL, (shape, flags, app.fusion_mode, rel)
+        worst = max(worst, rel)
+        rows.append({"shape": list(shape), "flags": str(flags),
+                     "mode": app.fusion_mode, "rel_err_vs_numpy": rel})
+    x = np.random.default_rng(799).standard_normal((3, 48, 64)) + 0j
+    h = np.random.default_rng(798).standard_normal((48, 64)) + 0j
+    got = vt.fftconvolve(x, h, device=dev)
+    rel = _numpy_rel(got, np.fft.ifft2(np.fft.fft2(x) * np.fft.fft2(h)))
+    assert isinstance(got, np.ndarray) and rel <= NUMPY_TOL, rel
+    modes = sorted({str(r["mode"]) for r in rows})
+    _log(f"[conv routes] {len(rows)} configs, modes {modes}, worst vs numpy "
+         f"{worst:.3e}; fftconvolve {rel:.3e}")
+    return {"rows": rows, "worst_rel_vs_numpy": worst,
+            "fftconvolve_rel": rel}
+
+
+def _conv_paths(vt, dev):
+    """(row, app, data, launches it must make, kernel host array) of each
+    main-path convolution row; kernels and data made on the card from
+    their seeds, each kernel transformed by the app at construction."""
+    for i, (name, shape, flags, mode, want) in enumerate(CONV_ROWS):
+        cfg = vt.FFTConfig(shape=shape, convolution=True, **flags)
+        batch = CONV_BYTES // (8 * cfg.matrix_convolution * math.prod(shape))
+        kshape, xshape = _conv_shapes(cfg, batch)
+        h = vt.Planar(*_planes(kshape, 600 + i, dev))
+        app = vt.ConvolutionApplication(cfg, h, device=dev)
+        assert app.fusion_mode == mode, (name, app.fusion_mode, mode)
+        x = vt.Planar(*_planes(xshape, 650 + i, dev))
+        yield name, cfg, app, x, want, h
+
+
+def phase_conv_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The convolution rows through ConvolutionApplication, each with the
+    counts set to 0 just before it and read just after, held to its exact
+    launches and no plain-engine call; two items at seeded positions of the
+    batch against numpy fp64, the input left unchanged."""
+    rows, by_path = [], {}
+    for name, cfg, app, x, want, h in _conv_paths(vt, dev):
+        pick = sorted(np.random.default_rng(len(name)).choice(
+            x.shape[0], 2, replace=False).tolist())
+        keep = x.re[pick].clone()
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        y = app(x)
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_path[f"conv_{name}"] = got
+        _log(f"[main conv] {name}: mode {app.fusion_mode}, launches {got}, "
+             f"plain engine calls {torch_engine.calls}")
+        assert got == {k: want.get(k, 0) for k in got}, (name, got, want)
+        assert torch_engine.calls == 0, (name, torch_engine.calls)
+        ref = _conv_oracle(cfg, _cplx2(x.re[pick], x.im[pick]), _cplx(h))
+        row = {"row": name, "shape": list(x.shape), "mode": app.fusion_mode,
+               "items_checked": pick,
+               "rel_err_vs_numpy": _numpy_rel(
+                   _cplx2(y.re[pick], y.im[pick]), ref),
+               "finite": _finite(y)}
+        _log(f"[main conv] {row}")
+        assert row["finite"] and y.shape == x.shape, row
+        assert row["rel_err_vs_numpy"] <= NUMPY_TOL, row
+        assert torch.equal(x.re[pick], keep), name
+        rows.append(row)
+        del x, y, h, app
+    launches = {k: sum(c[k] for c in by_path.values()) for k in ck.launches}
+    return {"launches": launches, "launches_by_path": by_path,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def _conv_ops(cfg, items: int) -> float:
+    """Nominal operations of a convolution: per item and coordinate a
+    forward and an inverse DFT of the transform (5 N log2 N), and per
+    frequency the m x m complex multiply-add (8 m^2 flops, 6 for m = 1)."""
+    N = math.prod(cfg.shape)
+    m = cfg.matrix_convolution
+    mult = 6.0 if m == 1 else 8.0 * m * m
+    return items * (2 * m * 5.0 * N * math.log2(N) + mult * N)
+
+
+def phase_conv_times(vt, ck, dev) -> dict:
+    """The new modes of fft_conv and fft_conv_pair at the main path's
+    shapes (each held against its plain version there) and the rows'
+    calls: ms, GB/s of the function's bytes (the data read once and
+    written once, 16 B a point, and the spectrum once), the bound, and the
+    torch.fft composition of the same function as a yardstick (fftn, the
+    multiply or einsum, ifftn: three library calls and more, not one)."""
+    _log(f"[time] card: {_smi()}")
+    kernels = {k: [] for k in CONV_KERNELS}
+
+    def kernel_row(name, what, shape, L, run, plain, cfg, items):
+        xr, xi = _planes(shape, 800 + len(kernels[name]), dev)
+        spec = torch.randn((L, 2), generator=torch.Generator(
+            device=dev).manual_seed(850 + len(kernels[name])), device=dev)
+        err = _errors(run(xr, xi, spec), plain(xr, xi, spec), (name, what))
+        nbytes = 16.0 * xr.numel() + 8.0 * L
+        bound, by = _bound(nbytes, _conv_ops(cfg, items))
+        row = {"mode": what, "shape": list(shape), "spectrum_points": L,
+               "ms": _time_ms(lambda: run(xr, xi, spec)), "bound_ms": bound,
+               "bound_by": by, "max_abs_err": err,
+               "plain_ms": _time_ms(lambda: plain(xr, xi, spec), reps=5,
+                                    inner=1, warmup=1),
+               "library_ms": None}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] {name} {row}")
+        kernels[name].append(row)
+        del xr, xi, spec
+
+    cfg = vt.FFTConfig
+    kernel_row("fft_conv", "scalar", (4096, 4096), 4096,
+               lambda r, i, s: ck.fft_conv(r, i, s, scale=1 / 4096),
+               lambda r, i, s: ck.fft_conv_plain(r, i, s, scale=1 / 4096),
+               cfg(shape=(4096,), convolution=True), 4096)
+    kernel_row("fft_conv", "matrix 3", (5461, 3, 1024), 9 * 1024,
+               lambda r, i, s: ck.fft_conv(r, i, s),
+               lambda r, i, s: ck.fft_conv_plain(r, i, s),
+               cfg(shape=(1024,), convolution=True, matrix_convolution=3,
+                   coordinate_features=3), 5461)
+    kernel_row("fft_conv", "rows 512", (32768, 512), 512 * 512,
+               lambda r, i, s: ck.fft_conv(r, i, s),
+               lambda r, i, s: ck.fft_conv_plain(r, i, s),
+               cfg(shape=(512,), convolution=True), 32768)
+    for hp in (1, 32):
+        kernel_row("fft_conv_pair", f"2-D hp={hp}", (256, 256, 256),
+                   hp * 256 * 256,
+                   lambda r, i, s: ck.fft_conv_pair(r, i, s, scale=2 ** -16),
+                   lambda r, i, s: ck.fft_conv_pair_plain(r, i, s,
+                                                          scale=2 ** -16),
+                   cfg(shape=(256, 256), convolution=True), 256)
+
+    e2e = []
+    for name, cfg_, app, x, want, h in _conv_paths(vt, dev):
+        ndim = len(cfg_.shape)
+        dims = tuple(range(-ndim, 0))
+        m = cfg_.matrix_convolution
+        items = x.re.numel() // math.prod(cfg_.shape) // m
+        H = torch.fft.fftn(torch.complex(h.re, h.im), dim=dims)
+        xc = torch.complex(x.re, x.im)
+        mask = None
+        if cfg_.zeropad_input is not None:
+            mask = vt.api.apply_zeropad(
+                vt.Planar(torch.ones(cfg_.shape, device=dev),
+                          torch.zeros(cfg_.shape, device=dev)),
+                cfg_.zeropad_input, ndim).re
+
+        def library(xc=xc, H=H, mask=mask, m=m, dims=dims):
+            X = torch.fft.fftn(xc if mask is None else xc * mask, dim=dims)
+            Y = (torch.einsum("oi...,bi...->bo...", H, X) if m > 1
+                 else X * H)
+            return torch.fft.ifftn(Y, dim=dims)
+
+        spec_points = h.re.numel()
+        nbytes = 16.0 * x.re.numel() + 8.0 * spec_points
+        bound, by = _bound(nbytes, _conv_ops(cfg_, items))
+        ms = _time_ms(lambda: app(x))
+        row = {"row": name, "shape": list(x.shape), "mode": app.fusion_mode,
+               "launches": sum(want.values()), "ms": ms,
+               "GBs": nbytes / ms / 1e6, "bound_ms": bound, "bound_by": by,
+               "torch_fft_composition_ms": _time_ms(library)}
+        row["vs_torch_fft"] = row["torch_fft_composition_ms"] / ms
+        _log(f"[time] e2e {row}")
+        e2e.append(row)
+        del x, h, app, H, xc
+    return {"kernels": kernels, "e2e": e2e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1661,7 +2076,12 @@ def main() -> int:
               ("r2r_routes", lambda: phase_r2r_routes(vt, dev)),
               ("r2r_main_path",
                lambda: phase_r2r_main_path(vt, ck, torch_engine, dev)),
-              ("r2r_times", lambda: phase_r2r_times(vt, ck, dev))]
+              ("r2r_times", lambda: phase_r2r_times(vt, ck, dev)),
+              ("conv_kernels", lambda: phase_conv_kernels_vs_plain(ck, dev)),
+              ("conv_routes", lambda: phase_conv_routes(vt, dev)),
+              ("conv_main_path",
+               lambda: phase_conv_main_path(vt, ck, torch_engine, dev)),
+              ("conv_times", lambda: phase_conv_times(vt, ck, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -1671,7 +2091,8 @@ def main() -> int:
             traceback.print_exc()
             print(f"chip_smoke: phase {name} failed: {e!r}", file=sys.stderr)
             return 1
-        _log(f"[phase] {name} done in {time.perf_counter() - t:.1f} s")
+        record.setdefault("phase_s", {})[name] = time.perf_counter() - t
+        _log(f"[phase] {name} done in {record['phase_s'][name]:.1f} s")
         torch.cuda.empty_cache()
     record["total_s"] = time.perf_counter() - t0
 
@@ -1680,7 +2101,8 @@ def main() -> int:
     by_path = dict({"c2c": record["main_path"]["launches"]},
                    **record["real_main_path"]["launches_by_path"],
                    **record["any_main_path"]["launches_by_path"],
-                   **record["r2r_main_path"]["launches_by_path"])
+                   **record["r2r_main_path"]["launches_by_path"],
+                   **record["conv_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -1710,6 +2132,7 @@ def main() -> int:
              + record["real_times"]["kernels"].get(k, [])
              + record["any_times"]["kernels"].get(k, [])
              + record["r2r_times"]["kernels"].get(k, [])
+             + record["conv_times"]["kernels"].get(k, [])
              for k in ck.KERNEL_SOURCES}
     entries = []
     for name, rows in timed.items():

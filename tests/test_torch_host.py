@@ -131,6 +131,7 @@ def test_import_isolation_subprocess():
         "import vkfft_tpu_torch\n"
         "import vkfft_tpu_torch.api, vkfft_tpu_torch.ops.torch_engine\n"
         "import vkfft_tpu_torch.ops.cuda_engine, vkfft_tpu_torch.ops.cuda_kernels\n"
+        "import vkfft_tpu_torch.transforms.conv\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vkfft_tpu')]\n"
         "print(bad)\n"

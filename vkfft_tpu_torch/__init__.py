@@ -11,7 +11,8 @@ modules.  Layer map:
                with nvcc at first use) and cuda_engine (dispatch onto them)
   api        — FFTApplication and the functional C2C API
   transforms/ — r2c: rfft/irfft, rfft2/irfft2, rfftn/irfftn;
-               r2r: dct/idct/dst/idst/dctn/dstn, types I-IV
+               r2r: dct/idct/dst/idst/dctn/dstn, types I-IV;
+               conv: ConvolutionApplication, fftconvolve
 """
 from vkfft_tpu_torch.config import (
     FFTConfig,
@@ -53,6 +54,11 @@ from vkfft_tpu_torch.transforms.r2r import (
     idst,
     dctn,
     dstn,
+)
+from vkfft_tpu_torch.transforms.conv import (
+    ConvolutionApplication,
+    convolution_from_reference,
+    fftconvolve,
 )
 
 __version__ = "0.1.0"

@@ -21,9 +21,12 @@ on the CPU.  Host input becomes float32 planes, the SINGLE precision of
 every configuration the port takes (as the JAX package narrows it,
 ``vkfft_tpu/api.py:804-808``); ``Planar`` and tensor input keep their dtype.
 
+Convolution configs run in `transforms.conv.ConvolutionApplication`, as in
+the JAX package; `apply_zeropad` is the zero-pad mask it applies.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: precisions other than SINGLE, zero-pad windows (of every kind, R2R
-included) and keep_intermediate_order.
+item: precisions other than SINGLE, zero-pad windows in `FFTApplication`
+(of every kind, R2R included) and keep_intermediate_order.
 """
 from __future__ import annotations
 
@@ -67,19 +70,46 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_precision_and_order(config: FFTConfig) -> None:
+    """The refusals every application of the port shares."""
+    if config.precision is not Precision.SINGLE:
+        raise NotImplementedError(
+            f"precision {config.precision.value} is ROADMAP queue 1 item 10")
+    if config.keep_intermediate_order:
+        raise NotImplementedError(
+            "keep_intermediate_order is ROADMAP queue 1 item 8")
+
+
 def _check_slice(config: FFTConfig) -> None:
     if config.convolution:
         raise InvalidConfigError(
             "convolution configs are executed by ConvolutionApplication "
-            "(not ported yet: ROADMAP queue 1 item 7)")
-    if config.precision is not Precision.SINGLE:
-        raise NotImplementedError(
-            f"precision {config.precision.value} is ROADMAP queue 1 item 10")
+            "(vkfft_tpu_torch.ConvolutionApplication, the reference's "
+            "performConvolution app pair)")
+    check_precision_and_order(config)
     if config.zeropad_input is not None or config.zeropad_output is not None:
         raise NotImplementedError("zero-pad windows are ROADMAP queue 1 item 8")
-    if config.keep_intermediate_order:
-        raise NotImplementedError(
-            "keep_intermediate_order is ROADMAP queue 1 item 8")
+
+
+def apply_zeropad(x: Planar, spec, ndim: int) -> Planar:
+    """Zero the configured [left, right) window of each axis of the
+    trailing ``ndim`` axes (``vkfft_tpu/api.py:332 _apply_zeropad``; the
+    reference elides those reads, ``vkFFT_Zeropad.h``).  Returns new
+    planes; a spec of None returns ``x``."""
+    if spec is None:
+        return x
+    offset = x.ndim - ndim
+    for ax, window in enumerate(spec):
+        if window is None:
+            continue
+        left, right = window
+        size = x.shape[offset + ax]
+        idx = torch.arange(size, device=x.device)
+        shape = [1] * x.ndim
+        shape[offset + ax] = size
+        keep = ((idx < left) | (idx >= right)).reshape(shape)
+        x = Planar(torch.where(keep, x.re, 0.0), torch.where(keep, x.im, 0.0))
+    return x
 
 
 def _storages(*ts: torch.Tensor) -> set:

@@ -41,10 +41,10 @@ fft_conv_inv_kernel(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  Plans and tables as for vk_fft_twofactor (both inverse; the
-// twiddle unscaled: the scale rides `spectrum`, an (n) table of fp32
-// pairs in swapped order); `dc_re`/`dc_im` hold one value a line, or are
-// both null.
+// success).  Plans and tables as for vk_fft_twofactor (both inverse; a
+// scale rides the twiddle or `spectrum`, an (n) table of fp32 pairs in
+// swapped order); `dc_re`/`dc_im` hold one value a line, added after the
+// scale, or are both null.
 int vk_fft_conv_inv(const float* xr, const float* xi, float* yr, float* yi,
                     long long batch, const int* plan1, const int* plan2,
                     const float* table1, const float* table2,

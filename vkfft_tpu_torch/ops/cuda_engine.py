@@ -37,6 +37,13 @@ Real-to-real lines (DCT/DST types I-IV) run `fft_dct23`, `fft_dct1` or
 the JAX package's composition (extensions, Makhoul's permutation, the
 DCT-IV tricks) onto the real and complex routes above, on the card.
 
+Convolution (`transforms/conv.py`): `conv_fused_v3`, `conv_fused_v3_rows`,
+`conv_fused_v3_matrix`, `conv_fused_pair` and `conv_fused_planar`, the
+counterparts of the JAX package's fused entry points, run a whole
+circular convolution of the minor axis (or the minor pair) in one
+`fft_conv` or `fft_conv_pair` launch, or in `fft_twofactor` +
+`fft_conv_inv`; `conv_route(config, ...)` names the one a config runs.
+
 What raises ``NotImplementedError`` naming its ROADMAP item: DIRECT
 lengths above 16384 and Bluestein lengths whose padded length fits none of
 the kernels above (m > 2^16, or beyond 16384 without a cluster plane): the
@@ -417,3 +424,148 @@ def r2r_lines_p(x: torch.Tensor, type: int, dst: bool,
     raises where it names none)."""
     _check_dtype(x)
     return _R2R_KERNELS[type](x.contiguous(), dst, scale)
+
+
+# ---------------------------------------------------------------------------
+# Fused convolution: the counterparts of the JAX package's entry points
+# (``pallas_engine.py:2392, 4532, 4874-4925``).  ``table`` is the kernel's
+# spectrum as `conv_spectrum` makes it, an unscaled (L, 2) float32 tensor on
+# the planes' device; ``scale`` rides the inverse stages (after the
+# multiply, so after the cross-power normalization too).  ``donate=True``
+# lets the kernel write over the caller's planes.
+# ---------------------------------------------------------------------------
+
+def conv_route(config, kernel_ndim: int) -> Optional[str]:
+    """The fused mode that runs a convolution of ``config`` with a
+    spectrum of ``kernel_ndim`` dims on this engine, or None where the
+    composition runs: the convolution counterpart of `route`.  The JAX
+    package's conditions on every fused form (every axis DIRECT, one
+    kernel, coordinate_features 1 or m), then the port's own gates, in this
+    order: "v3_1d" where `fft_conv`'s stages take n; "v2_2k" where they do
+    not but `fft_twofactor` does, without conjugated data or cross-power;
+    "pair" for N-D where the (ny, nz) plane fits a cluster of
+    `fft_conv_pair`; "v3_rows" for N-D where it does not but `fft_conv`
+    takes the last axis; "v3_mat" for 1-D m x m where
+    `conv_matrix_supports` holds."""
+    m, shape = config.matrix_convolution, config.shape
+    ndim, n = len(shape), shape[-1]
+    if (config.number_kernels != 1 or config.coordinate_features not in (1, m)
+            or any(plan_axis(s).algorithm is not Algorithm.DIRECT
+                   for s in shape)):
+        return None
+    if m > 1:
+        return ("v3_mat" if ndim == 1 and kernel_ndim == 3
+                and ck.conv_matrix_supports(n, m) else None)
+    if kernel_ndim != ndim:
+        return None
+    if ndim == 1:
+        if ck.kernel_supports(n):
+            return "v3_1d"
+        plain = not (config.conjugate_convolution == 2
+                     or config.cross_power_spectrum_normalization)
+        return "v2_2k" if ck.twofactor_supports(n) and plain else None
+    if ck.pair_cluster(shape[-2], n) is not None:
+        return "pair"
+    return "v3_rows" if ck.kernel_supports(n) else None
+
+
+def conv_spectrum(kernel_f: Planar, conj: bool = False,
+                  swapped: bool = False) -> torch.Tensor:
+    """The fused entries' table: the spectrum ``kernel_f`` raveled in its
+    own order (with ``swapped``, one line in `fft_twofactor`'s swapped
+    order, for `conv_fused_planar`), conjugated with ``conj``, as an
+    unscaled (L, 2) float32 tensor on its device."""
+    re = kernel_f.re.to(torch.float32)
+    im = kernel_f.im.to(torch.float32)
+    if swapped:
+        re, im = ck.swapped_order(re.reshape(-1)), ck.swapped_order(
+            im.reshape(-1))
+    return torch.stack([re.reshape(-1), -im.reshape(-1) if conj
+                        else im.reshape(-1)], -1).contiguous()
+
+
+def _check_conv(x: Planar, lines: tuple, table: torch.Tensor,
+                points: int, what: str) -> None:
+    if x.shape[1:] != lines:
+        raise ValueError(f"{what}: planes must be (B, *{lines}), got "
+                         f"{x.shape}")
+    if table.shape[0] != points:
+        raise ValueError(f"{what}: a spectrum of {points} points, got "
+                         f"{table.shape[0]}")
+
+
+def _conv_lines(x: Planar, table: torch.Tensor, conj_data: bool, xpow: bool,
+                scale: float, donate: bool) -> Planar:
+    _check_dtype(x)
+    x = x.contiguous()
+    return Planar(*ck.fft_conv(x.re, x.im, table,
+                               out=(x.re, x.im) if donate else None,
+                               conj_data=conj_data, xpow=xpow, scale=scale))
+
+
+def conv_fused_v3(x: Planar, n: int, table: torch.Tensor,
+                  scale: float = 1.0, conj_data: bool = False,
+                  xpow: bool = False, donate: bool = False) -> Planar:
+    """Circular convolution of (B, n) lines with a kernel whose spectrum is
+    the (n, 2) ``table``, times ``scale``, in one `fft_conv` launch
+    (``pallas_engine.py:4874 conv_fused_v3``)."""
+    _check_conv(x, (n,), table, n, "conv_fused_v3")
+    return _conv_lines(x, table, conj_data, xpow, scale, donate)
+
+
+def conv_fused_v3_rows(x: Planar, n: int, rows: int, table: torch.Tensor,
+                       scale: float = 1.0, conj_data: bool = False,
+                       xpow: bool = False, donate: bool = False) -> Planar:
+    """The last-axis pass of an N-D convolution: (B, n) lines, line j times
+    row j % rows of the (rows * n, 2) ``table``, in one `fft_conv` launch
+    (``pallas_engine.py:4892 conv_fused_v3_rows``, whose table is the (n,
+    rows) transpose)."""
+    _check_conv(x, (n,), table, rows * n, "conv_fused_v3_rows")
+    return _conv_lines(x, table, conj_data, xpow, scale, donate)
+
+
+def conv_fused_v3_matrix(x: Planar, n: int, m: int, table: torch.Tensor,
+                         scale: float = 1.0, conj_data: bool = False,
+                         xpow: bool = False, donate: bool = False) -> Planar:
+    """Matrix convolution of (B, m, n) planes with the (m, m, n) spectrum
+    ``table``: out[:, o] = ifft(sum_i table[o, i] * fft(x[:, i])), in one
+    `fft_conv` launch (``pallas_engine.py:4909 conv_fused_v3_matrix``)."""
+    _check_conv(x, (m, n), table, m * m * n, "conv_fused_v3_matrix")
+    return _conv_lines(x, table, conj_data, xpow, scale, donate)
+
+
+def conv_fused_pair(x: Planar, ny: int, nz: int, table: torch.Tensor,
+                    scale: float, conj_data: bool = False, xpow: bool = False,
+                    donate: bool = False) -> Planar:
+    """Circular convolution over the two minor axes of (..., ny, nz) planes
+    in one `fft_conv_pair` launch (``pallas_engine.py:2392
+    conv_fused_pair``, without its zero-pad windows): ``table`` holds the
+    (ny, nz) spectrum or (hp, ny, nz) per-slice spectra in natural order
+    (the TPU's is the (nz, ny) transpose), plane b of the flattened batch
+    multiplied by spectrum b % hp."""
+    _check_dtype(x)
+    shape = x.shape
+    if shape[-2:] != (ny, nz):
+        raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)}")
+    x = x.contiguous()
+    xr = x.re.reshape(-1, ny, nz)
+    xi = x.im.reshape(-1, ny, nz)
+    rr, ii = ck.fft_conv_pair(xr, xi, table, out=(xr, xi) if donate else None,
+                              conj_data=conj_data, xpow=xpow, scale=scale)
+    return Planar(rr.reshape(shape), ii.reshape(shape))
+
+
+def conv_fused_planar(x: Planar, n: int, table: torch.Tensor,
+                      donate: bool = False) -> Planar:
+    """Circular convolution of (B, n) lines with the kernel whose spectrum
+    is ``table`` (`conv_spectrum` with ``swapped``), normalized by 1/n, for
+    the lengths `fft_twofactor` holds: the forward in swapped order, then
+    the multiply and the inverse in `fft_conv_inv` (``pallas_engine.py:4532
+    conv_fused_planar``, as `_rader_p` runs its second branch)."""
+    _check_conv(x, (n,), table, n, "conv_fused_planar")
+    _check_dtype(x)
+    x = x.contiguous()
+    fr, fi = ck.fft_twofactor(x.re, x.im, swapped=True,
+                              out=(x.re, x.im) if donate else None)
+    return Planar(*ck.fft_conv_inv(fr, fi, table, out=(fr, fi),
+                                   scale=1.0 / n))

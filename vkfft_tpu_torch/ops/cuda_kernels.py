@@ -25,9 +25,10 @@ Twelve kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   _c2r_pair_kernel``: numpy ``rfft2``/``irfft2`` of the two minor axes of
   real (B, ny, nz) planes in one pass, a plane held in a cluster.
 * `fft_conv` (``csrc/fft_conv.cu``) replaces
-  ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` (scalar table and
-  Bluestein modes): forward stages, a per-frequency multiply and inverse
-  stages of each line in one launch.
+  ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in all its modes
+  (scalar table, rows, m x m matrix, conjugated data, cross-power,
+  Bluestein): forward stages, a per-frequency multiply and inverse stages
+  of each line in one launch.
 * `fft_twofactor` (``csrc/fft_twofactor.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``: the two-factor
   DFT n = n1*n2 <= 16384, natural or swapped digit order.
@@ -36,9 +37,10 @@ Twelve kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   `fft_twofactor`'s swapped order times a table, the two-factor inverse to
   natural order, and a per-line constant added in the store.
 * `fft_conv_pair` (``csrc/fft_conv_pair.cu``) replaces
-  ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in its
-  Bluestein mode: one padded line of m = nc*ns <= 2^16 points as a
-  four-step plane held in a cluster.
+  ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in both its
+  modes: one padded Bluestein line of m = nc*ns <= 2^16 points as a
+  four-step plane held in a cluster, and the 2-D circular convolution of
+  each (ny, nz) plane with a shared or per-slice spectrum.
 * `fft_dct23` (``csrc/fft_dct23.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:2745 _dct2_kernel`` and ``:2789
   _dct3_kernel``: DCT-II/DST-II and DCT-III/DST-III of real (B, n) lines,
@@ -58,7 +60,9 @@ notes in the ``.cu`` files say how.  `fft_lines`, `fft_strided` and
 coverage, and the real kernels every even n whose n/2 that is
 (`r2c_supports`); `fft_pair` and `fft_r2c_pair` take the planes
 `pair_cluster` and `r2c_pair_cluster` find a cluster for.  `fft_conv`
-holds the lengths of `fft_lines`; `fft_twofactor` and `fft_conv_inv` every
+holds the lengths of `fft_lines` (its matrix mode those whose mm
+coordinate lines fit a block, `conv_matrix_supports`) and its 2-D mode
+the planes of `pair_cluster`; `fft_twofactor` and `fft_conv_inv` every
 n <= 16384 whose primes are <= 127 (`twofactor_split`); `fft_conv_pair`
 the padded lengths `conv_pair_plan` finds a cluster plane for; the R2R
 kernels the n >= 4 (DCT-I/DST-I: n >= 3) whose stage length the stages
@@ -126,6 +130,14 @@ KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
 PAIR_BLOCK_BYTES = 32 * 1024
 PAIR_MAX_BLOCK_BYTES = 128 * 1024
 PAIR_CLUSTERS = (1, 2, 4, 8, 16)
+# Shared memory a block may opt into on sm_90 (vkfft::kMaxSmemBytes in
+# csrc/stockham.cuh): `fft_conv`'s matrix mode holds two buffers of the mm
+# coordinate lines of one batch item.
+MAX_SMEM_BYTES = 232448
+# Flags of `fft_conv` and `fft_conv_pair`'s 2-D mode (kConjData, kXpow in
+# their sources).
+CONV_CONJ_DATA = 1
+CONV_XPOW = 2
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -236,6 +248,15 @@ def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
             if c is not None:
                 best = (nc, ns, c)
     return best
+
+
+def conv_matrix_supports(n: int, mm: int) -> bool:
+    """Whether `fft_conv`'s matrix mode takes lines of length n with mm = 2
+    or 3 coordinates: n a length of the stages and two buffers of the mm
+    lines of one batch item within a block's shared memory (at mm = 3 up
+    to n = 4096 of the powers of two; the JAX package's VMEM holds 8192)."""
+    return (mm in (2, 3) and kernel_supports(n)
+            and 2 * 8 * mm * n <= MAX_SMEM_BYTES)
 
 
 def r2c_supports(n: int) -> bool:
@@ -443,10 +464,11 @@ def _device_table(n: int, inverse: bool, scale: float,
         lambda: (r2c_tables if real else stage_tables)(n, inverse, scale)[1])
 
 
-def _swapped(spec: np.ndarray) -> np.ndarray:
-    """A natural-order spectrum of length n in `fft_twofactor`'s swapped
-    order: position k2*n1 + k1 holds bin k1*n2 + k2 (the JAX package's
-    ``tab_sw = table.reshape(n1, n2).T``, ``pallas_engine.py:4548``)."""
+def swapped_order(spec):
+    """A natural-order spectrum of length n (a numpy array or a tensor) in
+    `fft_twofactor`'s swapped order, as an (n2, n1) view: position k2*n1 +
+    k1 holds bin k1*n2 + k2 (the JAX package's ``tab_sw = table.reshape(n1,
+    n2).T``, ``pallas_engine.py:4548``)."""
     n1, n2 = twofactor_split(len(spec))
     return spec.reshape(n1, n2).T
 
@@ -458,7 +480,8 @@ def _pair_order(spec: np.ndarray) -> np.ndarray:
     return spec.reshape(ns, nc).T
 
 
-_LAYOUTS = {"natural": lambda s: s, "swapped": _swapped, "pair": _pair_order}
+_LAYOUTS = {"natural": lambda s: s, "swapped": swapped_order,
+            "pair": _pair_order}
 
 
 def rader_spectrum(p: int, scale: float, device,
@@ -568,26 +591,67 @@ def _swap_digits(x: Planar, rows: int, cols: int) -> Planar:
                     for t in (x.re, x.im)))
 
 
+def _xpow_v3(y: Planar) -> Planar:
+    """Y / |Y| in `fft_conv`'s form, Y * rsqrt(|Y|^2 + 1e-30)
+    (``pallas_engine.py:4665``)."""
+    return y * torch.rsqrt(y.re * y.re + y.im * y.im + 1e-30)
+
+
+def _xpow_pair(y: Planar) -> Planar:
+    """Y / |Y| in the 2-D mode's form, Y / max(|Y|, 1e-30)
+    (``pallas_engine.py:2288``, as the JAX package's composition)."""
+    return y * (1.0 / torch.clamp_min(torch.sqrt(y.re * y.re + y.im * y.im),
+                                      1e-30))
+
+
+def _by_line(tab: Planar, count: int, period: int) -> Planar:
+    """Rows ``j % period`` of a (period, ...) table for j < count."""
+    idx = torch.arange(count, device=tab.re.device) % period
+    return Planar(tab.re[idx], tab.im[idx])
+
+
 def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
-                   spectrum: torch.Tensor, chirp: Optional[torch.Tensor] = None):
-    """Plain torch version of `fft_conv`: the unnormalized IDFT of
-    DFT(x) * spectrum over m = len(spectrum) points; with ``chirp``, x * a
-    zero-padded to m on the way in and the first n points times a on the
-    way out."""
-    m = spectrum.shape[0]
-    n = re.shape[1]
-    x = Planar(re, im)
+                   spectrum: torch.Tensor, chirp: Optional[torch.Tensor] = None,
+                   conj_data: bool = False, xpow: bool = False,
+                   scale: float = 1.0):
+    """Plain torch version of `fft_conv`: the inverse DFT, times ``scale``,
+    of DFT(x) (conjugated with ``conj_data``) times the spectrum (over its
+    rows, line j row j % rows; for (B, mm, n) planes mixed by the (mm, mm,
+    n) matrix), divided by its modulus with ``xpow``; with ``chirp``, x * a
+    zero-padded to m = len(spectrum) on the way in and the first n points
+    times a on the way out."""
+    tab = table_planar(spectrum)
     if chirp is not None:
+        m, n = spectrum.shape[0], re.shape[1]
         a = table_planar(chirp)[None]
-        x = x * a
+        x = Planar(re, im) * a
         x = Planar(*(torch.nn.functional.pad(t, (0, m - n))
                      for t in (x.re, x.im)))
-    plan = plan_axis(m)
-    X = torch_engine.lines_plain(x, plan) * table_planar(spectrum)[None]
-    y = torch_engine.lines_plain(X, plan, True)
-    if chirp is not None:
-        y = y[:, :n] * a
-    return y.re.contiguous(), y.im.contiguous()
+        plan = plan_axis(m)
+        X = torch_engine.lines_plain(x, plan) * tab[None]
+        y = torch_engine.lines_plain(X, plan, True, scale)[:, :n] * a
+        return y.re.contiguous(), y.im.contiguous()
+    shape, n = re.shape, re.shape[-1]
+    plan = plan_axis(n)
+    X = torch_engine.lines_plain(Planar(re, im).reshape(-1, n), plan)
+    X = X.reshape(*shape)
+    if conj_data:
+        X = X.conj()
+    if re.ndim == 3:
+        mm = shape[1]
+        K = tab.reshape(mm, mm, n)
+
+        def mix(k, x):
+            return torch.einsum("oin,bin->bon", k, x)
+
+        Y = Planar(mix(K.re, X.re) - mix(K.im, X.im),
+                   mix(K.re, X.im) + mix(K.im, X.re))
+    else:
+        Y = X * _by_line(tab.reshape(-1, n), shape[0], tab.shape[0] // n)
+    if xpow:
+        Y = _xpow_v3(Y)
+    y = torch_engine.lines_plain(Y.reshape(-1, n), plan, True, scale)
+    return y.re.reshape(shape).contiguous(), y.im.reshape(shape).contiguous()
 
 
 def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
@@ -607,28 +671,45 @@ def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
 
 
 def fft_conv_inv_plain(re: torch.Tensor, im: torch.Tensor,
-                       spectrum: torch.Tensor, dc=None):
+                       spectrum: torch.Tensor, dc=None, scale: float = 1.0):
     """Plain torch version of `fft_conv_inv`: the spectrum (swapped order)
-    times the table (swapped order), the unnormalized inverse DFT to
-    natural order, plus the per-line constant ``dc`` = (re, im) of shape
+    times the table (swapped order), the inverse DFT to natural order times
+    ``scale``, plus the per-line constant ``dc`` = (re, im) of shape
     (B,)."""
     n = re.shape[1]
     n1, n2 = twofactor_split(n)
     y = _swap_digits(Planar(re, im) * table_planar(spectrum)[None], n2, n1)
-    z = torch_engine.lines_plain(y, plan_axis(n), True)
+    z = torch_engine.lines_plain(y, plan_axis(n), True, scale)
     if dc is not None:
         z = z + Planar(dc[0][:, None], dc[1][:, None])
     return z.re.contiguous(), z.im.contiguous()
 
 
 def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
-                        spectrum: torch.Tensor, chirp: torch.Tensor):
-    """Plain torch version of `fft_conv_pair`: `fft_conv_plain` in
-    Bluestein mode with the spectrum back in natural order."""
-    m = spectrum.shape[0]
-    nc, ns, _ = conv_pair_plan(m)
-    natural = spectrum.reshape(nc, ns, 2).transpose(0, 1).reshape(m, 2)
-    return fft_conv_plain(re, im, natural, chirp)
+                        spectrum: torch.Tensor,
+                        chirp: Optional[torch.Tensor] = None,
+                        conj_data: bool = False, xpow: bool = False,
+                        scale: float = 1.0):
+    """Plain torch version of `fft_conv_pair`.  With ``chirp`` (Bluestein
+    mode): `fft_conv_plain` with the spectrum back in natural order.
+    Without (2-D mode, (B, ny, nz) planes): the 2-D DFT of each plane
+    (conjugated with ``conj_data``) times spectrum b % hp of the (hp, ny,
+    nz) table, divided by its modulus with ``xpow``, and the inverse 2-D
+    DFT times ``scale``."""
+    if chirp is not None:
+        m = spectrum.shape[0]
+        nc, ns, _ = conv_pair_plan(m)
+        natural = spectrum.reshape(nc, ns, 2).transpose(0, 1).reshape(m, 2)
+        return fft_conv_plain(re, im, natural, chirp)
+    B, ny, nz = re.shape
+    X = Planar(*fft_pair_plain(re, im, False))
+    if conj_data:
+        X = X.conj()
+    tab = table_planar(spectrum).reshape(-1, ny, nz)
+    Y = X * _by_line(tab, B, tab.shape[0])
+    if xpow:
+        Y = _xpow_pair(Y)
+    return fft_pair_plain(Y.re.contiguous(), Y.im.contiguous(), True, scale)
 
 
 # The R2R kernels' plain versions compute the TPU kernels' own forms
@@ -785,10 +866,11 @@ _ENTRIES = {
     "fft_r2c": {"fft_r2c": "pppqippi", "fft_c2r": "pppqippi"},
     "fft_r2c_pair": {"fft_r2c_pair": "pppqppppii",
                      "fft_c2r_pair": "pppqppppii"},
-    "fft_conv": {"fft_conv": "ppppqipppppp"},
+    "fft_conv": {"fft_conv": "ppppqiiii" + "p" * 6},
     "fft_twofactor": {"fft_twofactor": "ppppqpppppi"},
     "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8},
-    "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "i"},
+    "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "i",
+                      "fft_conv2d": "ppppqii" + "p" * 9 + "i"},
     "fft_dct23": {"fft_dct2": "ppqippi", "fft_dct3": "ppqippi"},
     "fft_dct1": {"fft_dct1": "ppqippi"},
     "fft_dct4": {"fft_dct4": "ppqiippii"},
@@ -896,10 +978,10 @@ def _r2c_plan(n: int, inverse: bool, scale: float, device: torch.device):
             _device_table(n, inverse, scale, device, real=True), post)
 
 
-def _apply(name: str, re, im, out, plain, kernel_args):
+def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
     """Shared body of the wrappers of complex planes: ``plain()`` for CPU
-    planes (copied
-    into ``out`` when given), one launch of kernel ``name`` for CUDA planes
+    planes (copied into ``out`` when given), one launch of C entry
+    ``vk_<entry>`` (default ``name``) of library ``name`` for CUDA planes
     with ``kernel_args()`` between the four plane pointers and the stream.
     The output planes have the input's shape; ``out`` may be the input."""
     if out is not None:
@@ -914,7 +996,8 @@ def _apply(name: str, re, im, out, plain, kernel_args):
     yr, yi = out if out is not None else (torch.empty_like(re),
                                           torch.empty_like(im))
     if re.numel():
-        _launch(name, name, re.device, [re, im, yr, yi, *kernel_args()])
+        _launch(name, entry or name, re.device,
+                [re, im, yr, yi, *kernel_args()])
     return yr, yi
 
 
@@ -1177,43 +1260,78 @@ def _check_twofactor(n: int, what: str) -> None:
             f"{MAX_DIRECT_PRIME}); longer lines are ROADMAP queue 2 item 7")
 
 
-def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
-             chirp: Optional[torch.Tensor] = None, out=None):
-    """Circular convolution of each line of (B, m) float32 planes: the
-    unnormalized inverse DFT of DFT(x) * ``spectrum`` (an (m, 2) table,
-    natural order, any normalization folded in: `rader_spectrum`).  With
-    ``chirp`` (an (n, 2) table, n < m) the Bluestein mode: (B, n) planes
-    times the chirp, zero-padded to m, convolved, cropped to n and times
-    the chirp again (`bluestein_chirp`, `bluestein_spectrum`).  ``out`` as
-    for `fft_lines`.  CPU tensors run `fft_conv_plain`; CUDA tensors launch
-    the kernel.
+def _conv_flags(conj_data: bool, xpow: bool) -> int:
+    return (CONV_CONJ_DATA if conj_data else 0) | (CONV_XPOW if xpow else 0)
 
-    Replaces ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in its
-    scalar-table and Bluestein modes.  Bound by bytes (16 B a point of the
-    n-point lines, one read and one write): a block holds ⌊2048/m⌋ lines
-    (at least one) in shared memory through the forward stages, the
-    multiply and the inverse stages, and the pad never exists in device
-    memory (``csrc/fft_conv.cu``)."""
-    _check_planes(re, im, 2, "fft_conv")
-    B, n = re.shape
-    m = _table_length(spectrum, "fft_conv")
+
+def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
+             chirp: Optional[torch.Tensor] = None, out=None,
+             conj_data: bool = False, xpow: bool = False, scale: float = 1.0):
+    """Circular convolution of each line of float32 planes with a fixed
+    kernel given by its spectrum: the inverse DFT, times ``scale``, of
+    DFT(x) times the spectrum (an (L, 2) table, natural order).  Modes, by
+    the planes' shape and the table's length L:
+
+    * (B, n) planes, L = rows * n: line j times row j % rows (rows = 1: the
+      scalar mode of Rader's convolution, `rader_spectrum`);
+    * (B, mm, n) planes, mm = 2 or 3, L = mm * mm * n: out[o] = IDFT(sum_i
+      K[o, i] DFT(x_i)) (`conv_matrix_supports`);
+    * ``chirp`` (an (n, 2) table) and (B, n) planes, n < m = L: the
+      Bluestein mode, the lines times the chirp, zero-padded to m,
+      convolved, cropped to n and times the chirp again
+      (`bluestein_chirp`, `bluestein_spectrum`).
+
+    ``conj_data`` negates Im of DFT(x) before the multiply; ``xpow``
+    divides the product by its modulus (cross-power spectrum).  ``scale``
+    rides the inverse stages, after the multiply.
+    ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_plain`; CUDA
+    tensors launch the kernel.
+
+    Replaces ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in all
+    its modes.  Bound by bytes (16 B a point of the planes, one read and
+    one write, and the table once a launch): a block holds ⌊2048/m⌋ lines
+    (at least one; in the matrix mode whole items of mm lines) in shared
+    memory through the forward stages, the multiply and the inverse
+    stages, and the pad never exists in device memory
+    (``csrc/fft_conv.cu``)."""
+    matrix = re.ndim == 3
+    _check_planes(re, im, 3 if matrix else 2, "fft_conv")
+    mm = re.shape[1] if matrix else 1
+    B, n = re.shape[0], re.shape[-1]
+    L = _table_length(spectrum, "fft_conv")
+    m = L if chirp is not None else n
     _check_length(m)
-    _check_table(spectrum, m, re, "fft_conv")
-    if chirp is None and n != m:
-        raise ValueError(f"fft_conv: lines of {n} points, a spectrum of {m}")
+    rows = 1 if chirp is not None or matrix else L // n
+    _check_table(spectrum, L, re, "fft_conv")
     if chirp is not None:
-        if not 1 <= n < m:
+        if matrix or not 1 <= n < m:
             raise ValueError(f"fft_conv: Bluestein lines of {n} points pad "
                              f"to a longer spectrum than {m}")
+        if conj_data or xpow:
+            raise ValueError("fft_conv: the Bluestein mode has no "
+                             "conj_data or xpow")
         _check_table(chirp, n, re, "fft_conv chirp")
+    elif matrix:
+        if L != mm * mm * n:
+            raise ValueError(f"fft_conv: a ({mm}, {mm}, {n}) matrix "
+                             f"spectrum has {mm * mm * n} points, got {L}")
+        if not conv_matrix_supports(n, mm):
+            raise NotImplementedError(
+                f"fft_conv: {mm} coordinate lines of {n} points do not fit "
+                "one block (mm = 2 or 3, two buffers within "
+                f"{MAX_SMEM_BYTES} B of shared memory)")
+    elif L % n:
+        raise ValueError(f"fft_conv: lines of {n} points, a spectrum of {L}")
 
     def args():
         pf, tf = _plan(m, False, 1.0, re.device)
-        pi, ti = _plan(m, True, 1.0, re.device)
-        return (B, n, pf, pi, tf, ti, spectrum, chirp)
+        pi, ti = _plan(m, True, scale, re.device)
+        return (B * mm, n, mm, rows, _conv_flags(conj_data, xpow), pf, pi, tf,
+                ti, spectrum, chirp)
 
     return _apply("fft_conv", re, im, out,
-                  lambda: fft_conv_plain(re, im, spectrum, chirp), args)
+                  lambda: fft_conv_plain(re, im, spectrum, chirp, conj_data,
+                                         xpow, scale), args)
 
 
 def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -1247,12 +1365,13 @@ def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
 
 def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
-                 dc=None, out=None):
+                 dc=None, out=None, scale: float = 1.0):
     """Natural-order (B, n) float32 planes from a spectrum in
     `fft_twofactor`'s swapped order: the spectrum times ``spectrum`` (an
     (n, 2) table in the same swapped order, `rader_spectrum(...,
-    layout="swapped")`), the unnormalized two-factor inverse, plus the
-    per-line constant ``dc`` = (re, im), float32 (B,) tensors, when given.
+    layout="swapped")`), the two-factor inverse times ``scale`` (riding its
+    twiddle), plus the per-line constant ``dc`` = (re, im), float32 (B,)
+    tensors, when given.
     ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_inv_plain`;
     CUDA tensors launch the kernel.
 
@@ -1273,32 +1392,51 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     def args():
         p1, p2, t1, t2 = _two_plans(n, True, re.device)
-        tw = device_array(("twofactor", n, True, 1.0), re.device,
-                           lambda: twofactor_twiddle(n, True))
+        tw = device_array(("twofactor", n, True, scale), re.device,
+                           lambda: twofactor_twiddle(n, True, scale))
         d = dc if dc is not None else (None, None)
         return (B, p1, p2, t1, t2, tw, spectrum, d[0], d[1])
 
     return _apply("fft_conv_inv", re, im, out,
-                  lambda: fft_conv_inv_plain(re, im, spectrum, dc), args)
+                  lambda: fft_conv_inv_plain(re, im, spectrum, dc, scale),
+                  args)
 
 
 def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
-                  chirp: torch.Tensor, out=None):
-    """Bluestein transform of each line of (B, n) float32 planes through a
-    padded length m = len(spectrum) that `conv_pair_plan` splits into an
-    (nc, ns) plane: the lines times ``chirp`` ((n, 2)), zero-padded to m,
-    convolved with the spectrum (an (m, 2) table in the plane order,
-    `bluestein_spectrum(..., layout="pair")`), cropped to n and times the
-    chirp again.  ``out`` as for `fft_lines`.  CPU tensors run
-    `fft_conv_pair_plain`; CUDA tensors launch the kernel.
+                  chirp: Optional[torch.Tensor] = None, out=None,
+                  conj_data: bool = False, xpow: bool = False,
+                  scale: float = 1.0):
+    """A plane held in a thread-block cluster, in one of two modes.
+
+    With ``chirp`` (an (n, 2) table), the Bluestein mode: each line of (B,
+    n) float32 planes through a padded length m = len(spectrum) that
+    `conv_pair_plan` splits into an (nc, ns) plane: the lines times the
+    chirp, zero-padded to m, convolved with the spectrum (an (m, 2) table
+    in the plane order, `bluestein_spectrum(..., layout="pair")`), cropped
+    to n and times the chirp again.
+
+    Without, the 2-D mode: each (ny, nz) plane of (B, ny, nz) float32
+    planes circularly convolved with a fixed kernel, the inverse 2-D DFT,
+    times ``scale``, of its 2-D DFT (conjugated with ``conj_data``) times
+    spectrum b % hp of the (hp * ny * nz, 2) table in natural (hp, ny, nz)
+    order, divided by its modulus with ``xpow``; the plane must fit a
+    cluster (`pair_cluster`).
+
+    ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_pair_plain`;
+    CUDA tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in
-    its Bluestein mode.  Bound by operations at m = 32768 (two m-point FFTs
-    a line for n points of traffic): a cluster of blocks holds the padded
-    line as a plane in shared memory, runs the nc and ns stages with the
-    four-step twiddle between them, multiplies and runs the inverse, and
-    moves column and row tiles between its blocks over distributed shared
-    memory (``csrc/fft_conv_pair.cu``)."""
+    both its modes.  Bluestein: bound by operations at m = 32768 (two
+    m-point FFTs a line for n points of traffic); the cluster holds the
+    padded line as a plane, runs the nc and ns stages with the four-step
+    twiddle between them, multiplies and runs the inverse.  2-D: bound by
+    bytes (16 B a point, one read and one write, and the spectrum once a
+    launch); each block reads a row tile, runs the nz stages, gathers a
+    column tile, runs the ny stages, multiplies, and mirrors back.  Tiles
+    move between the blocks over distributed shared memory
+    (``csrc/fft_conv_pair.cu``)."""
+    if chirp is None:
+        return _fft_conv2d(re, im, spectrum, out, conj_data, xpow, scale)
     _check_planes(re, im, 2, "fft_conv_pair")
     B, n = re.shape
     m = _table_length(spectrum, "fft_conv_pair")
@@ -1312,6 +1450,10 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     if not 1 <= n < m:
         raise ValueError(f"fft_conv_pair: lines of {n} points for a padded "
                          f"length {m}")
+    if conj_data or xpow or scale != 1.0:
+        raise ValueError("fft_conv_pair: the Bluestein mode has no "
+                         "conj_data, xpow or scale (the scale rides the "
+                         "spectrum)")
     _check_table(chirp, n, re, "fft_conv_pair chirp")
 
     def args():
@@ -1327,6 +1469,37 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     return _apply("fft_conv_pair", re, im, out,
                   lambda: fft_conv_pair_plain(re, im, spectrum, chirp), args)
+
+
+def _fft_conv2d(re, im, spectrum, out, conj_data: bool, xpow: bool,
+                scale: float):
+    """The 2-D mode of `fft_conv_pair` (C entry ``vk_fft_conv2d``)."""
+    _check_planes(re, im, 3, "fft_conv_pair")
+    B, ny, nz = re.shape
+    _check_length(ny)
+    _check_length(nz)
+    cluster = pair_cluster(ny, nz)
+    if cluster is None:
+        raise _no_cluster("fft_conv_pair", ny, nz)
+    L = _table_length(spectrum, "fft_conv_pair")
+    if L % (ny * nz) or not L:
+        raise ValueError(f"fft_conv_pair: a spectrum of (hp, {ny}, {nz}) "
+                         f"points, got {L}")
+    _check_table(spectrum, L, re, "fft_conv_pair")
+
+    def args():
+        dev = re.device
+        pzf, tzf = _plan(nz, False, 1.0, dev)
+        pyf, tyf = _plan(ny, False, 1.0, dev)
+        pyi, tyi = _plan(ny, True, scale, dev)
+        pzi, tzi = _plan(nz, True, 1.0, dev)
+        return (B, L // (ny * nz), _conv_flags(conj_data, xpow), pzf, pyf,
+                pyi, pzi, tzf, tyf, tyi, tzi, spectrum, cluster)
+
+    return _apply("fft_conv_pair", re, im, out,
+                  lambda: fft_conv_pair_plain(re, im, spectrum, None,
+                                              conj_data, xpow, scale),
+                  args, entry="fft_conv2d")
 
 
 # ---------------------------------------------------------------------------
