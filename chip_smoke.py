@@ -11,8 +11,8 @@ Phases (each asserts; any failure exits non-zero before the result line):
      and layout), and on a subset against numpy fp64 (<= 5e-6); then the
      API's other routes (axis subsets, odd, tiny and length-1 axes, complex
      tensors, the real transforms' merged, tiny and explicit-n routes, the
-     numpy rule for Im(DC/Nyquist), inputs left unchanged, refusals outside
-     the slice);
+     numpy rule for Im(DC/Nyquist), inputs left unchanged, long-tier
+     lengths that once were refused);
   3. the main path at full width, each part with the launch counters set
      to 0 just before it and read just after: C2C through FFTApplication,
      batched 1-D at n = 256, 1024, 4096 with 128 MB of planar data each
@@ -72,6 +72,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
      those shapes (held against their plain versions) and each row's call
      timed as in 4, beside the bound and the torch.fft composition of the
      same function (fftn, the multiply or einsum, ifftn).
+  9. the long tier: long_kernels, fft_strided_tw (the factor mode of
+     fft_strided) against its plain version on every factor form of the
+     long tier (two uploads, three uploads' two passes, the Bluestein
+     chirp with live lengths that are not multiples of S), both
+     directions, and numpy fp64 on the smaller cases; long_routes, DIRECT
+     lengths 16385..2^20 (sampled, with 16400 and 20480), Bluestein
+     32771 / 65537 / 99991, SPLIT 131 * 32768, rfft/irfft at 40960 and
+     65542, a long non-minor axis and three uploads forced at 2^20 and
+     2^22 against numpy, none of which may raise; long_main_path, the
+     reference's sample 11 long systems (2^17 .. 2^26, one line each,
+     vkfft_tpu/cli.py:272) against numpy fp64 at 5e-6, a 2^20 row at 128
+     MiB of planes (16 lines) and one 2^28 line (its oracle torch.fft in
+     complex128 on the card; the smallest power of two the port's split
+     sends to three uploads is sample 11's 2^24), each counted from 0 and
+     held to its exact launches; long_times, fft_strided_tw at the 2^20 row's shapes
+     and the 2^20 and Bluestein 65537 round trips, beside the bound, the
+     reorder's share and torch.fft.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -299,14 +316,15 @@ def phase_routes(vt, dev) -> dict:
     assert yc.is_complex() and yc.device == xc.device
     assert _rel(yc, torch.fft.fft(xc)) <= NUMPY_TOL
     for n in (20480, 65537):   # the long tier
-        p = vt.Planar(*_planes((2, n), n, dev))
-        try:
-            vt.fft(p)
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"n={n} is outside the slice but did not raise")
+        xr, xi = _planes((2, n), n, dev)
+        xc = torch.complex(xr, xi)
+        y = vt.fft(vt.Planar(xr, xi))
+        row = {"shape": [2, n], "axes": None, "rel_err_fwd": _rel(
+            torch.complex(y.re, y.im), torch.fft.fft(xc))}
+        assert row["rel_err_fwd"] <= NUMPY_TOL, row
+        rows.append(row)
     _log(f"[routes] {len(rows)} fftn/ifftn cases, worst "
-         f"{max(max(r['rel_err_fwd'], r['rel_err_round_trip']) for r in rows)}")
+         f"{max(max(r['rel_err_fwd'], r.get('rel_err_round_trip', 0.0)) for r in rows)}")
     return {"cases": rows}
 
 
@@ -658,13 +676,9 @@ def phase_real_routes(vt, dev) -> dict:
         check(f"irfftn {shape} axes {axes}", _host(z), _host(x))
         assert torch.equal(x, keep), ("rfftn changed its input", shape)
     for n in (40960, 65542):   # n/2 = 20480, 32771: the long tier
-        try:
-            vt.rfft(vt.Planar(real((2, n)), real((2, n))))
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e), e
-            rows.append({"case": f"rfft n={n} refused", "message": str(e)})
-            continue
-        raise AssertionError(f"rfft n={n} is outside the slice but ran")
+        x = real((2, n))
+        X = vt.rfft(x)
+        check(f"rfft n={n} (long tier)", X.cpu().numpy(), np.fft.rfft(_host(x)))
     _log(f"[real routes] {len(rows)} cases, worst "
          f"{max(r.get('rel_err', 0.0) for r in rows)}")
     return {"cases": rows}
@@ -1080,13 +1094,10 @@ def phase_any_routes(vt, ce, dev) -> dict:
     for n in ROUTE_LENGTHS:
         xr, xi = _host_planes((2, n), n)
         x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
-        try:
-            y = vt.fft(x)
-        except NotImplementedError as e:
-            assert "queue 2 item 7" in str(e), (n, e)
-            assert not ce.supports(plan_axis(n)), n
+        if not ce.supports(plan_axis(n)):
             raised.append(n)
             continue
+        y = vt.fft(x)
         z = vt.ifft(y)
         h = torch.stack([y.re, y.im, z.re, z.im]).double().cpu().numpy()
         xc = xr.astype(np.float64) + 1j * xi
@@ -1101,19 +1112,19 @@ def phase_any_routes(vt, ce, dev) -> dict:
          f"{len(raised)} raise {raised}, worst {worst}, "
          f"{time.perf_counter() - t0:.1f} s")
     assert tuple(raised) == LONG_TIER_TO_16384, raised
-    for n in (16400, 20480, 32771):
-        try:
-            vt.fft(vt.Planar(*_planes((2, n), n, dev)))
-        except NotImplementedError as e:
-            assert "queue 2 item 7" in str(e), e
-            continue
-        raise AssertionError(f"n={n} is in the long tier but ran")
     cases = []
 
     def check(what, got, want):
         err = _numpy_rel(got, want)
         cases.append({"case": what, "rel_err": err})
         assert err <= NUMPY_TOL, (what, err)
+
+    for n in (16400, 20480, 32771):   # the long tier (phase long_routes)
+        xr, xi = _host_planes((2, n), n)
+        y = vt.fft(vt.Planar(torch.from_numpy(xr).to(dev),
+                             torch.from_numpy(xi).to(dev)))
+        check(f"fft n={n} (long tier)", _host(y.re) + 1j * _host(y.im),
+              np.fft.fft(xr.astype(np.float64) + 1j * xi))
 
     for shape, axes in (((6, 131), None), ((131, 8, 4), None),
                         ((3, 263, 12), (1, 2)), ((10007, 2), (0,))):
@@ -2038,6 +2049,335 @@ def phase_conv_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# The long tier: DIRECT beyond 16384 in two and three uploads, the long
+# Bluestein, on the factor mode of fft_strided (fft_strided_tw).
+# ---------------------------------------------------------------------------
+
+LONG_KERNELS = ("fft_strided_tw",)
+SAMPLE_11_LONG = (1 << 17, 1 << 20, 1 << 22, 1 << 24, 1 << 26)  # cli.py:272
+LONG_ROW_N = 1 << 20             # the 2^20 row: 16 lines, 128 MiB of planes
+LONG_ROW_LINES = TARGET_BYTES // (8 * LONG_ROW_N)
+LONG_BLUESTEIN_N = 65537         # m = 131712, the fused long Bluestein
+
+
+def _long_factor_cases(ck):
+    """(what, plane shape (P, n, S) or (P, L, (n, S)), inverse, scale,
+    options) of the factor mode: every factor form of the long tier, both
+    directions, live lengths that are not multiples of S, primes above 64,
+    the largest n and odd S."""
+    twid = ck.twiddle
+    na, nb, ns = 64, 128, 128
+    out = [
+        ("two-upload fwd", (16, 512, 2048), False, 1.0,
+         dict(post=twid(1 << 20))),
+        ("two-upload inv", (16, 512, 2048), True, 2.0 ** -20,
+         dict(pre=twid(1 << 20, True))),
+        ("three pass 1 fwd", (2, na, nb * ns), False, 1.0,
+         dict(post=twid(na * nb, sd=ns))),
+        ("three pass 1 inv", (2, na, nb * ns), True, 0.5,
+         dict(pre=twid(na * nb, True, sd=ns))),
+        ("three pass 2 fwd", (2 * na, nb, ns), False, 1.0,
+         dict(post=twid(na * nb * ns, a=na, pm=na, b=1),
+              out_interleave=na)),
+        ("three pass 2 inv", (2 * na, nb, ns), True, 1.0,
+         dict(pre=twid(na * nb * ns, True, a=na, pm=na, b=1),
+              in_interleave=na)),
+        ("n=8192", (1, 8192, 96), False, 1.0, dict(post=twid(8192 * 96))),
+        ("primes 127, 101", (3, 127 * 2, 101), True, 1.0,
+         dict(pre=twid(254 * 101, True))),
+        ("odd S", (5, 96, 77), False, 1.0, dict(post=twid(96 * 77))),
+    ]
+    # the long Bluestein's two passes at sample 14's 32771 and 65537, at
+    # 99991 and at a small plane whose live rows end mid-row
+    for n, inverse, m in ((32771, False, 66560), (65537, True, 131712),
+                          (99991, False, 1 << 18), (3001, True, 64 * 128)):
+        plane = ck.bluestein_long_split(m) if n > 16384 else (64, 128)
+        out.append((f"bluestein n={n} read", (3, n, plane), False, 1.0,
+                    dict(pre=ck.chirp(n, inverse), post=twid(m))))
+        out.append((f"bluestein n={n} write", (3, m, plane), True, 1.0 / 3,
+                    dict(pre=twid(m, True), post=ck.chirp(n, inverse),
+                         out_len=n)))
+    return out
+
+
+def _factor_numpy(ck, f, P, n, S):
+    """The factor's definition in numpy fp64 on (P, n, S)."""
+    p = np.arange(P)[:, None, None]
+    row = np.arange(n)[None, :, None]
+    s = np.arange(S)[None, None, :]
+    if f.kind == "chirp":
+        e = (row * S + s) ** 2 % f.N
+    else:
+        e = (row * f.a + p % f.pm * f.b) * (s // f.sd) % f.N
+    return np.exp((2j if f.inverse else -2j) * np.pi * e / f.N)
+
+
+def phase_long_kernels_vs_plain(ck, dev) -> dict:
+    """fft_strided_tw, the factor mode of fft_strided, against its plain
+    version (<= 1e-5 of max|ref|) on every case of `_long_factor_cases`,
+    and against its definition in numpy fp64 (<= 5e-6) on the smaller."""
+    t0 = time.perf_counter()
+    cases = []
+    for what, shape, inverse, scale, kw in _long_factor_cases(ck):
+        if len(shape) == 3 and isinstance(shape[2], tuple):
+            P, L, plane = shape
+            xr, xi = _planes((P, L), L, dev)
+            kw = dict(kw, plane=plane)
+            n, S = plane
+        else:
+            xr, xi = _planes(shape, sum(shape), dev)
+            P, n, S = shape
+        got = ck.fft_strided(xr, xi, inverse, scale, **kw)
+        plain = ck.fft_strided_plain(xr, xi, inverse, scale, **kw)
+        err = _rel(torch.complex(*got), torch.complex(*plain))
+        row = {"case": what, "shape": list(xr.shape),
+               "out_shape": list(got[0].shape), "rel_err_vs_plain": err}
+        assert err <= KERNEL_TOL, row
+        if P * n * S <= 1 << 22:
+            x = np.zeros((P, n * S), np.complex128)
+            x[:, :xr.shape[1] if "plane" in kw else n * S] = _cplx2(
+                xr.reshape(P, -1), xi.reshape(P, -1))
+            x = x.reshape(P, n, S)
+            d = kw.get("in_interleave", 1)
+            x = x.reshape(P // d, n, d, S).transpose(0, 2, 1, 3).reshape(
+                P, n, S)
+            if kw.get("pre") is not None:
+                x = x * _factor_numpy(ck, kw["pre"], P, n, S)
+            y = np.fft.ifft(x, axis=1) * n if inverse else np.fft.fft(x, axis=1)
+            y = y * scale
+            if kw.get("post") is not None:
+                y = y * _factor_numpy(ck, kw["post"], P, n, S)
+            d = kw.get("out_interleave", 1)
+            y = y.reshape(P // d, d, n, S).transpose(0, 2, 1, 3)
+            y = y.reshape(P, -1)[:, :got[0].reshape(P, -1).shape[1]]
+            row["rel_err_vs_numpy"] = _numpy_rel(
+                _cplx2(got[0].reshape(P, -1), got[1].reshape(P, -1)), y)
+            assert row["rel_err_vs_numpy"] <= NUMPY_TOL, row
+        _log(f"[long kernels] {row}")
+        cases.append(row)
+        del xr, xi, got, plain
+    return {"cases": cases, "seconds": time.perf_counter() - t0}
+
+
+# every 97th DIRECT length of 16385..2^20 and named ones (16400, 20480),
+# Bluestein 32771 (m = 66560), 65537 (m = 131712), 99991 (m = 2^18), the
+# SPLIT 131 * 32768
+LONG_ROUTE_LENGTHS = sorted(set(range(16385, (1 << 20) + 1, 16384 * 3 + 97))
+                            | {16400, 20480, 32768, 1 << 20, 32771, 65537,
+                               99991, 131 * 32768})
+
+
+def phase_long_routes(vt, ce, dev) -> dict:
+    """LONG_ROUTE_LENGTHS through vt.fft/vt.ifft on the card (batch 2)
+    against numpy fp64, none of which may raise; rfft/irfft at 40960 and
+    65542 (n/2 = 20480, 32771); a long non-minor axis; the three-upload
+    route forced at 2^20 and 2^22 (cuda_engine.fft_long3_p)."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    t0 = time.perf_counter()
+    cases = []
+
+    def check(what, got, want):
+        err = _numpy_rel(got, want)
+        cases.append({"case": what, "rel_err": err})
+        assert err <= NUMPY_TOL, (what, err)
+
+    for n in LONG_ROUTE_LENGTHS:
+        xr, xi = _host_planes((2, n), n)
+        x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
+        y = vt.fft(x)
+        z = vt.ifft(y)
+        xc = xr.astype(np.float64) + 1j * xi
+        route = [(k, m) for k, _, m in ce.route(plan_axis(n))]
+        check(f"fft n={n} {route}", _cplx2(y.re, y.im), np.fft.fft(xc))
+        check(f"ifft(fft) n={n}", _cplx2(z.re, z.im), xc)
+    for n in (40960, 65542):
+        xh = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+        X = vt.rfft(torch.from_numpy(xh).to(dev))
+        want = np.fft.rfft(xh.astype(np.float64))
+        check(f"rfft n={n}", X.cpu().numpy(), want)
+        check(f"irfft n={n}", _host(vt.irfft(X, n=n)), xh.astype(np.float64))
+    shape = (20480, 3, 4)
+    xr, xi = _host_planes(shape, 7)
+    x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
+    xc = xr.astype(np.float64) + 1j * xi
+    y = vt.fftn(x, axes=(0,))
+    check(f"fftn {shape} axes (0,)", _cplx2(y.re, y.im),
+          np.fft.fft(xc, axis=0))
+    z = vt.ifftn(y, axes=(0,))
+    check(f"ifftn {shape} axes (0,)", _cplx2(z.re, z.im), xc)
+    for n in (1 << 20, 1 << 22):
+        xr, xi = _host_planes((1, n), n + 3)
+        x = vt.Planar(torch.from_numpy(xr).to(dev), torch.from_numpy(xi).to(dev))
+        split = ce.ck.long_split(n, 3)
+        y = ce.fft_long3_p(x, n, split=split)
+        z = ce.fft_long3_p(y, n, True, 1.0 / n, split=split)
+        xc = xr.astype(np.float64) + 1j * xi
+        check(f"three uploads n={n} {split}", _cplx2(y.re, y.im),
+              np.fft.fft(xc))
+        check(f"three uploads n={n} inverse", _cplx2(z.re, z.im), xc)
+    worst = max(c["rel_err"] for c in cases)
+    _log(f"[long routes] {len(cases)} cases ({len(LONG_ROUTE_LENGTHS)} "
+         f"lengths), worst {worst}, {time.perf_counter() - t0:.1f} s")
+    return {"cases": cases, "worst": worst,
+            "seconds": time.perf_counter() - t0}
+
+
+LONG_LINE_MAX = 1 << 28          # one line of 2 GiB of planes
+
+
+def _long_rows(ck):
+    """(row, lines, n, launches of a forward and an inverse) of the long
+    main path: sample 11's long systems (one line each; its 2^24 is the
+    smallest power of two the port's split sends to three uploads), the
+    2^20 row at 128 MiB, and one 2^28 line."""
+    smallest3 = next(1 << k for k in range(15, 41)
+                     if len(ck.long_split(1 << k)) == 3)
+    assert smallest3 in SAMPLE_11_LONG, smallest3
+    rows = [(f"sample11_n{n}", 1, n) for n in SAMPLE_11_LONG]
+    rows += [(f"1d_n{LONG_ROW_N}_x{LONG_ROW_LINES}", LONG_ROW_LINES,
+              LONG_ROW_N), (f"three_uploads_n{LONG_LINE_MAX}", 1,
+                            LONG_LINE_MAX)]
+    return [(name, B, n, LONG_LAUNCHES[n]) for name, B, n in rows]
+
+
+# launches of one forward and one inverse, by length (the splits of
+# cuda_kernels.long_split: to 2^23 two uploads, from 2^24 three)
+LONG_LAUNCHES = {
+    1 << 17: {"fft_strided_tw": 2, "fft_lines": 2},
+    1 << 20: {"fft_strided_tw": 2, "fft_lines": 2},
+    1 << 22: {"fft_strided_tw": 2, "fft_lines": 2},
+    1 << 24: {"fft_strided_tw": 4, "fft_lines": 2},
+    1 << 26: {"fft_strided_tw": 4, "fft_lines": 2},
+    1 << 28: {"fft_strided_tw": 4, "fft_lines": 2},
+}
+
+
+def phase_long_main_path(vt, ck, torch_engine, dev) -> dict:
+    """Each long row through FFTApplication (forward, normalized inverse),
+    the counts set to 0 just before it and read just after, held to its
+    exact launches and no plain-engine call; the forward against numpy
+    fp64 (the three-upload line against torch.fft in complex128 on the
+    card, an oracle only), the round trip against the input."""
+    rows, by_row = [], {}
+    for name, B, n, want in _long_rows(ck):
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True))
+        xr, xi = _planes((B, n), n % 997, dev)
+        x = vt.Planar(xr, xi)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        y = app.forward(x)
+        z = app.inverse(y)
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_row[f"long_{name}"] = got
+        _log(f"[main long] {name}: split {ck.long_split(n)}, launches {got}, "
+             f"plain engine calls {torch_engine.calls}")
+        assert got == {k: want.get(k, 0) for k in got}, (name, got, want)
+        assert torch_engine.calls == 0, (name, torch_engine.calls)
+        row = {"row": name, "shape": [B, n], "split": ck.long_split(n),
+               "finite": _finite(y, z)}
+        if n <= 1 << 26:
+            pick = min(B, 2)
+            want_f = np.fft.fft(_cplx2(xr[:pick], xi[:pick]))
+            row["oracle"] = "numpy fp64"
+            row["rel_err_fwd"] = _numpy_rel(_cplx2(y.re[:pick], y.im[:pick]),
+                                            want_f)
+            del want_f
+        else:
+            xc = torch.complex(xr.double(), xi.double())
+            ref = torch.fft.fft(xc)
+            row["oracle"] = "torch.fft complex128 on the card"
+            row["rel_err_fwd"] = _rel(torch.complex(y.re.double(),
+                                                    y.im.double()), ref)
+            del xc, ref
+        row["rel_err_round_trip"] = _rel(torch.complex(z.re, z.im),
+                                         torch.complex(xr, xi))
+        _log(f"[main long] {row}")
+        assert row["finite"] and y.shape == x.shape and z.shape == x.shape, row
+        assert row["rel_err_fwd"] <= NUMPY_TOL, row
+        assert row["rel_err_round_trip"] <= NUMPY_TOL, row
+        rows.append(row)
+        del x, y, z, xr, xi
+        torch.cuda.empty_cache()
+    launches = {k: sum(c[k] for c in by_row.values()) for k in ck.launches}
+    return {"launches": launches, "launches_by_path": by_row,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def phase_long_times(vt, ce, ck, dev) -> dict:
+    """fft_strided_tw at the 2^20 row's shapes (both directions, held
+    against its plain version there; no one PyTorch call computes a
+    twiddled strided pass, so library_ms is null), and the round trips of
+    the 2^20 row, of Bluestein 65537 at 64 MiB and of sample 11's 2^24
+    and 2^26 lines (three uploads), beside the bound (one read and one
+    write of the planes a direction), the kernels a direction launches,
+    the reorder's share (the tensor-op transposes timed alone at the row's
+    shapes) and torch.fft of the same data."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    _log(f"[time] card: {_smi()}")
+    kernels = {"fft_strided_tw": []}
+    B, n = LONG_ROW_LINES, LONG_ROW_N
+    nc, ns = ck.long_split(n)
+    for inverse in (False, True):
+        xr, xi = _planes((B, nc, ns), 900 + inverse, dev)
+        kw = (dict(pre=ck.twiddle(n, True)) if inverse
+              else dict(post=ck.twiddle(n)))
+        scale = 1.0 / n if inverse else 1.0
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+        err = _errors(ck.fft_strided(xr, xi, inverse, scale, **kw),
+                      ck.fft_strided_plain(xr, xi, inverse, scale, **kw),
+                      ("fft_strided_tw", inverse))
+        nbytes = 16.0 * B * n
+        bound, by = _bound(nbytes, _fft_ops(B * n, nc) + _cmul_ops(B * n))
+        row = {"shape": [B, nc, ns], "inverse": inverse,
+               "factor": "pre" if inverse else "post",
+               "ms": _time_ms(lambda: ck.fft_strided(
+                   xr, xi, inverse, scale, out=(yr, yi), **kw)),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+               "plain_ms": _time_ms(lambda: ck.fft_strided_plain(
+                   xr, xi, inverse, scale, **kw), reps=5, inner=1, warmup=1),
+               "library_ms": None,
+               "plain_mode_ms": _time_ms(lambda: ck.fft_strided(
+                   xr, xi, inverse, scale, out=(yr, yi)))}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] fft_strided_tw {row}")
+        kernels["fft_strided_tw"].append(row)
+        del xr, xi, yr, yi
+
+    e2e = []
+    for n, B in ((LONG_ROW_N, LONG_ROW_LINES),
+                 (LONG_BLUESTEIN_N, SAMPLE_7_BYTES // (8 * LONG_BLUESTEIN_N)),
+                 (1 << 24, 1), (1 << 26, 1)):
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True))
+        x = vt.Planar(*_planes((B, n), n + 5, dev))
+        xc = torch.complex(x.re, x.im)
+        kernels_ = ce.route(plan_axis(n))
+        nbytes = 4 * 8.0 * B * n
+        bound, by = _bound(nbytes, 2 * _fft_ops(B * n, n))
+        ms = _time_ms(lambda: app.inverse(app.forward(x)))
+        row = {"row": f"long_n{n}", "shape": [B, n],
+               "plan": plan_axis(n).algorithm.value,
+               "route": [(k, m) for k, _, m in kernels_],
+               "uploads_per_dir": len(kernels_), "ms": ms,
+               "GBs": nbytes / ms / 1e6, "bound_ms": bound, "bound_by": by,
+               "torch_fft_ms": _time_ms(
+                   lambda: torch.fft.ifft(torch.fft.fft(xc)))}
+        if row["plan"] == "direct":
+            ns = ck.long_split(n)[-1]
+            t = x.re.reshape(B, n // ns, ns)
+            reorder = _time_ms(lambda: (t.transpose(1, 2).contiguous(),
+                                        t.transpose(1, 2).contiguous()))
+            row["reorder_ms_per_dir"] = reorder
+            row["reorder_share"] = 2 * reorder / ms
+        row["vs_torch_fft"] = row["torch_fft_ms"] / ms
+        _log(f"[time] e2e {row}")
+        e2e.append(row)
+        del x, xc
+    return {"kernels": kernels, "e2e": e2e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2081,7 +2421,12 @@ def main() -> int:
               ("conv_routes", lambda: phase_conv_routes(vt, dev)),
               ("conv_main_path",
                lambda: phase_conv_main_path(vt, ck, torch_engine, dev)),
-              ("conv_times", lambda: phase_conv_times(vt, ck, dev))]
+              ("conv_times", lambda: phase_conv_times(vt, ck, dev)),
+              ("long_kernels", lambda: phase_long_kernels_vs_plain(ck, dev)),
+              ("long_routes", lambda: phase_long_routes(vt, ce, dev)),
+              ("long_main_path",
+               lambda: phase_long_main_path(vt, ck, torch_engine, dev)),
+              ("long_times", lambda: phase_long_times(vt, ce, ck, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -2102,7 +2447,8 @@ def main() -> int:
                    **record["real_main_path"]["launches_by_path"],
                    **record["any_main_path"]["launches_by_path"],
                    **record["r2r_main_path"]["launches_by_path"],
-                   **record["conv_main_path"]["launches_by_path"])
+                   **record["conv_main_path"]["launches_by_path"],
+                   **record["long_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -2122,17 +2468,23 @@ def main() -> int:
                                  f"{pe}:2205"),
                "fft_dct23": ("vkfft_tpu_torch/csrc/fft_dct23.cu", f"{pe}:2745"),
                "fft_dct1": ("vkfft_tpu_torch/csrc/fft_dct1.cu", f"{pe}:2958"),
-               "fft_dct4": ("vkfft_tpu_torch/csrc/fft_dct4.cu", f"{pe}:3080")}
+               "fft_dct4": ("vkfft_tpu_torch/csrc/fft_dct4.cu", f"{pe}:3080"),
+               "fft_strided_tw": ("vkfft_tpu_torch/csrc/fft_strided_tw.cu",
+                                  f"{pe}:3489")}
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
-    # source holds both directions
+    # source holds both directions; the factor mode (fft_strided_tw) is the
+    # factor option of _strided_kernel_v3 and the whole of _strided_kernel;
+    # fft_twofactor holds every length of the v1 _fft_kernel
     also = {"fft_strided": [f"{pe}:4001"], "fft_r2c": [f"{pe}:2507"],
-            "fft_r2c_pair": [f"{pe}:3229"], "fft_dct23": [f"{pe}:2789"]}
+            "fft_r2c_pair": [f"{pe}:3229"], "fft_dct23": [f"{pe}:2789"],
+            "fft_strided_tw": [f"{pe}:3439"], "fft_twofactor": [f"{pe}:152"]}
     timed = {k: record["times"]["kernels"].get(k, [])
              + record["real_times"]["kernels"].get(k, [])
              + record["any_times"]["kernels"].get(k, [])
              + record["r2r_times"]["kernels"].get(k, [])
              + record["conv_times"]["kernels"].get(k, [])
+             + record["long_times"]["kernels"].get(k, [])
              for k in ck.KERNEL_SOURCES}
     entries = []
     for name, rows in timed.items():
@@ -2147,6 +2499,7 @@ def main() -> int:
             "shape": head["shape"], "also_replaces": also.get(name, []),
             "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
+    record["kernels_line"] = entries
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)

@@ -7,8 +7,9 @@ lengths through `FFTApplication(engine="cuda")` and the functional API
 against the JAX package's jnp engine and numpy; the exact kernel launches
 of each route, counted by the wrappers on meta tensors with the library
 call stubbed out; the half-length route of the real transforms; non-minor
-axes; and the long tier's refusals.  The CUDA kernels themselves run only
-on the card (chip_smoke.py)."""
+axes; and the long-tier lengths the engine once refused, now run
+(tests/test_torch_long.py holds the long tier itself).  The CUDA kernels
+themselves run only on the card (chip_smoke.py)."""
 import collections
 import contextlib
 import types
@@ -130,6 +131,33 @@ def test_fft_twofactor_plain_matches_v2_kernel(interpret, n, inverse, order):
     if order == "swapped" and not inverse:
         want = want.reshape(2, n1, n2).transpose(0, 2, 1).reshape(2, n)
     assert _rel(got, want) <= NUMPY_TOL
+
+
+def test_fft_kernel_lengths_run_on_fft_twofactor():
+    """``pallas_engine.py:152 _fft_kernel`` (the v1 four-step, n1 <= n2 <=
+    128) goes into `fft_twofactor`: every length of its
+    ``split_two_factors`` has a `twofactor_split`, and the JAX dispatch
+    (``core_fft_planar``) reaches it for no n in 5..16384, each such n
+    being a v3 or a v2 length first."""
+    for n in range(2, 16385):
+        if pallas_engine.split_two_factors(n) is not None:
+            assert ck.twofactor_supports(n), n
+    for n in range(5, 16385):
+        if not (pallas_engine._use_v3(n) or pallas_engine._use_v2(n)):
+            assert pallas_engine.split_two_factors(n) is None, n
+
+
+@pytest.mark.parametrize("n", [1000, 16384])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_twofactor_plain_matches_fft_kernel(interpret, n, inverse):
+    """`fft_twofactor`'s plain version against `_fft_kernel` itself
+    (``_build_fft_call``, natural order, scale outside it)."""
+    run = pallas_engine._build_fft_call(n, inverse, 2, True)
+    re, im = _planes((2, n), seed=n + inverse)
+    rr, ri = run(jnp.asarray(re), jnp.asarray(im))
+    got = _c(*ck.fft_twofactor(*_t(re, im), inverse))
+    assert _rel(got, _c(rr, ri)) <= REF_TOL
+    assert _rel(got, _dft(_c(re, im), inverse)) <= NUMPY_TOL
 
 
 def test_fft_conv_inv_plain_matches_conv_inv_kernel(interpret):
@@ -297,15 +325,22 @@ def test_real_route_launches(monkeypatch, n, want):
 @pytest.mark.parametrize("n", [32771, 20480, 65537])
 def test_long_tier_raises_naming_its_item(n):
     """DIRECT lengths above 16384 and Bluestein lengths padded beyond 2^16
-    (32771 and 65537 are sample 14's) wait for the long tier.  8133 and the
-    other lengths the JAX package sends there run on `fft_conv_pair`
-    (`test_route_launches`)."""
+    (32771 and 65537 are sample 14's), which waited for the long tier, run
+    on it: `fft_lines_p` and `vt.fft` on CPU planes against the JAX
+    package's jnp engine and numpy, with no call of the plain engine.
+    8133 and the other lengths the JAX package sends there run on
+    `fft_conv_pair` (`test_route_launches`)."""
     re, im = _planes((2, n), seed=3)
-    assert not cuda_engine.supports(plan_axis(n))
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        cuda_engine.fft_lines_p(vt.from_numpy_planar(re, im), plan_axis(n))
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        vt.fft(_c(re, im), engine="cuda", device="cpu")
+    x = _c(re, im)
+    want = np.fft.fft(x)
+    ref = np.asarray(vk.fft(x.astype(np.complex64), engine="jnp"))
+    calls = torch_engine.calls
+    y = cuda_engine.fft_lines_p(vt.from_numpy_planar(re, im), plan_axis(n))
+    assert _rel(_c(y.re, y.im), ref) <= REF_TOL
+    assert _rel(_c(y.re, y.im), want) <= NUMPY_TOL
+    f = vt.fft(x.astype(np.complex64), engine="cuda", device="cpu")
+    assert _rel(f, want) <= NUMPY_TOL
+    assert torch_engine.calls == calls
 
 
 def test_every_length_to_16384_has_a_route():
@@ -423,11 +458,11 @@ def test_new_wrapper_checks():
         ck.fft_conv(re, im, spec.double())
     with pytest.raises(ValueError):
         ck.fft_conv(re[:, :100].contiguous(), im[:, :100].contiguous(), spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="long tier"):
         ck.fft_twofactor(torch.zeros(1, 16400), torch.zeros(1, 16400))
     with pytest.raises(ValueError):
         ck.fft_conv_inv(re, im, spec, dc=(torch.zeros(3), torch.zeros(3)))
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
+    with pytest.raises(NotImplementedError, match="long tier"):
         ck.fft_conv_pair(re, im, torch.zeros(66560, 2), torch.zeros(130, 2))
     with pytest.raises(TypeError):
         ck.fft_conv(re, im, spec.numpy())

@@ -1,6 +1,7 @@
 """The torch port's FFTApplication and functional API against the JAX
 package's (jnp engine, and one pallas case in interpret mode) and numpy,
-plus the port's device rules and the CUDA route's refusals."""
+plus the port's device rules, the CUDA route's refusals and the long
+tier's lengths that it once refused."""
 import dataclasses
 import math
 
@@ -210,19 +211,34 @@ def test_cuda_route_leaves_input_unchanged(shape, axes):
 
 
 # DIRECT lengths above 16384 and Bluestein lengths padded beyond 2^16: the
-# long tier, the only 1-D plans the CUDA engine does not hold
+# long tier, which the CUDA engine once refused and now runs
 @pytest.mark.parametrize("n", [16400, 20480, 32768, 32771, 65537, 99991])
 def test_cuda_route_refuses_plans_outside_the_slice(n):
-    x = vt.from_numpy_planar(*_planes((2, n), seed=15))
-    assert not cuda_engine.supports(plan_axis(n))
-    app = vt.FFTApplication(vt.FFTConfig(shape=(n,)), engine="cuda")
+    """Each long-tier length through FFTApplication(engine="cuda") and the
+    functional API on CPU planes (the wrappers' plain versions): within
+    1e-5 of the JAX package's jnp engine and 5e-6 of numpy, both ways,
+    with no call of the plain engine; a non-minor axis of that length runs
+    moved last."""
+    re, im = _planes((2, n), seed=15)
+    x64 = re.astype(np.float64) + 1j * im
+    assert cuda_engine.supports(plan_axis(n))
+    assert cuda_engine.route(plan_axis(n))[0][0] == "fft_strided_tw"
+    app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True),
+                            engine="cuda")
     calls = torch_engine.calls
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        app.forward(x)
-    xt = vt.Planar(x.re.reshape(2, n, 1).contiguous(),
-                   x.im.reshape(2, n, 1).contiguous())
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        cuda_engine.fft_axis_p(xt, 1, plan_axis(n))
+    y = app.forward(vt.from_numpy_planar(re, im))
+    ref = np.asarray(vk.fft(x64.astype(np.complex64), engine="jnp"))
+    want = np.fft.fft(x64)
+    assert _rel(_c(y), ref) <= REF_TOL and _rel(_c(y), want) <= NUMPY_TOL
+    z = app.inverse(y)
+    assert _rel(_c(z), x64) <= NUMPY_TOL
+    f = vt.ifft(x64.astype(np.complex64), engine="cuda", device="cpu")
+    ref = np.asarray(vk.ifft(x64.astype(np.complex64), engine="jnp"))
+    assert _rel(f, ref) <= REF_TOL and _rel(f, np.fft.ifft(x64)) <= NUMPY_TOL
+    xt = vt.Planar(torch.from_numpy(re.reshape(2, n, 1).copy()),
+                   torch.from_numpy(im.reshape(2, n, 1).copy()))
+    yt = cuda_engine.fft_axis_p(xt, 1, plan_axis(n))
+    assert _rel(_c(yt).reshape(2, n), want) <= NUMPY_TOL
     assert torch_engine.calls == calls
 
 

@@ -148,7 +148,8 @@ _FORBIDDEN = re.compile(
 
 def test_import_isolation_source_scan():
     files = sorted((REPO / "vkfft_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "bench_torch_pair.py"]
+    files += [REPO / "chip_smoke.py", REPO / "bench_torch_pair.py",
+              REPO / "bench_torch_long.py"]
     assert len(files) > 10
     for f in files:
         text = f.read_text()

@@ -376,19 +376,41 @@ def test_cuda_route_leaves_inputs_unchanged():
 
 
 # even n whose n/2 is a long-tier length (DIRECT above 16384, Bluestein
-# padded beyond 2^16); other even n run the half-length route on the card
+# padded beyond 2^16): the half-length route on the long tier, which the
+# CUDA engine once refused and now runs
 @pytest.mark.parametrize("n", [32800, 40960, 65542, 33000])
 def test_cuda_route_refuses_real_lengths_outside_the_slice(n):
+    """rfft/irfft of such n through the CUDA engine on CPU tensors (the
+    wrappers' plain versions): within 1e-5 of the JAX package's jnp engine
+    and 5e-6 of numpy, with no call of the plain engine."""
     x = torch.from_numpy(_real((2, n), seed=n))
     assert not cuda_engine.r2c_supports(n)
     calls = torch_engine.calls
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        vt.rfft(x, engine="cuda")
-    X = vt.rfft(x)   # the CPU route runs every length
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        vt.irfft(X, n=n, engine="cuda")
-    assert torch_engine.calls == calls + 1
-    assert _rel(vt.irfft(X, n=n).numpy(), x.numpy()) <= NUMPY_TOL
+    X = vt.rfft(x, engine="cuda")
+    want = np.fft.rfft(x.numpy().astype(np.float64))
+    ref = np.asarray(vk.rfft(x.numpy(), engine="jnp"))
+    assert _rel(X.numpy(), want) <= NUMPY_TOL and _rel(X.numpy(), ref) <= REF_TOL
+    z = vt.irfft(X, n=n, engine="cuda")
+    assert _rel(z.numpy(), x.numpy()) <= NUMPY_TOL
+    spec = want.astype(np.complex64)
+    zr = np.asarray(vk.irfft(spec, n=n, engine="jnp"))
+    zc = vt.irfft(torch.from_numpy(spec), n=n, engine="cuda")
+    assert _rel(zc.numpy(), zr) <= REF_TOL
+    assert torch_engine.calls == calls
+
+
+@pytest.mark.parametrize("shape", [(3, 1), (1,)])
+def test_irfftn_of_a_length_one_real_axis_raises_like_irfft(shape):
+    """A spectrum whose real axis has one bin has the output length 0:
+    irfftn raises the ValueError irfft raises (and numpy raises), before
+    any scale is formed."""
+    X = np.ones(shape, np.complex64)
+    with pytest.raises(ValueError, match="invalid output length 0"):
+        vt.irfft(X, device="cpu")
+    with pytest.raises(ValueError, match="invalid output length 0"):
+        vt.irfftn(X, device="cpu")
+    with pytest.raises(ValueError):
+        np.fft.irfftn(X)
 
 
 def test_real_refusals_and_checks():
@@ -416,11 +438,11 @@ def test_real_refusals_and_checks():
         ck.fft_r2c(x.t())                      # not contiguous
     with pytest.raises(TypeError):
         ck.fft_r2c(x.double())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="cuda_engine.route"):
         ck.fft_r2c_pair(torch.zeros(1, 67, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ck.fft_r2c_pair(torch.zeros(1, 1024, 1024))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="half-length route"):
         ck.fft_r2c(torch.zeros(2, 7))
     before = dict(ck.launches)
     ck.fft_r2c(x)

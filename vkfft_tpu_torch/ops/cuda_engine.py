@@ -18,13 +18,36 @@ package's order of tiers (``pallas_engine.fft_lines_p``, l.613-725):
 * BLUESTEIN (padded length m): `fft_conv` in its Bluestein mode where its
   stages take m, else `fft_conv_pair` where `conv_pair_plan` finds a
   cluster plane for m, else chirp and pad as tensor ops, `fft_twofactor`
-  (swapped) and `fft_conv_inv`, crop and chirp.
+  (swapped) and `fft_conv_inv`, crop and chirp (m <= 16384); beyond, the
+  fused long Bluestein where m = nc*ns has ns-point lines `fft_conv` takes
+  (`bluestein_long_split`): `fft_strided_tw` reading the (B, n) line as
+  the first n points of its (nc, ns) plane with the chirp on the read and
+  the four-step twiddle on the write, `fft_conv`'s rows mode on the ns
+  lines, and `fft_strided_tw` with the conjugate twiddle on the read and
+  the chirp on the write of the first n points; else the chirp and the pad
+  as tensor ops around the long DIRECT routes of m in the swapped order,
+  with the spectrum multiply between them as a tensor op.
 * SPLIT (n = a*b around a Rader prime): the two factors' lines with the
   swaps and the twiddle multiply as tensor ops, as in JAX.
+* The long tier (DIRECT n > 16384; ``pallas_engine.py:4218-4418``): two
+  uploads n = nc*ns (powers of two to 2^23), the strided nc pass in
+  `fft_strided_tw` with w_n^(kc*js) on its write, the ns lines in
+  `fft_lines` or `fft_twofactor`, and the (kc, ks) -> (ks, kc) reorder
+  as a tensor op; or, where `long_split`'s cost model (fitted to an
+  H100's pass times) prefers it, three uploads n = na*nb*ns: two strided
+  passes (w_(na*nb)^(ka*jb) on the first's write, w_n^((kb*na + ka)*js)
+  on the second's, which writes its planes interleaved so kc comes out in
+  natural order), the ns lines and the same reorder.  The inverse mirrors
+  each with the conjugate twiddles on the strided reads.  The twiddles
+  and chirps are computed in the kernel from their exact integer
+  exponents: no O(n) table exists.  Rader's p - 1 never reaches it (p <=
+  10007).
 
-`route(plan)` makes that choice for the minor axis in one place: the
-dispatch below runs what it names, and the smoke run's kernel sweeps and
-the launch tests enumerate from it.
+`route(plan)` makes that choice for the minor axis in one place, in the
+forward's launch order: the dispatch below runs what it names, and the
+smoke run's kernel sweeps and the launch tests enumerate from it.  Along a
+non-minor axis a length outside `fft_strided`'s stages is moved last and
+runs its `route` (``pallas_engine.py:817-827``).
 
 Real lines of even length run `fft_r2c`/`fft_c2r` where `r2c_supports`
 holds, and otherwise the half-length route of the JAX package's
@@ -44,12 +67,11 @@ circular convolution of the minor axis (or the minor pair) in one
 `fft_conv` or `fft_conv_pair` launch, or in `fft_twofactor` +
 `fft_conv_inv`; `conv_route(config, ...)` names the one a config runs.
 
-What raises ``NotImplementedError`` naming its ROADMAP item: DIRECT
-lengths above 16384 and Bluestein lengths whose padded length fits none of
-the kernels above (m > 2^16, or beyond 16384 without a cluster plane): the
-long tier of queue 2 item 7; dtypes other than float32 (queue 1 item 10);
-zero-pad keeps (queue 1 item 8).  Nothing here falls back to the plain
-engine or to a kernel's plain version.
+What raises ``NotImplementedError`` naming its ROADMAP item: dtypes other
+than float32 (queue 1 item 10); zero-pad keeps (queue 1 item 8).  `route`
+raises ValueError for a length no split of the long tier holds (beyond
+2^40, or more primes above 64 than three uploads can place).  Nothing
+here falls back to the plain engine or to a kernel's plain version.
 """
 from __future__ import annotations
 
@@ -67,19 +89,19 @@ from vkfft_tpu_torch.planner.factorize import Algorithm
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 
 
-def route(plan: AxisPlan) -> Optional[tuple[tuple[str, AxisPlan, int], ...]]:
+def route(plan: AxisPlan) -> tuple[tuple[str, AxisPlan, int], ...]:
     """The kernels one direction of ``plan`` launches on (B, n) lines, in
-    launch order, as (kernel, the plan it serves, the length it holds)
-    triples; a SPLIT lists its factors' launches.  () for n <= 4, which runs
-    as tensor ops; None where no kernel holds the plan (the long tier).
-    This is the engine's one routing decision: `fft_lines_p` dispatches on
-    it and `supports` reads it."""
+    the forward's launch order, as (kernel, the plan it serves, the length
+    it holds) triples; a SPLIT lists its factors' launches.  () for n <= 4,
+    which runs as tensor ops.  This is the engine's one routing decision:
+    `fft_lines_p` dispatches on it and `supports` reads it.  Raises
+    ValueError for a length no split of the long tier holds (as the JAX
+    package's ``_fft_long3_planar`` does)."""
     n, alg = plan.n, plan.algorithm
     if n <= 4:
         return ()
     if alg is Algorithm.SPLIT:
-        parts = [route(plan_axis(f)) for f in plan.decomp.split]
-        return None if None in parts else parts[0] + parts[1]
+        return sum((route(plan_axis(f)) for f in plan.decomp.split), ())
     if alg is Algorithm.DIRECT:
         core = n
     elif alg is Algorithm.RADER:
@@ -94,12 +116,38 @@ def route(plan: AxisPlan) -> Optional[tuple[tuple[str, AxisPlan, int], ...]]:
     if ck.twofactor_supports(core):
         inv = () if alg is Algorithm.DIRECT else (("fft_conv_inv", plan, core),)
         return (("fft_twofactor", plan, core),) + inv
-    return None
+    if alg is Algorithm.BLUESTEIN:
+        split = ck.bluestein_long_split(core)
+        if split is not None:
+            nc, ns = split
+            return (("fft_strided_tw", plan, nc), ("fft_conv", plan, ns),
+                    ("fft_strided_tw", plan, nc))
+        fwd = _long_route(plan, core)
+        return fwd + fwd[::-1]
+    # DIRECT beyond 16384 (Rader's p - 1 never is: RADER_MAX_PRIME)
+    return _long_route(plan, core)
+
+
+def _long_route(plan: AxisPlan, n: int) -> tuple:
+    """The forward launches of the long tier at length n: a strided pass
+    per strided factor of `long_split`, then the contiguous pass."""
+    split = ck.long_split(n)
+    if split is None:
+        raise ValueError(f"no split of the long tier holds n={n}")
+    *strided, ns = split
+    lines = "fft_lines" if ck.kernel_supports(ns) else "fft_twofactor"
+    return (tuple(("fft_strided_tw", plan, f) for f in strided)
+            + ((lines, plan, ns),))
 
 
 def supports(plan: AxisPlan) -> bool:
-    """Whether this engine runs the plan (on the minor axis)."""
-    return route(plan) is not None
+    """Whether this engine runs the plan (on the minor axis): every 1-D
+    plan the long tier's splits hold."""
+    try:
+        route(plan)
+    except ValueError:
+        return False
+    return True
 
 
 def pair_supports(ny: int, nz: int) -> bool:
@@ -116,19 +164,6 @@ def r2c_pair_supports(ny: int, nz: int) -> bool:
     """Whether `rfft_pair_p`/`irfft_pair_p` run real (ny, nz) planes in one
     kernel pass."""
     return ck.r2c_pair_cluster(ny, nz) is not None
-
-
-def _checked_route(plan: AxisPlan) -> tuple:
-    """`route` of the plan; raises where no kernel holds it."""
-    kernels = route(plan)
-    if kernels is not None:
-        return kernels
-    what = {Algorithm.BLUESTEIN: f"Bluestein (padded length "
-            f"{plan.decomp.bluestein_size})", Algorithm.DIRECT: "DIRECT",
-            Algorithm.SPLIT: "SPLIT", Algorithm.RADER: "Rader"}[plan.algorithm]
-    raise NotImplementedError(
-        f"{what} plan for n={plan.n} needs the long tier, which is not on "
-        "the CUDA engine yet: ROADMAP queue 2 item 7")
 
 
 def _check_dtype(x) -> None:
@@ -234,14 +269,21 @@ def _rader_p(x: Planar, p: int, scale: float, kernel: str) -> Planar:
 
 
 def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
-                 kernel: str) -> Planar:
+                 kernels: tuple) -> Planar:
     """Bluestein DFT through the padded length m
-    (``pallas_engine.py:648-672``): `fft_conv` (Bluestein mode), else
-    `fft_conv_pair`, else the chirp and the pad as tensor ops around
-    `fft_twofactor` (swapped) + `fft_conv_inv`, as ``kernel``, the first of
-    them on `route`, says.  1/m and the caller's scale ride the spectrum."""
+    (``pallas_engine.py:648-672``), on the ``kernels`` `route` names, in
+    its order: `fft_conv` (Bluestein mode); `fft_conv_pair`; the chirp and
+    the pad as tensor ops around `fft_twofactor` (swapped) +
+    `fft_conv_inv`; the fused long tier (`_bluestein_long_p`); the
+    composition on the long DIRECT routes (`_bluestein_composed_p`).  1/m
+    and the caller's scale ride the spectrum or the last kernel."""
     n, m = plan.n, plan.decomp.bluestein_size
     dev = x.device
+    kernel = kernels[0][0]
+    if kernel == "fft_strided_tw":
+        if kernels[1][0] == "fft_conv":
+            return _bluestein_long_p(x, n, m, inverse, scale)
+        return _bluestein_composed_p(x, n, m, inverse, scale)
     chirp = ck.bluestein_chirp(n, m, inverse, dev)
     if kernel == "fft_conv":
         spec = ck.bluestein_spectrum(n, m, inverse, scale, dev)
@@ -258,6 +300,135 @@ def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
     return Planar(vr[:, :n], vi[:, :n]) * a
 
 
+def _bluestein_long_p(x: Planar, n: int, m: int, inverse: bool,
+                      scale: float) -> Planar:
+    """The fused long Bluestein (``pallas_engine.py:452-519
+    _bluestein_long_fused_p``) on m = nc*ns (`bluestein_long_split`), three
+    kernels: the strided nc pass reading each (B, n) line as the first n
+    points of its (nc, ns) plane, the chirp on the read and the four-step
+    twiddle on the write; `fft_conv`'s rows mode on the ns-point lines of
+    the swapped layout, line (b, kc) times row kc of the spectrum; the
+    inverse strided pass, the conjugate twiddle on the read, the chirp on
+    the write and the caller's scale in its stages, writing only the first
+    n points."""
+    nc, ns = ck.bluestein_long_split(m)
+    B = x.shape[0]
+    t = ck.fft_strided(x.re, x.im, False, 1.0, pre=ck.chirp(n, inverse),
+                       post=ck.twiddle(m), plane=(nc, ns))
+    spec = ck.bluestein_spectrum(n, m, inverse, 1.0, x.device, "long")
+    c = ck.fft_conv(t[0].reshape(B * nc, ns), t[1].reshape(B * nc, ns), spec,
+                    out=tuple(u.reshape(B * nc, ns) for u in t))
+    y = ck.fft_strided(c[0].reshape(B, m), c[1].reshape(B, m), True, scale,
+                       pre=ck.twiddle(m, True), post=ck.chirp(n, inverse),
+                       plane=(nc, ns), out_len=n)
+    return Planar(*y)
+
+
+def _bluestein_composed_p(x: Planar, n: int, m: int, inverse: bool,
+                          scale: float) -> Planar:
+    """Bluestein where m's ns-point lines fit no `fft_conv`
+    (``pallas_engine.py:665-672`` with ``:400-402``): the chirp and the pad
+    as tensor ops, the long forward in the swapped order, the spectrum (in
+    that order) multiplied as a tensor op, the long inverse from the
+    swapped order with the caller's scale, the crop and the chirp."""
+    dev = x.device
+    a = ck.table_planar(ck.bluestein_chirp(n, m, inverse, dev))[None]
+    y = x * a
+    y = Planar(*(torch.nn.functional.pad(t, (0, m - n)) for t in (y.re, y.im)))
+    Y = fft_long_p(y, m, False, order="swapped", donate=True)
+    spec = ck.table_planar(ck.bluestein_spectrum(n, m, inverse, 1.0, dev,
+                                                 "long_swapped"))
+    Y = Y * spec[None]
+    z = fft_long_p(Y, m, True, scale, order="swapped", donate=True)
+    return Planar(z.re[:, :n], z.im[:, :n]) * a
+
+
+def _lines(x: Planar, n: int, inverse: bool, scale: float = 1.0) -> Planar:
+    """The long tier's contiguous pass over (L, n) lines, in place:
+    `fft_lines` where its stages take n, else `fft_twofactor`."""
+    run = ck.fft_lines if ck.kernel_supports(n) else ck.fft_twofactor
+    return Planar(*run(x.re, x.im, inverse, scale, out=(x.re, x.im)))
+
+
+def fft_long_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
+               order: str = "natural", split: Optional[tuple] = None,
+               donate: bool = False) -> Planar:
+    """DFT of (B, n) lines beyond one kernel (``pallas_engine.py:4218-4315
+    fft_long_planar``): two uploads, n = nc*ns of ``split`` (default
+    `long_split`; a three-factor split runs `fft_long3_p`).  Forward: the
+    strided nc pass with the twiddle w_n^(kc*js) on its write, then the ns
+    lines with the caller's scale, then the (kc, ks) -> (ks, kc) reorder as
+    a tensor op; the inverse mirrors it, the conjugate twiddle on the
+    strided pass's read and the scale in its stages.  ``order="swapped"``
+    leaves (reads) the (kc, ks) order and skips the reorder; a forward and
+    an inverse cancel it.  ``donate=True`` lets the first pass write over
+    the caller's planes."""
+    split = split or ck.long_split(n)
+    if len(split) == 3:
+        return fft_long3_p(x, n, inverse, scale, order, split, donate)
+    nc, ns = split
+    B = x.shape[0]
+    x = x.contiguous()
+    if not inverse:
+        xr, xi = x.re.reshape(B, nc, ns), x.im.reshape(B, nc, ns)
+        t = Planar(*ck.fft_strided(xr, xi, False, post=ck.twiddle(n),
+                                   out=(xr, xi) if donate else None))
+        y = _lines(t.reshape(B * nc, ns), ns, False, scale).reshape(B, n)
+        return ck.swap_digits(y, nc, ns) if order == "natural" else y
+    if order == "natural":
+        x = ck.swap_digits(x, ns, nc)
+    elif not donate:
+        x = Planar(x.re.clone(), x.im.clone())
+    y = _lines(x.reshape(B * nc, ns), ns, True)
+    yr, yi = y.re.reshape(B, nc, ns), y.im.reshape(B, nc, ns)
+    z = ck.fft_strided(yr, yi, True, scale, pre=ck.twiddle(n, True),
+                       out=(yr, yi))
+    return Planar(*z).reshape(B, n)
+
+
+def fft_long3_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
+                order: str = "natural", split: Optional[tuple] = None,
+                donate: bool = False) -> Planar:
+    """Three uploads, n = na*nb*ns of ``split`` (default `long_split(n,
+    3)`), as ``pallas_engine.py:4318-4418 _fft_long3_planar``.  Forward:
+    the strided na pass over (B, na, nb*ns) with w_(na*nb)^(ka*jb), jb = s
+    // ns, on its write; the strided nb pass over (B*na, nb, ns) with
+    w_n^((kb*na + ka)*js), ka the digit carried in P, on its write, which
+    it lays out interleaved as (B, nb, na, ns), kc = kb*na + ka in natural
+    order; the ns lines with the scale; the (kc, ks) -> (ks, kc) reorder as
+    a tensor op, as for two uploads.  The inverse mirrors it; ``order`` and
+    ``donate`` as for `fft_long_p`."""
+    na, nb, ns = split or ck.long_split(n, 3)
+    B = x.shape[0]
+    nc = na * nb
+    x = x.contiguous()
+    if not inverse:
+        xr, xi = x.re.reshape(B, na, nb * ns), x.im.reshape(B, na, nb * ns)
+        tr, ti = ck.fft_strided(xr, xi, False,
+                                post=ck.twiddle(nc, sd=ns),
+                                out=(xr, xi) if donate else None)
+        tr, ti = ck.fft_strided(tr.reshape(B * na, nb, ns),
+                                ti.reshape(B * na, nb, ns), False,
+                                post=ck.twiddle(n, a=na, pm=na, b=1),
+                                out_interleave=na)
+        y = _lines(Planar(tr, ti).reshape(B * nc, ns), ns, False,
+                   scale).reshape(B, n)
+        return ck.swap_digits(y, nc, ns) if order == "natural" else y
+    if order == "natural":
+        x = ck.swap_digits(x, ns, nc)
+    elif not donate:
+        x = Planar(x.re.clone(), x.im.clone())
+    y = _lines(x.reshape(B * nc, ns), ns, True)
+    yr, yi = ck.fft_strided(y.re.reshape(B * na, nb, ns),
+                            y.im.reshape(B * na, nb, ns), True,
+                            pre=ck.twiddle(n, True, a=na, pm=na, b=1),
+                            in_interleave=na)
+    yr, yi = yr.reshape(B, na, nb * ns), yi.reshape(B, na, nb * ns)
+    ck.fft_strided(yr, yi, True, scale, pre=ck.twiddle(nc, True, sd=ns),
+                   out=(yr, yi))
+    return Planar(yr, yi).reshape(B, n)
+
+
 def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
                 donate: bool = False, scale: float = 1.0) -> Planar:
     """Planar DFT over (B, n) planes, scaled by ``scale`` in the kernels.
@@ -268,17 +439,20 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
         return x * scale if scale != 1.0 else x
     if n <= 4:
         return _tiny_dft_p(x, n, inverse, scale)
-    kernel = _checked_route(plan)[0][0]
+    kernels = route(plan)
+    kernel = kernels[0][0]
     alg = plan.algorithm
     if alg is Algorithm.SPLIT:
         return _split_p(x, plan, inverse, scale)
     x = x.contiguous()
     if alg is Algorithm.DIRECT:
+        if kernel == "fft_strided_tw":
+            return fft_long_p(x, n, inverse, scale, donate=donate)
         run = ck.fft_lines if kernel == "fft_lines" else ck.fft_twofactor
         return Planar(*run(x.re, x.im, inverse, scale,
                            out=(x.re, x.im) if donate else None))
     if alg is Algorithm.BLUESTEIN:
-        return _bluestein_p(x, plan, inverse, scale, kernel)
+        return _bluestein_p(x, plan, inverse, scale, kernels)
     if inverse:   # Rader's inverse by conjugation (l.673-674)
         return fft_lines_p(x.conj(), plan, False, scale=scale).conj()
     return _rader_p(x, n, scale, kernel)
@@ -311,7 +485,6 @@ def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
     if plan.algorithm is not Algorithm.DIRECT or not ck.kernel_supports(n):
         # the contiguous route (``pallas_engine.py:817-827``): the axis
         # moved last, its lines, and moved back
-        _checked_route(plan)
         moved = Planar(x.re.movedim(axis, -1), x.im.movedim(axis, -1))
         y = fft_lines_p(moved.reshape(-1, n), plan, inverse, donate=donate,
                         scale=scale).reshape(*moved.shape)

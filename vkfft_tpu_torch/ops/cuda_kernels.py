@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their plain versions, and the build.
 
-Twelve kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
+Thirteen kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
 
 * `fft_lines` (``csrc/fft_lines.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``: batched C2C of
@@ -11,6 +11,14 @@ Twelve kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   It also computes what ``pallas_engine.py:4001 _outer_kernel`` does (dim 1
   of (P, n, R, nz) planes): on the card that layout is the (P, n, R*nz)
   view of the same memory, so one kernel serves both.
+* `fft_strided_tw` (``csrc/fft_strided_tw.cu``), the factor mode of
+  `fft_strided` (its ``pre``/``post``/``plane`` options), replaces
+  ``vkfft_tpu/ops/pallas_engine.py:3439 _strided_kernel`` and the factor
+  option of ``:3489 _strided_kernel_v3``: the strided DFT with a four-step
+  twiddle or a Bluestein chirp (`Factor`) computed in the kernel and
+  multiplied on the read and on the write, over live lengths of the
+  planes; the passes of the long tier (`long_split`,
+  `bluestein_long_split`).
 * `fft_pair` (``csrc/fft_pair.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``: 2-D C2C of the two
   minor axes of (B, ny, nz) fp32 planes in one pass, a plane held in the
@@ -31,7 +39,9 @@ Twelve kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
   of each line in one launch.
 * `fft_twofactor` (``csrc/fft_twofactor.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``: the two-factor
-  DFT n = n1*n2 <= 16384, natural or swapped digit order.
+  DFT n = n1*n2 <= 16384, natural or swapped digit order.  It also
+  computes what ``:152 _fft_kernel`` (the v1 four-step, n1 <= n2 <= 128)
+  does: `twofactor_split` holds every length of ``split_two_factors``.
 * `fft_conv_inv` (``csrc/fft_conv_inv.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:4421 _conv_inv_kernel``: a spectrum in
   `fft_twofactor`'s swapped order times a table, the two-factor inverse to
@@ -64,7 +74,10 @@ holds the lengths of `fft_lines` (its matrix mode those whose mm
 coordinate lines fit a block, `conv_matrix_supports`) and its 2-D mode
 the planes of `pair_cluster`; `fft_twofactor` and `fft_conv_inv` every
 n <= 16384 whose primes are <= 127 (`twofactor_split`); `fft_conv_pair`
-the padded lengths `conv_pair_plan` finds a cluster plane for; the R2R
+the padded lengths `conv_pair_plan` finds a cluster plane for;
+`fft_strided_tw` every n <= 8192 whose primes are <= 127
+(`strided_tw_supports`), which with `fft_lines` and `fft_twofactor`
+splits every DIRECT length the long tier meets; the R2R
 kernels the n >= 4 (DCT-I/DST-I: n >= 3) whose stage length the stages
 take (`dct23_supports`, `dct1_supports`, `dct4_supports`), a superset of
 the JAX package's ``use_dct_kernel``, ``use_dct1_kernel``,
@@ -85,6 +98,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -121,7 +135,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
                   "fft_r2c_pair", "fft_conv", "fft_twofactor", "fft_conv_inv",
-                  "fft_conv_pair", "fft_dct23", "fft_dct1", "fft_dct4")
+                  "fft_conv_pair", "fft_dct23", "fft_dct1", "fft_dct4",
+                  "fft_strided_tw")
 # Shared memory per block of `fft_pair` (two buffers of its share of a
 # plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
 # as a block of `fft_lines`), or else to its largest size, as long as a
@@ -229,6 +244,152 @@ def twofactor_supports(n: int) -> bool:
     return twofactor_split(n) is not None
 
 
+def strided_tw_supports(n: int) -> bool:
+    """Whether `fft_strided_tw` (the factor mode of `fft_strided`) takes a
+    transform length n: a Stockham run (`stage_radices`: n <= 8192, primes
+    <= 127)."""
+    return stage_radices(n) is not None
+
+
+# ---------------------------------------------------------------------------
+# The long tier: lengths beyond one kernel as two or three uploads, each a
+# pass over the whole line.  The splits are this card's own, by a cost
+# model fitted to an H100's times of each pass over 2^24 points
+# (`bench_torch_long.py`; PERF.md), in units of a pass that reads whole
+# sectors (0.19 ms): a strided pass of length n reads each row of its tile
+# as a run of ts = min(32, 4096/n) floats (``csrc/fft_strided_tw.cu``),
+# whole 32-byte sectors up to n = 512 and one float a row from n = 4096
+# (0.92 ms); `fft_lines` runs 0.14-0.19 ms to n = 4096 and 0.27 at 8192,
+# `fft_twofactor` 0.49 at 16384 (one block per SM).
+# ---------------------------------------------------------------------------
+
+LONG_LINES_MIN = 8     # the contiguous factor: no tensor-op tiny DFT
+# A third upload's fixed costs (one more launch, a fresh buffer for the
+# interleaved pass), in passes: two uploads win a near-tie.
+THREE_UPLOAD_COST = 0.5
+
+
+def _strided_cost(n: int) -> float:
+    """Relative cost of a strided pass of length n: (8/ts)^0.75 for tiles
+    of ts < 8 columns (runs shorter than a sector), and one more where a
+    prime above 64 takes an O(r^2) stage."""
+    ts = min(32, max(1, 4096 // n))
+    return max(1.0, (8.0 / ts) ** 0.75) + (prime_factors(n)[-1]
+                                            > KERNEL_MAX_PRIME)
+
+
+def _lines_cost(n: int) -> Optional[float]:
+    """Relative cost of the contiguous pass of length n, or None where no
+    kernel of one pass takes it."""
+    if n < LONG_LINES_MIN:
+        return None
+    if kernel_supports(n):
+        return 1.0 if n <= 4096 else 1.4
+    return 3.0 if twofactor_supports(n) else None
+
+
+def _best_split(cands):
+    """The cheapest split, then the one of fewer uploads, then the most
+    even; None if there is none."""
+    return min(cands, key=lambda c: (c[0], len(c[1]), max(c[1]), c[1]))[1] \
+        if cands else None
+
+
+@functools.lru_cache(maxsize=1024)
+def long_split(n: int, uploads: int = 0) -> Optional[tuple[int, ...]]:
+    """The long tier's split of a DIRECT length n: (nc, ns) for two uploads
+    or (na, nb, ns) for three, the strided factors lengths of
+    `strided_tw_supports` and ns one of `fft_lines` or `fft_twofactor`
+    (8 <= ns <= 16384).  The cheapest by `_strided_cost`, `_lines_cost`
+    and THREE_UPLOAD_COST, then the one of fewer uploads, then the most
+    even: powers of two to 2^23 in two uploads, from 2^24 in three (two
+    reach 2^27).  ``uploads`` 2 or 3 asks for that many.  None when no
+    split exists (beyond 2^40, or too many primes above 64)."""
+    divs = _divisors(n)
+    cands = []
+    if uploads in (0, 2):
+        cands = [(_strided_cost(n // ns) + cost, (n // ns, ns)) for ns in divs
+                 if (cost := _lines_cost(ns)) is not None and ns < n
+                 and strided_tw_supports(n // ns)]
+    if uploads in (0, 3):
+        for ns in divs:
+            cost = _lines_cost(ns)
+            if cost is None or ns >= n:
+                continue
+            rest = n // ns
+            for na in _divisors(rest):
+                nb = rest // na
+                if (na > 1 and nb > 1 and strided_tw_supports(na)
+                        and strided_tw_supports(nb)):
+                    cands.append((_strided_cost(na) + _strided_cost(nb) + cost
+                                  + THREE_UPLOAD_COST, (na, nb, ns)))
+    return _best_split(cands)
+
+
+@functools.lru_cache(maxsize=1024)
+def bluestein_long_split(m: int) -> Optional[tuple[int, int]]:
+    """(nc, ns) of the fused long Bluestein of padded length m: the strided
+    passes of length nc (`strided_tw_supports`) around `fft_conv`'s rows
+    mode on the ns-point lines (`kernel_supports`), the cheapest and most
+    even such split; None where ns fits no `fft_conv` (the composition on
+    the long DIRECT routes runs)."""
+    cands = [(2 * _strided_cost(m // ns) + _lines_cost(ns), (m // ns, ns))
+             for ns in _divisors(m)
+             if LONG_LINES_MIN <= ns < m and kernel_supports(ns)
+             and strided_tw_supports(m // ns)]
+    return _best_split(cands)
+
+
+def long_order(spec, split: tuple[int, ...]):
+    """A natural-order spectrum of length n (numpy array or tensor) in the
+    long tier's swapped order of ``split``: position (kc, ks) holds bin kc
+    + nc*ks, nc the product of the strided factors, as the forward passes
+    leave it without the reorder (three uploads too: their second pass
+    writes the middle digits in natural order)."""
+    ns = split[-1]
+    return spec.reshape(ns, len(spec) // ns).T
+
+
+@dataclasses.dataclass(frozen=True)
+class Factor:
+    """A factor exp(-+2 pi i e / N) (+ with ``inverse``) on each point of a
+    (P, n, S) plane of `fft_strided`'s factor mode, its exponent e an
+    integer of the point's (p, row, s):
+
+    * "twiddle", the four-step twiddle: e = (row * a + (p % pm) * b) *
+      (s // sd);
+    * "chirp", the Bluestein chirp exp(-+i pi j^2 / n) at N = 2n: e = j^2
+      mod N, j = row * S + s the point's index in its line.
+    """
+    kind: str
+    N: int
+    inverse: bool = False
+    a: int = 1
+    pm: int = 1
+    b: int = 0
+    sd: int = 1
+
+    def ints(self) -> list[int]:
+        """The kernel's form: kind, sign, N, a, pm, b, sd."""
+        return [{"twiddle": 1, "chirp": 2}[self.kind],
+                1 if self.inverse else -1, self.N, self.a, self.pm, self.b,
+                self.sd]
+
+
+def twiddle(N: int, inverse: bool = False, a: int = 1, pm: int = 1,
+            b: int = 0, sd: int = 1) -> Factor:
+    """w_N^(-+(row*a + (p % pm)*b) * (s // sd)): the two-upload twiddle
+    w_N^(kc*js) at the defaults, three uploads' w_(NaNb)^(ka*jb) with sd =
+    Ns and w_N^((kb*Na + ka)*js) with a = pm = Na, b = 1."""
+    return Factor("twiddle", N, inverse, a, pm, b, sd)
+
+
+def chirp(n: int, inverse: bool = False) -> Factor:
+    """Bluestein's chirp exp(-+i pi j^2 / n) of point j of a line of n
+    (`luts.bluestein_chirp`)."""
+    return Factor("chirp", 2 * n, inverse)
+
+
 @functools.lru_cache(maxsize=1024)
 def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
     """(nc, ns, cluster) of `fft_conv_pair` for a padded Bluestein length
@@ -333,8 +494,8 @@ def _unsupported(n: int) -> NotImplementedError:
     return NotImplementedError(
         f"length {n} is outside the range of the CUDA kernel (2 <= n <= "
         f"{KERNEL_MAX_N}, prime factors <= {KERNEL_MAX_PRIME}); the engine "
-        "runs other lengths on the kernels of their route, and lengths "
-        "beyond those are ROADMAP queue 2 item 7")
+        "runs other lengths on the kernels of their route "
+        "(cuda_engine.route), lengths beyond 16384 on the long tier")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -481,7 +642,9 @@ def _pair_order(spec: np.ndarray) -> np.ndarray:
 
 
 _LAYOUTS = {"natural": lambda s: s, "swapped": swapped_order,
-            "pair": _pair_order}
+            "pair": _pair_order,
+            "long": lambda s: long_order(s, bluestein_long_split(len(s))),
+            "long_swapped": lambda s: long_order(s, long_split(len(s)))}
 
 
 def rader_spectrum(p: int, scale: float, device,
@@ -500,7 +663,9 @@ def bluestein_spectrum(n: int, m: int, inverse: bool, scale: float, device,
     """Device table of Bluestein's convolution spectrum FFT_m(b) * scale/m
     (``luts.bluestein_chirp``; ``pallas_engine.py:4865``) in ``layout``:
     "natural" for `fft_conv`, "swapped" for `fft_conv_inv`, "pair" for
-    `fft_conv_pair`."""
+    `fft_conv_pair`, "long" for `fft_conv`'s rows mode in the fused long
+    Bluestein (row kc of `bluestein_long_split`'s (nc, ns)), "long_swapped"
+    for the long tier's swapped order of `long_split`."""
     return device_array(
         ("bluestein", n, m, inverse, scale, layout), torch.device(device),
         lambda: _LAYOUTS[layout](luts.bluestein_chirp(n, m, inverse)[1]
@@ -528,18 +693,75 @@ def fft_lines_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     return y.re, y.im
 
 
+def _factor_planes(f: Factor, P: int, n: int, S: int, device) -> Planar:
+    """The values of factor ``f`` on (P, n, S) planes (broadcastable: P or
+    1 leading), from its exponents in int64 and the angle in float64 torch
+    ops, independently of the kernel's arithmetic."""
+    row = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
+    s = torch.arange(S, dtype=torch.int64, device=device)[None, None, :]
+    if f.kind == "chirp":
+        j = row * S + s
+        e = (j * j) % f.N
+    else:
+        p = torch.arange(P if f.pm > 1 else 1, dtype=torch.int64,
+                         device=device)[:, None, None]
+        e = ((row * f.a + (p % f.pm) * f.b) * (s // f.sd)) % f.N
+    theta = e.to(torch.float64) * ((2.0 if f.inverse else -2.0) * np.pi / f.N)
+    return Planar(torch.cos(theta).to(torch.float32),
+                  torch.sin(theta).to(torch.float32))
+
+
+def _interleave(t: torch.Tensor, d: int, undo: bool = False) -> torch.Tensor:
+    """(P, n, S) planes p = b*d + q laid out row by row interleaved,
+    (P/d, n, d, S) in memory (``csrc/fft_strided_tw.cu``); ``undo`` reads
+    that layout back into (P, n, S) planes."""
+    P, n, S = t.shape
+    if d == 1:
+        return t
+    if undo:
+        return t.reshape(P // d, n, d, S).transpose(1, 2).reshape(P, n, S)
+    return t.reshape(P // d, d, n, S).transpose(1, 2).reshape(P, n, S)
+
+
 def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                      scale: float = 1.0):
-    """Plain torch version of `fft_strided`: move the transform dim last,
-    run `fft_lines_plain`, move it back."""
-    P, n, S = re.shape
+                      scale: float = 1.0, pre: Optional[Factor] = None,
+                      post: Optional[Factor] = None, plane=None,
+                      out_len: Optional[int] = None, in_interleave: int = 1,
+                      out_interleave: int = 1):
+    """Plain torch version of `fft_strided`: the planes (with ``plane``,
+    (P, L) lines zero-padded to the (n, S) plane; with ``in_interleave``,
+    read from the interleaved layout) times the ``pre`` factor, the
+    transform dim moved last, `fft_lines_plain`, moved back, times the
+    ``post`` factor (with ``plane``, the first ``out_len`` points of each
+    plane; with ``out_interleave``, laid out interleaved)."""
+    if plane is None:
+        P, n, S = re.shape
+        x = Planar(_interleave(re, in_interleave, True),
+                   _interleave(im, in_interleave, True))
+    else:
+        n, S = plane
+        P = re.shape[0]
+        x = Planar(*(torch.nn.functional.pad(t, (0, n * S - t.shape[1]))
+                     .reshape(P, n, S) for t in (re, im)))
+    if pre is not None:
+        x = x * _factor_planes(pre, P, n, S, re.device)
 
     def lines(t):
         return t.permute(0, 2, 1).reshape(P * S, n)
 
-    yr, yi = fft_lines_plain(lines(re), lines(im), inverse, scale)
-    return (yr.reshape(P, S, n).permute(0, 2, 1).contiguous(),
-            yi.reshape(P, S, n).permute(0, 2, 1).contiguous())
+    yr, yi = fft_lines_plain(lines(x.re), lines(x.im), inverse, scale)
+    y = Planar(yr.reshape(P, S, n).permute(0, 2, 1),
+               yi.reshape(P, S, n).permute(0, 2, 1))
+    if post is not None:
+        y = y * _factor_planes(post, P, n, S, re.device)
+    if plane is not None:
+        keep = n * S if out_len is None else out_len
+        y = Planar(y.re.reshape(P, n * S)[:, :keep],
+                   y.im.reshape(P, n * S)[:, :keep])
+    else:
+        y = Planar(_interleave(y.re, out_interleave),
+                   _interleave(y.im, out_interleave))
+    return y.re.contiguous(), y.im.contiguous()
 
 
 def fft_pair_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
@@ -584,7 +806,7 @@ def table_planar(tab: torch.Tensor) -> Planar:
     return Planar(tab[:, 0], tab[:, 1])
 
 
-def _swap_digits(x: Planar, rows: int, cols: int) -> Planar:
+def swap_digits(x: Planar, rows: int, cols: int) -> Planar:
     """(B, rows*cols) viewed as [row][col] -> [col][row], contiguous."""
     B = x.shape[0]
     return Planar(*(t.reshape(B, rows, cols).transpose(1, 2).reshape(B, -1)
@@ -663,10 +885,10 @@ def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     n1, n2 = twofactor_split(n)
     x = Planar(re, im)
     if inverse and swapped:
-        x = _swap_digits(x, n2, n1)
+        x = swap_digits(x, n2, n1)
     y = torch_engine.lines_plain(x, plan_axis(n), inverse, scale)
     if swapped and not inverse:
-        y = _swap_digits(y, n1, n2)
+        y = swap_digits(y, n1, n2)
     return y.re.contiguous(), y.im.contiguous()
 
 
@@ -678,7 +900,7 @@ def fft_conv_inv_plain(re: torch.Tensor, im: torch.Tensor,
     (B,)."""
     n = re.shape[1]
     n1, n2 = twofactor_split(n)
-    y = _swap_digits(Planar(re, im) * table_planar(spectrum)[None], n2, n1)
+    y = swap_digits(Planar(re, im) * table_planar(spectrum)[None], n2, n1)
     z = torch_engine.lines_plain(y, plan_axis(n), True, scale)
     if dc is not None:
         z = z + Planar(dc[0][:, None], dc[1][:, None])
@@ -874,6 +1096,7 @@ _ENTRIES = {
     "fft_dct23": {"fft_dct2": "ppqippi", "fft_dct3": "ppqippi"},
     "fft_dct1": {"fft_dct1": "ppqippi"},
     "fft_dct4": {"fft_dct4": "ppqiippii"},
+    "fft_strided_tw": {"fft_strided_tw": "ppppqqqqpppii"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
 
@@ -952,8 +1175,8 @@ def _check_r2c_length(n: int) -> None:
             f"real length {n} is outside the real kernels' range (n even, "
             f"n/2 a length of the CUDA kernels: 2 <= n/2 <= {KERNEL_MAX_N}, "
             f"prime factors <= {KERNEL_MAX_PRIME}); the CUDA engine runs "
-            "other lengths on the C2C kernels (ROADMAP queue 1 items 5 "
-            "and 6)")
+            "other lengths on the C2C routes (the half-length route of "
+            "cuda_engine.rfft_lines_p)")
 
 
 def _check_out(re, out) -> None:
@@ -1025,7 +1248,10 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
 
 def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
-                scale: float = 1.0, out=None):
+                scale: float = 1.0, out=None, pre: Optional[Factor] = None,
+                post: Optional[Factor] = None, plane=None,
+                out_len: Optional[int] = None, in_interleave: int = 1,
+                out_interleave: int = 1):
     """DFT along the middle dim of (P, n, S) float32 planes, times
     ``scale``.  ``out`` as for `fft_lines`.  CPU tensors run
     `fft_strided_plain`; CUDA tensors launch the kernel.
@@ -1034,7 +1260,25 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     and ``:4001 _outer_kernel`` through the (P, n, R*nz) view.  Bound by
     bytes (16 B a point); a block transforms a tile of min(32, 4096/n)
     neighbouring columns across all n rows in shared memory, reading each
-    row of the tile as one contiguous run (``csrc/fft_strided.cu``)."""
+    row of the tile as one contiguous run (``csrc/fft_strided.cu``).
+
+    The factor mode (any of ``pre``, ``post``, ``plane``) launches
+    `fft_strided_tw` (``csrc/fft_strided_tw.cu``, counted apart), which
+    replaces ``:3439 _strided_kernel`` and the factor option of ``:3489``:
+    the input times the ``pre`` `Factor` and the output times the ``post``
+    one, each computed in the kernel; n up to 8192 with primes up to 127
+    (`strided_tw_supports`).  With ``plane=(n, S)`` the planes are (P, L)
+    lines, the first L <= n*S points of each (n, S) plane (the rest read
+    as zero), and the output is the first ``out_len`` (default n*S) points
+    of each transformed plane, (P, out_len): the long Bluestein's live
+    rows, with no pad or crop in device memory.  ``in_interleave`` /
+    ``out_interleave`` d > 1 (whole planes only) read / write the planes p
+    = b*d + q interleaved row by row, (P/d, n, d, S) in memory: three
+    uploads' second pass leaves its middle digits in natural order."""
+    if (pre is not None or post is not None or plane is not None
+            or in_interleave != 1 or out_interleave != 1):
+        return _fft_strided_tw(re, im, inverse, scale, out, pre, post, plane,
+                               out_len, in_interleave, out_interleave)
     _check_planes(re, im, 3, "fft_strided")
     P, n, S = re.shape
     _check_length(n)
@@ -1045,6 +1289,70 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     return _apply("fft_strided", re, im, out,
                   lambda: fft_strided_plain(re, im, inverse, scale), args)
+
+
+def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
+                    pre: Optional[Factor], post: Optional[Factor], plane,
+                    out_len: Optional[int], in_pd: int, out_pd: int):
+    """The factor mode of `fft_strided` (C entry ``vk_fft_strided_tw`` of
+    ``csrc/fft_strided_tw.cu``, counted as ``fft_strided_tw``)."""
+    what = "fft_strided_tw"
+    if plane is None:
+        _check_planes(re, im, 3, what)
+        P, n, S = re.shape
+        in_len = keep = n * S
+        if out_len is not None:
+            raise ValueError(f"{what}: out_len needs plane")
+        if in_pd < 1 or out_pd < 1 or P % in_pd or P % out_pd:
+            raise ValueError(f"{what}: {P} planes do not interleave by "
+                             f"{in_pd} and {out_pd}")
+        if out is not None and in_pd != out_pd:
+            raise ValueError(f"{what}: a changed interleave cannot write "
+                             "in place")
+        shape = re.shape
+    else:
+        if in_pd != 1 or out_pd != 1:
+            raise ValueError(f"{what}: interleave needs whole planes")
+        _check_planes(re, im, 2, what)
+        n, S = plane
+        P, in_len = re.shape
+        keep = n * S if out_len is None else out_len
+        if not (1 <= in_len <= n * S and 1 <= keep <= n * S):
+            raise ValueError(f"{what}: live lengths {in_len} in and {keep} "
+                             f"out of an ({n}, {S}) plane")
+        shape = (P, keep)
+    if not strided_tw_supports(n):
+        raise NotImplementedError(
+            f"{what}: length {n} is outside the factor mode's range (2 <= n "
+            f"<= {KERNEL_MAX_N}, prime factors <= {MAX_DIRECT_PRIME}); the "
+            "long tier splits longer lines (long_split)")
+    for f in (pre, post):
+        if f is not None and f.kind == "chirp" and n * S >= 1 << 32:
+            raise ValueError(f"{what}: a chirp over lines of 2^32 points or "
+                             "more (j^2 must fit 64 bits)")
+    if out is not None:
+        if plane is not None and in_len != keep:
+            raise ValueError(f"{what}: out planes need equal live lengths")
+        _check_out(re, out)
+    if re.device.type == "cpu":
+        yr, yi = fft_strided_plain(re, im, inverse, scale, pre, post, plane,
+                                   out_len, in_pd, out_pd)
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    yr, yi = out if out is not None else (re.new_empty(shape),
+                                          im.new_empty(shape))
+    if P:
+        plan, table = _plan(n, inverse, scale, re.device)
+        factors = (ctypes.c_longlong * 14)(
+            *(pre.ints() if pre else [0] * 7),
+            *(post.ints() if post else [0] * 7))
+        _launch(what, what, re.device,
+                [re, im, yr, yi, P, S, in_len, keep, plan, table, factors,
+                 in_pd, out_pd])
+    return yr, yi
 
 
 def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -1257,7 +1565,8 @@ def _check_twofactor(n: int, what: str) -> None:
         raise NotImplementedError(
             f"{what}: length {n} is outside the two-factor kernels' range "
             f"(2 <= n <= {TWOFACTOR_MAX_N}, prime factors <= "
-            f"{MAX_DIRECT_PRIME}); longer lines are ROADMAP queue 2 item 7")
+            f"{MAX_DIRECT_PRIME}); the engine runs longer lines on the long "
+            "tier (cuda_engine.fft_long_p)")
 
 
 def _conv_flags(conj_data: bool, xpow: bool) -> int:
@@ -1444,7 +1753,8 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     if plan is None:
         raise NotImplementedError(
             f"fft_conv_pair: a padded length {m} that fits no cluster plane "
-            "(m <= 2^16); longer Bluestein lengths are ROADMAP queue 2 item 7")
+            "(m <= 2^16); the engine runs longer Bluestein lengths on the "
+            "long tier (cuda_engine.route)")
     nc, ns, cluster = plan
     _check_table(spectrum, m, re, "fft_conv_pair")
     if not 1 <= n < m:

@@ -255,6 +255,8 @@ def irfftn(X, s: Optional[Sequence[int]] = None,
                 "irfftn crops or pads only the real axis; the complex axes "
                 "keep their lengths")
         n = s[-1]
+    if n < 1:
+        raise ValueError(f"invalid output length {n}")
     outer = math.prod(p.shape[a] for a in axes[:-1])
     pair = (_pair_ok(eng, p.shape[:-1] + (n,), axes, n)
             and p.shape[-1] == n // 2 + 1)
