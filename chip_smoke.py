@@ -89,6 +89,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
      held to its exact launches; long_times, fft_strided_tw at the 2^20 row's shapes
      and the 2^20 and Bluestein 65537 round trips, beside the bound, the
      reorder's share and torch.fft.
+ 10. the double-double tier (Precision.DOUBLE, DDComplex, fft_dd) on
+     fft_dd: dd_kernels, its lines and strided entries against their
+     plain versions at every 8th 13-smooth length to 4096 and named ones
+     (direction alternating, odd S, P > 1, the pre/post tables and scale)
+     and Rader's pointwise entry, <= 1e-13 of max|ref| (not KERNEL_TOL:
+     broken EFTs pass at 1e-5), and a subset against torch.fft in
+     complex128 on the card (<= 5e-14); dd_routes, fft_dd at sample 19's
+     sizes and four-step, Rader and Bluestein lengths (<= 5e-14 of
+     numpy), sample 12's complex-free systems 8..4096 through host
+     complex128 (<= 1e-12), a 3-D shape as a complex tensor, DDComplex
+     and widened Planar; dd_main_path, the reference's sample 9 (n = 256
+     and 1024, 64 MiB of quad planes, vkfft_tpu/cli.py:567-612), a 3-D
+     (64, 256, 256) row and a four-step 2^16 x 64 row through
+     FFTApplication(DOUBLE), forward and normalized inverse, each counted
+     from 0 and held to its exact launches with no plain dd call;
+     dd_times, the entries at those shapes beside the bound, the plain
+     time and torch.fft in complex128, and each row's round trip.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -2378,6 +2395,319 @@ def phase_long_times(vt, ce, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# The double-double tier (Precision.DOUBLE, DDComplex, fft_dd) on fft_dd.
+# ---------------------------------------------------------------------------
+
+DD_KERNEL_TOL = 1e-13        # fft_dd vs its plain version, of max|ref|
+DD_NUMPY_TOL = 5e-14         # vs fp64 (sample 19's gate, cli.py:633)
+DD_SAMPLE_12_TOL = 1e-12     # sample 12's gate (cli.py:315)
+DD_OP_FLOPS = 11             # fp32 operations a dd operation (csrc/dd.cuh)
+DD_STRIDE = 8                # every 8th kernel length in dd_kernels
+DD_BYTES = 64 * 1024 * 1024  # sample 9: 64 MiB of quad planes a row
+SAMPLE_19 = (8, 64, 100, 256, 101, 1024, 17, 97)    # cli.py:615
+# sample 12's complex-free systems, cli.py:267 and :303 (the first 10)
+SAMPLE_12 = tuple(1 << k for k in range(3, 13))
+# (row, shape, launches a forward plus an inverse): sample 9's rows
+# (cli.py:567-612, 64 MiB / (16 n) lines), a 3-D row, a four-step row
+DD_ROWS = (("sample9_n256", (DD_BYTES // (16 * 256), 256), 2),
+           ("sample9_n1024", (DD_BYTES // (16 * 1024), 1024), 2),
+           ("3d_64x256x256", (64, 256, 256), 6),
+           ("four_step_n65536", (DD_BYTES // (16 * 65536), 65536), 4))
+
+
+def _ddc(shape, seed, dev):
+    """Random dd planes on the card, split from complex128 there, and the
+    complex128 tensor they hold."""
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.complex(torch.randn(shape, generator=g, device=dev,
+                                  dtype=torch.float64),
+                      torch.randn(shape, generator=g, device=dev,
+                                  dtype=torch.float64))
+    return ddm.ddc_from_complex128(x), x
+
+
+def _dd_rel(a, b) -> float:
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    a = ddm.ddc_to_complex128(a) if not isinstance(a, torch.Tensor) else a
+    b = ddm.ddc_to_complex128(b) if not isinstance(b, torch.Tensor) else b
+    return _rel(a, b)
+
+
+def _dd_err(y, p, what) -> tuple:
+    """(max abs error, relative error) of kernel quad planes against plain
+    ones, after asserting the relative error is within DD_KERNEL_TOL."""
+    rel = _dd_rel(y, p)
+    assert rel <= DD_KERNEL_TOL, (what, rel)
+    err = max(((a.double() - c.double()) + (b.double() - d.double())).abs()
+              .max().item() for a, b, c, d in
+              ((y.re.hi, y.re.lo, p.re.hi, p.re.lo),
+               (y.im.hi, y.im.lo, p.im.hi, p.im.lo)))
+    return err, rel
+
+
+def _dd_kernel_lengths(dk) -> list:
+    lengths = [n for n in range(2, dk.DD_KERNEL_MAX_N + 1)
+               if dk.use_dd_kernel(n)]
+    named = {2, 3, 5, 7, 11, 13, 16, 1144, 4095, 4096}
+    return sorted(set(lengths[::DD_STRIDE]) | named)
+
+
+def phase_dd_kernels_vs_plain(dk, dev) -> dict:
+    """fft_dd's entries against their plain versions on the card (<= 1e-13
+    of max|ref|, not KERNEL_TOL: broken EFTs pass at 1e-5), at every 8th
+    13-smooth kernel length and named ones, the direction alternating:
+    lines (B = 3), the strided entry with odd S and P > 1 (its pre/post
+    tables and scale on every other length), Rader's pointwise entry; on
+    a subset against torch.fft in complex128 on the card (<= 5e-14)."""
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    out = {"lines": [], "strided": [], "pointwise": []}
+    for i, n in enumerate(_dd_kernel_lengths(dk)):
+        inverse = bool(i % 2)
+        x, xc = _ddc((3, n), n, dev)
+        y = dk.fft_dd_lines(x, inverse)
+        err, rel = _dd_err(y, dk.dd_lines_plain(x, inverse), ("lines", n))
+        row = {"n": n, "inverse": inverse, "max_abs_err": err,
+               "rel_err": rel}
+        if i % 4 == 0 or n in (4096, 4095, 1144, 13):
+            ref = torch.fft.ifft(xc) * n if inverse else torch.fft.fft(xc)
+            row["rel_err_torch_fft_c128"] = _dd_rel(y, ref)
+            assert row["rel_err_torch_fft_c128"] <= DD_NUMPY_TOL, row
+        out["lines"].append(row)
+        S = 1 + 2 * (n % 5) if n > 512 else 33
+        xs, xsc = _ddc((2, n, S), n + 1, dev)
+        kw = {}
+        if i % 2:
+            tab = torch.from_numpy(dk.quads(np.exp(
+                0.37j * np.arange(n * S)))).to(dev)
+            kw = dict(pre=tab, post=tab, scale=0.5)
+        y = dk.fft_dd_strided(xs, inverse, **kw)
+        err, rel = _dd_err(y, dk.dd_strided_plain(xs, inverse, **kw),
+                           ("strided", n, S))
+        row = {"n": n, "P": 2, "S": S, "inverse": inverse,
+               "options": bool(kw), "max_abs_err": err, "rel_err": rel}
+        if not kw and (i % 4 == 1 or n == 4096):
+            ref = (torch.fft.ifft(xsc, dim=1) * n if inverse
+                   else torch.fft.fft(xsc, dim=1))
+            row["rel_err_torch_fft_c128"] = _dd_rel(y, ref)
+            assert row["rel_err_torch_fft_c128"] <= DD_NUMPY_TOL, row
+        out["strided"].append(row)
+    for R, C in ((5, 1), (3, 100)):
+        x, _ = _ddc((R, C), R, dev)
+        add = dk.quads_of(_ddc((R,), R + 1, dev)[0])
+        tab = torch.from_numpy(dk.quads(np.exp(0.1j * np.arange(C)))).to(dev)
+        y = dk.dd_pointwise(x, tab, add, 0.25)
+        err, rel = _dd_err(y, dk.dd_pointwise_plain(x, tab, add, 0.25),
+                           ("pointwise", R))
+        out["pointwise"].append({"shape": [R, C], "max_abs_err": err,
+                                 "rel_err": rel})
+    torch.cuda.synchronize()
+    worst = {k: max(r["rel_err"] for r in v) for k, v in out.items()}
+    _log(f"[dd kernels] {len(out['lines'])} lengths, worst rel_err vs plain "
+         f"{worst}")
+    out["worst"] = worst
+    return out
+
+
+def phase_dd_routes(vt, dd_fft, dev) -> dict:
+    """fft_dd and FFTApplication(DOUBLE) on the card: sample 19's sizes
+    (<= 5e-14 of numpy), sample 12's complex-free systems through host
+    complex128 (<= 1e-12), four-step, Rader and Bluestein lengths, a 3-D
+    shape, the other input forms; none may raise."""
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    rows = []
+
+    def check(name, got, want, tol):
+        err = _numpy_rel(got, want)
+        rows.append({"case": name, "rel_err": err})
+        assert err <= tol, (name, err)
+
+    for n in SAMPLE_19 + (1144, 47, 2053, 4116, 6144, 4801, 1 << 16):
+        rng = np.random.default_rng(n)
+        x = rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+        y = dd_fft.fft_dd(x)
+        check(f"fft_dd_{n}_{dd_fft.dd_route(n)[0]}", y, np.fft.fft(x),
+              DD_NUMPY_TOL)
+        z = dd_fft.fft_dd(y, inverse=True, normalize=True)
+        check(f"fft_dd_{n}_round_trip", z, x, DD_NUMPY_TOL)
+    for n in SAMPLE_12:
+        rng = np.random.default_rng(2)
+        x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,),
+                                             precision=vt.Precision.DOUBLE))
+        check(f"sample12_{n}", app.forward(x.reshape(1, n))[0],
+              np.fft.fft(x), DD_SAMPLE_12_TOL)
+    shape = (4, 24, 17)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    app = vt.FFTApplication(vt.FFTConfig(shape=shape, normalize=True,
+                                         precision=vt.Precision.DOUBLE))
+    y = app.forward(torch.from_numpy(x).to(dev))
+    assert y.dtype == torch.complex128 and y.device == dev
+    check("3d_tensor_4x24x17", y.cpu().numpy(), np.fft.fftn(x), DD_NUMPY_TOL)
+    z = app.inverse(ddm.ddc_from_complex128(y))
+    assert isinstance(z, ddm.DDComplex)
+    check("3d_round_trip", _host_c128(z), x, DD_NUMPY_TOL)
+    p = vt.Planar(torch.from_numpy(x.real.astype(np.float32)).to(dev),
+                  torch.from_numpy(x.imag.astype(np.float32)).to(dev))
+    check("3d_planar_widened", _host_c128(app.forward(p)),
+          np.fft.fftn(x.astype(np.complex64).astype(np.complex128)),
+          DD_NUMPY_TOL)
+    worst = max(r["rel_err"] for r in rows)
+    _log(f"[dd routes] {len(rows)} cases, worst rel_err {worst:.3e}")
+    return {"rows": rows, "worst": worst}
+
+
+def _host_c128(x) -> np.ndarray:
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    return ddm.ddc_to_complex128(x).cpu().numpy()
+
+
+def phase_dd_main_path(vt, ck, dk, torch_engine, dev) -> dict:
+    """Sample 9 at full width, a 3-D row and a four-step row through
+    FFTApplication(DOUBLE) on DDComplex planes on the card (forward, then
+    normalized inverse), each counted from 0 and held to its exact
+    launches, no plain dd call and no plain-engine call; the forward
+    against torch.fft in complex128 on the card and the round trip
+    against the input (<= 5e-14)."""
+    rows, by_row = [], {}
+    for name, shape, want in DD_ROWS:
+        x, xc = _ddc(shape, len(name), dev)
+        app = vt.FFTApplication(vt.FFTConfig(
+            shape=shape[1:] if len(shape) == 2 else shape, normalize=True,
+            precision=vt.Precision.DOUBLE))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        dk.plain_calls = 0
+        y = app.forward(x)
+        z = app.inverse(y)
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_row[f"dd_{name}"] = got
+        _log(f"[main dd] {name}: launches {got}, plain dd calls "
+             f"{dk.plain_calls}, plain engine calls {torch_engine.calls}")
+        assert got == {k: (want if k == "fft_dd" else 0) for k in got}, (
+            name, got)
+        assert dk.plain_calls == 0 and torch_engine.calls == 0, name
+        ref = (torch.fft.fftn(xc) if len(shape) == 3
+               else torch.fft.fft(xc))
+        row = {"row": name, "shape": list(shape), "launches": want,
+               "oracle": "torch.fft complex128 on the card",
+               "rel_err_fwd": _dd_rel(y, ref),
+               "rel_err_round_trip": _dd_rel(z, xc),
+               "finite": all(bool(torch.isfinite(p).all())
+                             for p in y.planes() + z.planes())}
+        _log(f"[main dd] {row}")
+        assert row["finite"] and y.shape == x.shape == z.shape, row
+        assert row["rel_err_fwd"] <= DD_NUMPY_TOL, row
+        assert row["rel_err_round_trip"] <= DD_NUMPY_TOL, row
+        rows.append(row)
+        del x, xc, y, z, ref
+        torch.cuda.empty_cache()
+    launches = {k: sum(c[k] for c in by_row.values()) for k in ck.launches}
+    return {"launches": launches, "launches_by_path": by_row,
+            "plain_dd_calls": 0, "plain_engine_calls": 0, "rows": rows}
+
+
+def _dd_ops(points: int, n: int) -> float:
+    """5 n log2 n dd operations a DFT of n, DD_OP_FLOPS fp32 operations
+    each."""
+    return _fft_ops(points, n) * DD_OP_FLOPS
+
+
+def phase_dd_times(vt, dd_fft, dk, dev) -> dict:
+    """fft_dd's entries at the main path's shapes (held against their
+    plain versions there), beside the bound (32 B a point a pass, each
+    table read once; 5 n log2 n dd operations of DD_OP_FLOPS), the plain
+    time and torch.fft on complex128 of the same points (cuFFT Z2Z, the
+    same function at no less precision, 16 B a point); then each main-path
+    row's round trip beside torch.fft + ifft on complex128."""
+    _log(f"[time] card: {_smi()}")
+    # the passes of the main path: sample 9's lines, the 3-D row's axis 1
+    # and axis 0 (the (1, n0, n1*n2) view), the four-step's strided pass
+    # with its twiddle on the write
+    cases = []
+    for name, shape, _ in DD_ROWS:
+        if name.startswith("sample9"):
+            cases.append(("lines", shape, None))
+        elif len(shape) == 3:
+            cases += [("strided", shape, None),
+                      ("strided", (1, shape[0], shape[1] * shape[2]), None)]
+        else:
+            cases.append(("strided", (shape[0],) + dd_fft.dd_split(shape[1]),
+                          "twiddle"))
+    rows = []
+    for entry, shape, opt in cases:
+        for inverse in (False, True):
+            x, xc = _ddc(shape, sum(shape) + inverse, dev)
+            n = shape[-1] if entry == "lines" else shape[1]
+            kw, table_bytes = {}, 0
+            if opt == "twiddle":
+                n1, n2 = shape[1:]
+                kw = dict(post=dk.device_quads(
+                    ("twiddle", n1, n2, inverse), dev,
+                    lambda: dd_fft._four_step_twiddle(n1, n2, inverse)))
+                table_bytes = 16 * n1 * n2
+            if entry == "lines":
+                fn = lambda: dk.fft_dd_lines(x, inverse, **kw)
+                plain = lambda: dk.dd_lines_plain(x, inverse, **kw)
+                lib = lambda: torch.fft.fft(xc)
+            else:
+                fn = lambda: dk.fft_dd_strided(x, inverse, **kw)
+                plain = lambda: dk.dd_strided_plain(x, inverse, **kw)
+                lib = lambda: torch.fft.fft(xc, dim=1)
+            err, rel = _dd_err(fn(), plain(), (entry, shape, inverse))
+            points = math.prod(shape)
+            nbytes = 32.0 * points + table_bytes
+            bound, by = _bound(nbytes, _dd_ops(points, n)
+                               + (DD_OP_FLOPS * 6 * points if kw else 0))
+            row = {"entry": f"fft_dd_{entry}", "shape": list(shape),
+                   "inverse": inverse, "factor": opt or None,
+                   "ms": _time_ms(fn), "bound_ms": bound, "bound_by": by,
+                   "max_abs_err": err, "rel_err_vs_plain": rel,
+                   "plain_ms": _time_ms(plain, reps=3, inner=1, warmup=1),
+                   "library_ms": _time_ms(lib),
+                   "library": "torch.fft.fft complex128 (cuFFT Z2Z)"}
+            row["GBs"] = nbytes / row["ms"] / 1e6
+            row["roofline_share"] = bound / row["ms"]
+            _log(f"[time] fft_dd {row}")
+            rows.append(row)
+            del x, xc
+    e2e = []
+    for name, shape, want in DD_ROWS:
+        x, xc = _ddc(shape, 7, dev)
+        app = vt.FFTApplication(vt.FFTConfig(
+            shape=shape[1:] if len(shape) == 2 else shape, normalize=True,
+            precision=vt.Precision.DOUBLE))
+        nd = len(shape) == 3
+        points = math.prod(shape)
+        # one read and one write of the quad planes an axis a direction
+        # (PERF.md section 2), whatever a 1-D length's uploads
+        nbytes = 2 * (3 if nd else 1) * 32.0 * points
+        ops = sum(_dd_ops(points, m) for m in (shape if nd else shape[1:]))
+        bound, by = _bound(nbytes, 2 * ops)
+        ms = _time_ms(lambda: app.inverse(app.forward(x)))
+        lib = ((lambda: torch.fft.ifftn(torch.fft.fftn(xc))) if nd else
+               (lambda: torch.fft.ifft(torch.fft.fft(xc))))
+        row = {"row": name, "shape": list(shape), "launches": want,
+               "ms": ms, "GBs": nbytes / ms / 1e6,
+               "bound_ms": bound, "bound_by": by,
+               "torch_fft_c128_ms": _time_ms(lib)}
+        row["vs_torch_fft"] = row["torch_fft_c128_ms"] / ms
+        if name.startswith("four_step"):
+            t = x.re.hi.reshape(shape[0], *dd_fft.dd_split(shape[1]))
+            reorder = _time_ms(lambda: [t.transpose(1, 2).contiguous()
+                                        for _ in range(4)])
+            row["reorder_ms_per_dir"] = reorder
+            row["reorder_share"] = 2 * reorder / ms
+        _log(f"[time] e2e dd {row}")
+        e2e.append(row)
+        del x, xc
+    return {"kernels": {"fft_dd": rows}, "e2e": e2e}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2387,6 +2717,7 @@ def main() -> int:
         from vkfft_tpu_torch.ops import cuda_engine as ce
         from vkfft_tpu_torch.ops import cuda_kernels as ck
         from vkfft_tpu_torch.ops import torch_engine
+        from vkfft_tpu_torch.precision import dd_fft, dd_kernel as dk
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -2426,7 +2757,12 @@ def main() -> int:
               ("long_routes", lambda: phase_long_routes(vt, ce, dev)),
               ("long_main_path",
                lambda: phase_long_main_path(vt, ck, torch_engine, dev)),
-              ("long_times", lambda: phase_long_times(vt, ce, ck, dev))]
+              ("long_times", lambda: phase_long_times(vt, ce, ck, dev)),
+              ("dd_kernels", lambda: phase_dd_kernels_vs_plain(dk, dev)),
+              ("dd_routes", lambda: phase_dd_routes(vt, dd_fft, dev)),
+              ("dd_main_path",
+               lambda: phase_dd_main_path(vt, ck, dk, torch_engine, dev)),
+              ("dd_times", lambda: phase_dd_times(vt, dd_fft, dk, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -2448,7 +2784,8 @@ def main() -> int:
                    **record["any_main_path"]["launches_by_path"],
                    **record["r2r_main_path"]["launches_by_path"],
                    **record["conv_main_path"]["launches_by_path"],
-                   **record["long_main_path"]["launches_by_path"])
+                   **record["long_main_path"]["launches_by_path"],
+                   **record["dd_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -2470,7 +2807,9 @@ def main() -> int:
                "fft_dct1": ("vkfft_tpu_torch/csrc/fft_dct1.cu", f"{pe}:2958"),
                "fft_dct4": ("vkfft_tpu_torch/csrc/fft_dct4.cu", f"{pe}:3080"),
                "fft_strided_tw": ("vkfft_tpu_torch/csrc/fft_strided_tw.cu",
-                                  f"{pe}:3489")}
+                                  f"{pe}:3489"),
+               "fft_dd": ("vkfft_tpu_torch/csrc/fft_dd.cu",
+                          "vkfft_tpu/precision/dd_kernel.py:166")}
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
     # source holds both directions; the factor mode (fft_strided_tw) is the
@@ -2478,13 +2817,15 @@ def main() -> int:
     # fft_twofactor holds every length of the v1 _fft_kernel
     also = {"fft_strided": [f"{pe}:4001"], "fft_r2c": [f"{pe}:2507"],
             "fft_r2c_pair": [f"{pe}:3229"], "fft_dct23": [f"{pe}:2789"],
-            "fft_strided_tw": [f"{pe}:3439"], "fft_twofactor": [f"{pe}:152"]}
+            "fft_strided_tw": [f"{pe}:3439"], "fft_twofactor": [f"{pe}:152"],
+            "fft_dd": ["vkfft_tpu/precision/dd_kernel.py:259"]}
     timed = {k: record["times"]["kernels"].get(k, [])
              + record["real_times"]["kernels"].get(k, [])
              + record["any_times"]["kernels"].get(k, [])
              + record["r2r_times"]["kernels"].get(k, [])
              + record["conv_times"]["kernels"].get(k, [])
              + record["long_times"]["kernels"].get(k, [])
+             + record["dd_times"]["kernels"].get(k, [])
              for k in ck.KERNEL_SOURCES}
     entries = []
     for name, rows in timed.items():

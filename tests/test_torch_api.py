@@ -254,8 +254,9 @@ def test_cuda_route_refuses_options_outside_the_slice():
         dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DCT, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DST, rr_type=1, zeropad_output=((8, 16),)),
-        dict(precision=vt.Precision.DOUBLE),
+        dict(kind=vt.TransformKind.R2C, precision=vt.Precision.DOUBLE),
         dict(precision=vt.Precision.BFLOAT16),
+        dict(precision=vt.Precision.HALF),
         dict(zeropad_input=((0, 8),)),
         dict(zeropad_output=((8, 16),)),
         dict(keep_intermediate_order=True),

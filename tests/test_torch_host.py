@@ -132,6 +132,9 @@ def test_import_isolation_subprocess():
         "import vkfft_tpu_torch.api, vkfft_tpu_torch.ops.torch_engine\n"
         "import vkfft_tpu_torch.ops.cuda_engine, vkfft_tpu_torch.ops.cuda_kernels\n"
         "import vkfft_tpu_torch.transforms.conv\n"
+        "import vkfft_tpu_torch.precision.doubledouble\n"
+        "import vkfft_tpu_torch.precision.dd_kernel\n"
+        "import vkfft_tpu_torch.precision.dd_fft\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vkfft_tpu')]\n"
         "print(bad)\n"
@@ -148,6 +151,8 @@ _FORBIDDEN = re.compile(
 
 def test_import_isolation_source_scan():
     files = sorted((REPO / "vkfft_tpu_torch").rglob("*.py"))
+    assert {"doubledouble.py", "dd_kernel.py", "dd_fft.py"} <= {
+        f.name for f in files if f.parent.name == "precision"}
     files += [REPO / "chip_smoke.py", REPO / "bench_torch_pair.py",
               REPO / "bench_torch_long.py"]
     assert len(files) > 10

@@ -13,6 +13,10 @@ modules.  Layer map:
   transforms/ — r2c: rfft/irfft, rfft2/irfft2, rfftn/irfftn;
                r2r: dct/idct/dst/idst/dctn/dstn, types I-IV;
                conv: ConvolutionApplication, fftconvolve
+  precision/ — the double-double ("fp64") tier: doubledouble (DD,
+               DDComplex, the EFTs), dd_kernel (the fft_dd kernel's host
+               side and plain versions), dd_fft (routes, the axis walk,
+               fft_dd); FFTApplication runs it under Precision.DOUBLE
 """
 from vkfft_tpu_torch.config import (
     FFTConfig,
@@ -55,6 +59,7 @@ from vkfft_tpu_torch.transforms.r2r import (
     dctn,
     dstn,
 )
+from vkfft_tpu_torch import precision
 from vkfft_tpu_torch.transforms.conv import (
     ConvolutionApplication,
     convolution_from_reference,

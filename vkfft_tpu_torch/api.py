@@ -24,9 +24,19 @@ every configuration the port takes (as the JAX package narrows it,
 Convolution configs run in `transforms.conv.ConvolutionApplication`, as in
 the JAX package; `apply_zeropad` is the zero-pad mask it applies.
 
+``Precision.DOUBLE`` runs the C2C kind on the double-double tier
+(`precision`, the JAX package's "fp64" path on its complex-free TPU,
+``vkfft_tpu/api.py:393-416``) for every input form: `DDComplex` quad
+planes give `DDComplex`, float32 `Planar` planes are widened with lo = 0
+and give `DDComplex`, a complex tensor gives a complex128 tensor on its
+device, host data goes to ``device`` as quad planes and comes back as
+numpy complex128 (``_coerce_double``, ``api.py:745-779``).  The inverse's
+1/N rides the last pass as an exactly split dd scale.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: precisions other than SINGLE, zero-pad windows in `FFTApplication`
-(of every kind, R2R included) and keep_intermediate_order.
+item: HALF and BFLOAT16, DOUBLE for the R2C, DCT/DST and convolution
+kinds, zero-pad windows in `FFTApplication` (of every kind, R2R included)
+and keep_intermediate_order.
 """
 from __future__ import annotations
 
@@ -41,6 +51,13 @@ from vkfft_tpu_torch.config import FFTConfig, Precision, TransformKind
 from vkfft_tpu_torch.errors import InvalidConfigError
 from vkfft_tpu_torch.pcomplex import Planar, from_complex, to_complex, to_numpy
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
+from vkfft_tpu_torch.precision import dd_fft
+from vkfft_tpu_torch.precision.doubledouble import (
+    DD,
+    DDComplex,
+    ddc_from_complex128,
+    ddc_to_complex128,
+)
 
 ENGINES = ("torch", "cuda")
 
@@ -71,10 +88,15 @@ def resolve_device(device) -> torch.device:
 
 
 def check_precision_and_order(config: FFTConfig) -> None:
-    """The refusals every application of the port shares."""
-    if config.precision is not Precision.SINGLE:
+    """The refusals every application of the port shares: the storage
+    tiers, and DOUBLE outside C2C (the double-double tier runs C2C)."""
+    if config.precision in (Precision.HALF, Precision.BFLOAT16) or (
+            config.precision is Precision.DOUBLE
+            and (config.kind is not TransformKind.C2C or config.convolution)):
+        what = "convolution" if config.convolution else config.kind.value
         raise NotImplementedError(
-            f"precision {config.precision.value} is ROADMAP queue 1 item 10")
+            f"precision {config.precision.value} for {what} is ROADMAP queue "
+            "1 item 10")
     if config.keep_intermediate_order:
         raise NotImplementedError(
             "keep_intermediate_order is ROADMAP queue 1 item 8")
@@ -240,9 +262,58 @@ class FFTApplication:
             y = inv(y, type=cfg.rr_type, axis=a, engine=self.engine_name)
         return r2r.real_output(y, kind)
 
+    def _transform_dd(self, x, inverse: bool):
+        """The DOUBLE walk on `DDComplex` planes: the axes in ``cfg.axes``
+        order, reversed for the inverse, the 1/N on the last pass longer
+        than 1 (``vkfft_tpu/api.py:393-416``)."""
+        cfg = self.config
+        ndim = len(cfg.shape)
+        if tuple(x.shape[-ndim:]) != cfg.shape:
+            raise InvalidConfigError(
+                f"input trailing shape {tuple(x.shape[-ndim:])} != "
+                f"configured {cfg.shape}")
+        self._check_batch(x, ndim)
+        axes = [ax for ax in (reversed(cfg.axes) if inverse else cfg.axes)
+                if cfg.shape[ax] > 1]
+        scale = 1.0
+        if inverse and cfg.normalize:
+            scale = 1.0 / math.prod(cfg.shape[ax] for ax in cfg.axes)
+        x = x.contiguous()
+        lead = x.ndim - ndim
+        for i, ax in enumerate(axes):
+            x = dd_fft.fft_axis_dd(x, lead + ax, cfg.shape[ax], inverse,
+                                   scale if i == len(axes) - 1 else 1.0)
+        return x
+
+    def _run_double(self, x, inverse: bool):
+        """DOUBLE on every input form (see the module docstring); the
+        planes' device picks kernel or plain versions, whatever
+        ``engine`` says."""
+        if isinstance(x, DDComplex):
+            return self._transform_dd(x, inverse)
+        if isinstance(x, Planar):
+            if x.dtype != torch.float32:
+                raise InvalidConfigError(
+                    f"DOUBLE widens float32 Planar planes, got {x.dtype}")
+            lo = torch.zeros_like(x.re)
+            return self._transform_dd(DDComplex(DD(x.re, lo), DD(x.im, lo)),
+                                      inverse)
+        if isinstance(x, torch.Tensor):
+            if not x.is_complex():
+                raise InvalidConfigError(
+                    "DOUBLE takes complex tensors, Planar or DDComplex planes")
+            return ddc_to_complex128(
+                self._transform_dd(ddc_from_complex128(x), inverse))
+        xd = ddc_from_complex128(np.asarray(x, np.complex128),
+                                 resolve_device(self.device))
+        return ddc_to_complex128(self._transform_dd(xd, inverse)).cpu().numpy()
+
     def _run(self, x, inverse: bool):
         if self.config.kind is not TransformKind.C2C:
             return self._real_transform(x, inverse)
+        if (self.config.precision is Precision.DOUBLE
+                or isinstance(x, DDComplex)):
+            return self._run_double(x, inverse)
         if isinstance(x, Planar):
             return self._transform(x, inverse)
         if isinstance(x, torch.Tensor):
@@ -254,9 +325,10 @@ class FFTApplication:
         """``VkFFTAppend(app, -1, ...)`` analog.  Takes a ``Planar`` (result
         a ``Planar`` on the same device), a torch tensor (result a complex
         tensor on its device) or a host array (placed on ``device``, result
-        a numpy complex array).  R2C: real data in (a ``Planar``'s real
-        plane), the half spectrum out.  DCT/DST: real data in and out (a
-        tensor, or a numpy array for host input)."""
+        a numpy complex array); under DOUBLE, or for `DDComplex` input, the
+        double-double tier's forms (module docstring).  R2C: real data in
+        (a ``Planar``'s real plane), the half spectrum out.  DCT/DST: real
+        data in and out (a tensor, or a numpy array for host input)."""
         return self._run(x, False)
 
     def inverse(self, x):

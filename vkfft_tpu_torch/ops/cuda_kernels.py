@@ -1,6 +1,11 @@
 """The port's hand-written CUDA kernels, their plain versions, and the build.
 
-Thirteen kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``:
+Fourteen kernels, CUDA C++ for ``sm_90a`` in ``vkfft_tpu_torch/csrc``;
+the thirteen fp32 ones here, and `fft_dd` (``csrc/fft_dd.cu``), the
+double-double tier's kernel, whose tables, plain versions and wrappers
+are in ``precision/dd_kernel.py`` (it replaces
+``vkfft_tpu/precision/dd_kernel.py:166 _dd_fft_kernel`` and ``:259
+_dd_strided_kernel``):
 
 * `fft_lines` (``csrc/fft_lines.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``: batched C2C of
@@ -136,7 +141,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
                   "fft_r2c_pair", "fft_conv", "fft_twofactor", "fft_conv_inv",
                   "fft_conv_pair", "fft_dct23", "fft_dct1", "fft_dct4",
-                  "fft_strided_tw")
+                  "fft_strided_tw", "fft_dd")
 # Shared memory per block of `fft_pair` (two buffers of its share of a
 # plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
 # as a block of `fft_lines`), or else to its largest size, as long as a
@@ -1080,7 +1085,7 @@ def build_kernels() -> dict:
 _LIBS: dict = {}
 
 # C entry points of each library and their arguments before the stream
-# (p: pointer, q: 64-bit int, i: int).
+# (p: pointer, q: 64-bit int, i: int, f: float).
 _ENTRIES = {
     "fft_lines": {"fft_lines": "ppppqpp"},
     "fft_strided": {"fft_strided": "ppppqqpp"},
@@ -1097,8 +1102,15 @@ _ENTRIES = {
     "fft_dct1": {"fft_dct1": "ppqippi"},
     "fft_dct4": {"fft_dct4": "ppqiippii"},
     "fft_strided_tw": {"fft_strided_tw": "ppppqqqqpppii"},
+    # the double-double tier (precision/dd_kernel.py): eight quad planes,
+    # extents, plan, table, the pre/post tables and their lengths, the
+    # per-line add, the dd scale
+    "fft_dd": {"fft_dd_lines": "p" * 8 + "qpppqpqpff",
+               "fft_dd_strided": "p" * 8 + "qqpppqpqff",
+               "dd_pointwise": "p" * 8 + "qqpqpff"},
 }
-_CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int,
+           "f": ctypes.c_float}
 
 
 def _library(name: str) -> ctypes.CDLL:
