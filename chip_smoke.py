@@ -92,9 +92,12 @@ Phases (each asserts; any failure exits non-zero before the result line):
  10. the double-double tier (Precision.DOUBLE, DDComplex, fft_dd) on
      fft_dd: dd_kernels, its lines and strided entries against their
      plain versions at every 8th 13-smooth length to 4096 and named ones
-     (direction alternating, odd S, P > 1, the pre/post tables and scale)
-     and Rader's pointwise entry, <= 1e-13 of max|ref| (not KERNEL_TOL:
-     broken EFTs pass at 1e-5), and a subset against torch.fft in
+     (64, 256, 1024, 4096 on the power-of-two instantiation, 13, 1144,
+     4095 on the general one; direction alternating, odd S, P > 1, the
+     pre/post tables and scale), the general instantiation forced on the
+     powers of two, and Rader's pointwise entry, <= 1e-13 of max|ref|
+     (not KERNEL_TOL: broken EFTs pass at 1e-5), each entry's refusal of
+     a plan its instantiation lacks, and a subset against torch.fft in
      complex128 on the card (<= 5e-14); dd_routes, fft_dd at sample 19's
      sizes and four-step, Rader and Bluestein lengths (<= 5e-14 of
      numpy), sample 12's complex-free systems 8..4096 through host
@@ -104,8 +107,10 @@ Phases (each asserts; any failure exits non-zero before the result line):
      (64, 256, 256) row and a four-step 2^16 x 64 row through
      FFTApplication(DOUBLE), forward and normalized inverse, each counted
      from 0 and held to its exact launches with no plain dd call;
-     dd_times, the entries at those shapes beside the bound, the plain
-     time and torch.fft in complex128, and each row's round trip.
+     dd_times, the entries at those shapes beside the bound, the fp32
+     issue floor, the plain time and torch.fft in complex128, with each
+     row's instantiation, registers, spills and resident blocks an SM,
+     and each row's round trip with the host's enqueue time of one.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -181,10 +186,59 @@ def _time_ms(fn, reps: int = REPS, inner: int = INNER,
     return statistics.median(times)
 
 
+def _host_ms(fn, calls: int = 20) -> float:
+    """Host time a call takes to enqueue ``fn``'s work, the card synchronized
+    before and after: where it reaches the call's device time, the host
+    bounds the call and the card idles between its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
 def _planes(shape, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn(shape, generator=g, device=dev),
             torch.randn(shape, generator=g, device=dev))
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled kernel, with its first template
+    argument when it has one: dd_lines_kernel<0>."""
+    import re
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name, i = mangled, 0
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        name, i = s[j:j + int(s[i:j])], j + int(s[i:j])
+    arg = re.match(r"ILi(\d+)E", s[i:])
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def _ptxas_kernels(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in a ``-Xptxas -v`` log (fft_dd's <0> and <1>: the
+    power-of-two and the general instantiation)."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spills = _kernel_name(m.group(1)), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append((name, int(m.group(1))) + spills)
+            name = None
+    return rows
 
 
 def phase_toolchain(ck) -> dict:
@@ -200,8 +254,12 @@ def phase_toolchain(ck) -> dict:
     info["build_s"] = time.perf_counter() - t0
     for name, path in paths.items():
         with open(path[:-3] + ".log") as f:
-            regs = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        info[f"ptxas_{name}"] = regs
+            log = f.read()
+        info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
+                                 if "registers" in ln or "spill" in ln]
+        if name == "fft_dd":
+            # every instantiation: (kernel, registers, spill stores, loads)
+            info["ptxas_fft_dd_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
         _log(f"[toolchain] {k}: {v}")
     return info
@@ -1265,21 +1323,32 @@ def phase_any_times(vt, ck, dev) -> dict:
         _log(f"[time] {name} {row}")
         kernels[name].append(row)
 
-    # fft_conv: the 10006 row's Rader 5003 on (2 * 838, 5002), scalar table
+    # fft_conv: the 10006 row's Rader 5003 on (2 * 838, 5002), scalar
+    # table; the library call is the same cyclic convolution composed in
+    # torch.fft on complex64 (the unnormalized inverse of the spectrum's
+    # product, as the kernel's table carries the 1/(p-1)), held to the
+    # kernel's output; the lone forward fft stays as torch_fft_ms
     B, p = 2 * _sample_7_batch(10006), 5003
     m = p - 1
     xr, xi = _planes((B, m), 31, dev)
     spec = ck.rader_spectrum(p, 1.0, dev)
     xc = torch.complex(xr, xi)
+    sc = torch.complex(spec[:, 0].contiguous(), spec[:, 1].contiguous())
+    conv = lambda: torch.fft.ifft(torch.fft.fft(xc) * sc, norm="forward")
+    got = ck.fft_conv(xr, xi, spec)
     row_of("fft_conv", (B, m), lambda: ck.fft_conv(xr, xi, spec),
            lambda: ck.fft_conv_plain(xr, xi, spec),
            16.0 * B * m + 8.0 * m,
-           B * (2 * _fft_ops(m, m) + _cmul_ops(m)), None,
+           B * (2 * _fft_ops(m, m) + _cmul_ops(m)), conv,
            {"mode": "rader p=5003",
+            "library": "torch.fft ifft(fft(x) * spectrum), complex64",
+            "library_rel_err": _rel(torch.complex(*got), conv()),
             "torch_fft_ms": _time_ms(lambda: torch.fft.fft(xc))})
-    del xr, xi, xc
+    assert kernels["fft_conv"][-1]["library_rel_err"] <= KERNEL_TOL
+    del xr, xi, xc, got
     # fft_twofactor: the 10240 row (natural both ways), and the 7919 row's
-    # forward in swapped order on (1059, 7918)
+    # forward in swapped order on (1059, 7918), whose library call is the
+    # same DFT in natural order
     for n, B, inverse, swapped in ((10240, _sample_7_batch(10240), False, False),
                                    (10240, _sample_7_batch(10240), True, False),
                                    (7918, _sample_7_batch(7919), False, True)):
@@ -1290,10 +1359,13 @@ def phase_any_times(vt, ck, dev) -> dict:
                lambda: ck.fft_twofactor(xr, xi, inverse, 1.0, swapped),
                lambda: ck.fft_twofactor_plain(xr, xi, inverse, 1.0, swapped),
                16.0 * B * n + 8.0 * n, B * (_fft_ops(n, n) + _cmul_ops(n)),
-               None if swapped else (lambda: lib(xc, norm="forward")
-                                     if inverse else lib(xc)),
+               (lambda: lib(xc, norm="forward")) if inverse
+               else (lambda: lib(xc)),
                {"inverse": inverse, "swapped": swapped,
-                "split": list(ck.twofactor_split(n))})
+                "split": list(ck.twofactor_split(n)),
+                "library": ("torch.fft.fft, natural order (the kernel's "
+                            "output is in swapped order)") if swapped
+                else "torch.fft"})
         del xr, xi, xc
     # fft_conv_inv: the 7919 row's multiply and inverse with the x0 term
     B, p = _sample_7_batch(7919), 7919
@@ -2450,26 +2522,49 @@ def _dd_err(y, p, what) -> tuple:
 def _dd_kernel_lengths(dk) -> list:
     lengths = [n for n in range(2, dk.DD_KERNEL_MAX_N + 1)
                if dk.use_dd_kernel(n)]
-    named = {2, 3, 5, 7, 11, 13, 16, 1144, 4095, 4096}
+    # the main path's powers of two and general lengths of each radix
+    named = {2, 3, 5, 7, 11, 13, 16, 64, 256, 1024, 1144, 4095, 4096}
     return sorted(set(lengths[::DD_STRIDE]) | named)
+
+
+def _dd_variant_name(dk, variant: int) -> str:
+    return "pow2" if variant == dk.DD_POW2 else "general"
+
+
+def _with_variant(dk, variant: int, fn):
+    """fn() with every fft_dd launch passing ``variant`` in place of
+    dd_variant's choice."""
+    real = dk.dd_variant
+    dk.dd_variant = lambda n: variant
+    try:
+        return fn()
+    finally:
+        dk.dd_variant = real
 
 
 def phase_dd_kernels_vs_plain(dk, dev) -> dict:
     """fft_dd's entries against their plain versions on the card (<= 1e-13
     of max|ref|, not KERNEL_TOL: broken EFTs pass at 1e-5), at every 8th
-    13-smooth kernel length and named ones, the direction alternating:
-    lines (B = 3), the strided entry with odd S and P > 1 (its pre/post
-    tables and scale on every other length), Rader's pointwise entry; on
-    a subset against torch.fft in complex128 on the card (<= 5e-14)."""
+    13-smooth kernel length and named ones (64, 256, 1024, 4096 on the
+    power-of-two instantiation, 13, 1144, 4095 on the general one), the
+    direction alternating: lines (B = 3), the strided entry with odd S and
+    P > 1 (its pre/post tables and scale on every other length), Rader's
+    pointwise entry; on a subset against torch.fft in complex128 on the
+    card (<= 5e-14).  Then the general instantiation at the powers of two
+    (it holds every radix) against plain, and each entry's refusal of a
+    plan whose radices its instantiation lacks (1144 on the power-of-two
+    one).  The worst error is kept for each instantiation and entry."""
     from vkfft_tpu_torch.precision import doubledouble as ddm
-    out = {"lines": [], "strided": [], "pointwise": []}
+    out = {"lines": [], "strided": [], "pointwise": [],
+           "general_at_pow2": []}
     for i, n in enumerate(_dd_kernel_lengths(dk)):
         inverse = bool(i % 2)
+        variant = _dd_variant_name(dk, dk.dd_variant(n))
         x, xc = _ddc((3, n), n, dev)
         y = dk.fft_dd_lines(x, inverse)
         err, rel = _dd_err(y, dk.dd_lines_plain(x, inverse), ("lines", n))
-        row = {"n": n, "inverse": inverse, "max_abs_err": err,
-               "rel_err": rel}
+        row = {"n": n, "variant": variant, "inverse": inverse,
+               "max_abs_err": err, "rel_err": rel}
         if i % 4 == 0 or n in (4096, 4095, 1144, 13):
             ref = torch.fft.ifft(xc) * n if inverse else torch.fft.fft(xc)
             row["rel_err_torch_fft_c128"] = _dd_rel(y, ref)
@@ -2485,8 +2580,9 @@ def phase_dd_kernels_vs_plain(dk, dev) -> dict:
         y = dk.fft_dd_strided(xs, inverse, **kw)
         err, rel = _dd_err(y, dk.dd_strided_plain(xs, inverse, **kw),
                            ("strided", n, S))
-        row = {"n": n, "P": 2, "S": S, "inverse": inverse,
-               "options": bool(kw), "max_abs_err": err, "rel_err": rel}
+        row = {"n": n, "variant": variant, "P": 2, "S": S,
+               "inverse": inverse, "options": bool(kw), "max_abs_err": err,
+               "rel_err": rel}
         if not kw and (i % 4 == 1 or n == 4096):
             ref = (torch.fft.ifft(xsc, dim=1) * n if inverse
                    else torch.fft.fft(xsc, dim=1))
@@ -2502,10 +2598,42 @@ def phase_dd_kernels_vs_plain(dk, dev) -> dict:
                            ("pointwise", R))
         out["pointwise"].append({"shape": [R, C], "max_abs_err": err,
                                  "rel_err": rel})
+    for n in (64, 256, 1024, 4096):
+        x, _ = _ddc((3, n), n + 7, dev)
+        xs, _ = _ddc((2, n, 9), n + 8, dev)
+        y = _with_variant(dk, dk.DD_GENERAL, lambda: dk.fft_dd_lines(x))
+        ys = _with_variant(dk, dk.DD_GENERAL,
+                           lambda: dk.fft_dd_strided(xs, True))
+        for entry, got, want in (("lines", y, dk.dd_lines_plain(x, False)),
+                                 ("strided", ys,
+                                  dk.dd_strided_plain(xs, True))):
+            err, rel = _dd_err(got, want, ("general", entry, n))
+            out["general_at_pow2"].append(
+                {"n": n, "entry": entry, "variant": "general",
+                 "max_abs_err": err, "rel_err": rel})
+    x, _ = _ddc((3, 1144), 5, dev)
+    xs, _ = _ddc((1, 1144, 3), 6, dev)
+    refusals = {}
+    for entry, fn in (("lines", lambda: dk.fft_dd_lines(x)),
+                      ("strided", lambda: dk.fft_dd_strided(xs))):
+        try:
+            _with_variant(dk, dk.DD_POW2, fn)
+            refusals[entry] = "launched"
+        except RuntimeError as e:
+            refusals[entry] = str(e)
+        assert "invalid argument" in refusals[entry], (entry, refusals)
+    out["refusals"] = refusals
     torch.cuda.synchronize()
-    worst = {k: max(r["rel_err"] for r in v) for k, v in out.items()}
+    worst = {}
+    for entry in ("lines", "strided"):
+        for r in out[entry] + [r for r in out["general_at_pow2"]
+                               if r["entry"] == entry]:
+            key = f"{r['variant']}/{entry}"
+            worst[key] = max(worst.get(key, 0.0), r["rel_err"])
+    worst["pointwise"] = max(r["rel_err"] for r in out["pointwise"])
     _log(f"[dd kernels] {len(out['lines'])} lengths, worst rel_err vs plain "
-         f"{worst}")
+         f"by instantiation/entry {worst}; a pow2 launch of n = 1144 "
+         f"refused: {refusals}")
     out["worst"] = worst
     return out
 
@@ -2617,14 +2745,35 @@ def _dd_ops(points: int, n: int) -> float:
     return _fft_ops(points, n) * DD_OP_FLOPS
 
 
-def phase_dd_times(vt, dd_fft, dk, dev) -> dict:
+def _fp32_issue_per_s() -> float:
+    """fp32 instructions the card issues a second: one a lane a clock on
+    the 128 fp32 lanes of each SM at the SM clock's maximum
+    (``nvidia-smi --query-gpu=clocks.max.sm``).  A dd operation is
+    DD_OP_FLOPS such instructions (an add is 11 single-flop instructions),
+    so this, not FP32_FLOP_PER_S (which counts an fma as 2), is the
+    arithmetic floor of dd code."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(res.stdout.strip().splitlines()[0].split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
+def phase_dd_times(vt, dd_fft, dk, ck, dev) -> dict:
     """fft_dd's entries at the main path's shapes (held against their
     plain versions there), beside the bound (32 B a point a pass, each
-    table read once; 5 n log2 n dd operations of DD_OP_FLOPS), the plain
-    time and torch.fft on complex128 of the same points (cuFFT Z2Z, the
-    same function at no less precision, 16 B a point); then each main-path
-    row's round trip beside torch.fft + ifft on complex128."""
+    table read once; 5 n log2 n dd operations of DD_OP_FLOPS), the issue
+    floor (the same operations over `_fp32_issue_per_s`), the plain time
+    and torch.fft on complex128 of the same points (cuFFT Z2Z, the same
+    function at no less precision, 16 B a point), with the instantiation
+    each row runs, its registers and spills (ptxas) and its resident
+    blocks an SM (``vk_fft_dd_occupancy``); then each main-path row's
+    round trip beside torch.fft + ifft on complex128."""
     _log(f"[time] card: {_smi()}")
+    issue = _fp32_issue_per_s()
+    with open(ck.library_path("fft_dd")[:-3] + ".log") as f:
+        ptxas = {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
     # the passes of the main path: sample 9's lines, the 3-D row's axis 1
     # and axis 0 (the (1, n0, n1*n2) view), the four-step's strided pass
     # with its twiddle on the write
@@ -2661,17 +2810,26 @@ def phase_dd_times(vt, dd_fft, dk, dev) -> dict:
             err, rel = _dd_err(fn(), plain(), (entry, shape, inverse))
             points = math.prod(shape)
             nbytes = 32.0 * points + table_bytes
-            bound, by = _bound(nbytes, _dd_ops(points, n)
-                               + (DD_OP_FLOPS * 6 * points if kw else 0))
+            ops = _dd_ops(points, n) + (DD_OP_FLOPS * 6 * points if kw else 0)
+            bound, by = _bound(nbytes, ops)
+            variant = dk.dd_variant(n)
+            regs, spill_st, spill_ld = ptxas[f"dd_{entry}_kernel<{variant}>"]
             row = {"entry": f"fft_dd_{entry}", "shape": list(shape),
                    "inverse": inverse, "factor": opt or None,
+                   "variant": _dd_variant_name(dk, variant),
+                   "registers": regs, "spill_bytes": [spill_st, spill_ld],
+                   "blocks_per_sm": dk.dd_occupancy(
+                       variant, dk.DD_LINES if entry == "lines"
+                       else dk.DD_STRIDED, n),
                    "ms": _time_ms(fn), "bound_ms": bound, "bound_by": by,
+                   "issue_floor_ms": ops / issue * 1e3,
                    "max_abs_err": err, "rel_err_vs_plain": rel,
                    "plain_ms": _time_ms(plain, reps=3, inner=1, warmup=1),
                    "library_ms": _time_ms(lib),
                    "library": "torch.fft.fft complex128 (cuFFT Z2Z)"}
             row["GBs"] = nbytes / row["ms"] / 1e6
             row["roofline_share"] = bound / row["ms"]
+            row["issue_share"] = row["issue_floor_ms"] / row["ms"]
             _log(f"[time] fft_dd {row}")
             rows.append(row)
             del x, xc
@@ -2689,11 +2847,14 @@ def phase_dd_times(vt, dd_fft, dk, dev) -> dict:
         ops = sum(_dd_ops(points, m) for m in (shape if nd else shape[1:]))
         bound, by = _bound(nbytes, 2 * ops)
         ms = _time_ms(lambda: app.inverse(app.forward(x)))
+        host = _host_ms(lambda: app.inverse(app.forward(x)))
+        issue_floor = 2 * ops / issue * 1e3
         lib = ((lambda: torch.fft.ifftn(torch.fft.fftn(xc))) if nd else
                (lambda: torch.fft.ifft(torch.fft.fft(xc))))
         row = {"row": name, "shape": list(shape), "launches": want,
                "ms": ms, "GBs": nbytes / ms / 1e6,
                "bound_ms": bound, "bound_by": by,
+               "issue_floor_ms": issue_floor, "host_enqueue_ms": host,
                "torch_fft_c128_ms": _time_ms(lib)}
         row["vs_torch_fft"] = row["torch_fft_c128_ms"] / ms
         if name.startswith("four_step"):
@@ -2762,7 +2923,7 @@ def main() -> int:
               ("dd_routes", lambda: phase_dd_routes(vt, dd_fft, dev)),
               ("dd_main_path",
                lambda: phase_dd_main_path(vt, ck, dk, torch_engine, dev)),
-              ("dd_times", lambda: phase_dd_times(vt, dd_fft, dk, dev))]
+              ("dd_times", lambda: phase_dd_times(vt, dd_fft, dk, ck, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:

@@ -479,6 +479,132 @@ def test_nd_application_launches(monkeypatch):
         assert launches["fft_dd"] == 6 and sum(launches.values()) == 6
 
 
+# ---------------------------------------------------------------------------
+# The kernel's instantiations: dd_variant and the argument each launch
+# passes.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dd_variant_rule(inverse):
+    """dd_variant(n) is the power-of-two instantiation exactly when every
+    radix of the kernel's plan (`stage_tables`) is 2, 4 or 8, over every
+    13-smooth n <= 4096; other lengths have no variant."""
+    pow2 = dd_kernel.DD_VARIANT_RADICES[dd_kernel.DD_POW2]
+    general = dd_kernel.DD_VARIANT_RADICES[dd_kernel.DD_GENERAL]
+    assert pow2 < general
+    seen = set()
+    for n in range(2, dd_kernel.DD_KERNEL_MAX_N + 1):
+        if not dd_kernel.use_dd_kernel(n):
+            continue
+        ints, _ = ck.stage_tables(n, inverse)
+        radices = set(ints[3:3 + ints[1]])
+        want = (dd_kernel.DD_POW2 if radices <= pow2
+                else dd_kernel.DD_GENERAL)
+        assert dd_kernel.dd_variant(n) == want, n
+        assert radices <= dd_kernel.DD_VARIANT_RADICES[want], n
+        seen.add(want)
+        if want == dd_kernel.DD_POW2:
+            assert n & (n - 1) == 0, n
+    assert seen == {dd_kernel.DD_POW2, dd_kernel.DD_GENERAL}
+    for n in (1, 17, 4097, 8192):
+        with pytest.raises(NotImplementedError):
+            dd_kernel.dd_variant(n)
+
+
+@contextlib.contextmanager
+def _recorded_launches(monkeypatch):
+    """`_stubbed_launches` that also records each library call as (C
+    entry, arguments before the stream)."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args[:-1])) or 0
+
+    with _stubbed_launches(monkeypatch) as launches:
+        monkeypatch.setattr(ck, "_library", lambda name: Lib())
+        yield launches, calls
+
+
+POW2, GENERAL = dd_kernel.DD_POW2, dd_kernel.DD_GENERAL
+VARIANT_CASES = [("sample9_n256", (16384, 256), 2, POW2),
+                 ("sample9_n1024", (4096, 1024), 2, POW2),
+                 ("3d_64x256x256", (64, 256, 256), 6, POW2),
+                 ("four_step_n65536", (64, 1 << 16), 4, POW2),
+                 ("n1144", (2, 1144), 2, GENERAL),
+                 ("n4095", (2, 4095), 2, GENERAL),
+                 ("n13", (2, 13), 2, GENERAL)]
+
+
+@pytest.mark.parametrize("name,shape,count,variant", VARIANT_CASES,
+                         ids=[c[0] for c in VARIANT_CASES])
+def test_variant_launch_arguments(monkeypatch, name, shape, count, variant):
+    """A forward and a normalized inverse through FFTApplication(DOUBLE)
+    on meta planes: the main path's rows (sample 9, the 3-D row, the
+    four-step) pass the power-of-two instantiation to every DFT launch,
+    1144, 4095 and 13 the general one, as the last argument before the
+    stream; the launch counts are the routes' own."""
+    app = vt.FFTApplication(vt.FFTConfig(
+        shape=shape[1:] if len(shape) == 2 else shape,
+        precision=vt.Precision.DOUBLE, normalize=True))
+    with _recorded_launches(monkeypatch) as (launches, calls):
+        y = app.inverse(app.forward(_meta(shape)))
+        assert y.shape == shape
+        assert launches == {k: (count if k == "fft_dd" else 0)
+                            for k in ck.KERNEL_SOURCES}
+    entries = [e for e, _ in calls]
+    assert len(calls) == count and set(entries) <= {"vk_fft_dd_lines",
+                                                     "vk_fft_dd_strided"}
+    assert [args[-1] for _, args in calls] == [variant] * count
+
+
+def test_variant_of_each_entry(monkeypatch):
+    """Each entry passes dd_variant of its own length: the lines and the
+    strided entry at n = 256 and 1144 on meta planes."""
+    with _recorded_launches(monkeypatch) as (_, calls):
+        for n in (256, 1144):
+            dd_kernel.fft_dd_lines(_meta((3, n)))
+            dd_kernel.fft_dd_strided(_meta((2, n, 5)), inverse=True)
+    assert [(e, a[-1]) for e, a in calls] == [
+        ("vk_fft_dd_lines", POW2), ("vk_fft_dd_strided", POW2),
+        ("vk_fft_dd_lines", GENERAL), ("vk_fft_dd_strided", GENERAL)]
+
+
+def test_table_length_limit(monkeypatch):
+    """The kernel walks a pre/post table with 32-bit positions: a table of
+    2^31 quads or more is refused before any launch (meta tensors hold no
+    memory)."""
+    x = _meta((2, 64))
+    big = torch.empty((1 << 31, 4), device="meta")
+    with _recorded_launches(monkeypatch) as (_, calls):
+        with pytest.raises(ValueError, match="2\\^31"):
+            dd_kernel.fft_dd_lines(x, post=big)
+        with pytest.raises(ValueError, match="2\\^31"):
+            dd_kernel.fft_dd_strided(_meta((1, 64, 2)), pre=big)
+        dd_kernel.fft_dd_lines(x, post=big[:(1 << 31) - 1])
+    assert [e for e, _ in calls] == ["vk_fft_dd_lines"]
+
+
+def test_bench_script_stands_alone():
+    """bench_torch_dd.py, the card's probe of fft_dd, imports neither JAX
+    nor the JAX package, and takes the kernel's register report from
+    chip_smoke's parser, which names each instantiation."""
+    import pathlib
+    import re
+    import chip_smoke
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    text = (repo / "bench_torch_dd.py").read_text()
+    assert not re.search(r"^\s*(?:import|from)\s+(?:jax|jaxlib|vkfft_tpu)"
+                         r"(?:[\s.,]|$)", text, re.M)
+    log = ("ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__5150"
+           "3a0b_9_fft_dd_cu_6c8e62f115dd_lines_kernelILi0EEEvNS_3In4ENS_4"
+           "Out4ExiNS_4PlanEPK6float4NS_4OptsE' for 'sm_90a'\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+           "loads\nptxas info    : Used 80 registers, used 1 barriers\n")
+    assert chip_smoke._ptxas_kernels(log) == [("dd_lines_kernel<0>", 80, 8,
+                                               12)]
+
+
 def test_every_length_has_one_route():
     """dd_route names one route for each n in 2..8192, the one its rules
     give, and its launches follow."""

@@ -1104,9 +1104,9 @@ _ENTRIES = {
     "fft_strided_tw": {"fft_strided_tw": "ppppqqqqpppii"},
     # the double-double tier (precision/dd_kernel.py): eight quad planes,
     # extents, plan, table, the pre/post tables and their lengths, the
-    # per-line add, the dd scale
-    "fft_dd": {"fft_dd_lines": "p" * 8 + "qpppqpqpff",
-               "fft_dd_strided": "p" * 8 + "qqpppqpqff",
+    # per-line add, the dd scale, the instantiation (dd_kernel.dd_variant)
+    "fft_dd": {"fft_dd_lines": "p" * 8 + "qpppqpqpffi",
+               "fft_dd_strided": "p" * 8 + "qqpppqpqffi",
                "dd_pointwise": "p" * 8 + "qqpqpff"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int,

@@ -2,8 +2,8 @@
 
 Port of ``vkfft_tpu/precision/dd_kernel.py``.  One CUDA C++ source,
 ``csrc/fft_dd.cu`` (EFTs in ``csrc/dd.cuh``), launched through
-`cuda_kernels._launch` and counted as ``launches["fft_dd"]``, has three C
-entries:
+`cuda_kernels._launch` and counted as ``launches["fft_dd"]``, has three
+launching C entries and ``vk_fft_dd_occupancy`` (`dd_occupancy`):
 
 * ``vk_fft_dd_lines`` (`fft_dd_lines`) replaces
   ``vkfft_tpu/precision/dd_kernel.py:166 _dd_fft_kernel``: the dd DFT of
@@ -22,6 +22,12 @@ twiddle, the Bluestein chirps and spectra, Rader's spectrum), a per-line
 y = (DFT(x * pre) * post + add) * scale.  A table is (L, 4) float32 quads
 (re.hi, re.lo, im.hi, im.lo), split exactly from host fp64, read at each
 point's flat position modulo L.
+
+Each DFT entry has two instantiations (`dd_variant`, the one place the
+choice is made, passes it to the C entry): DD_POW2, whose stages take
+radices 2, 4 and 8 only, for every power of two, built for two resident
+blocks an SM; DD_GENERAL, with the odd radices 3..13, for every other
+length.  `dd_occupancy` reads a kernel's resident blocks an SM on the card.
 
 The kernel takes every 13-smooth 2 <= n <= 4096 (`use_dd_kernel`): a line
 of 4096 dd points in two shared-memory buffers is 128 KB, which a block
@@ -54,6 +60,13 @@ from vkfft_tpu_torch.precision.doubledouble import (DDComplex, dd_scalar,
 DD_KERNEL_MAX_N = 4096   # two buffers of 16 B points in a block: 128 KB
 DD_MAX_PRIME = 13        # largest prime a stage of either walk takes
 _DD_MAX_RADIX = 8        # the JAX walk's largest grouped radix
+# The kernel's instantiations (kPow2, kGeneral in csrc/fft_dd.cu): the
+# radices each one's stages take, and its DFT entries (kLines, kStrided).
+DD_POW2, DD_GENERAL = 0, 1
+DD_VARIANT_RADICES = {DD_POW2: frozenset((2, 4, 8)),
+                      DD_GENERAL: frozenset((2, 3, 4, 5, 7, 8, 11, 13))}
+DD_LINES, DD_STRIDED = 0, 1
+_MAX_TABLE_LEN = (1 << 31) - 1  # the kernel walks a table with 32-bit ints
 
 # Runs of the plain versions (`dd_lines_plain`, `dd_strided_plain`,
 # `dd_pointwise_plain`), counted where they run.
@@ -68,6 +81,37 @@ def use_dd_kernel(n: int) -> bool:
     """Whether `fft_dd_lines` and `fft_dd_strided` take length n: a
     13-smooth 2 <= n <= 4096."""
     return 2 <= n <= DD_KERNEL_MAX_N and _is_smooth(n)
+
+
+@functools.lru_cache(maxsize=4096)
+def dd_variant(n: int) -> int:
+    """The instantiation of `fft_dd_lines`/`fft_dd_strided` that runs
+    length n: DD_POW2 when every radix of the kernel's plan
+    (`cuda_kernels.stage_radices`, the radices of `stage_tables`) is 2, 4
+    or 8, which is every power of two, else DD_GENERAL.  The one place the
+    choice is made; the C entry refuses a plan with a radix outside the
+    variant it is given."""
+    if not use_dd_kernel(n):
+        raise _no_kernel("dd_variant", n)
+    radices = set(ck.stage_radices(n))
+    return (DD_POW2 if radices <= DD_VARIANT_RADICES[DD_POW2]
+            else DD_GENERAL)
+
+
+def dd_occupancy(variant: int, entry: int, n: int) -> int:
+    """Resident blocks an SM of the kernel that ``variant`` and ``entry``
+    (DD_LINES, DD_STRIDED) launch for length n at its widest block, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
+    (C entry ``vk_fft_dd_occupancy``)."""
+    fn = ck._library("fft_dd").vk_fft_dd_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(variant, entry, n, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_fft_dd_occupancy({variant}, {entry}, {n}) "
+                           f"failed: CUDA error {err}")
+    return blocks.value
 
 
 def _no_kernel(what: str, n: int) -> NotImplementedError:
@@ -299,6 +343,8 @@ def _check_table(t, rows: Optional[int], like: torch.Tensor, what: str):
             or not t.is_contiguous() or t.device != like.device):
         raise ValueError(f"{what}: a table is contiguous (L, 4) float32 "
                          "quads on the planes' device")
+    if t.shape[0] > _MAX_TABLE_LEN:
+        raise ValueError(f"{what}: a table holds fewer than 2^31 quads")
     if rows is not None and t.shape[0] != rows:
         raise ValueError(f"{what}: {t.shape[0]} rows of add for {rows} lines")
     return t, t.shape[0]
@@ -346,7 +392,8 @@ def fft_dd_lines(x: DDComplex, inverse: bool = False, pre=None, post=None,
     plan, table = _plan_args(n, inverse, x.device)
     s_hi, s_lo = split_scalar(scale)
     return _launch("fft_dd_lines", x, [B, plan, table, pre, pre_len, post,
-                                       post_len, add, s_hi, s_lo])
+                                       post_len, add, s_hi, s_lo,
+                                       dd_variant(n)])
 
 
 def fft_dd_strided(x: DDComplex, inverse: bool = False, pre=None, post=None,
@@ -357,8 +404,9 @@ def fft_dd_strided(x: DDComplex, inverse: bool = False, pre=None, post=None,
     in its plane).  CPU planes run `dd_strided_plain`; others launch.
 
     Replaces ``vkfft_tpu/precision/dd_kernel.py:259 _dd_strided_kernel``.
-    A block transforms a tile of min(32, max(1, 2048/n)) neighbouring
-    columns across all n rows in shared memory, reading each row of the
+    A block transforms a tile of ts neighbouring columns across all n rows
+    in shared memory (ts the largest power of two <= min(32, 2048/n), no
+    wider than S rounded up to a power of two), reading each row of the
     tile as one run of each plane (``csrc/fft_dd.cu``)."""
     _check_quads(x, 3, "fft_dd_strided")
     P, n, S = x.shape
@@ -372,7 +420,8 @@ def fft_dd_strided(x: DDComplex, inverse: bool = False, pre=None, post=None,
     plan, table = _plan_args(n, inverse, x.device)
     s_hi, s_lo = split_scalar(scale)
     return _launch("fft_dd_strided", x, [P, S, plan, table, pre, pre_len,
-                                         post, post_len, s_hi, s_lo])
+                                         post, post_len, s_hi, s_lo,
+                                         dd_variant(n)])
 
 
 def dd_pointwise(x: DDComplex, table=None, add=None,
