@@ -1,6 +1,6 @@
 """Smoke run of the torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME,...]
 
 Phases (each asserts; any failure exits non-zero before the result line):
   1. device and toolchain: the card's name and power limit, torch, CUDA and
@@ -97,8 +97,10 @@ Phases (each asserts; any failure exits non-zero before the result line):
      pre/post tables and scale), the general instantiation forced on the
      powers of two, and Rader's pointwise entry, <= 1e-13 of max|ref|
      (not KERNEL_TOL: broken EFTs pass at 1e-5), each entry's refusal of
-     a plan its instantiation lacks, and a subset against torch.fft in
-     complex128 on the card (<= 5e-14); dd_routes, fft_dd at sample 19's
+     a plan its instantiation lacks, a subset against torch.fft in
+     complex128 on the card (<= 5e-14), and both instantiations launched
+     on tiles of several per plane and on lines with their outputs inside
+     sentinel guards (no write outside the output); dd_routes, fft_dd at sample 19's
      sizes and four-step, Rader and Bluestein lengths (<= 5e-14 of
      numpy), sample 12's complex-free systems 8..4096 through host
      complex128 (<= 1e-12), a 3-D shape as a complex tensor, DDComplex
@@ -107,15 +109,20 @@ Phases (each asserts; any failure exits non-zero before the result line):
      (64, 256, 256) row and a four-step 2^16 x 64 row through
      FFTApplication(DOUBLE), forward and normalized inverse, each counted
      from 0 and held to its exact launches with no plain dd call;
-     dd_times, the entries at those shapes beside the bound, the fp32
-     issue floor, the plain time and torch.fft in complex128, with each
-     row's instantiation, registers, spills and resident blocks an SM,
-     and each row's round trip with the host's enqueue time of one.
+     dd_times, the entries at those shapes beside the bound, the
+     computed fp32 issue floor, the plain time and torch.fft in
+     complex128, with each row's instantiation, registers, spills and
+     resident blocks an SM, and each row's round trip with the host's
+     enqueue time of one.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
 each kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
+
+--phases runs only the named phases, in their order (say
+toolchain,dd_kernels,dd_times to iterate on fft_dd), writes their record
+to chiprun_out/chip_smoke_phases.json and prints no result line.
 """
 from __future__ import annotations
 
@@ -2475,8 +2482,12 @@ DD_KERNEL_TOL = 1e-13        # fft_dd vs its plain version, of max|ref|
 DD_NUMPY_TOL = 5e-14         # vs fp64 (sample 19's gate, cli.py:633)
 DD_SAMPLE_12_TOL = 1e-12     # sample 12's gate (cli.py:315)
 DD_OP_FLOPS = 11             # fp32 operations a dd operation (csrc/dd.cuh)
+DD_ADD_INSTR = 11            # fp32 instructions a dd add (csrc/dd.cuh)
+DD_MUL_INSTR = 7             # fp32 instructions a dd product (csrc/dd.cuh)
 DD_STRIDE = 8                # every 8th kernel length in dd_kernels
 DD_BYTES = 64 * 1024 * 1024  # sample 9: 64 MiB of quad planes a row
+DD_GUARD_REPEATS = 3         # launches of each guarded case in dd_kernels
+DD_GUARD = 1 << 16           # sentinel floats each side of an output
 SAMPLE_19 = (8, 64, 100, 256, 101, 1024, 17, 97)    # cli.py:615
 # sample 12's complex-free systems, cli.py:267 and :303 (the first 10)
 SAMPLE_12 = tuple(1 << k for k in range(3, 13))
@@ -2542,6 +2553,26 @@ def _with_variant(dk, variant: int, fn):
         dk.dd_variant = real
 
 
+def _dd_guarded(dk, entry: str, x, inverse: bool, variant: int, dev):
+    """One launch of fft_dd's ``entry`` ("lines", "strided") on x, its
+    output planes inside a buffer of sentinel values (DD_GUARD floats on
+    each side): (the output, the guard cells the launch changed)."""
+    sentinel, n = 12345.0, x.shape[-1] if entry == "lines" else x.shape[1]
+    numel = x.re.hi.numel()
+    buf = torch.full((4, numel + 2 * DD_GUARD), sentinel, device=dev)
+    y = [buf[i, DD_GUARD:DD_GUARD + numel].view(x.shape) for i in range(4)]
+    plan, table = dk._plan_args(n, inverse, dev)
+    extents = ([x.shape[0]] if entry == "lines"
+               else [x.shape[0], x.shape[2]])
+    options = [None, 0, None, 0] + ([None] if entry == "lines" else [])
+    dk.ck._launch("fft_dd", "fft_dd_" + entry, dev,
+                  [*x.planes(), *y, *extents, plan, table, *options, 1.0,
+                   0.0, variant])
+    changed = (int((buf[:, :DD_GUARD] != sentinel).sum())
+               + int((buf[:, DD_GUARD + numel:] != sentinel).sum()))
+    return dk.DDComplex.of(y), changed
+
+
 def phase_dd_kernels_vs_plain(dk, dev) -> dict:
     """fft_dd's entries against their plain versions on the card (<= 1e-13
     of max|ref|, not KERNEL_TOL: broken EFTs pass at 1e-5), at every 8th
@@ -2551,9 +2582,10 @@ def phase_dd_kernels_vs_plain(dk, dev) -> dict:
     P > 1 (its pre/post tables and scale on every other length), Rader's
     pointwise entry; on a subset against torch.fft in complex128 on the
     card (<= 5e-14).  Then the general instantiation at the powers of two
-    (it holds every radix) against plain, and each entry's refusal of a
-    plan whose radices its instantiation lacks (1144 on the power-of-two
-    one).  The worst error is kept for each instantiation and entry."""
+    (it holds every radix) against plain, each entry's refusal of a plan
+    whose radices its instantiation lacks (1144 on the power-of-two one),
+    and the guarded launches (`_dd_guarded`).  The worst error is kept for
+    each instantiation and entry."""
     from vkfft_tpu_torch.precision import doubledouble as ddm
     out = {"lines": [], "strided": [], "pointwise": [],
            "general_at_pow2": []}
@@ -2623,6 +2655,27 @@ def phase_dd_kernels_vs_plain(dk, dev) -> dict:
             refusals[entry] = str(e)
         assert "invalid argument" in refusals[entry], (entry, refusals)
     out["refusals"] = refusals
+    # both instantiations on the strided entry's tiles of several per
+    # plane (where a build at another register cap once faulted) and on
+    # lines, each launched DD_GUARD_REPEATS times with its output inside
+    # sentinel guards: no write outside the output, each within 1e-13
+    guarded = {"launches": 0, "guard_cells_changed": 0, "worst_rel": 0.0}
+    cases = ([("strided", (P, n, S)) for n in (32, 64, 256, 1024)
+              for S in (33, 64, 97) for P in (1, 2)]
+             + [("lines", (5, n)) for n in (64, 256, 1024, 4096)])
+    for i, (entry, shape) in enumerate(cases):
+        x, _ = _ddc(shape, i + 11, dev)
+        inverse = bool(i % 2)
+        want = (dk.dd_lines_plain(x, inverse) if entry == "lines"
+                else dk.dd_strided_plain(x, inverse))
+        for variant in (dk.DD_POW2, dk.DD_GENERAL):
+            for _ in range(DD_GUARD_REPEATS):
+                y, changed = _dd_guarded(dk, entry, x, inverse, variant, dev)
+                rel = _dd_err(y, want, ("guarded", entry, shape, variant))[1]
+                assert changed == 0, (entry, shape, variant, changed)
+                guarded["launches"] += 1
+                guarded["worst_rel"] = max(guarded["worst_rel"], rel)
+    out["guarded"] = guarded
     torch.cuda.synchronize()
     worst = {}
     for entry in ("lines", "strided"):
@@ -2633,7 +2686,7 @@ def phase_dd_kernels_vs_plain(dk, dev) -> dict:
     worst["pointwise"] = max(r["rel_err"] for r in out["pointwise"])
     _log(f"[dd kernels] {len(out['lines'])} lengths, worst rel_err vs plain "
          f"by instantiation/entry {worst}; a pow2 launch of n = 1144 "
-         f"refused: {refusals}")
+         f"refused: {refusals}; guarded launches {guarded}")
     out["worst"] = worst
     return out
 
@@ -2745,13 +2798,25 @@ def _dd_ops(points: int, n: int) -> float:
     return _fft_ops(points, n) * DD_OP_FLOPS
 
 
+def _dd_instructions(points: int, n: int, table: bool = False) -> float:
+    """fp32 instructions of the nominal dd work: a DFT of n's 5 n log2 n
+    operations are 3 n log2 n adds and 2 n log2 n products (n/2 log2 n
+    radix-2 butterflies of one complex product and two complex adds), at
+    DD_ADD_INSTR and DD_MUL_INSTR instructions; a table's complex product
+    a point is 4 products and 2 adds.  A computed count, not a measured
+    one: the kernel's radix-8 and radix-4 stages do fewer operations."""
+    per_point = math.log2(n) * (3 * DD_ADD_INSTR + 2 * DD_MUL_INSTR)
+    if table:
+        per_point += 4 * DD_MUL_INSTR + 2 * DD_ADD_INSTR
+    return per_point * points
+
+
 def _fp32_issue_per_s() -> float:
     """fp32 instructions the card issues a second: one a lane a clock on
     the 128 fp32 lanes of each SM at the SM clock's maximum
-    (``nvidia-smi --query-gpu=clocks.max.sm``).  A dd operation is
-    DD_OP_FLOPS such instructions (an add is 11 single-flop instructions),
-    so this, not FP32_FLOP_PER_S (which counts an fma as 2), is the
-    arithmetic floor of dd code."""
+    (``nvidia-smi --query-gpu=clocks.max.sm``).  A dd add is 11
+    single-flop instructions, so this, not FP32_FLOP_PER_S (which counts
+    an fma as 2), is the arithmetic floor of dd code."""
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -2763,8 +2828,9 @@ def _fp32_issue_per_s() -> float:
 def phase_dd_times(vt, dd_fft, dk, ck, dev) -> dict:
     """fft_dd's entries at the main path's shapes (held against their
     plain versions there), beside the bound (32 B a point a pass, each
-    table read once; 5 n log2 n dd operations of DD_OP_FLOPS), the issue
-    floor (the same operations over `_fp32_issue_per_s`), the plain time
+    table read once; 5 n log2 n dd operations of DD_OP_FLOPS), the
+    computed issue floor (`_dd_instructions` over `_fp32_issue_per_s`;
+    not a measurement), the plain time
     and torch.fft on complex128 of the same points (cuFFT Z2Z, the same
     function at no less precision, 16 B a point), with the instantiation
     each row runs, its registers and spills (ptxas) and its resident
@@ -2821,15 +2887,18 @@ def phase_dd_times(vt, dd_fft, dk, ck, dev) -> dict:
                    "blocks_per_sm": dk.dd_occupancy(
                        variant, dk.DD_LINES if entry == "lines"
                        else dk.DD_STRIDED, n),
+                   # the first timing of a shape ran up to 60 % slow:
+                   # a whole pass is discarded, and kept beside the time
+                   "ms_discarded_pass": _time_ms(fn),
                    "ms": _time_ms(fn), "bound_ms": bound, "bound_by": by,
-                   "issue_floor_ms": ops / issue * 1e3,
+                   "issue_floor_ms": _dd_instructions(
+                       points, n, bool(kw)) / issue * 1e3,
                    "max_abs_err": err, "rel_err_vs_plain": rel,
                    "plain_ms": _time_ms(plain, reps=3, inner=1, warmup=1),
                    "library_ms": _time_ms(lib),
                    "library": "torch.fft.fft complex128 (cuFFT Z2Z)"}
             row["GBs"] = nbytes / row["ms"] / 1e6
             row["roofline_share"] = bound / row["ms"]
-            row["issue_share"] = row["issue_floor_ms"] / row["ms"]
             _log(f"[time] fft_dd {row}")
             rows.append(row)
             del x, xc
@@ -2848,7 +2917,8 @@ def phase_dd_times(vt, dd_fft, dk, ck, dev) -> dict:
         bound, by = _bound(nbytes, 2 * ops)
         ms = _time_ms(lambda: app.inverse(app.forward(x)))
         host = _host_ms(lambda: app.inverse(app.forward(x)))
-        issue_floor = 2 * ops / issue * 1e3
+        issue_floor = 2 * sum(_dd_instructions(points, m) for m in (
+            shape if nd else shape[1:])) / issue * 1e3
         lib = ((lambda: torch.fft.ifftn(torch.fft.fftn(xc))) if nd else
                (lambda: torch.fft.ifft(torch.fft.fft(xc))))
         row = {"row": name, "shape": list(shape), "launches": want,
@@ -2869,7 +2939,12 @@ def phase_dd_times(vt, dd_fft, dk, ck, dev) -> dict:
     return {"kernels": {"fft_dd": rows}, "e2e": e2e}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", help="comma-separated phase names: run "
+                    "only these and print no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2924,6 +2999,13 @@ def main() -> int:
               ("dd_main_path",
                lambda: phase_dd_main_path(vt, ck, dk, torch_engine, dev)),
               ("dd_times", lambda: phase_dd_times(vt, dd_fft, dk, ck, dev))]
+    only = args.phases.split(",") if args.phases else None
+    if only:
+        unknown = set(only) - {name for name, _ in phases}
+        if unknown:
+            print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)
+            return 2
+        phases = [(name, fn) for name, fn in phases if name in only]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -2937,6 +3019,13 @@ def main() -> int:
         _log(f"[phase] {name} done in {record['phase_s'][name]:.1f} s")
         torch.cuda.empty_cache()
     record["total_s"] = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    if only:
+        with open(os.path.join("chiprun_out", "chip_smoke_phases.json"),
+                  "w") as f:
+            json.dump(record, f, indent=1, default=str)
+        _log(f"[phase] {only} done in {record['total_s']:.1f} s")
+        return 0
 
     # launches over the whole main path: the C2C part and each R2C path,
     # each counted from 0
@@ -3002,7 +3091,6 @@ def main() -> int:
             "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
     record["kernels_line"] = entries
-    os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     print(json.dumps({"kernels": entries}))

@@ -29,9 +29,9 @@
 //             for three 256-thread blocks an SM: 80 registers, no spill;
 //   kGeneral  radices 2, 3, 4, 5, 7, 8, 11, 13: every 13-smooth n; built
 //             for two blocks: 128 registers, no spill.
-// (ptxas for sm_90a; bench_torch_dd.py prints both.)  With every radix in
-// one kernel, each length paid for dft_odd<13> (13 dd points and its
-// sums): 214-216 registers and one block an SM.
+// (ptxas for sm_90a; chip_smoke.py's toolchain phase prints both.)  With
+// every radix in one kernel, each length paid for dft_odd<13> (13 dd
+// points and its sums): 214-216 registers and one block an SM.
 //
 // Bound.  A pass reads and writes each point once, 32 B of planes: 0.0401
 // ms for 2^22 points at 3.35 TB/s.  The other floor is issue: a dd add is
@@ -71,16 +71,6 @@
 
 #include "dd.cuh"
 
-// Resident blocks an SM each instantiation is built for: its register
-// cap (3 blocks of 256 threads: 80; 2: 128).  ptxas spills nothing at
-// these; bench_torch_dd.py builds other caps with -D.
-#ifndef MIN_BLOCKS_POW2
-#define MIN_BLOCKS_POW2 3
-#endif
-#ifndef MIN_BLOCKS_GENERAL
-#define MIN_BLOCKS_GENERAL 2
-#endif
-
 namespace {
 
 using vkdd::dd;
@@ -102,8 +92,11 @@ constexpr int kGeneral = 1;
 constexpr int kLines = 0;
 constexpr int kStrided = 1;
 
+// Resident blocks an SM each instantiation is built for, which sets its
+// register cap (3 blocks of 256 threads: 80 registers; 2: 128).  ptxas
+// spills nothing at these.
 template <int V>
-constexpr int kMinBlocks = V == kPow2 ? MIN_BLOCKS_POW2 : MIN_BLOCKS_GENERAL;
+constexpr int kMinBlocks = V == kPow2 ? 3 : 2;
 
 struct Plan {
   int n;

@@ -25,9 +25,10 @@ point's flat position modulo L.
 
 Each DFT entry has two instantiations (`dd_variant`, the one place the
 choice is made, passes it to the C entry): DD_POW2, whose stages take
-radices 2, 4 and 8 only, for every power of two, built for two resident
-blocks an SM; DD_GENERAL, with the odd radices 3..13, for every other
-length.  `dd_occupancy` reads a kernel's resident blocks an SM on the card.
+radices 2, 4 and 8 only, for every power of two, built for three resident
+blocks an SM; DD_GENERAL, with the odd radices 3..13 too, for every other
+length, built for two.  `dd_occupancy` reads a kernel's resident blocks an
+SM on the card.
 
 The kernel takes every 13-smooth 2 <= n <= 4096 (`use_dd_kernel`): a line
 of 4096 dd points in two shared-memory buffers is 128 KB, which a block
