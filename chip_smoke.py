@@ -35,14 +35,19 @@ Phases (each asserts; any failure exits non-zero before the result line):
   5. lengths of any size: fft_conv, fft_twofactor, fft_conv_inv and
      fft_conv_pair against their plain versions at every third length
      they serve on the routes of the 1-D plans of 5..16384 (and numpy on
-     a subset); every third n in 5..16384, and named ones, through
+     a subset); fft_twofactor also at 113, 134, 7918, 10240, 12288 and
+     16384 in all four forms (both directions, both digit orders), in
+     place, and with its output inside sentinel guards, aligned and not
+     (no write outside the output); every third n in 5..16384, and named ones, through
      vt.fft/vt.ifft against numpy, where none may raise (SWEEP_STRIDE = 1
      takes every length); Rader and Bluestein non-minor axes; rfft/irfft
      of the half-length route;
   6. the reference's sample 7 (n = 10007 Bluestein, 7919 Rader, 10006
      SPLIT, 10240 DIRECT; 64 MiB each) through FFTApplication, each row
      counted from 0 and held to its exact launches, then the four new
-     kernels at those shapes and the rows' round trips timed as in 4;
+     kernels at those shapes (fft_twofactor also at 512 x 16384 and
+     125203 x 67, each row with its registers, spills, layout and
+     resident blocks an SM) and the rows' round trips timed as in 4;
   7. DCT/DST types I-IV: fft_dct23, fft_dct1 and fft_dct4 against their
      plain versions and scipy fp64 at every third length their gates take
      (both flags, non-unit scales); every type of dct/dst/idct/idst at
@@ -121,7 +126,8 @@ each kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 
 --phases runs only the named phases, in their order (say
-toolchain,dd_kernels,dd_times to iterate on fft_dd), writes their record
+toolchain,dd_kernels,dd_times to iterate on fft_dd, or
+toolchain,any_kernels,any_times on fft_twofactor), writes their record
 to chiprun_out/chip_smoke_phases.json and prints no result line.
 """
 from __future__ import annotations
@@ -264,9 +270,9 @@ def phase_toolchain(ck) -> dict:
             log = f.read()
         info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln]
-        if name == "fft_dd":
-            # every instantiation: (kernel, registers, spill stores, loads)
-            info["ptxas_fft_dd_kernels"] = _ptxas_kernels(log)
+        if name in ("fft_dd", "fft_twofactor"):
+            # every kernel: (kernel, registers, spill stores, loads)
+            info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
         _log(f"[toolchain] {k}: {v}")
     return info
@@ -1042,12 +1048,43 @@ def _every_stride(items: list) -> list:
     return picked
 
 
+# fft_twofactor's named lengths: a prime (n2 = 1), a short line several
+# to a block, the Rader 7918 of sample 7's 7919, its DIRECT 10240, 12288
+# and the longest line
+TWOFACTOR_NAMED = (113, 134, 7918, 10240, 12288, 16384)
+TWOFACTOR_GUARD = 1 << 14     # sentinel floats each side of an output
+
+
+def _twofactor_guarded(ck, x, inverse, scale, swapped, offset):
+    """One fft_twofactor launch on planes x, its output planes inside a
+    buffer of sentinel values (TWOFACTOR_GUARD floats on each side, and
+    ``offset`` more floats before: 1 makes them unaligned): (the output,
+    the guard cells the launch changed)."""
+    sentinel, numel = 12345.0, x[0].numel()
+    lead = TWOFACTOR_GUARD + offset
+    buf = torch.full((2, lead + numel + TWOFACTOR_GUARD), sentinel,
+                     device=x[0].device)
+    y = tuple(buf[i, lead:lead + numel].view(x[0].shape) for i in range(2))
+    src = x
+    if offset:
+        # the input unaligned too: a copy at the same offset
+        pad = torch.zeros((2, offset + numel), device=x[0].device)
+        src = tuple(pad[i, offset:].view(x[0].shape) for i in range(2))
+        src[0].copy_(x[0])
+        src[1].copy_(x[1])
+    got = ck.fft_twofactor(*src, inverse, scale, swapped, out=y)
+    changed = (int((buf[:, :lead] != sentinel).sum())
+               + int((buf[:, lead + numel:] != sentinel).sum()))
+    return got, changed
+
+
 def phase_any_kernels_vs_plain(ck, ce, dev) -> dict:
     """fft_conv, fft_twofactor, fft_conv_inv and fft_conv_pair against
     their plain versions at every SWEEP_STRIDE-th length they serve (batch
     2; fft_twofactor cycles through both orders and both directions from
     one length to the next), one odd batch each, and numpy fp64 on a
-    subset."""
+    subset; fft_twofactor at TWOFACTOR_NAMED in every form, in place and
+    guarded."""
     from vkfft_tpu_torch import luts
     served = _served(ce)
     count = {"fft_conv": len(served["conv_rader"]) + len(served["conv_blu"]),
@@ -1112,6 +1149,45 @@ def phase_any_kernels_vs_plain(ck, ce, dev) -> dict:
         check("fft_twofactor", (n, inverse, swapped),
               ck.fft_twofactor(*x, inverse, scale, swapped),
               ck.fft_twofactor_plain(*x, inverse, scale, swapped), want)
+    # fft_twofactor at the named lengths in all four forms, in place, and
+    # with its output inside sentinel guards (planes 16-byte aligned or not)
+    out["fft_twofactor"]["guarded"] = 0
+    out["fft_twofactor"]["blocks_per_sm"] = {}
+    for n in TWOFACTOR_NAMED:
+        out["fft_twofactor"]["blocks_per_sm"][n] = ck.twofactor_occupancy(n)
+        B = 37 if n < 2048 else 5
+        x = planes((B, n), n + 7)
+        spec = np.fft.fft(numpy_of(x))
+        for inverse in (False, True):
+            for swapped in (False, True):
+                scale = 1.0 / n if inverse else 1.0
+                feed = x
+                want = (np.fft.ifft(numpy_of(x)) if inverse else spec)
+                if swapped and inverse:
+                    # a spectrum in swapped order in, x out
+                    n1, n2 = ck.twofactor_split(n)
+                    feed = tuple(t.reshape(B, n1, n2).transpose(1, 2)
+                                 .reshape(B, n).contiguous() for t in x)
+                elif swapped:
+                    want = np.stack([ck.swapped_order(v).ravel()
+                                     for v in spec])
+                what = (n, inverse, swapped)
+                plain = ck.fft_twofactor_plain(*feed, inverse, scale, swapped)
+                check("fft_twofactor", what,
+                      ck.fft_twofactor(*feed, inverse, scale, swapped),
+                      plain, want)
+                inplace = tuple(t.clone() for t in feed)
+                got = ck.fft_twofactor(*inplace, inverse, scale, swapped,
+                                       out=inplace)
+                assert got[0] is inplace[0] and got[1] is inplace[1]
+                check("fft_twofactor", what + ("in place",), got, plain)
+                for offset in (0, 1):
+                    got, changed = _twofactor_guarded(ck, feed, inverse,
+                                                      scale, swapped, offset)
+                    assert changed == 0, (what, offset, changed)
+                    check("fft_twofactor", what + ("guarded", offset), got,
+                          plain)
+                    out["fft_twofactor"]["guarded"] += 1
     # fft_conv_inv: Rader's p-1 with the x0 term, Bluestein's m without
     for i, p in enumerate(served["conv_inv_rader"]):
         B = 33 if i == 0 else 2
@@ -1353,12 +1429,19 @@ def phase_any_times(vt, ck, dev) -> dict:
             "torch_fft_ms": _time_ms(lambda: torch.fft.fft(xc))})
     assert kernels["fft_conv"][-1]["library_rel_err"] <= KERNEL_TOL
     del xr, xi, xc, got
-    # fft_twofactor: the 10240 row (natural both ways), and the 7919 row's
+    # fft_twofactor: the 10240 row (natural both ways), the 7919 row's
     # forward in swapped order on (1059, 7918), whose library call is the
-    # same DFT in natural order
+    # same DFT in natural order, the longest line, 16384, and the shortest
+    # it serves, 67 (30 lines a block), at 64 MiB; each with its registers
+    # and spills (ptxas), its layout and its resident blocks an SM
+    with open(ck.library_path("fft_twofactor")[:-3] + ".log") as f:
+        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
     for n, B, inverse, swapped in ((10240, _sample_7_batch(10240), False, False),
                                    (10240, _sample_7_batch(10240), True, False),
-                                   (7918, _sample_7_batch(7919), False, True)):
+                                   (7918, _sample_7_batch(7919), False, True),
+                                   (16384, _sample_7_batch(16384), False, False),
+                                   (16384, _sample_7_batch(16384), True, False),
+                                   (67, _sample_7_batch(67), False, False)):
         xr, xi = _planes((B, n), n + inverse, dev)
         xc = torch.complex(xr, xi)
         lib = torch.fft.ifft if inverse else torch.fft.fft
@@ -1370,6 +1453,11 @@ def phase_any_times(vt, ck, dev) -> dict:
                else (lambda: lib(xc)),
                {"inverse": inverse, "swapped": swapped,
                 "split": list(ck.twofactor_split(n)),
+                "registers": regs, "spill_bytes": [spill_st, spill_ld],
+                "threads": ck.twofactor_layout(n)[0],
+                "lines_per_block": ck.twofactor_layout(n)[1],
+                "smem_bytes": ck.twofactor_layout(n)[2],
+                "blocks_per_sm": ck.twofactor_occupancy(n),
                 "library": ("torch.fft.fft, natural order (the kernel's "
                             "output is in swapped order)") if swapped
                 else "torch.fft"})

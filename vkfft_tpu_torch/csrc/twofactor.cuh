@@ -1,6 +1,7 @@
-// Two-factor DFT of one line in shared memory, for fft_twofactor.cu
-// (replaces vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2) and
-// fft_conv_inv.cu (replaces :4421 _conv_inv_kernel), built for sm_90a.
+// Two-factor inverse DFT of one line in shared memory, for fft_conv_inv.cu
+// (replaces vkfft_tpu/ops/pallas_engine.py:4421 _conv_inv_kernel), built
+// for sm_90a; fft_twofactor.cu (:897 _fft_kernel_v2) shares its plan
+// checks and runs the same DFT on one copy of the line, in place.
 //
 // A line of n = n1 * n2 <= 16384 points is the (n2, n1) row-major matrix
 // A[j2][j1] = x[j2*n1 + j1].  With output index k = k1*n2 + k2:
@@ -58,51 +59,6 @@ inline size_t twofactor_smem(int n, int s) {
 __device__ __forceinline__ float2 ld2(const float* re, const float* im,
                                       long long g) {
   return make_float2(re[g], im[g]);
-}
-
-// Forward of the line at float offset `base`: natural order in; out in
-// the swapped order [k2][k1] or, with !SWAPPED, natural order.
-template <bool SWAPPED>
-__device__ void twofactor_forward(const float* xr, const float* xi, float* yr,
-                                  float* yi, long long base, const Plan& p1,
-                                  const Plan& p2, const float2* t1,
-                                  const float2* t2, const float2* tw, int s,
-                                  float2* home, float2* s0, float2* s1) {
-  const int n1 = p1.n, n2 = p2.n;
-  const int T1 = min(n1, s / n2);
-  for (int c0 = 0; c0 < n1; c0 += T1) {
-    const int w = min(T1, n1 - c0);
-    // s0[j2*T1 + c] = A[j2][c0 + c]: T1 sequences, strided layout
-    load_tile(xr, xi, base + c0, n1, n2, T1, w, s0);
-    __syncthreads();
-    const float2* res = run_stages<true>(s0, s1, T1, 1, T1, p2, t2);
-    for (int t = threadIdx.x; t < n2 * w; t += blockDim.x) {
-      const int k2 = t / w;
-      const int c = t - k2 * w;
-      const int idx = k2 * n1 + c0 + c;
-      home[idx] = cmul(res[k2 * T1 + c], __ldg(&tw[idx]));
-    }
-    __syncthreads();
-  }
-  const int T2 = min(n2, s / n1);
-  for (int r0 = 0; r0 < n2; r0 += T2) {
-    const int rows = min(T2, n2 - r0);
-    const float2* res = run_stages<false>(home + r0 * n1, s0, rows, n1, 1, p1, t1);
-    if (SWAPPED) {
-      store_tile(res, yr, yi, base + (long long)r0 * n1, n1, rows, n1, n1);
-    } else {
-      // bin k1*n2 + k2: neighbouring threads take neighbouring rows k2
-      for (int t = threadIdx.x; t < rows * n1; t += blockDim.x) {
-        const int k1 = t / rows;
-        const int q = t - k1 * rows;
-        const float2 v = res[q * n1 + k1];
-        const long long g = base + (long long)k1 * n2 + r0 + q;
-        yr[g] = v.x;
-        yi[g] = v.y;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // Inverse of the line at `base`: in swapped order (SWAPPED) or natural

@@ -127,6 +127,16 @@ KERNEL_MAX_PRIME = 64
 # largest DIRECT prime.
 TWOFACTOR_MAX_N = 16384
 TWOFACTOR_TILE = 4096   # vkfft::kTileMax in csrc/twofactor.cuh
+# `fft_twofactor`'s block (csrc/fft_twofactor.cu): at most 512 threads
+# (kThreads), each holding at most 12 points through a stage round, 16
+# outputs of a generic prime stage; the layout aims at 8 points a thread.
+# A line shorter than 2048 points shares its block with others up to 2048
+# points, so no thread idles at short n.  The inter-factor twiddle is two
+# tables, w_n^b for b < 64 (kTwLo) and scale * w_n^(64 a).
+TWOFACTOR_THREADS = 512
+TWOFACTOR_AIM_POINTS = 8
+TWOFACTOR_BLOCK_POINTS = 2048
+TWOFACTOR_TW_LO = 64
 # `fft_conv_pair`: padded Bluestein lengths up to 2^16, a plane of at most
 # PAIR_MAX_BLOCK_BYTES a block over a cluster of up to 16 blocks.
 CONV_PAIR_MAX_M = 1 << 16
@@ -265,7 +275,10 @@ def strided_tw_supports(n: int) -> bool:
 # as a run of ts = min(32, 4096/n) floats (``csrc/fft_strided_tw.cu``),
 # whole 32-byte sectors up to n = 512 and one float a row from n = 4096
 # (0.92 ms); `fft_lines` runs 0.14-0.19 ms to n = 4096 and 0.27 at 8192,
-# `fft_twofactor` 0.49 at 16384 (one block per SM).
+# `fft_twofactor` 0.49 at 16384 (one block per SM).  The kernel redesigned
+# since runs a 16384-point pass over 2^23 points (512 lines) in 0.148 ms
+# (chip_smoke.py any_times on an H100; PERF.md), about 0.30 over 2^24:
+# its weight below (3.0) is not re-fitted yet (ROADMAP).
 # ---------------------------------------------------------------------------
 
 LONG_LINES_MIN = 8     # the contiguous factor: no tensor-op tiny DFT
@@ -596,6 +609,58 @@ def twofactor_twiddle(n: int, inverse: bool, scale: float = 1.0):
     j1 = np.arange(n1, dtype=np.int64)[None, :]
     sign = 2.0j if inverse else -2.0j
     return (np.exp(sign * np.pi / n * ((k2 * j1) % n)) * scale).ravel()
+
+
+@functools.lru_cache(maxsize=256)
+def twofactor_twiddle_pair(n: int, inverse: bool, scale: float = 1.0):
+    """`fft_twofactor`'s inter-factor twiddle as two tables, complex128:
+    w_n^b for b < 64, then scale * w_n^(64 a) for a < ceil(n / 64) (w_n^(-e)
+    for the inverse); the kernel takes w_n^e * scale = hi[e >> 6] *
+    lo[e & 63] for the exponent e = k2 * j1 < n."""
+    sign = 2.0j if inverse else -2.0j
+    lo = np.exp(sign * np.pi / n * np.arange(TWOFACTOR_TW_LO))
+    a = np.arange(-(-n // TWOFACTOR_TW_LO), dtype=np.int64)
+    hi = np.exp(sign * np.pi / n * ((TWOFACTOR_TW_LO * a) % n)) * scale
+    return np.concatenate([lo, hi])
+
+
+def _table_points(n: int) -> int:
+    """Points of a factor's stage table that `fft_twofactor` copies into
+    shared memory (none for the empty plan of a length-1 factor)."""
+    return 0 if n == 1 else len(stage_tables(n, False)[1])
+
+
+@functools.lru_cache(maxsize=4096)
+def twofactor_layout(n: int) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_twofactor` block for
+    length n, the one layout rule (the C entry refuses any other).  A block
+    holds ``lines`` = max(1, 2048 // n) lines, each once as the (n2, n1)
+    matrix with an odd row pitch n1 | 1 in float2, beside both factors'
+    stage tables and the twiddle's two tables; ``threads`` is a multiple
+    of 32 near one thread for 8 points, at most 512."""
+    n1, n2 = twofactor_split(n)
+    lines = max(1, TWOFACTOR_BLOCK_POINTS // n)
+    want = -(-lines * n // TWOFACTOR_AIM_POINTS)
+    threads = min(TWOFACTOR_THREADS, max(32, -(-want // 32) * 32))
+    points = (lines * n2 * (n1 | 1) + _table_points(n1) + _table_points(n2)
+              + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
+    return threads, lines, 8 * points
+
+
+def twofactor_occupancy(n: int) -> int:
+    """Resident blocks an SM of `fft_twofactor` at the layout of length n,
+    from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
+    card (C entry ``vk_fft_twofactor_occupancy``)."""
+    threads, _, smem = twofactor_layout(n)
+    fn = _library("fft_twofactor").vk_fft_twofactor_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(threads, smem, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_fft_twofactor_occupancy({threads}, {smem}) "
+                           f"failed: CUDA error {err}")
+    return blocks.value
 
 
 def _pair_twiddle(nc: int, ns: int):
@@ -1094,7 +1159,9 @@ _ENTRIES = {
     "fft_r2c_pair": {"fft_r2c_pair": "pppqppppii",
                      "fft_c2r_pair": "pppqppppii"},
     "fft_conv": {"fft_conv": "ppppqiiii" + "p" * 6},
-    "fft_twofactor": {"fft_twofactor": "ppppqpppppi"},
+    # planes, batch, plans, tables, the twiddle's two tables, swapped,
+    # then the layout (twofactor_layout): threads, lines, shared bytes
+    "fft_twofactor": {"fft_twofactor": "ppppqpppppiiii"},
     "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8},
     "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "i",
                       "fft_conv2d": "ppppqii" + "p" * 9 + "i"},
@@ -1666,19 +1733,21 @@ def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     CUDA tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``.  Bound
-    by bytes (16 B a point, one read and one write): one block holds a line
-    of up to 16384 points (128 KB) in shared memory and runs the n2-point
-    column DFTs, the twiddle and the n1-point row DFTs on tiles of it
-    (``csrc/fft_twofactor.cu``)."""
+    by bytes (16 B a point, one read and one write): a block holds its
+    lines once each in shared memory (`twofactor_layout`: at most 134 KB,
+    at 16384; two blocks an SM at 7918, 10240 and 12288) and runs the
+    n2-point column DFTs and the n1-point row DFTs in place on the whole
+    line, the twiddle computed from its exponent in the last stage's
+    write (``csrc/fft_twofactor.cu``)."""
     _check_planes(re, im, 2, "fft_twofactor")
     B, n = re.shape
     _check_twofactor(n, "fft_twofactor")
 
     def args():
         p1, p2, t1, t2 = _two_plans(n, inverse, re.device)
-        tw = device_array(("twofactor", n, inverse, scale), re.device,
-                           lambda: twofactor_twiddle(n, inverse, scale))
-        return (B, p1, p2, t1, t2, tw, int(swapped))
+        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
+                           lambda: twofactor_twiddle_pair(n, inverse, scale))
+        return (B, p1, p2, t1, t2, tw, int(swapped), *twofactor_layout(n))
 
     return _apply("fft_twofactor", re, im, out,
                   lambda: fft_twofactor_plain(re, im, inverse, scale, swapped),
