@@ -270,7 +270,7 @@ def phase_toolchain(ck) -> dict:
             log = f.read()
         info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln]
-        if name in ("fft_dd", "fft_twofactor"):
+        if name in ("fft_dd", "fft_twofactor", "fft_lines", "fft_conv_pair"):
             # every kernel: (kernel, registers, spill stores, loads)
             info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
@@ -763,6 +763,18 @@ def phase_real_routes(vt, dev) -> dict:
         z = vt.irfftn(X, s=tuple(shape[a] for a in ax), axes=axes)
         check(f"irfftn {shape} axes {axes}", _host(z), _host(x))
         assert torch.equal(x, keep), ("rfftn changed its input", shape)
+    # an s that crops or zero-pads the complex axes, as numpy's irfftn
+    # does: a crop and a pad on the pair route, both at once in 3-D
+    Xh = np.fft.rfftn(np.random.default_rng(2).standard_normal((5, 24, 40)))
+    for s, axes in (((16, 40), (1, 2)), ((32, 40), (1, 2)),
+                    ((3, 32, 40), (0, 1, 2))):
+        want = np.fft.irfftn(Xh, s=s, axes=axes)
+        Xd = torch.tensor(Xh.astype(np.complex64), device=dev)
+        keep = Xd.clone()
+        got = vt.irfftn(Xd, s=s, axes=axes)
+        assert tuple(got.shape) == want.shape, (s, axes, got.shape)
+        check(f"irfftn s={s} axes {axes}", _host(got), want)
+        assert torch.equal(Xd, keep), "irfftn changed its input"
     for n in (40960, 65542):   # n/2 = 20480, 32771: the long tier
         x = real((2, n))
         X = vt.rfft(x)

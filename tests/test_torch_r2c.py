@@ -430,8 +430,10 @@ def test_real_refusals_and_checks():
     with pytest.raises(NotImplementedError, match="item 8"):
         vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.DST,
                                        zeropad_input=((0, 8),)))
-    with pytest.raises(NotImplementedError, match="crops or pads only"):
-        vt.irfftn(np.zeros((4, 9), np.complex64), s=(6, 16), device="cpu")
+    # an s that crops a complex axis: numpy's answer, not a refusal
+    X = np.fft.rfftn(_real((4, 16), seed=3)).astype(np.complex64)
+    assert _rel(vt.irfftn(X, s=(3, 16), device="cpu"),
+                np.fft.irfftn(X.astype(np.complex128), s=(3, 16))) <= NUMPY_TOL
     with pytest.raises(ValueError):
         ck.fft_c2r(x, x, 16)                   # 16 bins, not 9
     with pytest.raises(ValueError):
@@ -448,6 +450,44 @@ def test_real_refusals_and_checks():
     ck.fft_r2c(x)
     ck.fft_r2c_pair(x.reshape(1, 2, 16))
     assert ck.launches == before
+
+
+@pytest.mark.parametrize("shape,s,axes", [
+    ((6, 9), (4, 16), None),                 # crop the complex axis
+    ((6, 9), (9, 14), None),                 # pad it; crop the real bins
+    ((5, 7, 9), (3, 10, 16), None),          # crop one, pad another
+    ((5, 7, 9), (8, 4, 17), None),           # pad, crop, pad (odd n)
+    ((7, 4, 6), (4, 9, 10), (1, 0, 2)),      # axes not in order
+    ((6, 5, 3), (9, 4), (0, 1)),             # axes not the last ones
+    ((2, 6, 8, 5), (3, 12), (1, 2)),         # a batch axis before
+    ((4, 16, 9), (16, 16), (1, 2)),          # the pair route, unchanged
+    ((4, 20, 9), (16, 16), (1, 2)),          # the pair route after a crop
+    ((4, 12, 9), (16, 16), (1, 2)),          # ... after a pad
+])
+@pytest.mark.parametrize("engine", [None, "cuda"])
+def test_irfftn_crops_and_pads_every_axis_like_numpy(shape, s, axes, engine):
+    """irfftn/irfft2 crop or zero-pad each complex axis at its end to its
+    entry of ``s`` before its inverse, as numpy does, with numpy's 1/N of
+    the output shape, and leave the input unchanged."""
+    rng = np.random.default_rng(sum(shape) + sum(s))
+    X = (rng.standard_normal(shape)
+         + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    want = np.fft.irfftn(X.astype(np.complex128), s=s,
+                         axes=range(len(shape)) if axes is None else axes)
+    Xt = torch.from_numpy(X)
+    keep = Xt.clone()
+    got = vt.irfftn(Xt, s=s, axes=axes, engine=engine)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= NUMPY_TOL
+    assert torch.equal(Xt, keep)
+    if axes is None and len(s) == 2:
+        got2 = vt.irfft2(X, s=s, engine=engine, device="cpu")
+        assert _rel(got2, want) <= NUMPY_TOL
+
+
+def test_irfftn_refuses_an_empty_complex_axis():
+    with pytest.raises(ValueError, match="invalid output lengths"):
+        vt.irfftn(np.ones((4, 9), np.complex64), s=(0, 16), device="cpu")
 
 
 def test_r2c_gates():

@@ -157,6 +157,22 @@ def _fit_bins(p: Planar, h: int) -> Planar:
     return Planar(pad(p.re, (0, h - m)), pad(p.im, (0, h - m)))
 
 
+def _fit_axis(p: Planar, axis: int, n: int) -> Planar:
+    """Crop or zero-pad ``axis`` at its end to n points, as numpy's
+    irfftn does to each complex axis before its inverse; into new planes,
+    so the caller's stay unchanged and the walk owns the result."""
+    m = p.shape[axis]
+    if m == n:
+        return p
+    if m > n:
+        return Planar(p.re.narrow(axis, 0, n).contiguous(),
+                      p.im.narrow(axis, 0, n).contiguous())
+    shape = list(p.shape)
+    shape[axis] = n - m
+    zeros = p.re.new_zeros(shape)
+    return Planar(torch.cat([p.re, zeros], axis), torch.cat([p.im, zeros], axis))
+
+
 def _irfft_last(p: Planar, n: int, eng, norm: float) -> torch.Tensor:
     """Real length-n data along the last axis of half spectrum ``p``: the
     unnormalized inverse times ``norm`` (1/n gives numpy's irfft)."""
@@ -239,21 +255,23 @@ def irfftn(X, s: Optional[Sequence[int]] = None,
            axes: Optional[Sequence[int]] = None,
            engine: Optional[str] = None, device="cuda"):
     """N-D inverse real FFT (numpy ``irfftn``, normalized by 1/N).  ``s``
-    gives the output length of each of ``axes``; the complex axes keep
-    their lengths, so only the last entry may differ from the input's."""
+    gives the output length of each of ``axes``: each complex axis is
+    cropped or zero-padded at its end to its entry before its inverse, the
+    real axis's bins to s[-1] // 2 + 1, as numpy does."""
     p, kind = _spectrum_input(X, device)
     eng = _engine(engine, p)
     ndim = p.ndim
     axes = _axes(axes, ndim)
+    owned = api.owned_by_walk(p.re, p.im)
     if s is None:
         n = 2 * (p.shape[axes[-1]] - 1)
     else:
         if len(s) != len(axes):
             raise ValueError(f"s {tuple(s)} and axes {axes} differ in length")
-        if any(s[i] != p.shape[a] for i, a in enumerate(axes[:-1])):
-            raise NotImplementedError(
-                "irfftn crops or pads only the real axis; the complex axes "
-                "keep their lengths")
+        if any(k < 1 for k in s[:-1]):
+            raise ValueError(f"invalid output lengths {tuple(s)}")
+        for a, k in zip(axes[:-1], s[:-1]):
+            p = _fit_axis(p, a, k)
         n = s[-1]
     if n < 1:
         raise ValueError(f"invalid output length {n}")
@@ -261,7 +279,6 @@ def irfftn(X, s: Optional[Sequence[int]] = None,
     pair = (_pair_ok(eng, p.shape[:-1] + (n,), axes, n)
             and p.shape[-1] == n // 2 + 1)
     rest = [a for a in axes if a < ndim - 2] if pair else axes[:-1]
-    owned = api.owned_by_walk(p.re, p.im)
     for a in rest:
         # unscaled: the 1/N rides the last pass
         p = eng.fft_axis_p(p, a, plan_axis(p.shape[a]), inverse=True,
