@@ -1067,11 +1067,11 @@ TWOFACTOR_NAMED = (113, 134, 7918, 10240, 12288, 16384)
 TWOFACTOR_GUARD = 1 << 14     # sentinel floats each side of an output
 
 
-def _twofactor_guarded(ck, x, inverse, scale, swapped, offset):
-    """One fft_twofactor launch on planes x, its output planes inside a
-    buffer of sentinel values (TWOFACTOR_GUARD floats on each side, and
-    ``offset`` more floats before: 1 makes them unaligned): (the output,
-    the guard cells the launch changed)."""
+def _guarded(call, x, offset):
+    """One launch ``call(*planes, out=...)`` on planes x, its output planes
+    inside a buffer of sentinel values (TWOFACTOR_GUARD floats on each
+    side, and ``offset`` more floats before: 1 makes them unaligned): (the
+    output, the guard cells the launch changed)."""
     sentinel, numel = 12345.0, x[0].numel()
     lead = TWOFACTOR_GUARD + offset
     buf = torch.full((2, lead + numel + TWOFACTOR_GUARD), sentinel,
@@ -1084,10 +1084,23 @@ def _twofactor_guarded(ck, x, inverse, scale, swapped, offset):
         src = tuple(pad[i, offset:].view(x[0].shape) for i in range(2))
         src[0].copy_(x[0])
         src[1].copy_(x[1])
-    got = ck.fft_twofactor(*src, inverse, scale, swapped, out=y)
+    got = call(*src, out=y)
     changed = (int((buf[:, :lead] != sentinel).sum())
                + int((buf[:, lead + numel:] != sentinel).sum()))
     return got, changed
+
+
+def _twofactor_guarded(ck, x, inverse, scale, swapped, offset):
+    """`_guarded` of one fft_twofactor launch."""
+    return _guarded(lambda *p, out: ck.fft_twofactor(
+        *p, inverse, scale, swapped, out=out), x, offset)
+
+
+# fft_conv_pair's named Bluestein lengths (n, in both directions): sample
+# 7's 10007 (m = 32768 = 128 x 256), odd column tiles (m = 8316 = 66 x 126
+# and 10648 = 44 x 242 over 2 blocks), even ones of planes that are not
+# powers of two (16640 = 104 x 160, 19200 = 120 x 160)
+CONV_PAIR_NAMED = (10007, 4127, 5297, 8198, 9413)
 
 
 def phase_any_kernels_vs_plain(ck, ce, dev) -> dict:
@@ -1222,6 +1235,37 @@ def phase_any_kernels_vs_plain(ck, ce, dev) -> dict:
         spec = ck.bluestein_spectrum(n, m, False, 1.0, dev, "swapped")
         check("fft_conv_inv", ("bluestein", n, m), ck.fft_conv_inv(*x, spec),
               ck.fft_conv_inv_plain(*x, spec))
+    # fft_conv_pair at its named lengths in both directions, in place, and
+    # with its output inside sentinel guards (planes 16-byte aligned or not)
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    out["fft_conv_pair"]["guarded"] = 0
+    out["fft_conv_pair"]["layouts"] = {}
+    for n in CONV_PAIR_NAMED:
+        m = plan_axis(n).decomp.bluestein_size
+        out["fft_conv_pair"]["layouts"][n] = {
+            "m": m, "layout": list(ck.conv_pair_layout(m)),
+            "clusters_blocks": list(ck.conv_pair_occupancy(m))}
+        x = planes((5, n), n + 3)
+        for inverse in (False, True):
+            spec = ck.bluestein_spectrum(n, m, inverse, 1.0, dev, "pair")
+            chirp = ck.bluestein_chirp(n, m, inverse, dev)
+            want = (np.fft.ifft(numpy_of(x)) * n if inverse
+                    else np.fft.fft(numpy_of(x)))
+            what = (n, m, inverse)
+            plain = ck.fft_conv_pair_plain(*x, spec, chirp)
+            check("fft_conv_pair", what, ck.fft_conv_pair(*x, spec, chirp),
+                  plain, want)
+            inplace = tuple(t.clone() for t in x)
+            got = ck.fft_conv_pair(*inplace, spec, chirp, out=inplace)
+            assert got[0] is inplace[0] and got[1] is inplace[1]
+            check("fft_conv_pair", what + ("in place",), got, plain)
+            for offset in (0, 1):
+                got, changed = _guarded(
+                    lambda *p, out: ck.fft_conv_pair(*p, spec, chirp,
+                                                     out=out), x, offset)
+                assert changed == 0, (what, offset, changed)
+                check("fft_conv_pair", what + ("guarded", offset), got, plain)
+                out["fft_conv_pair"]["guarded"] += 1
     # fft_conv_pair: every Bluestein n it serves
     for i, (n, m) in enumerate(served["conv_pair"]):
         inverse = bool(i % 2)
@@ -1499,14 +1543,37 @@ def phase_any_times(vt, ck, dev) -> dict:
     spec = ck.bluestein_spectrum(n, m, False, 1.0, dev, "pair")
     chirp = ck.bluestein_chirp(n, m, False, dev)
     xc = torch.complex(xr, xi)
+    with open(ck.library_path("fft_conv_pair")[:-3] + ".log") as f:
+        regs = {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
+    r, st, ld = regs["fft_conv_pair_kernel"]
+
+    def pair_extra(cluster=None):
+        nc, ns, c, threads, smem = ck.conv_pair_layout(m, cluster)
+        clusters, blocks = ck.conv_pair_occupancy(m, cluster)
+        return {"m": m, "plane": [nc, ns], "cluster": c, "threads": threads,
+                "smem_bytes": smem, "registers": r, "spill_bytes": [st, ld],
+                "resident_clusters": clusters, "blocks_per_sm": blocks,
+                "algorithm_ops_ms": blu_ops / FP32_FLOP_PER_S * 1e3}
+
     row_of("fft_conv_pair", (B, n),
            lambda: ck.fft_conv_pair(xr, xi, spec, chirp),
            lambda: ck.fft_conv_pair_plain(xr, xi, spec, chirp),
            16.0 * B * n + 8.0 * (2 * m + n), _fft_ops(B * n, n),
-           lambda: torch.fft.fft(xc),
-           {"m": m, "plane": list(ck.conv_pair_plan(m)),
-            "algorithm_ops_ms": blu_ops / FP32_FLOP_PER_S * 1e3})
-    del xr, xi, xc
+           lambda: torch.fft.fft(xc), pair_extra())
+    # the cluster sweep at m = 32768: every cluster the layout rule allows
+    # (2 blocks would hold 16384 points, above CONV_PAIR_TILE_MAX), timed
+    # in turns up and down, each against the plain version first
+    sweep = [c for c in ck.PAIR_CLUSTERS if m // c <= ck.CONV_PAIR_TILE_MAX]
+    plain = ck.fft_conv_pair_plain(xr, xi, spec, chirp)
+    rows = {c: dict(pair_extra(c), ms=[]) for c in sweep}
+    for c in sweep + sweep[::-1]:
+        fn = lambda: ck.fft_conv_pair(xr, xi, spec, chirp, cluster=c)
+        rows[c]["max_abs_err"] = _errors(fn(), plain, ("fft_conv_pair", c))
+        rows[c]["ms"].append(_time_ms(fn))
+    sweep_rows = list(rows.values())
+    for row in sweep_rows:
+        _log(f"[time] fft_conv_pair cluster sweep {row}")
+    del xr, xi, xc, plain
 
     e2e = []
     for n in SAMPLE_7:
@@ -1535,7 +1602,8 @@ def phase_any_times(vt, ck, dev) -> dict:
         _log(f"[time] e2e {row}")
         e2e.append(row)
         del x, xc
-    return {"kernels": kernels, "e2e": e2e}
+    return {"kernels": kernels, "e2e": e2e,
+            "conv_pair_cluster_sweep": sweep_rows}
 
 
 # ---------------------------------------------------------------------------

@@ -201,7 +201,7 @@ def test_rader_dc_branch_matches_reference(interpret, inverse):
 def test_fft_conv_pair_plain_matches_bluestein_pair(interpret):
     n, B = 10007, 2
     m = plan_axis(n).decomp.bluestein_size
-    assert m == 32768 and ck.conv_pair_plan(m) == (128, 256, 16)
+    assert m == 32768 and ck.conv_pair_plan(m) == (128, 256, 4)
     re, im = _planes((B, n), seed=n)
     got = _c(*ck.fft_conv_pair(*_t(re, im),
                                ck.bluestein_spectrum(n, m, False, 1.0, CPU,

@@ -22,17 +22,30 @@
 // multiply, inverse ns stages, conjugate twiddle, inverse nc stages, crop
 // and chirp).
 //
-// Bound: operations at sample 7's m = 32768 (two m-point FFTs, about
-// 10 m log2 m flops, for 16 n bytes of traffic a line).  Design: m = 32768
-// points are 256 KB, more than one block's shared memory, so a
-// thread-block cluster of C blocks (chosen by the host, as fft_pair's)
-// holds the plane: block `rank` owns the column tile [rank*ns/C, ...) for
-// the column stages and the row tile [rank*nc/C, ...) for the row stages,
-// and the tiles move between blocks over distributed shared memory, as in
-// fft_pair.cu.  Device memory sees one read and one write of the n-point
-// line; the pad never exists there.  Every read of a line precedes the
-// first cluster barrier and every write follows it, so the output may
-// alias the input.
+// Bound: bytes at sample 7's n = 10007 (16 n B of planes a line; the two
+// m = 32768-point FFTs, ~10 m log2 m flops a line, take 0.07 ms at the
+// card's fp32 rate for 838 lines against 0.04 ms of bytes, PERF.md).
+// Design: the m-point plane (256 KB at 32768) is more than one block's
+// shared memory, so a thread-block cluster of C blocks holds it once:
+// block `rank` owns the column tile (all nc rows, columns [rank*ns/C,
+// ...), row-major at pitch ns/C) for the column stages and the row tile
+// (rows [rank*nc/C, ...), all ns columns, at the odd pitch ns | 1) for the
+// row stages, in one buffer.  Each pass runs in place on the stage walk
+// of inplace.cuh with the block's stage tables and the twiddle's two root
+// tables in shared memory; the four-step twiddle (conjugated in the
+// inverse) and the spectrum ride the walk's hook on the last stage of the
+// pass before them, on outputs a thread holds.  The tiles move between
+// the blocks in whole rounds over distributed shared memory: to the row
+// tile each thread pulls its share of every owner's column tile into
+// registers (two points an access where the column tile's width is even),
+// the cluster meets, and it writes them locally; back to the column tile
+// it reads its own row tile and pushes it to the owners after the
+// cluster meets.  cuda_kernels.conv_pair_layout is the one layout rule
+// (the C entry refuses any other): the plane's split, C, the threads (a
+// thread moves at most kXchg points) and the exact shared bytes.  Device
+// memory sees one read and one write of the n-point line; the pad never
+// exists there.  Every read of a line precedes the first cluster barrier
+// and every write follows the last, so the output may alias the input.
 //
 // 2-D mode.  The same body without chirp or twiddle, in the other order:
 // block `rank` reads the row tile [rank*ny/C, ...) of its plane (one
@@ -49,6 +62,7 @@
 // block writes only what it read, so the output may alias the input.
 #include <cooperative_groups.h>
 
+#include "inplace.cuh"
 #include "stockham.cuh"
 
 namespace cg = cooperative_groups;
@@ -60,81 +74,225 @@ using vkfft::cmul;
 
 __device__ __forceinline__ float2 conjf2(float2 a) { return make_float2(a.x, -a.y); }
 
-__global__ void __launch_bounds__(512)
+namespace walk = vkfft::walk;
+
+constexpr int kPairThreads = 512;   // most threads a block
+constexpr int kPairMinBlocks = 2;   // blocks an SM the register budget keeps
+constexpr int kXchg = 16;           // most points a thread moves in an exchange
+
+// The hook of the Bluestein mode's four passes: the four-step twiddle
+// w_m^(row * k) (row = row0 + seq, the sequence's row or column in the
+// plane) from its two root tables, conjugated in the inverse, or the
+// spectrum [row][k] from device memory.
+enum { kHookNone = 0, kHookTwiddle, kHookTwiddleConj, kHookSpectrum };
+
+struct ConvHook {
+  const float2* lo;
+  const float2* hi;
+  const float2* spec;
+  int row0, ns, mode;
+  __device__ __forceinline__ bool on() const { return mode != kHookNone; }
+  __device__ __forceinline__ ConvHook off() const {
+    return {lo, hi, spec, row0, ns, kHookNone};
+  }
+  __device__ __forceinline__ float2 operator()(float2 v, int seq, int k) const {
+    const int row = row0 + seq;
+    if (mode == kHookSpectrum) return cmul(v, __ldg(&spec[row * ns + k]));
+    float2 w = walk::inter_twiddle(row * k, lo, hi);
+    if (mode == kHookTwiddleConj) w.y = -w.y;
+    return cmul(v, w);
+  }
+};
+
+// Column tile -> row tile: point (r, ks) of this block's row tile is
+// point (r0 + r, ks % cols) of owner ks / cols's column tile.  Each thread
+// pulls its points (pairs along ks when cols is even) into registers, the
+// cluster meets (every pull is done), and it writes them at r * Pr + ks.
+__device__ void pull_rows(cg::cluster_group& cluster, float2* buf, int ns,
+                          int rows, int cols, int Pr, int r0) {
+  const int T = blockDim.x;
+  const int tile = rows * ns;
+  cluster.sync();   // every block's columns are done
+  if ((cols & 1) == 0) {
+    const int half = tile >> 1;
+    const walk::Div dns = walk::make_div(ns >> 1), dc = walk::make_div(cols >> 1);
+    float4 v[kXchg / 2];
+    int v0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const int r = walk::quot(p, dns);
+      const int ks2 = p - r * (int)dns.d;        // pair index along the row
+      const int owner = walk::quot(ks2, dc);
+      const float4* src = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(buf, owner));
+      v[j] = src[((r0 + r) * cols >> 1) + ks2 - owner * (int)dc.d];
+    }
+    cluster.sync();   // every pull is done: the column tiles are free
+    v0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const int r = walk::quot(p, dns);
+      const int at = r * Pr + 2 * (p - r * (int)dns.d);
+      if (v0 < half) {
+        buf[at] = make_float2(v[j].x, v[j].y);
+        buf[at + 1] = make_float2(v[j].z, v[j].w);
+      }
+    }
+  } else {
+    const walk::Div dns = walk::make_div(ns), dc = walk::make_div(cols);
+    float2 v[kXchg];
+    int u0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T) {
+      const int u = min(u0, tile - 1);
+      const int r = walk::quot(u, dns);
+      const int ks = u - r * ns;
+      const int owner = walk::quot(ks, dc);
+      const float2* src = cluster.map_shared_rank(buf, owner);
+      v[j] = src[(r0 + r) * cols + ks - owner * cols];
+    }
+    cluster.sync();   // every pull is done: the column tiles are free
+    u0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T) {
+      const int u = min(u0, tile - 1);
+      const int r = walk::quot(u, dns);
+      if (u0 < tile) buf[r * Pr + u - r * ns] = v[j];
+    }
+  }
+  __syncthreads();
+}
+
+// Row tile -> column tile: this block's point (r, ks) goes to point (r0 +
+// r, ks % cols) of owner ks / cols's column tile.  Each thread reads its
+// points into registers, the cluster meets (every row tile is read), it
+// pushes them (pairs when cols is even), and the cluster meets again.
+__device__ void push_columns(cg::cluster_group& cluster, float2* buf, int ns,
+                             int rows, int cols, int Pr, int r0) {
+  const int T = blockDim.x;
+  const int tile = rows * ns;
+  if ((cols & 1) == 0) {
+    const int half = tile >> 1;
+    const walk::Div dns = walk::make_div(ns >> 1), dc = walk::make_div(cols >> 1);
+    float4 v[kXchg / 2];
+    int v0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const int r = walk::quot(p, dns);
+      const int at = r * Pr + 2 * (p - r * (int)dns.d);
+      const float2 a = buf[at], b = buf[at + 1];
+      v[j] = make_float4(a.x, a.y, b.x, b.y);
+    }
+    cluster.sync();   // every row tile is read: the buffers are free
+    v0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const int r = walk::quot(p, dns);
+      const int ks2 = p - r * (int)dns.d;
+      const int owner = walk::quot(ks2, dc);
+      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(buf, owner));
+      if (v0 < half) dst[((r0 + r) * cols >> 1) + ks2 - owner * (int)dc.d] = v[j];
+    }
+  } else {
+    const walk::Div dns = walk::make_div(ns), dc = walk::make_div(cols);
+    float2 v[kXchg];
+    int u0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T) {
+      const int u = min(u0, tile - 1);
+      const int r = walk::quot(u, dns);
+      v[j] = buf[r * Pr + u - r * ns];
+    }
+    cluster.sync();   // every row tile is read: the buffers are free
+    u0 = walk::fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T) {
+      const int u = min(u0, tile - 1);
+      const int r = walk::quot(u, dns);
+      const int ks = u - r * ns;
+      const int owner = walk::quot(ks, dc);
+      float2* dst = cluster.map_shared_rank(buf, owner);
+      if (u0 < tile) dst[(r0 + r) * cols + ks - owner * cols] = v[j];
+    }
+  }
+  cluster.sync();   // every push has landed
+}
+
+// Stage-table lengths of the four plans, in points.
+struct Lens {
+  int cf, sf, si, ci;
+};
+
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
 fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
                      int n, Plan pcf, Plan psf, Plan psi, Plan pci,
                      const float2* tcf, const float2* tsf, const float2* tsi,
                      const float2* tci, const float2* tw, const float2* spec,
-                     const float2* chirp) {
+                     const float2* chirp, Lens len) {
   extern __shared__ __align__(16) float2 smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int nc = pcf.n, ns = psf.n;
-  const int rows = nc / C;       // row tile: rows [r0, r0 + rows), all ns columns
-  const int cols = ns / C;       // column tile: columns [c0, c0 + cols), all nc rows
-  const int count = nc * cols;   // == rows * ns
+  const int nc = pcf.n, ns = psf.n, m = nc * ns;
+  const int rows = nc / C, cols = ns / C, tile = nc * cols;
+  const int Pr = ns | 1;
   const int r0 = rank * rows, c0 = rank * cols;
   const long long base = (long long)(blockIdx.x / C) * n;
-  float2* a = smem;
-  float2* b = smem + count;
-
+  float2* buf = smem;
+  float2* s_cf = buf + rows * Pr;
+  float2* s_sf = s_cf + len.cf;
+  float2* s_si = s_sf + len.sf;
+  float2* s_ci = s_si + len.si;
+  float2* tlo = s_ci + len.ci;
+  float2* thi = tlo + walk::kTwLo;
+  const int ntab = len.cf + len.sf + len.si + len.ci + walk::kTwLo +
+                   (m + walk::kTwLo - 1) / walk::kTwLo;
+  for (int t = threadIdx.x; t < ntab; t += blockDim.x) {
+    int u = t;
+    const float2* src = tcf;
+    if (u >= len.cf) { u -= len.cf; src = tsf;
+      if (u >= len.sf) { u -= len.sf; src = tsi;
+        if (u >= len.si) { u -= len.si; src = tci;
+          if (u >= len.ci) { u -= len.ci; src = tw; } } } }
+    s_cf[t] = __ldg(&src[u]);
+  }
   // 1. the column tile of the padded line, times the chirp
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int kc = t / cols;
-    const int k = kc * ns + c0 + (t - kc * cols);
+  const walk::Div dcols = walk::make_div(cols);
+  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+    const int kc = walk::quot(t, dcols);
+    const int k = kc * ns + c0 + t - kc * cols;
     float2 v = make_float2(0.f, 0.f);
     if (k < n) v = cmul(make_float2(xr[base + k], xi[base + k]), __ldg(&chirp[k]));
-    a[t] = v;
+    buf[t] = v;
   }
   __syncthreads();
-  // 2-3. the nc stages down the columns, then the twiddle w_m^(kc*js)
-  float2* f = vkfft::run_stages<true>(a, b, cols, 1, cols, pcf, tcf);
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int kc = t / cols;
-    f[t] = cmul(f[t], __ldg(&tw[kc * ns + c0 + (t - kc * cols)]));
+  // 2-8. the nc stages down the columns (the twiddle w_m^(kc*js) on their
+  // last), the ns stages along the rows (the spectrum on their last), the
+  // inverse ns stages (the conjugate twiddle on their last), the inverse
+  // nc stages; one call site of run_pass keeps one copy of each stage
+  for (int k = 0; k < 4; ++k) {
+    const bool col = k == 0 || k == 3;
+    if (k == 1) pull_rows(cluster, buf, ns, rows, cols, Pr, r0);
+    if (k == 3) push_columns(cluster, buf, ns, rows, cols, Pr, r0);
+    const walk::Pass g = col ? walk::Pass{cols, 0, 1, cols, dcols}
+                             : walk::Pass{rows, 0, Pr, 1, walk::make_div(rows)};
+    const ConvHook h{tlo, thi, spec, col ? c0 : r0, ns,
+                     k == 0 ? kHookTwiddle
+                            : k == 1 ? kHookSpectrum
+                                     : k == 2 ? kHookTwiddleConj : kHookNone};
+    walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
+                   k == 0 ? s_cf : k == 1 ? s_sf : k == 2 ? s_si : s_ci, h);
   }
-  cluster.sync();   // every block's columns are done
-
-  // gather the row tile out of every block's column tile
-  float2* rt = f == a ? b : a;
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int r = t / ns;
-    const int js = t - r * ns;
-    const int owner = js / cols;
-    const float2* src = cluster.map_shared_rank(f, owner);
-    rt[t] = src[(r0 + r) * cols + js - owner * cols];
-  }
-  cluster.sync();   // every gather is done: the column buffers are free
-
-  // 4-7. the ns stages along the rows, the multiply, the inverse ns
-  // stages and the conjugate twiddle
-  float2* g = vkfft::run_stages<false>(rt, f, rows, ns, 1, psf, tsf);
-  for (int t = threadIdx.x; t < count; t += blockDim.x)
-    g[t] = cmul(g[t], __ldg(&spec[r0 * ns + t]));
-  __syncthreads();
-  float2* h = vkfft::run_stages<false>(g, g == rt ? f : rt, rows, ns, 1, psi, tsi);
-  for (int t = threadIdx.x; t < count; t += blockDim.x)
-    h[t] = cmul(h[t], conjf2(__ldg(&tw[r0 * ns + t])));
-  cluster.sync();   // every block's rows are done
-
-  // gather the column tile out of every block's row tile
-  float2* ct = h == a ? b : a;
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int kc = t / cols;
-    const int owner = kc / rows;
-    const float2* src = cluster.map_shared_rank(h, owner);
-    ct[t] = src[(kc - owner * rows) * ns + c0 + (t - kc * cols)];
-  }
-  cluster.sync();   // every gather is done: the row buffers are free
-
-  // 8-9. the inverse nc stages, then the crop and the chirp
-  const float2* o = vkfft::run_stages<true>(ct, h, cols, 1, cols, pci, tci);
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int jc = t / cols;
-    const int k = jc * ns + c0 + (t - jc * cols);
+  // 9. the crop and the chirp
+  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+    const int jc = walk::quot(t, dcols);
+    const int k = jc * ns + c0 + t - jc * cols;
     if (k < n) {
-      const float2 v = cmul(o[t], __ldg(&chirp[k]));
+      const float2 v = cmul(buf[t], __ldg(&chirp[k]));
       yr[base + k] = v.x;
       yi[base + k] = v.y;
     }
@@ -217,13 +375,11 @@ fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
   vkfft::store_tile(o, yr, yi, base, nz, rows, nz, nz);
 }
 
-// Cluster launch of `kernel` over `batch` planes of `cluster` blocks each,
-// with `smem` bytes of dynamic shared memory a block.
-template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, long long batch, int cluster, int count,
-                   size_t smem, void* stream, Args... args) {
+// The attributes a launch of `kernel` at `smem` dynamic shared bytes and
+// `cluster` blocks a cluster needs.
+template <typename Kernel>
+int cluster_attrs(Kernel kernel, int cluster, size_t smem) {
   if (smem > (size_t)vkfft::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (batch * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -234,9 +390,20 @@ int launch_cluster(Kernel kernel, long long batch, int cluster, int count,
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
+  return 0;
+}
+
+// Cluster launch of `kernel` over `batch` planes of `cluster` blocks of
+// `threads` each, with `smem` bytes of dynamic shared memory a block.
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, long long batch, int cluster, int threads,
+                   size_t smem, void* stream, Args... args) {
+  if (batch * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int err = cluster_attrs(kernel, cluster, smem);
+  if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(batch * cluster), 1, 1);
-  cfg.blockDim = dim3(count > 2048 ? 512 : 256, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
@@ -256,23 +423,54 @@ bool cluster_ok(int cluster, int a, int b) {
           cluster == 16) && a % cluster == 0 && b % cluster == 0;
 }
 
+// Shared bytes of a Bluestein block: its tile at the row pitch ns | 1,
+// the four stage tables and the twiddle's two root tables.
+size_t pair_smem(int nc, int ns, int cluster, const Lens& len) {
+  const int m = nc * ns;
+  return sizeof(float2) *
+         ((size_t)(nc / cluster) * (ns | 1) + len.cf + len.sf + len.si +
+          len.ci + walk::kTwLo + (m + walk::kTwLo - 1) / walk::kTwLo);
+}
+
+// Whether (cluster, threads, smem) is the layout of an (nc, ns) plane
+// (cuda_kernels.conv_pair_layout): every stage's round holds a whole
+// sequence, a thread moves at most kXchg points of an exchange, and the
+// shared bytes are exact.
+bool pair_layout_ok(const Plan& pcf, const Plan& psf, const Plan& psi,
+                    const Plan& pci, int cluster, int threads, int smem,
+                    const Lens& len) {
+  const int nc = pcf.n, ns = psf.n;
+  return cluster_ok(cluster, nc, ns) && threads >= 32 &&
+         threads <= kPairThreads && threads % 32 == 0 &&
+         nc / cluster * ns <= kXchg * threads &&
+         walk::rounds_fit(pcf, threads) && walk::rounds_fit(psf, threads) &&
+         walk::rounds_fit(psi, threads) && walk::rounds_fit(pci, threads) &&
+         smem >= 0 && (size_t)smem == pair_smem(nc, ns, cluster, len) &&
+         smem <= vkfft::kMaxSmemBytes;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  Plans (int form) and stage tables of the nc forward, ns
-// forward, ns inverse and nc inverse runs; `twiddle` the (nc, ns) table
-// w_m^(kc*js); `spectrum` the (nc, ns) table [kc][ks] = FFT_m(b)[ks*nc +
-// kc] * scale / m; `chirp` the n-point chirp, all as interleaved fp32
-// pairs.  `cluster` blocks share each line and must divide nc and ns.
+// success).  Plans (int form) and stage tables (no scale) of the nc
+// forward, ns forward, ns inverse and nc inverse runs; `twiddle` the
+// four-step twiddle's two root tables, 64 points w_m^b then ceil(m / 64)
+// points w_m^(64 a); `spectrum` the (nc, ns) table [kc][ks] = FFT_m(b)[ks*nc
+// + kc] * scale / m; `chirp` the n-point chirp, all as interleaved fp32
+// pairs.  The layout (cuda_kernels.conv_pair_layout): `cluster` blocks a
+// line (1, 2, 4, 8 or 16, dividing nc and ns), `threads` a block and the
+// dynamic shared bytes, exactly; any other layout is refused
+// (cudaErrorInvalidValue).
 int vk_fft_conv_pair(const float* xr, const float* xi, float* yr, float* yi,
                      long long batch, int n, const int* plan_cf,
                      const int* plan_sf, const int* plan_si, const int* plan_ci,
                      const float* table_cf, const float* table_sf,
                      const float* table_si, const float* table_ci,
                      const float* twiddle, const float* spectrum,
-                     const float* chirp, int cluster, void* stream) {
+                     const float* chirp, int cluster, int threads, int smem,
+                     void* stream) {
   Plan pcf, psf, psi, pci;
   if (batch < 1 || !vkfft::plan_from_ints(plan_cf, &pcf) ||
       !vkfft::plan_from_ints(plan_sf, &psf) || !vkfft::plan_from_ints(plan_si, &psi) ||
@@ -285,15 +483,46 @@ int vk_fft_conv_pair(const float* xr, const float* xi, float* yr, float* yi,
   if (n < 1 || n >= m || m > (1 << 16) || twiddle == nullptr ||
       spectrum == nullptr || chirp == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (!cluster_ok(cluster, pcf.n, psf.n)) return (int)cudaErrorInvalidValue;
-  const int count = (int)(m / cluster);
+  const Lens len{walk::table_len(pcf), walk::table_len(psf),
+                 walk::table_len(psi), walk::table_len(pci)};
+  if (!pair_layout_ok(pcf, psf, psi, pci, cluster, threads, smem, len))
+    return (int)cudaErrorInvalidValue;
   return launch_cluster(
-      fft_conv_pair_kernel, batch, cluster, count, 2 * (size_t)count * sizeof(float2),
+      fft_conv_pair_kernel, batch, cluster, threads, (size_t)smem,
       stream, xr, xi, yr, yi, n, pcf, psf, psi, pci,
       reinterpret_cast<const float2*>(table_cf), reinterpret_cast<const float2*>(table_sf),
       reinterpret_cast<const float2*>(table_si), reinterpret_cast<const float2*>(table_ci),
       reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(spectrum),
-      reinterpret_cast<const float2*>(chirp));
+      reinterpret_cast<const float2*>(chirp), len);
+}
+
+// Resident clusters on the card and blocks an SM of the Bluestein kernel
+// at `cluster` blocks of `threads` with `smem` dynamic shared bytes, into
+// *clusters and *blocks.
+int vk_fft_conv_pair_occupancy(int cluster, int threads, int smem,
+                               int* clusters, int* blocks) {
+  if (!cluster_ok(cluster, cluster, cluster) || threads < 32 ||
+      threads > kPairThreads || smem < 0 || clusters == nullptr ||
+      blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int err = cluster_attrs(fft_conv_pair_kernel, cluster, (size_t)smem);
+  if (err) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fft_conv_pair_kernel, threads, (size_t)smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fft_conv_pair_kernel,
+                                             &cfg);
 }
 
 // The 2-D mode; returns as vk_fft_conv_pair.  `batch` planes of (ny, nz)
@@ -319,7 +548,8 @@ int vk_fft_conv2d(const float* xr, const float* xi, float* yr, float* yi,
     return (int)cudaErrorInvalidValue;
   const int count = pyf.n / cluster * pzf.n;
   return launch_cluster(
-      fft_conv2d_kernel, batch, cluster, count, 2 * (size_t)count * sizeof(float2),
+      fft_conv2d_kernel, batch, cluster, count > 2048 ? 512 : 256,
+      2 * (size_t)count * sizeof(float2),
       stream, xr, xi, yr, yi, hp, flags, pzf, pyf, pyi, pzi,
       reinterpret_cast<const float2*>(table_zf), reinterpret_cast<const float2*>(table_yf),
       reinterpret_cast<const float2*>(table_yi), reinterpret_cast<const float2*>(table_zi),

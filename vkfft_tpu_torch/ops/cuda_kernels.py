@@ -137,9 +137,19 @@ TWOFACTOR_THREADS = 512
 TWOFACTOR_AIM_POINTS = 8
 TWOFACTOR_BLOCK_POINTS = 2048
 TWOFACTOR_TW_LO = 64
-# `fft_conv_pair`: padded Bluestein lengths up to 2^16, a plane of at most
-# PAIR_MAX_BLOCK_BYTES a block over a cluster of up to 16 blocks.
+# `fft_conv_pair`'s Bluestein mode (csrc/fft_conv_pair.cu): padded lengths
+# up to 2^16, the plane held once over a cluster of up to 16 blocks, a
+# block at most CONV_PAIR_TILE_MAX points (its exchange moves at most
+# CONV_PAIR_XCHG points a thread, kXchg, at up to 512 threads, kPairThreads)
+# and the cluster the smallest whose blocks hold at most
+# CONV_PAIR_TILE_AIM points (chosen by a sweep of the cluster on the card,
+# PERF.md); the layout aims at 8 points a thread.
 CONV_PAIR_MAX_M = 1 << 16
+CONV_PAIR_THREADS = 512
+CONV_PAIR_XCHG = 16
+CONV_PAIR_TILE_MAX = CONV_PAIR_XCHG * CONV_PAIR_THREADS
+CONV_PAIR_TILE_AIM = 8192
+CONV_PAIR_AIM_POINTS = 8
 _MAX_STAGES = 16  # vkfft::kMaxStages in csrc/stockham.cuh
 # Radices with a butterfly of their own in csrc/stockham.cuh; every other
 # radix reads its roots w_r^k from the table.
@@ -410,11 +420,13 @@ def chirp(n: int, inverse: bool = False) -> Factor:
 
 @functools.lru_cache(maxsize=1024)
 def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
-    """(nc, ns, cluster) of `fft_conv_pair` for a padded Bluestein length
-    m: the line as an (nc, ns) row-major plane, both factors lengths of the
-    stages (`kernel_supports`), as near square as the cluster rule of
-    `fft_pair` (`_cluster`) allows, ns >= nc; None when m > 2^16 or no
-    split fits a cluster."""
+    """(nc, ns, cluster) of `fft_conv_pair`'s Bluestein mode for a padded
+    length m: the line as an (nc, ns) row-major plane, both factors lengths
+    of the stages (`kernel_supports`), ns >= nc, as near square as a
+    cluster allows: the smallest of 1, 2, 4, 8, 16 blocks dividing nc and
+    ns whose blocks hold at most CONV_PAIR_TILE_AIM points, else the
+    smallest whose blocks hold at most CONV_PAIR_TILE_MAX; None when m >
+    2^16 or no split fits a cluster."""
     if m > CONV_PAIR_MAX_M:
         return None
     best = None
@@ -423,10 +435,58 @@ def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
         if nc > ns:
             break
         if kernel_supports(nc) and kernel_supports(ns):
-            c = _cluster(nc, ns)
-            if c is not None:
-                best = (nc, ns, c)
+            fits = [c for c in PAIR_CLUSTERS if nc % c == 0 and ns % c == 0
+                    and m // c <= CONV_PAIR_TILE_MAX]
+            if fits:
+                best = (nc, ns, next((c for c in fits
+                                      if m // c <= CONV_PAIR_TILE_AIM),
+                                     fits[0]))
     return best
+
+
+def conv_pair_layout(m: int, cluster: Optional[int] = None
+                     ) -> tuple[int, int, int, int, int]:
+    """(nc, ns, cluster, threads, shared bytes) of an `fft_conv_pair`
+    Bluestein block for padded length m, the one layout rule (the C entry
+    refuses any other): `conv_pair_plan`'s plane and cluster, or
+    ``cluster`` blocks (1, 2, 4, 8 or 16, dividing nc and ns, at most
+    CONV_PAIR_TILE_MAX points a block) when given; ``threads`` a multiple
+    of 32 near one thread for 8 points of the block's m / cluster, at most
+    512; the block's tile at the row pitch ns | 1, the four stage tables
+    and the four-step twiddle's two root tables."""
+    nc, ns, c = conv_pair_plan(m)
+    if cluster is not None:
+        if (cluster not in PAIR_CLUSTERS or nc % cluster or ns % cluster
+                or m // cluster > CONV_PAIR_TILE_MAX):
+            raise ValueError(f"fft_conv_pair: no layout of m = {m} "
+                             f"({nc} x {ns}) over {cluster} blocks")
+        c = cluster
+    tile = m // c
+    want = -(-tile // CONV_PAIR_AIM_POINTS)
+    threads = min(CONV_PAIR_THREADS, max(32, -(-want // 32) * 32))
+    points = ((nc // c) * (ns | 1) + 2 * _table_points(nc)
+              + 2 * _table_points(ns) + TWOFACTOR_TW_LO
+              + -(-m // TWOFACTOR_TW_LO))
+    return nc, ns, c, threads, 8 * points
+
+
+def conv_pair_occupancy(m: int, cluster: Optional[int] = None
+                        ) -> tuple[int, int]:
+    """(resident clusters on the card, resident blocks an SM) of
+    `fft_conv_pair`'s Bluestein mode at the layout of padded length m, from
+    ``cudaOccupancyMaxActiveClusters`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
+    ``vk_fft_conv_pair_occupancy``)."""
+    _, _, c, threads, smem = conv_pair_layout(m, cluster)
+    fn = _library("fft_conv_pair").vk_fft_conv_pair_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(c, threads, smem, ctypes.byref(clusters), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_fft_conv_pair_occupancy({c}, {threads}, "
+                           f"{smem}) failed: CUDA error {err}")
+    return clusters.value, blocks.value
 
 
 def conv_matrix_supports(n: int, mm: int) -> bool:
@@ -613,7 +673,8 @@ def twofactor_twiddle(n: int, inverse: bool, scale: float = 1.0):
 
 @functools.lru_cache(maxsize=256)
 def twofactor_twiddle_pair(n: int, inverse: bool, scale: float = 1.0):
-    """`fft_twofactor`'s inter-factor twiddle as two tables, complex128:
+    """`fft_twofactor`'s inter-factor twiddle (and, at n = m and no scale,
+    `fft_conv_pair`'s four-step twiddle w_m^(kc*js)) as two tables, complex128:
     w_n^b for b < 64, then scale * w_n^(64 a) for a < ceil(n / 64) (w_n^(-e)
     for the inverse); the kernel takes w_n^e * scale = hi[e >> 6] *
     lo[e & 63] for the exponent e = k2 * j1 < n."""
@@ -661,13 +722,6 @@ def twofactor_occupancy(n: int) -> int:
         raise RuntimeError(f"vk_fft_twofactor_occupancy({threads}, {smem}) "
                            f"failed: CUDA error {err}")
     return blocks.value
-
-
-def _pair_twiddle(nc: int, ns: int):
-    """`fft_conv_pair`'s four-step twiddle w_m^(kc*js) at [kc*ns + js],
-    m = nc*ns (``luts.fourstep_twiddle_full``); the inverse conjugates it
-    in the kernel."""
-    return luts.fourstep_twiddle_full(nc, ns).ravel()
 
 
 # Device copies of the tables, per (what, parameters..., device).
@@ -1163,7 +1217,10 @@ _ENTRIES = {
     # then the layout (twofactor_layout): threads, lines, shared bytes
     "fft_twofactor": {"fft_twofactor": "ppppqpppppiiii"},
     "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8},
-    "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "i",
+    # Bluestein: planes, batch, n, plans, tables, the twiddle's two
+    # tables, spectrum, chirp, then the layout (conv_pair_layout): cluster,
+    # threads, shared bytes
+    "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "iii",
                       "fft_conv2d": "ppppqii" + "p" * 9 + "i"},
     "fft_dct23": {"fft_dct2": "ppqippi", "fft_dct3": "ppqippi"},
     "fft_dct1": {"fft_dct1": "ppqippi"},
@@ -1795,7 +1852,7 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
                   chirp: Optional[torch.Tensor] = None, out=None,
                   conj_data: bool = False, xpow: bool = False,
-                  scale: float = 1.0):
+                  scale: float = 1.0, cluster: Optional[int] = None):
     """A plane held in a thread-block cluster, in one of two modes.
 
     With ``chirp`` (an (n, 2) table), the Bluestein mode: each line of (B,
@@ -1803,7 +1860,8 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     `conv_pair_plan` splits into an (nc, ns) plane: the lines times the
     chirp, zero-padded to m, convolved with the spectrum (an (m, 2) table
     in the plane order, `bluestein_spectrum(..., layout="pair")`), cropped
-    to n and times the chirp again.
+    to n and times the chirp again.  ``cluster`` overrides the layout's
+    cluster (`conv_pair_layout`), to measure another one.
 
     Without, the 2-D mode: each (ny, nz) plane of (B, ny, nz) float32
     planes circularly convolved with a fixed kernel, the inverse 2-D DFT,
@@ -1816,27 +1874,31 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     CUDA tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in
-    both its modes.  Bluestein: bound by operations at m = 32768 (two
-    m-point FFTs a line for n points of traffic); the cluster holds the
-    padded line as a plane, runs the nc and ns stages with the four-step
-    twiddle between them, multiplies and runs the inverse.  2-D: bound by
-    bytes (16 B a point, one read and one write, and the spectrum once a
-    launch); each block reads a row tile, runs the nz stages, gathers a
-    column tile, runs the ny stages, multiplies, and mirrors back.  Tiles
-    move between the blocks over distributed shared memory
-    (``csrc/fft_conv_pair.cu``)."""
+    both its modes.  Bluestein: bound by bytes at sample 7's 10007 (16 B a
+    point of the line, one read and one write; the two m-point FFTs stand
+    apart); the cluster holds the padded line once as a plane, each block
+    running the nc and ns stages in place on its tile with the four-step
+    twiddle and the spectrum on the last stage of the pass before them,
+    the tiles exchanged in whole rounds over distributed shared memory.
+    2-D: bound by bytes (16 B a point, one read and one write, and the
+    spectrum once a launch); each block reads a row tile, runs the nz
+    stages, gathers a column tile, runs the ny stages, multiplies, and
+    mirrors back (``csrc/fft_conv_pair.cu``)."""
     if chirp is None:
+        if cluster is not None:
+            raise ValueError("fft_conv_pair: the 2-D mode takes its cluster "
+                             "from pair_cluster")
         return _fft_conv2d(re, im, spectrum, out, conj_data, xpow, scale)
     _check_planes(re, im, 2, "fft_conv_pair")
     B, n = re.shape
     m = _table_length(spectrum, "fft_conv_pair")
-    plan = conv_pair_plan(m)
-    if plan is None:
+    if conv_pair_plan(m) is None:
         raise NotImplementedError(
             f"fft_conv_pair: a padded length {m} that fits no cluster plane "
             "(m <= 2^16); the engine runs longer Bluestein lengths on the "
             "long tier (cuda_engine.route)")
-    nc, ns, cluster = plan
+    layout = conv_pair_layout(m, cluster)
+    nc, ns = layout[:2]
     _check_table(spectrum, m, re, "fft_conv_pair")
     if not 1 <= n < m:
         raise ValueError(f"fft_conv_pair: lines of {n} points for a padded "
@@ -1853,10 +1915,10 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
         psf, tsf = _plan(ns, False, 1.0, dev)
         psi, tsi = _plan(ns, True, 1.0, dev)
         pci, tci = _plan(nc, True, 1.0, dev)
-        tw = device_array(("pair_twiddle", nc, ns), dev,
-                           lambda: _pair_twiddle(nc, ns))
+        tw = device_array(("twofactor_pair", m, False, 1.0), dev,
+                           lambda: twofactor_twiddle_pair(m, False))
         return (B, n, pcf, psf, psi, pci, tcf, tsf, tsi, tci, tw, spectrum,
-                chirp, cluster)
+                chirp, *layout[2:])
 
     return _apply("fft_conv_pair", re, im, out,
                   lambda: fft_conv_pair_plain(re, im, spectrum, chirp), args)
