@@ -278,6 +278,13 @@ def phase_toolchain(ck) -> dict:
     return info
 
 
+# fft_lines' named lengths: the shortest, odd and prime lines several to a
+# block (one pass), the main path's 256 (one pass), 1024 and 4096 (two
+# factors), and lines of two factors alone in a block (2048, 3591 = 63 *
+# 57, 7175 = 175 * 41, 8192)
+LINES_NAMED = (2, 3, 47, 256, 1024, 2048, 3591, 4096, 7175, 8192)
+
+
 def phase_kernels_vs_plain(ck, dev) -> dict:
     """Each kernel against its plain version (and numpy on a subset)."""
     out = {"fft_lines": [], "fft_strided": [], "fft_pair": []}
@@ -347,6 +354,32 @@ def phase_kernels_vs_plain(ck, dev) -> dict:
                                              / np.abs(want).max())
                 assert row["rel_err_numpy"] <= NUMPY_TOL, row
             out["fft_pair"].append(row)
+    # fft_lines at named lengths (one pass, or two factors where a stage's
+    # sequences do not fit a round), both directions, in place and with its
+    # output inside sentinel guards, aligned and not
+    out["fft_lines_guarded"] = {"launches": 0, "blocks_per_sm": {}}
+    for n in LINES_NAMED:
+        out["fft_lines_guarded"]["blocks_per_sm"][n] = ck.lines_occupancy(n)
+        xr, xi = _planes((37 if n < 2048 else 5, n), n + 11, dev)
+        for inverse in (False, True):
+            scale = 1.0 / n if inverse else 0.5
+            plain = ck.fft_lines_plain(xr, xi, inverse, scale)
+            inplace = (xr.clone(), xi.clone())
+            got = ck.fft_lines(*inplace, inverse, scale, out=inplace)
+            assert got[0] is inplace[0] and got[1] is inplace[1]
+            err = _rel(torch.complex(*got), torch.complex(*plain))
+            assert err <= KERNEL_TOL, ("fft_lines in place", n, inverse, err)
+            for offset in (0, 1):
+                got, changed = _guarded(
+                    lambda *p, out: ck.fft_lines(*p, inverse, scale, out=out),
+                    (xr, xi), offset)
+                err = _rel(torch.complex(*got), torch.complex(*plain))
+                row = {"n": n, "inverse": inverse, "offset": offset,
+                       "split": list(ck.lines_split(n)),
+                       "rel_err_plain": err, "guard_cells_changed": changed}
+                assert changed == 0 and err <= KERNEL_TOL, row
+                out["fft_lines_guarded"]["launches"] += 1
+    _log(f"[kernels] fft_lines guarded: {out['fft_lines_guarded']}")
     # every length the kernels take: lines at all of them, strided at every
     # fifth, alternating directions
     covered = [n for n in range(2, ck.KERNEL_MAX_N + 1) if ck.kernel_supports(n)]
@@ -498,22 +531,52 @@ def phase_times(vt, ck, dev) -> dict:
     _log(f"[time] card: {_smi()}")
     kernels = {name: [] for name in C2C_KERNELS}
     lines_shapes = [(TARGET_BYTES // (8 * n), n) for n in ROWS_1D]
+    with open(ck.library_path("fft_lines")[:-3] + ".log") as f:
+        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+    split_sweep = []
     for B, n in lines_shapes:
         xr, xi = _planes((B, n), n, dev)
-        err = _errors(ck.fft_lines(xr, xi, False),
-                      ck.fft_lines_plain(xr, xi, False), ("fft_lines", B, n))
+        plain = ck.fft_lines_plain(xr, xi, False)
+        err = _errors(ck.fft_lines(xr, xi, False), plain, ("fft_lines", B, n))
         xc = torch.complex(xr, xi)
         nbytes = 16.0 * B * n
         bound, by = _bound(nbytes, _fft_ops(B * n, n))
         ms = _time_ms(lambda: ck.fft_lines(xr, xi, False))
+        threads, lines, smem = ck.lines_layout(n)
         row = {"shape": [B, n], "ms": ms, "GBs": nbytes / ms / 1e6,
                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                "plain_ms": _time_ms(lambda: ck.fft_lines_plain(xr, xi, False),
                                     reps=5, inner=1, warmup=1),
-               "library_ms": _time_ms(lambda: torch.fft.fft(xc, dim=-1))}
+               "library_ms": _time_ms(lambda: torch.fft.fft(xc, dim=-1)),
+               "split": list(ck.lines_split(n)), "threads": threads,
+               "lines_per_block": lines, "smem_bytes": smem,
+               "registers": regs, "spill_bytes": [spill_st, spill_ld],
+               "blocks_per_sm": ck.lines_occupancy(n)}
         _log(f"[time] fft_lines {row}")
         kernels["fft_lines"].append(row)
-        del xr, xi, xc
+        # the layout sweep: one pass and twofactor_split's two factors, at
+        # other lines a block and points a thread, timed in turns (down the
+        # list, then up), each against the plain version first
+        rows = []
+        for split, bp, aim in LINES_SWEEP:
+            v = {"split": [n, 1] if split == "one" else
+                 list(ck.twofactor_split(n)), "block_points": bp, "aim": aim}
+            with _lines_layout_forced(ck, v):
+                threads = ck.lines_layout(n)[0]
+                seen = [(r["split"], r["layout"]) for r in rows]
+                if (all(ck.walk_rounds_fit(m, threads) for m in v["split"])
+                        and (v["split"], list(ck.lines_layout(n))) not in seen):
+                    v.update(shape=[B, n], layout=list(ck.lines_layout(n)),
+                             blocks_per_sm=ck.lines_occupancy(n), ms=[])
+                    rows.append(v)
+        for v in rows + rows[::-1]:
+            with _lines_layout_forced(ck, v):
+                fn = lambda: ck.fft_lines(xr, xi, False)
+                v["max_abs_err"] = _errors(fn(), plain, ("fft_lines", n, v))
+                v["ms"].append(_time_ms(fn))
+        split_sweep += rows
+        _log(f"[time] fft_lines layout sweep n={n}: {rows}")
+        del xr, xi, xc, plain
     for shape in [(1, 256, 65536), (256, 256, 256)]:
         P, n, S = shape
         xr, xi = _planes(shape, n + P, dev)
@@ -582,7 +645,33 @@ def phase_times(vt, ck, dev) -> dict:
     row["vs_torch_fft"] = row["torch_fft_ms"] / ms
     _log(f"[time] e2e {row}")
     e2e.append(row)
-    return {"kernels": kernels, "e2e": e2e}
+    return {"kernels": kernels, "e2e": e2e, "fft_lines_layout_sweep": split_sweep}
+
+
+# fft_lines' layout sweep: (one pass or two factors, LINES_BLOCK_POINTS,
+# LINES_AIM_POINTS); the layouts a length does not fit are left out
+LINES_SWEEP = tuple((split, bp, aim) for split in ("one", "two")
+                    for bp in (2048, 4096) for aim in (16, 32))
+
+
+class _lines_layout_forced:
+    """fft_lines with the split, lines a block and points a thread of
+    layout ``v`` for the time of the block (its layout rule reads
+    `cuda_kernels.lines_split`, LINES_BLOCK_POINTS and LINES_AIM_POINTS)."""
+
+    def __init__(self, ck, v):
+        self.ck, self.v = ck, v
+
+    def __enter__(self):
+        ck, v = self.ck, self.v
+        self.saved = (ck.lines_split, ck.LINES_BLOCK_POINTS,
+                      ck.LINES_AIM_POINTS)
+        ck.lines_split = lambda n: tuple(v["split"])
+        ck.LINES_BLOCK_POINTS, ck.LINES_AIM_POINTS = v["block_points"], v["aim"]
+
+    def __exit__(self, *exc):
+        (self.ck.lines_split, self.ck.LINES_BLOCK_POINTS,
+         self.ck.LINES_AIM_POINTS) = self.saved
 
 
 def _numpy_rel(got, want) -> float:

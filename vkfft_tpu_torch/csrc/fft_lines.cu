@@ -1,40 +1,54 @@
-// fft_lines: batched C2C FFT of contiguous (B, n) fp32 re/im planes,
-// natural order in and out, forward or inverse, scale folded into the
-// stage-0 twiddles.  Replaces vkfft_tpu/ops/pallas_engine.py:1563
+// fft_lines: batched C2C FFT of contiguous (B, n) fp32 re/im planes, n <=
+// 8192 with primes <= 64, natural order in and out, forward or inverse,
+// times a scale.  Replaces vkfft_tpu/ops/pallas_engine.py:1563
 // _fft_kernel_v3 (plain fp32 form: no zero-pad windows, no tl layout).
 //
-// Bound: bytes.  Each point is read once and written once (16 B of planes);
-// at n <= 8192 the FFT's ~5 n log2 n flops are far below the card's fp32
-// rate for those bytes.  Design: a block loads whole lines with coalesced
-// plane reads, runs every stage in shared memory (stockham.cuh), and writes
-// the lines back, so device memory sees one read and one write per point;
-// where n is a multiple of 4 each thread moves float4s (stockham.cuh).
-// Small n packs several lines into a block so that its threads have
-// butterflies to do.  A block reads all its lines before it writes any, so
-// the output may alias the input (in-place passes of an N-D walk).
-#include "stockham.cuh"
+// Bound: bytes.  Each point is read once and written once (16 B of
+// planes); at n <= 8192 the FFT's ~5 n log2 n flops are far below the
+// card's fp32 rate for those bytes.  Design: a block holds its lines once
+// each in shared memory and runs their stages in place on the walk of
+// inplace.cuh (two_factor_block, the body fft_twofactor runs), with the
+// stage tables and the twiddle's two root tables (the scale in them) in
+// shared memory, so device memory sees one read and one write a point.
+// A line is one pass of n-point stages (the second factor 1) wherever
+// every stage's sequences fit one round of the block's threads, else the
+// two factors of cuda_kernels.twofactor_split (a column pass, the
+// twiddle, a row pass): a round holds whole sequences, and a line's last
+// stage is one sequence of n / r butterflies.  A block reads, computes
+// and writes in turn, so what an SM keeps loading is what its blocks hold:
+// the layout (cuda_kernels.lines_layout, checked by the C entry) gives a
+// thread about 32 points, for small blocks many to an SM, and the read
+// goes by cp.async, each float straight to its place with every copy of
+// the block in flight (PERF.md: both measured against the alternatives).
+// Lines shorter than 2048 points share a block.  A block reads all its
+// lines before it writes any, so the output may alias the input (in-place
+// passes of an N-D walk, the long tier).
+#include "inplace.cuh"
+#include "twofactor.cuh"
 
 namespace {
 
 using vkfft::Plan;
+using namespace vkfft::walk;
 
-// Lines per block: about 2048 points of state, at least one line.
-int lines_per_block(int n) { return n >= 2048 ? 1 : 2048 / n; }
+constexpr int kThreads = 512;  // most threads a block
+constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
 
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_lines_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                 long long batch, int lpb, Plan p, const float2* table) {
-  extern __shared__ float2 smem[];
-  const int n = p.n;
-  const long long line0 = (long long)blockIdx.x * lpb;
-  const int lines = (int)min((long long)lpb, batch - line0);
-  const long long base = line0 * n;
-  float2* a = smem;
-  float2* b = smem + lpb * n;
-  vkfft::load_tile(xr, xi, base, n, lines, n, n, a);
-  __syncthreads();
-  const float2* res = vkfft::run_stages<false>(a, b, lines, n, 1, p, table);
-  vkfft::store_tile(res, yr, yi, base, n, lines, n, n);
+                 long long batch, Plan p1, Plan p2, const float2* t1,
+                 const float2* t2, const float2* tw, int lines, int pitch,
+                 int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0, lines,
+                   pitch, len1, len2, true);
+}
+
+int smem_opt_in(size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fft_lines_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace
@@ -42,27 +56,55 @@ fft_lines_kernel(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  `plan` is the int form of vkfft::Plan, `table` the device
-// twiddle table as interleaved (re, im) fp32 pairs.
+// success).  `plan1`/`plan2` are the int forms of the n1- and n2-point
+// plans of n = n1 * n2 (both forward or both inverse; `plan2` the empty
+// plan of length 1 for one pass), `table1`/`table2` their stage tables (no
+// scale) and `twiddle` the twiddle's two tables, 64 points w_n^(+-b) then
+// ceil(n / 64) points scale * w_n^(+-64 a), all as interleaved fp32 pairs.
+// The layout (cuda_kernels.lines_layout): `threads` a block (a multiple of
+// 32 up to 512, enough for a whole sequence of every stage in a round),
+// `lines` a block (lines * n <= 16384) and the dynamic shared bytes, which
+// must be exactly what the layout needs and at most 227 KB; any other
+// layout is refused (cudaErrorInvalidValue).
 int vk_fft_lines(const float* xr, const float* xi, float* yr, float* yi,
-                 long long batch, const int* plan, const float* table,
+                 long long batch, const int* plan1, const int* plan2,
+                 const float* table1, const float* table2,
+                 const float* twiddle, int threads, int lines, int smem,
                  void* stream) {
-  Plan p;
-  if (batch < 1 || !vkfft::plan_from_ints(plan, &p)) return (int)cudaErrorInvalidValue;
-  const int lpb = lines_per_block(p.n);
-  const size_t smem = 2 * (size_t)lpb * p.n * sizeof(float2);
-  if (smem > (size_t)vkfft::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fft_lines_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long blocks = (batch + lpb - 1) / lpb;
+  Plan p1, p2;
+  if (batch < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
+      !vkfft::subplan_from_ints(plan2, &p2))
+    return (int)cudaErrorInvalidValue;
+  const int n = p1.n * p2.n;
+  if (n < 2 || n > vkfft::kMaxN || p1.n < p2.n || p1.inverse != p2.inverse ||
+      threads < 32 || threads > kThreads || threads % 32 != 0 || lines < 1 ||
+      (long long)lines * n > vkfft::kTwoFactorMaxN ||
+      !rounds_fit(p1, threads) || !rounds_fit(p2, threads) || smem < 0 ||
+      (size_t)smem != two_factor_smem(p1, p2, lines) ||
+      smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (batch + lines - 1) / lines;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int threads = lpb * p.n > 2048 ? 512 : 256;
+  const int err = smem_opt_in(smem);
+  if (err) return err;
   fft_lines_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, batch, lpb, p, reinterpret_cast<const float2*>(table));
+      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
+      reinterpret_cast<const float2*>(table2),
+      reinterpret_cast<const float2*>(twiddle), lines, p1.n | 1,
+      table_len(p1), table_len(p2));
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the kernel at `threads` a block and `smem`
+// dynamic shared bytes, into *blocks.
+int vk_fft_lines_occupancy(int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kThreads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fft_lines_kernel, threads, smem);
 }
 
 const char* vk_error_string(int code) {

@@ -48,57 +48,14 @@ using namespace vkfft::walk;
 constexpr int kThreads = 512;  // most threads a block
 constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
 
-__device__ __forceinline__ Map make_map(int n, int lines_stride, bool transposed,
-                                        int n1, int n2, int P) {
-  return transposed ? Map{make_div(n), make_div(n2), lines_stride, 1, P}
-                    : Map{make_div(n), make_div(n1), lines_stride, P, 1};
-}
-
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_twofactor_kernel(const float* xr, const float* xi, float* yr, float* yi,
                      long long batch, Plan p1, Plan p2, const float2* t1,
                      const float2* t2, const float2* tw, int swapped,
                      int lines, int pitch, int len1, int len2) {
   extern __shared__ __align__(16) float2 smem[];
-  const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
-  const int S = n2 * pitch;
-  const long long line0 = (long long)blockIdx.x * lines;
-  const int nl = (int)min((long long)lines, batch - line0);
-  const long long g0 = line0 * n;
-  float2* home = smem;
-  float2* s1 = home + lines * S;
-  float2* s2 = s1 + len1;
-  float2* tlo = s2 + len2;
-  float2* thi = tlo + kTwLo;
-  const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
-  for (int t = threadIdx.x; t < ntab; t += blockDim.x)
-    s1[t] = t < len1 ? __ldg(&t1[t])
-                     : t < len1 + len2 ? __ldg(&t2[t - len1])
-                                       : __ldg(&tw[t - len1 - len2]);
-  const bool inverse = p1.inverse != 0;
-  load_lines(xr, xi, g0, nl * n,
-             make_map(n, S, inverse && !swapped, n1, n2, pitch), home);
-  __syncthreads();
-  // The forward runs the column pass (n2-point DFTs), then the row pass
-  // (n1-point DFTs); the inverse the other way round.  One call site of
-  // run_pass keeps one copy of each stage in the kernel.
-  for (int k = 0; k < 2; ++k) {
-    const bool row = (k == 0) == inverse;
-    const Pass g = row ? Pass{nl * n2, S, pitch, 1, make_div(n2)}
-                       : Pass{nl * n1, S, 1, pitch, make_div(n1)};
-    const bool fuse = inverse ? row : row == (n2 == 1);
-    run_pass(home, g, row ? p1 : p2, row ? s1 : s2,
-             InterTwiddle{fuse ? tlo : nullptr, thi});
-  }
-  store_lines(home, make_map(n, S, !inverse && !swapped, n1, n2, pitch), yr,
-              yi, g0, nl * n);
-}
-
-size_t smem_bytes(const Plan& p1, const Plan& p2, int lines) {
-  const int n = p1.n * p2.n;
-  return sizeof(float2) *
-         ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) + table_len(p2) +
-          kTwLo + (n + kTwLo - 1) / kTwLo);
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, swapped,
+                   lines, pitch, len1, len2);
 }
 
 int smem_opt_in(size_t smem) {
@@ -137,7 +94,7 @@ int vk_fft_twofactor(const float* xr, const float* xi, float* yr, float* yi,
       p1.inverse != p2.inverse || threads < 32 || threads > kThreads ||
       threads % 32 != 0 || lines < 1 || (long long)lines * n > vkfft::kTwoFactorMaxN ||
       !rounds_fit(p1, threads) || !rounds_fit(p2, threads) ||
-      smem < 0 || (size_t)smem != smem_bytes(p1, p2, lines) ||
+      smem < 0 || (size_t)smem != two_factor_smem(p1, p2, lines) ||
       smem > vkfft::kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (batch + lines - 1) / lines;

@@ -29,6 +29,9 @@
 // (a line's unaligned head and tail as single floats), through a Map from
 // a point to its place in shared memory; a thread's four points go in an
 // order rotated by its lane, so a warp's accesses fall on distinct banks.
+// two_factor_block is the whole body of a block of lines on the walk, as
+// the two-factor DFT (a column pass, the twiddle, a row pass), which
+// fft_twofactor and fft_lines share.
 #pragma once
 
 #include "stockham.cuh"
@@ -97,16 +100,6 @@ struct NoHook {
   __device__ __forceinline__ NoHook off() const { return *this; }
   __device__ __forceinline__ float2 operator()(float2 v, int, int) const {
     return v;
-  }
-};
-
-// fft_lines' scale.
-struct Scale {
-  float s;
-  __device__ __forceinline__ bool on() const { return s != 1.f; }
-  __device__ __forceinline__ Scale off() const { return {1.f}; }
-  __device__ __forceinline__ float2 operator()(float2 v, int, int) const {
-    return make_float2(v.x * s, v.y * s);
   }
 };
 
@@ -423,6 +416,29 @@ __device__ void load_lines(const float* xr, const float* xi, long long g0,
   }
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// load_lines by cp.async: each float copied from device memory straight
+// to its place, every copy of the block in flight at once and none held
+// in a register; returns when this thread's copies have landed (a barrier
+// then shows them to the block).
+__device__ void load_lines_async(const float* xr, const float* xi,
+                                 long long g0, int count, const Map& mp,
+                                 float2* home) {
+  const float* r0 = xr + g0;
+  const float* i0 = xi + g0;
+  for (int u = threadIdx.x; u < count; u += blockDim.x) {
+    float* d = reinterpret_cast<float*>(home + position(u, mp));
+    cp_async4(d, r0 + u);
+    cp_async4(d + 1, i0 + u);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // The inverse of load_lines.
 __device__ void store_lines(const float2* home, const Map& mp, float* yr,
                             float* yi, long long g0, int count) {
@@ -449,6 +465,76 @@ __device__ void store_lines(const float2* home, const Map& mp, float* yr,
     r0[u] = v.x;
     i0[u] = v.y;
   }
+}
+
+// Where the lines' points sit for a copy: the (n2, n1) row-major matrix
+// of each line at pitch P (transposed: the natural order of its spectrum,
+// point k1 * n2 + k2 at [k2][k1]).
+__device__ __forceinline__ Map make_map(int n, int lines_stride, bool transposed,
+                                        int n1, int n2, int P) {
+  return transposed ? Map{make_div(n), make_div(n2), lines_stride, 1, P}
+                    : Map{make_div(n), make_div(n1), lines_stride, P, 1};
+}
+
+// The two-factor DFT (twofactor.cuh's contract) of the `lines` lines of
+// n = n1 * n2 points from line blockIdx.x * lines on, each held once in
+// `smem` as the (n2, n1) row-major matrix A[j2][j1] at the odd pitch P =
+// n1 | 1, beside the factors' stage tables (len1, len2 points, no scale)
+// and the inter-factor twiddle's two tables, all copied in first.  The
+// forward runs the column pass (n2-point DFTs, the twiddle on its last
+// stage; on the row pass's when n2 = 1, where it is the scale), then the
+// row pass (n1-point DFTs), from natural order to natural (store
+// transposed) or swapped order; the inverse the other way round.  A block
+// reads all of its lines before it writes, so the output may alias the
+// input.  fft_twofactor and fft_lines run it.
+__device__ __forceinline__ void two_factor_block(
+    float2* smem, const float* xr, const float* xi, float* yr, float* yi,
+    long long batch, const Plan& p1, const Plan& p2, const float2* t1,
+    const float2* t2, const float2* tw, int swapped, int lines, int pitch,
+    int len1, int len2, bool async_load = false) {
+  const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
+  const int S = n2 * pitch;
+  const long long line0 = (long long)blockIdx.x * lines;
+  const int nl = (int)min((long long)lines, batch - line0);
+  const long long g0 = line0 * n;
+  float2* home = smem;
+  float2* s1 = home + lines * S;
+  float2* s2 = s1 + len1;
+  float2* tlo = s2 + len2;
+  float2* thi = tlo + kTwLo;
+  const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
+  for (int t = threadIdx.x; t < ntab; t += blockDim.x)
+    s1[t] = t < len1 ? __ldg(&t1[t])
+                     : t < len1 + len2 ? __ldg(&t2[t - len1])
+                                       : __ldg(&tw[t - len1 - len2]);
+  const bool inverse = p1.inverse != 0;
+  const Map in = make_map(n, S, inverse && !swapped, n1, n2, pitch);
+  if (async_load)
+    load_lines_async(xr, xi, g0, nl * n, in, home);
+  else
+    load_lines(xr, xi, g0, nl * n, in, home);
+  __syncthreads();
+  // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
+  const bool twiddled = n2 > 1 || thi[0].x != 1.f || thi[0].y != 0.f;
+  // One call site of run_pass keeps one copy of each stage in the kernel.
+  for (int k = 0; k < 2; ++k) {
+    const bool row = (k == 0) == inverse;
+    const Pass g = row ? Pass{nl * n2, S, pitch, 1, make_div(n2)}
+                       : Pass{nl * n1, S, 1, pitch, make_div(n1)};
+    const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
+    run_pass(home, g, row ? p1 : p2, row ? s1 : s2,
+             InterTwiddle{fuse ? tlo : nullptr, thi});
+  }
+  store_lines(home, make_map(n, S, !inverse && !swapped, n1, n2, pitch), yr,
+              yi, g0, nl * n);
+}
+
+// Shared bytes of two_factor_block's `lines` lines and tables.
+inline size_t two_factor_smem(const Plan& p1, const Plan& p2, int lines) {
+  const int n = p1.n * p2.n;
+  return sizeof(float2) *
+         ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) + table_len(p2) +
+          kTwLo + (n + kTwLo - 1) / kTwLo);
 }
 
 }  // namespace walk

@@ -137,6 +137,13 @@ TWOFACTOR_THREADS = 512
 TWOFACTOR_AIM_POINTS = 8
 TWOFACTOR_BLOCK_POINTS = 2048
 TWOFACTOR_TW_LO = 64
+# The in-place walk's rounds (csrc/inplace.cuh): a thread holds at most
+# WALK_POINTS points of a fixed-radix stage (kPoints) or WALK_GENERIC_POINTS
+# outputs of a generic one (kGenericPoints), and a round holds whole
+# sequences.  `fft_lines` takes the block rule of `fft_twofactor`.
+WALK_POINTS = 12
+WALK_GENERIC_POINTS = 16
+_WALK_FIXED_RADICES = (2, 3, 4, 5, 7, 8)
 # `fft_conv_pair`'s Bluestein mode (csrc/fft_conv_pair.cu): padded lengths
 # up to 2^16, the plane held once over a cluster of up to 16 blocks, a
 # block at most CONV_PAIR_TILE_MAX points (its exchange moves at most
@@ -691,6 +698,86 @@ def _table_points(n: int) -> int:
     return 0 if n == 1 else len(stage_tables(n, False)[1])
 
 
+def walk_rounds_fit(n: int, threads: int) -> bool:
+    """Whether ``threads`` hold a whole sequence of every stage of an
+    n-point Stockham run in one round of the in-place walk (``rounds_fit``
+    in ``csrc/inplace.cuh``); the empty run of n = 1 always fits."""
+    if n == 1:
+        return True
+    for r in stage_radices(n):
+        if r in _WALK_FIXED_RADICES:
+            if (WALK_POINTS // r) * threads < n // r:
+                return False
+        elif WALK_GENERIC_POINTS * threads < n:
+            return False
+    return True
+
+
+def _block_threads(points: int, aim: int = TWOFACTOR_AIM_POINTS) -> int:
+    """Threads of a walk block of ``points`` points: a multiple of 32 near
+    one thread for ``aim`` of them, at most 512."""
+    want = -(-points // aim)
+    return min(TWOFACTOR_THREADS, max(32, -(-want // 32) * 32))
+
+
+# `fft_lines`' block (csrc/fft_lines.cu): lines shorter than
+# LINES_BLOCK_POINTS share a block up to that many points, a thread for
+# about LINES_AIM_POINTS of them: small blocks, many to an SM, so more of
+# each SM's data is in flight (chip_smoke.py's layout sweep, PERF.md).
+LINES_BLOCK_POINTS = 2048
+LINES_AIM_POINTS = 32
+
+
+def _lines_block(n: int) -> tuple[int, int]:
+    """(threads, lines) of an `fft_lines` block for length n."""
+    lines = max(1, LINES_BLOCK_POINTS // n)
+    return _block_threads(lines * n, LINES_AIM_POINTS), lines
+
+
+def lines_split(n: int) -> tuple[int, int]:
+    """(n1, n2) of `fft_lines` for length n: (n, 1), one pass of n-point
+    stages, wherever every stage's sequences fit one round of the block's
+    threads (`walk_rounds_fit`), else the two factors of `twofactor_split`:
+    a line's last stage is one sequence of n / r butterflies."""
+    if walk_rounds_fit(n, _lines_block(n)[0]):
+        return n, 1
+    return twofactor_split(n)
+
+
+def lines_layout(n: int) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_lines` block for length
+    n, the one layout rule (the C entry refuses any other): ``lines`` =
+    max(1, LINES_BLOCK_POINTS // n) lines a block, a multiple of 32
+    threads near one for LINES_AIM_POINTS points, at most 512, and the
+    split of `lines_split`, each line once as the (n2, n1) matrix at the
+    odd pitch n1 | 1, beside both factors' stage tables and the twiddle's
+    two tables."""
+    n1, n2 = lines_split(n)
+    threads, lines = _lines_block(n)
+    points = (lines * n2 * (n1 | 1) + _table_points(n1) + _table_points(n2)
+              + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
+    return threads, lines, 8 * points
+
+
+def lines_occupancy(n: int) -> int:
+    """Resident blocks an SM of `fft_lines` at the layout of length n, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
+    (C entry ``vk_fft_lines_occupancy``)."""
+    return _occupancy("fft_lines", *lines_layout(n)[::2])
+
+
+def _occupancy(name: str, threads: int, smem: int) -> int:
+    fn = getattr(_library(name), f"vk_{name}_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(threads, smem, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_{name}_occupancy({threads}, {smem}) "
+                           f"failed: CUDA error {err}")
+    return blocks.value
+
+
 @functools.lru_cache(maxsize=4096)
 def twofactor_layout(n: int) -> tuple[int, int, int]:
     """(threads, lines, shared bytes) of an `fft_twofactor` block for
@@ -701,27 +788,16 @@ def twofactor_layout(n: int) -> tuple[int, int, int]:
     of 32 near one thread for 8 points, at most 512."""
     n1, n2 = twofactor_split(n)
     lines = max(1, TWOFACTOR_BLOCK_POINTS // n)
-    want = -(-lines * n // TWOFACTOR_AIM_POINTS)
-    threads = min(TWOFACTOR_THREADS, max(32, -(-want // 32) * 32))
     points = (lines * n2 * (n1 | 1) + _table_points(n1) + _table_points(n2)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
-    return threads, lines, 8 * points
+    return _block_threads(lines * n), lines, 8 * points
 
 
 def twofactor_occupancy(n: int) -> int:
     """Resident blocks an SM of `fft_twofactor` at the layout of length n,
     from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
     card (C entry ``vk_fft_twofactor_occupancy``)."""
-    threads, _, smem = twofactor_layout(n)
-    fn = _library("fft_twofactor").vk_fft_twofactor_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    blocks = ctypes.c_int(0)
-    err = fn(threads, smem, ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"vk_fft_twofactor_occupancy({threads}, {smem}) "
-                           f"failed: CUDA error {err}")
-    return blocks.value
+    return _occupancy("fft_twofactor", *twofactor_layout(n)[::2])
 
 
 # Device copies of the tables, per (what, parameters..., device).
@@ -1206,7 +1282,9 @@ _LIBS: dict = {}
 # C entry points of each library and their arguments before the stream
 # (p: pointer, q: 64-bit int, i: int, f: float).
 _ENTRIES = {
-    "fft_lines": {"fft_lines": "ppppqpp"},
+    # planes, batch, plans, tables, the twiddle's two tables, then the
+    # layout (lines_layout): threads, lines, shared bytes
+    "fft_lines": {"fft_lines": "ppppqpppppiii"},
     "fft_strided": {"fft_strided": "ppppqqpp"},
     "fft_pair": {"fft_pair": "ppppqppppi"},
     "fft_r2c": {"fft_r2c": "pppqippi", "fft_c2r": "pppqippi"},
@@ -1368,16 +1446,22 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     kernel on the current stream.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``.  Bound
-    by bytes (16 B a point, read once and written once); the kernel keeps
-    every stage of ⌊2048/n⌋ lines in shared memory, so device memory sees
-    only that traffic (``csrc/fft_lines.cu``)."""
+    by bytes (16 B a point, read once and written once); a block holds its
+    lines once each in shared memory (`lines_layout`) and runs their stages
+    in place on the walk of ``csrc/inplace.cuh``, as one pass or, where a
+    stage's sequences do not fit a round, two factors (`lines_split`), so
+    device memory sees only that traffic (``csrc/fft_lines.cu``)."""
     _check_planes(re, im, 2, "fft_lines")
     B, n = re.shape
     _check_length(n)
 
     def args():
-        plan, table = _plan(n, inverse, scale, re.device)
-        return (B, plan, table)
+        n1, n2 = lines_split(n)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device)
+        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
+                           lambda: twofactor_twiddle_pair(n, inverse, scale))
+        return (B, p1, p2, t1, t2, tw, *lines_layout(n))
 
     return _apply("fft_lines", re, im, out,
                   lambda: fft_lines_plain(re, im, inverse, scale), args)
