@@ -8,11 +8,14 @@ Phases (each asserts; any failure exits non-zero before the result line):
   2. each kernel against its plain torch version on the card (<= 1e-5 of
      max|ref|), at every length the kernels take (the real kernels at
      every even n whose n/2 they take, up to 16384, alternating direction
-     and layout), and on a subset against numpy fp64 (<= 5e-6); then the
+     and layout), and on a subset against numpy fp64 (<= 5e-6); fft_lines
+     also at named lengths in both directions, in place and with its
+     output inside sentinel guards; then the
      API's other routes (axis subsets, odd, tiny and length-1 axes, complex
      tensors, the real transforms' merged, tiny and explicit-n routes, the
-     numpy rule for Im(DC/Nyquist), inputs left unchanged, long-tier
-     lengths that once were refused);
+     numpy rule for Im(DC/Nyquist), irfftn with an s that crops or pads
+     the complex axes, inputs left unchanged, long-tier lengths that once
+     were refused);
   3. the main path at full width, each part with the launch counters set
      to 0 just before it and read just after: C2C through FFTApplication,
      batched 1-D at n = 256, 1024, 4096 with 128 MB of planar data each
@@ -30,15 +33,18 @@ Phases (each asserts; any failure exits non-zero before the result line):
      back-to-back calls): each kernel at the main path's shapes (the
      strided kernel also on the real cube's (1, 256, 33024) half spectrum,
      both directions), held against its plain version there (<= 1e-5 of
-     max|ref|), and each end-to-end round trip, beside the HBM-bandwidth
-     bound and the torch.fft time of the same function;
+     max|ref|; fft_lines with its registers, spills, layout and blocks an
+     SM, and a sweep of its layouts), and each end-to-end round trip,
+     beside the HBM-bandwidth bound and the torch.fft time of the same
+     function;
   5. lengths of any size: fft_conv, fft_twofactor, fft_conv_inv and
      fft_conv_pair against their plain versions at every third length
      they serve on the routes of the 1-D plans of 5..16384 (and numpy on
      a subset); fft_twofactor also at 113, 134, 7918, 10240, 12288 and
      16384 in all four forms (both directions, both digit orders), in
      place, and with its output inside sentinel guards, aligned and not
-     (no write outside the output); every third n in 5..16384, and named ones, through
+     (no write outside the output), fft_conv_pair likewise at
+     CONV_PAIR_NAMED in both directions; every third n in 5..16384, and named ones, through
      vt.fft/vt.ifft against numpy, where none may raise (SWEEP_STRIDE = 1
      takes every length); Rader and Bluestein non-minor axes; rfft/irfft
      of the half-length route;
@@ -47,7 +53,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
      counted from 0 and held to its exact launches, then the four new
      kernels at those shapes (fft_twofactor also at 512 x 16384 and
      125203 x 67, each row with its registers, spills, layout and
-     resident blocks an SM) and the rows' round trips timed as in 4;
+     resident blocks an SM; fft_conv_pair with its registers, spills,
+     layout, resident clusters and blocks an SM, and the sweep of its
+     cluster at m = 32768) and the rows' round trips timed as in 4;
   7. DCT/DST types I-IV: fft_dct23, fft_dct1 and fft_dct4 against their
      plain versions and scipy fp64 at every third length their gates take
      (both flags, non-unit scales); every type of dct/dst/idct/idst at
@@ -126,8 +134,9 @@ each kernel, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 
 --phases runs only the named phases, in their order (say
-toolchain,dd_kernels,dd_times to iterate on fft_dd, or
-toolchain,any_kernels,any_times on fft_twofactor), writes their record
+toolchain,dd_kernels,dd_times to iterate on fft_dd,
+toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair, or
+toolchain,kernels,times,long_kernels,long_times on fft_lines), writes their record
 to chiprun_out/chip_smoke_phases.json and prints no result line.
 """
 from __future__ import annotations
@@ -558,14 +567,17 @@ def phase_times(vt, ck, dev) -> dict:
         # other lines a block and points a thread, timed in turns (down the
         # list, then up), each against the plain version first
         rows = []
-        for split, bp, aim in LINES_SWEEP:
+        for split, bp, aim, r16 in LINES_SWEEP:
             v = {"split": [n, 1] if split == "one" else
-                 list(ck.twofactor_split(n)), "block_points": bp, "aim": aim}
+                 list(ck.twofactor_split(n)), "block_points": bp, "aim": aim,
+                 "radix16": r16}
             with _lines_layout_forced(ck, v):
                 threads = ck.lines_layout(n)[0]
-                seen = [(r["split"], r["layout"]) for r in rows]
-                if (all(ck.walk_rounds_fit(m, threads) for m in v["split"])
-                        and (v["split"], list(ck.lines_layout(n))) not in seen):
+                seen = [(r["split"], r["layout"], r["radix16"]) for r in rows]
+                if (all(ck.walk_rounds_fit(m, threads, r16)
+                        for m in v["split"])
+                        and (v["split"], list(ck.lines_layout(n)), r16)
+                        not in seen):
                     v.update(shape=[B, n], layout=list(ck.lines_layout(n)),
                              blocks_per_sm=ck.lines_occupancy(n), ms=[])
                     rows.append(v)
@@ -649,15 +661,41 @@ def phase_times(vt, ck, dev) -> dict:
 
 
 # fft_lines' layout sweep: (one pass or two factors, LINES_BLOCK_POINTS,
-# LINES_AIM_POINTS); the layouts a length does not fit are left out
-LINES_SWEEP = tuple((split, bp, aim) for split in ("one", "two")
-                    for bp in (2048, 4096) for aim in (16, 32))
+# LINES_AIM_POINTS, WALK_RADIX16); the layouts a length does not fit are
+# left out
+LINES_SWEEP = tuple((split, bp, aim, r16) for split in ("one", "two")
+                    for bp in (2048, 4096) for aim in (16, 32)
+                    for r16 in (False, True))
+
+
+class _conv_pair_plane_forced:
+    """fft_conv_pair's Bluestein mode with the plane ``plane`` at padded
+    length m, and radix-16 stages or not, for the time of the block (its
+    layout rule and the spectrum's plane order read
+    `cuda_kernels.conv_pair_plan` and WALK_RADIX16; the cached device
+    tables are dropped on the way in and out)."""
+
+    def __init__(self, ck, m, plane, radix16):
+        self.ck, self.m, self.plane, self.radix16 = ck, m, plane, radix16
+
+    def __enter__(self):
+        ck, rule = self.ck, self.ck.conv_pair_plan
+        self.saved = (rule, ck.WALK_RADIX16)
+        ck.conv_pair_plan = lambda m: (
+            self.plane + (rule(m)[2],) if m == self.m else rule(m))
+        ck.WALK_RADIX16 = self.radix16
+        ck._DEVICE_TABLES.clear()
+
+    def __exit__(self, *exc):
+        self.ck.conv_pair_plan, self.ck.WALK_RADIX16 = self.saved
+        self.ck._DEVICE_TABLES.clear()
 
 
 class _lines_layout_forced:
-    """fft_lines with the split, lines a block and points a thread of
-    layout ``v`` for the time of the block (its layout rule reads
-    `cuda_kernels.lines_split`, LINES_BLOCK_POINTS and LINES_AIM_POINTS)."""
+    """fft_lines with the split, lines a block, points a thread and
+    radix-16 stages or not of layout ``v`` for the time of the block (its
+    layout rule reads `cuda_kernels.lines_split`, LINES_BLOCK_POINTS,
+    LINES_ONE_PASS_AIM, LINES_AIM_POINTS and WALK_RADIX16)."""
 
     def __init__(self, ck, v):
         self.ck, self.v = ck, v
@@ -665,13 +703,17 @@ class _lines_layout_forced:
     def __enter__(self):
         ck, v = self.ck, self.v
         self.saved = (ck.lines_split, ck.LINES_BLOCK_POINTS,
-                      ck.LINES_AIM_POINTS)
+                      ck.LINES_ONE_PASS_AIM, ck.LINES_AIM_POINTS,
+                      ck.WALK_RADIX16)
         ck.lines_split = lambda n: tuple(v["split"])
-        ck.LINES_BLOCK_POINTS, ck.LINES_AIM_POINTS = v["block_points"], v["aim"]
+        ck.LINES_BLOCK_POINTS = v["block_points"]
+        ck.LINES_ONE_PASS_AIM = ck.LINES_AIM_POINTS = v["aim"]
+        ck.WALK_RADIX16 = v["radix16"]
 
     def __exit__(self, *exc):
         (self.ck.lines_split, self.ck.LINES_BLOCK_POINTS,
-         self.ck.LINES_AIM_POINTS) = self.saved
+         self.ck.LINES_ONE_PASS_AIM, self.ck.LINES_AIM_POINTS,
+         self.ck.WALK_RADIX16) = self.saved
 
 
 def _numpy_rel(got, want) -> float:
@@ -1649,20 +1691,41 @@ def phase_any_times(vt, ck, dev) -> dict:
            lambda: ck.fft_conv_pair_plain(xr, xi, spec, chirp),
            16.0 * B * n + 8.0 * (2 * m + n), _fft_ops(B * n, n),
            lambda: torch.fft.fft(xc), pair_extra())
-    # the cluster sweep at m = 32768: every cluster the layout rule allows
-    # (2 blocks would hold 16384 points, above CONV_PAIR_TILE_MAX), timed
-    # in turns up and down, each against the plain version first
-    sweep = [c for c in ck.PAIR_CLUSTERS if m // c <= ck.CONV_PAIR_TILE_MAX]
-    plain = ck.fft_conv_pair_plain(xr, xi, spec, chirp)
-    rows = {c: dict(pair_extra(c), ms=[]) for c in sweep}
-    for c in sweep + sweep[::-1]:
-        fn = lambda: ck.fft_conv_pair(xr, xi, spec, chirp, cluster=c)
-        rows[c]["max_abs_err"] = _errors(fn(), plain, ("fft_conv_pair", c))
-        rows[c]["ms"].append(_time_ms(fn))
+    # the layout sweep at m = 32768: every plane (nc, ns) of the stages'
+    # lengths and every cluster the layout rule allows on it (2 blocks
+    # would hold 16384 points, above CONV_PAIR_TILE_MAX), timed in turns
+    # (down the list, then up), each against the plain version first
+    variants = []
+    for nc in (d for d in range(1, m + 1) if m % d == 0):
+        ns = m // nc
+        if nc <= ns and ck.kernel_supports(nc) and ck.kernel_supports(ns):
+            for c in ck.PAIR_CLUSTERS:
+                if nc % c or ns % c or m // c > ck.CONV_PAIR_TILE_MAX:
+                    continue
+                for r16 in (False, True):
+                    with _conv_pair_plane_forced(ck, m, (nc, ns), r16):
+                        threads = ck.conv_pair_layout(m, c)[3]
+                    if all(ck.walk_rounds_fit(k, threads, r16)
+                           for k in (nc, ns)):
+                        variants.append(((nc, ns), c, r16))
+    rows, tables = {}, {}
+    for plane, c, r16 in variants + variants[::-1]:
+        with _conv_pair_plane_forced(ck, m, plane, r16):
+            sp = ck.bluestein_spectrum(n, m, False, 1.0, dev, "pair")
+            if plane not in tables:
+                tables[plane] = ck.fft_conv_pair_plain(xr, xi, sp, chirp)
+            fn = lambda: ck.fft_conv_pair(xr, xi, sp, chirp, cluster=c)
+            row = rows.setdefault((plane, c, r16), dict(
+                pair_extra(c), radix16=r16, stages=sum(
+                    len((ck.walk_radices if r16 else ck.stage_radices)(k))
+                    for k in plane), ms=[]))
+            row["max_abs_err"] = _errors(fn(), tables[plane],
+                                         ("fft_conv_pair", plane, c, r16))
+            row["ms"].append(_time_ms(fn))
     sweep_rows = list(rows.values())
     for row in sweep_rows:
-        _log(f"[time] fft_conv_pair cluster sweep {row}")
-    del xr, xi, xc, plain
+        _log(f"[time] fft_conv_pair layout sweep {row}")
+    del xr, xi, xc, tables
 
     e2e = []
     for n in SAMPLE_7:
@@ -1692,7 +1755,7 @@ def phase_any_times(vt, ck, dev) -> dict:
         e2e.append(row)
         del x, xc
     return {"kernels": kernels, "e2e": e2e,
-            "conv_pair_cluster_sweep": sweep_rows}
+            "conv_pair_layout_sweep": sweep_rows}
 
 
 # ---------------------------------------------------------------------------

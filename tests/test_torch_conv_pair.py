@@ -25,7 +25,7 @@ REF_TOL = 1e-5
 NUMPY_TOL = 5e-6
 # csrc/inplace.cuh and csrc/fft_conv_pair.cu: the radices of stage_fixed,
 # kPoints, kGenericPoints, kXchg; csrc/stockham.cuh: kMaxStages
-FIXED_RADICES = (2, 3, 4, 5, 7, 8)
+FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 POINTS = 12
 GENERIC_POINTS = 16
 XCHG = 16
@@ -47,7 +47,7 @@ SERVED = _served()
 
 
 def _plan_table_points(m: int) -> int:
-    ints, _ = ck.stage_tables(m, False)
+    ints, _ = ck.stage_tables(m, False, 1.0, ck.WALK_RADIX16)
     M, end = m, 0
     for s in range(ints[1]):
         r = ints[3 + s]
@@ -58,9 +58,9 @@ def _plan_table_points(m: int) -> int:
 
 
 def _rounds_fit(m: int, threads: int) -> bool:
-    for r in ck.stage_radices(m):
+    for r in ck.walk_radices(m):
         if r in FIXED_RADICES:
-            if (POINTS // r) * threads < m // r:
+            if max(1, POINTS // r) * threads < m // r:
                 return False
         elif GENERIC_POINTS * threads < m:
             return False
@@ -76,6 +76,23 @@ def _layout_ok(m, nc, ns, c, threads, smem) -> bool:
             and smem == 8 * ((nc // c) * (ns | 1) + 2 * _plan_table_points(nc)
                              + 2 * _plan_table_points(ns) + 64 + -(-m // 64))
             and smem <= ck.MAX_SMEM_BYTES)
+
+
+def _stages(n: int) -> float:
+    """The walk's stages of an n-point run, a generic radix r as r / 8."""
+    return sum(1.0 if r in FIXED_RADICES else r / 8
+               for r in (ck.walk_radices if ck.WALK_RADIX16
+                         else ck.stage_radices)(n))
+
+
+def _planes(m):
+    """Every (nc, ns) plane of m that the stages take with a cluster of at
+    most 8192 points a block."""
+    return [(a, m // a) for a in range(1, m + 1)
+            if m % a == 0 and a <= m // a and ck.kernel_supports(a)
+            and ck.kernel_supports(m // a)
+            and any(a % c == 0 and (m // a) % c == 0 and m // c <= 8192
+                    for c in (1, 2, 4, 8, 16))]
 
 
 def _old_plane(m):
@@ -98,15 +115,18 @@ def _old_plane(m):
 
 def test_layout_rule_every_served_length():
     """Every padded length the route sends to fft_conv_pair gets a layout
-    the C entry accepts, on the same plane as before: a cluster dividing
-    both factors with at most 8192 points a block, threads that move the
-    block's points in at most 16 a thread, whole sequences in a round and
-    the exact shared bytes; the plane's served lengths keep their route."""
+    the C entry accepts, on the plane of the fewest stages (then the most
+    square): a cluster dividing both factors with at most 8192 points a
+    block, threads that move the block's points in at most 16 a thread,
+    whole sequences in a round and the exact shared bytes."""
     assert len(SERVED) == 49 and sum(map(len, SERVED.values())) == 2225
     for m in SERVED:
         nc, ns, c, threads, smem = ck.conv_pair_layout(m)
         assert (nc, ns, c) == ck.conv_pair_plan(m)
-        assert (nc, ns) == _old_plane(m), m
+        cost = {p: _stages(p[0]) + _stages(p[1]) for p in _planes(m)}
+        least = min(cost.values())
+        assert cost[(nc, ns)] == least, m
+        assert nc == max(p[0] for p, v in cost.items() if v == least), m
         assert nc * ns == m and nc <= ns and m // c <= ck.CONV_PAIR_TILE_MAX
         assert _layout_ok(m, nc, ns, c, threads, smem), m
         # the smallest cluster at most CONV_PAIR_TILE_AIM points a block
@@ -122,7 +142,8 @@ def test_plan_covers_the_same_lengths_as_before():
 
 
 def test_cluster_sweep_layouts():
-    """At sample 7's m = 32768 (128 x 256): clusters of 4, 8 and 16 blocks
+    """At sample 7's m = 32768 (128 x 256 = (16·8)(16·16), four stages a
+    direction): clusters of 4, 8 and 16 blocks
     (8192, 4096, 2048 points a block), not 2 (16384 points: more than a
     thread moves at 512 threads); cluster 4 by the rule, two blocks an SM
     by shared memory."""
@@ -211,7 +232,7 @@ def test_launch_arguments(monkeypatch, n):
         assert call["layout"] == ck.conv_pair_layout(m, cluster)[2:]
         for ints, (k, inverse) in zip(call["plans"], ((nc, False), (ns, False),
                                                       (ns, True), (nc, True))):
-            assert ints == list(ck.stage_tables(k, inverse)[0])
+            assert ints == list(ck.stage_tables(k, inverse, 1.0, True)[0])
 
 
 def test_wrapper_refuses_a_cluster_in_the_2d_mode():

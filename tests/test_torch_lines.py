@@ -23,7 +23,7 @@ REF_TOL = 1e-5
 # csrc/inplace.cuh: the radices of stage_fixed, the points a thread holds
 # in a round of one (kPoints) and the outputs of a generic stage
 # (kGenericPoints); csrc/stockham.cuh: kMaxStages
-FIXED_RADICES = (2, 3, 4, 5, 7, 8)
+FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 POINTS = 12
 GENERIC_POINTS = 16
 MAX_STAGES = 16
@@ -35,7 +35,7 @@ def _plan_table_points(m: int) -> int:
     length m: where its last stage's twiddles or roots end."""
     if m == 1:
         return 0
-    ints, _ = ck.stage_tables(m, False)
+    ints, _ = ck.stage_tables(m, False, 1.0, ck.WALK_RADIX16)
     M, end = m, 0
     for s in range(ints[1]):
         r = ints[3 + s]
@@ -50,51 +50,74 @@ def _rounds_fit(m: int, threads: int) -> bool:
     sequence of every stage of a factor of length m."""
     if m == 1:
         return True
-    for r in ck.stage_radices(m):
+    for r in ck.walk_radices(m):
         if r in FIXED_RADICES:
-            if (POINTS // r) * threads < m // r:
+            if max(1, POINTS // r) * threads < m // r:
                 return False
         elif GENERIC_POINTS * threads < m:
             return False
     return True
 
 
+@pytest.mark.parametrize("n", [n for n in range(2, 8193)
+                               if ck.kernel_supports(n)][::7] + [4096, 8192])
+def test_walk_radices(n):
+    """The walk's stages are `stage_radices`' with the power of two as
+    radix-16 stages where that makes fewer stages: the same length, the
+    same odd primes, never more stages."""
+    old, new = ck.stage_radices(n), ck.walk_radices(n)
+    assert np.prod(new) == n and len(new) <= len(old)
+    assert sorted(r for r in new if r % 2) == sorted(r for r in old if r % 2)
+    if 16 in new:
+        assert len(new) < len(old)
+    else:
+        assert new == old
+
+
+def _threads(points: int, aim: int) -> int:
+    return min(512, max(32, -(-(-(-points // aim)) // 32) * 32))
+
+
 def test_layout_rule_every_length():
     """Every length the kernel takes gets a layout the C entry accepts: a
-    split n1 * n2 = n with n1 >= n2, threads a multiple of 32 in 32..512,
-    whole lines up to 16384 points, every stage's sequence within a round,
-    and exactly the shared bytes of its lines and tables, at most 227 KB;
-    one pass (n2 = 1) exactly where its stages fit a round."""
+    split n1 * n2 = n with n1 >= n2, threads a multiple of 32 in 32..512
+    (a thread for about 16 points in one pass, 32 in two factors), whole
+    lines up to 16384 points, every stage's sequence within a round, and
+    exactly the shared bytes of its lines and tables, at most 227 KB; one
+    pass (n2 = 1) exactly where a block holds two or more lines and the
+    stages fit a round."""
     assert len(LENGTHS) == 2541
     two = 0
     for n in LENGTHS:
         n1, n2 = ck.lines_split(n)
         threads, lines, smem = ck.lines_layout(n)
         assert n1 * n2 == n and n1 >= n2, n
-        assert threads % 32 == 0 and 32 <= threads <= 512, n
         assert lines == max(1, 2048 // n) and lines * n <= 16384, n
+        one = lines > 1 and _rounds_fit(n, _threads(lines * n, 16))
+        assert (n2 == 1) == one, n
+        assert threads == _threads(lines * n, 16 if one else 32), n
         assert _rounds_fit(n1, threads) and _rounds_fit(n2, threads), n
-        assert (n2 == 1) == _rounds_fit(n, threads), n
         points = (lines * n2 * (n1 | 1) + _plan_table_points(n1)
                   + _plan_table_points(n2) + 64 + -(-n // 64))
         assert smem == 8 * points <= ck.MAX_SMEM_BYTES, n
         two += n2 > 1
-    assert two == 2114
+    assert two == 1973
 
 
-@pytest.mark.parametrize("n,split", [(256, (256, 1)), (1024, (32, 32)),
+@pytest.mark.parametrize("n,split", [(256, (256, 1)), (1024, (1024, 1)),
                                      (2048, (64, 32)), (4096, (64, 64)),
                                      (3591, (63, 57)), (8192, (128, 64)),
                                      (7175, (175, 41)), (2, (2, 1)),
                                      (47, (47, 1))])
 def test_split_of_named_lengths(n, split):
-    """At 32 points a thread 256 (eight lines a block of 64 threads) and
-    the short lines run as one pass; a line whose stages do not fit a
-    round of its threads (1024 and up: 64 threads, or a thread for 32
-    points of one line) runs as the two factors of `twofactor_split`."""
+    """256 and 1024 (several lines a block) and the short lines run as one
+    pass, 256 as 16 · 16 and 1024 as 16 · 16 · 4; a lone line (2048 and
+    up) runs as the two factors of `twofactor_split`."""
     assert ck.lines_split(n) == split
     if split[1] > 1:
         assert split == ck.twofactor_split(n)
+    assert ck.walk_radices(256) == (16, 16)
+    assert ck.walk_radices(1024) == (16, 16, 4)
 
 
 @pytest.mark.parametrize("n", [256, 3591, 8192])
@@ -167,7 +190,7 @@ def test_launch_arguments(monkeypatch, n):
         assert call["batch"] == B
         assert call["layout"] == ck.lines_layout(n)
         for ints, m in zip(call["plans"], (n1, n2)):
-            assert ints == list(ck.stage_tables(m, inverse)[0])
+            assert ints == list(ck.stage_tables(m, inverse, 1.0, True)[0])
 
 
 @pytest.mark.parametrize("n", [3591, 7175, 8192])

@@ -82,27 +82,63 @@ constexpr int kXchg = 16;           // most points a thread moves in an exchange
 
 // The hook of the Bluestein mode's four passes: the four-step twiddle
 // w_m^(row * k) (row = row0 + seq, the sequence's row or column in the
-// plane) from its two root tables, conjugated in the inverse, or the
-// spectrum [row][k] from device memory.
+// plane) from its two root tables at `p` (w^b, then w^(64 a)), conjugated
+// in the inverse, or the spectrum [row][k] at `p` in device memory.  The
+// mode rides the low bits of `ns_mode`, so the hook holds four registers
+// through a stage, as InterTwiddle does.
 enum { kHookNone = 0, kHookTwiddle, kHookTwiddleConj, kHookSpectrum };
 
 struct ConvHook {
-  const float2* lo;
-  const float2* hi;
-  const float2* spec;
-  int row0, ns, mode;
-  __device__ __forceinline__ bool on() const { return mode != kHookNone; }
+  const float2* p;
+  int row0, ns_mode;   // ns << 2 | mode
+  __device__ __forceinline__ bool on() const { return (ns_mode & 3) != kHookNone; }
   __device__ __forceinline__ ConvHook off() const {
-    return {lo, hi, spec, row0, ns, kHookNone};
+    return {p, row0, ns_mode & ~3};
   }
   __device__ __forceinline__ float2 operator()(float2 v, int seq, int k) const {
-    const int row = row0 + seq;
-    if (mode == kHookSpectrum) return cmul(v, __ldg(&spec[row * ns + k]));
-    float2 w = walk::inter_twiddle(row * k, lo, hi);
+    const int row = row0 + seq, mode = ns_mode & 3;
+    if (mode == kHookSpectrum) return cmul(v, __ldg(&p[row * (ns_mode >> 2) + k]));
+    float2 w = walk::inter_twiddle(row * k, p, p + walk::kTwLo);
     if (mode == kHookTwiddleConj) w.y = -w.y;
     return cmul(v, w);
   }
 };
+
+// Distributed shared memory by 32-bit shared::cluster addresses: point i
+// of block `rank`'s buffer, and one or two points loaded or stored there
+// (a generic 64-bit pointer a point held two registers more through the
+// exchange's reads, and ptxas spilled).
+__device__ __forceinline__ unsigned remote(const float2* buf, int i, int rank) {
+  const unsigned local = (unsigned)__cvta_generic_to_shared(buf + i);
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(local), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float2 ld_remote2(unsigned a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_remote4(unsigned a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_remote2(unsigned a, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
+               :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
+}
+
+__device__ __forceinline__ void st_remote4(unsigned a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
 
 // Column tile -> row tile: point (r, ks) of this block's row tile is
 // point (r0 + r, ks % cols) of owner ks / cols's column tile.  Each thread
@@ -124,9 +160,8 @@ __device__ void pull_rows(cg::cluster_group& cluster, float2* buf, int ns,
       const int r = walk::quot(p, dns);
       const int ks2 = p - r * (int)dns.d;        // pair index along the row
       const int owner = walk::quot(ks2, dc);
-      const float4* src = reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(buf, owner));
-      v[j] = src[((r0 + r) * cols >> 1) + ks2 - owner * (int)dc.d];
+      v[j] = ld_remote4(remote(
+          buf, 2 * (((r0 + r) * cols >> 1) + ks2 - owner * (int)dc.d), owner));
     }
     cluster.sync();   // every pull is done: the column tiles are free
     v0 = walk::fresh_tid();
@@ -150,8 +185,7 @@ __device__ void pull_rows(cg::cluster_group& cluster, float2* buf, int ns,
       const int r = walk::quot(u, dns);
       const int ks = u - r * ns;
       const int owner = walk::quot(ks, dc);
-      const float2* src = cluster.map_shared_rank(buf, owner);
-      v[j] = src[(r0 + r) * cols + ks - owner * cols];
+      v[j] = ld_remote2(remote(buf, (r0 + r) * cols + ks - owner * cols, owner));
     }
     cluster.sync();   // every pull is done: the column tiles are free
     u0 = walk::fresh_tid();
@@ -194,8 +228,9 @@ __device__ void push_columns(cg::cluster_group& cluster, float2* buf, int ns,
       const int r = walk::quot(p, dns);
       const int ks2 = p - r * (int)dns.d;
       const int owner = walk::quot(ks2, dc);
-      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(buf, owner));
-      if (v0 < half) dst[((r0 + r) * cols >> 1) + ks2 - owner * (int)dc.d] = v[j];
+      if (v0 < half)
+        st_remote4(remote(buf, 2 * (((r0 + r) * cols >> 1) + ks2 -
+                                    owner * (int)dc.d), owner), v[j]);
     }
   } else {
     const walk::Div dns = walk::make_div(ns), dc = walk::make_div(cols);
@@ -215,8 +250,8 @@ __device__ void push_columns(cg::cluster_group& cluster, float2* buf, int ns,
       const int r = walk::quot(u, dns);
       const int ks = u - r * ns;
       const int owner = walk::quot(ks, dc);
-      float2* dst = cluster.map_shared_rank(buf, owner);
-      if (u0 < tile) dst[(r0 + r) * cols + ks - owner * cols] = v[j];
+      if (u0 < tile)
+        st_remote2(remote(buf, (r0 + r) * cols + ks - owner * cols, owner), v[j]);
     }
   }
   cluster.sync();   // every push has landed
@@ -243,12 +278,9 @@ fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
   const int r0 = rank * rows, c0 = rank * cols;
   const long long base = (long long)(blockIdx.x / C) * n;
   float2* buf = smem;
-  float2* s_cf = buf + rows * Pr;
-  float2* s_sf = s_cf + len.cf;
-  float2* s_si = s_sf + len.sf;
-  float2* s_ci = s_si + len.si;
-  float2* tlo = s_ci + len.ci;
-  float2* thi = tlo + walk::kTwLo;
+  // the tables after the tile: the four plans', then the twiddle's; their
+  // places are found again where they are used, not held through a pass
+  float2* tables = buf + rows * Pr;
   const int ntab = len.cf + len.sf + len.si + len.ci + walk::kTwLo +
                    (m + walk::kTwLo - 1) / walk::kTwLo;
   for (int t = threadIdx.x; t < ntab; t += blockDim.x) {
@@ -258,7 +290,7 @@ fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
       if (u >= len.sf) { u -= len.sf; src = tsi;
         if (u >= len.si) { u -= len.si; src = tci;
           if (u >= len.ci) { u -= len.ci; src = tw; } } } }
-    s_cf[t] = __ldg(&src[u]);
+    tables[t] = __ldg(&src[u]);
   }
   // 1. the column tile of the padded line, times the chirp
   const walk::Div dcols = walk::make_div(cols);
@@ -280,12 +312,16 @@ fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
     if (k == 3) push_columns(cluster, buf, ns, rows, cols, Pr, r0);
     const walk::Pass g = col ? walk::Pass{cols, 0, 1, cols, dcols}
                              : walk::Pass{rows, 0, Pr, 1, walk::make_div(rows)};
-    const ConvHook h{tlo, thi, spec, col ? c0 : r0, ns,
-                     k == 0 ? kHookTwiddle
-                            : k == 1 ? kHookSpectrum
-                                     : k == 2 ? kHookTwiddleConj : kHookNone};
+    const int mode = k == 0   ? kHookTwiddle
+                     : k == 1 ? kHookSpectrum
+                     : k == 2 ? kHookTwiddleConj
+                              : kHookNone;
+    const float2* tab = smem + rows * Pr + (k > 0 ? len.cf : 0) +
+                        (k > 1 ? len.sf : 0) + (k > 2 ? len.si : 0);
+    const float2* tlo = smem + rows * Pr + len.cf + len.sf + len.si + len.ci;
+    const ConvHook h{k == 1 ? spec : tlo, col ? c0 : r0, ns << 2 | mode};
     walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
-                   k == 0 ? s_cf : k == 1 ? s_sf : k == 2 ? s_si : s_ci, h);
+                   tab, h);
   }
   // 9. the crop and the chirp
   for (int t = threadIdx.x; t < tile; t += blockDim.x) {

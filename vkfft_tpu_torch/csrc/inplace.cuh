@@ -117,13 +117,44 @@ struct InterTwiddle {
   }
 };
 
+// a * w_16^e (e < 16 known at compile time once unrolled), forward or
+// inverse.
+__device__ __forceinline__ float2 times_w16(float2 a, int e, int inverse) {
+  constexpr float c1 = 0.92387953251128674f;   // cos(pi / 8)
+  constexpr float s1 = 0.38268343236508978f;   // sin(pi / 8)
+  constexpr float r2 = 0.70710678118654752f;
+  if (e == 0) return a;
+  if (e == 4) return rot(a, inverse);
+  // w_16^e = (x, -+y)
+  const float x = e == 1 ? c1 : e == 2 ? r2 : e == 3 ? s1 : e == 6 ? -r2 : -c1;
+  const float y = e == 1 ? s1 : e == 2 ? r2 : e == 3 ? c1 : e == 6 ? r2 : -s1;
+  return cmul(a, make_float2(x, inverse ? y : -y));
+}
+
 // The r-point DFT in registers; the odd radices read their roots w_r^k
-// from shared memory.
+// from shared memory.  Radix 16 runs as 4 x 4: X[k1 + 4 k2] = DFT4 over
+// n2 of w_16^(n2 k1) DFT4 over n1 of x[4 n1 + n2].
 template <int R>
 __device__ __forceinline__ void dft(float2 (&v)[R], int inverse,
                                     const float2* w) {
   if constexpr (R == 2 || R == 4 || R == 8) {
     Dft<R>::run(v, inverse, nullptr);
+  } else if constexpr (R == 16) {
+    float2 a[4][4];
+#pragma unroll
+    for (int n2 = 0; n2 < 4; ++n2) {
+      float2 t[4] = {v[n2], v[4 + n2], v[8 + n2], v[12 + n2]};
+      Dft<4>::run(t, inverse, nullptr);
+#pragma unroll
+      for (int k1 = 0; k1 < 4; ++k1) a[n2][k1] = times_w16(t[k1], n2 * k1, inverse);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      float2 t[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+      Dft<4>::run(t, inverse, nullptr);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = t[k2];
+    }
   } else {
     float2 wk[R];
 #pragma unroll
@@ -145,8 +176,13 @@ __device__ __forceinline__ void dft(float2 (&v)[R], int inverse,
   }
 }
 
-// One radix-R stage (R = 2, 3, 4, 5, 7, 8) of a pass, in place: one
-// thread a butterfly, kPoints / R of them a round, each finished in
+// Butterflies a thread holds in a round of a fixed radix-R stage.
+__host__ __device__ constexpr int round_butterflies(int R) {
+  return kPoints / R > 0 ? kPoints / R : 1;
+}
+
+// One radix-R stage (R = 2, 3, 4, 5, 7, 8, 16) of a pass, in place: one
+// thread a butterfly, round_butterflies(R) of them a round, each finished in
 // registers before the barrier, so only its values and its output
 // address live across it.  When the hook is on, output i of butterfly l
 // of sequence (hi, lo) goes through hook(v, lo, i * L + l) (the last
@@ -155,7 +191,7 @@ template <int R, class Hook>
 __device__ void stage_fixed(float2* buf, const Pass& g, int L, int Mp,
                             const float2* tw, const float2* w, int inverse,
                             const Hook& hook) {
-  constexpr int K = kPoints / R;
+  constexpr int K = round_butterflies(R);
   const int T = blockDim.x;
   const int per_seq = L * Mp;
   const int Q = min(g.seqs, K * T / per_seq);
@@ -277,6 +313,7 @@ __device__ void run_pass(float2* buf, const Pass& g, const Plan& p,
       case 5: stage_fixed<5>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       case 7: stage_fixed<7>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       case 8: stage_fixed<8>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 16: stage_fixed<16>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       default: stage_generic(buf, g, r, L, Mp, tw, w, h); break;
     }
     L *= r;
@@ -301,8 +338,9 @@ inline int table_len(const Plan& p) {
 inline bool rounds_fit(const Plan& p, int threads) {
   for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
-    const bool fixed = r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8;
-    if (fixed ? (kPoints / r) * threads < p.n / r
+    const bool fixed = r == 2 || r == 3 || r == 4 || r == 5 || r == 7 ||
+                       r == 8 || r == 16;
+    if (fixed ? round_butterflies(r) * threads < p.n / r
               : kGenericPoints * threads < p.n)
       return false;
   }

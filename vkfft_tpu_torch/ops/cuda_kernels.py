@@ -143,7 +143,7 @@ TWOFACTOR_TW_LO = 64
 # sequences.  `fft_lines` takes the block rule of `fft_twofactor`.
 WALK_POINTS = 12
 WALK_GENERIC_POINTS = 16
-_WALK_FIXED_RADICES = (2, 3, 4, 5, 7, 8)
+_WALK_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 # `fft_conv_pair`'s Bluestein mode (csrc/fft_conv_pair.cu): padded lengths
 # up to 2^16, the plane held once over a cluster of up to 16 blocks, a
 # block at most CONV_PAIR_TILE_MAX points (its exchange moves at most
@@ -425,29 +425,44 @@ def chirp(n: int, inverse: bool = False) -> Factor:
     return Factor("chirp", 2 * n, inverse)
 
 
-@functools.lru_cache(maxsize=1024)
 def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
     """(nc, ns, cluster) of `fft_conv_pair`'s Bluestein mode for a padded
     length m: the line as an (nc, ns) row-major plane, both factors lengths
-    of the stages (`kernel_supports`), ns >= nc, as near square as a
-    cluster allows: the smallest of 1, 2, 4, 8, 16 blocks dividing nc and
-    ns whose blocks hold at most CONV_PAIR_TILE_AIM points, else the
-    smallest whose blocks hold at most CONV_PAIR_TILE_MAX; None when m >
-    2^16 or no split fits a cluster."""
+    of the stages (`kernel_supports`), ns >= nc, with a cluster of 1, 2, 4,
+    8 or 16 blocks dividing nc and ns whose blocks hold at most
+    CONV_PAIR_TILE_MAX points, and of those the plane of the fewest stages
+    (`walk_radices`; a generic radix r counts r / 8), then the most square;
+    the cluster the smallest whose blocks hold at most CONV_PAIR_TILE_AIM
+    points, else the smallest that fits.  None when m > 2^16 or no split
+    fits a cluster.  The walk's time follows its stages (PERF.md)."""
+    return _conv_pair_plan(m, WALK_RADIX16)
+
+
+def _stage_cost(n: int, walk: bool) -> float:
+    return sum(1.0 if r in _WALK_FIXED_RADICES else r / 8.0
+               for r in (walk_radices if walk else stage_radices)(n))
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_pair_plan(m: int, walk: bool) -> Optional[tuple[int, int, int]]:
     if m > CONV_PAIR_MAX_M:
         return None
-    best = None
+    best, best_key = None, None
     for nc in _divisors(m):
         ns = m // nc
         if nc > ns:
             break
-        if kernel_supports(nc) and kernel_supports(ns):
-            fits = [c for c in PAIR_CLUSTERS if nc % c == 0 and ns % c == 0
-                    and m // c <= CONV_PAIR_TILE_MAX]
-            if fits:
-                best = (nc, ns, next((c for c in fits
-                                      if m // c <= CONV_PAIR_TILE_AIM),
-                                     fits[0]))
+        if not (kernel_supports(nc) and kernel_supports(ns)):
+            continue
+        fits = [c for c in PAIR_CLUSTERS if nc % c == 0 and ns % c == 0
+                and m // c <= CONV_PAIR_TILE_MAX]
+        if not fits:
+            continue
+        key = (_stage_cost(nc, walk) + _stage_cost(ns, walk), -nc)
+        if best_key is None or key < best_key:
+            best_key = key
+            best = (nc, ns, next((c for c in fits
+                                  if m // c <= CONV_PAIR_TILE_AIM), fits[0]))
     return best
 
 
@@ -471,8 +486,8 @@ def conv_pair_layout(m: int, cluster: Optional[int] = None
     tile = m // c
     want = -(-tile // CONV_PAIR_AIM_POINTS)
     threads = min(CONV_PAIR_THREADS, max(32, -(-want // 32) * 32))
-    points = ((nc // c) * (ns | 1) + 2 * _table_points(nc)
-              + 2 * _table_points(ns) + TWOFACTOR_TW_LO
+    points = ((nc // c) * (ns | 1) + 2 * _table_points(nc, WALK_RADIX16)
+              + 2 * _table_points(ns, WALK_RADIX16) + TWOFACTOR_TW_LO
               + -(-m // TWOFACTOR_TW_LO))
     return nc, ns, c, threads, 8 * points
 
@@ -583,19 +598,47 @@ def _unsupported(n: int) -> NotImplementedError:
         "(cuda_engine.route), lengths beyond 16384 on the long tier")
 
 
+@functools.lru_cache(maxsize=4096)
+def walk_radices(n: int) -> Optional[tuple[int, ...]]:
+    """Stage radices of the in-place walk's `fft_lines` and
+    `fft_conv_pair` (``csrc/inplace.cuh``, which has a radix-16 butterfly):
+    `stage_radices` with the power of two 2^t as radix-16 stages where that
+    makes fewer stages (t = 4, 7, 8 and from 10 up: 16 * 16 for 256, 16 *
+    8 for 128), else as there; None where `stage_radices` is."""
+    rad = stage_radices(n)
+    if rad is None:
+        return None
+    t = prime_factors(n).count(2)
+    k, rem = divmod(t, 4)
+    if rem == 1:
+        if k == 0:
+            return rad
+        k, tail = k - 1, [8, 4]
+    else:
+        tail = {0: [], 2: [4], 3: [8]}[rem]
+    p2 = [16] * k + tail
+    old = [r for r in rad if r in (2, 4, 8)]
+    if len(p2) >= len(old):
+        return rad
+    return tuple(p2) + tuple(r for r in rad if r not in (2, 4, 8))
+
+
 @functools.lru_cache(maxsize=1024)
-def stage_tables(n: int, inverse: bool, scale: float = 1.0):
+def stage_tables(n: int, inverse: bool, scale: float = 1.0,
+                 walk: bool = False):
     """(plan ints, complex128 table) for length n.  Per stage the (r, Mp)
     twiddle block w_M^(i*m), with ``scale`` folded into stage 0 (the
     reference's stageNormalization, ``vkFFT_RadixShuffle.h:49-65``), and for
     radices without a butterfly of their own the roots w_r^k.  Computed in
     fp64 like ``_v3_tables_impl``; the kernels read it cast to fp32.
-    n = 1 is the empty plan of a trivial factor of `fft_twofactor`."""
+    ``walk``: the stages of `walk_radices` (radix 16, which carries its
+    roots too).  n = 1 is the empty plan of a trivial factor of
+    `fft_twofactor`."""
     if n == 1:
         return tuple([1, 0, int(inverse)] + [0] * _MAX_STAGES
                      + [0] * _MAX_STAGES + [-1] * _MAX_STAGES), \
             np.full(1, scale, np.complex128)
-    radices = stage_radices(n)
+    radices = (walk_radices if walk else stage_radices)(n)
     if radices is None:
         raise _unsupported(n)
     sign = 2.0j if inverse else -2.0j
@@ -692,21 +735,23 @@ def twofactor_twiddle_pair(n: int, inverse: bool, scale: float = 1.0):
     return np.concatenate([lo, hi])
 
 
-def _table_points(n: int) -> int:
-    """Points of a factor's stage table that `fft_twofactor` copies into
+def _table_points(n: int, walk: bool = False) -> int:
+    """Points of a factor's stage table that a walk kernel copies into
     shared memory (none for the empty plan of a length-1 factor)."""
-    return 0 if n == 1 else len(stage_tables(n, False)[1])
+    return 0 if n == 1 else len(stage_tables(n, False, 1.0, walk)[1])
 
 
-def walk_rounds_fit(n: int, threads: int) -> bool:
+def walk_rounds_fit(n: int, threads: int, walk: bool = False) -> bool:
     """Whether ``threads`` hold a whole sequence of every stage of an
-    n-point Stockham run in one round of the in-place walk (``rounds_fit``
-    in ``csrc/inplace.cuh``); the empty run of n = 1 always fits."""
+    n-point Stockham run (of `walk_radices` with ``walk``) in one round of
+    the in-place walk (``rounds_fit`` in ``csrc/inplace.cuh``: a thread
+    holds max(1, 12 // r) butterflies of a fixed radix r); the empty run of
+    n = 1 always fits."""
     if n == 1:
         return True
-    for r in stage_radices(n):
+    for r in (walk_radices if walk else stage_radices)(n):
         if r in _WALK_FIXED_RADICES:
-            if (WALK_POINTS // r) * threads < n // r:
+            if max(1, WALK_POINTS // r) * threads < n // r:
                 return False
         elif WALK_GENERIC_POINTS * threads < n:
             return False
@@ -722,24 +767,35 @@ def _block_threads(points: int, aim: int = TWOFACTOR_AIM_POINTS) -> int:
 
 # `fft_lines`' block (csrc/fft_lines.cu): lines shorter than
 # LINES_BLOCK_POINTS share a block up to that many points, a thread for
-# about LINES_AIM_POINTS of them: small blocks, many to an SM, so more of
-# each SM's data is in flight (chip_smoke.py's layout sweep, PERF.md).
+# about LINES_ONE_PASS_AIM of them in one pass or LINES_AIM_POINTS in two
+# factors: small blocks, many to an SM, so more of each SM's data is in
+# flight (chip_smoke.py's layout sweep, PERF.md).
 LINES_BLOCK_POINTS = 2048
+LINES_ONE_PASS_AIM = 16
 LINES_AIM_POINTS = 32
+# The walk kernels' stages: `walk_radices` (radix 16 where it makes fewer
+# stages) or, when False, `stage_radices` (chip_smoke.py's sweeps time
+# both, PERF.md).  `fft_twofactor` keeps `stage_radices`.
+WALK_RADIX16 = True
 
 
-def _lines_block(n: int) -> tuple[int, int]:
+def _lines_block(n: int, one_pass: bool) -> tuple[int, int]:
     """(threads, lines) of an `fft_lines` block for length n."""
     lines = max(1, LINES_BLOCK_POINTS // n)
-    return _block_threads(lines * n, LINES_AIM_POINTS), lines
+    aim = LINES_ONE_PASS_AIM if one_pass else LINES_AIM_POINTS
+    return _block_threads(lines * n, aim), lines
 
 
 def lines_split(n: int) -> tuple[int, int]:
     """(n1, n2) of `fft_lines` for length n: (n, 1), one pass of n-point
-    stages, wherever every stage's sequences fit one round of the block's
-    threads (`walk_rounds_fit`), else the two factors of `twofactor_split`:
-    a line's last stage is one sequence of n / r butterflies."""
-    if walk_rounds_fit(n, _lines_block(n)[0]):
+    stages, where a block holds two or more lines (n <= 1024) and every
+    stage's sequences fit one round of its threads (`walk_rounds_fit`),
+    else the two factors of `twofactor_split`.  A round holds whole
+    sequences, and a line's last stage is one sequence of n / r
+    butterflies; a lone line in one pass reads its late stages at a stride
+    of r points (bank conflicts: 4096 took 0.219 ms so, 0.154 as 64 x 64)."""
+    threads, lines = _lines_block(n, True)
+    if lines > 1 and walk_rounds_fit(n, threads, WALK_RADIX16):
         return n, 1
     return twofactor_split(n)
 
@@ -748,13 +804,15 @@ def lines_layout(n: int) -> tuple[int, int, int]:
     """(threads, lines, shared bytes) of an `fft_lines` block for length
     n, the one layout rule (the C entry refuses any other): ``lines`` =
     max(1, LINES_BLOCK_POINTS // n) lines a block, a multiple of 32
-    threads near one for LINES_AIM_POINTS points, at most 512, and the
-    split of `lines_split`, each line once as the (n2, n1) matrix at the
-    odd pitch n1 | 1, beside both factors' stage tables and the twiddle's
-    two tables."""
+    threads near one for LINES_ONE_PASS_AIM points (one pass) or
+    LINES_AIM_POINTS (two factors), at most 512, and the split of
+    `lines_split`, each line once as the (n2, n1) matrix at the odd pitch
+    n1 | 1, beside both factors' stage tables (`walk_radices`) and the
+    twiddle's two tables."""
     n1, n2 = lines_split(n)
-    threads, lines = _lines_block(n)
-    points = (lines * n2 * (n1 | 1) + _table_points(n1) + _table_points(n2)
+    threads, lines = _lines_block(n, n2 == 1)
+    points = (lines * n2 * (n1 | 1) + _table_points(n1, WALK_RADIX16)
+              + _table_points(n2, WALK_RADIX16)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
     return threads, lines, 8 * points
 
@@ -819,10 +877,13 @@ def device_array(key: tuple, device: torch.device, build) -> torch.Tensor:
 
 
 def _device_table(n: int, inverse: bool, scale: float,
-                  device: torch.device, real: bool = False) -> torch.Tensor:
-    return device_array(
-        ("r2c" if real else "stages", n, inverse, scale), device,
-        lambda: (r2c_tables if real else stage_tables)(n, inverse, scale)[1])
+                  device: torch.device, real: bool = False,
+                  walk: bool = False) -> torch.Tensor:
+    if real:
+        return device_array(("r2c", n, inverse, scale), device,
+                            lambda: r2c_tables(n, inverse, scale)[1])
+    return device_array(("stages", n, inverse, scale, walk), device,
+                        lambda: stage_tables(n, inverse, scale, walk)[1])
 
 
 def swapped_order(spec):
@@ -1400,11 +1461,13 @@ def _check_out(re, out) -> None:
             raise ValueError("out planes must match the input planes")
 
 
-def _plan(n: int, inverse: bool, scale: float, device: torch.device):
-    """(plan ints as a C array, device table) of one axis for a launch."""
-    ints, _ = stage_tables(n, inverse, scale)
+def _plan(n: int, inverse: bool, scale: float, device: torch.device,
+          walk: bool = False):
+    """(plan ints as a C array, device table) of one axis for a launch
+    (``walk``: the radices of `walk_radices`)."""
+    ints, _ = stage_tables(n, inverse, scale, walk)
     return ((ctypes.c_int * len(ints))(*ints),
-            _device_table(n, inverse, scale, device))
+            _device_table(n, inverse, scale, device, walk=walk))
 
 
 def _r2c_plan(n: int, inverse: bool, scale: float, device: torch.device):
@@ -1457,8 +1520,8 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     def args():
         n1, n2 = lines_split(n)
-        p1, t1 = _plan(n1, inverse, 1.0, re.device)
-        p2, t2 = _plan(n2, inverse, 1.0, re.device)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device, WALK_RADIX16)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device, WALK_RADIX16)
         tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
                            lambda: twofactor_twiddle_pair(n, inverse, scale))
         return (B, p1, p2, t1, t2, tw, *lines_layout(n))
@@ -1995,10 +2058,10 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     def args():
         dev = re.device
-        pcf, tcf = _plan(nc, False, 1.0, dev)
-        psf, tsf = _plan(ns, False, 1.0, dev)
-        psi, tsi = _plan(ns, True, 1.0, dev)
-        pci, tci = _plan(nc, True, 1.0, dev)
+        pcf, tcf = _plan(nc, False, 1.0, dev, WALK_RADIX16)
+        psf, tsf = _plan(ns, False, 1.0, dev, WALK_RADIX16)
+        psi, tsi = _plan(ns, True, 1.0, dev, WALK_RADIX16)
+        pci, tci = _plan(nc, True, 1.0, dev, WALK_RADIX16)
         tw = device_array(("twofactor_pair", m, False, 1.0), dev,
                            lambda: twofactor_twiddle_pair(m, False))
         return (B, n, pcf, psf, psi, pci, tcf, tsf, tsi, tci, tw, spectrum,
