@@ -55,7 +55,8 @@ Phases (each asserts; any failure exits non-zero before the result line):
      125203 x 67, each row with its registers, spills, layout and
      resident blocks an SM; fft_conv_pair with its registers, spills,
      layout, resident clusters and blocks an SM, and the sweep of its
-     cluster at m = 32768) and the rows' round trips timed as in 4;
+     plane and cluster at m = 32768) and the rows' round trips timed as
+     in 4;
   7. DCT/DST types I-IV: fft_dct23, fft_dct1 and fft_dct4 against their
      plain versions and scipy fp64 at every third length their gates take
      (both flags, non-unit scales); every type of dct/dst/idct/idst at
@@ -563,21 +564,19 @@ def phase_times(vt, ck, dev) -> dict:
                "blocks_per_sm": ck.lines_occupancy(n)}
         _log(f"[time] fft_lines {row}")
         kernels["fft_lines"].append(row)
-        # the layout sweep: one pass and twofactor_split's two factors, at
-        # other lines a block and points a thread, timed in turns (down the
-        # list, then up), each against the plain version first
+        # the layout sweep: one pass and two factors (`_lines_splits`) at
+        # other lines a block, points a thread and radices, timed in turns
+        # (down the list, then up), each against the plain version first
         rows = []
-        for split, bp, aim, r16 in LINES_SWEEP:
-            v = {"split": [n, 1] if split == "one" else
-                 list(ck.twofactor_split(n)), "block_points": bp, "aim": aim,
-                 "radix16": r16}
+        for split, (bp, aim) in ((p, v) for p in _lines_splits(ck, n)
+                                 for v in LINES_SWEEP):
+            v = {"split": list(split), "block_points": bp, "aim": aim}
             with _lines_layout_forced(ck, v):
                 threads = ck.lines_layout(n)[0]
-                seen = [(r["split"], r["layout"], r["radix16"]) for r in rows]
-                if (all(ck.walk_rounds_fit(m, threads, r16)
+                seen = [(r["split"], r["layout"]) for r in rows]
+                if (all(ck.walk_rounds_fit(m, threads, True)
                         for m in v["split"])
-                        and (v["split"], list(ck.lines_layout(n)), r16)
-                        not in seen):
+                        and (v["split"], list(ck.lines_layout(n))) not in seen):
                     v.update(shape=[B, n], layout=list(ck.lines_layout(n)),
                              blocks_per_sm=ck.lines_occupancy(n), ms=[])
                     rows.append(v)
@@ -660,42 +659,49 @@ def phase_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e, "fft_lines_layout_sweep": split_sweep}
 
 
-# fft_lines' layout sweep: (one pass or two factors, LINES_BLOCK_POINTS,
-# LINES_AIM_POINTS, WALK_RADIX16); the layouts a length does not fit are
-# left out
-LINES_SWEEP = tuple((split, bp, aim, r16) for split in ("one", "two")
-                    for bp in (2048, 4096) for aim in (16, 32)
-                    for r16 in (False, True))
+# fft_lines' layout sweep: (LINES_BLOCK_POINTS, points a thread) at each
+# split of `_lines_splits`; the layouts a length does not fit are left out
+LINES_SWEEP = tuple((bp, aim) for bp in (2048, 4096) for aim in (16, 32))
 
 
-class _conv_pair_plane_forced:
-    """fft_conv_pair's Bluestein mode with the plane ``plane`` at padded
-    length m, and radix-16 stages or not, for the time of the block (its
+def _lines_splits(ck, n):
+    """The splits the layout sweep times at length n: one pass, the rule's,
+    twofactor_split's and the two factors of fewest stages after them."""
+    two = sorted(((n // d, d) for d in range(2, n) if n % d == 0
+                  and n // d >= d and ck.stage_radices(n // d)
+                  and ck.stage_radices(d)),
+                 key=lambda p: (len(ck.walk_radices(p[0]))
+                                + len(ck.walk_radices(p[1])), -p[1]))
+    out = [(n, 1), ck.lines_split(n), ck.twofactor_split(n)] + two[:3]
+    return list(dict.fromkeys(out))
+
+
+class _conv_pair_plan_forced:
+    """fft_conv_pair's Bluestein mode with the plane and cluster ``plan``
+    (nc, ns, cluster) at padded length m for the time of the block (its
     layout rule and the spectrum's plane order read
-    `cuda_kernels.conv_pair_plan` and WALK_RADIX16; the cached device
-    tables are dropped on the way in and out)."""
+    `cuda_kernels.conv_pair_plan`; the cached device tables are dropped on
+    the way in and out)."""
 
-    def __init__(self, ck, m, plane, radix16):
-        self.ck, self.m, self.plane, self.radix16 = ck, m, plane, radix16
+    def __init__(self, ck, m, plan):
+        self.ck, self.m, self.plan = ck, m, plan
 
     def __enter__(self):
         ck, rule = self.ck, self.ck.conv_pair_plan
-        self.saved = (rule, ck.WALK_RADIX16)
-        ck.conv_pair_plan = lambda m: (
-            self.plane + (rule(m)[2],) if m == self.m else rule(m))
-        ck.WALK_RADIX16 = self.radix16
+        self.rule = rule
+        ck.conv_pair_plan = lambda m: self.plan if m == self.m else rule(m)
         ck._DEVICE_TABLES.clear()
 
     def __exit__(self, *exc):
-        self.ck.conv_pair_plan, self.ck.WALK_RADIX16 = self.saved
+        self.ck.conv_pair_plan = self.rule
         self.ck._DEVICE_TABLES.clear()
 
 
 class _lines_layout_forced:
-    """fft_lines with the split, lines a block, points a thread and
-    radix-16 stages or not of layout ``v`` for the time of the block (its
-    layout rule reads `cuda_kernels.lines_split`, LINES_BLOCK_POINTS,
-    LINES_ONE_PASS_AIM, LINES_AIM_POINTS and WALK_RADIX16)."""
+    """fft_lines with the split, lines a block and points a thread of
+    layout ``v`` for the time of the block (its layout rule reads
+    `cuda_kernels.lines_split`, LINES_BLOCK_POINTS, LINES_ONE_PASS_AIM and
+    LINES_AIM_POINTS)."""
 
     def __init__(self, ck, v):
         self.ck, self.v = ck, v
@@ -703,17 +709,14 @@ class _lines_layout_forced:
     def __enter__(self):
         ck, v = self.ck, self.v
         self.saved = (ck.lines_split, ck.LINES_BLOCK_POINTS,
-                      ck.LINES_ONE_PASS_AIM, ck.LINES_AIM_POINTS,
-                      ck.WALK_RADIX16)
+                      ck.LINES_ONE_PASS_AIM, ck.LINES_AIM_POINTS)
         ck.lines_split = lambda n: tuple(v["split"])
         ck.LINES_BLOCK_POINTS = v["block_points"]
         ck.LINES_ONE_PASS_AIM = ck.LINES_AIM_POINTS = v["aim"]
-        ck.WALK_RADIX16 = v["radix16"]
 
     def __exit__(self, *exc):
         (self.ck.lines_split, self.ck.LINES_BLOCK_POINTS,
-         self.ck.LINES_ONE_PASS_AIM, self.ck.LINES_AIM_POINTS,
-         self.ck.WALK_RADIX16) = self.saved
+         self.ck.LINES_ONE_PASS_AIM, self.ck.LINES_AIM_POINTS) = self.saved
 
 
 def _numpy_rel(got, want) -> float:
@@ -1221,12 +1224,6 @@ def _guarded(call, x, offset):
     return got, changed
 
 
-def _twofactor_guarded(ck, x, inverse, scale, swapped, offset):
-    """`_guarded` of one fft_twofactor launch."""
-    return _guarded(lambda *p, out: ck.fft_twofactor(
-        *p, inverse, scale, swapped, out=out), x, offset)
-
-
 # fft_conv_pair's named Bluestein lengths (n, in both directions): sample
 # 7's 10007 (m = 32768 = 128 x 256), odd column tiles (m = 8316 = 66 x 126
 # and 10648 = 44 x 242 over 2 blocks), even ones of planes that are not
@@ -1338,8 +1335,10 @@ def phase_any_kernels_vs_plain(ck, ce, dev) -> dict:
                 assert got[0] is inplace[0] and got[1] is inplace[1]
                 check("fft_twofactor", what + ("in place",), got, plain)
                 for offset in (0, 1):
-                    got, changed = _twofactor_guarded(ck, feed, inverse,
-                                                      scale, swapped, offset)
+                    got, changed = _guarded(
+                        lambda *p, out: ck.fft_twofactor(
+                            *p, inverse, scale, swapped, out=out),
+                        feed, offset)
                     assert changed == 0, (what, offset, changed)
                     check("fft_twofactor", what + ("guarded", offset), got,
                           plain)
@@ -1678,9 +1677,9 @@ def phase_any_times(vt, ck, dev) -> dict:
         regs = {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
     r, st, ld = regs["fft_conv_pair_kernel"]
 
-    def pair_extra(cluster=None):
-        nc, ns, c, threads, smem = ck.conv_pair_layout(m, cluster)
-        clusters, blocks = ck.conv_pair_occupancy(m, cluster)
+    def pair_extra():
+        nc, ns, c, threads, smem = ck.conv_pair_layout(m)
+        clusters, blocks = ck.conv_pair_occupancy(m)
         return {"m": m, "plane": [nc, ns], "cluster": c, "threads": threads,
                 "smem_bytes": smem, "registers": r, "spill_bytes": [st, ld],
                 "resident_clusters": clusters, "blocks_per_sm": blocks,
@@ -1702,25 +1701,21 @@ def phase_any_times(vt, ck, dev) -> dict:
             for c in ck.PAIR_CLUSTERS:
                 if nc % c or ns % c or m // c > ck.CONV_PAIR_TILE_MAX:
                     continue
-                for r16 in (False, True):
-                    with _conv_pair_plane_forced(ck, m, (nc, ns), r16):
-                        threads = ck.conv_pair_layout(m, c)[3]
-                    if all(ck.walk_rounds_fit(k, threads, r16)
-                           for k in (nc, ns)):
-                        variants.append(((nc, ns), c, r16))
+                with _conv_pair_plan_forced(ck, m, (nc, ns, c)):
+                    threads = ck.conv_pair_layout(m)[3]
+                if all(ck.walk_rounds_fit(k, threads, True) for k in (nc, ns)):
+                    variants.append((nc, ns, c))
     rows, tables = {}, {}
-    for plane, c, r16 in variants + variants[::-1]:
-        with _conv_pair_plane_forced(ck, m, plane, r16):
+    for plan in variants + variants[::-1]:
+        with _conv_pair_plan_forced(ck, m, plan):
             sp = ck.bluestein_spectrum(n, m, False, 1.0, dev, "pair")
-            if plane not in tables:
-                tables[plane] = ck.fft_conv_pair_plain(xr, xi, sp, chirp)
-            fn = lambda: ck.fft_conv_pair(xr, xi, sp, chirp, cluster=c)
-            row = rows.setdefault((plane, c, r16), dict(
-                pair_extra(c), radix16=r16, stages=sum(
-                    len((ck.walk_radices if r16 else ck.stage_radices)(k))
-                    for k in plane), ms=[]))
-            row["max_abs_err"] = _errors(fn(), tables[plane],
-                                         ("fft_conv_pair", plane, c, r16))
+            if plan[:2] not in tables:
+                tables[plan[:2]] = ck.fft_conv_pair_plain(xr, xi, sp, chirp)
+            fn = lambda: ck.fft_conv_pair(xr, xi, sp, chirp)
+            row = rows.setdefault(plan, dict(pair_extra(), stages=sum(
+                len(ck.walk_radices(k)) for k in plan[:2]), ms=[]))
+            row["max_abs_err"] = _errors(fn(), tables[plan[:2]],
+                                         ("fft_conv_pair", plan))
             row["ms"].append(_time_ms(fn))
     sweep_rows = list(rows.values())
     for row in sweep_rows:

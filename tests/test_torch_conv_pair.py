@@ -47,7 +47,7 @@ SERVED = _served()
 
 
 def _plan_table_points(m: int) -> int:
-    ints, _ = ck.stage_tables(m, False, 1.0, ck.WALK_RADIX16)
+    ints, _ = ck.stage_tables(m, False, 1.0, True)
     M, end = m, 0
     for s in range(ints[1]):
         r = ints[3 + s]
@@ -81,8 +81,7 @@ def _layout_ok(m, nc, ns, c, threads, smem) -> bool:
 def _stages(n: int) -> float:
     """The walk's stages of an n-point run, a generic radix r as r / 8."""
     return sum(1.0 if r in FIXED_RADICES else r / 8
-               for r in (ck.walk_radices if ck.WALK_RADIX16
-                         else ck.stage_radices)(n))
+               for r in ck.walk_radices(n))
 
 
 def _planes(m):
@@ -129,9 +128,9 @@ def test_layout_rule_every_served_length():
         assert nc == max(p[0] for p, v in cost.items() if v == least), m
         assert nc * ns == m and nc <= ns and m // c <= ck.CONV_PAIR_TILE_MAX
         assert _layout_ok(m, nc, ns, c, threads, smem), m
-        # the smallest cluster at most CONV_PAIR_TILE_AIM points a block
+        # the smallest cluster that fits
         assert c == min(k for k in (1, 2, 4, 8, 16) if nc % k == 0
-                        and ns % k == 0 and m // k <= ck.CONV_PAIR_TILE_AIM)
+                        and ns % k == 0 and m // k <= 8192)
 
 
 def test_plan_covers_the_same_lengths_as_before():
@@ -141,22 +140,23 @@ def test_plan_covers_the_same_lengths_as_before():
     assert ck.conv_pair_plan(66560) is None
 
 
-def test_cluster_sweep_layouts():
+def test_cluster_sweep_layouts(monkeypatch):
     """At sample 7's m = 32768 (128 x 256 = (16·8)(16·16), four stages a
-    direction): clusters of 4, 8 and 16 blocks
-    (8192, 4096, 2048 points a block), not 2 (16384 points: more than a
-    thread moves at 512 threads); cluster 4 by the rule, two blocks an SM
-    by shared memory."""
+    direction): cluster 4 by the rule, two blocks an SM by shared memory;
+    the sweep's clusters of 8 and 16 blocks (4096, 2048 points a block)
+    have layouts the C entry takes, 2 (16384 points, more than a thread
+    moves at 512 threads) has none."""
     m = 32768
     assert ck.conv_pair_layout(m)[:3] == (128, 256, 4)
+    assert 233472 // (ck.conv_pair_layout(m)[4] + 1024) == 2
+    rule = ck.conv_pair_plan
     for c, threads in ((4, 512), (8, 512), (16, 256)):
-        nc, ns, got, t, smem = ck.conv_pair_layout(m, c)
+        monkeypatch.setattr(ck, "conv_pair_plan",
+                            lambda k, c=c: (128, 256, c) if k == m else rule(k))
+        nc, ns, got, t, smem = ck.conv_pair_layout(m)
         assert (got, t) == (c, threads)
         assert _layout_ok(m, nc, ns, c, t, smem)
-    assert 233472 // (ck.conv_pair_layout(m)[4] + 1024) == 2
-    for c in (2, 3, 32):
-        with pytest.raises(ValueError, match="no layout"):
-            ck.conv_pair_layout(m, c)
+    assert m // 2 > ck.CONV_PAIR_TILE_MAX == 16 * 512
 
 
 @pytest.mark.parametrize("nc,ns", [(128, 256), (66, 126), (104, 160)])
@@ -210,8 +210,8 @@ def _stubbed_launches(monkeypatch):
 @pytest.mark.parametrize("n", [10007, 4127, 8198])
 def test_launch_arguments(monkeypatch, n):
     """One launch a call with the batch, n, the nc and ns plans forward and
-    inverse (no scale) and the layout of `conv_pair_layout` (or the cluster
-    asked for); in place when ``out`` is the input."""
+    inverse (no scale, `walk_radices`) and the layout of
+    `conv_pair_layout`; in place when ``out`` is the input."""
     m = plan_axis(n).decomp.bluestein_size
     nc, ns, c, _, _ = ck.conv_pair_layout(m)
     B = 3
@@ -223,22 +223,14 @@ def test_launch_arguments(monkeypatch, n):
         assert y[0].shape == (B, n)
         y = ck.fft_conv_pair(*x, spec, chirp, out=x)
         assert y[0] is x[0] and y[1] is x[1]
-        other = 8 if c != 8 and nc % 8 == 0 and ns % 8 == 0 else c
-        ck.fft_conv_pair(*x, spec, chirp, cluster=other)
-        assert ck.launches == {k: 3 if k == "fft_conv_pair" else 0
+        assert ck.launches == {k: 2 if k == "fft_conv_pair" else 0
                                for k in ck.KERNEL_SOURCES}
-    for call, cluster in zip(lib.calls, (None, None, other), strict=True):
+    for call in lib.calls:
         assert call["batch"] == B and call["n"] == n
-        assert call["layout"] == ck.conv_pair_layout(m, cluster)[2:]
+        assert call["layout"] == ck.conv_pair_layout(m)[2:]
         for ints, (k, inverse) in zip(call["plans"], ((nc, False), (ns, False),
                                                       (ns, True), (nc, True))):
             assert ints == list(ck.stage_tables(k, inverse, 1.0, True)[0])
-
-
-def test_wrapper_refuses_a_cluster_in_the_2d_mode():
-    x = torch.zeros(1, 16, 16)
-    with pytest.raises(ValueError, match="pair_cluster"):
-        ck.fft_conv_pair(x, x, torch.zeros(256, 2), cluster=2)
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -35,7 +35,7 @@ def _plan_table_points(m: int) -> int:
     length m: where its last stage's twiddles or roots end."""
     if m == 1:
         return 0
-    ints, _ = ck.stage_tables(m, False, 1.0, ck.WALK_RADIX16)
+    ints, _ = ck.stage_tables(m, False, 1.0, True)
     M, end = m, 0
     for s in range(ints[1]):
         r = ints[3 + s]
@@ -84,7 +84,7 @@ def test_layout_rule_every_length():
     (a thread for about 16 points in one pass, 32 in two factors), whole
     lines up to 16384 points, every stage's sequence within a round, and
     exactly the shared bytes of its lines and tables, at most 227 KB; one
-    pass (n2 = 1) exactly where a block holds two or more lines and the
+    pass (n2 = 1) exactly where a block holds eight lines or more and the
     stages fit a round."""
     assert len(LENGTHS) == 2541
     two = 0
@@ -92,8 +92,8 @@ def test_layout_rule_every_length():
         n1, n2 = ck.lines_split(n)
         threads, lines, smem = ck.lines_layout(n)
         assert n1 * n2 == n and n1 >= n2, n
-        assert lines == max(1, 2048 // n) and lines * n <= 16384, n
-        one = lines > 1 and _rounds_fit(n, _threads(lines * n, 16))
+        assert lines == max(1, 4096 // n) and lines * n <= 16384, n
+        one = lines >= 8 and _rounds_fit(n, _threads(lines * n, 16))
         assert (n2 == 1) == one, n
         assert threads == _threads(lines * n, 16 if one else 32), n
         assert _rounds_fit(n1, threads) and _rounds_fit(n2, threads), n
@@ -101,23 +101,31 @@ def test_layout_rule_every_length():
                   + _plan_table_points(n2) + 64 + -(-n // 64))
         assert smem == 8 * points <= ck.MAX_SMEM_BYTES, n
         two += n2 > 1
-    assert two == 1973
+    assert two == 2195
 
 
-@pytest.mark.parametrize("n,split", [(256, (256, 1)), (1024, (1024, 1)),
-                                     (2048, (64, 32)), (4096, (64, 64)),
+@pytest.mark.parametrize("n,split", [(256, (256, 1)), (1024, (64, 16)),
+                                     (2048, (128, 16)), (4096, (256, 16)),
                                      (3591, (63, 57)), (8192, (128, 64)),
                                      (7175, (175, 41)), (2, (2, 1)),
                                      (47, (47, 1))])
 def test_split_of_named_lengths(n, split):
-    """256 and 1024 (several lines a block) and the short lines run as one
-    pass, 256 as 16 · 16 and 1024 as 16 · 16 · 4; a lone line (2048 and
-    up) runs as the two factors of `twofactor_split`."""
+    """256 (16 lines a block, as 16 · 16) and the short lines run as one
+    pass; lines of 513 points and up (fewer than 8 a block) as the two
+    factors of fewest stages, then the most square: 1024 as 64 x 16, 4096
+    as 256 x 16 (16 · 16 and 16), not 64 x 64 (8 · 8 twice)."""
     assert ck.lines_split(n) == split
-    if split[1] > 1:
-        assert split == ck.twofactor_split(n)
     assert ck.walk_radices(256) == (16, 16)
-    assert ck.walk_radices(1024) == (16, 16, 4)
+    assert ck.walk_radices(1024) == (16, 16, 4)   # one pass: 2 lines a block
+    if split[1] > 1:
+        threads = ck.lines_layout(n)[0]
+        cost = {(n // d, d): len(ck.walk_radices(n // d))
+                + len(ck.walk_radices(d))
+                for d in range(2, n) if n % d == 0 and n // d >= d
+                and all(_rounds_fit(k, threads) for k in (n // d, d))}
+        least = min(cost.values())
+        assert cost[split] == least
+        assert split[1] == max(p[1] for p, v in cost.items() if v == least)
 
 
 @pytest.mark.parametrize("n", [256, 3591, 8192])

@@ -24,7 +24,7 @@
 // Bound: bytes.  Each point of the planes is read once and written once
 // (16 B), the spectrum once a launch; the two m-point FFTs a line are
 // ~10 m log2 m flops, under the card's fp32 rate for those bytes at m <=
-// 8192.  Design: as fft_lines, a block holds lpb lines in shared memory
+// 8192.  Design: a block holds lpb lines in shared memory
 // (two buffers of lpb * m float2) and runs every stage there
 // (stockham.cuh): floor(2048/m) lines (at least one) in the scalar, rows
 // and Bluestein modes, and in the matrix mode whole batch items of mm

@@ -84,8 +84,10 @@ fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi, Plan py,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  `plan_y`/`plan_z` and `table_y`/`table_z` as for vk_fft_lines,
-// one per axis; `cluster` blocks share each plane and must divide ny and nz.
+// success).  `plan_y`/`plan_z` are the int forms of vkfft::Plan and
+// `table_y`/`table_z` the device twiddle tables as interleaved (re, im)
+// fp32 pairs, one per axis; `cluster` blocks share each plane and must
+// divide ny and nz.
 int vk_fft_pair(const float* xr, const float* xi, float* yr, float* yi,
                 long long planes, const int* plan_y, const int* plan_z,
                 const float* table_y, const float* table_z, int cluster,

@@ -54,7 +54,9 @@ fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  Arguments as for vk_fft_lines, with the (P, n, S) extents.
+// success).  `plan` is the int form of vkfft::Plan, `table` the device
+// twiddle table as interleaved (re, im) fp32 pairs, with the (P, n, S)
+// extents.
 int vk_fft_strided(const float* xr, const float* xi, float* yr, float* yi,
                    long long P, long long S, const int* plan,
                    const float* table, void* stream) {

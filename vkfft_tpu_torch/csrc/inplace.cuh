@@ -94,15 +94,6 @@ __device__ __forceinline__ float2 inter_twiddle(int e, const float2* lo,
   return cmul(hi[e >> 6], lo[e & (kTwLo - 1)]);
 }
 
-// The hook of a pass with nothing on its last stage.
-struct NoHook {
-  __device__ __forceinline__ bool on() const { return false; }
-  __device__ __forceinline__ NoHook off() const { return *this; }
-  __device__ __forceinline__ float2 operator()(float2 v, int, int) const {
-    return v;
-  }
-};
-
 // fft_twofactor's inter-factor twiddle: output k of sequence `seq` times
 // w^(seq * k) from its two tables (the scale in `hi`); off when lo is null.
 struct InterTwiddle {

@@ -147,15 +147,14 @@ _WALK_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 # `fft_conv_pair`'s Bluestein mode (csrc/fft_conv_pair.cu): padded lengths
 # up to 2^16, the plane held once over a cluster of up to 16 blocks, a
 # block at most CONV_PAIR_TILE_MAX points (its exchange moves at most
-# CONV_PAIR_XCHG points a thread, kXchg, at up to 512 threads, kPairThreads)
-# and the cluster the smallest whose blocks hold at most
-# CONV_PAIR_TILE_AIM points (chosen by a sweep of the cluster on the card,
-# PERF.md); the layout aims at 8 points a thread.
+# CONV_PAIR_XCHG points a thread, kXchg, at up to 512 threads,
+# kPairThreads); the smallest such cluster, which a sweep of planes and
+# clusters on the card found the fastest (PERF.md); the layout aims at 8
+# points a thread.
 CONV_PAIR_MAX_M = 1 << 16
 CONV_PAIR_THREADS = 512
 CONV_PAIR_XCHG = 16
 CONV_PAIR_TILE_MAX = CONV_PAIR_XCHG * CONV_PAIR_THREADS
-CONV_PAIR_TILE_AIM = 8192
 CONV_PAIR_AIM_POINTS = 8
 _MAX_STAGES = 16  # vkfft::kMaxStages in csrc/stockham.cuh
 # Radices with a butterfly of their own in csrc/stockham.cuh; every other
@@ -432,19 +431,20 @@ def conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
     8 or 16 blocks dividing nc and ns whose blocks hold at most
     CONV_PAIR_TILE_MAX points, and of those the plane of the fewest stages
     (`walk_radices`; a generic radix r counts r / 8), then the most square;
-    the cluster the smallest whose blocks hold at most CONV_PAIR_TILE_AIM
-    points, else the smallest that fits.  None when m > 2^16 or no split
+    the cluster the smallest that fits.  None when m > 2^16 or no split
     fits a cluster.  The walk's time follows its stages (PERF.md)."""
-    return _conv_pair_plan(m, WALK_RADIX16)
+    return _conv_pair_plan(m)
 
 
-def _stage_cost(n: int, walk: bool) -> float:
+def _stage_cost(n: int) -> float:
+    """The in-place walk's stages of an n-point run, a generic radix r
+    counted r / 8 (its O(r^2) sums)."""
     return sum(1.0 if r in _WALK_FIXED_RADICES else r / 8.0
-               for r in (walk_radices if walk else stage_radices)(n))
+               for r in walk_radices(n))
 
 
 @functools.lru_cache(maxsize=1024)
-def _conv_pair_plan(m: int, walk: bool) -> Optional[tuple[int, int, int]]:
+def _conv_pair_plan(m: int) -> Optional[tuple[int, int, int]]:
     if m > CONV_PAIR_MAX_M:
         return None
     best, best_key = None, None
@@ -458,48 +458,37 @@ def _conv_pair_plan(m: int, walk: bool) -> Optional[tuple[int, int, int]]:
                 and m // c <= CONV_PAIR_TILE_MAX]
         if not fits:
             continue
-        key = (_stage_cost(nc, walk) + _stage_cost(ns, walk), -nc)
+        key = (_stage_cost(nc) + _stage_cost(ns), -nc)
         if best_key is None or key < best_key:
-            best_key = key
-            best = (nc, ns, next((c for c in fits
-                                  if m // c <= CONV_PAIR_TILE_AIM), fits[0]))
+            best_key, best = key, (nc, ns, fits[0])
     return best
 
 
-def conv_pair_layout(m: int, cluster: Optional[int] = None
-                     ) -> tuple[int, int, int, int, int]:
+def conv_pair_layout(m: int) -> tuple[int, int, int, int, int]:
     """(nc, ns, cluster, threads, shared bytes) of an `fft_conv_pair`
     Bluestein block for padded length m, the one layout rule (the C entry
-    refuses any other): `conv_pair_plan`'s plane and cluster, or
-    ``cluster`` blocks (1, 2, 4, 8 or 16, dividing nc and ns, at most
-    CONV_PAIR_TILE_MAX points a block) when given; ``threads`` a multiple
-    of 32 near one thread for 8 points of the block's m / cluster, at most
-    512; the block's tile at the row pitch ns | 1, the four stage tables
-    and the four-step twiddle's two root tables."""
+    refuses any other): `conv_pair_plan`'s plane and cluster; ``threads`` a
+    multiple of 32 near one thread for 8 points of the block's m /
+    cluster, at most 512; the block's tile at the row pitch ns | 1, the
+    four stage tables (`walk_radices`) and the four-step twiddle's two
+    root tables."""
     nc, ns, c = conv_pair_plan(m)
-    if cluster is not None:
-        if (cluster not in PAIR_CLUSTERS or nc % cluster or ns % cluster
-                or m // cluster > CONV_PAIR_TILE_MAX):
-            raise ValueError(f"fft_conv_pair: no layout of m = {m} "
-                             f"({nc} x {ns}) over {cluster} blocks")
-        c = cluster
     tile = m // c
     want = -(-tile // CONV_PAIR_AIM_POINTS)
     threads = min(CONV_PAIR_THREADS, max(32, -(-want // 32) * 32))
-    points = ((nc // c) * (ns | 1) + 2 * _table_points(nc, WALK_RADIX16)
-              + 2 * _table_points(ns, WALK_RADIX16) + TWOFACTOR_TW_LO
+    points = ((nc // c) * (ns | 1) + 2 * _table_points(nc, True)
+              + 2 * _table_points(ns, True) + TWOFACTOR_TW_LO
               + -(-m // TWOFACTOR_TW_LO))
     return nc, ns, c, threads, 8 * points
 
 
-def conv_pair_occupancy(m: int, cluster: Optional[int] = None
-                        ) -> tuple[int, int]:
+def conv_pair_occupancy(m: int) -> tuple[int, int]:
     """(resident clusters on the card, resident blocks an SM) of
     `fft_conv_pair`'s Bluestein mode at the layout of padded length m, from
     ``cudaOccupancyMaxActiveClusters`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
     ``vk_fft_conv_pair_occupancy``)."""
-    _, _, c, threads, smem = conv_pair_layout(m, cluster)
+    _, _, c, threads, smem = conv_pair_layout(m)
     fn = _library("fft_conv_pair").vk_fft_conv_pair_occupancy
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
@@ -767,16 +756,14 @@ def _block_threads(points: int, aim: int = TWOFACTOR_AIM_POINTS) -> int:
 
 # `fft_lines`' block (csrc/fft_lines.cu): lines shorter than
 # LINES_BLOCK_POINTS share a block up to that many points, a thread for
-# about LINES_ONE_PASS_AIM of them in one pass or LINES_AIM_POINTS in two
-# factors: small blocks, many to an SM, so more of each SM's data is in
-# flight (chip_smoke.py's layout sweep, PERF.md).
-LINES_BLOCK_POINTS = 2048
+# about LINES_ONE_PASS_AIM of them in one pass (where a block holds
+# LINES_ONE_PASS_LINES lines or more) or LINES_AIM_POINTS in two factors:
+# small blocks, many to an SM, so more of each SM's data is in flight
+# (chip_smoke.py's layout sweep, PERF.md).
+LINES_BLOCK_POINTS = 4096
+LINES_ONE_PASS_LINES = 8
 LINES_ONE_PASS_AIM = 16
 LINES_AIM_POINTS = 32
-# The walk kernels' stages: `walk_radices` (radix 16 where it makes fewer
-# stages) or, when False, `stage_radices` (chip_smoke.py's sweeps time
-# both, PERF.md).  `fft_twofactor` keeps `stage_radices`.
-WALK_RADIX16 = True
 
 
 def _lines_block(n: int, one_pass: bool) -> tuple[int, int]:
@@ -788,16 +775,39 @@ def _lines_block(n: int, one_pass: bool) -> tuple[int, int]:
 
 def lines_split(n: int) -> tuple[int, int]:
     """(n1, n2) of `fft_lines` for length n: (n, 1), one pass of n-point
-    stages, where a block holds two or more lines (n <= 1024) and every
-    stage's sequences fit one round of its threads (`walk_rounds_fit`),
-    else the two factors of `twofactor_split`.  A round holds whole
-    sequences, and a line's last stage is one sequence of n / r
-    butterflies; a lone line in one pass reads its late stages at a stride
-    of r points (bank conflicts: 4096 took 0.219 ms so, 0.154 as 64 x 64)."""
+    stages, where a block holds LINES_ONE_PASS_LINES lines or more (n <=
+    512) and every stage's sequences fit one round of its threads
+    (`walk_rounds_fit`), else two factors (`_lines_factors`).  A round
+    holds whole sequences, and a line's last stage is one sequence of n /
+    r butterflies; in one pass, a block of few lines reads its late stages
+    at a stride of r points (bank conflicts: 4096 took 0.219 ms so, 0.141
+    as 256 x 16; 1024 0.149 and 0.133 as 64 x 16)."""
     threads, lines = _lines_block(n, True)
-    if lines > 1 and walk_rounds_fit(n, threads, WALK_RADIX16):
+    if lines >= LINES_ONE_PASS_LINES and walk_rounds_fit(n, threads, True):
         return n, 1
-    return twofactor_split(n)
+    return _lines_factors(n)
+
+
+@functools.lru_cache(maxsize=4096)
+def _lines_factors(n: int) -> tuple[int, int]:
+    """The two factors n1 >= n2 > 1 of a lone `fft_lines` line: the fewest
+    stages (`walk_radices`, a generic radix r as r / 8), then the most
+    square, among those whose stages fit a round of its threads; else
+    `twofactor_split` (a prime n: (n, 1))."""
+    threads = _block_threads(n, LINES_AIM_POINTS)
+    best, best_key = None, None
+    for n2 in _divisors(n)[1:]:
+        n1 = n // n2
+        if n1 < n2:
+            break
+        if not (stage_radices(n1) and stage_radices(n2)
+                and walk_rounds_fit(n1, threads, True)
+                and walk_rounds_fit(n2, threads, True)):
+            continue
+        key = (_stage_cost(n1) + _stage_cost(n2), -n2)
+        if best_key is None or key < best_key:
+            best, best_key = (n1, n2), key
+    return best or twofactor_split(n)
 
 
 def lines_layout(n: int) -> tuple[int, int, int]:
@@ -811,8 +821,8 @@ def lines_layout(n: int) -> tuple[int, int, int]:
     twiddle's two tables."""
     n1, n2 = lines_split(n)
     threads, lines = _lines_block(n, n2 == 1)
-    points = (lines * n2 * (n1 | 1) + _table_points(n1, WALK_RADIX16)
-              + _table_points(n2, WALK_RADIX16)
+    points = (lines * n2 * (n1 | 1) + _table_points(n1, True)
+              + _table_points(n2, True)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
     return threads, lines, 8 * points
 
@@ -1520,8 +1530,8 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     def args():
         n1, n2 = lines_split(n)
-        p1, t1 = _plan(n1, inverse, 1.0, re.device, WALK_RADIX16)
-        p2, t2 = _plan(n2, inverse, 1.0, re.device, WALK_RADIX16)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device, True)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device, True)
         tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
                            lambda: twofactor_twiddle_pair(n, inverse, scale))
         return (B, p1, p2, t1, t2, tw, *lines_layout(n))
@@ -1999,7 +2009,7 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
                   chirp: Optional[torch.Tensor] = None, out=None,
                   conj_data: bool = False, xpow: bool = False,
-                  scale: float = 1.0, cluster: Optional[int] = None):
+                  scale: float = 1.0):
     """A plane held in a thread-block cluster, in one of two modes.
 
     With ``chirp`` (an (n, 2) table), the Bluestein mode: each line of (B,
@@ -2007,8 +2017,7 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     `conv_pair_plan` splits into an (nc, ns) plane: the lines times the
     chirp, zero-padded to m, convolved with the spectrum (an (m, 2) table
     in the plane order, `bluestein_spectrum(..., layout="pair")`), cropped
-    to n and times the chirp again.  ``cluster`` overrides the layout's
-    cluster (`conv_pair_layout`), to measure another one.
+    to n and times the chirp again.
 
     Without, the 2-D mode: each (ny, nz) plane of (B, ny, nz) float32
     planes circularly convolved with a fixed kernel, the inverse 2-D DFT,
@@ -2032,9 +2041,6 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     stages, gathers a column tile, runs the ny stages, multiplies, and
     mirrors back (``csrc/fft_conv_pair.cu``)."""
     if chirp is None:
-        if cluster is not None:
-            raise ValueError("fft_conv_pair: the 2-D mode takes its cluster "
-                             "from pair_cluster")
         return _fft_conv2d(re, im, spectrum, out, conj_data, xpow, scale)
     _check_planes(re, im, 2, "fft_conv_pair")
     B, n = re.shape
@@ -2044,7 +2050,7 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
             f"fft_conv_pair: a padded length {m} that fits no cluster plane "
             "(m <= 2^16); the engine runs longer Bluestein lengths on the "
             "long tier (cuda_engine.route)")
-    layout = conv_pair_layout(m, cluster)
+    layout = conv_pair_layout(m)
     nc, ns = layout[:2]
     _check_table(spectrum, m, re, "fft_conv_pair")
     if not 1 <= n < m:
@@ -2058,10 +2064,10 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     def args():
         dev = re.device
-        pcf, tcf = _plan(nc, False, 1.0, dev, WALK_RADIX16)
-        psf, tsf = _plan(ns, False, 1.0, dev, WALK_RADIX16)
-        psi, tsi = _plan(ns, True, 1.0, dev, WALK_RADIX16)
-        pci, tci = _plan(nc, True, 1.0, dev, WALK_RADIX16)
+        pcf, tcf = _plan(nc, False, 1.0, dev, True)
+        psf, tsf = _plan(ns, False, 1.0, dev, True)
+        psi, tsi = _plan(ns, True, 1.0, dev, True)
+        pci, tci = _plan(nc, True, 1.0, dev, True)
         tw = device_array(("twofactor_pair", m, False, 1.0), dev,
                            lambda: twofactor_twiddle_pair(m, False))
         return (B, n, pcf, psf, psi, pci, tcf, tsf, tsi, tci, tw, spectrum,
