@@ -10,7 +10,12 @@ Phases (each asserts; any failure exits non-zero before the result line):
      every even n whose n/2 they take, up to 16384, alternating direction
      and layout), and on a subset against numpy fp64 (<= 5e-6); fft_lines
      also at named lengths in both directions, in place and with its
-     output inside sentinel guards; then the
+     output inside sentinel guards; fft_pair also on planes whose long
+     axis runs as two factors, on every PAIR_SWEEP_STRIDE-th plane it
+     serves and the first of each layout class, both directions, and on
+     planes of several clusters in place and inside sentinel guards;
+     fft_r2c/fft_c2r at named lengths in both layouts and directions with
+     their outputs inside sentinel guards, aligned and not; then the
      API's other routes (axis subsets, odd, tiny and length-1 axes, complex
      tensors, the real transforms' merged, tiny and explicit-n routes, the
      numpy rule for Im(DC/Nyquist), irfftn with an s that crops or pads
@@ -33,8 +38,11 @@ Phases (each asserts; any failure exits non-zero before the result line):
      back-to-back calls): each kernel at the main path's shapes (the
      strided kernel also on the real cube's (1, 256, 33024) half spectrum,
      both directions), held against its plain version there (<= 1e-5 of
-     max|ref|; fft_lines with its registers, spills, layout and blocks an
-     SM, and a sweep of its layouts), and each end-to-end round trip,
+     max|ref|; fft_lines, fft_r2c/fft_c2r and fft_pair with their
+     registers, spills, layouts and blocks an SM, and a sweep of their
+     layouts: fft_lines' and fft_r2c's splits, lines a block and points a
+     thread, fft_pair's cluster and points a thread; fft_pair also
+     beside the two axis passes it replaces), and each end-to-end round trip,
      beside the HBM-bandwidth bound and the torch.fft time of the same
      function;
   5. lengths of any size: fft_conv, fft_twofactor, fft_conv_inv and
@@ -136,8 +144,9 @@ each kernel, the card's name and power limit, and
 
 --phases runs only the named phases, in their order (say
 toolchain,dd_kernels,dd_times to iterate on fft_dd,
-toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair, or
-toolchain,kernels,times,long_kernels,long_times on fft_lines), writes their record
+toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
+toolchain,kernels,times,long_kernels,long_times on fft_lines and fft_pair,
+or toolchain,real_kernels,real_times on fft_r2c), writes their record
 to chiprun_out/chip_smoke_phases.json and prints no result line.
 """
 from __future__ import annotations
@@ -280,7 +289,8 @@ def phase_toolchain(ck) -> dict:
             log = f.read()
         info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln]
-        if name in ("fft_dd", "fft_twofactor", "fft_lines", "fft_conv_pair"):
+        if name in ("fft_dd", "fft_twofactor", "fft_lines", "fft_conv_pair",
+                    "fft_r2c", "fft_pair"):
             # every kernel: (kernel, registers, spill stores, loads)
             info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
@@ -293,6 +303,24 @@ def phase_toolchain(ck) -> dict:
 # factors), and lines of two factors alone in a block (2048, 3591 = 63 *
 # 57, 7175 = 175 * 41, 8192)
 LINES_NAMED = (2, 3, 47, 256, 1024, 2048, 3591, 4096, 7175, 8192)
+
+
+# fft_pair: planes whose long axis runs as two factors (z: 8064 = 112 x
+# 72, 7182 = 114 x 63; y: 8064, and 4096 one pass over 2 blocks), the
+# stride of the sweep over the served planes, and the planes launched
+# inside sentinel guards, several clusters each (256 x 256 over 8 blocks,
+# an odd plane over 1, columns of 3 over 4 blocks, two factors over 2)
+PAIR_TWO_FACTOR = ((2, 2, 8064), (2, 8064, 2), (3, 2, 7182), (3, 4096, 4))
+PAIR_SWEEP_STRIDE = 97
+PAIR_GUARDED = ((3, 256, 256), (5, 47, 60), (3, 64, 12), (3, 2, 8064))
+
+
+def _pair_served(ck) -> list:
+    """Every (ny, nz) plane fft_pair serves (`pair_cluster`)."""
+    lengths = [n for n in range(2, ck.KERNEL_MAX_N + 1)
+               if ck.kernel_supports(n)]
+    return [(ny, nz) for ny in lengths for nz in lengths
+            if ny * nz <= 131072 and ck.pair_cluster(ny, nz) is not None]
 
 
 def phase_kernels_vs_plain(ck, dev) -> dict:
@@ -343,7 +371,7 @@ def phase_kernels_vs_plain(ck, dev) -> dict:
             out["fft_strided"].append(row)
     pair_shapes = [(3, 16, 16), (2, 8, 12), (7, 2, 4), (2, 47, 60),
                    (5, 128, 128), (2, 64, 256), (3, 256, 256), (2, 8, 8192),
-                   (256, 256, 256)]
+                   (256, 256, 256)] + list(PAIR_TWO_FACTOR)
     for (B, ny, nz) in pair_shapes:
         xr, xi = _planes((B, ny, nz), B + ny * nz, dev)
         for inverse in (False, True):
@@ -352,7 +380,8 @@ def phase_kernels_vs_plain(ck, dev) -> dict:
             torch.cuda.synchronize()
             pr, pi = ck.fft_pair_plain(xr, xi, inverse, scale)
             err = _rel(torch.complex(yr, yi), torch.complex(pr, pi))
-            row = {"shape": [B, ny, nz], "cluster": ck.pair_cluster(ny, nz),
+            row = {"shape": [B, ny, nz], "layout": ck.pair_layout(ny, nz),
+                   "splits": ck.pair_splits(ny, nz),
                    "inverse": inverse, "rel_err_plain": err}
             assert err <= KERNEL_TOL, row
             if B * ny * nz <= 1 << 20:
@@ -364,6 +393,56 @@ def phase_kernels_vs_plain(ck, dev) -> dict:
                                              / np.abs(want).max())
                 assert row["rel_err_numpy"] <= NUMPY_TOL, row
             out["fft_pair"].append(row)
+    # fft_pair over the planes it serves: every PAIR_SWEEP_STRIDE-th and
+    # the first of each layout class (cluster, threads, which axes run as
+    # two factors, the column tile's width mod 4), both directions
+    served = _pair_served(ck)
+    classes, picked = {}, []
+    for i, (ny, nz) in enumerate(served):
+        c, threads, _ = ck.pair_layout(ny, nz)
+        (_, n2z), (_, n2y) = ck.pair_splits(ny, nz)
+        key = (c, threads, n2z > 1, n2y > 1, (nz // c) % 4)
+        if key not in classes or i % PAIR_SWEEP_STRIDE == 0:
+            classes.setdefault(key, (ny, nz))
+            picked.append((ny, nz))
+    worst = 0.0
+    for i, (ny, nz) in enumerate(picked):
+        xr, xi = _planes((2, ny, nz), i, dev)
+        for inverse in (False, True):
+            scale = 1.0 / (ny * nz) if inverse else 0.5
+            err = _rel(torch.complex(*ck.fft_pair(xr, xi, inverse, scale)),
+                       torch.complex(*ck.fft_pair_plain(xr, xi, inverse,
+                                                        scale)))
+            assert err <= KERNEL_TOL, ("fft_pair", ny, nz, inverse, err)
+            worst = max(worst, err)
+    out["pair_sweep"] = {"served": len(served), "checked": len(picked),
+                         "classes": len(classes), "worst": worst}
+    _log(f"[kernels] fft_pair over the served planes: {out['pair_sweep']}")
+    # fft_pair on planes of several clusters, both directions, in place and
+    # with its output inside sentinel guards, aligned and not
+    out["fft_pair_guarded"] = {"launches": 0, "occupancy": {}}
+    for (B, ny, nz) in PAIR_GUARDED:
+        out["fft_pair_guarded"]["occupancy"][f"{ny}x{nz}"] = \
+            ck.pair_occupancy(ny, nz)
+        xr, xi = _planes((B, ny, nz), ny + nz, dev)
+        for inverse in (False, True):
+            scale = 1.0 / (ny * nz) if inverse else 0.5
+            plain = ck.fft_pair_plain(xr, xi, inverse, scale)
+            inplace = (xr.clone(), xi.clone())
+            got = ck.fft_pair(*inplace, inverse, scale, out=inplace)
+            err = _rel(torch.complex(*got), torch.complex(*plain))
+            assert err <= KERNEL_TOL, ("fft_pair in place", ny, nz, err)
+            for offset in (0, 1):
+                got, changed = _guarded(
+                    lambda *p, out: ck.fft_pair(*p, inverse, scale, out=out),
+                    (xr, xi), offset)
+                err = _rel(torch.complex(*got), torch.complex(*plain))
+                row = {"shape": [B, ny, nz], "inverse": inverse,
+                       "offset": offset, "rel_err_plain": err,
+                       "guard_cells_changed": changed}
+                assert changed == 0 and err <= KERNEL_TOL, row
+                out["fft_pair_guarded"]["launches"] += 1
+    _log(f"[kernels] fft_pair guarded: {out['fft_pair_guarded']}")
     # fft_lines at named lengths (one pass, or two factors where a stage's
     # sequences do not fit a round), both directions, in place and with its
     # output inside sentinel guards, aligned and not
@@ -609,21 +688,59 @@ def phase_times(vt, ck, dev) -> dict:
         del xr, xi, xc
     B, ny, nz = CUBE
     xr, xi = _planes(CUBE, 5, dev)
-    err = _errors(ck.fft_pair(xr, xi, False), ck.fft_pair_plain(xr, xi, False),
-                  ("fft_pair", CUBE))
+    plain = ck.fft_pair_plain(xr, xi, False)
+    err = _errors(ck.fft_pair(xr, xi, False), plain, ("fft_pair", CUBE))
     xc = torch.complex(xr, xi)
     nbytes = 16.0 * B * ny * nz
     bound, by = _bound(nbytes, _fft_ops(B * ny * nz, ny * nz))
+    with open(ck.library_path("fft_pair")[:-3] + ".log") as f:
+        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+
+    def pair_extra():
+        c, threads, smem = ck.pair_layout(ny, nz)
+        clusters, blocks = ck.pair_occupancy(ny, nz)
+        return {"cluster": c, "threads": threads,
+                "smem_bytes": smem, "splits": ck.pair_splits(ny, nz),
+                "registers": regs, "spill_bytes": [spill_st, spill_ld],
+                "resident_clusters": clusters, "blocks_per_sm": blocks}
+
+    # the two axis passes it replaces: fft_lines on the rows, fft_strided
+    # down the columns
+    lr, li = xr.view(B * ny, nz), xi.view(B * ny, nz)
+
+    def axis_passes():
+        zr, zi = ck.fft_lines(lr, li, False)
+        return ck.fft_strided(zr.view(B, ny, nz), zi.view(B, ny, nz), False)
+
     ms = _time_ms(lambda: ck.fft_pair(xr, xi, False))
-    row = {"shape": list(CUBE), "cluster": ck.pair_cluster(ny, nz), "ms": ms,
+    row = {"shape": list(CUBE), "ms": ms,
            "GBs": nbytes / ms / 1e6, "bound_ms": bound, "bound_by": by,
            "max_abs_err": err,
            "plain_ms": _time_ms(lambda: ck.fft_pair_plain(xr, xi, False),
                                 reps=5, inner=1, warmup=1),
-           "library_ms": _time_ms(lambda: torch.fft.fft2(xc))}
+           "library_ms": _time_ms(lambda: torch.fft.fft2(xc)),
+           "axis_passes_ms": _time_ms(axis_passes), **pair_extra()}
     _log(f"[time] fft_pair {row}")
     kernels["fft_pair"].append(row)
-    del xr, xi, xc
+    # the cluster sweep at 256 x 256: clusters of 4, 8 and 16 blocks
+    # (PAIR_TILE_POINTS) at 8 or 16 points a thread, timed in turns (down
+    # the list, then up), each against the plain version first
+    pair_sweep = []
+    for tile in (16384, 8192, 4096):
+        for aim in (8, 16):
+            v = {"tile_points": tile, "aim": aim}
+            with _pair_layout_forced(ck, v):
+                v.update(pair_extra(), ms=[])
+            if all((p["cluster"], p["threads"]) != (v["cluster"], v["threads"])
+                   for p in pair_sweep):
+                pair_sweep.append(v)
+    for v in pair_sweep + pair_sweep[::-1]:
+        with _pair_layout_forced(ck, v):
+            fn = lambda: ck.fft_pair(xr, xi, False)
+            v["max_abs_err"] = _errors(fn(), plain, ("fft_pair", v))
+            v["ms"].append(_time_ms(fn))
+    _log(f"[time] fft_pair layout sweep: {pair_sweep}")
+    del xr, xi, xc, plain
 
     e2e = []
     for n in ROWS_1D:
@@ -656,12 +773,15 @@ def phase_times(vt, ck, dev) -> dict:
     row["vs_torch_fft"] = row["torch_fft_ms"] / ms
     _log(f"[time] e2e {row}")
     e2e.append(row)
-    return {"kernels": kernels, "e2e": e2e, "fft_lines_layout_sweep": split_sweep}
+    return {"kernels": kernels, "e2e": e2e, "fft_lines_layout_sweep": split_sweep,
+            "fft_pair_layout_sweep": pair_sweep}
 
 
 # fft_lines' layout sweep: (LINES_BLOCK_POINTS, points a thread) at each
 # split of `_lines_splits`; the layouts a length does not fit are left out
 LINES_SWEEP = tuple((bp, aim) for bp in (2048, 4096) for aim in (16, 32))
+# fft_r2c's: (points a block, points a thread) of its m-point DFT
+R2C_SWEEP = tuple((bp, aim) for bp in (1024, 2048, 4096) for aim in (8, 16, 32))
 
 
 def _lines_splits(ck, n):
@@ -697,6 +817,24 @@ class _conv_pair_plan_forced:
         self.ck._DEVICE_TABLES.clear()
 
 
+class _pair_layout_forced:
+    """fft_pair with the tile points and points a thread of layout ``v``
+    for the time of the block (`cuda_kernels.pair_layout` reads
+    PAIR_TILE_POINTS and PAIR_AIM_POINTS)."""
+
+    def __init__(self, ck, v):
+        self.ck, self.v = ck, v
+
+    def __enter__(self):
+        ck, v = self.ck, self.v
+        self.saved = (ck.PAIR_TILE_POINTS, ck.PAIR_AIM_POINTS)
+        ck.PAIR_TILE_POINTS = v["tile_points"]
+        ck.PAIR_AIM_POINTS = v["aim"]
+
+    def __exit__(self, *exc):
+        self.ck.PAIR_TILE_POINTS, self.ck.PAIR_AIM_POINTS = self.saved
+
+
 class _lines_layout_forced:
     """fft_lines with the split, lines a block and points a thread of
     layout ``v`` for the time of the block (its layout rule reads
@@ -719,12 +857,66 @@ class _lines_layout_forced:
          self.ck.LINES_ONE_PASS_AIM, self.ck.LINES_AIM_POINTS) = self.saved
 
 
+class _r2c_layout_forced:
+    """fft_r2c with the split, points a block and points a thread of
+    layout ``v`` for the time of the block (its layout rule reads
+    `cuda_kernels.r2c_split`, R2C_BLOCK_POINTS and R2C_AIM_POINTS)."""
+
+    def __init__(self, ck, v):
+        self.ck, self.v = ck, v
+
+    def __enter__(self):
+        ck, v = self.ck, self.v
+        self.saved = (ck.r2c_split, ck.R2C_BLOCK_POINTS, ck.R2C_AIM_POINTS)
+        ck.r2c_split = lambda n: tuple(v["split"])
+        ck.R2C_BLOCK_POINTS = v["block_points"]
+        ck.R2C_AIM_POINTS = v["aim"]
+
+    def __exit__(self, *exc):
+        (self.ck.r2c_split, self.ck.R2C_BLOCK_POINTS,
+         self.ck.R2C_AIM_POINTS) = self.saved
+
+
 def _numpy_rel(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.double().cpu().numpy()
+
+
+# fft_r2c's named lengths (real n): m = 2, odd m = 3 and 47, the main
+# path's 1024 (one pass, 8 lines a block), m = 1000 and 1024 (two
+# factors, 4 lines a block), 7182 (m = 63 * 57) and the longest, 16384
+R2C_NAMED = (4, 6, 94, 1024, 2000, 2048, 7182, 16384)
+R2C_GUARD = 1 << 14           # sentinel floats each side of an output
+
+
+def _r2c_guarded(ck, x, packed, inverse, offset, dev):
+    """One launch of fft_r2c (fft_c2r with ``inverse``, of x's plain
+    spectrum) with its output planes inside a buffer of sentinel values
+    (R2C_GUARD floats each side and ``offset`` more before): (the output,
+    the plain version's, the guard cells the launch changed)."""
+    B, n = x.shape
+    m = n // 2
+    spec = ck.fft_r2c_plain(x, packed)
+    if inverse:
+        shapes, want = [(B, n)], (ck.fft_c2r_plain(*spec, n, 2.0 / n, packed),)
+    else:
+        shapes, want = [(B, m if packed else m + 1)] * 2, spec
+    numel, sentinel = B * shapes[0][1], 12345.0
+    lead = R2C_GUARD + offset
+    buf = torch.full((len(shapes), lead + numel + R2C_GUARD), sentinel,
+                     device=dev)
+    y = [buf[i, lead:lead + numel].view(shapes[i]) for i in range(len(shapes))]
+    args = (list(spec) + y if inverse else [x] + y) + [
+        B, int(packed), *ck._r2c_walk_args(n, inverse, 2.0 / n if inverse
+                                           else 1.0, dev)]
+    ck._launch("fft_r2c", "fft_c2r" if inverse else "fft_r2c", dev, args)
+    changed = (int((buf[:, :lead] != sentinel).sum())
+               + int((buf[:, lead + numel:] != sentinel).sum()))
+    return (y[0] if inverse else tuple(y)), (want[0] if inverse else want), \
+        changed
 
 
 def phase_real_kernels_vs_plain(ck, dev) -> dict:
@@ -769,6 +961,33 @@ def phase_real_kernels_vs_plain(ck, dev) -> dict:
             assert max(row["rel_err_numpy"],
                        row["rel_err_numpy_inverse"]) <= NUMPY_TOL, row
             out["fft_r2c"].append(row)
+    # guarded launches at named lengths: one pass several lines a block,
+    # two factors, odd m; both layouts (numpy rows of n/2+1 bins, unaligned
+    # in most rows), both directions, the planes aligned and not
+    out["fft_r2c_guarded"] = {"launches": 0, "blocks_per_sm": {}}
+    for n in R2C_NAMED:
+        out["fft_r2c_guarded"]["blocks_per_sm"][n] = [
+            ck.r2c_occupancy(n, False), ck.r2c_occupancy(n, True)]
+        g = torch.Generator(device=dev).manual_seed(n + 5)
+        x = torch.randn((37 if n < 4096 else 5, n), generator=g, device=dev)
+        for packed in (False, True):
+            for offset in (0, 1, 2):
+                got, want, changed = _r2c_guarded(ck, x, packed, False,
+                                                  offset, dev)
+                err = _rel(torch.complex(*got), torch.complex(*want))
+                row = {"n": n, "packed": packed, "direction": "r2c",
+                       "offset": offset, "rel_err_plain": err,
+                       "guard_cells_changed": changed}
+                assert changed == 0 and err <= KERNEL_TOL, row
+                # the inverse's real output stays 8-byte aligned
+                got, want, changed = _r2c_guarded(ck, x, packed, True,
+                                                  2 * offset, dev)
+                err = _rel(got, want)
+                row.update(direction="c2r", offset=2 * offset,
+                           rel_err_plain=err, guard_cells_changed=changed)
+                assert changed == 0 and err <= KERNEL_TOL, row
+                out["fft_r2c_guarded"]["launches"] += 2
+    _log(f"[real kernels] fft_r2c guarded: {out['fft_r2c_guarded']}")
     pair_shapes = [(2, 8, 8), (3, 16, 16), (2, 47, 60), (2, 64, 64),
                    (2, 64, 128), (3, 128, 128), (2, 128, 256), (4, 256, 256),
                    (2, 8, 16384), (256, 256, 256)]
@@ -1011,6 +1230,23 @@ def phase_real_times(vt, ck, dev) -> dict:
     B, n = R2C_LINES, R2C_N
     m = n // 2
     x = _planes((B, n), 21, dev)[0]
+    with open(ck.library_path("fft_r2c")[:-3] + ".log") as f:
+        regs = {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
+
+    def layout(inverse):
+        r, st, ld = regs["c2r_kernel" if inverse else "r2c_kernel"]
+        threads, lines, smem = ck.r2c_layout(n)
+        return {"split": list(ck.r2c_split(n)), "threads": threads,
+                "lines_per_block": lines, "smem_bytes": smem,
+                "registers": r, "spill_bytes": [st, ld],
+                "blocks_per_sm": ck.r2c_occupancy(n, inverse),
+                "fft_lines_same_points_ms": lines_ms}
+
+    # the walk alone on the same points and bytes: fft_lines over (B, m)
+    # complex planes
+    zr, zi = _planes((B, m), 22, dev)
+    lines_ms = _time_ms(lambda: ck.fft_lines(zr, zi, False))
+    del zr, zi
     for packed in (False, True):
         w = m if packed else m + 1
         nbytes = 4.0 * B * n + 8.0 * B * w
@@ -1023,7 +1259,8 @@ def phase_real_times(vt, ck, dev) -> dict:
                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                "plain_ms": _time_ms(lambda: ck.fft_r2c_plain(x, packed),
                                     reps=5, inner=1, warmup=1),
-               "library_ms": _time_ms(lambda: torch.fft.rfft(x))}
+               "library_ms": _time_ms(lambda: torch.fft.rfft(x)),
+               **layout(False)}
         row["GBs"] = nbytes / row["ms"] / 1e6
         _log(f"[time] fft_r2c {row}")
         kernels["fft_r2c"].append(row)
@@ -1041,12 +1278,46 @@ def phase_real_times(vt, ck, dev) -> dict:
                "plain_ms": _time_ms(
                    lambda: ck.fft_c2r_plain(sr, si, n, 2.0 / n, packed),
                    reps=5, inner=1, warmup=1),
-               "library_ms": _time_ms(lambda: torch.fft.irfft(Xc, n=n))}
+               "library_ms": _time_ms(lambda: torch.fft.irfft(Xc, n=n)),
+               **layout(True)}
         row["GBs"] = nbytes / row["ms"] / 1e6
         _log(f"[time] fft_c2r {row}")
         kernels["fft_r2c"].append(row)
         del z, pz, Xc
-    del x
+    # the layout sweep, numpy layout both ways: fft_lines' splits of m and
+    # blocks (LINES_SWEEP), timed in turns (down the list, then up), each
+    # against the plain version first
+    spec = ck.fft_r2c_plain(x)
+    plain = {False: spec, True: ck.fft_c2r_plain(*spec, n, 2.0 / n)}
+    calls = {False: lambda: ck.fft_r2c(x),
+             True: lambda: ck.fft_c2r(*spec, n, 2.0 / n)}
+    sweep = []
+    for split, (bp, aim) in ((p, v) for p in _lines_splits(ck, m)
+                             for v in R2C_SWEEP):
+        v = {"split": list(split), "block_points": bp, "aim": aim}
+        with _r2c_layout_forced(ck, v):
+            threads = ck.r2c_layout(n)[0]
+            seen = [(r["split"], r["layout"]) for r in sweep]
+            if (all(ck.walk_rounds_fit(k, threads, True) for k in split)
+                    and (v["split"], list(ck.r2c_layout(n))) not in seen):
+                v.update(shape=[B, n], layout=list(ck.r2c_layout(n)),
+                         blocks_per_sm=[ck.r2c_occupancy(n, False),
+                                        ck.r2c_occupancy(n, True)],
+                         ms_r2c=[], ms_c2r=[])
+                sweep.append(v)
+    for v in sweep + sweep[::-1]:
+        with _r2c_layout_forced(ck, v):
+            for inverse in (False, True):
+                got = calls[inverse]()
+                if inverse:
+                    rel = _rel(got, plain[True])
+                    assert rel <= KERNEL_TOL, ("fft_c2r", v, rel)
+                else:
+                    _errors(got, plain[False], ("fft_r2c", v))
+                v["ms_c2r" if inverse else "ms_r2c"].append(
+                    _time_ms(calls[inverse]))
+    _log(f"[time] fft_r2c layout sweep n={n}: {sweep}")
+    del x, spec, plain
     P, ny, nz = CUBE
     h = nz // 2 + 1
     cube = _planes(CUBE, 23, dev)[0]
@@ -1142,7 +1413,7 @@ def phase_real_times(vt, ck, dev) -> dict:
     row["vs_torch_fft"] = row["torch_fft_ms"] / row["ms"]
     _log(f"[time] e2e {row}")
     e2e.append(row)
-    return {"kernels": kernels, "e2e": e2e}
+    return {"kernels": kernels, "e2e": e2e, "fft_r2c_layout_sweep": sweep}
 
 
 # ---------------------------------------------------------------------------

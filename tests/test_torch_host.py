@@ -153,8 +153,7 @@ def test_import_isolation_source_scan():
     files = sorted((REPO / "vkfft_tpu_torch").rglob("*.py"))
     assert {"doubledouble.py", "dd_kernel.py", "dd_fft.py"} <= {
         f.name for f in files if f.parent.name == "precision"}
-    files += [REPO / "chip_smoke.py", REPO / "bench_torch_pair.py",
-              REPO / "bench_torch_long.py"]
+    files += [REPO / "chip_smoke.py", REPO / "bench_torch_long.py"]
     assert len(files) > 10
     for f in files:
         text = f.read_text()

@@ -5,8 +5,11 @@ rfft2/irfft2, FFTApplication(kind=R2C), the plain versions of the real
 kernels, the numpy rule for Im(DC/Nyquist), the CUDA engine's routing onto
 the real kernels (their plain versions on CPU planes), and refusals.  The
 CUDA kernels themselves run only on the card (chip_smoke.py)."""
+import contextlib
+import ctypes
 import dataclasses
 import math
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -581,3 +584,183 @@ def test_host_float64_narrows_under_single():
     assert vt.fft(t).dtype == torch.complex128
     with pytest.raises(NotImplementedError, match="item 10"):
         vt.fft(t, engine="cuda")
+
+
+# `fft_r2c` / `fft_c2r` on the in-place walk (csrc/fft_r2c.cu): the layout
+# rule its C entry checks, the twiddles, and each launch's arguments.  The
+# walk's constants: csrc/inplace.cuh's fixed radices, kPoints and
+# kGenericPoints, csrc/stockham.cuh's kMaxStages
+_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
+_MAX_STAGES = 16
+R2C_LENGTHS = [n for n in range(2, 16385, 2) if ck.r2c_supports(n)]
+R2C_ONE_PASS = 346   # lengths whose m-point DFT runs as one pass
+
+
+def _walk_table_points(m):
+    """What the C entry's table_len reads off a factor's plan ints."""
+    if m == 1:
+        return 0
+    ints, _ = ck.stage_tables(m, False, 1.0, True)
+    M, end = m, 0
+    for s in range(ints[1]):
+        r = ints[3 + s]
+        tw_off = ints[3 + _MAX_STAGES + s]
+        dft_off = ints[3 + 2 * _MAX_STAGES + s]
+        M //= r
+        end = max(end, dft_off + r if dft_off >= 0 else tw_off + r * M)
+    return end
+
+
+def _walk_rounds_fit(m, threads):
+    if m == 1:
+        return True
+    return all((max(1, 12 // r) * threads >= m // r) if r in _FIXED_RADICES
+               else 16 * threads >= m for r in ck.walk_radices(m))
+
+
+def test_r2c_layout_rule_every_length():
+    """Every even length the real kernels take gets a layout the C entry
+    accepts: lines of m = n/2 points up to 2048 a block, a multiple of 32
+    threads in 32..512 near one for 16 points, one pass where a block
+    holds 4 lines or more and the stages fit, else `fft_lines`' two
+    factors of m, every stage's sequence within a round, and exactly the
+    shared bytes of the lines, the stage tables and the twiddles (64 +
+    ceil(m/64) + 64 + m//128 + 1 points), at most 227 KB."""
+    assert len(R2C_LENGTHS) == 2541
+    one = 0
+    for n in R2C_LENGTHS:
+        m = n // 2
+        n1, n2 = ck.r2c_split(n)
+        threads, lines, smem = ck.r2c_layout(n)
+        assert lines == max(1, 2048 // m) and n1 * n2 == m and n1 >= n2
+        assert threads == min(512, max(32, -(-(-(-lines * m // 16)) // 32)
+                                   * 32)), n
+        fit = lines >= 4 and _walk_rounds_fit(m, threads)
+        assert (n1, n2) == ((m, 1) if fit else ck._lines_factors(m)), n
+        assert threads % 32 == 0 and 32 <= threads <= 512, n
+        assert lines * m <= 16384, n
+        one += n2 == 1
+        assert _walk_rounds_fit(n1, threads) and _walk_rounds_fit(n2, threads)
+        tw = 64 + -(-m // 64) + 64 + m // 128 + 1
+        assert len(ck.r2c_twiddle(n, False)) == tw
+        points = (lines * n2 * (n1 | 1) + _walk_table_points(n1)
+                  + _walk_table_points(n2) + tw)
+        assert smem == 8 * points <= ck.MAX_SMEM_BYTES, n
+    assert one == R2C_ONE_PASS
+
+
+@pytest.mark.parametrize("n,split,lines", [(1024, (512, 1), 4),
+                                           (4, (2, 1), 1024),
+                                           (2048, (64, 16), 2),
+                                           (16384, (128, 64), 1),
+                                           (7182, (63, 57), 1)])
+def test_r2c_layout_of_named_lengths(n, split, lines):
+    """bench.py's n = 1024 runs its 512-point DFT as one pass, 4 lines a
+    block (128 threads, 16 points a thread); longer lines as two factors."""
+    assert ck.r2c_split(n) == split
+    assert ck.r2c_layout(n)[1] == lines
+
+
+@pytest.mark.parametrize("n", [4, 1024, 7182, 16384])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_r2c_twiddle_tables(n, inverse):
+    """The inter-factor twiddle's two tables are `fft_lines`' at m (no
+    scale), and hi[k >> 6] * lo[k & 63] of the untangle's is e^{-2 pi i k /
+    n} at every k <= m/2."""
+    m = n // 2
+    tw = ck.r2c_twiddle(n, inverse)
+    pair = ck.twofactor_twiddle_pair(m, inverse)
+    np.testing.assert_array_equal(tw[:len(pair)], pair)
+    lo, hi = tw[len(pair):len(pair) + 64], tw[len(pair) + 64:]
+    k = np.arange(m // 2 + 1)
+    want = np.exp(-2j * np.pi * k / n)
+    assert np.abs(hi[k >> 6] * lo[k & 63] - want).max() < 1e-14
+
+
+class _R2CRecorder:
+    """The C library stub: each real entry's arguments, the plans read back
+    from their ctypes arrays while the call lasts."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            if name in ("vk_fft_r2c", "vk_fft_c2r"):
+                plans = [list((ctypes.c_int * 51).from_address(a))
+                         for a in args[5:7]]
+                inverse = name == "vk_fft_c2r"
+                self.calls.append({"entry": name, "batch": args[3],
+                                   "packed": args[4], "plans": plans,
+                                   "scale": args[10] if inverse else None,
+                                   "layout": tuple(args[10 + inverse:
+                                                        13 + inverse])})
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("n", [1024, 2048, 7182, 4])
+def test_r2c_launch_arguments(monkeypatch, n):
+    """Each direction and layout launches once with the batch, the layout
+    flag, the unscaled plans of `r2c_split`'s factors (forward for r2c,
+    inverse for c2r), the inverse's scale and the layout of
+    `r2c_layout`."""
+    lib = _R2CRecorder()
+    monkeypatch.setattr(ck, "_library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream",
+        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(ck, "fft_r2c_plain", None)
+    monkeypatch.setattr(ck, "fft_c2r_plain", None)
+    ck.reset_launches()
+    B, m = 3, n // 2
+    x = torch.empty(B, n, device="meta")
+    for packed in (False, True):
+        yr, yi = ck.fft_r2c(x, packed)
+        assert yr.shape == yi.shape == (B, m if packed else m + 1)
+        z = ck.fft_c2r(yr, yi, n, 2.0 / n, packed)
+        assert z.shape == (B, n)
+    assert ck.launches == {k: 4 if k == "fft_r2c" else 0
+                           for k in ck.KERNEL_SOURCES}
+    n1, n2 = ck.r2c_split(n)
+    for call, (entry, packed) in zip(
+            lib.calls, [("vk_fft_r2c", 0), ("vk_fft_c2r", 0),
+                        ("vk_fft_r2c", 1), ("vk_fft_c2r", 1)], strict=True):
+        inverse = entry == "vk_fft_c2r"
+        assert (call["entry"], call["batch"], call["packed"]) == (entry, B,
+                                                                  packed)
+        assert call["scale"] == (2.0 / n if inverse else None)
+        assert call["layout"] == ck.r2c_layout(n)
+        for ints, f in zip(call["plans"], (n1, n2)):
+            assert ints == list(ck.stage_tables(f, inverse, 1.0, True)[0])
+    tab = ck._DEVICE_TABLES[("r2c_twiddle", n, True, "meta")]
+    assert tuple(tab.shape) == (len(ck.r2c_twiddle(n, True)), 2)
+
+
+@pytest.mark.parametrize("n", [2048, 7182, 16384])
+def test_fft_r2c_plain_matches_r2c_kernel_at_two_factor_lengths(interpret, n):
+    """At lengths whose m = n/2 the kernel runs as two factors, the plain
+    versions (through the wrappers on CPU tensors) agree with the JAX
+    package's Pallas R2C kernels in interpret mode, or with its jnp engine
+    where they do not take n, and with numpy, in both layouts."""
+    x = _real((2, n), seed=n)
+    xt = torch.from_numpy(x)
+    want = np.fft.rfft(x.astype(np.float64))
+    kernel = pallas_engine.use_r2c_kernel(n)
+    for packed in (False, True):
+        yr, yi = ck.fft_r2c(xt, packed)
+        nr, ni = ck.packed_to_numpy_layout(yr, yi) if packed else (yr, yi)
+        got = _c(vt.Planar(nr, ni))
+        assert _rel(got, want) <= NUMPY_TOL
+        if kernel:
+            fwd = (pallas_engine.rfft_lines_packed if packed
+                   else pallas_engine.rfft_lines_planar)
+            ref = _c(vt.Planar(*fwd(jnp.asarray(x))))
+            assert _rel(_c(vt.Planar(yr, yi)), ref) <= REF_TOL
+        else:
+            ref = np.asarray(vk.rfft(x, engine="jnp"))
+            assert _rel(got, ref) <= REF_TOL
+        z = ck.fft_c2r(yr, yi, n, 2.0 / n, packed)
+        assert _rel(z.numpy(), x) <= NUMPY_TOL

@@ -62,6 +62,7 @@
 // block writes only what it read, so the output may alias the input.
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "inplace.cuh"
 #include "stockham.cuh"
 
@@ -76,9 +77,17 @@ __device__ __forceinline__ float2 conjf2(float2 a) { return make_float2(a.x, -a.
 
 namespace walk = vkfft::walk;
 
+using vkfft::cluster::kXchg;  // most points a thread moves in an exchange
+using vkfft::cluster::cluster_ok;
+using vkfft::cluster::ld_remote2;
+using vkfft::cluster::ld_remote4;
+using vkfft::cluster::launch_cluster;
+using vkfft::cluster::remote;
+using vkfft::cluster::st_remote2;
+using vkfft::cluster::st_remote4;
+
 constexpr int kPairThreads = 512;   // most threads a block
 constexpr int kPairMinBlocks = 2;   // blocks an SM the register budget keeps
-constexpr int kXchg = 16;           // most points a thread moves in an exchange
 
 // The hook of the Bluestein mode's four passes: the four-step twiddle
 // w_m^(row * k) (row = row0 + seq, the sequence's row or column in the
@@ -103,42 +112,6 @@ struct ConvHook {
     return cmul(v, w);
   }
 };
-
-// Distributed shared memory by 32-bit shared::cluster addresses: point i
-// of block `rank`'s buffer, and one or two points loaded or stored there
-// (a generic 64-bit pointer a point held two registers more through the
-// exchange's reads, and ptxas spilled).
-__device__ __forceinline__ unsigned remote(const float2* buf, int i, int rank) {
-  const unsigned local = (unsigned)__cvta_generic_to_shared(buf + i);
-  unsigned a;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(local), "r"(rank));
-  return a;
-}
-
-__device__ __forceinline__ float2 ld_remote2(unsigned a) {
-  float2 v;
-  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
-               : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float4 ld_remote4(unsigned a) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_remote2(unsigned a, float2 v) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
-               :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
-}
-
-__device__ __forceinline__ void st_remote4(unsigned a, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
-               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
-}
 
 // Column tile -> row tile: point (r, ks) of this block's row tile is
 // point (r0 + r, ks % cols) of owner ks / cols's column tile.  Each thread
@@ -411,54 +384,6 @@ fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
   vkfft::store_tile(o, yr, yi, base, nz, rows, nz, nz);
 }
 
-// The attributes a launch of `kernel` at `smem` dynamic shared bytes and
-// `cluster` blocks a cluster needs.
-template <typename Kernel>
-int cluster_attrs(Kernel kernel, int cluster, size_t smem) {
-  if (smem > (size_t)vkfft::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (cluster > 8) {   // above the portable cluster size
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
-
-// Cluster launch of `kernel` over `batch` planes of `cluster` blocks of
-// `threads` each, with `smem` bytes of dynamic shared memory a block.
-template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, long long batch, int cluster, int threads,
-                   size_t smem, void* stream, Args... args) {
-  if (batch * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int err = cluster_attrs(kernel, cluster, smem);
-  if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(batch * cluster), 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-bool cluster_ok(int cluster, int a, int b) {
-  return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
-          cluster == 16) && a % cluster == 0 && b % cluster == 0;
-}
-
 // Shared bytes of a Bluestein block: its tile at the row pitch ns | 1,
 // the four stage tables and the twiddle's two root tables.
 size_t pair_smem(int nc, int ns, int cluster, const Lens& len) {
@@ -541,24 +466,8 @@ int vk_fft_conv_pair_occupancy(int cluster, int threads, int smem,
       threads > kPairThreads || smem < 0 || clusters == nullptr ||
       blocks == nullptr)
     return (int)cudaErrorInvalidValue;
-  int err = cluster_attrs(fft_conv_pair_kernel, cluster, (size_t)smem);
-  if (err) return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fft_conv_pair_kernel, threads, (size_t)smem);
-  if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, fft_conv_pair_kernel,
-                                             &cfg);
+  return vkfft::cluster::cluster_occupancy(fft_conv_pair_kernel, cluster,
+                                           threads, smem, clusters, blocks);
 }
 
 // The 2-D mode; returns as vk_fft_conv_pair.  `batch` planes of (ny, nz)

@@ -1,82 +1,273 @@
 // fft_pair: 2-D C2C FFT of the two minor axes of (B, ny, nz) fp32 re/im
-// planes in one pass, natural order in and out, scale folded into the
-// y-axis stage-0 twiddles.  Replaces vkfft_tpu/ops/pallas_engine.py:1982
+// planes in one pass, natural order in and out, times a scale (in the y
+// axis's twiddle table).  Replaces vkfft_tpu/ops/pallas_engine.py:1982
 // _pair_kernel (plain fp32 form: no zero-pad windows, no tl layout).
 //
 // Bound: bytes, one read and one write of each point (16 B of planes) for
 // both axes together, where two axis passes move twice that.
 // Design: the TPU kernel holds a whole plane in VMEM; a 256 x 256 plane is
 // 512 KB, more than one block's shared memory.  Here a thread-block
-// cluster of C blocks (C = 1, 2, 4, 8 or 16, chosen by the caller: about
-// 32 KB a block where 16 blocks suffice, 64 KB a block at 256 x 256, at
-// most 128 KB) holds the plane in its blocks' shared memory together: block `rank` loads rows [rank*ny/C, (rank+1)*ny/C) with
-// coalesced row reads and runs the z stages on them (stockham.cuh, lines
-// layout).  After a cluster barrier each block gathers its ny x nz/C column
-// tile out of all C blocks' shared memory over distributed shared memory,
-// a second cluster barrier frees the row buffers, and the block runs the
-// y stages on its tile (strided layout) and writes the tile back, nz/C
-// contiguous floats per row and plane.  The plane crosses device memory
-// once each way.  Every read of a plane precedes the first barrier and
-// every write follows it, so the output may alias the input.
+// cluster of C blocks holds the plane once, on the in-place walk of
+// inplace.cuh (fft_conv_pair's Bluestein plane without chirp, twiddle or
+// spectrum): block `rank` reads its row tile (rows [rank*ny/C, ...), one
+// contiguous run of device memory) by cp.async straight to its places,
+// runs the nz-point stages along its rows, exchanges the tiles with the
+// other blocks in whole rounds by 32-bit shared::cluster addresses
+// (cluster.cuh: each thread reads its points, the cluster meets, it
+// stores them to their owners' column tiles), runs the ny-point stages
+// down the columns of its column tile (columns [rank*nz/C, ...), all ny
+// rows) and writes each row's nz/C points straight from the column tile
+// (a second exchange back to the row tile, written as one contiguous run,
+// measured 0.04-0.06 ms slower at 256 x 256 x 256; PERF.md).  An axis whose
+// stages do not fit a round of the block's threads runs as two factors (a
+// column pass, the twiddle, a row pass: two_factor_passes' forward order,
+// in both directions, the inverse by its plans and conjugate twiddle
+// alone), its points then in the factors' transposed order, which the
+// exchange and the write follow.  The stage tables (radix 16,
+// walk_radices) and the twiddles' root tables sit in shared memory; the
+// block's geometry comes from the host in the parameters (Geo) and is read
+// where it is used, so the walk's rounds keep their registers.
+// cuda_kernels.pair_layout is the one layout rule (the C entry refuses any
+// other): the cluster, the threads (a thread moves at most kXchg points of
+// an exchange) and the exact shared bytes.  Every read of a plane precedes
+// the first cluster barrier and every write follows the last, so the
+// output may alias the input.
 #include <cooperative_groups.h>
 
-#include "stockham.cuh"
+#include "cluster.cuh"
+#include "inplace.cuh"
+#include "twofactor.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using vkfft::Plan;
+using namespace vkfft::walk;
+using vkfft::cluster::kXchg;
+using vkfft::cluster::remote;
+using vkfft::cluster::st_remote2;
+using vkfft::cluster::st_remote4;
 
-__global__ void __launch_bounds__(512)
-fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi, Plan py,
-                Plan pz, const float2* ty, const float2* tz) {
-  extern __shared__ __align__(16) float2 smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int ny = py.n, nz = pz.n;
-  const int rows = ny / C;       // rows of the plane this block transforms
-  const int cols = nz / C;       // columns of the plane this block transforms
-  const int count = rows * nz;   // == ny * cols
-  const long long base = (long long)(blockIdx.x / C) * ny * nz;
-  float2* a = smem;
-  float2* b = smem + count;
+// Most threads a block; the bound holds the kernel to 64 registers, as
+// (512, 2) does, and lets the largest tiles move in one exchange.
+constexpr int kThreads = 1024;
 
-  const long long rbase = base + (long long)rank * rows * nz;
-  vkfft::load_tile(xr, xi, rbase, nz, rows, nz, nz, a);
-  __syncthreads();
-  float2* zres = vkfft::run_stages<false>(a, b, rows, nz, 1, pz, tz);
-  float2* tile = zres == a ? b : a;
-  cluster.sync();   // every block's rows are transformed
+// The place of row ky in the column tile after the y axis: natural (n2 =
+// 1) or the two factors' transposed order, ky = k1 * n2 + k2 at k2 * n1 +
+// k1.
+struct RowPerm {
+  Div d2;
+  int n1;
+  __device__ __forceinline__ int operator()(int ky) const {
+    const int q = quot(ky, d2);
+    return (ky - q * (int)d2.d) * n1 + q;
+  }
+};
 
-  const int c0 = rank * cols;
+// Row tile -> column tiles: point (r, kz) of this block's row tile, at its
+// place `zout`, goes to point (r0 + r, kz % cols) of owner kz / cols's
+// column tile (pitch cols).  Each thread reads its points (pairs along kz
+// when cols is even) into registers, the cluster meets (every row tile is
+// read), it stores them, and the cluster meets again.
+__device__ void push_columns(cg::cluster_group& cluster, float2* buf, int nz,
+                             int rows, int cols, const Map& zout, int r0) {
+  const int T = blockDim.x;
+  const int tile = rows * nz;
   if ((cols & 1) == 0) {
-    // two points (16 bytes) per read, unrolled: more reads in flight
-    const int h = cols >> 1;
-    const int total = ny * h;
-#pragma unroll 4
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int k = t / h;
-      const int c = (t - k * h) << 1;
-      const int owner = k / rows;
-      const float2* src = cluster.map_shared_rank(zres, owner);
-      *reinterpret_cast<float4*>(tile + k * cols + c) =
-          *reinterpret_cast<const float4*>(src + (k - owner * rows) * nz + c0 + c);
+    const int half = tile >> 1;
+    const Div dn = make_div(nz >> 1), dc = make_div(cols >> 1);
+    float4 v[kXchg / 2];
+    int v0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const float2 a = buf[position(2 * p, zout)];
+      const float2 b = buf[position(2 * p + 1, zout)];
+      v[j] = make_float4(a.x, a.y, b.x, b.y);
+    }
+    cluster.sync();   // every row tile is read: the buffers are free
+    v0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const int r = quot(p, dn);
+      const int kz2 = p - r * (int)dn.d;
+      const int owner = quot(kz2, dc);
+      if (v0 < half)
+        st_remote4(remote(buf, 2 * ((r0 + r) * (int)dc.d + kz2 -
+                                    owner * (int)dc.d), owner), v[j]);
     }
   } else {
-    for (int t = threadIdx.x; t < count; t += blockDim.x) {
-      const int k = t / cols;
-      const int c = t - k * cols;
-      const int owner = k / rows;
-      const float2* src = cluster.map_shared_rank(zres, owner);
-      tile[t] = src[(k - owner * rows) * nz + c0 + c];
+    const Div dn = make_div(nz), dc = make_div(cols);
+    float2 v[kXchg];
+    int u0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T)
+      v[j] = buf[position(min(u0, tile - 1), zout)];
+    cluster.sync();   // every row tile is read: the buffers are free
+    u0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T) {
+      const int u = min(u0, tile - 1);
+      const int r = quot(u, dn);
+      const int kz = u - r * nz;
+      const int owner = quot(kz, dc);
+      if (u0 < tile)
+        st_remote2(remote(buf, (r0 + r) * cols + kz - owner * cols, owner),
+                   v[j]);
     }
   }
-  cluster.sync();   // every gather is done: the row buffers are free
+  cluster.sync();   // every push has landed
+}
 
-  const float2* res = vkfft::run_stages<true>(tile, zres, cols, 1, cols, py, ty);
-  vkfft::store_tile(res, yr, yi, base + c0, nz, ny, cols, cols);
+// The column tile to device memory: row ky (at yout(ky) in the tile) to
+// row ky of the plane from float offset g0 (its column c0), cols points,
+// as float4s where every run is 16-byte aligned (a thread's four points
+// read in an order rotated by its lane), else single floats.
+__device__ void store_columns(const float2* buf, int ny, int cols, RowPerm yout,
+                              float* yr, float* yi, long long g0, int nz) {
+  const int T = blockDim.x;
+  if ((cols & 3) == 0 && (g0 & 3) == 0 && aligned16(yr, yi)) {
+    const int c4 = cols >> 2;
+    const Div dc = make_div(c4);
+    const int rot = (threadIdx.x >> 2) & 3;
+#pragma unroll 2
+    for (int f = threadIdx.x; f < ny * c4; f += T) {
+      const int ky = quot(f, dc);
+      const int c = 4 * (f - ky * c4);
+      const float2* s = buf + yout(ky) * cols + c;
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = s[(k + rot) & 3];
+      rotate(v, (4 - rot) & 3);
+      const long long g = g0 + (long long)ky * nz + c;
+      *reinterpret_cast<float4*>(yr + g) = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
+      *reinterpret_cast<float4*>(yi + g) = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+    }
+    return;
+  }
+  const Div dc = make_div(cols);
+  for (int u = threadIdx.x; u < ny * cols; u += T) {
+    const int ky = quot(u, dc);
+    const int c = u - ky * cols;
+    const float2 v = buf[yout(ky) * cols + c];
+    const long long g = g0 + (long long)ky * nz + c;
+    yr[g] = v.x;
+    yi[g] = v.y;
+  }
+}
+
+// Where a block's pieces sit, computed once by the host and read from the
+// kernel's parameters where they are used (not held in registers through
+// a pass): the row tile's rows and the column tile's columns, the z
+// factors' pitch n1z | 1 and a row's stride n2z * (n1z | 1), the points of
+// the tile area (the tables after it: the four plans' stage tables, then
+// the z and y twiddles), each plan's table offset and each twiddle's.
+struct Geo {
+  int rows, cols, pz, sz, area;
+  int z2, y1, y2;   // the stage tables of z2, y1, y2 (z1's at 0)
+  int twz, twy;     // the twiddles' tables
+  int ntab;
+};
+
+// Where the block's plane starts, found again where it is used.
+__device__ __forceinline__ long long plane_base(cg::cluster_group& cluster,
+                                                int ny, int nz) {
+  return (long long)(blockIdx.x / cluster.num_blocks()) * ny * nz;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                const float2* tz2, const float2* ty1, const float2* ty2,
+                const float2* twz, const float2* twy, Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
+  float2* tab = smem + geo.area;
+  for (int t = threadIdx.x; t < geo.ntab; t += blockDim.x) {
+    const float2* src = t < geo.z2    ? tz1 + t
+                        : t < geo.y1  ? tz2 + (t - geo.z2)
+                        : t < geo.y2  ? ty1 + (t - geo.y1)
+                        : t < geo.twz ? ty2 + (t - geo.y2)
+                        : t < geo.twy ? twz + (t - geo.twz)
+                                      : twy + (t - geo.twy);
+    tab[t] = __ldg(src);
+  }
+  // the row tile in natural order
+  load_lines_async(xr, xi,
+                   plane_base(cluster, ny, nz) +
+                       (long long)cluster.block_rank() * geo.rows * nz,
+                   geo.rows * nz,
+                   make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  __syncthreads();
+  // 1-4. the z axis along the rows, the exchange, the y axis down the
+  // columns, each axis a column pass (the n2-point stages, the twiddle on
+  // their last) and a row pass (n1 points) in both directions: natural
+  // order in, the factors' transposed order out; one call site of
+  // run_pass keeps one copy of each stage
+  for (int k = 0; k < 4; ++k) {
+    const bool y = k >= 2;
+    if (k == 2)
+      push_columns(cluster, smem, nz, geo.rows, geo.cols,
+                   make_map(nz, geo.sz, true, pz1.n, pz2.n, geo.pz),
+                   (int)cluster.block_rank() * geo.rows);
+    const bool row = (k & 1) == 1;
+    const int n1 = y ? py1.n : pz1.n, n2 = y ? py2.n : pz2.n;
+    // z: line r at r * sz, point j2 * n1 + j1 at j2 * pz + j1; y: column c
+    // at c, point j at j * cols
+    const Pass g =
+        y ? (row ? Pass{geo.cols * n2, 1, n1 * geo.cols, geo.cols, make_div(n2)}
+                 : Pass{geo.cols * n1, 1, geo.cols, n1 * geo.cols, make_div(n1)})
+          : (row ? Pass{geo.rows * n2, geo.sz, geo.pz, 1, make_div(n2)}
+                 : Pass{geo.rows * n1, geo.sz, 1, geo.pz, make_div(n1)});
+    const float2* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
+    // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
+    const bool twiddled = n2 > 1 || tlo[kTwLo].x != 1.f || tlo[kTwLo].y != 0.f;
+    const bool fuse = twiddled && row == (n2 == 1);
+    const int which = (y ? 2 : 0) + (row ? 0 : 1);
+    run_pass(smem, g,
+             which == 0 ? pz1 : which == 1 ? pz2 : which == 2 ? py1 : py2,
+             smem + geo.area + (which == 0   ? 0
+                                : which == 1 ? geo.z2
+                                : which == 2 ? geo.y1
+                                             : geo.y2),
+             InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
+  }
+  store_columns(smem, ny, geo.cols, RowPerm{make_div(py2.n), py1.n}, yr, yi,
+                plane_base(cluster, ny, nz) + cluster.block_rank() * geo.cols,
+                nz);
+}
+
+// The layout of the plans (cuda_kernels.pair_layout) as a Geo, or false
+// when (cluster, threads, smem) is not it: every stage's round holds a
+// whole sequence, a thread moves at most kXchg points of an exchange, and
+// the shared bytes are exact.
+bool layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
+               const Plan& py2, int cluster, int threads, int smem, Geo* geo) {
+  const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
+  if (!vkfft::cluster::cluster_ok(cluster, ny, nz) || threads < 32 ||
+      threads > kThreads || threads % 32 != 0 ||
+      (long long)ny * nz / cluster > (long long)kXchg * threads ||
+      !rounds_fit(pz1, threads) || !rounds_fit(pz2, threads) ||
+      !rounds_fit(py1, threads) || !rounds_fit(py2, threads) || smem < 0)
+    return false;
+  geo->rows = ny / cluster;
+  geo->cols = nz / cluster;
+  geo->pz = pz1.n | 1;
+  geo->sz = pz2.n * geo->pz;
+  // the row tile as the z factors' rows (the column tile, ny * nz / C
+  // points, fits it)
+  geo->area = geo->rows * geo->sz;
+  geo->z2 = table_len(pz1);
+  geo->y1 = geo->z2 + table_len(pz2);
+  geo->y2 = geo->y1 + table_len(py1);
+  geo->twz = geo->y2 + table_len(py2);
+  geo->twy = geo->twz + kTwLo + (nz + kTwLo - 1) / kTwLo;
+  geo->ntab = geo->twy + kTwLo + (ny + kTwLo - 1) / kTwLo;
+  return (size_t)smem == sizeof(float2) * ((size_t)geo->area + geo->ntab) &&
+         smem <= vkfft::kMaxSmemBytes;
 }
 
 }  // namespace
@@ -84,53 +275,55 @@ fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi, Plan py,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  `plan_y`/`plan_z` are the int forms of vkfft::Plan and
-// `table_y`/`table_z` the device twiddle tables as interleaved (re, im)
-// fp32 pairs, one per axis; `cluster` blocks share each plane and must
-// divide ny and nz.
+// success).  Plans (int form) of the two factors of each axis, nz = z1 *
+// z2 and ny = y1 * y2 (all forward or all inverse; the second the empty
+// plan of length 1 for one pass), their stage tables (no scale), and each
+// axis's inter-factor twiddle as two tables, 64 points w_n^b then ceil(n /
+// 64) points scale * w_n^(64 a) (the scale 1 on z), all as interleaved
+// fp32 pairs.  The layout (cuda_kernels.pair_layout): `cluster` blocks a
+// plane (1, 2, 4, 8 or 16, dividing ny and nz), `threads` a block and the
+// dynamic shared bytes, exactly; any other layout is refused
+// (cudaErrorInvalidValue).
 int vk_fft_pair(const float* xr, const float* xi, float* yr, float* yi,
-                long long planes, const int* plan_y, const int* plan_z,
-                const float* table_y, const float* table_z, int cluster,
+                long long planes, const int* plan_z1, const int* plan_z2,
+                const int* plan_y1, const int* plan_y2, const float* table_z1,
+                const float* table_z2, const float* table_y1,
+                const float* table_y2, const float* twiddle_z,
+                const float* twiddle_y, int cluster, int threads, int smem,
                 void* stream) {
-  Plan py, pz;
-  if (planes < 1 || !vkfft::plan_from_ints(plan_y, &py) ||
-      !vkfft::plan_from_ints(plan_z, &pz))
+  Plan pz1, pz2, py1, py2;
+  if (planes < 1 || !vkfft::plan_from_ints(plan_z1, &pz1) ||
+      !vkfft::subplan_from_ints(plan_z2, &pz2) ||
+      !vkfft::plan_from_ints(plan_y1, &py1) ||
+      !vkfft::subplan_from_ints(plan_y2, &py2) || twiddle_z == nullptr ||
+      twiddle_y == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (!(cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
-        cluster == 16) ||
-      py.n % cluster || pz.n % cluster)
+  Geo geo;
+  if (pz1.n < pz2.n || py1.n < py2.n || pz2.inverse != pz1.inverse ||
+      py1.inverse != pz1.inverse || py2.inverse != pz1.inverse ||
+      !layout_of(pz1, pz2, py1, py2, cluster, threads, smem, &geo))
     return (int)cudaErrorInvalidValue;
-  const int count = py.n / cluster * pz.n;
-  const size_t smem = 2 * (size_t)count * sizeof(float2);
-  if (smem > (size_t)vkfft::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (planes * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fft_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (cluster > 8) {   // above the portable cluster size
-    cudaError_t e = cudaFuncSetAttribute(
-        fft_pair_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(planes * cluster), 1, 1);
-  cfg.blockDim = dim3(count > 2048 ? 512 : 256, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, fft_pair_kernel, xr, xi, yr, yi, py, pz,
-                                     reinterpret_cast<const float2*>(table_y),
-                                     reinterpret_cast<const float2*>(table_z));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return vkfft::cluster::launch_cluster(
+      fft_pair_kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi,
+      yr, yi, pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
+      reinterpret_cast<const float2*>(table_z2),
+      reinterpret_cast<const float2*>(table_y1),
+      reinterpret_cast<const float2*>(table_y2),
+      reinterpret_cast<const float2*>(twiddle_z),
+      reinterpret_cast<const float2*>(twiddle_y), geo);
+}
+
+// Resident clusters on the card and blocks an SM of the kernel at
+// `cluster` blocks of `threads` with `smem` dynamic shared bytes, into
+// *clusters and *blocks.
+int vk_fft_pair_occupancy(int cluster, int threads, int smem, int* clusters,
+                          int* blocks) {
+  if (!vkfft::cluster::cluster_ok(cluster, cluster, cluster) || threads < 32 ||
+      threads > kThreads || smem < 0 || clusters == nullptr ||
+      blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return vkfft::cluster::cluster_occupancy(fft_pair_kernel, cluster, threads,
+                                           smem, clusters, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -1,5 +1,6 @@
 // The in-place stage walk of the port's redesigned kernels (fft_twofactor.cu,
-// fft_lines.cu, fft_conv_pair.cu's Bluestein mode), built for sm_90a.
+// fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_conv_pair.cu's Bluestein
+// mode), built for sm_90a.
 //
 // A block holds its sequences once in shared memory.  A Stockham stage of
 // radix r (stockham.cuh's recurrence) maps the points whose index is m mod
@@ -29,6 +30,8 @@
 // (a line's unaligned head and tail as single floats), through a Map from
 // a point to its place in shared memory; a thread's four points go in an
 // order rotated by its lane, so a warp's accesses fall on distinct banks.
+// load_pairs_async and store_pairs move one interleaved array, a point's
+// float2 each (fft_r2c's real lines read as complex pairs).
 // two_factor_block is the whole body of a block of lines on the walk, as
 // the two-factor DFT (a column pass, the twiddle, a row pass), which
 // fft_twofactor and fft_lines share.
@@ -468,6 +471,32 @@ __device__ void load_lines_async(const float* xr, const float* xi,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// The `count` points at point offset g0 of one interleaved (re, im) array
+// into their places `mp` in `home` by cp.async, 8 bytes a point (the
+// array 8-byte aligned); returns when this thread's copies have landed.
+__device__ void load_pairs_async(const float2* x, long long g0, int count,
+                                 const Map& mp, float2* home) {
+  const float2* x0 = x + g0;
+  for (int u = threadIdx.x; u < count; u += blockDim.x)
+    cp_async8(home + position(u, mp), x0 + u);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The inverse of load_pairs_async: a warp stores 32 neighbouring points,
+// one float2 a thread, from neighbouring places of the walk's rows.
+__device__ void store_pairs(const float2* home, const Map& mp, float2* y,
+                            long long g0, int count) {
+  float2* y0 = y + g0;
+  for (int u = threadIdx.x; u < count; u += blockDim.x)
+    y0[u] = home[position(u, mp)];
+}
+
 // The inverse of load_lines.
 __device__ void store_lines(const float2* home, const Map& mp, float* yr,
                             float* yi, long long g0, int count) {
@@ -503,6 +532,37 @@ __device__ __forceinline__ Map make_map(int n, int lines_stride, bool transposed
                                         int n1, int n2, int P) {
   return transposed ? Map{make_div(n), make_div(n2), lines_stride, 1, P}
                     : Map{make_div(n), make_div(n1), lines_stride, P, 1};
+}
+
+// The two passes of the two-factor DFT of `nl` lines of n = n1 * n2
+// points at `home`, each the (n2, n1) matrix at the odd pitch P = n1 | 1
+// (a line every n2 * P points), the factors' stage tables at s1, s2 and
+// the inter-factor twiddle's two tables at tlo, thi, all in shared memory:
+// forward, the column pass (n2-point DFTs, the twiddle on its last stage;
+// on the row pass's when n2 = 1, where it is the scale), then the row pass
+// (n1-point DFTs), natural order [j2][j1] to [k2][k1] for X[k1 * n2 + k2];
+// the inverse the other way round, unless `mirrored` is false: then the
+// inverse too runs the forward's order (its plans and conjugate twiddle
+// make it the inverse DFT), natural order in, [k2][k1] out.  Ends on a
+// barrier.
+__device__ __forceinline__ void two_factor_passes(
+    float2* home, int nl, const Plan& p1, const Plan& p2, const float2* s1,
+    const float2* s2, const float2* tlo, const float2* thi, int pitch,
+    bool mirrored = true) {
+  const int n1 = p1.n, n2 = p2.n;
+  const int S = n2 * pitch;
+  const bool inverse = mirrored && p1.inverse != 0;
+  // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
+  const bool twiddled = n2 > 1 || thi[0].x != 1.f || thi[0].y != 0.f;
+  // One call site of run_pass keeps one copy of each stage in the kernel.
+  for (int k = 0; k < 2; ++k) {
+    const bool row = (k == 0) == inverse;
+    const Pass g = row ? Pass{nl * n2, S, pitch, 1, make_div(n2)}
+                       : Pass{nl * n1, S, 1, pitch, make_div(n1)};
+    const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
+    run_pass(home, g, row ? p1 : p2, row ? s1 : s2,
+             InterTwiddle{fuse ? tlo : nullptr, thi});
+  }
 }
 
 // The two-factor DFT (twofactor.cuh's contract) of the `lines` lines of
@@ -543,17 +603,7 @@ __device__ __forceinline__ void two_factor_block(
   else
     load_lines(xr, xi, g0, nl * n, in, home);
   __syncthreads();
-  // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
-  const bool twiddled = n2 > 1 || thi[0].x != 1.f || thi[0].y != 0.f;
-  // One call site of run_pass keeps one copy of each stage in the kernel.
-  for (int k = 0; k < 2; ++k) {
-    const bool row = (k == 0) == inverse;
-    const Pass g = row ? Pass{nl * n2, S, pitch, 1, make_div(n2)}
-                       : Pass{nl * n1, S, 1, pitch, make_div(n1)};
-    const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
-    run_pass(home, g, row ? p1 : p2, row ? s1 : s2,
-             InterTwiddle{fuse ? tlo : nullptr, thi});
-  }
+  two_factor_passes(home, nl, p1, p2, s1, s2, tlo, thi, pitch);
   store_lines(home, make_map(n, S, !inverse && !swapped, n1, n2, pitch), yr,
               yi, g0, nl * n);
 }

@@ -26,13 +26,15 @@ _dd_strided_kernel``):
   `bluestein_long_split`).
 * `fft_pair` (``csrc/fft_pair.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``: 2-D C2C of the two
-  minor axes of (B, ny, nz) fp32 planes in one pass, a plane held in the
-  shared memory of a thread-block cluster.
+  minor axes of (B, ny, nz) fp32 planes in one pass, a plane held once in
+  the shared memory of a thread-block cluster on the in-place walk
+  (`pair_layout`).
 * `fft_r2c` / `fft_c2r` (``csrc/fft_r2c.cu``) replace
   ``vkfft_tpu/ops/pallas_engine.py:2461 _r2c_kernel`` and ``:2507
   _c2r_kernel``: real (B, n) lines, n even, to their half spectrum in the
-  numpy or the packed layout, and back, as an n/2-point complex FFT and an
-  in-place untangle.
+  numpy or the packed layout, and back, as an n/2-point complex FFT on the
+  in-place walk (`fft_lines`' block, `r2c_layout`) and an in-place
+  untangle.
 * `fft_r2c_pair` / `fft_c2r_pair` (``csrc/fft_r2c_pair.cu``) replace
   ``vkfft_tpu/ops/pallas_engine.py:3204 _r2c_pair_kernel`` and ``:3229
   _c2r_pair_kernel``: numpy ``rfft2``/``irfft2`` of the two minor axes of
@@ -168,14 +170,26 @@ KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
                   "fft_r2c_pair", "fft_conv", "fft_twofactor", "fft_conv_inv",
                   "fft_conv_pair", "fft_dct23", "fft_dct1", "fft_dct4",
                   "fft_strided_tw", "fft_dd")
-# Shared memory per block of `fft_pair` (two buffers of its share of a
-# plane): the cluster grows until a block needs PAIR_BLOCK_BYTES (as much
-# as a block of `fft_lines`), or else to its largest size, as long as a
-# block needs at most PAIR_MAX_BLOCK_BYTES.  A larger plane runs as two
-# axis passes.
+# The planes `fft_pair` serves (`pair_cluster`, and `fft_r2c_pair` and
+# `fft_conv_pair`'s 2-D mode their clusters): the rule of two buffers of a
+# block's share of a plane, the cluster growing until a block needs
+# PAIR_BLOCK_BYTES, or else to its largest size, as long as a block needs
+# at most PAIR_MAX_BLOCK_BYTES.  A larger plane runs as two axis passes.
 PAIR_BLOCK_BYTES = 32 * 1024
 PAIR_MAX_BLOCK_BYTES = 128 * 1024
 PAIR_CLUSTERS = (1, 2, 4, 8, 16)
+# `fft_pair`'s layout (csrc/fft_pair.cu, `pair_layout`): the plane held
+# once over the smallest cluster whose blocks hold at most
+# PAIR_TILE_POINTS points, else over the largest (every plane
+# `pair_cluster` serves fits 8192 points a block), a thread for about
+# PAIR_AIM_POINTS of them and at most PAIR_XCHG of an exchange (kXchg) at
+# up to PAIR_THREADS threads (kThreads).  Small blocks, many to an SM: at
+# 256 x 256, 16 blocks of 4096 points beat 8 of 8192 and 4 of 16384
+# (chip_smoke.py's sweep, PERF.md).
+PAIR_TILE_POINTS = 4096
+PAIR_AIM_POINTS = 16
+PAIR_XCHG = 16
+PAIR_THREADS = 1024
 # Shared memory a block may opt into on sm_90 (vkfft::kMaxSmemBytes in
 # csrc/stockham.cuh): `fft_conv`'s matrix mode holds two buffers of the mm
 # coordinate lines of one batch item.
@@ -568,6 +582,77 @@ def pair_cluster(ny: int, nz: int) -> Optional[int]:
     return _cluster(ny, nz)
 
 
+def _pair_factors(n: int, threads: int) -> tuple[int, int]:
+    """(n1, n2) of one axis of `fft_pair` at ``threads`` a block: (n, 1),
+    one pass, where every stage's sequences fit a round of the threads
+    (`walk_rounds_fit`), else the two factors n1 >= n2 of fewest stages
+    (a generic radix r as r / 8), then the most square, that fit."""
+    if walk_rounds_fit(n, threads, True):
+        return n, 1
+    best, best_key = None, None
+    for n2 in _divisors(n)[1:]:
+        n1 = n // n2
+        if n1 < n2:
+            break
+        if not (stage_radices(n1) and stage_radices(n2)
+                and walk_rounds_fit(n1, threads, True)
+                and walk_rounds_fit(n2, threads, True)):
+            continue
+        key = (_stage_cost(n1) + _stage_cost(n2), -n2)
+        if best_key is None or key < best_key:
+            best, best_key = (n1, n2), key
+    assert best is not None, (n, threads)
+    return best
+
+
+def pair_splits(ny: int, nz: int):
+    """((n1z, n2z), (n1y, n2y)): the factors of each axis of `fft_pair` at
+    the threads of `pair_layout` (`_pair_factors`)."""
+    threads = pair_layout(ny, nz)[1]
+    return _pair_factors(nz, threads), _pair_factors(ny, threads)
+
+
+def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
+    """(cluster, threads, shared bytes) of an `fft_pair` block for a plane
+    `pair_cluster` serves, the one layout rule (the C entry refuses any
+    other): the smallest cluster (1, 2, 4, 8, 16) dividing ny and nz whose
+    blocks hold at most PAIR_TILE_POINTS points, else the largest;
+    ``threads`` a multiple of 32 near one for PAIR_AIM_POINTS points and at
+    least one for PAIR_XCHG, in 32..PAIR_THREADS; the block's tile (the z
+    factors' rows at the odd pitch n1z | 1) beside the four stage tables
+    (`walk_radices`) and both axes' twiddle root tables."""
+    fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and nz % k == 0]
+    c = next((k for k in fits if ny * nz // k <= PAIR_TILE_POINTS), fits[-1])
+    tile, rows = ny * nz // c, ny // c
+    want = max(-(-tile // PAIR_AIM_POINTS), -(-tile // PAIR_XCHG))
+    threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
+    (n1z, n2z), (n1y, n2y) = _pair_factors(nz, threads), \
+        _pair_factors(ny, threads)
+    points = (rows * n2z * (n1z | 1)
+              + sum(_table_points(k, True) for k in (n1z, n2z, n1y, n2y))
+              + 2 * TWOFACTOR_TW_LO + -(-nz // TWOFACTOR_TW_LO)
+              + -(-ny // TWOFACTOR_TW_LO))
+    return c, threads, 8 * points
+
+
+def pair_occupancy(ny: int, nz: int) -> tuple[int, int]:
+    """(resident clusters on the card, resident blocks an SM) of `fft_pair`
+    at the layout of an (ny, nz) plane, from
+    ``cudaOccupancyMaxActiveClusters`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
+    ``vk_fft_pair_occupancy``)."""
+    c, threads, smem = pair_layout(ny, nz)
+    fn = _library("fft_pair").vk_fft_pair_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(c, threads, smem, ctypes.byref(clusters), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_fft_pair_occupancy({c}, {threads}, {smem}) "
+                           f"failed: CUDA error {err}")
+    return clusters.value, blocks.value
+
+
 @functools.lru_cache(maxsize=1024)
 def r2c_pair_cluster(ny: int, nz: int) -> Optional[int]:
     """Blocks of the cluster that holds one real (ny, nz) plane in
@@ -825,6 +910,84 @@ def lines_layout(n: int) -> tuple[int, int, int]:
               + _table_points(n2, True)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
     return threads, lines, 8 * points
+
+
+# `fft_r2c`'s block (csrc/fft_r2c.cu): its m = n/2-point lines share a
+# block up to R2C_BLOCK_POINTS points, a thread for about R2C_AIM_POINTS of
+# them; one pass where a block holds R2C_ONE_PASS_LINES lines or more,
+# else `fft_lines`' two factors of m.  Its own constants, not `fft_lines`':
+# at n = 1024 four 512-point lines a block in one pass beat eight, and
+# two factors (chip_smoke.py's layout sweep, PERF.md).
+R2C_BLOCK_POINTS = 2048
+R2C_ONE_PASS_LINES = 4
+R2C_AIM_POINTS = 16
+
+
+def _r2c_block(n: int) -> tuple[int, int]:
+    """(threads, lines) of an `fft_r2c` block for even length n."""
+    m = n // 2
+    lines = max(1, R2C_BLOCK_POINTS // m)
+    return _block_threads(lines * m, R2C_AIM_POINTS), lines
+
+
+def r2c_split(n: int) -> tuple[int, int]:
+    """(n1, n2) of the m = n/2-point complex DFT inside `fft_r2c` /
+    `fft_c2r` for even length n: (m, 1), one pass, where a block holds
+    R2C_ONE_PASS_LINES lines or more and every stage's sequences fit a
+    round of its threads, else `fft_lines`' two factors of a lone m-point
+    line (which fit the block's threads, as many or more)."""
+    m = n // 2
+    threads, lines = _r2c_block(n)
+    if lines >= R2C_ONE_PASS_LINES and walk_rounds_fit(m, threads, True):
+        return m, 1
+    return _lines_factors(m)
+
+
+@functools.lru_cache(maxsize=1024)
+def r2c_twiddle(n: int, inverse: bool) -> np.ndarray:
+    """The twiddles of `fft_r2c` (`fft_c2r` with ``inverse``) for even
+    length n, complex128: the m = n/2-point inter-factor twiddle's two
+    tables (`twofactor_twiddle_pair`, no scale: the inverse's rides its
+    untangle), then the untangle's w_n^k = e^{-2 pi i k / n}, k <= m/2, as
+    two tables: w_n^b for b < 64, then w_n^(64 a) for a <= m // 128 (the
+    inverse conjugates them in the kernel)."""
+    m = n // 2
+    lo = np.exp(-2j * np.pi / n * np.arange(TWOFACTOR_TW_LO))
+    hi = np.exp(-2j * np.pi / n * TWOFACTOR_TW_LO
+                * np.arange((m // 2) // TWOFACTOR_TW_LO + 1))
+    return np.concatenate([twofactor_twiddle_pair(m, inverse), lo, hi])
+
+
+def r2c_layout(n: int) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_r2c` / `fft_c2r` block for
+    even length n, the one layout rule (the C entry refuses any other):
+    ``lines`` = max(1, R2C_BLOCK_POINTS // m) lines of m = n/2 points a
+    block, a multiple of 32 threads near one for R2C_AIM_POINTS points, at
+    most 512, the split of `r2c_split`, each line once as the (n2, n1)
+    matrix at the odd pitch n1 | 1, beside both factors' stage tables
+    (`walk_radices`) and the twiddles of `r2c_twiddle`."""
+    n1, n2 = r2c_split(n)
+    threads, lines = _r2c_block(n)
+    points = (lines * n2 * (n1 | 1) + _table_points(n1, True)
+              + _table_points(n2, True) + len(r2c_twiddle(n, False)))
+    return threads, lines, 8 * points
+
+
+def r2c_occupancy(n: int, inverse: bool = False) -> int:
+    """Resident blocks an SM of `fft_r2c` (`fft_c2r` with ``inverse``) at
+    the layout of length n, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
+    (C entry ``vk_fft_r2c_occupancy``)."""
+    threads, _, smem = r2c_layout(n)
+    fn = _library("fft_r2c").vk_fft_r2c_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(int(inverse), threads, smem, ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_fft_r2c_occupancy({int(inverse)}, {threads}, "
+                           f"{smem}) failed: CUDA error {err}")
+    return blocks.value
 
 
 def lines_occupancy(n: int) -> int:
@@ -1357,8 +1520,14 @@ _ENTRIES = {
     # layout (lines_layout): threads, lines, shared bytes
     "fft_lines": {"fft_lines": "ppppqpppppiii"},
     "fft_strided": {"fft_strided": "ppppqqpp"},
-    "fft_pair": {"fft_pair": "ppppqppppi"},
-    "fft_r2c": {"fft_r2c": "pppqippi", "fft_c2r": "pppqippi"},
+    # planes, batch, the plans of each axis's two factors (z1, z2, y1,
+    # y2), their tables, the twiddles of z and y, then the layout
+    # (pair_layout): cluster, threads, shared bytes
+    "fft_pair": {"fft_pair": "ppppq" + "p" * 10 + "iii"},
+    # real side, spectrum planes, batch, packed, plans, tables, the
+    # twiddles (r2c_twiddle), the inverse's scale, then the layout
+    # (r2c_layout): threads, lines, shared bytes
+    "fft_r2c": {"fft_r2c": "pppqipppppiii", "fft_c2r": "pppqipppppfiii"},
     "fft_r2c_pair": {"fft_r2c_pair": "pppqppppii",
                      "fft_c2r_pair": "pppqppppii"},
     "fft_conv": {"fft_conv": "ppppqiiii" + "p" * 6},
@@ -1655,22 +1824,29 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     `fft_pair_plain`; CUDA tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``.  Bound by
-    bytes (16 B a point for both axes); a cluster of `pair_cluster` blocks
-    holds each plane in its shared memory, runs the z stages on rows, moves
-    column tiles between its blocks over distributed shared memory and runs
-    the y stages there (``csrc/fft_pair.cu``)."""
+    bytes (16 B a point for both axes); a cluster (`pair_layout`) holds each
+    plane once in its shared memory on the walk of ``csrc/inplace.cuh``,
+    runs the z stages on rows, exchanges the tiles between its blocks over
+    distributed shared memory and runs the y stages down the columns
+    (``csrc/fft_pair.cu``); the planes are those `pair_cluster` serves."""
     _check_planes(re, im, 3, "fft_pair")
     B, ny, nz = re.shape
     _check_length(ny)
     _check_length(nz)
-    cluster = pair_cluster(ny, nz)
-    if cluster is None:
+    if pair_cluster(ny, nz) is None:
         raise _no_cluster("fft_pair", ny, nz)
 
     def args():
-        plan_y, table_y = _plan(ny, inverse, scale, re.device)
-        plan_z, table_z = _plan(nz, inverse, 1.0, re.device)
-        return (B, plan_y, plan_z, table_y, table_z, cluster)
+        layout = pair_layout(ny, nz)
+        (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz)
+        plans = [_plan(k, inverse, 1.0, re.device, True)
+                 for k in (n1z, n2z, n1y, n2y)]
+        tw = [device_array(("twofactor_pair", k, inverse, s), re.device,
+                           lambda k=k, s=s: twofactor_twiddle_pair(k, inverse,
+                                                                   s))
+              for k, s in ((nz, 1.0), (ny, scale))]
+        return (B, *(p for p, _ in plans), *(t for _, t in plans), *tw,
+                *layout)
 
     return _apply("fft_pair", re, im, out,
                   lambda: fft_pair_plain(re, im, inverse, scale), args)
@@ -1706,7 +1882,8 @@ def fft_r2c(x: torch.Tensor, packed: bool = False):
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2461 _r2c_kernel``.  Bound by
     bytes (4 B a real point read, 8 B a bin written); a block reads its
-    lines as float2 pairs, runs the n/2-point stages in shared memory and
+    lines as float2 pairs straight to their places, runs the n/2-point
+    stages in place on the walk of ``csrc/inplace.cuh`` (`r2c_layout`) and
     untangles there (``csrc/fft_r2c.cu``)."""
     _check_real(x, 2, "fft_r2c")
     B, n = x.shape
@@ -1717,10 +1894,22 @@ def fft_r2c(x: torch.Tensor, packed: bool = False):
     w = n // 2 if packed else n // 2 + 1
     yr, yi = x.new_empty((B, w)), x.new_empty((B, w))
     if B:
-        plan, table, post = _r2c_plan(n, False, 1.0, x.device)
         _launch("fft_r2c", "fft_r2c", x.device,
-                [x, yr, yi, B, int(packed), plan, table, post])
+                [x, yr, yi, B, int(packed),
+                 *_r2c_walk_args(n, False, 1.0, x.device)])
     return yr, yi
+
+
+def _r2c_walk_args(n: int, inverse: bool, scale: float, device):
+    """The plans, tables, twiddles (the inverse's scale after them) and
+    layout of an `fft_r2c` / `fft_c2r` launch at even length n."""
+    n1, n2 = r2c_split(n)
+    p1, t1 = _plan(n1, inverse, 1.0, device, True)
+    p2, t2 = _plan(n2, inverse, 1.0, device, True)
+    tw = device_array(("r2c_twiddle", n, inverse), device,
+                      lambda: r2c_twiddle(n, inverse))
+    return (p1, p2, t1, t2, tw, *((scale,) if inverse else ()),
+            *r2c_layout(n))
 
 
 def fft_c2r(re: torch.Tensor, im: torch.Tensor, n: int, scale: float = 1.0,
@@ -1732,7 +1921,8 @@ def fft_c2r(re: torch.Tensor, im: torch.Tensor, n: int, scale: float = 1.0,
     kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2507 _c2r_kernel``; bound and
-    design as `fft_r2c`, backwards (``csrc/fft_r2c.cu``)."""
+    design as `fft_r2c`, backwards: the untangle before the first stage
+    (``csrc/fft_r2c.cu``)."""
     _check_planes(re, im, 2, "fft_c2r")
     _check_r2c_length(n)
     _check_spectrum(re, im, n, packed, "fft_c2r")
@@ -1741,9 +1931,9 @@ def fft_c2r(re: torch.Tensor, im: torch.Tensor, n: int, scale: float = 1.0,
     B = re.shape[0]
     y = re.new_empty((B, n))
     if B:
-        plan, table, post = _r2c_plan(n, True, scale, re.device)
         _launch("fft_r2c", "fft_c2r", re.device,
-                [re, im, y, B, int(packed), plan, table, post])
+                [re, im, y, B, int(packed),
+                 *_r2c_walk_args(n, True, scale, re.device)])
     return y
 
 
