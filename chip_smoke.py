@@ -15,7 +15,13 @@ Phases (each asserts; any failure exits non-zero before the result line):
      serves and the first of each layout class, both directions, and on
      planes of several clusters in place and inside sentinel guards;
      fft_r2c/fft_c2r at named lengths in both layouts and directions with
-     their outputs inside sentinel guards, aligned and not; then the
+     their outputs inside sentinel guards, aligned and not; fft_r2c_pair
+     on every R2C_PAIR_SWEEP_STRIDE-th real plane it serves and the first
+     of each layout class, both directions, and on planes of several
+     clusters inside sentinel guards; fft_strided at every length it
+     serves at S = 1 and 37, both directions, inside sentinel guards and
+     in place, and on the first length of each layout class at S = 4096
+     and 65536; then the
      API's other routes (axis subsets, odd, tiny and length-1 axes, complex
      tensors, the real transforms' merged, tiny and explicit-n routes, the
      numpy rule for Im(DC/Nyquist), irfftn with an s that crops or pads
@@ -38,11 +44,14 @@ Phases (each asserts; any failure exits non-zero before the result line):
      back-to-back calls): each kernel at the main path's shapes (the
      strided kernel also on the real cube's (1, 256, 33024) half spectrum,
      both directions), held against its plain version there (<= 1e-5 of
-     max|ref|; fft_lines, fft_r2c/fft_c2r and fft_pair with their
-     registers, spills, layouts and blocks an SM, and a sweep of their
-     layouts: fft_lines' and fft_r2c's splits, lines a block and points a
-     thread, fft_pair's cluster and points a thread; fft_pair also
-     beside the two axis passes it replaces), and each end-to-end round trip,
+     max|ref|; fft_lines, fft_r2c/fft_c2r, fft_pair, fft_r2c_pair and
+     fft_strided with their registers, spills, layouts and blocks an SM,
+     and a sweep of their layouts: fft_lines' and fft_r2c's splits, lines
+     a block and points a thread, fft_pair's and fft_r2c_pair's cluster
+     and points a thread, fft_strided's columns a block; fft_pair also
+     beside the two axis passes it replaces; fft_strided also at the long
+     axes n = 64, 1024, 4096, 8192 over 2^24 points, and on the half
+     spectrum in place and on more allocations), and each end-to-end round trip,
      beside the HBM-bandwidth bound and the torch.fft time of the same
      function;
   5. lengths of any size: fft_conv, fft_twofactor, fft_conv_inv and
@@ -145,8 +154,9 @@ each kernel, the card's name and power limit, and
 --phases runs only the named phases, in their order (say
 toolchain,dd_kernels,dd_times to iterate on fft_dd,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
-toolchain,kernels,times,long_kernels,long_times on fft_lines and fft_pair,
-or toolchain,real_kernels,real_times on fft_r2c), writes their record
+toolchain,kernels,times,long_kernels,long_times on fft_lines, fft_pair
+and fft_strided, or toolchain,real_kernels,real_times on fft_r2c and
+fft_r2c_pair), writes their record
 to chiprun_out/chip_smoke_phases.json and prints no result line.
 """
 from __future__ import annotations
@@ -290,7 +300,7 @@ def phase_toolchain(ck) -> dict:
         info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln]
         if name in ("fft_dd", "fft_twofactor", "fft_lines", "fft_conv_pair",
-                    "fft_r2c", "fft_pair"):
+                    "fft_r2c", "fft_pair", "fft_r2c_pair", "fft_strided"):
             # every kernel: (kernel, registers, spill stores, loads)
             info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
@@ -313,6 +323,15 @@ LINES_NAMED = (2, 3, 47, 256, 1024, 2048, 3591, 4096, 7175, 8192)
 PAIR_TWO_FACTOR = ((2, 2, 8064), (2, 8064, 2), (3, 2, 7182), (3, 4096, 4))
 PAIR_SWEEP_STRIDE = 97
 PAIR_GUARDED = ((3, 256, 256), (5, 47, 60), (3, 64, 12), (3, 2, 8064))
+# fft_strided's checks at large S: at most this many points a case
+STRIDED_POINTS = 1 << 19
+# fft_strided's long axes, each over 2^24 points (P = 1), and the columns
+# a block of its layout sweep at n = 256
+STRIDED_LONG = (64, 1024, 4096, 8192)
+STRIDED_SWEEP_COLUMNS = (8, 16, 32, 64)
+# fft_strided on the real cube's half spectrum, timed again on this many
+# more pairs of planes
+STRIDED_ALLOCATIONS = 3
 
 
 def _pair_served(ck) -> list:
@@ -491,6 +510,50 @@ def phase_kernels_vs_plain(ck, dev) -> dict:
             sweep["strided_worst"] = max(sweep["strided_worst"], err)
     out["sweep"] = sweep
     _log(f"[kernels] sweep over every covered length: {sweep}")
+    # fft_strided at every length it serves: S = 1 and 37 (a ragged tile)
+    # in turn, both directions in turn, with its output inside sentinel
+    # guards (aligned and not) and in place; then, on the first length of
+    # each layout class at S = 4096 and 65536 (at most STRIDED_POINTS
+    # points), the same
+    out["fft_strided_guarded"] = {"launches": 0, "worst": 0.0,
+                                  "classes": 0}
+
+    def strided_case(P, n, S, inverse, offset):
+        xr, xi = _planes((P, n, S), n + S, dev)
+        scale = 1.0 / n if inverse else 0.5
+        plain = ck.fft_strided_plain(xr, xi, inverse, scale)
+        got, changed = _guarded(
+            lambda *p, out: ck.fft_strided(*p, inverse, scale, out=out),
+            (xr, xi), offset)
+        err = _rel(torch.complex(*got), torch.complex(*plain))
+        inplace = (xr.clone(), xi.clone())
+        got = ck.fft_strided(*inplace, inverse, scale, out=inplace)
+        assert got[0] is inplace[0] and got[1] is inplace[1]
+        err = max(err, _rel(torch.complex(*got), torch.complex(*plain)))
+        row = {"shape": [P, n, S], "inverse": inverse, "offset": offset,
+               "layout": ck.strided_layout(n, S), "rel_err_plain": err,
+               "guard_cells_changed": changed}
+        assert changed == 0 and err <= KERNEL_TOL, row
+        g = out["fft_strided_guarded"]
+        g["launches"] += 2
+        g["worst"] = max(g["worst"], err)
+
+    for i, n in enumerate(covered):
+        strided_case(3, n, (1, 37)[i % 2], bool((i // 2) % 2), (i // 4) % 2)
+    for S in (4096, 65536):
+        classes = {}
+        for n in covered:
+            ts, threads, _ = ck.strided_layout(n, S)
+            key = (ck.strided_split(n, S)[1] > 1, ts, threads)
+            classes.setdefault(key, n)
+        for i, n in enumerate(classes.values()):
+            ts = ck.strided_layout(n, S)[0]
+            Sn = S if n * S <= STRIDED_POINTS else max(
+                ts, STRIDED_POINTS // n // ts * ts + S % ts)
+            strided_case(1, n, Sn, bool(i % 2), (i // 2) % 2)
+        out["fft_strided_guarded"]["classes"] += len(classes)
+    _log(f"[kernels] fft_strided guarded and in place: "
+         f"{out['fft_strided_guarded']}")
     worst = {k: max(r["rel_err_plain"] for r in out[k])
              for k in C2C_KERNELS}
     _log(f"[kernels] worst rel err vs plain: {worst}")
@@ -667,7 +730,11 @@ def phase_times(vt, ck, dev) -> dict:
         split_sweep += rows
         _log(f"[time] fft_lines layout sweep n={n}: {rows}")
         del xr, xi, xc, plain
-    for shape in [(1, 256, 65536), (256, 256, 256)]:
+    # fft_strided at the main path's shapes, then the long axes over 2^24
+    # points
+    shapes = [(1, 256, 65536), (256, 256, 256)] + [
+        (1, n, (1 << 24) // n) for n in STRIDED_LONG]
+    for shape in shapes:
         P, n, S = shape
         xr, xi = _planes(shape, n + P, dev)
         err = _errors(ck.fft_strided(xr, xi, False),
@@ -682,10 +749,34 @@ def phase_times(vt, ck, dev) -> dict:
                "plain_ms": _time_ms(
                    lambda: ck.fft_strided_plain(xr, xi, False), reps=5,
                    inner=1, warmup=1),
-               "library_ms": _time_ms(lambda: torch.fft.fft(xc, dim=1))}
+               "library_ms": _time_ms(lambda: torch.fft.fft(xc, dim=1)),
+               **_strided_extra(ck, n, S)}
         _log(f"[time] fft_strided {row}")
         kernels["fft_strided"].append(row)
         del xr, xi, xc
+    # the layout sweep at n = 256 over S = 65536 and 33024 (the real cube's
+    # half spectrum): STRIDED_SWEEP_COLUMNS columns a block, timed in turns
+    # (down the list, then up), each against the plain version first; the
+    # parent's kernel, which has no layout rule, is timed without it
+    strided_sweep = []
+    for S in ((65536, 33024) if hasattr(ck, "strided_layout") else ()):
+        xr, xi = _planes((1, 256, S), S, dev)
+        plain = ck.fft_strided_plain(xr, xi, False)
+        rows = []
+        for ts in STRIDED_SWEEP_COLUMNS:
+            v = {"tile_points": 256 * ts}
+            with _strided_layout_forced(ck, v):
+                v.update(shape=[1, 256, S], **_strided_extra(ck, 256, S),
+                         ms=[])
+            rows.append(v)
+        for v in rows + rows[::-1]:
+            with _strided_layout_forced(ck, v):
+                fn = lambda: ck.fft_strided(xr, xi, False)
+                v["max_abs_err"] = _errors(fn(), plain, ("fft_strided", v))
+                v["ms"].append(_time_ms(fn))
+        strided_sweep += rows
+        del xr, xi, plain
+    _log(f"[time] fft_strided layout sweep: {strided_sweep}")
     B, ny, nz = CUBE
     xr, xi = _planes(CUBE, 5, dev)
     plain = ck.fft_pair_plain(xr, xi, False)
@@ -769,12 +860,16 @@ def phase_times(vt, ck, dev) -> dict:
     row = {"row": "3d_256^3", "shape": list(CUBE), "ms": ms,
            "GBs": nbytes / ms / 1e6, "bound_ms": bound, "bound_by": by,
            "axis_passes_per_dir": 2,
+           # the host's enqueue time of one round trip: near "ms", the
+           # host bounds the row
+           "host_ms": _host_ms(lambda: vt.ifftn(vt.fftn(cube))),
            "torch_fft_ms": _time_ms(lambda: torch.fft.ifftn(torch.fft.fftn(cc)))}
     row["vs_torch_fft"] = row["torch_fft_ms"] / ms
     _log(f"[time] e2e {row}")
     e2e.append(row)
     return {"kernels": kernels, "e2e": e2e, "fft_lines_layout_sweep": split_sweep,
-            "fft_pair_layout_sweep": pair_sweep}
+            "fft_pair_layout_sweep": pair_sweep,
+            "fft_strided_layout_sweep": strided_sweep}
 
 
 # fft_lines' layout sweep: (LINES_BLOCK_POINTS, points a thread) at each
@@ -833,6 +928,53 @@ class _pair_layout_forced:
 
     def __exit__(self, *exc):
         self.ck.PAIR_TILE_POINTS, self.ck.PAIR_AIM_POINTS = self.saved
+
+
+def _strided_extra(ck, n, S) -> dict:
+    """fft_strided's layout, registers, spills and blocks an SM at (n, S)
+    (none for the parent's kernel, which has no layout rule)."""
+    if not hasattr(ck, "strided_layout"):
+        return {}
+    with open(ck.library_path("fft_strided")[:-3] + ".log") as f:
+        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+    ts, threads, smem = ck.strided_layout(n, S)
+    return {"columns": ts, "split": list(ck.strided_split(n, S)),
+            "threads": threads, "smem_bytes": smem, "registers": regs,
+            "spill_bytes": [spill_st, spill_ld],
+            "blocks_per_sm": ck.strided_occupancy(n, S)}
+
+
+class _strided_layout_forced:
+    """fft_strided with the tile points of layout ``v`` for the time of
+    the block (`cuda_kernels.strided_layout` reads STRIDED_TILE_POINTS)."""
+
+    def __init__(self, ck, v):
+        self.ck, self.v = ck, v
+
+    def __enter__(self):
+        self.saved = self.ck.STRIDED_TILE_POINTS
+        self.ck.STRIDED_TILE_POINTS = self.v["tile_points"]
+
+    def __exit__(self, *exc):
+        self.ck.STRIDED_TILE_POINTS = self.saved
+
+
+class _r2c_pair_layout_forced:
+    """fft_r2c_pair with the tile points and points a thread of layout
+    ``v`` for the time of the block (`cuda_kernels.r2c_pair_layout` reads
+    R2C_PAIR_TILE_POINTS and R2C_PAIR_AIM_POINTS)."""
+
+    def __init__(self, ck, v):
+        self.ck, self.v = ck, v
+
+    def __enter__(self):
+        ck, v = self.ck, self.v
+        self.saved = (ck.R2C_PAIR_TILE_POINTS, ck.R2C_PAIR_AIM_POINTS)
+        ck.R2C_PAIR_TILE_POINTS = v["tile_points"]
+        ck.R2C_PAIR_AIM_POINTS = v["aim"]
+
+    def __exit__(self, *exc):
+        self.ck.R2C_PAIR_TILE_POINTS, self.ck.R2C_PAIR_AIM_POINTS = self.saved
 
 
 class _lines_layout_forced:
@@ -919,6 +1061,61 @@ def _r2c_guarded(ck, x, packed, inverse, offset, dev):
         changed
 
 
+# fft_r2c_pair: the stride of the sweep over the real planes it serves,
+# and the planes launched inside sentinel guards (the main path's 256 x
+# 256, an odd column tile over 1 block, m = 8064's two factors over 2, odd
+# m = 3 and 47)
+R2C_PAIR_SWEEP_STRIDE = 97
+R2C_PAIR_GUARDED = ((3, 256, 256), (2, 48, 6), (2, 2, 16128), (3, 16, 94))
+
+
+def _r2c_pair_served(ck) -> list:
+    """Every real (ny, nz) plane fft_r2c_pair serves (`r2c_pair_cluster`)."""
+    lengths = [n for n in range(2, ck.KERNEL_MAX_N + 1)
+               if ck.kernel_supports(n)]
+    return [(ny, 2 * m) for ny in lengths for m in lengths
+            if ny * m <= 131072 and ck.r2c_pair_cluster(ny, 2 * m) is not None]
+
+
+def _r2c_pair_class(ck, ny, nz):
+    """The layout class of a real plane: cluster, threads, which axes run
+    as two factors, whether the column tile's width is odd."""
+    c, threads, _ = ck.r2c_pair_layout(ny, nz)
+    (_, n2z), (_, n2y) = ck.r2c_pair_splits(ny, nz)
+    return (c, threads, n2z > 1, n2y > 1, (nz // 2 // c) % 2)
+
+
+def _r2c_pair_guarded(ck, x, inverse, offset, dev):
+    """One launch of fft_r2c_pair (fft_c2r_pair with ``inverse``, of x's
+    plain spectrum, scaled to numpy's irfft2) with its output planes inside
+    a buffer of sentinel values (R2C_GUARD floats each side and ``offset``
+    more before): (the output, the plain version's, the guard cells the
+    launch changed)."""
+    B, ny, nz = x.shape
+    h = nz // 2 + 1
+    spec = ck.fft_r2c_pair_plain(x)
+    if inverse:
+        shapes = [(B, ny, nz)]
+        want = (ck.fft_c2r_pair_plain(*spec, nz, 1.0 / ny, 2.0 / nz),)
+    else:
+        shapes, want = [(B, ny, h)] * 2, spec
+    numel, sentinel = math.prod(shapes[0]), 12345.0
+    lead = R2C_GUARD + offset
+    buf = torch.full((len(shapes), lead + numel + R2C_GUARD), sentinel,
+                     device=dev)
+    y = [buf[i, lead:lead + numel].view(shapes[i]) for i in range(len(shapes))]
+    args = (list(spec) + y if inverse else [x] + y) + [
+        B, *ck._r2c_pair_args(ny, nz, inverse, 1.0 / ny if inverse else 1.0,
+                              dev),
+        *((2.0 / nz,) if inverse else ()), *ck.r2c_pair_layout(ny, nz)]
+    ck._launch("fft_r2c_pair", "fft_c2r_pair" if inverse else "fft_r2c_pair",
+               dev, args)
+    changed = (int((buf[:, :lead] != sentinel).sum())
+               + int((buf[:, lead + numel:] != sentinel).sum()))
+    return (y[0] if inverse else tuple(y)), (want[0] if inverse else want), \
+        changed
+
+
 def phase_real_kernels_vs_plain(ck, dev) -> dict:
     """fft_r2c/fft_c2r and fft_r2c_pair against their plain versions (and
     numpy fp64 on a subset), in both directions and both layouts."""
@@ -999,7 +1196,8 @@ def phase_real_kernels_vs_plain(ck, dev) -> dict:
         pr, pi = ck.fft_r2c_pair_plain(x)
         z = ck.fft_c2r_pair(pr, pi, nz, 1.0 / ny, 2.0 / nz)
         torch.cuda.synchronize()
-        row = {"shape": [B, ny, nz], "cluster": ck.r2c_pair_cluster(ny, nz),
+        row = {"shape": [B, ny, nz], "layout": ck.r2c_pair_layout(ny, nz),
+               "splits": ck.r2c_pair_splits(ny, nz),
                "rel_err_plain": _rel(torch.complex(yr, yi),
                                      torch.complex(pr, pi)),
                "rel_err_plain_inverse": _rel(z, ck.fft_c2r_pair_plain(
@@ -1017,6 +1215,56 @@ def phase_real_kernels_vs_plain(ck, dev) -> dict:
             assert max(row["rel_err_numpy"],
                        row["rel_err_numpy_inverse"]) <= NUMPY_TOL, row
         out["fft_r2c_pair"].append(row)
+    # fft_r2c_pair over the real planes it serves: every
+    # R2C_PAIR_SWEEP_STRIDE-th and the first of each layout class, both
+    # directions
+    served = _r2c_pair_served(ck)
+    classes, picked = {}, []
+    for i, (ny, nz) in enumerate(served):
+        key = _r2c_pair_class(ck, ny, nz)
+        if key not in classes or i % R2C_PAIR_SWEEP_STRIDE == 0:
+            classes.setdefault(key, (ny, nz))
+            picked.append((ny, nz))
+    worst = 0.0
+    for i, (ny, nz) in enumerate(picked):
+        g = torch.Generator(device=dev).manual_seed(i)
+        x = torch.randn((2, ny, nz), generator=g, device=dev)
+        spec = ck.fft_r2c_pair_plain(x)
+        err = max(_rel(torch.complex(*ck.fft_r2c_pair(x)),
+                       torch.complex(*spec)),
+                  _rel(ck.fft_c2r_pair(*spec, nz, 1.0 / ny, 2.0 / nz),
+                       ck.fft_c2r_pair_plain(*spec, nz, 1.0 / ny, 2.0 / nz)))
+        assert err <= KERNEL_TOL, ("fft_r2c_pair", ny, nz, err)
+        worst = max(worst, err)
+    out["r2c_pair_sweep"] = {"served": len(served), "checked": len(picked),
+                             "classes": len(classes), "worst": worst}
+    _log(f"[real kernels] fft_r2c_pair over the served planes: "
+         f"{out['r2c_pair_sweep']}")
+    # fft_r2c_pair on planes of several clusters, both directions, with
+    # its outputs inside sentinel guards, aligned and not (the real side
+    # stays 8-byte aligned)
+    out["fft_r2c_pair_guarded"] = {"launches": 0, "occupancy": {}}
+    for (B, ny, nz) in R2C_PAIR_GUARDED:
+        out["fft_r2c_pair_guarded"]["occupancy"][f"{ny}x{nz}"] = [
+            ck.r2c_pair_occupancy(ny, nz, False),
+            ck.r2c_pair_occupancy(ny, nz, True)]
+        g = torch.Generator(device=dev).manual_seed(ny + nz)
+        x = torch.randn((B, ny, nz), generator=g, device=dev)
+        for inverse in (False, True):
+            for offset in (0, 1, 2):
+                if inverse and offset % 2:
+                    continue
+                got, want, changed = _r2c_pair_guarded(ck, x, inverse,
+                                                       offset, dev)
+                err = (_rel(got, want) if inverse else
+                       _rel(torch.complex(*got), torch.complex(*want)))
+                row = {"shape": [B, ny, nz], "inverse": inverse,
+                       "offset": offset, "layout": ck.r2c_pair_layout(ny, nz),
+                       "rel_err_plain": err, "guard_cells_changed": changed}
+                assert changed == 0 and err <= KERNEL_TOL, row
+                out["fft_r2c_pair_guarded"]["launches"] += 1
+    _log(f"[real kernels] fft_r2c_pair guarded: "
+         f"{out['fft_r2c_pair_guarded']}")
     # every even n whose n/2 the kernels take, up to 16384: directions
     # alternate, and layouts every second length
     covered = [2 * m for m in range(2, ck.KERNEL_MAX_N + 1)
@@ -1324,15 +1572,32 @@ def phase_real_times(vt, ck, dev) -> dict:
     nbytes = 4.0 * P * ny * nz + 8.0 * P * ny * h
     ops = _fft_ops(P * ny * (nz // 2), ny * (nz // 2)) + 10.0 * P * ny * nz
     bound, by = _bound(nbytes, ops)
+    with open(ck.library_path("fft_r2c_pair")[:-3] + ".log") as f:
+        pregs = {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
+    # the parent's kernel, which has no layout rule, is timed without one
+    walk = hasattr(ck, "r2c_pair_layout")
+
+    def pair_layout(inverse):
+        if not walk:
+            return {}
+        r, st, ld = pregs["c2r_pair_kernel" if inverse else "r2c_pair_kernel"]
+        c, threads, smem = ck.r2c_pair_layout(ny, nz)
+        clusters, blocks = ck.r2c_pair_occupancy(ny, nz, inverse)
+        return {"cluster": c, "threads": threads, "smem_bytes": smem,
+                "splits": ck.r2c_pair_splits(ny, nz), "registers": r,
+                "spill_bytes": [st, ld], "resident_clusters": clusters,
+                "blocks_per_sm": blocks}
+
+    spec = ck.fft_r2c_pair_plain(cube)
     yr, yi = ck.fft_r2c_pair(cube)
-    err = _errors((yr, yi), ck.fft_r2c_pair_plain(cube), ("fft_r2c_pair",))
+    err = _errors((yr, yi), spec, ("fft_r2c_pair",))
     row = {"shape": list(CUBE), "direction": "r2c",
-           "cluster": ck.r2c_pair_cluster(ny, nz),
            "ms": _time_ms(lambda: ck.fft_r2c_pair(cube)), "bound_ms": bound,
            "bound_by": by, "max_abs_err": err,
            "plain_ms": _time_ms(lambda: ck.fft_r2c_pair_plain(cube), reps=5,
                                 inner=1, warmup=1),
-           "library_ms": _time_ms(lambda: torch.fft.rfft2(cube))}
+           "library_ms": _time_ms(lambda: torch.fft.rfft2(cube)),
+           **pair_layout(False)}
     row["GBs"] = nbytes / row["ms"] / 1e6
     _log(f"[time] fft_r2c_pair {row}")
     kernels["fft_r2c_pair"].append(row)
@@ -1342,18 +1607,44 @@ def phase_real_times(vt, ck, dev) -> dict:
     assert rel <= KERNEL_TOL, ("fft_c2r_pair", rel)
     Xc = torch.complex(yr, yi)
     row = {"shape": list(CUBE), "direction": "c2r",
-           "cluster": ck.r2c_pair_cluster(ny, nz),
            "ms": _time_ms(lambda: ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny,
                                                   2.0 / nz)),
            "bound_ms": bound, "bound_by": by,
            "max_abs_err": (z - pz).abs().max().item(),
            "plain_ms": _time_ms(lambda: ck.fft_c2r_pair_plain(
                yr, yi, nz, 1.0 / ny, 2.0 / nz), reps=5, inner=1, warmup=1),
-           "library_ms": _time_ms(lambda: torch.fft.irfft2(Xc, s=(ny, nz)))}
+           "library_ms": _time_ms(lambda: torch.fft.irfft2(Xc, s=(ny, nz))),
+           **pair_layout(True)}
     row["GBs"] = nbytes / row["ms"] / 1e6
     _log(f"[time] fft_c2r_pair {row}")
     kernels["fft_r2c_pair"].append(row)
-    del z, pz, Xc, yr, yi
+    # the cluster sweep at 256 x 256: clusters of 4, 8 and 16 blocks
+    # (R2C_PAIR_TILE_POINTS) at 8 or 16 points a thread, both directions,
+    # timed in turns (down the list, then up), each against the plain
+    # version first
+    calls = {False: lambda: ck.fft_r2c_pair(cube),
+             True: lambda: ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny, 2.0 / nz)}
+    pair_sweep = []
+    for tile in ((8192, 4096, 2048) if walk else ()):
+        for aim in (8, 16):
+            v = {"tile_points": tile, "aim": aim}
+            with _r2c_pair_layout_forced(ck, v):
+                v.update(layout=list(ck.r2c_pair_layout(ny, nz)),
+                         blocks_per_sm=[ck.r2c_pair_occupancy(ny, nz, False)[1],
+                                        ck.r2c_pair_occupancy(ny, nz, True)[1]],
+                         ms_r2c=[], ms_c2r=[])
+            if all(p["layout"] != v["layout"] for p in pair_sweep):
+                pair_sweep.append(v)
+    for v in pair_sweep + pair_sweep[::-1]:
+        with _r2c_pair_layout_forced(ck, v):
+            _errors(calls[False](), spec, ("fft_r2c_pair", v))
+            rel = _rel(calls[True](), pz)
+            assert rel <= KERNEL_TOL, ("fft_c2r_pair", v, rel)
+            for inverse in (False, True):
+                v["ms_c2r" if inverse else "ms_r2c"].append(
+                    _time_ms(calls[inverse]))
+    _log(f"[time] fft_r2c_pair layout sweep: {pair_sweep}")
+    del z, pz, Xc, yr, yi, spec
     # fft_strided on the main path's real cube: axis 0 of the (1, 256,
     # 256*129) half spectrum, forward and unscaled inverse
     shape = (1, P, ny * h)
@@ -1367,6 +1658,12 @@ def phase_real_times(vt, ck, dev) -> dict:
         err = _errors(ck.fft_strided(sr, si, inverse),
                       ck.fft_strided_plain(sr, si, inverse),
                       ("fft_strided", shape, inverse))
+        # in place (as the round trip runs it: cuda_engine donates) on a
+        # copy, and out of place on STRIDED_ALLOCATIONS more pairs of
+        # planes, all alive at once: the time follows where the planes lie
+        ip = (sr.clone(), si.clone())
+        more = [_planes(shape, 28 + a, dev)
+                for a in range(STRIDED_ALLOCATIONS)]
         row = {"shape": list(shape), "inverse": inverse,
                "ms": _time_ms(lambda: ck.fft_strided(sr, si, inverse)),
                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
@@ -1375,7 +1672,14 @@ def phase_real_times(vt, ck, dev) -> dict:
                    inner=1, warmup=1),
                "library_ms": _time_ms(
                    lambda: lib(sc, dim=1, norm="forward" if inverse
-                               else "backward"))}
+                               else "backward")),
+               "inplace_ms": _time_ms(
+                   lambda: ck.fft_strided(*ip, inverse, out=ip)),
+               "allocations_ms": [
+                   _time_ms(lambda: ck.fft_strided(*x, inverse))
+                   for x in more],
+               **_strided_extra(ck, P, shape[2])}
+        del ip, more
         row["GBs"] = nbytes / row["ms"] / 1e6
         _log(f"[time] fft_strided {row}")
         kernels["fft_strided"].append(row)
@@ -1406,6 +1710,7 @@ def phase_real_times(vt, ck, dev) -> dict:
     bound, by = _bound(nbytes, 2 * _fft_ops(points // 2, points // 2))
     row = {"row": "3d_r2c_256^3", "shape": list(CUBE),
            "ms": _time_ms(lambda: vt.irfftn(vt.rfftn(cube_p))),
+           "host_ms": _host_ms(lambda: vt.irfftn(vt.rfftn(cube_p))),
            "bound_ms": bound, "bound_by": by, "axis_passes_per_dir": 2,
            "torch_fft_ms": _time_ms(
                lambda: torch.fft.irfftn(torch.fft.rfftn(cube), s=CUBE))}
@@ -1413,7 +1718,8 @@ def phase_real_times(vt, ck, dev) -> dict:
     row["vs_torch_fft"] = row["torch_fft_ms"] / row["ms"]
     _log(f"[time] e2e {row}")
     e2e.append(row)
-    return {"kernels": kernels, "e2e": e2e, "fft_r2c_layout_sweep": sweep}
+    return {"kernels": kernels, "e2e": e2e, "fft_r2c_layout_sweep": sweep,
+            "fft_r2c_pair_layout_sweep": pair_sweep}
 
 
 # ---------------------------------------------------------------------------

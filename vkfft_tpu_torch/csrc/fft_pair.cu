@@ -53,18 +53,6 @@ using vkfft::cluster::st_remote4;
 // (512, 2) does, and lets the largest tiles move in one exchange.
 constexpr int kThreads = 1024;
 
-// The place of row ky in the column tile after the y axis: natural (n2 =
-// 1) or the two factors' transposed order, ky = k1 * n2 + k2 at k2 * n1 +
-// k1.
-struct RowPerm {
-  Div d2;
-  int n1;
-  __device__ __forceinline__ int operator()(int ky) const {
-    const int q = quot(ky, d2);
-    return (ky - q * (int)d2.d) * n1 + q;
-  }
-};
-
 // Row tile -> column tiles: point (r, kz) of this block's row tile, at its
 // place `zout`, goes to point (r0 + r, kz % cols) of owner kz / cols's
 // column tile (pitch cols).  Each thread reads its points (pairs along kz

@@ -1,52 +1,176 @@
 // fft_strided: C2C FFT along the middle dim of (P, n, S) fp32 re/im planes,
-// S contiguous, natural order in and out, scale folded into the stage-0
-// twiddles.  Replaces vkfft_tpu/ops/pallas_engine.py:3489
-// _strided_kernel_v3 (plain form: no factor tables, no in/out keeps).
+// S contiguous, natural order in and out, times a scale (in the twiddle's
+// table).  Replaces vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3
+// (plain form: no factor tables, no in/out keeps), and :4001 _outer_kernel
+// through the (P, n, R*nz) view.
 //
 // Bound: bytes, one read and one write of each point (16 B of planes).
-// Design: a block takes a tile of ts neighbouring columns of one p across
-// all n rows, so each row of the tile is a run of ts contiguous floats per
-// plane in device memory, and transforms the ts columns in shared memory
-// (stockham.cuh, column index fastest across threads).  Shared memory is
-// 2 * n * ts * 8 bytes, so ts shrinks as n grows (32 at n <= 128, 16 at
-// 256, 1 from 4096 up): a smaller ts means shorter contiguous runs per row
-// and less of each 32-byte sector used per block; where ts, S and the
-// tile's start are multiples of 4, each thread moves float4s
-// (stockham.cuh).  The ragged last tile of
-// S is masked; all offsets are 64-bit; the grid is 1-D over P * tiles, so
-// P = 1 with a large S (the x axis of a cube) and a large P both fit.
-// A block reads its whole tile before it writes, so output may alias input.
-#include "stockham.cuh"
+// Design: fft_pair.cu's column pass fed from device memory, on the in-place
+// walk of inplace.cuh.  A block holds a tile of ts neighbouring columns of
+// one plane across all n rows once in shared memory, point (j, c) at j *
+// ts + c, so each row of the tile is one run of ts contiguous floats per
+// plane in device memory, read by cp.async straight to its places (every
+// read of the tile before any write: the output may alias the input).
+// The stages run down the columns, the column index fastest across
+// threads (a sequence one column apart, its points ts apart), with the
+// stage tables (radix 16, walk_radices) and the twiddle's two root tables
+// in shared memory.  An axis whose stages do not fit a round of the
+// block's threads, or that leaves too few columns a block, runs as two
+// factors n = n1 * n2 (a column pass of n2-point DFTs, the twiddle w_n^(j1
+// k2) on its last stage, a row pass of n1-point DFTs, the points then in
+// the factors' transposed order, which the write follows); in one pass
+// the twiddle's table carries the scale alone.  The rows go back as
+// float4s where every run is 16-byte aligned, else as single floats; the
+// ragged last tile of S is masked; consecutive blocks take tiles spread
+// over the rows (tile_of).  cuda_kernels.strided_layout is the one
+// layout rule (the C entry refuses any other): the columns a block, the
+// threads and the exact shared bytes.  Offsets are 64-bit and the grid is
+// 1-D over P * tiles, so P = 1 with a large S (the x axis of a cube) and a
+// large P both fit.
+#include "inplace.cuh"
+#include "twofactor.cuh"
 
 namespace {
 
 using vkfft::Plan;
+using vkfft::cmul;
+using namespace vkfft::walk;
 
-int tile_columns(int n, long long S) {
-  int ts = 4096 / n;
-  if (ts > 32) ts = 32;
-  if (ts < 1) ts = 1;
-  if (ts > S) ts = (int)S;
-  return ts;
+// Most threads a block; the bound holds the kernel to 64 registers.
+constexpr int kThreads = 1024;
+
+// The twiddle of the column pass's last stage: output k of sequence q
+// (column q % ts of row j1 = q / ts of the factors' matrix) times w_n^(j1
+// k) * scale from the twiddle's two tables; in one pass q < ts, so the
+// scale alone.  Off when lo is null.
+struct ColumnTwiddle {
+  const float2* lo;
+  const float2* hi;
+  Div dts;
+  __device__ __forceinline__ bool on() const { return lo != nullptr; }
+  __device__ __forceinline__ ColumnTwiddle off() const {
+    return {nullptr, hi, dts};
+  }
+  __device__ __forceinline__ float2 operator()(float2 v, int q, int k) const {
+    return cmul(v, inter_twiddle(quot(q, dts) * k, lo, hi));
+  }
+};
+
+// The block's tile: `cols` columns (of ts) of the n rows at float offset
+// g0 of the planes, row j at g0 + j * S, to point (j, c) at j * ts + c, by
+// cp.async, each float straight to its place; returns when this thread's
+// copies have landed.
+__device__ void load_columns_async(const float* xr, const float* xi,
+                                   long long g0, long long S, int n, int ts,
+                                   int cols, float2* tile) {
+  const Div dc = make_div(cols);
+  for (int u = threadIdx.x; u < n * cols; u += blockDim.x) {
+    const int j = quot(u, dc);
+    const int c = u - j * cols;
+    const long long g = g0 + j * S + c;
+    float* d = reinterpret_cast<float*>(tile + j * ts + c);
+    cp_async4(d, xr + g);
+    cp_async4(d + 1, xi + g);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(512)
+// The tile back to device memory: row k (at yout(k) * ts in the tile) to
+// float offset g0 + k * S, `cols` points, as float4s where every run is
+// 16-byte aligned (a thread's four points read in an order rotated by its
+// lane), else single floats.
+__device__ void store_columns(const float2* tile, RowPerm yout, float* yr,
+                              float* yi, long long g0, long long S, int n,
+                              int ts, int cols) {
+  const int T = blockDim.x;
+  if (cols == ts && (ts & 3) == 0 && (S & 3) == 0 && (g0 & 3) == 0 &&
+      aligned16(yr, yi)) {
+    const int c4 = ts >> 2;
+    const Div dc = make_div(c4);
+    const int rot = (threadIdx.x >> 2) & 3;
+#pragma unroll 2
+    for (int f = threadIdx.x; f < n * c4; f += T) {
+      const int k = quot(f, dc);
+      const int c = 4 * (f - k * c4);
+      const float2* s = tile + yout(k) * ts + c;
+      float2 v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = s[(q + rot) & 3];
+      rotate(v, (4 - rot) & 3);
+      const long long g = g0 + k * S + c;
+      *reinterpret_cast<float4*>(yr + g) = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
+      *reinterpret_cast<float4*>(yi + g) = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+    }
+    return;
+  }
+  const Div dc = make_div(cols);
+  for (int u = threadIdx.x; u < n * cols; u += T) {
+    const int k = quot(u, dc);
+    const int c = u - k * cols;
+    const float2 v = tile[yout(k) * ts + c];
+    const long long g = g0 + k * S + c;
+    yr[g] = v.x;
+    yi[g] = v.y;
+  }
+}
+
+// The tile of block b: where kSpread divides a plane's tiles, consecutive
+// blocks take tiles a kSpread-th of the plane's rows apart, so the blocks
+// in flight at once cover kSpread parts of every row rather than one
+// narrow window of it: with neighbouring tiles for neighbouring blocks the
+// time followed where the planes lay in physical memory (at 1 x 256 x
+// 33024 it changed by up to half from one allocation to the next;
+// PERF.md §6).
+constexpr int kSpread = 4;
+
+__device__ __forceinline__ long long tile_of(long long b, long long tiles) {
+  if (tiles % kSpread != 0) return b;
+  const long long p = b / tiles;
+  const long long t = b - p * tiles;
+  return p * tiles + (t % kSpread) * (tiles / kSpread) + t / kSpread;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                   long long S, int ts, long long tiles, Plan p,
-                   const float2* table) {
-  extern __shared__ float2 smem[];
-  const int n = p.n;
-  const long long blk = blockIdx.x;
-  const long long pi = blk / tiles;
-  const long long s0 = (blk - pi * tiles) * ts;
-  const int cols = (int)min((long long)ts, S - s0);
-  const long long base = pi * (long long)n * S + s0;
-  float2* a = smem;
-  float2* b = smem + n * ts;
-  vkfft::load_tile(xr, xi, base, S, n, ts, cols, a);
+                   long long S, long long tiles, Plan p1, Plan p2,
+                   const float2* t1, const float2* t2, const float2* tw,
+                   int ts, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int n = p1.n * p2.n;
+  float2* s1 = smem + n * ts;
+  const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
+  for (int t = threadIdx.x; t < ntab; t += blockDim.x)
+    s1[t] = t < len1 ? __ldg(&t1[t])
+                     : t < len1 + len2 ? __ldg(&t2[t - len1])
+                                       : __ldg(&tw[t - len1 - len2]);
+  const long long bt = tile_of(blockIdx.x, tiles);
+  const long long pi = bt / tiles;
+  const long long s0 = (bt - pi * tiles) * ts;
+  load_columns_async(xr, xi, pi * n * S + s0, S, n, ts,
+                     (int)min((long long)ts, S - s0), smem);
   __syncthreads();
-  const float2* res = vkfft::run_stages<true>(a, b, ts, 1, ts, p, table);
-  vkfft::store_tile(res, yr, yi, base, S, n, ts, cols);
+  // the column pass (n2-point DFTs, the twiddle on its last stage), then
+  // the row pass (n1-point; the scale on its last stage when n2 = 1); one
+  // call site of run_pass keeps one copy of each stage
+  const float2* tlo = s1 + len1 + len2;
+  for (int k = 0; k < 2; ++k) {
+    const bool row = k == 1;
+    const int n1 = p1.n, n2 = p2.n;
+    // column pass: sequence q = j1 * ts + c at q, points n1 * ts apart;
+    // row pass: q = k2 * ts + c at k2 * n1 * ts + c, points ts apart
+    const Pass g = row ? Pass{n2 * ts, n1 * ts, 1, ts, make_div(ts)}
+                       : Pass{n1 * ts, 0, 1, n1 * ts, make_div(n1 * ts)};
+    // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
+    const bool twiddled = n2 > 1 || tlo[kTwLo].x != 1.f || tlo[kTwLo].y != 0.f;
+    const bool fuse = twiddled && row == (n2 == 1);
+    run_pass(smem, g, row ? p1 : p2, row ? s1 : s1 + len1,
+             ColumnTwiddle{fuse ? tlo : nullptr, tlo + kTwLo, make_div(ts)});
+  }
+  const long long bu = tile_of(blockIdx.x, tiles);
+  const long long pj = bu / tiles;
+  const long long sj = (bu - pj * tiles) * ts;
+  store_columns(smem, RowPerm{make_div(p2.n), p1.n}, yr, yi,
+                pj * n * S + sj, S, n, ts, (int)min((long long)ts, S - sj));
 }
 
 }  // namespace
@@ -54,29 +178,63 @@ fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  `plan` is the int form of vkfft::Plan, `table` the device
-// twiddle table as interleaved (re, im) fp32 pairs, with the (P, n, S)
-// extents.
+// success).  (P, n, S) planes; plans (int form) of the two factors of n =
+// n1 * n2 (the second the empty plan of length 1 for one pass), their
+// stage tables (no scale) and the inter-factor twiddle as two tables, 64
+// points w_n^b then ceil(n / 64) points scale * w_n^(64 a), all as
+// interleaved fp32 pairs.  The layout (cuda_kernels.strided_layout): `ts`
+// columns a block (1 <= ts <= S), `threads` a block (a multiple of 32 up
+// to 1024, enough for a whole sequence of every stage in a round) and the
+// dynamic shared bytes, exactly; any other layout is refused
+// (cudaErrorInvalidValue).
 int vk_fft_strided(const float* xr, const float* xi, float* yr, float* yi,
-                   long long P, long long S, const int* plan,
-                   const float* table, void* stream) {
-  Plan p;
-  if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan, &p)) return (int)cudaErrorInvalidValue;
-  const int ts = tile_columns(p.n, S);
-  const size_t smem = 2 * (size_t)ts * p.n * sizeof(float2);
-  if (smem > (size_t)vkfft::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+                   long long P, long long S, const int* plan1,
+                   const int* plan2, const float* table1, const float* table2,
+                   const float* twiddle, int ts, int threads, int smem,
+                   void* stream) {
+  Plan p1, p2;
+  if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
+      !vkfft::subplan_from_ints(plan2, &p2) || twiddle == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int n = p1.n * p2.n;
+  const int len1 = table_len(p1), len2 = table_len(p2);
+  if (n > vkfft::kMaxN || p1.n < p2.n || p2.inverse != p1.inverse ||
+      ts < 1 || ts > S || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || !rounds_fit(p1, threads) ||
+      !rounds_fit(p2, threads) || smem < 0 ||
+      (size_t)smem != sizeof(float2) * ((size_t)n * ts + len1 + len2 + kTwLo +
+                                        (n + kTwLo - 1) / kTwLo) ||
+      smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (S + ts - 1) / ts;
+  if (P * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fft_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fft_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long tiles = (S + ts - 1) / ts;
-  const long long blocks = P * tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int threads = ts * p.n > 2048 ? 512 : 256;
-  fft_strided_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, S, ts, tiles, p, reinterpret_cast<const float2*>(table));
+  fft_strided_kernel<<<(unsigned)(P * tiles), threads, smem,
+                       (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, S, tiles, p1, p2,
+      reinterpret_cast<const float2*>(table1),
+      reinterpret_cast<const float2*>(table2),
+      reinterpret_cast<const float2*>(twiddle), ts, len1, len2);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the kernel at `threads` a block and `smem`
+// dynamic shared bytes, into *blocks.
+int vk_fft_strided_occupancy(int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kThreads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fft_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fft_strided_kernel, threads, smem);
 }
 
 const char* vk_error_string(int code) {

@@ -1,6 +1,6 @@
 // The in-place stage walk of the port's redesigned kernels (fft_twofactor.cu,
-// fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_conv_pair.cu's Bluestein
-// mode), built for sm_90a.
+// fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_r2c_pair.cu, fft_strided.cu,
+// fft_conv_pair.cu's Bluestein mode), built for sm_90a.
 //
 // A block holds its sequences once in shared memory.  A Stockham stage of
 // radix r (stockham.cuh's recurrence) maps the points whose index is m mod
@@ -51,7 +51,7 @@ struct Div {
   unsigned d, m;
 };
 
-__device__ __forceinline__ Div make_div(int d) {
+__host__ __device__ __forceinline__ Div make_div(int d) {
   return {(unsigned)d, d == 1 ? 0u : 0xffffffffu / (unsigned)d + 1u};
 }
 
@@ -524,6 +524,18 @@ __device__ void store_lines(const float2* home, const Map& mp, float* yr,
     i0[u] = v.y;
   }
 }
+
+// The place of point ky of a sequence after an axis run in the forward's
+// order (fft_pair.cu, fft_r2c_pair.cu): natural (n2 = 1) or the two
+// factors' transposed order, ky = k1 * n2 + k2 at k2 * n1 + k1.
+struct RowPerm {
+  Div d2;
+  int n1;
+  __device__ __forceinline__ int operator()(int ky) const {
+    const int q = quot(ky, d2);
+    return (ky - q * (int)d2.d) * n1 + q;
+  }
+};
 
 // Where the lines' points sit for a copy: the (n2, n1) row-major matrix
 // of each line at pitch P (transposed: the natural order of its spectrum,

@@ -1,5 +1,6 @@
-// Real-transform pieces shared by fft_r2c.cu and fft_r2c_pair.cu, built for
-// sm_90a on top of stockham.cuh.
+// Real-transform pieces of the Stockham kernels (r2r.cuh's, fft_dct1.cu's
+// untangle), built for sm_90a on top of stockham.cuh; the in-place walk's
+// kernels take real_walk.cuh's form of the same untangle.
 //
 // An even-length real line x of n = 2m points is read as m complex values
 // z[j] = x[2j] + i x[2j+1] (one float2 per pair, straight from memory), runs
@@ -22,37 +23,6 @@
 #include "stockham.cuh"
 
 namespace vkfft {
-
-// count float2 of device memory from float offset `base` (even) of x into
-// smem, as float4s where count is even and both ends are 16-byte aligned.
-// Every thread of the block must call it.
-__device__ __forceinline__ void load_run(const float* x, long long base,
-                                         int count, float2* smem) {
-  const float* src = x + base;
-  if ((count & 1) == 0 && (((uintptr_t)src | (uintptr_t)smem) & 15) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(smem);
-#pragma unroll 4
-    for (int t = threadIdx.x; t < count / 2; t += blockDim.x) d4[t] = s4[t];
-    return;
-  }
-  const float2* s2 = reinterpret_cast<const float2*>(src);
-  for (int t = threadIdx.x; t < count; t += blockDim.x) smem[t] = s2[t];
-}
-
-__device__ __forceinline__ void store_run(const float2* smem, float* y,
-                                          long long base, int count) {
-  float* dst = y + base;
-  if ((count & 1) == 0 && (((uintptr_t)dst | (uintptr_t)smem) & 15) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(smem);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll 4
-    for (int t = threadIdx.x; t < count / 2; t += blockDim.x) d4[t] = s4[t];
-    return;
-  }
-  float2* d2 = reinterpret_cast<float2*>(dst);
-  for (int t = threadIdx.x; t < count; t += blockDim.x) d2[t] = smem[t];
-}
 
 // Z -> packed X on `lines` rows of m float2 at row stride m (forward), or
 // packed X -> Z (inverse).  w[k] = e^{-2 pi i k / n} for k <= m/2.

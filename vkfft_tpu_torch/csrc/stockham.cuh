@@ -1,11 +1,11 @@
-// Shared-memory Stockham FFT stages for the port's kernels (fft_strided.cu
+// Shared-memory Stockham FFT stages for the port's kernels (fft_strided_tw.cu
 // and every kernel built on it; the plan, the butterflies and the tables
 // also for the in-place walk of inplace.cuh), built for sm_90a.
 //
 // A block holds `lines` complex sequences of length n in shared memory as
 // float2 (re, im).  Element k of sequence q sits at smem[q*qs + k*es]:
 //   lines:       one sequence per image line,  qs = n, es = 1
-//   fft_strided: one sequence per column,      qs = 1, es = ts
+//   strided:     one sequence per column,      qs = 1, es = ts
 // Each stage reads one buffer and writes the other (ping-pong), so a block
 // needs 2 * lines * n * 8 bytes of shared memory.
 //

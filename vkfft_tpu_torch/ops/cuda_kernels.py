@@ -12,7 +12,9 @@ _dd_strided_kernel``):
   contiguous (B, n) fp32 planes, natural order, scale in the kernel.
 * `fft_strided` (``csrc/fft_strided.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``: C2C along the
-  middle dim of (P, n, S) fp32 planes, S contiguous, scale in the kernel.
+  middle dim of (P, n, S) fp32 planes, S contiguous, scale in the kernel,
+  a tile of columns held once in shared memory on the in-place walk
+  (`strided_layout`).
   It also computes what ``pallas_engine.py:4001 _outer_kernel`` does (dim 1
   of (P, n, R, nz) planes): on the card that layout is the (P, n, R*nz)
   view of the same memory, so one kernel serves both.
@@ -38,7 +40,8 @@ _dd_strided_kernel``):
 * `fft_r2c_pair` / `fft_c2r_pair` (``csrc/fft_r2c_pair.cu``) replace
   ``vkfft_tpu/ops/pallas_engine.py:3204 _r2c_pair_kernel`` and ``:3229
   _c2r_pair_kernel``: numpy ``rfft2``/``irfft2`` of the two minor axes of
-  real (B, ny, nz) planes in one pass, a plane held in a cluster.
+  real (B, ny, nz) planes in one pass, a plane held once in the shared
+  memory of a cluster on the in-place walk (`r2c_pair_layout`).
 * `fft_conv` (``csrc/fft_conv.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in all its modes
   (scalar table, rows, m x m matrix, conjugated data, cross-power,
@@ -582,13 +585,11 @@ def pair_cluster(ny: int, nz: int) -> Optional[int]:
     return _cluster(ny, nz)
 
 
-def _pair_factors(n: int, threads: int) -> tuple[int, int]:
-    """(n1, n2) of one axis of `fft_pair` at ``threads`` a block: (n, 1),
-    one pass, where every stage's sequences fit a round of the threads
-    (`walk_rounds_fit`), else the two factors n1 >= n2 of fewest stages
-    (a generic radix r as r / 8), then the most square, that fit."""
-    if walk_rounds_fit(n, threads, True):
-        return n, 1
+def _two_factors(n: int, threads: int) -> Optional[tuple[int, int]]:
+    """The two factors n1 >= n2 > 1 of n of fewest stages (`walk_radices`,
+    a generic radix r as r / 8), then the most square, among those whose
+    stages fit a round of ``threads`` threads (`walk_rounds_fit`); None
+    where none does (a prime n)."""
     best, best_key = None, None
     for n2 in _divisors(n)[1:]:
         n1 = n // n2
@@ -601,6 +602,16 @@ def _pair_factors(n: int, threads: int) -> tuple[int, int]:
         key = (_stage_cost(n1) + _stage_cost(n2), -n2)
         if best_key is None or key < best_key:
             best, best_key = (n1, n2), key
+    return best
+
+
+def _pair_factors(n: int, threads: int) -> tuple[int, int]:
+    """(n1, n2) of one axis of `fft_pair` at ``threads`` a block: (n, 1),
+    one pass, where every stage's sequences fit a round of the threads
+    (`walk_rounds_fit`), else `_two_factors`."""
+    if walk_rounds_fit(n, threads, True):
+        return n, 1
+    best = _two_factors(n, threads)
     assert best is not None, (n, threads)
     return best
 
@@ -608,8 +619,7 @@ def _pair_factors(n: int, threads: int) -> tuple[int, int]:
 def pair_splits(ny: int, nz: int):
     """((n1z, n2z), (n1y, n2y)): the factors of each axis of `fft_pair` at
     the threads of `pair_layout` (`_pair_factors`)."""
-    threads = pair_layout(ny, nz)[1]
-    return _pair_factors(nz, threads), _pair_factors(ny, threads)
+    return _pair_layout(ny, nz, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[3]
 
 
 def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
@@ -621,18 +631,25 @@ def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
     least one for PAIR_XCHG, in 32..PAIR_THREADS; the block's tile (the z
     factors' rows at the odd pitch n1z | 1) beside the four stage tables
     (`walk_radices`) and both axes' twiddle root tables."""
+    return _pair_layout(ny, nz, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[:3]
+
+
+@functools.lru_cache(maxsize=4096)
+def _pair_layout(ny: int, nz: int, tile_points: int, aim: int):
+    """`pair_layout` and `pair_splits` at the given constants, computed
+    once a plane (a launch reads them; the sweeps change the constants)."""
     fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and nz % k == 0]
-    c = next((k for k in fits if ny * nz // k <= PAIR_TILE_POINTS), fits[-1])
+    c = next((k for k in fits if ny * nz // k <= tile_points), fits[-1])
     tile, rows = ny * nz // c, ny // c
-    want = max(-(-tile // PAIR_AIM_POINTS), -(-tile // PAIR_XCHG))
+    want = max(-(-tile // aim), -(-tile // PAIR_XCHG))
     threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
-    (n1z, n2z), (n1y, n2y) = _pair_factors(nz, threads), \
-        _pair_factors(ny, threads)
+    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(nz, threads),
+                                       _pair_factors(ny, threads))
     points = (rows * n2z * (n1z | 1)
               + sum(_table_points(k, True) for k in (n1z, n2z, n1y, n2y))
               + 2 * TWOFACTOR_TW_LO + -(-nz // TWOFACTOR_TW_LO)
               + -(-ny // TWOFACTOR_TW_LO))
-    return c, threads, 8 * points
+    return c, threads, 8 * points, splits
 
 
 def pair_occupancy(ny: int, nz: int) -> tuple[int, int]:
@@ -662,6 +679,162 @@ def r2c_pair_cluster(ny: int, nz: int) -> Optional[int]:
     if not (nz % 2 == 0 and kernel_supports(ny) and kernel_supports(nz // 2)):
         return None
     return _cluster(ny, nz // 2)
+
+
+# `fft_r2c_pair`'s layout (csrc/fft_r2c_pair.cu, `r2c_pair_layout`):
+# `fft_pair`'s rule on the (ny, nz/2) complex points of a real plane, with
+# its own constants for the layout sweep of chip_smoke.py.
+R2C_PAIR_TILE_POINTS = 4096
+R2C_PAIR_AIM_POINTS = 16
+
+
+def r2c_pair_splits(ny: int, nz: int):
+    """((n1z, n2z), (n1y, n2y)): the factors of m = nz/2 and of ny in
+    `fft_r2c_pair` at the threads of `r2c_pair_layout` (`_pair_factors`)."""
+    return _r2c_pair_layout(ny, nz, R2C_PAIR_TILE_POINTS,
+                            R2C_PAIR_AIM_POINTS)[3]
+
+
+def r2c_pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
+    """(cluster, threads, shared bytes) of an `fft_r2c_pair` /
+    `fft_c2r_pair` block for a real plane `r2c_pair_cluster` serves, the
+    one layout rule (the C entry refuses any other): on the (ny, m = nz/2)
+    complex points, the smallest cluster (1, 2, 4, 8, 16) dividing ny and
+    m whose blocks hold at most R2C_PAIR_TILE_POINTS points, else the
+    largest; ``threads`` a multiple of 32 near one for R2C_PAIR_AIM_POINTS
+    points and at least one for PAIR_XCHG, in 32..PAIR_THREADS; the
+    block's row tile (the z factors' rows at the odd pitch n1z | 1)
+    beside the four stage tables (`walk_radices`), the z twiddles of
+    `r2c_twiddle` and the y axis's inter-factor twiddle."""
+    return _r2c_pair_layout(ny, nz, R2C_PAIR_TILE_POINTS,
+                            R2C_PAIR_AIM_POINTS)[:3]
+
+
+@functools.lru_cache(maxsize=4096)
+def _r2c_pair_layout(ny: int, nz: int, tile_points: int, aim: int):
+    """`r2c_pair_layout` and `r2c_pair_splits` at the given constants,
+    computed once a plane."""
+    m = nz // 2
+    fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and m % k == 0]
+    c = next((k for k in fits if ny * m // k <= tile_points), fits[-1])
+    tile, rows = ny * m // c, ny // c
+    want = max(-(-tile // aim), -(-tile // PAIR_XCHG))
+    threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
+    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(m, threads),
+                                       _pair_factors(ny, threads))
+    points = (rows * n2z * (n1z | 1)
+              + sum(_table_points(k, True) for k in (n1z, n2z, n1y, n2y))
+              + len(r2c_twiddle(nz, False))
+              + TWOFACTOR_TW_LO + -(-ny // TWOFACTOR_TW_LO))
+    return c, threads, 8 * points, splits
+
+
+def r2c_pair_occupancy(ny: int, nz: int,
+                       inverse: bool = False) -> tuple[int, int]:
+    """(resident clusters on the card, resident blocks an SM) of
+    `fft_r2c_pair` (`fft_c2r_pair` with ``inverse``) at the layout of a
+    real (ny, nz) plane (C entry ``vk_fft_r2c_pair_occupancy``)."""
+    c, threads, smem = r2c_pair_layout(ny, nz)
+    fn = _library("fft_r2c_pair").vk_fft_r2c_pair_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(int(inverse), c, threads, smem, ctypes.byref(clusters),
+             ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_fft_r2c_pair_occupancy({int(inverse)}, {c}, "
+                           f"{threads}, {smem}) failed: CUDA error {err}")
+    return clusters.value, blocks.value
+
+
+# `fft_strided`'s block (csrc/fft_strided.cu, `strided_layout`): a tile of
+# ts neighbouring columns across all n rows, held once in shared memory:
+# STRIDED_TILE_POINTS // n columns, but at least STRIDED_MIN_COLUMNS (a
+# 32-byte sector of each plane-row) where shared memory holds them beside
+# the tables, else the most it holds, and at most S; a thread for about
+# STRIDED_AIM_POINTS points, up to STRIDED_THREADS; one pass where the
+# one-pass tile holds STRIDED_MIN_COLUMNS columns and its stages fit a
+# round of the threads, else two factors (the late stages of a lone long
+# column in one pass read at a stride of r points, PERF.md).
+STRIDED_TILE_POINTS = 4096
+STRIDED_MIN_COLUMNS = 8
+STRIDED_AIM_POINTS = 16
+STRIDED_THREADS = 1024
+
+
+def _strided_table_points(n1: int, n2: int) -> int:
+    """Points of `fft_strided`'s stage tables (`walk_radices`) and the
+    twiddle's two tables beside the tile."""
+    return (_table_points(n1, True) + _table_points(n2, True)
+            + TWOFACTOR_TW_LO + -(-(n1 * n2) // TWOFACTOR_TW_LO))
+
+
+def _strided_columns(n: int, S: int, split, tile_points: int,
+                     min_columns: int) -> int:
+    """Columns of an `fft_strided` tile of length n at ``split``."""
+    fit = (MAX_SMEM_BYTES // 8 - _strided_table_points(*split)) // n
+    want = max(tile_points // n, min_columns)
+    return max(1, min(S, want, fit))
+
+
+def _strided_threads(points: int) -> int:
+    want = -(-points // STRIDED_AIM_POINTS)
+    return min(STRIDED_THREADS, max(32, -(-want // 32) * 32))
+
+
+@functools.lru_cache(maxsize=4096)
+def _strided_factors(n: int) -> tuple[int, int]:
+    """The two factors of a two-factor `fft_strided` axis: `_two_factors`
+    at 32 threads, so they fit a round of any block's."""
+    best = _two_factors(n, 32)
+    assert best is not None, n
+    return best
+
+
+def strided_split(n: int, S: int) -> tuple[int, int]:
+    """(n1, n2) of `fft_strided` for length n over S columns: (n, 1), one
+    pass, where shared memory holds STRIDED_MIN_COLUMNS columns of n points
+    beside the one-pass tables (to n = 3456 or so) and every stage's
+    sequences fit a round of the tile's threads, else `_strided_factors`."""
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
+                           STRIDED_AIM_POINTS)[3]
+
+
+def strided_layout(n: int, S: int) -> tuple[int, int, int]:
+    """(ts, threads, shared bytes) of an `fft_strided` block for length n
+    over S columns, the one layout rule (the C entry refuses any other):
+    STRIDED_TILE_POINTS // n columns, at least STRIDED_MIN_COLUMNS where
+    shared memory holds them beside the tables, at most S, at the split of
+    `strided_split`; a multiple of 32 threads near one for
+    STRIDED_AIM_POINTS points, at most STRIDED_THREADS; the tile of ts * n
+    points beside both factors' stage tables and the twiddle's two
+    tables."""
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
+                           STRIDED_AIM_POINTS)[:3]
+
+
+@functools.lru_cache(maxsize=4096)
+def _strided_layout(n: int, S: int, tile_points: int, min_columns: int,
+                    aim: int):
+    """`strided_layout` and `strided_split` at the given constants (``aim``
+    keys the cache: `_strided_threads` reads it), computed once an (n, S)."""
+    one = (n, 1)
+    fit = (MAX_SMEM_BYTES // 8 - _strided_table_points(*one)) // n
+    ts = _strided_columns(n, S, one, tile_points, min_columns)
+    split = (one if fit >= min_columns
+             and walk_rounds_fit(n, _strided_threads(ts * n), True)
+             else _strided_factors(n))
+    ts = _strided_columns(n, S, split, tile_points, min_columns)
+    threads = _strided_threads(ts * n)
+    assert all(walk_rounds_fit(k, threads, True) for k in split), (n, S)
+    return ts, threads, 8 * (ts * n + _strided_table_points(*split)), split
+
+
+def strided_occupancy(n: int, S: int) -> int:
+    """Resident blocks an SM of `fft_strided` at the layout of length n
+    over S columns, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current card (C entry ``vk_fft_strided_occupancy``)."""
+    return _occupancy("fft_strided", *strided_layout(n, S)[1:])
 
 
 def _unsupported(n: int) -> NotImplementedError:
@@ -875,24 +1048,11 @@ def lines_split(n: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=4096)
 def _lines_factors(n: int) -> tuple[int, int]:
-    """The two factors n1 >= n2 > 1 of a lone `fft_lines` line: the fewest
-    stages (`walk_radices`, a generic radix r as r / 8), then the most
-    square, among those whose stages fit a round of its threads; else
-    `twofactor_split` (a prime n: (n, 1))."""
-    threads = _block_threads(n, LINES_AIM_POINTS)
-    best, best_key = None, None
-    for n2 in _divisors(n)[1:]:
-        n1 = n // n2
-        if n1 < n2:
-            break
-        if not (stage_radices(n1) and stage_radices(n2)
-                and walk_rounds_fit(n1, threads, True)
-                and walk_rounds_fit(n2, threads, True)):
-            continue
-        key = (_stage_cost(n1) + _stage_cost(n2), -n2)
-        if best_key is None or key < best_key:
-            best, best_key = (n1, n2), key
-    return best or twofactor_split(n)
+    """The two factors n1 >= n2 > 1 of a lone `fft_lines` line
+    (`_two_factors` at its threads); else `twofactor_split` (a prime n:
+    (n, 1))."""
+    return (_two_factors(n, _block_threads(n, LINES_AIM_POINTS))
+            or twofactor_split(n))
 
 
 def lines_layout(n: int) -> tuple[int, int, int]:
@@ -1050,11 +1210,7 @@ def device_array(key: tuple, device: torch.device, build) -> torch.Tensor:
 
 
 def _device_table(n: int, inverse: bool, scale: float,
-                  device: torch.device, real: bool = False,
-                  walk: bool = False) -> torch.Tensor:
-    if real:
-        return device_array(("r2c", n, inverse, scale), device,
-                            lambda: r2c_tables(n, inverse, scale)[1])
+                  device: torch.device, walk: bool = False) -> torch.Tensor:
     return device_array(("stages", n, inverse, scale, walk), device,
                         lambda: stage_tables(n, inverse, scale, walk)[1])
 
@@ -1519,7 +1675,10 @@ _ENTRIES = {
     # planes, batch, plans, tables, the twiddle's two tables, then the
     # layout (lines_layout): threads, lines, shared bytes
     "fft_lines": {"fft_lines": "ppppqpppppiii"},
-    "fft_strided": {"fft_strided": "ppppqqpp"},
+    # planes, P, S, the plans of the two factors, their tables, the
+    # twiddle's two tables, then the layout (strided_layout): columns a
+    # block, threads, shared bytes
+    "fft_strided": {"fft_strided": "ppppqq" + "p" * 5 + "iii"},
     # planes, batch, the plans of each axis's two factors (z1, z2, y1,
     # y2), their tables, the twiddles of z and y, then the layout
     # (pair_layout): cluster, threads, shared bytes
@@ -1528,8 +1687,12 @@ _ENTRIES = {
     # twiddles (r2c_twiddle), the inverse's scale, then the layout
     # (r2c_layout): threads, lines, shared bytes
     "fft_r2c": {"fft_r2c": "pppqipppppiii", "fft_c2r": "pppqipppppfiii"},
-    "fft_r2c_pair": {"fft_r2c_pair": "pppqppppii",
-                     "fft_c2r_pair": "pppqppppii"},
+    # real side or spectrum planes, batch, the plans of each axis's two
+    # factors (z1, z2 of nz/2; y1, y2), their tables, the twiddles of z
+    # (r2c_twiddle) and y, the inverse's scale_z, then the layout
+    # (r2c_pair_layout): cluster, threads, shared bytes
+    "fft_r2c_pair": {"fft_r2c_pair": "pppq" + "p" * 10 + "iii",
+                     "fft_c2r_pair": "pppq" + "p" * 10 + "fiii"},
     "fft_conv": {"fft_conv": "ppppqiiii" + "p" * 6},
     # planes, batch, plans, tables, the twiddle's two tables, swapped,
     # then the layout (twofactor_layout): threads, lines, shared bytes
@@ -1644,17 +1807,16 @@ def _plan(n: int, inverse: bool, scale: float, device: torch.device,
           walk: bool = False):
     """(plan ints as a C array, device table) of one axis for a launch
     (``walk``: the radices of `walk_radices`)."""
-    ints, _ = stage_tables(n, inverse, scale, walk)
-    return ((ctypes.c_int * len(ints))(*ints),
+    return (_plan_array(n, inverse, scale, walk),
             _device_table(n, inverse, scale, device, walk=walk))
 
 
-def _r2c_plan(n: int, inverse: bool, scale: float, device: torch.device):
-    """(plan ints as a C array, device table, post offset) of a real axis
-    of even length n for a launch."""
-    ints, _, post = r2c_tables(n, inverse, scale)
-    return ((ctypes.c_int * len(ints))(*ints),
-            _device_table(n, inverse, scale, device, real=True), post)
+@functools.lru_cache(maxsize=4096)
+def _plan_array(n: int, inverse: bool, scale: float, walk: bool):
+    """The plan ints of `stage_tables` as a C array, built once a plan (the
+    C entries only read it): about 10 µs of Python a launch otherwise."""
+    ints, _ = stage_tables(n, inverse, scale, walk)
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
@@ -1720,9 +1882,11 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``,
     and ``:4001 _outer_kernel`` through the (P, n, R*nz) view.  Bound by
-    bytes (16 B a point); a block transforms a tile of min(32, 4096/n)
-    neighbouring columns across all n rows in shared memory, reading each
-    row of the tile as one contiguous run (``csrc/fft_strided.cu``).
+    bytes (16 B a point); a block holds a tile of neighbouring columns
+    across all n rows once in shared memory (`strided_layout`), reading
+    each row of the tile as one contiguous run, and runs the stages down
+    the columns on the walk of ``csrc/inplace.cuh``, in one pass or two
+    factors (`strided_split`) (``csrc/fft_strided.cu``).
 
     The factor mode (any of ``pre``, ``post``, ``plane``) launches
     `fft_strided_tw` (``csrc/fft_strided_tw.cu``, counted apart), which
@@ -1746,8 +1910,12 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     _check_length(n)
 
     def args():
-        plan, table = _plan(n, inverse, scale, re.device)
-        return (P, S, plan, table)
+        n1, n2 = strided_split(n, S)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device, True)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device, True)
+        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
+                          lambda: twofactor_twiddle_pair(n, inverse, scale))
+        return (P, S, p1, p2, t1, t2, tw, *strided_layout(n, S))
 
     return _apply("fft_strided", re, im, out,
                   lambda: fft_strided_plain(re, im, inverse, scale), args)
@@ -1958,59 +2126,74 @@ def fft_r2c_pair(x: torch.Tensor):
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3204 _r2c_pair_kernel``.
     Bound by bytes (4 B a real point, 8 B a bin, for both axes); a cluster
-    of `r2c_pair_cluster` blocks holds each plane, runs the rows as real
-    lines, gathers column tiles over distributed shared memory and runs the
-    y stages there, the DC and Nyquist columns riding one complex column
-    (``csrc/fft_r2c_pair.cu``)."""
+    (`r2c_pair_layout`) holds each plane once on the walk of
+    ``csrc/inplace.cuh``: the rows as nz/2 complex pairs, untangled in the
+    exchange of the tiles between its blocks over distributed shared
+    memory, the y stages down the columns, the DC and Nyquist columns
+    riding one complex column (``csrc/fft_r2c_pair.cu``); the planes are
+    those `r2c_pair_cluster` serves."""
     _check_real(x, 3, "fft_r2c_pair")
     B, ny, nz = x.shape
-    cluster = _pair_gate(ny, nz)
+    _pair_gate(ny, nz)
     _check_aligned(x, "fft_r2c_pair")
     if x.device.type == "cpu":
         return fft_r2c_pair_plain(x)
     yr = x.new_empty((B, ny, nz // 2 + 1))
     yi = torch.empty_like(yr)
     if B:
-        plan_y, table_y = _plan(ny, False, 1.0, x.device)
-        plan_z, table_z, post = _r2c_plan(nz, False, 1.0, x.device)
         _launch("fft_r2c_pair", "fft_r2c_pair", x.device,
-                [x, yr, yi, B, plan_y, plan_z, table_y, table_z, post,
-                 cluster])
+                [x, yr, yi, B, *_r2c_pair_args(ny, nz, False, 1.0, x.device),
+                 *r2c_pair_layout(ny, nz)])
     return yr, yi
+
+
+def _r2c_pair_args(ny: int, nz: int, inverse: bool, scale_y: float,
+                   device):
+    """The plans, tables and twiddles of an `fft_r2c_pair` /
+    `fft_c2r_pair` launch (scale_y in the y twiddle), before the
+    inverse's scale_z and the layout."""
+    (n1z, n2z), (n1y, n2y) = r2c_pair_splits(ny, nz)
+    plans = [_plan(k, inverse, 1.0, device, True)
+             for k in (n1z, n2z, n1y, n2y)]
+    twz = device_array(("r2c_twiddle", nz, inverse), device,
+                       lambda: r2c_twiddle(nz, inverse))
+    twy = device_array(("twofactor_pair", ny, inverse, scale_y), device,
+                       lambda: twofactor_twiddle_pair(ny, inverse, scale_y))
+    return (*(p for p, _ in plans), *(t for _, t in plans), twz, twy)
 
 
 def fft_c2r_pair(re: torch.Tensor, im: torch.Tensor, nz: int,
                  scale_y: float = 1.0, scale_z: float = 1.0) -> torch.Tensor:
     """Real (B, ny, nz) float32 planes from their (B, ny, nz/2+1) half
     spectrum, in one pass, scaled by ny*``scale_y`` * (nz/2)*``scale_z``
-    (``scale_y=1/ny``, ``scale_z=2/nz`` give numpy ``irfft2``).  CPU
-    tensors run `fft_c2r_pair_plain`; CUDA tensors launch the kernel.
+    (``scale_y=1/ny``, ``scale_z=2/nz`` give numpy ``irfft2``).  Im(DC)
+    and Im(Nyquist) of the z axis are read as numpy reads them (their
+    Hermitian parts).  CPU tensors run `fft_c2r_pair_plain`; CUDA tensors
+    launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3229 _c2r_pair_kernel``;
-    bound and design as `fft_r2c_pair`, backwards."""
+    bound and design as `fft_r2c_pair`, backwards: the y stages, the
+    exchange, the untangle with the scale, the z stages."""
     _check_planes(re, im, 3, "fft_c2r_pair")
     B, ny, _ = re.shape
-    cluster = _pair_gate(ny, nz)
+    _pair_gate(ny, nz)
     _check_spectrum(re, im, nz, False, "fft_c2r_pair")
     if re.device.type == "cpu":
         return fft_c2r_pair_plain(re, im, nz, scale_y, scale_z)
     y = re.new_empty((B, ny, nz))
     if B:
-        plan_y, table_y = _plan(ny, True, scale_y, re.device)
-        plan_z, table_z, post = _r2c_plan(nz, True, scale_z, re.device)
         _launch("fft_r2c_pair", "fft_c2r_pair", re.device,
-                [re, im, y, B, plan_y, plan_z, table_y, table_z, post,
-                 cluster])
+                [re, im, y, B, *_r2c_pair_args(ny, nz, True, scale_y,
+                                               re.device),
+                 scale_z, *r2c_pair_layout(ny, nz)])
     return y
 
 
-def _pair_gate(ny: int, nz: int) -> int:
+def _pair_gate(ny: int, nz: int) -> None:
     _check_length(ny)
     _check_r2c_length(nz)
-    cluster = r2c_pair_cluster(ny, nz)
-    if cluster is None:
+    if r2c_pair_cluster(ny, nz) is None:
         raise _no_cluster("fft_r2c_pair", ny, nz)
-    return cluster
 
 
 # ---------------------------------------------------------------------------
