@@ -51,7 +51,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
      and points a thread, fft_strided's columns a block; fft_pair also
      beside the two axis passes it replaces; fft_strided also at the long
      axes n = 64, 1024, 4096, 8192 over 2^24 points, and on the half
-     spectrum in place and on more allocations), and each end-to-end round trip,
+     spectrum in place and on more allocations; fft_r2c_pair also on a
+     208^3 cube, its instantiation with the generic stage), and each
+     end-to-end round trip,
      beside the HBM-bandwidth bound and the torch.fft time of the same
      function;
   5. lengths of any size: fft_conv, fft_twofactor, fft_conv_inv and
@@ -179,6 +181,8 @@ NUMPY_TOL = 5e-6              # vs numpy fp64, the gate of tests/test_pallas.py
 TARGET_BYTES = 128 * 1024 * 1024
 ROWS_1D = (256, 1024, 4096)
 CUBE = (256, 256, 256)
+# a real cube whose planes need fft_r2c_pair's generic stage (208 = 16 * 13)
+GENERIC_CUBE = (208, 208, 208)
 R2C_N = 1024                  # bench.py's r2c row: 128 MB of real data
 R2C_LINES = TARGET_BYTES // (4 * R2C_N)
 C2C_KERNELS = ("fft_lines", "fft_strided", "fft_pair")
@@ -756,10 +760,9 @@ def phase_times(vt, ck, dev) -> dict:
         del xr, xi, xc
     # the layout sweep at n = 256 over S = 65536 and 33024 (the real cube's
     # half spectrum): STRIDED_SWEEP_COLUMNS columns a block, timed in turns
-    # (down the list, then up), each against the plain version first; the
-    # parent's kernel, which has no layout rule, is timed without it
+    # (down the list, then up), each against the plain version first
     strided_sweep = []
-    for S in ((65536, 33024) if hasattr(ck, "strided_layout") else ()):
+    for S in (65536, 33024):
         xr, xi = _planes((1, 256, S), S, dev)
         plain = ck.fft_strided_plain(xr, xi, False)
         rows = []
@@ -913,9 +916,9 @@ class _conv_pair_plan_forced:
 
 
 class _pair_layout_forced:
-    """fft_pair with the tile points and points a thread of layout ``v``
-    for the time of the block (`cuda_kernels.pair_layout` reads
-    PAIR_TILE_POINTS and PAIR_AIM_POINTS)."""
+    """fft_pair and fft_r2c_pair with the tile points and points a thread
+    of layout ``v`` for the time of the block (`cuda_kernels.pair_layout`
+    and `r2c_pair_layout` read PAIR_TILE_POINTS and PAIR_AIM_POINTS)."""
 
     def __init__(self, ck, v):
         self.ck, self.v = ck, v
@@ -931,10 +934,7 @@ class _pair_layout_forced:
 
 
 def _strided_extra(ck, n, S) -> dict:
-    """fft_strided's layout, registers, spills and blocks an SM at (n, S)
-    (none for the parent's kernel, which has no layout rule)."""
-    if not hasattr(ck, "strided_layout"):
-        return {}
+    """fft_strided's layout, registers, spills and blocks an SM at (n, S)."""
     with open(ck.library_path("fft_strided")[:-3] + ".log") as f:
         (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
     ts, threads, smem = ck.strided_layout(n, S)
@@ -957,24 +957,6 @@ class _strided_layout_forced:
 
     def __exit__(self, *exc):
         self.ck.STRIDED_TILE_POINTS = self.saved
-
-
-class _r2c_pair_layout_forced:
-    """fft_r2c_pair with the tile points and points a thread of layout
-    ``v`` for the time of the block (`cuda_kernels.r2c_pair_layout` reads
-    R2C_PAIR_TILE_POINTS and R2C_PAIR_AIM_POINTS)."""
-
-    def __init__(self, ck, v):
-        self.ck, self.v = ck, v
-
-    def __enter__(self):
-        ck, v = self.ck, self.v
-        self.saved = (ck.R2C_PAIR_TILE_POINTS, ck.R2C_PAIR_AIM_POINTS)
-        ck.R2C_PAIR_TILE_POINTS = v["tile_points"]
-        ck.R2C_PAIR_AIM_POINTS = v["aim"]
-
-    def __exit__(self, *exc):
-        self.ck.R2C_PAIR_TILE_POINTS, self.ck.R2C_PAIR_AIM_POINTS = self.saved
 
 
 class _lines_layout_forced:
@@ -1079,10 +1061,12 @@ def _r2c_pair_served(ck) -> list:
 
 def _r2c_pair_class(ck, ny, nz):
     """The layout class of a real plane: cluster, threads, which axes run
-    as two factors, whether the column tile's width is odd."""
+    as two factors, whether the column tile's width is odd, the forward's
+    instantiation."""
     c, threads, _ = ck.r2c_pair_layout(ny, nz)
     (_, n2z), (_, n2y) = ck.r2c_pair_splits(ny, nz)
-    return (c, threads, n2z > 1, n2y > 1, (nz // 2 // c) % 2)
+    return (c, threads, n2z > 1, n2y > 1, (nz // 2 // c) % 2,
+            ck.r2c_pair_generic(ny, nz))
 
 
 def _r2c_pair_guarded(ck, x, inverse, offset, dev):
@@ -1566,69 +1550,83 @@ def phase_real_times(vt, ck, dev) -> dict:
                     _time_ms(calls[inverse]))
     _log(f"[time] fft_r2c layout sweep n={n}: {sweep}")
     del x, spec, plain
-    P, ny, nz = CUBE
-    h = nz // 2 + 1
-    cube = _planes(CUBE, 23, dev)[0]
-    nbytes = 4.0 * P * ny * nz + 8.0 * P * ny * h
-    ops = _fft_ops(P * ny * (nz // 2), ny * (nz // 2)) + 10.0 * P * ny * nz
-    bound, by = _bound(nbytes, ops)
     with open(ck.library_path("fft_r2c_pair")[:-3] + ".log") as f:
         pregs = {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
-    # the parent's kernel, which has no layout rule, is timed without one
-    walk = hasattr(ck, "r2c_pair_layout")
 
-    def pair_layout(inverse):
-        if not walk:
-            return {}
-        r, st, ld = pregs["c2r_pair_kernel" if inverse else "r2c_pair_kernel"]
-        c, threads, smem = ck.r2c_pair_layout(ny, nz)
-        clusters, blocks = ck.r2c_pair_occupancy(ny, nz, inverse)
-        return {"cluster": c, "threads": threads, "smem_bytes": smem,
-                "splits": ck.r2c_pair_splits(ny, nz), "registers": r,
-                "spill_bytes": [st, ld], "resident_clusters": clusters,
-                "blocks_per_sm": blocks}
+    def pair_rows(shape, seed):
+        """fft_r2c_pair and fft_c2r_pair on real (P, ny, nz) planes, with
+        their layout, instantiation, registers and spills."""
+        P, ny, nz = shape
+        h = nz // 2 + 1
+        cube = _planes(shape, seed, dev)[0]
+        nbytes = 4.0 * P * ny * nz + 8.0 * P * ny * h
+        ops = (_fft_ops(P * ny * (nz // 2), ny * (nz // 2))
+               + 10.0 * P * ny * nz)
+        bound, by = _bound(nbytes, ops)
+        generic = int(ck.r2c_pair_generic(ny, nz))
 
-    spec = ck.fft_r2c_pair_plain(cube)
-    yr, yi = ck.fft_r2c_pair(cube)
-    err = _errors((yr, yi), spec, ("fft_r2c_pair",))
-    row = {"shape": list(CUBE), "direction": "r2c",
-           "ms": _time_ms(lambda: ck.fft_r2c_pair(cube)), "bound_ms": bound,
-           "bound_by": by, "max_abs_err": err,
-           "plain_ms": _time_ms(lambda: ck.fft_r2c_pair_plain(cube), reps=5,
-                                inner=1, warmup=1),
-           "library_ms": _time_ms(lambda: torch.fft.rfft2(cube)),
-           **pair_layout(False)}
-    row["GBs"] = nbytes / row["ms"] / 1e6
-    _log(f"[time] fft_r2c_pair {row}")
-    kernels["fft_r2c_pair"].append(row)
-    z = ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny, 2.0 / nz)
-    pz = ck.fft_c2r_pair_plain(yr, yi, nz, 1.0 / ny, 2.0 / nz)
-    rel = _rel(z, pz)
-    assert rel <= KERNEL_TOL, ("fft_c2r_pair", rel)
-    Xc = torch.complex(yr, yi)
-    row = {"shape": list(CUBE), "direction": "c2r",
-           "ms": _time_ms(lambda: ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny,
-                                                  2.0 / nz)),
-           "bound_ms": bound, "bound_by": by,
-           "max_abs_err": (z - pz).abs().max().item(),
-           "plain_ms": _time_ms(lambda: ck.fft_c2r_pair_plain(
-               yr, yi, nz, 1.0 / ny, 2.0 / nz), reps=5, inner=1, warmup=1),
-           "library_ms": _time_ms(lambda: torch.fft.irfft2(Xc, s=(ny, nz))),
-           **pair_layout(True)}
-    row["GBs"] = nbytes / row["ms"] / 1e6
-    _log(f"[time] fft_c2r_pair {row}")
-    kernels["fft_r2c_pair"].append(row)
+        def extra(inverse):
+            r, st, ld = pregs["c2r_pair_kernel" if inverse
+                              else f"r2c_pair_kernel<{generic}>"]
+            c, threads, smem = ck.r2c_pair_layout(ny, nz)
+            clusters, blocks = ck.r2c_pair_occupancy(ny, nz, inverse)
+            return {"cluster": c, "threads": threads, "smem_bytes": smem,
+                    "splits": ck.r2c_pair_splits(ny, nz),
+                    "generic_stage": generic, "registers": r,
+                    "spill_bytes": [st, ld], "resident_clusters": clusters,
+                    "blocks_per_sm": blocks}
+
+        spec = ck.fft_r2c_pair_plain(cube)
+        yr, yi = ck.fft_r2c_pair(cube)
+        err = _errors((yr, yi), spec, ("fft_r2c_pair", shape))
+        row = {"shape": list(shape), "direction": "r2c",
+               "ms": _time_ms(lambda: ck.fft_r2c_pair(cube)),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+               "plain_ms": _time_ms(lambda: ck.fft_r2c_pair_plain(cube),
+                                    reps=5, inner=1, warmup=1),
+               "library_ms": _time_ms(lambda: torch.fft.rfft2(cube)),
+               **extra(False)}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] fft_r2c_pair {row}")
+        kernels["fft_r2c_pair"].append(row)
+        z = ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny, 2.0 / nz)
+        pz = ck.fft_c2r_pair_plain(yr, yi, nz, 1.0 / ny, 2.0 / nz)
+        rel = _rel(z, pz)
+        assert rel <= KERNEL_TOL, ("fft_c2r_pair", shape, rel)
+        Xc = torch.complex(yr, yi)
+        row = {"shape": list(shape), "direction": "c2r",
+               "ms": _time_ms(lambda: ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny,
+                                                      2.0 / nz)),
+               "bound_ms": bound, "bound_by": by,
+               "max_abs_err": (z - pz).abs().max().item(),
+               "plain_ms": _time_ms(lambda: ck.fft_c2r_pair_plain(
+                   yr, yi, nz, 1.0 / ny, 2.0 / nz), reps=5, inner=1,
+                   warmup=1),
+               "library_ms": _time_ms(
+                   lambda: torch.fft.irfft2(Xc, s=(ny, nz))),
+               **extra(True)}
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] fft_c2r_pair {row}")
+        kernels["fft_r2c_pair"].append(row)
+        return cube, spec, (yr, yi), pz
+
+    # the main path's cube (the kernels line's row), then one whose stages
+    # need the generic one (the forward's instantiation <1>)
+    P, ny, nz = CUBE
+    h = nz // 2 + 1
+    cube, spec, (yr, yi), pz = pair_rows(CUBE, 23)
+    pair_rows(GENERIC_CUBE, 24)
     # the cluster sweep at 256 x 256: clusters of 4, 8 and 16 blocks
-    # (R2C_PAIR_TILE_POINTS) at 8 or 16 points a thread, both directions,
-    # timed in turns (down the list, then up), each against the plain
-    # version first
+    # (PAIR_TILE_POINTS, which fft_r2c_pair shares with fft_pair) at 8 or
+    # 16 points a thread, both directions, timed in turns (down the list,
+    # then up), each against the plain version first
     calls = {False: lambda: ck.fft_r2c_pair(cube),
              True: lambda: ck.fft_c2r_pair(yr, yi, nz, 1.0 / ny, 2.0 / nz)}
     pair_sweep = []
-    for tile in ((8192, 4096, 2048) if walk else ()):
+    for tile in (8192, 4096, 2048):
         for aim in (8, 16):
             v = {"tile_points": tile, "aim": aim}
-            with _r2c_pair_layout_forced(ck, v):
+            with _pair_layout_forced(ck, v):
                 v.update(layout=list(ck.r2c_pair_layout(ny, nz)),
                          blocks_per_sm=[ck.r2c_pair_occupancy(ny, nz, False)[1],
                                         ck.r2c_pair_occupancy(ny, nz, True)[1]],
@@ -1636,7 +1634,7 @@ def phase_real_times(vt, ck, dev) -> dict:
             if all(p["layout"] != v["layout"] for p in pair_sweep):
                 pair_sweep.append(v)
     for v in pair_sweep + pair_sweep[::-1]:
-        with _r2c_pair_layout_forced(ck, v):
+        with _pair_layout_forced(ck, v):
             _errors(calls[False](), spec, ("fft_r2c_pair", v))
             rel = _rel(calls[True](), pz)
             assert rel <= KERNEL_TOL, ("fft_c2r_pair", v, rel)
@@ -1644,7 +1642,7 @@ def phase_real_times(vt, ck, dev) -> dict:
                 v["ms_c2r" if inverse else "ms_r2c"].append(
                     _time_ms(calls[inverse]))
     _log(f"[time] fft_r2c_pair layout sweep: {pair_sweep}")
-    del z, pz, Xc, yr, yi, spec
+    del pz, yr, yi, spec
     # fft_strided on the main path's real cube: axis 0 of the (1, 256,
     # 256*129) half spectrum, forward and unscaled inverse
     shape = (1, P, ny * h)

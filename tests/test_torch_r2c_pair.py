@@ -154,12 +154,28 @@ def test_cluster_sweep_layouts(monkeypatch):
     assert ck.r2c_pair_splits(256, 256) == ((128, 1), (256, 1))
     for tile, aim, want in ((8192, 16, (4, 512)), (8192, 8, (4, 1024)),
                             (2048, 16, (16, 128)), (4096, 8, (8, 512))):
-        monkeypatch.setattr(ck, "R2C_PAIR_TILE_POINTS", tile)
-        monkeypatch.setattr(ck, "R2C_PAIR_AIM_POINTS", aim)
+        monkeypatch.setattr(ck, "PAIR_TILE_POINTS", tile)
+        monkeypatch.setattr(ck, "PAIR_AIM_POINTS", aim)
         c, threads, smem = ck.r2c_pair_layout(256, 256)
         assert (c, threads) == want
         assert _layout_ok(256, 256, c, threads, smem,
                           ck.r2c_pair_splits(256, 256))
+
+
+def test_generic_instantiation():
+    """The forward kernel's instantiation with the generic stage serves
+    exactly the planes with a prime factor above 7 in m = nz/2 or ny (the
+    stages of the others all have a butterfly of their own): 44499 of the
+    served planes, not the main path's 256 x 256."""
+    generic = 0
+    for ny, nz in SERVED:
+        want = any(p > 7 for p in ck.prime_factors(nz // 2)
+                   + ck.prime_factors(ny))
+        assert ck.r2c_pair_generic(ny, nz) == want, (ny, nz)
+        generic += want
+    assert generic == 44499
+    assert not ck.r2c_pair_generic(256, 256)
+    assert ck.r2c_pair_generic(208, 208)
 
 
 class _Recorder:

@@ -45,7 +45,10 @@
 // entry refuses any other): the cluster, the threads (a thread moves at
 // most kXchg points of an exchange) and the exact shared bytes.  Every
 // read of a plane precedes the first cluster barrier and every write
-// follows the last.
+// follows the last.  The forward kernel is built twice: without
+// inplace.cuh's generic stage (the primes 11..61), for planes whose
+// stages all have a butterfly of their own, and with it, where ptxas
+// spills in the generic stage's loop.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -136,7 +139,8 @@ struct RowAt {
 // + j1 at j2 * pz + j1), the twiddle on the column pass's last stage (on
 // the row pass's when n2 = 1, where it is the scale alone, skipped when
 // it is 1): fft_pair.cu's passes.  Natural order in, the factors'
-// transposed order out.
+// transposed order out.  Without kGeneric, no generic stage.
+template <bool kGeneric = true>
 __device__ __forceinline__ void axis_pass(float2* smem, const Geo& geo,
                                           bool y, bool row, const Plan& pz1,
                                           const Plan& pz2, const Plan& py1,
@@ -151,13 +155,13 @@ __device__ __forceinline__ void axis_pass(float2* smem, const Geo& geo,
   const bool twiddled = n2 > 1 || tlo[kTwLo].x != 1.f || tlo[kTwLo].y != 0.f;
   const bool fuse = twiddled && row == (n2 == 1);
   const int which = (y ? 2 : 0) + (row ? 0 : 1);
-  run_pass(smem, g,
-           which == 0 ? pz1 : which == 1 ? pz2 : which == 2 ? py1 : py2,
-           smem + geo.area + (which == 0   ? 0
-                              : which == 1 ? geo.z2
-                              : which == 2 ? geo.y1
-                                           : geo.y2),
-           InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
+  run_pass<kGeneric>(
+      smem, g, which == 0 ? pz1 : which == 1 ? pz2 : which == 2 ? py1 : py2,
+      smem + geo.area + (which == 0   ? 0
+                         : which == 1 ? geo.z2
+                         : which == 2 ? geo.y1
+                                      : geo.y2),
+      InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
 }
 
 // Row tile -> column tiles, untangled on the way: bin c < m of row r of
@@ -318,6 +322,9 @@ __device__ void push_rows(cg::cluster_group& cluster, float2* buf,
   cluster.sync();   // every push has landed
 }
 
+// Two instantiations: kGeneric 0 for planes whose stages all have a
+// butterfly of their own (no spill), 1 with the generic stage.
+template <int kGeneric>
 __global__ void __launch_bounds__(kThreads, 1)
 r2c_pair_kernel(const float* x, float* yr, float* yi, Plan pz1, Plan pz2,
                 Plan py1, Plan py2, const float2* tz1, const float2* tz2,
@@ -342,7 +349,8 @@ r2c_pair_kernel(const float* x, float* yr, float* yi, Plan pz1, Plan pz2,
     if (k == 2)
       push_bins(cluster, smem, geo, RowAt{geo.dz2, geo.sz, geo.pz},
                 smem + geo.area + fresh(geo.ulo));
-    axis_pass(smem, geo, k >= 2, (k & 1) == 1, pz1, pz2, py1, py2);
+    axis_pass<kGeneric != 0>(smem, geo, k >= 2, (k & 1) == 1, pz1, pz2,
+                             py1, py2);
   }
   store_bins(smem, geo.ny, geo.cols, geo.m + 1,
              RowPerm{geo.dy2, py1.n}, yr, yi,
@@ -466,7 +474,8 @@ extern "C" {
 // interleaved fp32 pairs.  The layout (cuda_kernels.r2c_pair_layout):
 // `cluster` blocks a plane (1, 2, 4, 8 or 16, dividing ny and m), `threads`
 // a block and the dynamic shared bytes, exactly; any other layout is
-// refused (cudaErrorInvalidValue).
+// refused (cudaErrorInvalidValue).  Plans whose stages all have a
+// butterfly of their own run r2c_pair_kernel<0>, the others <1>.
 int vk_fft_r2c_pair(const float* x, float* yr, float* yi, long long planes,
                     const int* plan_z1, const int* plan_z2, const int* plan_y1,
                     const int* plan_y2, const float* table_z1,
@@ -480,9 +489,12 @@ int vk_fft_r2c_pair(const float* x, float* yr, float* yi, long long planes,
                           twiddle_z, twiddle_y, 0, x, cluster, threads, smem,
                           p, &geo);
   if (err) return err;
+  const bool generic = has_generic(p[0]) || has_generic(p[1]) ||
+                       has_generic(p[2]) || has_generic(p[3]);
   return vkfft::cluster::launch_cluster(
-      r2c_pair_kernel, planes, cluster, threads, (size_t)smem, stream, x, yr,
-      yi, p[0], p[1], p[2], p[3], reinterpret_cast<const float2*>(table_z1),
+      generic ? &r2c_pair_kernel<1> : &r2c_pair_kernel<0>, planes, cluster,
+      threads, (size_t)smem, stream, x, yr, yi, p[0], p[1], p[2], p[3],
+      reinterpret_cast<const float2*>(table_z1),
       reinterpret_cast<const float2*>(table_z2),
       reinterpret_cast<const float2*>(table_y1),
       reinterpret_cast<const float2*>(table_y2),
@@ -519,10 +531,12 @@ int vk_fft_c2r_pair(const float* xr, const float* xi, float* y,
 }
 
 // Resident clusters on the card and blocks an SM of the forward (inverse
-// = 0) or inverse kernel at `cluster` blocks of `threads` with `smem`
-// dynamic shared bytes, into *clusters and *blocks.
-int vk_fft_r2c_pair_occupancy(int inverse, int cluster, int threads, int smem,
-                              int* clusters, int* blocks) {
+// = 0; its instantiation with the generic stage where `generic`) or
+// inverse kernel at `cluster` blocks of `threads` with `smem` dynamic
+// shared bytes, into *clusters and *blocks.
+int vk_fft_r2c_pair_occupancy(int inverse, int generic, int cluster,
+                              int threads, int smem, int* clusters,
+                              int* blocks) {
   if (!vkfft::cluster::cluster_ok(cluster, cluster, cluster) || threads < 32 ||
       threads > kThreads || smem < 0 || clusters == nullptr ||
       blocks == nullptr)
@@ -531,8 +545,8 @@ int vk_fft_r2c_pair_occupancy(int inverse, int cluster, int threads, int smem,
                        c2r_pair_kernel, cluster, threads, smem, clusters,
                        blocks)
                  : vkfft::cluster::cluster_occupancy(
-                       r2c_pair_kernel, cluster, threads, smem, clusters,
-                       blocks);
+                       generic ? &r2c_pair_kernel<1> : &r2c_pair_kernel<0>,
+                       cluster, threads, smem, clusters, blocks);
 }
 
 const char* vk_error_string(int code) {

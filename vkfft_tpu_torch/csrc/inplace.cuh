@@ -288,9 +288,23 @@ __device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
   __syncthreads();
 }
 
+// Whether radix r has a butterfly of its own (stage_fixed).
+inline bool fixed_radix(int r) {
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 16;
+}
+
+// Whether a stage of plan p runs stage_generic.
+inline bool has_generic(const Plan& p) {
+  for (int s = 0; s < p.n_stages; ++s)
+    if (!fixed_radix(p.radix[s])) return true;
+  return false;
+}
+
 // Every stage of plan p over the sequences of g, its table `tab` in
-// shared memory; `hook` rides the last stage's write.
-template <class Hook>
+// shared memory; `hook` rides the last stage's write.  Without kGeneric
+// the generic stage is left out of the kernel (its caller refuses plans
+// that need it, has_generic).
+template <bool kGeneric = true, class Hook>
 __device__ void run_pass(float2* buf, const Pass& g, const Plan& p,
                          const float2* tab, const Hook& hook) {
   int L = 1, M = p.n;
@@ -308,7 +322,9 @@ __device__ void run_pass(float2* buf, const Pass& g, const Plan& p,
       case 7: stage_fixed<7>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       case 8: stage_fixed<8>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       case 16: stage_fixed<16>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      default: stage_generic(buf, g, r, L, Mp, tw, w, h); break;
+      default:
+        if constexpr (kGeneric) stage_generic(buf, g, r, L, Mp, tw, w, h);
+        break;
     }
     L *= r;
     M = Mp;
@@ -332,9 +348,7 @@ inline int table_len(const Plan& p) {
 inline bool rounds_fit(const Plan& p, int threads) {
   for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
-    const bool fixed = r == 2 || r == 3 || r == 4 || r == 5 || r == 7 ||
-                       r == 8 || r == 16;
-    if (fixed ? round_butterflies(r) * threads < p.n / r
+    if (fixed_radix(r) ? round_butterflies(r) * threads < p.n / r
               : kGenericPoints * threads < p.n)
       return false;
   }

@@ -188,7 +188,9 @@ PAIR_CLUSTERS = (1, 2, 4, 8, 16)
 # PAIR_AIM_POINTS of them and at most PAIR_XCHG of an exchange (kXchg) at
 # up to PAIR_THREADS threads (kThreads).  Small blocks, many to an SM: at
 # 256 x 256, 16 blocks of 4096 points beat 8 of 8192 and 4 of 16384
-# (chip_smoke.py's sweep, PERF.md).
+# (chip_smoke.py's sweep, PERF.md).  `fft_r2c_pair` takes the same rule
+# on a real plane's (ny, nz/2) complex points (`r2c_pair_layout`), where
+# its own sweep found the same constants best.
 PAIR_TILE_POINTS = 4096
 PAIR_AIM_POINTS = 16
 PAIR_XCHG = 16
@@ -619,7 +621,7 @@ def _pair_factors(n: int, threads: int) -> tuple[int, int]:
 def pair_splits(ny: int, nz: int):
     """((n1z, n2z), (n1y, n2y)): the factors of each axis of `fft_pair` at
     the threads of `pair_layout` (`_pair_factors`)."""
-    return _pair_layout(ny, nz, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[3]
+    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[3]
 
 
 def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
@@ -631,24 +633,29 @@ def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
     least one for PAIR_XCHG, in 32..PAIR_THREADS; the block's tile (the z
     factors' rows at the odd pitch n1z | 1) beside the four stage tables
     (`walk_radices`) and both axes' twiddle root tables."""
-    return _pair_layout(ny, nz, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[:3]
+    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[:3]
 
 
 @functools.lru_cache(maxsize=4096)
-def _pair_layout(ny: int, nz: int, tile_points: int, aim: int):
-    """`pair_layout` and `pair_splits` at the given constants, computed
-    once a plane (a launch reads them; the sweeps change the constants)."""
-    fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and nz % k == 0]
-    c = next((k for k in fits if ny * nz // k <= tile_points), fits[-1])
-    tile, rows = ny * nz // c, ny // c
+def _plane_layout(ny: int, nz: int, real: bool, tile_points: int, aim: int):
+    """(cluster, threads, shared bytes, splits) of `fft_pair` on a complex
+    (ny, nz) plane, or of `fft_r2c_pair` on a ``real`` one, whose rows are
+    m = nz/2 complex points and whose z twiddles are `r2c_twiddle`'s;
+    computed once a plane at the given constants (a launch reads them; the
+    sweeps change the constants)."""
+    m = nz // 2 if real else nz
+    fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and m % k == 0]
+    c = next((k for k in fits if ny * m // k <= tile_points), fits[-1])
+    tile, rows = ny * m // c, ny // c
     want = max(-(-tile // aim), -(-tile // PAIR_XCHG))
     threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
-    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(nz, threads),
+    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(m, threads),
                                        _pair_factors(ny, threads))
+    twz = (len(r2c_twiddle(nz, False)) if real
+           else TWOFACTOR_TW_LO + -(-nz // TWOFACTOR_TW_LO))
     points = (rows * n2z * (n1z | 1)
               + sum(_table_points(k, True) for k in (n1z, n2z, n1y, n2y))
-              + 2 * TWOFACTOR_TW_LO + -(-nz // TWOFACTOR_TW_LO)
-              + -(-ny // TWOFACTOR_TW_LO))
+              + twz + TWOFACTOR_TW_LO + -(-ny // TWOFACTOR_TW_LO))
     return c, threads, 8 * points, splits
 
 
@@ -681,69 +688,55 @@ def r2c_pair_cluster(ny: int, nz: int) -> Optional[int]:
     return _cluster(ny, nz // 2)
 
 
-# `fft_r2c_pair`'s layout (csrc/fft_r2c_pair.cu, `r2c_pair_layout`):
-# `fft_pair`'s rule on the (ny, nz/2) complex points of a real plane, with
-# its own constants for the layout sweep of chip_smoke.py.
-R2C_PAIR_TILE_POINTS = 4096
-R2C_PAIR_AIM_POINTS = 16
-
-
 def r2c_pair_splits(ny: int, nz: int):
     """((n1z, n2z), (n1y, n2y)): the factors of m = nz/2 and of ny in
     `fft_r2c_pair` at the threads of `r2c_pair_layout` (`_pair_factors`)."""
-    return _r2c_pair_layout(ny, nz, R2C_PAIR_TILE_POINTS,
-                            R2C_PAIR_AIM_POINTS)[3]
+    return _plane_layout(ny, nz, True, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[3]
+
+
+def r2c_pair_generic(ny: int, nz: int) -> bool:
+    """Whether a stage of `fft_r2c_pair` on a real (ny, nz) plane has a
+    radix without a butterfly of its own: the forward kernel's
+    instantiation with the generic stage (``has_generic`` in
+    csrc/inplace.cuh)."""
+    return any(r not in _WALK_FIXED_RADICES
+               for split in r2c_pair_splits(ny, nz) for k in split
+               for r in walk_radices(k) or ())
 
 
 def r2c_pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
     """(cluster, threads, shared bytes) of an `fft_r2c_pair` /
     `fft_c2r_pair` block for a real plane `r2c_pair_cluster` serves, the
-    one layout rule (the C entry refuses any other): on the (ny, m = nz/2)
-    complex points, the smallest cluster (1, 2, 4, 8, 16) dividing ny and
-    m whose blocks hold at most R2C_PAIR_TILE_POINTS points, else the
-    largest; ``threads`` a multiple of 32 near one for R2C_PAIR_AIM_POINTS
-    points and at least one for PAIR_XCHG, in 32..PAIR_THREADS; the
+    one layout rule (the C entry refuses any other): `pair_layout`'s on the
+    (ny, m = nz/2) complex points, the smallest cluster (1, 2, 4, 8, 16)
+    dividing ny and m whose blocks hold at most PAIR_TILE_POINTS points,
+    else the largest; ``threads`` a multiple of 32 near one for
+    PAIR_AIM_POINTS points and at least one for PAIR_XCHG, in
+    32..PAIR_THREADS; the
     block's row tile (the z factors' rows at the odd pitch n1z | 1)
     beside the four stage tables (`walk_radices`), the z twiddles of
     `r2c_twiddle` and the y axis's inter-factor twiddle."""
-    return _r2c_pair_layout(ny, nz, R2C_PAIR_TILE_POINTS,
-                            R2C_PAIR_AIM_POINTS)[:3]
-
-
-@functools.lru_cache(maxsize=4096)
-def _r2c_pair_layout(ny: int, nz: int, tile_points: int, aim: int):
-    """`r2c_pair_layout` and `r2c_pair_splits` at the given constants,
-    computed once a plane."""
-    m = nz // 2
-    fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and m % k == 0]
-    c = next((k for k in fits if ny * m // k <= tile_points), fits[-1])
-    tile, rows = ny * m // c, ny // c
-    want = max(-(-tile // aim), -(-tile // PAIR_XCHG))
-    threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
-    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(m, threads),
-                                       _pair_factors(ny, threads))
-    points = (rows * n2z * (n1z | 1)
-              + sum(_table_points(k, True) for k in (n1z, n2z, n1y, n2y))
-              + len(r2c_twiddle(nz, False))
-              + TWOFACTOR_TW_LO + -(-ny // TWOFACTOR_TW_LO))
-    return c, threads, 8 * points, splits
+    return _plane_layout(ny, nz, True, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[:3]
 
 
 def r2c_pair_occupancy(ny: int, nz: int,
                        inverse: bool = False) -> tuple[int, int]:
     """(resident clusters on the card, resident blocks an SM) of
     `fft_r2c_pair` (`fft_c2r_pair` with ``inverse``) at the layout of a
-    real (ny, nz) plane (C entry ``vk_fft_r2c_pair_occupancy``)."""
+    real (ny, nz) plane (C entry ``vk_fft_r2c_pair_occupancy``; the
+    forward's instantiation of `r2c_pair_generic`)."""
     c, threads, smem = r2c_pair_layout(ny, nz)
+    generic = int(r2c_pair_generic(ny, nz))
     fn = _library("fft_r2c_pair").vk_fft_r2c_pair_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(int(inverse), c, threads, smem, ctypes.byref(clusters),
-             ctypes.byref(blocks))
+    err = fn(int(inverse), generic, c, threads, smem,
+             ctypes.byref(clusters), ctypes.byref(blocks))
     if err:
-        raise RuntimeError(f"vk_fft_r2c_pair_occupancy({int(inverse)}, {c}, "
-                           f"{threads}, {smem}) failed: CUDA error {err}")
+        raise RuntimeError(f"vk_fft_r2c_pair_occupancy({int(inverse)}, "
+                           f"{generic}, {c}, {threads}, {smem}) failed: "
+                           f"CUDA error {err}")
     return clusters.value, blocks.value
 
 
@@ -796,8 +789,7 @@ def strided_split(n: int, S: int) -> tuple[int, int]:
     pass, where shared memory holds STRIDED_MIN_COLUMNS columns of n points
     beside the one-pass tables (to n = 3456 or so) and every stage's
     sequences fit a round of the tile's threads, else `_strided_factors`."""
-    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
-                           STRIDED_AIM_POINTS)[3]
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS)[3]
 
 
 def strided_layout(n: int, S: int) -> tuple[int, int, int]:
@@ -809,15 +801,13 @@ def strided_layout(n: int, S: int) -> tuple[int, int, int]:
     STRIDED_AIM_POINTS points, at most STRIDED_THREADS; the tile of ts * n
     points beside both factors' stage tables and the twiddle's two
     tables."""
-    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
-                           STRIDED_AIM_POINTS)[:3]
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS)[:3]
 
 
 @functools.lru_cache(maxsize=4096)
-def _strided_layout(n: int, S: int, tile_points: int, min_columns: int,
-                    aim: int):
-    """`strided_layout` and `strided_split` at the given constants (``aim``
-    keys the cache: `_strided_threads` reads it), computed once an (n, S)."""
+def _strided_layout(n: int, S: int, tile_points: int, min_columns: int):
+    """`strided_layout` and `strided_split` at the given constants,
+    computed once an (n, S)."""
     one = (n, 1)
     fit = (MAX_SMEM_BYTES // 8 - _strided_table_points(*one)) // n
     ts = _strided_columns(n, S, one, tile_points, min_columns)
