@@ -304,7 +304,8 @@ def phase_toolchain(ck) -> dict:
         info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln]
         if name in ("fft_dd", "fft_twofactor", "fft_lines", "fft_conv_pair",
-                    "fft_r2c", "fft_pair", "fft_r2c_pair", "fft_strided"):
+                    "fft_r2c", "fft_pair", "fft_r2c_pair", "fft_strided",
+                    "fft_dct23", "fft_dct4"):
             # every kernel: (kernel, registers, spill stores, loads)
             info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
@@ -2386,9 +2387,116 @@ def phase_r2r_kernels_vs_plain(ck, dev) -> dict:
             row["worst"] = max(row["worst"], err)
             row["worst_scipy"] = max(row["worst_scipy"], e_s)
         out[name] = row
+    out.update(_dct_walk_checks(ck, dev))
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
     _log(f"[r2r kernels] {out}")
+    return out
+
+
+_DCT_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
+
+
+def _dct_class(ck, n, type4):
+    """The layout class of fft_dct23 (fft_dct4 with ``type4``) at length n:
+    the kernel (odd n: the 2n form), whether it runs two factors, threads,
+    pipelines a block, whether a stage is the generic prime one."""
+    points = ck.dct4_points(n) if type4 else n
+    n1, n2 = ck.dct_split(points, type4)
+    threads, lines, _ = (ck.dct4_layout if type4 else ck.dct23_layout)(n)
+    generic = any(r not in _DCT_FIXED_RADICES for f in (n1, n2) if f > 1
+                  for r in ck.walk_radices(f))
+    return (bool(type4 and n % 2), n2 > 1, threads, lines, generic)
+
+
+def _dct_classes(ck, type4) -> dict:
+    """One length of each layout class the kernel serves: {class: n}."""
+    supports = ck.dct4_supports if type4 else ck.dct23_supports
+    top = 2 * ck.KERNEL_MAX_N if type4 else ck.KERNEL_MAX_N
+    out = {}
+    for n in range(4, top + 1):
+        if supports(n):
+            out.setdefault(_dct_class(ck, n, type4), n)
+    return out
+
+
+# fft_dct23 / fft_dct4 launched inside sentinel guards: sample 101's n =
+# 32 and 96, sample 100's 255, 256, 1024, the longest lines
+DCT_GUARDED = (32, 96, 255, 256, 1024, 4095, 8192, 16384)
+DCT_GUARD = 1 << 12           # sentinel floats each side of an output
+
+
+def _dct_guarded(ck, x, type, dst, offset, dev):
+    """One launch of fft_dct2/3/4 with its output inside a buffer of
+    sentinel values (DCT_GUARD floats each side and ``offset`` more before):
+    (the output, the guard cells the launch changed)."""
+    B, n = x.shape
+    numel, sentinel = B * n, 12345.0
+    lead = DCT_GUARD + offset
+    buf = torch.full((lead + numel + DCT_GUARD,), sentinel, device=dev)
+    y = buf[lead:lead + numel].view(B, n)
+    lead_args = (n, int(dst)) if type == 4 else (int(dst),)
+    ck._launch("fft_dct4" if type == 4 else "fft_dct23", f"fft_dct{type}", dev,
+               [x, y, B, *lead_args, *ck._dct_walk_args(n, type, 0.5, dev)])
+    changed = (int((buf[:lead] != sentinel).sum())
+               + int((buf[lead + numel:] != sentinel).sum()))
+    return y, changed
+
+
+def _dct_walk_checks(ck, dev) -> dict:
+    """fft_dct23 (types II and III) and fft_dct4 at one length of every
+    layout class, at a batch of three blocks and one line more (an odd
+    count of lines: the last pipeline of fft_dct23 and of odd-n fft_dct4
+    carries one), both flags, against their plain versions; then guarded
+    launches at DCT_GUARDED with the output at float offsets 0..3, where
+    even-n fft_dct4, which stores float2 pairs, must refuse the odd
+    offsets and write nothing."""
+    out = {}
+    for name, type4 in (("fft_dct23", False), ("fft_dct4", True)):
+        classes = _dct_classes(ck, type4)
+        row = {"classes": len(classes), "checked": 0, "worst": 0.0}
+        for cls, n in classes.items():
+            lines = (ck.dct4_layout if type4 else ck.dct23_layout)(n)[1]
+            B = 3 * lines * (1 if type4 else 2) + 1
+            x = torch.from_numpy(_host_planes((B, n), n)[0]).to(dev)
+            for type in ((4,) if type4 else (2, 3)):
+                for dst in (False, True):
+                    call = {2: ck.fft_dct2, 3: ck.fft_dct3,
+                            4: ck.fft_dct4}[type]
+                    got = call(x, dst, 0.5)
+                    want = (ck.fft_dct4_plain(x, dst, 0.5) if type4 else
+                            ck.fft_dct23_plain(x, type == 3, dst, 0.5))
+                    err = _rel(got, want)
+                    assert err <= KERNEL_TOL, (name, cls, n, type, dst, err)
+                    row["checked"] += 1
+                    row["worst"] = max(row["worst"], err)
+        out[f"{name}_classes"] = row
+        _log(f"[r2r kernels] {name} layout classes: {row}")
+    guarded = {"launches": 0, "refused": 0, "worst": 0.0}
+    for n in DCT_GUARDED:
+        x = torch.from_numpy(_host_planes((5, n), n + 1)[0]).to(dev)
+        for type in (2, 3, 4):
+            if not (ck.dct4_supports(n) if type == 4
+                    else ck.dct23_supports(n)):
+                continue
+            for dst in (False, True):
+                want = (ck.fft_dct4_plain(x, dst, 0.5) if type == 4 else
+                        ck.fft_dct23_plain(x, type == 3, dst, 0.5))
+                for offset in range(4):
+                    if type == 4 and n % 2 == 0 and offset % 2:
+                        try:
+                            _dct_guarded(ck, x, type, dst, offset, dev)
+                        except RuntimeError:
+                            guarded["refused"] += 1
+                            continue
+                        raise AssertionError(("not refused", n, offset))
+                    got, changed = _dct_guarded(ck, x, type, dst, offset, dev)
+                    err = _rel(got, want)
+                    assert changed == 0 and err <= KERNEL_TOL, \
+                        (n, type, dst, offset, changed, err)
+                    guarded["launches"] += 1
+                    guarded["worst"] = max(guarded["worst"], err)
+    out["dct_guarded"] = guarded
     return out
 
 
@@ -2537,17 +2645,120 @@ def phase_r2r_main_path(vt, ck, torch_engine, dev) -> dict:
             "plain_engine_calls": 0, "rows": rows}
 
 
+class _dct_layout_forced:
+    """fft_dct23 and fft_dct4 with the split, points a block and points a
+    thread of layout ``v`` for the time of the block (their layout rules
+    read `cuda_kernels.dct_split` and DCT23_BLOCK_POINTS / DCT23_AIM_POINTS,
+    R2C_BLOCK_POINTS / R2C_AIM_POINTS)."""
+
+    NAMES = ("DCT23_BLOCK_POINTS", "DCT23_AIM_POINTS", "R2C_BLOCK_POINTS",
+             "R2C_AIM_POINTS")
+
+    def __init__(self, ck, v):
+        self.ck, self.v = ck, v
+
+    def __enter__(self):
+        ck, v = self.ck, self.v
+        self.saved = (ck.dct_split,) + tuple(getattr(ck, k)
+                                             for k in self.NAMES)
+        ck.dct_split = lambda points, type4=False: tuple(v["split"])
+        for k in self.NAMES:
+            setattr(ck, k, v["aim"] if k.endswith("AIM_POINTS")
+                    else v["block_points"])
+
+    def __exit__(self, *exc):
+        self.ck.dct_split = self.saved[0]
+        for k, val in zip(self.NAMES, self.saved[1:]):
+            setattr(self.ck, k, val)
+
+
+# the R2R kernels' timed rows: fft_dct23 (types II and III) at sample 100's
+# n = 256 / 1024 / 255 and sample 101's axes n = 96 / 32; fft_dct4 at
+# sample 100's n = 256 / 1024 / 255 (odd: the 2n form); each over R2R_BYTES
+DCT23_ROWS = (256, 1024, 255, 96, 32)
+DCT4_ROWS = (256, 1024, 255)
+# the layout sweep's rows: (type, n)
+DCT_SWEEP_ROWS = ((2, 256), (2, 1024), (2, 255), (2, 96), (4, 256),
+                  (4, 1024), (4, 255))
+
+
+def _dct_layout(ck, regs, type, n) -> dict:
+    """fft_dct23's or fft_dct4's layout at length n, with its kernel's
+    registers and spills (ptxas) and its resident blocks an SM."""
+    type4 = type == 4
+    points = ck.dct4_points(n) if type4 else n
+    threads, lines, smem = (ck.dct4_layout if type4 else ck.dct23_layout)(n)
+    kernel = ({2: "dct2_kernel", 3: "dct3_kernel"}.get(type)
+              or ("dct4_odd_kernel" if n % 2 else "dct4_even_kernel"))
+    r, st, ld = regs[kernel]
+    return {"kernel": kernel, "pipeline_points": points,
+            "split": list(ck.dct_split(points, type4)), "threads": threads,
+            "lines_per_block": lines, "smem_bytes": smem, "registers": r,
+            "spill_bytes": [st, ld],
+            "blocks_per_sm": (ck.dct4_occupancy(n) if type4
+                              else ck.dct23_occupancy(n, type == 3))}
+
+
+def _dct_sweep(ck, regs, dev) -> list:
+    """The layout sweep of fft_dct23 (type II) and fft_dct4 at
+    DCT_SWEEP_ROWS over R2R_BYTES: the splits of `_lines_splits` on the
+    pipeline's points and the blocks of R2C_SWEEP, each held against the
+    plain version, timed in turns (down the list, then up)."""
+    rows = []
+    for type, n in DCT_SWEEP_ROWS:
+        B = R2R_BYTES // (4 * n)
+        x = _planes((B, n), n + 11, dev)[0]
+        call = ((lambda: ck.fft_dct4(x, False, 1.0)) if type == 4
+                else (lambda: ck.fft_dct2(x, False, 1.0)))
+        plain = (ck.fft_dct4_plain(x, False, 1.0) if type == 4
+                 else ck.fft_dct23_plain(x, False, False, 1.0))
+        points = ck.dct4_points(n) if type == 4 else n
+        layout = ck.dct4_layout if type == 4 else ck.dct23_layout
+        sweep, seen = [], []
+        for split, (bp, aim) in ((p, v) for p in _lines_splits(ck, points)
+                                 for v in R2C_SWEEP):
+            v = {"split": list(split), "block_points": bp, "aim": aim}
+            with _dct_layout_forced(ck, v):
+                threads = layout(n)[0]
+                key = (v["split"], list(layout(n)))
+                if (all(ck.walk_rounds_fit(k, threads, True) for k in split)
+                        and key not in seen):
+                    seen.append(key)
+                    v.update(type=type, shape=[B, n], layout=list(layout(n)),
+                             blocks_per_sm=_dct_layout(ck, regs, type, n)[
+                                 "blocks_per_sm"], ms=[])
+                    sweep.append(v)
+        for v in sweep + sweep[::-1]:
+            with _dct_layout_forced(ck, v):
+                rel = _rel(call(), plain)
+                assert rel <= KERNEL_TOL, (type, n, v, rel)
+                v["ms"].append(_time_ms(call, reps=7))
+        best = min(sweep, key=lambda v: min(v["ms"]))
+        _log(f"[time] dct layout sweep type {type} n={n}: {len(sweep)} "
+             f"layouts, rule {list(layout(n))} split "
+             f"{list(ck.dct_split(points, type == 4))}; best {best}")
+        rows += sweep
+        del x, plain
+    return rows
+
+
 def phase_r2r_times(vt, ck, dev) -> dict:
     """The R2R kernels at the main path's shapes (each held against its
-    plain version there) and the main-path rows' round trips: ms, GB/s by
-    the convention of one 4 B read and one 4 B write a point per kernel
-    pass and direction, the bound, and torch.fft.rfft + irfft of the same
-    lines as a yardstick that is not the same function (no PyTorch call
-    computes a DCT).  The N-D rows also print the share of the round trip
-    outside the kernels: the copies that move each non-minor axis last and
-    back."""
+    plain version there, with its layout, registers, spills, blocks an SM
+    and launches a call), fft_dct23's and fft_dct4's layout sweep, and the
+    main-path rows' round trips: ms, GB/s by the convention of one 4 B read
+    and one 4 B write a point per kernel pass and direction, the bound, and
+    torch.fft.rfft + irfft of the same lines as a yardstick that is not the
+    same function (no PyTorch call computes a DCT).  The N-D rows also
+    print the share of the round trip outside the kernels: the copies that
+    move each non-minor axis last and back."""
     _log(f"[time] card: {_smi()}")
     kernels = {k: [] for k in R2R_KERNELS}
+    regs = {}
+    for lib in ("fft_dct23", "fft_dct4"):
+        with open(ck.library_path(lib)[:-3] + ".log") as f:
+            regs.update({k: (r, st, ld)
+                         for k, r, st, ld in _ptxas_kernels(f.read())})
 
     def r2r_ops(B, n, points):
         # a real FFT of n points (2.5 n log2 n) and O(n) rotations a line,
@@ -2556,7 +2767,11 @@ def phase_r2r_times(vt, ck, dev) -> dict:
 
     def kernel_row(name, B, n, points, fn, plain, extra):
         x = _planes((B, n), n + 7, dev)[0]
-        y, p = fn(x), plain(x)
+        before = dict(ck.launches)
+        y = fn(x)
+        calls = {k: c - before[k] for k, c in ck.launches.items()
+                 if c != before[k]}
+        p = plain(x)
         rel = _rel(y, p)
         assert rel <= KERNEL_TOL, (name, B, n, rel)
         err = (y - p).abs().max().item()
@@ -2566,6 +2781,7 @@ def phase_r2r_times(vt, ck, dev) -> dict:
         row = dict(extra)
         row.update({"shape": [B, n], "ms": _time_ms(lambda: fn(x)),
                     "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                    "launches_per_call": calls,
                     "plain_ms": _time_ms(lambda: plain(x), reps=5, inner=1,
                                          warmup=1),
                     "library_ms": None,
@@ -2576,39 +2792,33 @@ def phase_r2r_times(vt, ck, dev) -> dict:
         kernels[name].append(row)
         return row["ms"]
 
-    for t, n in SAMPLE_100:
+    dct23_ms = {}
+    for n in DCT23_ROWS:
         B = R2R_BYTES // (4 * n)
-        if t == 2:
-            for type3 in (False, True):
-                f = ck.fft_dct3 if type3 else ck.fft_dct2
-                s = 1.0 / (2 * n) if type3 else 1.0
-                kernel_row("fft_dct23", B, n, n,
-                           lambda x, f=f, s=s: f(x, False, s),
-                           lambda x, ty=type3, s=s: ck.fft_dct23_plain(
-                               x, ty, False, s),
-                           {"type": 3 if type3 else 2})
-        else:
-            kernel_row("fft_dct4", B, n, ck.dct4_length(n),
-                       lambda x: ck.fft_dct4(x, False, 1.0),
-                       lambda x: ck.fft_dct4_plain(x, False, 1.0),
-                       {"type": 4, "pipeline_points": ck.dct4_length(n)})
+        for type3 in (False, True):
+            f = ck.fft_dct3 if type3 else ck.fft_dct2
+            s = 1.0 / (2 * n) if type3 else 1.0
+            dct23_ms[n, type3] = kernel_row(
+                "fft_dct23", B, n, n, lambda x, f=f, s=s: f(x, False, s),
+                lambda x, ty=type3, s=s: ck.fft_dct23_plain(x, ty, False, s),
+                {"type": 3 if type3 else 2,
+                 **_dct_layout(ck, regs, 3 if type3 else 2, n)})
+    for n in DCT4_ROWS:
+        kernel_row("fft_dct4", R2R_BYTES // (4 * n), n, ck.dct4_points(n),
+                   lambda x: ck.fft_dct4(x, False, 1.0),
+                   lambda x: ck.fft_dct4_plain(x, False, 1.0),
+                   {"type": 4, **_dct_layout(ck, regs, 4, n)})
     for dst, n in ((False, 1025), (True, 1023)):
         kernel_row("fft_dct1", R2R_BYTES // (4 * n), n,
                    ck.dct1_length(n, dst),
                    lambda x, d=dst: ck.fft_dct1(x, d, 1.0),
                    lambda x, d=dst: ck.fft_dct1_plain(x, d, 1.0),
                    {"dst": dst})
-    # fft_dct23 on the lines of sample 101's axes (n = 96, 32)
-    axis_ms = {}
-    for shape in SAMPLE_101:
-        n = shape[-1]
-        B = R2R_BYTES // (4 * n)
-        axis_ms[shape] = sum(
-            kernel_row("fft_dct23", B, n, n,
-                       lambda x, f=f: f(x, False, 1.0),
-                       lambda x, ty=ty: ck.fft_dct23_plain(x, ty, False, 1.0),
-                       {"type": 3 if ty else 2, "axis_of": list(shape)})
-            for f, ty in ((ck.fft_dct2, False), (ck.fft_dct3, True)))
+    sweep = _dct_sweep(ck, regs, dev)
+    # fft_dct23 on the lines of sample 101's axes (n = 96, 32), the rows
+    # above at R2R_BYTES, as sample 101's rows batch them
+    axis_ms = {shape: dct23_ms[shape[-1], False] + dct23_ms[shape[-1], True]
+               for shape in SAMPLE_101}
 
     e2e = []
     for name, x, drive, want, (fam, t) in _r2r_paths(vt, dev):
@@ -2634,7 +2844,7 @@ def phase_r2r_times(vt, ck, dev) -> dict:
         _log(f"[time] e2e {row}")
         e2e.append(row)
         del x
-    return {"kernels": kernels, "e2e": e2e}
+    return {"kernels": kernels, "layout_sweep": sweep, "e2e": e2e}
 
 
 # ---------------------------------------------------------------------------

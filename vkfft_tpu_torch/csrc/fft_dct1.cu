@@ -92,7 +92,7 @@ int vk_fft_dct1(const float* x, float* y, long long batch, int dst,
   int lpb;
   size_t smem;
   long long blocks;
-  int err = vkfft::r2r_prepare(dct1_kernel, batch, 1, p.n, &lpb, &smem, &blocks);
+  int err = vkfft::r2r_prepare(dct1_kernel, batch, p.n, &lpb, &smem, &blocks);
   if (err) return err;
   const int threads = lpb * p.n > 2048 ? 512 : 256;
   dct1_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(

@@ -541,9 +541,15 @@ def dct1_length(n: int, dst: bool) -> int:
 
 
 def dct4_length(n: int) -> int:
-    """Complex points of `fft_dct4`'s pipeline: n/2 for even n, 2n for
-    odd n."""
+    """The stage length of `fft_dct4`'s gate: n/2 for even n, 2n for odd n
+    (the JAX package's 2n form, whose length its kernels gate on)."""
     return n // 2 if n % 2 == 0 else 2 * n
+
+
+def dct4_points(n: int) -> int:
+    """Complex points of `fft_dct4`'s pipeline: n/2 for even n (a line
+    each), n for odd n (two lines each, a real DFT of the same size)."""
+    return n // 2 if n % 2 == 0 else n
 
 
 def dct23_supports(n: int) -> bool:
@@ -915,38 +921,6 @@ def r2c_tables(n: int, inverse: bool, scale: float = 1.0):
 
 
 @functools.lru_cache(maxsize=256)
-def dct23_tables(n: int, type3: bool, scale: float = 1.0):
-    """(plan ints, complex128 table, rotation offset) of `fft_dct23`: the
-    n-point stages (inverse for type III) followed by the rotations, 2
-    scale e^{-i pi k/2n} for type II, scale e^{+i pi k/2n} for type III."""
-    ints, stages = stage_tables(n, type3)
-    k = np.arange(n)
-    rot = (scale * np.exp(0.5j * np.pi * k / n) if type3
-           else 2.0 * scale * np.exp(-0.5j * np.pi * k / n))
-    return ints, np.concatenate([stages, rot]), len(stages)
-
-
-@functools.lru_cache(maxsize=256)
-def dct4_tables(n: int, scale: float = 1.0):
-    """(plan ints, complex128 table, pre offset, post offset) of
-    `fft_dct4`: the `dct4_length` stages, the pre-rotation and the
-    post-rotations with 2 ``scale`` folded in (``csrc/fft_dct4.cu``)."""
-    ints, stages = stage_tables(dct4_length(n), False)
-    if n % 2 == 0:
-        j = np.arange(n // 2)
-        pre = np.exp(-1j * np.pi * (4 * j + 1) / (4 * n))
-        post = np.concatenate([np.exp(-1j * np.pi * j / n),
-                               np.exp(1j * np.pi * (j + 1) / n)])
-    else:
-        j = np.arange(n)
-        pre = np.exp(-0.5j * np.pi * j / n)
-        post = np.exp(-0.25j * np.pi * (2 * j + 1) / n)
-    off = len(stages)
-    return (ints, np.concatenate([stages, pre, 2.0 * scale * post]), off,
-            off + len(pre))
-
-
-@functools.lru_cache(maxsize=256)
 def twofactor_twiddle(n: int, inverse: bool, scale: float = 1.0):
     """`fft_twofactor`'s inter-factor twiddle w_n^(k2*j1) (w_n^(-k2*j1) for
     the inverse) at [k2*n1 + j1], times ``scale`` (the JAX package folds
@@ -1073,24 +1047,43 @@ R2C_ONE_PASS_LINES = 4
 R2C_AIM_POINTS = 16
 
 
-def _r2c_block(n: int) -> tuple[int, int]:
-    """(threads, lines) of an `fft_r2c` block for even length n."""
-    m = n // 2
-    lines = max(1, R2C_BLOCK_POINTS // m)
-    return _block_threads(lines * m, R2C_AIM_POINTS), lines
+@functools.lru_cache(maxsize=4096)
+def _walk_split(points: int, block_points: int, one_pass_lines: int,
+                aim: int) -> tuple[int, int]:
+    """(n1, n2) of a walk block of ``points``-point lines (`fft_r2c`'s,
+    `fft_dct23`'s and `fft_dct4`'s): (points, 1), one pass, where a block
+    of max(1, block_points // points) lines holds ``one_pass_lines`` or
+    more and every stage's sequences fit a round of its threads (one for
+    ``aim`` points), else `fft_lines`' two factors of a lone line (which
+    fit the block's threads, as many or more)."""
+    lines = max(1, block_points // points)
+    threads = _block_threads(lines * points, aim)
+    if lines >= one_pass_lines and walk_rounds_fit(points, threads, True):
+        return points, 1
+    return _lines_factors(points)
+
+
+@functools.lru_cache(maxsize=4096)
+def _walk_layout(points: int, split: tuple, block_points: int, aim: int,
+                 twiddle_points: int) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of that block: max(1, block_points
+    // points) lines, a multiple of 32 threads near one for ``aim`` points,
+    at most 512, each line once as the (n2, n1) matrix at the odd pitch n1
+    | 1, beside both factors' stage tables (`walk_radices`) and
+    ``twiddle_points`` more."""
+    n1, n2 = split
+    lines = max(1, block_points // points)
+    smem = 8 * (lines * n2 * (n1 | 1) + _table_points(n1, True)
+                + _table_points(n2, True) + twiddle_points)
+    return _block_threads(lines * points, aim), lines, smem
 
 
 def r2c_split(n: int) -> tuple[int, int]:
     """(n1, n2) of the m = n/2-point complex DFT inside `fft_r2c` /
-    `fft_c2r` for even length n: (m, 1), one pass, where a block holds
-    R2C_ONE_PASS_LINES lines or more and every stage's sequences fit a
-    round of its threads, else `fft_lines`' two factors of a lone m-point
-    line (which fit the block's threads, as many or more)."""
-    m = n // 2
-    threads, lines = _r2c_block(n)
-    if lines >= R2C_ONE_PASS_LINES and walk_rounds_fit(m, threads, True):
-        return m, 1
-    return _lines_factors(m)
+    `fft_c2r` for even length n: `_walk_split` with R2C_BLOCK_POINTS,
+    R2C_ONE_PASS_LINES and R2C_AIM_POINTS."""
+    return _walk_split(n // 2, R2C_BLOCK_POINTS, R2C_ONE_PASS_LINES,
+                       R2C_AIM_POINTS)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1111,16 +1104,11 @@ def r2c_twiddle(n: int, inverse: bool) -> np.ndarray:
 def r2c_layout(n: int) -> tuple[int, int, int]:
     """(threads, lines, shared bytes) of an `fft_r2c` / `fft_c2r` block for
     even length n, the one layout rule (the C entry refuses any other):
-    ``lines`` = max(1, R2C_BLOCK_POINTS // m) lines of m = n/2 points a
-    block, a multiple of 32 threads near one for R2C_AIM_POINTS points, at
-    most 512, the split of `r2c_split`, each line once as the (n2, n1)
-    matrix at the odd pitch n1 | 1, beside both factors' stage tables
-    (`walk_radices`) and the twiddles of `r2c_twiddle`."""
-    n1, n2 = r2c_split(n)
-    threads, lines = _r2c_block(n)
-    points = (lines * n2 * (n1 | 1) + _table_points(n1, True)
-              + _table_points(n2, True) + len(r2c_twiddle(n, False)))
-    return threads, lines, 8 * points
+    `_walk_layout` of m = n/2-point lines, up to R2C_BLOCK_POINTS points a
+    block, a thread for about R2C_AIM_POINTS, the split of `r2c_split`
+    and the twiddles of `r2c_twiddle`."""
+    return _walk_layout(n // 2, r2c_split(n), R2C_BLOCK_POINTS,
+                        R2C_AIM_POINTS, len(r2c_twiddle(n, False)))
 
 
 def r2c_occupancy(n: int, inverse: bool = False) -> int:
@@ -1129,15 +1117,145 @@ def r2c_occupancy(n: int, inverse: bool = False) -> int:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
     (C entry ``vk_fft_r2c_occupancy``)."""
     threads, _, smem = r2c_layout(n)
-    fn = _library("fft_r2c").vk_fft_r2c_occupancy
+    return _flag_occupancy("fft_r2c", "fft_r2c", int(inverse), threads, smem)
+
+
+# `fft_dct23` and `fft_dct4` (csrc/fft_dct23.cu, csrc/fft_dct4.cu) on the
+# points of their complex pipelines (n points carrying two real lines for
+# DCT-II/III and odd DCT-IV, n/2 for even DCT-IV): pipelines share a block
+# up to a block's points, a thread for about its aim of them, one pass
+# where a block holds enough pipelines, else `fft_lines`' two factors.
+# `fft_dct4` takes `fft_r2c`'s block (R2C_*); `fft_dct23` its own, the
+# best of chip_smoke.py's layout sweep at n = 96 / 1024 / 255 and within
+# 1.4 % of it at 256 (PERF.md, PR 14 run 7): 4096 points a block, 32 a
+# thread, one pass from 8 pipelines a block.
+DCT23_BLOCK_POINTS = 4096
+DCT23_ONE_PASS_LINES = 8
+DCT23_AIM_POINTS = 32
+
+
+def dct_split(points: int, type4: bool = False) -> tuple[int, int]:
+    """(n1, n2) of the complex pipeline of ``points`` points inside
+    `fft_dct23` (`fft_dct4` with ``type4``): (points, 1), one pass, where a
+    block holds DCT23_ONE_PASS_LINES (R2C_ONE_PASS_LINES) pipelines or
+    more and every stage's sequences fit a round of its threads, else
+    `fft_lines`' two factors of a lone pipeline (which fit the block's
+    threads, as many or more)."""
+    if type4:
+        return _walk_split(points, R2C_BLOCK_POINTS, R2C_ONE_PASS_LINES,
+                           R2C_AIM_POINTS)
+    return _walk_split(points, DCT23_BLOCK_POINTS, DCT23_ONE_PASS_LINES,
+                       DCT23_AIM_POINTS)
+
+
+def _rotation_table(N: int, count: int, sign: int = -1, shift: float = 0.0,
+                    scale: float = 1.0) -> np.ndarray:
+    """value(e) = scale * w^(e + shift), w = e^(sign 2 pi i / N), for e <
+    count as the walk's two tables, complex128: w^b for b < 64, then scale
+    * w^(64 a + shift) for a < ceil(count / 64) (``root`` in
+    ``csrc/real_walk.cuh``)."""
+    w = sign * 2j * np.pi / N
+    lo = np.exp(w * np.arange(TWOFACTOR_TW_LO))
+    a = np.arange(-(-count // TWOFACTOR_TW_LO), dtype=np.float64)
+    return np.concatenate([lo, scale * np.exp(w * (TWOFACTOR_TW_LO * a
+                                                   + shift))])
+
+
+def _rotation_points(count: int) -> int:
+    return TWOFACTOR_TW_LO + -(-count // TWOFACTOR_TW_LO)
+
+
+@functools.lru_cache(maxsize=256)
+def dct23_twiddle(n: int, type3: bool, scale: float = 1.0) -> np.ndarray:
+    """The twiddles of `fft_dct2` (`fft_dct3` with ``type3``) at length n,
+    complex128: the n-point inter-factor twiddle's two tables
+    (`twofactor_twiddle_pair`, inverse for type III, no scale), then the
+    rotation table of rot[k] = scale e^{-i pi k/2n} (type III: e^{+i pi
+    k/2n}), k < n (`_rotation_table`)."""
+    return np.concatenate([twofactor_twiddle_pair(n, type3),
+                           _rotation_table(4 * n, n, 1 if type3 else -1,
+                                           scale=scale)])
+
+
+@functools.lru_cache(maxsize=256)
+def dct4_twiddle(n: int, scale: float = 1.0) -> np.ndarray:
+    """The twiddles of `fft_dct4` at length n, complex128: the pipeline's
+    inter-factor twiddle's two tables (`twofactor_twiddle_pair` of
+    `dct4_points`, no scale), then for even n two rotation tables
+    (`_rotation_table`), pre[j] = e^{-i pi (4j+1)/4n}, j < n/2, and post[k]
+    = 2 scale e^{-i pi k/n}, k <= n/2; for odd n the one point sqrt(2)
+    scale / 2, the factor of every output of its real DFT's
+    post-processing (``csrc/fft_dct4.cu``)."""
+    pair = twofactor_twiddle_pair(dct4_points(n), False)
+    if n % 2:
+        return np.concatenate([pair, [np.sqrt(2.0) * scale / 2]])
+    m = n // 2
+    return np.concatenate([pair, _rotation_table(2 * n, m, shift=0.25),
+                           _rotation_table(2 * n, m + 1, scale=2.0 * scale)])
+
+
+def dct_twiddle_points(n: int, type4: bool) -> int:
+    """Points of `dct23_twiddle` (`dct4_twiddle` with ``type4``) at length
+    n, as the C entries count them."""
+    if not type4:
+        return 2 * _rotation_points(n)
+    if n % 2:
+        return _rotation_points(n) + 1
+    m = n // 2
+    return (_rotation_points(m) + _rotation_points(m)
+            + _rotation_points(m + 1))
+
+
+def dct23_layout(n: int) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_dct23` block for length
+    n, the one layout rule (the C entry refuses any other): ``lines`` =
+    max(1, DCT23_BLOCK_POINTS // n) pipelines of n points a block, each two
+    real lines, a multiple of 32 threads near one for DCT23_AIM_POINTS
+    points, at most 512, the split of `dct_split`, each pipeline once as
+    the (n2, n1) matrix at the odd pitch n1 | 1, beside both factors'
+    stage tables (`walk_radices`) and the twiddles of `dct23_twiddle`."""
+    return _walk_layout(n, dct_split(n), DCT23_BLOCK_POINTS,
+                        DCT23_AIM_POINTS, dct_twiddle_points(n, False))
+
+
+def dct4_layout(n: int) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_dct4` block for length n:
+    `dct23_layout`'s rule with R2C_BLOCK_POINTS and R2C_AIM_POINTS on the
+    `dct4_points` of its pipeline (``lines`` pipelines of a line each, or
+    of two for odd n) and the twiddles of `dct4_twiddle`."""
+    points = dct4_points(n)
+    return _walk_layout(points, dct_split(points, True), R2C_BLOCK_POINTS,
+                        R2C_AIM_POINTS, dct_twiddle_points(n, True))
+
+
+def _flag_occupancy(name: str, entry: str, flag: int, threads: int,
+                    smem: int) -> int:
+    fn = getattr(_library(name), f"vk_{entry}_occupancy")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    err = fn(int(inverse), threads, smem, ctypes.byref(blocks))
+    err = fn(flag, threads, smem, ctypes.byref(blocks))
     if err:
-        raise RuntimeError(f"vk_fft_r2c_occupancy({int(inverse)}, {threads}, "
+        raise RuntimeError(f"vk_{entry}_occupancy({flag}, {threads}, "
                            f"{smem}) failed: CUDA error {err}")
     return blocks.value
+
+
+def dct23_occupancy(n: int, type3: bool = False) -> int:
+    """Resident blocks an SM of `fft_dct2` (`fft_dct3` with ``type3``) at
+    the layout of length n, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
+    (C entry ``vk_fft_dct23_occupancy``)."""
+    threads, _, smem = dct23_layout(n)
+    return _flag_occupancy("fft_dct23", "fft_dct23", int(type3), threads,
+                           smem)
+
+
+def dct4_occupancy(n: int) -> int:
+    """Resident blocks an SM of `fft_dct4` at the layout of length n (the
+    odd kernel for odd n; C entry ``vk_fft_dct4_occupancy``)."""
+    threads, _, smem = dct4_layout(n)
+    return _flag_occupancy("fft_dct4", "fft_dct4", n % 2, threads, smem)
 
 
 def lines_occupancy(n: int) -> int:
@@ -1693,9 +1811,13 @@ _ENTRIES = {
     # threads, shared bytes
     "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "iii",
                       "fft_conv2d": "ppppqii" + "p" * 9 + "i"},
-    "fft_dct23": {"fft_dct2": "ppqippi", "fft_dct3": "ppqippi"},
+    # real lines in and out, batch, (fft_dct4: n,) dst, plans, tables,
+    # the twiddles (dct23_twiddle / dct4_twiddle), then the layout
+    # (dct23_layout / dct4_layout): threads, lines, shared bytes
+    "fft_dct23": {"fft_dct2": "ppqi" + "p" * 5 + "iii",
+                  "fft_dct3": "ppqi" + "p" * 5 + "iii"},
     "fft_dct1": {"fft_dct1": "ppqippi"},
-    "fft_dct4": {"fft_dct4": "ppqiippii"},
+    "fft_dct4": {"fft_dct4": "ppqii" + "p" * 5 + "iii"},
     "fft_strided_tw": {"fft_strided_tw": "ppppqqqqpppii"},
     # the double-double tier (precision/dd_kernel.py): eight quad planes,
     # extents, plan, table, the pre/post tables and their lengths, the
@@ -2484,34 +2606,43 @@ def _r2r_gate(ok: bool, what: str, n: int, rule: str) -> None:
             "composition onto its FFT kernels (transforms/r2r.py)")
 
 
-def _r2r_apply(name: str, entry: str, x: torch.Tensor, plain, tables,
-               key: tuple, *args) -> torch.Tensor:
-    """Shared body of the R2R wrappers: ``plain()`` for a CPU tensor, else
-    one launch of C entry ``vk_<entry>`` of library ``name`` on a fresh
-    (B, n) output.  ``tables()`` gives (plan ints, complex128 table,
-    offsets...), the table cached on the device under ``key``; ``args``
-    go between the batch and the plan."""
+def _dct_walk_args(n: int, type: int, scale: float, device):
+    """The plans, tables, twiddles and layout of an `fft_dct23` (type 2 or
+    3) or `fft_dct4` (type 4) launch at length n."""
+    type4 = type == 4
+    inverse = type == 3
+    n1, n2 = dct_split(dct4_points(n) if type4 else n, type4)
+    p1, t1 = _plan(n1, inverse, 1.0, device, True)
+    p2, t2 = _plan(n2, inverse, 1.0, device, True)
+    if type4:
+        tw = device_array(("dct4_twiddle", n, scale), device,
+                          lambda: dct4_twiddle(n, scale))
+    else:
+        tw = device_array(("dct23_twiddle", n, inverse, scale), device,
+                          lambda: dct23_twiddle(n, inverse, scale))
+    return (p1, p2, t1, t2, tw,
+            *(dct4_layout(n) if type4 else dct23_layout(n)))
+
+
+def _dct_walk(x: torch.Tensor, type: int, dst: bool, scale: float, plain):
+    """Shared body of `fft_dct2`, `fft_dct3` and `fft_dct4`: ``plain()``
+    for a CPU tensor, else one launch on a fresh (B, n) output."""
+    what = f"fft_dct{type}"
+    _check_real(x, 2, what)
+    n = x.shape[1]
+    _r2r_gate((dct4_supports if type == 4 else dct23_supports)(n), what, n,
+              "n >= 4")
+    if type == 4 and n % 2 == 0:
+        _check_aligned(x, what)
     if x.device.type == "cpu":
         return plain()
     y = torch.empty_like(x)
     if x.shape[0]:
-        ints, table, *offsets = tables()
-        dev_table = device_array(key, x.device, lambda: table)
-        _launch(name, entry, x.device,
-                [x, y, x.shape[0], *args, (ctypes.c_int * len(ints))(*ints),
-                 dev_table, *offsets])
+        lead = (n, int(dst)) if type == 4 else (int(dst),)
+        _launch("fft_dct4" if type == 4 else "fft_dct23", what, x.device,
+                [x, y, x.shape[0], *lead,
+                 *_dct_walk_args(n, type, scale, x.device)])
     return y
-
-
-def _dct23(x: torch.Tensor, type3: bool, dst: bool, scale: float):
-    what = "fft_dct3" if type3 else "fft_dct2"
-    _check_real(x, 2, what)
-    n = x.shape[1]
-    _r2r_gate(dct23_supports(n), what, n, "n >= 4")
-    return _r2r_apply("fft_dct23", what, x,
-                      lambda: fft_dct23_plain(x, type3, dst, scale),
-                      lambda: dct23_tables(n, type3, scale),
-                      ("dct23", n, type3, scale), int(dst))
 
 
 def fft_dct2(x: torch.Tensor, dst: bool = False,
@@ -2521,11 +2652,13 @@ def fft_dct2(x: torch.Tensor, dst: bool = False,
     tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2745 _dct2_kernel``.  Bound
-    by bytes (4 B a point in, 4 B out): a block stages its lines, reads them
-    in Makhoul's order as pairs z = v_a + i v_b, runs the n-point stages in
-    shared memory, splits the two spectra and rotates
-    (``csrc/fft_dct23.cu``)."""
-    return _dct23(x, False, dst, scale)
+    by bytes (4 B a point in, 4 B out).  Two lines ride one n-point
+    complex pipeline: a block reads its lines by cp.async straight into
+    Makhoul's order, runs the stages in place on the walk of
+    ``csrc/inplace.cuh`` (`dct23_layout`), and writes each output from
+    its two bins Z[k], Z[n-k], split and rotated (``csrc/fft_dct23.cu``)."""
+    return _dct_walk(x, 2, dst, scale,
+                     lambda: fft_dct23_plain(x, False, dst, scale))
 
 
 def fft_dct3(x: torch.Tensor, dst: bool = False,
@@ -2535,9 +2668,11 @@ def fft_dct3(x: torch.Tensor, dst: bool = False,
     CPU tensors run `fft_dct23_plain`; CUDA tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2789 _dct3_kernel``; bound and
-    design as `fft_dct2`, backwards: pre-rotation of the pair, the inverse
-    stages, and Makhoul's order undone on the store."""
-    return _dct23(x, True, dst, scale)
+    layout as `fft_dct2`, backwards: the pair's pre-rotation in place after
+    the read, the inverse stages, and Makhoul's order undone in the
+    write."""
+    return _dct_walk(x, 3, dst, scale,
+                     lambda: fft_dct23_plain(x, True, dst, scale))
 
 
 def fft_dct1(x: torch.Tensor, dst: bool = False,
@@ -2554,11 +2689,17 @@ def fft_dct1(x: torch.Tensor, dst: bool = False,
     _check_real(x, 2, "fft_dct1")
     n = x.shape[1]
     _r2r_gate(dct1_supports(n, dst), "fft_dct1", n, "n >= 3")
-    return _r2r_apply("fft_dct1", "fft_dct1", x,
-                      lambda: fft_dct1_plain(x, dst, scale),
-                      lambda: r2c_tables(2 * dct1_length(n, dst), False,
-                                         scale),
-                      ("dct1", n, dst, scale), int(dst))
+    if x.device.type == "cpu":
+        return fft_dct1_plain(x, dst, scale)
+    y = torch.empty_like(x)
+    if x.shape[0]:
+        ints, table, post = r2c_tables(2 * dct1_length(n, dst), False, scale)
+        dev_table = device_array(("dct1", n, dst, scale), x.device,
+                                 lambda: table)
+        _launch("fft_dct1", "fft_dct1", x.device,
+                [x, y, x.shape[0], int(dst), (ctypes.c_int * len(ints))(*ints),
+                 dev_table, post])
+    return y
 
 
 def fft_dct4(x: torch.Tensor, dst: bool = False,
@@ -2568,14 +2709,11 @@ def fft_dct4(x: torch.Tensor, dst: bool = False,
     tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3080 _dct4_kernel``.  Bound
-    by bytes for even n (the n/2 complex trick: a pre-rotated n/2-point
-    pipeline whose two outputs of each bin interleave on the store); odd n
-    runs the TPU kernel's pre-rotated 2n-point form, four times the work
-    (``csrc/fft_dct4.cu``)."""
-    _check_real(x, 2, "fft_dct4")
-    n = x.shape[1]
-    _r2r_gate(dct4_supports(n), "fft_dct4", n, "n >= 4")
-    return _r2r_apply("fft_dct4", "fft_dct4", x,
-                      lambda: fft_dct4_plain(x, dst, scale),
-                      lambda: dct4_tables(n, scale), ("dct4", n, scale), n,
-                      int(dst))
+    by bytes: even n takes the n/2 complex trick, a pre-rotated n/2-point
+    pipeline whose two outputs of each bin interleave in the write; odd n a
+    real DFT of the same n points, the line permuted with signs (Chan and
+    Ho; FFTW's odd REDFT11), two lines riding one complex pipeline, where
+    the TPU kernel runs a 2n-point one.  Both on the walk of
+    ``csrc/inplace.cuh`` (`dct4_layout`, ``csrc/fft_dct4.cu``)."""
+    return _dct_walk(x, 4, dst, scale,
+                     lambda: fft_dct4_plain(x, dst, scale))
