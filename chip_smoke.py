@@ -2394,9 +2394,6 @@ def phase_r2r_kernels_vs_plain(ck, dev) -> dict:
     return out
 
 
-_DCT_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
-
-
 def _dct_class(ck, n, type4):
     """The layout class of fft_dct23 (fft_dct4 with ``type4``) at length n:
     the kernel (odd n: the 2n form), whether it runs two factors, threads,
@@ -2404,9 +2401,8 @@ def _dct_class(ck, n, type4):
     points = ck.dct4_points(n) if type4 else n
     n1, n2 = ck.dct_split(points, type4)
     threads, lines, _ = (ck.dct4_layout if type4 else ck.dct23_layout)(n)
-    generic = any(r not in _DCT_FIXED_RADICES for f in (n1, n2) if f > 1
-                  for r in ck.walk_radices(f))
-    return (bool(type4 and n % 2), n2 > 1, threads, lines, generic)
+    return (bool(type4 and n % 2), n2 > 1, threads, lines,
+            ck.walk_generic((n1, n2)))
 
 
 def _dct_classes(ck, type4) -> dict:
@@ -2446,8 +2442,8 @@ def _dct_guarded(ck, x, type, dst, offset, dev):
 def _dct_walk_checks(ck, dev) -> dict:
     """fft_dct23 (types II and III) and fft_dct4 at one length of every
     layout class, at a batch of three blocks and one line more (an odd
-    count of lines: the last pipeline of fft_dct23 and of odd-n fft_dct4
-    carries one), both flags, against their plain versions; then guarded
+    count of lines: the last pipeline of fft_dct23 and of odd-n fft_dct4,
+    two lines each, carries one), both flags, against their plain versions; then guarded
     launches at DCT_GUARDED with the output at float offsets 0..3, where
     even-n fft_dct4, which stores float2 pairs, must refuse the odd
     offsets and write nothing."""
@@ -2457,7 +2453,8 @@ def _dct_walk_checks(ck, dev) -> dict:
         row = {"classes": len(classes), "checked": 0, "worst": 0.0}
         for cls, n in classes.items():
             lines = (ck.dct4_layout if type4 else ck.dct23_layout)(n)[1]
-            B = 3 * lines * (1 if type4 else 2) + 1
+            per = lines if type4 and n % 2 == 0 else 2 * lines
+            B = 3 * per + 1
             x = torch.from_numpy(_host_planes((B, n), n)[0]).to(dev)
             for type in ((4,) if type4 else (2, 3)):
                 for dst in (False, True):
@@ -2506,6 +2503,8 @@ def _dct_walk_checks(ck, dev) -> dict:
 R2R_ROUTE_LENGTHS = sorted(set(range(2, 4097, SWEEP_STRIDE))
                            | {16, 64, 100, 255, 256, 1000, 1024, 4096, 4099,
                               8192})
+# lengths of the odd-offset views: even and odd n, one pass and two factors
+R2R_ODD_VIEW_LENGTHS = (96, 255, 256, 1024, 8192)
 
 
 def phase_r2r_routes(vt, dev) -> dict:
@@ -2551,8 +2550,31 @@ def phase_r2r_routes(vt, dev) -> dict:
                 assert e <= NUMPY_TOL, (shape, axes, t, e)
                 nd.append(e)
         assert torch.equal(x, keep), shape
+    # contiguous views that start at an odd float: the kernels that read
+    # float2 pairs (even-n fft_dct4) must get an aligned copy
+    odd_view = []
+    for n in R2R_ODD_VIEW_LENGTHS:
+        xh = _host_planes((3, n), n + 2)[0]
+        xd = xh.astype(np.float64)
+        x = torch.zeros(3 * n + 1, device=dev)[1:].view(3, n)
+        assert x.data_ptr() % 8, n
+        x.copy_(torch.from_numpy(xh).to(dev))
+        keep = x.clone()
+        for t in (2, 3, 4):
+            for fn, sci in ((vt.dct, sfft.dct), (vt.dst, sfft.dst),
+                            (vt.idct, sfft.idct), (vt.idst, sfft.idst)):
+                e = _numpy_rel(_host(fn(x, type=t)), sci(xd, type=t))
+                assert e <= NUMPY_TOL, (n, fn.__name__, t, e)
+                odd_view.append(e)
+            for fn, sci in ((vt.dctn, sfft.dctn), (vt.dstn, sfft.dstn)):
+                e = _numpy_rel(_host(fn(x, type=t, axes=(1,))),
+                               sci(xd, type=t, axes=(1,)))
+                assert e <= NUMPY_TOL, (n, fn.__name__, t, e)
+                odd_view.append(e)
+        assert torch.equal(x, keep), n
     out = {"lengths": len(R2R_ROUTE_LENGTHS), "cases": cases, "worst": worst,
            "nd_cases": len(nd), "nd_worst": max(nd),
+           "odd_view_cases": len(odd_view), "odd_view_worst": max(odd_view),
            "seconds": time.perf_counter() - t0}
     _log(f"[r2r routes] {out}")
     return out

@@ -328,6 +328,39 @@ def test_input_left_unchanged(n):
             assert torch.equal(x, keep) and torch.equal(y, yk), (family, t)
 
 
+@pytest.mark.parametrize("n", [96, 255, 256])
+@pytest.mark.parametrize("type", [2, 3, 4])
+def test_r2r_kernels_get_aligned_lines(monkeypatch, type, n):
+    """A contiguous view that starts at an odd float reaches the R2R
+    kernels as an 8-byte aligned copy (even-n `fft_dct4` reads float2
+    pairs and refuses anything else on the card), with the view's
+    values."""
+    seen = []
+
+    def recorder(kernel):
+        def call(x, dst, scale):
+            seen.append(x.data_ptr() % 8)
+            return kernel(x, dst, scale)
+        return call
+
+    monkeypatch.setattr(cuda_engine, "_R2R_KERNELS",
+                        {t: recorder(k)
+                         for t, k in cuda_engine._R2R_KERNELS.items()})
+    xh = _real((3, n), seed=n + type)
+    x = torch.zeros(3 * n + 1)[1:].view(3, n)
+    x.copy_(torch.from_numpy(xh))
+    assert x.data_ptr() % 8
+    for family in ("dct", "dst"):
+        fwd, inv, sci_fwd, sci_inv = (
+            (vt.dct, vt.idct, sfft.dct, sfft.idct) if family == "dct"
+            else (vt.dst, vt.idst, sfft.dst, sfft.idst))
+        for fn, sci in ((fwd, sci_fwd), (inv, sci_inv)):
+            y = fn(x, type=type, engine="cuda")
+            want = sci(xh.astype(np.float64), type=type)
+            assert _rel(y.numpy(), want) <= NUMPY_TOL, (family, fn)
+    assert seen and not any(seen), seen
+
+
 def test_module_imports_no_jax():
     code = ("import sys; import vkfft_tpu_torch.transforms.r2r; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -30,14 +30,6 @@
 namespace vkfft {
 namespace walk {
 
-constexpr int kR2rThreads = 512;  // most threads a block
-constexpr int kR2rMinBlocks = 2;  // blocks an SM the register budget keeps
-
-// Points of a rotation table of `count` values.
-__host__ __device__ constexpr int rotation_points(int count) {
-  return kTwLo + (count + kTwLo - 1) / kTwLo;
-}
-
 // A launch's geometry, every count and divisor computed by the host and
 // read from the kernel's parameters where it is used (held in registers
 // from the read through the passes, a divisor spilled): the real line's
@@ -115,54 +107,6 @@ __device__ __forceinline__ void dct_passes(float2* smem, const Geo& g,
   const float2* tw = twiddles_at(smem, g);
   two_factor_passes(smem, nl, p1, p2, s1, s1 + g.len1, tw, tw + kTwLo,
                     g.pitch, mirrored);
-}
-
-template <typename K>
-int smem_opt_in(K kernel, int smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-// Shared bytes of a block of `lines` pipelines of the plans' n1 * n2
-// points and `ntw` twiddle points.
-inline size_t dct_smem(const Plan& p1, const Plan& p2, int lines, int ntw) {
-  return sizeof(float2) * ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) +
-                           table_len(p2) + ntw);
-}
-
-// The checks of a launch: the plans of the pipeline's `points` (both
-// forward, or both inverse), the layout of cuda_kernels.dct23_layout /
-// dct4_layout exactly (`ntw` twiddle points), `per` real lines a block of
-// `lines` pipelines.
-template <typename K>
-int dct_prepare(K kernel, long long batch, const int* plan1, const int* plan2,
-                int points, int inverse, int threads, int lines, int smem,
-                int ntw, int per, Plan* p1, Plan* p2, long long* blocks) {
-  if (batch < 1 || !plan_from_ints(plan1, p1) || !subplan_from_ints(plan2, p2))
-    return (int)cudaErrorInvalidValue;
-  if (p1->n * p2->n != points || points < 2 || points > kMaxN ||
-      p1->n < p2->n || p1->inverse != inverse || p2->inverse != inverse ||
-      threads < 32 || threads > kR2rThreads || threads % 32 != 0 ||
-      lines < 1 || (long long)lines * points > kTwoFactorMaxN ||
-      !rounds_fit(*p1, threads) || !rounds_fit(*p2, threads) || smem < 0 ||
-      (size_t)smem != dct_smem(*p1, *p2, lines, ntw) ||
-      smem > kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  *blocks = (batch + per - 1) / per;
-  if (*blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return smem_opt_in(kernel, smem);
-}
-
-template <typename K>
-int dct_occupancy(K kernel, int threads, int smem, int* blocks) {
-  if (threads < 32 || threads > kR2rThreads || smem < 0 ||
-      smem > kMaxSmemBytes || blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(kernel, smem);
-  if (err) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                            threads, smem);
 }
 
 }  // namespace walk

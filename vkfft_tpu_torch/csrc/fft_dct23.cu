@@ -174,7 +174,7 @@ __device__ __forceinline__ void write_dct3(const float2* home, int np,
   }
 }
 
-__global__ void __launch_bounds__(kR2rThreads, kR2rMinBlocks)
+__global__ void __launch_bounds__(kRealThreads, kRealMinBlocks)
 dct2_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
             Plan p2, const float2* t1, const float2* t2, const float2* tw,
             Geo g) {
@@ -190,7 +190,7 @@ dct2_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
              y + block_line0(per) * (int)g.dl.d);
 }
 
-__global__ void __launch_bounds__(kR2rThreads, kR2rMinBlocks)
+__global__ void __launch_bounds__(kRealThreads, kRealMinBlocks)
 dct3_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
             Plan p2, const float2* t1, const float2* t2, const float2* tw,
             Geo g) {
@@ -221,8 +221,9 @@ int launch(K kernel, const float* x, float* y, long long batch, int dst,
   if (n < 4) return (int)cudaErrorInvalidValue;
   // twiddle points: the inter-factor twiddle of n points, the rotations
   const int ntw = 2 * rotation_points(n);
-  const int err = dct_prepare(kernel, batch, plan1, plan2, n, inverse, threads,
-                              lines, smem, ntw, 2 * lines, &p1, &p2, &blocks);
+  const int err = walk_prepare(kernel, batch, plan1, plan2, n, inverse,
+                               threads, lines, smem, ntw, 2 * lines, &p1, &p2,
+                               &blocks);
   if (err) return err;
   kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       x, y, batch, dst, p1, p2, reinterpret_cast<const float2*>(table1),
@@ -269,8 +270,8 @@ int vk_fft_dct3(const float* x, float* y, long long batch, int dst,
 // Resident blocks an SM of the type II (type3 = 0) or type III kernel at
 // `threads` a block and `smem` dynamic shared bytes, into *blocks.
 int vk_fft_dct23_occupancy(int type3, int threads, int smem, int* blocks) {
-  return type3 ? dct_occupancy(dct3_kernel, threads, smem, blocks)
-               : dct_occupancy(dct2_kernel, threads, smem, blocks);
+  return type3 ? walk_occupancy(dct3_kernel, threads, smem, blocks)
+               : walk_occupancy(dct2_kernel, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -38,14 +38,11 @@ using vkfft::Plan;
 using vkfft::cmul;
 using namespace vkfft::walk;
 
-constexpr int kThreads = 512;  // most threads a block
-constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
-
 // Points of the twiddles' tables after the stage tables: the inter-factor
 // twiddle of the m-point DFT (64 + ceil(m / 64)) and the untangle's w_n^k,
 // k <= m / 2 (64 + m / 128 + 1).
-__device__ __forceinline__ int twiddle_points(int m) {
-  return 2 * kTwLo + (m + kTwLo - 1) / kTwLo + (m / 2) / kTwLo + 1;
+__host__ __device__ __forceinline__ int twiddle_points(int m) {
+  return rotation_points(m) + kTwLo + (m / 2) / kTwLo + 1;
 }
 
 // The block's stage tables and twiddles, copied into shared memory after
@@ -133,7 +130,7 @@ __device__ void load_numpy_async(const float* xr, const float* xi,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kRealThreads, kRealMinBlocks)
 r2c_kernel(const float* x, float* yr, float* yi, long long batch, int packed,
            Plan p1, Plan p2, const float2* t1, const float2* t2,
            const float2* tw, int lines, int pitch, int len1, int len2) {
@@ -156,7 +153,7 @@ r2c_kernel(const float* x, float* yr, float* yi, long long batch, int packed,
                  block_lines(lines, batch) * w);
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kRealThreads, kRealMinBlocks)
 c2r_kernel(const float* xr, const float* xi, float* y, long long batch,
            int packed, Plan p1, Plan p2, const float2* t1, const float2* t2,
            const float2* tw, float scale, int lines, int pitch, int len1,
@@ -190,40 +187,17 @@ c2r_kernel(const float* xr, const float* xi, float* y, long long batch,
               block_lines(lines, batch) * m);
 }
 
-// Shared bytes of a block: its lines (two_factor_block's) and the twiddles.
-size_t r2c_smem(const Plan& p1, const Plan& p2, int lines) {
-  return two_factor_smem(p1, p2, lines) +
-         sizeof(float2) * (kTwLo + (p1.n * p2.n / 2) / kTwLo + 1);
-}
-
-template <typename K>
-int smem_opt_in(K kernel, int smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
 // The checks of a launch: the plans of m = n1 * n2 (inverse for c2r), the
 // layout of cuda_kernels.r2c_layout exactly, the real side 8-byte aligned.
 template <typename K>
 int prepare(K kernel, long long batch, int packed, const int* plan1,
             const int* plan2, int inverse, int threads, int lines, int smem,
             const void* real, Plan* p1, Plan* p2, long long* blocks) {
-  if (batch < 1 || (packed != 0 && packed != 1) ||
-      ((uintptr_t)real & 7) != 0 || !vkfft::plan_from_ints(plan1, p1) ||
-      !vkfft::subplan_from_ints(plan2, p2))
+  if ((packed != 0 && packed != 1) || ((uintptr_t)real & 7) != 0)
     return (int)cudaErrorInvalidValue;
-  const int m = p1->n * p2->n;
-  if (m < 2 || m > vkfft::kMaxN || p1->n < p2->n || p1->inverse != inverse ||
-      p2->inverse != inverse || threads < 32 || threads > kThreads ||
-      threads % 32 != 0 || lines < 1 ||
-      (long long)lines * m > vkfft::kTwoFactorMaxN ||
-      !rounds_fit(*p1, threads) || !rounds_fit(*p2, threads) || smem < 0 ||
-      (size_t)smem != r2c_smem(*p1, *p2, lines) || smem > vkfft::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  *blocks = (batch + lines - 1) / lines;
-  if (*blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return smem_opt_in(kernel, smem);
+  const int m = plan1[0] * plan2[0];
+  return walk_prepare(kernel, batch, plan1, plan2, m, inverse, threads, lines,
+                      smem, twiddle_points(m), lines, p1, p2, blocks);
 }
 
 }  // namespace
@@ -283,15 +257,8 @@ int vk_fft_c2r(const float* xr, const float* xi, float* y, long long batch,
 // Resident blocks an SM of the forward (inverse = 0) or inverse kernel at
 // `threads` a block and `smem` dynamic shared bytes, into *blocks.
 int vk_fft_r2c_occupancy(int inverse, int threads, int smem, int* blocks) {
-  if (threads < 32 || threads > kThreads || smem < 0 ||
-      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  int err = inverse ? smem_opt_in(c2r_kernel, smem) : smem_opt_in(r2c_kernel, smem);
-  if (err) return err;
-  return inverse ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       blocks, c2r_kernel, threads, smem)
-                 : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       blocks, r2c_kernel, threads, smem);
+  return inverse ? walk_occupancy(c2r_kernel, threads, smem, blocks)
+                 : walk_occupancy(r2c_kernel, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

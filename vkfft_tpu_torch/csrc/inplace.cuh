@@ -38,6 +38,7 @@
 #pragma once
 
 #include "stockham.cuh"
+#include "twofactor.cuh"
 
 namespace vkfft {
 namespace walk {
@@ -634,12 +635,74 @@ __device__ __forceinline__ void two_factor_block(
               yi, g0, nl * n);
 }
 
+// Points of a twiddle's two tables over `count` exponents: kTwLo low
+// points, then ceil(count / kTwLo) high ones.
+__host__ __device__ constexpr int rotation_points(int count) {
+  return kTwLo + (count + kTwLo - 1) / kTwLo;
+}
+
+// Shared bytes of a block of `lines` lines of the plans' n1 * n2 points at
+// the pitch n1 | 1, their stage tables and `ntw` twiddle points.
+inline size_t walk_smem(const Plan& p1, const Plan& p2, int lines, int ntw) {
+  return sizeof(float2) * ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) +
+                           table_len(p2) + ntw);
+}
+
 // Shared bytes of two_factor_block's `lines` lines and tables.
 inline size_t two_factor_smem(const Plan& p1, const Plan& p2, int lines) {
-  const int n = p1.n * p2.n;
-  return sizeof(float2) *
-         ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) + table_len(p2) +
-          kTwLo + (n + kTwLo - 1) / kTwLo);
+  return walk_smem(p1, p2, lines, rotation_points(p1.n * p2.n));
+}
+
+// The real kernels on the walk (fft_r2c, fft_dct23, fft_dct4) share one
+// launch contract.
+constexpr int kRealThreads = 512;  // most threads a block
+constexpr int kRealMinBlocks = 2;  // blocks an SM the register budget keeps
+
+// Lets `kernel` take `smem` dynamic shared bytes past the 48 KB default.
+template <typename K>
+int smem_opt_in(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The checks of a real kernel's launch: the plans of its pipeline's
+// `points` = n1 * n2 (n1 >= n2, both with the `inverse` flag), `threads` a
+// multiple of 32 up to kRealThreads that hold a whole sequence of every
+// stage in a round, `lines` pipelines a block (lines * points <=
+// kTwoFactorMaxN) and `smem` exactly walk_smem's bytes with `ntw` twiddle
+// points, at most 227 KB.  Then *blocks for `per` real lines a block, and
+// the kernel opted in to its shared bytes.  The layout rules of
+// cuda_kernels (r2c_layout, dct23_layout, dct4_layout) give these.
+template <typename K>
+int walk_prepare(K kernel, long long batch, const int* plan1, const int* plan2,
+                 int points, int inverse, int threads, int lines, int smem,
+                 int ntw, int per, Plan* p1, Plan* p2, long long* blocks) {
+  if (batch < 1 || !plan_from_ints(plan1, p1) || !subplan_from_ints(plan2, p2))
+    return (int)cudaErrorInvalidValue;
+  if (p1->n * p2->n != points || points < 2 || points > kMaxN ||
+      p1->n < p2->n || p1->inverse != inverse || p2->inverse != inverse ||
+      threads < 32 || threads > kRealThreads || threads % 32 != 0 ||
+      lines < 1 || (long long)lines * points > kTwoFactorMaxN ||
+      !rounds_fit(*p1, threads) || !rounds_fit(*p2, threads) || smem < 0 ||
+      (size_t)smem != walk_smem(*p1, *p2, lines, ntw) || smem > kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  *blocks = (batch + per - 1) / per;
+  if (*blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return smem_opt_in(kernel, smem);
+}
+
+// Resident blocks an SM of a real kernel at `threads` a block and `smem`
+// dynamic shared bytes, into *blocks.
+template <typename K>
+int walk_occupancy(K kernel, int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kRealThreads || smem < 0 ||
+      smem > kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 }  // namespace walk

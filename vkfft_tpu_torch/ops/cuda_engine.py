@@ -594,9 +594,10 @@ def r2r_lines_p(x: torch.Tensor, type: int, dst: bool,
                 scale: float = 1.0) -> torch.Tensor:
     """Unnormalized DCT (``dst``: DST) of ``type`` of real (B, n) lines,
     times ``scale``, in the kernel `r2r_route` names (the kernel's wrapper
-    raises where it names none)."""
+    raises where it names none); a view at an odd float is copied, as the
+    even-n `fft_dct4` reads float2 pairs."""
     _check_dtype(x)
-    return _R2R_KERNELS[type](x.contiguous(), dst, scale)
+    return _R2R_KERNELS[type](_aligned(x), dst, scale)
 
 
 # ---------------------------------------------------------------------------

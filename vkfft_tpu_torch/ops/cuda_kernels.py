@@ -700,14 +700,20 @@ def r2c_pair_splits(ny: int, nz: int):
     return _plane_layout(ny, nz, True, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[3]
 
 
+def walk_generic(factors) -> bool:
+    """Whether a stage of the walk over lengths ``factors`` has a radix
+    without a butterfly of its own (the generic stage, ``stage_generic``
+    in csrc/inplace.cuh)."""
+    return any(r not in _WALK_FIXED_RADICES
+               for k in factors for r in walk_radices(k) or ())
+
+
 def r2c_pair_generic(ny: int, nz: int) -> bool:
     """Whether a stage of `fft_r2c_pair` on a real (ny, nz) plane has a
     radix without a butterfly of its own: the forward kernel's
     instantiation with the generic stage (``has_generic`` in
     csrc/inplace.cuh)."""
-    return any(r not in _WALK_FIXED_RADICES
-               for split in r2c_pair_splits(ny, nz) for k in split
-               for r in walk_radices(k) or ())
+    return walk_generic(k for split in r2c_pair_splits(ny, nz) for k in split)
 
 
 def r2c_pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
