@@ -92,7 +92,14 @@ Phases (each asserts; any failure exits non-zero before the result line):
      fft_conv (rows, matrix mm = 2 and 3) and the 2-D mode of
      fft_conv_pair against their plain versions, each with and without
      conjugated data and cross-power, at the main path's shapes and a
-     spread of lengths (and numpy on the small cases); conv_routes, every
+     spread of lengths (and numpy on the small cases), fft_conv at one
+     shape of every layout class of conv_layout in each mode and flag
+     (and its Bluestein mode), fft_conv_inv at one length of every
+     twofactor_layout class with and without the x0 term, both against
+     numpy fp64 too and launched inside sentinel guards at float offsets
+     0..3, and every prime 11..127 through each walk kernel that runs it
+     as a generic stage (fft_twofactor, fft_lines, fft_conv, fft_dct23,
+     fft_dct4, fft_r2c_pair); conv_routes, every
      fusion mode, flag and composition case at small shapes against numpy,
      and fftconvolve; conv_main_path, the reference's samples 50-52 and
      the other modes' rows at 128 MiB of complex64 data (v3_1d at 4096 x
@@ -104,7 +111,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
      seeded items of each against numpy fp64; conv_times, the kernels at
      those shapes (held against their plain versions) and each row's call
      timed as in 4, beside the bound and the torch.fft composition of the
-     same function (fftn, the multiply or einsum, ifftn).
+     same function (fftn, the multiply or einsum, ifftn), fft_conv's rows
+     with its registers, spills, split, layout and blocks an SM, and the
+     sweep of its layout constants (CONV_SWEEP) at each row's shape.
   9. the long tier: long_kernels, fft_strided_tw (the factor mode of
      fft_strided) against its plain version on every factor form of the
      long tier (two uploads, three uploads' two passes, the Bluestein
@@ -147,6 +156,13 @@ Phases (each asserts; any failure exits non-zero before the result line):
      complex128, with each row's instantiation, registers, spills and
      resident blocks an SM, and each row's round trip with the host's
      enqueue time of one.
+ 11. walk_times: the kernels the walk's generic stage and the conv
+     redesign changed, at the rows PERF.md compares (fft_conv's Rader 5003
+     and conv rows, fft_conv_inv and fft_twofactor at 1059 x 7918,
+     fft_dct23 / fft_dct4 at 255, fft_lines at 1001 beside 1024,
+     fft_r2c_pair on the 208^3 cube), with registers and spills; it runs
+     unchanged on an older package, so the parent's kernels are timed by
+     this script in the same call.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -156,6 +172,8 @@ each kernel, the card's name and power limit, and
 --phases runs only the named phases, in their order (say
 toolchain,dd_kernels,dd_times to iterate on fft_dd,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
+toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
+layout sweep), toolchain,walk_times beside an older tree,
 toolchain,kernels,times,long_kernels,long_times on fft_lines, fft_pair
 and fft_strided, or toolchain,real_kernels,real_times on fft_r2c and
 fft_r2c_pair), writes their record
@@ -303,11 +321,8 @@ def phase_toolchain(ck) -> dict:
             log = f.read()
         info[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln]
-        if name in ("fft_dd", "fft_twofactor", "fft_lines", "fft_conv_pair",
-                    "fft_r2c", "fft_pair", "fft_r2c_pair", "fft_strided",
-                    "fft_dct23", "fft_dct4"):
-            # every kernel: (kernel, registers, spill stores, loads)
-            info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
+        # every kernel: (kernel, registers, spill stores, loads)
+        info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
     for k, v in info.items():
         _log(f"[toolchain] {k}: {v}")
     return info
@@ -3077,8 +3092,259 @@ def phase_conv_kernels_vs_plain(ck, dev) -> dict:
         del xr, xi, y, p
     _log(f"[conv kernels] {count} cases, worst vs plain {worst}, "
          f"{vs_numpy} vs numpy, worst {worst_np:.3e}")
-    return {"cases": count, "worst_rel_vs_plain": worst,
-            "vs_numpy": vs_numpy, "worst_rel_vs_numpy": worst_np}
+    out = {"cases": count, "worst_rel_vs_plain": worst,
+           "vs_numpy": vs_numpy, "worst_rel_vs_numpy": worst_np}
+    out.update(_conv_walk_checks(ck, dev))
+    out.update(_generic_prime_checks(ck, dev))
+    return out
+
+
+def _conv_class(ck, m, mm):
+    """The layout class of fft_conv on m-point lines, mm lines an item:
+    mm, whether it runs two factors, threads, lines a block, whether a
+    stage is the generic prime one."""
+    n1, n2 = ck.conv_split(m, mm)
+    threads, lines, _ = ck.conv_layout(m, mm)
+    return (mm, n2 > 1, threads, lines, ck.walk_generic((n1, n2)))
+
+
+def _conv_classes(ck) -> dict:
+    """One (m, mm) of each layout class fft_conv serves: {class: (m,
+    mm)}."""
+    out = {}
+    for m in range(2, ck.KERNEL_MAX_N + 1):
+        if ck.kernel_supports(m):
+            for mm in (1, 2, 3):
+                if mm == 1 or ck.conv_matrix_supports(m, mm):
+                    out.setdefault(_conv_class(ck, m, mm), (m, mm))
+    return out
+
+
+def _twofactor_classes(ck) -> dict:
+    """One length of each `twofactor_layout` class (fft_twofactor's and
+    fft_conv_inv's): {class: n}."""
+    out = {}
+    for n in range(2, ck.TWOFACTOR_MAX_N + 1):
+        if ck.twofactor_supports(n):
+            n1, n2 = ck.twofactor_split(n)
+            threads, lines, _ = ck.twofactor_layout(n)
+            out.setdefault((n2 > 1, threads, lines,
+                            ck.walk_generic((n1, n2))), n)
+    return out
+
+
+# fft_conv and fft_conv_inv launched inside sentinel guards (the output at
+# float offsets 0..3 of its buffer, the input copied to the same offset):
+# (what, planes shape, table length, chirp length or None, kw)
+CONV_GUARDED = (("rader 5003", (5, 5002), 5002, None, {}),
+                ("scalar 4096", (3, 4096), 4096, None, dict(xpow=True)),
+                ("rows 3", (7, 512), 3 * 512, None, dict(conj_data=True)),
+                ("matrix 3", (2, 3, 1024), 9 * 1024, None, {}),
+                ("matrix 2", (5, 2, 96), 4 * 96, None,
+                 dict(conj_data=True, xpow=True)),
+                ("bluestein 263", (4, 263), 539, 263, {}))
+CONV_INV_GUARDED = (2, 134, 1000, 7918, 10240, 16384)
+
+
+def _conv_walk_checks(ck, dev) -> dict:
+    """fft_conv (csrc/fft_conv.cu on the walk) at one (m, mm) of every
+    layout class of `conv_layout`, three blocks and one item more: mm = 1
+    in the rows mode (3 rows) and the scalar mode by turns, mm = 2 and 3 in
+    the matrix mode, with and without conjugated data by turns, and the
+    Bluestein mode of n = (m + 1) // 2 on every mm = 1 class; fft_conv_inv
+    at one length of every `twofactor_layout` class with and without the
+    per-line constant; each against its plain version (<= 1e-5) and numpy
+    fp64 (<= 5e-6); then both inside sentinel guards at CONV_GUARDED /
+    CONV_INV_GUARDED, aligned and not (no write outside the output).  The
+    cross-power flag is held by the mode cases above (every flag at a
+    spread of lengths and the main path's shapes): Y / |Y| of fp32 spectra
+    turns the rounding at a bin of small |Y| into an error of order 1e-5
+    of the output in any fp32 implementation (at 76 points, 322 lines:
+    the plain version 1.42e-5 from numpy fp64, the kernel 1.15e-5 from
+    the plain version)."""
+    from vkfft_tpu_torch import luts
+    flags = (dict(conj_data=False, xpow=False),
+             dict(conj_data=True, xpow=False))
+    out = {}
+    row = {"classes": 0, "checked": 0, "worst": 0.0, "worst_numpy": 0.0}
+    blu = {"checked": 0, "worst": 0.0, "worst_numpy": 0.0}
+
+    def record(r, err, e_np, what):
+        assert err <= KERNEL_TOL, (what, err)
+        r["checked"] += 1
+        r["worst"] = max(r["worst"], err)
+        if e_np is not None:
+            assert e_np <= NUMPY_TOL, (what, e_np)
+            r["worst_numpy"] = max(r["worst_numpy"], e_np)
+
+    for i, (cls, (m, mm)) in enumerate(_conv_classes(ck).items()):
+        row["classes"] += 1
+        lines = ck.conv_layout(m, mm)[1]
+        kw = flags[i % 2]
+        rows = 1 if mm > 1 or i % 2 else 3
+        B = 3 * lines // mm + 1
+        shape = (B, mm, m) if mm > 1 else (B, m)
+        x = tuple(torch.from_numpy(a).to(dev)
+                  for a in _host_planes(shape, m + mm))
+        L = mm * mm * m if mm > 1 else rows * m
+        spec = torch.from_numpy(np.stack(_host_planes((L,), m + 7), -1)).to(
+            dev)
+        got = ck.fft_conv(*x, spec, scale=1.0 / m, **kw)
+        want = ck.fft_conv_plain(*x, spec, None, kw["conj_data"],
+                                 kw["xpow"], 1.0 / m)
+        e_np = _numpy_rel(_cplx2(*got), _conv_mode_numpy(
+            _cplx2(*x), _cplx2(spec[:, 0], spec[:, 1]), False, 1.0 / m, **kw))
+        record(row, _rel(torch.complex(*got), torch.complex(*want)), e_np,
+               (cls, m, mm, kw))
+        if mm == 1 and m > 2:
+            n = (m + 1) // 2
+            inverse = bool(i % 2)
+            chirp, b = luts.bluestein_chirp(n, m, inverse)
+            tab = lambda t: torch.from_numpy(np.stack(
+                [t.real, t.imag], -1).astype(np.float32)).to(dev)
+            xb = tuple(t[:, :n].contiguous() for t in x)
+            got = ck.fft_conv(*xb, tab(b / m), tab(chirp))
+            want = ck.fft_conv_plain(*xb, tab(b / m), tab(chirp))
+            ref = (np.fft.ifft(_cplx2(*xb)) * n if inverse
+                   else np.fft.fft(_cplx2(*xb)))
+            record(blu, _rel(torch.complex(*got), torch.complex(*want)),
+                   _numpy_rel(_cplx2(*got), ref), ("bluestein", n, m))
+    out["fft_conv_classes"] = row
+    out["fft_conv_bluestein_classes"] = blu
+    _log(f"[conv kernels] fft_conv layout classes: {row}, Bluestein {blu}")
+    inv = {"classes": 0, "checked": 0, "worst": 0.0, "worst_numpy": 0.0}
+    for i, (cls, n) in enumerate(_twofactor_classes(ck).items()):
+        inv["classes"] += 1
+        lines = ck.twofactor_layout(n)[1]
+        B = 3 * lines + 1
+        x = tuple(torch.from_numpy(a).to(dev)
+                  for a in _host_planes((B, n), n + 3))
+        spec = torch.from_numpy(np.stack(_host_planes((n,), n + 5), -1)).to(
+            dev)
+        n1, n2 = ck.twofactor_split(n)
+        natural = (_cplx2(*x) * _cplx2(spec[:, 0], spec[:, 1])).reshape(
+            B, n2, n1).transpose(0, 2, 1).reshape(B, n)
+        for dc in (None, tuple(t.contiguous() for t in x[0][:, :2].T)):
+            got = ck.fft_conv_inv(*x, spec, dc, scale=0.5)
+            want = ck.fft_conv_inv_plain(*x, spec, dc, 0.5)
+            ref = np.fft.ifft(natural) * n * 0.5
+            if dc is not None:
+                ref = ref + _cplx2(*dc)[:, None]
+            record(inv, _rel(torch.complex(*got), torch.complex(*want)),
+                   _numpy_rel(_cplx2(*got), ref), ("conv_inv", cls, n))
+    out["fft_conv_inv_classes"] = inv
+    _log(f"[conv kernels] fft_conv_inv layout classes: {inv}")
+    guarded = {"launches": 0, "worst": 0.0}
+    for what, shape, L, nc, kw in CONV_GUARDED:
+        x = tuple(torch.from_numpy(a).to(dev)
+                  for a in _host_planes(shape, L + 11))
+        spec = torch.from_numpy(np.stack(_host_planes((L,), L), -1)).to(dev)
+        chirp = (torch.from_numpy(np.stack(_host_planes((nc,), nc), -1)).to(
+            dev) if nc else None)
+        want = ck.fft_conv_plain(*x, spec, chirp, kw.get("conj_data", False),
+                                 kw.get("xpow", False), 0.25)
+        for offset in range(4):
+            got, changed = _guarded(
+                lambda *p, out: ck.fft_conv(*p, spec, chirp, out=out,
+                                            scale=0.25, **kw), x, offset)
+            err = _rel(torch.complex(*got), torch.complex(*want))
+            assert changed == 0 and err <= KERNEL_TOL, (what, offset,
+                                                         changed, err)
+            guarded["launches"] += 1
+            guarded["worst"] = max(guarded["worst"], err)
+    for n in CONV_INV_GUARDED:
+        x = tuple(torch.from_numpy(a).to(dev)
+                  for a in _host_planes((5, n), n + 13))
+        spec = torch.from_numpy(np.stack(_host_planes((n,), n), -1)).to(dev)
+        dc = tuple(t.contiguous() for t in x[1][:, :2].T)
+        want = ck.fft_conv_inv_plain(*x, spec, dc, 0.5)
+        for offset in range(4):
+            got, changed = _guarded(
+                lambda *p, out: ck.fft_conv_inv(*p, spec, dc, out=out,
+                                                scale=0.5), x, offset)
+            err = _rel(torch.complex(*got), torch.complex(*want))
+            assert changed == 0 and err <= KERNEL_TOL, (n, offset, changed,
+                                                         err)
+            guarded["launches"] += 1
+            guarded["worst"] = max(guarded["worst"], err)
+    out["conv_guarded"] = guarded
+    _log(f"[conv kernels] guarded launches: {guarded}")
+    return out
+
+
+PRIMES = tuple(p for p in range(11, 128) if all(p % d for d in range(2, p)))
+
+
+def _generic_prime_checks(ck, dev) -> dict:
+    """Every prime p in 11..127 through each walk kernel that runs it as a
+    generic stage: fft_twofactor at p, 2p and 16p (both directions),
+    fft_lines, fft_conv (scalar mode), fft_dct23 (types II and III) and
+    fft_dct4 at p and 2p, and fft_r2c_pair (its instantiation with the
+    generic stage) on a (p, 2p) real plane, where their gates take them
+    (primes up to 64 but fft_twofactor's); each against its plain version
+    (<= 1e-5) and numpy / scipy fp64 (<= 5e-6)."""
+    import scipy.fft as sfft
+    rows = {k: {"checked": 0, "worst": 0.0, "worst_numpy": 0.0}
+            for k in ("fft_twofactor", "fft_lines", "fft_conv", "fft_dct23",
+                      "fft_dct4", "fft_r2c_pair")}
+
+    def record(name, err, e_np, what):
+        assert err <= KERNEL_TOL and e_np <= NUMPY_TOL, (name, what, err,
+                                                         e_np)
+        r = rows[name]
+        r["checked"] += 1
+        r["worst"] = max(r["worst"], err)
+        r["worst_numpy"] = max(r["worst_numpy"], e_np)
+
+    for p in PRIMES:
+        for n in (p, 2 * p, 16 * p):
+            planes = tuple(torch.from_numpy(a).to(dev)
+                           for a in _host_planes((5, n), n))
+            xc = _cplx2(*planes)
+            if ck.twofactor_supports(n):
+                for inverse in (False, True):
+                    got = ck.fft_twofactor(*planes, inverse, 1.0)
+                    ref = np.fft.ifft(xc) * n if inverse else np.fft.fft(xc)
+                    record("fft_twofactor", _rel(torch.complex(*got),
+                           torch.complex(*ck.fft_twofactor_plain(
+                               *planes, inverse, 1.0))),
+                           _numpy_rel(_cplx2(*got), ref), (n, inverse))
+            if n == 16 * p or not ck.kernel_supports(n):
+                continue
+            got = ck.fft_lines(*planes, True, 1.0 / n)
+            record("fft_lines", _rel(torch.complex(*got), torch.complex(
+                *ck.fft_lines_plain(*planes, True, 1.0 / n))),
+                _numpy_rel(_cplx2(*got), np.fft.ifft(xc)), n)
+            spec = torch.from_numpy(np.stack(_host_planes((n,), p), -1)).to(
+                dev)
+            got = ck.fft_conv(*planes, spec, scale=1.0 / n)
+            record("fft_conv", _rel(torch.complex(*got), torch.complex(
+                *ck.fft_conv_plain(*planes, spec, None, scale=1.0 / n))),
+                _numpy_rel(_cplx2(*got), _conv_mode_numpy(
+                    xc, _cplx2(spec[:, 0], spec[:, 1]), False, 1.0 / n,
+                    False, False)), n)
+            x = planes[0]
+            for name, supports, types in (("fft_dct23", ck.dct23_supports,
+                                           (2, 3)),
+                                          ("fft_dct4", ck.dct4_supports,
+                                           (4,))):
+                if not supports(n):
+                    continue
+                for t in types:
+                    call = {2: ck.fft_dct2, 3: ck.fft_dct3, 4: ck.fft_dct4}[t]
+                    got = call(x, False, 0.5)
+                    want = (ck.fft_dct4_plain(x, False, 0.5) if t == 4 else
+                            ck.fft_dct23_plain(x, t == 3, False, 0.5))
+                    record(name, _rel(got, want), _numpy_rel(
+                        _host(got), sfft.dct(_host(x), type=t) * 0.5), (n, t))
+        if ck.r2c_pair_cluster(p, 2 * p):
+            x = torch.from_numpy(_host_planes((3, p, 2 * p), p)[0]).to(dev)
+            got = ck.fft_r2c_pair(x)
+            record("fft_r2c_pair", _rel(torch.complex(*got), torch.complex(
+                *ck.fft_r2c_pair_plain(x))), _numpy_rel(
+                _cplx2(*got), np.fft.rfft2(_host(x))), (p, 2 * p))
+    _log(f"[conv kernels] primes 11..127 on the walk: {rows}")
+    return {"generic_primes": rows}
 
 
 def phase_conv_routes(vt, dev) -> dict:
@@ -3231,6 +3497,18 @@ def phase_conv_times(vt, ck, dev) -> dict:
                                                           scale=2 ** -16),
                    cfg(shape=(256, 256), convolution=True), 256)
 
+    # the walk kernel's own numbers on its rows: registers, spills, split,
+    # layout and resident blocks an SM
+    with open(ck.library_path("fft_conv")[:-3] + ".log") as f:
+        (_, regs, st, ld), = _ptxas_kernels(f.read())
+    for row, (m, mm) in zip(kernels["fft_conv"], ((4096, 1), (1024, 3),
+                                                  (512, 1))):
+        row.update({"registers": regs, "spill_bytes": [st, ld],
+                    "split": list(ck.conv_split(m, mm)),
+                    "layout": list(ck.conv_layout(m, mm)),
+                    "blocks_per_sm": ck.conv_occupancy(m, mm)})
+    sweep = _conv_sweep(ck, dev)
+
     e2e = []
     for name, cfg_, app, x, want, h in _conv_paths(vt, dev):
         ndim = len(cfg_.shape)
@@ -3264,7 +3542,211 @@ def phase_conv_times(vt, ck, dev) -> dict:
         _log(f"[time] e2e {row}")
         e2e.append(row)
         del x, h, app, H, xc
-    return {"kernels": kernels, "e2e": e2e}
+    return {"kernels": kernels, "e2e": e2e, "conv_layout_sweep": sweep}
+
+
+def _ptxas_of(ck, name: str) -> dict:
+    """{kernel: (registers, spill stores, spill loads)} of a built
+    library's ptxas log."""
+    with open(ck.library_path(name)[:-3] + ".log") as f:
+        return {k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(f.read())}
+
+
+def phase_walk_times(ck, dev) -> dict:
+    """The kernels whose stages the walk's generic stage and the conv
+    redesign changed, at the rows PERF.md compares (each against its plain
+    version there): fft_conv's Rader 5003 (1676 x 5002), scalar 4096 x
+    4096, matrix 3 5461 x 3 x 1024 and rows 512 32768 x 512;
+    fft_conv_inv 1059 x 7918 with the x0 term; fft_twofactor's swapped
+    forward at 1059 x 7918; fft_dct23 II / III and odd fft_dct4 at 131586
+    x 255; fft_lines at 1001 (7 * 11 * 13) beside 1024, 128 MB each; the
+    real 208^3 cube through fft_r2c_pair (its instantiation with the
+    generic stage).  Each row with the kernel's registers and spills, its
+    layout and resident blocks an SM where the package names them, so the
+    same phase times an older package's kernels too."""
+    _log(f"[time] card: {_smi()}")
+    rows = []
+
+    def row_of(name, kernel, what, shape, fn, plain, nbytes, ops, library,
+               layout=None):
+        got, want = fn(), plain()
+        if isinstance(got, torch.Tensor):   # a real transform's output
+            got, want = ((t, torch.zeros_like(t)) for t in (got, want))
+        err = _errors(got, want, (name, what))
+        bound, by = _bound(nbytes, ops)
+        regs = _ptxas_of(ck, name).get(kernel)
+        row = {"kernel": name, "what": what, "shape": list(shape),
+               "ms": _time_ms(fn), "bound_ms": bound, "bound_by": by,
+               "max_abs_err": err,
+               "plain_ms": _time_ms(plain, reps=5, inner=1, warmup=1),
+               "library_ms": library and _time_ms(library),
+               "registers": regs and regs[0],
+               "spill_bytes": regs and list(regs[1:])}
+        if layout is not None:
+            try:
+                row["layout"] = layout()
+            except AttributeError:   # a package without that rule
+                pass
+        row["GBs"] = nbytes / row["ms"] / 1e6
+        _log(f"[time] walk {row}")
+        rows.append(row)
+
+    def conv_layout(m, mm):
+        return lambda: {"split": list(ck.conv_split(m, mm)),
+                        "layout": list(ck.conv_layout(m, mm)),
+                        "blocks_per_sm": ck.conv_occupancy(m, mm)}
+
+    # fft_conv: sample 7's Rader 5003, then the conv rows
+    B = 2 * _sample_7_batch(10006)
+    xr, xi = _planes((B, 5002), 31, dev)
+    spec = ck.rader_spectrum(5003, 1.0, dev)
+    xc = torch.complex(xr, xi)
+    sc = torch.complex(spec[:, 0].contiguous(), spec[:, 1].contiguous())
+    row_of("fft_conv", "fft_conv_kernel", "rader 5003", (B, 5002),
+           lambda: ck.fft_conv(xr, xi, spec),
+           lambda: ck.fft_conv_plain(xr, xi, spec),
+           16.0 * B * 5002 + 8.0 * 5002,
+           B * (2 * _fft_ops(5002, 5002) + _cmul_ops(5002)),
+           lambda: torch.fft.ifft(torch.fft.fft(xc) * sc, norm="forward"),
+           conv_layout(5002, 1))
+    del xr, xi, xc
+    for what, shape, L, mm, scale in (
+            ("scalar 4096", (4096, 4096), 4096, 1, 1 / 4096),
+            ("matrix 3", (5461, 3, 1024), 9 * 1024, 3, 1.0),
+            ("rows 512", (32768, 512), 512 * 512, 1, 1.0)):
+        m = shape[-1]
+        xr, xi = _planes(shape, 800 + m, dev)
+        spec = torch.randn((L, 2), generator=torch.Generator(
+            device=dev).manual_seed(850 + m), device=dev)
+        items = xr.numel() // (mm * m)
+        row_of("fft_conv", "fft_conv_kernel", what, shape,
+               lambda: ck.fft_conv(xr, xi, spec, scale=scale),
+               lambda: ck.fft_conv_plain(xr, xi, spec, scale=scale),
+               16.0 * xr.numel() + 8.0 * L,
+               items * (2 * mm * _fft_ops(m, m) + (6.0 if mm == 1 else
+                                                   8.0 * mm * mm) * m),
+               None, conv_layout(m, mm))
+        del xr, xi, spec
+    # fft_conv_inv and fft_twofactor at sample 7's 7919 (1059 x 7918)
+    B, m = _sample_7_batch(7919), 7918
+    xr, xi = _planes((B, m), 37, dev)
+    dc = tuple(t.contiguous() for t in _planes((B,), 38, dev))
+    spec = ck.rader_spectrum(7919, 1.0, dev, "swapped")
+    tf_layout = lambda: {"split": list(ck.twofactor_split(m)),
+                         "layout": list(ck.twofactor_layout(m))}
+    row_of("fft_conv_inv", "fft_conv_inv_kernel", "rader 7919, dc", (B, m),
+           lambda: ck.fft_conv_inv(xr, xi, spec, dc),
+           lambda: ck.fft_conv_inv_plain(xr, xi, spec, dc),
+           16.0 * B * m + 8.0 * m + 8.0 * B,
+           B * (_fft_ops(m, m) + _cmul_ops(2 * m) + 2 * m), None, tf_layout)
+    xc = torch.complex(xr, xi)
+    row_of("fft_twofactor", "fft_twofactor_kernel", "7918 swapped forward",
+           (B, m), lambda: ck.fft_twofactor(xr, xi, False, 1.0, True),
+           lambda: ck.fft_twofactor_plain(xr, xi, False, 1.0, True),
+           16.0 * B * m + 8.0 * m, B * (_fft_ops(m, m) + _cmul_ops(m)),
+           lambda: torch.fft.fft(xc), tf_layout)
+    del xr, xi, xc, dc
+    # the DCT kernels at sample 100's 255 = 3 * 5 * 17
+    n = 255
+    B = TARGET_BYTES // (4 * n)
+    x = torch.from_numpy(_host_planes((B, n), n)[0]).to(dev)
+    for name, kernel, what, fn, plain in (
+            ("fft_dct23", "dct2_kernel", "DCT-II 255",
+             lambda: ck.fft_dct2(x), lambda: ck.fft_dct23_plain(x, False)),
+            ("fft_dct23", "dct3_kernel", "DCT-III 255",
+             lambda: ck.fft_dct3(x), lambda: ck.fft_dct23_plain(x, True)),
+            ("fft_dct4", "dct4_odd_kernel", "DCT-IV 255 (odd)",
+             lambda: ck.fft_dct4(x), lambda: ck.fft_dct4_plain(x))):
+        row_of(name, kernel, what, (B, n), fn, plain, 8.0 * B * n,
+               _fft_ops(B * n, n), None)
+    del x
+    # fft_lines: 1001 = 7 * 11 * 13 (two generic stages) beside 1024
+    for n in (1001, 1024):
+        B = TARGET_BYTES // (8 * n)
+        xr, xi = _planes((B, n), n, dev)
+        xc = torch.complex(xr, xi)
+        row_of("fft_lines", "fft_lines_kernel", f"n = {n}", (B, n),
+               lambda: ck.fft_lines(xr, xi), lambda: ck.fft_lines_plain(
+                   xr, xi, False), 16.0 * B * n, _fft_ops(B * n, n),
+               lambda: torch.fft.fft(xc),
+               lambda: {"split": list(ck.lines_split(n)),
+                        "layout": list(ck.lines_layout(n))})
+        del xr, xi, xc
+    # fft_r2c_pair on the real 208^3 cube (208 = 16 * 13)
+    ny = nz = GENERIC_CUBE[-1]
+    cube = torch.from_numpy(_host_planes(GENERIC_CUBE, 208)[0]).to(dev)
+    nb = GENERIC_CUBE[0] * ny * (nz // 2 + 1)
+    row_of("fft_r2c_pair", "r2c_pair_kernel<1>", "208^3 forward",
+           GENERIC_CUBE, lambda: ck.fft_r2c_pair(cube),
+           lambda: ck.fft_r2c_pair_plain(cube),
+           4.0 * cube.numel() + 8.0 * nb,
+           _fft_ops(cube.numel(), ny * nz) / 2,
+           lambda: torch.fft.rfft2(cube),
+           lambda: {"layout": list(ck.r2c_pair_layout(ny, nz))})
+    del cube
+    return {"rows": rows}
+
+
+# fft_conv's layout sweep (conv_times): (block points, points a thread in
+# one pass, in two factors) in turn at each main-path shape, the rule's
+# own (8192, 16, 32) among them
+CONV_SWEEP = ((2048, 16, 32), (4096, 16, 32), (8192, 16, 32),
+              (4096, 8, 16), (4096, 32, 32), (8192, 32, 32))
+
+
+class _conv_layout_forced:
+    """fft_conv's layout rule with other block constants (CONV_SWEEP)."""
+
+    def __init__(self, ck, consts):
+        self.ck, self.consts = ck, consts
+
+    def __enter__(self):
+        ck = self.ck
+        self.saved = (ck.CONV_BLOCK_POINTS, ck.CONV_ONE_PASS_AIM,
+                      ck.CONV_AIM_POINTS)
+        (ck.CONV_BLOCK_POINTS, ck.CONV_ONE_PASS_AIM,
+         ck.CONV_AIM_POINTS) = self.consts
+
+    def __exit__(self, *exc):
+        (self.ck.CONV_BLOCK_POINTS, self.ck.CONV_ONE_PASS_AIM,
+         self.ck.CONV_AIM_POINTS) = self.saved
+
+
+def _conv_sweep(ck, dev) -> list:
+    """fft_conv at its main-path shapes under each CONV_SWEEP layout, timed
+    in turns (down the list, then up), each against the plain version
+    first: the Rader 5003 row, v3_1d's 4096 x 4096, sample 50's 5461 x 3 x
+    1024 and v3_rows' 32768 x 512."""
+    rows = []
+    shapes = (("rader 5003", (2 * _sample_7_batch(10006), 5002), 5002, 1),
+              ("scalar 4096", (4096, 4096), 4096, 1),
+              ("matrix 3", (5461, 3, 1024), 9 * 1024, 3),
+              ("rows 512", (32768, 512), 512 * 512, 1))
+    for what, shape, L, mm in shapes:
+        m = shape[-1]
+        xr, xi = _planes(shape, 870 + m, dev)
+        spec = (ck.rader_spectrum(5003, 1.0, dev) if m == 5002 else
+                torch.randn((L, 2), generator=torch.Generator(
+                    device=dev).manual_seed(871), device=dev))
+        plain = ck.fft_conv_plain(xr, xi, spec)
+        by = {}
+        for consts in CONV_SWEEP + CONV_SWEEP[::-1]:
+            with _conv_layout_forced(ck, consts):
+                fn = lambda: ck.fft_conv(xr, xi, spec)
+                row = by.setdefault(consts, {
+                    "shape": list(shape), "mode": what,
+                    "block_points": consts[0], "aims": list(consts[1:]),
+                    "split": list(ck.conv_split(m, mm)),
+                    "layout": list(ck.conv_layout(m, mm)),
+                    "blocks_per_sm": ck.conv_occupancy(m, mm),
+                    "max_abs_err": _errors(fn(), plain, (what, consts)),
+                    "ms": []})
+                row["ms"].append(_time_ms(fn))
+        for row in by.values():
+            _log(f"[time] fft_conv layout sweep {row}")
+        rows += list(by.values())
+        del xr, xi, plain
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4111,6 +4593,7 @@ def main(argv=None) -> int:
               ("conv_main_path",
                lambda: phase_conv_main_path(vt, ck, torch_engine, dev)),
               ("conv_times", lambda: phase_conv_times(vt, ck, dev)),
+              ("walk_times", lambda: phase_walk_times(ck, dev)),
               ("long_kernels", lambda: phase_long_kernels_vs_plain(ck, dev)),
               ("long_routes", lambda: phase_long_routes(vt, ce, dev)),
               ("long_main_path",

@@ -24,10 +24,11 @@ from vkfft_tpu_torch.planner.plan import plan_axis
 REF_TOL = 1e-5
 NUMPY_TOL = 5e-6
 # csrc/inplace.cuh and csrc/fft_conv_pair.cu: the radices of stage_fixed,
-# kPoints, kGenericPoints, kXchg; csrc/stockham.cuh: kMaxStages
+# kPoints, kGenericPairs, kGenericItems, kXchg; csrc/stockham.cuh: kMaxStages
 FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 POINTS = 12
-GENERIC_POINTS = 16
+GENERIC_PAIRS = 4
+GENERIC_ITEMS = 2
 XCHG = 16
 MAX_STAGES = 16
 
@@ -62,7 +63,8 @@ def _rounds_fit(m: int, threads: int) -> bool:
         if r in FIXED_RADICES:
             if max(1, POINTS // r) * threads < m // r:
                 return False
-        elif GENERIC_POINTS * threads < m:
+        elif (GENERIC_ITEMS * threads
+              < m // r * -(-(r // 2 + 1) // GENERIC_PAIRS)):
             return False
     return True
 

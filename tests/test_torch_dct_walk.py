@@ -27,11 +27,13 @@ ONE_PASS_23 = 344    # lengths whose DCT-II/III pipeline runs as one pass
 def _rounds_fit(n, threads):
     """csrc/inplace.cuh rounds_fit on the walk's radices of an n-point
     factor, restated: a thread holds max(1, 12 // r) butterflies of a fixed
-    radix r, 16 outputs of a generic stage."""
+    radix r, 2 items of a generic radix r, each 4 of a butterfly's
+    (r + 1) / 2 output pairs."""
     if n == 1:
         return True
     return all((max(1, 12 // r) * threads >= n // r) if r in FIXED
-               else 16 * threads >= n for r in ck.walk_radices(n))
+               else 2 * threads >= n // r * -(-(r // 2 + 1) // 4)
+               for r in ck.walk_radices(n))
 
 
 def _table_points(n):

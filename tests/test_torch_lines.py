@@ -21,11 +21,13 @@ from vkfft_tpu_torch.ops import cuda_kernels as ck, torch_engine
 NUMPY_TOL = 5e-6
 REF_TOL = 1e-5
 # csrc/inplace.cuh: the radices of stage_fixed, the points a thread holds
-# in a round of one (kPoints) and the outputs of a generic stage
-# (kGenericPoints); csrc/stockham.cuh: kMaxStages
+# in a round of one (kPoints) and the items of a generic stage's round,
+# each of a butterfly's output pairs (kGenericItems, kGenericPairs);
+# csrc/stockham.cuh: kMaxStages
 FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 POINTS = 12
-GENERIC_POINTS = 16
+GENERIC_PAIRS = 4
+GENERIC_ITEMS = 2
 MAX_STAGES = 16
 LENGTHS = [n for n in range(2, ck.KERNEL_MAX_N + 1) if ck.kernel_supports(n)]
 
@@ -54,7 +56,8 @@ def _rounds_fit(m: int, threads: int) -> bool:
         if r in FIXED_RADICES:
             if max(1, POINTS // r) * threads < m // r:
                 return False
-        elif GENERIC_POINTS * threads < m:
+        elif (GENERIC_ITEMS * threads
+              < m // r * -(-(r // 2 + 1) // GENERIC_PAIRS)):
             return False
     return True
 

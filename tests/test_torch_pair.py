@@ -55,14 +55,17 @@ def _served():
 
 SERVED = _served()
 # served planes with an axis of two factors at the rule's threads
-TWO_FACTOR_PLANES = 4982
+# (4982 while a generic stage held 16 outputs a thread; 5198 since it
+# holds 2 items of 4 output pairs, a butterfly's (r + 1) / 2 pairs)
+TWO_FACTOR_PLANES = 5198
 
 
 def _rounds_fit(m, threads):
     if m == 1:
         return True
     return all((max(1, 12 // r) * threads >= m // r) if r in FIXED_RADICES
-               else 16 * threads >= m for r in ck.walk_radices(m))
+               else 2 * threads >= m // r * -(-(r // 2 + 1) // 4)
+               for r in ck.walk_radices(m))
 
 
 def _table_points(m):

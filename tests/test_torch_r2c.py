@@ -615,7 +615,8 @@ def _walk_rounds_fit(m, threads):
     if m == 1:
         return True
     return all((max(1, 12 // r) * threads >= m // r) if r in _FIXED_RADICES
-               else 16 * threads >= m for r in ck.walk_radices(m))
+               else 2 * threads >= m // r * -(-(r // 2 + 1) // 4)
+               for r in ck.walk_radices(m))
 
 
 def test_r2c_layout_rule_every_length():

@@ -34,7 +34,8 @@ def _rounds_fit(n, threads):
     if n == 1:
         return True
     return all((max(1, 12 // r) * threads >= n // r) if r in FIXED_RADICES
-               else 16 * threads >= n for r in ck.walk_radices(n))
+               else 2 * threads >= n // r * -(-(r // 2 + 1) // 4)
+               for r in ck.walk_radices(n))
 
 
 def _table_points(n):

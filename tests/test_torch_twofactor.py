@@ -21,11 +21,12 @@ NUMPY_TOL = 5e-6
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
 # csrc/fft_twofactor.cu: the radices of stage_fixed, the points a thread
-# holds in a round of one (kPoints) and the outputs of a generic stage
-# (kGenericPoints)
+# holds in a round of one (kPoints) and the items of a generic stage's round,
+# each of a butterfly's output pairs (kGenericItems, kGenericPairs)
 FIXED_RADICES = (2, 3, 4, 5, 7, 8)
 POINTS = 12
-GENERIC_POINTS = 16
+GENERIC_PAIRS = 4
+GENERIC_ITEMS = 2
 LENGTHS = [n for n in range(2, ck.TWOFACTOR_MAX_N + 1)
            if ck.twofactor_supports(n)]
 
@@ -53,7 +54,8 @@ def _rounds_fit(m: int, threads: int) -> bool:
         if r in FIXED_RADICES:
             if (POINTS // r) * threads < m // r:
                 return False
-        elif GENERIC_POINTS * threads < m:
+        elif (GENERIC_ITEMS * threads
+              < m // r * -(-(r // 2 + 1) // GENERIC_PAIRS)):
             return False
     return True
 
@@ -110,7 +112,7 @@ def test_short_lines_share_a_block(n):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_twiddle_tables(n, inverse):
     """hi[e >> 6] * lo[e & 63] is the n-point table w_n^(+-k2*j1) * scale
-    that fft_conv_inv still reads, at every k2, j1."""
+    at every k2, j1."""
     scale = 0.25
     n1, n2 = ck.twofactor_split(n)
     pair = ck.twofactor_twiddle_pair(n, inverse, scale)

@@ -69,31 +69,6 @@ __device__ __forceinline__ float2* twiddles_at(float2* smem, const Geo& g) {
   return stage_tables_at(smem, g) + g.len1 + g.len2;
 }
 
-// The block's first real line for `per` lines a block, blockIdx.x read
-// afresh where it is used, so it is not held through the passes.
-__device__ __forceinline__ long long block_line0(int per) {
-  unsigned b;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
-  return (long long)b * per;
-}
-
-// The block's count of real lines, `per` a block.
-__device__ __forceinline__ int block_lines(int per, long long batch) {
-  return (int)min((long long)per, batch - block_line0(per));
-}
-
-// The block's stage tables and twiddles into shared memory at s1: len1 +
-// len2 stage points, then ntw twiddle points.
-__device__ __forceinline__ void copy_tables(float2* s1, const float2* t1,
-                                            const float2* t2, const float2* tw,
-                                            int len1, int len2, int ntw) {
-  const int ntab = len1 + len2 + ntw;
-  for (int t = threadIdx.x; t < ntab; t += blockDim.x)
-    s1[t] = t < len1 ? __ldg(&t1[t])
-                     : t < len1 + len2 ? __ldg(&t2[t - len1])
-                                       : __ldg(&tw[t - len1 - len2]);
-}
-
 // Re(a * b).
 __device__ __forceinline__ float re_mul(float2 a, float2 b) {
   return a.x * b.x - a.y * b.y;

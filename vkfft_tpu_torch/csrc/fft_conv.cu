@@ -16,117 +16,180 @@
 // negates Im of each forward spectrum before it (conjugate_convolution ==
 // 2; a conjugated kernel, == 1, is conjugated in the host table), kXpow
 // divides the product Y by |Y| after the sum over i, in the TPU kernel's own
-// form Y * rsqrt(|Y|^2 + 1e-30) (pallas_engine.py:4665).  The spectrum is
-// then unscaled (a scale cancels in Y/|Y|) and the caller's 1/n rides the
-// inverse stage table instead; otherwise the host folds it into the
-// spectrum.
+// form Y * rsqrt(|Y|^2 + 1e-30) (pallas_engine.py:4665).  The caller's
+// scale rides the inverse twiddle's table.
 //
 // Bound: bytes.  Each point of the planes is read once and written once
 // (16 B), the spectrum once a launch; the two m-point FFTs a line are
 // ~10 m log2 m flops, under the card's fp32 rate for those bytes at m <=
-// 8192.  Design: a block holds lpb lines in shared memory
-// (two buffers of lpb * m float2) and runs every stage there
-// (stockham.cuh): floor(2048/m) lines (at least one) in the scalar, rows
-// and Bluestein modes, and in the matrix mode whole batch items of mm
-// lines, so one thread can read the mm forward spectra of a frequency,
-// mix them and write the mm products over them before the inverse stages
-// start; the gate for that mode is 2 * mm * m * 8 B within a block's
-// 227 KB (host: conv_matrix_supports).  The spectrum (fp64 on the host,
-// cast to fp32), the chirp and the stage tables are read through the
-// read-only cache; the rows table (2 MiB at 512 x 512) stays in the 50 MB
-// L2 across blocks.  The pad never exists in device memory.  A block
-// reads all its lines before it writes any, so the output may alias the
-// input.
-#include "stockham.cuh"
+// 8192.  Design: the walk of inplace.cuh, as fft_lines runs it, twice on
+// one copy.  A block holds `lines` lines (cuda_kernels.conv_layout, the
+// one layout rule, which the C entry checks: short lines share a block up
+// to 8192 points, a thread for about 16 of them in one pass or 32 in two
+// factors; in the matrix mode whole items of mm lines) once each as the
+// (n2, n1) matrix at the odd pitch n1 | 1, beside the forward and inverse
+// stage tables of both factors and the two twiddles' tables.  The read
+// goes by cp.async, each float straight to its place (Bluestein: one
+// sweep then multiplies the chirp and zeroes [n, m), so the pad never
+// exists in device memory).  The forward runs the column pass (its
+// twiddle on the last stage) and the row pass, which leaves bin k1 * n2 +
+// k2 at [k2][k1] (natural order in one pass, n2 = 1); one sweep multiplies
+// each bin by the caller's natural-order table at its natural index (no
+// table is permuted on the host; the matrix mode mixes the mm lines of
+// each item there); the inverse runs the mirrored passes (rows, the
+// conjugate twiddle with the scale, columns) back to natural order in
+// place, and the store takes the first n points (times the chirp).  The spectrum, the chirp
+// and the rows table (2 MiB at 512 x 512) are read through the read-only
+// cache and stay in the 50 MB L2 across blocks.  A block reads all its
+// lines before it writes any, so the output may alias the input.
+#include "inplace.cuh"
+#include "twofactor.cuh"
 
 namespace {
 
 using vkfft::Plan;
 using vkfft::cmul;
+using namespace vkfft::walk;
 
+constexpr int kThreads = 512;  // most threads a block
+constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
 constexpr int kConjData = 1;
 constexpr int kXpow = 2;
 
-int lines_per_block(int m, int mm) {
-  const int items = mm * m >= 2048 ? 1 : 2048 / (mm * m);
-  return items * mm;
-}
+// A launch's geometry, every count and divisor from the host: the device
+// line's points n, the first factor n1 and the spectrum's rows; m = n1 *
+// n2, lines a block (whole items of mm lines), the pitch n1 | 1, the flags
+// and the stage tables' points of the n1 and n2 runs (the same for both
+// directions).
+struct Geo {
+  Div dn, d1, drows;
+  int m, lines, mm, pitch, flags, len1, len2;
+};
 
 __device__ __forceinline__ float2 xpow_scale(float2 y) {
   const float s = rsqrtf(fmaf(y.x, y.x, fmaf(y.y, y.y, 1e-30f)));
   return make_float2(y.x * s, y.y * s);
 }
 
-// The per-frequency multiply over the forward spectra in f: `lines` lines
-// of m points, the first of them line `line0` of the launch.  MM == 1:
-// line q times row (line0 + q) % rows of the spectrum; MM > 1: each item of
-// MM lines mixed by the (MM, MM, m) matrix.  In place.
+// The multiply over the forward spectra of the block's nl lines, in
+// place, bin K of a line at `at`'s place (K = k1 * n2 + k2 at [k2][k1]),
+// the data first conjugated (kConjData) and the product divided by its
+// modulus (kXpow): MM = 1, line q (the block's first line0) times row
+// (line0 + q) % rows of the spectrum; MM > 1, each item of MM lines mixed
+// by the (MM, MM, m) matrix.  One sweep after the forward passes: as the
+// hook of their last stage, the spectrum's loads, batched by the
+// compiler across a round's outputs, made the stages spill.
 template <int MM>
-__device__ void multiply(float2* f, int lines, int m, long long line0,
-                         int rows, const float2* spec, int flags) {
-  const int items = lines / MM;
+__device__ void multiply(float2* home, const Map& at, int nl, int m,
+                         long long line0, Div drows, const float2* spec,
+                         int flags) {
   const bool conj = flags & kConjData, xpow = flags & kXpow;
-  for (int t = threadIdx.x; t < items * m; t += blockDim.x) {
-    const int it = t / m;
-    const int k = t - it * m;
+  const int S = at.S;
+  const int r0 = (int)(line0 % (long long)drows.d);
+  for (int t = threadIdx.x; t < nl / MM * m; t += blockDim.x) {
+    const int it = quot(t, at.dn);
+    const int K = t - it * m;
+    const int pos = it * MM * S + position(K, at);
+    const float2* row = spec;
+    if (MM == 1) {
+      const int r = r0 + it;
+      row += (r - quot(r, drows) * (int)drows.d) * m;
+    }
     float2 x[MM];
 #pragma unroll
     for (int i = 0; i < MM; ++i) {
-      x[i] = f[(it * MM + i) * m + k];
+      x[i] = home[pos + i * S];
       if (conj) x[i].y = -x[i].y;
     }
-    const float2* row = spec;
-    if (MM == 1 && rows > 1) row += (long long)((line0 + it) % rows) * m;
 #pragma unroll
     for (int o = 0; o < MM; ++o) {
       float2 y = make_float2(0.f, 0.f);
 #pragma unroll
       for (int i = 0; i < MM; ++i)
-        y = vkfft::cadd(y, cmul(x[i], __ldg(&row[(o * MM + i) * m + k])));
-      f[(it * MM + o) * m + k] = xpow ? xpow_scale(y) : y;
+        y = vkfft::cadd(y, cmul(x[i], __ldg(&row[(o * MM + i) * m + K])));
+      home[pos + o * S] = xpow ? xpow_scale(y) : y;
     }
   }
 }
 
-__global__ void __launch_bounds__(512)
+// A stored point times the chirp at its index (none when chirp is null).
+struct ChirpOut {
+  const float2* chirp;
+  __device__ __forceinline__ float2 operator()(float2 v, int, int t) const {
+    return chirp == nullptr ? v : cmul(v, __ldg(&chirp[t]));
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_conv_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                long long batch, int n, int lpb, int mm, int rows, int flags,
-                Plan pf, Plan pi, const float2* tf, const float2* ti,
-                const float2* spec, const float2* chirp) {
+                long long batch, Geo geo, Plan pf1, Plan pf2, Plan pi1,
+                Plan pi2, const float2* tf1, const float2* tf2,
+                const float2* ti1, const float2* ti2, const float2* twf,
+                const float2* twi, const float2* spec, const float2* chirp) {
   extern __shared__ __align__(16) float2 smem[];
-  const int m = pf.n;
-  const long long line0 = (long long)blockIdx.x * lpb;
-  const int lines = (int)min((long long)lpb, batch - line0);
-  const long long base = line0 * n;
-  float2* a = smem;
-  float2* b = smem + lpb * m;
-  vkfft::load_tile(xr, xi, base, n, lines, m, n, a);   // [n, m) zero
+  const int n1 = pf1.n, n2 = pf2.n, m = geo.m, n = (int)geo.dn.d;
+  const int P = geo.pitch, S = n2 * P;
+  const int nl = block_lines(geo.lines, batch);
+  float2* home = smem;
+  // after the lines the forward set of tables (n1 and n2 stages, the
+  // twiddle), then the inverse set
+  const int ntw = rotation_points(m);
+  const int set = geo.len1 + geo.len2 + ntw;
+  float2* tab = home + geo.lines * S;
+  load_tables(tab, tf1, tf2, twf, geo.len1, geo.len2, ntw);
+  load_tables(tab + set, ti1, ti2, twi, geo.len1, geo.len2, ntw);
+  // point j < n of a line at (j / n1) * P + j % n1, on the read and on
+  // the store
+  load_lines_async(xr, xi, block_line0(geo.lines) * n, nl * n,
+                   Map{geo.dn, geo.d1, S, P, 1}, home);
   __syncthreads();
   if (chirp != nullptr) {
-    for (int t = threadIdx.x; t < lines * n; t += blockDim.x) {
-      const int q = t / n;
-      const int k = t - q * n;
-      a[q * m + k] = cmul(a[q * m + k], __ldg(&chirp[k]));
+    const Div dm = make_div(m);
+    for (int u = threadIdx.x; u < nl * m; u += blockDim.x) {
+      const int line = quot(u, dm);
+      const int j = u - line * m;
+      const int r = quot(j, geo.d1);
+      const int at = line * S + r * P + j - r * n1;
+      home[at] = j < n ? cmul(home[at], __ldg(&chirp[j]))
+                       : make_float2(0.f, 0.f);
     }
     __syncthreads();
   }
-  float2* f = vkfft::run_stages<false>(a, b, lines, m, 1, pf, tf);
-  switch (mm) {
-    case 2: multiply<2>(f, lines, m, line0, rows, spec, flags); break;
-    case 3: multiply<3>(f, lines, m, line0, rows, spec, flags); break;
-    default: multiply<1>(f, lines, m, line0, rows, spec, flags); break;
-  }
-  __syncthreads();
-  float2* r = vkfft::run_stages<false>(f, f == a ? b : a, lines, m, 1, pi, ti);
-  if (chirp != nullptr) {
-    for (int t = threadIdx.x; t < lines * n; t += blockDim.x) {
-      const int q = t / n;
-      const int k = t - q * n;
-      r[q * m + k] = cmul(r[q * m + k], __ldg(&chirp[k]));
+  // the forward column pass (the twiddle on its last stage), row pass,
+  // the multiply, the inverse row pass (the conjugate twiddle and the scale
+  // on its last stage), column pass; one call site of run_pass keeps one
+  // copy of each stage
+  for (int k = 0; k < 4; ++k) {
+    if (k == 2) {
+      const Map at = make_map(m, S, true, n1, n2, P);
+      const long long line0 = block_line0(geo.lines);
+      if (geo.mm == 1)
+        multiply<1>(home, at, nl, m, line0, geo.drows, spec, geo.flags);
+      else if (geo.mm == 2)
+        multiply<2>(home, at, nl, m, line0, geo.drows, spec, geo.flags);
+      else
+        multiply<3>(home, at, nl, m, line0, geo.drows, spec, geo.flags);
+      __syncthreads();
     }
-    __syncthreads();
+    const bool row = k == 1 || k == 2;
+    const Pass g = row ? Pass{nl * n2, S, P, 1, make_div(n2)}
+                       : Pass{nl * n1, S, 1, P, geo.d1};
+    const float2* tables = tab + (k < 2 ? 0 : set);
+    const float2* tlo = tables + geo.len1 + geo.len2;
+    run_pass(home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
+             tables + (row ? 0 : geo.len1),
+             InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo});
   }
-  vkfft::store_tile(r, yr, yi, base, n, lines, m, n);
+  store_lines(home, Map{geo.dn, geo.d1, n2 * P, P, 1}, yr, yi,
+              block_line0(geo.lines) * n, block_lines(geo.lines, batch) * n,
+              ChirpOut{chirp});
+}
+
+int smem_opt_in(size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fft_conv_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace
@@ -136,48 +199,85 @@ extern "C" {
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
 // success).  `lines` lines of n points (matrix mode: lines = B * mm, item
 // b's mm coordinate lines consecutive); `mm` 1, 2 or 3; `rows` the rows of
-// the spectrum (1: one shared row); `flags` kConjData | kXpow.
-// `plan_f`/`plan_i` are the int forms of the forward and the inverse plan
-// of length m (any scale folded into the inverse table), `table_f`/
-// `table_i` their stage tables, `spectrum` the rows * m (matrix: mm * mm *
-// m) table and `chirp` the n-point chirp (null but in the Bluestein mode,
-// where mm = rows = 1, flags = 0 and n < m; elsewhere n must equal m), all
-// as interleaved fp32 pairs.
+// the spectrum (1: one shared row); `flags` kConjData | kXpow.  Plans (int
+// form) and stage tables (no scale) of the forward n1 and n2 and the
+// inverse n1 and n2 runs of m = n1 * n2 (n2 the empty plan of length 1 for
+// one pass), `twiddle_f`/`twiddle_i` the forward and the inverse twiddle's
+// two tables (64 points w_m^(-+b), then ceil(m / 64) points scale *
+// w_m^(-+64 a), the caller's scale in the inverse's), `spectrum` the rows
+// * m (matrix: mm * mm * m) table in natural order and `chirp` the n-point
+// chirp (null but in the Bluestein mode, where mm = rows = 1, flags = 0
+// and n < m; elsewhere n must equal m), all as interleaved fp32 pairs.
+// The layout (cuda_kernels.conv_layout): `threads` a block (a multiple of
+// 32 up to 512, enough for a whole sequence of every stage in a round),
+// `per` lines a block (a multiple of mm) and the dynamic shared bytes,
+// which must be exactly what the layout needs and at most 227 KB; any
+// other layout is refused (cudaErrorInvalidValue).
 int vk_fft_conv(const float* xr, const float* xi, float* yr, float* yi,
                 long long lines, int n, int mm, int rows, int flags,
-                const int* plan_f, const int* plan_i, const float* table_f,
-                const float* table_i, const float* spectrum, const float* chirp,
+                const int* plan_f1, const int* plan_f2, const int* plan_i1,
+                const int* plan_i2, const float* table_f1,
+                const float* table_f2, const float* table_i1,
+                const float* table_i2, const float* twiddle_f,
+                const float* twiddle_i, const float* spectrum,
+                const float* chirp, int threads, int per, int smem,
                 void* stream) {
-  Plan pf, pi;
-  if (lines < 1 || !vkfft::plan_from_ints(plan_f, &pf) ||
-      !vkfft::plan_from_ints(plan_i, &pi) || pf.n != pi.n || pf.inverse ||
-      !pi.inverse || spectrum == nullptr)
+  Plan pf1, pf2, pi1, pi2;
+  if (lines < 1 || !vkfft::plan_from_ints(plan_f1, &pf1) ||
+      !vkfft::subplan_from_ints(plan_f2, &pf2) ||
+      !vkfft::plan_from_ints(plan_i1, &pi1) ||
+      !vkfft::subplan_from_ints(plan_i2, &pi2) || spectrum == nullptr ||
+      twiddle_f == nullptr || twiddle_i == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int m = pf.n;
-  if (mm < 1 || mm > 3 || rows < 1 || (flags & ~(kConjData | kXpow)) ||
-      lines % mm || (mm > 1 && rows != 1))
+  if (pf1.n != pi1.n || pf2.n != pi2.n || pf1.inverse || pf2.inverse ||
+      !pi1.inverse || !pi2.inverse || pf1.n < pf2.n)
+    return (int)cudaErrorInvalidValue;
+  const int m = pf1.n * pf2.n;
+  if (m < 2 || m > vkfft::kMaxN || mm < 1 || mm > 3 || rows < 1 ||
+      (flags & ~(kConjData | kXpow)) || lines % mm || (mm > 1 && rows != 1))
     return (int)cudaErrorInvalidValue;
   if (chirp == nullptr ? n != m
                        : (n < 1 || n >= m || mm != 1 || rows != 1 || flags))
     return (int)cudaErrorInvalidValue;
-  const int lpb = lines_per_block(m, mm);
-  const size_t smem = 2 * (size_t)lpb * m * sizeof(float2);
-  if (smem > (size_t)vkfft::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fft_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long blocks = (lines + lpb - 1) / lpb;
+  const Geo geo{make_div(n), make_div(pf1.n), make_div(rows), m, per, mm,
+                pf1.n | 1, flags, table_len(pf1), table_len(pf2)};
+  const size_t need =
+      sizeof(float2) * ((size_t)per * pf2.n * (pf1.n | 1) +
+                        2 * (geo.len1 + geo.len2 + rotation_points(m)));
+  if (table_len(pi1) != geo.len1 || table_len(pi2) != geo.len2 ||
+      threads < 32 || threads > kThreads || threads % 32 != 0 || per < 1 ||
+      per % mm || (long long)per * m > vkfft::kTwoFactorMaxN ||
+      !rounds_fit(pf1, threads) || !rounds_fit(pf2, threads) ||
+      !rounds_fit(pi1, threads) || !rounds_fit(pi2, threads) || smem < 0 ||
+      (size_t)smem != need || smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (lines + per - 1) / per;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int threads = lpb * m > 2048 ? 512 : 256;
+  const int err = smem_opt_in(smem);
+  if (err) return err;
   fft_conv_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, lines, n, lpb, mm, rows, flags, pf, pi,
-      reinterpret_cast<const float2*>(table_f),
-      reinterpret_cast<const float2*>(table_i),
+      xr, xi, yr, yi, lines, geo, pf1, pf2, pi1, pi2,
+      reinterpret_cast<const float2*>(table_f1),
+      reinterpret_cast<const float2*>(table_f2),
+      reinterpret_cast<const float2*>(table_i1),
+      reinterpret_cast<const float2*>(table_i2),
+      reinterpret_cast<const float2*>(twiddle_f),
+      reinterpret_cast<const float2*>(twiddle_i),
       reinterpret_cast<const float2*>(spectrum),
       reinterpret_cast<const float2*>(chirp));
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the kernel at `threads` a block and `smem`
+// dynamic shared bytes, into *blocks.
+int vk_fft_conv_occupancy(int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kThreads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fft_conv_kernel, threads, smem);
 }
 
 const char* vk_error_string(int code) {

@@ -180,7 +180,7 @@ dct2_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
             Geo g) {
   extern __shared__ __align__(16) float2 smem[];
   const int per = 2 * g.lines;
-  copy_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
+  load_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
   load_quads(x + block_line0(per) * (int)g.dl.d, block_lines(per, batch), dst,
              false, g, smem);
   __syncthreads();
@@ -196,7 +196,7 @@ dct3_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
             Geo g) {
   extern __shared__ __align__(16) float2 smem[];
   const int per = 2 * g.lines;
-  copy_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
+  load_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
   load_quads(x + block_line0(per) * (int)g.dl.d, block_lines(per, batch), dst,
              true, g, smem);
   __syncthreads();

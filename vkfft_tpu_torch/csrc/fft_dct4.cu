@@ -60,7 +60,7 @@ dct4_even_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
                  Plan p2, const float2* t1, const float2* t2, const float2* tw,
                  Geo g) {
   extern __shared__ __align__(16) float2 smem[];
-  copy_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
+  load_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
   load_pairs_async(reinterpret_cast<const float2*>(x),
                    block_line0(g.lines) * (int)g.dp.d,
                    block_lines(g.lines, batch) * (int)g.dp.d, in_map(g), smem);
@@ -173,7 +173,7 @@ dct4_odd_kernel(const float* x, float* y, long long batch, int dst, Plan p1,
                 Geo g) {
   extern __shared__ __align__(16) float2 smem[];
   const int per = 2 * g.lines;
-  copy_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
+  load_tables(stage_tables_at(smem, g), t1, t2, tw, g.len1, g.len2, g.ntw);
   {
     // one thread float j of both lines of a pipeline: to point
     // re11_point(j), line a's the real part and line b's the imaginary

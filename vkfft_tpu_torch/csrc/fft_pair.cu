@@ -64,7 +64,6 @@ __device__ void push_columns(cg::cluster_group& cluster, float2* buf, int nz,
   const int tile = rows * nz;
   if ((cols & 1) == 0) {
     const int half = tile >> 1;
-    const Div dn = make_div(nz >> 1), dc = make_div(cols >> 1);
     float4 v[kXchg / 2];
     int v0 = fresh_tid();
 #pragma unroll
@@ -75,6 +74,8 @@ __device__ void push_columns(cg::cluster_group& cluster, float2* buf, int nz,
       v[j] = make_float4(a.x, a.y, b.x, b.y);
     }
     cluster.sync();   // every row tile is read: the buffers are free
+    // the divisors made here, not held through the reads
+    const Div dn = make_div(fresh_int(nz) >> 1), dc = make_div(cols >> 1);
     v0 = fresh_tid();
 #pragma unroll
     for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
@@ -87,13 +88,13 @@ __device__ void push_columns(cg::cluster_group& cluster, float2* buf, int nz,
                                     owner * (int)dc.d), owner), v[j]);
     }
   } else {
-    const Div dn = make_div(nz), dc = make_div(cols);
     float2 v[kXchg];
     int u0 = fresh_tid();
 #pragma unroll
     for (int j = 0; j < kXchg; ++j, u0 += T)
       v[j] = buf[position(min(u0, tile - 1), zout)];
     cluster.sync();   // every row tile is read: the buffers are free
+    const Div dn = make_div(fresh_int(nz)), dc = make_div(cols);
     u0 = fresh_tid();
 #pragma unroll
     for (int j = 0; j < kXchg; ++j, u0 += T) {

@@ -1,14 +1,16 @@
 // The in-place stage walk of the port's redesigned kernels (fft_twofactor.cu,
 // fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_r2c_pair.cu, fft_strided.cu,
-// fft_conv_pair.cu's Bluestein mode), built for sm_90a.
+// fft_conv_pair.cu's Bluestein mode, fft_dct23.cu, fft_dct4.cu, fft_conv.cu,
+// fft_conv_inv.cu), built for sm_90a.
 //
 // A block holds its sequences once in shared memory.  A Stockham stage of
 // radix r (stockham.cuh's recurrence) maps the points whose index is m mod
 // Mp onto the same points, so the butterflies of one (sequence, m) group
 // only exchange among themselves: a stage runs in rounds of whole
 // sequences, each thread computing its butterflies of the round in
-// registers (at most kPoints points, or kGenericPoints outputs of a generic
-// prime stage), the block meeting at a barrier, and each thread writing its
+// registers (at most kPoints points, or kGenericItems groups of
+// kGenericPairs output pairs of a generic prime stage), the block meeting
+// at a barrier, and each thread writing its
 // outputs back to their Stockham positions in the same buffer.  Rounds
 // touch disjoint points, so a stage costs one barrier a round and one at
 // its end, and no second copy.  A round's idle slots compute a clamped
@@ -31,7 +33,9 @@
 // a point to its place in shared memory; a thread's four points go in an
 // order rotated by its lane, so a warp's accesses fall on distinct banks.
 // load_pairs_async and store_pairs move one interleaved array, a point's
-// float2 each (fft_r2c's real lines read as complex pairs).
+// float2 each (fft_r2c's real lines read as complex pairs).  store_lines
+// may pass each point through a functor of its line and index on the way
+// out (fft_conv_inv's per-line constant, fft_conv's Bluestein chirp).
 // two_factor_block is the whole body of a block of lines on the walk, as
 // the two-factor DFT (a column pass, the twiddle, a row pass), which
 // fft_twofactor and fft_lines share.
@@ -43,9 +47,10 @@
 namespace vkfft {
 namespace walk {
 
-constexpr int kPoints = 12;         // most points a thread holds in a round
-constexpr int kGenericPoints = 16;  // ... of a generic (prime) stage
-constexpr int kTwLo = 64;           // a twiddle's low table: w^b, b < 64
+constexpr int kPoints = 12;        // most points a thread holds in a round
+constexpr int kGenericPairs = 4;   // output pairs of a generic stage's item
+constexpr int kGenericItems = 2;   // ... items a thread holds in a round
+constexpr int kTwLo = 64;          // a twiddle's low table: w^b, b < 64
 
 // u / d by one multiply-high, exact while u * d < 2^32.
 struct Div {
@@ -89,6 +94,27 @@ __device__ __forceinline__ void decode(int b, Div dq, Div dm, int& q, int& l,
 __device__ __forceinline__ int fresh_tid() {
   int t;
   asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// The block's first line for `per` lines a block, blockIdx.x read afresh
+// where it is used, so it is not held through the passes.
+__device__ __forceinline__ long long block_line0(int per) {
+  unsigned b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return (long long)b * per;
+}
+
+// The block's count of lines, `per` a block.
+__device__ __forceinline__ int block_lines(int per, long long batch) {
+  return (int)min((long long)per, batch - block_line0(per));
+}
+
+// v through a move the compiler cannot see through: what is computed from
+// it is computed again, not held.
+__device__ __forceinline__ int fresh_int(int v) {
+  int t;
+  asm volatile("mov.b32 %0, %1;" : "=r"(t) : "r"(v));
   return t;
 }
 
@@ -230,16 +256,37 @@ __device__ void stage_fixed(float2* buf, const Pass& g, int L, int Mp,
   __syncthreads();
 }
 
-// Any other radix (the primes 11..127): one thread an output, an R-term
-// sum read from shared memory, kGenericPoints of them a round; the output
-// index i slowest, so a warp shares its roots.
+// Items of a generic radix-R stage a butterfly: groups of kGenericPairs
+// of its (R + 1) / 2 output pairs (i, R - i), i <= H = (R - 1) / 2, the pair
+// i = 0 standing for the output X_0 alone.
+__host__ __device__ __forceinline__ int generic_groups(int R) {
+  return (R / 2 + kGenericPairs) / kGenericPairs;
+}
+
+// Any other radix (the primes 11..127), in the symmetric form of
+// fft_dd.cu's dft_odd: with s_j = x_j + x_{R-j} and d_j = x_j - x_{R-j}
+// for j <= H, X_i = A + iB and X_{R-i} = A - iB, where A = x_0 + sum_j s_j
+// Re w^(ij) and B = sum_j d_j Im w^(ij), the roots w already signed for
+// the direction (w^0 = 1: X_0 = A).  A thread's item is kGenericPairs
+// pairs i = i0 .. i0 + 3 of one butterfly (i0 a multiple of 4, at most H),
+// computed from one read of each s_j and d_j: R reads for up to
+// 2 kGenericPairs outputs, and a real times a complex value a term, where
+// one output of a plain sum takes R reads and a complex product a term.
+// A thread holds kGenericItems items a round; the group slowest across
+// threads, so a warp's root reads are broadcasts.  A pair past H (i <= H +
+// 3 < R, an index of the butterfly) is computed as any other and only its
+// store is predicated; so is an idle slot's clamped item.  The item's
+// indices are found again after its sums, not held through them.
 template <class Hook>
 __device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
                               int Mp, const float2* tw, const float2* w,
                               const Hook& hook) {
+  constexpr int G = kGenericPairs, K = kGenericItems;
   const int T = blockDim.x;
+  const int H = R >> 1;
+  const int groups = generic_groups(R);
   const int per_seq = L * Mp;
-  const int Q = min(g.seqs, kGenericPoints * T / (per_seq * R));
+  const int Q = min(g.seqs, K * T / (per_seq * groups));
   const Div dm = make_div(Mp);
   const int jstep = Mp * g.es;
   for (int q0 = 0; q0 < g.seqs; q0 += Q) {
@@ -247,43 +294,98 @@ __device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
     const Div dq = make_div(nq);
     const int nb = nq * per_seq;
     const Div db = make_div(nb);
-    const int total = nb * R;
-    float2 acc[kGenericPoints];
-    int o = fresh_tid();
+    const int total = nb * groups;
+    float2 lo_out[K][G], hi_out[K][G];   // X_i, X_{R-i}
 #pragma unroll
-    for (int k = 0; k < kGenericPoints; ++k, o += T) {
-      const int oc = min(o, total - 1);
-      const int i = quot(oc, db);
-      int q, l, m, lo;
-      decode(oc - i * nb, dq, dm, q, l, m);
-      const int base = seq_base(g, q0 + q, lo);
-      const float2* s = buf + base + (l * R * Mp + m) * g.es;
-      float2 a = s[0];
-      int e = 0;
-      for (int j = 1; j < R; ++j) {
-        e += i;
-        if (e >= R) e -= R;
-        const float2 x = s[j * jstep];
-        const float2 c = w[e];
-        a.x = fmaf(x.x, c.x, fmaf(-x.y, c.y, a.x));
-        a.y = fmaf(x.x, c.y, fmaf(x.y, c.x, a.y));
+    for (int k = 0; k < K; ++k) {
+      float2 A[G], B[G];
+      {
+        const int oc = min(fresh_tid() + k * T, total - 1);
+        const int grp = quot(oc, db);
+        int q, l, m, lo;
+        decode(oc - grp * nb, dq, dm, q, l, m);
+        const float2* s = buf + seq_base(g, q0 + q, lo) +
+                          (l * R * Mp + m) * g.es;
+        const float2 x0 = s[0];
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          A[u] = x0;
+          B[u] = make_float2(0.f, 0.f);
+        }
+        // i0 = grp * G in the high half, i0 * j mod R in the low: one
+        // register through the sums
+        int ie = grp * G << 16;
+#pragma unroll 1
+        for (int j = 1; 2 * j < R; ++j) {
+          const float2 a = s[j * jstep], b = s[(R - j) * jstep];
+          const float2 sj = cadd(a, b), dj = csub(a, b);
+          ie += ie >> 16;
+          if ((ie & 0xffff) >= R) ie -= R;
+          int e = ie & 0xffff;   // (i0 + u) * j mod R
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            if (u) {
+              e += j;
+              if (e >= R) e -= R;
+            }
+            const float2 c = w[e];
+            A[u].x = fmaf(sj.x, c.x, A[u].x);
+            A[u].y = fmaf(sj.y, c.x, A[u].y);
+            B[u].x = fmaf(dj.x, c.y, B[u].x);
+            B[u].y = fmaf(dj.y, c.y, B[u].y);
+          }
+        }
       }
-      a = cmul(a, tw[i * Mp + m]);
-      if (hook.on()) a = hook(a, lo, i * L + l);
-      acc[k] = a;
+      const int qf = fresh_int(q0);
+      const int nqf = min(Q, g.seqs - qf);
+      const int nbf = nqf * per_seq;
+      const Div dbf = make_div(nbf);
+      const int oc = min(fresh_tid() + k * T, nbf * groups - 1);
+      const int grp = quot(oc, dbf);
+      int q, l, m, lo;
+      decode(oc - grp * nbf, make_div(nqf), dm, q, l, m);
+      seq_base(g, qf + q, lo);
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int i = grp * G + u;
+        const int ri = i ? R - i : 0;
+        float2 x = make_float2(A[u].x - B[u].y, A[u].y + B[u].x);
+        float2 y = make_float2(A[u].x + B[u].y, A[u].y - B[u].x);
+        x = cmul(x, tw[i * Mp + m]);
+        y = cmul(y, tw[ri * Mp + m]);
+        if (hook.on()) {
+          x = hook(x, lo, i * L + l);
+          y = hook(y, lo, ri * L + l);
+        }
+        lo_out[k][u] = x;
+        hi_out[k][u] = y;
+      }
     }
     __syncthreads();
-    // the outputs' positions are found again rather than held: 16
-    // registers fewer through the barrier
-    o = fresh_tid();
+    // the outputs' positions are found again rather than held through the
+    // barrier
+    const int istep = L * Mp * g.es;
+    const int qs = fresh_int(q0);
+    const int nqs = min(Q, g.seqs - qs);
+    const int nbs = nqs * per_seq;
+    const Div dbs = make_div(nbs), dqs = make_div(nqs);
+    const int tots = nbs * groups;
+    int o = fresh_tid();
 #pragma unroll
-    for (int k = 0; k < kGenericPoints; ++k, o += T) {
-      const int oc = min(o, total - 1);
-      const int i = quot(oc, db);
+    for (int k = 0; k < K; ++k, o += T) {
+      const int oc = min(o, tots - 1);
+      const int grp = quot(oc, dbs);
       int q, l, m, lo;
-      decode(oc - i * nb, dq, dm, q, l, m);
-      const int at = seq_base(g, q0 + q, lo) + ((i * L + l) * Mp + m) * g.es;
-      if (o < total) buf[at] = acc[k];
+      decode(oc - grp * nbs, dqs, dm, q, l, m);
+      const int at = seq_base(g, qs + q, lo) + (l * Mp + m) * g.es;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int i = grp * G + u;
+        if (o < tots && i <= H) {
+          buf[at + i * istep] = lo_out[k][u];
+          if (i) buf[at + (R - i) * istep] = hi_out[k][u];
+        }
+      }
     }
   }
   __syncthreads();
@@ -345,12 +447,14 @@ inline int table_len(const Plan& p) {
   return len;
 }
 
-// Whether `threads` hold a whole sequence of every stage of p in a round.
+// Whether `threads` hold a whole sequence of every stage of p in a round:
+// its n / r butterflies of a fixed radix, or their generic_groups(r) items
+// each of a generic one.
 inline bool rounds_fit(const Plan& p, int threads) {
   for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
     if (fixed_radix(r) ? round_butterflies(r) * threads < p.n / r
-              : kGenericPoints * threads < p.n)
+              : kGenericItems * threads < p.n / r * generic_groups(r))
       return false;
   }
   return true;
@@ -512,11 +616,22 @@ __device__ void store_pairs(const float2* home, const Map& mp, float2* y,
     y0[u] = home[position(u, mp)];
 }
 
-// The inverse of load_lines.
+// A stored point as it is.
+struct AsIs {
+  __device__ __forceinline__ float2 operator()(float2 v, int, int) const {
+    return v;
+  }
+};
+
+// The inverse of load_lines; each point goes out as out(v, line, t), t
+// its index within its line.
+template <class Out = AsIs>
 __device__ void store_lines(const float2* home, const Map& mp, float* yr,
-                            float* yi, long long g0, int count) {
+                            float* yi, long long g0, int count,
+                            const Out& out = Out()) {
   const Span sp = span_of(g0, count, aligned16(yr, yi));
   const int rot = (threadIdx.x >> 2) & 3;
+  const int n = (int)mp.dn.d;
   float* r0 = yr + g0;
   float* i0 = yi + g0;
 #pragma unroll 2
@@ -529,12 +644,18 @@ __device__ void store_lines(const float2* home, const Map& mp, float* yr,
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[c] = home[pos[c]];
     rotate(v, (4 - rot) & 3);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int line = quot(u + c, mp.dn);
+      v[c] = out(v[c], line, u + c - line * n);
+    }
     *reinterpret_cast<float4*>(r0 + u) = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
     *reinterpret_cast<float4*>(i0 + u) = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
   }
   for (int k = threadIdx.x; k < sp.rest; k += blockDim.x) {
     const int u = k < sp.head ? k : sp.tail0 + k - sp.head;
-    const float2 v = home[position(u, mp)];
+    const int line = quot(u, mp.dn);
+    const float2 v = out(home[position(u, mp)], line, u - line * n);
     r0[u] = v.x;
     i0[u] = v.y;
   }
@@ -592,6 +713,24 @@ __device__ __forceinline__ void two_factor_passes(
   }
 }
 
+// Points of a twiddle's two tables over `count` exponents: kTwLo low
+// points, then ceil(count / kTwLo) high ones.
+__host__ __device__ constexpr int rotation_points(int count) {
+  return kTwLo + (count + kTwLo - 1) / kTwLo;
+}
+
+// A block's stage tables and twiddles into shared memory at s1: len1 +
+// len2 stage points, then ntw twiddle points.
+__device__ __forceinline__ void load_tables(float2* s1, const float2* t1,
+                                           const float2* t2, const float2* tw,
+                                           int len1, int len2, int ntw) {
+  const int ntab = len1 + len2 + ntw;
+  for (int t = threadIdx.x; t < ntab; t += blockDim.x)
+    s1[t] = t < len1 ? __ldg(&t1[t])
+                     : t < len1 + len2 ? __ldg(&t2[t - len1])
+                                       : __ldg(&tw[t - len1 - len2]);
+}
+
 // The two-factor DFT (twofactor.cuh's contract) of the `lines` lines of
 // n = n1 * n2 points from line blockIdx.x * lines on, each held once in
 // `smem` as the (n2, n1) row-major matrix A[j2][j1] at the odd pitch P =
@@ -610,35 +749,25 @@ __device__ __forceinline__ void two_factor_block(
     int len1, int len2, bool async_load = false) {
   const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
   const int S = n2 * pitch;
-  const long long line0 = (long long)blockIdx.x * lines;
-  const int nl = (int)min((long long)lines, batch - line0);
-  const long long g0 = line0 * n;
+  const int nl = block_lines(lines, batch);
   float2* home = smem;
   float2* s1 = home + lines * S;
   float2* s2 = s1 + len1;
   float2* tlo = s2 + len2;
   float2* thi = tlo + kTwLo;
-  const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
-  for (int t = threadIdx.x; t < ntab; t += blockDim.x)
-    s1[t] = t < len1 ? __ldg(&t1[t])
-                     : t < len1 + len2 ? __ldg(&t2[t - len1])
-                                       : __ldg(&tw[t - len1 - len2]);
+  load_tables(s1, t1, t2, tw, len1, len2, rotation_points(n));
   const bool inverse = p1.inverse != 0;
   const Map in = make_map(n, S, inverse && !swapped, n1, n2, pitch);
+  // the block's first point found again where it is used, not held
+  // through the passes
   if (async_load)
-    load_lines_async(xr, xi, g0, nl * n, in, home);
+    load_lines_async(xr, xi, block_line0(lines) * n, nl * n, in, home);
   else
-    load_lines(xr, xi, g0, nl * n, in, home);
+    load_lines(xr, xi, block_line0(lines) * n, nl * n, in, home);
   __syncthreads();
   two_factor_passes(home, nl, p1, p2, s1, s2, tlo, thi, pitch);
   store_lines(home, make_map(n, S, !inverse && !swapped, n1, n2, pitch), yr,
-              yi, g0, nl * n);
-}
-
-// Points of a twiddle's two tables over `count` exponents: kTwLo low
-// points, then ceil(count / kTwLo) high ones.
-__host__ __device__ constexpr int rotation_points(int count) {
-  return kTwLo + (count + kTwLo - 1) / kTwLo;
+              yi, block_line0(lines) * n, block_lines(lines, batch) * n);
 }
 
 // Shared bytes of a block of `lines` lines of the plans' n1 * n2 points at

@@ -131,7 +131,9 @@ KERNEL_MAX_PRIME = 64
 # in one block, each factor a Stockham run of primes up to the planner's
 # largest DIRECT prime.
 TWOFACTOR_MAX_N = 16384
-TWOFACTOR_TILE = 4096   # vkfft::kTileMax in csrc/twofactor.cuh
+# The largest first factor `twofactor_split` takes: the rule that picks
+# every split of the two-factor kernels (a longer n1 would move them).
+TWOFACTOR_TILE = 4096
 # `fft_twofactor`'s block (csrc/fft_twofactor.cu): at most 512 threads
 # (kThreads), each holding at most 12 points through a stage round, 16
 # outputs of a generic prime stage; the layout aims at 8 points a thread.
@@ -143,11 +145,13 @@ TWOFACTOR_AIM_POINTS = 8
 TWOFACTOR_BLOCK_POINTS = 2048
 TWOFACTOR_TW_LO = 64
 # The in-place walk's rounds (csrc/inplace.cuh): a thread holds at most
-# WALK_POINTS points of a fixed-radix stage (kPoints) or WALK_GENERIC_POINTS
-# outputs of a generic one (kGenericPoints), and a round holds whole
-# sequences.  `fft_lines` takes the block rule of `fft_twofactor`.
+# WALK_POINTS points of a fixed-radix stage (kPoints), or WALK_GENERIC_ITEMS
+# items of a generic (prime) stage r (kGenericItems), each WALK_GENERIC_PAIRS
+# of a butterfly's (r + 1) / 2 output pairs (kGenericPairs), and a round
+# holds whole sequences.
 WALK_POINTS = 12
-WALK_GENERIC_POINTS = 16
+WALK_GENERIC_PAIRS = 4
+WALK_GENERIC_ITEMS = 2
 _WALK_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 # `fft_conv_pair`'s Bluestein mode (csrc/fft_conv_pair.cu): padded lengths
 # up to 2^16, the plane held once over a cluster of up to 16 blocks, a
@@ -196,8 +200,7 @@ PAIR_AIM_POINTS = 16
 PAIR_XCHG = 16
 PAIR_THREADS = 1024
 # Shared memory a block may opt into on sm_90 (vkfft::kMaxSmemBytes in
-# csrc/stockham.cuh): `fft_conv`'s matrix mode holds two buffers of the mm
-# coordinate lines of one batch item.
+# csrc/stockham.cuh).
 MAX_SMEM_BYTES = 232448
 # Flags of `fft_conv` and `fft_conv_pair`'s 2-D mode (kConjData, kXpow in
 # their sources).
@@ -521,9 +524,11 @@ def conv_pair_occupancy(m: int) -> tuple[int, int]:
 
 def conv_matrix_supports(n: int, mm: int) -> bool:
     """Whether `fft_conv`'s matrix mode takes lines of length n with mm = 2
-    or 3 coordinates: n a length of the stages and two buffers of the mm
-    lines of one batch item within a block's shared memory (at mm = 3 up
-    to n = 4096 of the powers of two; the JAX package's VMEM holds 8192)."""
+    or 3 coordinates: n a length of the stages with 16 mm n bytes within
+    a block's shared memory (at mm = 3 up to n = 4096 of the powers of
+    two; the JAX package's VMEM holds 8192).  The set the kernel served
+    when it held two buffers of an item's lines, kept as the fusion rule's
+    gate; a block now holds the item's lines once (`conv_layout`)."""
     return (mm in (2, 3) and kernel_supports(n)
             and 2 * 8 * mm * n <= MAX_SMEM_BYTES)
 
@@ -930,7 +935,9 @@ def r2c_tables(n: int, inverse: bool, scale: float = 1.0):
 def twofactor_twiddle(n: int, inverse: bool, scale: float = 1.0):
     """`fft_twofactor`'s inter-factor twiddle w_n^(k2*j1) (w_n^(-k2*j1) for
     the inverse) at [k2*n1 + j1], times ``scale`` (the JAX package folds
-    the scale into the same twiddle, ``_v2_tables``), complex128."""
+    the scale into the same twiddle, ``_v2_tables``), complex128: the
+    whole table that the kernels' two tables (`twofactor_twiddle_pair`)
+    stand for."""
     n1, n2 = twofactor_split(n)
     k2 = np.arange(n2, dtype=np.int64)[:, None]
     j1 = np.arange(n1, dtype=np.int64)[None, :]
@@ -958,11 +965,19 @@ def _table_points(n: int, walk: bool = False) -> int:
     return 0 if n == 1 else len(stage_tables(n, False, 1.0, walk)[1])
 
 
+def generic_groups(r: int) -> int:
+    """Items of a generic radix-r stage a butterfly (``generic_groups`` in
+    ``csrc/inplace.cuh``): its (r + 1) / 2 output pairs, WALK_GENERIC_PAIRS
+    an item."""
+    return -(-(r // 2 + 1) // WALK_GENERIC_PAIRS)
+
+
 def walk_rounds_fit(n: int, threads: int, walk: bool = False) -> bool:
     """Whether ``threads`` hold a whole sequence of every stage of an
     n-point Stockham run (of `walk_radices` with ``walk``) in one round of
     the in-place walk (``rounds_fit`` in ``csrc/inplace.cuh``: a thread
-    holds max(1, 12 // r) butterflies of a fixed radix r); the empty run of
+    holds max(1, 12 // r) butterflies of a fixed radix r, WALK_GENERIC_ITEMS
+    items of a generic one, `generic_groups` a butterfly); the empty run of
     n = 1 always fits."""
     if n == 1:
         return True
@@ -970,7 +985,7 @@ def walk_rounds_fit(n: int, threads: int, walk: bool = False) -> bool:
         if r in _WALK_FIXED_RADICES:
             if max(1, WALK_POINTS // r) * threads < n // r:
                 return False
-        elif WALK_GENERIC_POINTS * threads < n:
+        elif WALK_GENERIC_ITEMS * threads < n // r * generic_groups(r):
             return False
     return True
 
@@ -1040,6 +1055,68 @@ def lines_layout(n: int) -> tuple[int, int, int]:
               + _table_points(n2, True)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
     return threads, lines, 8 * points
+
+
+# `fft_conv`'s block (csrc/fft_conv.cu, `conv_layout`): `fft_lines`' rule
+# on the m-point lines a convolution runs (Bluestein: the padded length),
+# with constants of its own: lines share a block up to CONV_BLOCK_POINTS
+# points, in the matrix mode whole items of mm lines; a thread for about
+# CONV_ONE_PASS_AIM of them in one pass (where a block holds
+# CONV_ONE_PASS_LINES lines or more and every stage's sequences fit a
+# round), else CONV_AIM_POINTS in `fft_lines`' two factors of a lone
+# line.  8192 points a block beat 2048 and 4096 at 4096 x 4096, 5461 x 3
+# x 1024 and 32768 x 512 and tied at Rader's 1676 x 5002 (chip_smoke.py's
+# layout sweep, PERF.md).
+CONV_BLOCK_POINTS = 8192
+CONV_ONE_PASS_LINES = 8
+CONV_ONE_PASS_AIM = 16
+CONV_AIM_POINTS = 32
+
+
+def _conv_block(m: int, mm: int, one_pass: bool) -> tuple[int, int]:
+    """(threads, lines) of an `fft_conv` block of m-point lines, mm lines
+    an item."""
+    lines = mm * max(1, CONV_BLOCK_POINTS // (mm * m))
+    aim = CONV_ONE_PASS_AIM if one_pass else CONV_AIM_POINTS
+    return _block_threads(lines * m, aim), lines
+
+
+def conv_split(m: int, mm: int = 1) -> tuple[int, int]:
+    """(n1, n2) of `fft_conv`'s m-point lines, mm lines an item: (m, 1),
+    one pass, where a block holds CONV_ONE_PASS_LINES lines or more and
+    every stage's sequences fit a round of its threads, else `fft_lines`'
+    two factors of a lone line (which fit the block's threads, as many or
+    more)."""
+    threads, lines = _conv_block(m, mm, True)
+    if lines >= CONV_ONE_PASS_LINES and walk_rounds_fit(m, threads, True):
+        return m, 1
+    return _lines_factors(m)
+
+
+def conv_layout(m: int, mm: int = 1) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_conv` block for m-point
+    lines, mm lines an item (the matrix mode's coordinates; 1 in the
+    scalar, rows and Bluestein modes), the one layout rule (the C entry
+    refuses any other): ``lines`` = mm * max(1, CONV_BLOCK_POINTS // (mm *
+    m)), a multiple of 32 threads near one for CONV_ONE_PASS_AIM points
+    (one pass) or CONV_AIM_POINTS (two factors), at most 512, the split of
+    `conv_split`, each line once as the (n2, n1) matrix at the odd pitch
+    n1 | 1, beside the forward and the inverse stage tables of both factors
+    (`walk_radices`) and the forward and the inverse twiddle's two
+    tables."""
+    n1, n2 = conv_split(m, mm)
+    threads, lines = _conv_block(m, mm, n2 == 1)
+    points = (lines * n2 * (n1 | 1)
+              + 2 * (_table_points(n1, True) + _table_points(n2, True)
+                     + TWOFACTOR_TW_LO + -(-m // TWOFACTOR_TW_LO)))
+    return threads, lines, 8 * points
+
+
+def conv_occupancy(m: int, mm: int = 1) -> int:
+    """Resident blocks an SM of `fft_conv` at the layout of m-point lines,
+    mm lines an item, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current card (C entry ``vk_fft_conv_occupancy``)."""
+    return _occupancy("fft_conv", *conv_layout(m, mm)[::2])
 
 
 # `fft_r2c`'s block (csrc/fft_r2c.cu): its m = n/2-point lines share a
@@ -1807,11 +1884,18 @@ _ENTRIES = {
     # (r2c_pair_layout): cluster, threads, shared bytes
     "fft_r2c_pair": {"fft_r2c_pair": "pppq" + "p" * 10 + "iii",
                      "fft_c2r_pair": "pppq" + "p" * 10 + "fiii"},
-    "fft_conv": {"fft_conv": "ppppqiiii" + "p" * 6},
+    # planes, lines, n, mm, rows, flags, the plans of the forward and the
+    # inverse factors (f1, f2, i1, i2), their tables, the forward and the
+    # inverse twiddle's two tables, spectrum, chirp, then the layout
+    # (conv_layout): threads, lines, shared bytes
+    "fft_conv": {"fft_conv": "ppppqiiii" + "p" * 12 + "iii"},
     # planes, batch, plans, tables, the twiddle's two tables, swapped,
     # then the layout (twofactor_layout): threads, lines, shared bytes
     "fft_twofactor": {"fft_twofactor": "ppppqpppppiiii"},
-    "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8},
+    # planes, batch, plans, tables, the twiddle's two tables, spectrum, the
+    # per-line constant's planes, then the layout (twofactor_layout):
+    # threads, lines, shared bytes
+    "fft_conv_inv": {"fft_conv_inv": "ppppq" + "p" * 8 + "iii"},
     # Bluestein: planes, batch, n, plans, tables, the twiddle's two
     # tables, spectrum, chirp, then the layout (conv_pair_layout): cluster,
     # threads, shared bytes
@@ -2382,11 +2466,11 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in all
     its modes.  Bound by bytes (16 B a point of the planes, one read and
-    one write, and the table once a launch): a block holds ⌊2048/m⌋ lines
-    (at least one; in the matrix mode whole items of mm lines) in shared
-    memory through the forward stages, the multiply and the inverse
-    stages, and the pad never exists in device memory
-    (``csrc/fft_conv.cu``)."""
+    one write, and the table once a launch): a block holds its lines once
+    each in shared memory (`conv_layout`: whole items of mm lines in the
+    matrix mode) and runs the forward and the inverse passes of the walk
+    in place, the multiply in one sweep between them; the pad never
+    exists in device memory (``csrc/fft_conv.cu``)."""
     matrix = re.ndim == 3
     _check_planes(re, im, 3 if matrix else 2, "fft_conv")
     mm = re.shape[1] if matrix else 1
@@ -2417,10 +2501,18 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
         raise ValueError(f"fft_conv: lines of {n} points, a spectrum of {L}")
 
     def args():
-        pf, tf = _plan(m, False, 1.0, re.device)
-        pi, ti = _plan(m, True, scale, re.device)
-        return (B * mm, n, mm, rows, _conv_flags(conj_data, xpow), pf, pi, tf,
-                ti, spectrum, chirp)
+        n1, n2 = conv_split(m, mm)
+        pf1, tf1 = _plan(n1, False, 1.0, re.device, True)
+        pf2, tf2 = _plan(n2, False, 1.0, re.device, True)
+        pi1, ti1 = _plan(n1, True, 1.0, re.device, True)
+        pi2, ti2 = _plan(n2, True, 1.0, re.device, True)
+        twf = device_array(("twofactor_pair", m, False, 1.0), re.device,
+                           lambda: twofactor_twiddle_pair(m, False))
+        twi = device_array(("twofactor_pair", m, True, scale), re.device,
+                           lambda: twofactor_twiddle_pair(m, True, scale))
+        return (B * mm, n, mm, rows, _conv_flags(conj_data, xpow), pf1, pf2,
+                pi1, pi2, tf1, tf2, ti1, ti2, twf, twi, spectrum, chirp,
+                *conv_layout(m, mm))
 
     return _apply("fft_conv", re, im, out,
                   lambda: fft_conv_plain(re, im, spectrum, chirp, conj_data,
@@ -2471,8 +2563,10 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     CUDA tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:4421 _conv_inv_kernel``
-    (``has_dc`` is ``dc``).  Bound by bytes, as `fft_twofactor`: the
-    multiply rides the read and the constant the write
+    (``has_dc`` is ``dc``).  Bound by bytes, as `fft_twofactor`, whose
+    block it runs at its layout (`twofactor_layout`): the lines read once
+    into swapped positions, the multiply in one sweep over shared memory,
+    the mirrored passes in place and the constant on the write
     (``csrc/fft_conv_inv.cu``)."""
     _check_planes(re, im, 2, "fft_conv_inv")
     B, n = re.shape
@@ -2487,10 +2581,11 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
     def args():
         p1, p2, t1, t2 = _two_plans(n, True, re.device)
-        tw = device_array(("twofactor", n, True, scale), re.device,
-                           lambda: twofactor_twiddle(n, True, scale))
+        tw = device_array(("twofactor_pair", n, True, scale), re.device,
+                           lambda: twofactor_twiddle_pair(n, True, scale))
         d = dc if dc is not None else (None, None)
-        return (B, p1, p2, t1, t2, tw, spectrum, d[0], d[1])
+        return (B, p1, p2, t1, t2, tw, spectrum, d[0], d[1],
+                *twofactor_layout(n))
 
     return _apply("fft_conv_inv", re, im, out,
                   lambda: fft_conv_inv_plain(re, im, spectrum, dc, scale),
