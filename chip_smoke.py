@@ -85,7 +85,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
      sample 101 (FFTApplication(kind=DCT) of (96, 96) and (32, 32, 32),
      t = 2, 3, batched to 128 MiB), each row counted from 0 and held to
      its exact launches; then the three kernels and the rows timed as in
-     4, beside torch.fft.rfft + irfft of the same data (not the same
+     4 (with their layouts, registers, spills and blocks an SM, and the
+     layout sweep of fft_dct23, fft_dct4 and fft_dct1), beside
+     torch.fft.rfft + irfft of the same data (not the same
      function: no PyTorch call computes a DCT) and, for the N-D rows, the
      share of the round trip outside the kernels.
   8. convolution (ConvolutionApplication): conv_kernels, the new modes of
@@ -117,8 +119,10 @@ Phases (each asserts; any failure exits non-zero before the result line):
   9. the long tier: long_kernels, fft_strided_tw (the factor mode of
      fft_strided) against its plain version on every factor form of the
      long tier (two uploads, three uploads' two passes, the Bluestein
-     chirp with live lengths that are not multiples of S), both
-     directions, and numpy fp64 on the smaller cases; long_routes, DIRECT
+     chirp with live lengths that are not multiples of S, the folded
+     order's transposed store and read, its second pass over (js, ka)
+     columns and its interleaved third), both directions, and numpy fp64
+     on the smaller cases; long_routes, DIRECT
      lengths 16385..2^20 (sampled, with 16400 and 20480), Bluestein
      32771 / 65537 / 99991, SPLIT 131 * 32768, rfft/irfft at 40960 and
      65542, a long non-minor axis and three uploads forced at 2^20 and
@@ -128,9 +132,13 @@ Phases (each asserts; any failure exits non-zero before the result line):
      MiB of planes (16 lines) and one 2^28 line (its oracle torch.fft in
      complex128 on the card; the smallest power of two the port's split
      sends to three uploads is sample 11's 2^24), each counted from 0 and
-     held to its exact launches; long_times, fft_strided_tw at the 2^20 row's shapes
-     and the 2^20 and Bluestein 65537 round trips, beside the bound, the
-     reorder's share and torch.fft.
+     held to its exact launches (the reorder folded into a pass where
+     cuda_kernels.long_folds holds); long_times, fft_strided_tw at the
+     2^20 row's shapes (the folded and the natural passes, with layout,
+     registers, spills at most 64 and none, blocks an SM), the two
+     placements of the folded reorder beside the unfolded route, and the
+     2^20, 2^22, Bluestein 65537, 2^24 and 2^26 round trips, beside the
+     bound, the reorder's share (0 where folded) and torch.fft.
  10. the double-double tier (Precision.DOUBLE, DDComplex, fft_dd) on
      fft_dd: dd_kernels, its lines and strided entries against their
      plain versions at every 8th 13-smooth length to 4096 and named ones
@@ -160,7 +168,9 @@ Phases (each asserts; any failure exits non-zero before the result line):
      redesign changed, at the rows PERF.md compares (fft_conv's Rader 5003
      and conv rows, fft_conv_inv and fft_twofactor at 1059 x 7918,
      fft_dct23 / fft_dct4 at 255, fft_lines at 1001 beside 1024,
-     fft_r2c_pair on the 208^3 cube), with registers and spills; it runs
+     fft_r2c_pair on the 208^3 cube), fft_strided_tw at 16 x 512 x 2048,
+     fft_dct1 at DCT-I 1025 / DST-I 1023 and the long round trips, with
+     registers and spills; it runs
      unchanged on an older package, so the parent's kernels are timed by
      this script in the same call.
 
@@ -174,8 +184,10 @@ toolchain,dd_kernels,dd_times to iterate on fft_dd,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
-toolchain,kernels,times,long_kernels,long_times on fft_lines, fft_pair
-and fft_strided, or toolchain,real_kernels,real_times on fft_r2c and
+toolchain,kernels,times on fft_lines, fft_pair and fft_strided,
+toolchain,long_kernels,long_times on fft_strided_tw and the long tier's
+fold, toolchain,r2r_kernels,r2r_times on fft_dct23, fft_dct1 and
+fft_dct4, or toolchain,real_kernels,real_times on fft_r2c and
 fft_r2c_pair), writes their record
 to chiprun_out/chip_smoke_phases.json and prints no result line.
 """
@@ -2420,6 +2432,22 @@ def _dct_class(ck, n, type4):
             ck.walk_generic((n1, n2)))
 
 
+def _dct1_classes(ck) -> dict:
+    """One (n, dst) of each layout class fft_dct1 serves: whether it runs
+    two factors, threads, lines a block, whether a stage is the generic
+    prime one, the parity of its M points."""
+    out = {}
+    for dst in (False, True):
+        for n in range(3, ck.KERNEL_MAX_N + 2):
+            if ck.dct1_supports(n, dst):
+                M = ck.dct1_length(n, dst)
+                split = ck.dct_split(M, True)
+                threads, lines, _ = ck.dct1_layout(n, dst)
+                out.setdefault((split[1] > 1, threads, lines,
+                                ck.walk_generic(split), M % 2), (n, dst))
+    return out
+
+
 def _dct_classes(ck, type4) -> dict:
     """One length of each layout class the kernel serves: {class: n}."""
     supports = ck.dct4_supports if type4 else ck.dct23_supports
@@ -2431,14 +2459,15 @@ def _dct_classes(ck, type4) -> dict:
     return out
 
 
-# fft_dct23 / fft_dct4 launched inside sentinel guards: sample 101's n =
-# 32 and 96, sample 100's 255, 256, 1024, the longest lines
-DCT_GUARDED = (32, 96, 255, 256, 1024, 4095, 8192, 16384)
+# fft_dct23 / fft_dct1 / fft_dct4 launched inside sentinel guards: sample
+# 101's n = 32 and 96, sample 100's 255, 256, 1024, DCT-I's 1025 and DST-I's
+# 1023 rows, the longest lines
+DCT_GUARDED = (32, 96, 255, 256, 1023, 1024, 1025, 4095, 8192, 16384)
 DCT_GUARD = 1 << 12           # sentinel floats each side of an output
 
 
 def _dct_guarded(ck, x, type, dst, offset, dev):
-    """One launch of fft_dct2/3/4 with its output inside a buffer of
+    """One launch of fft_dct1/2/3/4 with its output inside a buffer of
     sentinel values (DCT_GUARD floats each side and ``offset`` more before):
     (the output, the guard cells the launch changed)."""
     B, n = x.shape
@@ -2447,8 +2476,9 @@ def _dct_guarded(ck, x, type, dst, offset, dev):
     buf = torch.full((lead + numel + DCT_GUARD,), sentinel, device=dev)
     y = buf[lead:lead + numel].view(B, n)
     lead_args = (n, int(dst)) if type == 4 else (int(dst),)
-    ck._launch("fft_dct4" if type == 4 else "fft_dct23", f"fft_dct{type}", dev,
-               [x, y, B, *lead_args, *ck._dct_walk_args(n, type, 0.5, dev)])
+    ck._launch(ck.DCT_LIBRARIES[type], f"fft_dct{type}", dev,
+               [x, y, B, *lead_args,
+                *ck._dct_walk_args(n, type, 0.5, dev, dst)])
     changed = (int((buf[:lead] != sentinel).sum())
                + int((buf[lead + numel:] != sentinel).sum()))
     return y, changed
@@ -2458,10 +2488,11 @@ def _dct_walk_checks(ck, dev) -> dict:
     """fft_dct23 (types II and III) and fft_dct4 at one length of every
     layout class, at a batch of three blocks and one line more (an odd
     count of lines: the last pipeline of fft_dct23 and of odd-n fft_dct4,
-    two lines each, carries one), both flags, against their plain versions; then guarded
-    launches at DCT_GUARDED with the output at float offsets 0..3, where
-    even-n fft_dct4, which stores float2 pairs, must refuse the odd
-    offsets and write nothing."""
+    two lines each, carries one), both flags, against their plain
+    versions, and fft_dct1 at one (n, flag) of each of its layout classes;
+    then guarded launches at DCT_GUARDED with the output at float offsets
+    0..3, where even-n fft_dct4, which stores float2 pairs, must refuse
+    the odd offsets and write nothing."""
     out = {}
     for name, type4 in (("fft_dct23", False), ("fft_dct4", True)):
         classes = _dct_classes(ck, type4)
@@ -2484,15 +2515,30 @@ def _dct_walk_checks(ck, dev) -> dict:
                     row["worst"] = max(row["worst"], err)
         out[f"{name}_classes"] = row
         _log(f"[r2r kernels] {name} layout classes: {row}")
+    # fft_dct1 at one (n, flag) of every layout class, three blocks and a
+    # line
+    classes = _dct1_classes(ck)
+    row = {"classes": len(classes), "checked": 0, "worst": 0.0}
+    for cls, (n, dst) in classes.items():
+        B = 3 * ck.dct1_layout(n, dst)[1] + 1
+        x = torch.from_numpy(_host_planes((B, n), n)[0]).to(dev)
+        err = _rel(ck.fft_dct1(x, dst, 0.5), ck.fft_dct1_plain(x, dst, 0.5))
+        assert err <= KERNEL_TOL, ("fft_dct1", cls, n, dst, err)
+        row["checked"] += 1
+        row["worst"] = max(row["worst"], err)
+    out["fft_dct1_classes"] = row
+    _log(f"[r2r kernels] fft_dct1 layout classes: {row}")
     guarded = {"launches": 0, "refused": 0, "worst": 0.0}
     for n in DCT_GUARDED:
         x = torch.from_numpy(_host_planes((5, n), n + 1)[0]).to(dev)
-        for type in (2, 3, 4):
-            if not (ck.dct4_supports(n) if type == 4
-                    else ck.dct23_supports(n)):
-                continue
+        for type in (1, 2, 3, 4):
             for dst in (False, True):
-                want = (ck.fft_dct4_plain(x, dst, 0.5) if type == 4 else
+                if not (ck.dct1_supports(n, dst) if type == 1
+                        else ck.dct4_supports(n) if type == 4
+                        else ck.dct23_supports(n)):
+                    continue
+                want = (ck.fft_dct1_plain(x, dst, 0.5) if type == 1 else
+                        ck.fft_dct4_plain(x, dst, 0.5) if type == 4 else
                         ck.fft_dct23_plain(x, type == 3, dst, 0.5))
                 for offset in range(4):
                     if type == 4 and n % 2 == 0 and offset % 2:
@@ -2716,12 +2762,22 @@ DCT23_ROWS = (256, 1024, 255, 96, 32)
 DCT4_ROWS = (256, 1024, 255)
 # the layout sweep's rows: (type, n)
 DCT_SWEEP_ROWS = ((2, 256), (2, 1024), (2, 255), (2, 96), (4, 256),
-                  (4, 1024), (4, 255))
+                  (4, 1024), (4, 255), (1, 1025))
 
 
-def _dct_layout(ck, regs, type, n) -> dict:
-    """fft_dct23's or fft_dct4's layout at length n, with its kernel's
-    registers and spills (ptxas) and its resident blocks an SM."""
+def _dct_layout(ck, regs, type, n, dst=False) -> dict:
+    """fft_dct23's, fft_dct1's or fft_dct4's layout at length n, with its
+    kernel's registers and spills (ptxas) and its resident blocks an
+    SM."""
+    if type == 1:
+        M = ck.dct1_length(n, dst)
+        threads, lines, smem = ck.dct1_layout(n, dst)
+        r, st, ld = regs["dct1_kernel"]
+        return {"kernel": "dct1_kernel", "pipeline_points": M,
+                "split": list(ck.dct_split(M, True)), "threads": threads,
+                "lines_per_block": lines, "smem_bytes": smem,
+                "registers": r, "spill_bytes": [st, ld],
+                "blocks_per_sm": ck.dct1_occupancy(n, dst)}
     type4 = type == 4
     points = ck.dct4_points(n) if type4 else n
     threads, lines, smem = (ck.dct4_layout if type4 else ck.dct23_layout)(n)
@@ -2737,20 +2793,25 @@ def _dct_layout(ck, regs, type, n) -> dict:
 
 
 def _dct_sweep(ck, regs, dev) -> list:
-    """The layout sweep of fft_dct23 (type II) and fft_dct4 at
-    DCT_SWEEP_ROWS over R2R_BYTES: the splits of `_lines_splits` on the
+    """The layout sweep of fft_dct23 (type II), fft_dct4 and fft_dct1
+    (DCT-I) at DCT_SWEEP_ROWS over R2R_BYTES: the splits of
+    `_lines_splits` on the
     pipeline's points and the blocks of R2C_SWEEP, each held against the
     plain version, timed in turns (down the list, then up)."""
     rows = []
     for type, n in DCT_SWEEP_ROWS:
         B = R2R_BYTES // (4 * n)
         x = _planes((B, n), n + 11, dev)[0]
-        call = ((lambda: ck.fft_dct4(x, False, 1.0)) if type == 4
-                else (lambda: ck.fft_dct2(x, False, 1.0)))
-        plain = (ck.fft_dct4_plain(x, False, 1.0) if type == 4
-                 else ck.fft_dct23_plain(x, False, False, 1.0))
-        points = ck.dct4_points(n) if type == 4 else n
-        layout = ck.dct4_layout if type == 4 else ck.dct23_layout
+        call = {1: lambda: ck.fft_dct1(x, False, 1.0),
+                2: lambda: ck.fft_dct2(x, False, 1.0),
+                4: lambda: ck.fft_dct4(x, False, 1.0)}[type]
+        plain = {1: lambda: ck.fft_dct1_plain(x, False, 1.0),
+                 2: lambda: ck.fft_dct23_plain(x, False, False, 1.0),
+                 4: lambda: ck.fft_dct4_plain(x, False, 1.0)}[type]()
+        points = {1: ck.dct1_length(n, False), 2: n,
+                  4: ck.dct4_points(n)}[type]
+        layout = {1: lambda n: ck.dct1_layout(n, False), 2: ck.dct23_layout,
+                  4: ck.dct4_layout}[type]
         sweep, seen = [], []
         for split, (bp, aim) in ((p, v) for p in _lines_splits(ck, points)
                                  for v in R2C_SWEEP):
@@ -2773,7 +2834,7 @@ def _dct_sweep(ck, regs, dev) -> list:
         best = min(sweep, key=lambda v: min(v["ms"]))
         _log(f"[time] dct layout sweep type {type} n={n}: {len(sweep)} "
              f"layouts, rule {list(layout(n))} split "
-             f"{list(ck.dct_split(points, type == 4))}; best {best}")
+             f"{list(ck.dct_split(points, type != 2))}; best {best}")
         rows += sweep
         del x, plain
     return rows
@@ -2792,7 +2853,7 @@ def phase_r2r_times(vt, ck, dev) -> dict:
     _log(f"[time] card: {_smi()}")
     kernels = {k: [] for k in R2R_KERNELS}
     regs = {}
-    for lib in ("fft_dct23", "fft_dct4"):
+    for lib in ("fft_dct23", "fft_dct4", "fft_dct1"):
         with open(ck.library_path(lib)[:-3] + ".log") as f:
             regs.update({k: (r, st, ld)
                          for k, r, st, ld in _ptxas_kernels(f.read())})
@@ -2850,7 +2911,10 @@ def phase_r2r_times(vt, ck, dev) -> dict:
                    ck.dct1_length(n, dst),
                    lambda x, d=dst: ck.fft_dct1(x, d, 1.0),
                    lambda x, d=dst: ck.fft_dct1_plain(x, d, 1.0),
-                   {"dst": dst})
+                   {"dst": dst, **_dct_layout(ck, regs, 1, n, dst)})
+    # the redesigned kernel: at most 64 registers, no spill
+    r, st, ld = regs["dct1_kernel"]
+    assert r <= 64 and st == ld == 0, regs["dct1_kernel"]
     sweep = _dct_sweep(ck, regs, dev)
     # fft_dct23 on the lines of sample 101's axes (n = 96, 32), the rows
     # above at R2R_BYTES, as sample 101's rows batch them
@@ -3561,9 +3625,11 @@ def phase_walk_times(ck, dev) -> dict:
     forward at 1059 x 7918; fft_dct23 II / III and odd fft_dct4 at 131586
     x 255; fft_lines at 1001 (7 * 11 * 13) beside 1024, 128 MB each; the
     real 208^3 cube through fft_r2c_pair (its instantiation with the
-    generic stage).  Each row with the kernel's registers and spills, its
-    layout and resident blocks an SM where the package names them, so the
-    same phase times an older package's kernels too."""
+    generic stage); fft_strided_tw's twiddled passes at 16 x 512 x 2048,
+    fft_dct1 at 32736 x 1025 (DCT-I) and 32800 x 1023 (DST-I), and the
+    long round trips of LONG_E2E.  Each row with the kernel's registers
+    and spills, its layout and resident blocks an SM where the package
+    names them, so the same phase times an older package's kernels too."""
     _log(f"[time] card: {_smi()}")
     rows = []
 
@@ -3684,7 +3750,47 @@ def phase_walk_times(ck, dev) -> dict:
            lambda: torch.fft.rfft2(cube),
            lambda: {"layout": list(ck.r2c_pair_layout(ny, nz))})
     del cube
-    return {"rows": rows}
+    # fft_strided_tw at the 2^20 row's pass (16 x 512 x 2048), the twiddle
+    # on the write and after the read, and fft_dct1 at the DCT-I 1025 /
+    # DST-I 1023 rows (PERF.md rows 3 and 14)
+    B, nc, ns = LONG_ROW_LINES, 512, 2048
+    xr, xi = _planes((B, nc, ns), 901, dev)
+    for inverse in (False, True):
+        kw = (dict(pre=ck.twiddle(LONG_ROW_N, True)) if inverse
+              else dict(post=ck.twiddle(LONG_ROW_N)))
+        scale = 1.0 / LONG_ROW_N if inverse else 1.0
+        row_of("fft_strided_tw", "fft_strided_tw_kernel",
+               "inverse, twiddle after the read" if inverse
+               else "forward, twiddle on the write", (B, nc, ns),
+               lambda: ck.fft_strided(xr, xi, inverse, scale, **kw),
+               lambda: ck.fft_strided_plain(xr, xi, inverse, scale, **kw),
+               16.0 * B * nc * ns,
+               _fft_ops(B * nc * ns, nc) + _cmul_ops(B * nc * ns), None,
+               lambda: {"layout": list(ck.strided_tw_layout(nc, ns)),
+                        "blocks_per_sm": ck.strided_tw_occupancy(nc, ns)})
+    del xr, xi
+    for dst, n in ((False, 1025), (True, 1023)):
+        B = TARGET_BYTES // (4 * n)
+        x = _planes((B, n), n + 7, dev)[0]
+        row_of("fft_dct1", "dct1_kernel", f"{'DST' if dst else 'DCT'}-I {n}",
+               (B, n), lambda: ck.fft_dct1(x, dst, 1.0),
+               lambda: ck.fft_dct1_plain(x, dst, 1.0), 8.0 * B * n,
+               _fft_ops(B * n, n), None,
+               lambda: {"layout": list(ck.dct1_layout(n, dst)),
+                        "blocks_per_sm": ck.dct1_occupancy(n, dst)})
+        del x
+    # the long tier's round trips through FFTApplication
+    import vkfft_tpu_torch as vt
+    rounds = []
+    for n, B in LONG_E2E:
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True))
+        x = vt.Planar(*_planes((B, n), n + 5, dev))
+        row = {"row": f"long_n{n}", "shape": [B, n],
+               "ms": _time_ms(lambda: app.inverse(app.forward(x)))}
+        _log(f"[time] walk {row}")
+        rounds.append(row)
+        del x
+    return {"rows": rows, "long_round_trips": rounds}
 
 
 # fft_conv's layout sweep (conv_times): (block points, points a thread in
@@ -3787,6 +3893,30 @@ def _long_factor_cases(ck):
         ("primes 127, 101", (3, 127 * 2, 101), True, 1.0,
          dict(pre=twid(254 * 101, True))),
         ("odd S", (5, 96, 77), False, 1.0, dict(post=twid(96 * 77))),
+        # the folded natural order: two uploads' first pass stored
+        # transposed and its inverse read so; three uploads' first pass
+        # likewise, its second over the (js, ka) columns, its third
+        # interleaved
+        ("fold two-upload fwd", (16, 512, 2048), False, 1.0,
+         dict(post=twid(1 << 20), out_transposed=True)),
+        ("fold two-upload inv", (16, 2048, 512), True, 2.0 ** -20,
+         dict(pre=twid(1 << 20, True), in_transposed=True)),
+        ("fold three pass 1 fwd", (2, na, nb * ns), False, 1.0,
+         dict(post=twid(na * nb, sd=ns), out_transposed=True)),
+        ("fold three pass 1 inv", (2, nb * ns, na), True, 0.5,
+         dict(pre=twid(na * nb, True, sd=ns), in_transposed=True)),
+        ("fold three pass 2 fwd", (2, nb, ns * na), False, 1.0,
+         dict(post=twid(na * nb * ns, a=na, sd=na, sm=na))),
+        ("fold three pass 2 inv", (2, nb, ns * na), True, 1.0,
+         dict(pre=twid(na * nb * ns, True, a=na, sd=na, sm=na))),
+        ("fold three pass 3 fwd", (2 * nb, ns, na), False, 0.25,
+         dict(out_interleave=nb)),
+        ("fold three pass 3 inv", (2 * nb, ns, na), True, 1.0,
+         dict(in_interleave=nb)),
+        ("transposed, primes 127, 101, odd S", (3, 77, 254), True, 1.0,
+         dict(pre=twid(254 * 77, True), in_transposed=True)),
+        ("transposed n=8192", (1, 8192, 40), False, 1.0,
+         dict(post=twid(8192 * 40), out_transposed=True)),
     ]
     # the long Bluestein's two passes at sample 14's 32771 and 65537, at
     # 99991 and at a small plane whose live rows end mid-row
@@ -3809,7 +3939,7 @@ def _factor_numpy(ck, f, P, n, S):
     if f.kind == "chirp":
         e = (row * S + s) ** 2 % f.N
     else:
-        e = (row * f.a + p % f.pm * f.b) * (s // f.sd) % f.N
+        e = (row * f.a + p % f.pm * f.b + s % f.sm) * (s // f.sd) % f.N
     return np.exp((2j if f.inverse else -2j) * np.pi * e / f.N)
 
 
@@ -3828,6 +3958,8 @@ def phase_long_kernels_vs_plain(ck, dev) -> dict:
         else:
             xr, xi = _planes(shape, sum(shape), dev)
             P, n, S = shape
+            if kw.get("in_transposed"):
+                n, S = S, n
         got = ck.fft_strided(xr, xi, inverse, scale, **kw)
         plain = ck.fft_strided_plain(xr, xi, inverse, scale, **kw)
         err = _rel(torch.complex(*got), torch.complex(*plain))
@@ -3838,7 +3970,8 @@ def phase_long_kernels_vs_plain(ck, dev) -> dict:
             x = np.zeros((P, n * S), np.complex128)
             x[:, :xr.shape[1] if "plane" in kw else n * S] = _cplx2(
                 xr.reshape(P, -1), xi.reshape(P, -1))
-            x = x.reshape(P, n, S)
+            x = (x.reshape(P, S, n).transpose(0, 2, 1)
+                 if kw.get("in_transposed") else x.reshape(P, n, S))
             d = kw.get("in_interleave", 1)
             x = x.reshape(P // d, n, d, S).transpose(0, 2, 1, 3).reshape(
                 P, n, S)
@@ -3850,6 +3983,8 @@ def phase_long_kernels_vs_plain(ck, dev) -> dict:
                 y = y * _factor_numpy(ck, kw["post"], P, n, S)
             d = kw.get("out_interleave", 1)
             y = y.reshape(P // d, d, n, S).transpose(0, 2, 1, 3)
+            if kw.get("out_transposed"):
+                y = y.reshape(P, n, S).transpose(0, 2, 1)
             y = y.reshape(P, -1)[:, :got[0].reshape(P, -1).shape[1]]
             row["rel_err_vs_numpy"] = _numpy_rel(
                 _cplx2(got[0].reshape(P, -1), got[1].reshape(P, -1)), y)
@@ -3942,14 +4077,17 @@ def _long_rows(ck):
 
 
 # launches of one forward and one inverse, by length (the splits of
-# cuda_kernels.long_split: to 2^23 two uploads, from 2^24 three)
+# cuda_kernels.long_split: to 2^23 two uploads, from 2^24 three; the
+# reorder folded into a pass where cuda_kernels.long_folds holds: 2^17,
+# 2^20 and every three-upload row here; 2^22's ns = 8192 keeps the
+# transpose)
 LONG_LAUNCHES = {
-    1 << 17: {"fft_strided_tw": 2, "fft_lines": 2},
-    1 << 20: {"fft_strided_tw": 2, "fft_lines": 2},
+    1 << 17: {"fft_strided_tw": 2, "fft_strided": 2},
+    1 << 20: {"fft_strided_tw": 2, "fft_strided": 2},
     1 << 22: {"fft_strided_tw": 2, "fft_lines": 2},
-    1 << 24: {"fft_strided_tw": 4, "fft_lines": 2},
-    1 << 26: {"fft_strided_tw": 4, "fft_lines": 2},
-    1 << 28: {"fft_strided_tw": 4, "fft_lines": 2},
+    1 << 24: {"fft_strided_tw": 6},
+    1 << 26: {"fft_strided_tw": 6},
+    1 << 28: {"fft_strided_tw": 6},
 }
 
 
@@ -4006,50 +4144,120 @@ def phase_long_main_path(vt, ck, torch_engine, dev) -> dict:
             "plain_engine_calls": 0, "rows": rows}
 
 
+# the long round trips timed (n, lines): the 2^20 row at 128 MiB, the 2^22
+# row (ns = 8192: the transpose stays), Bluestein 65537 at 64 MiB, sample
+# 11's 2^24 and 2^26 lines (three uploads)
+LONG_E2E = ((LONG_ROW_N, LONG_ROW_LINES), (1 << 22, TARGET_BYTES >> 25),
+            (LONG_BLUESTEIN_N, SAMPLE_7_BYTES // (8 * LONG_BLUESTEIN_N)),
+            (1 << 24, 1), (1 << 26, 1))
+
+
+def _long_placements(ck, dev) -> dict:
+    """The two placements of the folded reorder at the 2^20 row, forward,
+    timed in turns (down the list, then up) beside the route without the
+    fold, each against torch.fft of the same lines (an oracle only): (a)
+    the strided pass stores its tile transposed and fft_strided runs the
+    ns rows (the route); (b) the strided pass stores rows and the ns pass
+    reads each line as a column of fft_strided_tw's transposed read,
+    storing 8 lines a block transposed, as the JAX package's tl stage (its
+    memory pattern; the port has no such mode of fft_lines); the route
+    before the fold: fft_lines on the ns lines and the transpose as a
+    tensor op."""
+    from vkfft_tpu_torch.pcomplex import Planar
+    B, n = LONG_ROW_LINES, LONG_ROW_N
+    nc, ns = ck.long_split(n)
+    xr, xi = _planes((B, nc, ns), 777, dev)
+    post = ck.twiddle(n)
+
+    def fold_a():
+        t = ck.fft_strided(xr, xi, post=post, out_transposed=True)
+        return ck.fft_strided(*t, out=t)
+
+    def fold_b():
+        t = ck.fft_strided(xr, xi, post=post)
+        return ck.fft_strided(*t, in_transposed=True)
+
+    def unfolded():
+        t = ck.fft_strided(xr, xi, post=post)
+        lines = tuple(u.reshape(-1, ns) for u in t)
+        ck.fft_lines(*lines, out=lines)
+        y = ck.swap_digits(Planar(t[0].reshape(B, n), t[1].reshape(B, n)),
+                           nc, ns)
+        return y.re, y.im
+
+    want = torch.fft.fft(torch.complex(xr, xi).reshape(B, n))
+    out = {"shape": [B, nc, ns], "ms": {}}
+    variants = (("a_strided_store_transposed", fold_a),
+                ("b_lines_store_transposed", fold_b),
+                ("unfolded_lines_and_transpose", unfolded))
+    for name, fn in variants:
+        rel = _rel(torch.complex(*fn()).reshape(B, n), want)
+        assert rel <= KERNEL_TOL, (name, rel)
+        out["ms"][name] = []
+    for name, fn in variants + variants[::-1]:
+        out["ms"][name].append(_time_ms(fn))
+    _log(f"[time] long placements {out}")
+    return out
+
+
 def phase_long_times(vt, ce, ck, dev) -> dict:
-    """fft_strided_tw at the 2^20 row's shapes (both directions, held
-    against its plain version there; no one PyTorch call computes a
-    twiddled strided pass, so library_ms is null), and the round trips of
-    the 2^20 row, of Bluestein 65537 at 64 MiB and of sample 11's 2^24
-    and 2^26 lines (three uploads), beside the bound (one read and one
-    write of the planes a direction), the kernels a direction launches,
-    the reorder's share (the tensor-op transposes timed alone at the row's
-    shapes) and torch.fft of the same data."""
+    """fft_strided_tw at the 2^20 row's shapes: the main path's folded
+    passes (the forward stored transposed, the inverse read transposed)
+    and the natural mode's twiddled passes, each held against its plain
+    version there (no one PyTorch call computes a twiddled strided pass,
+    so library_ms is null), with its layout, registers and spills (at most
+    64, none) and blocks an SM; the two placements of the folded reorder
+    (`_long_placements`); and the round trips of LONG_E2E beside the bound
+    (one read and one write of the planes a direction), the kernels a
+    direction launches, the reorder's share (the tensor-op transposes the
+    route still runs, timed alone at the row's shapes; 0 where the split
+    folds them, `long_folds`) and torch.fft of the same data."""
     from vkfft_tpu_torch.planner.plan import plan_axis
     _log(f"[time] card: {_smi()}")
+    r, st, ld = _ptxas_of(ck, "fft_strided_tw")["fft_strided_tw_kernel"]
+    assert r <= 64 and st == ld == 0, (r, st, ld)
     kernels = {"fft_strided_tw": []}
     B, n = LONG_ROW_LINES, LONG_ROW_N
     nc, ns = ck.long_split(n)
-    for inverse in (False, True):
-        xr, xi = _planes((B, nc, ns), 900 + inverse, dev)
-        kw = (dict(pre=ck.twiddle(n, True)) if inverse
-              else dict(post=ck.twiddle(n)))
+    for what, shape, inverse, kw in (
+            ("folded forward: twiddle on the write, stored transposed",
+             (B, nc, ns), False,
+             dict(post=ck.twiddle(n), out_transposed=True)),
+            ("folded inverse: read transposed, twiddle after the read",
+             (B, ns, nc), True,
+             dict(pre=ck.twiddle(n, True), in_transposed=True)),
+            ("natural forward: twiddle on the write", (B, nc, ns), False,
+             dict(post=ck.twiddle(n))),
+            ("natural inverse: twiddle after the read", (B, nc, ns), True,
+             dict(pre=ck.twiddle(n, True)))):
+        xr, xi = _planes(shape, 900 + inverse, dev)
         scale = 1.0 / n if inverse else 1.0
-        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
         err = _errors(ck.fft_strided(xr, xi, inverse, scale, **kw),
                       ck.fft_strided_plain(xr, xi, inverse, scale, **kw),
-                      ("fft_strided_tw", inverse))
+                      ("fft_strided_tw", what))
         nbytes = 16.0 * B * n
         bound, by = _bound(nbytes, _fft_ops(B * n, nc) + _cmul_ops(B * n))
-        row = {"shape": [B, nc, ns], "inverse": inverse,
-               "factor": "pre" if inverse else "post",
-               "ms": _time_ms(lambda: ck.fft_strided(
-                   xr, xi, inverse, scale, out=(yr, yi), **kw)),
+        rows, cols = (shape[2], shape[1]) if kw.get("in_transposed") \
+            else shape[1:]
+        row = {"what": what, "shape": list(shape), "inverse": inverse,
+               "ms": _time_ms(lambda: ck.fft_strided(xr, xi, inverse, scale,
+                                                     **kw)),
                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                "plain_ms": _time_ms(lambda: ck.fft_strided_plain(
                    xr, xi, inverse, scale, **kw), reps=5, inner=1, warmup=1),
                "library_ms": None,
-               "plain_mode_ms": _time_ms(lambda: ck.fft_strided(
-                   xr, xi, inverse, scale, out=(yr, yi)))}
+               "layout": list(ck.strided_tw_layout(rows, cols)),
+               "split": list(ck.strided_tw_split(rows, cols)),
+               "registers": r, "spill_bytes": [st, ld],
+               "blocks_per_sm": ck.strided_tw_occupancy(rows, cols)}
         row["GBs"] = nbytes / row["ms"] / 1e6
         _log(f"[time] fft_strided_tw {row}")
         kernels["fft_strided_tw"].append(row)
-        del xr, xi, yr, yi
+        del xr, xi
+    placements = _long_placements(ck, dev)
 
     e2e = []
-    for n, B in ((LONG_ROW_N, LONG_ROW_LINES),
-                 (LONG_BLUESTEIN_N, SAMPLE_7_BYTES // (8 * LONG_BLUESTEIN_N)),
-                 (1 << 24, 1), (1 << 26, 1)):
+    for n, B in LONG_E2E:
         app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True))
         x = vt.Planar(*_planes((B, n), n + 5, dev))
         xc = torch.complex(x.re, x.im)
@@ -4065,17 +4273,20 @@ def phase_long_times(vt, ce, ck, dev) -> dict:
                "torch_fft_ms": _time_ms(
                    lambda: torch.fft.ifft(torch.fft.fft(xc)))}
         if row["plan"] == "direct":
-            ns = ck.long_split(n)[-1]
-            t = x.re.reshape(B, n // ns, ns)
-            reorder = _time_ms(lambda: (t.transpose(1, 2).contiguous(),
-                                        t.transpose(1, 2).contiguous()))
+            split = ck.long_split(n)
+            row["folded"] = ck.long_folds(split)
+            reorder = 0.0
+            if not row["folded"]:
+                t = x.re.reshape(B, n // split[-1], split[-1])
+                reorder = _time_ms(lambda: (t.transpose(1, 2).contiguous(),
+                                            t.transpose(1, 2).contiguous()))
             row["reorder_ms_per_dir"] = reorder
             row["reorder_share"] = 2 * reorder / ms
         row["vs_torch_fft"] = row["torch_fft_ms"] / ms
         _log(f"[time] e2e {row}")
         e2e.append(row)
         del x, xc
-    return {"kernels": kernels, "e2e": e2e}
+    return {"kernels": kernels, "placements": placements, "e2e": e2e}
 
 
 # ---------------------------------------------------------------------------
@@ -4662,17 +4873,17 @@ def main(argv=None) -> int:
                "fft_dct1": ("vkfft_tpu_torch/csrc/fft_dct1.cu", f"{pe}:2958"),
                "fft_dct4": ("vkfft_tpu_torch/csrc/fft_dct4.cu", f"{pe}:3080"),
                "fft_strided_tw": ("vkfft_tpu_torch/csrc/fft_strided_tw.cu",
-                                  f"{pe}:3489"),
+                                  f"{pe}:3439"),
                "fft_dd": ("vkfft_tpu_torch/csrc/fft_dd.cu",
                           "vkfft_tpu/precision/dd_kernel.py:166")}
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
     # source holds both directions; the factor mode (fft_strided_tw) is the
-    # factor option of _strided_kernel_v3 and the whole of _strided_kernel;
+    # whole of _strided_kernel and the factor option of _strided_kernel_v3;
     # fft_twofactor holds every length of the v1 _fft_kernel
     also = {"fft_strided": [f"{pe}:4001"], "fft_r2c": [f"{pe}:2507"],
             "fft_r2c_pair": [f"{pe}:3229"], "fft_dct23": [f"{pe}:2789"],
-            "fft_strided_tw": [f"{pe}:3439"], "fft_twofactor": [f"{pe}:152"],
+            "fft_strided_tw": [f"{pe}:3489"], "fft_twofactor": [f"{pe}:152"],
             "fft_dd": ["vkfft_tpu/precision/dd_kernel.py:259"]}
     timed = {k: record["times"]["kernels"].get(k, [])
              + record["real_times"]["kernels"].get(k, [])

@@ -102,6 +102,27 @@ def test_functional_api(fn, ref_fn, axes_kw):
     assert _rel(got, ref) <= REF_TOL
 
 
+@pytest.mark.parametrize("fn", ["fftn", "ifftn", "fft2", "ifft2"])
+@pytest.mark.parametrize("engine", [None, "torch", "cuda"])
+def test_empty_axes_return_the_input(fn, engine):
+    """numpy's fftn over no axes is the input: host arrays come back as a
+    complex array of the same values, tensors as a complex tensor, a
+    Planar as itself, on every engine (once a bare ValueError of
+    min(()))."""
+    re, im = _planes((3, 4, 5), seed=11)
+    x = re + 1j * im
+    f = getattr(vt, fn)
+    want = getattr(np.fft, "ifftn" if fn.startswith("i") else "fftn")(
+        x, axes=())
+    got = f(x, axes=(), engine=engine, device="cpu")
+    assert isinstance(got, np.ndarray) and got.shape == x.shape
+    np.testing.assert_array_equal(got, want.astype(np.complex64))
+    t = torch.from_numpy(x.astype(np.complex64))
+    assert torch.equal(f(t, axes=(), engine=engine), t)
+    p = vt.from_complex(t)
+    assert f(p, axes=(), engine=engine) is p
+
+
 def test_torch_tensor_input_gives_tensor():
     re, im = _planes((3, 32), seed=12)
     x = torch.complex(torch.from_numpy(re), torch.from_numpy(im))

@@ -1,6 +1,7 @@
-"""The layout rules, tables and launch arguments of `fft_dct23` and
-`fft_dct4` on the in-place walk (csrc/fft_dct23.cu, csrc/fft_dct4.cu,
-csrc/dct_walk.cuh): every served length gets a layout the C entries
+"""The layout rules, tables and launch arguments of `fft_dct23`,
+`fft_dct1` and `fft_dct4` on the in-place walk (csrc/fft_dct23.cu,
+csrc/fft_dct1.cu, csrc/fft_dct4.cu, csrc/dct_walk.cuh): every served
+length gets a layout the C entries
 accept, the rotation tables hold their formulas, each wrapper passes its
 rule's plans and layout, and the kernels' read, build and write index maps,
 replayed in numpy on the tables and layouts the wrappers pass, give scipy's
@@ -20,6 +21,8 @@ DCT23_LENGTHS = [n for n in range(4, ck.KERNEL_MAX_N + 1)
                  if ck.dct23_supports(n)]
 DCT4_LENGTHS = [n for n in range(4, 2 * ck.KERNEL_MAX_N + 1)
                 if ck.dct4_supports(n)]
+DCT1_CASES = [(n, dst) for dst in (False, True)
+              for n in range(3, ck.KERNEL_MAX_N + 2) if ck.dct1_supports(n, dst)]
 FIXED = (2, 3, 4, 5, 7, 8, 16)
 ONE_PASS_23 = 344    # lengths whose DCT-II/III pipeline runs as one pass
 
@@ -100,6 +103,37 @@ def test_dct4_layout_rule_every_length():
             if n % 2 == 0 else 1)
         one += _check_rule(n, points, ck.dct4_layout(n), tw, True)
     assert one == 489
+
+
+def test_dct1_layout_rule_every_length():
+    """Every DCT-I / DST-I length `fft_dct1` serves gets the layout its C
+    entry accepts: `fft_r2c`'s block on the M = n -+ 1 complex points of a
+    line's extension (2048 points, 16 a thread, one pass from 4 lines),
+    with its twiddles: the M-point inter-factor twiddle, then the
+    untangle's w_2M^k, k <= M/2 (64 + M/128 + 1)."""
+    assert len(DCT1_CASES) == 5080
+    one = 0
+    for n, dst in DCT1_CASES:
+        M = ck.dct1_length(n, dst)
+        tw = len(ck.dct1_twiddle(n, dst))
+        assert tw == _rotation_points(M) + 64 + (M // 2) // 64 + 1
+        one += _check_rule(n, M, ck.dct1_layout(n, dst), tw, True)
+    assert one == 690
+
+
+@pytest.mark.parametrize("n,dst,split,layout", [
+    (1025, False, (64, 16), (128, 2, 18696)),
+    (1023, True, (64, 16), (128, 2, 18696)),
+    (256, False, (255, 1), (128, 8, 19776)),     # 3 * 5 * 17: generic stage
+    (3, False, (2, 1), (128, 1024, 25632)),
+    (3, True, (4, 1), (128, 512, 21552)),
+    (8193, False, (128, 64), (512, 1, 70408))])
+def test_dct1_layout_of_named_lengths(n, dst, split, layout):
+    """The main path's DCT-I 1025 and DST-I 1023 (M = 1024: two lines of
+    two factors a block), a generic stage, the shortest lines and the
+    longest."""
+    assert ck.dct_split(ck.dct1_length(n, dst), True) == split
+    assert ck.dct1_layout(n, dst) == layout
 
 
 @pytest.mark.parametrize("type4,n,split,layout", [
@@ -226,6 +260,43 @@ def test_dct23_launch_arguments(monkeypatch, n):
             assert ints == list(ck.stage_tables(f, inverse, 1.0, True)[0])
     tab = ck._DEVICE_TABLES[("dct23_twiddle", n, True, 0.5, "meta")]
     assert tuple(tab.shape) == (ck.dct_twiddle_points(n, False), 2)
+
+
+@pytest.mark.parametrize("n,dst", [(3, False), (1025, False), (1023, True),
+                                   (8193, False), (4, True)])
+def test_dct1_twiddle_tables(n, dst):
+    """`dct1_twiddle`: the M-point inter-factor twiddle's two tables with
+    the scale, then the untangle's w_2M^k for every k <= M/2."""
+    scale = 0.37
+    M = ck.dct1_length(n, dst)
+    tw = ck.dct1_twiddle(n, dst, scale)
+    pair = ck.twofactor_twiddle_pair(M, False, scale)
+    np.testing.assert_array_equal(tw[:len(pair)], pair)
+    k = np.arange(M // 2 + 1)
+    got = _root(tw[len(pair):], k)
+    assert np.abs(got - np.exp(-1j * np.pi * k / M)).max() < 1e-14
+
+
+@pytest.mark.parametrize("n,dst", [(3, False), (1025, False), (1023, True),
+                                   (8193, False)])
+def test_dct1_launch_arguments(monkeypatch, n, dst):
+    """`fft_dct1` launches once with the batch, the flag, the forward
+    walk plans of `dct_split`'s factors of M = n -+ 1 (no scale) and
+    `dct1_layout`; the scale rides the twiddle table."""
+    x = torch.empty(2, n, device="meta")
+    with _recorded(monkeypatch) as lib:
+        assert ck.fft_dct1(x, dst, 0.5).shape == x.shape
+        assert ck.launches == {k: 1 if k == "fft_dct1" else 0
+                               for k in ck.KERNEL_SOURCES}
+    (call,) = lib.calls
+    assert (call["entry"], call["batch"], call["lead"]) == (
+        "vk_fft_dct1", 2, (int(dst),))
+    assert call["layout"] == ck.dct1_layout(n, dst)
+    n1, n2 = ck.dct_split(ck.dct1_length(n, dst), True)
+    for ints, f in zip(call["plans"], (n1, n2)):
+        assert ints == list(ck.stage_tables(f, False, 1.0, True)[0])
+    tab = ck._DEVICE_TABLES[("dct1_twiddle", n, dst, 0.5, "meta")]
+    assert tuple(tab.shape) == (len(ck.dct1_twiddle(n, dst)), 2)
 
 
 @pytest.mark.parametrize("n", [32, 255, 256, 4095, 16384])
@@ -485,6 +556,76 @@ def _replay_dct4(x, dst, scale):
                     for p, v in _re11_outputs(k, n, c, s):
                         y[b0 + line, n - 1 - p if dst else p] = f * v
     return y
+
+
+def _replay_dct1(x, dst, scale):
+    """csrc/fft_dct1.cu: load_extension's read (float x_i to extension
+    point e = i + dst and its mirror 2M - e, DST-I's negated, DST-I's two
+    zeros), the M-point DFT with the scale, write_dct1's pairs of bins."""
+    B, n = x.shape
+    M = ck.dct1_length(n, dst)
+    n1, n2 = ck.dct_split(M, True)
+    lines = ck.dct1_layout(n, dst)[1]
+    ulo = ck.dct1_twiddle(n, dst, scale)[_rotation_points(M):]
+    y = np.zeros_like(x)
+    for b0 in range(0, B, lines):
+        nl = min(lines, B - b0)
+        h = _Home(lines, n1, n2)
+        x0 = x[b0:].ravel()
+        for t in range(nl * n):
+            q, i = divmod(t, n)
+            e = i + dst
+            _set(h, h.pos(q * M + (e >> 1), False), e & 1, x0[t])
+            if 0 < e < M:
+                m = 2 * M - e
+                _set(h, h.pos(q * M + (m >> 1), False), m & 1,
+                     -x0[t] if dst else x0[t])
+        if dst:
+            for q in range(nl):
+                _set(h, h.pos(q * M, False), 0, 0.0)
+                _set(h, h.pos(q * M + (M >> 1), False), M & 1, 0.0)
+        h.dft(nl, False)
+        h.h *= scale
+        for t in range(nl * (M // 2 + 1)):
+            q, k = divmod(t, M // 2 + 1)
+            a = h.h[h.pos(q * M + k, True)]
+            b = h.h[h.pos(q * M + (M - k if k else 0), True)]
+            yq = y[b0 + q]
+            if k == 0:
+                if not dst:
+                    yq[0], yq[M] = a.real + a.imag, a.real - a.imag
+                continue
+            w = _root(ulo, k)
+            E = complex(0.5 * (a.real + b.real), 0.5 * (a.imag - b.imag))
+            wO = w * complex(0.5 * (a.imag + b.imag), 0.5 * (b.real - a.real))
+            if dst:
+                yq[k - 1] = -(E.imag + wO.imag)
+                if 2 * k != M:
+                    yq[M - k - 1] = E.imag - wO.imag
+            else:
+                yq[k] = E.real + wO.real
+                if 2 * k != M:
+                    yq[M - k] = E.real - wO.real
+    return y
+
+
+@pytest.mark.parametrize("n,dst", [
+    (3, False), (4, False), (5, False), (9, False), (65, False), (256, False),
+    (1025, False), (3001, False), (3, True), (4, True), (5, True), (9, True),
+    (63, True), (1023, True), (4095, True)])
+def test_dct1_index_maps_replayed_match_scipy(n, dst):
+    """csrc/fft_dct1.cu's read, passes and write replayed in numpy on the
+    twiddles (`dct1_twiddle`) and layout (`dct1_layout`) the wrapper
+    passes, over up to three blocks and a line: even and odd M (a last
+    pair of bins that is one bin), one pass and two factors (M = 1024,
+    3000 as 75 x 40, 4096), the shortest lines."""
+    scale = 0.37
+    lines = ck.dct1_layout(n, dst)[1]
+    B = min(3 * lines, 9) + 1
+    x = np.random.default_rng(n + dst).standard_normal((B, n))
+    got = _replay_dct1(x, dst, scale)
+    want = scale * (sfft.dst if dst else sfft.dct)(x, type=1)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("type,n", [(2, 5), (2, 96), (3, 45), (3, 32),

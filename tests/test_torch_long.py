@@ -251,11 +251,20 @@ def test_factor_mode_checks():
     before = dict(ck.launches)
     ck.fft_strided(x, x, plane=(10, 10))
     assert ck.launches == before
-    # the C entry: four planes, P, S, the live lengths, plan, table,
-    # factors, the two interleaves
+    # a transposed side takes whole planes, one side, no interleave and a
+    # fresh output
+    t = torch.zeros(2, 8, 6)
+    for kw in (dict(in_transposed=True, out_transposed=True),
+               dict(out_transposed=True, out_interleave=2),
+               dict(in_transposed=True, out=(t, t))):
+        with pytest.raises(ValueError):
+            ck.fft_strided(t, t, **kw)
+    # the C entry: four planes, P, S, the live lengths, the plans of the
+    # two factors, their tables, the twiddle, the factors, the two
+    # interleaves, the mode, then the layout
     assert set(ck._ENTRIES) == set(ck.KERNEL_SOURCES)
     assert ck._ENTRIES["fft_strided_tw"] == {"fft_strided_tw":
-                                             "ppppqqqqpppii"}
+                                             "ppppqqqqppppppiiiiii"}
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +400,37 @@ def test_long_route_launches(monkeypatch, n):
         assert launches == {k: 2 * want[k] for k in ck.KERNEL_SOURCES}
 
 
+@pytest.mark.parametrize("n", [n for n in LONG_LENGTHS
+                               if plan_axis(n).algorithm is Algorithm.DIRECT])
+def test_long_natural_order_folds_the_reorder(monkeypatch, n):
+    """A forward and an inverse through FFTApplication, on meta tensors,
+    call the tensor-op reorder (`swap_digits`) only where the split keeps
+    it (`long_folds` false: ns = 8192, 16129, 9797 here), once a
+    direction, and never where a pass stores or reads it transposed; the
+    launches stay the route's, one a pass and direction."""
+    reorders = []
+    swap = ck.swap_digits
+    monkeypatch.setattr(ck, "swap_digits",
+                        lambda *a: reorders.append(a[1:]) or swap(*a))
+    split = ck.long_split(n)
+    want = collections.Counter(k for k, _, _ in cuda_engine.route(plan_axis(n)))
+    assert sum(want.values()) == len(split)
+    app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True),
+                            engine="cuda")
+    x = vt.Planar(torch.empty(2, n, device="meta"),
+                  torch.empty(2, n, device="meta"))
+    with _stubbed_launches(monkeypatch) as launches:
+        y = app.inverse(app.forward(x))
+        assert y.shape == (2, n)
+        assert launches == {k: 2 * want[k] for k in ck.KERNEL_SOURCES}
+    folds = ck.long_folds(split)
+    assert len(reorders) == (0 if folds else 2), (split, reorders)
+    assert folds == (split[-1] not in (8192, 16129, 9797)), split
+    if folds:
+        last = "fft_strided" if len(split) == 2 else "fft_strided_tw"
+        assert want[last] >= 1 and want["fft_lines"] == 0
+
+
 def test_composed_bluestein_launches(monkeypatch):
     """Where m's lines fit no `fft_conv` the route is the long forward and
     the long inverse of m; forced here at n = 32771 (m = 66560)."""
@@ -419,7 +459,8 @@ def test_every_long_length_has_a_route():
              "fft_twofactor": ck.twofactor_supports,
              "fft_conv_inv": ck.twofactor_supports,
              "fft_conv_pair": lambda m: ck.conv_pair_plan(m) is not None,
-             "fft_strided_tw": ck.strided_tw_supports}
+             "fft_strided_tw": ck.strided_tw_supports,
+             "fft_strided": ck.kernel_supports}
     for n in lengths:
         plan = plan_axis(n)
         kernels = cuda_engine.route(plan)

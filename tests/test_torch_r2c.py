@@ -521,17 +521,6 @@ def test_r2c_gates():
         assert not cuda_engine.r2c_pair_supports(ny, nz)
 
 
-@pytest.mark.parametrize("n,inverse,scale", [(64, False, 1.0), (1000, True, 0.5)])
-def test_r2c_tables_layout(n, inverse, scale):
-    ints, table, post = ck.r2c_tables(n, inverse, scale)
-    s_ints, stages = ck.stage_tables(n // 2, inverse, scale)
-    assert ints == s_ints and post == len(stages)
-    np.testing.assert_array_equal(table[:post], stages)
-    np.testing.assert_allclose(
-        table[post:], np.exp(-2j * np.pi / n * np.arange(n // 4 + 1)),
-        atol=1e-12)
-
-
 def test_packed_layout_helpers_round_trip():
     x = torch.from_numpy(_real((3, 32), seed=9))
     nr, ni = ck.fft_r2c(x)

@@ -366,6 +366,14 @@ def fftn(x, axes=None, engine: Optional[str] = None, inverse: bool = False,
     else:
         axes = tuple(a % ndim for a in (axes if isinstance(axes, (tuple, list))
                                         else (axes,)))
+    if not axes:
+        # numpy's fftn over no axes: the input, in the form a transform
+        # returns it
+        if isinstance(x, Planar):
+            return x
+        if isinstance(x, torch.Tensor):
+            return to_complex(from_complex(x))
+        return to_numpy(from_complex(x, resolve_device(device)))
     # the configuration covers the trailing block of dims holding every
     # transformed axis; leading dims are batch
     lead = min(axes)

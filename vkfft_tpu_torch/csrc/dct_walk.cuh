@@ -1,5 +1,5 @@
 // The pieces of the real-to-real kernels on the in-place walk (inplace.cuh)
-// that fft_dct23.cu and fft_dct4.cu share, built for sm_90a.
+// that fft_dct23.cu, fft_dct1.cu and fft_dct4.cu share, built for sm_90a.
 //
 // A block holds its complex pipelines once in shared memory, each as the
 // (n2, n1) matrix at the odd pitch n1 | 1 of two_factor_passes, beside the

@@ -20,7 +20,7 @@
 // memory beside the stage tables and the twiddles' root tables.  The
 // forward reads each line as m float2 pairs z[j] = x[2j] + i x[2j+1],
 // straight to their places by cp.async (8 bytes a point), runs the m-point
-// stages in place, then untangles as it writes (r2c.cuh's formulas; each
+// stages in place, then untangles as it writes (real_walk.cuh's formulas; each
 // bin reads Z[k] and Z[m-k] through the layout's position map, w^k from
 // two root tables): the block's rows are one contiguous run of each plane,
 // written as float4s from its first 16-byte boundary (numpy rows of n/2+1

@@ -1,7 +1,8 @@
 // The in-place stage walk of the port's redesigned kernels (fft_twofactor.cu,
 // fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_r2c_pair.cu, fft_strided.cu,
-// fft_conv_pair.cu's Bluestein mode, fft_dct23.cu, fft_dct4.cu, fft_conv.cu,
-// fft_conv_inv.cu), built for sm_90a.
+// fft_strided_tw.cu, fft_conv_pair.cu's Bluestein mode, fft_dct23.cu,
+// fft_dct1.cu, fft_dct4.cu, fft_conv.cu, fft_conv_inv.cu), built for
+// sm_90a.
 //
 // A block holds its sequences once in shared memory.  A Stockham stage of
 // radix r (stockham.cuh's recurrence) maps the points whose index is m mod

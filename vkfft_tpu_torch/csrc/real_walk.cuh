@@ -1,7 +1,14 @@
 // The real transforms' pieces of the in-place walk (inplace.cuh), shared
-// by fft_r2c.cu and fft_r2c_pair.cu, built for sm_90a: r2c.cuh's untangle
-// of an even-length real line (n = 2m points read as m complex pairs) as
-// the walk runs it, each bin read where the walk's passes left it.
+// by fft_r2c.cu, fft_r2c_pair.cu and (through dct_walk.cuh) the R2R
+// kernels, built for sm_90a: the untangle of an even-length real line (n =
+// 2m points read as m complex pairs z[j] = x[2j] + i x[2j+1]; the
+// reference's even-n decomposition, vkFFT_Plan_R2C.h:30, appendR2C_write
+// vkFFT_R2C.h:450) as the walk runs it, each bin read where the walk's
+// passes left it:
+//     E[k] = (Z[k] + conj Z[m-k]) / 2,   O[k] = -i (Z[k] - conj Z[m-k]) / 2,
+//     X[k] = E[k] + w^k O[k],   X[m-k] = conj(E[k] - w^k O[k]),
+// w = e^{-2 pi i / n}; a "packed" row holds the real X[0] and X[m] as
+// (X[0], X[m]) in slot 0.
 #pragma once
 
 #include "inplace.cuh"
@@ -24,7 +31,7 @@ __device__ __forceinline__ float2 root(const float2* ulo, int k) {
 
 // Packed X -> Z on the block's nl lines of m points, point k of line q at
 // position(q * m + k, mp), one thread a pair (k, m - k), times `scale`
-// (r2c.cuh's inverse untangle; slot 0 holds the real X[0] and X[m]).
+// (the inverse untangle; slot 0 holds the real X[0] and X[m]).
 // Ends on a barrier.
 __device__ void untangle_inverse(float2* home, int nl, int m, const Map& mp,
                                  const float2* ulo, float scale) {
@@ -57,7 +64,7 @@ __device__ void untangle_inverse(float2* home, int nl, int m, const Map& mp,
 }
 
 // Bin c (0 <= c <= m) of line q's half spectrum from Z[k], Z[m - k], k =
-// min(c, m - c), at their places at(q, k) (r2c.cuh's forward untangle,
+// min(c, m - c), at their places at(q, k) (the forward untangle,
 // read where it is stored): E = (Z[k] + conj Z[m-k]) / 2, O = -i (Z[k] -
 // conj Z[m-k]) / 2, X[k] = E + w^k O, X[m-k] = conj(E - w^k O).  The real
 // bins: (X[0], 0) and (X[m], 0), or packed (X[0], X[m]) at c = 0.

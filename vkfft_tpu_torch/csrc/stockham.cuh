@@ -1,6 +1,7 @@
-// Shared-memory Stockham FFT stages for the port's kernels (fft_strided_tw.cu
-// and every kernel built on it; the plan, the butterflies and the tables
-// also for the in-place walk of inplace.cuh), built for sm_90a.
+// Shared-memory Stockham FFT stages of the port's kernels (run_stages and
+// the tile copies under fft_conv_pair.cu's 2-D mode; the plan, the
+// butterflies and the tables also under the in-place walk of inplace.cuh
+// and fft_dd.cu), built for sm_90a.
 //
 // A block holds `lines` complex sequences of length n in shared memory as
 // float2 (re, im).  Element k of sequence q sits at smem[q*qs + k*es]:

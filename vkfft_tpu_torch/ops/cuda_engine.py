@@ -31,15 +31,27 @@ package's order of tiers (``pallas_engine.fft_lines_p``, l.613-725):
   swaps and the twiddle multiply as tensor ops, as in JAX.
 * The long tier (DIRECT n > 16384; ``pallas_engine.py:4218-4418``): two
   uploads n = nc*ns (powers of two to 2^23), the strided nc pass in
-  `fft_strided_tw` with w_n^(kc*js) on its write, the ns lines in
-  `fft_lines` or `fft_twofactor`, and the (kc, ks) -> (ks, kc) reorder
-  as a tensor op; or, where `long_split`'s cost model (fitted to an
-  H100's pass times) prefers it, three uploads n = na*nb*ns: two strided
-  passes (w_(na*nb)^(ka*jb) on the first's write, w_n^((kb*na + ka)*js)
-  on the second's, which writes its planes interleaved so kc comes out in
-  natural order), the ns lines and the same reorder.  The inverse mirrors
-  each with the conjugate twiddles on the strided reads.  The twiddles
-  and chirps are computed in the kernel from their exact integer
+  `fft_strided_tw` with w_n^(kc*js) on its write, which stores its tile
+  transposed, (js, kc), then `fft_strided` over the ns rows of that
+  layout, whose output is the natural order: the (kc, ks) -> (ks, kc)
+  reorder rides the first pass's store, as the JAX package's ``tl``
+  stage writes it (``pallas_engine.py:4242-4252``).  Or, where
+  `long_split`'s cost model (fitted to an H100's pass times) prefers it,
+  three uploads n = na*nb*ns, three `fft_strided_tw` passes: na with
+  w_(na*nb)^(ka*jb) on its write, stored transposed as (jb, js, ka); nb
+  over the (js, ka) columns with w_n^((kb*na + ka)*js) on its write; ns
+  over the ka columns of the planes (b, kb), written interleaved as (ks,
+  kb, ka), the natural order.  Where the last pass's tile holds fewer
+  than 8 columns or no kernel of its kind takes ns (`ck.long_folds`: two
+  uploads at ns = 4096 or 8192, 2^21 to 2^23, or ns outside `fft_strided`;
+  three at na < 8, ns = 4096 (2^30) or ns outside `fft_strided_tw`), the
+  ns pass runs on contiguous lines (`fft_lines` or
+  `fft_twofactor`; three uploads' second pass then writes its planes
+  interleaved so kc comes out in natural order) and the reorder is a
+  tensor op, as in the JAX package where ``tl_ok`` fails; the swapped
+  order of the composed Bluestein runs those passes too.  The inverse
+  mirrors each with the conjugate twiddles on the strided reads.  The
+  twiddles and chirps are computed in the kernel from their exact integer
   exponents: no O(n) table exists.  Rader's p - 1 never reaches it (p <=
   10007).
 
@@ -122,19 +134,26 @@ def route(plan: AxisPlan) -> tuple[tuple[str, AxisPlan, int], ...]:
             nc, ns = split
             return (("fft_strided_tw", plan, nc), ("fft_conv", plan, ns),
                     ("fft_strided_tw", plan, nc))
-        fwd = _long_route(plan, core)
+        fwd = _long_route(plan, core, natural=False)
         return fwd + fwd[::-1]
     # DIRECT beyond 16384 (Rader's p - 1 never is: RADER_MAX_PRIME)
     return _long_route(plan, core)
 
 
-def _long_route(plan: AxisPlan, n: int) -> tuple:
+def _long_route(plan: AxisPlan, n: int, natural: bool = True) -> tuple:
     """The forward launches of the long tier at length n: a strided pass
-    per strided factor of `long_split`, then the contiguous pass."""
+    per strided factor of `long_split`, then the ns pass: in the natural
+    order where the split folds the reorder (`ck.long_folds`), a strided
+    pass (`fft_strided` after two uploads, `fft_strided_tw` after three),
+    else the contiguous pass."""
     split = ck.long_split(n)
     if split is None:
         raise ValueError(f"no split of the long tier holds n={n}")
     *strided, ns = split
+    if natural and ck.long_folds(split):
+        last = "fft_strided" if len(split) == 2 else "fft_strided_tw"
+        return tuple((k, plan, f) for k, f in
+                     [("fft_strided_tw", f) for f in strided] + [(last, ns)])
     lines = "fft_lines" if ck.kernel_supports(ns) else "fft_twofactor"
     return (tuple(("fft_strided_tw", plan, f) for f in strided)
             + ((lines, plan, ns),))
@@ -358,17 +377,33 @@ def fft_long_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
     `long_split`; a three-factor split runs `fft_long3_p`).  Forward: the
     strided nc pass with the twiddle w_n^(kc*js) on its write, then the ns
     lines with the caller's scale, then the (kc, ks) -> (ks, kc) reorder as
-    a tensor op; the inverse mirrors it, the conjugate twiddle on the
-    strided pass's read and the scale in its stages.  ``order="swapped"``
-    leaves (reads) the (kc, ks) order and skips the reorder; a forward and
-    an inverse cancel it.  ``donate=True`` lets the first pass write over
-    the caller's planes."""
+    a tensor op; where the split folds (`ck.long_folds`) the natural order
+    instead stores the first pass transposed, (js, kc), and runs the ns
+    pass as `fft_strided` over its rows (the JAX package's free reorder,
+    ``pallas_engine.py:4242-4252``).  The inverse mirrors it, the
+    conjugate twiddle on the strided pass's read and the scale in its
+    stages.  ``order="swapped"`` leaves (reads) the (kc, ks) order and
+    skips the reorder; a forward and an inverse cancel it.
+    ``donate=True`` lets the first pass write over the caller's planes."""
     split = split or ck.long_split(n)
     if len(split) == 3:
         return fft_long3_p(x, n, inverse, scale, order, split, donate)
     nc, ns = split
     B = x.shape[0]
     x = x.contiguous()
+    if order == "natural" and ck.long_folds(split):
+        if not inverse:
+            t = ck.fft_strided(x.re.reshape(B, nc, ns),
+                               x.im.reshape(B, nc, ns), False,
+                               post=ck.twiddle(n), out_transposed=True)
+            y = ck.fft_strided(*t, False, scale, out=t)
+        else:
+            xr, xi = x.re.reshape(B, ns, nc), x.im.reshape(B, ns, nc)
+            t = ck.fft_strided(xr, xi, True,
+                               out=(xr, xi) if donate else None)
+            y = ck.fft_strided(*t, True, scale, pre=ck.twiddle(n, True),
+                               in_transposed=True)
+        return Planar(*y).reshape(B, n)
     if not inverse:
         xr, xi = x.re.reshape(B, nc, ns), x.im.reshape(B, nc, ns)
         t = Planar(*ck.fft_strided(xr, xi, False, post=ck.twiddle(n),
@@ -396,12 +431,37 @@ def fft_long3_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
     w_n^((kb*na + ka)*js), ka the digit carried in P, on its write, which
     it lays out interleaved as (B, nb, na, ns), kc = kb*na + ka in natural
     order; the ns lines with the scale; the (kc, ks) -> (ks, kc) reorder as
-    a tensor op, as for two uploads.  The inverse mirrors it; ``order`` and
-    ``donate`` as for `fft_long_p`."""
+    a tensor op, as for two uploads.  Where the split folds
+    (`ck.long_folds`) the natural order runs three strided passes
+    instead: na stored transposed, (B, jb, js, ka); nb over its (js, ka)
+    columns, w_n^((kb*na + ka)*js) on the write, giving (B, kb, js, ka);
+    ns over the ka columns of the planes (b, kb), with the scale, written
+    interleaved as (B, ks, kb, ka), the natural order.  The inverse
+    mirrors it; ``order`` and ``donate`` as for `fft_long_p`."""
     na, nb, ns = split or ck.long_split(n, 3)
     B = x.shape[0]
     nc = na * nb
     x = x.contiguous()
+    if order == "natural" and ck.long_folds((na, nb, ns)):
+        mid = ck.twiddle(n, inverse, a=na, sd=na, sm=na)
+        if not inverse:
+            t = ck.fft_strided(x.re.reshape(B, na, nb * ns),
+                               x.im.reshape(B, na, nb * ns), False,
+                               post=ck.twiddle(nc, sd=ns), out_transposed=True)
+            t = tuple(u.reshape(B, nb, ns * na) for u in t)
+            t = ck.fft_strided(*t, False, post=mid, out=t)
+            y = ck.fft_strided(*(u.reshape(B * nb, ns, na) for u in t), False,
+                               scale, out_interleave=nb)
+        else:
+            t = ck.fft_strided(x.re.reshape(B * nb, ns, na),
+                               x.im.reshape(B * nb, ns, na), True,
+                               in_interleave=nb)
+            t = tuple(u.reshape(B, nb, ns * na) for u in t)
+            t = ck.fft_strided(*t, True, pre=mid, out=t)
+            y = ck.fft_strided(*(u.reshape(B, nb * ns, na) for u in t), True,
+                               scale, pre=ck.twiddle(nc, True, sd=ns),
+                               in_transposed=True)
+        return Planar(*y).reshape(B, n)
     if not inverse:
         xr, xi = x.re.reshape(B, na, nb * ns), x.im.reshape(B, na, nb * ns)
         tr, ti = ck.fft_strided(xr, xi, False,

@@ -19,13 +19,16 @@ _dd_strided_kernel``):
   of (P, n, R, nz) planes): on the card that layout is the (P, n, R*nz)
   view of the same memory, so one kernel serves both.
 * `fft_strided_tw` (``csrc/fft_strided_tw.cu``), the factor mode of
-  `fft_strided` (its ``pre``/``post``/``plane`` options), replaces
+  `fft_strided` (its ``pre``/``post``/``plane``, interleave and
+  transposed options), replaces
   ``vkfft_tpu/ops/pallas_engine.py:3439 _strided_kernel`` and the factor
   option of ``:3489 _strided_kernel_v3``: the strided DFT with a four-step
   twiddle or a Bluestein chirp (`Factor`) computed in the kernel and
-  multiplied on the read and on the write, over live lengths of the
-  planes; the passes of the long tier (`long_split`,
-  `bluestein_long_split`).
+  multiplied after the read and on the write, over live lengths of the
+  planes, its tile on the in-place walk (`strided_tw_layout`); the passes
+  of the long tier (`long_split`, `bluestein_long_split`), whose first
+  pass stores the four-step reorder transposed where the split folds it
+  (`long_folds`).
 * `fft_pair` (``csrc/fft_pair.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``: 2-D C2C of the two
   minor axes of (B, ny, nz) fp32 planes in one pass, a plane held once in
@@ -67,7 +70,8 @@ _dd_strided_kernel``):
   two lines riding one n-point complex pipeline.
 * `fft_dct1` (``csrc/fft_dct1.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:2958 _dct1_kernel``: DCT-I/DST-I as the
-  real FFT of the extension, built as the line is read.
+  real FFT of the extension, read by cp.async straight into it, on the
+  in-place walk (`dct1_layout`).
 * `fft_dct4` (``csrc/fft_dct4.cu``) replaces
   ``vkfft_tpu/ops/pallas_engine.py:3080 _dct4_kernel``: DCT-IV/DST-IV, the
   n/2 complex trick for even n and the 2n-point form for odd n.
@@ -310,9 +314,12 @@ def strided_tw_supports(n: int) -> bool:
 # model fitted to an H100's times of each pass over 2^24 points
 # (`bench_torch_long.py`; PERF.md), in units of a pass that reads whole
 # sectors (0.19 ms): a strided pass of length n reads each row of its tile
-# as a run of ts = min(32, 4096/n) floats (``csrc/fft_strided_tw.cu``),
-# whole 32-byte sectors up to n = 512 and one float a row from n = 4096
-# (0.92 ms); `fft_lines` runs 0.14-0.19 ms to n = 4096 and 0.27 at 8192,
+# as a run of ts floats (`strided_tw_layout`: 4096/n, at least 8 where
+# they fit beside the tables, 6 at 4096 and 3 at 8192), and a tile of
+# more than STRIDED_TILE_POINTS points holds fewer blocks an SM (the walk's
+# `fft_strided` over 2^24 points: 0.19 ms at n = 1024, 0.53 at 4096,
+# 0.78 at 8192 against 0.11 at n = 64; PERF.md, PR 13);
+# `fft_lines` runs 0.14-0.19 ms to n = 4096 and 0.27 at 8192,
 # `fft_twofactor` 0.49 at 16384 (one block per SM).  The kernel redesigned
 # since runs a 16384-point pass over 2^23 points (512 lines) in 0.148 ms
 # (chip_smoke.py any_times on an H100; PERF.md), about 0.30 over 2^24:
@@ -326,12 +333,16 @@ THREE_UPLOAD_COST = 0.5
 
 
 def _strided_cost(n: int) -> float:
-    """Relative cost of a strided pass of length n: (8/ts)^0.75 for tiles
-    of ts < 8 columns (runs shorter than a sector), and one more where a
-    prime above 64 takes an O(r^2) stage."""
-    ts = min(32, max(1, 4096 // n))
-    return max(1.0, (8.0 / ts) ** 0.75) + (prime_factors(n)[-1]
-                                            > KERNEL_MAX_PRIME)
+    """Relative cost of a strided pass of length n at the columns ts of
+    `strided_tw_layout`: (8/ts)^0.75 for tiles of ts < 8 columns (runs
+    shorter than a sector) times (ts * n / STRIDED_TILE_POINTS)^0.75 for
+    tiles of more points (fewer blocks an SM), and one more where a prime
+    above 64 takes an O(r^2) stage.  At n = 1024, 2048 and 4096 the same
+    values as the rule before the walk (ts = min(32, 4096/n)) gave."""
+    ts = strided_tw_layout(n, 1 << 30)[0]
+    return (max(1.0, (8.0 / ts) ** 0.75)
+            * max(1.0, ts * n / STRIDED_TILE_POINTS) ** 0.75
+            + (prime_factors(n)[-1] > KERNEL_MAX_PRIME))
 
 
 def _lines_cost(n: int) -> Optional[float]:
@@ -396,6 +407,22 @@ def bluestein_long_split(m: int) -> Optional[tuple[int, int]]:
     return _best_split(cands)
 
 
+def long_folds(split: tuple[int, ...]) -> bool:
+    """Whether the natural order of the long tier at ``split`` needs no
+    transpose: the last pass (two uploads: `fft_strided` over ns rows and
+    nc columns after a first pass that stores its tile transposed; three:
+    `fft_strided_tw` over ns rows and na columns, its planes interleaved)
+    takes ns and holds a tile of STRIDED_MIN_COLUMNS columns or more, runs
+    of whole sectors.  Elsewhere the (kc, ks) -> (ks, kc) reorder stays a
+    tensor op, as in the JAX package where ``tl_ok`` fails."""
+    *strided, ns = split
+    if len(split) == 2:
+        return (kernel_supports(ns)
+                and strided_layout(ns, strided[0])[0] >= STRIDED_MIN_COLUMNS)
+    return (strided_tw_supports(ns)
+            and strided_tw_layout(ns, strided[0])[0] >= STRIDED_MIN_COLUMNS)
+
+
 def long_order(spec, split: tuple[int, ...]):
     """A natural-order spectrum of length n (numpy array or tensor) in the
     long tier's swapped order of ``split``: position (kc, ks) holds bin kc
@@ -412,8 +439,8 @@ class Factor:
     (P, n, S) plane of `fft_strided`'s factor mode, its exponent e an
     integer of the point's (p, row, s):
 
-    * "twiddle", the four-step twiddle: e = (row * a + (p % pm) * b) *
-      (s // sd);
+    * "twiddle", the four-step twiddle: e = (row * a + (p % pm) * b + s %
+      sm) * (s // sd);
     * "chirp", the Bluestein chirp exp(-+i pi j^2 / n) at N = 2n: e = j^2
       mod N, j = row * S + s the point's index in its line.
     """
@@ -424,20 +451,22 @@ class Factor:
     pm: int = 1
     b: int = 0
     sd: int = 1
+    sm: int = 1
 
     def ints(self) -> list[int]:
-        """The kernel's form: kind, sign, N, a, pm, b, sd."""
+        """The kernel's form: kind, sign, N, a, pm, b, sd, sm."""
         return [{"twiddle": 1, "chirp": 2}[self.kind],
                 1 if self.inverse else -1, self.N, self.a, self.pm, self.b,
-                self.sd]
+                self.sd, self.sm]
 
 
 def twiddle(N: int, inverse: bool = False, a: int = 1, pm: int = 1,
-            b: int = 0, sd: int = 1) -> Factor:
-    """w_N^(-+(row*a + (p % pm)*b) * (s // sd)): the two-upload twiddle
-    w_N^(kc*js) at the defaults, three uploads' w_(NaNb)^(ka*jb) with sd =
-    Ns and w_N^((kb*Na + ka)*js) with a = pm = Na, b = 1."""
-    return Factor("twiddle", N, inverse, a, pm, b, sd)
+            b: int = 0, sd: int = 1, sm: int = 1) -> Factor:
+    """w_N^(-+(row*a + (p % pm)*b + s % sm) * (s // sd)): the two-upload
+    twiddle w_N^(kc*js) at the defaults, three uploads' w_(NaNb)^(ka*jb)
+    with sd = Ns and w_N^((kb*Na + ka)*js) with a = pm = Na, b = 1 (on
+    the folded order's columns s = js*Na + ka: a = sm = sd = Na)."""
+    return Factor("twiddle", N, inverse, a, pm, b, sd, sm)
 
 
 def chirp(n: int, inverse: bool = False) -> Factor:
@@ -772,6 +801,23 @@ STRIDED_AIM_POINTS = 16
 STRIDED_THREADS = 1024
 
 
+def _column_points(split, padded: bool, ts: Optional[int] = None) -> int:
+    """Points a column of a strided tile takes in shared memory: n1 * n2,
+    or with ``padded`` (`fft_strided_tw`'s lines, ``tile_stride``) for one
+    pass of ts < 16 columns a power of two n1 rounded up to 16 / ts mod 16
+    where the tile still fits beside its tables, else (and with ts None)
+    the odd stride (n2 * (n1 | 1)) | 1 of its (n2, n1) matrix at the pitch
+    n1 | 1."""
+    n1, n2 = split
+    if not padded:
+        return n1 * n2
+    if ts is not None and n2 == 1 and ts < 16 and 16 % ts == 0:
+        even = n1 + (16 // ts - n1) % 16
+        if ts * even + _strided_table_points(*split) <= MAX_SMEM_BYTES // 8:
+            return even
+    return (n2 * (n1 | 1)) | 1
+
+
 def _strided_table_points(n1: int, n2: int) -> int:
     """Points of `fft_strided`'s stage tables (`walk_radices`) and the
     twiddle's two tables beside the tile."""
@@ -780,9 +826,11 @@ def _strided_table_points(n1: int, n2: int) -> int:
 
 
 def _strided_columns(n: int, S: int, split, tile_points: int,
-                     min_columns: int) -> int:
-    """Columns of an `fft_strided` tile of length n at ``split``."""
-    fit = (MAX_SMEM_BYTES // 8 - _strided_table_points(*split)) // n
+                     min_columns: int, padded: bool = False) -> int:
+    """Columns of an `fft_strided` tile of length n at ``split``
+    (`fft_strided_tw`'s with ``padded``)."""
+    fit = ((MAX_SMEM_BYTES // 8 - _strided_table_points(*split))
+           // _column_points(split, padded))
     want = max(tile_points // n, min_columns)
     return max(1, min(S, want, fit))
 
@@ -822,19 +870,23 @@ def strided_layout(n: int, S: int) -> tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=4096)
-def _strided_layout(n: int, S: int, tile_points: int, min_columns: int):
-    """`strided_layout` and `strided_split` at the given constants,
-    computed once an (n, S)."""
+def _strided_layout(n: int, S: int, tile_points: int, min_columns: int,
+                    padded: bool = False):
+    """`strided_layout` and `strided_split` at the given constants
+    (`strided_tw_layout` and `strided_tw_split` with ``padded``), computed
+    once an (n, S)."""
     one = (n, 1)
-    fit = (MAX_SMEM_BYTES // 8 - _strided_table_points(*one)) // n
-    ts = _strided_columns(n, S, one, tile_points, min_columns)
+    fit = ((MAX_SMEM_BYTES // 8 - _strided_table_points(*one))
+           // _column_points(one, padded))
+    ts = _strided_columns(n, S, one, tile_points, min_columns, padded)
     split = (one if fit >= min_columns
              and walk_rounds_fit(n, _strided_threads(ts * n), True)
              else _strided_factors(n))
-    ts = _strided_columns(n, S, split, tile_points, min_columns)
+    ts = _strided_columns(n, S, split, tile_points, min_columns, padded)
     threads = _strided_threads(ts * n)
     assert all(walk_rounds_fit(k, threads, True) for k in split), (n, S)
-    return ts, threads, 8 * (ts * n + _strided_table_points(*split)), split
+    return (ts, threads, 8 * (ts * _column_points(split, padded, ts)
+                              + _strided_table_points(*split)), split)
 
 
 def strided_occupancy(n: int, S: int) -> int:
@@ -842,6 +894,31 @@ def strided_occupancy(n: int, S: int) -> int:
     over S columns, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     on the current card (C entry ``vk_fft_strided_occupancy``)."""
     return _occupancy("fft_strided", *strided_layout(n, S)[1:])
+
+
+def strided_tw_split(n: int, S: int) -> tuple[int, int]:
+    """(n1, n2) of `fft_strided_tw` for length n over S columns:
+    `strided_split`'s rule on its padded lines (n up to 8192 with primes up
+    to 127, `strided_tw_supports`)."""
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
+                           True)[3]
+
+
+def strided_tw_layout(n: int, S: int) -> tuple[int, int, int]:
+    """(ts, threads, shared bytes) of an `fft_strided_tw` block for length
+    n over S columns, the one layout rule (the C entry refuses any other):
+    `strided_layout`'s columns and threads, each column held as a line of
+    the walk's two-factor passes (the (n2, n1) matrix at the pitch n1 | 1)
+    and the lines an odd stride apart (`_column_points`), beside both
+    factors' stage tables and the twiddle's two tables."""
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
+                           True)[:3]
+
+
+def strided_tw_occupancy(n: int, S: int) -> int:
+    """Resident blocks an SM of `fft_strided_tw` at the layout of length n
+    over S columns (C entry ``vk_fft_strided_tw_occupancy``)."""
+    return _occupancy("fft_strided_tw", *strided_tw_layout(n, S)[1:])
 
 
 def _unsupported(n: int) -> NotImplementedError:
@@ -918,17 +995,6 @@ def stage_tables(n: int, inverse: bool, scale: float = 1.0,
     ints = ([n, len(radices), int(inverse)] + list(radices) + pad
             + tw_off + pad + dft_off + [-1] * len(pad))
     return tuple(ints), np.concatenate(parts)
-
-
-@functools.lru_cache(maxsize=256)
-def r2c_tables(n: int, inverse: bool, scale: float = 1.0):
-    """(plan ints, complex128 table, post offset) of the real kernels for
-    even length n: the n/2-point `stage_tables` followed, at ``post``, by
-    the untangle's w^k = e^{-2 pi i k / n} for k <= n/4 (the inverse
-    conjugates them in the kernel)."""
-    ints, stages = stage_tables(n // 2, inverse, scale)
-    post = np.exp(-2j * np.pi / n * np.arange(n // 4 + 1))
-    return ints, np.concatenate([stages, post]), len(stages)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1301,6 +1367,37 @@ def dct23_layout(n: int) -> tuple[int, int, int]:
                         DCT23_AIM_POINTS, dct_twiddle_points(n, False))
 
 
+@functools.lru_cache(maxsize=256)
+def dct1_twiddle(n: int, dst: bool, scale: float = 1.0) -> np.ndarray:
+    """The twiddles of `fft_dct1` at length n, complex128: the M-point
+    inter-factor twiddle's two tables (`twofactor_twiddle_pair`, M =
+    `dct1_length`, the scale in them), then the untangle's w_2M^k, k <=
+    M/2, as `r2c_twiddle`'s two tables."""
+    M = dct1_length(n, dst)
+    return np.concatenate([twofactor_twiddle_pair(M, False, scale),
+                           r2c_twiddle(2 * M, False)[_rotation_points(M):]])
+
+
+def dct1_layout(n: int, dst: bool) -> tuple[int, int, int]:
+    """(threads, lines, shared bytes) of an `fft_dct1` block for length n,
+    the one layout rule (the C entry refuses any other): `fft_r2c`'s
+    block (R2C_BLOCK_POINTS, R2C_AIM_POINTS, `dct_split`'s rule with
+    R2C_ONE_PASS_LINES) on the M = `dct1_length` complex points of a
+    line's extension, beside the twiddles of `dct1_twiddle` (`fft_dct23`'s
+    block, the best of chip_smoke.py's sweep at DCT-I 1025, ran DST-I 1023
+    slower: PERF.md, PR 16)."""
+    M = dct1_length(n, dst)
+    return _walk_layout(M, dct_split(M, True), R2C_BLOCK_POINTS,
+                        R2C_AIM_POINTS, len(dct1_twiddle(n, dst)))
+
+
+def dct1_occupancy(n: int, dst: bool) -> int:
+    """Resident blocks an SM of `fft_dct1` at the layout of length n (C
+    entry ``vk_fft_dct1_occupancy``)."""
+    threads, _, smem = dct1_layout(n, dst)
+    return _occupancy("fft_dct1", threads, smem)
+
+
 def dct4_layout(n: int) -> tuple[int, int, int]:
     """(threads, lines, shared bytes) of an `fft_dct4` block for length n:
     `dct23_layout`'s rule with R2C_BLOCK_POINTS and R2C_AIM_POINTS on the
@@ -1486,7 +1583,7 @@ def _factor_planes(f: Factor, P: int, n: int, S: int, device) -> Planar:
     else:
         p = torch.arange(P if f.pm > 1 else 1, dtype=torch.int64,
                          device=device)[:, None, None]
-        e = ((row * f.a + (p % f.pm) * f.b) * (s // f.sd)) % f.N
+        e = ((row * f.a + (p % f.pm) * f.b + s % f.sm) * (s // f.sd)) % f.N
     theta = e.to(torch.float64) * ((2.0 if f.inverse else -2.0) * np.pi / f.N)
     return Planar(torch.cos(theta).to(torch.float32),
                   torch.sin(theta).to(torch.float32))
@@ -1508,13 +1605,18 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                       scale: float = 1.0, pre: Optional[Factor] = None,
                       post: Optional[Factor] = None, plane=None,
                       out_len: Optional[int] = None, in_interleave: int = 1,
-                      out_interleave: int = 1):
+                      out_interleave: int = 1, in_transposed: bool = False,
+                      out_transposed: bool = False):
     """Plain torch version of `fft_strided`: the planes (with ``plane``,
     (P, L) lines zero-padded to the (n, S) plane; with ``in_interleave``,
-    read from the interleaved layout) times the ``pre`` factor, the
-    transform dim moved last, `fft_lines_plain`, moved back, times the
-    ``post`` factor (with ``plane``, the first ``out_len`` points of each
-    plane; with ``out_interleave``, laid out interleaved)."""
+    read from the interleaved layout; with ``in_transposed``, (P, S, n)
+    planes transposed) times the ``pre`` factor, the transform dim moved
+    last, `fft_lines_plain`, moved back, times the ``post`` factor (with
+    ``plane``, the first ``out_len`` points of each plane; with
+    ``out_interleave``, laid out interleaved; with ``out_transposed``, as
+    (P, S, n) planes)."""
+    if in_transposed:
+        re, im = (t.transpose(1, 2) for t in (re, im))
     if plane is None:
         P, n, S = re.shape
         x = Planar(_interleave(re, in_interleave, True),
@@ -1542,6 +1644,8 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     else:
         y = Planar(_interleave(y.re, out_interleave),
                    _interleave(y.im, out_interleave))
+    if out_transposed:
+        y = Planar(y.re.transpose(1, 2), y.im.transpose(1, 2))
     return y.re.contiguous(), y.im.contiguous()
 
 
@@ -1754,7 +1858,8 @@ def fft_dct23_plain(x: torch.Tensor, type3: bool, dst: bool = False,
 
 def fft_dct1_plain(x: torch.Tensor, dst: bool = False,
                    scale: float = 1.0) -> torch.Tensor:
-    """Plain torch version of `fft_dct1`: H = rfft of x zero-padded to 2M
+    """Plain torch version of `fft_dct1` (the TPU kernel's form, not the
+    CUDA kernel's extension): H = rfft of x zero-padded to 2M
     (DST-I: shifted one place), M = `dct1_length`; DCT1[k] = 2 Re H[k] -
     x[0] - (-1)^k x[n-1], DST1[k] = -2 Im H[k+1]; times ``scale``."""
     n = x.shape[1]
@@ -1902,13 +2007,19 @@ _ENTRIES = {
     "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "iii",
                       "fft_conv2d": "ppppqii" + "p" * 9 + "i"},
     # real lines in and out, batch, (fft_dct4: n,) dst, plans, tables,
-    # the twiddles (dct23_twiddle / dct4_twiddle), then the layout
-    # (dct23_layout / dct4_layout): threads, lines, shared bytes
+    # the twiddles (dct23_twiddle / dct1_twiddle / dct4_twiddle), then the
+    # layout (dct23_layout / dct1_layout / dct4_layout): threads, lines,
+    # shared bytes
     "fft_dct23": {"fft_dct2": "ppqi" + "p" * 5 + "iii",
                   "fft_dct3": "ppqi" + "p" * 5 + "iii"},
-    "fft_dct1": {"fft_dct1": "ppqippi"},
+    "fft_dct1": {"fft_dct1": "ppqi" + "p" * 5 + "iii"},
     "fft_dct4": {"fft_dct4": "ppqii" + "p" * 5 + "iii"},
-    "fft_strided_tw": {"fft_strided_tw": "ppppqqqqpppii"},
+    # planes, P, S, the live lengths, the plans of the two factors, their
+    # tables, the twiddle's two tables, the factors, the interleaves, the
+    # mode, then the layout (strided_tw_layout): columns a block, threads,
+    # shared bytes
+    "fft_strided_tw": {"fft_strided_tw": "ppppqqqq" + "p" * 6 + "iii"
+                       + "iii"},
     # the double-double tier (precision/dd_kernel.py): eight quad planes,
     # extents, plan, table, the pre/post tables and their lengths, the
     # per-line add, the dd scale, the instantiation (dd_kernel.dd_variant)
@@ -2077,7 +2188,8 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
                 scale: float = 1.0, out=None, pre: Optional[Factor] = None,
                 post: Optional[Factor] = None, plane=None,
                 out_len: Optional[int] = None, in_interleave: int = 1,
-                out_interleave: int = 1):
+                out_interleave: int = 1, in_transposed: bool = False,
+                out_transposed: bool = False):
     """DFT along the middle dim of (P, n, S) float32 planes, times
     ``scale``.  ``out`` as for `fft_lines`.  CPU tensors run
     `fft_strided_plain`; CUDA tensors launch the kernel.
@@ -2090,23 +2202,32 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     the columns on the walk of ``csrc/inplace.cuh``, in one pass or two
     factors (`strided_split`) (``csrc/fft_strided.cu``).
 
-    The factor mode (any of ``pre``, ``post``, ``plane``) launches
-    `fft_strided_tw` (``csrc/fft_strided_tw.cu``, counted apart), which
-    replaces ``:3439 _strided_kernel`` and the factor option of ``:3489``:
-    the input times the ``pre`` `Factor` and the output times the ``post``
-    one, each computed in the kernel; n up to 8192 with primes up to 127
-    (`strided_tw_supports`).  With ``plane=(n, S)`` the planes are (P, L)
-    lines, the first L <= n*S points of each (n, S) plane (the rest read
+    The factor mode (any of ``pre``, ``post``, ``plane``, an interleave
+    or a transposed side) launches `fft_strided_tw`
+    (``csrc/fft_strided_tw.cu``, counted apart, the same tile on the walk,
+    `strided_tw_layout`), which replaces ``:3439 _strided_kernel`` and the
+    factor option of ``:3489``: the input times the ``pre`` `Factor` and
+    the output times the ``post`` one, each computed in the kernel; n up
+    to 8192 with primes up to 127 (`strided_tw_supports`).  With
+    ``plane=(n, S)`` the planes are (P, L) lines, the first L <= n*S
+    points of each (n, S) plane (the rest read
     as zero), and the output is the first ``out_len`` (default n*S) points
     of each transformed plane, (P, out_len): the long Bluestein's live
     rows, with no pad or crop in device memory.  ``in_interleave`` /
     ``out_interleave`` d > 1 (whole planes only) read / write the planes p
     = b*d + q interleaved row by row, (P/d, n, d, S) in memory: three
-    uploads' second pass leaves its middle digits in natural order."""
+    uploads' last pass writes the long tier's natural order so.
+    ``out_transposed`` writes the output as (P, S, n) planes, each column
+    one run of n points, and ``in_transposed`` reads the input as (P, S,
+    n) planes (whole planes, no interleave, not in place): the long
+    tier's first pass stores the four-step reorder, and its inverse reads
+    it."""
     if (pre is not None or post is not None or plane is not None
-            or in_interleave != 1 or out_interleave != 1):
+            or in_interleave != 1 or out_interleave != 1 or in_transposed
+            or out_transposed):
         return _fft_strided_tw(re, im, inverse, scale, out, pre, post, plane,
-                               out_len, in_interleave, out_interleave)
+                               out_len, in_interleave, out_interleave,
+                               in_transposed, out_transposed)
     _check_planes(re, im, 3, "fft_strided")
     P, n, S = re.shape
     _check_length(n)
@@ -2125,13 +2246,22 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
 def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
                     pre: Optional[Factor], post: Optional[Factor], plane,
-                    out_len: Optional[int], in_pd: int, out_pd: int):
+                    out_len: Optional[int], in_pd: int, out_pd: int,
+                    in_transposed: bool = False,
+                    out_transposed: bool = False):
     """The factor mode of `fft_strided` (C entry ``vk_fft_strided_tw`` of
     ``csrc/fft_strided_tw.cu``, counted as ``fft_strided_tw``)."""
     what = "fft_strided_tw"
+    mode = 1 if in_transposed else 2 if out_transposed else 0
+    if mode and (in_transposed and out_transposed or plane is not None
+                 or in_pd != 1 or out_pd != 1 or out is not None):
+        raise ValueError(f"{what}: a transposed side takes whole planes, "
+                         "one side, no interleave and a fresh output")
     if plane is None:
         _check_planes(re, im, 3, what)
         P, n, S = re.shape
+        if in_transposed:
+            S, n = n, S
         in_len = keep = n * S
         if out_len is not None:
             raise ValueError(f"{what}: out_len needs plane")
@@ -2141,7 +2271,7 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
         if out is not None and in_pd != out_pd:
             raise ValueError(f"{what}: a changed interleave cannot write "
                              "in place")
-        shape = re.shape
+        shape = (P, S, n) if out_transposed else (P, n, S)
     else:
         if in_pd != 1 or out_pd != 1:
             raise ValueError(f"{what}: interleave needs whole planes")
@@ -2168,7 +2298,8 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
         _check_out(re, out)
     if re.device.type == "cpu":
         yr, yi = fft_strided_plain(re, im, inverse, scale, pre, post, plane,
-                                   out_len, in_pd, out_pd)
+                                   out_len, in_pd, out_pd, in_transposed,
+                                   out_transposed)
         if out is None:
             return yr, yi
         out[0].copy_(yr)
@@ -2177,13 +2308,17 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
     yr, yi = out if out is not None else (re.new_empty(shape),
                                           im.new_empty(shape))
     if P:
-        plan, table = _plan(n, inverse, scale, re.device)
-        factors = (ctypes.c_longlong * 14)(
-            *(pre.ints() if pre else [0] * 7),
-            *(post.ints() if post else [0] * 7))
+        n1, n2 = strided_tw_split(n, S)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device, True)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device, True)
+        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
+                          lambda: twofactor_twiddle_pair(n, inverse, scale))
+        factors = (ctypes.c_longlong * 16)(
+            *(pre.ints() if pre else [0] * 8),
+            *(post.ints() if post else [0] * 8))
         _launch(what, what, re.device,
-                [re, im, yr, yi, P, S, in_len, keep, plan, table, factors,
-                 in_pd, out_pd])
+                [re, im, yr, yi, P, S, in_len, keep, p1, p2, t1, t2, tw,
+                 factors, in_pd, out_pd, mode, *strided_tw_layout(n, S)])
     return yr, yi
 
 
@@ -2707,32 +2842,48 @@ def _r2r_gate(ok: bool, what: str, n: int, rule: str) -> None:
             "composition onto its FFT kernels (transforms/r2r.py)")
 
 
-def _dct_walk_args(n: int, type: int, scale: float, device):
+# The library of each R2R type's kernel.
+DCT_LIBRARIES = {1: "fft_dct1", 2: "fft_dct23", 3: "fft_dct23", 4: "fft_dct4"}
+
+
+def _dct_walk_args(n: int, type: int, scale: float, device,
+                   dst: bool = False):
     """The plans, tables, twiddles and layout of an `fft_dct23` (type 2 or
-    3) or `fft_dct4` (type 4) launch at length n."""
-    type4 = type == 4
+    3), `fft_dct1` (type 1; DST-I with ``dst``) or `fft_dct4` (type 4)
+    launch at length n."""
     inverse = type == 3
-    n1, n2 = dct_split(dct4_points(n) if type4 else n, type4)
-    p1, t1 = _plan(n1, inverse, 1.0, device, True)
-    p2, t2 = _plan(n2, inverse, 1.0, device, True)
-    if type4:
+    if type == 1:
+        n1, n2 = dct_split(dct1_length(n, dst), True)
+        tw = device_array(("dct1_twiddle", n, dst, scale), device,
+                          lambda: dct1_twiddle(n, dst, scale))
+        layout = dct1_layout(n, dst)
+    elif type == 4:
+        n1, n2 = dct_split(dct4_points(n), True)
         tw = device_array(("dct4_twiddle", n, scale), device,
                           lambda: dct4_twiddle(n, scale))
+        layout = dct4_layout(n)
     else:
+        n1, n2 = dct_split(n)
         tw = device_array(("dct23_twiddle", n, inverse, scale), device,
                           lambda: dct23_twiddle(n, inverse, scale))
-    return (p1, p2, t1, t2, tw,
-            *(dct4_layout(n) if type4 else dct23_layout(n)))
+        layout = dct23_layout(n)
+    p1, t1 = _plan(n1, inverse, 1.0, device, True)
+    p2, t2 = _plan(n2, inverse, 1.0, device, True)
+    return (p1, p2, t1, t2, tw, *layout)
 
 
 def _dct_walk(x: torch.Tensor, type: int, dst: bool, scale: float, plain):
-    """Shared body of `fft_dct2`, `fft_dct3` and `fft_dct4`: ``plain()``
-    for a CPU tensor, else one launch on a fresh (B, n) output."""
+    """Shared body of `fft_dct1`, `fft_dct2`, `fft_dct3` and `fft_dct4`:
+    ``plain()`` for a CPU tensor, else one launch on a fresh (B, n)
+    output."""
     what = f"fft_dct{type}"
     _check_real(x, 2, what)
     n = x.shape[1]
-    _r2r_gate((dct4_supports if type == 4 else dct23_supports)(n), what, n,
-              "n >= 4")
+    if type == 1:
+        _r2r_gate(dct1_supports(n, dst), what, n, "n >= 3")
+    else:
+        _r2r_gate((dct4_supports if type == 4 else dct23_supports)(n), what,
+                  n, "n >= 4")
     if type == 4 and n % 2 == 0:
         _check_aligned(x, what)
     if x.device.type == "cpu":
@@ -2740,9 +2891,9 @@ def _dct_walk(x: torch.Tensor, type: int, dst: bool, scale: float, plain):
     y = torch.empty_like(x)
     if x.shape[0]:
         lead = (n, int(dst)) if type == 4 else (int(dst),)
-        _launch("fft_dct4" if type == 4 else "fft_dct23", what, x.device,
+        _launch(DCT_LIBRARIES[type], what, x.device,
                 [x, y, x.shape[0], *lead,
-                 *_dct_walk_args(n, type, scale, x.device)])
+                 *_dct_walk_args(n, type, scale, x.device, dst)])
     return y
 
 
@@ -2783,24 +2934,14 @@ def fft_dct1(x: torch.Tensor, dst: bool = False,
     tensors launch the kernel.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2958 _dct1_kernel``.  Bound
-    by bytes (4 B a point in, 4 B out): a block builds the 2(n -+ 1)-point
-    extension from its staged lines as n -+ 1 complex points, runs the
-    stages and `r2c.cuh`'s untangle in shared memory and writes the real
-    (DCT) or imaginary (DST) bins (``csrc/fft_dct1.cu``)."""
-    _check_real(x, 2, "fft_dct1")
-    n = x.shape[1]
-    _r2r_gate(dct1_supports(n, dst), "fft_dct1", n, "n >= 3")
-    if x.device.type == "cpu":
-        return fft_dct1_plain(x, dst, scale)
-    y = torch.empty_like(x)
-    if x.shape[0]:
-        ints, table, post = r2c_tables(2 * dct1_length(n, dst), False, scale)
-        dev_table = device_array(("dct1", n, dst, scale), x.device,
-                                 lambda: table)
-        _launch("fft_dct1", "fft_dct1", x.device,
-                [x, y, x.shape[0], int(dst), (ctypes.c_int * len(ints))(*ints),
-                 dev_table, post])
-    return y
+    by bytes (4 B a point in, 4 B out): a block reads its lines by
+    cp.async straight into the 2(n -+ 1)-point extension as n -+ 1
+    complex points (each float to its point and its mirror), runs the
+    stages in place on the walk of ``csrc/inplace.cuh`` (`dct1_layout`)
+    and writes the real (DCT) or imaginary (DST) bins, each pair of bins
+    taken once for its two outputs (``csrc/fft_dct1.cu``)."""
+    return _dct_walk(x, 1, dst, scale,
+                     lambda: fft_dct1_plain(x, dst, scale))
 
 
 def fft_dct4(x: torch.Tensor, dst: bool = False,
