@@ -4153,29 +4153,40 @@ LONG_E2E = ((LONG_ROW_N, LONG_ROW_LINES), (1 << 22, TARGET_BYTES >> 25),
 
 
 def _long_placements(ck, dev) -> dict:
-    """The two placements of the folded reorder at the 2^20 row, forward,
-    timed in turns (down the list, then up) beside the route without the
-    fold, each against torch.fft of the same lines (an oracle only): (a)
-    the strided pass stores its tile transposed and fft_strided runs the
-    ns rows (the route); (b) the strided pass stores rows and the ns pass
-    reads each line as a column of fft_strided_tw's transposed read,
-    storing 8 lines a block transposed, as the JAX package's tl stage (its
-    memory pattern; the port has no such mode of fft_lines); the route
+    """The two placements of the folded reorder at the 2^20 row, timed in
+    turns (down the list, then up; the round trips down once more) beside
+    the route without the fold, forward (against torch.fft of the same
+    lines, an oracle only) and forward plus inverse (against the input):
+    (a) the strided pass stores its tile transposed and fft_strided runs
+    the ns rows (the inverse: fft_strided, then the strided pass reading
+    transposed); (b) the strided pass stores rows and the ns pass reads
+    each line as a column of fft_strided_tw's transposed read, storing 8
+    lines a block transposed, as the JAX package's tl stage (its memory
+    pattern; the port has no such mode of fft_lines; the inverse: the ns
+    pass stored transposed, then the strided pass on rows); the route
     before the fold: fft_lines on the ns lines and the transpose as a
     tensor op."""
     from vkfft_tpu_torch.pcomplex import Planar
     B, n = LONG_ROW_LINES, LONG_ROW_N
     nc, ns = ck.long_split(n)
     xr, xi = _planes((B, nc, ns), 777, dev)
-    post = ck.twiddle(n)
+    post, pre = ck.twiddle(n), ck.twiddle(n, True)
 
     def fold_a():
         t = ck.fft_strided(xr, xi, post=post, out_transposed=True)
         return ck.fft_strided(*t, out=t)
 
+    def inv_a(y):
+        t = ck.fft_strided(*y, True)
+        return ck.fft_strided(*t, True, 1.0 / n, pre=pre, in_transposed=True)
+
     def fold_b():
         t = ck.fft_strided(xr, xi, post=post)
         return ck.fft_strided(*t, in_transposed=True)
+
+    def inv_b(y):
+        t = ck.fft_strided(*y, True, out_transposed=True)
+        return ck.fft_strided(*t, True, 1.0 / n, pre=pre, out=t)
 
     def unfolded():
         t = ck.fft_strided(xr, xi, post=post)
@@ -4183,19 +4194,34 @@ def _long_placements(ck, dev) -> dict:
         ck.fft_lines(*lines, out=lines)
         y = ck.swap_digits(Planar(t[0].reshape(B, n), t[1].reshape(B, n)),
                            nc, ns)
-        return y.re, y.im
+        return y.re.reshape(B, ns, nc), y.im.reshape(B, ns, nc)
+
+    def inv_unfolded(y):
+        x = ck.swap_digits(Planar(y[0].reshape(B, n), y[1].reshape(B, n)),
+                           ns, nc)
+        lines = (x.re.reshape(-1, ns), x.im.reshape(-1, ns))
+        ck.fft_lines(*lines, True, out=lines)
+        t = (x.re.reshape(B, nc, ns), x.im.reshape(B, nc, ns))
+        return ck.fft_strided(*t, True, 1.0 / n, pre=pre, out=t)
 
     want = torch.fft.fft(torch.complex(xr, xi).reshape(B, n))
-    out = {"shape": [B, nc, ns], "ms": {}}
-    variants = (("a_strided_store_transposed", fold_a),
-                ("b_lines_store_transposed", fold_b),
-                ("unfolded_lines_and_transpose", unfolded))
-    for name, fn in variants:
-        rel = _rel(torch.complex(*fn()).reshape(B, n), want)
+    x = torch.complex(xr, xi)
+    out = {"shape": [B, nc, ns], "ms": {}, "round_trip_ms": {}}
+    variants = (("a_strided_store_transposed", fold_a, inv_a),
+                ("b_lines_store_transposed", fold_b, inv_b),
+                ("unfolded_lines_and_transpose", unfolded, inv_unfolded))
+    for name, fwd, inv in variants:
+        y = fwd()
+        rel = _rel(torch.complex(*y).reshape(B, n), want)
         assert rel <= KERNEL_TOL, (name, rel)
-        out["ms"][name] = []
-    for name, fn in variants + variants[::-1]:
-        out["ms"][name].append(_time_ms(fn))
+        rel = _rel(torch.complex(*inv(y)).reshape(x.shape), x)
+        assert rel <= KERNEL_TOL, (name, "round trip", rel)
+        out["ms"][name], out["round_trip_ms"][name] = [], []
+    for name, fwd, _ in variants + variants[::-1]:
+        out["ms"][name].append(_time_ms(fwd))
+    for name, fwd, inv in variants + variants[::-1] + variants:
+        out["round_trip_ms"][name].append(
+            _time_ms(lambda: inv(fwd())))
     _log(f"[time] long placements {out}")
     return out
 

@@ -54,16 +54,17 @@
 // (tile_stride) that puts a warp reading a row (neighbouring columns) or
 // a column (neighbouring rows) on distinct banks.  Each float is copied by
 // cp.async straight from its row run (natural) or column run (mode 1) to
-// its place; with a pre factor each point goes through registers and the
+// its place; with a pre factor the points go through registers and the
 // factor instead (as fast as a sweep after a cp.async read, which needs
 // one more barrier: PERF.md, PR 16); the post factor rides the store.  The
 // stages run in one pass or two factors (n = n1 * n2, the twiddle w_n^(j1
 // k2) and the scale on the column pass's last stage), radix 16 and the
 // generic prime stage for primes up to 127, with the stage tables and the
-// twiddle's two root tables in shared memory.  The rows go back as
-// float4s where every run is 16-byte aligned and no factor rides the
-// store, else as single floats; the ragged last tile of S is masked;
-// consecutive blocks take tiles spread over the rows (tile_of).
+// twiddle's two root tables in shared memory.  Rows and columns go to and
+// from registers as float4s where every run is 16-byte aligned, four
+// points' factors computed one after another (times_factors), else as
+// single floats; the ragged last tile of S is masked; consecutive blocks
+// take tiles spread over the rows (tile_of).
 // cuda_kernels.strided_tw_layout is the one layout rule (the C entry
 // refuses any other): the columns a block, the threads and the exact
 // shared bytes.  The grid is 1-D over P * tiles, offsets are 64-bit, and a
@@ -141,6 +142,23 @@ __device__ __forceinline__ float2 factor_at(const Factor& f, long long p,
   return make_float2(cs, f.sign * sn);
 }
 
+// v[i] times the factor of point (row + i * dr, s0 + i * ds) of plane p,
+// i < 4, one factor after another: four at once held more than 64
+// registers.
+__device__ __forceinline__ void times_factors(float2 (&v)[4], const Factor& f,
+                                              long long p, long long row,
+                                              long long s0, long long S,
+                                              int dr, int ds) {
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = cmul(v[0], factor_at(f, p, row + i * dr, s0 + i * ds, S));
+    v[0] = v[1];
+    v[1] = v[2];
+    v[2] = v[3];
+    v[3] = t;
+  }
+}
+
 // blockIdx.x read afresh where it is used, so the tile's place is found
 // again at the store, not held through the passes.
 __device__ __forceinline__ long long fresh_block() {
@@ -184,9 +202,10 @@ __device__ __forceinline__ int tile_pos(int c, int j, const Map& mp) {
 
 // The tile's columns from rows of plane p (interleaved by g.in_pd), point
 // (j, c) straight to tile_pos(c, j): by cp.async, each float to its place,
-// or with a pre factor through registers, times the factor; points past
-// the live length as zeros.  Returns when this thread's copies have
-// landed.
+// or with a pre factor through registers (float4s of four columns where
+// the plane is whole and every run 16-byte aligned), times the factor;
+// points past the live length as zeros.  Returns when this thread's
+// copies have landed.
 __device__ void load_rows(const float* xr, const float* xi, const Place& at,
                           const Geo& g, const Map& mp, const Factor& f,
                           float2* home) {
@@ -195,6 +214,24 @@ __device__ void load_rows(const float* xr, const float* xi, const Place& at,
   const long long base = (at.p / pd) * pd * len + (at.p % pd) * S + at.s0;
   const long long rs = pd * S;
   const bool whole = len == n * S;
+  if (f.kind && whole && at.cols == g.ts && ((g.ts | S | at.s0) & 3) == 0 &&
+      aligned16(xr, xi)) {
+    const int c4 = g.ts >> 2;
+    const Div dc = make_div(c4);
+    for (int q = threadIdx.x; q < n * c4; q += blockDim.x) {
+      const int j = quot(q, dc);
+      const int c = 4 * (q - j * c4);
+      const long long gi = base + j * rs + c;
+      const float4 r = __ldg(reinterpret_cast<const float4*>(xr + gi));
+      const float4 i = __ldg(reinterpret_cast<const float4*>(xi + gi));
+      float2 v[4] = {make_float2(r.x, i.x), make_float2(r.y, i.y),
+                     make_float2(r.z, i.z), make_float2(r.w, i.w)};
+      times_factors(v, f, at.p, j, at.s0 + c, S, 0, 1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) home[tile_pos(c + k, j, mp)] = v[k];
+    }
+    return;
+  }
   const Div dc = make_div(at.cols);
   for (int u = threadIdx.x; u < n * at.cols; u += blockDim.x) {
     const int j = quot(u, dc);
@@ -220,12 +257,34 @@ __device__ void load_rows(const float* xr, const float* xi, const Place& at,
 
 // Mode 1's read: the tile's columns, each one run of n floats from float
 // offset g0 (column c at g0 + c * n), point (j, c) straight to tile_pos(c,
-// j), by cp.async or with a pre factor through registers.  Returns when
-// this thread's copies have landed.
+// j), by cp.async or with a pre factor through registers (float4s of four
+// rows where n and the runs are 16-byte aligned).  Returns when this
+// thread's copies have landed.
 __device__ void load_columns(const float* xr, const float* xi, long long g0,
                              const Place& at, long long S, const Map& mp,
                              const Factor& f, float2* home) {
   const int n = mp.dn.d;
+  if (f.kind && ((g0 | n) & 3) == 0 && aligned16(xr, xi)) {
+    for (int u = 4 * threadIdx.x; u < n * at.cols; u += 4 * blockDim.x) {
+      const int c = quot(u, mp.dn);
+      const int j = u - c * n;
+      const float4 r = __ldg(reinterpret_cast<const float4*>(xr + g0 + u));
+      const float4 i = __ldg(reinterpret_cast<const float4*>(xi + g0 + u));
+      float2 v[4] = {make_float2(r.x, i.x), make_float2(r.y, i.y),
+                     make_float2(r.z, i.z), make_float2(r.w, i.w)};
+      times_factors(v, f, at.p, j, at.s0 + c, S, 1, 0);
+      // the four stores in an order rotated by the lane: distinct banks
+      int pos[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pos[k] = tile_pos(c, j + k, mp);
+      const int rot = (threadIdx.x >> 2) & 3;
+      rotate(v, rot);
+      rotate(pos, rot);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) home[pos[k]] = v[k];
+    }
+    return;
+  }
   for (int u = threadIdx.x; u < n * at.cols; u += blockDim.x) {
     const int c = quot(u, mp.dn);
     const int j = u - c * n;
@@ -243,8 +302,7 @@ __device__ void load_columns(const float* xr, const float* xi, long long g0,
 
 // The tile back to rows of plane p (interleaved by g.out_pd), times the
 // post factor, where the point is inside the live length: float4s where
-// every run is 16-byte aligned and no factor rides the store, else single
-// floats (four factors of a float4 at once held more than 64 registers).
+// every run is 16-byte aligned, else single floats.
 __device__ void store_rows(const float2* home, const Map& mp, float* yr,
                            float* yi, const Place& at, const Geo& g,
                            const Factor& f) {
@@ -252,7 +310,7 @@ __device__ void store_rows(const float2* home, const Map& mp, float* yr,
   const long long S = g.S, pd = g.out_pd, len = g.out_len;
   const long long base = (at.p / pd) * pd * len + (at.p % pd) * S + at.s0;
   const long long rs = pd * S;
-  if (!f.kind && at.cols == g.ts && ((g.ts | S | at.s0 | len) & 3) == 0 &&
+  if (at.cols == g.ts && ((g.ts | S | at.s0 | len) & 3) == 0 &&
       aligned16(yr, yi)) {
     const int c4 = g.ts >> 2;
     const Div dc = make_div(c4);
@@ -263,6 +321,7 @@ __device__ void store_rows(const float2* home, const Map& mp, float* yr,
         float2 v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) v[i] = home[tile_pos(c + i, k, mp)];
+        if (f.kind) times_factors(v, f, at.p, k, at.s0 + c, S, 0, 1);
         const long long gi = base + k * rs + c;
         *reinterpret_cast<float4*>(yr + gi) =
             make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
@@ -287,13 +346,36 @@ __device__ void store_rows(const float2* home, const Map& mp, float* yr,
 }
 
 // Mode 2's store with a post factor: point t of column c of the tile to
-// float offset g0 + c * n + t, one point a thread (store_lines takes the
-// tile without one).
+// float offset g0 + c * n + t, four rows a thread as float4s where n and
+// the runs are 16-byte aligned, else one point a thread (store_lines takes
+// the tile without one).
 __device__ void store_columns_factored(const float2* home, const Map& mp,
                                        float* yr, float* yi, long long g0,
                                        const Place& at, long long S,
                                        const Factor& f) {
   const int n = mp.dn.d;
+  if (((g0 | n) & 3) == 0 && aligned16(yr, yi)) {
+    for (int u = 4 * threadIdx.x; u < n * at.cols; u += 4 * blockDim.x) {
+      const int c = quot(u, mp.dn);
+      const int t = u - c * n;
+      // the four reads in an order rotated by the lane: distinct banks
+      int pos[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pos[k] = tile_pos(c, t + k, mp);
+      const int rot = (threadIdx.x >> 2) & 3;
+      rotate(pos, rot);
+      float2 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = home[pos[k]];
+      rotate(v, (4 - rot) & 3);
+      times_factors(v, f, at.p, t, at.s0 + c, S, 1, 0);
+      *reinterpret_cast<float4*>(yr + g0 + u) =
+          make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
+      *reinterpret_cast<float4*>(yi + g0 + u) =
+          make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+    }
+    return;
+  }
   for (int u = threadIdx.x; u < n * at.cols; u += blockDim.x) {
     const int c = quot(u, mp.dn);
     const float2 v = cmul(home[tile_pos(c, u - c * n, mp)],
