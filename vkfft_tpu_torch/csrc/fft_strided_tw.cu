@@ -56,7 +56,7 @@
 // cp.async straight from its row run (natural) or column run (mode 1) to
 // its place; with a pre factor the points go through registers and the
 // factor instead (as fast as a sweep after a cp.async read, which needs
-// one more barrier: PERF.md, PR 16); the post factor rides the store.  The
+// one more barrier: PERF.md §6); the post factor rides the store.  The
 // stages run in one pass or two factors (n = n1 * n2, the twiddle w_n^(j1
 // k2) and the scale on the column pass's last stage), radix 16 and the
 // generic prime stage for primes up to 127, with the stage tables and the
@@ -106,7 +106,7 @@ struct Geo {
 // / ts mod 16 where the tile still fits beside its `tables` points, so the
 // ts columns of a half-warp's 16 threads, each 16 / ts points deep, fall
 // on 16 distinct bank pairs (at the odd stride two met on each: 1.2x the
-// time at 16 x 512 x 2048, PERF.md, PR 16); else the (n2, n1) matrix at
+// time at 16 x 512 x 2048, PERF.md §6); else the (n2, n1) matrix at
 // the pitch n1 | 1, made odd.
 __host__ __device__ __forceinline__ int tile_stride(int n1, int n2, int ts,
                                                    int tables) {

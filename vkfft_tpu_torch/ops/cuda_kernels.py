@@ -318,7 +318,7 @@ def strided_tw_supports(n: int) -> bool:
 # they fit beside the tables, 6 at 4096 and 3 at 8192), and a tile of
 # more than STRIDED_TILE_POINTS points holds fewer blocks an SM (the walk's
 # `fft_strided` over 2^24 points: 0.19 ms at n = 1024, 0.53 at 4096,
-# 0.78 at 8192 against 0.11 at n = 64; PERF.md, PR 13);
+# 0.78 at 8192 against 0.11 at n = 64; PERF.md §6 row 2);
 # `fft_lines` runs 0.14-0.19 ms to n = 4096 and 0.27 at 8192,
 # `fft_twofactor` 0.49 at 16384 (one block per SM).  The kernel redesigned
 # since runs a 16384-point pass over 2^23 points (512 lines) in 0.148 ms
@@ -1385,7 +1385,7 @@ def dct1_layout(n: int, dst: bool) -> tuple[int, int, int]:
     R2C_ONE_PASS_LINES) on the M = `dct1_length` complex points of a
     line's extension, beside the twiddles of `dct1_twiddle` (`fft_dct23`'s
     block, the best of chip_smoke.py's sweep at DCT-I 1025, ran DST-I 1023
-    slower: PERF.md, PR 16)."""
+    slower: PERF.md §6)."""
     M = dct1_length(n, dst)
     return _walk_layout(M, dct_split(M, True), R2C_BLOCK_POINTS,
                         R2C_AIM_POINTS, len(dct1_twiddle(n, dst)))
