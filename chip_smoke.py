@@ -3111,9 +3111,12 @@ def _conv_mode_cases(ck):
                    256 * 256, f),
                   ("fft_conv_pair", "2-D hp=32 256x256x256", (256, 256, 256),
                    32 * 256 * 256, f)]
+    # the 2-D mode's layout classes: clusters of 1 to 16, odd and even
+    # column tiles, an axis of two factors (8064 = 112 x 72) either way
     for i, (ny, nz) in enumerate(((2, 2), (3, 5), (8, 8), (16, 60), (64, 64),
-                                  (100, 128), (128, 128), (243, 81),
-                                  (256, 512), (512, 256), (4096, 2))):
+                                  (100, 128), (128, 128), (81, 81), (47, 60),
+                                  (256, 512), (512, 256), (4096, 2),
+                                  (2, 8064), (8064, 2))):
         if ck.pair_cluster(ny, nz) is None:
             continue
         hp = (1, 3)[i % 2]
@@ -3128,8 +3131,11 @@ def phase_conv_kernels_vs_plain(ck, dev) -> dict:
     mode of fft_conv_pair against their plain versions (<= 1e-5 of
     max|ref|), with and without conjugated data and cross-power, at the
     main path's shapes and a spread of lengths, and on the small cases
-    against numpy fp64 (<= 5e-6)."""
+    against numpy fp64 (<= 5e-6); the 2-D mode also in place and with its
+    output inside sentinel guards at float offsets 0 and 1, and its layout
+    and resident clusters and blocks an SM at each plane."""
     worst, worst_np, count, vs_numpy = {}, 0.0, 0, 0
+    guarded, layouts = 0, {}
     for i, (kernel, what, shape, L, kw) in enumerate(_conv_mode_cases(ck)):
         xr, xi = _planes(shape, 500 + i, dev)
         spec = torch.randn((L, 2), generator=torch.Generator(
@@ -3146,6 +3152,31 @@ def phase_conv_kernels_vs_plain(ck, dev) -> dict:
         worst[key] = max(worst.get(key, 0.0), rel)
         assert rel <= KERNEL_TOL, (kernel, what, kw, rel)
         count += 1
+        if ndim2:
+            # the 2-D mode in place, and with its output inside sentinel
+            # guards (planes 16-byte aligned or not)
+            def call(*q, out):
+                return run(*q, spec, None, out=out,
+                           conj_data=kw["conj_data"], xpow=kw["xpow"],
+                           scale=scale)
+            inplace = (xr.clone(), xi.clone())
+            got = call(*inplace, out=inplace)
+            assert got[0] is inplace[0] and got[1] is inplace[1]
+            checks = [("in place", got)]
+            for offset in (0, 1):
+                got, changed = _guarded(call, (xr, xi), offset)
+                assert changed == 0, (what, kw, offset, changed)
+                checks.append((("guarded", offset), got))
+                guarded += 1
+            for how, got in checks:
+                rel = _rel(torch.complex(*got), torch.complex(*p))
+                worst[key] = max(worst[key], rel)
+                assert rel <= KERNEL_TOL, (kernel, what, kw, how, rel)
+            del inplace, got, checks
+            ny, nz = shape[1:]
+            layouts.setdefault(f"{ny}x{nz}", {
+                "layout": list(ck.conv2d_layout(ny, nz)),
+                "clusters_blocks": list(ck.conv2d_occupancy(ny, nz))})
         if math.prod(shape) <= 1 << 16:
             rel_np = _numpy_rel(_cplx2(*y), _conv_mode_numpy(
                 _cplx2(xr, xi), _cplx2(spec[:, 0], spec[:, 1]), ndim2,
@@ -3154,10 +3185,12 @@ def phase_conv_kernels_vs_plain(ck, dev) -> dict:
             worst_np = max(worst_np, rel_np)
             vs_numpy += 1
         del xr, xi, y, p
-    _log(f"[conv kernels] {count} cases, worst vs plain {worst}, "
-         f"{vs_numpy} vs numpy, worst {worst_np:.3e}")
+    _log(f"[conv kernels] {count} cases ({guarded} 2-D guarded), worst vs "
+         f"plain {worst}, {vs_numpy} vs numpy, worst {worst_np:.3e}, 2-D "
+         f"layouts {layouts}")
     out = {"cases": count, "worst_rel_vs_plain": worst,
-           "vs_numpy": vs_numpy, "worst_rel_vs_numpy": worst_np}
+           "vs_numpy": vs_numpy, "worst_rel_vs_numpy": worst_np,
+           "conv2d_guarded": guarded, "conv2d_layouts": layouts}
     out.update(_conv_walk_checks(ck, dev))
     out.update(_generic_prime_checks(ck, dev))
     return out
@@ -3448,11 +3481,14 @@ def phase_conv_routes(vt, dev) -> dict:
             "fftconvolve_rel": rel}
 
 
-def _conv_paths(vt, dev):
+def _conv_paths(vt, dev, names=None):
     """(row, app, data, launches it must make, kernel host array) of each
-    main-path convolution row; kernels and data made on the card from
-    their seeds, each kernel transformed by the app at construction."""
+    main-path convolution row (of those ``names`` only, where given);
+    kernels and data made on the card from their seeds, each kernel
+    transformed by the app at construction."""
     for i, (name, shape, flags, mode, want) in enumerate(CONV_ROWS):
+        if names is not None and name not in names:
+            continue
         cfg = vt.FFTConfig(shape=shape, convolution=True, **flags)
         batch = CONV_BYTES // (8 * cfg.matrix_convolution * math.prod(shape))
         kshape, xshape = _conv_shapes(cfg, batch)
@@ -3561,8 +3597,8 @@ def phase_conv_times(vt, ck, dev) -> dict:
                                                           scale=2 ** -16),
                    cfg(shape=(256, 256), convolution=True), 256)
 
-    # the walk kernel's own numbers on its rows: registers, spills, split,
-    # layout and resident blocks an SM
+    # the walk kernels' own numbers on their rows: registers, spills,
+    # split, layout and resident blocks an SM (the 2-D mode: clusters too)
     with open(ck.library_path("fft_conv")[:-3] + ".log") as f:
         (_, regs, st, ld), = _ptxas_kernels(f.read())
     for row, (m, mm) in zip(kernels["fft_conv"], ((4096, 1), (1024, 3),
@@ -3571,7 +3607,13 @@ def phase_conv_times(vt, ck, dev) -> dict:
                     "split": list(ck.conv_split(m, mm)),
                     "layout": list(ck.conv_layout(m, mm)),
                     "blocks_per_sm": ck.conv_occupancy(m, mm)})
+    regs, st, ld = _ptxas_of(ck, "fft_conv_pair")["fft_conv2d_kernel"]
+    for row in kernels["fft_conv_pair"]:
+        row.update({"registers": regs, "spill_bytes": [st, ld],
+                    "layout": list(ck.conv2d_layout(256, 256)),
+                    "clusters_blocks": list(ck.conv2d_occupancy(256, 256))})
     sweep = _conv_sweep(ck, dev)
+    sweep2d = _conv2d_sweep(ck, dev)
 
     e2e = []
     for name, cfg_, app, x, want, h in _conv_paths(vt, dev):
@@ -3606,7 +3648,8 @@ def phase_conv_times(vt, ck, dev) -> dict:
         _log(f"[time] e2e {row}")
         e2e.append(row)
         del x, h, app, H, xc
-    return {"kernels": kernels, "e2e": e2e, "conv_layout_sweep": sweep}
+    return {"kernels": kernels, "e2e": e2e, "conv_layout_sweep": sweep,
+            "conv2d_layout_sweep": sweep2d}
 
 
 def _ptxas_of(ck, name: str) -> dict:
@@ -3626,8 +3669,10 @@ def phase_walk_times(ck, dev) -> dict:
     x 255; fft_lines at 1001 (7 * 11 * 13) beside 1024, 128 MB each; the
     real 208^3 cube through fft_r2c_pair (its instantiation with the
     generic stage); fft_strided_tw's twiddled passes at 16 x 512 x 2048,
-    fft_dct1 at 32736 x 1025 (DCT-I) and 32800 x 1023 (DST-I), and the
-    long round trips of LONG_E2E.  Each row with the kernel's registers
+    fft_dct1 at 32736 x 1025 (DCT-I) and 32800 x 1023 (DST-I),
+    fft_conv_pair's 2-D mode at 256 x 256^2 (hp = 1 and 32) and sample
+    52's and the per-slice 32 x 256^2 calls, and the long round trips of
+    LONG_E2E.  Each row with the kernel's registers
     and spills, its layout and resident blocks an SM where the package
     names them, so the same phase times an older package's kernels too."""
     _log(f"[time] card: {_smi()}")
@@ -3779,8 +3824,49 @@ def phase_walk_times(ck, dev) -> dict:
                lambda: {"layout": list(ck.dct1_layout(n, dst)),
                         "blocks_per_sm": ck.dct1_occupancy(n, dst)})
         del x
-    # the long tier's round trips through FFTApplication
+    # fft_conv_pair's 2-D mode at 256 planes of 256 x 256 (PERF.md row
+    # 10), a shared spectrum and hp = 32, the torch.fft composition beside
+    # it; the layout and resident clusters and blocks an SM where the
+    # package names them
+    xr, xi = _planes((256, 256, 256), 880, dev)
+    xc = torch.complex(xr, xi)
+    for hp in (1, 32):
+        spec = torch.randn((hp * 65536, 2), generator=torch.Generator(
+            device=dev).manual_seed(882 + hp), device=dev)
+        # plane b times spectrum b % hp, broadcast over the groups of hp
+        H = torch.complex(spec[:, 0], spec[:, 1]).reshape(hp, 256, 256)
+        row_of("fft_conv_pair", "fft_conv2d_kernel", f"2-D hp={hp}",
+               (256, 256, 256),
+               lambda: ck.fft_conv_pair(xr, xi, spec, scale=2 ** -16),
+               lambda: ck.fft_conv_pair_plain(xr, xi, spec, scale=2 ** -16),
+               16.0 * xr.numel() + 8.0 * hp * 65536,
+               256 * (2 * _fft_ops(65536, 65536) + _cmul_ops(65536)),
+               lambda: torch.fft.ifft2(torch.fft.fft2(xc).view(
+                   256 // hp, hp, 256, 256) * H),
+               lambda: {"layout": list(ck.conv2d_layout(256, 256)),
+                        "clusters_blocks": list(
+                            ck.conv2d_occupancy(256, 256))})
+        del spec, H
+    del xr, xi, xc
+    # sample 52's and the per-slice 3-D row's calls through
+    # ConvolutionApplication (PERF.md section 5), the composition beside
     import vkfft_tpu_torch as vt
+    conv_calls = []
+    for name, cfg, app, x, want, h in _conv_paths(
+            vt, dev, ("sample52_256x256", "per_slice_32x256x256")):
+        dims = tuple(range(-len(cfg.shape), 0))
+        H = torch.fft.fftn(torch.complex(h.re, h.im), dim=dims)
+        xc = torch.complex(x.re, x.im)
+        row = {"row": name, "shape": list(x.shape), "mode": app.fusion_mode,
+               "ms": _time_ms(lambda: app(x)),
+               "torch_fft_composition_ms": _time_ms(
+                   lambda: torch.fft.ifftn(torch.fft.fftn(xc, dim=dims) * H,
+                                           dim=dims))}
+        row["vs_torch_fft"] = row["torch_fft_composition_ms"] / row["ms"]
+        _log(f"[time] walk {row}")
+        conv_calls.append(row)
+        del x, h, app, H, xc
+    # the long tier's round trips through FFTApplication
     rounds = []
     for n, B in LONG_E2E:
         app = vt.FFTApplication(vt.FFTConfig(shape=(n,), normalize=True))
@@ -3790,7 +3876,7 @@ def phase_walk_times(ck, dev) -> dict:
         _log(f"[time] walk {row}")
         rounds.append(row)
         del x
-    return {"rows": rows, "long_round_trips": rounds}
+    return {"rows": rows, "conv_calls": conv_calls, "long_round_trips": rounds}
 
 
 # fft_conv's layout sweep (conv_times): (block points, points a thread in
@@ -3853,6 +3939,36 @@ def _conv_sweep(ck, dev) -> list:
         rows += list(by.values())
         del xr, xi, plain
     return rows
+
+
+# fft_conv_pair's 2-D layout sweep (conv_times): (tile points, points a
+# thread) of `_plane_layout` at 256 x 256, clusters of 16, 8 and 4 blocks
+# at 256 to 1024 threads, the rule's own (4096, 16) among them
+CONV2D_SWEEP = ((4096, 16), (8192, 16), (16384, 16), (4096, 8), (8192, 8))
+
+
+def _conv2d_sweep(ck, dev) -> list:
+    """fft_conv_pair's 2-D mode at 256 planes of 256 x 256 under each
+    CONV2D_SWEEP layout, timed in turns (down the list, then up), each
+    against the plain version first."""
+    xr, xi = _planes((256, 256, 256), 880, dev)
+    spec = torch.randn((256 * 256, 2), generator=torch.Generator(
+        device=dev).manual_seed(881), device=dev)
+    plain = ck.fft_conv_pair_plain(xr, xi, spec, scale=2 ** -16)
+    by = {}
+    for tile, aim in CONV2D_SWEEP + CONV2D_SWEEP[::-1]:
+        with _pair_layout_forced(ck, {"tile_points": tile, "aim": aim}):
+            fn = lambda: ck.fft_conv_pair(xr, xi, spec, scale=2 ** -16)
+            row = by.setdefault((tile, aim), {
+                "shape": [256, 256, 256], "tile_points": tile, "aim": aim,
+                "layout": list(ck.conv2d_layout(256, 256)[:3]),
+                "clusters_blocks": list(ck.conv2d_occupancy(256, 256)),
+                "max_abs_err": _errors(fn(), plain, ("2-D", tile, aim)),
+                "ms": []})
+            row["ms"].append(_time_ms(fn))
+    for row in by.values():
+        _log(f"[time] fft_conv_pair 2-D layout sweep {row}")
+    return list(by.values())
 
 
 # ---------------------------------------------------------------------------

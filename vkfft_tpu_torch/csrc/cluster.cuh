@@ -1,6 +1,7 @@
-// Thread-block cluster pieces shared by fft_pair.cu and fft_conv_pair.cu,
-// built for sm_90a: distributed shared memory by 32-bit shared::cluster
-// addresses, and the cluster launch.
+// Thread-block cluster pieces shared by fft_pair.cu, fft_r2c_pair.cu and
+// fft_conv_pair.cu, built for sm_90a: distributed shared memory by 32-bit
+// shared::cluster addresses, the block's plane and rank, a plane's tables,
+// and the cluster launch.
 //
 // A plane held once over a cluster moves between its blocks' tiles in
 // whole rounds: each thread holds at most kXchg points of an exchange in
@@ -50,6 +51,40 @@ __device__ __forceinline__ void st_remote2(unsigned a, float2 v) {
 __device__ __forceinline__ void st_remote4(unsigned a, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
                :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
+
+// The block's plane and its rank in the cluster, read afresh where they
+// are used (computed once, they lived through the passes).
+__device__ __forceinline__ long long plane_index() {
+  unsigned b, c;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(c));
+  return (long long)(b / c);
+}
+
+__device__ __forceinline__ int block_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+// A plane kernel's tables into shared memory at `tab`, as its Geo places
+// them: the stage tables of the factors z1, z2, y1, y2 (z1's at 0), then
+// the z and the y twiddles (fft_r2c_pair.cu, fft_conv_pair.cu's 2-D mode).
+template <class Geo>
+__device__ __forceinline__ void copy_plane_tables(
+    float2* tab, const Geo& geo, const float2* tz1, const float2* tz2,
+    const float2* ty1, const float2* ty2, const float2* twz,
+    const float2* twy) {
+  for (int t = threadIdx.x; t < geo.ntab; t += blockDim.x) {
+    const float2* src = t < geo.z2    ? tz1 + t
+                        : t < geo.y1  ? tz2 + (t - geo.z2)
+                        : t < geo.y2  ? ty1 + (t - geo.y1)
+                        : t < geo.twz ? ty2 + (t - geo.y2)
+                        : t < geo.twy ? twz + (t - geo.twz)
+                                      : twy + (t - geo.twy);
+    tab[t] = __ldg(src);
+  }
 }
 
 // Whether `cluster` (1, 2, 4, 8 or 16 blocks) divides both a and b.

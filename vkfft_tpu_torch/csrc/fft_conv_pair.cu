@@ -47,24 +47,40 @@
 // exists there.  Every read of a line precedes the first cluster barrier
 // and every write follows the last, so the output may alias the input.
 //
-// 2-D mode.  The same body without chirp or twiddle, in the other order:
-// block `rank` reads the row tile [rank*ny/C, ...) of its plane (one
-// contiguous run of device memory), runs the nz stages along its rows,
-// gathers the column tile [rank*nz/C, ...) out of every block's row tile,
-// runs the ny stages down its columns, multiplies by the spectrum in
-// natural (ky, kz) order (Im negated first under kConjData; under kXpow
-// divided by max(|Y|, 1e-30), the pair kernel's own form, :2288), runs
-// the inverse ny stages (the caller's 1/(ny*nz) folded into their table),
-// gathers the row tile back, runs the inverse nz stages and writes the row
-// tile it read.  Bound: bytes, 16 B a point read and written once and
-// the spectrum once a launch (16 MiB at hp = 32, (256, 256)): the two 2-D
-// FFTs of a 256 x 256 plane are ~1.3 Mflop for 1 MB of traffic.  Each
-// block writes only what it read, so the output may alias the input.
+// 2-D mode.  Bound: bytes, 16 B a point read and written once and the
+// spectrum once a launch (16 MiB at hp = 32, (256, 256)): the two 2-D FFTs
+// of a 256 x 256 plane are ~1.3 Mflop for 1 MB of traffic.  Design:
+// fft_pair.cu's plane, held once over a cluster of C blocks on the walk,
+// there and back in one launch: block `rank` reads its row tile (rows
+// [rank*ny/C, ...), one contiguous run of device memory) by cp.async
+// straight to its places at the odd pitch n1z | 1, runs the nz stages
+// along its rows, pushes the tile in whole rounds to the column tiles
+// (columns [rank*nz/C, ...), all ny rows) by 32-bit shared::cluster
+// addresses, runs the ny stages down its columns, multiplies in one sweep
+// by the spectrum in natural (ky, kz) order (Im negated first under
+// kConjData; under kXpow divided by max(|Y|, 1e-30), the pair kernel's
+// own form, :2288; the caller's scale), runs the ny stages and pulls the
+// row tile back out of the column tiles, runs the nz stages and writes the
+// row tile it read by float4 stores.  The inverse is the forward DFT of
+// the conjugated data (the sweep conjugates, the write conjugates back),
+// so the block holds one stage table a factor and one twiddle an axis, the
+// same shared bytes as fft_pair's block.  An axis whose stages do not fit
+// a round of the block's threads runs as two factors, as in fft_pair.cu:
+// the forward in its order (natural in, the factors' transposed order
+// out), which the exchange and the sweep's natural index follow, and back
+// mirrored (the row pass first: transposed order in, natural out).  The
+// sweep, not a hook on the y axis's last stage: that stage's hook sees a
+// sequence's index within its column, not the column, where the spectrum
+// wants both.  cuda_kernels.conv2d_layout is the one layout rule (the C
+// entry refuses any other): fft_pair's cluster, threads and exact shared
+// bytes, with at most kOddXchg points a thread of an exchange where a
+// column tile's width is odd.  The geometry comes from the host
+// (PlaneGeo), read where it is used.  Each block writes only what it read, and every read of a plane
+// precedes the first cluster barrier, so the output may alias the input.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
 #include "inplace.cuh"
-#include "stockham.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -73,15 +89,16 @@ namespace {
 using vkfft::Plan;
 using vkfft::cmul;
 
-__device__ __forceinline__ float2 conjf2(float2 a) { return make_float2(a.x, -a.y); }
-
 namespace walk = vkfft::walk;
 
 using vkfft::cluster::kXchg;  // most points a thread moves in an exchange
+using vkfft::cluster::block_rank;
 using vkfft::cluster::cluster_ok;
+using vkfft::cluster::copy_plane_tables;
 using vkfft::cluster::ld_remote2;
 using vkfft::cluster::ld_remote4;
 using vkfft::cluster::launch_cluster;
+using vkfft::cluster::plane_index;
 using vkfft::cluster::remote;
 using vkfft::cluster::st_remote2;
 using vkfft::cluster::st_remote4;
@@ -311,77 +328,254 @@ fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
 constexpr int kConjData = 1;
 constexpr int kXpow = 2;
 
-// Two blocks an SM: the bound holds the kernel to 64 registers without
-// spills (87 without it, one 512-thread block an SM: 1.46x the time at
-// 256 planes of 256 x 256 on an H100 80GB HBM3 at 700 W; PERF.md).
-__global__ void __launch_bounds__(512, 2)
-fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  int hp, int flags, Plan pzf, Plan pyf, Plan pyi, Plan pzi,
-                  const float2* tzf, const float2* tyf, const float2* tyi,
-                  const float2* tzi, const float2* spec) {
-  extern __shared__ __align__(16) float2 smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int ny = pyf.n, nz = pzf.n;
-  const int rows = ny / C;       // row tile: rows [r0, r0 + rows), all nz columns
-  const int cols = nz / C;       // column tile: columns [c0, c0 + cols), all ny rows
-  const int count = rows * nz;   // == ny * cols
-  const int r0 = rank * rows, c0 = rank * cols;
-  const long long plane = blockIdx.x / C;
-  const long long base = plane * ny * nz + (long long)r0 * nz;
-  float2* a = smem;
-  float2* b = smem + count;
+// The 2-D mode: fft_pair.cu's plane on the walk, there and back.
+// Most threads a block; the bound holds the kernel to 64 registers, as
+// fft_pair_kernel's does.
+constexpr int kPlaneThreads = 1024;
+// Most points a thread moves in an exchange of single points (a column
+// tile of odd width): kXchg of them and their indices spilled.
+constexpr int kOddXchg = kXchg / 2;
 
-  // the row tile, then the nz stages along its rows
-  vkfft::load_tile(xr, xi, base, nz, rows, nz, nz, a);
-  __syncthreads();
-  float2* f = vkfft::run_stages<false>(a, b, rows, nz, 1, pzf, tzf);
-  cluster.sync();   // every block's rows are done
+// Where a 2-D block's pieces sit, computed once by the host and read from
+// the kernel's parameters where they are used (not held in registers
+// through a pass or an exchange): the plane's ny and nz, the row tile's
+// rows and the column tile's columns, a tile's points, the z factors'
+// pitch n1z | 1 and a row's stride n2z * (n1z | 1), the points of the
+// tile area (the tables after it: the four plans' stage tables, then the
+// z and the y twiddles), each plan's table offset and each twiddle's, the
+// exchanges' divisors and derived counts, and the multiply's spectra,
+// flags and scale.
+struct PlaneGeo {
+  int ny, nz, rows, cols, tile, pz, sz, area;   // tile: rows * nz = ny * cols
+  int nzh, ch, last, hlast;   // nz / 2, cols / 2, tile - 1, tile / 2 - 1
+  int z2, y1, y2;   // the stage tables of z2, y1, y2 (z1's at 0)
+  int twz, twy;     // the twiddles' tables
+  int ntab;
+  int hp, flags;
+  float scale;
+  walk::Div dnz, dhnz, dcols, dhcols;   // nz, nz / 2, cols, cols / 2
+  walk::Div dz2, dy1;                   // the factors n2z, n1y
+};
 
-  // gather the column tile out of every block's row tile
-  float2* ct = f == a ? b : a;
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int ky = t / cols;
-    const int owner = ky / rows;
-    const float2* src = cluster.map_shared_rank(f, owner);
-    ct[t] = src[(ky - owner * rows) * nz + c0 + (t - ky * cols)];
+// Pass k of the 2-D mode's eight: the z axis along the row tile (row r at
+// r * sz, point j2 * n1 + j1 at j2 * pz + j1), then the y axis down the
+// column tile (column c at c, point j at j * cols), each as a column pass
+// (the n2-point DFTs) and a row pass (the n1-point DFTs), in the forward's
+// order (natural in, the factors' transposed order out, the twiddle on the
+// column pass's last stage), then y and z again mirrored (the row pass
+// first, the twiddle on its last stage: transposed order in, natural out).
+// Every pass runs the forward plans: the inverse is the forward DFT of the
+// conjugated data, conjugated again on the write.
+__device__ __forceinline__ void plane_pass(float2* smem, const PlaneGeo& geo,
+                                           int k, const Plan& pz1,
+                                           const Plan& pz2, const Plan& py1,
+                                           const Plan& py2) {
+  const bool y = k >= 2 && k < 6, mirrored = k >= 4;
+  const bool row = ((k & 1) != 0) != mirrored;
+  const int n1 = y ? py1.n : pz1.n, n2 = y ? py2.n : pz2.n;
+  const walk::Pass g =
+      y ? (row ? walk::Pass{geo.cols * n2, 1, n1 * geo.cols, geo.cols,
+                            walk::make_div(n2)}
+               : walk::Pass{geo.cols * n1, 1, geo.cols, n1 * geo.cols,
+                            walk::make_div(n1)})
+        : (row ? walk::Pass{geo.rows * n2, geo.sz, geo.pz, 1, walk::make_div(n2)}
+               : walk::Pass{geo.rows * n1, geo.sz, 1, geo.pz, walk::make_div(n1)});
+  const float2* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
+  const bool fuse = n2 > 1 && row == mirrored;
+  const int which = (y ? 2 : 0) + (row ? 0 : 1);
+  walk::run_pass(
+      smem, g, which == 0 ? pz1 : which == 1 ? pz2 : which == 2 ? py1 : py2,
+      smem + geo.area + (which == 0   ? 0
+                         : which == 1 ? geo.z2
+                         : which == 2 ? geo.y1
+                                      : geo.y2),
+      walk::InterTwiddle{fuse ? tlo : nullptr, tlo + walk::kTwLo});
+}
+
+// Row tile -> column tiles: point kz of row r of this block's row tile, at
+// zat(r, kz), goes to point (r0 + r, kz % cols) of owner kz / cols's
+// column tile (pitch cols).  Each thread reads its points (pairs along kz
+// when cols is even, else at most kOddXchg points) into registers, the
+// cluster meets (every row tile is read), it stores them, and the cluster
+// meets again.
+__device__ void push_plane_columns(cg::cluster_group& cluster, float2* buf,
+                                   const PlaneGeo& geo) {
+  const int T = blockDim.x;
+  const walk::RowAt zat{geo.dz2, geo.sz, geo.pz};
+  if ((geo.cols & 1) == 0) {
+    float4 v[kXchg / 2];
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j) {
+      const int p = min(walk::fresh_tid() + j * T, geo.hlast);
+      const int r = walk::quot(p, geo.dhnz);
+      const int kz = 2 * (p - r * geo.nzh);
+      const float2 a = buf[zat(r, kz)], b = buf[zat(r, kz + 1)];
+      v[j] = make_float4(a.x, a.y, b.x, b.y);
+    }
+    cluster.sync();   // every row tile is read: the buffers are free
+    const int r0 = block_rank() * geo.rows;
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j) {
+      const int v0 = walk::fresh_tid() + j * T;
+      const int p = min(v0, geo.hlast);
+      const int r = walk::quot(p, geo.dhnz);
+      const int k2 = p - r * geo.nzh;   // the pair's index along the row
+      const int owner = walk::quot(k2, geo.dhcols);
+      if (v0 <= geo.hlast)
+        st_remote4(remote(buf, 2 * ((r0 + r) * geo.ch + k2 - owner * geo.ch),
+                          owner), v[j]);
+    }
+  } else {
+    float2 v[kOddXchg];
+#pragma unroll
+    for (int j = 0; j < kOddXchg; ++j) {
+      const int u = min(walk::fresh_tid() + j * T, geo.last);
+      const int r = walk::quot(u, geo.dnz);
+      v[j] = buf[zat(r, u - r * geo.nz)];
+    }
+    cluster.sync();   // every row tile is read: the buffers are free
+    const int r0 = block_rank() * geo.rows;
+#pragma unroll
+    for (int j = 0; j < kOddXchg; ++j) {
+      const int u0 = walk::fresh_tid() + j * T;
+      const int u = min(u0, geo.last);
+      const int r = walk::quot(u, geo.dnz);
+      const int kz = u - r * geo.nz;
+      const int owner = walk::quot(kz, geo.dcols);
+      if (u0 <= geo.last)
+        st_remote2(remote(buf, (r0 + r) * geo.cols + kz - owner * geo.cols,
+                          owner), v[j]);
+    }
   }
-  cluster.sync();   // every gather is done: the row buffers are free
+  cluster.sync();   // every push has landed
+}
 
-  // the ny stages down the columns, the multiply, the inverse ny stages
-  float2* g = vkfft::run_stages<true>(ct, f, cols, 1, cols, pyf, tyf);
-  const float2* h_spec = spec + (plane % hp) * ny * nz;
-  const bool conj = flags & kConjData, xpow = flags & kXpow;
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int ky = t / cols;
-    float2 x = g[t];
-    if (conj) x.y = -x.y;
-    float2 y = cmul(x, __ldg(&h_spec[ky * nz + c0 + (t - ky * cols)]));
-    if (xpow) {
+// Column tiles -> row tile: point kz of row r of this block's row tile,
+// at zat(r, kz), is point (r0 + r, kz % cols) of owner kz / cols's column
+// tile.  The cluster meets (every block's columns are done), each thread
+// pulls its points (pairs along kz when cols is even, else at most
+// kOddXchg points) into registers, the cluster meets (every pull is done:
+// the column tiles are free), and it writes them.
+__device__ void pull_plane_rows(cg::cluster_group& cluster, float2* buf,
+                                const PlaneGeo& geo) {
+  const int T = blockDim.x;
+  cluster.sync();   // every block's columns are done
+  if ((geo.cols & 1) == 0) {
+    const int r0 = block_rank() * geo.rows;
+    float4 v[kXchg / 2];
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j) {
+      const int p = min(walk::fresh_tid() + j * T, geo.hlast);
+      const int r = walk::quot(p, geo.dhnz);
+      const int k2 = p - r * geo.nzh;
+      const int owner = walk::quot(k2, geo.dhcols);
+      v[j] = ld_remote4(remote(
+          buf, 2 * ((r0 + r) * geo.ch + k2 - owner * geo.ch), owner));
+    }
+    cluster.sync();   // every pull is done: the column tiles are free
+    const walk::RowAt zat{geo.dz2, geo.sz, geo.pz};
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j) {
+      const int v0 = walk::fresh_tid() + j * T;
+      const int p = min(v0, geo.hlast);
+      const int r = walk::quot(p, geo.dhnz);
+      const int kz = 2 * (p - r * geo.nzh);
+      if (v0 <= geo.hlast) {
+        buf[zat(r, kz)] = make_float2(v[j].x, v[j].y);
+        buf[zat(r, kz + 1)] = make_float2(v[j].z, v[j].w);
+      }
+    }
+  } else {
+    const int r0 = block_rank() * geo.rows;
+    float2 v[kOddXchg];
+#pragma unroll
+    for (int j = 0; j < kOddXchg; ++j) {
+      const int u = min(walk::fresh_tid() + j * T, geo.last);
+      const int r = walk::quot(u, geo.dnz);
+      const int kz = u - r * geo.nz;
+      const int owner = walk::quot(kz, geo.dcols);
+      v[j] = ld_remote2(
+          remote(buf, (r0 + r) * geo.cols + kz - owner * geo.cols, owner));
+    }
+    cluster.sync();   // every pull is done: the column tiles are free
+    const walk::RowAt zat{geo.dz2, geo.sz, geo.pz};
+#pragma unroll
+    for (int j = 0; j < kOddXchg; ++j) {
+      const int u0 = walk::fresh_tid() + j * T;
+      const int u = min(u0, geo.last);
+      const int r = walk::quot(u, geo.dnz);
+      if (u0 <= geo.last) buf[zat(r, u - r * geo.nz)] = v[j];
+    }
+  }
+  __syncthreads();
+}
+
+// The multiply, one sweep over the column tile between the forward and
+// the inverse passes: point c of the row at place q (ky = k1 * n2y + k2
+// at q = k2 * n1y + k1) is Y(ky, c0 + c), conjugated under kConjData,
+// times spectrum b % hp at (ky, c0 + c) in natural order, divided by
+// max(|.|, 1e-30) under kXpow, times the scale, and conjugated for the
+// inverse, which runs the forward stages.
+__device__ void multiply_spectrum(float2* buf, const PlaneGeo& geo, int n2y,
+                                  const float2* spec) {
+  const float2* h = spec + (plane_index() % geo.hp) * geo.ny * geo.nz +
+                    block_rank() * geo.cols;
+  const int n1y = (int)geo.dy1.d;
+#pragma unroll 4
+  for (int u = threadIdx.x; u < geo.tile; u += blockDim.x) {
+    const int q = walk::quot(u, geo.dcols);
+    const int k2 = walk::quot(q, geo.dy1);
+    const int ky = (q - k2 * n1y) * n2y + k2;
+    float2 x = buf[u];
+    if (geo.flags & kConjData) x.y = -x.y;
+    float2 y = cmul(x, __ldg(h + ky * geo.nz + u - q * geo.cols));
+    if (geo.flags & kXpow) {
       const float s = 1.f / fmaxf(sqrtf(y.x * y.x + y.y * y.y), 1e-30f);
       y = make_float2(y.x * s, y.y * s);
     }
-    g[t] = y;
+    buf[u] = make_float2(geo.scale * y.x, -geo.scale * y.y);
   }
   __syncthreads();
-  float2* h = vkfft::run_stages<true>(g, g == ct ? f : ct, cols, 1, cols, pyi, tyi);
-  cluster.sync();   // every block's columns are done
+}
 
-  // gather the row tile back out of every block's column tile
-  float2* rt = h == a ? b : a;
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int r = t / nz;
-    const int js = t - r * nz;
-    const int owner = js / cols;
-    const float2* src = cluster.map_shared_rank(h, owner);
-    rt[t] = src[(r0 + r) * cols + js - owner * cols];
+// A point conjugated on its way out: the end of the inverse.
+struct Conj {
+  __device__ __forceinline__ float2 operator()(float2 v, int, int) const {
+    return make_float2(v.x, -v.y);
   }
-  cluster.sync();   // every gather is done: the column buffers are free
+};
 
-  // the inverse nz stages, then the row tile back where it was read
-  const float2* o = vkfft::run_stages<false>(rt, h, rows, nz, 1, pzi, tzi);
-  vkfft::store_tile(o, yr, yi, base, nz, rows, nz, nz);
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                  Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                  const float2* tz2, const float2* ty1, const float2* ty2,
+                  const float2* twz, const float2* twy, const float2* spec,
+                  PlaneGeo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  copy_plane_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
+  // the row tile in natural order, one contiguous run
+  walk::load_lines_async(
+      xr, xi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
+                  geo.nz,
+      geo.tile, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
+      smem);
+  __syncthreads();
+  // the z axis, the exchange, the y axis, the multiply, the y axis and the
+  // z axis mirrored with the exchange back between them; one call site of
+  // run_pass keeps one copy of each stage
+#pragma unroll 1
+  for (int k = 0; k < 8; ++k) {
+    if (k == 2) push_plane_columns(cluster, smem, geo);
+    if (k == 4) multiply_spectrum(smem, geo, py2.n, spec);
+    if (k == 6) pull_plane_rows(cluster, smem, geo);
+    plane_pass(smem, geo, k, pz1, pz2, py1, py2);
+  }
+  walk::store_lines(
+      smem, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz), yr,
+      yi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
+              geo.nz,
+      geo.tile, Conj{});
 }
 
 // Shared bytes of a Bluestein block: its tile at the row pitch ns | 1,
@@ -407,6 +601,53 @@ bool pair_layout_ok(const Plan& pcf, const Plan& psf, const Plan& psi,
          walk::rounds_fit(pcf, threads) && walk::rounds_fit(psf, threads) &&
          walk::rounds_fit(psi, threads) && walk::rounds_fit(pci, threads) &&
          smem >= 0 && (size_t)smem == pair_smem(nc, ns, cluster, len) &&
+         smem <= vkfft::kMaxSmemBytes;
+}
+
+// The layout of the 2-D mode's plans (cuda_kernels.conv2d_layout, fft_pair's
+// plane) as a PlaneGeo, or false when (cluster, threads, smem) is not it:
+// every stage's round holds a whole sequence, a thread moves at most kXchg
+// points of an exchange (kOddXchg where the column tile's width is odd),
+// and the shared bytes are exact.
+bool plane_layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
+                     const Plan& py2, int cluster, int threads, int smem,
+                     PlaneGeo* geo) {
+  const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
+  if (!cluster_ok(cluster, ny, nz) || threads < 32 ||
+      threads > kPlaneThreads || threads % 32 != 0 ||
+      (long long)ny * nz / cluster >
+          (long long)(nz / cluster % 2 ? kOddXchg : kXchg) * threads ||
+      !walk::rounds_fit(pz1, threads) || !walk::rounds_fit(pz2, threads) ||
+      !walk::rounds_fit(py1, threads) || !walk::rounds_fit(py2, threads) ||
+      smem < 0)
+    return false;
+  geo->ny = ny;
+  geo->nz = nz;
+  geo->rows = ny / cluster;
+  geo->cols = nz / cluster;
+  geo->tile = geo->rows * nz;
+  geo->pz = pz1.n | 1;
+  geo->sz = pz2.n * geo->pz;
+  // the row tile as the z factors' rows (the column tile, ny * nz / C
+  // points, fits it)
+  geo->area = geo->rows * geo->sz;
+  geo->nzh = nz / 2;
+  geo->ch = geo->cols / 2;
+  geo->last = geo->tile - 1;
+  geo->hlast = geo->tile / 2 - 1;
+  geo->z2 = walk::table_len(pz1);
+  geo->y1 = geo->z2 + walk::table_len(pz2);
+  geo->y2 = geo->y1 + walk::table_len(py1);
+  geo->twz = geo->y2 + walk::table_len(py2);
+  geo->twy = geo->twz + walk::rotation_points(nz);
+  geo->ntab = geo->twy + walk::rotation_points(ny);
+  geo->dnz = walk::make_div(nz);
+  geo->dhnz = walk::make_div(nz / 2 > 0 ? nz / 2 : 1);
+  geo->dcols = walk::make_div(geo->cols);
+  geo->dhcols = walk::make_div(geo->cols / 2 > 0 ? geo->cols / 2 : 1);
+  geo->dz2 = walk::make_div(pz2.n);
+  geo->dy1 = walk::make_div(py1.n);
+  return (size_t)smem == sizeof(float2) * ((size_t)geo->area + geo->ntab) &&
          smem <= vkfft::kMaxSmemBytes;
 }
 
@@ -470,35 +711,63 @@ int vk_fft_conv_pair_occupancy(int cluster, int threads, int smem,
                                            threads, smem, clusters, blocks);
 }
 
-// The 2-D mode; returns as vk_fft_conv_pair.  `batch` planes of (ny, nz)
-// points; plans (int form) and stage tables of the nz forward, ny forward,
-// ny inverse (the caller's scale in its table) and nz inverse runs;
-// `spectrum` the (hp, ny, nz) table in natural order, interleaved fp32
-// pairs, plane b multiplied by spectrum b % hp; `flags` kConjData |
-// kXpow; `cluster` blocks share each plane and must divide ny and nz.
+// The 2-D mode; returns as vk_fft_conv_pair.  `planes` (ny, nz) planes;
+// plans (int form) of the two factors of each axis, nz = z1 * z2 and ny =
+// y1 * y2 (all forward; the second the empty plan of length 1 for one
+// pass), their stage tables (no scale), and each axis's inter-factor
+// twiddle as two tables (64 points w_n^b, then ceil(n / 64) points w_n^(64
+// a)); `spectrum` the (hp, ny, nz) table in natural order, plane b
+// multiplied by spectrum b % hp; all as interleaved fp32 pairs; `flags`
+// kConjData | kXpow; `scale` the inverse's.  The layout
+// (cuda_kernels.conv2d_layout): `cluster` blocks a plane (1, 2, 4, 8 or
+// 16, dividing ny and nz), `threads` a block and the dynamic shared
+// bytes, exactly; any other layout is refused (cudaErrorInvalidValue).
 int vk_fft_conv2d(const float* xr, const float* xi, float* yr, float* yi,
-                  long long batch, int hp, int flags, const int* plan_zf,
-                  const int* plan_yf, const int* plan_yi, const int* plan_zi,
-                  const float* table_zf, const float* table_yf,
-                  const float* table_yi, const float* table_zi,
-                  const float* spectrum, int cluster, void* stream) {
-  Plan pzf, pyf, pyi, pzi;
-  if (batch < 1 || hp < 1 || (flags & ~(kConjData | kXpow)) ||
-      spectrum == nullptr || !vkfft::plan_from_ints(plan_zf, &pzf) ||
-      !vkfft::plan_from_ints(plan_yf, &pyf) || !vkfft::plan_from_ints(plan_yi, &pyi) ||
-      !vkfft::plan_from_ints(plan_zi, &pzi))
+                  long long planes, int hp, int flags, float scale,
+                  const int* plan_z1, const int* plan_z2, const int* plan_y1,
+                  const int* plan_y2, const float* table_z1,
+                  const float* table_z2, const float* table_y1,
+                  const float* table_y2, const float* twiddle_z,
+                  const float* twiddle_y, const float* spectrum, int cluster,
+                  int threads, int smem, void* stream) {
+  Plan pz1, pz2, py1, py2;
+  if (planes < 1 || hp < 1 || (flags & ~(kConjData | kXpow)) ||
+      spectrum == nullptr || twiddle_z == nullptr || twiddle_y == nullptr ||
+      !vkfft::plan_from_ints(plan_z1, &pz1) ||
+      !vkfft::subplan_from_ints(plan_z2, &pz2) ||
+      !vkfft::plan_from_ints(plan_y1, &py1) ||
+      !vkfft::subplan_from_ints(plan_y2, &py2))
     return (int)cudaErrorInvalidValue;
-  if (pzf.n != pzi.n || pyf.n != pyi.n || pzf.inverse || pyf.inverse ||
-      !pyi.inverse || !pzi.inverse || !cluster_ok(cluster, pyf.n, pzf.n))
+  PlaneGeo geo;
+  if (pz1.n < pz2.n || py1.n < py2.n || pz1.inverse || pz2.inverse ||
+      py1.inverse || py2.inverse ||
+      !plane_layout_of(pz1, pz2, py1, py2, cluster, threads, smem, &geo))
     return (int)cudaErrorInvalidValue;
-  const int count = pyf.n / cluster * pzf.n;
+  geo.hp = hp;
+  geo.flags = flags;
+  geo.scale = scale;
   return launch_cluster(
-      fft_conv2d_kernel, batch, cluster, count > 2048 ? 512 : 256,
-      2 * (size_t)count * sizeof(float2),
-      stream, xr, xi, yr, yi, hp, flags, pzf, pyf, pyi, pzi,
-      reinterpret_cast<const float2*>(table_zf), reinterpret_cast<const float2*>(table_yf),
-      reinterpret_cast<const float2*>(table_yi), reinterpret_cast<const float2*>(table_zi),
-      reinterpret_cast<const float2*>(spectrum));
+      fft_conv2d_kernel, planes, cluster, threads, (size_t)smem, stream, xr,
+      xi, yr, yi, pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
+      reinterpret_cast<const float2*>(table_z2),
+      reinterpret_cast<const float2*>(table_y1),
+      reinterpret_cast<const float2*>(table_y2),
+      reinterpret_cast<const float2*>(twiddle_z),
+      reinterpret_cast<const float2*>(twiddle_y),
+      reinterpret_cast<const float2*>(spectrum), geo);
+}
+
+// Resident clusters on the card and blocks an SM of the 2-D mode's kernel
+// at `cluster` blocks of `threads` with `smem` dynamic shared bytes, into
+// *clusters and *blocks.
+int vk_fft_conv2d_occupancy(int cluster, int threads, int smem,
+                            int* clusters, int* blocks) {
+  if (!cluster_ok(cluster, cluster, cluster) || threads < 32 ||
+      threads > kPlaneThreads || smem < 0 || clusters == nullptr ||
+      blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return vkfft::cluster::cluster_occupancy(fft_conv2d_kernel, cluster,
+                                           threads, smem, clusters, blocks);
 }
 
 const char* vk_error_string(int code) {

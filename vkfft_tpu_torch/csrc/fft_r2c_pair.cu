@@ -62,7 +62,10 @@ namespace {
 
 using vkfft::Plan;
 using namespace vkfft::walk;
+using vkfft::cluster::block_rank;
+using vkfft::cluster::copy_plane_tables;
 using vkfft::cluster::kXchg;
+using vkfft::cluster::plane_index;
 using vkfft::cluster::remote;
 using vkfft::cluster::st_remote2;
 using vkfft::cluster::st_remote4;
@@ -90,47 +93,6 @@ struct Geo {
   int ntab;
   Div dm, dhalf, dcols, dhcols, drows;   // m, m / 2, cols, cols / 2, rows
   Div dz1, dz2, dy2;                     // the factors n1z, n2z, n2y
-};
-
-__device__ __forceinline__ void copy_tables(
-    float2* tab, const Geo& geo, const float2* tz1, const float2* tz2,
-    const float2* ty1, const float2* ty2, const float2* twz,
-    const float2* twy) {
-  for (int t = threadIdx.x; t < geo.ntab; t += blockDim.x) {
-    const float2* src = t < geo.z2    ? tz1 + t
-                        : t < geo.y1  ? tz2 + (t - geo.z2)
-                        : t < geo.y2  ? ty1 + (t - geo.y1)
-                        : t < geo.twz ? ty2 + (t - geo.y2)
-                        : t < geo.twy ? twz + (t - geo.twz)
-                                      : twy + (t - geo.twy);
-    tab[t] = __ldg(src);
-  }
-}
-
-// The block's plane and its rank in the cluster, read afresh where they
-// are used (computed once, they lived through the passes).
-__device__ __forceinline__ long long plane_index() {
-  unsigned b, c;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(c));
-  return (long long)(b / c);
-}
-
-__device__ __forceinline__ int block_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return (int)r;
-}
-
-// Point k = k1 * n2z + k2 of row q of the row tile after the z axis, in the
-// factors' transposed order: at q * sz + k2 * pz + k1.
-struct RowAt {
-  Div d2;
-  int sz, pz;
-  __device__ __forceinline__ int operator()(int q, int k) const {
-    const int k1 = quot(k, d2);
-    return q * sz + k1 + (k - k1 * (int)d2.d) * pz;
-  }
 };
 
 // Pass `row` (the n1-point rows of an axis's factor matrix, else its
@@ -332,7 +294,7 @@ r2c_pair_kernel(const float* x, float* yr, float* yi, Plan pz1, Plan pz2,
                 const float2* twy, Geo geo) {
   extern __shared__ __align__(16) float2 smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  copy_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
+  copy_plane_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
   // the row tile as complex pairs, natural order
   load_pairs_async(reinterpret_cast<const float2*>(x),
                    (plane_index() * geo.ny +
@@ -366,7 +328,7 @@ c2r_pair_kernel(const float* xr, const float* xi, float* y, Plan pz1,
                 const float2* twz, const float2* twy, float scale_z, Geo geo) {
   extern __shared__ __align__(16) float2 smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  copy_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
+  copy_plane_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
   load_bins(xr, xi,
             plane_index() * geo.ny * (geo.m + 1) +
                 block_rank() * geo.cols,

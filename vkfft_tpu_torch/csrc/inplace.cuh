@@ -1,6 +1,6 @@
-// The in-place stage walk of the port's redesigned kernels (fft_twofactor.cu,
+// The in-place stage walk of the port's fp32 kernels (fft_twofactor.cu,
 // fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_r2c_pair.cu, fft_strided.cu,
-// fft_strided_tw.cu, fft_conv_pair.cu's Bluestein mode, fft_dct23.cu,
+// fft_strided_tw.cu, fft_conv_pair.cu (both modes), fft_dct23.cu,
 // fft_dct1.cu, fft_dct4.cu, fft_conv.cu, fft_conv_inv.cu), built for
 // sm_90a.
 //
@@ -671,6 +671,18 @@ struct RowPerm {
   __device__ __forceinline__ int operator()(int ky) const {
     const int q = quot(ky, d2);
     return (ky - q * (int)d2.d) * n1 + q;
+  }
+};
+
+// Point k = k1 * n2z + k2 of row q of a plane's row tile after the z axis
+// (fft_r2c_pair.cu, fft_conv_pair.cu's 2-D mode), in the factors'
+// transposed order: at q * sz + k2 * pz + k1.
+struct RowAt {
+  Div d2;
+  int sz, pz;
+  __device__ __forceinline__ int operator()(int q, int k) const {
+    const int k1 = quot(k, d2);
+    return q * sz + k1 + (k - k1 * (int)d2.d) * pz;
   }
 };
 

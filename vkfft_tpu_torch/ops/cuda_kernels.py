@@ -85,10 +85,11 @@ coverage, and the real kernels every even n whose n/2 that is
 (`r2c_supports`); `fft_pair` and `fft_r2c_pair` take the planes
 `pair_cluster` and `r2c_pair_cluster` find a cluster for.  `fft_conv`
 holds the lengths of `fft_lines` (its matrix mode those whose mm
-coordinate lines fit a block, `conv_matrix_supports`) and its 2-D mode
-the planes of `pair_cluster`; `fft_twofactor` and `fft_conv_inv` every
-n <= 16384 whose primes are <= 127 (`twofactor_split`); `fft_conv_pair`
-the padded lengths `conv_pair_plan` finds a cluster plane for;
+coordinate lines fit a block, `conv_matrix_supports`);
+`fft_twofactor` and `fft_conv_inv` every n <= 16384 whose primes are <=
+127 (`twofactor_split`); `fft_conv_pair` the padded lengths
+`conv_pair_plan` finds a cluster plane for, and in its 2-D mode the
+planes of `pair_cluster`;
 `fft_strided_tw` every n <= 8192 whose primes are <= 127
 (`strided_tw_supports`), which with `fft_lines` and `fft_twofactor`
 splits every DIRECT length the long tier meets; the R2R
@@ -181,11 +182,14 @@ KERNEL_SOURCES = ("fft_lines", "fft_strided", "fft_pair", "fft_r2c",
                   "fft_r2c_pair", "fft_conv", "fft_twofactor", "fft_conv_inv",
                   "fft_conv_pair", "fft_dct23", "fft_dct1", "fft_dct4",
                   "fft_strided_tw", "fft_dd")
-# The planes `fft_pair` serves (`pair_cluster`, and `fft_r2c_pair` and
-# `fft_conv_pair`'s 2-D mode their clusters): the rule of two buffers of a
-# block's share of a plane, the cluster growing until a block needs
-# PAIR_BLOCK_BYTES, or else to its largest size, as long as a block needs
-# at most PAIR_MAX_BLOCK_BYTES.  A larger plane runs as two axis passes.
+# The planes `fft_pair` and `fft_conv_pair`'s 2-D mode serve
+# (`pair_cluster`; `fft_r2c_pair` its real planes, `r2c_pair_cluster`):
+# the set the kernels served when a block held two buffers of its share of
+# a plane, the cluster growing until a block needed PAIR_BLOCK_BYTES, or
+# else to its largest size, as long as a block needed at most
+# PAIR_MAX_BLOCK_BYTES; kept as the gate, the kernels now hold one copy
+# (`pair_layout`, `conv2d_layout`).  A larger plane runs as two axis
+# passes.
 PAIR_BLOCK_BYTES = 32 * 1024
 PAIR_MAX_BLOCK_BYTES = 128 * 1024
 PAIR_CLUSTERS = (1, 2, 4, 8, 16)
@@ -203,6 +207,11 @@ PAIR_TILE_POINTS = 4096
 PAIR_AIM_POINTS = 16
 PAIR_XCHG = 16
 PAIR_THREADS = 1024
+# `fft_conv_pair`'s 2-D mode on `fft_pair`'s plane (`conv2d_layout`): a
+# thread moves at most CONV2D_ODD_XCHG points of an exchange where a
+# column tile's width is odd (kOddXchg; single points, 16 of them and
+# their indices spilled).
+CONV2D_ODD_XCHG = 8
 # Shared memory a block may opt into on sm_90 (vkfft::kMaxSmemBytes in
 # csrc/stockham.cuh).
 MAX_SMEM_BYTES = 232448
@@ -539,16 +548,8 @@ def conv_pair_occupancy(m: int) -> tuple[int, int]:
     ``cudaOccupancyMaxActiveClusters`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
     ``vk_fft_conv_pair_occupancy``)."""
-    _, _, c, threads, smem = conv_pair_layout(m)
-    fn = _library("fft_conv_pair").vk_fft_conv_pair_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(c, threads, smem, ctypes.byref(clusters), ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"vk_fft_conv_pair_occupancy({c}, {threads}, "
-                           f"{smem}) failed: CUDA error {err}")
-    return clusters.value, blocks.value
+    return _cluster_occupancy("fft_conv_pair", "fft_conv_pair_occupancy",
+                              *conv_pair_layout(m)[2:])
 
 
 def conv_matrix_supports(n: int, mm: int) -> bool:
@@ -677,17 +678,20 @@ def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=4096)
-def _plane_layout(ny: int, nz: int, real: bool, tile_points: int, aim: int):
+def _plane_layout(ny: int, nz: int, real: bool, tile_points: int, aim: int,
+                  odd_xchg: int = PAIR_XCHG):
     """(cluster, threads, shared bytes, splits) of `fft_pair` on a complex
     (ny, nz) plane, or of `fft_r2c_pair` on a ``real`` one, whose rows are
-    m = nz/2 complex points and whose z twiddles are `r2c_twiddle`'s;
-    computed once a plane at the given constants (a launch reads them; the
-    sweeps change the constants)."""
+    m = nz/2 complex points and whose z twiddles are `r2c_twiddle`'s, a
+    thread moving at most ``odd_xchg`` points of an exchange where a
+    column tile's width is odd; computed once a plane at the given
+    constants (a launch reads them; the sweeps change the constants)."""
     m = nz // 2 if real else nz
     fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and m % k == 0]
     c = next((k for k in fits if ny * m // k <= tile_points), fits[-1])
     tile, rows = ny * m // c, ny // c
-    want = max(-(-tile // aim), -(-tile // PAIR_XCHG))
+    xchg = odd_xchg if (m // c) % 2 else PAIR_XCHG
+    want = max(-(-tile // aim), -(-tile // xchg))
     threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
     (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(m, threads),
                                        _pair_factors(ny, threads))
@@ -699,22 +703,52 @@ def _plane_layout(ny: int, nz: int, real: bool, tile_points: int, aim: int):
     return c, threads, 8 * points, splits
 
 
+def conv2d_layout(ny: int, nz: int):
+    """(cluster, threads, shared bytes, ((n1z, n2z), (n1y, n2y))) of a
+    block of `fft_conv_pair`'s 2-D mode for a plane `pair_cluster` serves,
+    the one layout rule (the C entry refuses any other): `fft_pair`'s plane
+    (`_plane_layout` at PAIR_TILE_POINTS and PAIR_AIM_POINTS), with at most
+    CONV2D_ODD_XCHG points a thread of an exchange where the column tile's
+    width is odd (there the threads, and so the axes' factors, may differ
+    from `pair_layout`'s).  The kernel runs the inverse as the forward DFT
+    of the conjugated data, so it holds `fft_pair`'s tables (one stage
+    table a factor, one twiddle an axis) and its shared bytes at the same
+    factors."""
+    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS,
+                         CONV2D_ODD_XCHG)
+
+
+def conv2d_occupancy(ny: int, nz: int) -> tuple[int, int]:
+    """(resident clusters on the card, resident blocks an SM) of
+    `fft_conv_pair`'s 2-D mode at the layout of an (ny, nz) plane (C entry
+    ``vk_fft_conv2d_occupancy``)."""
+    return _cluster_occupancy("fft_conv_pair", "fft_conv2d_occupancy",
+                              *conv2d_layout(ny, nz)[:3])
+
+
+def _cluster_occupancy(name: str, entry: str, c: int, threads: int,
+                       smem: int) -> tuple[int, int]:
+    """(resident clusters, resident blocks an SM) from C entry
+    ``vk_<entry>`` of library ``name`` at `c` blocks a cluster."""
+    fn = getattr(_library(name), "vk_" + entry)
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(c, threads, smem, ctypes.byref(clusters), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"vk_{entry}({c}, {threads}, {smem}) failed: "
+                           f"CUDA error {err}")
+    return clusters.value, blocks.value
+
+
 def pair_occupancy(ny: int, nz: int) -> tuple[int, int]:
     """(resident clusters on the card, resident blocks an SM) of `fft_pair`
     at the layout of an (ny, nz) plane, from
     ``cudaOccupancyMaxActiveClusters`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
     ``vk_fft_pair_occupancy``)."""
-    c, threads, smem = pair_layout(ny, nz)
-    fn = _library("fft_pair").vk_fft_pair_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(c, threads, smem, ctypes.byref(clusters), ctypes.byref(blocks))
-    if err:
-        raise RuntimeError(f"vk_fft_pair_occupancy({c}, {threads}, {smem}) "
-                           f"failed: CUDA error {err}")
-    return clusters.value, blocks.value
+    return _cluster_occupancy("fft_pair", "fft_pair_occupancy",
+                              *pair_layout(ny, nz))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -2004,8 +2038,12 @@ _ENTRIES = {
     # Bluestein: planes, batch, n, plans, tables, the twiddle's two
     # tables, spectrum, chirp, then the layout (conv_pair_layout): cluster,
     # threads, shared bytes
+    # 2-D: planes, batch, hp, flags, scale, the plans of each axis's two
+    # factors (z1, z2, y1, y2), their tables, the twiddles of z and y,
+    # spectrum, then the layout (conv2d_layout): cluster, threads, shared
+    # bytes
     "fft_conv_pair": {"fft_conv_pair": "ppppqi" + "p" * 11 + "iii",
-                      "fft_conv2d": "ppppqii" + "p" * 9 + "i"},
+                      "fft_conv2d": "ppppqiif" + "p" * 11 + "iii"},
     # real lines in and out, batch, (fft_dct4: n,) dst, plans, tables,
     # the twiddles (dct23_twiddle / dct1_twiddle / dct4_twiddle), then the
     # layout (dct23_layout / dct1_layout / dct4_layout): threads, lines,
@@ -2758,9 +2796,12 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     twiddle and the spectrum on the last stage of the pass before them,
     the tiles exchanged in whole rounds over distributed shared memory.
     2-D: bound by bytes (16 B a point, one read and one write, and the
-    spectrum once a launch); each block reads a row tile, runs the nz
-    stages, gathers a column tile, runs the ny stages, multiplies, and
-    mirrors back (``csrc/fft_conv_pair.cu``)."""
+    spectrum once a launch); `fft_pair`'s plane (`conv2d_layout`) on the
+    walk: each block reads its row tile, runs the nz stages, pushes the
+    tile to the column tiles over distributed shared memory, runs the ny
+    stages, multiplies in one sweep, and runs the inverse (the forward
+    stages on conjugated data) back to its row tile, which it writes
+    (``csrc/fft_conv_pair.cu``)."""
     if chirp is None:
         return _fft_conv2d(re, im, spectrum, out, conj_data, xpow, scale)
     _check_planes(re, im, 2, "fft_conv_pair")
@@ -2805,8 +2846,7 @@ def _fft_conv2d(re, im, spectrum, out, conj_data: bool, xpow: bool,
     B, ny, nz = re.shape
     _check_length(ny)
     _check_length(nz)
-    cluster = pair_cluster(ny, nz)
-    if cluster is None:
+    if pair_cluster(ny, nz) is None:
         raise _no_cluster("fft_conv_pair", ny, nz)
     L = _table_length(spectrum, "fft_conv_pair")
     if L % (ny * nz) or not L:
@@ -2816,12 +2856,14 @@ def _fft_conv2d(re, im, spectrum, out, conj_data: bool, xpow: bool,
 
     def args():
         dev = re.device
-        pzf, tzf = _plan(nz, False, 1.0, dev)
-        pyf, tyf = _plan(ny, False, 1.0, dev)
-        pyi, tyi = _plan(ny, True, scale, dev)
-        pzi, tzi = _plan(nz, True, 1.0, dev)
-        return (B, L // (ny * nz), _conv_flags(conj_data, xpow), pzf, pyf,
-                pyi, pzi, tzf, tyf, tyi, tzi, spectrum, cluster)
+        c, threads, smem, ((n1z, n2z), (n1y, n2y)) = conv2d_layout(ny, nz)
+        plans = [_plan(k, False, 1.0, dev, True) for k in (n1z, n2z, n1y, n2y)]
+        tw = [device_array(("twofactor_pair", k, False, 1.0), dev,
+                           lambda k=k: twofactor_twiddle_pair(k, False))
+              for k in (nz, ny)]
+        return (B, L // (ny * nz), _conv_flags(conj_data, xpow), scale,
+                *(p for p, _ in plans), *(t for _, t in plans), *tw,
+                spectrum, c, threads, smem)
 
     return _apply("fft_conv_pair", re, im, out,
                   lambda: fft_conv_pair_plain(re, im, spectrum, None,
