@@ -174,6 +174,25 @@ Phases (each asserts; any failure exits non-zero before the result line):
      unchanged on an older package, so the parent's kernels are timed by
      this script in the same call.
 
+ 12. native fp64 (Precision.DOUBLE's native route, api.double_route):
+     f64_kernels, the fp64 instantiations of fft_lines, fft_strided and
+     fft_pair against their plain fp64 versions (<= 1e-13 of max|ref|) on
+     a sample of every layout class, in place and against torch.fft
+     complex128 (<= 5e-14) on the first of each class; f64_routes, DOUBLE
+     at F64_ROUTE_LENGTHS and N-D shapes, each native (fp64 launches only)
+     or on the dd tier (fft_dd only) as double_route names, every input
+     form, SINGLE on complex128; f64_main_path, FFTApplication(DOUBLE) on
+     complex128 tensors at n = 256 / 1024 / 4096 on 128 MiB and fftn /
+     ifftn of a complex128 256^3 cube, each counted from 0 and held to its
+     exact fp64 launches with no fft_dd launch and no plain call, against
+     torch.fft complex128 and the input (<= 5e-14); f64_times, the fp64
+     kernels at those shapes (32 B a point a pass; registers, spills,
+     layout, blocks an SM) beside their plain versions and torch.fft
+     complex128, and each row's round trip on complex128 tensors and on
+     float64 planes beside torch.fft complex128 and the dd tier on the
+     same data (DDComplex planes, and the dd route on the tensor).  The toolchain phase holds every fp32
+     kernel's ptxas line to FP32_PTXAS and every fp64 kernel to no spill.
+
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
 each kernel, the card's name and power limit, and
@@ -181,6 +200,8 @@ each kernel, the card's name and power limit, and
 
 --phases runs only the named phases, in their order (say
 toolchain,dd_kernels,dd_times to iterate on fft_dd,
+toolchain,f64_kernels,f64_routes,f64_main_path,f64_times on the fp64
+kernels and DOUBLE's native route,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -317,6 +338,24 @@ def _ptxas_kernels(log: str) -> list:
     return rows
 
 
+def _ptxas_lines(log: str) -> dict:
+    """{kernel: "<stack frame and spills> | <registers, barriers, ...>"}
+    of each entry function in a ``-Xptxas -v`` log."""
+    import re
+    out, name, frame = {}, None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, frame = _kernel_name(m.group(1)), ""
+        if "bytes stack frame" in ln and name:
+            frame = ln.strip()
+        m = re.search(r"ptxas info\s*: (Used \d+ registers.*)", ln)
+        if m and name:
+            out[name] = f"{frame} | {m.group(1).strip()}"
+            name = None
+    return out
+
+
 def phase_toolchain(ck) -> dict:
     import platform
     nvcc = ck._nvcc()
@@ -328,6 +367,7 @@ def phase_toolchain(ck) -> dict:
     t0 = time.perf_counter()
     paths = ck.build_kernels()
     info["build_s"] = time.perf_counter() - t0
+    lines, f64 = {}, {}
     for name, path in paths.items():
         with open(path[:-3] + ".log") as f:
             log = f.read()
@@ -335,8 +375,21 @@ def phase_toolchain(ck) -> dict:
                                  if "registers" in ln or "spill" in ln]
         # every kernel: (kernel, registers, spill stores, loads)
         info[f"ptxas_{name}_kernels"] = _ptxas_kernels(log)
+        lines.update(_ptxas_lines(log))
+        f64.update({k: (r, st, ld) for k, r, st, ld in _ptxas_kernels(log)
+                    if k.endswith("_f64_kernel")})
     for k, v in info.items():
         _log(f"[toolchain] {k}: {v}")
+    # every fp32 kernel compiles as before the walk took its complex type
+    # as a template argument; every fp64 instantiation without a spill
+    changed = {k: (lines.get(k), v) for k, v in FP32_PTXAS.items()
+               if lines.get(k) != v}
+    info["fp32_ptxas_as_pinned"] = not changed
+    info["f64_ptxas"] = f64
+    _log(f"[toolchain] fp32 ptxas lines as pinned: {not changed} "
+         f"{changed or ''}; fp64 kernels {f64}")
+    assert not changed, changed
+    assert all(st == ld == 0 for _, st, ld in f64.values()), f64
     return info
 
 
@@ -715,8 +768,7 @@ def phase_times(vt, ck, dev) -> dict:
     _log(f"[time] card: {_smi()}")
     kernels = {name: [] for name in C2C_KERNELS}
     lines_shapes = [(TARGET_BYTES // (8 * n), n) for n in ROWS_1D]
-    with open(ck.library_path("fft_lines")[:-3] + ".log") as f:
-        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+    regs, spill_st, spill_ld = _ptxas_of(ck, "fft_lines")["fft_lines_kernel"]
     split_sweep = []
     for B, n in lines_shapes:
         xr, xi = _planes((B, n), n, dev)
@@ -815,8 +867,7 @@ def phase_times(vt, ck, dev) -> dict:
     xc = torch.complex(xr, xi)
     nbytes = 16.0 * B * ny * nz
     bound, by = _bound(nbytes, _fft_ops(B * ny * nz, ny * nz))
-    with open(ck.library_path("fft_pair")[:-3] + ".log") as f:
-        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+    regs, spill_st, spill_ld = _ptxas_of(ck, "fft_pair")["fft_pair_kernel"]
 
     def pair_extra():
         c, threads, smem = ck.pair_layout(ny, nz)
@@ -963,8 +1014,8 @@ class _pair_layout_forced:
 
 def _strided_extra(ck, n, S) -> dict:
     """fft_strided's layout, registers, spills and blocks an SM at (n, S)."""
-    with open(ck.library_path("fft_strided")[:-3] + ".log") as f:
-        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+    regs, spill_st, spill_ld = _ptxas_of(ck, "fft_strided")[
+        "fft_strided_kernel"]
     ts, threads, smem = ck.strided_layout(n, S)
     return {"columns": ts, "split": list(ck.strided_split(n, S)),
             "threads": threads, "smem_bytes": smem, "registers": regs,
@@ -1000,7 +1051,7 @@ class _lines_layout_forced:
         ck, v = self.ck, self.v
         self.saved = (ck.lines_split, ck.LINES_BLOCK_POINTS,
                       ck.LINES_ONE_PASS_AIM, ck.LINES_AIM_POINTS)
-        ck.lines_split = lambda n: tuple(v["split"])
+        ck.lines_split = lambda n, dtype=None: tuple(v["split"])
         ck.LINES_BLOCK_POINTS = v["block_points"]
         ck.LINES_ONE_PASS_AIM = ck.LINES_AIM_POINTS = v["aim"]
 
@@ -4896,6 +4947,466 @@ def phase_dd_times(vt, dd_fft, dk, ck, dev) -> dict:
     return {"kernels": {"fft_dd": rows}, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# Native fp64: the fp64 instantiations of fft_lines, fft_strided and
+# fft_pair, DOUBLE's route (api.double_route), its main path and times.
+# ---------------------------------------------------------------------------
+
+F64_KERNEL_TOL = 1e-13       # fp64 kernel vs its plain fp64 version
+F64_NUMPY_TOL = 5e-14        # vs torch.fft complex128 (PERF.md section 2)
+# NVIDIA's data sheet, H100 SXM: fp64 outside the tensor cores
+FP64_FLOP_PER_S = 34e12
+F64_BYTES = 128 * 1024 * 1024   # of complex128 a 1-D row
+F64_CUBE = (256, 256, 256)      # complex128, 256 MiB
+F64_LINES_STRIDE = 11        # every 11th fft_lines length in f64_kernels
+F64_STRIDED_STRIDE = 23      # every 23rd fft_strided length
+F64_PAIR_STRIDE = 211        # every 211th plane fp64 fft_pair serves
+# the fp32 kernels' ptxas lines as the tree before the fp64 instantiations
+# built them (an H100 build of d903725): the walk's template must leave
+# them as they were
+FP32_PTXAS = {
+    "fft_lines_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_strided_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_pair_kernel": "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads | Used 64 registers, used 1 barriers, 8 bytes cumulative stack size",
+    "c2r_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "r2c_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "r2c_pair_kernel<0>": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "r2c_pair_kernel<1>": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "c2r_pair_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_conv_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_twofactor_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_conv_inv_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_conv2d_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_conv_pair_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "dct3_kernel": "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads | Used 64 registers, used 1 barriers, 8 bytes cumulative stack size",
+    "dct2_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "dct1_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "dct4_odd_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "dct4_even_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "fft_strided_tw_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers, used 1 barriers",
+    "dd_strided_kernel<1>": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 128 registers, used 1 barriers",
+    "dd_strided_kernel<0>": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 80 registers, used 1 barriers",
+    "dd_lines_kernel<1>": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 128 registers, used 1 barriers",
+    "dd_lines_kernel<0>": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 80 registers, used 1 barriers",
+    "dd_pointwise_kernel": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 29 registers, used 0 barriers",
+}
+
+
+def _f64_bound(points: float, n: int, passes: int = 1):
+    """The least time of ``passes`` passes over ``points`` complex128
+    points of DFTs of n: 32 B a point a pass (16 read, 16 written) over
+    the HBM rate, or 5 n log2 n a DFT over the fp64 rate if larger."""
+    tb = passes * 32.0 * points / HBM_BYTES_PER_S * 1e3
+    to = passes * _fft_ops(points, n) / FP64_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _planes64(shape, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev, dtype=torch.float64),
+            torch.randn(shape, generator=g, device=dev, dtype=torch.float64))
+
+
+def _f64_err(y, p, what) -> float:
+    """Max abs error of fp64 kernel planes ``y`` against plain planes ``p``,
+    after asserting the relative error is within F64_KERNEL_TOL."""
+    rel = _rel(torch.complex(*y), torch.complex(*p))
+    assert rel <= F64_KERNEL_TOL, (what, rel)
+    return max((y[0] - p[0]).abs().max().item(),
+               (y[1] - p[1]).abs().max().item())
+
+
+def _f64_generic(ck, split) -> bool:
+    """Whether a factor of the split has a generic (prime) stage in the
+    fp64 walk (`stage_radices`)."""
+    return any(r not in ck._WALK_FIXED_RADICES
+               for k in split if k > 1 for r in ck.stage_radices(k))
+
+
+def phase_f64_kernels(ck, dev) -> dict:
+    """fp64 fft_lines, fft_strided and fft_pair against their plain fp64
+    versions (<= F64_KERNEL_TOL of max|ref|) on a sample of every layout
+    class (every F64_*_STRIDE-th length or plane and the first of each
+    class: one pass or two factors, lines a block, columns a tile,
+    cluster and threads, a generic stage or none), direction alternating,
+    with a ragged last block; the first of each class also in place and
+    against torch.fft complex128 (<= F64_NUMPY_TOL)."""
+    F = torch.float64
+    out = {"fft_lines": [], "fft_strided": [], "fft_pair": []}
+    worst = {k: 0.0 for k in out}
+    lib_worst = 0.0
+
+    def check(name, call, plain, lib, x, key, first):
+        nonlocal lib_worst
+        y = call(*x)
+        rel = _rel(torch.complex(*y), torch.complex(*plain(*x)))
+        assert rel <= F64_KERNEL_TOL, (name, key, rel)
+        worst[name] = max(worst[name], rel)
+        row = {"case": key, "rel_err_vs_plain": rel}
+        if first:
+            e = _rel(torch.complex(*y), lib(torch.complex(*x)))
+            assert e <= F64_NUMPY_TOL, (name, key, e)
+            lib_worst = max(lib_worst, e)
+            c = tuple(t.clone() for t in x)
+            call(*c, out=c)
+            assert all(torch.equal(a, b) for a, b in zip(c, y)), (name, key)
+            row.update(rel_err_vs_torch_fft=e, in_place=True)
+        out[name].append(row)
+
+    lengths = [n for n in range(2, ck.KERNEL_MAX_N + 1)
+               if ck.kernel_supports(n, F)]
+    firsts = {}
+    for n in lengths:
+        t, lines, _ = ck.lines_layout(n, F)
+        split = ck.lines_split(n, F)
+        firsts.setdefault((split[1] == 1, lines > 1, t,
+                           _f64_generic(ck, split)), n)
+    named = set(firsts.values()) | set(LINES_NAMED)
+    for i, n in enumerate(sorted(set(lengths[::F64_LINES_STRIDE]) | named)):
+        inv = bool(i & 1)
+        sc = 1.0 / n if inv else 1.0
+        lines = ck.lines_layout(n, F)[1]
+        x = _planes64((2 * lines + 1, n), n, dev)
+        check("fft_lines",
+              lambda r, m, out=None: ck.fft_lines(r, m, inv, sc, out=out),
+              lambda r, m: ck.fft_lines_plain(r, m, inv, sc),
+              lambda c: (torch.fft.ifft(c, dim=-1) * (n * sc) if inv
+                         else torch.fft.fft(c, dim=-1)),
+              x, (n, inv), n in named)
+    firsts = {}
+    for S in (1, 37, 200):
+        for n in lengths:
+            ts = ck.strided_layout(n, S, F)[0]
+            split = ck.strided_split(n, S, F)
+            key = (S, split[1] == 1, ts == S, ts == 1,
+                   _f64_generic(ck, split))
+            firsts.setdefault(key, (n, S))
+    cases = sorted(set(firsts.values())
+                   | {(n, S) for S in (1, 37)
+                      for n in lengths[::F64_STRIDED_STRIDE]})
+    named = set(firsts.values())
+    for i, (n, S) in enumerate(cases):
+        inv = bool(i & 1)
+        P = 1 if S == 200 else 2
+        x = _planes64((P, n, S), n + S, dev)
+        check("fft_strided",
+              lambda r, m, out=None: ck.fft_strided(r, m, inv, 0.5, out=out),
+              lambda r, m: ck.fft_strided_plain(r, m, inv, 0.5),
+              lambda c: (torch.fft.ifft(c, dim=1) * (0.5 * n) if inv
+                         else torch.fft.fft(c, dim=1) * 0.5),
+              x, (P, n, S, inv), (n, S) in named)
+    served = [(ny, nz) for ny, nz in _pair_served(ck)
+              if ck.pair_cluster(ny, nz, F) is not None]
+    firsts = {}
+    for ny, nz in served:
+        c, t, _ = ck.pair_layout(ny, nz, F)
+        splits = ck.pair_splits(ny, nz, F)
+        key = (c, t, splits[0][1] == 1, splits[1][1] == 1,
+               _f64_generic(ck, splits[0] + splits[1]))
+        firsts.setdefault(key, (ny, nz))
+    named = set(firsts.values()) | {(256, 256)}
+    for i, (ny, nz) in enumerate(sorted(set(served[::F64_PAIR_STRIDE])
+                                        | named)):
+        inv = bool(i & 1)
+        sc = 1.0 / (ny * nz) if inv else 1.0
+        x = _planes64((2, ny, nz), ny + nz, dev)
+        check("fft_pair",
+              lambda r, m, out=None: ck.fft_pair(r, m, inv, sc, out=out),
+              lambda r, m: ck.fft_pair_plain(r, m, inv, sc),
+              lambda c: (torch.fft.ifft2(c) if inv else torch.fft.fft2(c)),
+              x, (ny, nz, inv), (ny, nz) in named)
+    torch.cuda.synchronize()
+    counts = {k: len(v) for k, v in out.items()}
+    _log(f"[f64] cases {counts}, worst vs plain {worst}, worst vs torch.fft "
+         f"complex128 {lib_worst}; pair planes served at fp64: {len(served)}")
+    return {"cases": out, "counts": counts, "worst_vs_plain": worst,
+            "worst_vs_torch_fft": lib_worst, "pair_served": len(served)}
+
+
+F64_ROUTE_LENGTHS = sorted(set(range(2, 4097, 37))
+                           | {3, 4, 47, 61, 64, 67, 97, 127, 1001, 4096,
+                              8192, 8209, 10007, 10240})
+
+
+def phase_f64_routes(vt, ck, ce, dev) -> dict:
+    """DOUBLE's route on the card: every F64_ROUTE_LENGTHS length through
+    FFTApplication(DOUBLE) on complex128 tensors (forward, normalized
+    inverse), native (fp64 launches only, `ce.f64_supports`) or the dd
+    tier (fft_dd only) as `api.double_route` names, against torch.fft
+    complex128 and the input (<= F64_NUMPY_TOL); N-D shapes (the pair
+    where fp64 serves the plane, two axis passes where only fp32 does, a
+    Rader axis on the dd tier); each input form (float64 Planar, host
+    complex128, complex64 tensors, DDComplex on a covered length); SINGLE
+    on complex128 (fp64 where covered, item 10 elsewhere)."""
+    F = torch.float64
+    rows = []
+
+    def run(shape, axes=None, form="tensor"):
+        nd = len(shape) - 1
+        axes = tuple(range(nd)) if axes is None else axes
+        app = vt.FFTApplication(vt.FFTConfig(
+            shape=shape[1:], fft_axes=axes, normalize=True,
+            precision=vt.Precision.DOUBLE))
+        xr, xi = _planes64(shape, sum(shape), dev)
+        xc = torch.complex(xr, xi)
+        x = {"tensor": xc, "planar": vt.Planar(xr, xi),
+             "host": xc.cpu().numpy()}[form]
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        y = app.forward(x)
+        z = app.inverse(y)
+        torch.cuda.synchronize()
+        f64, fp32 = dict(ck.f64_launches), dict(ck.launches)
+
+        def c(t):
+            if isinstance(t, vt.Planar):
+                return torch.complex(t.re, t.im)
+            return torch.as_tensor(t, device=dev)
+        dims = tuple(a + 1 for a in axes)
+        e_f = _rel(c(y), torch.fft.fftn(xc, dim=dims))
+        e_rt = _rel(c(z), xc)
+        native = app.double_route == "native"
+        assert native == ce.f64_supports(shape[1:], axes), shape
+        if native:
+            assert fp32["fft_dd"] == 0 and sum(fp32.values()) == 0, (shape,
+                                                                     fp32)
+            assert sum(f64.values()) > 0 or max(shape[1:]) <= 4, (shape, f64)
+        else:
+            assert sum(f64.values()) == 0 and fp32["fft_dd"] > 0, (shape, f64)
+        assert e_f <= F64_NUMPY_TOL and e_rt <= F64_NUMPY_TOL, (shape, e_f,
+                                                                  e_rt)
+        rows.append({"shape": list(shape), "axes": list(axes), "form": form,
+                     "route": app.double_route, "f64_launches": f64,
+                     "fft_dd_launches": fp32["fft_dd"],
+                     "rel_err_fwd": e_f, "rel_err_round_trip": e_rt})
+
+    for n in F64_ROUTE_LENGTHS:
+        run((3, n))
+    for shape, axes in (((4, 32, 48), None), ((2, 16, 256, 256), None),
+                        ((2, 256, 512), None), ((3, 97, 64), None),
+                        ((3, 97, 64), (1,)), ((2, 64, 97), None)):
+        run(shape, axes)
+    for form in ("planar", "host"):
+        run((3, 1024), form=form)
+        run((3, 97), form=form)
+    # complex64 tensors widen to complex128 on the native route
+    app = vt.FFTApplication(vt.FFTConfig(shape=(256,),
+                                         precision=vt.Precision.DOUBLE))
+    assert app.forward(torch.ones(2, 256, dtype=torch.complex64,
+                                  device=dev)).dtype == torch.complex128
+    # DDComplex keeps the dd tier on a covered length
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    ck.reset_launches()
+    q = app.forward(ddm.ddc_from_complex128(torch.ones(2, 256,
+                                                       dtype=torch.complex128,
+                                                       device=dev)))
+    torch.cuda.synchronize()
+    assert isinstance(q, ddm.DDComplex) and ck.launches["fft_dd"] == 1
+    assert sum(ck.f64_launches.values()) == 0
+    # SINGLE on complex128 tensors: fp64 where covered, item 10 elsewhere
+    ck.reset_launches()
+    t = vt.fft(torch.ones(2, 1000, dtype=torch.complex128, device=dev))
+    assert t.dtype == torch.complex128 and ck.f64_launches["fft_lines"] == 1
+    try:
+        vt.fft(torch.ones(2, 97, dtype=torch.complex128, device=dev))
+        raise AssertionError("SINGLE complex128 at 97 ran")
+    except NotImplementedError as e:
+        assert "item 10" in str(e), e
+    routes = {}
+    for r in rows:
+        routes[r["route"]] = routes.get(r["route"], 0) + 1
+    worst = max(max(r["rel_err_fwd"], r["rel_err_round_trip"]) for r in rows)
+    _log(f"[f64 routes] {len(rows)} cases, {routes}, worst {worst}")
+    return {"rows": rows, "routes": routes, "worst": worst}
+
+
+def _f64_rows():
+    """(row, shape) of the fp64 main path: 1-D n = 256 / 1024 / 4096 on
+    F64_BYTES of complex128, and the 256^3 cube."""
+    return ([(f"f64_1d_n{n}", (F64_BYTES // (16 * n), n)) for n in ROWS_1D]
+            + [("f64_3d_256^3", F64_CUBE)])
+
+
+# the fp64 launches of a forward and a normalized inverse of each row
+F64_LAUNCHES = {"f64_1d_n256": {"fft_lines": 2},
+                "f64_1d_n1024": {"fft_lines": 2},
+                "f64_1d_n4096": {"fft_lines": 2},
+                "f64_3d_256^3": {"fft_pair": 2, "fft_strided": 2}}
+
+
+def phase_f64_main_path(vt, ck, dk, torch_engine, dev) -> dict:
+    """DOUBLE's main path: FFTApplication(DOUBLE) on complex128 tensors, 1-D
+    n = 256 / 1024 / 4096 at 128 MiB (forward, normalized inverse), and
+    fftn/ifftn of a complex128 256^3 cube (the pair on axes 1-2,
+    fft_strided on axis 0), each counted from 0 and held to its exact fp64
+    launches, no fft_dd launch, no plain-engine or plain dd call; the
+    forward against torch.fft complex128 and the round trip against the
+    input (<= F64_NUMPY_TOL)."""
+    F = torch.float64
+    rows, by_row, f64_by_row = [], {}, {}
+    for name, shape in _f64_rows():
+        xc = torch.complex(*_planes64(shape, len(name), dev))
+        cube = len(shape) == 3
+        app = None if cube else vt.FFTApplication(vt.FFTConfig(
+            shape=shape[1:], normalize=True, precision=vt.Precision.DOUBLE))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        dk.plain_calls = 0
+        if cube:
+            y = vt.fftn(xc)
+            z = vt.ifftn(y)
+        else:
+            y = app.forward(xc)
+            z = app.inverse(y)
+        torch.cuda.synchronize()
+        fp32, f64 = dict(ck.launches), dict(ck.f64_launches)
+        by_row[name], f64_by_row[name] = fp32, f64
+        _log(f"[main f64] {name}: fp64 launches {f64}, fp32 {fp32}, plain "
+             f"engine calls {torch_engine.calls}, plain dd {dk.plain_calls}")
+        want = F64_LAUNCHES[name]
+        assert f64 == {k: want.get(k, 0) for k in f64}, (name, f64)
+        assert sum(fp32.values()) == 0, (name, fp32)
+        assert torch_engine.calls == 0 and dk.plain_calls == 0, name
+        ref = torch.fft.fftn(xc) if cube else torch.fft.fft(xc)
+        row = {"row": name, "shape": list(shape), "dtype": str(y.dtype),
+               "f64_launches": f64, "fft_dd_launches": fp32["fft_dd"],
+               "oracle": "torch.fft complex128 on the card",
+               "rel_err_fwd": _rel(y, ref), "rel_err_round_trip": _rel(z, xc),
+               "finite": bool(torch.isfinite(torch.view_as_real(y)).all()
+                              and torch.isfinite(torch.view_as_real(z)).all())}
+        _log(f"[main f64] {row}")
+        assert row["finite"] and y.shape == z.shape == xc.shape, row
+        assert y.dtype == z.dtype == torch.complex128, row
+        assert row["rel_err_fwd"] <= F64_NUMPY_TOL, row
+        assert row["rel_err_round_trip"] <= F64_NUMPY_TOL, row
+        rows.append(row)
+        del xc, y, z, ref
+        torch.cuda.empty_cache()
+    return {"launches": {k: sum(c[k] for c in by_row.values())
+                         for k in ck.launches},
+            "f64_launches": {k: sum(c[k] for c in f64_by_row.values())
+                             for k in ck.f64_launches},
+            "launches_by_path": by_row, "f64_launches_by_path": f64_by_row,
+            "plain_engine_calls": 0, "plain_dd_calls": 0, "rows": rows}
+
+
+def phase_f64_times(vt, ck, dev) -> dict:
+    """The fp64 kernels at the main path's shapes (each held against its
+    plain fp64 version there, <= F64_KERNEL_TOL), beside the bound (32 B a
+    point a pass over HBM, or 5 n log2 n over FP64_FLOP_PER_S), the plain
+    time and torch.fft on complex128 of the same planes (cuFFT Z2Z), with
+    each kernel's registers and spills (ptxas), layout and resident blocks
+    an SM; then each main-path row's round trip on complex128 tensors
+    (and on float64 Planar planes, no split and join around the kernels)
+    beside torch.fft complex128 and beside the dd tier on the same data
+    (on DDComplex planes, and on the tensor as DOUBLE ran it before the
+    fp64 kernels), with the host's enqueue time of one round trip."""
+    F = torch.float64
+    _log(f"[time] card: {_smi()}")
+    kernels = {k: [] for k in ck.F64_KERNELS}
+
+    def ptx(name):
+        return _ptxas_of(ck, name)[f"{name}_f64_kernel"]
+
+    def timed(name, shape, call, plain, lib, n, extra):
+        xr, xi = _planes64(shape, sum(shape), dev)
+        xc = torch.complex(xr, xi)
+        err = _f64_err(call(xr, xi), plain(xr, xi), (name, shape))
+        points = math.prod(shape)
+        bound, by = _f64_bound(points, n)
+        regs, st, ld = ptx(name)
+        ms = _time_ms(lambda: call(xr, xi))
+        row = {"shape": list(shape), "dtype": "float64 planes", "ms": ms,
+               "GBs": 32.0 * points / ms / 1e6, "bound_ms": bound,
+               "bound_by": by, "roofline_share": bound / ms,
+               "max_abs_err": err,
+               "plain_ms": _time_ms(lambda: plain(xr, xi), reps=3, inner=1,
+                                    warmup=1),
+               "library_ms": _time_ms(lambda: lib(xc)),
+               "library": "torch.fft complex128 (cuFFT Z2Z)",
+               "registers": regs, "spill_bytes": [st, ld], **extra}
+        row["vs_library"] = row["library_ms"] / ms
+        _log(f"[time] {name} f64 {row}")
+        kernels[name].append(row)
+        del xr, xi, xc
+
+    for n in ROWS_1D:
+        t, lines, smem = ck.lines_layout(n, F)
+        timed("fft_lines", (F64_BYTES // (16 * n), n),
+              lambda r, m: ck.fft_lines(r, m),
+              lambda r, m: ck.fft_lines_plain(r, m, False),
+              lambda c: torch.fft.fft(c, dim=-1), n,
+              {"split": list(ck.lines_split(n, F)), "threads": t,
+               "lines_per_block": lines, "smem_bytes": smem,
+               "blocks_per_sm": ck.lines_occupancy(n, F)})
+    for shape in ((1, 256, 65536), (256, 256, 256)):
+        P, n, S = shape
+        ts, t, smem = ck.strided_layout(n, S, F)
+        timed("fft_strided", shape, lambda r, m: ck.fft_strided(r, m),
+              lambda r, m: ck.fft_strided_plain(r, m, False),
+              lambda c: torch.fft.fft(c, dim=1), n,
+              {"columns": ts, "split": list(ck.strided_split(n, S, F)),
+               "threads": t, "smem_bytes": smem,
+               "blocks_per_sm": ck.strided_occupancy(n, S, F)})
+    B, ny, nz = F64_CUBE
+    c, t, smem = ck.pair_layout(ny, nz, F)
+    clusters, blocks = ck.pair_occupancy(ny, nz, F)
+    timed("fft_pair", F64_CUBE, lambda r, m: ck.fft_pair(r, m),
+          lambda r, m: ck.fft_pair_plain(r, m, False),
+          lambda c: torch.fft.fft2(c), ny * nz,
+          {"cluster": c, "threads": t, "smem_bytes": smem,
+           "splits": ck.pair_splits(ny, nz, F),
+           "resident_clusters": clusters, "blocks_per_sm": blocks})
+
+    from vkfft_tpu_torch.precision import doubledouble as ddm
+    e2e = []
+    for name, shape in _f64_rows():
+        cube = len(shape) == 3
+        xr, xi = _planes64(shape, 11, dev)
+        xc = torch.complex(xr, xi)
+        xp = vt.Planar(xr, xi)
+        app = vt.FFTApplication(vt.FFTConfig(
+            shape=shape if cube else shape[1:], normalize=True,
+            precision=vt.Precision.DOUBLE))
+        xd = ddm.ddc_from_complex128(xc)
+        points = math.prod(shape)
+        passes = 4 if cube else 2
+        bound, by = _f64_bound(points, shape[-1], passes)
+        # the main path's form: complex128 tensors, split into float64
+        # planes and joined again around the kernels (the cube through
+        # fftn / ifftn, as the main path runs it)
+        native = ((lambda: vt.ifftn(vt.fftn(xc))) if cube else
+                  (lambda: app.inverse(app.forward(xc))))
+        lib = ((lambda: torch.fft.ifftn(torch.fft.fftn(xc))) if cube else
+               (lambda: torch.fft.ifft(torch.fft.fft(xc))))
+
+        def dd_tensor():   # the dd route on the same tensor: DOUBLE's
+            # route for complex128 tensors before the fp64 kernels
+            return ddm.ddc_to_complex128(app.inverse(app.forward(
+                ddm.ddc_from_complex128(xc))))
+        row = {"row": name, "shape": list(shape), "route": app.double_route,
+               "ms": _time_ms(native),
+               "planar_ms": _time_ms(lambda: app.inverse(app.forward(xp))),
+               "bound_ms": bound, "bound_by": by,
+               "host_enqueue_ms": _host_ms(native),
+               "torch_fft_c128_ms": _time_ms(lib),
+               "dd_ms": _time_ms(lambda: app.inverse(app.forward(xd))),
+               "dd_tensor_ms": _time_ms(dd_tensor),
+               "passes_per_dir": passes // 2}
+        row["GBs"] = passes * 32.0 * points / row["ms"] / 1e6
+        row["roofline_share"] = bound / row["ms"]
+        row["planar_roofline_share"] = bound / row["planar_ms"]
+        row["vs_torch_fft"] = row["torch_fft_c128_ms"] / row["ms"]
+        row["vs_dd_tensor"] = row["dd_tensor_ms"] / row["ms"]
+        row["planar_vs_dd"] = row["dd_ms"] / row["planar_ms"]
+        _log(f"[time] e2e f64 {row}")
+        e2e.append(row)
+        del xr, xi, xc, xp, xd
+        torch.cuda.empty_cache()
+    return {"kernels": kernels, "e2e": e2e}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4956,7 +5467,12 @@ def main(argv=None) -> int:
               ("dd_routes", lambda: phase_dd_routes(vt, dd_fft, dev)),
               ("dd_main_path",
                lambda: phase_dd_main_path(vt, ck, dk, torch_engine, dev)),
-              ("dd_times", lambda: phase_dd_times(vt, dd_fft, dk, ck, dev))]
+              ("dd_times", lambda: phase_dd_times(vt, dd_fft, dk, ck, dev)),
+              ("f64_kernels", lambda: phase_f64_kernels(ck, dev)),
+              ("f64_routes", lambda: phase_f64_routes(vt, ck, ce, dev)),
+              ("f64_main_path",
+               lambda: phase_f64_main_path(vt, ck, dk, torch_engine, dev)),
+              ("f64_times", lambda: phase_f64_times(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
     if only:
         unknown = set(only) - {name for name, _ in phases}
@@ -4993,7 +5509,8 @@ def main(argv=None) -> int:
                    **record["r2r_main_path"]["launches_by_path"],
                    **record["conv_main_path"]["launches_by_path"],
                    **record["long_main_path"]["launches_by_path"],
-                   **record["dd_main_path"]["launches_by_path"])
+                   **record["dd_main_path"]["launches_by_path"],
+                   **record["f64_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -5047,6 +5564,22 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "also_replaces": also.get(name, []),
             "per_shape": rows})
+    # the fp64 instantiations of fft_lines, fft_strided and fft_pair (the
+    # same sources), launched on DOUBLE's main path
+    f64_by_path = record["f64_main_path"]["f64_launches_by_path"]
+    for name in ck.F64_KERNELS:
+        rows = record["f64_times"]["kernels"][name]
+        head = rows[0]
+        entries.append({
+            "name": f"{name}_f64", "route": "cuda",
+            "source": sources[name][0], "replaces": sources[name][1],
+            "launches": sum(c[name] for c in f64_by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in f64_by_path.items()},
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": head["shape"], "dtype": "float64",
+            "also_replaces": also.get(name, []), "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
     record["kernels_line"] = entries
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -265,8 +265,15 @@ def test_cuda_route_refuses_plans_outside_the_slice(n):
 
 def test_cuda_route_refuses_options_outside_the_slice():
     x = vt.from_numpy_planar(*_planes((2, 16), seed=16))
+    # float64 planes: the fp64 kernels at a length they take (here their
+    # plain versions), refused at one they do not (67: fft_twofactor's)
+    y = cuda_engine.fft_lines_p(x.astype(torch.float64), plan_axis(16))
+    assert y.dtype == torch.float64
+    x64 = x.re.double().numpy() + 1j * x.im.double().numpy()
+    assert _rel(_c(y), np.fft.fft(x64)) <= 5e-14
+    x67 = vt.from_numpy_planar(*_planes((2, 67), seed=67))
     with pytest.raises(NotImplementedError, match="item 10"):
-        cuda_engine.fft_lines_p(x.astype(torch.float64), plan_axis(16))
+        cuda_engine.fft_lines_p(x67.astype(torch.float64), plan_axis(67))
     with pytest.raises(NotImplementedError, match="item 8"):
         cuda_engine.fft_axis_p(x, 1, plan_axis(16), in_keep=4)
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -275,7 +282,6 @@ def test_cuda_route_refuses_options_outside_the_slice():
         dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DCT, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DST, rr_type=1, zeropad_output=((8, 16),)),
-        dict(kind=vt.TransformKind.R2C, precision=vt.Precision.DOUBLE),
         dict(precision=vt.Precision.BFLOAT16),
         dict(precision=vt.Precision.HALF),
         dict(zeropad_input=((0, 8),)),
@@ -285,6 +291,11 @@ def test_cuda_route_refuses_options_outside_the_slice():
     for kw in refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vt.FFTApplication(vt.FFTConfig(shape=(16,), **kw), engine="cuda")
+    # the real kinds ignore the precision flag, as the JAX package's do
+    app = vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.R2C,
+                                         precision=vt.Precision.DOUBLE),
+                            engine="cuda")
+    assert app.double_route is None
     with pytest.raises(InvalidConfigError):
         vt.FFTApplication(vt.FFTConfig(shape=(16,), convolution=True))
     with pytest.raises(InvalidConfigError):

@@ -515,10 +515,11 @@ def test_configuration_checks():
             np.ones((3, 16)), device="cpu")
     with pytest.raises(InvalidConfigError):
         vt.ConvolutionApplication(cfg, h, engine="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.ConvolutionApplication(
-            vt.FFTConfig(shape=(16,), convolution=True,
-                         precision=vt.Precision.DOUBLE), h, device="cpu")
+    # the precision flag is ignored, as in the JAX package: the data's
+    # dtype decides (tests/test_torch_f64.py)
+    vt.ConvolutionApplication(
+        vt.FFTConfig(shape=(16,), convolution=True,
+                     precision=vt.Precision.DOUBLE), h, device="cpu")
     app = vt.ConvolutionApplication(cfg, h, device="cpu")
     with pytest.raises(InvalidConfigError):
         app(np.ones((2, 8), np.complex64))

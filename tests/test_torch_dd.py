@@ -621,16 +621,22 @@ def test_refusals():
     for prec in (vt.Precision.HALF, vt.Precision.BFLOAT16):
         with pytest.raises(NotImplementedError, match="item 10"):
             vt.FFTApplication(vt.FFTConfig(shape=(16,), precision=prec))
+    # the real kinds and convolution ignore the flag and run at the input's
+    # dtype, as the JAX package's do (tests/test_torch_f64.py holds them to
+    # it); the double-double tier is C2C's alone
+    x = np.random.default_rng(0).standard_normal((2, 16)).astype(np.float32)
     for kind in (vt.TransformKind.R2C, vt.TransformKind.DCT,
                  vt.TransformKind.DST):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=kind,
-                                           precision=vt.Precision.DOUBLE))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        vt.ConvolutionApplication(
-            vt.FFTConfig(shape=(16,), convolution=True,
-                         precision=vt.Precision.DOUBLE),
-            np.ones(16), device="cpu")
+        cfg = dict(shape=(16,), kind=kind)
+        double = vt.FFTApplication(vt.FFTConfig(
+            precision=vt.Precision.DOUBLE, **cfg), device="cpu")
+        single = vt.FFTApplication(vt.FFTConfig(**cfg), device="cpu")
+        np.testing.assert_array_equal(double.forward(x), single.forward(x))
+    conv = vt.ConvolutionApplication(
+        vt.FFTConfig(shape=(16,), convolution=True,
+                     precision=vt.Precision.DOUBLE),
+        np.ones(16), device="cpu")
+    assert conv(x.astype(np.complex64)).dtype == np.complex64
     # 13-smooth lengths above 4096^2 split into no two kernel lengths
     for n in (1 << 25, 3 * (1 << 24)):
         with pytest.raises(NotImplementedError, match="queue 1 item 16"):

@@ -173,8 +173,15 @@ def test_stage_tables_layout(n, inverse, scale):
 def test_wrapper_checks():
     re, im = _planes((4, 64), seed=5)
     t_re, t_im = torch.from_numpy(re), torch.from_numpy(im)
+    # float64 planes run the fp64 instantiation (here its plain version);
+    # other dtypes, and planes of two dtypes, are refused
+    yr, yi = ck.fft_lines(t_re.double(), t_im.double())
+    assert yr.dtype == torch.float64
+    assert _rel(_c(yr.numpy(), yi.numpy()), np.fft.fft(_c(re, im))) <= 5e-14
     with pytest.raises(TypeError):
-        ck.fft_lines(t_re.double(), t_im.double())
+        ck.fft_lines(t_re.half(), t_im.half())
+    with pytest.raises(TypeError):
+        ck.fft_lines(t_re, t_im.double())
     with pytest.raises(ValueError):
         ck.fft_lines(t_re.t(), t_im.t())      # (64, 4) view, not contiguous
     with pytest.raises(ValueError):

@@ -567,12 +567,16 @@ def test_host_float64_narrows_under_single():
         got = app.forward(xc)
         assert got.dtype == np.complex64
         assert _rel(got, np.asarray(vk.fft(xc))) <= REF_TOL
-    # Planar and tensor input keep their dtype: fp64 planes stay refused on
-    # the cuda engine (ROADMAP queue 1 item 10)
+    # Planar and tensor input keep their dtype: on the cuda engine fp64
+    # planes run the fp64 kernels where they take the length (here their
+    # plain versions), and stay refused elsewhere (ROADMAP queue 1 item 10)
     t = torch.from_numpy(xc)
     assert vt.fft(t).dtype == torch.complex128
+    got = vt.fft(t, engine="cuda")
+    assert got.dtype == torch.complex128
+    assert _rel(got.numpy(), np.fft.fft(xc)) <= 5e-14
     with pytest.raises(NotImplementedError, match="item 10"):
-        vt.fft(t, engine="cuda")
+        vt.fft(torch.ones(2, 67, dtype=torch.complex128), engine="cuda")
 
 
 # `fft_r2c` / `fft_c2r` on the in-place walk (csrc/fft_r2c.cu): the layout

@@ -17,12 +17,19 @@ modules.  Layer map:
                DDComplex, the EFTs), dd_kernel (the fft_dd kernel's host
                side and plain versions), dd_fft (routes, the axis walk,
                fft_dd); FFTApplication runs it under Precision.DOUBLE
+               where the fp64 kernels do not take a config
+               (api.double_route), and for DDComplex input
+set_compute_mode / get_compute_mode — the JAX package's process-wide
+compute mode ("fp32", "fp32_int8", "bf16"), recorded; every mode runs
+the fp32 kernels
 """
 from vkfft_tpu_torch.config import (
     FFTConfig,
     Precision,
     TransformKind,
     config_from_reference,
+    get_compute_mode,
+    set_compute_mode,
 )
 from vkfft_tpu_torch.errors import FFTError, FFTResult, error_string
 from vkfft_tpu_torch.pcomplex import (

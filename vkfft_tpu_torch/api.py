@@ -24,19 +24,40 @@ every configuration the port takes (as the JAX package narrows it,
 Convolution configs run in `transforms.conv.ConvolutionApplication`, as in
 the JAX package; `apply_zeropad` is the zero-pad mask it applies.
 
-``Precision.DOUBLE`` runs the C2C kind on the double-double tier
-(`precision`, the JAX package's "fp64" path on its complex-free TPU,
-``vkfft_tpu/api.py:393-416``) for every input form: `DDComplex` quad
-planes give `DDComplex`, float32 `Planar` planes are widened with lo = 0
-and give `DDComplex`, a complex tensor gives a complex128 tensor on its
-device, host data goes to ``device`` as quad planes and comes back as
-numpy complex128 (``_coerce_double``, ``api.py:745-779``).  The inverse's
-1/N rides the last pass as an exactly split dd scale.
+``Precision.DOUBLE`` on the C2C kind takes one of two routes, decided
+once from the plan by `double_route` (the JAX package's rule, the card
+having complex dtypes: native complex128 where the backend has them,
+``vkfft_tpu/api.py:50-53``, ``:393``):
+
+* ``"native"``: where every transformed axis runs on the fp64 kernels
+  (`cuda_engine.f64_supports`: n <= 4, or DIRECT lengths of `fft_lines`),
+  complex tensors (widened to complex128), float64 `Planar` planes and
+  host data (as complex128 on ``device``) run the ordinary C2C walk at
+  fp64: the fp64 instantiations of `fft_lines`, `fft_strided` and
+  `fft_pair` on the card, the plain engine on the CPU.  They come back
+  complex128, float64 planes and numpy complex128.
+* ``"dd"``: every other length runs the double-double tier (`precision`,
+  the JAX package's "fp64" path on its complex-free TPU,
+  ``vkfft_tpu/api.py:393-416``), the same forms coming back the same
+  way (``_coerce_double``, ``api.py:745-779``); the inverse's 1/N rides
+  the last pass as an exactly split dd scale.
+
+`DDComplex` quad planes always run the dd tier and give `DDComplex`;
+float32 `Planar` planes under DOUBLE are widened with lo = 0 and run it
+too.  Under SINGLE, float64 planes and complex128 tensors keep their
+dtype: the fp64 kernels where `f64_supports` holds, the cuda engine's
+refusal elsewhere.
+
+The R2C, DCT/DST and convolution kinds ignore the precision flag and run
+at the input's dtype, as the JAX package's do (``_real_transform``,
+``api.py:293-330``; ``ConvolutionApplication``): float32 input on the
+fp32 kernels, float64 on the CPU's plain engine (the cuda engine refuses
+it, ROADMAP queue 1 item 10).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: HALF and BFLOAT16, DOUBLE for the R2C, DCT/DST and convolution
-kinds, zero-pad windows in `FFTApplication` (of every kind, R2R included)
-and keep_intermediate_order.
+item: HALF and BFLOAT16 for C2C (the storage tiers, queue 1 item 10),
+zero-pad windows in `FFTApplication` (of every kind, R2R included) and
+keep_intermediate_order.
 """
 from __future__ import annotations
 
@@ -49,12 +70,19 @@ import torch
 
 from vkfft_tpu_torch.config import FFTConfig, Precision, TransformKind
 from vkfft_tpu_torch.errors import InvalidConfigError
-from vkfft_tpu_torch.pcomplex import Planar, from_complex, to_complex, to_numpy
+from vkfft_tpu_torch.pcomplex import (
+    Planar,
+    from_complex,
+    from_numpy_planar,
+    to_complex,
+    to_numpy,
+)
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 from vkfft_tpu_torch.precision import dd_fft
 from vkfft_tpu_torch.precision.doubledouble import (
     DD,
     DDComplex,
+    dd_to_f64,
     ddc_from_complex128,
     ddc_to_complex128,
 )
@@ -89,17 +117,27 @@ def resolve_device(device) -> torch.device:
 
 def check_precision_and_order(config: FFTConfig) -> None:
     """The refusals every application of the port shares: the storage
-    tiers, and DOUBLE outside C2C (the double-double tier runs C2C)."""
-    if config.precision in (Precision.HALF, Precision.BFLOAT16) or (
-            config.precision is Precision.DOUBLE
-            and (config.kind is not TransformKind.C2C or config.convolution)):
-        what = "convolution" if config.convolution else config.kind.value
+    tiers of C2C (the other kinds and convolution run at the input's
+    dtype, whatever the flag says, as in the JAX package)."""
+    if (config.precision in (Precision.HALF, Precision.BFLOAT16)
+            and config.kind is TransformKind.C2C and not config.convolution):
         raise NotImplementedError(
-            f"precision {config.precision.value} for {what} is ROADMAP queue "
-            "1 item 10")
+            f"precision {config.precision.value} for c2c (the storage tiers) "
+            "is ROADMAP queue 1 item 10")
     if config.keep_intermediate_order:
         raise NotImplementedError(
             "keep_intermediate_order is ROADMAP queue 1 item 8")
+
+
+def double_route(config: FFTConfig) -> str:
+    """The route of a C2C config under DOUBLE, from its plans before any
+    launch and whatever device the data lies on: ``"native"`` where every
+    transformed axis runs on the fp64 kernels
+    (`cuda_engine.f64_supports`), else ``"dd"``, the double-double tier.
+    `DDComplex` input runs the dd tier either way."""
+    from vkfft_tpu_torch.ops import cuda_engine
+    return ("native" if cuda_engine.f64_supports(config.shape, config.axes)
+            else "dd")
 
 
 def _check_slice(config: FFTConfig) -> None:
@@ -163,6 +201,10 @@ class FFTApplication:
         self.axis_plans: dict[int, AxisPlan] = {
             ax: plan_axis(config.shape[ax]) for ax in config.axes
         }
+        # DOUBLE's route (`double_route`), decided once from the plans
+        self.double_route = (
+            double_route(config) if config.precision is Precision.DOUBLE
+            and config.kind is TransformKind.C2C else None)
 
     def _check_batch(self, x, trailing_ndim: int):
         """Validate the declared batch count (reference ``numberBatches``,
@@ -197,7 +239,7 @@ class FFTApplication:
         ay, az = ndim - 2, ndim - 1
         pair_ok = getattr(eng, "pair_supports", None)
         if (pair_ok is not None and ay in cfg.axes and az in cfg.axes
-                and pair_ok(cfg.shape[ay], cfg.shape[az])):
+                and pair_ok(cfg.shape[ay], cfg.shape[az], x.dtype)):
             # the two minor axes as one pass (reference single-upload 2-D
             # regime, ``vkFFT_Scheduler.h`` numAxisUploads == 1): first in
             # the forward, last (with the 1/N) in the inverse
@@ -286,26 +328,42 @@ class FFTApplication:
         return x
 
     def _run_double(self, x, inverse: bool):
-        """DOUBLE on every input form (see the module docstring); the
-        planes' device picks kernel or plain versions, whatever
-        ``engine`` says."""
+        """DOUBLE on every input form (see the module docstring): the
+        route of `double_route`, `DDComplex` and float32 `Planar` on the
+        dd tier.  On the dd tier the planes' device picks kernel or plain
+        versions, whatever ``engine`` says."""
         if isinstance(x, DDComplex):
             return self._transform_dd(x, inverse)
+        native = self.double_route == "native"
         if isinstance(x, Planar):
-            if x.dtype != torch.float32:
+            if x.dtype == torch.float32:
+                lo = torch.zeros_like(x.re)
+                return self._transform_dd(
+                    DDComplex(DD(x.re, lo), DD(x.im, lo)), inverse)
+            if x.dtype != torch.float64:
                 raise InvalidConfigError(
-                    f"DOUBLE widens float32 Planar planes, got {x.dtype}")
-            lo = torch.zeros_like(x.re)
-            return self._transform_dd(DDComplex(DD(x.re, lo), DD(x.im, lo)),
-                                      inverse)
+                    f"DOUBLE takes float32 or float64 Planar planes, got "
+                    f"{x.dtype}")
+            if native:
+                return self._transform(x, inverse)
+            y = self._transform_dd(
+                ddc_from_complex128(torch.complex(x.re, x.im)), inverse)
+            return Planar(dd_to_f64(y.re), dd_to_f64(y.im))
         if isinstance(x, torch.Tensor):
             if not x.is_complex():
                 raise InvalidConfigError(
                     "DOUBLE takes complex tensors, Planar or DDComplex planes")
+            x = x.to(torch.complex128)
+            if native:
+                return to_complex(self._transform(from_complex(x), inverse))
             return ddc_to_complex128(
                 self._transform_dd(ddc_from_complex128(x), inverse))
-        xd = ddc_from_complex128(np.asarray(x, np.complex128),
-                                 resolve_device(self.device))
+        xh = np.asarray(x, np.complex128)
+        dev = resolve_device(self.device)
+        if native:
+            p = from_numpy_planar(xh.real, xh.imag, dev)
+            return to_numpy(self._transform(p, inverse))
+        xd = ddc_from_complex128(xh, dev)
         return ddc_to_complex128(self._transform_dd(xd, inverse)).cpu().numpy()
 
     def _run(self, x, inverse: bool):

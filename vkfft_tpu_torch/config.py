@@ -94,6 +94,34 @@ class FFTConfig:
         return tuple(range(len(self.shape)))
 
 
+# The compute modes of `set_compute_mode` (the JAX package's names,
+# ``vkfft_tpu/__init__.py:51-75``), and the one recorded for the process.
+COMPUTE_MODES = ("fp32", "fp32_int8", "bf16")
+_compute_mode = "fp32"
+
+
+def set_compute_mode(mode: str) -> None:
+    """Select the fp32 tier's compute mode, process-wide, like the
+    reference's compile-time precision switches (``vkFFT/vkFFT.h:70-102``):
+    ``"fp32"`` (the default), ``"fp32_int8"`` or ``"bf16"``; anything else
+    raises ValueError.  The JAX package emulates fp32 products on the
+    TPU's matrix unit in several passes (bf16 or int8 digits), or in one
+    bf16 pass for ``"bf16"`` (~3e-3); the port's kernels compute in fp32
+    on the GPU's vector units whatever the mode, so each mode runs the
+    same kernels and meets fp32's ~3e-7, within every mode's contract.
+    The mode is recorded and read back by `get_compute_mode`."""
+    global _compute_mode
+    if mode not in COMPUTE_MODES:
+        raise ValueError(f"unknown compute mode: {mode!r} "
+                         "(expected fp32 | fp32_int8 | bf16)")
+    _compute_mode = mode
+
+
+def get_compute_mode() -> str:
+    """The compute mode `set_compute_mode` recorded ("fp32" by default)."""
+    return _compute_mode
+
+
 def _tuple_tree(v):
     if isinstance(v, (list, tuple)):
         return tuple(_tuple_tree(e) for e in v)

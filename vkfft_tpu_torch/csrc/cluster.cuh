@@ -21,7 +21,8 @@ namespace cluster {
 constexpr int kXchg = 16;   // most points a thread moves in an exchange
 
 // Point i of block `rank`'s buffer as a shared::cluster address.
-__device__ __forceinline__ unsigned remote(const float2* buf, int i, int rank) {
+template <class C>
+__device__ __forceinline__ unsigned remote(const C* buf, int i, int rank) {
   const unsigned local = (unsigned)__cvta_generic_to_shared(buf + i);
   unsigned a;
   asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(local), "r"(rank));
@@ -46,6 +47,12 @@ __device__ __forceinline__ float4 ld_remote4(unsigned a) {
 __device__ __forceinline__ void st_remote2(unsigned a, float2 v) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
                :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// One fp64 point (16 bytes) to a shared::cluster address.
+__device__ __forceinline__ void st_remote2(unsigned a, double2 v) {
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};"
+               :: "r"(a), "d"(v.x), "d"(v.y) : "memory");
 }
 
 __device__ __forceinline__ void st_remote4(unsigned a, float4 v) {

@@ -23,6 +23,14 @@
 // Lines shorter than 2048 points share a block.  A block reads all its
 // lines before it writes any, so the output may alias the input (in-place
 // passes of an N-D walk, the long tier).
+//
+// fp64 (fft_lines_f64_kernel, C entry vk_fft_lines_f64): the same body on
+// double planes and tables, a point 16 B of shared memory and a double2
+// four registers.  The layout rule is the same in points (every layout of
+// it has at most kThreads64 threads), the bound (kThreads64, 2) leaves 128
+// registers a thread, and the fp64 walk holds one generic item a round
+// and has no radix-16 stage (its plans are stage_radices'): with either it
+// spilled at 128 registers (PERF.md §6).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -33,6 +41,7 @@ using namespace vkfft::walk;
 
 constexpr int kThreads = 512;  // most threads a block
 constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
+constexpr int kThreads64 = 256;  // ... of the fp64 kernel
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fft_lines_kernel(const float* xr, const float* xi, float* yr, float* yi,
@@ -44,11 +53,58 @@ fft_lines_kernel(const float* xr, const float* xi, float* yr, float* yi,
                    pitch, len1, len2, true);
 }
 
-int smem_opt_in(size_t smem) {
+__global__ void __launch_bounds__(kThreads64, 2)
+fft_lines_f64_kernel(const double* xr, const double* xi, double* yr,
+                     double* yi, long long batch, Plan p1, Plan p2,
+                     const double2* t1, const double2* t2, const double2* tw,
+                     int lines, int pitch, int len1, int len2) {
+  extern __shared__ __align__(16) double2 smem64[];
+  two_factor_block(smem64, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0,
+                   lines, pitch, len1, len2, true);
+}
+
+template <typename K>
+int smem_opt_in(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fft_lines_kernel,
+  return (int)cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
+}
+
+// The checks of a launch at points of type C (the layout of
+// cuda_kernels.lines_layout, at most `max_threads` a block), the plans
+// into p1, p2 and the blocks into *blocks.
+template <class C>
+int prepare(long long batch, const int* plan1, const int* plan2, int threads,
+            int lines, int smem, int max_threads, Plan* p1, Plan* p2,
+            long long* blocks) {
+  if (batch < 1 || !vkfft::plan_from_ints(plan1, p1) ||
+      !vkfft::subplan_from_ints(plan2, p2))
+    return (int)cudaErrorInvalidValue;
+  const int n = p1->n * p2->n;
+  if (n < 2 || n > vkfft::kMaxN || p1->n < p2->n ||
+      p1->inverse != p2->inverse || threads < 32 || threads > max_threads ||
+      threads % 32 != 0 || lines < 1 ||
+      (long long)lines * n > vkfft::kTwoFactorMaxN ||
+      !rounds_fit<C>(*p1, threads) || !rounds_fit<C>(*p2, threads) ||
+      smem < 0 ||
+      (size_t)smem != two_factor_smem<C>(*p1, *p2, lines) ||
+      smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  *blocks = (batch + lines - 1) / lines;
+  if (*blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <typename K>
+int occupancy(K kernel, int max_threads, int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > max_threads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 }  // namespace
@@ -72,20 +128,11 @@ int vk_fft_lines(const float* xr, const float* xi, float* yr, float* yi,
                  const float* twiddle, int threads, int lines, int smem,
                  void* stream) {
   Plan p1, p2;
-  if (batch < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
-      !vkfft::subplan_from_ints(plan2, &p2))
-    return (int)cudaErrorInvalidValue;
-  const int n = p1.n * p2.n;
-  if (n < 2 || n > vkfft::kMaxN || p1.n < p2.n || p1.inverse != p2.inverse ||
-      threads < 32 || threads > kThreads || threads % 32 != 0 || lines < 1 ||
-      (long long)lines * n > vkfft::kTwoFactorMaxN ||
-      !rounds_fit(p1, threads) || !rounds_fit(p2, threads) || smem < 0 ||
-      (size_t)smem != two_factor_smem(p1, p2, lines) ||
-      smem > vkfft::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (batch + lines - 1) / lines;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
+  long long blocks;
+  int err = prepare<float2>(batch, plan1, plan2, threads, lines, smem,
+                            kThreads, &p1, &p2, &blocks);
+  if (err) return err;
+  err = smem_opt_in(fft_lines_kernel, smem);
   if (err) return err;
   fft_lines_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
@@ -95,16 +142,37 @@ int vk_fft_lines(const float* xr, const float* xi, float* yr, float* yi,
   return (int)cudaGetLastError();
 }
 
+// vk_fft_lines on fp64 planes and tables (interleaved fp64 pairs), at
+// most 256 threads a block.
+int vk_fft_lines_f64(const double* xr, const double* xi, double* yr,
+                     double* yi, long long batch, const int* plan1,
+                     const int* plan2, const double* table1,
+                     const double* table2, const double* twiddle, int threads,
+                     int lines, int smem, void* stream) {
+  Plan p1, p2;
+  long long blocks;
+  int err = prepare<double2>(batch, plan1, plan2, threads, lines, smem,
+                             kThreads64, &p1, &p2, &blocks);
+  if (err) return err;
+  err = smem_opt_in(fft_lines_f64_kernel, smem);
+  if (err) return err;
+  fft_lines_f64_kernel<<<(unsigned)blocks, threads, smem,
+                         (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const double2*>(table1),
+      reinterpret_cast<const double2*>(table2),
+      reinterpret_cast<const double2*>(twiddle), lines, p1.n | 1,
+      table_len(p1), table_len(p2));
+  return (int)cudaGetLastError();
+}
+
 // Resident blocks an SM of the kernel at `threads` a block and `smem`
 // dynamic shared bytes, into *blocks.
 int vk_fft_lines_occupancy(int threads, int smem, int* blocks) {
-  if (threads < 32 || threads > kThreads || smem < 0 ||
-      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
-  if (err) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fft_lines_kernel, threads, smem);
+  return occupancy(fft_lines_kernel, kThreads, threads, smem, blocks);
+}
+
+int vk_fft_lines_f64_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_lines_f64_kernel, kThreads64, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -32,6 +32,16 @@
 // an exchange) and the exact shared bytes.  Every read of a plane precedes
 // the first cluster barrier and every write follows the last, so the
 // output may alias the input.
+//
+// fp64 (fft_pair_f64_kernel, C entry vk_fft_pair_f64): the same body on
+// double planes and tables, a point 16 B of shared memory (pair_layout's
+// rule in points, so 64 KB a block at 256 x 256 over a cluster of 16) and
+// a double2 four registers.  A point is one 16-byte store of the exchange,
+// so the fp64 kernel moves single points where fp32 packs pairs, each
+// thread at most kXchg of them; its planes (pair_cluster at 32 B a point)
+// have at most 4096 points a block, so at most kThreads64 threads, the
+// bound leaving each 128 registers, on the fp64 walk (one generic item a
+// round, no radix 16: inplace.cuh's kItems, kRadix16).
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -43,6 +53,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using vkfft::Plan;
+using vkfft::Real;
 using namespace vkfft::walk;
 using vkfft::cluster::kXchg;
 using vkfft::cluster::remote;
@@ -52,43 +63,52 @@ using vkfft::cluster::st_remote4;
 // Most threads a block; the bound holds the kernel to 64 registers, as
 // (512, 2) does, and lets the largest tiles move in one exchange.
 constexpr int kThreads = 1024;
+constexpr int kThreads64 = 256;  // ... of the fp64 kernel, at 2 blocks an SM
+
+// Whether the exchange packs two points into one 16-byte store (fp32).
+template <class C>
+constexpr bool kPacked = sizeof(C) == 8;
 
 // Row tile -> column tiles: point (r, kz) of this block's row tile, at its
 // place `zout`, goes to point (r0 + r, kz % cols) of owner kz / cols's
 // column tile (pitch cols).  Each thread reads its points (pairs along kz
-// when cols is even) into registers, the cluster meets (every row tile is
-// read), it stores them, and the cluster meets again.
-__device__ void push_columns(cg::cluster_group& cluster, float2* buf, int nz,
+// when cols is even and a point is 8 bytes) into registers, the cluster
+// meets (every row tile is read), it stores them, and the cluster meets
+// again.
+template <class C>
+__device__ void push_columns(cg::cluster_group& cluster, C* buf, int nz,
                              int rows, int cols, const Map& zout, int r0) {
   const int T = blockDim.x;
   const int tile = rows * nz;
-  if ((cols & 1) == 0) {
-    const int half = tile >> 1;
-    float4 v[kXchg / 2];
-    int v0 = fresh_tid();
+  if ((cols & 1) == 0 && kPacked<C>) {
+    if constexpr (kPacked<C>) {
+      const int half = tile >> 1;
+      float4 v[kXchg / 2];
+      int v0 = fresh_tid();
 #pragma unroll
-    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
-      const int p = min(v0, half - 1);
-      const float2 a = buf[position(2 * p, zout)];
-      const float2 b = buf[position(2 * p + 1, zout)];
-      v[j] = make_float4(a.x, a.y, b.x, b.y);
-    }
-    cluster.sync();   // every row tile is read: the buffers are free
-    // the divisors made here, not held through the reads
-    const Div dn = make_div(fresh_int(nz) >> 1), dc = make_div(cols >> 1);
-    v0 = fresh_tid();
+      for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+        const int p = min(v0, half - 1);
+        const float2 a = buf[position(2 * p, zout)];
+        const float2 b = buf[position(2 * p + 1, zout)];
+        v[j] = make_float4(a.x, a.y, b.x, b.y);
+      }
+      cluster.sync();   // every row tile is read: the buffers are free
+      // the divisors made here, not held through the reads
+      const Div dn = make_div(fresh_int(nz) >> 1), dc = make_div(cols >> 1);
+      v0 = fresh_tid();
 #pragma unroll
-    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
-      const int p = min(v0, half - 1);
-      const int r = quot(p, dn);
-      const int kz2 = p - r * (int)dn.d;
-      const int owner = quot(kz2, dc);
-      if (v0 < half)
-        st_remote4(remote(buf, 2 * ((r0 + r) * (int)dc.d + kz2 -
-                                    owner * (int)dc.d), owner), v[j]);
+      for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+        const int p = min(v0, half - 1);
+        const int r = quot(p, dn);
+        const int kz2 = p - r * (int)dn.d;
+        const int owner = quot(kz2, dc);
+        if (v0 < half)
+          st_remote4(remote(buf, 2 * ((r0 + r) * (int)dc.d + kz2 -
+                                      owner * (int)dc.d), owner), v[j]);
+      }
     }
   } else {
-    float2 v[kXchg];
+    C v[kXchg];
     int u0 = fresh_tid();
 #pragma unroll
     for (int j = 0; j < kXchg; ++j, u0 += T)
@@ -111,11 +131,14 @@ __device__ void push_columns(cg::cluster_group& cluster, float2* buf, int nz,
 }
 
 // The column tile to device memory: row ky (at yout(ky) in the tile) to
-// row ky of the plane from float offset g0 (its column c0), cols points,
-// as float4s where every run is 16-byte aligned (a thread's four points
-// read in an order rotated by its lane), else single floats.
-__device__ void store_columns(const float2* buf, int ny, int cols, RowPerm yout,
-                              float* yr, float* yi, long long g0, int nz) {
+// row ky of the plane from real offset g0 (its column c0), cols points,
+// four reals a plane at once (store4) where every run is 16-byte aligned
+// (a thread's four points read in an order rotated by its lane), else
+// single reals.
+template <class C>
+__device__ void store_columns(const C* buf, int ny, int cols, RowPerm yout,
+                              Real<C>* yr, Real<C>* yi, long long g0,
+                              int nz) {
   const int T = blockDim.x;
   if ((cols & 3) == 0 && (g0 & 3) == 0 && aligned16(yr, yi)) {
     const int c4 = cols >> 2;
@@ -125,14 +148,14 @@ __device__ void store_columns(const float2* buf, int ny, int cols, RowPerm yout,
     for (int f = threadIdx.x; f < ny * c4; f += T) {
       const int ky = quot(f, dc);
       const int c = 4 * (f - ky * c4);
-      const float2* s = buf + yout(ky) * cols + c;
-      float2 v[4];
+      const C* s = buf + yout(ky) * cols + c;
+      C v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = s[(k + rot) & 3];
       rotate(v, (4 - rot) & 3);
       const long long g = g0 + (long long)ky * nz + c;
-      *reinterpret_cast<float4*>(yr + g) = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
-      *reinterpret_cast<float4*>(yi + g) = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+      store4(yr + g, v[0].x, v[1].x, v[2].x, v[3].x);
+      store4(yi + g, v[0].y, v[1].y, v[2].y, v[3].y);
     }
     return;
   }
@@ -140,7 +163,7 @@ __device__ void store_columns(const float2* buf, int ny, int cols, RowPerm yout,
   for (int u = threadIdx.x; u < ny * cols; u += T) {
     const int ky = quot(u, dc);
     const int c = u - ky * cols;
-    const float2 v = buf[yout(ky) * cols + c];
+    const C v = buf[yout(ky) * cols + c];
     const long long g = g0 + (long long)ky * nz + c;
     yr[g] = v.x;
     yi[g] = v.y;
@@ -166,22 +189,23 @@ __device__ __forceinline__ long long plane_base(cg::cluster_group& cluster,
   return (long long)(blockIdx.x / cluster.num_blocks()) * ny * nz;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
-                const float2* tz2, const float2* ty1, const float2* ty2,
-                const float2* twz, const float2* twy, Geo geo) {
-  extern __shared__ __align__(16) float2 smem[];
+// The block body on points of type C.
+template <class C>
+__device__ __forceinline__ void pair_block(
+    C* smem, const Real<C>* xr, const Real<C>* xi, Real<C>* yr, Real<C>* yi,
+    const Plan& pz1, const Plan& pz2, const Plan& py1, const Plan& py2,
+    const C* tz1, const C* tz2, const C* ty1, const C* ty2, const C* twz,
+    const C* twy, const Geo& geo) {
   cg::cluster_group cluster = cg::this_cluster();
   const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
-  float2* tab = smem + geo.area;
+  C* tab = smem + geo.area;
   for (int t = threadIdx.x; t < geo.ntab; t += blockDim.x) {
-    const float2* src = t < geo.z2    ? tz1 + t
-                        : t < geo.y1  ? tz2 + (t - geo.z2)
-                        : t < geo.y2  ? ty1 + (t - geo.y1)
-                        : t < geo.twz ? ty2 + (t - geo.y2)
-                        : t < geo.twy ? twz + (t - geo.twz)
-                                      : twy + (t - geo.twy);
+    const C* src = t < geo.z2    ? tz1 + t
+                   : t < geo.y1  ? tz2 + (t - geo.z2)
+                   : t < geo.y2  ? ty1 + (t - geo.y1)
+                   : t < geo.twz ? ty2 + (t - geo.y2)
+                   : t < geo.twy ? twz + (t - geo.twz)
+                                 : twy + (t - geo.twy);
     tab[t] = __ldg(src);
   }
   // the row tile in natural order
@@ -211,9 +235,10 @@ fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
                  : Pass{geo.cols * n1, 1, geo.cols, n1 * geo.cols, make_div(n1)})
           : (row ? Pass{geo.rows * n2, geo.sz, geo.pz, 1, make_div(n2)}
                  : Pass{geo.rows * n1, geo.sz, 1, geo.pz, make_div(n1)});
-    const float2* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
+    const C* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
     // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
-    const bool twiddled = n2 > 1 || tlo[kTwLo].x != 1.f || tlo[kTwLo].y != 0.f;
+    const bool twiddled = n2 > 1 || tlo[kTwLo].x != Real<C>(1) ||
+                          tlo[kTwLo].y != Real<C>(0);
     const bool fuse = twiddled && row == (n2 == 1);
     const int which = (y ? 2 : 0) + (row ? 0 : 1);
     run_pass(smem, g,
@@ -222,25 +247,49 @@ fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
                                 : which == 1 ? geo.z2
                                 : which == 2 ? geo.y1
                                              : geo.y2),
-             InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
+             InterTwiddleT<C>{fuse ? tlo : nullptr, tlo + kTwLo});
   }
   store_columns(smem, ny, geo.cols, RowPerm{make_div(py2.n), py1.n}, yr, yi,
                 plane_base(cluster, ny, nz) + cluster.block_rank() * geo.cols,
                 nz);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                const float2* tz2, const float2* ty1, const float2* ty2,
+                const float2* twz, const float2* twy, Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+             twz, twy, geo);
+}
+
+__global__ void __launch_bounds__(kThreads64, 2)
+fft_pair_f64_kernel(const double* xr, const double* xi, double* yr,
+                    double* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                    const double2* tz1, const double2* tz2,
+                    const double2* ty1, const double2* ty2,
+                    const double2* twz, const double2* twy, Geo geo) {
+  extern __shared__ __align__(16) double2 smem64[];
+  pair_block(smem64, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+             twz, twy, geo);
+}
+
 // The layout of the plans (cuda_kernels.pair_layout) as a Geo, or false
 // when (cluster, threads, smem) is not it: every stage's round holds a
 // whole sequence, a thread moves at most kXchg points of an exchange, and
 // the shared bytes are exact.
+template <class C>
 bool layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
-               const Plan& py2, int cluster, int threads, int smem, Geo* geo) {
+               const Plan& py2, int cluster, int threads, int max_threads,
+               int smem, Geo* geo) {
   const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
   if (!vkfft::cluster::cluster_ok(cluster, ny, nz) || threads < 32 ||
-      threads > kThreads || threads % 32 != 0 ||
+      threads > max_threads || threads % 32 != 0 ||
       (long long)ny * nz / cluster > (long long)kXchg * threads ||
-      !rounds_fit(pz1, threads) || !rounds_fit(pz2, threads) ||
-      !rounds_fit(py1, threads) || !rounds_fit(py2, threads) || smem < 0)
+      !rounds_fit<C>(pz1, threads) || !rounds_fit<C>(pz2, threads) ||
+      !rounds_fit<C>(py1, threads) || !rounds_fit<C>(py2, threads) ||
+      smem < 0)
     return false;
   geo->rows = ny / cluster;
   geo->cols = nz / cluster;
@@ -255,8 +304,51 @@ bool layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
   geo->twz = geo->y2 + table_len(py2);
   geo->twy = geo->twz + kTwLo + (nz + kTwLo - 1) / kTwLo;
   geo->ntab = geo->twy + kTwLo + (ny + kTwLo - 1) / kTwLo;
-  return (size_t)smem == sizeof(float2) * ((size_t)geo->area + geo->ntab) &&
+  return (size_t)smem == sizeof(C) * ((size_t)geo->area + geo->ntab) &&
          smem <= vkfft::kMaxSmemBytes;
+}
+
+// The checks and the cluster launch at points of type C.
+template <class C, typename K>
+int launch(K kernel, int max_threads, const Real<C>* xr, const Real<C>* xi,
+           Real<C>* yr, Real<C>* yi, long long planes, const int* plan_z1,
+           const int* plan_z2, const int* plan_y1, const int* plan_y2,
+           const Real<C>* table_z1, const Real<C>* table_z2,
+           const Real<C>* table_y1, const Real<C>* table_y2,
+           const Real<C>* twiddle_z, const Real<C>* twiddle_y, int cluster,
+           int threads, int smem, void* stream) {
+  Plan pz1, pz2, py1, py2;
+  if (planes < 1 || !vkfft::plan_from_ints(plan_z1, &pz1) ||
+      !vkfft::subplan_from_ints(plan_z2, &pz2) ||
+      !vkfft::plan_from_ints(plan_y1, &py1) ||
+      !vkfft::subplan_from_ints(plan_y2, &py2) || twiddle_z == nullptr ||
+      twiddle_y == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Geo geo;
+  if (pz1.n < pz2.n || py1.n < py2.n || pz2.inverse != pz1.inverse ||
+      py1.inverse != pz1.inverse || py2.inverse != pz1.inverse ||
+      !layout_of<C>(pz1, pz2, py1, py2, cluster, threads, max_threads, smem,
+                    &geo))
+    return (int)cudaErrorInvalidValue;
+  return vkfft::cluster::launch_cluster(
+      kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr, yi,
+      pz1, pz2, py1, py2, reinterpret_cast<const C*>(table_z1),
+      reinterpret_cast<const C*>(table_z2),
+      reinterpret_cast<const C*>(table_y1),
+      reinterpret_cast<const C*>(table_y2),
+      reinterpret_cast<const C*>(twiddle_z),
+      reinterpret_cast<const C*>(twiddle_y), geo);
+}
+
+template <typename K>
+int occupancy(K kernel, int max_threads, int cluster, int threads, int smem,
+              int* clusters, int* blocks) {
+  if (!vkfft::cluster::cluster_ok(cluster, cluster, cluster) || threads < 32 ||
+      threads > max_threads || smem < 0 || clusters == nullptr ||
+      blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return vkfft::cluster::cluster_occupancy(kernel, cluster, threads, smem,
+                                           clusters, blocks);
 }
 
 }  // namespace
@@ -280,26 +372,26 @@ int vk_fft_pair(const float* xr, const float* xi, float* yr, float* yi,
                 const float* table_y2, const float* twiddle_z,
                 const float* twiddle_y, int cluster, int threads, int smem,
                 void* stream) {
-  Plan pz1, pz2, py1, py2;
-  if (planes < 1 || !vkfft::plan_from_ints(plan_z1, &pz1) ||
-      !vkfft::subplan_from_ints(plan_z2, &pz2) ||
-      !vkfft::plan_from_ints(plan_y1, &py1) ||
-      !vkfft::subplan_from_ints(plan_y2, &py2) || twiddle_z == nullptr ||
-      twiddle_y == nullptr)
-    return (int)cudaErrorInvalidValue;
-  Geo geo;
-  if (pz1.n < pz2.n || py1.n < py2.n || pz2.inverse != pz1.inverse ||
-      py1.inverse != pz1.inverse || py2.inverse != pz1.inverse ||
-      !layout_of(pz1, pz2, py1, py2, cluster, threads, smem, &geo))
-    return (int)cudaErrorInvalidValue;
-  return vkfft::cluster::launch_cluster(
-      fft_pair_kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi,
-      yr, yi, pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
-      reinterpret_cast<const float2*>(table_z2),
-      reinterpret_cast<const float2*>(table_y1),
-      reinterpret_cast<const float2*>(table_y2),
-      reinterpret_cast<const float2*>(twiddle_z),
-      reinterpret_cast<const float2*>(twiddle_y), geo);
+  return launch<float2>(fft_pair_kernel, kThreads, xr, xi, yr, yi, planes,
+                        plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
+                        table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
+                        cluster, threads, smem, stream);
+}
+
+// vk_fft_pair on fp64 planes and tables (interleaved fp64 pairs), at most
+// 256 threads a block.
+int vk_fft_pair_f64(const double* xr, const double* xi, double* yr,
+                    double* yi, long long planes, const int* plan_z1,
+                    const int* plan_z2, const int* plan_y1,
+                    const int* plan_y2, const double* table_z1,
+                    const double* table_z2, const double* table_y1,
+                    const double* table_y2, const double* twiddle_z,
+                    const double* twiddle_y, int cluster, int threads,
+                    int smem, void* stream) {
+  return launch<double2>(fft_pair_f64_kernel, kThreads64, xr, xi, yr, yi,
+                         planes, plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
+                         table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
+                         cluster, threads, smem, stream);
 }
 
 // Resident clusters on the card and blocks an SM of the kernel at
@@ -307,12 +399,14 @@ int vk_fft_pair(const float* xr, const float* xi, float* yr, float* yi,
 // *clusters and *blocks.
 int vk_fft_pair_occupancy(int cluster, int threads, int smem, int* clusters,
                           int* blocks) {
-  if (!vkfft::cluster::cluster_ok(cluster, cluster, cluster) || threads < 32 ||
-      threads > kThreads || smem < 0 || clusters == nullptr ||
-      blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return vkfft::cluster::cluster_occupancy(fft_pair_kernel, cluster, threads,
-                                           smem, clusters, blocks);
+  return occupancy(fft_pair_kernel, kThreads, cluster, threads, smem,
+                   clusters, blocks);
+}
+
+int vk_fft_pair_f64_occupancy(int cluster, int threads, int smem,
+                              int* clusters, int* blocks) {
+  return occupancy(fft_pair_f64_kernel, kThreads64, cluster, threads, smem,
+                   clusters, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -27,60 +27,72 @@
 // threads and the exact shared bytes.  Offsets are 64-bit and the grid is
 // 1-D over P * tiles, so P = 1 with a large S (the x axis of a cube) and a
 // large P both fit.
+//
+// fp64 (fft_strided_f64_kernel, C entry vk_fft_strided_f64): the same body
+// on double planes and tables, a point 16 B of shared memory, so a tile
+// holds half the columns beside its tables (strided_layout at 16 B a
+// point), and a double2 four registers: at most kThreads64 threads a
+// block, the bound leaving each 128 registers, on the fp64 walk (one
+// generic item a round, no radix 16: inplace.cuh's kItems, kRadix16).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
 namespace {
 
 using vkfft::Plan;
+using vkfft::Real;
 using vkfft::cmul;
 using namespace vkfft::walk;
 
 // Most threads a block; the bound holds the kernel to 64 registers.
 constexpr int kThreads = 1024;
+constexpr int kThreads64 = 512;  // ... of the fp64 kernel: 128 registers
 
 // The twiddle of the column pass's last stage: output k of sequence q
 // (column q % ts of row j1 = q / ts of the factors' matrix) times w_n^(j1
 // k) * scale from the twiddle's two tables; in one pass q < ts, so the
 // scale alone.  Off when lo is null.
+template <class C>
 struct ColumnTwiddle {
-  const float2* lo;
-  const float2* hi;
+  const C* lo;
+  const C* hi;
   Div dts;
   __device__ __forceinline__ bool on() const { return lo != nullptr; }
   __device__ __forceinline__ ColumnTwiddle off() const {
     return {nullptr, hi, dts};
   }
-  __device__ __forceinline__ float2 operator()(float2 v, int q, int k) const {
+  __device__ __forceinline__ C operator()(C v, int q, int k) const {
     return cmul(v, inter_twiddle(quot(q, dts) * k, lo, hi));
   }
 };
 
-// The block's tile: `cols` columns (of ts) of the n rows at float offset
+// The block's tile: `cols` columns (of ts) of the n rows at real offset
 // g0 of the planes, row j at g0 + j * S, to point (j, c) at j * ts + c, by
-// cp.async, each float straight to its place; returns when this thread's
+// cp.async, each real straight to its place; returns when this thread's
 // copies have landed.
-__device__ void load_columns_async(const float* xr, const float* xi,
+template <class C>
+__device__ void load_columns_async(const Real<C>* xr, const Real<C>* xi,
                                    long long g0, long long S, int n, int ts,
-                                   int cols, float2* tile) {
+                                   int cols, C* tile) {
   const Div dc = make_div(cols);
   for (int u = threadIdx.x; u < n * cols; u += blockDim.x) {
     const int j = quot(u, dc);
     const int c = u - j * cols;
     const long long g = g0 + j * S + c;
-    float* d = reinterpret_cast<float*>(tile + j * ts + c);
-    cp_async4(d, xr + g);
-    cp_async4(d + 1, xi + g);
+    Real<C>* d = reinterpret_cast<Real<C>*>(tile + j * ts + c);
+    cp_async_real(d, xr + g);
+    cp_async_real(d + 1, xi + g);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The tile back to device memory: row k (at yout(k) * ts in the tile) to
-// float offset g0 + k * S, `cols` points, as float4s where every run is
-// 16-byte aligned (a thread's four points read in an order rotated by its
-// lane), else single floats.
-__device__ void store_columns(const float2* tile, RowPerm yout, float* yr,
-                              float* yi, long long g0, long long S, int n,
+// real offset g0 + k * S, `cols` points, four reals a plane at once
+// (store4) where every run is 16-byte aligned (a thread's four points read
+// in an order rotated by its lane), else single reals.
+template <class C>
+__device__ void store_columns(const C* tile, RowPerm yout, Real<C>* yr,
+                              Real<C>* yi, long long g0, long long S, int n,
                               int ts, int cols) {
   const int T = blockDim.x;
   if (cols == ts && (ts & 3) == 0 && (S & 3) == 0 && (g0 & 3) == 0 &&
@@ -92,14 +104,14 @@ __device__ void store_columns(const float2* tile, RowPerm yout, float* yr,
     for (int f = threadIdx.x; f < n * c4; f += T) {
       const int k = quot(f, dc);
       const int c = 4 * (f - k * c4);
-      const float2* s = tile + yout(k) * ts + c;
-      float2 v[4];
+      const C* s = tile + yout(k) * ts + c;
+      C v[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[q] = s[(q + rot) & 3];
       rotate(v, (4 - rot) & 3);
       const long long g = g0 + k * S + c;
-      *reinterpret_cast<float4*>(yr + g) = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
-      *reinterpret_cast<float4*>(yi + g) = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+      store4(yr + g, v[0].x, v[1].x, v[2].x, v[3].x);
+      store4(yi + g, v[0].y, v[1].y, v[2].y, v[3].y);
     }
     return;
   }
@@ -107,7 +119,7 @@ __device__ void store_columns(const float2* tile, RowPerm yout, float* yr,
   for (int u = threadIdx.x; u < n * cols; u += T) {
     const int k = quot(u, dc);
     const int c = u - k * cols;
-    const float2 v = tile[yout(k) * ts + c];
+    const C v = tile[yout(k) * ts + c];
     const long long g = g0 + k * S + c;
     yr[g] = v.x;
     yi[g] = v.y;
@@ -130,14 +142,14 @@ __device__ __forceinline__ long long tile_of(long long b, long long tiles) {
   return p * tiles + (t % kSpread) * (tiles / kSpread) + t / kSpread;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                   long long S, long long tiles, Plan p1, Plan p2,
-                   const float2* t1, const float2* t2, const float2* tw,
-                   int ts, int len1, int len2) {
-  extern __shared__ __align__(16) float2 smem[];
+// The block body on points of type C.
+template <class C>
+__device__ __forceinline__ void strided_block(
+    C* smem, const Real<C>* xr, const Real<C>* xi, Real<C>* yr, Real<C>* yi,
+    long long S, long long tiles, const Plan& p1, const Plan& p2, const C* t1,
+    const C* t2, const C* tw, int ts, int len1, int len2) {
   const int n = p1.n * p2.n;
-  float2* s1 = smem + n * ts;
+  C* s1 = smem + n * ts;
   const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
   for (int t = threadIdx.x; t < ntab; t += blockDim.x)
     s1[t] = t < len1 ? __ldg(&t1[t])
@@ -152,7 +164,7 @@ fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
   // the column pass (n2-point DFTs, the twiddle on its last stage), then
   // the row pass (n1-point; the scale on its last stage when n2 = 1); one
   // call site of run_pass keeps one copy of each stage
-  const float2* tlo = s1 + len1 + len2;
+  const C* tlo = s1 + len1 + len2;
   for (int k = 0; k < 2; ++k) {
     const bool row = k == 1;
     const int n1 = p1.n, n2 = p2.n;
@@ -161,16 +173,89 @@ fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
     const Pass g = row ? Pass{n2 * ts, n1 * ts, 1, ts, make_div(ts)}
                        : Pass{n1 * ts, 0, 1, n1 * ts, make_div(n1 * ts)};
     // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
-    const bool twiddled = n2 > 1 || tlo[kTwLo].x != 1.f || tlo[kTwLo].y != 0.f;
+    const bool twiddled = n2 > 1 || tlo[kTwLo].x != Real<C>(1) ||
+                          tlo[kTwLo].y != Real<C>(0);
     const bool fuse = twiddled && row == (n2 == 1);
     run_pass(smem, g, row ? p1 : p2, row ? s1 : s1 + len1,
-             ColumnTwiddle{fuse ? tlo : nullptr, tlo + kTwLo, make_div(ts)});
+             ColumnTwiddle<C>{fuse ? tlo : nullptr, tlo + kTwLo,
+                              make_div(ts)});
   }
   const long long bu = tile_of(blockIdx.x, tiles);
   const long long pj = bu / tiles;
   const long long sj = (bu - pj * tiles) * ts;
   store_columns(smem, RowPerm{make_div(p2.n), p1.n}, yr, yi,
                 pj * n * S + sj, S, n, ts, (int)min((long long)ts, S - sj));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                   long long S, long long tiles, Plan p1, Plan p2,
+                   const float2* t1, const float2* t2, const float2* tw,
+                   int ts, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_block(smem, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts, len1,
+                len2);
+}
+
+__global__ void __launch_bounds__(kThreads64, 1)
+fft_strided_f64_kernel(const double* xr, const double* xi, double* yr,
+                       double* yi, long long S, long long tiles, Plan p1,
+                       Plan p2, const double2* t1, const double2* t2,
+                       const double2* tw, int ts, int len1, int len2) {
+  extern __shared__ __align__(16) double2 smem64[];
+  strided_block(smem64, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts,
+                len1, len2);
+}
+
+template <typename K>
+int smem_opt_in(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The checks and the launch at points of type C (the layout of
+// cuda_kernels.strided_layout, at most `max_threads` a block).
+template <class C, typename K>
+int launch(K kernel, int max_threads, const Real<C>* xr, const Real<C>* xi,
+           Real<C>* yr, Real<C>* yi, long long P, long long S,
+           const int* plan1, const int* plan2, const Real<C>* table1,
+           const Real<C>* table2, const Real<C>* twiddle, int ts, int threads,
+           int smem, void* stream) {
+  Plan p1, p2;
+  if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
+      !vkfft::subplan_from_ints(plan2, &p2) || twiddle == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int n = p1.n * p2.n;
+  const int len1 = table_len(p1), len2 = table_len(p2);
+  if (n > vkfft::kMaxN || p1.n < p2.n || p2.inverse != p1.inverse ||
+      ts < 1 || ts > S || threads < 32 || threads > max_threads ||
+      threads % 32 != 0 || !rounds_fit<C>(p1, threads) ||
+      !rounds_fit<C>(p2, threads) || smem < 0 ||
+      (size_t)smem != sizeof(C) * ((size_t)n * ts + len1 + len2 + kTwLo +
+                                   (n + kTwLo - 1) / kTwLo) ||
+      smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (S + ts - 1) / ts;
+  if (P * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, S, tiles, p1, p2, reinterpret_cast<const C*>(table1),
+      reinterpret_cast<const C*>(table2), reinterpret_cast<const C*>(twiddle),
+      ts, len1, len2);
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+int occupancy(K kernel, int max_threads, int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > max_threads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 }  // namespace
@@ -192,49 +277,31 @@ int vk_fft_strided(const float* xr, const float* xi, float* yr, float* yi,
                    const int* plan2, const float* table1, const float* table2,
                    const float* twiddle, int ts, int threads, int smem,
                    void* stream) {
-  Plan p1, p2;
-  if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
-      !vkfft::subplan_from_ints(plan2, &p2) || twiddle == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int n = p1.n * p2.n;
-  const int len1 = table_len(p1), len2 = table_len(p2);
-  if (n > vkfft::kMaxN || p1.n < p2.n || p2.inverse != p1.inverse ||
-      ts < 1 || ts > S || threads < 32 || threads > kThreads ||
-      threads % 32 != 0 || !rounds_fit(p1, threads) ||
-      !rounds_fit(p2, threads) || smem < 0 ||
-      (size_t)smem != sizeof(float2) * ((size_t)n * ts + len1 + len2 + kTwLo +
-                                        (n + kTwLo - 1) / kTwLo) ||
-      smem > vkfft::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (S + ts - 1) / ts;
-  if (P * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fft_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fft_strided_kernel<<<(unsigned)(P * tiles), threads, smem,
-                       (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, S, tiles, p1, p2,
-      reinterpret_cast<const float2*>(table1),
-      reinterpret_cast<const float2*>(table2),
-      reinterpret_cast<const float2*>(twiddle), ts, len1, len2);
-  return (int)cudaGetLastError();
+  return launch<float2>(fft_strided_kernel, kThreads, xr, xi, yr, yi, P, S,
+                        plan1, plan2, table1, table2, twiddle, ts, threads,
+                        smem, stream);
+}
+
+// vk_fft_strided on fp64 planes and tables (interleaved fp64 pairs), at
+// most 512 threads a block.
+int vk_fft_strided_f64(const double* xr, const double* xi, double* yr,
+                       double* yi, long long P, long long S, const int* plan1,
+                       const int* plan2, const double* table1,
+                       const double* table2, const double* twiddle, int ts,
+                       int threads, int smem, void* stream) {
+  return launch<double2>(fft_strided_f64_kernel, kThreads64, xr, xi, yr, yi,
+                         P, S, plan1, plan2, table1, table2, twiddle, ts,
+                         threads, smem, stream);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`
 // dynamic shared bytes, into *blocks.
 int vk_fft_strided_occupancy(int threads, int smem, int* blocks) {
-  if (threads < 32 || threads > kThreads || smem < 0 ||
-      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fft_strided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fft_strided_kernel, threads, smem);
+  return occupancy(fft_strided_kernel, kThreads, threads, smem, blocks);
+}
+
+int vk_fft_strided_f64_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_strided_f64_kernel, kThreads64, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -1,8 +1,11 @@
 // The in-place stage walk of the port's fp32 kernels (fft_twofactor.cu,
 // fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_r2c_pair.cu, fft_strided.cu,
 // fft_strided_tw.cu, fft_conv_pair.cu (both modes), fft_dct23.cu,
-// fft_dct1.cu, fft_dct4.cu, fft_conv.cu, fft_conv_inv.cu), built for
-// sm_90a.
+// fft_dct1.cu, fft_dct4.cu, fft_conv.cu, fft_conv_inv.cu) and of the fp64
+// instantiations of fft_lines.cu, fft_strided.cu and fft_pair.cu, built
+// for sm_90a.  Every piece takes the complex type C of the points (float2
+// or double2, stockham.cuh's Cx) as a template argument, deduced from the
+// buffers it is given: one source, two instantiations.
 //
 // A block holds its sequences once in shared memory.  A Stockham stage of
 // radix r (stockham.cuh's recurrence) maps the points whose index is m mod
@@ -29,8 +32,9 @@
 // carry no scale, so the twiddle of output 0 is 1.
 //
 // The copies between device memory and a block's lines (load_lines,
-// store_lines) move float4 per plane where the planes are 16-byte aligned
-// (a line's unaligned head and tail as single floats), through a Map from
+// store_lines) move four reals a plane at once where the planes are
+// 16-byte aligned (a float4, or two double2; a line's unaligned head and
+// tail as single reals), through a Map from
 // a point to its place in shared memory; a thread's four points go in an
 // order rotated by its lane, so a warp's accesses fall on distinct banks.
 // load_pairs_async and store_pairs move one interleaved array, a point's
@@ -52,6 +56,14 @@ constexpr int kPoints = 12;        // most points a thread holds in a round
 constexpr int kGenericPairs = 4;   // output pairs of a generic stage's item
 constexpr int kGenericItems = 2;   // ... items a thread holds in a round
 constexpr int kTwLo = 64;          // a twiddle's low table: w^b, b < 64
+
+// The fp64 walk (C = double2, a point four registers) holds one generic
+// item a round and has no radix-16 stage (its plans are stage_radices',
+// radix 8 at most): with either, its kernels spilled at 128 registers.
+template <class C>
+constexpr int kItems = sizeof(C) == 8 ? kGenericItems : 1;
+template <class C>
+constexpr bool kRadix16 = sizeof(C) == 8;
 
 // u / d by one multiply-high, exact while u * d < 2^32.
 struct Div {
@@ -120,76 +132,79 @@ __device__ __forceinline__ int fresh_int(int v) {
 }
 
 // w^e = hi[e >> 6] * lo[e & 63] from a twiddle's two tables.
-__device__ __forceinline__ float2 inter_twiddle(int e, const float2* lo,
-                                                const float2* hi) {
+template <class C>
+__device__ __forceinline__ C inter_twiddle(int e, const C* lo, const C* hi) {
   return cmul(hi[e >> 6], lo[e & (kTwLo - 1)]);
 }
 
 // fft_twofactor's inter-factor twiddle: output k of sequence `seq` times
 // w^(seq * k) from its two tables (the scale in `hi`); off when lo is null.
-struct InterTwiddle {
-  const float2* lo;
-  const float2* hi;
+template <class C>
+struct InterTwiddleT {
+  const C* lo;
+  const C* hi;
   __device__ __forceinline__ bool on() const { return lo != nullptr; }
-  __device__ __forceinline__ InterTwiddle off() const {
+  __device__ __forceinline__ InterTwiddleT off() const {
     return {nullptr, hi};
   }
-  __device__ __forceinline__ float2 operator()(float2 v, int seq, int k) const {
+  __device__ __forceinline__ C operator()(C v, int seq, int k) const {
     return cmul(v, inter_twiddle(seq * k, lo, hi));
   }
 };
+using InterTwiddle = InterTwiddleT<float2>;
 
 // a * w_16^e (e < 16 known at compile time once unrolled), forward or
 // inverse.
-__device__ __forceinline__ float2 times_w16(float2 a, int e, int inverse) {
-  constexpr float c1 = 0.92387953251128674f;   // cos(pi / 8)
-  constexpr float s1 = 0.38268343236508978f;   // sin(pi / 8)
-  constexpr float r2 = 0.70710678118654752f;
+template <class C>
+__device__ __forceinline__ C times_w16(C a, int e, int inverse) {
+  using T = Real<C>;
+  constexpr T c1 = T(0.92387953251128674);   // cos(pi / 8)
+  constexpr T s1 = T(0.38268343236508978);   // sin(pi / 8)
+  constexpr T r2 = T(0.70710678118654752);
   if (e == 0) return a;
   if (e == 4) return rot(a, inverse);
   // w_16^e = (x, -+y)
-  const float x = e == 1 ? c1 : e == 2 ? r2 : e == 3 ? s1 : e == 6 ? -r2 : -c1;
-  const float y = e == 1 ? s1 : e == 2 ? r2 : e == 3 ? c1 : e == 6 ? r2 : -s1;
-  return cmul(a, make_float2(x, inverse ? y : -y));
+  const T x = e == 1 ? c1 : e == 2 ? r2 : e == 3 ? s1 : e == 6 ? -r2 : -c1;
+  const T y = e == 1 ? s1 : e == 2 ? r2 : e == 3 ? c1 : e == 6 ? r2 : -s1;
+  return cmul(a, cx<C>(x, inverse ? y : -y));
 }
 
 // The r-point DFT in registers; the odd radices read their roots w_r^k
 // from shared memory.  Radix 16 runs as 4 x 4: X[k1 + 4 k2] = DFT4 over
 // n2 of w_16^(n2 k1) DFT4 over n1 of x[4 n1 + n2].
-template <int R>
-__device__ __forceinline__ void dft(float2 (&v)[R], int inverse,
-                                    const float2* w) {
+template <int R, class C>
+__device__ __forceinline__ void dft(C (&v)[R], int inverse, const C* w) {
   if constexpr (R == 2 || R == 4 || R == 8) {
-    Dft<R>::run(v, inverse, nullptr);
+    Dft<R>::run(v, inverse, (const C*)nullptr);
   } else if constexpr (R == 16) {
-    float2 a[4][4];
+    C a[4][4];
 #pragma unroll
     for (int n2 = 0; n2 < 4; ++n2) {
-      float2 t[4] = {v[n2], v[4 + n2], v[8 + n2], v[12 + n2]};
-      Dft<4>::run(t, inverse, nullptr);
+      C t[4] = {v[n2], v[4 + n2], v[8 + n2], v[12 + n2]};
+      Dft<4>::run(t, inverse, (const C*)nullptr);
 #pragma unroll
       for (int k1 = 0; k1 < 4; ++k1) a[n2][k1] = times_w16(t[k1], n2 * k1, inverse);
     }
 #pragma unroll
     for (int k1 = 0; k1 < 4; ++k1) {
-      float2 t[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
-      Dft<4>::run(t, inverse, nullptr);
+      C t[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+      Dft<4>::run(t, inverse, (const C*)nullptr);
 #pragma unroll
       for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = t[k2];
     }
   } else {
-    float2 wk[R];
+    C wk[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) wk[k] = w[k];
-    float2 out[R];
+    C out[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      float2 acc = v[0];
+      C acc = v[0];
 #pragma unroll
       for (int j = 1; j < R; ++j) {
-        const float2 t = wk[(i * j) % R];
-        acc.x = fmaf(v[j].x, t.x, fmaf(-v[j].y, t.y, acc.x));
-        acc.y = fmaf(v[j].x, t.y, fmaf(v[j].y, t.x, acc.y));
+        const C t = wk[(i * j) % R];
+        acc.x = madd(v[j].x, t.x, madd(-v[j].y, t.y, acc.x));
+        acc.y = madd(v[j].x, t.y, madd(v[j].y, t.x, acc.y));
       }
       out[i] = acc;
     }
@@ -209,9 +224,9 @@ __host__ __device__ constexpr int round_butterflies(int R) {
 // address live across it.  When the hook is on, output i of butterfly l
 // of sequence (hi, lo) goes through hook(v, lo, i * L + l) (the last
 // stage: Mp = 1).
-template <int R, class Hook>
-__device__ void stage_fixed(float2* buf, const Pass& g, int L, int Mp,
-                            const float2* tw, const float2* w, int inverse,
+template <int R, class C, class Hook>
+__device__ void stage_fixed(C* buf, const Pass& g, int L, int Mp,
+                            const C* tw, const C* w, int inverse,
                             const Hook& hook) {
   constexpr int K = round_butterflies(R);
   const int T = blockDim.x;
@@ -224,7 +239,7 @@ __device__ void stage_fixed(float2* buf, const Pass& g, int L, int Mp,
     const int nq = min(Q, g.seqs - q0);
     const Div dq = make_div(nq);
     const int total = nq * per_seq;
-    float2 v[K][R];
+    C v[K][R];
     int dst[K];
     int b = fresh_tid();
 #pragma unroll
@@ -232,7 +247,7 @@ __device__ void stage_fixed(float2* buf, const Pass& g, int L, int Mp,
       int q, l, m, lo;
       decode(min(b, total - 1), dq, dm, q, l, m);
       const int base = seq_base(g, q0 + q, lo);
-      const float2* s = buf + base + (l * R * Mp + m) * g.es;
+      const C* s = buf + base + (l * R * Mp + m) * g.es;
 #pragma unroll
       for (int j = 0; j < R; ++j) v[k][j] = s[j * jstep];
       dft<R>(v[k], inverse, w);
@@ -278,11 +293,11 @@ __host__ __device__ __forceinline__ int generic_groups(int R) {
 // 3 < R, an index of the butterfly) is computed as any other and only its
 // store is predicated; so is an idle slot's clamped item.  The item's
 // indices are found again after its sums, not held through them.
-template <class Hook>
-__device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
-                              int Mp, const float2* tw, const float2* w,
+template <class C, class Hook>
+__device__ void stage_generic(C* buf, const Pass& g, int R, int L,
+                              int Mp, const C* tw, const C* w,
                               const Hook& hook) {
-  constexpr int G = kGenericPairs, K = kGenericItems;
+  constexpr int G = kGenericPairs, K = kItems<C>;
   const int T = blockDim.x;
   const int H = R >> 1;
   const int groups = generic_groups(R);
@@ -296,30 +311,30 @@ __device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
     const int nb = nq * per_seq;
     const Div db = make_div(nb);
     const int total = nb * groups;
-    float2 lo_out[K][G], hi_out[K][G];   // X_i, X_{R-i}
+    C lo_out[K][G], hi_out[K][G];   // X_i, X_{R-i}
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      float2 A[G], B[G];
+      C A[G], B[G];
       {
         const int oc = min(fresh_tid() + k * T, total - 1);
         const int grp = quot(oc, db);
         int q, l, m, lo;
         decode(oc - grp * nb, dq, dm, q, l, m);
-        const float2* s = buf + seq_base(g, q0 + q, lo) +
-                          (l * R * Mp + m) * g.es;
-        const float2 x0 = s[0];
+        const C* s = buf + seq_base(g, q0 + q, lo) +
+                     (l * R * Mp + m) * g.es;
+        const C x0 = s[0];
 #pragma unroll
         for (int u = 0; u < G; ++u) {
           A[u] = x0;
-          B[u] = make_float2(0.f, 0.f);
+          B[u] = cx<C>(Real<C>(0), Real<C>(0));
         }
         // i0 = grp * G in the high half, i0 * j mod R in the low: one
         // register through the sums
         int ie = grp * G << 16;
 #pragma unroll 1
         for (int j = 1; 2 * j < R; ++j) {
-          const float2 a = s[j * jstep], b = s[(R - j) * jstep];
-          const float2 sj = cadd(a, b), dj = csub(a, b);
+          const C a = s[j * jstep], b = s[(R - j) * jstep];
+          const C sj = cadd(a, b), dj = csub(a, b);
           ie += ie >> 16;
           if ((ie & 0xffff) >= R) ie -= R;
           int e = ie & 0xffff;   // (i0 + u) * j mod R
@@ -329,11 +344,11 @@ __device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
               e += j;
               if (e >= R) e -= R;
             }
-            const float2 c = w[e];
-            A[u].x = fmaf(sj.x, c.x, A[u].x);
-            A[u].y = fmaf(sj.y, c.x, A[u].y);
-            B[u].x = fmaf(dj.x, c.y, B[u].x);
-            B[u].y = fmaf(dj.y, c.y, B[u].y);
+            const C c = w[e];
+            A[u].x = madd(sj.x, c.x, A[u].x);
+            A[u].y = madd(sj.y, c.x, A[u].y);
+            B[u].x = madd(dj.x, c.y, B[u].x);
+            B[u].y = madd(dj.y, c.y, B[u].y);
           }
         }
       }
@@ -350,8 +365,8 @@ __device__ void stage_generic(float2* buf, const Pass& g, int R, int L,
       for (int u = 0; u < G; ++u) {
         const int i = grp * G + u;
         const int ri = i ? R - i : 0;
-        float2 x = make_float2(A[u].x - B[u].y, A[u].y + B[u].x);
-        float2 y = make_float2(A[u].x + B[u].y, A[u].y - B[u].x);
+        C x = cx<C>(A[u].x - B[u].y, A[u].y + B[u].x);
+        C y = cx<C>(A[u].x + B[u].y, A[u].y - B[u].x);
         x = cmul(x, tw[i * Mp + m]);
         y = cmul(y, tw[ri * Mp + m]);
         if (hook.on()) {
@@ -408,15 +423,15 @@ inline bool has_generic(const Plan& p) {
 // shared memory; `hook` rides the last stage's write.  Without kGeneric
 // the generic stage is left out of the kernel (its caller refuses plans
 // that need it, has_generic).
-template <bool kGeneric = true, class Hook>
-__device__ void run_pass(float2* buf, const Pass& g, const Plan& p,
-                         const float2* tab, const Hook& hook) {
+template <bool kGeneric = true, class C, class Hook>
+__device__ void run_pass(C* buf, const Pass& g, const Plan& p, const C* tab,
+                         const Hook& hook) {
   int L = 1, M = p.n;
   for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
     const int Mp = M / r;
-    const float2* tw = tab + p.tw_off[s];
-    const float2* w = tab + (p.dft_off[s] >= 0 ? p.dft_off[s] : 0);
+    const C* tw = tab + p.tw_off[s];
+    const C* w = tab + (p.dft_off[s] >= 0 ? p.dft_off[s] : 0);
     const Hook h = s == p.n_stages - 1 ? hook : hook.off();
     switch (r) {
       case 2: stage_fixed<2>(buf, g, L, Mp, tw, w, p.inverse, h); break;
@@ -425,7 +440,10 @@ __device__ void run_pass(float2* buf, const Pass& g, const Plan& p,
       case 5: stage_fixed<5>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       case 7: stage_fixed<7>(buf, g, L, Mp, tw, w, p.inverse, h); break;
       case 8: stage_fixed<8>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      case 16: stage_fixed<16>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 16:
+        if constexpr (kRadix16<C>)
+          stage_fixed<16>(buf, g, L, Mp, tw, w, p.inverse, h);
+        break;
       default:
         if constexpr (kGeneric) stage_generic(buf, g, r, L, Mp, tw, w, h);
         break;
@@ -448,14 +466,17 @@ inline int table_len(const Plan& p) {
   return len;
 }
 
-// Whether `threads` hold a whole sequence of every stage of p in a round:
-// its n / r butterflies of a fixed radix, or their generic_groups(r) items
-// each of a generic one.
+// Whether `threads` hold a whole sequence of every stage of p in a round
+// of the walk on points of type C: its n / r butterflies of a fixed radix,
+// or their generic_groups(r) items each of a generic one; and whether C's
+// walk has every radix of p (the fp64 walk no radix 16).
+template <class C = float2>
 inline bool rounds_fit(const Plan& p, int threads) {
   for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
+    if (r == 16 && !kRadix16<C>) return false;
     if (fixed_radix(r) ? round_butterflies(r) * threads < p.n / r
-              : kGenericItems * threads < p.n / r * generic_groups(r))
+              : kItems<C> * threads < p.n / r * generic_groups(r))
       return false;
   }
   return true;
@@ -520,12 +541,38 @@ __device__ __forceinline__ void rotate(T (&x)[4], int r) {
   }
 }
 
-__device__ __forceinline__ bool aligned16(const float* a, const float* b) {
+template <class T>
+__device__ __forceinline__ bool aligned16(const T* a, const T* b) {
   return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
 }
 
-// The `count` points at float offset g0 of the planes, as a head of up to
-// three single floats to a 16-byte boundary, float4s, and a tail.
+// Four neighbouring reals of a plane, 16-byte aligned: one float4, or two
+// double2 loads and stores.
+struct Double4 {
+  double x, y, z, w;
+};
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ Double4 load4(const double* p) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  return {a.x, a.y, b.x, b.y};
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(double* p, double a, double b,
+                                       double c, double d) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(a, b);
+  reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
+}
+
+// The `count` points at real offset g0 of the planes, as a head of up to
+// three single reals to a boundary of four (16 bytes of floats, 32 of
+// doubles), groups of four (load4, store4), and a tail.
 struct Span {
   int head, n4, tail0, rest;
 };
@@ -540,21 +587,22 @@ __device__ __forceinline__ Span span_of(long long g0, int count, bool vec) {
   return s;
 }
 
-// The `count` points at float offset g0 of planes xr, xi into their
+// The `count` points at real offset g0 of planes xr, xi into their
 // places `mp` in `home`.
-__device__ void load_lines(const float* xr, const float* xi, long long g0,
-                           int count, const Map& mp, float2* home) {
+template <class C>
+__device__ void load_lines(const Real<C>* xr, const Real<C>* xi, long long g0,
+                           int count, const Map& mp, C* home) {
   const Span sp = span_of(g0, count, aligned16(xr, xi));
   const int rot = (threadIdx.x >> 2) & 3;
-  const float* r0 = xr + g0;
-  const float* i0 = xi + g0;
+  const Real<C>* r0 = xr + g0;
+  const Real<C>* i0 = xi + g0;
 #pragma unroll 2
   for (int f = threadIdx.x; f < sp.n4; f += blockDim.x) {
     const int u = sp.head + 4 * f;
-    const float4 r = *reinterpret_cast<const float4*>(r0 + u);
-    const float4 i = *reinterpret_cast<const float4*>(i0 + u);
-    float2 v[4] = {make_float2(r.x, i.x), make_float2(r.y, i.y),
-                   make_float2(r.z, i.z), make_float2(r.w, i.w)};
+    const auto r = load4(r0 + u);
+    const auto i = load4(i0 + u);
+    C v[4] = {cx<C>(r.x, i.x), cx<C>(r.y, i.y), cx<C>(r.z, i.z),
+              cx<C>(r.w, i.w)};
     int pos[4];
     positions(u, mp, pos);
     rotate(v, rot);
@@ -564,7 +612,7 @@ __device__ void load_lines(const float* xr, const float* xi, long long g0,
   }
   for (int k = threadIdx.x; k < sp.rest; k += blockDim.x) {
     const int u = k < sp.head ? k : sp.tail0 + k - sp.head;
-    home[position(u, mp)] = make_float2(r0[u], i0[u]);
+    home[position(u, mp)] = cx<C>(r0[u], i0[u]);
   }
 }
 
@@ -574,19 +622,30 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-// load_lines by cp.async: each float copied from device memory straight
+// One real by cp.async: a float (cp_async4) or a double (8 bytes).
+__device__ __forceinline__ void cp_async_real(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void cp_async_real(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// load_lines by cp.async: each real copied from device memory straight
 // to its place, every copy of the block in flight at once and none held
 // in a register; returns when this thread's copies have landed (a barrier
 // then shows them to the block).
-__device__ void load_lines_async(const float* xr, const float* xi,
+template <class C>
+__device__ void load_lines_async(const Real<C>* xr, const Real<C>* xi,
                                  long long g0, int count, const Map& mp,
-                                 float2* home) {
-  const float* r0 = xr + g0;
-  const float* i0 = xi + g0;
+                                 C* home) {
+  const Real<C>* r0 = xr + g0;
+  const Real<C>* i0 = xi + g0;
   for (int u = threadIdx.x; u < count; u += blockDim.x) {
-    float* d = reinterpret_cast<float*>(home + position(u, mp));
-    cp_async4(d, r0 + u);
-    cp_async4(d + 1, i0 + u);
+    Real<C>* d = reinterpret_cast<Real<C>*>(home + position(u, mp));
+    cp_async_real(d, r0 + u);
+    cp_async_real(d + 1, i0 + u);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -619,29 +678,30 @@ __device__ void store_pairs(const float2* home, const Map& mp, float2* y,
 
 // A stored point as it is.
 struct AsIs {
-  __device__ __forceinline__ float2 operator()(float2 v, int, int) const {
+  template <class C>
+  __device__ __forceinline__ C operator()(C v, int, int) const {
     return v;
   }
 };
 
 // The inverse of load_lines; each point goes out as out(v, line, t), t
 // its index within its line.
-template <class Out = AsIs>
-__device__ void store_lines(const float2* home, const Map& mp, float* yr,
-                            float* yi, long long g0, int count,
+template <class Out = AsIs, class C>
+__device__ void store_lines(const C* home, const Map& mp, Real<C>* yr,
+                            Real<C>* yi, long long g0, int count,
                             const Out& out = Out()) {
   const Span sp = span_of(g0, count, aligned16(yr, yi));
   const int rot = (threadIdx.x >> 2) & 3;
   const int n = (int)mp.dn.d;
-  float* r0 = yr + g0;
-  float* i0 = yi + g0;
+  Real<C>* r0 = yr + g0;
+  Real<C>* i0 = yi + g0;
 #pragma unroll 2
   for (int f = threadIdx.x; f < sp.n4; f += blockDim.x) {
     const int u = sp.head + 4 * f;
     int pos[4];
     positions(u, mp, pos);
     rotate(pos, rot);
-    float2 v[4];
+    C v[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[c] = home[pos[c]];
     rotate(v, (4 - rot) & 3);
@@ -650,13 +710,13 @@ __device__ void store_lines(const float2* home, const Map& mp, float* yr,
       const int line = quot(u + c, mp.dn);
       v[c] = out(v[c], line, u + c - line * n);
     }
-    *reinterpret_cast<float4*>(r0 + u) = make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
-    *reinterpret_cast<float4*>(i0 + u) = make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+    store4(r0 + u, v[0].x, v[1].x, v[2].x, v[3].x);
+    store4(i0 + u, v[0].y, v[1].y, v[2].y, v[3].y);
   }
   for (int k = threadIdx.x; k < sp.rest; k += blockDim.x) {
     const int u = k < sp.head ? k : sp.tail0 + k - sp.head;
     const int line = quot(u, mp.dn);
-    const float2 v = out(home[position(u, mp)], line, u - line * n);
+    const C v = out(home[position(u, mp)], line, u - line * n);
     r0[u] = v.x;
     i0[u] = v.y;
   }
@@ -706,15 +766,16 @@ __device__ __forceinline__ Map make_map(int n, int lines_stride, bool transposed
 // inverse too runs the forward's order (its plans and conjugate twiddle
 // make it the inverse DFT), natural order in, [k2][k1] out.  Ends on a
 // barrier.
+template <class C>
 __device__ __forceinline__ void two_factor_passes(
-    float2* home, int nl, const Plan& p1, const Plan& p2, const float2* s1,
-    const float2* s2, const float2* tlo, const float2* thi, int pitch,
-    bool mirrored = true) {
+    C* home, int nl, const Plan& p1, const Plan& p2, const C* s1, const C* s2,
+    const C* tlo, const C* thi, int pitch, bool mirrored = true) {
   const int n1 = p1.n, n2 = p2.n;
   const int S = n2 * pitch;
   const bool inverse = mirrored && p1.inverse != 0;
   // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
-  const bool twiddled = n2 > 1 || thi[0].x != 1.f || thi[0].y != 0.f;
+  const bool twiddled =
+      n2 > 1 || thi[0].x != Real<C>(1) || thi[0].y != Real<C>(0);
   // One call site of run_pass keeps one copy of each stage in the kernel.
   for (int k = 0; k < 2; ++k) {
     const bool row = (k == 0) == inverse;
@@ -722,7 +783,7 @@ __device__ __forceinline__ void two_factor_passes(
                        : Pass{nl * n1, S, 1, pitch, make_div(n1)};
     const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
     run_pass(home, g, row ? p1 : p2, row ? s1 : s2,
-             InterTwiddle{fuse ? tlo : nullptr, thi});
+             InterTwiddleT<C>{fuse ? tlo : nullptr, thi});
   }
 }
 
@@ -734,9 +795,10 @@ __host__ __device__ constexpr int rotation_points(int count) {
 
 // A block's stage tables and twiddles into shared memory at s1: len1 +
 // len2 stage points, then ntw twiddle points.
-__device__ __forceinline__ void load_tables(float2* s1, const float2* t1,
-                                           const float2* t2, const float2* tw,
-                                           int len1, int len2, int ntw) {
+template <class C>
+__device__ __forceinline__ void load_tables(C* s1, const C* t1, const C* t2,
+                                           const C* tw, int len1, int len2,
+                                           int ntw) {
   const int ntab = len1 + len2 + ntw;
   for (int t = threadIdx.x; t < ntab; t += blockDim.x)
     s1[t] = t < len1 ? __ldg(&t1[t])
@@ -755,19 +817,20 @@ __device__ __forceinline__ void load_tables(float2* s1, const float2* t1,
 // transposed) or swapped order; the inverse the other way round.  A block
 // reads all of its lines before it writes, so the output may alias the
 // input.  fft_twofactor and fft_lines run it.
+template <class C>
 __device__ __forceinline__ void two_factor_block(
-    float2* smem, const float* xr, const float* xi, float* yr, float* yi,
-    long long batch, const Plan& p1, const Plan& p2, const float2* t1,
-    const float2* t2, const float2* tw, int swapped, int lines, int pitch,
-    int len1, int len2, bool async_load = false) {
+    C* smem, const Real<C>* xr, const Real<C>* xi, Real<C>* yr, Real<C>* yi,
+    long long batch, const Plan& p1, const Plan& p2, const C* t1, const C* t2,
+    const C* tw, int swapped, int lines, int pitch, int len1, int len2,
+    bool async_load = false) {
   const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
   const int S = n2 * pitch;
   const int nl = block_lines(lines, batch);
-  float2* home = smem;
-  float2* s1 = home + lines * S;
-  float2* s2 = s1 + len1;
-  float2* tlo = s2 + len2;
-  float2* thi = tlo + kTwLo;
+  C* home = smem;
+  C* s1 = home + lines * S;
+  C* s2 = s1 + len1;
+  C* tlo = s2 + len2;
+  C* thi = tlo + kTwLo;
   load_tables(s1, t1, t2, tw, len1, len2, rotation_points(n));
   const bool inverse = p1.inverse != 0;
   const Map in = make_map(n, S, inverse && !swapped, n1, n2, pitch);
@@ -784,15 +847,18 @@ __device__ __forceinline__ void two_factor_block(
 }
 
 // Shared bytes of a block of `lines` lines of the plans' n1 * n2 points at
-// the pitch n1 | 1, their stage tables and `ntw` twiddle points.
+// the pitch n1 | 1, their stage tables and `ntw` twiddle points, a point a
+// C.
+template <class C = float2>
 inline size_t walk_smem(const Plan& p1, const Plan& p2, int lines, int ntw) {
-  return sizeof(float2) * ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) +
-                           table_len(p2) + ntw);
+  return sizeof(C) * ((size_t)lines * p2.n * (p1.n | 1) + table_len(p1) +
+                      table_len(p2) + ntw);
 }
 
 // Shared bytes of two_factor_block's `lines` lines and tables.
+template <class C = float2>
 inline size_t two_factor_smem(const Plan& p1, const Plan& p2, int lines) {
-  return walk_smem(p1, p2, lines, rotation_points(p1.n * p2.n));
+  return walk_smem<C>(p1, p2, lines, rotation_points(p1.n * p2.n));
 }
 
 // The real kernels on the walk (fft_r2c, fft_dct23, fft_dct4) share one

@@ -79,8 +79,15 @@ circular convolution of the minor axis (or the minor pair) in one
 `fft_conv` or `fft_conv_pair` launch, or in `fft_twofactor` +
 `fft_conv_inv`; `conv_route(config, ...)` names the one a config runs.
 
-What raises ``NotImplementedError`` naming its ROADMAP item: dtypes other
-than float32 (queue 1 item 10); zero-pad keeps (queue 1 item 8).  `route`
+float64 planes run the fp64 instantiations of `fft_lines`, `fft_strided`
+and `fft_pair` wherever every axis of the call is one of theirs
+(`f64_axis_supports`: n <= 4 as tensor ops, else DIRECT with the stages'
+lengths; `f64_supports` for a whole configuration, the one rule the API's
+DOUBLE route reads); no other route has fp64 kernels yet.
+
+What raises ``NotImplementedError`` naming its ROADMAP item: float64 on
+every other route and every other dtype (queue 1 item 10); zero-pad
+keeps (queue 1 item 8).  `route`
 raises ValueError for a length no split of the long tier holds (beyond
 2^40, or more primes above 64 than three uploads can place).  Nothing
 here falls back to the plain engine or to a kernel's plain version.
@@ -169,11 +176,31 @@ def supports(plan: AxisPlan) -> bool:
     return True
 
 
-def pair_supports(ny: int, nz: int) -> bool:
-    """Whether `fft_pair_p` runs a (ny, nz) plane in one kernel pass."""
+def pair_supports(ny: int, nz: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
+    """Whether `fft_pair_p` runs a (ny, nz) plane of ``dtype`` in one
+    kernel pass."""
     return (plan_axis(ny).algorithm is Algorithm.DIRECT
             and plan_axis(nz).algorithm is Algorithm.DIRECT
-            and ck.pair_cluster(ny, nz) is not None)
+            and ck.pair_cluster(ny, nz, dtype) is not None)
+
+
+def f64_axis_supports(plan: AxisPlan) -> bool:
+    """Whether float64 planes run along an axis of ``plan`` on the fp64
+    kernels, minor or not: n <= 4 (tensor ops on the minor axis) or a
+    DIRECT plan of `fft_lines`' lengths (the minor axis in `fft_lines`,
+    any other in `fft_strided`, two minor axes in `fft_pair` where
+    `pair_supports` holds at float64)."""
+    return plan.n <= 4 or (plan.algorithm is Algorithm.DIRECT
+                           and ck.kernel_supports(plan.n, torch.float64))
+
+
+def f64_supports(shape, axes) -> bool:
+    """Whether a C2C transform of ``axes`` of ``shape`` runs on the fp64
+    kernels: every transformed axis `f64_axis_supports`.  The DOUBLE
+    precision's one routing decision (`api.double_route`), made from the
+    plans before any launch, the same on the CPU and on the card."""
+    return all(f64_axis_supports(plan_axis(shape[a])) for a in axes)
 
 
 r2c_supports = ck.r2c_supports
@@ -185,11 +212,16 @@ def r2c_pair_supports(ny: int, nz: int) -> bool:
     return ck.r2c_pair_cluster(ny, nz) is not None
 
 
-def _check_dtype(x) -> None:
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"CUDA engine runs float32 planes; {x.dtype} is ROADMAP queue 1 "
-            "item 10")
+def _check_dtype(x, f64_ok=None) -> None:
+    """float32 planes, or float64 where ``f64_ok()`` holds (a C2C route
+    on the fp64 kernels, `f64_axis_supports`; asked only of float64)."""
+    if x.dtype == torch.float32 or (
+            f64_ok is not None and x.dtype == torch.float64 and f64_ok()):
+        return
+    raise NotImplementedError(
+        f"CUDA engine runs float32 planes, and float64 on the C2C routes of "
+        f"the fp64 kernels (DIRECT lengths of fft_lines, n <= 4); {x.dtype} "
+        "here is ROADMAP queue 1 item 10")
 
 
 def _tiny_dft_p(x: Planar, n: int, inverse: bool, scale: float) -> Planar:
@@ -493,7 +525,7 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
                 donate: bool = False, scale: float = 1.0) -> Planar:
     """Planar DFT over (B, n) planes, scaled by ``scale`` in the kernels.
     ``donate=True`` lets a DIRECT plan overwrite the caller's planes."""
-    _check_dtype(x)
+    _check_dtype(x, lambda: f64_axis_supports(plan))
     n = plan.n
     if n == 1:
         return x * scale if scale != 1.0 else x
@@ -530,7 +562,7 @@ def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
     if x.shape[axis] != plan.n:
         raise ValueError(
             f"axis {axis} has length {x.shape[axis]}, plan is for {plan.n}")
-    _check_dtype(x)
+    _check_dtype(x, lambda: f64_axis_supports(plan))
     if in_keep or out_keep:
         raise NotImplementedError(
             "zero-pad keeps on the CUDA engine are ROADMAP queue 1 item 8")
@@ -563,7 +595,7 @@ def fft_pair_p(x: Planar, ny: int, nz: int, inverse: bool = False,
                donate: bool = False, scale: float = 1.0) -> Planar:
     """Planar 2-D DFT over the two minor axes (..., ny, nz) in one kernel
     pass, scaled by ``scale``; ``donate`` as for `fft_axis_p`."""
-    _check_dtype(x)
+    _check_dtype(x, lambda: pair_supports(ny, nz, torch.float64))
     shape = x.shape
     if shape[-2:] != (ny, nz):
         raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)}")

@@ -76,6 +76,15 @@ _dd_strided_kernel``):
   ``vkfft_tpu/ops/pallas_engine.py:3080 _dct4_kernel``: DCT-IV/DST-IV, the
   n/2 complex trick for even n and the 2n-point form for odd n.
 
+`fft_lines`, `fft_strided` and `fft_pair` have fp64 instantiations
+(the same source, the walk of ``csrc/inplace.cuh`` templated over its
+complex type): the wrappers launch them (C entries ``vk_<name>_f64``,
+counted in `f64_launches`) on float64 planes, with the stage and twiddle
+tables in fp64, at the same layout rules in points, a point 16 B of
+shared memory (`lines_layout`, `strided_layout`, `pair_layout` and
+`pair_cluster` take the dtype).  Every other kernel takes float32 planes
+only (other precisions are ROADMAP queue 1 item 10).
+
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
 notes in the ``.cu`` files say how.  `fft_lines`, `fft_strided` and
@@ -157,6 +166,10 @@ TWOFACTOR_TW_LO = 64
 WALK_POINTS = 12
 WALK_GENERIC_PAIRS = 4
 WALK_GENERIC_ITEMS = 2
+# The fp64 walk (kItems, kRadix16 in csrc/inplace.cuh): one generic item a
+# round and no radix-16 stage, its plans `stage_radices`' (with either, the
+# fp64 kernels spilled at 128 registers a thread).
+WALK_GENERIC_ITEMS_F64 = 1
 _WALK_FIXED_RADICES = (2, 3, 4, 5, 7, 8, 16)
 # `fft_conv_pair`'s Bluestein mode (csrc/fft_conv_pair.cu): padded lengths
 # up to 2^16, the plane held once over a cluster of up to 16 blocks, a
@@ -222,13 +235,46 @@ CONV_XPOW = 2
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches per wrapper, counted where the wrapper launches.
+# The kernels with an fp64 instantiation (C entries vk_<name>_f64), and the
+# most threads a block of each (kThreads64 in their sources: a double2
+# takes four registers, so the bounds leave each thread 128).  The layout
+# rules give at most these at 16 B a point.
+F64_KERNELS = ("fft_lines", "fft_strided", "fft_pair")
+F64_THREADS = {"fft_lines": 256, "fft_strided": 512, "fft_pair": 256}
+
+# Kernel launches per wrapper, counted where the wrapper launches; the fp64
+# instantiations' apart.
 launches = {name: 0 for name in KERNEL_SOURCES}
+f64_launches = {name: 0 for name in F64_KERNELS}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, f64_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def point_bytes(dtype: torch.dtype = torch.float32) -> int:
+    """Shared bytes of one complex point of planes of ``dtype`` (a float2
+    or a double2)."""
+    if dtype == torch.float32:
+        return 8
+    if dtype == torch.float64:
+        return 16
+    raise TypeError(f"no kernel takes {dtype} planes")
+
+
+def _f64(dtype: torch.dtype) -> str:
+    """The suffix of the C entries of ``dtype``'s instantiation."""
+    return "_f64" if dtype == torch.float64 else ""
+
+
+def _walk_of(pbytes: int) -> tuple[bool, int]:
+    """(radix-16 stages: `walk_radices`, else `stage_radices`; generic
+    items a round) of the walk's instantiation at ``pbytes`` shared bytes a
+    point: fp32's (8) or fp64's (16)."""
+    return ((True, WALK_GENERIC_ITEMS) if pbytes == 8
+            else (False, WALK_GENERIC_ITEMS_F64))
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +319,15 @@ def kernel_radices(n: int) -> Optional[tuple[int, ...]]:
     return rad
 
 
-def kernel_supports(n: int) -> bool:
-    return kernel_radices(n) is not None
+def kernel_supports(n: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether `fft_lines` (and so `fft_strided`, and at float32
+    `fft_conv`) takes lines of length n of ``dtype``: n of
+    `kernel_radices`, and at float64 a block of `lines_layout` within
+    shared memory (every such n)."""
+    if kernel_radices(n) is None:
+        return False
+    return (dtype == torch.float32
+            or lines_layout(n, dtype)[2] <= MAX_SMEM_BYTES)
 
 
 def _divisors(n: int) -> list[int]:
@@ -607,40 +660,46 @@ def dct4_supports(n: int) -> bool:
     return n >= 4 and kernel_supports(dct4_length(n))
 
 
-def _cluster(ny: int, cols: int) -> Optional[int]:
-    """Blocks of a cluster that holds ny x cols complex points (see
-    PAIR_BLOCK_BYTES), each block ny/C rows or cols/C columns, or None."""
+def _cluster(ny: int, cols: int, pbytes: int = 8) -> Optional[int]:
+    """Blocks of a cluster that holds ny x cols complex points of
+    ``pbytes`` bytes (see PAIR_BLOCK_BYTES: two buffers of them), each
+    block ny/C rows or cols/C columns, or None."""
     fits = [c for c in PAIR_CLUSTERS if ny % c == 0 and cols % c == 0
-            and 16 * ny * cols // c <= PAIR_MAX_BLOCK_BYTES]
+            and 2 * pbytes * ny * cols // c <= PAIR_MAX_BLOCK_BYTES]
     for c in fits:
-        if 16 * ny * cols // c <= PAIR_BLOCK_BYTES:
+        if 2 * pbytes * ny * cols // c <= PAIR_BLOCK_BYTES:
             return c
     return fits[-1] if fits else None
 
 
 @functools.lru_cache(maxsize=1024)
-def pair_cluster(ny: int, nz: int) -> Optional[int]:
-    """Blocks of the cluster that holds one (ny, nz) plane in `fft_pair`
-    (see PAIR_BLOCK_BYTES), or None when the plane does not fit or an axis
-    is outside the kernels' range."""
+def pair_cluster(ny: int, nz: int,
+                 dtype: torch.dtype = torch.float32) -> Optional[int]:
+    """Blocks of the cluster that holds one (ny, nz) plane of ``dtype`` in
+    `fft_pair` (see PAIR_BLOCK_BYTES, at `point_bytes` a point: float64
+    serves the planes of at most 4096 points a block, 256 x 256 among
+    them), or None when the plane does not fit or an axis is outside the
+    kernels' range."""
     if not (kernel_supports(ny) and kernel_supports(nz)):
         return None
-    return _cluster(ny, nz)
+    return _cluster(ny, nz, point_bytes(dtype))
 
 
-def _two_factors(n: int, threads: int) -> Optional[tuple[int, int]]:
+def _two_factors(n: int, threads: int,
+                 pbytes: int = 8) -> Optional[tuple[int, int]]:
     """The two factors n1 >= n2 > 1 of n of fewest stages (`walk_radices`,
     a generic radix r as r / 8), then the most square, among those whose
-    stages fit a round of ``threads`` threads (`walk_rounds_fit`); None
-    where none does (a prime n)."""
+    stages fit a round of ``threads`` threads (`walk_rounds_fit` of the
+    walk at ``pbytes`` a point); None where none does (a prime n)."""
+    walk, items = _walk_of(pbytes)
     best, best_key = None, None
     for n2 in _divisors(n)[1:]:
         n1 = n // n2
         if n1 < n2:
             break
         if not (stage_radices(n1) and stage_radices(n2)
-                and walk_rounds_fit(n1, threads, True)
-                and walk_rounds_fit(n2, threads, True)):
+                and walk_rounds_fit(n1, threads, walk, items)
+                and walk_rounds_fit(n2, threads, walk, items)):
             continue
         key = (_stage_cost(n1) + _stage_cost(n2), -n2)
         if best_key is None or key < best_key:
@@ -648,24 +707,27 @@ def _two_factors(n: int, threads: int) -> Optional[tuple[int, int]]:
     return best
 
 
-def _pair_factors(n: int, threads: int) -> tuple[int, int]:
+def _pair_factors(n: int, threads: int, pbytes: int = 8) -> tuple[int, int]:
     """(n1, n2) of one axis of `fft_pair` at ``threads`` a block: (n, 1),
     one pass, where every stage's sequences fit a round of the threads
-    (`walk_rounds_fit`), else `_two_factors`."""
-    if walk_rounds_fit(n, threads, True):
+    (`walk_rounds_fit` of the walk at ``pbytes`` a point), else
+    `_two_factors`."""
+    if walk_rounds_fit(n, threads, *_walk_of(pbytes)):
         return n, 1
-    best = _two_factors(n, threads)
+    best = _two_factors(n, threads, pbytes)
     assert best is not None, (n, threads)
     return best
 
 
-def pair_splits(ny: int, nz: int):
+def pair_splits(ny: int, nz: int, dtype: torch.dtype = torch.float32):
     """((n1z, n2z), (n1y, n2y)): the factors of each axis of `fft_pair` at
     the threads of `pair_layout` (`_pair_factors`)."""
-    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[3]
+    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS,
+                         pbytes=point_bytes(dtype))[3]
 
 
-def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
+def pair_layout(ny: int, nz: int,
+                dtype: torch.dtype = torch.float32) -> tuple[int, int, int]:
     """(cluster, threads, shared bytes) of an `fft_pair` block for a plane
     `pair_cluster` serves, the one layout rule (the C entry refuses any
     other): the smallest cluster (1, 2, 4, 8, 16) dividing ny and nz whose
@@ -673,34 +735,41 @@ def pair_layout(ny: int, nz: int) -> tuple[int, int, int]:
     ``threads`` a multiple of 32 near one for PAIR_AIM_POINTS points and at
     least one for PAIR_XCHG, in 32..PAIR_THREADS; the block's tile (the z
     factors' rows at the odd pitch n1z | 1) beside the four stage tables
-    (`walk_radices`) and both axes' twiddle root tables."""
-    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS)[:3]
+    (`walk_radices`) and both axes' twiddle root tables.  At float64 the
+    same rule in points at 16 B a point (at most F64_THREADS threads on
+    the planes `pair_cluster` serves at float64)."""
+    return _plane_layout(ny, nz, False, PAIR_TILE_POINTS, PAIR_AIM_POINTS,
+                         pbytes=point_bytes(dtype))[:3]
 
 
 @functools.lru_cache(maxsize=4096)
 def _plane_layout(ny: int, nz: int, real: bool, tile_points: int, aim: int,
-                  odd_xchg: int = PAIR_XCHG):
+                  odd_xchg: int = PAIR_XCHG, pbytes: int = 8):
     """(cluster, threads, shared bytes, splits) of `fft_pair` on a complex
     (ny, nz) plane, or of `fft_r2c_pair` on a ``real`` one, whose rows are
     m = nz/2 complex points and whose z twiddles are `r2c_twiddle`'s, a
     thread moving at most ``odd_xchg`` points of an exchange where a
-    column tile's width is odd; computed once a plane at the given
-    constants (a launch reads them; the sweeps change the constants)."""
+    column tile's width is odd, ``pbytes`` shared bytes a point (16: the
+    fp64 `fft_pair`, its threads at most F64_THREADS); computed once a
+    plane at the given constants (a launch reads them; the sweeps change
+    the constants)."""
     m = nz // 2 if real else nz
     fits = [k for k in PAIR_CLUSTERS if ny % k == 0 and m % k == 0]
     c = next((k for k in fits if ny * m // k <= tile_points), fits[-1])
     tile, rows = ny * m // c, ny // c
     xchg = odd_xchg if (m // c) % 2 else PAIR_XCHG
     want = max(-(-tile // aim), -(-tile // xchg))
-    threads = min(PAIR_THREADS, max(32, -(-want // 32) * 32))
-    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(m, threads),
-                                       _pair_factors(ny, threads))
+    cap = PAIR_THREADS if pbytes == 8 else F64_THREADS["fft_pair"]
+    threads = min(cap, max(32, -(-want // 32) * 32))
+    (n1z, n2z), (n1y, n2y) = splits = (_pair_factors(m, threads, pbytes),
+                                       _pair_factors(ny, threads, pbytes))
+    walk = _walk_of(pbytes)[0]
     twz = (len(r2c_twiddle(nz, False)) if real
            else TWOFACTOR_TW_LO + -(-nz // TWOFACTOR_TW_LO))
     points = (rows * n2z * (n1z | 1)
-              + sum(_table_points(k, True) for k in (n1z, n2z, n1y, n2y))
+              + sum(_table_points(k, walk) for k in (n1z, n2z, n1y, n2y))
               + twz + TWOFACTOR_TW_LO + -(-ny // TWOFACTOR_TW_LO))
-    return c, threads, 8 * points, splits
+    return c, threads, pbytes * points, splits
 
 
 def conv2d_layout(ny: int, nz: int):
@@ -741,14 +810,16 @@ def _cluster_occupancy(name: str, entry: str, c: int, threads: int,
     return clusters.value, blocks.value
 
 
-def pair_occupancy(ny: int, nz: int) -> tuple[int, int]:
+def pair_occupancy(ny: int, nz: int,
+                   dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(resident clusters on the card, resident blocks an SM) of `fft_pair`
-    at the layout of an (ny, nz) plane, from
+    at the layout of an (ny, nz) plane of ``dtype``, from
     ``cudaOccupancyMaxActiveClusters`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
-    ``vk_fft_pair_occupancy``)."""
-    return _cluster_occupancy("fft_pair", "fft_pair_occupancy",
-                              *pair_layout(ny, nz))
+    ``vk_fft_pair_occupancy``, ``vk_fft_pair_f64_occupancy``)."""
+    return _cluster_occupancy("fft_pair",
+                              f"fft_pair{_f64(dtype)}_occupancy",
+                              *pair_layout(ny, nz, dtype))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -852,82 +923,103 @@ def _column_points(split, padded: bool, ts: Optional[int] = None) -> int:
     return (n2 * (n1 | 1)) | 1
 
 
-def _strided_table_points(n1: int, n2: int) -> int:
-    """Points of `fft_strided`'s stage tables (`walk_radices`) and the
-    twiddle's two tables beside the tile."""
-    return (_table_points(n1, True) + _table_points(n2, True)
+def _strided_table_points(n1: int, n2: int, walk: bool = True) -> int:
+    """Points of `fft_strided`'s stage tables (`walk_radices`; with
+    ``walk`` False the fp64 walk's `stage_radices`) and the twiddle's two
+    tables beside the tile."""
+    return (_table_points(n1, walk) + _table_points(n2, walk)
             + TWOFACTOR_TW_LO + -(-(n1 * n2) // TWOFACTOR_TW_LO))
 
 
 def _strided_columns(n: int, S: int, split, tile_points: int,
-                     min_columns: int, padded: bool = False) -> int:
+                     min_columns: int, padded: bool = False,
+                     pbytes: int = 8) -> int:
     """Columns of an `fft_strided` tile of length n at ``split``
-    (`fft_strided_tw`'s with ``padded``)."""
-    fit = ((MAX_SMEM_BYTES // 8 - _strided_table_points(*split))
+    (`fft_strided_tw`'s with ``padded``), ``pbytes`` shared bytes a
+    point."""
+    fit = ((MAX_SMEM_BYTES // pbytes
+            - _strided_table_points(*split, _walk_of(pbytes)[0]))
            // _column_points(split, padded))
     want = max(tile_points // n, min_columns)
     return max(1, min(S, want, fit))
 
 
-def _strided_threads(points: int) -> int:
+def _strided_threads(points: int, pbytes: int = 8) -> int:
     want = -(-points // STRIDED_AIM_POINTS)
-    return min(STRIDED_THREADS, max(32, -(-want // 32) * 32))
+    cap = STRIDED_THREADS if pbytes == 8 else F64_THREADS["fft_strided"]
+    return min(cap, max(32, -(-want // 32) * 32))
 
 
 @functools.lru_cache(maxsize=4096)
-def _strided_factors(n: int) -> tuple[int, int]:
+def _strided_factors(n: int, pbytes: int = 8) -> tuple[int, int]:
     """The two factors of a two-factor `fft_strided` axis: `_two_factors`
-    at 32 threads, so they fit a round of any block's."""
-    best = _two_factors(n, 32)
+    at 32 threads, so they fit a round of any block's (the fp64 walk, one
+    generic item a round, at 64: a block of two factors has more)."""
+    walk, items = _walk_of(pbytes)
+    best = _two_factors(n, 32 * WALK_GENERIC_ITEMS // items, pbytes)
     assert best is not None, n
     return best
 
 
-def strided_split(n: int, S: int) -> tuple[int, int]:
+def strided_split(n: int, S: int,
+                  dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(n1, n2) of `fft_strided` for length n over S columns: (n, 1), one
     pass, where shared memory holds STRIDED_MIN_COLUMNS columns of n points
-    beside the one-pass tables (to n = 3456 or so) and every stage's
-    sequences fit a round of the tile's threads, else `_strided_factors`."""
-    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS)[3]
+    beside the one-pass tables (at float32 to n = 3456 or so, at float64
+    about half that) and every stage's sequences fit a round of the tile's
+    threads, else `_strided_factors`."""
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
+                           pbytes=point_bytes(dtype))[3]
 
 
-def strided_layout(n: int, S: int) -> tuple[int, int, int]:
+def strided_layout(n: int, S: int,
+                   dtype: torch.dtype = torch.float32) -> tuple[int, int, int]:
     """(ts, threads, shared bytes) of an `fft_strided` block for length n
-    over S columns, the one layout rule (the C entry refuses any other):
-    STRIDED_TILE_POINTS // n columns, at least STRIDED_MIN_COLUMNS where
-    shared memory holds them beside the tables, at most S, at the split of
-    `strided_split`; a multiple of 32 threads near one for
-    STRIDED_AIM_POINTS points, at most STRIDED_THREADS; the tile of ts * n
-    points beside both factors' stage tables and the twiddle's two
-    tables."""
-    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS)[:3]
+    over S columns of ``dtype``, the one layout rule (the C entry refuses
+    any other): STRIDED_TILE_POINTS // n columns, at least
+    STRIDED_MIN_COLUMNS where shared memory holds them beside the tables,
+    at most S, at the split of `strided_split`; a multiple of 32 threads
+    near one for STRIDED_AIM_POINTS points, at most STRIDED_THREADS (at
+    float64 F64_THREADS); the tile of ts * n points beside both factors'
+    stage tables and the twiddle's two tables, `point_bytes` a point (at
+    float64 a tile holds half the columns: 1 at n = 8192)."""
+    return _strided_layout(n, S, STRIDED_TILE_POINTS, STRIDED_MIN_COLUMNS,
+                           pbytes=point_bytes(dtype))[:3]
 
 
 @functools.lru_cache(maxsize=4096)
 def _strided_layout(n: int, S: int, tile_points: int, min_columns: int,
-                    padded: bool = False):
+                    padded: bool = False, pbytes: int = 8):
     """`strided_layout` and `strided_split` at the given constants
-    (`strided_tw_layout` and `strided_tw_split` with ``padded``), computed
-    once an (n, S)."""
+    (`strided_tw_layout` and `strided_tw_split` with ``padded``; the fp64
+    kernel's at ``pbytes`` 16), computed once an (n, S)."""
     one = (n, 1)
-    fit = ((MAX_SMEM_BYTES // 8 - _strided_table_points(*one))
+    walk, items = _walk_of(pbytes)
+    fit = ((MAX_SMEM_BYTES // pbytes - _strided_table_points(*one, walk))
            // _column_points(one, padded))
-    ts = _strided_columns(n, S, one, tile_points, min_columns, padded)
+    ts = _strided_columns(n, S, one, tile_points, min_columns, padded, pbytes)
     split = (one if fit >= min_columns
-             and walk_rounds_fit(n, _strided_threads(ts * n), True)
-             else _strided_factors(n))
-    ts = _strided_columns(n, S, split, tile_points, min_columns, padded)
-    threads = _strided_threads(ts * n)
-    assert all(walk_rounds_fit(k, threads, True) for k in split), (n, S)
-    return (ts, threads, 8 * (ts * _column_points(split, padded, ts)
-                              + _strided_table_points(*split)), split)
+             and walk_rounds_fit(n, _strided_threads(ts * n, pbytes), walk,
+                                 items)
+             else _strided_factors(n, pbytes))
+    ts = _strided_columns(n, S, split, tile_points, min_columns, padded,
+                          pbytes)
+    threads = _strided_threads(ts * n, pbytes)
+    assert all(walk_rounds_fit(k, threads, walk, items) for k in split), \
+        (n, S)
+    return (ts, threads,
+            pbytes * (ts * _column_points(split, padded, ts)
+                      + _strided_table_points(*split, walk)), split)
 
 
-def strided_occupancy(n: int, S: int) -> int:
+def strided_occupancy(n: int, S: int,
+                      dtype: torch.dtype = torch.float32) -> int:
     """Resident blocks an SM of `fft_strided` at the layout of length n
-    over S columns, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    on the current card (C entry ``vk_fft_strided_occupancy``)."""
-    return _occupancy("fft_strided", *strided_layout(n, S)[1:])
+    over S columns of ``dtype``, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
+    (C entry ``vk_fft_strided_occupancy``, ``vk_fft_strided_f64_...``)."""
+    return _occupancy("fft_strided", *strided_layout(n, S, dtype)[1:],
+                      entry=f"fft_strided{_f64(dtype)}_occupancy")
 
 
 def strided_tw_split(n: int, S: int) -> tuple[int, int]:
@@ -1072,20 +1164,22 @@ def generic_groups(r: int) -> int:
     return -(-(r // 2 + 1) // WALK_GENERIC_PAIRS)
 
 
-def walk_rounds_fit(n: int, threads: int, walk: bool = False) -> bool:
+def walk_rounds_fit(n: int, threads: int, walk: bool = False,
+                    items: int = WALK_GENERIC_ITEMS) -> bool:
     """Whether ``threads`` hold a whole sequence of every stage of an
     n-point Stockham run (of `walk_radices` with ``walk``) in one round of
     the in-place walk (``rounds_fit`` in ``csrc/inplace.cuh``: a thread
-    holds max(1, 12 // r) butterflies of a fixed radix r, WALK_GENERIC_ITEMS
-    items of a generic one, `generic_groups` a butterfly); the empty run of
-    n = 1 always fits."""
+    holds max(1, 12 // r) butterflies of a fixed radix r, ``items`` items
+    of a generic one (WALK_GENERIC_ITEMS; the fp64 walk's
+    WALK_GENERIC_ITEMS_F64), `generic_groups` a butterfly); the empty run
+    of n = 1 always fits."""
     if n == 1:
         return True
     for r in (walk_radices if walk else stage_radices)(n):
         if r in _WALK_FIXED_RADICES:
             if max(1, WALK_POINTS // r) * threads < n // r:
                 return False
-        elif WALK_GENERIC_ITEMS * threads < n // r * generic_groups(r):
+        elif items * threads < n // r * generic_groups(r):
             return False
     return True
 
@@ -1116,7 +1210,8 @@ def _lines_block(n: int, one_pass: bool) -> tuple[int, int]:
     return _block_threads(lines * n, aim), lines
 
 
-def lines_split(n: int) -> tuple[int, int]:
+def lines_split(n: int,
+                dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(n1, n2) of `fft_lines` for length n: (n, 1), one pass of n-point
     stages, where a block holds LINES_ONE_PASS_LINES lines or more (n <=
     512) and every stage's sequences fit one round of its threads
@@ -1124,37 +1219,44 @@ def lines_split(n: int) -> tuple[int, int]:
     holds whole sequences, and a line's last stage is one sequence of n /
     r butterflies; in one pass, a block of few lines reads its late stages
     at a stride of r points (bank conflicts: 4096 took 0.219 ms so, 0.141
-    as 256 x 16; 1024 0.149 and 0.133 as 64 x 16)."""
+    as 256 x 16; 1024 0.149 and 0.133 as 64 x 16).  At float64 the fp64
+    walk's rounds (`_walk_of`)."""
+    pbytes = point_bytes(dtype)
     threads, lines = _lines_block(n, True)
-    if lines >= LINES_ONE_PASS_LINES and walk_rounds_fit(n, threads, True):
+    if lines >= LINES_ONE_PASS_LINES and walk_rounds_fit(
+            n, threads, *_walk_of(pbytes)):
         return n, 1
-    return _lines_factors(n)
+    return _lines_factors(n, pbytes)
 
 
 @functools.lru_cache(maxsize=4096)
-def _lines_factors(n: int) -> tuple[int, int]:
+def _lines_factors(n: int, pbytes: int = 8) -> tuple[int, int]:
     """The two factors n1 >= n2 > 1 of a lone `fft_lines` line
     (`_two_factors` at its threads); else `twofactor_split` (a prime n:
     (n, 1))."""
-    return (_two_factors(n, _block_threads(n, LINES_AIM_POINTS))
+    return (_two_factors(n, _block_threads(n, LINES_AIM_POINTS), pbytes)
             or twofactor_split(n))
 
 
-def lines_layout(n: int) -> tuple[int, int, int]:
+def lines_layout(n: int,
+                 dtype: torch.dtype = torch.float32) -> tuple[int, int, int]:
     """(threads, lines, shared bytes) of an `fft_lines` block for length
     n, the one layout rule (the C entry refuses any other): ``lines`` =
     max(1, LINES_BLOCK_POINTS // n) lines a block, a multiple of 32
     threads near one for LINES_ONE_PASS_AIM points (one pass) or
-    LINES_AIM_POINTS (two factors), at most 512, and the split of
-    `lines_split`, each line once as the (n2, n1) matrix at the odd pitch
-    n1 | 1, beside both factors' stage tables (`walk_radices`) and the
-    twiddle's two tables."""
-    n1, n2 = lines_split(n)
+    LINES_AIM_POINTS (two factors), at most 512 (at most 256 come of it,
+    the fp64 kernel's cap), and the split of `lines_split`, each line once
+    as the (n2, n1) matrix at the odd pitch n1 | 1, beside both factors'
+    stage tables (`walk_radices`; the fp64 walk's `stage_radices`) and the
+    twiddle's two tables, `point_bytes` of ``dtype`` a point."""
+    pbytes = point_bytes(dtype)
+    walk = _walk_of(pbytes)[0]
+    n1, n2 = lines_split(n, dtype)
     threads, lines = _lines_block(n, n2 == 1)
-    points = (lines * n2 * (n1 | 1) + _table_points(n1, True)
-              + _table_points(n2, True)
+    points = (lines * n2 * (n1 | 1) + _table_points(n1, walk)
+              + _table_points(n2, walk)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
-    return threads, lines, 8 * points
+    return threads, lines, pbytes * points
 
 
 # `fft_conv`'s block (csrc/fft_conv.cu, `conv_layout`): `fft_lines`' rule
@@ -1472,21 +1574,25 @@ def dct4_occupancy(n: int) -> int:
     return _flag_occupancy("fft_dct4", "fft_dct4", n % 2, threads, smem)
 
 
-def lines_occupancy(n: int) -> int:
-    """Resident blocks an SM of `fft_lines` at the layout of length n, from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
-    (C entry ``vk_fft_lines_occupancy``)."""
-    return _occupancy("fft_lines", *lines_layout(n)[::2])
+def lines_occupancy(n: int, dtype: torch.dtype = torch.float32) -> int:
+    """Resident blocks an SM of `fft_lines` at the layout of length n of
+    ``dtype``, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on
+    the current card (C entry ``vk_fft_lines_occupancy``,
+    ``vk_fft_lines_f64_occupancy``)."""
+    return _occupancy("fft_lines", *lines_layout(n, dtype)[::2],
+                      entry=f"fft_lines{_f64(dtype)}_occupancy")
 
 
-def _occupancy(name: str, threads: int, smem: int) -> int:
-    fn = getattr(_library(name), f"vk_{name}_occupancy")
+def _occupancy(name: str, threads: int, smem: int,
+               entry: Optional[str] = None) -> int:
+    entry = entry or f"{name}_occupancy"
+    fn = getattr(_library(name), f"vk_{entry}")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     err = fn(threads, smem, ctypes.byref(blocks))
     if err:
-        raise RuntimeError(f"vk_{name}_occupancy({threads}, {smem}) "
+        raise RuntimeError(f"vk_{entry}({threads}, {smem}) "
                            f"failed: CUDA error {err}")
     return blocks.value
 
@@ -1517,24 +1623,29 @@ def twofactor_occupancy(n: int) -> int:
 _DEVICE_TABLES: dict = {}
 
 
-def device_array(key: tuple, device: torch.device, build) -> torch.Tensor:
-    """Cached (L, 2) float32 device copy of the complex128 table
-    ``build()``: interleaved (re, im) pairs, read by the kernels as
-    float2."""
+def device_array(key: tuple, device: torch.device, build,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Cached (L, 2) device copy of the complex128 table ``build()`` in
+    ``dtype``: interleaved (re, im) pairs, read by the kernels as float2
+    (as double2 at float64)."""
+    if dtype != torch.float32:
+        key = key + (str(dtype),)
     key = key + (str(device),)
     tab = _DEVICE_TABLES.get(key)
     if tab is None:
         t = np.asarray(build(), np.complex128).ravel()
-        host = np.stack([t.real, t.imag], axis=-1).astype(np.float32)
-        tab = torch.from_numpy(host).to(device)
+        host = np.stack([t.real, t.imag], axis=-1)
+        tab = torch.from_numpy(host).to(device, dtype)
         _DEVICE_TABLES[key] = tab
     return tab
 
 
 def _device_table(n: int, inverse: bool, scale: float,
-                  device: torch.device, walk: bool = False) -> torch.Tensor:
+                  device: torch.device, walk: bool = False,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return device_array(("stages", n, inverse, scale, walk), device,
-                        lambda: stage_tables(n, inverse, scale, walk)[1])
+                        lambda: stage_tables(n, inverse, scale, walk)[1],
+                        dtype)
 
 
 def swapped_order(spec):
@@ -2004,15 +2115,20 @@ _LIBS: dict = {}
 _ENTRIES = {
     # planes, batch, plans, tables, the twiddle's two tables, then the
     # layout (lines_layout): threads, lines, shared bytes
-    "fft_lines": {"fft_lines": "ppppqpppppiii"},
+    # (the fp64 entries _f64 take the same arguments on fp64 planes and
+    # tables)
+    "fft_lines": {"fft_lines": "ppppqpppppiii",
+                  "fft_lines_f64": "ppppqpppppiii"},
     # planes, P, S, the plans of the two factors, their tables, the
     # twiddle's two tables, then the layout (strided_layout): columns a
     # block, threads, shared bytes
-    "fft_strided": {"fft_strided": "ppppqq" + "p" * 5 + "iii"},
+    "fft_strided": {"fft_strided": "ppppqq" + "p" * 5 + "iii",
+                    "fft_strided_f64": "ppppqq" + "p" * 5 + "iii"},
     # planes, batch, the plans of each axis's two factors (z1, z2, y1,
     # y2), their tables, the twiddles of z and y, then the layout
     # (pair_layout): cluster, threads, shared bytes
-    "fft_pair": {"fft_pair": "ppppq" + "p" * 10 + "iii"},
+    "fft_pair": {"fft_pair": "ppppq" + "p" * 10 + "iii",
+                 "fft_pair_f64": "ppppq" + "p" * 10 + "iii"},
     # real side, spectrum planes, batch, packed, plans, tables, the
     # twiddles (r2c_twiddle), the inverse's scale, then the layout
     # (r2c_layout): threads, lines, shared bytes
@@ -2085,11 +2201,12 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, entry: str, device: torch.device, args) -> None:
+def _launch(name: str, entry: str, device: torch.device, args,
+            f64: bool = False) -> None:
     """One launch of C entry ``vk_<entry>`` of library ``name`` on the
     current stream of ``device``; tensors pass as their data pointers and
     ctypes arrays by address.  Raises on a refused launch and counts it
-    in `launches` otherwise."""
+    in `launches` otherwise (in `f64_launches` with ``f64``)."""
     lib = _library(name)
     c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
               else a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -2100,33 +2217,38 @@ def _launch(name: str, entry: str, device: torch.device, args) -> None:
     if err:
         msg = lib.vk_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
-    launches[name] += 1
+    (f64_launches if f64 else launches)[name] += 1
 
 
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check_planes(re, im, ndim: int, what: str) -> None:
+def _check_planes(re, im, ndim: int, what: str, f64: bool = False) -> None:
+    """Planes for ``what``: float32, or with ``f64`` (a kernel with an fp64
+    instantiation) float64 too, both of one dtype."""
     if not (isinstance(re, torch.Tensor) and isinstance(im, torch.Tensor)):
         raise TypeError(f"{what}: re and im must be torch tensors")
     if re.shape != im.shape or re.ndim != ndim:
         raise ValueError(f"{what}: planes must both be {ndim}-D of one shape, "
                          f"got {tuple(re.shape)} and {tuple(im.shape)}")
     for t in (re, im):
-        _check_real(t, ndim, what)
+        _check_real(t, ndim, what, f64)
+    if re.dtype != im.dtype:
+        raise TypeError(f"{what}: planes of {re.dtype} and {im.dtype}")
     if re.device != im.device:
         raise ValueError(f"{what}: planes on {re.device} and {im.device}")
 
 
-def _check_real(x, ndim: int, what: str) -> None:
+def _check_real(x, ndim: int, what: str, f64: bool = False) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{what}: input must be a torch tensor")
     if x.ndim != ndim:
         raise ValueError(f"{what}: input must be {ndim}-D, got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: planes must be float32, got {x.dtype} "
+    if x.dtype != torch.float32 and not (f64 and x.dtype == torch.float64):
+        kinds = "float32 or float64" if f64 else "float32"
+        raise TypeError(f"{what}: planes must be {kinds}, got {x.dtype} "
                         "(other precisions are ROADMAP queue 1 item 10)")
     if not x.is_contiguous():
         raise ValueError(f"{what}: planes must be contiguous")
@@ -2155,11 +2277,11 @@ def _check_out(re, out) -> None:
 
 
 def _plan(n: int, inverse: bool, scale: float, device: torch.device,
-          walk: bool = False):
-    """(plan ints as a C array, device table) of one axis for a launch
-    (``walk``: the radices of `walk_radices`)."""
+          walk: bool = False, dtype: torch.dtype = torch.float32):
+    """(plan ints as a C array, device table in ``dtype``) of one axis for
+    a launch (``walk``: the radices of `walk_radices`)."""
     return (_plan_array(n, inverse, scale, walk),
-            _device_table(n, inverse, scale, device, walk=walk))
+            _device_table(n, inverse, scale, device, walk=walk, dtype=dtype))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -2173,9 +2295,11 @@ def _plan_array(n: int, inverse: bool, scale: float, walk: bool):
 def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
     """Shared body of the wrappers of complex planes: ``plain()`` for CPU
     planes (copied into ``out`` when given), one launch of C entry
-    ``vk_<entry>`` (default ``name``) of library ``name`` for CUDA planes
-    with ``kernel_args()`` between the four plane pointers and the stream.
-    The output planes have the input's shape; ``out`` may be the input."""
+    ``vk_<entry>`` (default ``name``; its fp64 instantiation ``_f64`` on
+    float64 planes, counted in `f64_launches`) of library ``name`` for
+    CUDA planes with ``kernel_args()`` between the four plane pointers and
+    the stream.  The output planes have the input's shape; ``out`` may be
+    the input."""
     if out is not None:
         _check_out(re, out)
     if re.device.type == "cpu":
@@ -2188,35 +2312,40 @@ def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
     yr, yi = out if out is not None else (torch.empty_like(re),
                                           torch.empty_like(im))
     if re.numel():
-        _launch(name, entry or name, re.device,
-                [re, im, yr, yi, *kernel_args()])
+        _launch(name, (entry or name) + _f64(re.dtype), re.device,
+                [re, im, yr, yi, *kernel_args()], re.dtype == torch.float64)
     return yr, yi
 
 
 def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
               scale: float = 1.0, out=None):
-    """DFT of each line of (B, n) float32 planes, times ``scale``.  ``out``
-    may name the output planes, which may be the input planes themselves
-    (in place).  CPU tensors run `fft_lines_plain`; CUDA tensors launch the
-    kernel on the current stream.
+    """DFT of each line of (B, n) float32 or float64 planes, times
+    ``scale``.  ``out`` may name the output planes, which may be the input
+    planes themselves (in place).  CPU tensors run `fft_lines_plain`; CUDA
+    tensors launch the kernel (float64: its fp64 instantiation) on the
+    current stream.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``.  Bound
-    by bytes (16 B a point, read once and written once); a block holds its
-    lines once each in shared memory (`lines_layout`) and runs their stages
-    in place on the walk of ``csrc/inplace.cuh``, as one pass or, where a
-    stage's sequences do not fit a round, two factors (`lines_split`), so
-    device memory sees only that traffic (``csrc/fft_lines.cu``)."""
-    _check_planes(re, im, 2, "fft_lines")
+    by bytes (16 B a point read once and written once; 32 B at float64); a
+    block holds its lines once each in shared memory (`lines_layout`) and
+    runs their stages in place on the walk of ``csrc/inplace.cuh``, as one
+    pass or, where a stage's sequences do not fit a round, two factors
+    (`lines_split`), so device memory sees only that traffic
+    (``csrc/fft_lines.cu``)."""
+    _check_planes(re, im, 2, "fft_lines", f64=True)
     B, n = re.shape
     _check_length(n)
+    dt = re.dtype
+    walk = dt == torch.float32
 
     def args():
-        n1, n2 = lines_split(n)
-        p1, t1 = _plan(n1, inverse, 1.0, re.device, True)
-        p2, t2 = _plan(n2, inverse, 1.0, re.device, True)
+        n1, n2 = lines_split(n, dt)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device, walk, dt)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device, walk, dt)
         tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
-                           lambda: twofactor_twiddle_pair(n, inverse, scale))
-        return (B, p1, p2, t1, t2, tw, *lines_layout(n))
+                          lambda: twofactor_twiddle_pair(n, inverse, scale),
+                          dt)
+        return (B, p1, p2, t1, t2, tw, *lines_layout(n, dt))
 
     return _apply("fft_lines", re, im, out,
                   lambda: fft_lines_plain(re, im, inverse, scale), args)
@@ -2228,13 +2357,14 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
                 out_len: Optional[int] = None, in_interleave: int = 1,
                 out_interleave: int = 1, in_transposed: bool = False,
                 out_transposed: bool = False):
-    """DFT along the middle dim of (P, n, S) float32 planes, times
-    ``scale``.  ``out`` as for `fft_lines`.  CPU tensors run
-    `fft_strided_plain`; CUDA tensors launch the kernel.
+    """DFT along the middle dim of (P, n, S) float32 or float64 planes,
+    times ``scale``.  ``out`` as for `fft_lines`.  CPU tensors run
+    `fft_strided_plain`; CUDA tensors launch the kernel (float64: its fp64
+    instantiation; the factor mode below takes float32 only).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``,
     and ``:4001 _outer_kernel`` through the (P, n, R*nz) view.  Bound by
-    bytes (16 B a point); a block holds a tile of neighbouring columns
+    bytes (16 B a point, 32 at float64); a block holds a tile of neighbouring columns
     across all n rows once in shared memory (`strided_layout`), reading
     each row of the tile as one contiguous run, and runs the stages down
     the columns on the walk of ``csrc/inplace.cuh``, in one pass or two
@@ -2266,17 +2396,20 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         return _fft_strided_tw(re, im, inverse, scale, out, pre, post, plane,
                                out_len, in_interleave, out_interleave,
                                in_transposed, out_transposed)
-    _check_planes(re, im, 3, "fft_strided")
+    _check_planes(re, im, 3, "fft_strided", f64=True)
     P, n, S = re.shape
     _check_length(n)
+    dt = re.dtype
+    walk = dt == torch.float32
 
     def args():
-        n1, n2 = strided_split(n, S)
-        p1, t1 = _plan(n1, inverse, 1.0, re.device, True)
-        p2, t2 = _plan(n2, inverse, 1.0, re.device, True)
+        n1, n2 = strided_split(n, S, dt)
+        p1, t1 = _plan(n1, inverse, 1.0, re.device, walk, dt)
+        p2, t2 = _plan(n2, inverse, 1.0, re.device, walk, dt)
         tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
-                          lambda: twofactor_twiddle_pair(n, inverse, scale))
-        return (P, S, p1, p2, t1, t2, tw, *strided_layout(n, S))
+                          lambda: twofactor_twiddle_pair(n, inverse, scale),
+                          dt)
+        return (P, S, p1, p2, t1, t2, tw, *strided_layout(n, S, dt))
 
     return _apply("fft_strided", re, im, out,
                   lambda: fft_strided_plain(re, im, inverse, scale), args)
@@ -2362,31 +2495,34 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
 
 def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
              scale: float = 1.0, out=None):
-    """2-D DFT over the two minor axes of (B, ny, nz) float32 planes, times
-    ``scale``, in one pass.  ``out`` as for `fft_lines`.  CPU tensors run
-    `fft_pair_plain`; CUDA tensors launch the kernel.
+    """2-D DFT over the two minor axes of (B, ny, nz) float32 or float64
+    planes, times ``scale``, in one pass.  ``out`` as for `fft_lines`.  CPU
+    tensors run `fft_pair_plain`; CUDA tensors launch the kernel (float64:
+    its fp64 instantiation).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``.  Bound by
-    bytes (16 B a point for both axes); a cluster (`pair_layout`) holds each
-    plane once in its shared memory on the walk of ``csrc/inplace.cuh``,
-    runs the z stages on rows, exchanges the tiles between its blocks over
-    distributed shared memory and runs the y stages down the columns
-    (``csrc/fft_pair.cu``); the planes are those `pair_cluster` serves."""
-    _check_planes(re, im, 3, "fft_pair")
+    bytes (16 B a point for both axes, 32 at float64); a cluster
+    (`pair_layout`) holds each plane once in its shared memory on the walk
+    of ``csrc/inplace.cuh``, runs the z stages on rows, exchanges the tiles
+    between its blocks over distributed shared memory and runs the y
+    stages down the columns (``csrc/fft_pair.cu``); the planes are those
+    `pair_cluster` serves at the planes' dtype."""
+    _check_planes(re, im, 3, "fft_pair", f64=True)
     B, ny, nz = re.shape
     _check_length(ny)
     _check_length(nz)
-    if pair_cluster(ny, nz) is None:
+    dt = re.dtype
+    if pair_cluster(ny, nz, dt) is None:
         raise _no_cluster("fft_pair", ny, nz)
 
     def args():
-        layout = pair_layout(ny, nz)
-        (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz)
-        plans = [_plan(k, inverse, 1.0, re.device, True)
+        layout = pair_layout(ny, nz, dt)
+        (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz, dt)
+        plans = [_plan(k, inverse, 1.0, re.device, dt == torch.float32, dt)
                  for k in (n1z, n2z, n1y, n2y)]
         tw = [device_array(("twofactor_pair", k, inverse, s), re.device,
                            lambda k=k, s=s: twofactor_twiddle_pair(k, inverse,
-                                                                   s))
+                                                                   s), dt)
               for k, s in ((nz, 1.0), (ny, scale))]
         return (B, *(p for p, _ in plans), *(t for _, t in plans), *tw,
                 *layout)
