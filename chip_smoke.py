@@ -192,6 +192,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
      float64 planes beside torch.fft complex128 and the dd tier on the
      same data (DDComplex planes, and the dd route on the tensor).  The toolchain phase holds every fp32
      kernel's ptxas line to FP32_PTXAS and every fp64 kernel to no spill.
+ 13. the storage tiers (Precision.HALF / BFLOAT16): storage_kernels, the
+     half-storage instantiations of fft_lines, fft_twofactor, fft_strided
+     and fft_pair against their plain versions (<= 2 storage ulps of
+     max|plain|, no inf or nan) at both dtypes on every layout class, each
+     case three times inside sentinel guards, at half offsets off the
+     planes' 8-byte groups, and in place; storage_routes, Rader 7919,
+     Bluestein 10007, SPLIT 10006 and 2^17 refused before any launch, and
+     every DIRECT length of samples 2, 13 and 1002 on the half fft_lines;
+     storage_main_path, sample 2's rows at 128 MiB / (4 n) lines, sample
+     7's 10240, the 256^3 cube, ex02's (16, 64) plane and samples 13 and
+     1002 through FFTApplication at both tiers, each counted from 0 and
+     held to its exact launches, against fp64 at the reference's gates and
+     against the CPU's torch engine; storage_times, the kernels beside the
+     bound at 2 B a real, the fp32 kernel on the same points and torch.fft
+     complex32, and the rows' round trips beside the fp32 round trip.  The
+     toolchain phase holds each half kernel's ptxas line to its fp32
+     twin's.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -202,6 +219,8 @@ each kernel, the card's name and power limit, and
 toolchain,dd_kernels,dd_times to iterate on fft_dd,
 toolchain,f64_kernels,f64_routes,f64_main_path,f64_times on the fp64
 kernels and DOUBLE's native route,
+toolchain,storage_kernels,storage_routes,storage_main_path,storage_times
+on the half-storage kernels and the HALF / BFLOAT16 tiers,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -381,15 +400,22 @@ def phase_toolchain(ck) -> dict:
     for k, v in info.items():
         _log(f"[toolchain] {k}: {v}")
     # every fp32 kernel compiles as before the walk took its complex type
-    # as a template argument; every fp64 instantiation without a spill
+    # as a template argument; every fp64 instantiation without a spill;
+    # every half-storage one as its fp32 twin
     changed = {k: (lines.get(k), v) for k, v in FP32_PTXAS.items()
                if lines.get(k) != v}
+    storage = {k: lines.get(k) for k in STORAGE_TWINS}
+    off_twin = _storage_ptxas_ok(lines)
     info["fp32_ptxas_as_pinned"] = not changed
     info["f64_ptxas"] = f64
+    info["storage_ptxas"] = storage
     _log(f"[toolchain] fp32 ptxas lines as pinned: {not changed} "
-         f"{changed or ''}; fp64 kernels {f64}")
+         f"{changed or ''}; fp64 kernels {f64}; half-storage kernels as "
+         f"their fp32 twins: {not off_twin} {off_twin or ''}")
     assert not changed, changed
     assert all(st == ld == 0 for _, st, ld in f64.values()), f64
+    assert all(v is not None for v in storage.values()), storage
+    assert not off_twin, off_twin
     return info
 
 
@@ -2274,8 +2300,8 @@ def phase_any_times(vt, ck, dev) -> dict:
     # same DFT in natural order, the longest line, 16384, and the shortest
     # it serves, 67 (30 lines a block), at 64 MiB; each with its registers
     # and spills (ptxas), its layout and its resident blocks an SM
-    with open(ck.library_path("fft_twofactor")[:-3] + ".log") as f:
-        (_, regs, spill_st, spill_ld), = _ptxas_kernels(f.read())
+    regs, spill_st, spill_ld = _ptxas_of(ck, "fft_twofactor")[
+        "fft_twofactor_kernel"]
     for n, B, inverse, swapped in ((10240, _sample_7_batch(10240), False, False),
                                    (10240, _sample_7_batch(10240), True, False),
                                    (7918, _sample_7_batch(7919), False, True),
@@ -4992,6 +5018,24 @@ FP32_PTXAS = {
 }
 
 
+# the half-storage instantiations (C entries vk_<name>_f16 / _bf16) and
+# their fp32 twins: the same body at the same bounds, the conversions at
+# the edge of device memory, so the same registers and no spill beyond the
+# twin's (fft_pair_kernel's 4 B, ROADMAP queue 3)
+STORAGE_TWINS = {f"{k}_{t}_kernel": f"{k}_kernel"
+                 for k in ("fft_lines", "fft_twofactor", "fft_strided",
+                           "fft_pair") for t in ("f16", "bf16")}
+
+
+def _storage_ptxas_ok(lines: dict) -> dict:
+    """{half kernel: (its ptxas line, its twin's pinned line)} for every
+    half-storage kernel in ``lines`` whose line is not its fp32 twin's
+    FP32_PTXAS line (registers, stack frame and spills): empty when all
+    are."""
+    return {k: (lines[k], FP32_PTXAS[t]) for k, t in STORAGE_TWINS.items()
+            if k in lines and lines[k] != FP32_PTXAS[t]}
+
+
 def _f64_bound(points: float, n: int, passes: int = 1):
     """The least time of ``passes`` passes over ``points`` complex128
     points of DFTs of n: 32 B a point a pass (16 read, 16 written) over
@@ -5407,6 +5451,466 @@ def phase_f64_times(vt, ck, dev) -> dict:
     return {"kernels": kernels, "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# The storage tiers (Precision.HALF / BFLOAT16): the half-storage
+# instantiations of fft_lines, fft_twofactor, fft_strided and fft_pair,
+# the tiers' routes, main path and times.
+# ---------------------------------------------------------------------------
+
+STORAGE = {"bf16": torch.bfloat16, "f16": torch.float16}
+STORAGE_TIER = {"bf16": "BFLOAT16", "f16": "HALF"}
+# a kernel against its plain version: 2 storage ulps of max|plain| (unit
+# roundoff 2^-8 of bf16, 2^-11 of fp16; both round once from fp32 values
+# whose sums ran in other orders)
+STORAGE_KERNEL_TOL = {"bf16": 8e-3, "f16": 1e-3}
+# against fp64: the reference's gates (vkfft_tpu/cli.py:845, :1023)
+STORAGE_NUMPY_TOL = {"bf16": 8e-2, "f16": 1e-2}
+STORAGE_BYTES = 128 * 1024 * 1024   # sample 2: batch 128 MiB / (4 n)
+STORAGE_GUARD = 1 << 12             # sentinel halves each side of an output
+STORAGE_REPEATS = 3                 # guarded launches of each case
+STORAGE_REF_LINES = 512             # lines of a 1-D row held to the CPU
+SAMPLE_13 = (64, 256, 1024)
+SAMPLE_1002 = (8, 16, 32, 64, 128, 256, 512, 1024, 60, 100, 360)
+
+
+def _storage_planes(shape, seed, dev, dt):
+    return tuple(t.to(dt) for t in _planes(shape, seed, dev))
+
+
+def _storage_rel(y, p) -> tuple:
+    """(max|y - p| / max|p| over both planes, max|y - p|), in fp32, after
+    asserting every value of y is finite (an inf or nan is a failure,
+    never a tolerance miss)."""
+    y = [t.float() for t in y]
+    p = [t.float() for t in p]
+    assert all(bool(torch.isfinite(t).all()) for t in y), "inf or nan"
+    err = max((a - b).abs().max().item() for a, b in zip(y, p))
+    return err / max(b.abs().max().item() for b in p), err
+
+
+def _storage_guarded(call, x, offset):
+    """One launch ``call(*planes, out=...)`` on half planes x, its output
+    inside a buffer of sentinels (STORAGE_GUARD halves on each side, and
+    ``offset`` more before: 1..3 leave a plane off its 8-byte groups, the
+    input copied at the same offset): (the output, the guard cells the
+    launch changed)."""
+    dt, numel, shape = x[0].dtype, x[0].numel(), x[0].shape
+    lead = STORAGE_GUARD + offset
+    buf = torch.full((2, lead + numel + STORAGE_GUARD), 12345.0, dtype=dt,
+                     device=x[0].device)
+    sentinel = buf[0, 0].clone()
+    y = tuple(buf[i, lead:lead + numel].view(shape) for i in range(2))
+    src = x
+    if offset:
+        pad = torch.zeros((2, offset + numel), dtype=dt, device=x[0].device)
+        src = tuple(pad[i, offset:].view(shape) for i in range(2))
+        src[0].copy_(x[0])
+        src[1].copy_(x[1])
+    got = call(*src, out=y)
+    changed = (int((buf[:, :lead] != sentinel).sum())
+               + int((buf[:, lead + numel:] != sentinel).sum()))
+    return got, changed
+
+
+def _storage_cases(ck):
+    """(kernel, shape, inverse, extra keywords, in place) of storage_kernels:
+    every layout class of the four kernels at the main path's widths."""
+    cases = [("fft_lines", (65536, 256), False, {}, False),     # one pass
+             ("fft_lines", (16384, 1024), True, {}, False),     # two factors
+             ("fft_lines", (4096, 4096), False, {}, True),
+             ("fft_lines", (8193, 8192), True, {}, False),      # one a block
+             ("fft_lines", (1001, 60), False, {}, False),       # a block shared
+             ("fft_lines", (1001, 100), True, {}, False),
+             ("fft_lines", (1001, 360), False, {}, True),
+             ("fft_lines", (333, 47), True, {}, False),         # odd: heads
+             ("fft_lines", (77, 1001), False, {}, False),       # generic stages
+             ("fft_twofactor", (1638, 10240), False, {}, False),
+             ("fft_twofactor", (1638, 10240), True, {}, True),
+             ("fft_twofactor", (1638, 10240), False, {"swapped": True},
+              False),
+             ("fft_twofactor", (1638, 10240), True, {"swapped": True}, False),
+             ("fft_twofactor", (333, 113), False, {}, False),   # a prime
+             ("fft_strided", (1, 256, 65536), False, {}, False),
+             ("fft_strided", (3, 64, 33), True, {}, False),     # S odd
+             ("fft_strided", (2, 4096, 40), False, {}, False),
+             ("fft_strided", (1, 8192, 24), True, {}, False),
+             ("fft_strided", (4, 256, 256), False, {}, True),
+             ("fft_pair", (256, 256, 256), False, {}, False),   # cluster 16
+             ("fft_pair", (256, 256, 256), True, {}, True),
+             ("fft_pair", (37, 16, 64), True, {}, False)]       # one block
+    assert ck.pair_layout(256, 256)[0] == 16 and ck.pair_layout(16, 64)[0] == 1
+    return cases
+
+
+def phase_storage_kernels(ck, dev) -> dict:
+    """The half-storage instantiations of fft_lines, fft_twofactor,
+    fft_strided and fft_pair against their plain versions (the same half
+    planes widened to fp32, computed, narrowed once) at both dtypes, on
+    every layout class (`_storage_cases`): each case STORAGE_REPEATS times
+    with its output inside sentinel guards at half offsets 0, 1 and 3
+    (the later two off the planes' 8-byte groups: the single-half spans),
+    <= STORAGE_KERNEL_TOL of max|plain| with no inf or nan and no write
+    outside the output; the in-place cases also written over their input,
+    equal to the out-of-place result bit for bit."""
+    out = {k: [] for k in ck.STORAGE_KERNELS}
+    worst = {}
+    for tag, dt in STORAGE.items():
+        tol = STORAGE_KERNEL_TOL[tag]
+        for i, (name, shape, inv, kw, in_place) in enumerate(
+                _storage_cases(ck)):
+            n = shape[-1] if name in ("fft_lines", "fft_twofactor") else (
+                shape[1] if name == "fft_strided" else shape[1] * shape[2])
+            sc = 1.0 / n if inv else 1.0
+            call = getattr(ck, name)
+            plain = getattr(ck, name + "_plain")
+            x = _storage_planes(shape, i + 7, dev, dt)
+            ref = plain(*x, inv, sc, **kw)
+            row = {"dtype": tag, "case": [list(shape), inv, kw],
+                   "rel_err": [], "guard_cells_changed": []}
+            for r, offset in zip(range(STORAGE_REPEATS), (0, 1, 3)):
+                y, changed = _storage_guarded(
+                    lambda a, b, out: call(a, b, inv, sc, out=out, **kw),
+                    x, offset)
+                rel, err = _storage_rel(y, ref)
+                assert y[0].dtype == dt, (name, shape)
+                assert rel <= tol and changed == 0, (name, tag, shape, inv,
+                                                     kw, offset, rel, changed)
+                row["rel_err"].append(rel)
+                row["guard_cells_changed"].append(changed)
+                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+            if in_place:
+                y = call(*x, inv, sc, **kw)
+                c = tuple(t.clone() for t in x)
+                call(*c, inv, sc, out=c, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(c, y)), (
+                    name, tag, shape)
+                row["in_place_equal"] = True
+            torch.cuda.synchronize()
+            key = f"{name}_{tag}"
+            worst[key] = max(worst.get(key, 0.0), max(row["rel_err"]))
+            out[name].append(row)
+            del x, ref
+    counts = {k: len(v) for k, v in out.items()}
+    _log(f"[storage] cases {counts}, worst vs plain {worst} (tolerances "
+         f"{STORAGE_KERNEL_TOL})")
+    return {"cases": out, "counts": counts, "worst_vs_plain": worst}
+
+
+def _storage_launch_check(ck, torch_engine, tag, want, what):
+    """The launches since the last reset: exactly ``want`` ({kernel:
+    count}) of the ``tag`` instantiations, no other launch, no call of the
+    plain engine."""
+    sfx = "_" + tag
+    got = {k[:-len(sfx)]: v for k, v in ck.storage_launches.items()
+           if k.endswith(sfx)}
+    others = {k: v for k, v in ck.storage_launches.items()
+              if not k.endswith(sfx) and v}
+    assert got == {k: want.get(k, 0) for k in got}, (what, got)
+    assert not others and sum(ck.launches.values()) == 0, (what, others,
+                                                           ck.launches)
+    assert sum(ck.f64_launches.values()) == 0, (what, ck.f64_launches)
+    assert torch_engine.calls == 0, (what, torch_engine.calls)
+    return got
+
+
+def phase_storage_routes(vt, ck, torch_engine, dev) -> dict:
+    """The tiers' routes: Rader 7919, Bluestein 10007, SPLIT 10006 and
+    the long tier's 2^17 under HALF and BFLOAT16 raise NotImplementedError
+    naming ROADMAP queue 1 item 10 before any launch (every counter
+    unchanged); every DIRECT length of samples 2, 13 and 1002 runs its
+    forward and normalized inverse on the half-storage fft_lines (two
+    launches, no other, no plain-engine call), within the reference's
+    gates of torch.fft on the narrowed input."""
+    refused, rows = [], []
+    for n in (7919, 10007, 10006, 1 << 17):
+        for tag in STORAGE:
+            app = vt.FFTApplication(vt.FFTConfig(
+                shape=(n,), precision=vt.Precision[STORAGE_TIER[tag]]))
+            x = vt.Planar(*_planes((2, n), n, dev))
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            torch_engine.calls = 0
+            try:
+                app.forward(x)
+                raise AssertionError(f"{tag} n={n} ran")
+            except NotImplementedError as e:
+                assert "item 10" in str(e), e
+            torch.cuda.synchronize()
+            _storage_launch_check(ck, torch_engine, tag, {}, n)
+            refused.append([n, tag])
+    lengths = sorted(set(ROWS_1D) | set(SAMPLE_13) | set(SAMPLE_1002))
+    for n in lengths:
+        for tag, dt in STORAGE.items():
+            app = vt.FFTApplication(vt.FFTConfig(
+                shape=(n,), normalize=True,
+                precision=vt.Precision[STORAGE_TIER[tag]]))
+            x = vt.Planar(*_planes((4, n), n, dev))
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            torch_engine.calls = 0
+            y = app.forward(x)
+            z = app.inverse(y)
+            torch.cuda.synchronize()
+            _storage_launch_check(ck, torch_engine, tag, {"fft_lines": 2}, n)
+            xn = torch.complex(x.re.to(dt).float(), x.im.to(dt).float())
+            e_f = _rel(vt.to_complex(y), torch.fft.fft(xn.cdouble()).cfloat())
+            e_rt = _rel(vt.to_complex(z), xn)
+            assert y.dtype == z.dtype == dt, (n, tag)
+            assert max(e_f, e_rt) <= STORAGE_NUMPY_TOL[tag], (n, tag, e_f,
+                                                              e_rt)
+            rows.append({"n": n, "dtype": tag, "rel_err_fwd": e_f,
+                         "rel_err_round_trip": e_rt})
+    worst = {tag: max(max(r["rel_err_fwd"], r["rel_err_round_trip"])
+                      for r in rows if r["dtype"] == tag) for tag in STORAGE}
+    _log(f"[storage routes] refused before any launch: {refused}; "
+         f"{len(rows)} lengths on the storage kernels, worst {worst}")
+    return {"refused": refused, "rows": rows, "worst": worst}
+
+
+def _storage_rows():
+    """(row, tier, shape, config shape, launches of a forward and a
+    normalized inverse) of the tiers' main path: sample 2's rows at 128
+    MiB / (4 n) lines, sample 7's DIRECT 10240 at its 64 MiB of complex64,
+    the 256^3 cube (pair + strided), ex02's (16, 64) plane, and sample 13's
+    and sample 1002's systems."""
+    rows = []
+    for tag in STORAGE:
+        for n in ROWS_1D:
+            rows.append((f"sample2_n{n}", tag, (STORAGE_BYTES // (4 * n), n),
+                         (n,), {"fft_lines": 2}))
+        rows.append(("sample7_n10240", tag, (_sample_7_batch(10240), 10240),
+                     (10240,), {"fft_twofactor": 2}))
+        rows.append(("3d_256^3", tag, CUBE, CUBE,
+                     {"fft_pair": 2, "fft_strided": 2}))
+        rows.append(("ex02_16x64", tag, (16, 64), (16, 64), {"fft_pair": 2}))
+        for n in SAMPLE_13:
+            rows.append((f"sample13_n{n}", tag, (4, n), (n,),
+                         {"fft_lines": 2}))
+        for n in SAMPLE_1002:
+            rows.append((f"sample1002_n{n}", tag, (2, n), (n,),
+                         {"fft_lines": 2}))
+    return rows
+
+
+def phase_storage_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The tiers' main path through FFTApplication(precision=BFLOAT16 /
+    HALF, normalize=True) on float32 Planar input, which the application
+    narrows (`_storage_rows`): each row's forward and inverse counted from
+    0 and held to its exact launches of the half-storage instantiations,
+    no other launch and no plain-engine call; the results of the storage
+    dtype, finite, the forward against fp64 (numpy for the small systems,
+    torch.fft complex128 on the card for the rest) and the round trip
+    against the narrowed input within the reference's gates, and both
+    against the same call on the CPU's torch engine (the first
+    STORAGE_REF_LINES lines of the 1-D rows) within STORAGE_KERNEL_TOL."""
+    rows, by_row = [], {}
+    for name, tag, shape, cfg_shape, want in _storage_rows():
+        dt = STORAGE[tag]
+        prec = vt.Precision[STORAGE_TIER[tag]]
+        app = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape, normalize=True,
+                                             precision=prec))
+        x = vt.Planar(*_planes(shape, len(name), dev))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        y = app.forward(x)
+        z = app.inverse(y)
+        torch.cuda.synchronize()
+        got = _storage_launch_check(ck, torch_engine, tag, want, name)
+        by_row[f"{name}_{tag}"] = dict(ck.storage_launches)
+        assert y.dtype == z.dtype == dt and y.shape == z.shape == shape, name
+        xn = torch.complex(x.re.to(dt).float(), x.im.to(dt).float())
+        dims = tuple(range(len(shape) - len(cfg_shape), len(shape)))
+        small = math.prod(shape) <= 1 << 16
+        if small:
+            ref = np.fft.fftn(xn.cpu().numpy().astype(np.complex128),
+                              axes=dims)
+            e_f = float(np.abs(vt.to_numpy(y) - ref).max() / np.abs(ref).max())
+        else:
+            ref = torch.fft.fftn(xn.cdouble(), dim=dims)
+            e_f = _rel(vt.to_complex(y).cdouble(), ref)
+        e_rt = _rel(vt.to_complex(z), xn)
+        del ref
+        # the same call on the CPU's torch engine
+        lines = STORAGE_REF_LINES if len(cfg_shape) == 1 else shape[0]
+        cpu = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape, normalize=True,
+                                             precision=prec), engine="torch",
+                                device="cpu")
+        xc = vt.Planar(x.re[:lines].cpu(), x.im[:lines].cpu())
+        yc = cpu.forward(xc)
+        zc = cpu.inverse(yc)
+        e_cf = _storage_rel((y.re[:lines].cpu(), y.im[:lines].cpu()),
+                            (yc.re, yc.im))[0]
+        e_cr = _storage_rel((z.re[:lines].cpu(), z.im[:lines].cpu()),
+                            (zc.re, zc.im))[0]
+        row = {"row": name, "dtype": tag, "shape": list(shape),
+               "launches": got, "rel_err_fwd_vs_fp64": e_f,
+               "rel_err_round_trip": e_rt, "rel_err_fwd_vs_cpu_engine": e_cf,
+               "rel_err_inv_vs_cpu_engine": e_cr,
+               "cpu_engine_lines": lines if len(cfg_shape) == 1 else "all"}
+        _log(f"[main storage] {row}")
+        assert e_f <= STORAGE_NUMPY_TOL[tag], row
+        assert e_rt <= STORAGE_NUMPY_TOL[tag], row
+        assert max(e_cf, e_cr) <= STORAGE_KERNEL_TOL[tag], row
+        rows.append(row)
+        del x, y, z, xn, xc, yc, zc
+        torch.cuda.empty_cache()
+    totals = {k: sum(c[k] for c in by_row.values())
+              for k in ck.storage_launches}
+    _log(f"[main storage] launches over the path {totals}")
+    assert all(v > 0 for v in totals.values()), totals
+    return {"storage_launches": totals, "storage_launches_by_path": by_row,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def _c32(x):
+    """Half planes as one complex32 tensor (torch.fft's half C2C)."""
+    return torch.view_as_complex(torch.stack([x[0].half(), x[1].half()],
+                                             -1))
+
+
+def phase_storage_times(vt, ck, dev) -> dict:
+    """The half-storage kernels at the main path's shapes (held against
+    their plain versions there, <= STORAGE_KERNEL_TOL) beside the bound (8
+    B a point a pass, 2 B a real, over HBM; or 5 n log2 n over the fp32
+    rate), the fp32 kernel on the same points, the plain time and
+    torch.fft on complex32 (cuFFT's half C2C, computing in fp16: not the
+    same function) where n is a power of two, each with registers and
+    spills (ptxas), layout and blocks an SM; then the rows of PERF.md
+    section 5, 1-D n = 256 / 1024 / 4096 at sample 2's batch and the 256^3
+    cube, forward plus normalized inverse through FFTApplication at both
+    tiers, beside the fp32 round trip on the same points, the bound, the
+    host's enqueue time and torch.fft complex32; and fft_lines' point rate
+    at n = 256 from 2^20 points (in L2) to 2^25, fp32 beside both half
+    dtypes."""
+    _log(f"[time] card: {_smi()}")
+    kernels = {f"{k}_{t}": [] for k in ck.STORAGE_KERNELS for t in STORAGE}
+
+    def timed(name, tag, shape, call, plain, lib, n, extra):
+        dt = STORAGE[tag]
+        x = _storage_planes(shape, sum(shape), dev, dt)
+        x32 = tuple(t.float() for t in x)
+        rel, err = _storage_rel(call(*x), plain(*x))
+        assert rel <= STORAGE_KERNEL_TOL[tag], (name, tag, shape, rel)
+        points = math.prod(shape)
+        bound, by = _bound(8.0 * points, _fft_ops(points, n))
+        regs, st, ld = _ptxas_of(ck, name)[f"{name}_{tag}_kernel"]
+        ms = _time_ms(lambda: call(*x))
+        row = {"shape": list(shape), "dtype": tag, "ms": ms,
+               "GBs": 8.0 * points / ms / 1e6, "bound_ms": bound,
+               "bound_by": by, "roofline_share": bound / ms,
+               "max_abs_err": err, "rel_err_vs_plain": rel,
+               "fp32_ms": _time_ms(lambda: call(*x32)),
+               "plain_ms": _time_ms(lambda: plain(*x), reps=3, inner=1,
+                                    warmup=1),
+               "library_ms": None, "library": "— (none)",
+               "registers": regs, "spill_bytes": [st, ld], **extra}
+        row["vs_fp32"] = ms / row["fp32_ms"]
+        if lib is not None and tag == "f16":
+            xc = _c32(x)
+            row["library_ms"] = _time_ms(lambda: lib(xc))
+            row["library"] = "torch.fft complex32 (cuFFT half C2C)*"
+        _log(f"[time] {name} {tag} {row}")
+        kernels[f"{name}_{tag}"].append(row)
+        del x, x32
+
+    for tag, dt in STORAGE.items():
+        for n in ROWS_1D:
+            t, lines, smem = ck.lines_layout(n, dt)
+            timed("fft_lines", tag, (STORAGE_BYTES // (4 * n), n),
+                  lambda r, m: ck.fft_lines(r, m),
+                  lambda r, m: ck.fft_lines_plain(r, m, False),
+                  lambda c: torch.fft.fft(c, dim=-1), n,
+                  {"split": list(ck.lines_split(n, dt)), "threads": t,
+                   "lines_per_block": lines, "smem_bytes": smem,
+                   "blocks_per_sm": ck.lines_occupancy(n, dt)})
+        n = 10240
+        t, lines, smem = ck.twofactor_layout(n)
+        timed("fft_twofactor", tag, (_sample_7_batch(n), n),
+              lambda r, m: ck.fft_twofactor(r, m),
+              lambda r, m: ck.fft_twofactor_plain(r, m, False), None, n,
+              {"split": list(ck.twofactor_split(n)), "threads": t,
+               "lines_per_block": lines, "smem_bytes": smem,
+               "blocks_per_sm": ck.twofactor_occupancy(n, dt)})
+        P, n, S = shape = (1, 256, 65536)
+        ts, t, smem = ck.strided_layout(n, S, dt)
+        timed("fft_strided", tag, shape, lambda r, m: ck.fft_strided(r, m),
+              lambda r, m: ck.fft_strided_plain(r, m, False),
+              lambda c: torch.fft.fft(c, dim=1), n,
+              {"columns": ts, "split": list(ck.strided_split(n, S, dt)),
+               "threads": t, "smem_bytes": smem,
+               "blocks_per_sm": ck.strided_occupancy(n, S, dt)})
+        B, ny, nz = CUBE
+        c, t, smem = ck.pair_layout(ny, nz, dt)
+        clusters, blocks = ck.pair_occupancy(ny, nz, dt)
+        timed("fft_pair", tag, CUBE, lambda r, m: ck.fft_pair(r, m),
+              lambda r, m: ck.fft_pair_plain(r, m, False),
+              lambda c: torch.fft.fft2(c), ny * nz,
+              {"cluster": c, "threads": t, "smem_bytes": smem,
+               "splits": ck.pair_splits(ny, nz, dt),
+               "resident_clusters": clusters, "blocks_per_sm": blocks})
+
+    # the point rate of fft_lines at n = 256 from planes the 50 MB L2
+    # holds (2^20 points: 16 MB of fp32 in and out) to sample 2's 2^25: a
+    # kernel bound by device memory runs faster per point where the planes
+    # sit in L2, and its half planes faster than its fp32 ones
+    rate = []
+    for points in (1 << 20, 1 << 22, 1 << 25):
+        shape = (points // 256, 256)
+        row = {"points": points}
+        for tag, dt in [("fp32", torch.float32)] + list(STORAGE.items()):
+            x = _storage_planes(shape, 5, dev, dt)
+            y = tuple(torch.empty_like(t) for t in x)
+            row[f"{tag}_ms"] = _time_ms(lambda: ck.fft_lines(*x, out=y))
+            row[f"{tag}_Gpoints_s"] = points / row[f"{tag}_ms"] / 1e6
+            del x, y
+        _log(f"[time] fft_lines point rate {row}")
+        rate.append(row)
+
+    e2e = []
+    for tag, dt in STORAGE.items():
+        prec = vt.Precision[STORAGE_TIER[tag]]
+        for name, shape, cfg_shape in (
+                [(f"1d_n{n}", (STORAGE_BYTES // (4 * n), n), (n,))
+                 for n in ROWS_1D] + [("3d_256^3", CUBE, CUBE)]):
+            cube = len(cfg_shape) == 3
+            app = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape,
+                                                 normalize=True,
+                                                 precision=prec))
+            app32 = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape,
+                                                   normalize=True))
+            x = vt.Planar(*_storage_planes(shape, 13, dev, dt))
+            x32 = x.astype(torch.float32)
+            points = math.prod(shape)
+            passes = 4 if cube else 2
+            bound, by = _bound(passes * 8.0 * points,
+                               2 * _fft_ops(points, points if cube
+                                            else shape[-1]))
+            fn = lambda: app.inverse(app.forward(x))
+            row = {"row": name, "dtype": tag, "shape": list(shape),
+                   "ms": _time_ms(fn), "bound_ms": bound, "bound_by": by,
+                   "passes_per_dir": passes // 2,
+                   "host_enqueue_ms": _host_ms(fn),
+                   "fp32_ms": _time_ms(lambda: app32.inverse(
+                       app32.forward(x32))),
+                   "torch_fft_c32_ms": None}
+            if tag == "f16":
+                xc = _c32((x.re, x.im))
+                row["torch_fft_c32_ms"] = _time_ms(
+                    (lambda: torch.fft.ifftn(torch.fft.fftn(xc))) if cube
+                    else (lambda: torch.fft.ifft(torch.fft.fft(xc, dim=-1),
+                                                 dim=-1)))
+                del xc
+            row["GBs"] = passes * 8.0 * points / row["ms"] / 1e6
+            row["roofline_share"] = bound / row["ms"]
+            row["vs_fp32"] = row["ms"] / row["fp32_ms"]
+            _log(f"[time] e2e storage {row}")
+            e2e.append(row)
+            del x, x32
+            torch.cuda.empty_cache()
+    return {"kernels": kernels, "e2e": e2e, "fft_lines_point_rate": rate}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5472,7 +5976,13 @@ def main(argv=None) -> int:
               ("f64_routes", lambda: phase_f64_routes(vt, ck, ce, dev)),
               ("f64_main_path",
                lambda: phase_f64_main_path(vt, ck, dk, torch_engine, dev)),
-              ("f64_times", lambda: phase_f64_times(vt, ck, dev))]
+              ("f64_times", lambda: phase_f64_times(vt, ck, dev)),
+              ("storage_kernels", lambda: phase_storage_kernels(ck, dev)),
+              ("storage_routes",
+               lambda: phase_storage_routes(vt, ck, torch_engine, dev)),
+              ("storage_main_path",
+               lambda: phase_storage_main_path(vt, ck, torch_engine, dev)),
+              ("storage_times", lambda: phase_storage_times(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
     if only:
         unknown = set(only) - {name for name, _ in phases}
@@ -5579,6 +6089,24 @@ def main(argv=None) -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": "float64",
+            "also_replaces": also.get(name, []), "per_shape": rows})
+    # the half-storage instantiations of fft_lines, fft_twofactor,
+    # fft_strided and fft_pair (the same sources), launched on the storage
+    # tiers' main path
+    st_by_path = record["storage_main_path"]["storage_launches_by_path"]
+    for key, rows in record["storage_times"]["kernels"].items():
+        name, tag = key.rsplit("_", 1)
+        head = rows[0]
+        entries.append({
+            "name": key, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": sum(c[key] for c in st_by_path.values()),
+            "launches_by_path": {p: c[key] for p, c in st_by_path.items()
+                                 if c[key]},
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": head["shape"], "dtype": STORAGE_TIER[tag].lower(),
             "also_replaces": also.get(name, []), "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
     record["kernels_line"] = entries

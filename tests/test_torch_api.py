@@ -282,8 +282,6 @@ def test_cuda_route_refuses_options_outside_the_slice():
         dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DCT, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DST, rr_type=1, zeropad_output=((8, 16),)),
-        dict(precision=vt.Precision.BFLOAT16),
-        dict(precision=vt.Precision.HALF),
         dict(zeropad_input=((0, 8),)),
         dict(zeropad_output=((8, 16),)),
         dict(keep_intermediate_order=True),
@@ -291,6 +289,11 @@ def test_cuda_route_refuses_options_outside_the_slice():
     for kw in refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vt.FFTApplication(vt.FFTConfig(shape=(16,), **kw), engine="cuda")
+    # the storage tiers of C2C build and run on the cuda engine's routing
+    for prec in (vt.Precision.BFLOAT16, vt.Precision.HALF):
+        app = vt.FFTApplication(vt.FFTConfig(shape=(16,), precision=prec),
+                                engine="cuda")
+        assert app.forward(x).dtype == vt.api.STORAGE[prec]
     # the real kinds ignore the precision flag, as the JAX package's do
     app = vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.R2C,
                                          precision=vt.Precision.DOUBLE),

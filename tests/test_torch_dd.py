@@ -618,9 +618,14 @@ def test_every_length_has_one_route():
 
 
 def test_refusals():
+    # the storage tiers run (tests/test_torch_storage.py holds them to the
+    # JAX package): a CPU application of each narrows Planar input
     for prec in (vt.Precision.HALF, vt.Precision.BFLOAT16):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            vt.FFTApplication(vt.FFTConfig(shape=(16,), precision=prec))
+        app = vt.FFTApplication(vt.FFTConfig(shape=(16,), precision=prec),
+                                device="cpu")
+        y = app.forward(vt.Planar(torch.ones(2, 16), torch.zeros(2, 16)))
+        assert y.dtype == vt.api.STORAGE[prec]
+        assert torch.equal(y.re[:, 0].float(), torch.full((2,), 16.0))
     # the real kinds and convolution ignore the flag and run at the input's
     # dtype, as the JAX package's do (tests/test_torch_f64.py holds them to
     # it); the double-double tier is C2C's alone

@@ -423,8 +423,8 @@ def test_other_kinds_ignore_the_flag(precision):
     """R2C, DCT-II and a convolution under DOUBLE, HALF and BFLOAT16 run at
     the input's dtype, as the JAX package's `_real_transform` and
     `ConvolutionApplication` do: the same float32 results as the JAX
-    package's on the same inputs; C2C under HALF and BFLOAT16 stays
-    refused (the storage tiers, item 10)."""
+    package's on the same inputs; C2C under HALF and BFLOAT16 runs the
+    storage tier (a Planar of the storage dtype out)."""
     rng = np.random.default_rng(6)
     x = rng.standard_normal((3, 64)).astype(np.float32)
     for kind, kw in (("R2C", {}), ("DCT", {"rr_type": 2})):
@@ -455,9 +455,12 @@ def test_other_kinds_ignore_the_flag(precision):
     got = np.asarray(port(data))
     assert _rel(got, want) <= F32_REF_TOL
     if precision != "DOUBLE":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            vt.FFTApplication(vt.FFTConfig(
-                shape=(16,), precision=vt.Precision[precision]))
+        y = vt.FFTApplication(vt.FFTConfig(
+            shape=(16,), precision=vt.Precision[precision]),
+            device="cpu").forward(vt.from_numpy_planar(
+                data.real.astype(np.float32), data.imag.astype(np.float32)))
+        assert isinstance(y, vt.Planar)
+        assert y.dtype == vt.api.STORAGE[vt.Precision[precision]]
 
 
 def test_ptxas_pin_parser():

@@ -173,13 +173,20 @@ def test_stage_tables_layout(n, inverse, scale):
 def test_wrapper_checks():
     re, im = _planes((4, 64), seed=5)
     t_re, t_im = torch.from_numpy(re), torch.from_numpy(im)
-    # float64 planes run the fp64 instantiation (here its plain version);
-    # other dtypes, and planes of two dtypes, are refused
+    # float64 planes run the fp64 instantiation (here its plain version),
+    # float16 the half-storage one; other dtypes, and planes of two dtypes,
+    # are refused
     yr, yi = ck.fft_lines(t_re.double(), t_im.double())
     assert yr.dtype == torch.float64
     assert _rel(_c(yr.numpy(), yi.numpy()), np.fft.fft(_c(re, im))) <= 5e-14
+    yr, yi = ck.fft_lines(t_re.half(), t_im.half())
+    assert yr.dtype == torch.float16
+    assert _rel(_c(yr.float().numpy(), yi.float().numpy()),
+                np.fft.fft(_c(re, im))) <= 5e-3
     with pytest.raises(TypeError):
-        ck.fft_lines(t_re.half(), t_im.half())
+        ck.fft_lines(t_re.int(), t_im.int())
+    with pytest.raises(TypeError):
+        ck.fft_conv(t_re.half(), t_im.half(), torch.zeros(64, 2))
     with pytest.raises(TypeError):
         ck.fft_lines(t_re, t_im.double())
     with pytest.raises(ValueError):

@@ -31,6 +31,15 @@
 // registers a thread, and the fp64 walk holds one generic item a round
 // and has no radix-16 stage (its plans are stage_radices'): with either it
 // spilled at 128 registers (PERF.md §6).
+//
+// Half storage (fft_lines_f16_kernel, fft_lines_bf16_kernel; C entries
+// vk_fft_lines_f16, vk_fft_lines_bf16): the fp32 kernel's body, layout and
+// bounds on __half or __nv_bfloat16 planes, 8 B a point of device memory
+// where fp32 moves 16.  The stage tables, the twiddle, shared memory and
+// every stage stay fp32; cp.async has no 2-byte copy, so the read goes
+// through registers (inplace.cuh's load_lines: four halves a plane in one
+// 8-byte load, widened), and the write narrows each value once, rounding
+// to nearest even.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -51,6 +60,27 @@ fft_lines_kernel(const float* xr, const float* xi, float* yr, float* yi,
   extern __shared__ __align__(16) float2 smem[];
   two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0, lines,
                    pitch, len1, len2, true);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                     __half* yi, long long batch, Plan p1, Plan p2,
+                     const float2* t1, const float2* t2, const float2* tw,
+                     int lines, int pitch, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0, lines,
+                   pitch, len1, len2);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                      __nv_bfloat16* yr, __nv_bfloat16* yi, long long batch,
+                      Plan p1, Plan p2, const float2* t1, const float2* t2,
+                      const float2* tw, int lines, int pitch, int len1,
+                      int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0, lines,
+                   pitch, len1, len2);
 }
 
 __global__ void __launch_bounds__(kThreads64, 2)
@@ -96,6 +126,28 @@ int prepare(long long batch, const int* plan1, const int* plan2, int threads,
   return 0;
 }
 
+// The checks and the launch of `kernel` on planes of storage type St,
+// points of type C (tables of C's real).
+template <class C, class St, typename K>
+int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
+           St* yi, long long batch, const int* plan1, const int* plan2,
+           const vkfft::Real<C>* table1, const vkfft::Real<C>* table2,
+           const vkfft::Real<C>* twiddle, int threads, int lines, int smem,
+           void* stream) {
+  Plan p1, p2;
+  long long blocks;
+  int err = prepare<C>(batch, plan1, plan2, threads, lines, smem, max_threads,
+                       &p1, &p2, &blocks);
+  if (err) return err;
+  err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const C*>(table1),
+      reinterpret_cast<const C*>(table2), reinterpret_cast<const C*>(twiddle),
+      lines, p1.n | 1, table_len(p1), table_len(p2));
+  return (int)cudaGetLastError();
+}
+
 template <typename K>
 int occupancy(K kernel, int max_threads, int threads, int smem, int* blocks) {
   if (threads < 32 || threads > max_threads || smem < 0 ||
@@ -127,19 +179,9 @@ int vk_fft_lines(const float* xr, const float* xi, float* yr, float* yi,
                  const float* table1, const float* table2,
                  const float* twiddle, int threads, int lines, int smem,
                  void* stream) {
-  Plan p1, p2;
-  long long blocks;
-  int err = prepare<float2>(batch, plan1, plan2, threads, lines, smem,
-                            kThreads, &p1, &p2, &blocks);
-  if (err) return err;
-  err = smem_opt_in(fft_lines_kernel, smem);
-  if (err) return err;
-  fft_lines_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
-      reinterpret_cast<const float2*>(table2),
-      reinterpret_cast<const float2*>(twiddle), lines, p1.n | 1,
-      table_len(p1), table_len(p2));
-  return (int)cudaGetLastError();
+  return launch<float2>(fft_lines_kernel, kThreads, xr, xi, yr, yi, batch,
+                        plan1, plan2, table1, table2, twiddle, threads, lines,
+                        smem, stream);
 }
 
 // vk_fft_lines on fp64 planes and tables (interleaved fp64 pairs), at
@@ -149,20 +191,30 @@ int vk_fft_lines_f64(const double* xr, const double* xi, double* yr,
                      const int* plan2, const double* table1,
                      const double* table2, const double* twiddle, int threads,
                      int lines, int smem, void* stream) {
-  Plan p1, p2;
-  long long blocks;
-  int err = prepare<double2>(batch, plan1, plan2, threads, lines, smem,
-                             kThreads64, &p1, &p2, &blocks);
-  if (err) return err;
-  err = smem_opt_in(fft_lines_f64_kernel, smem);
-  if (err) return err;
-  fft_lines_f64_kernel<<<(unsigned)blocks, threads, smem,
-                         (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const double2*>(table1),
-      reinterpret_cast<const double2*>(table2),
-      reinterpret_cast<const double2*>(twiddle), lines, p1.n | 1,
-      table_len(p1), table_len(p2));
-  return (int)cudaGetLastError();
+  return launch<double2>(fft_lines_f64_kernel, kThreads64, xr, xi, yr, yi,
+                         batch, plan1, plan2, table1, table2, twiddle,
+                         threads, lines, smem, stream);
+}
+
+// vk_fft_lines on fp16 / bf16 planes (the tables fp32, as vk_fft_lines's).
+int vk_fft_lines_f16(const __half* xr, const __half* xi, __half* yr,
+                     __half* yi, long long batch, const int* plan1,
+                     const int* plan2, const float* table1,
+                     const float* table2, const float* twiddle, int threads,
+                     int lines, int smem, void* stream) {
+  return launch<float2>(fft_lines_f16_kernel, kThreads, xr, xi, yr, yi, batch,
+                        plan1, plan2, table1, table2, twiddle, threads, lines,
+                        smem, stream);
+}
+
+int vk_fft_lines_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                      __nv_bfloat16* yr, __nv_bfloat16* yi, long long batch,
+                      const int* plan1, const int* plan2, const float* table1,
+                      const float* table2, const float* twiddle, int threads,
+                      int lines, int smem, void* stream) {
+  return launch<float2>(fft_lines_bf16_kernel, kThreads, xr, xi, yr, yi,
+                        batch, plan1, plan2, table1, table2, twiddle, threads,
+                        lines, smem, stream);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`
@@ -173,6 +225,14 @@ int vk_fft_lines_occupancy(int threads, int smem, int* blocks) {
 
 int vk_fft_lines_f64_occupancy(int threads, int smem, int* blocks) {
   return occupancy(fft_lines_f64_kernel, kThreads64, threads, smem, blocks);
+}
+
+int vk_fft_lines_f16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_lines_f16_kernel, kThreads, threads, smem, blocks);
+}
+
+int vk_fft_lines_bf16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_lines_bf16_kernel, kThreads, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

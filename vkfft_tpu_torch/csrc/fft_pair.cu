@@ -42,6 +42,15 @@
 // have at most 4096 points a block, so at most kThreads64 threads, the
 // bound leaving each 128 registers, on the fp64 walk (one generic item a
 // round, no radix 16: inplace.cuh's kItems, kRadix16).
+//
+// Half storage (fft_pair_f16_kernel, fft_pair_bf16_kernel; C entries
+// vk_fft_pair_f16, vk_fft_pair_bf16): the fp32 kernel's body, layout and
+// bounds on __half or __nv_bfloat16 planes, 8 B a point of device memory
+// where fp32 moves 16 (both axes together).  The tables, the tiles, the
+// exchange of float2 points between the cluster's blocks and every stage
+// stay fp32; the row tile comes in through registers (inplace.cuh's
+// load_lines: cp.async has no 2-byte copy), each value widened, and the
+// column tile goes out narrowed once, to nearest even (store_columns).
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -132,15 +141,15 @@ __device__ void push_columns(cg::cluster_group& cluster, C* buf, int nz,
 
 // The column tile to device memory: row ky (at yout(ky) in the tile) to
 // row ky of the plane from real offset g0 (its column c0), cols points,
-// four reals a plane at once (store4) where every run is 16-byte aligned
-// (a thread's four points read in an order rotated by its lane), else
-// single reals.
-template <class C>
+// four reals a plane at once (store4) where every run is aligned to four
+// (16 bytes of floats, 8 of halves; a thread's four points read in an
+// order rotated by its lane), else single reals, narrowed to the planes'
+// storage type.
+template <class C, class St>
 __device__ void store_columns(const C* buf, int ny, int cols, RowPerm yout,
-                              Real<C>* yr, Real<C>* yi, long long g0,
-                              int nz) {
+                              St* yr, St* yi, long long g0, int nz) {
   const int T = blockDim.x;
-  if ((cols & 3) == 0 && (g0 & 3) == 0 && aligned16(yr, yi)) {
+  if ((cols & 3) == 0 && (g0 & 3) == 0 && group_aligned(yr, yi)) {
     const int c4 = cols >> 2;
     const Div dc = make_div(c4);
     const int rot = (threadIdx.x >> 2) & 3;
@@ -165,8 +174,8 @@ __device__ void store_columns(const C* buf, int ny, int cols, RowPerm yout,
     const int c = u - ky * cols;
     const C v = buf[yout(ky) * cols + c];
     const long long g = g0 + (long long)ky * nz + c;
-    yr[g] = v.x;
-    yi[g] = v.y;
+    put(yr[g], v.x);
+    put(yi[g], v.y);
   }
 }
 
@@ -189,10 +198,10 @@ __device__ __forceinline__ long long plane_base(cg::cluster_group& cluster,
   return (long long)(blockIdx.x / cluster.num_blocks()) * ny * nz;
 }
 
-// The block body on points of type C.
-template <class C>
+// The block body on points of type C and planes of storage type St.
+template <class C, class St>
 __device__ __forceinline__ void pair_block(
-    C* smem, const Real<C>* xr, const Real<C>* xi, Real<C>* yr, Real<C>* yi,
+    C* smem, const St* xr, const St* xi, St* yr, St* yi,
     const Plan& pz1, const Plan& pz2, const Plan& py1, const Plan& py2,
     const C* tz1, const C* tz2, const C* ty1, const C* ty2, const C* twz,
     const C* twy, const Geo& geo) {
@@ -209,11 +218,18 @@ __device__ __forceinline__ void pair_block(
     tab[t] = __ldg(src);
   }
   // the row tile in natural order
-  load_lines_async(xr, xi,
-                   plane_base(cluster, ny, nz) +
-                       (long long)cluster.block_rank() * geo.rows * nz,
-                   geo.rows * nz,
-                   make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  if constexpr (kNarrow<St>)
+    load_lines(xr, xi,
+               plane_base(cluster, ny, nz) +
+                   (long long)cluster.block_rank() * geo.rows * nz,
+               geo.rows * nz,
+               make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  else
+    load_lines_async(xr, xi,
+                     plane_base(cluster, ny, nz) +
+                         (long long)cluster.block_rank() * geo.rows * nz,
+                     geo.rows * nz,
+                     make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
   __syncthreads();
   // 1-4. the z axis along the rows, the exchange, the y axis down the
   // columns, each axis a column pass (the n2-point stages, the twiddle on
@@ -264,6 +280,28 @@ fft_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
              twz, twy, geo);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                    __half* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                    const float2* tz1, const float2* tz2, const float2* ty1,
+                    const float2* ty2, const float2* twz, const float2* twy,
+                    Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+             twz, twy, geo);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                     __nv_bfloat16* yr, __nv_bfloat16* yi, Plan pz1,
+                     Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                     const float2* tz2, const float2* ty1, const float2* ty2,
+                     const float2* twz, const float2* twy, Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+             twz, twy, geo);
+}
+
 __global__ void __launch_bounds__(kThreads64, 2)
 fft_pair_f64_kernel(const double* xr, const double* xi, double* yr,
                     double* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
@@ -308,10 +346,11 @@ bool layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
          smem <= vkfft::kMaxSmemBytes;
 }
 
-// The checks and the cluster launch at points of type C.
-template <class C, typename K>
-int launch(K kernel, int max_threads, const Real<C>* xr, const Real<C>* xi,
-           Real<C>* yr, Real<C>* yi, long long planes, const int* plan_z1,
+// The checks and the cluster launch at points of type C on planes of
+// storage type St.
+template <class C, class St, typename K>
+int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
+           St* yi, long long planes, const int* plan_z1,
            const int* plan_z2, const int* plan_y1, const int* plan_y2,
            const Real<C>* table_z1, const Real<C>* table_z2,
            const Real<C>* table_y1, const Real<C>* table_y2,
@@ -394,6 +433,35 @@ int vk_fft_pair_f64(const double* xr, const double* xi, double* yr,
                          cluster, threads, smem, stream);
 }
 
+// vk_fft_pair on fp16 / bf16 planes (the tables fp32, as vk_fft_pair's).
+int vk_fft_pair_f16(const __half* xr, const __half* xi, __half* yr,
+                    __half* yi, long long planes, const int* plan_z1,
+                    const int* plan_z2, const int* plan_y1,
+                    const int* plan_y2, const float* table_z1,
+                    const float* table_z2, const float* table_y1,
+                    const float* table_y2, const float* twiddle_z,
+                    const float* twiddle_y, int cluster, int threads,
+                    int smem, void* stream) {
+  return launch<float2>(fft_pair_f16_kernel, kThreads, xr, xi, yr, yi, planes,
+                        plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
+                        table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
+                        cluster, threads, smem, stream);
+}
+
+int vk_fft_pair_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                     __nv_bfloat16* yr, __nv_bfloat16* yi, long long planes,
+                     const int* plan_z1, const int* plan_z2,
+                     const int* plan_y1, const int* plan_y2,
+                     const float* table_z1, const float* table_z2,
+                     const float* table_y1, const float* table_y2,
+                     const float* twiddle_z, const float* twiddle_y,
+                     int cluster, int threads, int smem, void* stream) {
+  return launch<float2>(fft_pair_bf16_kernel, kThreads, xr, xi, yr, yi,
+                        planes, plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
+                        table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
+                        cluster, threads, smem, stream);
+}
+
 // Resident clusters on the card and blocks an SM of the kernel at
 // `cluster` blocks of `threads` with `smem` dynamic shared bytes, into
 // *clusters and *blocks.
@@ -406,6 +474,18 @@ int vk_fft_pair_occupancy(int cluster, int threads, int smem, int* clusters,
 int vk_fft_pair_f64_occupancy(int cluster, int threads, int smem,
                               int* clusters, int* blocks) {
   return occupancy(fft_pair_f64_kernel, kThreads64, cluster, threads, smem,
+                   clusters, blocks);
+}
+
+int vk_fft_pair_f16_occupancy(int cluster, int threads, int smem,
+                              int* clusters, int* blocks) {
+  return occupancy(fft_pair_f16_kernel, kThreads, cluster, threads, smem,
+                   clusters, blocks);
+}
+
+int vk_fft_pair_bf16_occupancy(int cluster, int threads, int smem,
+                               int* clusters, int* blocks) {
+  return occupancy(fft_pair_bf16_kernel, kThreads, cluster, threads, smem,
                    clusters, blocks);
 }
 

@@ -34,6 +34,15 @@
 // point), and a double2 four registers: at most kThreads64 threads a
 // block, the bound leaving each 128 registers, on the fp64 walk (one
 // generic item a round, no radix 16: inplace.cuh's kItems, kRadix16).
+//
+// Half storage (fft_strided_f16_kernel, fft_strided_bf16_kernel; C entries
+// vk_fft_strided_f16, vk_fft_strided_bf16): the fp32 kernel's body, layout
+// and bounds on __half or __nv_bfloat16 planes, 8 B a point of device
+// memory where fp32 moves 16; tables, tile and stages stay fp32.  cp.async
+// has no 2-byte copy, so the tile's rows come in through registers
+// (load_columns: four halves a plane in one 8-byte load where every run is
+// 8-byte aligned, else single halves), each widened to float, and go out
+// narrowed once, to nearest even (store_columns).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -42,6 +51,7 @@ namespace {
 using vkfft::Plan;
 using vkfft::Real;
 using vkfft::cmul;
+using vkfft::cx;
 using namespace vkfft::walk;
 
 // Most threads a block; the bound holds the kernel to 64 registers.
@@ -86,17 +96,56 @@ __device__ void load_columns_async(const Real<C>* xr, const Real<C>* xi,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The tile back to device memory: row k (at yout(k) * ts in the tile) to
-// real offset g0 + k * S, `cols` points, four reals a plane at once
-// (store4) where every run is 16-byte aligned (a thread's four points read
-// in an order rotated by its lane), else single reals.
-template <class C>
-__device__ void store_columns(const C* tile, RowPerm yout, Real<C>* yr,
-                              Real<C>* yi, long long g0, long long S, int n,
-                              int ts, int cols) {
+// load_columns_async through registers, for planes whose reals no
+// cp.async copy takes (halves): four reals a plane at once (load4) where
+// every run is aligned to four (a thread's four points written in an order
+// rotated by its lane), else single reals, each widened to float.
+template <class C, class St>
+__device__ void load_columns(const St* xr, const St* xi, long long g0,
+                             long long S, int n, int ts, int cols, C* tile) {
   const int T = blockDim.x;
   if (cols == ts && (ts & 3) == 0 && (S & 3) == 0 && (g0 & 3) == 0 &&
-      aligned16(yr, yi)) {
+      group_aligned(xr, xi)) {
+    const int c4 = ts >> 2;
+    const Div dc = make_div(c4);
+    const int rot = (threadIdx.x >> 2) & 3;
+#pragma unroll 2
+    for (int f = threadIdx.x; f < n * c4; f += T) {
+      const int j = quot(f, dc);
+      const int c = 4 * (f - j * c4);
+      const long long g = g0 + j * S + c;
+      const float4 r = load4(xr + g);
+      const float4 i = load4(xi + g);
+      C v[4] = {cx<C>(r.x, i.x), cx<C>(r.y, i.y), cx<C>(r.z, i.z),
+                cx<C>(r.w, i.w)};
+      rotate(v, rot);
+      C* d = tile + j * ts + c;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d[(q + rot) & 3] = v[q];
+    }
+    return;
+  }
+  const Div dc = make_div(cols);
+  for (int u = threadIdx.x; u < n * cols; u += T) {
+    const int j = quot(u, dc);
+    const int c = u - j * cols;
+    const long long g = g0 + j * S + c;
+    tile[j * ts + c] = cx<C>(widen(xr[g]), widen(xi[g]));
+  }
+}
+
+// The tile back to device memory: row k (at yout(k) * ts in the tile) to
+// real offset g0 + k * S, `cols` points, four reals a plane at once
+// (store4) where every run is aligned to four (16 bytes of floats, 8 of
+// halves; a thread's four points read in an order rotated by its lane),
+// else single reals, narrowed to the planes' storage type.
+template <class C, class St>
+__device__ void store_columns(const C* tile, RowPerm yout, St* yr, St* yi,
+                              long long g0, long long S, int n, int ts,
+                              int cols) {
+  const int T = blockDim.x;
+  if (cols == ts && (ts & 3) == 0 && (S & 3) == 0 && (g0 & 3) == 0 &&
+      group_aligned(yr, yi)) {
     const int c4 = ts >> 2;
     const Div dc = make_div(c4);
     const int rot = (threadIdx.x >> 2) & 3;
@@ -121,8 +170,8 @@ __device__ void store_columns(const C* tile, RowPerm yout, Real<C>* yr,
     const int c = u - k * cols;
     const C v = tile[yout(k) * ts + c];
     const long long g = g0 + k * S + c;
-    yr[g] = v.x;
-    yi[g] = v.y;
+    put(yr[g], v.x);
+    put(yi[g], v.y);
   }
 }
 
@@ -142,12 +191,12 @@ __device__ __forceinline__ long long tile_of(long long b, long long tiles) {
   return p * tiles + (t % kSpread) * (tiles / kSpread) + t / kSpread;
 }
 
-// The block body on points of type C.
-template <class C>
+// The block body on points of type C and planes of storage type St.
+template <class C, class St>
 __device__ __forceinline__ void strided_block(
-    C* smem, const Real<C>* xr, const Real<C>* xi, Real<C>* yr, Real<C>* yi,
-    long long S, long long tiles, const Plan& p1, const Plan& p2, const C* t1,
-    const C* t2, const C* tw, int ts, int len1, int len2) {
+    C* smem, const St* xr, const St* xi, St* yr, St* yi, long long S,
+    long long tiles, const Plan& p1, const Plan& p2, const C* t1, const C* t2,
+    const C* tw, int ts, int len1, int len2) {
   const int n = p1.n * p2.n;
   C* s1 = smem + n * ts;
   const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
@@ -158,8 +207,12 @@ __device__ __forceinline__ void strided_block(
   const long long bt = tile_of(blockIdx.x, tiles);
   const long long pi = bt / tiles;
   const long long s0 = (bt - pi * tiles) * ts;
-  load_columns_async(xr, xi, pi * n * S + s0, S, n, ts,
-                     (int)min((long long)ts, S - s0), smem);
+  if constexpr (kNarrow<St>)
+    load_columns(xr, xi, pi * n * S + s0, S, n, ts,
+                 (int)min((long long)ts, S - s0), smem);
+  else
+    load_columns_async(xr, xi, pi * n * S + s0, S, n, ts,
+                       (int)min((long long)ts, S - s0), smem);
   __syncthreads();
   // the column pass (n2-point DFTs, the twiddle on its last stage), then
   // the row pass (n1-point; the scale on its last stage when n2 = 1); one
@@ -207,6 +260,27 @@ fft_strided_f64_kernel(const double* xr, const double* xi, double* yr,
                 len1, len2);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, long long S, long long tiles, Plan p1,
+                       Plan p2, const float2* t1, const float2* t2,
+                       const float2* tw, int ts, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_block(smem, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts, len1,
+                len2);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi, long long S,
+                        long long tiles, Plan p1, Plan p2, const float2* t1,
+                        const float2* t2, const float2* tw, int ts, int len1,
+                        int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_block(smem, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts, len1,
+                len2);
+}
+
 template <typename K>
 int smem_opt_in(K kernel, int smem) {
   if (smem <= 48 * 1024) return 0;
@@ -214,11 +288,12 @@ int smem_opt_in(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The checks and the launch at points of type C (the layout of
-// cuda_kernels.strided_layout, at most `max_threads` a block).
-template <class C, typename K>
-int launch(K kernel, int max_threads, const Real<C>* xr, const Real<C>* xi,
-           Real<C>* yr, Real<C>* yi, long long P, long long S,
+// The checks and the launch at points of type C on planes of storage type
+// St (the layout of cuda_kernels.strided_layout, at most `max_threads` a
+// block).
+template <class C, class St, typename K>
+int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
+           St* yi, long long P, long long S,
            const int* plan1, const int* plan2, const Real<C>* table1,
            const Real<C>* table2, const Real<C>* twiddle, int ts, int threads,
            int smem, void* stream) {
@@ -296,12 +371,43 @@ int vk_fft_strided_f64(const double* xr, const double* xi, double* yr,
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`
 // dynamic shared bytes, into *blocks.
+// vk_fft_strided on fp16 / bf16 planes (the tables fp32, as
+// vk_fft_strided's).
+int vk_fft_strided_f16(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, long long P, long long S, const int* plan1,
+                       const int* plan2, const float* table1,
+                       const float* table2, const float* twiddle, int ts,
+                       int threads, int smem, void* stream) {
+  return launch<float2>(fft_strided_f16_kernel, kThreads, xr, xi, yr, yi, P,
+                        S, plan1, plan2, table1, table2, twiddle, ts, threads,
+                        smem, stream);
+}
+
+int vk_fft_strided_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi, long long P,
+                        long long S, const int* plan1, const int* plan2,
+                        const float* table1, const float* table2,
+                        const float* twiddle, int ts, int threads, int smem,
+                        void* stream) {
+  return launch<float2>(fft_strided_bf16_kernel, kThreads, xr, xi, yr, yi, P,
+                        S, plan1, plan2, table1, table2, twiddle, ts, threads,
+                        smem, stream);
+}
+
 int vk_fft_strided_occupancy(int threads, int smem, int* blocks) {
   return occupancy(fft_strided_kernel, kThreads, threads, smem, blocks);
 }
 
 int vk_fft_strided_f64_occupancy(int threads, int smem, int* blocks) {
   return occupancy(fft_strided_f64_kernel, kThreads64, threads, smem, blocks);
+}
+
+int vk_fft_strided_f16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_strided_f16_kernel, kThreads, threads, smem, blocks);
+}
+
+int vk_fft_strided_bf16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_strided_bf16_kernel, kThreads, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

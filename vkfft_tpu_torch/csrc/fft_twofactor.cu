@@ -37,6 +37,13 @@
 // natural-order inverse load transpose through strided shared-memory
 // accesses.  A block reads all of its lines before it writes, so the
 // output may alias the input.
+//
+// Half storage (fft_twofactor_f16_kernel, fft_twofactor_bf16_kernel; C
+// entries vk_fft_twofactor_f16, vk_fft_twofactor_bf16): the same body,
+// layout and bounds on __half or __nv_bfloat16 planes, 8 B a point of
+// device memory where fp32 moves 16; the tables, shared memory and every
+// stage stay fp32, each value widened on the read and narrowed once, to
+// nearest even, on the write (inplace.cuh's load_lines/store_lines).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -58,11 +65,76 @@ fft_twofactor_kernel(const float* xr, const float* xi, float* yr, float* yi,
                    lines, pitch, len1, len2);
 }
 
-int smem_opt_in(size_t smem) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_twofactor_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                         __half* yi, long long batch, Plan p1, Plan p2,
+                         const float2* t1, const float2* t2, const float2* tw,
+                         int swapped, int lines, int pitch, int len1,
+                         int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, swapped,
+                   lines, pitch, len1, len2);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_twofactor_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                          __nv_bfloat16* yr, __nv_bfloat16* yi,
+                          long long batch, Plan p1, Plan p2, const float2* t1,
+                          const float2* t2, const float2* tw, int swapped,
+                          int lines, int pitch, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, swapped,
+                   lines, pitch, len1, len2);
+}
+
+template <typename K>
+int smem_opt_in(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fft_twofactor_kernel,
+  return (int)cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
+}
+
+// The checks and the launch of `kernel` on planes of storage type St
+// (float, or a half type on the same fp32 walk).
+template <class St, typename K>
+int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi,
+           long long batch, const int* plan1, const int* plan2,
+           const float* table1, const float* table2, const float* twiddle,
+           int swapped, int threads, int lines, int smem, void* stream) {
+  Plan p1, p2;
+  if (batch < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
+      !vkfft::subplan_from_ints(plan2, &p2))
+    return (int)cudaErrorInvalidValue;
+  const int n = p1.n * p2.n;
+  if (n < 2 || n > vkfft::kTwoFactorMaxN || p1.n < p2.n ||
+      p1.inverse != p2.inverse || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || lines < 1 || (long long)lines * n > vkfft::kTwoFactorMaxN ||
+      !rounds_fit(p1, threads) || !rounds_fit(p2, threads) ||
+      smem < 0 || (size_t)smem != two_factor_smem(p1, p2, lines) ||
+      smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (batch + lines - 1) / lines;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
+      reinterpret_cast<const float2*>(table2),
+      reinterpret_cast<const float2*>(twiddle), swapped, lines, p1.n | 1,
+      table_len(p1), table_len(p2));
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+int occupancy(K kernel, int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kThreads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 }  // namespace
@@ -85,40 +157,47 @@ int vk_fft_twofactor(const float* xr, const float* xi, float* yr, float* yi,
                      const float* table1, const float* table2,
                      const float* twiddle, int swapped, int threads, int lines,
                      int smem, void* stream) {
-  Plan p1, p2;
-  if (batch < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
-      !vkfft::subplan_from_ints(plan2, &p2))
-    return (int)cudaErrorInvalidValue;
-  const int n = p1.n * p2.n;
-  if (n < 2 || n > vkfft::kTwoFactorMaxN || p1.n < p2.n ||
-      p1.inverse != p2.inverse || threads < 32 || threads > kThreads ||
-      threads % 32 != 0 || lines < 1 || (long long)lines * n > vkfft::kTwoFactorMaxN ||
-      !rounds_fit(p1, threads) || !rounds_fit(p2, threads) ||
-      smem < 0 || (size_t)smem != two_factor_smem(p1, p2, lines) ||
-      smem > vkfft::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (batch + lines - 1) / lines;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
-  if (err) return err;
-  fft_twofactor_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
-      reinterpret_cast<const float2*>(table2),
-      reinterpret_cast<const float2*>(twiddle), swapped, lines, p1.n | 1,
-      table_len(p1), table_len(p2));
-  return (int)cudaGetLastError();
+  return launch(fft_twofactor_kernel, xr, xi, yr, yi, batch, plan1, plan2,
+                table1, table2, twiddle, swapped, threads, lines, smem,
+                stream);
+}
+
+// vk_fft_twofactor on fp16 / bf16 planes (the tables fp32, as
+// vk_fft_twofactor's).
+int vk_fft_twofactor_f16(const __half* xr, const __half* xi, __half* yr,
+                         __half* yi, long long batch, const int* plan1,
+                         const int* plan2, const float* table1,
+                         const float* table2, const float* twiddle,
+                         int swapped, int threads, int lines, int smem,
+                         void* stream) {
+  return launch(fft_twofactor_f16_kernel, xr, xi, yr, yi, batch, plan1, plan2,
+                table1, table2, twiddle, swapped, threads, lines, smem,
+                stream);
+}
+
+int vk_fft_twofactor_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                          __nv_bfloat16* yr, __nv_bfloat16* yi,
+                          long long batch, const int* plan1, const int* plan2,
+                          const float* table1, const float* table2,
+                          const float* twiddle, int swapped, int threads,
+                          int lines, int smem, void* stream) {
+  return launch(fft_twofactor_bf16_kernel, xr, xi, yr, yi, batch, plan1,
+                plan2, table1, table2, twiddle, swapped, threads, lines, smem,
+                stream);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`
 // dynamic shared bytes, into *blocks.
 int vk_fft_twofactor_occupancy(int threads, int smem, int* blocks) {
-  if (threads < 32 || threads > kThreads || smem < 0 ||
-      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
-  if (err) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fft_twofactor_kernel, threads, smem);
+  return occupancy(fft_twofactor_kernel, threads, smem, blocks);
+}
+
+int vk_fft_twofactor_f16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_twofactor_f16_kernel, threads, smem, blocks);
+}
+
+int vk_fft_twofactor_bf16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_twofactor_bf16_kernel, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

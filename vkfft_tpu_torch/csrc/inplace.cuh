@@ -1,11 +1,18 @@
 // The in-place stage walk of the port's fp32 kernels (fft_twofactor.cu,
 // fft_lines.cu, fft_r2c.cu, fft_pair.cu, fft_r2c_pair.cu, fft_strided.cu,
 // fft_strided_tw.cu, fft_conv_pair.cu (both modes), fft_dct23.cu,
-// fft_dct1.cu, fft_dct4.cu, fft_conv.cu, fft_conv_inv.cu) and of the fp64
-// instantiations of fft_lines.cu, fft_strided.cu and fft_pair.cu, built
-// for sm_90a.  Every piece takes the complex type C of the points (float2
-// or double2, stockham.cuh's Cx) as a template argument, deduced from the
-// buffers it is given: one source, two instantiations.
+// fft_dct1.cu, fft_dct4.cu, fft_conv.cu, fft_conv_inv.cu), of the fp64
+// instantiations of fft_lines.cu, fft_strided.cu and fft_pair.cu and of
+// the half-storage ones of those and fft_twofactor.cu, built for sm_90a.
+// Every piece takes the complex type C of the points (float2 or double2,
+// stockham.cuh's Cx) as a template argument, deduced from the buffers it
+// is given: one source, two instantiations.  The copies between device
+// memory and shared memory also take the storage real St of the planes,
+// deduced from their pointers: C's own real, or a half type (__half,
+// __nv_bfloat16) on the fp32 walk, widened to float on the read and
+// narrowed with round-to-nearest-even on the write, every stage, table
+// and shared point staying float2 (the storage tiers: half the bytes of
+// device memory, fp32 arithmetic).
 //
 // A block holds its sequences once in shared memory.  A Stockham stage of
 // radix r (stockham.cuh's recurrence) maps the points whose index is m mod
@@ -33,8 +40,8 @@
 //
 // The copies between device memory and a block's lines (load_lines,
 // store_lines) move four reals a plane at once where the planes are
-// 16-byte aligned (a float4, or two double2; a line's unaligned head and
-// tail as single reals), through a Map from
+// aligned to four of them (a float4, two double2, or 8 bytes of halves; a
+// line's unaligned head and tail as single reals), through a Map from
 // a point to its place in shared memory; a thread's four points go in an
 // order rotated by its lane, so a warp's accesses fall on distinct banks.
 // load_pairs_async and store_pairs move one interleaved array, a point's
@@ -45,6 +52,11 @@
 // the two-factor DFT (a column pass, the twiddle, a row pass), which
 // fft_twofactor and fft_lines share.
 #pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <cstring>
 
 #include "stockham.cuh"
 #include "twofactor.cuh"
@@ -546,6 +558,39 @@ __device__ __forceinline__ bool aligned16(const T* a, const T* b) {
   return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
 }
 
+// A storage real of two bytes (__half, __nv_bfloat16): its planes go
+// through registers, since cp.async has no 2-byte copy.
+template <class St>
+constexpr bool kNarrow = sizeof(St) == 2;
+
+// A stored real as the walk's real: a float or double as it is, a half
+// widened to float (exact).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// d <- v at d's storage type: a half rounded to nearest even, as torch's
+// .to() and JAX's astype round.
+__device__ __forceinline__ void put(float& d, float v) { d = v; }
+__device__ __forceinline__ void put(double& d, double v) { d = v; }
+__device__ __forceinline__ void put(__half& d, float v) {
+  d = __float2half_rn(v);
+}
+__device__ __forceinline__ void put(__nv_bfloat16& d, float v) {
+  d = __float2bfloat16_rn(v);
+}
+
+// Whether planes a and b start on a boundary of four reals, so that four
+// reals at a multiple of four from them are one aligned load4 or store4:
+// 16 bytes (floats; doubles as two double2), 8 of halves.
+template <class St>
+__device__ __forceinline__ bool group_aligned(const St* a, const St* b) {
+  return (((uintptr_t)a | (uintptr_t)b) & (kNarrow<St> ? 7 : 15)) == 0;
+}
+
 // Four neighbouring reals of a plane, 16-byte aligned: one float4, or two
 // double2 loads and stores.
 struct Double4 {
@@ -570,9 +615,60 @@ __device__ __forceinline__ void store4(double* p, double a, double b,
   reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
 }
 
+// Four halves of a plane, 8-byte aligned: one 8-byte load or store, the
+// halves widened in pairs or narrowed in pairs (round to nearest even).
+__device__ __forceinline__ float2 widen2(__half2 h) {
+  return __half22float2(h);
+}
+__device__ __forceinline__ float2 widen2(__nv_bfloat162 h) {
+  return __bfloat1622float2(h);
+}
+__device__ __forceinline__ __half2 narrow2(float a, float b, const __half*) {
+  return __floats2half2_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 narrow2(float a, float b,
+                                                  const __nv_bfloat16*) {
+  return __floats2bfloat162_rn(a, b);
+}
+
+template <class St>
+__device__ __forceinline__ float4 load4_narrow(const St* p) {
+  using H2 = decltype(narrow2(0.f, 0.f, p));
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  H2 a, b;
+  memcpy(&a, &u.x, 4);
+  memcpy(&b, &u.y, 4);
+  const float2 lo = widen2(a), hi = widen2(b);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  return load4_narrow(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return load4_narrow(p);
+}
+
+template <class St>
+__device__ __forceinline__ void store4_narrow(St* p, float a, float b,
+                                              float c, float d) {
+  const auto lo = narrow2(a, b, p), hi = narrow2(c, d, p);
+  uint2 u;
+  memcpy(&u.x, &lo, 4);
+  memcpy(&u.y, &hi, 4);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store4(__half* p, float a, float b, float c,
+                                       float d) {
+  store4_narrow(p, a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  store4_narrow(p, a, b, c, d);
+}
+
 // The `count` points at real offset g0 of the planes, as a head of up to
 // three single reals to a boundary of four (16 bytes of floats, 32 of
-// doubles), groups of four (load4, store4), and a tail.
+// doubles, 8 of halves), groups of four (load4, store4), and a tail.
 struct Span {
   int head, n4, tail0, rest;
 };
@@ -588,14 +684,15 @@ __device__ __forceinline__ Span span_of(long long g0, int count, bool vec) {
 }
 
 // The `count` points at real offset g0 of planes xr, xi into their
-// places `mp` in `home`.
-template <class C>
-__device__ void load_lines(const Real<C>* xr, const Real<C>* xi, long long g0,
+// places `mp` in `home`, through registers (the only read of half planes,
+// each widened to float).
+template <class C, class St>
+__device__ void load_lines(const St* xr, const St* xi, long long g0,
                            int count, const Map& mp, C* home) {
-  const Span sp = span_of(g0, count, aligned16(xr, xi));
+  const Span sp = span_of(g0, count, group_aligned(xr, xi));
   const int rot = (threadIdx.x >> 2) & 3;
-  const Real<C>* r0 = xr + g0;
-  const Real<C>* i0 = xi + g0;
+  const St* r0 = xr + g0;
+  const St* i0 = xi + g0;
 #pragma unroll 2
   for (int f = threadIdx.x; f < sp.n4; f += blockDim.x) {
     const int u = sp.head + 4 * f;
@@ -612,7 +709,7 @@ __device__ void load_lines(const Real<C>* xr, const Real<C>* xi, long long g0,
   }
   for (int k = threadIdx.x; k < sp.rest; k += blockDim.x) {
     const int u = k < sp.head ? k : sp.tail0 + k - sp.head;
-    home[position(u, mp)] = cx<C>(r0[u], i0[u]);
+    home[position(u, mp)] = cx<C>(widen(r0[u]), widen(i0[u]));
   }
 }
 
@@ -685,16 +782,15 @@ struct AsIs {
 };
 
 // The inverse of load_lines; each point goes out as out(v, line, t), t
-// its index within its line.
-template <class Out = AsIs, class C>
-__device__ void store_lines(const C* home, const Map& mp, Real<C>* yr,
-                            Real<C>* yi, long long g0, int count,
-                            const Out& out = Out()) {
-  const Span sp = span_of(g0, count, aligned16(yr, yi));
+// its index within its line, narrowed to the planes' storage type.
+template <class Out = AsIs, class C, class St>
+__device__ void store_lines(const C* home, const Map& mp, St* yr, St* yi,
+                            long long g0, int count, const Out& out = Out()) {
+  const Span sp = span_of(g0, count, group_aligned(yr, yi));
   const int rot = (threadIdx.x >> 2) & 3;
   const int n = (int)mp.dn.d;
-  Real<C>* r0 = yr + g0;
-  Real<C>* i0 = yi + g0;
+  St* r0 = yr + g0;
+  St* i0 = yi + g0;
 #pragma unroll 2
   for (int f = threadIdx.x; f < sp.n4; f += blockDim.x) {
     const int u = sp.head + 4 * f;
@@ -717,8 +813,8 @@ __device__ void store_lines(const C* home, const Map& mp, Real<C>* yr,
     const int u = k < sp.head ? k : sp.tail0 + k - sp.head;
     const int line = quot(u, mp.dn);
     const C v = out(home[position(u, mp)], line, u - line * n);
-    r0[u] = v.x;
-    i0[u] = v.y;
+    put(r0[u], v.x);
+    put(i0[u], v.y);
   }
 }
 
@@ -816,12 +912,14 @@ __device__ __forceinline__ void load_tables(C* s1, const C* t1, const C* t2,
 // row pass (n1-point DFTs), from natural order to natural (store
 // transposed) or swapped order; the inverse the other way round.  A block
 // reads all of its lines before it writes, so the output may alias the
-// input.  fft_twofactor and fft_lines run it.
-template <class C>
+// input.  fft_twofactor and fft_lines run it, on planes of any storage
+// type St (half planes read through registers whatever `async_load`
+// says).
+template <class C, class St>
 __device__ __forceinline__ void two_factor_block(
-    C* smem, const Real<C>* xr, const Real<C>* xi, Real<C>* yr, Real<C>* yi,
-    long long batch, const Plan& p1, const Plan& p2, const C* t1, const C* t2,
-    const C* tw, int swapped, int lines, int pitch, int len1, int len2,
+    C* smem, const St* xr, const St* xi, St* yr, St* yi, long long batch,
+    const Plan& p1, const Plan& p2, const C* t1, const C* t2, const C* tw,
+    int swapped, int lines, int pitch, int len1, int len2,
     bool async_load = false) {
   const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
   const int S = n2 * pitch;
@@ -836,10 +934,14 @@ __device__ __forceinline__ void two_factor_block(
   const Map in = make_map(n, S, inverse && !swapped, n1, n2, pitch);
   // the block's first point found again where it is used, not held
   // through the passes
-  if (async_load)
-    load_lines_async(xr, xi, block_line0(lines) * n, nl * n, in, home);
-  else
+  if constexpr (kNarrow<St>) {
     load_lines(xr, xi, block_line0(lines) * n, nl * n, in, home);
+  } else {
+    if (async_load)
+      load_lines_async(xr, xi, block_line0(lines) * n, nl * n, in, home);
+    else
+      load_lines(xr, xi, block_line0(lines) * n, nl * n, in, home);
+  }
   __syncthreads();
   two_factor_passes(home, nl, p1, p2, s1, s2, tlo, thi, pitch);
   store_lines(home, make_map(n, S, !inverse && !swapped, n1, n2, pitch), yr,

@@ -85,9 +85,18 @@ and `fft_pair` wherever every axis of the call is one of theirs
 lengths; `f64_supports` for a whole configuration, the one rule the API's
 DOUBLE route reads); no other route has fp64 kernels yet.
 
-What raises ``NotImplementedError`` naming its ROADMAP item: float64 on
-every other route and every other dtype (queue 1 item 10); zero-pad
-keeps (queue 1 item 8).  `route`
+float16 and bfloat16 planes (the storage tiers: half the bytes, fp32
+arithmetic) run the half-storage instantiations of `fft_lines`,
+`fft_twofactor`, `fft_strided` and `fft_pair` wherever every axis of the
+call is one of theirs (`storage_axis_supports`: n <= 4 as tensor ops
+widened to fp32, else DIRECT lengths of `fft_lines` or `fft_twofactor`;
+`storage_supports` for a whole configuration); `check_walk` refuses a walk
+with any other axis before its first launch.
+
+What raises ``NotImplementedError`` naming its ROADMAP item: float64 and
+the half dtypes on every other route (Rader, Bluestein, SPLIT, the long
+tier), and every other dtype (queue 1 item 10); zero-pad keeps (queue 1
+item 8).  `route`
 raises ValueError for a length no split of the long tier holds (beyond
 2^40, or more primes above 64 than three uploads can place).  Nothing
 here falls back to the plain engine or to a kernel's plain version.
@@ -203,6 +212,44 @@ def f64_supports(shape, axes) -> bool:
     return all(f64_axis_supports(plan_axis(shape[a])) for a in axes)
 
 
+def storage_axis_supports(plan: AxisPlan) -> bool:
+    """Whether float16 / bfloat16 planes run along an axis of ``plan`` on
+    the half-storage kernels, minor or not: n <= 4 (tensor ops, widened to
+    fp32) or a DIRECT plan of `fft_lines`' or `fft_twofactor`'s lengths
+    (the minor axis in those kernels; any other axis in `fft_strided` where
+    `kernel_supports` holds, else on the contiguous route; two minor axes
+    in `fft_pair` where `pair_supports` holds at the half dtype)."""
+    return plan.n <= 4 or (plan.algorithm is Algorithm.DIRECT
+                           and (ck.kernel_supports(plan.n)
+                                or ck.twofactor_supports(plan.n)))
+
+
+def storage_supports(shape, axes) -> bool:
+    """Whether a C2C transform of ``axes`` of ``shape`` runs on float16 /
+    bfloat16 planes: every transformed axis `storage_axis_supports`."""
+    return all(storage_axis_supports(plan_axis(shape[a])) for a in axes)
+
+
+def axis_supports(plan: AxisPlan, dtype: torch.dtype) -> bool:
+    """Whether planes of ``dtype`` run along an axis of ``plan``: float32
+    on every route, float64 where `f64_axis_supports` holds, float16 /
+    bfloat16 where `storage_axis_supports` does."""
+    if dtype == torch.float64:
+        return f64_axis_supports(plan)
+    if dtype in ck.STORAGE_DTYPES:
+        return storage_axis_supports(plan)
+    return dtype == torch.float32
+
+
+def check_walk(shape, axes, dtype: torch.dtype) -> None:
+    """Refuse, before any launch, a C2C walk of ``axes`` of ``shape`` on
+    planes of ``dtype`` that meets an axis no instantiation of that dtype
+    runs (`axis_supports`)."""
+    for a in axes:
+        if not axis_supports(plan_axis(shape[a]), dtype):
+            raise _dtype_error(dtype)
+
+
 r2c_supports = ck.r2c_supports
 
 
@@ -212,20 +259,32 @@ def r2c_pair_supports(ny: int, nz: int) -> bool:
     return ck.r2c_pair_cluster(ny, nz) is not None
 
 
-def _check_dtype(x, f64_ok=None) -> None:
-    """float32 planes, or float64 where ``f64_ok()`` holds (a C2C route
-    on the fp64 kernels, `f64_axis_supports`; asked only of float64)."""
+def _dtype_error(dtype: torch.dtype) -> NotImplementedError:
+    return NotImplementedError(
+        f"CUDA engine runs float32 planes, float64 on the C2C routes of the "
+        f"fp64 kernels (DIRECT lengths of fft_lines, n <= 4), and float16 / "
+        f"bfloat16 on those of the half-storage kernels (DIRECT lengths of "
+        f"fft_lines and fft_twofactor, n <= 4); {dtype} here is ROADMAP "
+        "queue 1 item 10")
+
+
+def _check_dtype(x, ok=None) -> None:
+    """float32 planes, or float64 / float16 / bfloat16 where ``ok(dtype)``
+    holds (a C2C route on that dtype's instantiations: `axis_supports`;
+    asked only of those dtypes)."""
     if x.dtype == torch.float32 or (
-            f64_ok is not None and x.dtype == torch.float64 and f64_ok()):
+            ok is not None and x.dtype in (torch.float64,) + ck.STORAGE_DTYPES
+            and ok(x.dtype)):
         return
-    raise NotImplementedError(
-        f"CUDA engine runs float32 planes, and float64 on the C2C routes of "
-        f"the fp64 kernels (DIRECT lengths of fft_lines, n <= 4); {x.dtype} "
-        "here is ROADMAP queue 1 item 10")
+    raise _dtype_error(x.dtype)
 
 
 def _tiny_dft_p(x: Planar, n: int, inverse: bool, scale: float) -> Planar:
-    """n <= 4 DFT as plain elementwise tensor ops on (B, n) planes."""
+    """n <= 4 DFT as plain elementwise tensor ops on (B, n) planes; half
+    planes widened to fp32 around them, as the storage tiers compute."""
+    if x.dtype in ck.STORAGE_DTYPES:
+        return _tiny_dft_p(x.astype(torch.float32), n, inverse,
+                           scale).astype(x.dtype)
     cols = [x[:, i:i + 1] for i in range(n)]
     if n == 2:
         a, b = cols
@@ -525,7 +584,7 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
                 donate: bool = False, scale: float = 1.0) -> Planar:
     """Planar DFT over (B, n) planes, scaled by ``scale`` in the kernels.
     ``donate=True`` lets a DIRECT plan overwrite the caller's planes."""
-    _check_dtype(x, lambda: f64_axis_supports(plan))
+    _check_dtype(x, lambda dt: axis_supports(plan, dt))
     n = plan.n
     if n == 1:
         return x * scale if scale != 1.0 else x
@@ -562,7 +621,7 @@ def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
     if x.shape[axis] != plan.n:
         raise ValueError(
             f"axis {axis} has length {x.shape[axis]}, plan is for {plan.n}")
-    _check_dtype(x, lambda: f64_axis_supports(plan))
+    _check_dtype(x, lambda dt: axis_supports(plan, dt))
     if in_keep or out_keep:
         raise NotImplementedError(
             "zero-pad keeps on the CUDA engine are ROADMAP queue 1 item 8")
@@ -595,7 +654,7 @@ def fft_pair_p(x: Planar, ny: int, nz: int, inverse: bool = False,
                donate: bool = False, scale: float = 1.0) -> Planar:
     """Planar 2-D DFT over the two minor axes (..., ny, nz) in one kernel
     pass, scaled by ``scale``; ``donate`` as for `fft_axis_p`."""
-    _check_dtype(x, lambda: pair_supports(ny, nz, torch.float64))
+    _check_dtype(x, lambda dt: pair_supports(ny, nz, dt))
     shape = x.shape
     if shape[-2:] != (ny, nz):
         raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)}")

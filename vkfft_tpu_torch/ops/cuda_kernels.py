@@ -82,8 +82,14 @@ complex type): the wrappers launch them (C entries ``vk_<name>_f64``,
 counted in `f64_launches`) on float64 planes, with the stage and twiddle
 tables in fp64, at the same layout rules in points, a point 16 B of
 shared memory (`lines_layout`, `strided_layout`, `pair_layout` and
-`pair_cluster` take the dtype).  Every other kernel takes float32 planes
-only (other precisions are ROADMAP queue 1 item 10).
+`pair_cluster` take the dtype).  `fft_lines`, `fft_twofactor`,
+`fft_strided` and `fft_pair` (`STORAGE_KERNELS`) have half-storage
+instantiations (C entries ``vk_<name>_f16`` and ``vk_<name>_bf16``,
+counted in `storage_launches`): float16 or bfloat16 planes, read widened
+to fp32 and written narrowed, the tables, shared memory (8 B a point, so
+every fp32 layout rule holds as it is) and every stage fp32.  Every other
+kernel takes float32 planes only (other precisions are ROADMAP queue 1
+item 10).
 
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
@@ -135,7 +141,7 @@ import torch
 
 from vkfft_tpu_torch import luts
 from vkfft_tpu_torch.ops import torch_engine
-from vkfft_tpu_torch.pcomplex import Planar, planar_table
+from vkfft_tpu_torch.pcomplex import STORAGE_DTYPES, Planar, planar_table
 from vkfft_tpu_torch.planner.factorize import MAX_DIRECT_PRIME, prime_factors
 from vkfft_tpu_torch.planner.plan import plan_axis
 
@@ -242,31 +248,45 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 F64_KERNELS = ("fft_lines", "fft_strided", "fft_pair")
 F64_THREADS = {"fft_lines": 256, "fft_strided": 512, "fft_pair": 256}
 
+# The kernels with half-storage instantiations (C entries vk_<name>_f16 and
+# vk_<name>_bf16): float16 / bfloat16 planes on the fp32 walk, at the fp32
+# kernel's bounds and layout (a shared point stays a float2).
+STORAGE_KERNELS = ("fft_lines", "fft_twofactor", "fft_strided", "fft_pair")
+# The suffix of the C entries of each dtype's instantiation.
+_SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.float16: "_f16",
+           torch.bfloat16: "_bf16"}
+
 # Kernel launches per wrapper, counted where the wrapper launches; the fp64
-# instantiations' apart.
+# instantiations' apart, and the half-storage ones apart by instantiation
+# (``fft_lines_f16``, ``fft_lines_bf16``, ...).
 launches = {name: 0 for name in KERNEL_SOURCES}
 f64_launches = {name: 0 for name in F64_KERNELS}
+storage_launches = {name + _SUFFIX[dt]: 0 for name in STORAGE_KERNELS
+                    for dt in STORAGE_DTYPES}
 
 
 def reset_launches() -> None:
-    for counts in (launches, f64_launches):
+    for counts in (launches, f64_launches, storage_launches):
         for name in counts:
             counts[name] = 0
 
 
 def point_bytes(dtype: torch.dtype = torch.float32) -> int:
-    """Shared bytes of one complex point of planes of ``dtype`` (a float2
-    or a double2)."""
-    if dtype == torch.float32:
-        return 8
+    """Shared bytes of one complex point of planes of ``dtype`` (a float2,
+    a double2; a float2 for the half-storage planes, which the fp32 walk
+    holds widened)."""
     if dtype == torch.float64:
         return 16
+    if dtype == torch.float32 or dtype in STORAGE_DTYPES:
+        return 8
     raise TypeError(f"no kernel takes {dtype} planes")
 
 
-def _f64(dtype: torch.dtype) -> str:
-    """The suffix of the C entries of ``dtype``'s instantiation."""
-    return "_f64" if dtype == torch.float64 else ""
+def table_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the stage and twiddle tables of planes of ``dtype``:
+    float64 for the fp64 kernels, float32 for the rest (the half-storage
+    instantiations compute in fp32)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _walk_of(pbytes: int) -> tuple[bool, int]:
@@ -323,10 +343,11 @@ def kernel_supports(n: int, dtype: torch.dtype = torch.float32) -> bool:
     """Whether `fft_lines` (and so `fft_strided`, and at float32
     `fft_conv`) takes lines of length n of ``dtype``: n of
     `kernel_radices`, and at float64 a block of `lines_layout` within
-    shared memory (every such n)."""
+    shared memory (every such n; the half-storage planes take fp32's
+    layouts)."""
     if kernel_radices(n) is None:
         return False
-    return (dtype == torch.float32
+    return (point_bytes(dtype) == 8
             or lines_layout(n, dtype)[2] <= MAX_SMEM_BYTES)
 
 
@@ -359,8 +380,11 @@ def twofactor_split(n: int) -> Optional[tuple[int, int]]:
     return best
 
 
-def twofactor_supports(n: int) -> bool:
-    return twofactor_split(n) is not None
+def twofactor_supports(n: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether `fft_twofactor` takes lines of length n of ``dtype``:
+    `twofactor_split` holds n, on float32 or half-storage planes."""
+    return (twofactor_split(n) is not None
+            and (dtype == torch.float32 or dtype in STORAGE_DTYPES))
 
 
 def strided_tw_supports(n: int) -> bool:
@@ -818,7 +842,7 @@ def pair_occupancy(ny: int, nz: int,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
     ``vk_fft_pair_occupancy``, ``vk_fft_pair_f64_occupancy``)."""
     return _cluster_occupancy("fft_pair",
-                              f"fft_pair{_f64(dtype)}_occupancy",
+                              f"fft_pair{_SUFFIX[dtype]}_occupancy",
                               *pair_layout(ny, nz, dtype))
 
 
@@ -1019,7 +1043,7 @@ def strided_occupancy(n: int, S: int,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
     (C entry ``vk_fft_strided_occupancy``, ``vk_fft_strided_f64_...``)."""
     return _occupancy("fft_strided", *strided_layout(n, S, dtype)[1:],
-                      entry=f"fft_strided{_f64(dtype)}_occupancy")
+                      entry=f"fft_strided{_SUFFIX[dtype]}_occupancy")
 
 
 def strided_tw_split(n: int, S: int) -> tuple[int, int]:
@@ -1580,7 +1604,7 @@ def lines_occupancy(n: int, dtype: torch.dtype = torch.float32) -> int:
     the current card (C entry ``vk_fft_lines_occupancy``,
     ``vk_fft_lines_f64_occupancy``)."""
     return _occupancy("fft_lines", *lines_layout(n, dtype)[::2],
-                      entry=f"fft_lines{_f64(dtype)}_occupancy")
+                      entry=f"fft_lines{_SUFFIX[dtype]}_occupancy")
 
 
 def _occupancy(name: str, threads: int, smem: int,
@@ -1612,11 +1636,13 @@ def twofactor_layout(n: int) -> tuple[int, int, int]:
     return _block_threads(lines * n), lines, 8 * points
 
 
-def twofactor_occupancy(n: int) -> int:
-    """Resident blocks an SM of `fft_twofactor` at the layout of length n,
-    from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current
-    card (C entry ``vk_fft_twofactor_occupancy``)."""
-    return _occupancy("fft_twofactor", *twofactor_layout(n)[::2])
+def twofactor_occupancy(n: int, dtype: torch.dtype = torch.float32) -> int:
+    """Resident blocks an SM of `fft_twofactor` at the layout of length n
+    of ``dtype``, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on
+    the current card (C entry ``vk_fft_twofactor_occupancy``,
+    ``vk_fft_twofactor_f16_occupancy``, ...)."""
+    return _occupancy("fft_twofactor", *twofactor_layout(n)[::2],
+                      entry=f"fft_twofactor{_SUFFIX[dtype]}_occupancy")
 
 
 # Device copies of the tables, per (what, parameters..., device).
@@ -1708,6 +1734,20 @@ def bluestein_chirp(n: int, m: int, inverse: bool, device) -> torch.Tensor:
 # the kernels but the definition of the DFT.
 # ---------------------------------------------------------------------------
 
+def _storage_plain(plain):
+    """A plain version that takes float16 / bfloat16 planes as its kernel's
+    half-storage instantiation does: widened to fp32, computed, narrowed
+    once (round to nearest even)."""
+    @functools.wraps(plain)
+    def run(re, im, *args, **kw):
+        if re.dtype not in STORAGE_DTYPES:
+            return plain(re, im, *args, **kw)
+        yr, yi = plain(re.float(), im.float(), *args, **kw)
+        return yr.to(re.dtype), yi.to(re.dtype)
+    return run
+
+
+@_storage_plain
 def fft_lines_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                     scale: float = 1.0):
     """Plain torch version of `fft_lines`."""
@@ -1746,6 +1786,7 @@ def _interleave(t: torch.Tensor, d: int, undo: bool = False) -> torch.Tensor:
     return t.reshape(P // d, d, n, S).transpose(1, 2).reshape(P, n, S)
 
 
+@_storage_plain
 def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                       scale: float = 1.0, pre: Optional[Factor] = None,
                       post: Optional[Factor] = None, plane=None,
@@ -1794,6 +1835,7 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     return y.re.contiguous(), y.im.contiguous()
 
 
+@_storage_plain
 def fft_pair_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                    scale: float = 1.0):
     """Plain torch version of `fft_pair`: the z axis as lines, then the y
@@ -1906,6 +1948,7 @@ def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
     return y.re.reshape(shape).contiguous(), y.im.reshape(shape).contiguous()
 
 
+@_storage_plain
 def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                         scale: float = 1.0, swapped: bool = False):
     """Plain torch version of `fft_twofactor`: the DFT of each line times
@@ -2116,19 +2159,17 @@ _ENTRIES = {
     # planes, batch, plans, tables, the twiddle's two tables, then the
     # layout (lines_layout): threads, lines, shared bytes
     # (the fp64 entries _f64 take the same arguments on fp64 planes and
-    # tables)
-    "fft_lines": {"fft_lines": "ppppqpppppiii",
-                  "fft_lines_f64": "ppppqpppppiii"},
+    # tables, the half-storage ones _f16 and _bf16 on half planes and fp32
+    # tables: `_with_instantiations`)
+    "fft_lines": {"fft_lines": "ppppqpppppiii"},
     # planes, P, S, the plans of the two factors, their tables, the
     # twiddle's two tables, then the layout (strided_layout): columns a
     # block, threads, shared bytes
-    "fft_strided": {"fft_strided": "ppppqq" + "p" * 5 + "iii",
-                    "fft_strided_f64": "ppppqq" + "p" * 5 + "iii"},
+    "fft_strided": {"fft_strided": "ppppqq" + "p" * 5 + "iii"},
     # planes, batch, the plans of each axis's two factors (z1, z2, y1,
     # y2), their tables, the twiddles of z and y, then the layout
     # (pair_layout): cluster, threads, shared bytes
-    "fft_pair": {"fft_pair": "ppppq" + "p" * 10 + "iii",
-                 "fft_pair_f64": "ppppq" + "p" * 10 + "iii"},
+    "fft_pair": {"fft_pair": "ppppq" + "p" * 10 + "iii"},
     # real side, spectrum planes, batch, packed, plans, tables, the
     # twiddles (r2c_twiddle), the inverse's scale, then the layout
     # (r2c_layout): threads, lines, shared bytes
@@ -2181,6 +2222,21 @@ _ENTRIES = {
                "fft_dd_strided": "p" * 8 + "qqpppqpqffi",
                "dd_pointwise": "p" * 8 + "qqpqpff"},
 }
+
+
+def _with_instantiations(entries: dict) -> dict:
+    """`_ENTRIES` with the fp64 and half-storage C entries of the kernels
+    that have them, each with its fp32 entry's arguments."""
+    out = {name: dict(sigs) for name, sigs in entries.items()}
+    for names, dtypes in ((F64_KERNELS, (torch.float64,)),
+                          (STORAGE_KERNELS, STORAGE_DTYPES)):
+        for name in names:
+            for dt in dtypes:
+                out[name][name + _SUFFIX[dt]] = entries[name][name]
+    return out
+
+
+_ENTRIES = _with_instantiations(_ENTRIES)
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int,
            "f": ctypes.c_float}
 
@@ -2202,11 +2258,12 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _launch(name: str, entry: str, device: torch.device, args,
-            f64: bool = False) -> None:
+            dtype: torch.dtype = torch.float32) -> None:
     """One launch of C entry ``vk_<entry>`` of library ``name`` on the
     current stream of ``device``; tensors pass as their data pointers and
     ctypes arrays by address.  Raises on a refused launch and counts it
-    in `launches` otherwise (in `f64_launches` with ``f64``)."""
+    in `launches` otherwise (in `f64_launches` for a float64 instantiation,
+    in `storage_launches` under its name for a half-storage one)."""
     lib = _library(name)
     c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
               else a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -2217,37 +2274,51 @@ def _launch(name: str, entry: str, device: torch.device, args,
     if err:
         msg = lib.vk_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
-    (f64_launches if f64 else launches)[name] += 1
+    if dtype == torch.float64:
+        f64_launches[name] += 1
+    elif dtype in STORAGE_DTYPES:
+        storage_launches[name + _SUFFIX[dtype]] += 1
+    else:
+        launches[name] += 1
 
 
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check_planes(re, im, ndim: int, what: str, f64: bool = False) -> None:
-    """Planes for ``what``: float32, or with ``f64`` (a kernel with an fp64
-    instantiation) float64 too, both of one dtype."""
+def _check_planes(re, im, ndim: int, what: str,
+                  dtypes: tuple = (torch.float32,)) -> None:
+    """Planes for ``what``: of one of ``dtypes`` (float32, and the dtypes of
+    the kernel's other instantiations), both of one dtype."""
     if not (isinstance(re, torch.Tensor) and isinstance(im, torch.Tensor)):
         raise TypeError(f"{what}: re and im must be torch tensors")
     if re.shape != im.shape or re.ndim != ndim:
         raise ValueError(f"{what}: planes must both be {ndim}-D of one shape, "
                          f"got {tuple(re.shape)} and {tuple(im.shape)}")
     for t in (re, im):
-        _check_real(t, ndim, what, f64)
+        _check_real(t, ndim, what, dtypes)
     if re.dtype != im.dtype:
         raise TypeError(f"{what}: planes of {re.dtype} and {im.dtype}")
     if re.device != im.device:
         raise ValueError(f"{what}: planes on {re.device} and {im.device}")
 
 
-def _check_real(x, ndim: int, what: str, f64: bool = False) -> None:
+# The plane dtypes of the kernels with other instantiations than fp32:
+# `fft_lines`, `fft_strided` and `fft_pair` (fp64 and half storage),
+# `fft_twofactor` (half storage).
+_C2C_DTYPES = (torch.float32, torch.float64) + STORAGE_DTYPES
+_TWOFACTOR_DTYPES = (torch.float32,) + STORAGE_DTYPES
+
+
+def _check_real(x, ndim: int, what: str,
+                dtypes: tuple = (torch.float32,)) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{what}: input must be a torch tensor")
     if x.ndim != ndim:
         raise ValueError(f"{what}: input must be {ndim}-D, got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.float32 and not (f64 and x.dtype == torch.float64):
-        kinds = "float32 or float64" if f64 else "float32"
+    if x.dtype not in dtypes:
+        kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise TypeError(f"{what}: planes must be {kinds}, got {x.dtype} "
                         "(other precisions are ROADMAP queue 1 item 10)")
     if not x.is_contiguous():
@@ -2284,6 +2355,25 @@ def _plan(n: int, inverse: bool, scale: float, device: torch.device,
             _device_table(n, inverse, scale, device, walk=walk, dtype=dtype))
 
 
+def _walk_plans(ns, inverse: bool, device: torch.device,
+                dtype: torch.dtype):
+    """`_plan` of each length of ``ns`` for the walk kernels' instantiation
+    of planes of ``dtype``: `walk_radices` and fp32 tables, or at float64
+    `stage_radices` and fp64 tables."""
+    tab = table_dtype(dtype)
+    return [_plan(k, inverse, 1.0, device, tab == torch.float32, tab)
+            for k in ns]
+
+
+def _twiddle_pair(n: int, inverse: bool, scale: float, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The device copy of `twofactor_twiddle_pair` for planes of
+    ``dtype`` (its `table_dtype`)."""
+    return device_array(("twofactor_pair", n, inverse, scale), device,
+                        lambda: twofactor_twiddle_pair(n, inverse, scale),
+                        table_dtype(dtype))
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan_array(n: int, inverse: bool, scale: float, walk: bool):
     """The plan ints of `stage_tables` as a C array, built once a plan (the
@@ -2296,10 +2386,11 @@ def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
     """Shared body of the wrappers of complex planes: ``plain()`` for CPU
     planes (copied into ``out`` when given), one launch of C entry
     ``vk_<entry>`` (default ``name``; its fp64 instantiation ``_f64`` on
-    float64 planes, counted in `f64_launches`) of library ``name`` for
-    CUDA planes with ``kernel_args()`` between the four plane pointers and
-    the stream.  The output planes have the input's shape; ``out`` may be
-    the input."""
+    float64 planes, counted in `f64_launches`, its half-storage ones
+    ``_f16``/``_bf16``, counted in `storage_launches`) of library ``name``
+    for CUDA planes with ``kernel_args()`` between the four plane pointers
+    and the stream.  The output planes have the input's shape; ``out`` may
+    be the input."""
     if out is not None:
         _check_out(re, out)
     if re.device.type == "cpu":
@@ -2312,39 +2403,37 @@ def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
     yr, yi = out if out is not None else (torch.empty_like(re),
                                           torch.empty_like(im))
     if re.numel():
-        _launch(name, (entry or name) + _f64(re.dtype), re.device,
-                [re, im, yr, yi, *kernel_args()], re.dtype == torch.float64)
+        _launch(name, (entry or name) + _SUFFIX[re.dtype], re.device,
+                [re, im, yr, yi, *kernel_args()], re.dtype)
     return yr, yi
 
 
 def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
               scale: float = 1.0, out=None):
-    """DFT of each line of (B, n) float32 or float64 planes, times
-    ``scale``.  ``out`` may name the output planes, which may be the input
-    planes themselves (in place).  CPU tensors run `fft_lines_plain`; CUDA
-    tensors launch the kernel (float64: its fp64 instantiation) on the
-    current stream.
+    """DFT of each line of (B, n) float32, float64, float16 or bfloat16
+    planes, times ``scale``.  ``out`` may name the output planes, which may
+    be the input planes themselves (in place).  CPU tensors run
+    `fft_lines_plain`; CUDA tensors launch the kernel (float64: its fp64
+    instantiation; float16 / bfloat16: its half-storage one, computing in
+    fp32) on the current stream.
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:1563 _fft_kernel_v3``.  Bound
-    by bytes (16 B a point read once and written once; 32 B at float64); a
+    by bytes (16 B a point read once and written once; 32 B at float64, 8
+    B on half planes); a
     block holds its lines once each in shared memory (`lines_layout`) and
     runs their stages in place on the walk of ``csrc/inplace.cuh``, as one
     pass or, where a stage's sequences do not fit a round, two factors
     (`lines_split`), so device memory sees only that traffic
     (``csrc/fft_lines.cu``)."""
-    _check_planes(re, im, 2, "fft_lines", f64=True)
+    _check_planes(re, im, 2, "fft_lines", _C2C_DTYPES)
     B, n = re.shape
     _check_length(n)
     dt = re.dtype
-    walk = dt == torch.float32
 
     def args():
-        n1, n2 = lines_split(n, dt)
-        p1, t1 = _plan(n1, inverse, 1.0, re.device, walk, dt)
-        p2, t2 = _plan(n2, inverse, 1.0, re.device, walk, dt)
-        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
-                          lambda: twofactor_twiddle_pair(n, inverse, scale),
-                          dt)
+        (p1, t1), (p2, t2) = _walk_plans(lines_split(n, dt), inverse,
+                                         re.device, dt)
+        tw = _twiddle_pair(n, inverse, scale, re.device, dt)
         return (B, p1, p2, t1, t2, tw, *lines_layout(n, dt))
 
     return _apply("fft_lines", re, im, out,
@@ -2357,14 +2446,16 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
                 out_len: Optional[int] = None, in_interleave: int = 1,
                 out_interleave: int = 1, in_transposed: bool = False,
                 out_transposed: bool = False):
-    """DFT along the middle dim of (P, n, S) float32 or float64 planes,
-    times ``scale``.  ``out`` as for `fft_lines`.  CPU tensors run
-    `fft_strided_plain`; CUDA tensors launch the kernel (float64: its fp64
-    instantiation; the factor mode below takes float32 only).
+    """DFT along the middle dim of (P, n, S) float32, float64, float16 or
+    bfloat16 planes, times ``scale``.  ``out`` as for `fft_lines`.  CPU
+    tensors run `fft_strided_plain`; CUDA tensors launch the kernel
+    (float64: its fp64 instantiation; float16 / bfloat16: its half-storage
+    one; the factor mode below takes float32 only).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``,
     and ``:4001 _outer_kernel`` through the (P, n, R*nz) view.  Bound by
-    bytes (16 B a point, 32 at float64); a block holds a tile of neighbouring columns
+    bytes (16 B a point, 32 at float64, 8 on half planes); a block holds a
+    tile of neighbouring columns
     across all n rows once in shared memory (`strided_layout`), reading
     each row of the tile as one contiguous run, and runs the stages down
     the columns on the walk of ``csrc/inplace.cuh``, in one pass or two
@@ -2396,19 +2487,15 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         return _fft_strided_tw(re, im, inverse, scale, out, pre, post, plane,
                                out_len, in_interleave, out_interleave,
                                in_transposed, out_transposed)
-    _check_planes(re, im, 3, "fft_strided", f64=True)
+    _check_planes(re, im, 3, "fft_strided", _C2C_DTYPES)
     P, n, S = re.shape
     _check_length(n)
     dt = re.dtype
-    walk = dt == torch.float32
 
     def args():
-        n1, n2 = strided_split(n, S, dt)
-        p1, t1 = _plan(n1, inverse, 1.0, re.device, walk, dt)
-        p2, t2 = _plan(n2, inverse, 1.0, re.device, walk, dt)
-        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
-                          lambda: twofactor_twiddle_pair(n, inverse, scale),
-                          dt)
+        (p1, t1), (p2, t2) = _walk_plans(strided_split(n, S, dt), inverse,
+                                         re.device, dt)
+        tw = _twiddle_pair(n, inverse, scale, re.device, dt)
         return (P, S, p1, p2, t1, t2, tw, *strided_layout(n, S, dt))
 
     return _apply("fft_strided", re, im, out,
@@ -2495,19 +2582,21 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
 
 def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
              scale: float = 1.0, out=None):
-    """2-D DFT over the two minor axes of (B, ny, nz) float32 or float64
-    planes, times ``scale``, in one pass.  ``out`` as for `fft_lines`.  CPU
-    tensors run `fft_pair_plain`; CUDA tensors launch the kernel (float64:
-    its fp64 instantiation).
+    """2-D DFT over the two minor axes of (B, ny, nz) float32, float64,
+    float16 or bfloat16 planes, times ``scale``, in one pass.  ``out`` as
+    for `fft_lines`.  CPU tensors run `fft_pair_plain`; CUDA tensors launch
+    the kernel (float64: its fp64 instantiation; float16 / bfloat16: its
+    half-storage one).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:1982 _pair_kernel``.  Bound by
-    bytes (16 B a point for both axes, 32 at float64); a cluster
+    bytes (16 B a point for both axes, 32 at float64, 8 on half planes); a
+    cluster
     (`pair_layout`) holds each plane once in its shared memory on the walk
     of ``csrc/inplace.cuh``, runs the z stages on rows, exchanges the tiles
     between its blocks over distributed shared memory and runs the y
     stages down the columns (``csrc/fft_pair.cu``); the planes are those
     `pair_cluster` serves at the planes' dtype."""
-    _check_planes(re, im, 3, "fft_pair", f64=True)
+    _check_planes(re, im, 3, "fft_pair", _C2C_DTYPES)
     B, ny, nz = re.shape
     _check_length(ny)
     _check_length(nz)
@@ -2518,11 +2607,8 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     def args():
         layout = pair_layout(ny, nz, dt)
         (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz, dt)
-        plans = [_plan(k, inverse, 1.0, re.device, dt == torch.float32, dt)
-                 for k in (n1z, n2z, n1y, n2y)]
-        tw = [device_array(("twofactor_pair", k, inverse, s), re.device,
-                           lambda k=k, s=s: twofactor_twiddle_pair(k, inverse,
-                                                                   s), dt)
+        plans = _walk_plans((n1z, n2z, n1y, n2y), inverse, re.device, dt)
+        tw = [_twiddle_pair(k, inverse, s, re.device, dt)
               for k, s in ((nz, 1.0), (ny, scale))]
         return (B, *(p for p, _ in plans), *(t for _, t in plans), *tw,
                 *layout)
@@ -2830,29 +2916,30 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
 def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
                   scale: float = 1.0, swapped: bool = False, out=None):
-    """DFT of each line of (B, n) float32 planes, n = n1*n2
-    (`twofactor_split`), times ``scale``.  The forward reads natural order
-    and writes natural order, or with ``swapped`` the digit order
+    """DFT of each line of (B, n) float32, float16 or bfloat16 planes, n =
+    n1*n2 (`twofactor_split`), times ``scale``.  The forward reads natural
+    order and writes natural order, or with ``swapped`` the digit order
     [k2][k1] (position k2*n1 + k1 holds bin k1*n2 + k2); the inverse reads
     natural or, with ``swapped``, that order and writes natural order.
     ``out`` as for `fft_lines`.  CPU tensors run `fft_twofactor_plain`;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel (float16 / bfloat16: its half-storage
+    instantiation, computing in fp32).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``.  Bound
-    by bytes (16 B a point, one read and one write): a block holds its
+    by bytes (16 B a point, one read and one write; 8 B on half planes): a
+    block holds its
     lines once each in shared memory (`twofactor_layout`: at most 134 KB,
     at 16384; two blocks an SM at 7918, 10240 and 12288) and runs the
     n2-point column DFTs and the n1-point row DFTs in place on the whole
     line, the twiddle computed from its exponent in the last stage's
     write (``csrc/fft_twofactor.cu``)."""
-    _check_planes(re, im, 2, "fft_twofactor")
+    _check_planes(re, im, 2, "fft_twofactor", _TWOFACTOR_DTYPES)
     B, n = re.shape
     _check_twofactor(n, "fft_twofactor")
 
     def args():
         p1, p2, t1, t2 = _two_plans(n, inverse, re.device)
-        tw = device_array(("twofactor_pair", n, inverse, scale), re.device,
-                           lambda: twofactor_twiddle_pair(n, inverse, scale))
+        tw = _twiddle_pair(n, inverse, scale, re.device)
         return (B, p1, p2, t1, t2, tw, int(swapped), *twofactor_layout(n))
 
     return _apply("fft_twofactor", re, im, out,

@@ -23,7 +23,7 @@ import torch
 
 from vkfft_tpu_torch import luts
 from vkfft_tpu_torch.ops.half_length import c2r_pack, r2c_untangle
-from vkfft_tpu_torch.pcomplex import Planar, planar_table
+from vkfft_tpu_torch.pcomplex import STORAGE_DTYPES, Planar, planar_table
 from vkfft_tpu_torch.planner.factorize import Algorithm
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 
@@ -121,7 +121,8 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
                 scale: float = 1.0) -> Planar:
     """Planar DFT over the last axis of (B, n) planes, scaled by ``scale``
     (unnormalized at the default).  bf16/f16 planes are storage-only tiers:
-    every stage computes in fp32 and the result is cast back."""
+    every stage and the scale compute in fp32 and the result is cast back
+    once a pass."""
     global calls
     calls += 1
     return lines_plain(x, plan, inverse, scale)
@@ -130,14 +131,16 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
 def lines_plain(x: Planar, plan: AxisPlan, inverse: bool = False,
                 scale: float = 1.0) -> Planar:
     """`fft_lines_p` without the call count: the plain versions of the CUDA
-    kernels (`cuda_kernels`) run through here."""
+    kernels (`cuda_kernels`) run through here.  bf16/f16 planes are
+    widened to fp32 for the whole pass, the scale included, and narrowed
+    once at its end, as the kernels' half-storage instantiations do."""
+    if x.dtype in STORAGE_DTYPES:
+        y = lines_plain(x.astype(torch.float32), plan, inverse, scale)
+        return y.astype(x.dtype)
     if scale != 1.0:
         return lines_plain(x, plan, inverse) * scale
     if plan.n == 1:
         return x
-    if x.dtype in (torch.bfloat16, torch.float16):
-        y = lines_plain(x.astype(torch.float32), plan, inverse)
-        return y.astype(x.dtype)
     tabs = luts.axis_tables(plan, inverse)
     alg = plan.algorithm
     if alg is Algorithm.SPLIT:

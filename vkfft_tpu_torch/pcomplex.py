@@ -40,6 +40,8 @@ class Planar:
         return self.re.device
 
     def astype(self, dtype):
+        """The planes at ``dtype``; narrowing to float16 / bfloat16 rounds
+        to nearest even (torch's ``.to``, as JAX's ``astype``)."""
         return Planar(self.re.to(dtype), self.im.to(dtype))
 
     def reshape(self, *shape):
@@ -123,13 +125,26 @@ def from_numpy_planar(re: np.ndarray, im: np.ndarray, device=None) -> Planar:
                   torch.from_numpy(np.ascontiguousarray(im)).to(device))
 
 
+STORAGE_DTYPES = (torch.float16, torch.bfloat16)
+
+
+def widened(p: Planar) -> Planar:
+    """float16 / bfloat16 planes (the storage tiers) as float32 planes,
+    exactly; other planes as they are."""
+    return p.astype(torch.float32) if p.dtype in STORAGE_DTYPES else p
+
+
 def to_complex(p: Planar) -> torch.Tensor:
-    """Planes -> a complex torch tensor on the same device."""
+    """Planes -> a complex torch tensor on the same device (complex64 for
+    float16 / bfloat16 planes, which torch has no complex dtype of)."""
+    p = widened(p)
     return torch.complex(p.re, p.im)
 
 
 def to_numpy(p: Planar) -> np.ndarray:
-    """Planes -> numpy complex on the host."""
+    """Planes -> numpy complex on the host (complex64 for float16 /
+    bfloat16 planes: numpy has no bfloat16)."""
+    p = widened(p)
     r = p.re.detach().cpu().numpy()
     i = p.im.detach().cpu().numpy()
     dt = np.complex64 if r.dtype == np.float32 else np.complex128
