@@ -193,22 +193,27 @@ Phases (each asserts; any failure exits non-zero before the result line):
      same data (DDComplex planes, and the dd route on the tensor).  The toolchain phase holds every fp32
      kernel's ptxas line to FP32_PTXAS and every fp64 kernel to no spill.
  13. the storage tiers (Precision.HALF / BFLOAT16): storage_kernels, the
-     half-storage instantiations of fft_lines, fft_twofactor, fft_strided
-     and fft_pair against their plain versions (<= 2 storage ulps of
+     half-storage instantiations of fft_lines, fft_twofactor, fft_strided,
+     fft_pair, fft_strided_tw, fft_conv, fft_conv_inv and fft_conv_pair's
+     Bluestein mode against their plain versions (<= 2 storage ulps of
      max|plain|, no inf or nan) at both dtypes on every layout class, each
      case three times inside sentinel guards, at half offsets off the
-     planes' 8-byte groups, and in place; storage_routes, Rader 7919,
-     Bluestein 10007, SPLIT 10006 and 2^17 refused before any launch, and
-     every DIRECT length of samples 2, 13 and 1002 on the half fft_lines;
-     storage_main_path, sample 2's rows at 128 MiB / (4 n) lines, sample
-     7's 10240, the 256^3 cube, ex02's (16, 64) plane and samples 13 and
-     1002 through FFTApplication at both tiers, each counted from 0 and
-     held to its exact launches, against fp64 at the reference's gates and
-     against the CPU's torch engine; storage_times, the kernels beside the
-     bound at 2 B a real, the fp32 kernel on the same points and torch.fft
-     complex32, and the rows' round trips beside the fp32 round trip.  The
-     toolchain phase holds each half kernel's ptxas line to its fp32
-     twin's.
+     planes' 8-byte groups, and in place (the factor mode's transposed,
+     interleaved and cropped layouts on inputs at those offsets);
+     storage_routes, Rader 7919 and 5003, Bluestein 10007, SPLIT 10006 and
+     the long tier's 2^17 at both tiers with exactly the half launches
+     their routes name, rfft of bf16 lines and a half convolution refused
+     before any launch, and every DIRECT length of samples 2, 13 and 1002
+     on the half fft_lines; storage_main_path, sample 2's rows at 128 MiB /
+     (4 n) lines, sample 7's rows, the 256^3 cube, ex02's (16, 64) plane,
+     samples 13 and 1002, and the long rows (2^20 x 16, 2^22 x 4, 2^24,
+     2^26, Bluestein 65537 x 127) through FFTApplication at both tiers,
+     each counted from 0 and held to its exact launches, finite, against
+     fp64 at the reference's gates and against the CPU's torch engine;
+     storage_times, the kernels beside the bound at 2 B a real, the fp32
+     kernel on the same points and torch.fft complex32, and the rows'
+     round trips beside the fp32 round trip.  The toolchain phase holds
+     each half kernel's ptxas line to its fp32 twin's.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -3676,8 +3681,7 @@ def phase_conv_times(vt, ck, dev) -> dict:
 
     # the walk kernels' own numbers on their rows: registers, spills,
     # split, layout and resident blocks an SM (the 2-D mode: clusters too)
-    with open(ck.library_path("fft_conv")[:-3] + ".log") as f:
-        (_, regs, st, ld), = _ptxas_kernels(f.read())
+    regs, st, ld = _ptxas_of(ck, "fft_conv")["fft_conv_kernel"]
     for row, (m, mm) in zip(kernels["fft_conv"], ((4096, 1), (1024, 3),
                                                   (512, 1))):
         row.update({"registers": regs, "spill_bytes": [st, ld],
@@ -5021,10 +5025,13 @@ FP32_PTXAS = {
 # the half-storage instantiations (C entries vk_<name>_f16 / _bf16) and
 # their fp32 twins: the same body at the same bounds, the conversions at
 # the edge of device memory, so the same registers and no spill beyond the
-# twin's (fft_pair_kernel's 4 B, ROADMAP queue 3)
+# twin's (fft_pair_kernel's 4 B, ROADMAP queue 3); fft_conv_pair's is its
+# Bluestein kernel
 STORAGE_TWINS = {f"{k}_{t}_kernel": f"{k}_kernel"
                  for k in ("fft_lines", "fft_twofactor", "fft_strided",
-                           "fft_pair") for t in ("f16", "bf16")}
+                           "fft_pair", "fft_strided_tw", "fft_conv",
+                           "fft_conv_inv", "fft_conv_pair")
+                 for t in ("f16", "bf16")}
 
 
 def _storage_ptxas_ok(lines: dict) -> dict:
@@ -5453,8 +5460,8 @@ def phase_f64_times(vt, ck, dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # The storage tiers (Precision.HALF / BFLOAT16): the half-storage
-# instantiations of fft_lines, fft_twofactor, fft_strided and fft_pair,
-# the tiers' routes, main path and times.
+# instantiations of every C2C kernel, the tiers' routes, main path and
+# times.
 # ---------------------------------------------------------------------------
 
 STORAGE = {"bf16": torch.bfloat16, "f16": torch.float16}
@@ -5465,6 +5472,11 @@ STORAGE_TIER = {"bf16": "BFLOAT16", "f16": "HALF"}
 STORAGE_KERNEL_TOL = {"bf16": 8e-3, "f16": 1e-3}
 # against fp64: the reference's gates (vkfft_tpu/cli.py:845, :1023)
 STORAGE_NUMPY_TOL = {"bf16": 8e-2, "f16": 1e-2}
+# a route that narrows several times a direction (Rader, Bluestein, SPLIT,
+# the long tier: after each kernel and each glue step) against the CPU's
+# torch engine, which narrows once an axis pass: 4 storage ulps of
+# max|ref|, as the CPU tests hold the port to the JAX package
+STORAGE_ROUTE_TOL = {"bf16": 1.6e-2, "f16": 2e-3}
 STORAGE_BYTES = 128 * 1024 * 1024   # sample 2: batch 128 MiB / (4 n)
 STORAGE_GUARD = 1 << 12             # sentinel halves each side of an output
 STORAGE_REPEATS = 3                 # guarded launches of each case
@@ -5488,6 +5500,19 @@ def _storage_rel(y, p) -> tuple:
     return err / max(b.abs().max().item() for b in p), err
 
 
+def _at_offset(x, offset):
+    """Half planes x copied to views ``offset`` halves into buffers of
+    their own (1..3: off the planes' 8-byte groups)."""
+    if not offset:
+        return x
+    dt, numel, shape = x[0].dtype, x[0].numel(), x[0].shape
+    pad = torch.zeros((2, offset + numel), dtype=dt, device=x[0].device)
+    src = tuple(pad[i, offset:].view(shape) for i in range(2))
+    src[0].copy_(x[0])
+    src[1].copy_(x[1])
+    return src
+
+
 def _storage_guarded(call, x, offset):
     """One launch ``call(*planes, out=...)`` on half planes x, its output
     inside a buffer of sentinels (STORAGE_GUARD halves on each side, and
@@ -5500,13 +5525,7 @@ def _storage_guarded(call, x, offset):
                      device=x[0].device)
     sentinel = buf[0, 0].clone()
     y = tuple(buf[i, lead:lead + numel].view(shape) for i in range(2))
-    src = x
-    if offset:
-        pad = torch.zeros((2, offset + numel), dtype=dt, device=x[0].device)
-        src = tuple(pad[i, offset:].view(shape) for i in range(2))
-        src[0].copy_(x[0])
-        src[1].copy_(x[1])
-    got = call(*src, out=y)
+    got = call(*_at_offset(x, offset), out=y)
     changed = (int((buf[:, :lead] != sentinel).sum())
                + int((buf[:, lead + numel:] != sentinel).sum()))
     return got, changed
@@ -5542,16 +5561,101 @@ def _storage_cases(ck):
     return cases
 
 
+def _storage_route_cases(ck, dev):
+    """(kernel, what, input shape, call(re, im, out=None), plain(re, im),
+    guarded, in place) of storage_kernels for the kernels of the tiers'
+    Rader, Bluestein, SPLIT and long routes, every layout class at the main
+    path's shapes: fft_strided_tw natural with pre and post factors (S odd
+    too: single halves), stored and read transposed, written and read
+    interleaved, a Bluestein plane read from its line's n points and
+    written back to n (out_len < n S); fft_conv's scalar (Rader 5003, and
+    131 for lines sharing a block), Bluestein and rows (the long
+    Bluestein's 384) modes; fft_conv_inv at 7918 with and without the x0
+    term, and at 134 (lines sharing a block); fft_conv_pair's Bluestein
+    mode at 10007.  A case is guarded where the wrapper takes an ``out`` of
+    the input's shape; the others run on inputs at the same offsets and
+    write fresh planes."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    N, nb = LONG_ROW_N, LONG_BLUESTEIN_N
+    nc, ns = ck.long_split(N)
+    na3, nb3, ns3 = ck.long_split(1 << 24)
+    mb = plan_axis(nb).decomp.bluestein_size
+    bc, bs = ck.bluestein_long_split(mb)
+    cases = []
+
+    def strided(what, shape, inverse, scale, guarded, in_place, **kw):
+        cases.append(("fft_strided_tw", what, shape,
+                      lambda r, i, out=None: ck.fft_strided(
+                          r, i, inverse, scale, out=out, **kw),
+                      lambda r, i: ck.fft_strided_plain(r, i, inverse, scale,
+                                                        **kw),
+                      guarded, in_place))
+
+    strided("natural, pre and post", (8, nc, ns), False, 1.0, True, True,
+            pre=ck.twiddle(N, True), post=ck.twiddle(N))
+    strided("natural, post, S odd", (3, 64, 33), True, 1 / 64, True, False,
+            post=ck.twiddle(64 * 33))
+    strided("stored transposed, post", (8, nc, ns), False, 1.0, False, False,
+            post=ck.twiddle(N), out_transposed=True)
+    strided("read transposed, pre", (8, ns, nc), True, 1 / N, False, False,
+            pre=ck.twiddle(N, True), in_transposed=True)
+    strided("written interleaved", (nb3, ns3, na3), False, 1.0, False, False,
+            out_interleave=nb3)
+    strided("read interleaved", (nb3, ns3, na3), True, 1 / ns3, False, False,
+            in_interleave=nb3)
+    strided("Bluestein plane from n points", (8, nb), False, 1.0, False,
+            False, pre=ck.chirp(nb), post=ck.twiddle(mb), plane=(bc, bs))
+    strided("Bluestein plane to n points", (8, mb), True, 1 / nb, False,
+            False, pre=ck.twiddle(mb, True), post=ck.chirp(nb),
+            plane=(bc, bs), out_len=nb)
+
+    def conv(name, what, shape, *tables, dc=None, in_place=True):
+        call = getattr(ck, name)
+        plain = getattr(ck, name + "_plain")
+        kw = {} if dc is None else {"dc": dc}
+        cases.append((name, what, shape,
+                      lambda r, i, out=None: call(r, i, *tables, out=out,
+                                                  **kw),
+                      lambda r, i: plain(r, i, *tables, **kw), True,
+                      in_place))
+
+    conv("fft_conv", "scalar, Rader 5003", (2 * _sample_7_batch(10006), 5002),
+         ck.rader_spectrum(5003, 1.0, dev))
+    conv("fft_conv", "scalar, Rader 131 (lines share a block)", (333, 130),
+         ck.rader_spectrum(131, 1.0, dev), in_place=False)
+    conv("fft_conv", "Bluestein 1006 in 2016", (2000, 1006),
+         ck.bluestein_spectrum(1006, 2016, False, 1.0, dev),
+         ck.bluestein_chirp(1006, 2016, False, dev))
+    conv("fft_conv", "rows, the long Bluestein's", (8 * bc, bs),
+         ck.bluestein_spectrum(nb, mb, False, 1.0, dev, "long"))
+    B = _sample_7_batch(7919)
+    g = torch.Generator(device=dev).manual_seed(7)
+    dc = tuple(torch.randn(B, generator=g, device=dev) for _ in range(2))
+    sw = ck.rader_spectrum(7919, 1.0 / 7919, dev, "swapped")
+    conv("fft_conv_inv", "7918 with x0", (B, 7918), sw, dc=dc)
+    conv("fft_conv_inv", "7918 without x0", (B, 7918), sw, in_place=False)
+    conv("fft_conv_inv", "134 with x0 (lines share a block)", (333, 134),
+         torch.randn(134, 2, generator=g, device=dev),
+         dc=tuple(torch.randn(333, generator=g, device=dev)
+                  for _ in range(2)))
+    m = plan_axis(10007).decomp.bluestein_size
+    conv("fft_conv_pair", "Bluestein 10007", (_sample_7_batch(10007), 10007),
+         ck.bluestein_spectrum(10007, m, False, 1.0, dev, "pair"),
+         ck.bluestein_chirp(10007, m, False, dev))
+    assert ck.conv_pair_layout(m)[2] > 1    # a cluster of blocks
+    return cases
+
+
 def phase_storage_kernels(ck, dev) -> dict:
-    """The half-storage instantiations of fft_lines, fft_twofactor,
-    fft_strided and fft_pair against their plain versions (the same half
-    planes widened to fp32, computed, narrowed once) at both dtypes, on
-    every layout class (`_storage_cases`): each case STORAGE_REPEATS times
-    with its output inside sentinel guards at half offsets 0, 1 and 3
-    (the later two off the planes' 8-byte groups: the single-half spans),
-    <= STORAGE_KERNEL_TOL of max|plain| with no inf or nan and no write
-    outside the output; the in-place cases also written over their input,
-    equal to the out-of-place result bit for bit."""
+    """The half-storage instantiations of every C2C kernel against their
+    plain versions (the same half planes widened to fp32, computed,
+    narrowed once) at both dtypes, on every layout class (`_storage_cases`,
+    `_storage_route_cases`): each case STORAGE_REPEATS times at half
+    offsets 0, 1 and 3 (the later two off the planes' 8-byte groups: the
+    single-half spans), its output inside sentinel guards where the wrapper
+    takes one, <= STORAGE_KERNEL_TOL of max|plain| with no inf or nan and
+    no write outside the output; the in-place cases also written over their
+    input, equal to the out-of-place result bit for bit."""
     out = {k: [] for k in ck.STORAGE_KERNELS}
     worst = {}
     for tag, dt in STORAGE.items():
@@ -5590,6 +5694,37 @@ def phase_storage_kernels(ck, dev) -> dict:
             worst[key] = max(worst.get(key, 0.0), max(row["rel_err"]))
             out[name].append(row)
             del x, ref
+        for i, (name, what, shape, call, plain, guarded, in_place) in \
+                enumerate(_storage_route_cases(ck, dev)):
+            x = _storage_planes(shape, i + 101, dev, dt)
+            ref = plain(*x)
+            row = {"dtype": tag, "case": what, "shape": list(shape),
+                   "guarded": guarded, "rel_err": [],
+                   "guard_cells_changed": []}
+            for r, offset in zip(range(STORAGE_REPEATS), (0, 1, 3)):
+                if guarded:
+                    y, changed = _storage_guarded(call, x, offset)
+                else:
+                    y, changed = call(*_at_offset(x, offset)), 0
+                rel, err = _storage_rel(y, ref)
+                assert y[0].dtype == dt, (name, what)
+                assert rel <= tol and changed == 0, (name, what, tag,
+                                                     offset, rel, changed)
+                row["rel_err"].append(rel)
+                row["guard_cells_changed"].append(changed)
+                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+            if in_place:
+                y = call(*x)
+                c = tuple(t.clone() for t in x)
+                call(*c, out=c)
+                assert all(torch.equal(a, b) for a, b in zip(c, y)), (
+                    name, what, tag)
+                row["in_place_equal"] = True
+            torch.cuda.synchronize()
+            key = f"{name}_{tag}"
+            worst[key] = max(worst.get(key, 0.0), max(row["rel_err"]))
+            out[name].append(row)
+            del x, ref
     counts = {k: len(v) for k, v in out.items()}
     _log(f"[storage] cases {counts}, worst vs plain {worst} (tolerances "
          f"{STORAGE_KERNEL_TOL})")
@@ -5613,31 +5748,77 @@ def _storage_launch_check(ck, torch_engine, tag, want, what):
     return got
 
 
-def phase_storage_routes(vt, ck, torch_engine, dev) -> dict:
-    """The tiers' routes: Rader 7919, Bluestein 10007, SPLIT 10006 and
-    the long tier's 2^17 under HALF and BFLOAT16 raise NotImplementedError
-    naming ROADMAP queue 1 item 10 before any launch (every counter
-    unchanged); every DIRECT length of samples 2, 13 and 1002 runs its
-    forward and normalized inverse on the half-storage fft_lines (two
-    launches, no other, no plain-engine call), within the reference's
-    gates of torch.fft on the narrowed input."""
+# the tiers' Rader (on fft_twofactor + fft_conv_inv; on fft_conv),
+# Bluestein (on fft_conv_pair), SPLIT and two-upload long routes
+STORAGE_ROUTE_LENGTHS = (7919, 10007, 10006, 5003, 1 << 17)
+
+
+def _route_launches(ce, n) -> dict:
+    """{kernel: launches} of a forward and an inverse of length n: each
+    direction the kernels `cuda_engine.route` names."""
+    import collections
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    return dict(collections.Counter(
+        2 * [k for k, _, _ in ce.route(plan_axis(n))]))
+
+
+def phase_storage_routes(vt, ck, ce, torch_engine, dev) -> dict:
+    """The tiers' routes: Rader 7919 and 5003, Bluestein 10007, SPLIT
+    10006 and the long tier's 2^17 under HALF and BFLOAT16, forward and
+    normalized inverse, each with exactly the half launches its route
+    names (no fp32 or fp64 launch, no plain-engine call), finite, within
+    the reference's gates of torch.fft on the narrowed input; rfft of
+    bf16 lines and a convolution of half planes (ROADMAP queue 1 item
+    10.2) raise NotImplementedError naming item 10 before any launch
+    (every counter unchanged); every DIRECT length of samples 2, 13 and
+    1002 runs its forward and normalized inverse on the half-storage
+    fft_lines (two launches, no other, no plain-engine call), within the
+    reference's gates of torch.fft on the narrowed input."""
     refused, rows = [], []
-    for n in (7919, 10007, 10006, 1 << 17):
-        for tag in STORAGE:
+    for n in STORAGE_ROUTE_LENGTHS:
+        want = _route_launches(ce, n)
+        for tag, dt in STORAGE.items():
             app = vt.FFTApplication(vt.FFTConfig(
-                shape=(n,), precision=vt.Precision[STORAGE_TIER[tag]]))
-            x = vt.Planar(*_planes((2, n), n, dev))
+                shape=(n,), normalize=True,
+                precision=vt.Precision[STORAGE_TIER[tag]]))
+            x = vt.Planar(*_planes((4, n), n, dev))
             torch.cuda.synchronize()
             ck.reset_launches()
             torch_engine.calls = 0
-            try:
-                app.forward(x)
-                raise AssertionError(f"{tag} n={n} ran")
-            except NotImplementedError as e:
-                assert "item 10" in str(e), e
+            y = app.forward(x)
+            z = app.inverse(y)
             torch.cuda.synchronize()
-            _storage_launch_check(ck, torch_engine, tag, {}, n)
-            refused.append([n, tag])
+            _storage_launch_check(ck, torch_engine, tag, want, n)
+            xn = torch.complex(x.re.to(dt).float(), x.im.to(dt).float())
+            assert y.dtype == z.dtype == dt and _finite(y, z), (n, tag)
+            e_f = _rel(vt.to_complex(y), torch.fft.fft(xn.cdouble()).cfloat())
+            e_rt = _rel(vt.to_complex(z), xn)
+            assert max(e_f, e_rt) <= STORAGE_NUMPY_TOL[tag], (n, tag, e_f,
+                                                              e_rt)
+            rows.append({"n": n, "dtype": tag, "launches": want,
+                         "rel_err_fwd": e_f, "rel_err_round_trip": e_rt})
+    kernel = vt.from_numpy_planar(*(np.ones((1024,), np.float32),) * 2,
+                                  device=dev)
+    conv = vt.ConvolutionApplication(
+        vt.FFTConfig(shape=(1024,), convolution=True), kernel,
+        kernel_in_freq_domain=True)
+    for what, call in (
+            ("rfft of bf16 lines", lambda: vt.rfft(torch.zeros(
+                2, 1024, dtype=torch.bfloat16, device=dev))),
+            ("a convolution of f16 planes", lambda: conv(vt.Planar(*(
+                torch.zeros(2, 1024, dtype=torch.float16, device=dev),) * 2)))):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        try:
+            call()
+            raise AssertionError(f"{what} ran")
+        except NotImplementedError as e:
+            assert "item 10" in str(e), e
+        torch.cuda.synchronize()
+        _storage_launch_check(ck, torch_engine, "bf16", {}, what)
+        _storage_launch_check(ck, torch_engine, "f16", {}, what)
+        refused.append(what)
     lengths = sorted(set(ROWS_1D) | set(SAMPLE_13) | set(SAMPLE_1002))
     for n in lengths:
         for tag, dt in STORAGE.items():
@@ -5663,16 +5844,32 @@ def phase_storage_routes(vt, ck, torch_engine, dev) -> dict:
     worst = {tag: max(max(r["rel_err_fwd"], r["rel_err_round_trip"])
                       for r in rows if r["dtype"] == tag) for tag in STORAGE}
     _log(f"[storage routes] refused before any launch: {refused}; "
-         f"{len(rows)} lengths on the storage kernels, worst {worst}")
+         f"{len(rows)} rows on the storage kernels, worst {worst}")
     return {"refused": refused, "rows": rows, "worst": worst}
 
 
-def _storage_rows():
+# the long rows of the tiers' main path (row, lines, n): the 2^20 row at
+# 128 MiB of complex64, 2^22 (not folded: ns = 8192), sample 11's 2^24 and
+# 2^26 (three uploads) and the fused long Bluestein at 65537
+STORAGE_LONG_ROWS = (
+    (f"1d_n{LONG_ROW_N}_x{LONG_ROW_LINES}", LONG_ROW_LINES, LONG_ROW_N),
+    ("1d_n4194304_x4", TARGET_BYTES >> 25, 1 << 22),
+    ("sample11_n16777216", 1, 1 << 24), ("sample11_n67108864", 1, 1 << 26),
+    ("bluestein_n65537_x127", SAMPLE_7_BYTES // (8 * LONG_BLUESTEIN_N),
+     LONG_BLUESTEIN_N))
+# lines of a long or sample 7 row held to the CPU's torch engine: at most
+# 2^22 points a line (a 2^24 or 2^26 line on the CPU takes minutes)
+STORAGE_CPU_POINTS = 1 << 22
+
+
+def _storage_rows(ce):
     """(row, tier, shape, config shape, launches of a forward and a
     normalized inverse) of the tiers' main path: sample 2's rows at 128
-    MiB / (4 n) lines, sample 7's DIRECT 10240 at its 64 MiB of complex64,
-    the 256^3 cube (pair + strided), ex02's (16, 64) plane, and sample 13's
-    and sample 1002's systems."""
+    MiB / (4 n) lines, sample 7's rows at its 64 MiB of complex64 (DIRECT
+    10240, Bluestein 10007, Rader 7919, SPLIT 10006), the 256^3 cube (pair
+    + strided), ex02's (16, 64) plane, sample 13's and sample 1002's
+    systems, and the long rows (STORAGE_LONG_ROWS); the launches of the
+    other routes those `cuda_engine.route` names."""
     rows = []
     for tag in STORAGE:
         for n in ROWS_1D:
@@ -5680,6 +5877,9 @@ def _storage_rows():
                          (n,), {"fft_lines": 2}))
         rows.append(("sample7_n10240", tag, (_sample_7_batch(10240), 10240),
                      (10240,), {"fft_twofactor": 2}))
+        for n in (10007, 7919, 10006):
+            rows.append((f"sample7_n{n}", tag, (_sample_7_batch(n), n), (n,),
+                         _route_launches(ce, n)))
         rows.append(("3d_256^3", tag, CUBE, CUBE,
                      {"fft_pair": 2, "fft_strided": 2}))
         rows.append(("ex02_16x64", tag, (16, 64), (16, 64), {"fft_pair": 2}))
@@ -5689,10 +5889,12 @@ def _storage_rows():
         for n in SAMPLE_1002:
             rows.append((f"sample1002_n{n}", tag, (2, n), (n,),
                          {"fft_lines": 2}))
+        for name, B, n in STORAGE_LONG_ROWS:
+            rows.append((name, tag, (B, n), (n,), _route_launches(ce, n)))
     return rows
 
 
-def phase_storage_main_path(vt, ck, torch_engine, dev) -> dict:
+def phase_storage_main_path(vt, ck, ce, torch_engine, dev) -> dict:
     """The tiers' main path through FFTApplication(precision=BFLOAT16 /
     HALF, normalize=True) on float32 Planar input, which the application
     narrows (`_storage_rows`): each row's forward and inverse counted from
@@ -5702,9 +5904,14 @@ def phase_storage_main_path(vt, ck, torch_engine, dev) -> dict:
     torch.fft complex128 on the card for the rest) and the round trip
     against the narrowed input within the reference's gates, and both
     against the same call on the CPU's torch engine (the first
-    STORAGE_REF_LINES lines of the 1-D rows) within STORAGE_KERNEL_TOL."""
+    STORAGE_REF_LINES lines of the 1-D rows, at most STORAGE_CPU_POINTS
+    points of them; none of the 2^24 and 2^26 lines) within
+    STORAGE_KERNEL_TOL, or STORAGE_ROUTE_TOL on a route of several
+    roundings a direction."""
+    from vkfft_tpu_torch.planner.factorize import Algorithm
+    from vkfft_tpu_torch.planner.plan import plan_axis
     rows, by_row = [], {}
-    for name, tag, shape, cfg_shape, want in _storage_rows():
+    for name, tag, shape, cfg_shape, want in _storage_rows(ce):
         dt = STORAGE[tag]
         prec = vt.Precision[STORAGE_TIER[tag]]
         app = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape, normalize=True,
@@ -5719,6 +5926,7 @@ def phase_storage_main_path(vt, ck, torch_engine, dev) -> dict:
         got = _storage_launch_check(ck, torch_engine, tag, want, name)
         by_row[f"{name}_{tag}"] = dict(ck.storage_launches)
         assert y.dtype == z.dtype == dt and y.shape == z.shape == shape, name
+        assert _finite(y, z), name
         xn = torch.complex(x.re.to(dt).float(), x.im.to(dt).float())
         dims = tuple(range(len(shape) - len(cfg_shape), len(shape)))
         small = math.prod(shape) <= 1 << 16
@@ -5732,17 +5940,23 @@ def phase_storage_main_path(vt, ck, torch_engine, dev) -> dict:
         e_rt = _rel(vt.to_complex(z), xn)
         del ref
         # the same call on the CPU's torch engine
-        lines = STORAGE_REF_LINES if len(cfg_shape) == 1 else shape[0]
-        cpu = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape, normalize=True,
-                                             precision=prec), engine="torch",
-                                device="cpu")
-        xc = vt.Planar(x.re[:lines].cpu(), x.im[:lines].cpu())
-        yc = cpu.forward(xc)
-        zc = cpu.inverse(yc)
-        e_cf = _storage_rel((y.re[:lines].cpu(), y.im[:lines].cpu()),
-                            (yc.re, yc.im))[0]
-        e_cr = _storage_rel((z.re[:lines].cpu(), z.im[:lines].cpu()),
-                            (zc.re, zc.im))[0]
+        lines = shape[0]
+        if len(cfg_shape) == 1:
+            lines = min(STORAGE_REF_LINES, shape[0],
+                        STORAGE_CPU_POINTS // shape[1])
+        e_cf = e_cr = None
+        if lines:
+            cpu = vt.FFTApplication(vt.FFTConfig(
+                shape=cfg_shape, normalize=True, precision=prec),
+                engine="torch", device="cpu")
+            xc = vt.Planar(x.re[:lines].cpu(), x.im[:lines].cpu())
+            yc = cpu.forward(xc)
+            zc = cpu.inverse(yc)
+            e_cf = _storage_rel((y.re[:lines].cpu(), y.im[:lines].cpu()),
+                                (yc.re, yc.im))[0]
+            e_cr = _storage_rel((z.re[:lines].cpu(), z.im[:lines].cpu()),
+                                (zc.re, zc.im))[0]
+            del xc, yc, zc
         row = {"row": name, "dtype": tag, "shape": list(shape),
                "launches": got, "rel_err_fwd_vs_fp64": e_f,
                "rel_err_round_trip": e_rt, "rel_err_fwd_vs_cpu_engine": e_cf,
@@ -5751,9 +5965,13 @@ def phase_storage_main_path(vt, ck, torch_engine, dev) -> dict:
         _log(f"[main storage] {row}")
         assert e_f <= STORAGE_NUMPY_TOL[tag], row
         assert e_rt <= STORAGE_NUMPY_TOL[tag], row
-        assert max(e_cf, e_cr) <= STORAGE_KERNEL_TOL[tag], row
+        single = all(plan_axis(k).algorithm is Algorithm.DIRECT
+                     and k <= ck.TWOFACTOR_MAX_N for k in cfg_shape)
+        cpu_tol = (STORAGE_KERNEL_TOL if single else STORAGE_ROUTE_TOL)[tag]
+        row["cpu_engine_tol"] = cpu_tol
+        assert not lines or max(e_cf, e_cr) <= cpu_tol, row
         rows.append(row)
-        del x, y, z, xn, xc, yc, zc
+        del x, y, z, xn
         torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in by_row.values())
               for k in ck.storage_launches}
@@ -5786,14 +6004,15 @@ def phase_storage_times(vt, ck, dev) -> dict:
     _log(f"[time] card: {_smi()}")
     kernels = {f"{k}_{t}": [] for k in ck.STORAGE_KERNELS for t in STORAGE}
 
-    def timed(name, tag, shape, call, plain, lib, n, extra):
+    def timed(name, tag, shape, call, plain, lib, n, extra, ops=None):
         dt = STORAGE[tag]
         x = _storage_planes(shape, sum(shape), dev, dt)
         x32 = tuple(t.float() for t in x)
         rel, err = _storage_rel(call(*x), plain(*x))
         assert rel <= STORAGE_KERNEL_TOL[tag], (name, tag, shape, rel)
         points = math.prod(shape)
-        bound, by = _bound(8.0 * points, _fft_ops(points, n))
+        bound, by = _bound(8.0 * points,
+                           _fft_ops(points, n) if ops is None else ops)
         regs, st, ld = _ptxas_of(ck, name)[f"{name}_{tag}_kernel"]
         ms = _time_ms(lambda: call(*x))
         row = {"shape": list(shape), "dtype": tag, "ms": ms,
@@ -5849,6 +6068,79 @@ def phase_storage_times(vt, ck, dev) -> dict:
               {"cluster": c, "threads": t, "smem_bytes": smem,
                "splits": ck.pair_splits(ny, nz, dt),
                "resident_clusters": clusters, "blocks_per_sm": blocks})
+        # the kernels of the other routes at their main path's shapes: the
+        # 2^20 row's folded passes, sample 7's Rader 5003 (10006's
+        # factor), Rader 7919's inverse with x0, Bluestein 10007 on its
+        # plane, the long Bluestein's rows; no one PyTorch call computes
+        # any of them (cuFFT's half C2C takes powers of two only)
+        B, N = LONG_ROW_LINES, LONG_ROW_N
+        nc, ns = ck.long_split(N)
+        for what, shape, inv, kw in (
+                ("folded forward: twiddle on the write, stored transposed",
+                 (B, nc, ns), False,
+                 dict(post=ck.twiddle(N), out_transposed=True)),
+                ("folded inverse: read transposed, twiddle after the read",
+                 (B, ns, nc), True,
+                 dict(pre=ck.twiddle(N, True), in_transposed=True))):
+            rows_, cols = (shape[2], shape[1]) if inv else shape[1:]
+            ts, t, smem = ck.strided_tw_layout(rows_, cols)
+            sc = 1.0 / N if inv else 1.0
+            timed("fft_strided_tw", tag, shape,
+                  lambda r, m, inv=inv, sc=sc, kw=kw: ck.fft_strided(
+                      r, m, inv, sc, **kw),
+                  lambda r, m, inv=inv, sc=sc, kw=kw: ck.fft_strided_plain(
+                      r, m, inv, sc, **kw), None, nc,
+                  {"what": what, "columns": ts, "threads": t,
+                   "smem_bytes": smem,
+                   "split": list(ck.strided_tw_split(rows_, cols)),
+                   "blocks_per_sm": ck.strided_tw_occupancy(rows_, cols,
+                                                            dt)},
+                  _fft_ops(B * N, nc) + _cmul_ops(B * N))
+        spec = ck.rader_spectrum(5003, 1.0, dev)
+        shape = (2 * _sample_7_batch(10006), 5002)
+        timed("fft_conv", tag, shape, lambda r, m: ck.fft_conv(r, m, spec),
+              lambda r, m: ck.fft_conv_plain(r, m, spec), None, 5002,
+              {"mode": "rader p=5003", "layout": list(ck.conv_layout(5002)),
+               "blocks_per_sm": ck.conv_occupancy(5002, 1, dt)},
+              shape[0] * (2 * _fft_ops(5002, 5002) + _cmul_ops(5002)))
+        from vkfft_tpu_torch.planner.plan import plan_axis
+        mb = plan_axis(LONG_BLUESTEIN_N).decomp.bluestein_size
+        bc, bs = ck.bluestein_long_split(mb)
+        lspec = ck.bluestein_spectrum(LONG_BLUESTEIN_N, mb, False, 1.0, dev,
+                                      "long")
+        shape = (bc * (SAMPLE_7_BYTES // (8 * LONG_BLUESTEIN_N)), bs)
+        timed("fft_conv", tag, shape, lambda r, m: ck.fft_conv(r, m, lspec),
+              lambda r, m: ck.fft_conv_plain(r, m, lspec), None, bs,
+              {"mode": f"rows {bc} x {bs} (the long Bluestein's)",
+               "layout": list(ck.conv_layout(bs)),
+               "blocks_per_sm": ck.conv_occupancy(bs, 1, dt)},
+              shape[0] * (2 * _fft_ops(bs, bs) + _cmul_ops(bs)))
+        B = _sample_7_batch(7919)
+        sw = ck.rader_spectrum(7919, 1.0 / 7919, dev, "swapped")
+        g = torch.Generator(device=dev).manual_seed(11)
+        dc = tuple(torch.randn(B, generator=g, device=dev) for _ in range(2))
+        t, lines, smem = ck.twofactor_layout(7918)
+        timed("fft_conv_inv", tag, (B, 7918),
+              lambda r, m: ck.fft_conv_inv(r, m, sw, dc),
+              lambda r, m: ck.fft_conv_inv_plain(r, m, sw, dc), None, 7918,
+              {"with_x0": True, "threads": t, "lines_per_block": lines,
+               "smem_bytes": smem,
+               "blocks_per_sm": ck.conv_inv_occupancy(7918, dt)},
+              B * (_fft_ops(7918, 7918) + 2 * _cmul_ops(7918)))
+        m = plan_axis(10007).decomp.bluestein_size
+        pspec = ck.bluestein_spectrum(10007, m, False, 1.0, dev, "pair")
+        chirp = ck.bluestein_chirp(10007, m, False, dev)
+        B = _sample_7_batch(10007)
+        nc_, ns_, c, t, smem = ck.conv_pair_layout(m)
+        clusters, blocks = ck.conv_pair_occupancy(m, dt)
+        timed("fft_conv_pair", tag, (B, 10007),
+              lambda r, m_: ck.fft_conv_pair(r, m_, pspec, chirp),
+              lambda r, m_: ck.fft_conv_pair_plain(r, m_, pspec, chirp),
+              None, m,
+              {"plane": [nc_, ns_], "cluster": c, "threads": t,
+               "smem_bytes": smem, "resident_clusters": clusters,
+               "blocks_per_sm": blocks},
+              B * (2 * _fft_ops(m, m) + 3 * _cmul_ops(m)))
 
     # the point rate of fft_lines at n = 256 from planes the 50 MB L2
     # holds (2^20 points: 16 MB of fp32 in and out) to sample 2's 2^25: a
@@ -5872,7 +6164,10 @@ def phase_storage_times(vt, ck, dev) -> dict:
         prec = vt.Precision[STORAGE_TIER[tag]]
         for name, shape, cfg_shape in (
                 [(f"1d_n{n}", (STORAGE_BYTES // (4 * n), n), (n,))
-                 for n in ROWS_1D] + [("3d_256^3", CUBE, CUBE)]):
+                 for n in ROWS_1D] + [("3d_256^3", CUBE, CUBE)]
+                + [(f"sample7_n{n}", (_sample_7_batch(n), n), (n,))
+                   for n in (10007, 7919, 10006)]
+                + [(row, (B, n), (n,)) for row, B, n in STORAGE_LONG_ROWS]):
             cube = len(cfg_shape) == 3
             app = vt.FFTApplication(vt.FFTConfig(shape=cfg_shape,
                                                  normalize=True,
@@ -5894,7 +6189,8 @@ def phase_storage_times(vt, ck, dev) -> dict:
                    "fp32_ms": _time_ms(lambda: app32.inverse(
                        app32.forward(x32))),
                    "torch_fft_c32_ms": None}
-            if tag == "f16":
+            pow2 = all(k & (k - 1) == 0 for k in cfg_shape)
+            if tag == "f16" and pow2:
                 xc = _c32((x.re, x.im))
                 row["torch_fft_c32_ms"] = _time_ms(
                     (lambda: torch.fft.ifftn(torch.fft.fftn(xc))) if cube
@@ -5904,6 +6200,9 @@ def phase_storage_times(vt, ck, dev) -> dict:
             row["GBs"] = passes * 8.0 * points / row["ms"] / 1e6
             row["roofline_share"] = bound / row["ms"]
             row["vs_fp32"] = row["ms"] / row["fp32_ms"]
+            if not pow2:
+                row["torch_fft_c32"] = "— (none: cuFFT's half C2C takes " \
+                    "powers of two only)"
             _log(f"[time] e2e storage {row}")
             e2e.append(row)
             del x, x32
@@ -5979,9 +6278,10 @@ def main(argv=None) -> int:
               ("f64_times", lambda: phase_f64_times(vt, ck, dev)),
               ("storage_kernels", lambda: phase_storage_kernels(ck, dev)),
               ("storage_routes",
-               lambda: phase_storage_routes(vt, ck, torch_engine, dev)),
+               lambda: phase_storage_routes(vt, ck, ce, torch_engine, dev)),
               ("storage_main_path",
-               lambda: phase_storage_main_path(vt, ck, torch_engine, dev)),
+               lambda: phase_storage_main_path(vt, ck, ce, torch_engine,
+                                               dev)),
               ("storage_times", lambda: phase_storage_times(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
     if only:
@@ -6090,9 +6390,8 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": "float64",
             "also_replaces": also.get(name, []), "per_shape": rows})
-    # the half-storage instantiations of fft_lines, fft_twofactor,
-    # fft_strided and fft_pair (the same sources), launched on the storage
-    # tiers' main path
+    # the half-storage instantiations of every C2C kernel (the same
+    # sources), launched on the storage tiers' main path
     st_by_path = record["storage_main_path"]["storage_launches_by_path"]
     for key, rows in record["storage_times"]["kernels"].items():
         name, tag = key.rsplit("_", 1)

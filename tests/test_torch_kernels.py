@@ -186,7 +186,8 @@ def test_wrapper_checks():
     with pytest.raises(TypeError):
         ck.fft_lines(t_re.int(), t_im.int())
     with pytest.raises(TypeError):
-        ck.fft_conv(t_re.half(), t_im.half(), torch.zeros(64, 2))
+        ck.fft_conv_pair(t_re.half().reshape(4, 8, 8),
+                         t_im.half().reshape(4, 8, 8), torch.zeros(64, 2))
     with pytest.raises(TypeError):
         ck.fft_lines(t_re, t_im.double())
     with pytest.raises(ValueError):

@@ -263,8 +263,10 @@ def test_factor_mode_checks():
     # two factors, their tables, the twiddle, the factors, the two
     # interleaves, the mode, then the layout
     assert set(ck._ENTRIES) == set(ck.KERNEL_SOURCES)
-    assert ck._ENTRIES["fft_strided_tw"] == {"fft_strided_tw":
-                                             "ppppqqqqppppppiiiiii"}
+    # (and its half-storage entries, the same arguments on half planes)
+    assert ck._ENTRIES["fft_strided_tw"] == {
+        f"fft_strided_tw{sfx}": "ppppqqqqppppppiiiiii"
+        for sfx in ("", "_f16", "_bf16")}
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,11 @@ on CPU tensors) against the JAX package's jnp engine and its Pallas
 kernels in interpret mode at the same tiers, and numpy fp64 at the
 reference's gates; each route's exact launches of the half-storage
 instantiations, counted by the wrappers on meta tensors with the library
-call stubbed out; the refusals of the routes without them; the layout
-rules at the half dtypes.  The kernels themselves run only on the card
-(chip_smoke.py's storage phases)."""
+call stubbed out; the refusals of what still has no half kernel (real and
+R2R data, convolution, float64 off the fp64 kernels); the layout rules at
+the half dtypes.  Rader, Bluestein, SPLIT and the long tier at the tiers
+are tests/test_torch_storage_routes.py's.  The kernels themselves run
+only on the card (chip_smoke.py's storage phases)."""
 import contextlib
 import types
 
@@ -232,47 +234,57 @@ def test_half_planar_under_single_runs_at_storage():
                                       vt.to_numpy(widened(single)))
 
 
-# Rader, Bluestein, SPLIT and the long tier: no half-storage kernel yet
+# Rader, Bluestein, SPLIT and the long tier: the storage tiers run them
+# (tests/test_torch_storage_routes.py); at these lengths what still refuses
+# is float64 off the fp64 kernels, half real data and half convolution
+# (ROADMAP queue 1 items 10.2 and 10.3)
 REFUSED = (7919, 10007, 10006, 1 << 17)
 
 
 @pytest.mark.parametrize("n", REFUSED)
 def test_routes_without_storage_kernels_refuse(n):
-    """The cuda engine refuses half planes at lengths off the storage
-    kernels, naming ROADMAP queue 1 item 10, whatever the device; the CPU
-    torch engine runs them (widened to fp32)."""
+    """At Rader, Bluestein, SPLIT and long lengths the cuda engine runs
+    half planes now, and still refuses, naming ROADMAP queue 1 item 10,
+    what has no kernel of its dtype: float64 planes (no fp64 kernel off
+    `fft_lines`' DIRECT lengths), real half lines of 2n points and a half
+    convolution; the CPU torch engine runs every length (widened to
+    fp32)."""
     plan = plan_axis(n)
-    assert not cuda_engine.storage_axis_supports(plan)
-    assert not cuda_engine.storage_supports((n,), (0,))
-    x = vt.Planar(torch.zeros(1, n, dtype=torch.bfloat16),
-                  torch.zeros(1, n, dtype=torch.bfloat16))
+    assert cuda_engine.storage_axis_supports(plan)
+    assert cuda_engine.storage_supports((n,), (0,))
+    assert not cuda_engine.f64_axis_supports(plan)
+    x = vt.Planar(torch.zeros(1, n, dtype=torch.float64),
+                  torch.zeros(1, n, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="item 10"):
         cuda_engine.fft_lines_p(x, plan)
     with pytest.raises(NotImplementedError, match="item 10"):
-        vt.FFTApplication(vt.FFTConfig(shape=(n,),
-                                       precision=vt.Precision.HALF),
-                          engine="cuda", device="cpu").forward(
-            vt.Planar(torch.zeros(1, n), torch.zeros(1, n)))
+        cuda_engine.rfft_lines_p(torch.zeros(1, 2 * n, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cuda_engine.conv_fused_v3(vt.Planar(torch.zeros(1, 64).half(),
+                                            torch.zeros(1, 64).half()),
+                                  64, torch.zeros(64, 2))
+    cfg = vt.FFTConfig(shape=(n,), precision=vt.Precision.HALF)
+    y = vt.FFTApplication(cfg, engine="torch", device="cpu").forward(
+        vt.Planar(torch.zeros(1, n), torch.zeros(1, n)))
+    assert y.dtype == torch.float16
 
 
 def test_storage_rule():
-    """`storage_axis_supports`: n <= 4 and every DIRECT length of
-    `fft_lines` or `fft_twofactor` (the minor axis on those kernels, any
-    other on `fft_strided` or the contiguous route), nothing else."""
+    """`storage_axis_supports`: every plan the fp32 tier runs (`supports`),
+    n <= 4 as tensor ops; every route's kernels have half instantiations."""
     for n in range(1, 16400, 7):
         plan = plan_axis(n)
-        want = n <= 4 or (plan.algorithm.name == "DIRECT" and n <= 16384)
-        assert cuda_engine.storage_axis_supports(plan) == want, n
-        if want and n > 4:
-            assert cuda_engine.route(plan)[0][0] in ("fft_lines",
-                                                     "fft_twofactor")
+        assert cuda_engine.storage_axis_supports(plan), n
+        assert all(k in ck.STORAGE_KERNELS
+                   for k, _, _ in cuda_engine.route(plan)), n
     assert cuda_engine.storage_supports((64, 131, 10240), (0, 2))
-    assert not cuda_engine.storage_supports((64, 131, 10240), (1,))
+    assert cuda_engine.storage_supports((64, 131, 10240), (1,))
     for dt in TIERS.values():
         assert cuda_engine.pair_supports(256, 256, dt)
         assert cuda_engine.pair_supports(16, 64, dt)
         assert cuda_engine.axis_supports(plan_axis(1024), dt)
-        assert not cuda_engine.axis_supports(plan_axis(131), dt)
+        assert cuda_engine.axis_supports(plan_axis(131), dt)
+        assert not cuda_engine.axis_supports(plan_axis(131), torch.float64)
 
 
 def test_layouts_are_fp32s():
@@ -369,23 +381,35 @@ def test_storage_launches(monkeypatch, tier, shape, want):
 
 @pytest.mark.parametrize("n", REFUSED)
 def test_refusal_before_any_launch(monkeypatch, n):
-    """A walk that meets an axis without storage kernels is refused before
-    its first launch, also where an earlier axis has them."""
+    """What still has no kernel of its dtype is refused before the first
+    launch: a C2C walk of float64 planes that meets an axis off the fp64
+    kernels, also where an earlier axis has them; rfft of bfloat16 lines
+    and a convolution of half planes."""
     with _stubbed_launches(monkeypatch) as calls:
         for shape in ((2, n), (2, 8, n)):
-            app = vt.FFTApplication(vt.FFTConfig(
-                shape=shape[1:], precision=vt.Precision.BFLOAT16),
-                engine="cuda")
+            app = vt.FFTApplication(vt.FFTConfig(shape=shape[1:]),
+                                    engine="cuda")
             with pytest.raises(NotImplementedError, match="item 10"):
-                app.forward(_meta(shape))
+                app.forward(_meta(shape, torch.float64))
+        with pytest.raises(NotImplementedError, match="item 10"):
+            vt.rfft(torch.empty(2, 2 * n, dtype=torch.bfloat16,
+                                device="meta"), engine="cuda")
+        conv = vt.ConvolutionApplication(
+            vt.FFTConfig(shape=(64,), convolution=True),
+            np.ones(64, np.complex64), engine="cuda",
+            kernel_in_freq_domain=True, device="meta")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            conv(_meta((2, 64), torch.float16))
         assert calls == []
     assert sum(ck.storage_launches.values()) == 0
+    assert sum(ck.f64_launches.values()) == sum(ck.launches.values()) == 0
 
 
 def test_launch_arguments(monkeypatch):
     """The half entries get the fp32 layout and fp32 stage and twiddle
     tables (walk_radices: radix 16), on planes of the storage dtype; the
-    wrappers take the half dtypes on these four kernels only."""
+    real kernels and the 2-D conv mode take no half dtype (the other C2C
+    kernels' half entries: tests/test_torch_storage_routes.py)."""
     ck._DEVICE_TABLES.clear()
     outs = []
     with _stubbed_launches(monkeypatch) as calls:
@@ -399,7 +423,9 @@ def test_launch_arguments(monkeypatch):
             p = _meta((2, 256, 256), dt)
             outs.append(ck.fft_pair(p.re, p.im))
             with pytest.raises(TypeError, match="item 10"):
-                ck.fft_conv(x.re, x.im, torch.empty(1024, 2, device="meta"))
+                q = _meta((2, 32, 32), dt)
+                ck.fft_conv_pair(q.re, q.im,
+                                 torch.empty(1024, 2, device="meta"))
             with pytest.raises(TypeError, match="item 10"):
                 ck.fft_r2c(x.re)
     entries = [e for e, _ in calls]
@@ -421,7 +447,10 @@ def test_launch_arguments(monkeypatch):
     walk = {k[4] for k in tabs if k[0] == "stages" and k[1] in (1024, 256,
                                                                   40)}
     assert True in walk
-    assert ck.storage_launches == {k: 1 for k in ck.storage_launches}
+    assert ck.storage_launches == {
+        k: int(k.rsplit("_", 1)[0] in ("fft_lines", "fft_twofactor",
+                                       "fft_strided", "fft_pair"))
+        for k in ck.storage_launches}
 
 
 def test_plain_versions_round_once():
@@ -473,3 +502,5 @@ def test_ptxas_parser_holds_storage_kernels():
     assert set(chip_smoke._storage_ptxas_ok(bad)) == {"fft_lines_bf16_kernel"}
     assert chip_smoke.STORAGE_TWINS["fft_pair_f16_kernel"] == "fft_pair_kernel"
     assert len(chip_smoke.STORAGE_TWINS) == 2 * len(ck.STORAGE_KERNELS)
+    assert {t for t in chip_smoke.STORAGE_TWINS.values()} == {
+        f"{k}_kernel" for k in ck.STORAGE_KERNELS}

@@ -54,14 +54,12 @@ storage tiers (the reference's ``halfPrecisionMemoryOnly``,
 bfloat16 planes (round to nearest even) before the walk, every kernel
 reads and writes those planes (half the bytes of fp32) and computes in
 fp32, each scale rides a pass in fp32, and the result is a `Planar` of
-the storage dtype.  On the card the walk runs the
-half-storage instantiations of `fft_lines`, `fft_twofactor`,
-`fft_strided` and `fft_pair` where every transformed axis is theirs
-(`cuda_engine.storage_supports`: n <= 4, or DIRECT lengths of
-`fft_lines` or `fft_twofactor`); any other axis (Rader, Bluestein,
-SPLIT, the long tier) raises ``NotImplementedError`` naming ROADMAP
-queue 1 item 10 before any launch.  The CPU runs every length, widening
-each axis pass to fp32.  Complex tensors and host arrays are not
+the storage dtype.  On the card the walk runs the half-storage
+instantiations of the kernels of every C2C route, at every length the
+fp32 tier runs (`cuda_engine.storage_supports`): DIRECT, Rader,
+Bluestein, SPLIT and the long tier, the glue between their kernels in
+fp32, narrowed once.  The CPU runs every length, widening each axis pass
+to fp32.  Complex tensors and host arrays are not
 `Planar`, so the flag leaves them as under SINGLE (complex64 in and
 out), as the JAX package's non-`Planar` path does; float16 / bfloat16
 `Planar` planes under SINGLE run at their storage dtype too.  float16
@@ -70,7 +68,12 @@ tier's own limit, as in the reference.  The normalized inverse of half
 planes scales each pass by its own axes' 1/n (where fp32 folds the whole
 1/N into the last pass), so its intermediates stay at the forward's
 magnitude: with the whole 1/N last, the first pass of a 256^3 cube's
-inverse reached 256 times the forward's bins, past float16's range.
+inverse reached 256 times the forward's bins, past float16's range.  The
+same holds inside one axis: each upload of the long tier's inverse, and
+the first factor's pass of SPLIT's, takes its own factor's 1/n_k
+(`cuda_engine._pass_scales`); the unnormalized first upload of a 2^26
+line's inverse would grow a unit-variance spectrum (~8192 sigma) past
+65504.
 
 The R2C, DCT/DST and convolution kinds ignore the precision flag and run
 at the input's dtype, as the JAX package's do (``_real_transform``,

@@ -42,6 +42,15 @@
 // and the rows table (2 MiB at 512 x 512) are read through the read-only
 // cache and stay in the 50 MB L2 across blocks.  A block reads all its
 // lines before it writes any, so the output may alias the input.
+//
+// Half storage (fft_conv_f16_kernel, fft_conv_bf16_kernel; C entries
+// vk_fft_conv_f16, vk_fft_conv_bf16): the fp32 kernel's body, layout,
+// bound and every mode on __half or __nv_bfloat16 planes, 8 B a point of
+// device memory where fp32 moves 16; the spectrum, chirp and stage tables,
+// shared memory and every stage stay fp32.  cp.async has no 2-byte copy,
+// so the lines come in through registers (inplace.cuh's load_lines: four
+// halves a plane in one 8-byte load), widened, and go out narrowed once,
+// to nearest even, after the chirp (store_lines).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -120,13 +129,15 @@ struct ChirpOut {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-fft_conv_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                long long batch, Geo geo, Plan pf1, Plan pf2, Plan pi1,
-                Plan pi2, const float2* tf1, const float2* tf2,
-                const float2* ti1, const float2* ti2, const float2* twf,
-                const float2* twi, const float2* spec, const float2* chirp) {
-  extern __shared__ __align__(16) float2 smem[];
+// The block body on planes of storage type St (float, or a half type on
+// the same fp32 walk).
+template <class St>
+__device__ __forceinline__ void conv_block(
+    float2* smem, const St* xr, const St* xi, St* yr, St* yi,
+    long long batch, const Geo& geo, const Plan& pf1, const Plan& pf2,
+    const Plan& pi1, const Plan& pi2, const float2* tf1, const float2* tf2,
+    const float2* ti1, const float2* ti2, const float2* twf,
+    const float2* twi, const float2* spec, const float2* chirp) {
   const int n1 = pf1.n, n2 = pf2.n, m = geo.m, n = (int)geo.dn.d;
   const int P = geo.pitch, S = n2 * P;
   const int nl = block_lines(geo.lines, batch);
@@ -140,8 +151,12 @@ fft_conv_kernel(const float* xr, const float* xi, float* yr, float* yi,
   load_tables(tab + set, ti1, ti2, twi, geo.len1, geo.len2, ntw);
   // point j < n of a line at (j / n1) * P + j % n1, on the read and on
   // the store
-  load_lines_async(xr, xi, block_line0(geo.lines) * n, nl * n,
-                   Map{geo.dn, geo.d1, S, P, 1}, home);
+  if constexpr (kNarrow<St>)
+    load_lines(xr, xi, block_line0(geo.lines) * n, nl * n,
+               Map{geo.dn, geo.d1, S, P, 1}, home);
+  else
+    load_lines_async(xr, xi, block_line0(geo.lines) * n, nl * n,
+                     Map{geo.dn, geo.d1, S, P, 1}, home);
   __syncthreads();
   if (chirp != nullptr) {
     const Div dm = make_div(m);
@@ -185,11 +200,107 @@ fft_conv_kernel(const float* xr, const float* xi, float* yr, float* yi,
               ChirpOut{chirp});
 }
 
-int smem_opt_in(size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fft_conv_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                long long batch, Geo geo, Plan pf1, Plan pf2, Plan pi1,
+                Plan pi2, const float2* tf1, const float2* tf2,
+                const float2* ti1, const float2* ti2, const float2* twf,
+                const float2* twi, const float2* spec, const float2* chirp) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_block(smem, xr, xi, yr, yi, batch, geo, pf1, pf2, pi1, pi2, tf1, tf2,
+             ti1, ti2, twf, twi, spec, chirp);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                    __half* yi, long long batch, Geo geo, Plan pf1, Plan pf2,
+                    Plan pi1, Plan pi2, const float2* tf1, const float2* tf2,
+                    const float2* ti1, const float2* ti2, const float2* twf,
+                    const float2* twi, const float2* spec,
+                    const float2* chirp) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_block(smem, xr, xi, yr, yi, batch, geo, pf1, pf2, pi1, pi2, tf1, tf2,
+             ti1, ti2, twf, twi, spec, chirp);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                     __nv_bfloat16* yr, __nv_bfloat16* yi, long long batch,
+                     Geo geo, Plan pf1, Plan pf2, Plan pi1, Plan pi2,
+                     const float2* tf1, const float2* tf2, const float2* ti1,
+                     const float2* ti2, const float2* twf, const float2* twi,
+                     const float2* spec, const float2* chirp) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_block(smem, xr, xi, yr, yi, batch, geo, pf1, pf2, pi1, pi2, tf1, tf2,
+             ti1, ti2, twf, twi, spec, chirp);
+}
+
+// The checks and the launch of `kernel` on planes of storage type St, as
+// vk_fft_conv describes them.
+template <class St, typename K>
+int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi,
+           long long lines, int n, int mm, int rows, int flags,
+           const int* plan_f1, const int* plan_f2, const int* plan_i1,
+           const int* plan_i2, const float* table_f1, const float* table_f2,
+           const float* table_i1, const float* table_i2,
+           const float* twiddle_f, const float* twiddle_i,
+           const float* spectrum, const float* chirp, int threads, int per,
+           int smem, void* stream) {
+  Plan pf1, pf2, pi1, pi2;
+  if (lines < 1 || !vkfft::plan_from_ints(plan_f1, &pf1) ||
+      !vkfft::subplan_from_ints(plan_f2, &pf2) ||
+      !vkfft::plan_from_ints(plan_i1, &pi1) ||
+      !vkfft::subplan_from_ints(plan_i2, &pi2) || spectrum == nullptr ||
+      twiddle_f == nullptr || twiddle_i == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (pf1.n != pi1.n || pf2.n != pi2.n || pf1.inverse || pf2.inverse ||
+      !pi1.inverse || !pi2.inverse || pf1.n < pf2.n)
+    return (int)cudaErrorInvalidValue;
+  const int m = pf1.n * pf2.n;
+  if (m < 2 || m > vkfft::kMaxN || mm < 1 || mm > 3 || rows < 1 ||
+      (flags & ~(kConjData | kXpow)) || lines % mm || (mm > 1 && rows != 1))
+    return (int)cudaErrorInvalidValue;
+  if (chirp == nullptr ? n != m
+                       : (n < 1 || n >= m || mm != 1 || rows != 1 || flags))
+    return (int)cudaErrorInvalidValue;
+  const Geo geo{make_div(n), make_div(pf1.n), make_div(rows), m, per, mm,
+                pf1.n | 1, flags, table_len(pf1), table_len(pf2)};
+  const size_t need =
+      sizeof(float2) * ((size_t)per * pf2.n * (pf1.n | 1) +
+                        2 * (geo.len1 + geo.len2 + rotation_points(m)));
+  if (table_len(pi1) != geo.len1 || table_len(pi2) != geo.len2 ||
+      threads < 32 || threads > kThreads || threads % 32 != 0 || per < 1 ||
+      per % mm || (long long)per * m > vkfft::kTwoFactorMaxN ||
+      !rounds_fit(pf1, threads) || !rounds_fit(pf2, threads) ||
+      !rounds_fit(pi1, threads) || !rounds_fit(pi2, threads) || smem < 0 ||
+      (size_t)smem != need || smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (lines + per - 1) / per;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, lines, geo, pf1, pf2, pi1, pi2,
+      reinterpret_cast<const float2*>(table_f1),
+      reinterpret_cast<const float2*>(table_f2),
+      reinterpret_cast<const float2*>(table_i1),
+      reinterpret_cast<const float2*>(table_i2),
+      reinterpret_cast<const float2*>(twiddle_f),
+      reinterpret_cast<const float2*>(twiddle_i),
+      reinterpret_cast<const float2*>(spectrum),
+      reinterpret_cast<const float2*>(chirp));
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+int occupancy(K kernel, int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kThreads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 }  // namespace
@@ -222,62 +333,57 @@ int vk_fft_conv(const float* xr, const float* xi, float* yr, float* yi,
                 const float* twiddle_i, const float* spectrum,
                 const float* chirp, int threads, int per, int smem,
                 void* stream) {
-  Plan pf1, pf2, pi1, pi2;
-  if (lines < 1 || !vkfft::plan_from_ints(plan_f1, &pf1) ||
-      !vkfft::subplan_from_ints(plan_f2, &pf2) ||
-      !vkfft::plan_from_ints(plan_i1, &pi1) ||
-      !vkfft::subplan_from_ints(plan_i2, &pi2) || spectrum == nullptr ||
-      twiddle_f == nullptr || twiddle_i == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (pf1.n != pi1.n || pf2.n != pi2.n || pf1.inverse || pf2.inverse ||
-      !pi1.inverse || !pi2.inverse || pf1.n < pf2.n)
-    return (int)cudaErrorInvalidValue;
-  const int m = pf1.n * pf2.n;
-  if (m < 2 || m > vkfft::kMaxN || mm < 1 || mm > 3 || rows < 1 ||
-      (flags & ~(kConjData | kXpow)) || lines % mm || (mm > 1 && rows != 1))
-    return (int)cudaErrorInvalidValue;
-  if (chirp == nullptr ? n != m
-                       : (n < 1 || n >= m || mm != 1 || rows != 1 || flags))
-    return (int)cudaErrorInvalidValue;
-  const Geo geo{make_div(n), make_div(pf1.n), make_div(rows), m, per, mm,
-                pf1.n | 1, flags, table_len(pf1), table_len(pf2)};
-  const size_t need =
-      sizeof(float2) * ((size_t)per * pf2.n * (pf1.n | 1) +
-                        2 * (geo.len1 + geo.len2 + rotation_points(m)));
-  if (table_len(pi1) != geo.len1 || table_len(pi2) != geo.len2 ||
-      threads < 32 || threads > kThreads || threads % 32 != 0 || per < 1 ||
-      per % mm || (long long)per * m > vkfft::kTwoFactorMaxN ||
-      !rounds_fit(pf1, threads) || !rounds_fit(pf2, threads) ||
-      !rounds_fit(pi1, threads) || !rounds_fit(pi2, threads) || smem < 0 ||
-      (size_t)smem != need || smem > vkfft::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (lines + per - 1) / per;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
-  if (err) return err;
-  fft_conv_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, lines, geo, pf1, pf2, pi1, pi2,
-      reinterpret_cast<const float2*>(table_f1),
-      reinterpret_cast<const float2*>(table_f2),
-      reinterpret_cast<const float2*>(table_i1),
-      reinterpret_cast<const float2*>(table_i2),
-      reinterpret_cast<const float2*>(twiddle_f),
-      reinterpret_cast<const float2*>(twiddle_i),
-      reinterpret_cast<const float2*>(spectrum),
-      reinterpret_cast<const float2*>(chirp));
-  return (int)cudaGetLastError();
+  return launch(fft_conv_kernel, xr, xi, yr, yi, lines, n, mm, rows, flags,
+                plan_f1, plan_f2, plan_i1, plan_i2, table_f1, table_f2,
+                table_i1, table_i2, twiddle_f, twiddle_i, spectrum, chirp,
+                threads, per, smem, stream);
+}
+
+// vk_fft_conv on fp16 / bf16 planes (the tables, spectrum and chirp fp32,
+// as vk_fft_conv's).
+int vk_fft_conv_f16(const __half* xr, const __half* xi, __half* yr,
+                    __half* yi, long long lines, int n, int mm, int rows,
+                    int flags, const int* plan_f1, const int* plan_f2,
+                    const int* plan_i1, const int* plan_i2,
+                    const float* table_f1, const float* table_f2,
+                    const float* table_i1, const float* table_i2,
+                    const float* twiddle_f, const float* twiddle_i,
+                    const float* spectrum, const float* chirp, int threads,
+                    int per, int smem, void* stream) {
+  return launch(fft_conv_f16_kernel, xr, xi, yr, yi, lines, n, mm, rows,
+                flags, plan_f1, plan_f2, plan_i1, plan_i2, table_f1, table_f2,
+                table_i1, table_i2, twiddle_f, twiddle_i, spectrum, chirp,
+                threads, per, smem, stream);
+}
+
+int vk_fft_conv_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                     __nv_bfloat16* yr, __nv_bfloat16* yi, long long lines,
+                     int n, int mm, int rows, int flags, const int* plan_f1,
+                     const int* plan_f2, const int* plan_i1,
+                     const int* plan_i2, const float* table_f1,
+                     const float* table_f2, const float* table_i1,
+                     const float* table_i2, const float* twiddle_f,
+                     const float* twiddle_i, const float* spectrum,
+                     const float* chirp, int threads, int per, int smem,
+                     void* stream) {
+  return launch(fft_conv_bf16_kernel, xr, xi, yr, yi, lines, n, mm, rows,
+                flags, plan_f1, plan_f2, plan_i1, plan_i2, table_f1, table_f2,
+                table_i1, table_i2, twiddle_f, twiddle_i, spectrum, chirp,
+                threads, per, smem, stream);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`
 // dynamic shared bytes, into *blocks.
 int vk_fft_conv_occupancy(int threads, int smem, int* blocks) {
-  if (threads < 32 || threads > kThreads || smem < 0 ||
-      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
-  if (err) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fft_conv_kernel, threads, smem);
+  return occupancy(fft_conv_kernel, threads, smem, blocks);
+}
+
+int vk_fft_conv_f16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_conv_f16_kernel, threads, smem, blocks);
+}
+
+int vk_fft_conv_bf16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_conv_bf16_kernel, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -21,6 +21,15 @@
 // forward (swapped) and this kernel, with no spectrum pass and no reorder
 // in device memory.  A block reads all of its lines before it writes, so
 // the output may alias the input.
+//
+// Half storage (fft_conv_inv_f16_kernel, fft_conv_inv_bf16_kernel; C
+// entries vk_fft_conv_inv_f16, vk_fft_conv_inv_bf16): the same body,
+// layout and bound on __half or __nv_bfloat16 planes, 8 B a point of
+// device memory where fp32 moves 16; the spectrum table, the per-line
+// constants (one fp32 value a line), shared memory and every stage stay
+// fp32.  The lines come in through registers (load_lines: no 2-byte
+// cp.async), widened, and go out narrowed once, to nearest even, after the
+// constant is added (store_lines).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -45,13 +54,14 @@ struct AddLine {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-fft_conv_inv_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                    long long batch, Plan p1, Plan p2, const float2* t1,
-                    const float2* t2, const float2* tw, const float2* spec,
-                    const float* dcr, const float* dci, int lines, int pitch,
-                    int len1, int len2) {
-  extern __shared__ __align__(16) float2 smem[];
+// The block body on planes of storage type St (float, or a half type on
+// the same fp32 walk).
+template <class St>
+__device__ __forceinline__ void conv_inv_block(
+    float2* smem, const St* xr, const St* xi, St* yr, St* yi,
+    long long batch, const Plan& p1, const Plan& p2, const float2* t1,
+    const float2* t2, const float2* tw, const float2* spec, const float* dcr,
+    const float* dci, int lines, int pitch, int len1, int len2) {
   const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
   const int S = n2 * pitch;
   const int nl = block_lines(lines, batch);
@@ -61,7 +71,10 @@ fft_conv_inv_kernel(const float* xr, const float* xi, float* yr, float* yi,
   // swapped order in and natural order out: both row-major [r][c] at r * P
   // + c, position t = r * n1 + c of a line
   const Map mp = make_map(n, S, false, n1, n2, pitch);
-  load_lines_async(xr, xi, block_line0(lines) * n, nl * n, mp, home);
+  if constexpr (kNarrow<St>)
+    load_lines(xr, xi, block_line0(lines) * n, nl * n, mp, home);
+  else
+    load_lines_async(xr, xi, block_line0(lines) * n, nl * n, mp, home);
   __syncthreads();
   for (int u = threadIdx.x; u < nl * n; u += blockDim.x) {
     const int at = position(u, mp);
@@ -75,11 +88,87 @@ fft_conv_inv_kernel(const float* xr, const float* xi, float* yr, float* yi,
               AddLine{dcr, dci, line0});
 }
 
-int smem_opt_in(size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fft_conv_inv_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_inv_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                    long long batch, Plan p1, Plan p2, const float2* t1,
+                    const float2* t2, const float2* tw, const float2* spec,
+                    const float* dcr, const float* dci, int lines, int pitch,
+                    int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_inv_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, spec, dcr,
+                 dci, lines, pitch, len1, len2);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_inv_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                        __half* yi, long long batch, Plan p1, Plan p2,
+                        const float2* t1, const float2* t2, const float2* tw,
+                        const float2* spec, const float* dcr,
+                        const float* dci, int lines, int pitch, int len1,
+                        int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_inv_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, spec, dcr,
+                 dci, lines, pitch, len1, len2);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_inv_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                         __nv_bfloat16* yr, __nv_bfloat16* yi,
+                         long long batch, Plan p1, Plan p2, const float2* t1,
+                         const float2* t2, const float2* tw,
+                         const float2* spec, const float* dcr,
+                         const float* dci, int lines, int pitch, int len1,
+                         int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_inv_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, spec, dcr,
+                 dci, lines, pitch, len1, len2);
+}
+
+// The checks and the launch of `kernel` on planes of storage type St, as
+// vk_fft_conv_inv describes them.
+template <class St, typename K>
+int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi,
+           long long batch, const int* plan1, const int* plan2,
+           const float* table1, const float* table2, const float* twiddle,
+           const float* spectrum, const float* dc_re, const float* dc_im,
+           int threads, int lines, int smem, void* stream) {
+  Plan p1, p2;
+  if (batch < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
+      !vkfft::subplan_from_ints(plan2, &p2) || !p1.inverse ||
+      spectrum == nullptr || twiddle == nullptr ||
+      (dc_re == nullptr) != (dc_im == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int n = p1.n * p2.n;
+  if (n < 2 || n > vkfft::kTwoFactorMaxN || p1.n < p2.n ||
+      p1.inverse != p2.inverse || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || lines < 1 ||
+      (long long)lines * n > vkfft::kTwoFactorMaxN ||
+      !rounds_fit(p1, threads) || !rounds_fit(p2, threads) || smem < 0 ||
+      (size_t)smem != two_factor_smem(p1, p2, lines) ||
+      smem > vkfft::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (batch + lines - 1) / lines;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
+      reinterpret_cast<const float2*>(table2),
+      reinterpret_cast<const float2*>(twiddle),
+      reinterpret_cast<const float2*>(spectrum), dc_re, dc_im, lines,
+      p1.n | 1, table_len(p1), table_len(p2));
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+int occupancy(K kernel, int threads, int smem, int* blocks) {
+  if (threads < 32 || threads > kThreads || smem < 0 ||
+      smem > vkfft::kMaxSmemBytes || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 }  // namespace
@@ -101,32 +190,49 @@ int vk_fft_conv_inv(const float* xr, const float* xi, float* yr, float* yi,
                     const float* twiddle, const float* spectrum,
                     const float* dc_re, const float* dc_im, int threads,
                     int lines, int smem, void* stream) {
-  Plan p1, p2;
-  if (batch < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
-      !vkfft::subplan_from_ints(plan2, &p2) || !p1.inverse ||
-      spectrum == nullptr || twiddle == nullptr ||
-      (dc_re == nullptr) != (dc_im == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int n = p1.n * p2.n;
-  if (n < 2 || n > vkfft::kTwoFactorMaxN || p1.n < p2.n ||
-      p1.inverse != p2.inverse || threads < 32 || threads > kThreads ||
-      threads % 32 != 0 || lines < 1 ||
-      (long long)lines * n > vkfft::kTwoFactorMaxN ||
-      !rounds_fit(p1, threads) || !rounds_fit(p2, threads) || smem < 0 ||
-      (size_t)smem != two_factor_smem(p1, p2, lines) ||
-      smem > vkfft::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (batch + lines - 1) / lines;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(smem);
-  if (err) return err;
-  fft_conv_inv_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const float2*>(table1),
-      reinterpret_cast<const float2*>(table2),
-      reinterpret_cast<const float2*>(twiddle),
-      reinterpret_cast<const float2*>(spectrum), dc_re, dc_im, lines,
-      p1.n | 1, table_len(p1), table_len(p2));
-  return (int)cudaGetLastError();
+  return launch(fft_conv_inv_kernel, xr, xi, yr, yi, batch, plan1, plan2,
+                table1, table2, twiddle, spectrum, dc_re, dc_im, threads,
+                lines, smem, stream);
+}
+
+// vk_fft_conv_inv on fp16 / bf16 planes (the tables, the spectrum and the
+// per-line constants fp32, as vk_fft_conv_inv's).
+int vk_fft_conv_inv_f16(const __half* xr, const __half* xi, __half* yr,
+                        __half* yi, long long batch, const int* plan1,
+                        const int* plan2, const float* table1,
+                        const float* table2, const float* twiddle,
+                        const float* spectrum, const float* dc_re,
+                        const float* dc_im, int threads, int lines, int smem,
+                        void* stream) {
+  return launch(fft_conv_inv_f16_kernel, xr, xi, yr, yi, batch, plan1, plan2,
+                table1, table2, twiddle, spectrum, dc_re, dc_im, threads,
+                lines, smem, stream);
+}
+
+int vk_fft_conv_inv_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                         __nv_bfloat16* yr, __nv_bfloat16* yi,
+                         long long batch, const int* plan1, const int* plan2,
+                         const float* table1, const float* table2,
+                         const float* twiddle, const float* spectrum,
+                         const float* dc_re, const float* dc_im, int threads,
+                         int lines, int smem, void* stream) {
+  return launch(fft_conv_inv_bf16_kernel, xr, xi, yr, yi, batch, plan1,
+                plan2, table1, table2, twiddle, spectrum, dc_re, dc_im,
+                threads, lines, smem, stream);
+}
+
+// Resident blocks an SM of the kernel at `threads` a block and `smem`
+// dynamic shared bytes, into *blocks.
+int vk_fft_conv_inv_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_conv_inv_kernel, threads, smem, blocks);
+}
+
+int vk_fft_conv_inv_f16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_conv_inv_f16_kernel, threads, smem, blocks);
+}
+
+int vk_fft_conv_inv_bf16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_conv_inv_bf16_kernel, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -77,6 +77,15 @@
 // column tile's width is odd.  The geometry comes from the host
 // (PlaneGeo), read where it is used.  Each block writes only what it read, and every read of a plane
 // precedes the first cluster barrier, so the output may alias the input.
+//
+// Half storage of the Bluestein mode (fft_conv_pair_f16_kernel,
+// fft_conv_pair_bf16_kernel; C entries vk_fft_conv_pair_f16,
+// vk_fft_conv_pair_bf16): the same body, layout, cluster and bound on
+// __half or __nv_bfloat16 lines, 8 B a point of device memory where fp32
+// moves 16.  Only the line's read (each real widened, then times the
+// chirp) and its cropped write (times the chirp, then narrowed once, to
+// nearest even) change; the plane, its float2 exchanges, the tables and
+// every stage stay fp32.  The 2-D mode takes fp32 planes only.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -252,13 +261,15 @@ struct Lens {
   int cf, sf, si, ci;
 };
 
-__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
-fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                     int n, Plan pcf, Plan psf, Plan psi, Plan pci,
-                     const float2* tcf, const float2* tsf, const float2* tsi,
-                     const float2* tci, const float2* tw, const float2* spec,
-                     const float2* chirp, Lens len) {
-  extern __shared__ __align__(16) float2 smem[];
+// The Bluestein block body on lines of storage type St (float, or a half
+// type on the same fp32 plane).
+template <class St>
+__device__ __forceinline__ void conv_pair_block(
+    float2* smem, const St* xr, const St* xi, St* yr, St* yi, int n,
+    const Plan& pcf, const Plan& psf, const Plan& psi, const Plan& pci,
+    const float2* tcf, const float2* tsf, const float2* tsi,
+    const float2* tci, const float2* tw, const float2* spec,
+    const float2* chirp, const Lens& len) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -288,7 +299,9 @@ fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
     const int kc = walk::quot(t, dcols);
     const int k = kc * ns + c0 + t - kc * cols;
     float2 v = make_float2(0.f, 0.f);
-    if (k < n) v = cmul(make_float2(xr[base + k], xi[base + k]), __ldg(&chirp[k]));
+    if (k < n)
+      v = cmul(make_float2(walk::widen(xr[base + k]), walk::widen(xi[base + k])),
+               __ldg(&chirp[k]));
     buf[t] = v;
   }
   __syncthreads();
@@ -319,10 +332,46 @@ fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
     const int k = jc * ns + c0 + t - jc * cols;
     if (k < n) {
       const float2 v = cmul(buf[t], __ldg(&chirp[k]));
-      yr[base + k] = v.x;
-      yi[base + k] = v.y;
+      walk::put(yr[base + k], v.x);
+      walk::put(yi[base + k], v.y);
     }
   }
+}
+
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+fft_conv_pair_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                     int n, Plan pcf, Plan psf, Plan psi, Plan pci,
+                     const float2* tcf, const float2* tsf, const float2* tsi,
+                     const float2* tci, const float2* tw, const float2* spec,
+                     const float2* chirp, Lens len) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_pair_block(smem, xr, xi, yr, yi, n, pcf, psf, psi, pci, tcf, tsf, tsi,
+                  tci, tw, spec, chirp, len);
+}
+
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+fft_conv_pair_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                         __half* yi, int n, Plan pcf, Plan psf, Plan psi,
+                         Plan pci, const float2* tcf, const float2* tsf,
+                         const float2* tsi, const float2* tci,
+                         const float2* tw, const float2* spec,
+                         const float2* chirp, Lens len) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_pair_block(smem, xr, xi, yr, yi, n, pcf, psf, psi, pci, tcf, tsf, tsi,
+                  tci, tw, spec, chirp, len);
+}
+
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+fft_conv_pair_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                          __nv_bfloat16* yr, __nv_bfloat16* yi, int n,
+                          Plan pcf, Plan psf, Plan psi, Plan pci,
+                          const float2* tcf, const float2* tsf,
+                          const float2* tsi, const float2* tci,
+                          const float2* tw, const float2* spec,
+                          const float2* chirp, Lens len) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_pair_block(smem, xr, xi, yr, yi, n, pcf, psf, psi, pci, tcf, tsf, tsi,
+                  tci, tw, spec, chirp, len);
 }
 
 constexpr int kConjData = 1;
@@ -604,6 +653,54 @@ bool pair_layout_ok(const Plan& pcf, const Plan& psf, const Plan& psi,
          smem <= vkfft::kMaxSmemBytes;
 }
 
+// The checks and the cluster launch of the Bluestein `kernel` on lines of
+// storage type St, as vk_fft_conv_pair describes them.
+template <class St, typename K>
+int launch_pair(K kernel, const St* xr, const St* xi, St* yr, St* yi,
+                long long batch, int n, const int* plan_cf,
+                const int* plan_sf, const int* plan_si, const int* plan_ci,
+                const float* table_cf, const float* table_sf,
+                const float* table_si, const float* table_ci,
+                const float* twiddle, const float* spectrum,
+                const float* chirp, int cluster, int threads, int smem,
+                void* stream) {
+  Plan pcf, psf, psi, pci;
+  if (batch < 1 || !vkfft::plan_from_ints(plan_cf, &pcf) ||
+      !vkfft::plan_from_ints(plan_sf, &psf) || !vkfft::plan_from_ints(plan_si, &psi) ||
+      !vkfft::plan_from_ints(plan_ci, &pci))
+    return (int)cudaErrorInvalidValue;
+  if (pcf.n != pci.n || psf.n != psi.n || pcf.inverse || psf.inverse ||
+      !psi.inverse || !pci.inverse)
+    return (int)cudaErrorInvalidValue;
+  const long long m = (long long)pcf.n * psf.n;
+  if (n < 1 || n >= m || m > (1 << 16) || twiddle == nullptr ||
+      spectrum == nullptr || chirp == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Lens len{walk::table_len(pcf), walk::table_len(psf),
+                 walk::table_len(psi), walk::table_len(pci)};
+  if (!pair_layout_ok(pcf, psf, psi, pci, cluster, threads, smem, len))
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster(
+      kernel, batch, cluster, threads, (size_t)smem,
+      stream, xr, xi, yr, yi, n, pcf, psf, psi, pci,
+      reinterpret_cast<const float2*>(table_cf), reinterpret_cast<const float2*>(table_sf),
+      reinterpret_cast<const float2*>(table_si), reinterpret_cast<const float2*>(table_ci),
+      reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(spectrum),
+      reinterpret_cast<const float2*>(chirp), len);
+}
+
+// Resident clusters and blocks an SM of the Bluestein `kernel`.
+template <typename K>
+int pair_occupancy(K kernel, int cluster, int threads, int smem,
+                   int* clusters, int* blocks) {
+  if (!cluster_ok(cluster, cluster, cluster) || threads < 32 ||
+      threads > kPairThreads || smem < 0 || clusters == nullptr ||
+      blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return vkfft::cluster::cluster_occupancy(kernel, cluster, threads, smem,
+                                           clusters, blocks);
+}
+
 // The layout of the 2-D mode's plans (cuda_kernels.conv2d_layout, fft_pair's
 // plane) as a PlaneGeo, or false when (cluster, threads, smem) is not it:
 // every stage's round holds a whole sequence, a thread moves at most kXchg
@@ -673,29 +770,42 @@ int vk_fft_conv_pair(const float* xr, const float* xi, float* yr, float* yi,
                      const float* twiddle, const float* spectrum,
                      const float* chirp, int cluster, int threads, int smem,
                      void* stream) {
-  Plan pcf, psf, psi, pci;
-  if (batch < 1 || !vkfft::plan_from_ints(plan_cf, &pcf) ||
-      !vkfft::plan_from_ints(plan_sf, &psf) || !vkfft::plan_from_ints(plan_si, &psi) ||
-      !vkfft::plan_from_ints(plan_ci, &pci))
-    return (int)cudaErrorInvalidValue;
-  if (pcf.n != pci.n || psf.n != psi.n || pcf.inverse || psf.inverse ||
-      !psi.inverse || !pci.inverse)
-    return (int)cudaErrorInvalidValue;
-  const long long m = (long long)pcf.n * psf.n;
-  if (n < 1 || n >= m || m > (1 << 16) || twiddle == nullptr ||
-      spectrum == nullptr || chirp == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const Lens len{walk::table_len(pcf), walk::table_len(psf),
-                 walk::table_len(psi), walk::table_len(pci)};
-  if (!pair_layout_ok(pcf, psf, psi, pci, cluster, threads, smem, len))
-    return (int)cudaErrorInvalidValue;
-  return launch_cluster(
-      fft_conv_pair_kernel, batch, cluster, threads, (size_t)smem,
-      stream, xr, xi, yr, yi, n, pcf, psf, psi, pci,
-      reinterpret_cast<const float2*>(table_cf), reinterpret_cast<const float2*>(table_sf),
-      reinterpret_cast<const float2*>(table_si), reinterpret_cast<const float2*>(table_ci),
-      reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(spectrum),
-      reinterpret_cast<const float2*>(chirp), len);
+  return launch_pair(fft_conv_pair_kernel, xr, xi, yr, yi, batch, n, plan_cf,
+                     plan_sf, plan_si, plan_ci, table_cf, table_sf, table_si,
+                     table_ci, twiddle, spectrum, chirp, cluster, threads,
+                     smem, stream);
+}
+
+// vk_fft_conv_pair on fp16 / bf16 lines (the tables, spectrum and chirp
+// fp32, as vk_fft_conv_pair's).
+int vk_fft_conv_pair_f16(const __half* xr, const __half* xi, __half* yr,
+                         __half* yi, long long batch, int n,
+                         const int* plan_cf, const int* plan_sf,
+                         const int* plan_si, const int* plan_ci,
+                         const float* table_cf, const float* table_sf,
+                         const float* table_si, const float* table_ci,
+                         const float* twiddle, const float* spectrum,
+                         const float* chirp, int cluster, int threads,
+                         int smem, void* stream) {
+  return launch_pair(fft_conv_pair_f16_kernel, xr, xi, yr, yi, batch, n,
+                     plan_cf, plan_sf, plan_si, plan_ci, table_cf, table_sf,
+                     table_si, table_ci, twiddle, spectrum, chirp, cluster,
+                     threads, smem, stream);
+}
+
+int vk_fft_conv_pair_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                          __nv_bfloat16* yr, __nv_bfloat16* yi,
+                          long long batch, int n, const int* plan_cf,
+                          const int* plan_sf, const int* plan_si,
+                          const int* plan_ci, const float* table_cf,
+                          const float* table_sf, const float* table_si,
+                          const float* table_ci, const float* twiddle,
+                          const float* spectrum, const float* chirp,
+                          int cluster, int threads, int smem, void* stream) {
+  return launch_pair(fft_conv_pair_bf16_kernel, xr, xi, yr, yi, batch, n,
+                     plan_cf, plan_sf, plan_si, plan_ci, table_cf, table_sf,
+                     table_si, table_ci, twiddle, spectrum, chirp, cluster,
+                     threads, smem, stream);
 }
 
 // Resident clusters on the card and blocks an SM of the Bluestein kernel
@@ -703,12 +813,20 @@ int vk_fft_conv_pair(const float* xr, const float* xi, float* yr, float* yi,
 // *clusters and *blocks.
 int vk_fft_conv_pair_occupancy(int cluster, int threads, int smem,
                                int* clusters, int* blocks) {
-  if (!cluster_ok(cluster, cluster, cluster) || threads < 32 ||
-      threads > kPairThreads || smem < 0 || clusters == nullptr ||
-      blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return vkfft::cluster::cluster_occupancy(fft_conv_pair_kernel, cluster,
-                                           threads, smem, clusters, blocks);
+  return pair_occupancy(fft_conv_pair_kernel, cluster, threads, smem,
+                        clusters, blocks);
+}
+
+int vk_fft_conv_pair_f16_occupancy(int cluster, int threads, int smem,
+                                   int* clusters, int* blocks) {
+  return pair_occupancy(fft_conv_pair_f16_kernel, cluster, threads, smem,
+                        clusters, blocks);
+}
+
+int vk_fft_conv_pair_bf16_occupancy(int cluster, int threads, int smem,
+                                    int* clusters, int* blocks) {
+  return pair_occupancy(fft_conv_pair_bf16_kernel, cluster, threads, smem,
+                        clusters, blocks);
 }
 
 // The 2-D mode; returns as vk_fft_conv_pair.  `planes` (ny, nz) planes;

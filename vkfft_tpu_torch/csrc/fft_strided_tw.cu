@@ -70,6 +70,17 @@
 // shared bytes.  The grid is 1-D over P * tiles, offsets are 64-bit, and a
 // block reads its whole tile before it writes, so the output may alias the
 // input in the natural modes with in_len = out_len and in_pd = out_pd.
+//
+// Half storage (fft_strided_tw_f16_kernel, fft_strided_tw_bf16_kernel; C
+// entries vk_fft_strided_tw_f16, vk_fft_strided_tw_bf16): the fp32
+// kernel's body, layout, bound and factors on __half or __nv_bfloat16
+// planes, 8 B a point of device memory where fp32 moves 16; the tile,
+// tables, factors and stages stay fp32.  cp.async has no 2-byte copy, so
+// every read takes the register path of a pre factor (four halves a plane
+// in one 8-byte load where the runs are aligned to four, else single
+// halves), widened, with or without the factor; every write, the post
+// factor and the transposed and interleaved layouts included, narrows
+// once, to nearest even, after the fp32 product.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -200,13 +211,32 @@ __device__ __forceinline__ int tile_pos(int c, int j, const Map& mp) {
   return c * mp.S + a * mp.A + (j - a * (int)mp.dd.d) * mp.B;
 }
 
+// A real of a plane as fp32: floats through the read-only cache, halves
+// widened.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+template <class St>
+__device__ __forceinline__ float ld(const St* p) {
+  return widen(*p);
+}
+
+// Four neighbouring reals of a plane, aligned to four, as fp32: one
+// float4 through the read-only cache, or four halves in one 8-byte load.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+template <class St>
+__device__ __forceinline__ float4 ld4(const St* p) {
+  return load4(p);
+}
+
 // The tile's columns from rows of plane p (interleaved by g.in_pd), point
 // (j, c) straight to tile_pos(c, j): by cp.async, each float to its place,
-// or with a pre factor through registers (float4s of four columns where
-// the plane is whole and every run 16-byte aligned), times the factor;
-// points past the live length as zeros.  Returns when this thread's
-// copies have landed.
-__device__ void load_rows(const float* xr, const float* xi, const Place& at,
+// or with a pre factor or from half planes through registers (four
+// columns at once where the plane is whole and every run aligned to
+// four), times the factor; points past the live length as zeros.
+// Returns when this thread's copies have landed.
+template <class St>
+__device__ void load_rows(const St* xr, const St* xi, const Place& at,
                           const Geo& g, const Map& mp, const Factor& f,
                           float2* home) {
   const int n = mp.dn.d;
@@ -214,19 +244,20 @@ __device__ void load_rows(const float* xr, const float* xi, const Place& at,
   const long long base = (at.p / pd) * pd * len + (at.p % pd) * S + at.s0;
   const long long rs = pd * S;
   const bool whole = len == n * S;
-  if (f.kind && whole && at.cols == g.ts && ((g.ts | S | at.s0) & 3) == 0 &&
-      aligned16(xr, xi)) {
+  if ((kNarrow<St> || f.kind) && whole && at.cols == g.ts &&
+      ((g.ts | S | at.s0) & 3) == 0 && group_aligned(xr, xi)) {
     const int c4 = g.ts >> 2;
     const Div dc = make_div(c4);
     for (int q = threadIdx.x; q < n * c4; q += blockDim.x) {
       const int j = quot(q, dc);
       const int c = 4 * (q - j * c4);
       const long long gi = base + j * rs + c;
-      const float4 r = __ldg(reinterpret_cast<const float4*>(xr + gi));
-      const float4 i = __ldg(reinterpret_cast<const float4*>(xi + gi));
+      const float4 r = ld4(xr + gi);
+      const float4 i = ld4(xi + gi);
       float2 v[4] = {make_float2(r.x, i.x), make_float2(r.y, i.y),
                      make_float2(r.z, i.z), make_float2(r.w, i.w)};
-      times_factors(v, f, at.p, j, at.s0 + c, S, 0, 1);
+      if (!kNarrow<St> || f.kind)
+        times_factors(v, f, at.p, j, at.s0 + c, S, 0, 1);
 #pragma unroll
       for (int k = 0; k < 4; ++k) home[tile_pos(c + k, j, mp)] = v[k];
     }
@@ -242,12 +273,16 @@ __device__ void load_rows(const float* xr, const float* xi, const Place& at,
     if (f.kind) {
       float2 v = make_float2(0.f, 0.f);
       if (live)
-        v = cmul(make_float2(__ldg(xr + gi), __ldg(xi + gi)),
+        v = cmul(make_float2(ld(xr + gi), ld(xi + gi)),
                  factor_at(f, at.p, j, at.s0 + c, S));
       *d = v;
     } else if (live) {
-      cp_async4(reinterpret_cast<float*>(d), xr + gi);
-      cp_async4(reinterpret_cast<float*>(d) + 1, xi + gi);
+      if constexpr (kNarrow<St>) {
+        *d = make_float2(widen(xr[gi]), widen(xi[gi]));
+      } else {
+        cp_async4(reinterpret_cast<float*>(d), xr + gi);
+        cp_async4(reinterpret_cast<float*>(d) + 1, xi + gi);
+      }
     } else {
       *d = make_float2(0.f, 0.f);
     }
@@ -255,24 +290,27 @@ __device__ void load_rows(const float* xr, const float* xi, const Place& at,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Mode 1's read: the tile's columns, each one run of n floats from float
+// Mode 1's read: the tile's columns, each one run of n reals from real
 // offset g0 (column c at g0 + c * n), point (j, c) straight to tile_pos(c,
-// j), by cp.async or with a pre factor through registers (float4s of four
-// rows where n and the runs are 16-byte aligned).  Returns when this
-// thread's copies have landed.
-__device__ void load_columns(const float* xr, const float* xi, long long g0,
+// j), by cp.async or with a pre factor or from half planes through
+// registers (four rows at once where n and the runs are aligned to four).
+// Returns when this thread's copies have landed.
+template <class St>
+__device__ void load_columns(const St* xr, const St* xi, long long g0,
                              const Place& at, long long S, const Map& mp,
                              const Factor& f, float2* home) {
   const int n = mp.dn.d;
-  if (f.kind && ((g0 | n) & 3) == 0 && aligned16(xr, xi)) {
+  if ((kNarrow<St> || f.kind) && ((g0 | n) & 3) == 0 &&
+      group_aligned(xr, xi)) {
     for (int u = 4 * threadIdx.x; u < n * at.cols; u += 4 * blockDim.x) {
       const int c = quot(u, mp.dn);
       const int j = u - c * n;
-      const float4 r = __ldg(reinterpret_cast<const float4*>(xr + g0 + u));
-      const float4 i = __ldg(reinterpret_cast<const float4*>(xi + g0 + u));
+      const float4 r = ld4(xr + g0 + u);
+      const float4 i = ld4(xi + g0 + u);
       float2 v[4] = {make_float2(r.x, i.x), make_float2(r.y, i.y),
                      make_float2(r.z, i.z), make_float2(r.w, i.w)};
-      times_factors(v, f, at.p, j, at.s0 + c, S, 1, 0);
+      if (!kNarrow<St> || f.kind)
+        times_factors(v, f, at.p, j, at.s0 + c, S, 1, 0);
       // the four stores in an order rotated by the lane: distinct banks
       int pos[4];
 #pragma unroll
@@ -290,8 +328,10 @@ __device__ void load_columns(const float* xr, const float* xi, long long g0,
     const int j = u - c * n;
     float2* d = home + tile_pos(c, j, mp);
     if (f.kind) {
-      *d = cmul(make_float2(__ldg(xr + g0 + u), __ldg(xi + g0 + u)),
+      *d = cmul(make_float2(ld(xr + g0 + u), ld(xi + g0 + u)),
                 factor_at(f, at.p, j, at.s0 + c, S));
+    } else if constexpr (kNarrow<St>) {
+      *d = make_float2(widen(xr[g0 + u]), widen(xi[g0 + u]));
     } else {
       cp_async4(reinterpret_cast<float*>(d), xr + g0 + u);
       cp_async4(reinterpret_cast<float*>(d) + 1, xi + g0 + u);
@@ -301,17 +341,18 @@ __device__ void load_columns(const float* xr, const float* xi, long long g0,
 }
 
 // The tile back to rows of plane p (interleaved by g.out_pd), times the
-// post factor, where the point is inside the live length: float4s where
-// every run is 16-byte aligned, else single floats.
-__device__ void store_rows(const float2* home, const Map& mp, float* yr,
-                           float* yi, const Place& at, const Geo& g,
-                           const Factor& f) {
+// post factor, where the point is inside the live length: four reals a
+// plane at once (store4) where every run is aligned to four, else single
+// reals, narrowed to the planes' storage type.
+template <class St>
+__device__ void store_rows(const float2* home, const Map& mp, St* yr, St* yi,
+                           const Place& at, const Geo& g, const Factor& f) {
   const int n = mp.dn.d;
   const long long S = g.S, pd = g.out_pd, len = g.out_len;
   const long long base = (at.p / pd) * pd * len + (at.p % pd) * S + at.s0;
   const long long rs = pd * S;
   if (at.cols == g.ts && ((g.ts | S | at.s0 | len) & 3) == 0 &&
-      aligned16(yr, yi)) {
+      group_aligned(yr, yi)) {
     const int c4 = g.ts >> 2;
     const Div dc = make_div(c4);
     for (int q = threadIdx.x; q < n * c4; q += blockDim.x) {
@@ -323,10 +364,8 @@ __device__ void store_rows(const float2* home, const Map& mp, float* yr,
         for (int i = 0; i < 4; ++i) v[i] = home[tile_pos(c + i, k, mp)];
         if (f.kind) times_factors(v, f, at.p, k, at.s0 + c, S, 0, 1);
         const long long gi = base + k * rs + c;
-        *reinterpret_cast<float4*>(yr + gi) =
-            make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
-        *reinterpret_cast<float4*>(yi + gi) =
-            make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+        store4(yr + gi, v[0].x, v[1].x, v[2].x, v[3].x);
+        store4(yi + gi, v[0].y, v[1].y, v[2].y, v[3].y);
       }
     }
     return;
@@ -339,22 +378,23 @@ __device__ void store_rows(const float2* home, const Map& mp, float* yr,
       float2 v = home[tile_pos(c, k, mp)];
       if (f.kind) v = cmul(v, factor_at(f, at.p, k, at.s0 + c, S));
       const long long gi = base + k * rs + c;
-      yr[gi] = v.x;
-      yi[gi] = v.y;
+      put(yr[gi], v.x);
+      put(yi[gi], v.y);
     }
   }
 }
 
 // Mode 2's store with a post factor: point t of column c of the tile to
-// float offset g0 + c * n + t, four rows a thread as float4s where n and
-// the runs are 16-byte aligned, else one point a thread (store_lines takes
-// the tile without one).
+// real offset g0 + c * n + t, four rows a thread at once (store4) where n
+// and the runs are aligned to four, else one point a thread, narrowed to
+// the planes' storage type (store_lines takes the tile without one).
+template <class St>
 __device__ void store_columns_factored(const float2* home, const Map& mp,
-                                       float* yr, float* yi, long long g0,
+                                       St* yr, St* yi, long long g0,
                                        const Place& at, long long S,
                                        const Factor& f) {
   const int n = mp.dn.d;
-  if (((g0 | n) & 3) == 0 && aligned16(yr, yi)) {
+  if (((g0 | n) & 3) == 0 && group_aligned(yr, yi)) {
     for (int u = 4 * threadIdx.x; u < n * at.cols; u += 4 * blockDim.x) {
       const int c = quot(u, mp.dn);
       const int t = u - c * n;
@@ -369,10 +409,8 @@ __device__ void store_columns_factored(const float2* home, const Map& mp,
       for (int k = 0; k < 4; ++k) v[k] = home[pos[k]];
       rotate(v, (4 - rot) & 3);
       times_factors(v, f, at.p, t, at.s0 + c, S, 1, 0);
-      *reinterpret_cast<float4*>(yr + g0 + u) =
-          make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
-      *reinterpret_cast<float4*>(yi + g0 + u) =
-          make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+      store4(yr + g0 + u, v[0].x, v[1].x, v[2].x, v[3].x);
+      store4(yi + g0 + u, v[0].y, v[1].y, v[2].y, v[3].y);
     }
     return;
   }
@@ -380,8 +418,8 @@ __device__ void store_columns_factored(const float2* home, const Map& mp,
     const int c = quot(u, mp.dn);
     const float2 v = cmul(home[tile_pos(c, u - c * n, mp)],
                           factor_at(f, at.p, u - c * n, at.s0 + c, S));
-    yr[g0 + u] = v.x;
-    yi[g0 + u] = v.y;
+    put(yr[g0 + u], v.x);
+    put(yi[g0 + u], v.y);
   }
 }
 
@@ -411,11 +449,12 @@ __device__ __forceinline__ void tile_passes(float2* smem, const Geo& g,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-fft_strided_tw_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                      Plan p1, Plan p2, const float2* t1, const float2* t2,
-                      const float2* tw, Geo g, Factor pre, Factor post) {
-  extern __shared__ __align__(16) float2 smem[];
+// The block body on planes of storage type St.
+template <class St>
+__device__ __forceinline__ void strided_tw_block(
+    float2* smem, const St* xr, const St* xi, St* yr, St* yi, const Plan& p1,
+    const Plan& p2, const float2* t1, const float2* t2, const float2* tw,
+    const Geo& g, const Factor& pre, const Factor& post) {
   const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
   const int pitch = n1 | 1;
   float2* s1 = smem + g.ts * g.stride;
@@ -444,6 +483,32 @@ fft_strided_tw_kernel(const float* xr, const float* xi, float* yr, float* yi,
     store_rows(smem, out, yr, yi, at, g, post);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_tw_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                      Plan p1, Plan p2, const float2* t1, const float2* t2,
+                      const float2* tw, Geo g, Factor pre, Factor post) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_tw_block(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, g, pre, post);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_tw_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                          __half* yi, Plan p1, Plan p2, const float2* t1,
+                          const float2* t2, const float2* tw, Geo g,
+                          Factor pre, Factor post) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_tw_block(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, g, pre, post);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_tw_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                           __nv_bfloat16* yr, __nv_bfloat16* yi, Plan p1,
+                           Plan p2, const float2* t1, const float2* t2,
+                           const float2* tw, Geo g, Factor pre, Factor post) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_tw_block(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, g, pre, post);
+}
+
 // Factor from its host form: kind, sign, N, a, pm, b, sd, sm.
 bool factor_from(const long long* v, Factor* f) {
   f->kind = (int)v[0];
@@ -467,33 +532,16 @@ bool factor_from(const long long* v, Factor* f) {
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success).  (P, n, S) planes (mode 1: the input (P, S, n); mode 2: the
-// output), the live lengths (and per-plane strides) in_len and out_len,
-// each at most n * S; plans (int form) of the two factors of n = n1 * n2
-// (the second the empty plan of length 1 for one pass), their stage
-// tables (no scale) and the inter-factor twiddle as two tables, 64 points
-// w_n^b then ceil(n / 64) points scale * w_n^(64 a), all as interleaved
-// fp32 pairs; `factors` the pre and the post factor as 8 long longs each
-// (kind, sign, N, a, pm, b, sd, sm); the input's and the output's plane
-// interleave in_pd and out_pd (1: none; more only for whole (n, S)
-// planes, P a multiple); the mode (0 natural, 1 the input transposed, 2
-// the output transposed; 1 and 2 only for whole planes, no interleave).
-// The layout (cuda_kernels.strided_tw_layout): `ts` columns a block (1 <=
-// ts <= S), `threads` a block (a multiple of 32 up to 1024, enough for a
-// whole sequence of every stage in a round) and the dynamic shared bytes,
-// exactly; any other layout is refused (cudaErrorInvalidValue).
-int vk_fft_strided_tw(const float* xr, const float* xi, float* yr, float* yi,
-                      long long P, long long S, long long in_len,
-                      long long out_len, const int* plan1, const int* plan2,
-                      const float* table1, const float* table2,
-                      const float* twiddle, const long long* factors,
-                      int in_pd, int out_pd, int mode, int ts, int threads,
-                      int smem, void* stream) {
+// The checks and the launch of `kernel` on planes of storage type St
+// (float, or a half type on the same fp32 walk), as vk_fft_strided_tw
+// describes them.
+template <class St, typename K>
+int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi, long long P,
+           long long S, long long in_len, long long out_len, const int* plan1,
+           const int* plan2, const float* table1, const float* table2,
+           const float* twiddle, const long long* factors, int in_pd,
+           int out_pd, int mode, int ts, int threads, int smem,
+           void* stream) {
   Plan p1, p2;
   Factor pre, post;
   if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
@@ -525,28 +573,100 @@ int vk_fft_strided_tw(const float* xr, const float* xi, float* yr, float* yi,
     return (int)cudaErrorInvalidValue;
   const long long tiles = (S + ts - 1) / ts;
   if (P * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(fft_strided_tw_kernel, smem);
+  const int err = smem_opt_in(kernel, smem);
   if (err) return err;
   const Geo g{S, tiles, in_len, out_len, in_pd, out_pd, ts, stride, mode,
               len1, len2};
-  fft_strided_tw_kernel<<<(unsigned)(P * tiles), threads, smem,
-                          (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, p1, p2, reinterpret_cast<const float2*>(table1),
       reinterpret_cast<const float2*>(table2),
       reinterpret_cast<const float2*>(twiddle), g, pre, post);
   return (int)cudaGetLastError();
 }
 
-// Resident blocks an SM of the kernel at `threads` a block and `smem`
-// dynamic shared bytes, into *blocks.
-int vk_fft_strided_tw_occupancy(int threads, int smem, int* blocks) {
+template <typename K>
+int occupancy(K kernel, int threads, int smem, int* blocks) {
   if (threads < 32 || threads > kThreads || smem < 0 ||
       smem > vkfft::kMaxSmemBytes || blocks == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int err = smem_opt_in(fft_strided_tw_kernel, smem);
+  const int err = smem_opt_in(kernel, smem);
   if (err) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fft_strided_tw_kernel, threads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches on `stream`; returns cudaGetLastError() after the launch (0 on
+// success).  (P, n, S) planes (mode 1: the input (P, S, n); mode 2: the
+// output), the live lengths (and per-plane strides) in_len and out_len,
+// each at most n * S; plans (int form) of the two factors of n = n1 * n2
+// (the second the empty plan of length 1 for one pass), their stage
+// tables (no scale) and the inter-factor twiddle as two tables, 64 points
+// w_n^b then ceil(n / 64) points scale * w_n^(64 a), all as interleaved
+// fp32 pairs; `factors` the pre and the post factor as 8 long longs each
+// (kind, sign, N, a, pm, b, sd, sm); the input's and the output's plane
+// interleave in_pd and out_pd (1: none; more only for whole (n, S)
+// planes, P a multiple); the mode (0 natural, 1 the input transposed, 2
+// the output transposed; 1 and 2 only for whole planes, no interleave).
+// The layout (cuda_kernels.strided_tw_layout): `ts` columns a block (1 <=
+// ts <= S), `threads` a block (a multiple of 32 up to 1024, enough for a
+// whole sequence of every stage in a round) and the dynamic shared bytes,
+// exactly; any other layout is refused (cudaErrorInvalidValue).
+int vk_fft_strided_tw(const float* xr, const float* xi, float* yr, float* yi,
+                      long long P, long long S, long long in_len,
+                      long long out_len, const int* plan1, const int* plan2,
+                      const float* table1, const float* table2,
+                      const float* twiddle, const long long* factors,
+                      int in_pd, int out_pd, int mode, int ts, int threads,
+                      int smem, void* stream) {
+  return launch(fft_strided_tw_kernel, xr, xi, yr, yi, P, S, in_len, out_len,
+                plan1, plan2, table1, table2, twiddle, factors, in_pd, out_pd,
+                mode, ts, threads, smem, stream);
+}
+
+// vk_fft_strided_tw on fp16 / bf16 planes (the tables and factors fp32,
+// as vk_fft_strided_tw's).
+int vk_fft_strided_tw_f16(const __half* xr, const __half* xi, __half* yr,
+                          __half* yi, long long P, long long S,
+                          long long in_len, long long out_len,
+                          const int* plan1, const int* plan2,
+                          const float* table1, const float* table2,
+                          const float* twiddle, const long long* factors,
+                          int in_pd, int out_pd, int mode, int ts,
+                          int threads, int smem, void* stream) {
+  return launch(fft_strided_tw_f16_kernel, xr, xi, yr, yi, P, S, in_len,
+                out_len, plan1, plan2, table1, table2, twiddle, factors,
+                in_pd, out_pd, mode, ts, threads, smem, stream);
+}
+
+int vk_fft_strided_tw_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                           __nv_bfloat16* yr, __nv_bfloat16* yi, long long P,
+                           long long S, long long in_len, long long out_len,
+                           const int* plan1, const int* plan2,
+                           const float* table1, const float* table2,
+                           const float* twiddle, const long long* factors,
+                           int in_pd, int out_pd, int mode, int ts,
+                           int threads, int smem, void* stream) {
+  return launch(fft_strided_tw_bf16_kernel, xr, xi, yr, yi, P, S, in_len,
+                out_len, plan1, plan2, table1, table2, twiddle, factors,
+                in_pd, out_pd, mode, ts, threads, smem, stream);
+}
+
+// Resident blocks an SM of the kernel at `threads` a block and `smem`
+// dynamic shared bytes, into *blocks.
+int vk_fft_strided_tw_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_strided_tw_kernel, threads, smem, blocks);
+}
+
+int vk_fft_strided_tw_f16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_strided_tw_f16_kernel, threads, smem, blocks);
+}
+
+int vk_fft_strided_tw_bf16_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_strided_tw_bf16_kernel, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

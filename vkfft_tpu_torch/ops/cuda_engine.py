@@ -86,17 +86,23 @@ lengths; `f64_supports` for a whole configuration, the one rule the API's
 DOUBLE route reads); no other route has fp64 kernels yet.
 
 float16 and bfloat16 planes (the storage tiers: half the bytes, fp32
-arithmetic) run the half-storage instantiations of `fft_lines`,
-`fft_twofactor`, `fft_strided` and `fft_pair` wherever every axis of the
-call is one of theirs (`storage_axis_supports`: n <= 4 as tensor ops
-widened to fp32, else DIRECT lengths of `fft_lines` or `fft_twofactor`;
-`storage_supports` for a whole configuration); `check_walk` refuses a walk
-with any other axis before its first launch.
+arithmetic) run every C2C route above on the half-storage instantiations
+of its kernels (`ck.STORAGE_KERNELS`; `storage_axis_supports` holds
+wherever `supports` does, n <= 4 as tensor ops widened to fp32).  The glue
+between the kernels (Rader's DC sum and x0 terms, SPLIT's twiddle, the
+Bluestein chirps and spectrum of the composed routes) computes in fp32
+and narrows once to the planes' dtype, so every launch stays on the half
+instantiations.  The inverse of the long tier on half planes scales each
+upload by its own factor's 1/n_k (the rest of the caller's scale on the
+last), as SPLIT's inverse does its first factor, so no unnormalized
+intermediate leaves float16's range; fp32 keeps the whole scale on the
+last pass.
 
-What raises ``NotImplementedError`` naming its ROADMAP item: float64 and
-the half dtypes on every other route (Rader, Bluestein, SPLIT, the long
-tier), and every other dtype (queue 1 item 10); zero-pad keeps (queue 1
-item 8).  `route`
+What raises ``NotImplementedError`` naming its ROADMAP item: float64 on
+every route but the fp64 kernels' DIRECT lengths, real and R2R data and
+convolution on any dtype but float32, and every other dtype (queue 1
+item 10); zero-pad keeps (queue 1 item 8).  `check_walk` refuses a C2C
+walk with such an axis before its first launch.  `route`
 raises ValueError for a length no split of the long tier holds (beyond
 2^40, or more primes above 64 than three uploads can place).  Nothing
 here falls back to the plain engine or to a kernel's plain version.
@@ -214,14 +220,12 @@ def f64_supports(shape, axes) -> bool:
 
 def storage_axis_supports(plan: AxisPlan) -> bool:
     """Whether float16 / bfloat16 planes run along an axis of ``plan`` on
-    the half-storage kernels, minor or not: n <= 4 (tensor ops, widened to
-    fp32) or a DIRECT plan of `fft_lines`' or `fft_twofactor`'s lengths
-    (the minor axis in those kernels; any other axis in `fft_strided` where
-    `kernel_supports` holds, else on the contiguous route; two minor axes
-    in `fft_pair` where `pair_supports` holds at the half dtype)."""
-    return plan.n <= 4 or (plan.algorithm is Algorithm.DIRECT
-                           and (ck.kernel_supports(plan.n)
-                                or ck.twofactor_supports(plan.n)))
+    the half-storage kernels, minor or not: wherever `supports` holds
+    (every route has its half instantiations: n <= 4 as tensor ops widened
+    to fp32; a non-minor axis in `fft_strided` where `kernel_supports`
+    holds, else on the contiguous route; two minor axes in `fft_pair`
+    where `pair_supports` holds at the half dtype)."""
+    return supports(plan)
 
 
 def storage_supports(shape, axes) -> bool:
@@ -263,9 +267,8 @@ def _dtype_error(dtype: torch.dtype) -> NotImplementedError:
     return NotImplementedError(
         f"CUDA engine runs float32 planes, float64 on the C2C routes of the "
         f"fp64 kernels (DIRECT lengths of fft_lines, n <= 4), and float16 / "
-        f"bfloat16 on those of the half-storage kernels (DIRECT lengths of "
-        f"fft_lines and fft_twofactor, n <= 4); {dtype} here is ROADMAP "
-        "queue 1 item 10")
+        f"bfloat16 on every C2C route (not on real, R2R or convolution "
+        f"data); {dtype} here is ROADMAP queue 1 item 10")
 
 
 def _check_dtype(x, ok=None) -> None:
@@ -308,14 +311,37 @@ def _tiny_dft_p(x: Planar, n: int, inverse: bool, scale: float) -> Planar:
     return y * scale if scale != 1.0 else y
 
 
+def _pass_scales(dtype: torch.dtype, factors: tuple, inverse: bool,
+                 scale: float) -> tuple:
+    """The scale of each pass over ``factors`` (in launch order) of one
+    axis: the caller's on the last; on the inverse of half planes each
+    pass but the last its own factor's 1/n_k and the last the rest, so no
+    unnormalized intermediate of the inverse leaves float16's range (an
+    unnormalized first upload at 2^26 grows a unit-variance spectrum past
+    65504)."""
+    if not inverse or dtype not in ck.STORAGE_DTYPES:
+        return (1.0,) * (len(factors) - 1) + (scale,)
+    return (tuple(1.0 / f for f in factors[:-1])
+            + (scale * math.prod(factors[:-1]),))
+
+
+def _narrow(x: Planar, dtype: torch.dtype) -> Planar:
+    """The glue's fp32 result at the planes' storage dtype, narrowed once
+    (torch promotes a half plane times an fp32 table to fp32, which would
+    launch the fp32 kernels next)."""
+    return x if x.dtype == dtype else x.astype(dtype)
+
+
 def _split_p(x: Planar, plan: AxisPlan, inverse: bool,
              scale: float) -> Planar:
     """SPLIT n = fa*fb (``pallas_engine.py:628-645``): the fa-point lines
     of the (fb, fa) transpose, the twiddle, the fb-point lines of the (fa,
     fb) transpose with the caller's scale, and the transpose back; the
-    transposes and the multiply are tensor ops."""
+    transposes and the multiply are tensor ops (on half planes the
+    multiply in fp32, narrowed once; the inverse's scale `_pass_scales`)."""
     fa, fb = plan.decomp.split
     B = x.shape[0]
+    sa, sb = _pass_scales(x.dtype, (fa, fb), inverse, scale)
     tw = ck.table_planar(ck.device_array(
         ("split", fa, fb, inverse), x.device,
         lambda: luts.ct_twiddle(fa, fb, inverse))).reshape(fb, fa)
@@ -325,10 +351,11 @@ def _split_p(x: Planar, plan: AxisPlan, inverse: bool,
                         for t in (p.re, p.im)))
 
     y = swap(x, fa, fb).reshape(B * fb, fa)
-    y = fft_lines_p(y, plan_axis(fa), inverse, donate=True).reshape(B, fb, fa)
-    y = swap(y * tw[None], fb, fa).reshape(B * fa, fb)
+    y = fft_lines_p(y, plan_axis(fa), inverse, donate=True,
+                    scale=sa).reshape(B, fb, fa)
+    y = swap(_narrow(y * tw[None], x.dtype), fb, fa).reshape(B * fa, fb)
     y = fft_lines_p(y, plan_axis(fb), inverse, donate=True,
-                    scale=scale).reshape(B, fa, fb)
+                    scale=sb).reshape(B, fa, fb)
     return swap(y, fa, fb).reshape(B, plan.n)
 
 
@@ -353,17 +380,27 @@ def _rader_p(x: Planar, p: int, scale: float, kernel: str) -> Planar:
     `fft_twofactor` (swapped) + `fft_conv_inv` with X0 = x0 + F[0] riding
     the forward's bin 0 and x0 the store (the DC-fused branch, l.686-716).
     ``kernel`` is the first of them on `route`.  The gathers, the DC sum
-    and the concatenation are tensor ops."""
-    dev = x.device
+    and the concatenation are tensor ops (on half planes the DC sum, the
+    x0 terms and X0 in fp32, each narrowed once).  `fft_conv`'s x0 term
+    rides its input: the kernel b_k = w^(g^-k) sums to -1, so the
+    convolution of x[perm] - x0 is the convolution of x[perm] plus x0
+    (times the scale in the spectrum).  Added to the narrowed output of
+    half planes, the common x0 rounded every output of a binade the same
+    way, a coherent error (ten times the propagated error of one rounding
+    in the round trip at 5003); on the input side its rounding is a few
+    ulps of the input, under the output's."""
+    dev, dt = x.device, x.dtype
     perm, order = _rader_index(p, dev)
-    x0 = x[:, :1]
-    xg = Planar(x.re[:, perm], x.im[:, perm])
+    x0 = x[:, :1].astype(torch.float32)
     if kernel == "fft_conv":
-        X0 = Planar(x.re.sum(1, keepdim=True), x.im.sum(1, keepdim=True))
-        c = ck.fft_conv(xg.re, xg.im, ck.rader_spectrum(p, scale, dev),
-                        out=(xg.re, xg.im))
-        val = x0 * scale + Planar(*c)
+        X0 = Planar(x.re.sum(1, keepdim=True, dtype=torch.float32),
+                    x.im.sum(1, keepdim=True, dtype=torch.float32))
+        xg = _narrow(Planar(x.re[:, perm], x.im[:, perm]) - x0, dt)
+        val = Planar(*ck.fft_conv(xg.re, xg.im,
+                                  ck.rader_spectrum(p, scale, dev),
+                                  out=(xg.re, xg.im)))
     else:
+        xg = Planar(x.re[:, perm], x.im[:, perm])
         fr, fi = ck.fft_twofactor(xg.re, xg.im, swapped=True,
                                   out=(xg.re, xg.im))
         # bin 0 sits at position 0 of the swapped order; X0 is taken
@@ -373,7 +410,7 @@ def _rader_p(x: Planar, p: int, scale: float, kernel: str) -> Planar:
         val = Planar(*ck.fft_conv_inv(
             fr, fi, ck.rader_spectrum(p, scale, dev, "swapped"), dc=dc,
             out=(fr, fi)))
-    X0 = X0 * scale
+    X0 = _narrow(X0 * scale, dt)
     return Planar(torch.cat([X0.re, val.re[:, order]], 1),
                   torch.cat([X0.im, val.im[:, order]], 1))
 
@@ -386,7 +423,8 @@ def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
     the pad as tensor ops around `fft_twofactor` (swapped) +
     `fft_conv_inv`; the fused long tier (`_bluestein_long_p`); the
     composition on the long DIRECT routes (`_bluestein_composed_p`).  1/m
-    and the caller's scale ride the spectrum or the last kernel."""
+    and the caller's scale ride the spectrum or the last kernel.  On half
+    planes the tensor-op chirps compute in fp32 and narrow once."""
     n, m = plan.n, plan.decomp.bluestein_size
     dev = x.device
     kernel = kernels[0][0]
@@ -402,12 +440,12 @@ def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
         spec = ck.bluestein_spectrum(n, m, inverse, scale, dev, "pair")
         return Planar(*ck.fft_conv_pair(x.re, x.im, spec, chirp))
     a = ck.table_planar(chirp)[None]
-    y = x * a
+    y = _narrow(x * a, x.dtype)
     y = Planar(*(torch.nn.functional.pad(t, (0, m - n)) for t in (y.re, y.im)))
     fr, fi = ck.fft_twofactor(y.re, y.im, swapped=True, out=(y.re, y.im))
     spec = ck.bluestein_spectrum(n, m, inverse, scale, dev, "swapped")
     vr, vi = ck.fft_conv_inv(fr, fi, spec, out=(fr, fi))
-    return Planar(vr[:, :n], vi[:, :n]) * a
+    return _narrow(Planar(vr[:, :n], vi[:, :n]) * a, x.dtype)
 
 
 def _bluestein_long_p(x: Planar, n: int, m: int, inverse: bool,
@@ -440,17 +478,19 @@ def _bluestein_composed_p(x: Planar, n: int, m: int, inverse: bool,
     (``pallas_engine.py:665-672`` with ``:400-402``): the chirp and the pad
     as tensor ops, the long forward in the swapped order, the spectrum (in
     that order) multiplied as a tensor op, the long inverse from the
-    swapped order with the caller's scale, the crop and the chirp."""
-    dev = x.device
+    swapped order with the caller's scale, the crop and the chirp (on half
+    planes the three multiplies in fp32, each narrowed once; the long
+    inverse's per-upload scale, `_pass_scales`)."""
+    dev, dt = x.device, x.dtype
     a = ck.table_planar(ck.bluestein_chirp(n, m, inverse, dev))[None]
-    y = x * a
+    y = _narrow(x * a, dt)
     y = Planar(*(torch.nn.functional.pad(t, (0, m - n)) for t in (y.re, y.im)))
     Y = fft_long_p(y, m, False, order="swapped", donate=True)
     spec = ck.table_planar(ck.bluestein_spectrum(n, m, inverse, 1.0, dev,
                                                  "long_swapped"))
-    Y = Y * spec[None]
+    Y = _narrow(Y * spec[None], dt)
     z = fft_long_p(Y, m, True, scale, order="swapped", donate=True)
-    return Planar(z.re[:, :n], z.im[:, :n]) * a
+    return _narrow(Planar(z.re[:, :n], z.im[:, :n]) * a, dt)
 
 
 def _lines(x: Planar, n: int, inverse: bool, scale: float = 1.0) -> Planar:
@@ -473,15 +513,19 @@ def fft_long_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
     pass as `fft_strided` over its rows (the JAX package's free reorder,
     ``pallas_engine.py:4242-4252``).  The inverse mirrors it, the
     conjugate twiddle on the strided pass's read and the scale in its
-    stages.  ``order="swapped"`` leaves (reads) the (kc, ks) order and
-    skips the reorder; a forward and an inverse cancel it.
-    ``donate=True`` lets the first pass write over the caller's planes."""
+    stages (on half planes each upload its own factor's 1/n_k and the
+    rest of the scale on the last, `_pass_scales`).  ``order="swapped"``
+    leaves (reads) the (kc, ks) order and skips the reorder; a forward and
+    an inverse cancel it.  ``donate=True`` lets the first pass write over
+    the caller's planes."""
     split = split or ck.long_split(n)
     if len(split) == 3:
         return fft_long3_p(x, n, inverse, scale, order, split, donate)
     nc, ns = split
     B = x.shape[0]
     x = x.contiguous()
+    # the inverse's uploads in launch order: ns, then nc
+    s_ns, s_nc = _pass_scales(x.dtype, (ns, nc), inverse, scale)
     if order == "natural" and ck.long_folds(split):
         if not inverse:
             t = ck.fft_strided(x.re.reshape(B, nc, ns),
@@ -490,9 +534,9 @@ def fft_long_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
             y = ck.fft_strided(*t, False, scale, out=t)
         else:
             xr, xi = x.re.reshape(B, ns, nc), x.im.reshape(B, ns, nc)
-            t = ck.fft_strided(xr, xi, True,
+            t = ck.fft_strided(xr, xi, True, s_ns,
                                out=(xr, xi) if donate else None)
-            y = ck.fft_strided(*t, True, scale, pre=ck.twiddle(n, True),
+            y = ck.fft_strided(*t, True, s_nc, pre=ck.twiddle(n, True),
                                in_transposed=True)
         return Planar(*y).reshape(B, n)
     if not inverse:
@@ -505,9 +549,9 @@ def fft_long_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
         x = ck.swap_digits(x, ns, nc)
     elif not donate:
         x = Planar(x.re.clone(), x.im.clone())
-    y = _lines(x.reshape(B * nc, ns), ns, True)
+    y = _lines(x.reshape(B * nc, ns), ns, True, s_ns)
     yr, yi = y.re.reshape(B, nc, ns), y.im.reshape(B, nc, ns)
-    z = ck.fft_strided(yr, yi, True, scale, pre=ck.twiddle(n, True),
+    z = ck.fft_strided(yr, yi, True, s_nc, pre=ck.twiddle(n, True),
                        out=(yr, yi))
     return Planar(*z).reshape(B, n)
 
@@ -528,11 +572,14 @@ def fft_long3_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
     columns, w_n^((kb*na + ka)*js) on the write, giving (B, kb, js, ka);
     ns over the ka columns of the planes (b, kb), with the scale, written
     interleaved as (B, ks, kb, ka), the natural order.  The inverse
-    mirrors it; ``order`` and ``donate`` as for `fft_long_p`."""
+    mirrors it (on half planes each upload its own factor's 1/n_k,
+    `_pass_scales`); ``order`` and ``donate`` as for `fft_long_p`."""
     na, nb, ns = split or ck.long_split(n, 3)
     B = x.shape[0]
     nc = na * nb
     x = x.contiguous()
+    # the inverse's uploads in launch order: ns, nb, then na
+    s_ns, s_nb, s_na = _pass_scales(x.dtype, (ns, nb, na), inverse, scale)
     if order == "natural" and ck.long_folds((na, nb, ns)):
         mid = ck.twiddle(n, inverse, a=na, sd=na, sm=na)
         if not inverse:
@@ -545,12 +592,12 @@ def fft_long3_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
                                scale, out_interleave=nb)
         else:
             t = ck.fft_strided(x.re.reshape(B * nb, ns, na),
-                               x.im.reshape(B * nb, ns, na), True,
+                               x.im.reshape(B * nb, ns, na), True, s_ns,
                                in_interleave=nb)
             t = tuple(u.reshape(B, nb, ns * na) for u in t)
-            t = ck.fft_strided(*t, True, pre=mid, out=t)
+            t = ck.fft_strided(*t, True, s_nb, pre=mid, out=t)
             y = ck.fft_strided(*(u.reshape(B, nb * ns, na) for u in t), True,
-                               scale, pre=ck.twiddle(nc, True, sd=ns),
+                               s_na, pre=ck.twiddle(nc, True, sd=ns),
                                in_transposed=True)
         return Planar(*y).reshape(B, n)
     if not inverse:
@@ -569,13 +616,13 @@ def fft_long3_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
         x = ck.swap_digits(x, ns, nc)
     elif not donate:
         x = Planar(x.re.clone(), x.im.clone())
-    y = _lines(x.reshape(B * nc, ns), ns, True)
+    y = _lines(x.reshape(B * nc, ns), ns, True, s_ns)
     yr, yi = ck.fft_strided(y.re.reshape(B * na, nb, ns),
-                            y.im.reshape(B * na, nb, ns), True,
+                            y.im.reshape(B * na, nb, ns), True, s_nb,
                             pre=ck.twiddle(n, True, a=na, pm=na, b=1),
                             in_interleave=na)
     yr, yi = yr.reshape(B, na, nb * ns), yi.reshape(B, na, nb * ns)
-    ck.fft_strided(yr, yi, True, scale, pre=ck.twiddle(nc, True, sd=ns),
+    ck.fft_strided(yr, yi, True, s_na, pre=ck.twiddle(nc, True, sd=ns),
                    out=(yr, yi))
     return Planar(yr, yi).reshape(B, n)
 

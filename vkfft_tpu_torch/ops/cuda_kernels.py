@@ -83,13 +83,15 @@ counted in `f64_launches`) on float64 planes, with the stage and twiddle
 tables in fp64, at the same layout rules in points, a point 16 B of
 shared memory (`lines_layout`, `strided_layout`, `pair_layout` and
 `pair_cluster` take the dtype).  `fft_lines`, `fft_twofactor`,
-`fft_strided` and `fft_pair` (`STORAGE_KERNELS`) have half-storage
-instantiations (C entries ``vk_<name>_f16`` and ``vk_<name>_bf16``,
-counted in `storage_launches`): float16 or bfloat16 planes, read widened
-to fp32 and written narrowed, the tables, shared memory (8 B a point, so
-every fp32 layout rule holds as it is) and every stage fp32.  Every other
-kernel takes float32 planes only (other precisions are ROADMAP queue 1
-item 10).
+`fft_strided`, `fft_pair`, `fft_strided_tw`, `fft_conv`, `fft_conv_inv`
+and `fft_conv_pair`'s Bluestein mode (`STORAGE_KERNELS`: every kernel of
+the C2C routes) have half-storage instantiations (C entries
+``vk_<name>_f16`` and ``vk_<name>_bf16``, counted in
+`storage_launches`): float16 or bfloat16 planes, read widened to fp32 and
+written narrowed, the tables, factors, spectra, chirps, shared memory (8
+B a point, so every fp32 layout rule holds as it is) and every stage
+fp32.  Every other kernel, the 2-D mode of `fft_conv_pair` among them,
+takes float32 planes only (other precisions are ROADMAP queue 1 item 10).
 
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
@@ -250,8 +252,11 @@ F64_THREADS = {"fft_lines": 256, "fft_strided": 512, "fft_pair": 256}
 
 # The kernels with half-storage instantiations (C entries vk_<name>_f16 and
 # vk_<name>_bf16): float16 / bfloat16 planes on the fp32 walk, at the fp32
-# kernel's bounds and layout (a shared point stays a float2).
-STORAGE_KERNELS = ("fft_lines", "fft_twofactor", "fft_strided", "fft_pair")
+# kernel's bounds and layout (a shared point stays a float2); every kernel
+# a C2C route launches (fft_conv_pair: its Bluestein mode).
+STORAGE_KERNELS = ("fft_lines", "fft_twofactor", "fft_strided", "fft_pair",
+                   "fft_strided_tw", "fft_conv", "fft_conv_inv",
+                   "fft_conv_pair")
 # The suffix of the C entries of each dtype's instantiation.
 _SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.float16: "_f16",
            torch.bfloat16: "_bf16"}
@@ -619,13 +624,16 @@ def conv_pair_layout(m: int) -> tuple[int, int, int, int, int]:
     return nc, ns, c, threads, 8 * points
 
 
-def conv_pair_occupancy(m: int) -> tuple[int, int]:
+def conv_pair_occupancy(m: int,
+                        dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(resident clusters on the card, resident blocks an SM) of
-    `fft_conv_pair`'s Bluestein mode at the layout of padded length m, from
-    ``cudaOccupancyMaxActiveClusters`` and
+    `fft_conv_pair`'s Bluestein mode at the layout of padded length m on
+    lines of ``dtype``, from ``cudaOccupancyMaxActiveClusters`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (C entry
-    ``vk_fft_conv_pair_occupancy``)."""
-    return _cluster_occupancy("fft_conv_pair", "fft_conv_pair_occupancy",
+    ``vk_fft_conv_pair_occupancy``, ``vk_fft_conv_pair_f16_occupancy``,
+    ...)."""
+    return _cluster_occupancy("fft_conv_pair",
+                              f"fft_conv_pair{_SUFFIX[dtype]}_occupancy",
                               *conv_pair_layout(m)[2:])
 
 
@@ -1065,10 +1073,14 @@ def strided_tw_layout(n: int, S: int) -> tuple[int, int, int]:
                            True)[:3]
 
 
-def strided_tw_occupancy(n: int, S: int) -> int:
+def strided_tw_occupancy(n: int, S: int,
+                         dtype: torch.dtype = torch.float32) -> int:
     """Resident blocks an SM of `fft_strided_tw` at the layout of length n
-    over S columns (C entry ``vk_fft_strided_tw_occupancy``)."""
-    return _occupancy("fft_strided_tw", *strided_tw_layout(n, S)[1:])
+    over S columns on planes of ``dtype`` (C entry
+    ``vk_fft_strided_tw_occupancy``, ``vk_fft_strided_tw_f16_occupancy``,
+    ...)."""
+    return _occupancy("fft_strided_tw", *strided_tw_layout(n, S)[1:],
+                      entry=f"fft_strided_tw{_SUFFIX[dtype]}_occupancy")
 
 
 def _unsupported(n: int) -> NotImplementedError:
@@ -1338,11 +1350,15 @@ def conv_layout(m: int, mm: int = 1) -> tuple[int, int, int]:
     return threads, lines, 8 * points
 
 
-def conv_occupancy(m: int, mm: int = 1) -> int:
+def conv_occupancy(m: int, mm: int = 1,
+                   dtype: torch.dtype = torch.float32) -> int:
     """Resident blocks an SM of `fft_conv` at the layout of m-point lines,
-    mm lines an item, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    on the current card (C entry ``vk_fft_conv_occupancy``)."""
-    return _occupancy("fft_conv", *conv_layout(m, mm)[::2])
+    mm lines an item, on planes of ``dtype``, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the current card
+    (C entry ``vk_fft_conv_occupancy``, ``vk_fft_conv_f16_occupancy``,
+    ...)."""
+    return _occupancy("fft_conv", *conv_layout(m, mm)[::2],
+                      entry=f"fft_conv{_SUFFIX[dtype]}_occupancy")
 
 
 # `fft_r2c`'s block (csrc/fft_r2c.cu): its m = n/2-point lines share a
@@ -1636,6 +1652,15 @@ def twofactor_layout(n: int) -> tuple[int, int, int]:
     return _block_threads(lines * n), lines, 8 * points
 
 
+def conv_inv_occupancy(n: int, dtype: torch.dtype = torch.float32) -> int:
+    """Resident blocks an SM of `fft_conv_inv` at `twofactor_layout`'s
+    layout of length n on planes of ``dtype`` (C entry
+    ``vk_fft_conv_inv_occupancy``, ``vk_fft_conv_inv_f16_occupancy``,
+    ...)."""
+    return _occupancy("fft_conv_inv", *twofactor_layout(n)[::2],
+                      entry=f"fft_conv_inv{_SUFFIX[dtype]}_occupancy")
+
+
 def twofactor_occupancy(n: int, dtype: torch.dtype = torch.float32) -> int:
     """Resident blocks an SM of `fft_twofactor` at the layout of length n
     of ``dtype``, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on
@@ -1904,6 +1929,7 @@ def _by_line(tab: Planar, count: int, period: int) -> Planar:
     return Planar(tab.re[idx], tab.im[idx])
 
 
+@_storage_plain
 def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
                    spectrum: torch.Tensor, chirp: Optional[torch.Tensor] = None,
                    conj_data: bool = False, xpow: bool = False,
@@ -1965,6 +1991,7 @@ def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     return y.re.contiguous(), y.im.contiguous()
 
 
+@_storage_plain
 def fft_conv_inv_plain(re: torch.Tensor, im: torch.Tensor,
                        spectrum: torch.Tensor, dc=None, scale: float = 1.0):
     """Plain torch version of `fft_conv_inv`: the spectrum (swapped order)
@@ -1980,6 +2007,7 @@ def fft_conv_inv_plain(re: torch.Tensor, im: torch.Tensor,
     return z.re.contiguous(), z.im.contiguous()
 
 
+@_storage_plain
 def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
                         spectrum: torch.Tensor,
                         chirp: Optional[torch.Tensor] = None,
@@ -2304,10 +2332,10 @@ def _check_planes(re, im, ndim: int, what: str,
 
 
 # The plane dtypes of the kernels with other instantiations than fp32:
-# `fft_lines`, `fft_strided` and `fft_pair` (fp64 and half storage),
-# `fft_twofactor` (half storage).
+# `fft_lines`, `fft_strided` and `fft_pair` (fp64 and half storage), the
+# other C2C kernels (half storage).
 _C2C_DTYPES = (torch.float32, torch.float64) + STORAGE_DTYPES
-_TWOFACTOR_DTYPES = (torch.float32,) + STORAGE_DTYPES
+_HALF_DTYPES = (torch.float32,) + STORAGE_DTYPES
 
 
 def _check_real(x, ndim: int, what: str,
@@ -2450,7 +2478,7 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     bfloat16 planes, times ``scale``.  ``out`` as for `fft_lines`.  CPU
     tensors run `fft_strided_plain`; CUDA tensors launch the kernel
     (float64: its fp64 instantiation; float16 / bfloat16: its half-storage
-    one; the factor mode below takes float32 only).
+    one; the factor mode below takes float32 and the half dtypes).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:3489 _strided_kernel_v3``,
     and ``:4001 _outer_kernel`` through the (P, n, R*nz) view.  Bound by
@@ -2508,7 +2536,9 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
                     in_transposed: bool = False,
                     out_transposed: bool = False):
     """The factor mode of `fft_strided` (C entry ``vk_fft_strided_tw`` of
-    ``csrc/fft_strided_tw.cu``, counted as ``fft_strided_tw``)."""
+    ``csrc/fft_strided_tw.cu``, counted as ``fft_strided_tw``; on float16 /
+    bfloat16 planes its half-storage instantiation, the factors and tables
+    fp32)."""
     what = "fft_strided_tw"
     mode = 1 if in_transposed else 2 if out_transposed else 0
     if mode and (in_transposed and out_transposed or plane is not None
@@ -2516,7 +2546,7 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
         raise ValueError(f"{what}: a transposed side takes whole planes, "
                          "one side, no interleave and a fresh output")
     if plane is None:
-        _check_planes(re, im, 3, what)
+        _check_planes(re, im, 3, what, _HALF_DTYPES)
         P, n, S = re.shape
         if in_transposed:
             S, n = n, S
@@ -2533,7 +2563,7 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
     else:
         if in_pd != 1 or out_pd != 1:
             raise ValueError(f"{what}: interleave needs whole planes")
-        _check_planes(re, im, 2, what)
+        _check_planes(re, im, 2, what, _HALF_DTYPES)
         n, S = plane
         P, in_len = re.shape
         keep = n * S if out_len is None else out_len
@@ -2574,9 +2604,10 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
         factors = (ctypes.c_longlong * 16)(
             *(pre.ints() if pre else [0] * 8),
             *(post.ints() if post else [0] * 8))
-        _launch(what, what, re.device,
+        _launch(what, what + _SUFFIX[re.dtype], re.device,
                 [re, im, yr, yi, P, S, in_len, keep, p1, p2, t1, t2, tw,
-                 factors, in_pd, out_pd, mode, *strided_tw_layout(n, S)])
+                 factors, in_pd, out_pd, mode, *strided_tw_layout(n, S)],
+                re.dtype)
     return yr, yi
 
 
@@ -2839,9 +2870,10 @@ def _conv_flags(conj_data: bool, xpow: bool) -> int:
 def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
              chirp: Optional[torch.Tensor] = None, out=None,
              conj_data: bool = False, xpow: bool = False, scale: float = 1.0):
-    """Circular convolution of each line of float32 planes with a fixed
-    kernel given by its spectrum: the inverse DFT, times ``scale``, of
-    DFT(x) times the spectrum (an (L, 2) table, natural order).  Modes, by
+    """Circular convolution of each line of float32, float16 or bfloat16
+    planes with a fixed kernel given by its spectrum: the inverse DFT,
+    times ``scale``, of DFT(x) times the spectrum (an (L, 2) table,
+    natural order).  Modes, by
     the planes' shape and the table's length L:
 
     * (B, n) planes, L = rows * n: line j times row j % rows (rows = 1: the
@@ -2857,17 +2889,18 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     divides the product by its modulus (cross-power spectrum).  ``scale``
     rides the inverse stages, after the multiply.
     ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_plain`; CUDA
-    tensors launch the kernel.
+    tensors launch the kernel (float16 / bfloat16: its half-storage
+    instantiation, every mode, the tables fp32, computing in fp32).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:4579 _conv_v3_kernel`` in all
     its modes.  Bound by bytes (16 B a point of the planes, one read and
-    one write, and the table once a launch): a block holds its lines once
-    each in shared memory (`conv_layout`: whole items of mm lines in the
-    matrix mode) and runs the forward and the inverse passes of the walk
-    in place, the multiply in one sweep between them; the pad never
-    exists in device memory (``csrc/fft_conv.cu``)."""
+    one write, 8 B on half planes, and the table once a launch): a block
+    holds its lines once each in shared memory (`conv_layout`: whole items
+    of mm lines in the matrix mode) and runs the forward and the inverse
+    passes of the walk in place, the multiply in one sweep between them;
+    the pad never exists in device memory (``csrc/fft_conv.cu``)."""
     matrix = re.ndim == 3
-    _check_planes(re, im, 3 if matrix else 2, "fft_conv")
+    _check_planes(re, im, 3 if matrix else 2, "fft_conv", _HALF_DTYPES)
     mm = re.shape[1] if matrix else 1
     B, n = re.shape[0], re.shape[-1]
     L = _table_length(spectrum, "fft_conv")
@@ -2933,7 +2966,7 @@ def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     n2-point column DFTs and the n1-point row DFTs in place on the whole
     line, the twiddle computed from its exponent in the last stage's
     write (``csrc/fft_twofactor.cu``)."""
-    _check_planes(re, im, 2, "fft_twofactor", _TWOFACTOR_DTYPES)
+    _check_planes(re, im, 2, "fft_twofactor", _HALF_DTYPES)
     B, n = re.shape
     _check_twofactor(n, "fft_twofactor")
 
@@ -2949,14 +2982,16 @@ def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
 def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
                  dc=None, out=None, scale: float = 1.0):
-    """Natural-order (B, n) float32 planes from a spectrum in
+    """Natural-order (B, n) float32, float16 or bfloat16 planes from a
+    spectrum in
     `fft_twofactor`'s swapped order: the spectrum times ``spectrum`` (an
     (n, 2) table in the same swapped order, `rader_spectrum(...,
     layout="swapped")`), the two-factor inverse times ``scale`` (riding its
     twiddle), plus the per-line constant ``dc`` = (re, im), float32 (B,)
-    tensors, when given.
+    tensors (float32 on every dtype of the planes), when given.
     ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_inv_plain`;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel (float16 / bfloat16: its half-storage
+    instantiation, computing in fp32).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:4421 _conv_inv_kernel``
     (``has_dc`` is ``dc``).  Bound by bytes, as `fft_twofactor`, whose
@@ -2964,7 +2999,7 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     into swapped positions, the multiply in one sweep over shared memory,
     the mirrored passes in place and the constant on the write
     (``csrc/fft_conv_inv.cu``)."""
-    _check_planes(re, im, 2, "fft_conv_inv")
+    _check_planes(re, im, 2, "fft_conv_inv", _HALF_DTYPES)
     B, n = re.shape
     _check_twofactor(n, "fft_conv_inv")
     _check_table(spectrum, n, re, "fft_conv_inv")
@@ -2995,11 +3030,11 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     """A plane held in a thread-block cluster, in one of two modes.
 
     With ``chirp`` (an (n, 2) table), the Bluestein mode: each line of (B,
-    n) float32 planes through a padded length m = len(spectrum) that
-    `conv_pair_plan` splits into an (nc, ns) plane: the lines times the
-    chirp, zero-padded to m, convolved with the spectrum (an (m, 2) table
-    in the plane order, `bluestein_spectrum(..., layout="pair")`), cropped
-    to n and times the chirp again.
+    n) float32, float16 or bfloat16 planes through a padded length m =
+    len(spectrum) that `conv_pair_plan` splits into an (nc, ns) plane: the
+    lines times the chirp, zero-padded to m, convolved with the spectrum
+    (an (m, 2) table in the plane order, `bluestein_spectrum(...,
+    layout="pair")`), cropped to n and times the chirp again.
 
     Without, the 2-D mode: each (ny, nz) plane of (B, ny, nz) float32
     planes circularly convolved with a fixed kernel, the inverse 2-D DFT,
@@ -3009,7 +3044,9 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     cluster (`pair_cluster`).
 
     ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_pair_plain`;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel (the Bluestein mode on float16 /
+    bfloat16 lines: its half-storage instantiation, computing in fp32; the
+    2-D mode takes float32 only).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in
     both its modes.  Bluestein: bound by bytes at sample 7's 10007 (16 B a
@@ -3027,7 +3064,7 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     (``csrc/fft_conv_pair.cu``)."""
     if chirp is None:
         return _fft_conv2d(re, im, spectrum, out, conj_data, xpow, scale)
-    _check_planes(re, im, 2, "fft_conv_pair")
+    _check_planes(re, im, 2, "fft_conv_pair", _HALF_DTYPES)
     B, n = re.shape
     m = _table_length(spectrum, "fft_conv_pair")
     if conv_pair_plan(m) is None:
