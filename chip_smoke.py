@@ -192,28 +192,38 @@ Phases (each asserts; any failure exits non-zero before the result line):
      float64 planes beside torch.fft complex128 and the dd tier on the
      same data (DDComplex planes, and the dd route on the tensor).  The toolchain phase holds every fp32
      kernel's ptxas line to FP32_PTXAS and every fp64 kernel to no spill.
- 13. the storage tiers (Precision.HALF / BFLOAT16): storage_kernels, the
-     half-storage instantiations of fft_lines, fft_twofactor, fft_strided,
-     fft_pair, fft_strided_tw, fft_conv, fft_conv_inv and fft_conv_pair's
-     Bluestein mode against their plain versions (<= 2 storage ulps of
-     max|plain|, no inf or nan) at both dtypes on every layout class, each
-     case three times inside sentinel guards, at half offsets off the
-     planes' 8-byte groups, and in place (the factor mode's transposed,
-     interleaved and cropped layouts on inputs at those offsets);
-     storage_routes, Rader 7919 and 5003, Bluestein 10007, SPLIT 10006 and
-     the long tier's 2^17 at both tiers with exactly the half launches
-     their routes name, rfft of bf16 lines and a half convolution refused
-     before any launch, and every DIRECT length of samples 2, 13 and 1002
-     on the half fft_lines; storage_main_path, sample 2's rows at 128 MiB /
-     (4 n) lines, sample 7's rows, the 256^3 cube, ex02's (16, 64) plane,
+ 13. the storage tiers (Precision.HALF / BFLOAT16) and half real and
+     convolution data: storage_kernels, the half-storage instantiations of
+     fft_lines, fft_twofactor, fft_strided, fft_pair, fft_strided_tw,
+     fft_conv (its scalar, rows, matrix and Bluestein modes with their
+     flags), fft_conv_inv and fft_conv_pair (the Bluestein mode, and the
+     2-D mode's fft_conv2d_<dtype> entries on every layout class) against
+     their plain versions (<= 2 storage ulps of max|plain|, no inf or nan)
+     at both dtypes, each case three times inside sentinel guards, at half
+     offsets off the planes' 8-byte groups, and in place (the factor
+     mode's transposed, interleaved and cropped layouts on inputs at those
+     offsets); storage_routes, Rader 7919 and 5003, Bluestein 10007, SPLIT
+     10006 and the long tier's 2^17 at both tiers with exactly the half
+     launches their routes name, half rfft / irfft at 1024, 10006 and
+     2^18 and rfftn / irfftn of a 3-D volume (the forward's C2C on the
+     half kernels, the widened inverse and the complex axes after the
+     untangle on the fp32 ones, each direction's launches exact), every
+     fused convolution mode on half planes with its exact half launches,
+     and every DIRECT length of samples 2, 13 and 1002 on the half
+     fft_lines; storage_main_path, sample 2's rows at 128 MiB / (4 n)
+     lines, sample 7's rows, the 256^3 cube, ex02's (16, 64) plane,
      samples 13 and 1002, and the long rows (2^20 x 16, 2^22 x 4, 2^24,
-     2^26, Bluestein 65537 x 127) through FFTApplication at both tiers,
-     each counted from 0 and held to its exact launches, finite, against
-     fp64 at the reference's gates and against the CPU's torch engine;
-     storage_times, the kernels beside the bound at 2 B a real, the fp32
-     kernel on the same points and torch.fft complex32, and the rows'
-     round trips beside the fp32 round trip.  The toolchain phase holds
-     each half kernel's ptxas line to its fp32 twin's.
+     2^26, Bluestein 65537 x 127) through FFTApplication at both tiers;
+     the half real rows (rfft / irfft of 65536 lines of 1024, rfftn /
+     irfftn of the 256^3 cube) and conv rows (sample 52's 256 planes of
+     256^2, v3_1d 4096, sample 50's 3 x 3 matrix at 1024, v2_2k 10240) at
+     both dtypes; each counted from 0 and held to its exact launches,
+     finite, against fp64 at the reference's gates and against the CPU's
+     torch engine; storage_times, the kernels beside the bound at 2 B a
+     real, the fp32 kernel on the same points and torch.fft complex32 (the
+     half 2-D conv beside its composition ifft2(fft2(x) * H)), and the
+     rows' round trips and calls beside the fp32 ones.  The toolchain
+     phase holds each half kernel's ptxas line to its fp32 twin's.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -5025,12 +5035,12 @@ FP32_PTXAS = {
 # the half-storage instantiations (C entries vk_<name>_f16 / _bf16) and
 # their fp32 twins: the same body at the same bounds, the conversions at
 # the edge of device memory, so the same registers and no spill beyond the
-# twin's (fft_pair_kernel's 4 B, ROADMAP queue 3); fft_conv_pair's is its
-# Bluestein kernel
+# twin's (fft_pair_kernel's 4 B, ROADMAP queue 3); fft_conv_pair's are its
+# Bluestein kernel and its 2-D mode's fft_conv2d_kernel
 STORAGE_TWINS = {f"{k}_{t}_kernel": f"{k}_kernel"
                  for k in ("fft_lines", "fft_twofactor", "fft_strided",
                            "fft_pair", "fft_strided_tw", "fft_conv",
-                           "fft_conv_inv", "fft_conv_pair")
+                           "fft_conv_inv", "fft_conv_pair", "fft_conv2d")
                  for t in ("f16", "bf16")}
 
 
@@ -5646,17 +5656,72 @@ def _storage_route_cases(ck, dev):
     return cases
 
 
+# the layout classes of fft_conv_pair's 2-D mode (phase_conv_kernels_vs_
+# plain's planes: clusters of 1 to 16, odd and even column tiles, an axis
+# of two factors either way) and the main path's 256 x 256 planes with one
+# shared spectrum and 32 per-slice ones
+CONV2D_STORAGE_PLANES = ((2, 2), (3, 5), (8, 8), (16, 60), (64, 64),
+                         (100, 128), (128, 128), (81, 81), (47, 60),
+                         (256, 512), (512, 256), (4096, 2), (2, 8064),
+                         (8064, 2))
+
+
+def _storage_conv_cases(ck, dev):
+    """(kernel, what, input shape, call(re, im, out=None), plain(re, im),
+    guarded, in place) of storage_kernels for the fused convolutions' half
+    entries: fft_conv_pair's 2-D mode (``vk_fft_conv2d_<dtype>``) on every
+    layout class of CONV2D_STORAGE_PLANES and the main path's 256 x 256
+    planes (hp = 1 and 32), the flag combinations in turn; fft_conv's
+    scalar, matrix (mm = 2 and 3) and rows modes at the main path's shapes
+    with their flags (the v3_1d, v3_mat and v3_rows modes on half
+    planes)."""
+    flags = [dict(conj_data=c, xpow=x) for c in (False, True)
+             for x in (False, True)]
+    g = torch.Generator(device=dev).manual_seed(17)
+    cases = []
+
+    def add(name, what, shape, L, kw, scale, in_place):
+        spec = torch.randn((L, 2), generator=g, device=dev)
+        call = ck.fft_conv_pair if name == "fft_conv2d" else ck.fft_conv
+        plain = (ck.fft_conv_pair_plain if name == "fft_conv2d"
+                 else ck.fft_conv_plain)
+        cases.append((name, f"{what} {kw}", shape,
+                      lambda r, i, out=None: call(r, i, spec, None, out=out,
+                                                  scale=scale, **kw),
+                      lambda r, i: plain(r, i, spec, None, scale=scale,
+                                         **kw), True, in_place))
+
+    for i, (ny, nz) in enumerate(CONV2D_STORAGE_PLANES):
+        assert ck.pair_cluster(ny, nz) is not None, (ny, nz)
+        hp = (1, 3)[i % 2]
+        add("fft_conv2d", f"2-D hp={hp} {ny}x{nz}", (3 * hp, ny, nz),
+            hp * ny * nz, flags[i % 4], 1.0 / (ny * nz), i % 3 == 0)
+    for hp, kw in ((1, flags[0]), (32, flags[3])):
+        add("fft_conv2d", f"2-D hp={hp} 256x256x256", CUBE, hp * 256 * 256,
+            kw, 2.0 ** -16, hp == 1)
+    add("fft_conv", "scalar 4096x4096", (4096, 4096), 4096, flags[3],
+        1.0 / 4096, True)
+    add("fft_conv", "matrix 3 5461x1024", (5461, 3, 1024), 9 * 1024,
+        flags[0], 1.0 / 1024, True)
+    add("fft_conv", "matrix 2 n=256", (5, 2, 256), 4 * 256, flags[1],
+        1.0 / 256, False)
+    add("fft_conv", "rows 512 32768x512", (32768, 512), 512 * 512, flags[2],
+        2.0 ** -18, False)
+    return cases
+
+
 def phase_storage_kernels(ck, dev) -> dict:
-    """The half-storage instantiations of every C2C kernel against their
-    plain versions (the same half planes widened to fp32, computed,
-    narrowed once) at both dtypes, on every layout class (`_storage_cases`,
-    `_storage_route_cases`): each case STORAGE_REPEATS times at half
+    """The half-storage instantiations of every C2C kernel and of the fused
+    convolutions against their plain versions (the same half planes
+    widened to fp32, computed, narrowed once) at both dtypes, on every
+    layout class (`_storage_cases`, `_storage_route_cases`,
+    `_storage_conv_cases`): each case STORAGE_REPEATS times at half
     offsets 0, 1 and 3 (the later two off the planes' 8-byte groups: the
     single-half spans), its output inside sentinel guards where the wrapper
     takes one, <= STORAGE_KERNEL_TOL of max|plain| with no inf or nan and
     no write outside the output; the in-place cases also written over their
     input, equal to the out-of-place result bit for bit."""
-    out = {k: [] for k in ck.STORAGE_KERNELS}
+    out = {k: [] for k in ck.STORAGE_ENTRIES}
     worst = {}
     for tag, dt in STORAGE.items():
         tol = STORAGE_KERNEL_TOL[tag]
@@ -5695,7 +5760,8 @@ def phase_storage_kernels(ck, dev) -> dict:
             out[name].append(row)
             del x, ref
         for i, (name, what, shape, call, plain, guarded, in_place) in \
-                enumerate(_storage_route_cases(ck, dev)):
+                enumerate(_storage_route_cases(ck, dev)
+                          + _storage_conv_cases(ck, dev)):
             x = _storage_planes(shape, i + 101, dev, dt)
             ref = plain(*x)
             row = {"dtype": tag, "case": what, "shape": list(shape),
@@ -5731,6 +5797,27 @@ def phase_storage_kernels(ck, dev) -> dict:
     return {"cases": out, "counts": counts, "worst_vs_plain": worst}
 
 
+def _mixed_launch_check(ck, torch_engine, tag, half, fp32, what):
+    """The launches since the last reset of a route that runs the ``tag``
+    instantiations and fp32 kernels both (a half real transform: its C2C at
+    the half dtype, the widened inverse or the complex axes after the
+    untangle in fp32): exactly ``half`` and ``fp32`` ({kernel: count}), no
+    other launch, no call of the plain engine.  Returns (half, fp32)."""
+    sfx = "_" + tag
+    got = {k[:-len(sfx)]: v for k, v in ck.storage_launches.items()
+           if k.endswith(sfx)}
+    others = {k: v for k, v in ck.storage_launches.items()
+              if not k.endswith(sfx) and v}
+    assert got == {k: half.get(k, 0) for k in got}, (what, got, half)
+    assert dict(ck.launches) == {k: fp32.get(k, 0) for k in ck.launches}, (
+        what, ck.launches, fp32)
+    assert not others and sum(ck.f64_launches.values()) == 0, (
+        what, others, ck.f64_launches)
+    assert torch_engine.calls == 0, (what, torch_engine.calls)
+    return ({k: v for k, v in got.items() if v},
+            {k: v for k, v in ck.launches.items() if v})
+
+
 def _storage_launch_check(ck, torch_engine, tag, want, what):
     """The launches since the last reset: exactly ``want`` ({kernel:
     count}) of the ``tag`` instantiations, no other launch, no call of the
@@ -5762,19 +5849,180 @@ def _route_launches(ce, n) -> dict:
         2 * [k for k, _, _ in ce.route(plan_axis(n))]))
 
 
+# real lengths of the half real routes: fft_r2c's 1024 (one half fft_lines
+# of 512 forward, one fp32 fft_c2r back), Rader's half length 10006 (5003)
+# and the long tier's 2^18 (2^17), forward and inverse each on the route of
+# n/2; and a (4, 64, 128, 96) volume through rfftn / irfftn
+STORAGE_REAL_LENGTHS = (1024, 10006, 1 << 18)
+STORAGE_REAL_VOLUME = (4, 64, 128, 96)
+
+
+def _half_real_launches(ce, ck, shape):
+    """The launches of a half real round trip over every axis but the
+    first of ``shape`` (the others' lengths DIRECT ones `fft_strided`
+    takes): ((half, fp32) of the forward, (half, fp32) of the inverse of
+    its spectrum narrowed to the tier), each {kernel: launches}.  The
+    forward runs the n/2-point C2C's route at the half dtype and the
+    complex axes in fp32 `fft_strided`; the inverse the complex axes in
+    half `fft_strided` and the real axis widened: fp32 `fft_c2r` where
+    `r2c_supports` holds, else the fp32 route of n/2."""
+    import collections
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    n = shape[-1]
+    c2c = dict(collections.Counter(
+        k for k, _, _ in ce.route(plan_axis(n // 2))))
+    outer = {"fft_strided": len(shape) - 2} if len(shape) > 2 else {}
+    real = {"fft_r2c": 1} if ck.r2c_supports(n) else c2c
+    return (c2c, outer), (outer, real)
+
+
+def _half_real_round_trip(vt, ck, ce, torch_engine, tag, x):
+    """rfft (rfftn over every axis but the first, for more than one) of
+    half real data ``x`` as a Planar, then irfft (irfftn) of its spectrum
+    narrowed to the tier, each counted from 0 and held to its exact
+    launches (`_half_real_launches`) with no plain-engine call: (spectrum,
+    narrowed spectrum, output, launches)."""
+    dt = STORAGE[tag]
+    axes = tuple(range(1, x.ndim))
+    fwd, inv = _half_real_launches(ce, ck, x.shape)
+    if x.ndim == 2:
+        forward = lambda: vt.rfft(vt.Planar(x, x))
+        inverse = lambda X: vt.irfft(X, n=x.shape[1])
+    else:
+        forward = lambda: vt.rfftn(vt.Planar(x, x), axes=axes)
+        inverse = lambda X: vt.irfftn(X, s=x.shape[1:], axes=axes)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch_engine.calls = 0
+    X = forward()
+    torch.cuda.synchronize()
+    got_f = _mixed_launch_check(ck, torch_engine, tag, *fwd,
+                                (tuple(x.shape), "forward"))
+    Xh = X.astype(dt)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch_engine.calls = 0
+    y = inverse(Xh)
+    torch.cuda.synchronize()
+    got_i = _mixed_launch_check(ck, torch_engine, tag, *inv,
+                                (tuple(x.shape), "inverse"))
+    assert X.dtype == torch.float32 and y.dtype == torch.float32, x.shape
+    assert _finite(X) and bool(torch.isfinite(y).all()), x.shape
+    return X, Xh, y, {"forward": got_f, "inverse": got_i}
+
+
+def _storage_real_routes(vt, ck, ce, torch_engine, dev) -> list:
+    """Half real transforms at both tiers on the card: rfft of half lines
+    at STORAGE_REAL_LENGTHS (float32 planes out, the C2C on the half
+    instantiations) and irfft of the spectrum narrowed to the tier
+    (widened, in fp32, float32 out), and rfftn / irfftn of
+    STORAGE_REAL_VOLUME (the real axis on half fft_lines, the complex axes
+    in fp32 after the untangle; back the complex axes in half fft_strided,
+    each with its own 1/n, and the real axis in fp32 fft_c2r); each call
+    held to its exact launches (`_half_real_round_trip`), within the
+    reference's gates of torch.fft on the narrowed input (the inverse: of
+    the narrowed spectrum)."""
+    rows = []
+    cases = [(f"1d_n{n}", (4, n)) for n in STORAGE_REAL_LENGTHS]
+    cases.append(("3d_" + "x".join(map(str, STORAGE_REAL_VOLUME[1:])),
+                  STORAGE_REAL_VOLUME))
+    for tag, dt in STORAGE.items():
+        for name, shape in cases:
+            x = _storage_planes(shape, shape[-1], dev, dt)[0]
+            X, Xh, y, got = _half_real_round_trip(vt, ck, ce, torch_engine,
+                                                  tag, x)
+            dims = tuple(range(1, len(shape)))
+            xw = x.double()
+            e_f = _rel(vt.to_complex(X).cdouble(),
+                       torch.fft.rfftn(xw, dim=dims))
+            Xw = torch.complex(Xh.re.double(), Xh.im.double())
+            e_i = _rel(y.double(), torch.fft.irfftn(Xw, s=shape[1:],
+                                                    dim=dims))
+            e_rt = _rel(y.double(), xw)
+            row = {"row": name, "dtype": tag, "shape": list(shape),
+                   "launches": got, "rel_err_fwd_vs_fp64": e_f,
+                   "rel_err_inv_vs_fp64": e_i, "rel_err_round_trip": e_rt}
+            _log(f"[storage routes] real {row}")
+            assert max(e_f, e_i, e_rt) <= STORAGE_NUMPY_TOL[tag], row
+            rows.append(row)
+            del x, xw, X, Xh, Xw, y
+    return rows
+
+
+# (config shape, flags, fusion mode, half launches of one call) of the
+# fused modes on half planes: each mode and flag at small shapes
+STORAGE_CONV_ROUTES = (
+    ((4096,), dict(conjugate_convolution=1), "v3_1d", {"fft_conv": 1}),
+    ((1000,), dict(conjugate_convolution=2,
+                   cross_power_spectrum_normalization=True), "v3_1d",
+     {"fft_conv": 1}),
+    ((256,), dict(matrix_convolution=2, coordinate_features=2), "v3_mat",
+     {"fft_conv": 1}),
+    ((1024,), dict(matrix_convolution=3, coordinate_features=3), "v3_mat",
+     {"fft_conv": 1}),
+    ((512, 512), {}, "v3_rows", {"fft_strided": 2, "fft_conv": 1}),
+    ((256, 256), {}, "pair", {"fft_conv2d": 1}),
+    ((96, 60), dict(conjugate_convolution=1), "pair", {"fft_conv2d": 1}),
+    ((128, 128), dict(cross_power_spectrum_normalization=True), "pair",
+     {"fft_conv2d": 1}),
+    ((4, 64, 128), {}, "pair", {"fft_strided": 2, "fft_conv2d": 1}),
+    ((10240,), {}, "v2_2k", {"fft_twofactor": 1, "fft_conv_inv": 1}),
+    ((12288,), dict(conjugate_convolution=1), "v2_2k",
+     {"fft_twofactor": 1, "fft_conv_inv": 1}))
+
+
+def _storage_conv_routes(vt, ck, torch_engine, dev) -> list:
+    """Every fused convolution mode on half planes at both tiers
+    (STORAGE_CONV_ROUTES), batch 2, a unit-variance kernel: exactly the
+    half launches of its mode, no other, no plain-engine call; the output
+    of the data's dtype, finite, within the reference's gates of numpy
+    fp64 of the narrowed planes; the input left unchanged."""
+    rows = []
+    for i, (shape, flags, mode, want) in enumerate(STORAGE_CONV_ROUTES):
+        cfg = vt.FFTConfig(shape=shape, convolution=True, **flags)
+        kshape, xshape = _conv_shapes(cfg, 2)
+        rng = np.random.default_rng(720 + i)
+        h = (rng.standard_normal(kshape)
+             + 1j * rng.standard_normal(kshape)).astype(np.complex64)
+        app = vt.ConvolutionApplication(cfg, h, device=dev)
+        assert app.fusion_mode == mode, (shape, flags, app.fusion_mode)
+        for tag, dt in STORAGE.items():
+            x = vt.Planar(*_storage_planes(xshape, 740 + i, dev, dt))
+            keep = x.re.clone()
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            torch_engine.calls = 0
+            y = app(x)
+            torch.cuda.synchronize()
+            got = _storage_launch_check(ck, torch_engine, tag, want,
+                                        (shape, flags))
+            assert y.dtype == dt and y.shape == x.shape and _finite(y)
+            assert torch.equal(x.re, keep), (shape, flags)
+            rel = _numpy_rel(_cplx(y), _conv_oracle(cfg, _cplx(x), h))
+            row = {"shape": list(shape), "flags": str(flags), "mode": mode,
+                   "dtype": tag, "launches": {k: v for k, v in got.items()
+                                              if v},
+                   "rel_err_vs_numpy": rel}
+            _log(f"[storage routes] conv {row}")
+            assert rel <= STORAGE_NUMPY_TOL[tag], row
+            rows.append(row)
+            del x, y, keep
+    return rows
+
+
 def phase_storage_routes(vt, ck, ce, torch_engine, dev) -> dict:
     """The tiers' routes: Rader 7919 and 5003, Bluestein 10007, SPLIT
     10006 and the long tier's 2^17 under HALF and BFLOAT16, forward and
     normalized inverse, each with exactly the half launches its route
     names (no fp32 or fp64 launch, no plain-engine call), finite, within
-    the reference's gates of torch.fft on the narrowed input; rfft of
-    bf16 lines and a convolution of half planes (ROADMAP queue 1 item
-    10.2) raise NotImplementedError naming item 10 before any launch
-    (every counter unchanged); every DIRECT length of samples 2, 13 and
-    1002 runs its forward and normalized inverse on the half-storage
-    fft_lines (two launches, no other, no plain-engine call), within the
-    reference's gates of torch.fft on the narrowed input."""
-    refused, rows = [], []
+    the reference's gates of torch.fft on the narrowed input; half real
+    transforms and every fused convolution mode on half planes
+    (`_storage_real_routes`, `_storage_conv_routes`); every DIRECT length
+    of samples 2, 13 and 1002 runs its forward and normalized inverse on
+    the half-storage fft_lines (two launches, no other, no plain-engine
+    call), within the reference's gates of torch.fft on the narrowed
+    input."""
+    rows = []
     for n in STORAGE_ROUTE_LENGTHS:
         want = _route_launches(ce, n)
         for tag, dt in STORAGE.items():
@@ -5797,28 +6045,8 @@ def phase_storage_routes(vt, ck, ce, torch_engine, dev) -> dict:
                                                               e_rt)
             rows.append({"n": n, "dtype": tag, "launches": want,
                          "rel_err_fwd": e_f, "rel_err_round_trip": e_rt})
-    kernel = vt.from_numpy_planar(*(np.ones((1024,), np.float32),) * 2,
-                                  device=dev)
-    conv = vt.ConvolutionApplication(
-        vt.FFTConfig(shape=(1024,), convolution=True), kernel,
-        kernel_in_freq_domain=True)
-    for what, call in (
-            ("rfft of bf16 lines", lambda: vt.rfft(torch.zeros(
-                2, 1024, dtype=torch.bfloat16, device=dev))),
-            ("a convolution of f16 planes", lambda: conv(vt.Planar(*(
-                torch.zeros(2, 1024, dtype=torch.float16, device=dev),) * 2)))):
-        torch.cuda.synchronize()
-        ck.reset_launches()
-        torch_engine.calls = 0
-        try:
-            call()
-            raise AssertionError(f"{what} ran")
-        except NotImplementedError as e:
-            assert "item 10" in str(e), e
-        torch.cuda.synchronize()
-        _storage_launch_check(ck, torch_engine, "bf16", {}, what)
-        _storage_launch_check(ck, torch_engine, "f16", {}, what)
-        refused.append(what)
+    real = _storage_real_routes(vt, ck, ce, torch_engine, dev)
+    conv = _storage_conv_routes(vt, ck, torch_engine, dev)
     lengths = sorted(set(ROWS_1D) | set(SAMPLE_13) | set(SAMPLE_1002))
     for n in lengths:
         for tag, dt in STORAGE.items():
@@ -5843,9 +6071,9 @@ def phase_storage_routes(vt, ck, ce, torch_engine, dev) -> dict:
                          "rel_err_round_trip": e_rt})
     worst = {tag: max(max(r["rel_err_fwd"], r["rel_err_round_trip"])
                       for r in rows if r["dtype"] == tag) for tag in STORAGE}
-    _log(f"[storage routes] refused before any launch: {refused}; "
-         f"{len(rows)} rows on the storage kernels, worst {worst}")
-    return {"refused": refused, "rows": rows, "worst": worst}
+    _log(f"[storage routes] {len(rows)} rows on the storage kernels, worst "
+         f"{worst}")
+    return {"rows": rows, "worst": worst, "real": real, "conv": conv}
 
 
 # the long rows of the tiers' main path (row, lines, n): the 2^20 row at
@@ -5897,7 +6125,10 @@ def _storage_rows(ce):
 def phase_storage_main_path(vt, ck, ce, torch_engine, dev) -> dict:
     """The tiers' main path through FFTApplication(precision=BFLOAT16 /
     HALF, normalize=True) on float32 Planar input, which the application
-    narrows (`_storage_rows`): each row's forward and inverse counted from
+    narrows (`_storage_rows`), then the half real rows through vt.rfft /
+    vt.irfft and vt.rfftn / vt.irfftn (`_storage_real_row`) and the half
+    convolution rows through ConvolutionApplication (`_storage_conv_row`):
+    each row's forward and inverse counted from
     0 and held to its exact launches of the half-storage instantiations,
     no other launch and no plain-engine call; the results of the storage
     dtype, finite, the forward against fp64 (numpy for the small systems,
@@ -5973,12 +6204,144 @@ def phase_storage_main_path(vt, ck, ce, torch_engine, dev) -> dict:
         rows.append(row)
         del x, y, z, xn
         torch.cuda.empty_cache()
+    fp32_by_row = {}
+    for tag in STORAGE:
+        for name, shape in STORAGE_REAL_ROWS:
+            row, half, fp32 = _storage_real_row(vt, ck, ce, torch_engine,
+                                                dev, tag, name, shape)
+            by_row[f"{name}_{tag}"] = half
+            fp32_by_row[f"{name}_{tag}"] = fp32
+            rows.append(row)
+        for name, cfg, app, x, want, h in _conv_paths(vt, dev,
+                                                      STORAGE_CONV_ROWS):
+            row, half = _storage_conv_row(vt, ck, torch_engine, tag, name,
+                                          cfg, app, x, want, h)
+            by_row[f"conv_{name}_{tag}"] = half
+            rows.append(row)
+            del x, h, app
+            torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in by_row.values())
               for k in ck.storage_launches}
     _log(f"[main storage] launches over the path {totals}")
     assert all(v > 0 for v in totals.values()), totals
     return {"storage_launches": totals, "storage_launches_by_path": by_row,
+            "fp32_launches_by_path": fp32_by_row,
             "plain_engine_calls": 0, "rows": rows}
+
+
+# the library of a half entry whose name is not its library's
+STORAGE_LIBRARY = {"fft_conv2d": "fft_conv_pair"}
+# the half real rows of the tiers' main path: 128 MiB of half real lines
+# of 1024 (65536 lines), and the real 256^3 cube
+STORAGE_REAL_ROWS = (("r2c_1d_n1024_x65536", (65536, 1024)),
+                     ("r2c_3d_256^3", (1,) + CUBE))
+# the convolution rows of the tiers' main path (CONV_ROWS at half planes):
+# sample 52's 256 planes of 256^2, v3_1d at 4096, sample 50's 3 x 3 matrix
+# at 1024, v2_2k at 10240
+STORAGE_CONV_ROWS = ("sample52_256x256", "v3_1d_n4096", "sample50_mat3_n1024",
+                     "v2_2k_n10240")
+
+
+def _storage_real_row(vt, ck, ce, torch_engine, dev, tag, name, shape):
+    """One half real row of the main path through vt.rfft / vt.irfft (the
+    cube: vt.rfftn / vt.irfftn), each direction counted from 0 and held to
+    its exact launches with no plain-engine call (`_half_real_round_trip`):
+    the forward against torch.fft fp64 of the narrowed input, the inverse
+    against fp64 of the narrowed spectrum, the round trip against the
+    input, all at the reference's gates, and both directions against the
+    CPU's torch engine on the same half planes (the first
+    STORAGE_REF_LINES lines of the 1-D row, the whole cube) within
+    STORAGE_KERNEL_TOL: one rounding of the C2C's output a forward, fp32
+    after it.  Returns (row, half launches by instantiation, fp32
+    launches)."""
+    dt = STORAGE[tag]
+    x = _storage_planes(shape, len(name), dev, dt)[0]
+    X, Xh, y, got = _half_real_round_trip(vt, ck, ce, torch_engine, tag, x)
+    half = {k: 0 for k in ck.storage_launches}
+    fp32 = {}
+    for part in got.values():
+        for k, v in part[0].items():
+            half[f"{k}_{tag}"] += v
+        for k, v in part[1].items():
+            fp32[k] = fp32.get(k, 0) + v
+    dims = tuple(range(1, len(shape)))
+    xw = x.double()
+    e_f = _rel(vt.to_complex(X).cdouble(), torch.fft.rfftn(xw, dim=dims))
+    Xw = torch.complex(Xh.re.double(), Xh.im.double())
+    e_i = _rel(y.double(), torch.fft.irfftn(Xw, s=shape[1:], dim=dims))
+    e_rt = _rel(y.double(), xw)
+    del xw, Xw
+    lines = min(STORAGE_REF_LINES, shape[0])
+    xc = x[:lines].cpu()
+    Xhc = vt.Planar(Xh.re[:lines].cpu(), Xh.im[:lines].cpu())
+    if len(shape) == 2:
+        Xc = vt.rfft(vt.Planar(xc, xc), engine="torch")
+        yc = vt.irfft(Xhc, n=shape[1], engine="torch")
+    else:
+        Xc = vt.rfftn(vt.Planar(xc, xc), axes=dims, engine="torch")
+        yc = vt.irfftn(Xhc, s=shape[1:], axes=dims, engine="torch")
+    e_cf = _storage_rel((X.re[:lines].cpu(), X.im[:lines].cpu()),
+                        (Xc.re, Xc.im))[0]
+    e_ci = _storage_rel((y[:lines].cpu(),), (yc,))[0]
+    row = {"row": name, "dtype": tag, "shape": list(shape),
+           "launches": got, "rel_err_fwd_vs_fp64": e_f,
+           "rel_err_inv_vs_fp64": e_i, "rel_err_round_trip": e_rt,
+           "rel_err_fwd_vs_cpu_engine": e_cf,
+           "rel_err_inv_vs_cpu_engine": e_ci, "cpu_engine_lines": lines,
+           "cpu_engine_tol": STORAGE_KERNEL_TOL[tag]}
+    _log(f"[main storage] {row}")
+    assert max(e_f, e_i, e_rt) <= STORAGE_NUMPY_TOL[tag], row
+    assert max(e_cf, e_ci) <= STORAGE_KERNEL_TOL[tag], row
+    del x, X, Xh, y, xc, Xhc, Xc, yc
+    torch.cuda.empty_cache()
+    return row, half, fp32
+
+
+def _storage_conv_row(vt, ck, torch_engine, tag, name, cfg, app, x, want,
+                      h):
+    """One convolution row of the main path on half planes (the row's
+    float32 data narrowed to the tier): counted from 0 and held to its
+    exact half launches (the fp32 row's kernels, the 2-D mode as
+    fft_conv2d) with no plain-engine call; the output of the data's dtype
+    and finite; two items at seeded positions against numpy fp64 of the
+    narrowed items at the reference's gates and against the CPU's torch
+    engine (the composition on the same half items, narrowed three times)
+    within STORAGE_ROUTE_TOL.  Returns (row, half launches by
+    instantiation)."""
+    dt = STORAGE[tag]
+    want = {("fft_conv2d" if k == "fft_conv_pair" else k): v
+            for k, v in want.items()}
+    x = x.astype(dt)
+    pick = sorted(np.random.default_rng(len(name)).choice(
+        x.shape[0], 2, replace=False).tolist())
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch_engine.calls = 0
+    y = app(x)
+    torch.cuda.synchronize()
+    got = _storage_launch_check(ck, torch_engine, tag, want, name)
+    half = dict(ck.storage_launches)
+    assert y.dtype == dt and y.shape == x.shape and _finite(y), name
+    xs = vt.Planar(x.re[pick], x.im[pick])
+    ref = _conv_oracle(cfg, _cplx(xs), _cplx(h))
+    e_np = _numpy_rel(_cplx2(y.re[pick], y.im[pick]), ref)
+    cpu = vt.ConvolutionApplication(
+        cfg, vt.Planar(h.re.cpu(), h.im.cpu()), engine="torch", device="cpu")
+    yc = cpu(vt.Planar(xs.re.cpu(), xs.im.cpu()))
+    assert yc.dtype == dt, name
+    e_cpu = _storage_rel((y.re[pick].cpu(), y.im[pick].cpu()),
+                         (yc.re, yc.im))[0]
+    row = {"row": f"conv_{name}", "dtype": tag, "shape": list(x.shape),
+           "mode": app.fusion_mode, "launches": {k: v for k, v in
+                                                 got.items() if v},
+           "items_checked": pick, "rel_err_vs_fp64": e_np,
+           "rel_err_vs_cpu_engine": e_cpu,
+           "cpu_engine_tol": STORAGE_ROUTE_TOL[tag]}
+    _log(f"[main storage] {row}")
+    assert e_np <= STORAGE_NUMPY_TOL[tag], row
+    assert e_cpu <= STORAGE_ROUTE_TOL[tag], row
+    del x, y, xs, yc
+    return row, half
 
 
 def _c32(x):
@@ -6000,20 +6363,28 @@ def phase_storage_times(vt, ck, dev) -> dict:
     tiers, beside the fp32 round trip on the same points, the bound, the
     host's enqueue time and torch.fft complex32; and fft_lines' point rate
     at n = 256 from 2^20 points (in L2) to 2^25, fp32 beside both half
-    dtypes."""
+    dtypes.  The half 2-D convolution (fft_conv_pair's 2-D mode, entries
+    fft_conv2d_<dtype>) at sample 52's 256 planes of 256^2 beside its fp32
+    twin, its bound at 2 B a real and the spectrum's fp32 once, and
+    torch.fft's complex32 composition ifft2(fft2(x) * H); the half real and
+    convolution rows' round trips and calls beside their fp32 ones."""
     _log(f"[time] card: {_smi()}")
-    kernels = {f"{k}_{t}": [] for k in ck.STORAGE_KERNELS for t in STORAGE}
+    kernels = {f"{k}_{t}": [] for k in ck.STORAGE_ENTRIES for t in STORAGE}
 
-    def timed(name, tag, shape, call, plain, lib, n, extra, ops=None):
+    def timed(name, tag, shape, call, plain, lib, n, extra, ops=None,
+              table_bytes=0.0):
         dt = STORAGE[tag]
+        lib_name = extra.pop("library", "torch.fft complex32 (cuFFT half "
+                             "C2C)*")
         x = _storage_planes(shape, sum(shape), dev, dt)
         x32 = tuple(t.float() for t in x)
         rel, err = _storage_rel(call(*x), plain(*x))
         assert rel <= STORAGE_KERNEL_TOL[tag], (name, tag, shape, rel)
         points = math.prod(shape)
-        bound, by = _bound(8.0 * points,
+        bound, by = _bound(8.0 * points + table_bytes,
                            _fft_ops(points, n) if ops is None else ops)
-        regs, st, ld = _ptxas_of(ck, name)[f"{name}_{tag}_kernel"]
+        regs, st, ld = _ptxas_of(ck, STORAGE_LIBRARY.get(name, name))[
+            f"{name}_{tag}_kernel"]
         ms = _time_ms(lambda: call(*x))
         row = {"shape": list(shape), "dtype": tag, "ms": ms,
                "GBs": 8.0 * points / ms / 1e6, "bound_ms": bound,
@@ -6027,8 +6398,13 @@ def phase_storage_times(vt, ck, dev) -> dict:
         row["vs_fp32"] = ms / row["fp32_ms"]
         if lib is not None and tag == "f16":
             xc = _c32(x)
-            row["library_ms"] = _time_ms(lambda: lib(xc))
-            row["library"] = "torch.fft complex32 (cuFFT half C2C)*"
+            try:
+                lib(xc)
+            except RuntimeError as e:   # an op complex32 lacks
+                row["library"] = f"— ({lib_name}: {e})"
+            else:
+                row["library_ms"] = _time_ms(lambda: lib(xc))
+                row["library"] = lib_name
         _log(f"[time] {name} {tag} {row}")
         kernels[f"{name}_{tag}"].append(row)
         del x, x32
@@ -6141,6 +6517,27 @@ def phase_storage_times(vt, ck, dev) -> dict:
                "smem_bytes": smem, "resident_clusters": clusters,
                "blocks_per_sm": blocks},
               B * (2 * _fft_ops(m, m) + 3 * _cmul_ops(m)))
+        # the half 2-D convolution at sample 52's shape: one shared 256^2
+        # spectrum (fp32, read once a launch), the 1/N in the kernel
+        B, ny, nz = CUBE
+        spec = torch.randn((ny * nz, 2), generator=torch.Generator(
+            device=dev).manual_seed(19), device=dev)
+        hc = torch.complex(spec[:, 0], spec[:, 1]).reshape(ny, nz).to(
+            torch.complex32)
+        c, t, smem = ck.conv2d_layout(ny, nz)[:3]
+        clusters, blocks = ck.conv2d_occupancy(ny, nz, dt)
+        timed("fft_conv2d", tag, CUBE,
+              lambda r, m: ck.fft_conv_pair(r, m, spec, scale=1 / (ny * nz)),
+              lambda r, m: ck.fft_conv_pair_plain(r, m, spec,
+                                                  scale=1 / (ny * nz)),
+              lambda c_: torch.fft.ifft2(torch.fft.fft2(c_) * hc), ny * nz,
+              {"mode": "2-D hp=1 (sample 52)", "cluster": c, "threads": t,
+               "smem_bytes": smem, "resident_clusters": clusters,
+               "blocks_per_sm": blocks,
+               "library": "torch.fft complex32 composition ifft2(fft2(x) * "
+                          "H) (cuFFT half C2C, computing in fp16)*"},
+              _conv_ops(vt.FFTConfig(shape=(ny, nz), convolution=True), B),
+              table_bytes=8.0 * ny * nz)
 
     # the point rate of fft_lines at n = 256 from planes the 50 MB L2
     # holds (2^20 points: 16 MB of fp32 in and out) to sample 2's 2^25: a
@@ -6207,7 +6604,103 @@ def phase_storage_times(vt, ck, dev) -> dict:
             e2e.append(row)
             del x, x32
             torch.cuda.empty_cache()
+    e2e += _storage_real_times(vt, dev) + _storage_conv_times(vt, dev)
     return {"kernels": kernels, "e2e": e2e, "fft_lines_point_rate": rate}
+
+
+def _storage_real_times(vt, dev) -> list:
+    """The half real rows (STORAGE_REAL_ROWS) at both tiers: rfft (rfftn)
+    of the half data and irfft (irfftn) of its spectrum narrowed to the
+    tier, each timed beside the same call on the float32 data and
+    spectrum, with the bound of each call's bytes (its input read once,
+    its output written once: 2 B a half real, 4 B a float32 one) and the
+    host's enqueue time."""
+    rows = []
+    for tag, dt in STORAGE.items():
+        for name, shape in STORAGE_REAL_ROWS:
+            x = _storage_planes(shape, 13, dev, dt)[0]
+            x32 = x.float()
+            dims = tuple(range(1, len(shape)))
+            if len(shape) == 2:
+                fwd = lambda t: vt.rfft(vt.Planar(t, t))
+                inv = lambda X: vt.irfft(X, n=shape[1])
+            else:
+                fwd = lambda t: vt.rfftn(vt.Planar(t, t), axes=dims)
+                inv = lambda X: vt.irfftn(X, s=shape[1:], axes=dims)
+            X32 = fwd(x32)
+            Xh = X32.astype(dt)
+            points = math.prod(shape)
+            bins = X32.re.numel()
+            n = shape[-1] if len(shape) == 2 else points
+            ops = _fft_ops(points // 2, n // 2)
+            row = {"row": name, "dtype": tag, "shape": list(shape)}
+            for what, fn, fn32, nbytes in (
+                    ("rfft", lambda: fwd(x), lambda: fwd(x32),
+                     2.0 * points + 8.0 * bins),
+                    ("irfft", lambda: inv(Xh), lambda: inv(X32),
+                     4.0 * bins + 4.0 * points)):
+                bound, by = _bound(nbytes, ops)
+                ms = _time_ms(fn)
+                row[what] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                             "roofline_share": bound / ms,
+                             "host_enqueue_ms": _host_ms(fn),
+                             "fp32_ms": _time_ms(fn32)}
+                row[what]["vs_fp32"] = ms / row[what]["fp32_ms"]
+            row["round_trip_ms"] = row["rfft"]["ms"] + row["irfft"]["ms"]
+            row["fp32_round_trip_ms"] = (row["rfft"]["fp32_ms"]
+                                         + row["irfft"]["fp32_ms"])
+            _log(f"[time] e2e storage {row}")
+            rows.append(row)
+            del x, x32, X32, Xh
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _storage_conv_times(vt, dev) -> list:
+    """The convolution rows of the tiers' main path (STORAGE_CONV_ROWS) at
+    both tiers: the call on half planes beside the same call on the float32
+    planes, with the bound (8 B a half point read and written once, the
+    spectrum's fp32 once) and, at float16 for the scalar power-of-two rows,
+    torch.fft's complex32 composition ifftn(fftn(x) * H) (cuFFT's half
+    C2C, computing in fp16)."""
+    rows = []
+    for tag, dt in STORAGE.items():
+        for name, cfg, app, x, want, h in _conv_paths(vt, dev,
+                                                      STORAGE_CONV_ROWS):
+            xh = x.astype(dt)
+            ndim = len(cfg.shape)
+            m = cfg.matrix_convolution
+            items = x.re.numel() // math.prod(cfg.shape) // m
+            nbytes = 8.0 * x.re.numel() + 8.0 * h.re.numel()
+            bound, by = _bound(nbytes, _conv_ops(cfg, items))
+            ms = _time_ms(lambda: app(xh))
+            row = {"row": f"conv_{name}", "dtype": tag,
+                   "shape": list(x.shape), "mode": app.fusion_mode,
+                   "ms": ms, "bound_ms": bound, "bound_by": by,
+                   "roofline_share": bound / ms,
+                   "host_enqueue_ms": _host_ms(lambda: app(xh)),
+                   "fp32_ms": _time_ms(lambda: app(x)),
+                   "torch_fft_c32_ms": None}
+            row["vs_fp32"] = ms / row["fp32_ms"]
+            pow2 = all(k & (k - 1) == 0 for k in cfg.shape)
+            if tag == "f16" and pow2 and m == 1:
+                dims = tuple(range(-ndim, 0))
+                H = torch.fft.fftn(torch.complex(h.re, h.im),
+                                   dim=dims).to(torch.complex32)
+                xc = _c32((xh.re, xh.im))
+                lib = lambda: torch.fft.ifftn(torch.fft.fftn(xc, dim=dims)
+                                              * H, dim=dims)
+                try:
+                    lib()
+                    row["torch_fft_c32_ms"] = _time_ms(lib)
+                except RuntimeError as e:   # an op complex32 lacks
+                    row["torch_fft_c32"] = f"— ({e})"
+                del H, xc
+            _log(f"[time] e2e storage {row}")
+            rows.append(row)
+            del x, xh, h, app
+            torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> int:
@@ -6345,6 +6838,9 @@ def main(argv=None) -> int:
                                   f"{pe}:3439"),
                "fft_dd": ("vkfft_tpu_torch/csrc/fft_dd.cu",
                           "vkfft_tpu/precision/dd_kernel.py:166")}
+    # the half entries of fft_conv_pair's 2-D mode (vk_fft_conv2d_<dtype>,
+    # counted apart from its Bluestein mode's)
+    sources["fft_conv2d"] = sources["fft_conv_pair"]
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
     # source holds both directions; the factor mode (fft_strided_tw) is the
@@ -6390,8 +6886,9 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": "float64",
             "also_replaces": also.get(name, []), "per_shape": rows})
-    # the half-storage instantiations of every C2C kernel (the same
-    # sources), launched on the storage tiers' main path
+    # the half-storage instantiations of every C2C kernel and of the fused
+    # convolutions (the same sources), launched on the storage tiers' main
+    # path
     st_by_path = record["storage_main_path"]["storage_launches_by_path"]
     for key, rows in record["storage_times"]["kernels"].items():
         name, tag = key.rsplit("_", 1)

@@ -185,9 +185,14 @@ def test_wrapper_checks():
                 np.fft.fft(_c(re, im))) <= 5e-3
     with pytest.raises(TypeError):
         ck.fft_lines(t_re.int(), t_im.int())
+    # the 2-D mode of fft_conv_pair runs float16 planes (its half-storage
+    # instantiation's plain version here) and refuses float64
+    yr, yi = ck.fft_conv_pair(t_re.half().reshape(4, 8, 8),
+                              t_im.half().reshape(4, 8, 8), torch.zeros(64, 2))
+    assert yr.dtype == torch.float16 and not bool(yr.any() or yi.any())
     with pytest.raises(TypeError):
-        ck.fft_conv_pair(t_re.half().reshape(4, 8, 8),
-                         t_im.half().reshape(4, 8, 8), torch.zeros(64, 2))
+        ck.fft_conv_pair(t_re.double().reshape(4, 8, 8),
+                         t_im.double().reshape(4, 8, 8), torch.zeros(64, 2))
     with pytest.raises(TypeError):
         ck.fft_lines(t_re, t_im.double())
     with pytest.raises(ValueError):

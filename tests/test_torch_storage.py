@@ -6,10 +6,12 @@ on CPU tensors) against the JAX package's jnp engine and its Pallas
 kernels in interpret mode at the same tiers, and numpy fp64 at the
 reference's gates; each route's exact launches of the half-storage
 instantiations, counted by the wrappers on meta tensors with the library
-call stubbed out; the refusals of what still has no half kernel (real and
-R2R data, convolution, float64 off the fp64 kernels); the layout rules at
-the half dtypes.  Rader, Bluestein, SPLIT and the long tier at the tiers
-are tests/test_torch_storage_routes.py's.  The kernels themselves run
+call stubbed out; the refusals of what still has no kernel of its dtype
+(float64 off the fp64 kernels, float64 real and convolution data, half
+planes on the real kernels' own wrappers); the layout rules at the half
+dtypes.  Rader, Bluestein, SPLIT and the long tier at the tiers are
+tests/test_torch_storage_routes.py's, half real and convolution data
+tests/test_torch_storage_real.py's.  The kernels themselves run
 only on the card (chip_smoke.py's storage phases)."""
 import contextlib
 import types
@@ -235,20 +237,22 @@ def test_half_planar_under_single_runs_at_storage():
 
 
 # Rader, Bluestein, SPLIT and the long tier: the storage tiers run them
-# (tests/test_torch_storage_routes.py); at these lengths what still refuses
-# is float64 off the fp64 kernels, half real data and half convolution
-# (ROADMAP queue 1 items 10.2 and 10.3)
+# (tests/test_torch_storage_routes.py), and half real lines of 2n points
+# and half convolution run too (tests/test_torch_storage_real.py); at these
+# lengths what still refuses is float64 off the fp64 kernels and float64
+# real and convolution data (ROADMAP queue 1 item 10.3)
 REFUSED = (7919, 10007, 10006, 1 << 17)
 
 
 @pytest.mark.parametrize("n", REFUSED)
 def test_routes_without_storage_kernels_refuse(n):
     """At Rader, Bluestein, SPLIT and long lengths the cuda engine runs
-    half planes now, and still refuses, naming ROADMAP queue 1 item 10,
-    what has no kernel of its dtype: float64 planes (no fp64 kernel off
-    `fft_lines`' DIRECT lengths), real half lines of 2n points and a half
-    convolution; the CPU torch engine runs every length (widened to
-    fp32)."""
+    half planes, real half lines of 2n points (the n-point C2C at the half
+    dtype, float32 planes out) and a half convolution (half planes out),
+    and still refuses, naming ROADMAP queue 1 item 10, what has no kernel
+    of its dtype: float64 planes (no fp64 kernel off `fft_lines`' DIRECT
+    lengths), float64 real lines and a float64 convolution; the CPU torch
+    engine runs every length (widened to fp32)."""
     plan = plan_axis(n)
     assert cuda_engine.storage_axis_supports(plan)
     assert cuda_engine.storage_supports((n,), (0,))
@@ -257,12 +261,20 @@ def test_routes_without_storage_kernels_refuse(n):
                   torch.zeros(1, n, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="item 10"):
         cuda_engine.fft_lines_p(x, plan)
+    X = cuda_engine.rfft_lines_p(torch.ones(1, 2 * n, dtype=torch.bfloat16))
+    assert X.dtype == torch.float32 and X.shape == (1, n + 1)
+    # DC: twice the bin n of the n-point C2C, rounded to bfloat16
+    assert abs(float(X.re[0, 0]) - 2 * n) <= 2 * n * 2 ** -8
+    assert float(X.re[0, 1:].abs().max()) <= 1e-2 * n
     with pytest.raises(NotImplementedError, match="item 10"):
-        cuda_engine.rfft_lines_p(torch.zeros(1, 2 * n, dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cuda_engine.conv_fused_v3(vt.Planar(torch.zeros(1, 64).half(),
+        cuda_engine.rfft_lines_p(torch.zeros(1, 2 * n, dtype=torch.float64))
+    y = cuda_engine.conv_fused_v3(vt.Planar(torch.ones(1, 64).half(),
                                             torch.zeros(1, 64).half()),
-                                  64, torch.zeros(64, 2))
+                                  64, torch.ones(64, 2), scale=1 / 64)
+    assert y.dtype == torch.float16
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cuda_engine.conv_fused_v3(x[:, :64].contiguous(), 64,
+                                  torch.zeros(64, 2))
     cfg = vt.FFTConfig(shape=(n,), precision=vt.Precision.HALF)
     y = vt.FFTApplication(cfg, engine="torch", device="cpu").forward(
         vt.Planar(torch.zeros(1, n), torch.zeros(1, n)))
@@ -383,8 +395,14 @@ def test_storage_launches(monkeypatch, tier, shape, want):
 def test_refusal_before_any_launch(monkeypatch, n):
     """What still has no kernel of its dtype is refused before the first
     launch: a C2C walk of float64 planes that meets an axis off the fp64
-    kernels, also where an earlier axis has them; rfft of bfloat16 lines
-    and a convolution of half planes."""
+    kernels, also where an earlier axis has them; rfft of float64 lines
+    and a convolution of float64 planes.  rfft of bfloat16 lines and a
+    convolution of half planes run: the n-point route's half launches and
+    one half fft_conv, nothing else."""
+    conv = vt.ConvolutionApplication(
+        vt.FFTConfig(shape=(64,), convolution=True),
+        np.ones(64, np.complex64), engine="cuda",
+        kernel_in_freq_domain=True, device="meta")
     with _stubbed_launches(monkeypatch) as calls:
         for shape in ((2, n), (2, 8, n)):
             app = vt.FFTApplication(vt.FFTConfig(shape=shape[1:]),
@@ -392,24 +410,29 @@ def test_refusal_before_any_launch(monkeypatch, n):
             with pytest.raises(NotImplementedError, match="item 10"):
                 app.forward(_meta(shape, torch.float64))
         with pytest.raises(NotImplementedError, match="item 10"):
-            vt.rfft(torch.empty(2, 2 * n, dtype=torch.bfloat16,
+            vt.rfft(torch.empty(2, 2 * n, dtype=torch.float64,
                                 device="meta"), engine="cuda")
-        conv = vt.ConvolutionApplication(
-            vt.FFTConfig(shape=(64,), convolution=True),
-            np.ones(64, np.complex64), engine="cuda",
-            kernel_in_freq_domain=True, device="meta")
         with pytest.raises(NotImplementedError, match="item 10"):
-            conv(_meta((2, 64), torch.float16))
+            conv(_meta((2, 64), torch.float64))
         assert calls == []
-    assert sum(ck.storage_launches.values()) == 0
+        assert sum(ck.storage_launches.values()) == 0
+        assert sum(ck.f64_launches.values()) == sum(ck.launches.values()) == 0
+        X = vt.rfft(_meta((2, 2 * n), torch.bfloat16), engine="cuda")
+        assert X.dtype == torch.float32 and X.shape == (2, n + 1)
+        y = conv(_meta((2, 64), torch.float16))
+        assert y.dtype == torch.float16
+    route = [k for k, _, _ in cuda_engine.route(plan_axis(n))]
+    assert sorted(e for e, _ in calls) == sorted(
+        [f"vk_{k}_bf16" for k in route] + ["vk_fft_conv_f16"])
     assert sum(ck.f64_launches.values()) == sum(ck.launches.values()) == 0
 
 
 def test_launch_arguments(monkeypatch):
     """The half entries get the fp32 layout and fp32 stage and twiddle
-    tables (walk_radices: radix 16), on planes of the storage dtype; the
-    real kernels and the 2-D conv mode take no half dtype (the other C2C
-    kernels' half entries: tests/test_torch_storage_routes.py)."""
+    tables (walk_radices: radix 16), on planes of the storage dtype, the
+    2-D conv mode's (``vk_fft_conv2d_<dtype>``) too; the real kernels take
+    no half dtype (the other C2C kernels' half entries:
+    tests/test_torch_storage_routes.py)."""
     ck._DEVICE_TABLES.clear()
     outs = []
     with _stubbed_launches(monkeypatch) as calls:
@@ -422,22 +445,22 @@ def test_launch_arguments(monkeypatch):
             outs.append(ck.fft_strided(s.re, s.im))
             p = _meta((2, 256, 256), dt)
             outs.append(ck.fft_pair(p.re, p.im))
-            with pytest.raises(TypeError, match="item 10"):
-                q = _meta((2, 32, 32), dt)
-                ck.fft_conv_pair(q.re, q.im,
-                                 torch.empty(1024, 2, device="meta"))
+            q = _meta((2, 32, 32), dt)
+            outs.append(ck.fft_conv_pair(q.re, q.im,
+                                         torch.empty(1024, 2, device="meta")))
             with pytest.raises(TypeError, match="item 10"):
                 ck.fft_r2c(x.re)
     entries = [e for e, _ in calls]
     assert entries == [f"vk_{k}{ck._SUFFIX[dt]}" for dt in TIERS.values()
                        for k in ("fft_lines", "fft_twofactor", "fft_strided",
-                                 "fft_pair")]
+                                 "fft_pair", "fft_conv2d")]
     assert calls[0][1][-3:] == ck.lines_layout(1024)
     assert calls[1][1][-3:] == ck.twofactor_layout(10240)
     assert calls[2][1][-3:] == ck.strided_layout(256, 40)
     assert calls[3][1][-3:] == ck.pair_layout(256, 256)
+    assert calls[4][1][-3:] == ck.conv2d_layout(32, 32)[:3]
     assert [y[0].dtype for y in outs] == [dt for dt in TIERS.values()
-                                          for _ in range(4)]
+                                          for _ in range(5)]
     # every table of these launches fp32 (no dtype in its key), the stage
     # tables of the walk's radices
     tabs = [k for k in ck._DEVICE_TABLES if k[-1] == "meta"]
@@ -449,7 +472,8 @@ def test_launch_arguments(monkeypatch):
     assert True in walk
     assert ck.storage_launches == {
         k: int(k.rsplit("_", 1)[0] in ("fft_lines", "fft_twofactor",
-                                       "fft_strided", "fft_pair"))
+                                       "fft_strided", "fft_pair",
+                                       "fft_conv2d"))
         for k in ck.storage_launches}
 
 
@@ -501,6 +525,6 @@ def test_ptxas_parser_holds_storage_kernels():
                .replace("0 bytes spill stores", "8 bytes spill stores"))
     assert set(chip_smoke._storage_ptxas_ok(bad)) == {"fft_lines_bf16_kernel"}
     assert chip_smoke.STORAGE_TWINS["fft_pair_f16_kernel"] == "fft_pair_kernel"
-    assert len(chip_smoke.STORAGE_TWINS) == 2 * len(ck.STORAGE_KERNELS)
+    assert len(chip_smoke.STORAGE_TWINS) == 2 * len(ck.STORAGE_ENTRIES)
     assert {t for t in chip_smoke.STORAGE_TWINS.values()} == {
-        f"{k}_kernel" for k in ck.STORAGE_KERNELS}
+        f"{k}_kernel" for k in ck.STORAGE_ENTRIES}

@@ -301,11 +301,12 @@ def test_storage_rule_is_fp32s():
 
 @pytest.mark.parametrize("tier", list(TIERS))
 def test_half_entries_take_fp32_tables_and_layouts(monkeypatch, tier):
-    """The four new half entries get the fp32 layouts (`strided_tw_layout`,
-    `conv_layout`, `twofactor_layout`, `conv_pair_layout`), fp32 stage,
-    twiddle, spectrum and chirp tables and fp32 per-line constants, and
-    write planes of the storage dtype; the 2-D mode of fft_conv_pair keeps
-    refusing half planes."""
+    """The half entries of the other routes get the fp32 layouts
+    (`strided_tw_layout`, `conv_layout`, `twofactor_layout`,
+    `conv_pair_layout`, and `conv2d_layout` for the 2-D mode of
+    fft_conv_pair), fp32 stage, twiddle, spectrum and chirp tables and fp32
+    per-line constants, and write planes of the storage dtype; half
+    per-line constants are refused."""
     dt = TIERS[tier]
     sfx = ck._SUFFIX[dt]
     dev = torch.device("meta")
@@ -328,20 +329,20 @@ def test_half_entries_take_fp32_tables_and_layouts(monkeypatch, tier):
                                                    "pair"),
                              ck.bluestein_chirp(10007, m, False, dev))
         q = _meta((4, 64, 64), dt)
-        with pytest.raises(TypeError, match="item 10"):
-            ck.fft_conv_pair(q.re, q.im, torch.empty(4096, 2, device=dev))
+        e = ck.fft_conv_pair(q.re, q.im, torch.empty(4096, 2, device=dev))
         with pytest.raises(TypeError, match="item 10"):
             ck.fft_conv_inv(t.re, t.im,
                             ck.rader_spectrum(7919, 1.0, dev, "swapped"),
                             dc=tuple(u.to(dt) for u in dc))
     assert [e for e, _ in calls] == [
         f"vk_{k}{sfx}" for k in ("fft_strided_tw", "fft_conv", "fft_conv_inv",
-                                 "fft_conv_pair")]
+                                 "fft_conv_pair", "fft_conv2d")]
     assert calls[0][1][-3:] == ck.strided_tw_layout(512, 2048)
     assert calls[1][1][-3:] == ck.conv_layout(5002)
     assert calls[2][1][-3:] == ck.twofactor_layout(7918)
     assert calls[3][1][-3:] == ck.conv_pair_layout(m)[2:]
-    assert all(y[0].dtype == dt for y in (a, b, c, d))
+    assert calls[4][1][-3:] == ck.conv2d_layout(64, 64)[:3]
+    assert all(y[0].dtype == dt for y in (a, b, c, d, e))
     assert a[0].shape == (16, 2048, 512)
     # every table of these launches fp32: no dtype in its key
     assert ck._DEVICE_TABLES and all(
@@ -349,7 +350,8 @@ def test_half_entries_take_fp32_tables_and_layouts(monkeypatch, tier):
         for k, v in ck._DEVICE_TABLES.items())
     assert ck.storage_launches == {
         k: int(k.endswith(sfx) and k[:-len(sfx)] in (
-            "fft_strided_tw", "fft_conv", "fft_conv_inv", "fft_conv_pair"))
+            "fft_strided_tw", "fft_conv", "fft_conv_inv", "fft_conv_pair",
+            "fft_conv2d"))
         for k in ck.storage_launches}
 
 

@@ -22,9 +22,10 @@ modules.  Layer map:
 Precision.HALF / BFLOAT16 — the storage tiers of C2C: Planar input
 narrowed to float16 / bfloat16 planes, every kernel reading and writing
 half the bytes and computing in fp32, a Planar of the storage dtype out
-(complex tensors and host arrays as under SINGLE); on the card DIRECT
-lengths of fft_lines and fft_twofactor and n <= 4 on every axis, other
-lengths ROADMAP queue 1 item 10; float16's range ends at 65504
+(complex tensors and host arrays as under SINGLE); on the card every C2C
+length; half real data and half convolution run on the card too (a half
+rfft returns the reference's float32 planes, a convolution the data's
+dtype); float16's range ends at 65504
 set_compute_mode / get_compute_mode — the JAX package's process-wide
 compute mode ("fp32", "fp32_int8", "bf16"), recorded; every mode runs
 the fp32 kernels

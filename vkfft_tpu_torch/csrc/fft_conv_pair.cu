@@ -85,7 +85,17 @@
 // moves 16.  Only the line's read (each real widened, then times the
 // chirp) and its cropped write (times the chirp, then narrowed once, to
 // nearest even) change; the plane, its float2 exchanges, the tables and
-// every stage stay fp32.  The 2-D mode takes fp32 planes only.
+// every stage stay fp32.
+//
+// Half storage of the 2-D mode (fft_conv2d_f16_kernel,
+// fft_conv2d_bf16_kernel; C entries vk_fft_conv2d_f16, vk_fft_conv2d_bf16):
+// the same body (conv2d_block), bounds, layout and cluster on __half or
+// __nv_bfloat16 planes, 8 B a point of device memory where fp32 moves 16.
+// The row tile comes in through registers in groups of four halves (8
+// bytes) a plane, each widened (cp.async has no 2-byte copy), and goes out
+// by store_lines narrowed to nearest even, 8 bytes a plane at once; the
+// stages, the cluster exchanges, the multiply, the spectrum and the tables
+// stay fp32.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -594,21 +604,32 @@ struct Conj {
   }
 };
 
-__global__ void __launch_bounds__(kPlaneThreads, 1)
-fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
-                  const float2* tz2, const float2* ty1, const float2* ty2,
-                  const float2* twz, const float2* twy, const float2* spec,
-                  PlaneGeo geo) {
-  extern __shared__ __align__(16) float2 smem[];
+// The 2-D block body on planes of storage type St (float, or a half type
+// on the same fp32 plane: the row tile read through registers, as
+// cp.async has no 2-byte copy, each real widened, and written by
+// store_lines narrowed to nearest even).
+template <class St>
+__device__ __forceinline__ void conv2d_block(
+    float2* smem, const St* xr, const St* xi, St* yr, St* yi, const Plan& pz1,
+    const Plan& pz2, const Plan& py1, const Plan& py2, const float2* tz1,
+    const float2* tz2, const float2* ty1, const float2* ty2,
+    const float2* twz, const float2* twy, const float2* spec,
+    const PlaneGeo& geo) {
   cg::cluster_group cluster = cg::this_cluster();
   copy_plane_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
   // the row tile in natural order, one contiguous run
-  walk::load_lines_async(
-      xr, xi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
-                  geo.nz,
-      geo.tile, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
-      smem);
+  if constexpr (walk::kNarrow<St>)
+    walk::load_lines(
+        xr, xi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
+                    geo.nz,
+        geo.tile, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
+        smem);
+  else
+    walk::load_lines_async(
+        xr, xi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
+                    geo.nz,
+        geo.tile, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
+        smem);
   __syncthreads();
   // the z axis, the exchange, the y axis, the multiply, the y axis and the
   // z axis mirrored with the exchange back between them; one call site of
@@ -625,6 +646,40 @@ fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
       yi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
               geo.nz,
       geo.tile, Conj{});
+}
+
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                  Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                  const float2* tz2, const float2* ty1, const float2* ty2,
+                  const float2* twz, const float2* twy, const float2* spec,
+                  PlaneGeo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv2d_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+               twz, twy, spec, geo);
+}
+
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                      __half* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                      const float2* tz1, const float2* tz2, const float2* ty1,
+                      const float2* ty2, const float2* twz, const float2* twy,
+                      const float2* spec, PlaneGeo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv2d_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+               twz, twy, spec, geo);
+}
+
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                       __nv_bfloat16* yr, __nv_bfloat16* yi, Plan pz1,
+                       Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                       const float2* tz2, const float2* ty1,
+                       const float2* ty2, const float2* twz,
+                       const float2* twy, const float2* spec, PlaneGeo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv2d_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
+               twz, twy, spec, geo);
 }
 
 // Shared bytes of a Bluestein block: its tile at the row pitch ns | 1,
@@ -748,6 +803,56 @@ bool plane_layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
          smem <= vkfft::kMaxSmemBytes;
 }
 
+// The checks and the cluster launch of the 2-D `kernel` on planes of
+// storage type St, as vk_fft_conv2d describes them.
+template <class St, typename K>
+int launch_conv2d(K kernel, const St* xr, const St* xi, St* yr, St* yi,
+                  long long planes, int hp, int flags, float scale,
+                  const int* plan_z1, const int* plan_z2, const int* plan_y1,
+                  const int* plan_y2, const float* table_z1,
+                  const float* table_z2, const float* table_y1,
+                  const float* table_y2, const float* twiddle_z,
+                  const float* twiddle_y, const float* spectrum, int cluster,
+                  int threads, int smem, void* stream) {
+  Plan pz1, pz2, py1, py2;
+  if (planes < 1 || hp < 1 || (flags & ~(kConjData | kXpow)) ||
+      spectrum == nullptr || twiddle_z == nullptr || twiddle_y == nullptr ||
+      !vkfft::plan_from_ints(plan_z1, &pz1) ||
+      !vkfft::subplan_from_ints(plan_z2, &pz2) ||
+      !vkfft::plan_from_ints(plan_y1, &py1) ||
+      !vkfft::subplan_from_ints(plan_y2, &py2))
+    return (int)cudaErrorInvalidValue;
+  PlaneGeo geo;
+  if (pz1.n < pz2.n || py1.n < py2.n || pz1.inverse || pz2.inverse ||
+      py1.inverse || py2.inverse ||
+      !plane_layout_of(pz1, pz2, py1, py2, cluster, threads, smem, &geo))
+    return (int)cudaErrorInvalidValue;
+  geo.hp = hp;
+  geo.flags = flags;
+  geo.scale = scale;
+  return launch_cluster(
+      kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr, yi,
+      pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
+      reinterpret_cast<const float2*>(table_z2),
+      reinterpret_cast<const float2*>(table_y1),
+      reinterpret_cast<const float2*>(table_y2),
+      reinterpret_cast<const float2*>(twiddle_z),
+      reinterpret_cast<const float2*>(twiddle_y),
+      reinterpret_cast<const float2*>(spectrum), geo);
+}
+
+// Resident clusters and blocks an SM of the 2-D `kernel`.
+template <typename K>
+int conv2d_occupancy(K kernel, int cluster, int threads, int smem,
+                     int* clusters, int* blocks) {
+  if (!cluster_ok(cluster, cluster, cluster) || threads < 32 ||
+      threads > kPlaneThreads || smem < 0 || clusters == nullptr ||
+      blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return vkfft::cluster::cluster_occupancy(kernel, cluster, threads, smem,
+                                           clusters, blocks);
+}
+
 }  // namespace
 
 extern "C" {
@@ -848,31 +953,42 @@ int vk_fft_conv2d(const float* xr, const float* xi, float* yr, float* yi,
                   const float* table_y2, const float* twiddle_z,
                   const float* twiddle_y, const float* spectrum, int cluster,
                   int threads, int smem, void* stream) {
-  Plan pz1, pz2, py1, py2;
-  if (planes < 1 || hp < 1 || (flags & ~(kConjData | kXpow)) ||
-      spectrum == nullptr || twiddle_z == nullptr || twiddle_y == nullptr ||
-      !vkfft::plan_from_ints(plan_z1, &pz1) ||
-      !vkfft::subplan_from_ints(plan_z2, &pz2) ||
-      !vkfft::plan_from_ints(plan_y1, &py1) ||
-      !vkfft::subplan_from_ints(plan_y2, &py2))
-    return (int)cudaErrorInvalidValue;
-  PlaneGeo geo;
-  if (pz1.n < pz2.n || py1.n < py2.n || pz1.inverse || pz2.inverse ||
-      py1.inverse || py2.inverse ||
-      !plane_layout_of(pz1, pz2, py1, py2, cluster, threads, smem, &geo))
-    return (int)cudaErrorInvalidValue;
-  geo.hp = hp;
-  geo.flags = flags;
-  geo.scale = scale;
-  return launch_cluster(
-      fft_conv2d_kernel, planes, cluster, threads, (size_t)smem, stream, xr,
-      xi, yr, yi, pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
-      reinterpret_cast<const float2*>(table_z2),
-      reinterpret_cast<const float2*>(table_y1),
-      reinterpret_cast<const float2*>(table_y2),
-      reinterpret_cast<const float2*>(twiddle_z),
-      reinterpret_cast<const float2*>(twiddle_y),
-      reinterpret_cast<const float2*>(spectrum), geo);
+  return launch_conv2d(fft_conv2d_kernel, xr, xi, yr, yi, planes, hp, flags,
+                       scale, plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
+                       table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
+                       spectrum, cluster, threads, smem, stream);
+}
+
+// vk_fft_conv2d on fp16 / bf16 planes (the tables and the spectrum fp32,
+// as vk_fft_conv2d's), at its layout.
+int vk_fft_conv2d_f16(const __half* xr, const __half* xi, __half* yr,
+                      __half* yi, long long planes, int hp, int flags,
+                      float scale, const int* plan_z1, const int* plan_z2,
+                      const int* plan_y1, const int* plan_y2,
+                      const float* table_z1, const float* table_z2,
+                      const float* table_y1, const float* table_y2,
+                      const float* twiddle_z, const float* twiddle_y,
+                      const float* spectrum, int cluster, int threads,
+                      int smem, void* stream) {
+  return launch_conv2d(fft_conv2d_f16_kernel, xr, xi, yr, yi, planes, hp,
+                       flags, scale, plan_z1, plan_z2, plan_y1, plan_y2,
+                       table_z1, table_z2, table_y1, table_y2, twiddle_z,
+                       twiddle_y, spectrum, cluster, threads, smem, stream);
+}
+
+int vk_fft_conv2d_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                       __nv_bfloat16* yr, __nv_bfloat16* yi, long long planes,
+                       int hp, int flags, float scale, const int* plan_z1,
+                       const int* plan_z2, const int* plan_y1,
+                       const int* plan_y2, const float* table_z1,
+                       const float* table_z2, const float* table_y1,
+                       const float* table_y2, const float* twiddle_z,
+                       const float* twiddle_y, const float* spectrum,
+                       int cluster, int threads, int smem, void* stream) {
+  return launch_conv2d(fft_conv2d_bf16_kernel, xr, xi, yr, yi, planes, hp,
+                       flags, scale, plan_z1, plan_z2, plan_y1, plan_y2,
+                       table_z1, table_z2, table_y1, table_y2, twiddle_z,
+                       twiddle_y, spectrum, cluster, threads, smem, stream);
 }
 
 // Resident clusters on the card and blocks an SM of the 2-D mode's kernel
@@ -880,12 +996,20 @@ int vk_fft_conv2d(const float* xr, const float* xi, float* yr, float* yi,
 // *clusters and *blocks.
 int vk_fft_conv2d_occupancy(int cluster, int threads, int smem,
                             int* clusters, int* blocks) {
-  if (!cluster_ok(cluster, cluster, cluster) || threads < 32 ||
-      threads > kPlaneThreads || smem < 0 || clusters == nullptr ||
-      blocks == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return vkfft::cluster::cluster_occupancy(fft_conv2d_kernel, cluster,
-                                           threads, smem, clusters, blocks);
+  return conv2d_occupancy(fft_conv2d_kernel, cluster, threads, smem,
+                          clusters, blocks);
+}
+
+int vk_fft_conv2d_f16_occupancy(int cluster, int threads, int smem,
+                                int* clusters, int* blocks) {
+  return conv2d_occupancy(fft_conv2d_f16_kernel, cluster, threads, smem,
+                          clusters, blocks);
+}
+
+int vk_fft_conv2d_bf16_occupancy(int cluster, int threads, int smem,
+                                 int* clusters, int* blocks) {
+  return conv2d_occupancy(fft_conv2d_bf16_kernel, cluster, threads, smem,
+                          clusters, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -65,7 +65,12 @@ Real lines of even length run `fft_r2c`/`fft_c2r` where `r2c_supports`
 holds, and otherwise the half-length route of the JAX package's
 ``transforms/r2c.py:167-182`` and ``:223-235``: the n/2-point C2C on the
 card between tensor-op packing and untangling; the two minor axes of real
-data run `fft_r2c_pair` where `r2c_pair_supports` finds a cluster.
+data run `fft_r2c_pair` where `r2c_pair_supports` finds a cluster.  Real
+float16 / bfloat16 lines take the half-length route at every even n: the
+n/2-point C2C on the half instantiations, then the untangle in fp32, so
+the half spectrum comes back as float32 planes, as the JAX package's
+untangle promotes it; a half spectrum is widened and inverted in fp32
+(`fft_c2r` where `r2c_supports` holds), as the JAX package packs it.
 
 Real-to-real lines (DCT/DST types I-IV) run `fft_dct23`, `fft_dct1` or
 `fft_dct4` where `r2r_route` names one; elsewhere `transforms/r2r.py` runs
@@ -86,9 +91,10 @@ lengths; `f64_supports` for a whole configuration, the one rule the API's
 DOUBLE route reads); no other route has fp64 kernels yet.
 
 float16 and bfloat16 planes (the storage tiers: half the bytes, fp32
-arithmetic) run every C2C route above on the half-storage instantiations
-of its kernels (`ck.STORAGE_KERNELS`; `storage_axis_supports` holds
-wherever `supports` does, n <= 4 as tensor ops widened to fp32).  The glue
+arithmetic) run every C2C route above, the real transforms' C2C and every
+fused convolution mode on the half-storage instantiations of its kernels
+(`ck.STORAGE_KERNELS`; `storage_axis_supports` holds wherever `supports`
+does, n <= 4 as tensor ops widened to fp32).  The glue
 between the kernels (Rader's DC sum and x0 terms, SPLIT's twiddle, the
 Bluestein chirps and spectrum of the composed routes) computes in fp32
 and narrows once to the planes' dtype, so every launch stays on the half
@@ -99,10 +105,11 @@ intermediate leaves float16's range; fp32 keeps the whole scale on the
 last pass.
 
 What raises ``NotImplementedError`` naming its ROADMAP item: float64 on
-every route but the fp64 kernels' DIRECT lengths, real and R2R data and
-convolution on any dtype but float32, and every other dtype (queue 1
-item 10); zero-pad keeps (queue 1 item 8).  `check_walk` refuses a C2C
-walk with such an axis before its first launch.  `route`
+every route but the fp64 kernels' DIRECT lengths, float64 real data and
+convolution, R2R data on any dtype but float32 (the transforms widen half
+R2R data first), and every other dtype (queue 1 item 10); zero-pad keeps
+(queue 1 item 8).  `check_walk` refuses a C2C walk with such an axis
+before its first launch.  `route`
 raises ValueError for a length no split of the long tier holds (beyond
 2^40, or more primes above 64 than three uploads can place).  Nothing
 here falls back to the plain engine or to a kernel's plain version.
@@ -118,7 +125,7 @@ import torch
 from vkfft_tpu_torch import luts
 from vkfft_tpu_torch.ops import cuda_kernels as ck
 from vkfft_tpu_torch.ops.half_length import c2r_pack, r2c_untangle
-from vkfft_tpu_torch.pcomplex import Planar
+from vkfft_tpu_torch.pcomplex import Planar, widened
 from vkfft_tpu_torch.planner.factorize import Algorithm
 from vkfft_tpu_torch.planner.plan import AxisPlan, plan_axis
 
@@ -257,18 +264,29 @@ def check_walk(shape, axes, dtype: torch.dtype) -> None:
 r2c_supports = ck.r2c_supports
 
 
-def r2c_pair_supports(ny: int, nz: int) -> bool:
-    """Whether `rfft_pair_p`/`irfft_pair_p` run real (ny, nz) planes in one
-    kernel pass."""
-    return ck.r2c_pair_cluster(ny, nz) is not None
+def r2c_pair_supports(ny: int, nz: int,
+                      dtype: torch.dtype = torch.float32) -> bool:
+    """Whether `rfft_pair_p`/`irfft_pair_p` run real (ny, nz) planes of
+    ``dtype`` in one kernel pass: float32 planes a cluster holds (the JAX
+    package's ``_r2c_pair_ok``, ``transforms/r2c.py:245-250``, takes
+    float32 only; half planes run the real axis and the complex axes
+    apart)."""
+    return (dtype == torch.float32
+            and ck.r2c_pair_cluster(ny, nz) is not None)
 
 
 def _dtype_error(dtype: torch.dtype) -> NotImplementedError:
     return NotImplementedError(
         f"CUDA engine runs float32 planes, float64 on the C2C routes of the "
         f"fp64 kernels (DIRECT lengths of fft_lines, n <= 4), and float16 / "
-        f"bfloat16 on every C2C route (not on real, R2R or convolution "
-        f"data); {dtype} here is ROADMAP queue 1 item 10")
+        f"bfloat16 on every C2C route, real transforms and convolution (not "
+        f"on R2R data); {dtype} here is ROADMAP queue 1 item 10")
+
+
+def _storage(dtype: torch.dtype) -> bool:
+    """The dtype rule of the routes whose kernels have half-storage
+    instantiations but no fp64 one (real lines, convolution)."""
+    return dtype in ck.STORAGE_DTYPES
 
 
 def _check_dtype(x, ok=None) -> None:
@@ -722,12 +740,15 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def rfft_lines_p(x: torch.Tensor) -> Planar:
     """numpy ``rfft`` (B, n/2+1) half spectrum of real (B, n) lines, n
-    even: `fft_r2c` where `r2c_supports` holds, else the n/2-point C2C of
-    z[j] = x[2j] + i x[2j+1] on the card and the untangle as tensor ops
-    (``vkfft_tpu/transforms/r2c.py:167-182``)."""
-    _check_dtype(x)
+    even, as float32 planes: `fft_r2c` where `r2c_supports` holds for
+    float32 lines, else the n/2-point C2C of z[j] = x[2j] + i x[2j+1] on
+    the card at the lines' dtype (float16 / bfloat16 lines on the half
+    instantiations) and the untangle as tensor ops in fp32
+    (``vkfft_tpu/transforms/r2c.py:167-182``, whose untangle promotes half
+    data to float32)."""
+    _check_dtype(x, _storage)
     n = x.shape[1]
-    if ck.r2c_supports(n):
+    if x.dtype == torch.float32 and ck.r2c_supports(n):
         return Planar(*ck.fft_r2c(_aligned(x)))
     z = Planar(x[:, 0::2].contiguous(), x[:, 1::2].contiguous())
     Z = fft_lines_p(z, plan_axis(n // 2), donate=True)
@@ -739,7 +760,10 @@ def irfft_lines_p(X: Planar, n: int, scale: float = 1.0) -> torch.Tensor:
     (n/2)*``scale``: `fft_c2r` where `r2c_supports` holds, else the packing
     as tensor ops and the n/2-point inverse C2C on the card
     (``vkfft_tpu/transforms/r2c.py:223-235``); Im(DC) and Im(Nyquist) are
-    ignored either way."""
+    ignored either way.  A float16 / bfloat16 spectrum is widened first and
+    runs in fp32 to float32 lines, as the JAX package packs it
+    (``:236-246``)."""
+    X = widened(X)
     _check_dtype(X)
     X = X.contiguous()
     if ck.r2c_supports(n):
@@ -804,7 +828,10 @@ def r2r_lines_p(x: torch.Tensor, type: int, dst: bool,
 # spectrum as `conv_spectrum` makes it, an unscaled (L, 2) float32 tensor on
 # the planes' device; ``scale`` rides the inverse stages (after the
 # multiply, so after the cross-power normalization too).  ``donate=True``
-# lets the kernel write over the caller's planes.
+# lets the kernel write over the caller's planes.  float16 / bfloat16 planes
+# run every mode on the half instantiations of its kernels (the table, the
+# stages and the multiply fp32) and come back at their dtype, as the JAX
+# package's fused kernels keep theirs.
 # ---------------------------------------------------------------------------
 
 def conv_route(config, kernel_ndim: int) -> Optional[str]:
@@ -868,7 +895,7 @@ def _check_conv(x: Planar, lines: tuple, table: torch.Tensor,
 
 def _conv_lines(x: Planar, table: torch.Tensor, conj_data: bool, xpow: bool,
                 scale: float, donate: bool) -> Planar:
-    _check_dtype(x)
+    _check_dtype(x, _storage)
     x = x.contiguous()
     return Planar(*ck.fft_conv(x.re, x.im, table,
                                out=(x.re, x.im) if donate else None,
@@ -915,7 +942,7 @@ def conv_fused_pair(x: Planar, ny: int, nz: int, table: torch.Tensor,
     (ny, nz) spectrum or (hp, ny, nz) per-slice spectra in natural order
     (the TPU's is the (nz, ny) transpose), plane b of the flattened batch
     multiplied by spectrum b % hp."""
-    _check_dtype(x)
+    _check_dtype(x, _storage)
     shape = x.shape
     if shape[-2:] != (ny, nz):
         raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)}")
@@ -935,7 +962,7 @@ def conv_fused_planar(x: Planar, n: int, table: torch.Tensor,
     the multiply and the inverse in `fft_conv_inv` (``pallas_engine.py:4532
     conv_fused_planar``, as `_rader_p` runs its second branch)."""
     _check_conv(x, (n,), table, n, "conv_fused_planar")
-    _check_dtype(x)
+    _check_dtype(x, _storage)
     x = x.contiguous()
     fr, fi = ck.fft_twofactor(x.re, x.im, swapped=True,
                               out=(x.re, x.im) if donate else None)

@@ -84,14 +84,15 @@ tables in fp64, at the same layout rules in points, a point 16 B of
 shared memory (`lines_layout`, `strided_layout`, `pair_layout` and
 `pair_cluster` take the dtype).  `fft_lines`, `fft_twofactor`,
 `fft_strided`, `fft_pair`, `fft_strided_tw`, `fft_conv`, `fft_conv_inv`
-and `fft_conv_pair`'s Bluestein mode (`STORAGE_KERNELS`: every kernel of
-the C2C routes) have half-storage instantiations (C entries
-``vk_<name>_f16`` and ``vk_<name>_bf16``, counted in
-`storage_launches`): float16 or bfloat16 planes, read widened to fp32 and
-written narrowed, the tables, factors, spectra, chirps, shared memory (8
-B a point, so every fp32 layout rule holds as it is) and every stage
-fp32.  Every other kernel, the 2-D mode of `fft_conv_pair` among them,
-takes float32 planes only (other precisions are ROADMAP queue 1 item 10).
+and `fft_conv_pair` (`STORAGE_KERNELS`: every kernel of the C2C routes and
+of the fused convolutions) have half-storage instantiations (C entries
+``vk_<name>_f16`` and ``vk_<name>_bf16``, and ``vk_fft_conv2d_f16`` /
+``_bf16`` for `fft_conv_pair`'s 2-D mode, counted in `storage_launches`
+by entry, `STORAGE_ENTRIES`): float16 or bfloat16 planes, read widened to
+fp32 and written narrowed, the tables, factors, spectra, chirps, shared
+memory (8 B a point, so every fp32 layout rule holds as it is) and every
+stage fp32.  Every other kernel (the real and R2R kernels) takes float32
+planes only (other precisions are ROADMAP queue 1 item 10).
 
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
@@ -253,20 +254,26 @@ F64_THREADS = {"fft_lines": 256, "fft_strided": 512, "fft_pair": 256}
 # The kernels with half-storage instantiations (C entries vk_<name>_f16 and
 # vk_<name>_bf16): float16 / bfloat16 planes on the fp32 walk, at the fp32
 # kernel's bounds and layout (a shared point stays a float2); every kernel
-# a C2C route launches (fft_conv_pair: its Bluestein mode).
+# a C2C route or a fused convolution launches (fft_conv_pair in both its
+# modes; the 2-D mode's entries are vk_fft_conv2d_f16 / _bf16).
 STORAGE_KERNELS = ("fft_lines", "fft_twofactor", "fft_strided", "fft_pair",
                    "fft_strided_tw", "fft_conv", "fft_conv_inv",
                    "fft_conv_pair")
+# The half-storage instantiations counted apart in `storage_launches`: each
+# kernel of STORAGE_KERNELS (fft_conv_pair: its Bluestein mode) and
+# fft_conv_pair's 2-D mode, by the name of its C entry.
+STORAGE_ENTRIES = STORAGE_KERNELS + ("fft_conv2d",)
 # The suffix of the C entries of each dtype's instantiation.
 _SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.float16: "_f16",
            torch.bfloat16: "_bf16"}
 
 # Kernel launches per wrapper, counted where the wrapper launches; the fp64
 # instantiations' apart, and the half-storage ones apart by instantiation
-# (``fft_lines_f16``, ``fft_lines_bf16``, ...).
+# (``fft_lines_f16``, ``fft_lines_bf16``, ..., ``fft_conv2d_bf16``: the
+# name of the C entry).
 launches = {name: 0 for name in KERNEL_SOURCES}
 f64_launches = {name: 0 for name in F64_KERNELS}
-storage_launches = {name + _SUFFIX[dt]: 0 for name in STORAGE_KERNELS
+storage_launches = {name + _SUFFIX[dt]: 0 for name in STORAGE_ENTRIES
                     for dt in STORAGE_DTYPES}
 
 
@@ -819,11 +826,14 @@ def conv2d_layout(ny: int, nz: int):
                          CONV2D_ODD_XCHG)
 
 
-def conv2d_occupancy(ny: int, nz: int) -> tuple[int, int]:
+def conv2d_occupancy(ny: int, nz: int,
+                     dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(resident clusters on the card, resident blocks an SM) of
-    `fft_conv_pair`'s 2-D mode at the layout of an (ny, nz) plane (C entry
-    ``vk_fft_conv2d_occupancy``)."""
-    return _cluster_occupancy("fft_conv_pair", "fft_conv2d_occupancy",
+    `fft_conv_pair`'s 2-D mode at the layout of an (ny, nz) plane of
+    ``dtype`` (C entry ``vk_fft_conv2d_occupancy``,
+    ``vk_fft_conv2d_f16_occupancy``, ...)."""
+    return _cluster_occupancy("fft_conv_pair",
+                              f"fft_conv2d{_SUFFIX[dtype]}_occupancy",
                               *conv2d_layout(ny, nz)[:3])
 
 
@@ -2261,6 +2271,9 @@ def _with_instantiations(entries: dict) -> dict:
         for name in names:
             for dt in dtypes:
                 out[name][name + _SUFFIX[dt]] = entries[name][name]
+    for dt in STORAGE_DTYPES:
+        out["fft_conv_pair"]["fft_conv2d" + _SUFFIX[dt]] = (
+            entries["fft_conv_pair"]["fft_conv2d"])
     return out
 
 
@@ -2291,7 +2304,7 @@ def _launch(name: str, entry: str, device: torch.device, args,
     current stream of ``device``; tensors pass as their data pointers and
     ctypes arrays by address.  Raises on a refused launch and counts it
     in `launches` otherwise (in `f64_launches` for a float64 instantiation,
-    in `storage_launches` under its name for a half-storage one)."""
+    in `storage_launches` under its entry for a half-storage one)."""
     lib = _library(name)
     c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
               else a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -2305,7 +2318,7 @@ def _launch(name: str, entry: str, device: torch.device, args,
     if dtype == torch.float64:
         f64_launches[name] += 1
     elif dtype in STORAGE_DTYPES:
-        storage_launches[name + _SUFFIX[dtype]] += 1
+        storage_launches[entry] += 1
     else:
         launches[name] += 1
 
@@ -3036,17 +3049,18 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     (an (m, 2) table in the plane order, `bluestein_spectrum(...,
     layout="pair")`), cropped to n and times the chirp again.
 
-    Without, the 2-D mode: each (ny, nz) plane of (B, ny, nz) float32
-    planes circularly convolved with a fixed kernel, the inverse 2-D DFT,
-    times ``scale``, of its 2-D DFT (conjugated with ``conj_data``) times
-    spectrum b % hp of the (hp * ny * nz, 2) table in natural (hp, ny, nz)
-    order, divided by its modulus with ``xpow``; the plane must fit a
-    cluster (`pair_cluster`).
+    Without, the 2-D mode: each (ny, nz) plane of (B, ny, nz) float32,
+    float16 or bfloat16 planes circularly convolved with a fixed kernel,
+    the inverse 2-D DFT, times ``scale``, of its 2-D DFT (conjugated with
+    ``conj_data``) times spectrum b % hp of the (hp * ny * nz, 2) table in
+    natural (hp, ny, nz) order, divided by its modulus with ``xpow``; the
+    plane must fit a cluster (`pair_cluster`).
 
     ``out`` as for `fft_lines`.  CPU tensors run `fft_conv_pair_plain`;
-    CUDA tensors launch the kernel (the Bluestein mode on float16 /
-    bfloat16 lines: its half-storage instantiation, computing in fp32; the
-    2-D mode takes float32 only).
+    CUDA tensors launch the kernel (on float16 / bfloat16 planes its
+    half-storage instantiation, computing in fp32: ``vk_fft_conv_pair_f16``
+    and ``_bf16`` in the Bluestein mode, ``vk_fft_conv2d_f16`` and
+    ``_bf16`` in the 2-D mode, at the fp32 layouts).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:2205 _conv_pair_kernel`` in
     both its modes.  Bluestein: bound by bytes at sample 7's 10007 (16 B a
@@ -3101,8 +3115,10 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
 def _fft_conv2d(re, im, spectrum, out, conj_data: bool, xpow: bool,
                 scale: float):
-    """The 2-D mode of `fft_conv_pair` (C entry ``vk_fft_conv2d``)."""
-    _check_planes(re, im, 3, "fft_conv_pair")
+    """The 2-D mode of `fft_conv_pair` (C entry ``vk_fft_conv2d``; on half
+    planes ``vk_fft_conv2d_f16`` / ``_bf16``, at the same layout and fp32
+    tables and spectrum)."""
+    _check_planes(re, im, 3, "fft_conv_pair", _HALF_DTYPES)
     B, ny, nz = re.shape
     _check_length(ny)
     _check_length(nz)

@@ -6,8 +6,12 @@ O = -i (Z[k] - conj Z[m-k])/2, X[k] = E + w_n^k O; the inverse packs the
 half spectrum back into the m-point spectrum of z.
 
 Both engines import these: the CUDA engine around its n/2-point C2C on the
-card (where `fft_r2c` does not take n), the plain engine around its own.
-Tensor ops only, on any device.
+card (where `fft_r2c` does not take n, and for every float16 / bfloat16
+line), the plain engine around its own.  Tensor ops only, on any device.
+Both compute in fp32 on half planes and return float32 planes: the JAX
+package's untangle and packing promote a half spectrum to float32
+(``np.float32(0.5)``, ``vkfft_tpu/transforms/r2c.py:173-182`` and
+``:236-246``), so its half real transforms return float32.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import numpy as np
 import torch
 
 from vkfft_tpu_torch import luts
-from vkfft_tpu_torch.pcomplex import Planar, mul_i, mul_neg_i, planar_table
+from vkfft_tpu_torch.pcomplex import (Planar, mul_i, mul_neg_i, planar_table,
+                                      widened)
 
 
 def r2c_untangle(Z: Planar, n: int, packed: bool = False) -> Planar:
@@ -23,7 +28,9 @@ def r2c_untangle(Z: Planar, n: int, packed: bool = False) -> Planar:
     DFT of z[j] = x[2j] + i x[2j+1]: numpy ``rfft`` values as (B, n/2+1)
     planes with Im(DC) = Im(Nyquist) = 0, or with ``packed`` (B, n/2) planes
     holding the real Nyquist bin in Im(bin 0).  Elementwise tensor ops, no
-    FFT."""
+    FFT; a float16 / bfloat16 Z is widened first (exactly) and the half
+    spectrum comes back as float32 planes."""
+    Z = widened(Z)
     m = n // 2
     Zk = Z[:, np.arange(m + 1) % m]
     Zr = Z[:, (-np.arange(m + 1)) % m].conj()
@@ -42,7 +49,9 @@ def c2r_pack(X: Planar, n: int, packed: bool = False) -> Planar:
     of even length n as x[2j] = Re z[j], x[2j+1] = Im z[j], from their
     (B, n/2+1) half spectrum (or the ``packed`` (B, n/2) form); Im(DC) and
     Im(Nyquist) are ignored, as numpy ignores them.  Elementwise tensor ops,
-    no FFT."""
+    no FFT; a float16 / bfloat16 X is widened first and the spectrum comes
+    back as float32 planes, for an inverse in fp32."""
+    X = widened(X)
     m = n // 2
     dc = X.re[:, :1]
     nyq = X.im[:, :1] if packed else X.re[:, m:m + 1]

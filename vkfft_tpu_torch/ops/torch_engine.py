@@ -169,7 +169,8 @@ def lines_plain(x: Planar, plan: AxisPlan, inverse: bool = False,
 
 def rfft_lines_plain(x: torch.Tensor, packed: bool = False) -> Planar:
     """Half spectrum of real (B, n) lines, n even and >= 4, as
-    `r2c_untangle` gives it."""
+    `r2c_untangle` gives it (float16 / bfloat16 lines: the C2C at their
+    dtype, the untangle in fp32, float32 planes out)."""
     n = x.shape[1]
     Z = lines_plain(Planar(x[:, 0::2], x[:, 1::2]), plan_axis(n // 2))
     return r2c_untangle(Z, n, packed)
@@ -180,7 +181,8 @@ def irfft_lines_plain(X: Planar, n: int, scale: float = 1.0,
     """Real (B, n) lines from their (B, n/2+1) half spectrum (or the
     ``packed`` (B, n/2) form), scaled by (n/2)*``scale``: ``scale=2/n``
     gives numpy ``irfft``.  Im(DC) and Im(Nyquist) are ignored, as numpy
-    ignores them."""
+    ignores them; a float16 / bfloat16 spectrum runs widened, to float32
+    lines (`c2r_pack`)."""
     z = lines_plain(c2r_pack(X, n, packed), plan_axis(n // 2), True, scale)
     return torch.stack([z.re, z.im], -1).reshape(-1, n)
 

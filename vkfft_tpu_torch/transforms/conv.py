@@ -33,7 +33,7 @@ from vkfft_tpu_torch.config import FFTConfig, config_from_reference
 from vkfft_tpu_torch.errors import InvalidConfigError
 from vkfft_tpu_torch.ops import cuda_engine as ce
 from vkfft_tpu_torch.pcomplex import (Planar, from_complex, from_numpy_planar,
-                                      to_complex, to_numpy)
+                                      to_complex, to_numpy, widened)
 from vkfft_tpu_torch.planner.plan import plan_axis
 
 
@@ -203,13 +203,20 @@ class ConvolutionApplication:
         return x
 
     def _composition(self, x: Planar, engine: str) -> Planar:
-        """fftn, the multiply and ifftn (``_convolve``, :309-335)."""
+        """fftn, the multiply and ifftn (``_convolve``, :309-335).  Half
+        planes run the transforms at their dtype and the multiply and the
+        1/N in fp32 on the fp32 kernel, narrowed once before the
+        unnormalized inverse: the result keeps the data's dtype, as the
+        fused modes' do (the JAX package's composition returns float32
+        there)."""
         cfg = self.config
         ndim = len(cfg.shape)
         m = cfg.matrix_convolution
         multi = cfg.number_kernels > 1
         axes = tuple(range(-ndim, 0))
         X = api.fftn(x, axes=axes, engine=engine)
+        dt = X.dtype
+        X = widened(X)
         Kf = self._table("kernel", X.device, X.dtype)
         if cfg.conjugate_convolution == 1:
             Kf = Kf.conj()
@@ -229,6 +236,13 @@ class ConvolutionApplication:
         if cfg.cross_power_spectrum_normalization:
             mag = torch.sqrt(Y.re * Y.re + Y.im * Y.im)
             Y = Y * (1.0 / torch.clamp_min(mag, 1e-30))
+        if Y.dtype != dt:
+            # the 1/N on the fp32 product before it is narrowed, and the
+            # inverse unnormalized: Y grows with the kernel's spectrum and
+            # would leave float16's range narrowed as it is
+            Y = (Y * (1.0 / math.prod(cfg.shape))).astype(dt)
+            return api.fftn(Y, axes=axes, engine=engine, inverse=True,
+                            normalize=False)
         return api.ifftn(Y, axes=axes, engine=engine)
 
     def _convolve(self, x: Planar) -> Planar:

@@ -16,7 +16,19 @@ three ways, on either engine:
 The N-D forms run the two minor axes as one real pair pass on an engine
 that has one (`r2c_pair_supports`), else the real axis as lines, and then
 the complex axes on the half spectrum; the inverse mirrors this and folds
-the whole 1/N into its last pass.  An inverse ignores the imaginary parts
+the whole 1/N into its last pass.
+
+float16 / bfloat16 data keeps the JAX package's dtypes, which its
+untangle sets (``vkfft_tpu/transforms/r2c.py:173-182``, ``:236-246``):
+the even-n and merged-sequences forwards run their C2C at the data's
+dtype and untangle in fp32, returning float32 planes; the even-n inverse
+widens the half spectrum and runs in fp32, to float32 data; the
+merged-sequences inverse and the n < 4 / one-line route stay at the half
+dtype.  `rfftn` then runs the complex axes on the float32 half spectrum;
+`irfftn` of a half spectrum runs each complex axis's inverse at the half
+dtype scaled by its own 1/n, as the JAX package normalizes each axis (a
+whole 1/N on the last pass would let float16's intermediates overflow),
+then the real axis with its 1/n.  An inverse ignores the imaginary parts
 of the DC and Nyquist bins, as numpy does, on every route and at every
 batch (the JAX package's jnp route folds them in, and its Pallas kernels
 let them leak into the merged partner line or plane).
@@ -36,8 +48,9 @@ import numpy as np
 import torch
 
 from vkfft_tpu_torch import api
-from vkfft_tpu_torch.pcomplex import (Planar, from_complex, mul_neg_i,
-                                      real_planar, to_complex, to_numpy)
+from vkfft_tpu_torch.pcomplex import (STORAGE_DTYPES, Planar, from_complex,
+                                      mul_neg_i, real_planar, to_complex,
+                                      to_numpy, widened)
 from vkfft_tpu_torch.planner.plan import plan_axis
 
 
@@ -97,11 +110,14 @@ def _move(x, src: int, dst: int):
 
 def _rfft_merged(flat: torch.Tensor, eng) -> Planar:
     """Merged-sequences R2C of (b, n) lines, n odd: z = x_a + i x_b, one
-    C2C transform, and the Hermitian split recovers both half spectra."""
+    C2C transform, and the Hermitian split recovers both half spectra (in
+    fp32 for half lines, float32 planes out, as the JAX package's
+    ``np.float32(0.5)`` promotes them)."""
     b, n = flat.shape
     if b % 2:
         flat = torch.cat([flat, flat.new_zeros(1, n)])
-    Z = eng.fft_lines_p(Planar(flat[0::2], flat[1::2]), plan_axis(n))
+    Z = widened(eng.fft_lines_p(Planar(flat[0::2], flat[1::2]),
+                                plan_axis(n)))
     h = n // 2 + 1
     Zk = Z[:, :h]
     Zr = Z[:, (-np.arange(h)) % n].conj()
@@ -116,7 +132,8 @@ def _irfft_merged(p: Planar, n: int, eng, norm: float) -> torch.Tensor:
     """Inverse of the merged-sequences trick on (b, n//2+1) half spectra:
     Z = F_a + i F_b with Hermitian tails, one inverse C2C, and the two real
     lines come back as the re/im planes.  Im(DC) is dropped first, as numpy
-    drops it (it would leak into the other line)."""
+    drops it (it would leak into the other line).  Half spectra stay at
+    their dtype, as in the JAX package."""
     b, h = p.shape
     p = Planar(p.re, torch.cat([p.im[:, :1] * 0, p.im[:, 1:]], 1))
     if b % 2:
@@ -175,7 +192,9 @@ def _fit_axis(p: Planar, axis: int, n: int) -> Planar:
 
 def _irfft_last(p: Planar, n: int, eng, norm: float) -> torch.Tensor:
     """Real length-n data along the last axis of half spectrum ``p``: the
-    unnormalized inverse times ``norm`` (1/n gives numpy's irfft)."""
+    unnormalized inverse times ``norm`` (1/n gives numpy's irfft).  Even n
+    >= 4 returns float32 data for a half spectrum (the engines widen it);
+    the other routes keep its dtype."""
     h = n // 2 + 1
     p = _fit_bins(p, h)
     *lead, _ = p.shape
@@ -222,12 +241,13 @@ def irfft(X, n: Optional[int] = None, axis: int = -1,
     return _real_out(_move(y, -1, axis), kind)
 
 
-def _pair_ok(eng, shape, axes, nz: int) -> bool:
-    """Whether the two minor axes run as one real pair pass."""
+def _pair_ok(eng, shape, axes, nz: int, dtype) -> bool:
+    """Whether the two minor axes of data of ``dtype`` run as one real pair
+    pass."""
     ndim = len(shape)
     ok = getattr(eng, "r2c_pair_supports", None)
     return (ok is not None and len(axes) >= 2 and axes[-1] == ndim - 1
-            and ndim - 2 in axes and ok(shape[-2], nz))
+            and ndim - 2 in axes and ok(shape[-2], nz, dtype))
 
 
 def rfftn(x, axes: Optional[Sequence[int]] = None,
@@ -239,7 +259,7 @@ def rfftn(x, axes: Optional[Sequence[int]] = None,
     eng = _engine(engine, xr)
     ndim = xr.ndim
     axes = _axes(axes, ndim)
-    if _pair_ok(eng, xr.shape, axes, xr.shape[-1]):
+    if _pair_ok(eng, xr.shape, axes, xr.shape[-1], xr.dtype):
         y = eng.rfft_pair_p(xr)
         rest = [a for a in axes if a < ndim - 2]
     else:
@@ -257,7 +277,9 @@ def irfftn(X, s: Optional[Sequence[int]] = None,
     """N-D inverse real FFT (numpy ``irfftn``, normalized by 1/N).  ``s``
     gives the output length of each of ``axes``: each complex axis is
     cropped or zero-padded at its end to its entry before its inverse, the
-    real axis's bins to s[-1] // 2 + 1, as numpy does."""
+    real axis's bins to s[-1] // 2 + 1, as numpy does.  The 1/N rides the
+    last pass, or on a float16 / bfloat16 spectrum each complex axis's 1/n
+    its own pass and the real axis's 1/n the last."""
     p, kind = _spectrum_input(X, device)
     eng = _engine(engine, p)
     ndim = p.ndim
@@ -275,14 +297,17 @@ def irfftn(X, s: Optional[Sequence[int]] = None,
         n = s[-1]
     if n < 1:
         raise ValueError(f"invalid output length {n}")
-    outer = math.prod(p.shape[a] for a in axes[:-1])
-    pair = (_pair_ok(eng, p.shape[:-1] + (n,), axes, n)
+    # the 1/n of the complex axes: on the last pass, or on half planes
+    # each on its own pass (outer 1 left for the last)
+    per_axis = p.dtype in STORAGE_DTYPES
+    outer = 1 if per_axis else math.prod(p.shape[a] for a in axes[:-1])
+    pair = (_pair_ok(eng, p.shape[:-1] + (n,), axes, n, p.dtype)
             and p.shape[-1] == n // 2 + 1)
     rest = [a for a in axes if a < ndim - 2] if pair else axes[:-1]
     for a in rest:
-        # unscaled: the 1/N rides the last pass
         p = eng.fft_axis_p(p, a, plan_axis(p.shape[a]), inverse=True,
-                           donate=owned(p))
+                           donate=owned(p),
+                           scale=1.0 / p.shape[a] if per_axis else 1.0)
     if pair:
         # y carries the 1/N of every complex axis, z the real kernels' 2/n
         y = eng.irfft_pair_p(p, n, scale_y=1.0 / outer, scale_z=2.0 / n)
