@@ -5797,40 +5797,24 @@ def phase_storage_kernels(ck, dev) -> dict:
     return {"cases": out, "counts": counts, "worst_vs_plain": worst}
 
 
-def _mixed_launch_check(ck, torch_engine, tag, half, fp32, what):
-    """The launches since the last reset of a route that runs the ``tag``
-    instantiations and fp32 kernels both (a half real transform: its C2C at
-    the half dtype, the widened inverse or the complex axes after the
-    untangle in fp32): exactly ``half`` and ``fp32`` ({kernel: count}), no
-    other launch, no call of the plain engine.  Returns (half, fp32)."""
-    sfx = "_" + tag
-    got = {k[:-len(sfx)]: v for k, v in ck.storage_launches.items()
-           if k.endswith(sfx)}
-    others = {k: v for k, v in ck.storage_launches.items()
-              if not k.endswith(sfx) and v}
-    assert got == {k: half.get(k, 0) for k in got}, (what, got, half)
-    assert dict(ck.launches) == {k: fp32.get(k, 0) for k in ck.launches}, (
-        what, ck.launches, fp32)
-    assert not others and sum(ck.f64_launches.values()) == 0, (
-        what, others, ck.f64_launches)
-    assert torch_engine.calls == 0, (what, torch_engine.calls)
-    return ({k: v for k, v in got.items() if v},
-            {k: v for k, v in ck.launches.items() if v})
-
-
-def _storage_launch_check(ck, torch_engine, tag, want, what):
+def _storage_launch_check(ck, torch_engine, tag, want, what, fp32=None):
     """The launches since the last reset: exactly ``want`` ({kernel:
-    count}) of the ``tag`` instantiations, no other launch, no call of the
-    plain engine."""
+    count}) of the ``tag`` instantiations and ``fp32`` of the fp32 kernels
+    (none by default; a half real transform runs both: its C2C at the half
+    dtype, the widened inverse or the complex axes after the untangle in
+    fp32), no other launch, no call of the plain engine.  Returns the
+    half launches by kernel."""
+    fp32 = fp32 or {}
     sfx = "_" + tag
     got = {k[:-len(sfx)]: v for k, v in ck.storage_launches.items()
            if k.endswith(sfx)}
     others = {k: v for k, v in ck.storage_launches.items()
               if not k.endswith(sfx) and v}
     assert got == {k: want.get(k, 0) for k in got}, (what, got)
-    assert not others and sum(ck.launches.values()) == 0, (what, others,
-                                                           ck.launches)
-    assert sum(ck.f64_launches.values()) == 0, (what, ck.f64_launches)
+    assert dict(ck.launches) == {k: fp32.get(k, 0) for k in ck.launches}, (
+        what, ck.launches)
+    assert not others and sum(ck.f64_launches.values()) == 0, (
+        what, others, ck.f64_launches)
     assert torch_engine.calls == 0, (what, torch_engine.calls)
     return got
 
@@ -5885,6 +5869,14 @@ def _half_real_round_trip(vt, ck, ce, torch_engine, tag, x):
     dt = STORAGE[tag]
     axes = tuple(range(1, x.ndim))
     fwd, inv = _half_real_launches(ce, ck, x.shape)
+
+    def held(want, what):
+        """The (half, fp32) launches of one direction, held to ``want``."""
+        half = _storage_launch_check(ck, torch_engine, tag, want[0],
+                                     (tuple(x.shape), what), want[1])
+        return ({k: v for k, v in half.items() if v},
+                {k: v for k, v in ck.launches.items() if v})
+
     if x.ndim == 2:
         forward = lambda: vt.rfft(vt.Planar(x, x))
         inverse = lambda X: vt.irfft(X, n=x.shape[1])
@@ -5896,16 +5888,14 @@ def _half_real_round_trip(vt, ck, ce, torch_engine, tag, x):
     torch_engine.calls = 0
     X = forward()
     torch.cuda.synchronize()
-    got_f = _mixed_launch_check(ck, torch_engine, tag, *fwd,
-                                (tuple(x.shape), "forward"))
+    got_f = held(fwd, "forward")
     Xh = X.astype(dt)
     torch.cuda.synchronize()
     ck.reset_launches()
     torch_engine.calls = 0
     y = inverse(Xh)
     torch.cuda.synchronize()
-    got_i = _mixed_launch_check(ck, torch_engine, tag, *inv,
-                                (tuple(x.shape), "inverse"))
+    got_i = held(inv, "inverse")
     assert X.dtype == torch.float32 and y.dtype == torch.float32, x.shape
     assert _finite(X) and bool(torch.isfinite(y).all()), x.shape
     return X, Xh, y, {"forward": got_f, "inverse": got_i}
@@ -6207,19 +6197,24 @@ def phase_storage_main_path(vt, ck, ce, torch_engine, dev) -> dict:
     fp32_by_row = {}
     for tag in STORAGE:
         for name, shape in STORAGE_REAL_ROWS:
+            t0 = time.perf_counter()
             row, half, fp32 = _storage_real_row(vt, ck, ce, torch_engine,
                                                 dev, tag, name, shape)
+            row["seconds"] = time.perf_counter() - t0
             by_row[f"{name}_{tag}"] = half
             fp32_by_row[f"{name}_{tag}"] = fp32
             rows.append(row)
+        t0 = time.perf_counter()
         for name, cfg, app, x, want, h in _conv_paths(vt, dev,
                                                       STORAGE_CONV_ROWS):
             row, half = _storage_conv_row(vt, ck, torch_engine, tag, name,
                                           cfg, app, x, want, h)
+            row["seconds"] = time.perf_counter() - t0
             by_row[f"conv_{name}_{tag}"] = half
             rows.append(row)
             del x, h, app
             torch.cuda.empty_cache()
+            t0 = time.perf_counter()
     totals = {k: sum(c[k] for c in by_row.values())
               for k in ck.storage_launches}
     _log(f"[main storage] launches over the path {totals}")
@@ -6229,8 +6224,6 @@ def phase_storage_main_path(vt, ck, ce, torch_engine, dev) -> dict:
             "plain_engine_calls": 0, "rows": rows}
 
 
-# the library of a half entry whose name is not its library's
-STORAGE_LIBRARY = {"fft_conv2d": "fft_conv_pair"}
 # the half real rows of the tiers' main path: 128 MiB of half real lines
 # of 1024 (65536 lines), and the real 256^3 cube
 STORAGE_REAL_ROWS = (("r2c_1d_n1024_x65536", (65536, 1024)),
@@ -6305,7 +6298,8 @@ def _storage_conv_row(vt, ck, torch_engine, tag, name, cfg, app, x, want,
     fft_conv2d) with no plain-engine call; the output of the data's dtype
     and finite; two items at seeded positions against numpy fp64 of the
     narrowed items at the reference's gates and against the CPU's torch
-    engine (the composition on the same half items, narrowed three times)
+    engine (the composition on the same half items: the forward at the
+    half dtype, the product and the inverse in fp32, narrowed once)
     within STORAGE_ROUTE_TOL.  Returns (row, half launches by
     instantiation)."""
     dt = STORAGE[tag]
@@ -6383,7 +6377,7 @@ def phase_storage_times(vt, ck, dev) -> dict:
         points = math.prod(shape)
         bound, by = _bound(8.0 * points + table_bytes,
                            _fft_ops(points, n) if ops is None else ops)
-        regs, st, ld = _ptxas_of(ck, STORAGE_LIBRARY.get(name, name))[
+        regs, st, ld = _ptxas_of(ck, ck.STORAGE_LIBRARY[name])[
             f"{name}_{tag}_kernel"]
         ms = _time_ms(lambda: call(*x))
         row = {"shape": list(shape), "dtype": tag, "ms": ms,
@@ -6838,9 +6832,11 @@ def main(argv=None) -> int:
                                   f"{pe}:3439"),
                "fft_dd": ("vkfft_tpu_torch/csrc/fft_dd.cu",
                           "vkfft_tpu/precision/dd_kernel.py:166")}
-    # the half entries of fft_conv_pair's 2-D mode (vk_fft_conv2d_<dtype>,
-    # counted apart from its Bluestein mode's)
-    sources["fft_conv2d"] = sources["fft_conv_pair"]
+    # the half entries counted apart by C entry (fft_conv_pair's 2-D mode,
+    # vk_fft_conv2d_<dtype>, apart from its Bluestein mode's) at their
+    # library's source
+    for entry, lib in ck.STORAGE_LIBRARY.items():
+        sources.setdefault(entry, sources[lib])
     # the leading axis of the cube, which the JAX package runs in
     # _outer_kernel, runs in fft_strided on the (P, n, R*nz) view; each real
     # source holds both directions; the factor mode (fft_strided_tw) is the

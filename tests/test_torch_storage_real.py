@@ -11,8 +11,9 @@ jnp engine (x64 on, as tests/conftest.py sets it) and numpy fp64 of the
 narrowed input; an fp16 `irfftn` whose whole 1/N on the last pass would
 overflow.  Half convolution in every fused mode keeps the data's dtype,
 against the JAX package's Pallas kernels in interpret mode where it fuses
-the same mode and its jnp engine everywhere, and the fp16 N-D modes stay
-finite at the chip rows' sizes.  Each new route's exact launches, counted
+the same mode and its jnp engine everywhere, the fp16 N-D modes stay
+finite at the chip rows' sizes, and an fp16 cross-power composition at
+2^20 keeps its range.  Each new route's exact launches, counted
 on meta tensors with the library call stubbed out (as
 tests/test_torch_storage.py counts them), and the half 2-D entry's fp32
 layout and tables.  The kernels themselves run only on the card
@@ -300,6 +301,31 @@ def test_fp16_nd_convolution_stays_finite(shape):
     axes = tuple(range(1, len(shape) + 1))
     want = np.fft.ifftn(np.fft.fftn(_t(px), axes=axes)
                         * np.fft.fftn(h.astype(np.complex128)), axes=axes)
+    assert _rel(_t(got), want) <= NUMPY_TOL["HALF"]
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_fp16_cross_power_composition_keeps_its_range(engine):
+    """fp16 cross-power convolution at n = 2^20 (the long tier; no fused
+    mode takes cross-power): the unit-magnitude product and its 1/N stay
+    in fp32 through the inverse, as the JAX package computes them, and
+    only the result is narrowed; a product narrowed at 2^-20 would keep
+    about 4 bits.  Within fp16's gate of numpy fp64 on the narrowed input
+    (seed 20)."""
+    n = 1 << 20
+    cfg = vt.FFTConfig(shape=(n,), convolution=True,
+                       cross_power_spectrum_normalization=True)
+    h = _complex((n,), 20)
+    x = _complex((1, n), 21).astype(np.complex64)
+    app = vt.ConvolutionApplication(cfg, torch.from_numpy(h), engine=engine,
+                                    device="cpu")
+    assert app.fusion_mode is None
+    px = vt.Planar(torch.from_numpy(x.real.copy()).half(),
+                   torch.from_numpy(x.imag.copy()).half())
+    got = app(px)
+    assert got.dtype == torch.float16
+    Y = np.fft.fft(_t(px)) * np.fft.fft(h.astype(np.complex128))
+    want = np.fft.ifft(Y / np.abs(Y))
     assert _rel(_t(got), want) <= NUMPY_TOL["HALF"]
 
 

@@ -259,10 +259,13 @@ F64_THREADS = {"fft_lines": 256, "fft_strided": 512, "fft_pair": 256}
 STORAGE_KERNELS = ("fft_lines", "fft_twofactor", "fft_strided", "fft_pair",
                    "fft_strided_tw", "fft_conv", "fft_conv_inv",
                    "fft_conv_pair")
-# The half-storage instantiations counted apart in `storage_launches`: each
+# The half-storage instantiations counted apart in `storage_launches`, by
+# the name of their C entry, each with the library that holds it: each
 # kernel of STORAGE_KERNELS (fft_conv_pair: its Bluestein mode) and
-# fft_conv_pair's 2-D mode, by the name of its C entry.
-STORAGE_ENTRIES = STORAGE_KERNELS + ("fft_conv2d",)
+# fft_conv_pair's 2-D mode.
+STORAGE_LIBRARY = {**{name: name for name in STORAGE_KERNELS},
+                   "fft_conv2d": "fft_conv_pair"}
+STORAGE_ENTRIES = tuple(STORAGE_LIBRARY)
 # The suffix of the C entries of each dtype's instantiation.
 _SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.float16: "_f16",
            torch.bfloat16: "_bf16"}
@@ -2266,14 +2269,11 @@ def _with_instantiations(entries: dict) -> dict:
     """`_ENTRIES` with the fp64 and half-storage C entries of the kernels
     that have them, each with its fp32 entry's arguments."""
     out = {name: dict(sigs) for name, sigs in entries.items()}
-    for names, dtypes in ((F64_KERNELS, (torch.float64,)),
-                          (STORAGE_KERNELS, STORAGE_DTYPES)):
-        for name in names:
-            for dt in dtypes:
-                out[name][name + _SUFFIX[dt]] = entries[name][name]
-    for dt in STORAGE_DTYPES:
-        out["fft_conv_pair"]["fft_conv2d" + _SUFFIX[dt]] = (
-            entries["fft_conv_pair"]["fft_conv2d"])
+    for name in F64_KERNELS:
+        out[name][name + _SUFFIX[torch.float64]] = entries[name][name]
+    for entry, lib in STORAGE_LIBRARY.items():
+        for dt in STORAGE_DTYPES:
+            out[lib][entry + _SUFFIX[dt]] = entries[lib][entry]
     return out
 
 

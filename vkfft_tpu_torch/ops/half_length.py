@@ -19,8 +19,50 @@ import numpy as np
 import torch
 
 from vkfft_tpu_torch import luts
-from vkfft_tpu_torch.pcomplex import (Planar, mul_i, mul_neg_i, planar_table,
-                                      widened)
+from vkfft_tpu_torch.pcomplex import Planar
+
+# Device copies of the mirror index and the combination tables, per
+# (n, inverse, dtype, device): no call copies from the host.
+_TABLES: dict = {}
+
+
+def _tables(n: int, inverse: bool, dtype: torch.dtype, device):
+    """(the index (m-k) mod m, A, B) for k < m = n/2, with the untangle
+    X[k] = A[k] Z[k] + B[k] conj Z[m-k], A = (1 - i w)/2, B = (1 + i w)/2,
+    w = w_n^k; the packing's F[k] = A X[k] + B conj X[m-k] takes conj w and
+    the opposite signs.  A and B as the planes (Ar, Ai, -Ai, Br, Bi, -Br)."""
+    key = (n, inverse, dtype, str(device))
+    tab = _TABLES.get(key)
+    if tab is None:
+        m = n // 2
+        w = luts.r2c_post_twiddle(n)[:m]
+        if inverse:
+            w = -np.conj(w)
+        a, b = (1 - 1j * w) / 2, (1 + 1j * w) / 2
+        planes = np.stack([a.real, a.imag, -a.imag, b.real, b.imag, -b.real])
+        tab = (torch.as_tensor((-np.arange(m)) % m, device=device),
+               torch.as_tensor(planes, dtype=dtype, device=device).unbind(0))
+        _TABLES[key] = tab
+    return tab
+
+
+def _mirror_sum(P: Planar, n: int, inverse: bool, re: torch.Tensor,
+                im: torch.Tensor) -> None:
+    """re + i im = A P[k] + B conj P[(m-k) mod m] for k < m = n/2, in place
+    in the (B, m) views ``re``/``im`` at their dtype (float16 / bfloat16
+    P is read as it is and computed wider)."""
+    idx, (ar, ai, nai, br, bi, nbr) = _tables(n, inverse, re.dtype,
+                                              re.device)
+    pr, pi = P.re[:, :n // 2], P.im[:, :n // 2]
+    qr, qi = pr.index_select(1, idx), pi.index_select(1, idx)
+    torch.mul(pr, ar, out=re)
+    re.addcmul_(pi, nai).addcmul_(qr, br).addcmul_(qi, bi)
+    torch.mul(pr, ai, out=im)
+    im.addcmul_(pi, ar).addcmul_(qr, bi).addcmul_(qi, nbr)
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def r2c_untangle(Z: Planar, n: int, packed: bool = False) -> Planar:
@@ -28,20 +70,23 @@ def r2c_untangle(Z: Planar, n: int, packed: bool = False) -> Planar:
     DFT of z[j] = x[2j] + i x[2j+1]: numpy ``rfft`` values as (B, n/2+1)
     planes with Im(DC) = Im(Nyquist) = 0, or with ``packed`` (B, n/2) planes
     holding the real Nyquist bin in Im(bin 0).  Elementwise tensor ops, no
-    FFT; a float16 / bfloat16 Z is widened first (exactly) and the half
-    spectrum comes back as float32 planes."""
-    Z = widened(Z)
+    FFT; a float16 / bfloat16 Z is computed in fp32 and the half spectrum
+    comes back as float32 planes."""
     m = n // 2
-    Zk = Z[:, np.arange(m + 1) % m]
-    Zr = Z[:, (-np.arange(m + 1)) % m].conj()
-    E = (Zk + Zr) * 0.5
-    O = mul_neg_i((Zk - Zr) * 0.5)
-    X = E + planar_table(luts.r2c_post_twiddle(n), Z.dtype, Z.device)[None] * O
+    w = m if packed else m + 1
+    re = torch.empty(Z.shape[0], w, dtype=_wide(Z.dtype), device=Z.device)
+    im = torch.empty_like(re)
+    _mirror_sum(Z, n, False, re[:, :m], im[:, :m])
+    # bins 0 and m: Re Z[0] +- Im Z[0], real
+    z0r, z0i = Z.re[:, 0].to(re.dtype), Z.im[:, 0].to(re.dtype)
+    re[:, 0] = z0r + z0i
     if packed:
-        return Planar(X.re[:, :m].contiguous(),
-                      torch.cat([X.re[:, m:], X.im[:, 1:m]], 1))
-    zero = X.im[:, :1] * 0
-    return Planar(X.re, torch.cat([zero, X.im[:, 1:m], zero], 1))
+        im[:, 0] = z0r - z0i
+    else:
+        re[:, m] = z0r - z0i
+        im[:, 0] = 0
+        im[:, m] = 0
+    return Planar(re, im)
 
 
 def c2r_pack(X: Planar, n: int, packed: bool = False) -> Planar:
@@ -49,18 +94,16 @@ def c2r_pack(X: Planar, n: int, packed: bool = False) -> Planar:
     of even length n as x[2j] = Re z[j], x[2j+1] = Im z[j], from their
     (B, n/2+1) half spectrum (or the ``packed`` (B, n/2) form); Im(DC) and
     Im(Nyquist) are ignored, as numpy ignores them.  Elementwise tensor ops,
-    no FFT; a float16 / bfloat16 X is widened first and the spectrum comes
-    back as float32 planes, for an inverse in fp32."""
-    X = widened(X)
+    no FFT; a float16 / bfloat16 X is computed in fp32 and the spectrum
+    comes back as float32 planes, for an inverse in fp32."""
     m = n // 2
-    dc = X.re[:, :1]
-    nyq = X.im[:, :1] if packed else X.re[:, m:m + 1]
-    zero = dc * 0
-    F = Planar(torch.cat([dc, X.re[:, 1:m], nyq], 1),
-               torch.cat([zero, X.im[:, 1:m], zero], 1))
-    Xk = F[:, :m]
-    Xr = F[:, m - np.arange(m)].conj()
-    E = (Xk + Xr) * 0.5
-    tw = planar_table(np.conj(luts.r2c_post_twiddle(n))[:m], X.dtype, X.device)
-    O = tw[None] * ((Xk - Xr) * 0.5)
-    return E + mul_i(O)
+    re = torch.empty(X.shape[0], m, dtype=_wide(X.dtype), device=X.device)
+    im = torch.empty_like(re)
+    _mirror_sum(X, n, True, re, im)
+    # bin 0 from the real DC and Nyquist: F[0] = A[0] dc + B[0] nyq
+    _, (ar, ai, _, br, bi, _) = _tables(n, True, re.dtype, re.device)
+    dc = X.re[:, 0].to(re.dtype)
+    nyq = (X.im[:, 0] if packed else X.re[:, m]).to(re.dtype)
+    re[:, 0] = dc * ar[0] + nyq * br[0]
+    im[:, 0] = dc * ai[0] + nyq * bi[0]
+    return Planar(re, im)

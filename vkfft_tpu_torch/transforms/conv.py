@@ -204,11 +204,10 @@ class ConvolutionApplication:
 
     def _composition(self, x: Planar, engine: str) -> Planar:
         """fftn, the multiply and ifftn (``_convolve``, :309-335).  Half
-        planes run the transforms at their dtype and the multiply and the
-        1/N in fp32 on the fp32 kernel, narrowed once before the
-        unnormalized inverse: the result keeps the data's dtype, as the
-        fused modes' do (the JAX package's composition returns float32
-        there)."""
+        planes run the forward at their dtype, then the multiply and the
+        inverse in fp32, as the JAX package computes them; the result is
+        narrowed once to the data's dtype, as the fused modes' is (the JAX
+        package's composition returns float32 there)."""
         cfg = self.config
         ndim = len(cfg.shape)
         m = cfg.matrix_convolution
@@ -236,14 +235,7 @@ class ConvolutionApplication:
         if cfg.cross_power_spectrum_normalization:
             mag = torch.sqrt(Y.re * Y.re + Y.im * Y.im)
             Y = Y * (1.0 / torch.clamp_min(mag, 1e-30))
-        if Y.dtype != dt:
-            # the 1/N on the fp32 product before it is narrowed, and the
-            # inverse unnormalized: Y grows with the kernel's spectrum and
-            # would leave float16's range narrowed as it is
-            Y = (Y * (1.0 / math.prod(cfg.shape))).astype(dt)
-            return api.fftn(Y, axes=axes, engine=engine, inverse=True,
-                            normalize=False)
-        return api.ifftn(Y, axes=axes, engine=engine)
+        return api.ifftn(Y, axes=axes, engine=engine).astype(dt)
 
     def _convolve(self, x: Planar) -> Planar:
         cfg = self.config
