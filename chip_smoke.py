@@ -224,6 +224,29 @@ Phases (each asserts; any failure exits non-zero before the result line):
      half 2-D conv beside its composition ifft2(fft2(x) * H)), and the
      rows' round trips and calls beside the fp32 ones.  The toolchain
      phase holds each half kernel's ptxas line to its fp32 twin's.
+ 14. zero-pad windows (FFTApplication's zeropad_input / zeropad_output):
+     zeropad_kernels, the windowed entries of fft_lines, fft_twofactor,
+     fft_strided and fft_pair (vk_<name>_zp and their fp64 and half
+     instantiations) against their plain versions in every window form
+     (kept prefixes of 1, 7, n - 1 and n / 3 + 1 read from whole and from
+     cropped planes, interior windows, cropped, filled and zero-windowed
+     outputs, corners of wider planes read in place), fp32 <= 1e-5, half
+     <= 2 storage ulps, fp64 <= 1e-13, the declared-zero input cells NaN
+     (a read of one would show), every output inside sentinel guards,
+     written zeros exact, and the windowed kernels' ptxas lines printed;
+     zeropad_routes, every zeropad_mode kind through FFTApplication in
+     fp32 and bf16 with its exact windowed launches (a masked route its
+     unwindowed kernels), no plain-engine call, against fp64 at the gates
+     and against the CPU's torch engine; zeropad_main_path, the
+     reference's sample 4 rows (vkfft_tpu/cli.py:658-700: 256^3 on the
+     pair corner route, 512^3 and 2048 x 4096 on the axes route) and the
+     v3 / interior / v2 / pair_out / ex05 rows at full size, each held to
+     its exact launches and zeropad_mode; zeropad_times, each row's round
+     trip beside the unwindowed transform and torch.fft, with the host's
+     enqueue time, the device time replayed from a CUDA graph and the
+     points moved (the byte ratio), and each windowed fp32 kernel beside
+     its unwindowed launch on the same planes, its plain version,
+     torch.fft and its bound at the kept bytes.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -236,6 +259,8 @@ toolchain,f64_kernels,f64_routes,f64_main_path,f64_times on the fp64
 kernels and DOUBLE's native route,
 toolchain,storage_kernels,storage_routes,storage_main_path,storage_times
 on the half-storage kernels and the HALF / BFLOAT16 tiers,
+toolchain,zeropad_kernels,zeropad_routes,zeropad_main_path,zeropad_times
+on the windowed entries and the zero-pad routes,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -6697,6 +6722,708 @@ def _storage_conv_times(vt, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 14. Zero-pad windows: the windowed entries of fft_lines, fft_twofactor,
+# fft_strided and fft_pair, and FFTApplication's elided routes.
+# ---------------------------------------------------------------------------
+
+ZP_SENTINEL = 768.0     # exact at every dtype: guard cells must keep it
+ZP_GUARD = 1 << 12      # sentinel reals each side of an output
+ZP_TOL = {torch.float32: KERNEL_TOL, torch.float64: F64_KERNEL_TOL,
+          torch.bfloat16: STORAGE_KERNEL_TOL["bf16"],
+          torch.float16: STORAGE_KERNEL_TOL["f16"]}
+# (kernel, lines, n) of the windowed lines entries: one pass of several
+# lines a block (60, 256), two factors (1024, 4096, 8192), fft_twofactor's
+# layouts (7918 = 2 * 37 * 107, 10240)
+ZP_LINES = (("fft_lines", 257, 60), ("fft_lines", 64, 256),
+            ("fft_lines", 17, 1024), ("fft_lines", 5, 4096),
+            ("fft_lines", 3, 8192), ("fft_twofactor", 3, 7918),
+            ("fft_twofactor", 3, 10240))
+# (P, n, S) of the windowed fft_strided: one pass and two factors, a
+# ragged last tile, a column run of one
+ZP_STRIDED = ((2, 64, 96), (1, 256, 300), (3, 1024, 16), (1, 4096, 8))
+# (B, ny, nz) of the windowed fft_pair: several clusters, an odd plane
+ZP_PAIR = ((3, 16, 64), (2, 256, 256), (3, 47, 60), (2, 64, 12))
+
+
+def _zp_keeps(n: int) -> tuple:
+    """Kept prefixes of n points: 1, 7, n - 1 and one off every group of
+    4 or 16 points."""
+    return tuple(sorted({1, min(7, n - 1), n - 1, n // 3 + 1}))
+
+
+def _zp_windows(n: int) -> tuple:
+    """Interior windows 0 < left < right < n at edges off the groups."""
+    return ((1, n - 1), (min(7, n - 2), max(min(7, n - 2) + 1, n - 5)),
+            (n // 3 + 1, max(n // 3 + 2, 2 * n // 3 - 1)))
+
+
+def _zp_input(shape, seed, dev, dt, zero):
+    """Seeded planes of ``shape`` at ``dt``: (with NaN in the declared-zero
+    cells ``zero`` (a boolean mask, or None), the same with zeros there)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = [torch.randn(shape, generator=g, device=dev,
+                     dtype=torch.float64 if dt == torch.float64
+                     else torch.float32).to(dt) for _ in range(2)]
+    if zero is None:
+        return x, x
+    return ([t.masked_fill(zero, float("nan")) for t in x],
+            [t.masked_fill(zero, 0.0) for t in x])
+
+
+def _zp_guarded(call, shape, dt, dev):
+    """``call(out=...)`` with its output planes of ``shape`` inside a
+    buffer of ZP_SENTINEL reals (ZP_GUARD each side): (the output, the
+    guard cells the launch changed)."""
+    numel = math.prod(shape)
+    buf = torch.full((2, ZP_GUARD + numel + ZP_GUARD), ZP_SENTINEL, dtype=dt,
+                     device=dev)
+    y = tuple(buf[i, ZP_GUARD:ZP_GUARD + numel].view(shape) for i in range(2))
+    got = call(out=y)
+    changed = (int((buf[:, :ZP_GUARD] != ZP_SENTINEL).sum())
+               + int((buf[:, ZP_GUARD + numel:] != ZP_SENTINEL).sum()))
+    return got, changed
+
+
+def _zp_check(y, p, dt, what, zeros=None) -> float:
+    """Relative error of the kernel's planes ``y`` against the plain ones
+    ``p`` (every value finite, within ZP_TOL of max|plain|); the cells of
+    ``zeros`` exactly 0."""
+    yf = [t.double() for t in y]
+    pf = [t.double() for t in p]
+    assert all(bool(torch.isfinite(t).all()) for t in yf), (what, "inf/nan")
+    ref = max(t.abs().max().item() for t in pf) or 1.0
+    err = max((a - b).abs().max().item() for a, b in zip(yf, pf)) / ref
+    assert err <= ZP_TOL[dt], (what, err)
+    if zeros is not None:
+        assert all(bool((t[zeros] == 0).all()) for t in y), (what, "zeros")
+    return err
+
+
+def _zp_case(ck, out, key, call, plain, shape, dt, dev, zeros=None):
+    """One guarded windowed launch against its plain version."""
+    y, changed = _zp_guarded(call, shape, dt, dev)
+    err = _zp_check(y, plain, dt, key, zeros)
+    assert changed == 0, (key, changed)
+    rec = out.setdefault(key, {"cases": 0, "worst_rel_err": 0.0})
+    rec["cases"] += 1
+    rec["worst_rel_err"] = max(rec["worst_rel_err"], err)
+
+
+def phase_zeropad_kernels(ck, dev) -> dict:
+    """The windowed entries (``vk_<kernel>_zp`` and its fp64 and half
+    instantiations) against their plain versions on the same inputs: each
+    window form of each kernel (kept prefixes 1, 7, n - 1 and n / 3 + 1,
+    read from whole planes and from cropped ones; interior windows; outputs
+    cropped, filled and with a zero window; corners of wider planes read
+    in place through their strides), fp32 within KERNEL_TOL, the half
+    dtypes within 2 storage ulps, fp64 within F64_KERNEL_TOL.  The
+    declared-zero input cells hold NaN (a read of one would show in the
+    output, which must be finite and equal the plain version on the zeroed
+    input), every output lies inside sentinel guards that must stay
+    unwritten, and written zeros must be exact.  Prints the windowed
+    kernels' ptxas lines."""
+    out = {}
+    lines_log = {}
+    for name in ck.ZP_KERNELS:
+        with open(ck.library_path(name)[:-3] + ".log") as f:
+            lines_log.update({k: v for k, v in _ptxas_lines(f.read()).items()
+                              if "_zp" in k})
+    for k, v in sorted(lines_log.items()):
+        _log(f"[zeropad ptxas] {k}: {v}")
+    out["ptxas"] = lines_log
+    for kernel, B, n in ZP_LINES:
+        run = getattr(ck, kernel)
+        plain = (ck.fft_lines_plain if kernel == "fft_lines"
+                 else ck.fft_twofactor_plain)
+        for dt in ck.ZP_DTYPES[kernel]:
+            key = f"{ck.zp_entry(kernel, dt)}_n{n}"
+            t = torch.arange(n, device=dev)
+            for i, k in enumerate(_zp_keeps(n)):
+                inv = i % 2 == 1
+                s = 1.0 / n if inv else 1.0
+                # a kept prefix read from whole lines and from cropped ones
+                x, x0 = _zp_input((B, n), n + k, dev, dt, (t >= k)[None, :])
+                w = ck.line_window(n, in_keep=k)
+                p = plain(*x0, inv, s, window=w)
+                _zp_case(ck, out, key, lambda out: run(
+                    *x, inv, s, window=w, out=out), p, (B, n), dt, dev)
+                xc = [v[:, :k].contiguous() for v in x]
+                _zp_case(ck, out, key, lambda out: run(
+                    *xc, inv, s, window=w, out=out), p, (B, n), dt, dev)
+                # the output cropped, and filled
+                x, _ = _zp_input((B, n), 2 * n + k, dev, dt, None)
+                for fill in (False, True):
+                    w = ck.line_window(n, out_keep=k, out_fill=fill)
+                    p = plain(*x, not inv, 1.0, window=w)
+                    shape = (B, n if fill else k)
+                    _zp_case(ck, out, key, lambda out: run(
+                        *x, not inv, window=w, out=out),
+                        p, shape, dt, dev,
+                        (t >= k)[None, :].expand(B, n) if fill else None)
+            for j, win in enumerate(_zp_windows(n)):
+                inv = j % 2 == 0
+                zero = (t >= win[0]) & (t < win[1])
+                x, x0 = _zp_input((B, n), 3 * n + j, dev, dt, zero[None, :])
+                w = ck.line_window(n, in_window=win)
+                p = plain(*x0, inv, 1.0, window=w)
+                _zp_case(ck, out, key, lambda out: run(
+                    *x, inv, window=w, out=out), p, (B, n), dt, dev)
+                w = ck.line_window(n, out_zero_window=win)
+                p = plain(*x0, not inv, 1.0, window=w)
+                _zp_case(ck, out, key, lambda out: run(
+                    *x0, not inv, window=w, out=out), p, (B, n),
+                    dt, dev, zero[None, :].expand(B, n))
+            # lines of a corner of wider planes (three strides), read in
+            # place: the planes (3, 4, 5, n), the corner [:, :2, :3], a
+            # kept prefix n / 3 + 1
+            k = n // 3 + 1
+            full = torch.ones((3, 4, 5, n), dtype=torch.bool, device=dev)
+            full[:, :2, :3, :k] = False
+            x, x0 = _zp_input((3, 4, 5, n), 4 * n, dev, dt, full)
+            xv = [v[:, :2, :3] for v in x]
+            w = ck.line_window(n, in_keep=k)
+            p = plain(*[v[:, :2, :3] for v in x0], False, 1.0, window=w)
+            _zp_case(ck, out, key, lambda out: run(
+                *xv, False, window=w, out=out), p, (3, 2, 3, n), dt, dev)
+    for P, n, S in ZP_STRIDED:
+        for dt in ck.ZP_DTYPES["fft_strided"]:
+            key = f"{ck.zp_entry('fft_strided', dt)}_n{n}"
+            rows = torch.arange(n, device=dev)[None, :, None]
+            for i, k in enumerate(_zp_keeps(n)):
+                inv = i % 2 == 1
+                x, x0 = _zp_input((P, n, S), n + k, dev, dt,
+                                  (rows >= k).expand(P, n, S))
+                p = ck.fft_strided_plain(*x0, inv, 1.0, window=(n, k, n))
+                _zp_case(ck, out, key, lambda out: ck.fft_strided(
+                    *x, inv, in_keep=k, out=out), p, (P, n, S), dt, dev)
+                xc = [v[:, :k].contiguous() for v in x]
+                _zp_case(ck, out, key, lambda out: ck.fft_strided(
+                    *xc, inv, in_keep=k, n=n, out=out), p, (P, n, S), dt, dev)
+                p = ck.fft_strided_plain(*x0, not inv, 1.0, window=(n, n, k))
+                _zp_case(ck, out, key, lambda out: ck.fft_strided(
+                    *x0, not inv, out_keep=k, out=out), p, (P, k, S), dt, dev)
+                # a corner of wider planes: (P, n, 3, S + 5) planes, the
+                # columns [:2, :S] of each row, rows below k read
+                big, big0 = _zp_input(
+                    (P, n, 3, S + 5), 2 * n + k, dev, dt,
+                    (torch.arange(n, device=dev)[None, :, None, None] >= k)
+                    .expand(P, n, 3, S + 5))
+                xv = [v[:, :, :2, :S] for v in big]
+                p = ck.fft_strided_plain(*[v[:, :, :2, :S] for v in big0],
+                                         inv, 1.0, window=(n, k, k))
+                _zp_case(ck, out, key, lambda out: ck.fft_strided(
+                    *xv, inv, in_keep=k, out_keep=k, out=out), p,
+                    (P, k, 2, S), dt, dev)
+    for B, ny, nz in ZP_PAIR:
+        for dt in ck.ZP_DTYPES["fft_pair"]:
+            if ck.pair_cluster(ny, nz, dt) is None:
+                continue
+            key = f"{ck.zp_entry('fft_pair', dt)}_{ny}x{nz}"
+            yy = torch.arange(ny, device=dev)[:, None]
+            zz = torch.arange(nz, device=dev)[None, :]
+            ks = [(k, kz) for k, kz in zip(_zp_keeps(ny), _zp_keeps(nz)[::-1])]
+            ks += [(0, nz // 3 + 1), (ny // 3 + 1, 0)]
+            for i, (ky, kz) in enumerate(ks):
+                inv = i % 2 == 1
+                cy, cz = ky or ny, kz or nz
+                zero = ((yy >= cy) | (zz >= cz))[None].expand(B, ny, nz)
+                x, x0 = _zp_input((B, ny, nz), ny + nz + i, dev, dt, zero)
+                win = (ny, nz, cy, cz, ny, nz)
+                p = ck.fft_pair_plain(*x0, inv, 1.0, window=win)
+                _zp_case(ck, out, key, lambda out: ck.fft_pair(
+                    *x, inv, in_keep=(ky, kz), out=out), p, (B, ny, nz),
+                    dt, dev)
+                xc = [v[:, :cy, :cz].contiguous() for v in x]
+                _zp_case(ck, out, key, lambda out: ck.fft_pair(
+                    *xc, inv, in_keep=(ky, kz), plane=(ny, nz), out=out), p,
+                    (B, ny, nz), dt, dev)
+                win = (ny, nz, ny, nz, cy, cz)
+                p = ck.fft_pair_plain(*x0, not inv, 1.0, window=win)
+                _zp_case(ck, out, key, lambda out: ck.fft_pair(
+                    *x0, not inv, out_keep=(ky, kz), out=out), p,
+                    (B, cy, cz), dt, dev)
+                win = (ny, nz, cy, cz, cy, cz)
+                p = ck.fft_pair_plain(*x0, inv, 1.0, window=win)
+                _zp_case(ck, out, key, lambda out: ck.fft_pair(
+                    *x, inv, in_keep=(ky, kz), out_keep=(ky, kz), out=out),
+                    p, (B, cy, cz), dt, dev)
+    torch.cuda.synchronize()
+    for key, rec in out.items():
+        if key != "ptxas":
+            _log(f"[zeropad kernels] {key}: {rec}")
+    return out
+
+
+def _zp_mask(t: torch.Tensor, spec, ndim: int) -> torch.Tensor:
+    """``t`` with the configured [left, right) window of each of its
+    trailing ``ndim`` axes zeroed."""
+    if spec is None:
+        return t
+    t = t.clone()
+    off = t.ndim - ndim
+    for ax, w in enumerate(spec):
+        if w is not None:
+            t.narrow(off + ax, w[0], w[1] - w[0]).zero_()
+    return t
+
+
+def _zp_zero(shape, spec, ndim, dev):
+    """The boolean mask of the declared-zero cells of ``spec``."""
+    z = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if spec is None:
+        return z
+    off = len(shape) - ndim
+    for ax, w in enumerate(spec):
+        if w is not None:
+            z.narrow(off + ax, w[0], w[1] - w[0]).fill_(True)
+    return z
+
+
+def _zp_launches(ck, torch_engine, want, what):
+    """Exactly ``want`` ({entry: count}) windowed launches since the last
+    reset, no other launch of kind or dtype, no plain-engine call."""
+    got = {k: v for k, v in ck.zp_launches.items() if v}
+    others = {k: v for d in (ck.launches, ck.f64_launches,
+                             ck.storage_launches) for k, v in d.items() if v}
+    if want.get("masked"):
+        want = dict(want)
+        del want["masked"]
+        assert not got and others == want, (what, got, others)
+    else:
+        assert got == want and not others, (what, got, others)
+    assert torch_engine.calls == 0, (what, torch_engine.calls)
+    return dict(got or others)
+
+
+def _zp_round_trip(vt, ck, torch_engine, cfg, x, want, what):
+    """Forward and normalized inverse of Planar ``x`` through
+    FFTApplication(``cfg``), counted from 0 and held to ``want``: (the
+    application, the forward, the inverse, the launches)."""
+    app = vt.FFTApplication(cfg)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch_engine.calls = 0
+    y = app.forward(x)
+    z = app.inverse(y)
+    torch.cuda.synchronize()
+    got = _zp_launches(ck, torch_engine, want, what)
+    assert _finite(y, z), what
+    return app, y, z, got
+
+
+def _zp_check_values(vt, cfg, x, y, z, dt, what, cpu_lines=None):
+    """The forward of ``x`` against fp64 (torch.fft complex128) of its
+    masked input, masked by the output windows, the declared-zero output
+    exactly 0; the inverse of the forward against the fp64 inverse of that
+    reference under the input windows; both at the gates (NUMPY_TOL, the
+    half tiers' STORAGE_NUMPY_TOL)."""
+    nd = len(cfg.shape)
+    dims = tuple(range(x.ndim - nd, x.ndim))
+    xw = torch.complex(x.re.double(), x.im.double())
+    if dt != torch.float32:
+        xw = torch.complex(x.re.to(dt).double(), x.im.to(dt).double())
+    xm = _zp_mask(xw, cfg.zeropad_input, nd)
+    del xw
+    ref = _zp_mask(torch.fft.fftn(xm, dim=dims), cfg.zeropad_output, nd)
+    del xm
+    e_f = _rel(torch.complex(y.re.double(), y.im.double()), ref)
+    iref = _zp_mask(torch.fft.ifftn(ref, dim=dims), cfg.zeropad_input, nd)
+    del ref
+    e_i = _rel(torch.complex(z.re.double(), z.im.double()), iref)
+    del iref
+    zo = _zp_zero(y.shape, cfg.zeropad_output, nd, y.re.device)
+    zi = _zp_zero(z.shape, cfg.zeropad_input, nd, z.re.device)
+    exact = (bool((y.re[zo] == 0).all() and (y.im[zo] == 0).all())
+             and bool((z.re[zi] == 0).all() and (z.im[zi] == 0).all()))
+    tol = (NUMPY_TOL if dt == torch.float32
+           else STORAGE_NUMPY_TOL["bf16" if dt == torch.bfloat16 else "f16"])
+    assert e_f <= tol and e_i <= tol and exact, (what, e_f, e_i, exact)
+    return e_f, e_i
+
+
+# (name, config keywords, batch, {windowed entry: launches} of a forward
+# and an inverse, or {"masked": True, kernel: launches}) of zeropad_routes
+ZP_ROUTES = (
+    ("v3_in", dict(shape=(4096,), zeropad_input=((1000, 4096),)), 9,
+     {"fft_lines_zp": 2}),
+    ("v3_out", dict(shape=(4096,), zeropad_output=((2049, 4096),)), 9,
+     {"fft_lines_zp": 2}),
+    ("v3_both", dict(shape=(60,), zeropad_input=((7, 60),),
+                     zeropad_output=((31, 60),)), 33, {"fft_lines_zp": 2}),
+    ("interior", dict(shape=(1024,), zeropad_input=((256, 768),)), 17,
+     {"fft_lines_zp": 2}),
+    ("v2", dict(shape=(10240,), zeropad_input=((5121, 10240),)), 3,
+     {"fft_twofactor_zp": 2}),
+    ("pair_3d", dict(shape=(8, 64, 128),
+                     zeropad_input=((3, 8), (33, 64), (61, 128))), 2,
+     {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+    ("pair_2d", dict(shape=(64, 128), zeropad_input=((33, 64), (64, 128))),
+     5, {"fft_pair_zp": 2}),
+    ("pair_out_3d", dict(shape=(8, 64, 128),
+                         zeropad_output=((4, 8), (32, 64), (63, 128))), 2,
+     {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+    ("axes_2d", dict(shape=(40, 205), zeropad_input=((17, 40), (100, 205))),
+     7, {"fft_lines_zp": 2, "fft_strided_zp": 2}),
+    ("axes_3d", dict(shape=(6, 40, 205),
+                     zeropad_input=((2, 6), (17, 40), (100, 205))), 2,
+     {"fft_lines_zp": 2, "fft_strided_zp": 4}),
+    ("masked_bluestein", dict(shape=(10007,),
+                              zeropad_input=((3000, 10007),)), 2,
+     {"masked": True, "fft_conv_pair": 2}),
+    ("masked_not_prefix", dict(shape=(16,), zeropad_input=((0, 8),)), 5,
+     {"masked": True, "fft_lines": 2}),
+)
+
+
+def phase_zeropad_routes(vt, ck, torch_engine, dev) -> dict:
+    """Each zeropad_mode kind through FFTApplication on the card (ZP_ROUTES)
+    in fp32 and at bfloat16: its exact windowed launches (a masked route:
+    its unwindowed kernels and no windowed one), no plain-engine call;
+    the forward and the round trip against fp64 of the masked input at the
+    gates, declared-zero outputs exactly 0; and both against the same
+    call on the CPU's torch engine (KERNEL_TOL in fp32, the half tier's
+    STORAGE_ROUTE_TOL)."""
+    rows = []
+    for name, kw, B, want in ZP_ROUTES:
+        for prec, dt in ((vt.Precision.SINGLE, torch.float32),
+                         (vt.Precision.BFLOAT16, torch.bfloat16)):
+            cfg = vt.FFTConfig(normalize=True, precision=prec, **kw)
+            shape = (B,) + cfg.shape
+            x = vt.Planar(*_planes(shape, len(name), dev))
+            # the tier's instantiations of the same kernels
+            w = {k if k == "masked" or dt == torch.float32 else k + "_bf16": v
+                 for k, v in want.items()}
+            app, y, z, got = _zp_round_trip(vt, ck, torch_engine, cfg, x,
+                                            w, f"{name}_{dt}")
+            e_f, e_i = _zp_check_values(vt, cfg, x, y, z, dt, name)
+            cpu = vt.FFTApplication(cfg, engine="torch", device="cpu")
+            xc = vt.Planar(x.re.cpu(), x.im.cpu())
+            yc = cpu.forward(xc)
+            zc = cpu.inverse(yc)
+            tol = (KERNEL_TOL if dt == torch.float32
+                   else STORAGE_ROUTE_TOL["bf16"])
+            e_cf = _storage_rel((y.re.cpu(), y.im.cpu()), (yc.re, yc.im))[0]
+            e_ci = _storage_rel((z.re.cpu(), z.im.cpu()), (zc.re, zc.im))[0]
+            row = {"route": name, "mode": app.zeropad_mode,
+                   "dtype": str(dt), "shape": list(shape), "launches": got,
+                   "rel_err_fwd_vs_fp64": e_f, "rel_err_inv_vs_fp64": e_i,
+                   "rel_err_fwd_vs_cpu_engine": e_cf,
+                   "rel_err_inv_vs_cpu_engine": e_ci}
+            _log(f"[zeropad routes] {row}")
+            assert max(e_cf, e_ci) <= tol, row
+            rows.append(row)
+    return {"rows": rows}
+
+
+def _zp_half(n: int) -> tuple:
+    return (n // 2, n)
+
+
+# sample 4's rows (vkfft_tpu/cli.py:658-700: half windows on every axis,
+# 128 MiB a system) and the other elided routes at full size: (name,
+# config keywords, batch, {windowed entry: launches} of a round trip)
+ZP_MAIN_ROWS = (
+    ("sample4_256^3", dict(shape=CUBE, zeropad_input=tuple(
+        _zp_half(n) for n in CUBE)), 1,
+     {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+    ("sample4_512^3", dict(shape=(512, 512, 512), zeropad_input=tuple(
+        _zp_half(512) for _ in range(3))), 1,
+     {"fft_lines_zp": 2, "fft_strided_zp": 4}),
+    ("sample4_2048x4096", dict(shape=(2048, 4096), zeropad_input=(
+        _zp_half(2048), _zp_half(4096))), 2,
+     {"fft_lines_zp": 2, "fft_strided_zp": 2}),
+    ("v3_n4096", dict(shape=(4096,), zeropad_input=(_zp_half(4096),)),
+     TARGET_BYTES // (8 * 4096), {"fft_lines_zp": 2}),
+    ("interior_n1024", dict(shape=(1024,), zeropad_input=((256, 768),)),
+     TARGET_BYTES // (8 * 1024), {"fft_lines_zp": 2}),
+    ("v2_n10240", dict(shape=(10240,), zeropad_input=(_zp_half(10240),)),
+     TARGET_BYTES // (8 * 10240), {"fft_twofactor_zp": 2}),
+    ("pair_out_256^3", dict(shape=CUBE, zeropad_output=tuple(
+        _zp_half(n) for n in CUBE)), 1,
+     {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+    ("ex05_8x128x256", dict(shape=(8, 128, 256), zeropad_input=(
+        (4, 8), (64, 128), (128, 256))), TARGET_BYTES // (8 * 8 * 128 * 256),
+     {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+)
+ZP_MODES = {"sample4_256^3": "elided-pair", "sample4_512^3": "elided-axes",
+            "sample4_2048x4096": "elided-axes", "v3_n4096": "elided-prefix",
+            "interior_n1024":
+                "elided-interior (forward reads; inverse in-kernel restore)",
+            "v2_n10240": "elided-prefix",
+            "pair_out_256^3": "elided-pair-output",
+            "ex05_8x128x256": "elided-pair"}
+
+
+def phase_zeropad_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The reference's sample 4 rows (256^3 on the pair corner route, 512^3
+    and 2048 x 4096 on the axes route: the port's 512^2 and 2048 x 4096
+    planes are past pair_cluster) and the other elided routes at full size
+    (ZP_MAIN_ROWS) through FFTApplication(normalize=True) on fp32 Planar
+    input: each round trip counted from 0 and held to its exact windowed
+    launches with no plain-engine call, its zeropad_mode, finite, the
+    forward and the round trip against fp64 of the masked input at the
+    gates, the declared-zero outputs exactly 0."""
+    rows, by_row = [], {}
+    for name, kw, B, want in ZP_MAIN_ROWS:
+        cfg = vt.FFTConfig(normalize=True, **kw)
+        shape = (B,) + cfg.shape
+        x = vt.Planar(*_planes(shape, len(name), dev))
+        app, y, z, got = _zp_round_trip(vt, ck, torch_engine, cfg, x, want,
+                                        name)
+        assert app.zeropad_mode == ZP_MODES[name], (name, app.zeropad_mode)
+        by_row[name] = {k: got.get(k, 0) for k in ck.zp_launches}
+        e_f, e_i = _zp_check_values(vt, cfg, x, y, z, torch.float32, name)
+        row = {"row": name, "mode": app.zeropad_mode, "shape": list(shape),
+               "launches": got, "rel_err_fwd_vs_fp64": e_f,
+               "rel_err_inv_vs_fp64": e_i}
+        _log(f"[zeropad main] {row}")
+        rows.append(row)
+        del x, y, z
+        torch.cuda.empty_cache()
+    totals = {k: sum(c[k] for c in by_row.values()) for k in ck.zp_launches}
+    _log(f"[zeropad main] launches over the path {totals}")
+    assert all(totals[ck.zp_entry(k, torch.float32)] > 0
+               for k in ck.ZP_KERNELS), totals
+    return {"zp_launches": totals, "zp_launches_by_path": by_row,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def _zp_points(cfg, route: dict, B: int) -> tuple:
+    """(windowed, unwindowed) points a round trip of ``cfg`` on ``B``
+    systems reads and writes, each read once and each write once, from the
+    walk of its route (api.FFTApplication's _elided_lines, _elided_pair,
+    _elided_axes; the refill of a cropped result, read and written, with
+    them).  Unwindowed: one read and one write of every point a pass, the
+    pair kernel holding the two minor axes where pair_supports does."""
+    from vkfft_tpu_torch.ops import cuda_engine as ce
+    shape, nd = cfg.shape, len(cfg.shape)
+    N = math.prod(shape) * B
+    passes = (1 if nd == 1 else nd - 1
+              if ce.pair_supports(shape[-2], shape[-1]) else nd)
+    whole = 2 * passes * 2 * N
+    kind = route["kind"]
+    if kind in ("v3", "v2"):
+        n = shape[-1]
+        h, o = route["in_h"] or n, route["out_h"] or n
+        return B * h + N + B * o + N, whole
+    if kind == "interior":
+        left, right = route["window"]
+        return N - B * (right - left) + N + 2 * N, whole
+    if kind == "axes":
+        keep = route["keeps"]
+    else:
+        keep = dict(route["outer"])
+        keep.update({nd - 2 + i: k for i, k in enumerate(route["minor"])
+                     if k})
+    def prod(e):
+        return math.prod(e) * B
+    def reads_elided():
+        ext = [keep.get(a) or n for a, n in enumerate(shape)]
+        pts = 0
+        order = (range(nd - 1, -1, -1) if kind == "axes"
+                 else list(range(nd - 2)) + [None])
+        for ax in order:
+            pts += prod(ext)
+            if ax is None:
+                ext = list(shape)
+            else:
+                ext[ax] = shape[ax]
+            pts += prod(ext)
+        return pts
+    def writes_elided():
+        ext = list(shape)
+        pts = 0
+        order = (range(nd) if kind == "axes" else [None] + list(range(nd - 2)))
+        for ax in order:
+            pts += prod(ext)
+            if ax is None:
+                ext[-2:] = [keep.get(nd - 2) or shape[-2],
+                            keep.get(nd - 1) or shape[-1]]
+            else:
+                ext[ax] = keep.get(ax) or shape[ax]
+            pts += prod(ext)
+        return pts + prod(ext) + N
+    return reads_elided() + writes_elided(), whole
+
+
+def _graph_ms(fn, reps: int = REPS, inner: int = INNER):
+    """The device time of ``fn``'s work replayed from a CUDA graph (its
+    kernels back to back, no host enqueue between them), timed as
+    `_time_ms` times a call; a string saying why where the capture
+    fails."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return _time_ms(graph.replay, reps, inner)
+    except Exception as e:   # a measurement, not a check: say why
+        torch.cuda.synchronize()
+        return f"not measured: {e!r}"[:200]
+
+
+def phase_zeropad_times(vt, ck, dev) -> dict:
+    """Each main-path row's round trip (forward + normalized inverse) with
+    its windows beside the same transform without windows, beside the
+    masked route the resolver chooses against (the window applied as a
+    mask around the unwindowed walk, api.FFTApplication._transform's
+    masked branch) and beside torch.fft's fftn + ifftn of the full array
+    (complex64), in turns on
+    the same planes, with the host's enqueue time of each and each one's
+    device time replayed from a CUDA graph (`_graph_ms`: where the graph
+    is faster than the call, the host held the card back), and the points
+    each moves (`_zp_points`); and each windowed fp32 kernel at a main-path shape
+    beside its unwindowed launch on the same planes, its plain version,
+    torch.fft of the full planes, and its bound at the bytes it moves (the
+    kept reads and writes, 8 B a point, over HBM_BYTES_PER_S)."""
+    from vkfft_tpu_torch.api import apply_zeropad as mask
+    rows = []
+    for name, kw, B, _ in ZP_MAIN_ROWS:
+        cfg = vt.FFTConfig(normalize=True, **kw)
+        plain_cfg = vt.FFTConfig(normalize=True, shape=cfg.shape)
+        shape = (B,) + cfg.shape
+        x = vt.Planar(*_planes(shape, len(name), dev))
+        app, full = vt.FFTApplication(cfg), vt.FFTApplication(plain_cfg)
+        xc = torch.complex(x.re, x.im)
+        dims = tuple(range(1, len(shape)))
+        big = math.prod(shape) >= 1 << 26
+        reps, inner = (5, 2) if big else (REPS, INNER)
+
+        def windowed():
+            app.inverse(app.forward(x))
+
+        def unwindowed():
+            full.inverse(full.forward(x))
+
+        def masked():
+            nd = len(cfg.shape)
+            y = mask(full.forward(mask(x, cfg.zeropad_input, nd)),
+                     cfg.zeropad_output, nd)
+            mask(full.inverse(y), cfg.zeropad_input, nd)
+
+        def torch_fft():
+            torch.fft.ifftn(torch.fft.fftn(xc, dim=dims), dim=dims)
+
+        t = {k: [] for k in ("windowed", "unwindowed", "masked", "torch")}
+        for fn, k in ((unwindowed, "unwindowed"), (windowed, "windowed"),
+                      (masked, "masked"), (masked, "masked"),
+                      (windowed, "windowed"), (unwindowed, "unwindowed"),
+                      (torch_fft, "torch")):
+            t[k].append(_time_ms(fn, reps, inner))
+        row = {"row": name, "mode": app.zeropad_mode, "shape": list(shape),
+               "ms": min(t["windowed"]), "unwindowed_ms": min(t["unwindowed"]),
+               "masked_ms": min(t["masked"]), "torch_fft_ms": t["torch"][0],
+               "host_ms": _host_ms(windowed, 5 if big else 20),
+               "unwindowed_host_ms": _host_ms(unwindowed, 5 if big else 20),
+               "graph_ms": _graph_ms(windowed, reps, inner),
+               "unwindowed_graph_ms": _graph_ms(unwindowed, reps, inner),
+               "masked_graph_ms": _graph_ms(masked, reps, inner)}
+        row["speedup_vs_unwindowed"] = row["unwindowed_ms"] / row["ms"]
+        row["speedup_vs_masked"] = row["masked_ms"] / row["ms"]
+        pts, whole = _zp_points(cfg, app.zeropad_route(), B)
+        row.update(points_moved=pts, unwindowed_points_moved=whole,
+                   byte_ratio=whole / pts)
+        _log(f"[zeropad times] {row}")
+        rows.append(row)
+        del x, xc, app, full
+        torch.cuda.empty_cache()
+    kernels = _zp_kernel_times(ck, dev)
+    return {"rows": rows, "kernels": kernels}
+
+
+def _zp_kernel_times(ck, dev) -> dict:
+    """The four windowed fp32 kernels at main-path shapes: fft_lines_zp on
+    4096 x 4096 lines reading half of each, fft_twofactor_zp on 1638 x
+    10240 the same, fft_strided_zp on the 256^3 cube's x pass reading the
+    (128, 128, 128) corner of the full cube in place (the outer axis) and
+    on 512^3's middle axis from 256 kept rows, fft_pair_zp on 256 planes
+    of 256^2 from their (128, 128) corners; each beside the unwindowed
+    launch on the whole planes, the plain version and torch.fft of the
+    whole planes."""
+    out = {}
+    cases = []
+    x = _planes((4096, 4096), 1, dev)
+    wx = ck.line_window(4096, in_keep=2048)
+    cases.append(("fft_lines", "fft_lines_zp", x,
+                  lambda: ck.fft_lines(*x, window=wx),
+                  lambda: ck.fft_lines(*x),
+                  lambda: ck.fft_lines_plain(*x, False, window=wx),
+                  lambda: torch.fft.fft(torch.complex(*x), dim=-1),
+                  4096 * 2048 + 4096 * 4096, 4096 * 4096, 4096))
+    y = _planes((1638, 10240), 2, dev)
+    wy = ck.line_window(10240, in_keep=5120)
+    cases.append(("fft_twofactor", "fft_twofactor_zp", y,
+                  lambda: ck.fft_twofactor(*y, window=wy),
+                  lambda: ck.fft_twofactor(*y),
+                  lambda: ck.fft_twofactor_plain(*y, False, window=wy),
+                  lambda: torch.fft.fft(torch.complex(*y), dim=-1),
+                  1638 * (5120 + 10240), 1638 * 10240, 10240))
+    c = _planes((1, 256, 256, 256), 3, dev)
+    cv = [t[:, :, :128, :128] for t in c]
+    cf = [t.reshape(1, 256, 65536) for t in c]
+    cases.append(("fft_strided", "fft_strided_zp", c,
+                  lambda: ck.fft_strided(*cv, in_keep=128),
+                  lambda: ck.fft_strided(*cf),
+                  lambda: ck.fft_strided_plain(*cv, False,
+                                               window=(256, 128, 256)),
+                  lambda: torch.fft.fft(torch.complex(*cf), dim=1),
+                  128 ** 3 + 256 * 128 * 128, 256 ** 3, 256))
+    # the middle axis of the 512^3 axes route: 256 planes of (512, 512)
+    # from their first 256 rows (the forward's y pass)
+    m = _planes((256, 256, 512), 4, dev)
+    mf = _planes((256, 512, 512), 5, dev)
+    cases.append(("fft_strided", "fft_strided_zp", m,
+                  lambda: ck.fft_strided(*m, in_keep=256, n=512),
+                  lambda: ck.fft_strided(*mf),
+                  lambda: ck.fft_strided_plain(*m, False,
+                                               window=(512, 256, 512)),
+                  lambda: torch.fft.fft(torch.complex(*mf), dim=1),
+                  256 * 256 * 512 + 256 * 512 * 512, 256 * 512 * 512, 512))
+    pc = [t[0, :, :128, :128].contiguous() for t in c]
+    pf = [t[0] for t in c]
+    cases.append(("fft_pair", "fft_pair_zp", pc,
+                  lambda: ck.fft_pair(*pc, in_keep=(128, 128),
+                                      plane=(256, 256)),
+                  lambda: ck.fft_pair(*pf),
+                  lambda: ck.fft_pair_plain(*pc, False, window=(
+                      256, 256, 128, 128, 256, 256)),
+                  lambda: torch.fft.fft2(torch.complex(*pf)),
+                  256 * 128 * 128 + 256 ** 3, 256 ** 3, 256 * 256))
+    shapes = ["4096 x 4096, in_keep 2048", "1638 x 10240, in_keep 5120",
+              "256^3 x pass from the (128, 128, 128) corner",
+              "256 x 512 x 512 from 256 rows",
+              "256 x 256^2 from (128, 128) corners"]
+    for shape, (name, entry, _, win, whole, plain, lib, pts, full_pts,
+                n) in zip(shapes, cases):
+        got, ref = win(), plain()
+        err = _zp_check(got, ref, torch.float32, entry)
+        tw = [_time_ms(f) for f in (whole, win, win, whole)]
+        plain_ms = _time_ms(plain, 5, 2)
+        lib_ms = _time_ms(lib)
+        bound, by = _bound(8.0 * pts, _fft_ops(full_pts, n))
+        full_bound = _bound(16.0 * full_pts, _fft_ops(full_pts, n))[0]
+        row = {"kernel": entry, "ms": min(tw[1], tw[2]),
+               "unwindowed_ms": min(tw[0], tw[3]), "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+               "unwindowed_bound_ms": full_bound, "max_abs_err": max(
+                   (a - b).abs().max().item() for a, b in zip(got, ref)),
+               "rel_err": err, "shape": shape,
+               "kept_points_moved": pts,
+               "whole_points_moved": 2 * full_pts}
+        _log(f"[zeropad times] {row}")
+        out.setdefault(entry, []).append(row)
+        del got, ref
+    del x, y, c, cv, cf, m, mf, pc, pf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6769,7 +7496,13 @@ def main(argv=None) -> int:
               ("storage_main_path",
                lambda: phase_storage_main_path(vt, ck, ce, torch_engine,
                                                dev)),
-              ("storage_times", lambda: phase_storage_times(vt, ck, dev))]
+              ("storage_times", lambda: phase_storage_times(vt, ck, dev)),
+              ("zeropad_kernels", lambda: phase_zeropad_kernels(ck, dev)),
+              ("zeropad_routes",
+               lambda: phase_zeropad_routes(vt, ck, torch_engine, dev)),
+              ("zeropad_main_path",
+               lambda: phase_zeropad_main_path(vt, ck, torch_engine, dev)),
+              ("zeropad_times", lambda: phase_zeropad_times(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
     if only:
         unknown = set(only) - {name for name, _ in phases}
@@ -6899,6 +7632,23 @@ def main(argv=None) -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": STORAGE_TIER[tag].lower(),
+            "also_replaces": also.get(name, []), "per_shape": rows})
+    # the windowed entries of fft_lines, fft_twofactor, fft_strided and
+    # fft_pair (the same sources), launched on the zero-pad main path
+    zp_by_path = record["zeropad_main_path"]["zp_launches_by_path"]
+    for key, rows in record["zeropad_times"]["kernels"].items():
+        name = key.rsplit("_", 1)[0]
+        head = rows[0]
+        entries.append({
+            "name": key, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": sum(c[key] for c in zp_by_path.values()),
+            "launches_by_path": {p: c[key] for p, c in zp_by_path.items()
+                                 if c[key]},
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "unwindowed_ms": head["unwindowed_ms"], "shape": head["shape"],
             "also_replaces": also.get(name, []), "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
     record["kernels_line"] = entries

@@ -274,21 +274,35 @@ def test_cuda_route_refuses_options_outside_the_slice():
     x67 = vt.from_numpy_planar(*_planes((2, 67), seed=67))
     with pytest.raises(NotImplementedError, match="item 10"):
         cuda_engine.fft_lines_p(x67.astype(torch.float64), plan_axis(67))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cuda_engine.fft_axis_p(x, 1, plan_axis(16), in_keep=4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cuda_engine.fft_axis_p(x, 1, plan_axis(16), out_keep=4)
-    refused = [
+    # zero-pad keeps run since queue 1 item 8.1: only the kept points
+    # read, only the kept points written
+    keep = torch.arange(16) < 4
+    masked = vt.Planar(torch.where(keep, x.re, 0.0),
+                       torch.where(keep, x.im, 0.0))
+    y = cuda_engine.fft_axis_p(x, 1, plan_axis(16), in_keep=4)
+    assert _rel(_c(y), np.fft.fft(_c(masked))) <= 5e-6
+    y = cuda_engine.fft_axis_p(x, 1, plan_axis(16), out_keep=4)
+    assert y.shape == (2, 4)
+    assert _rel(_c(y), np.fft.fft(_c(x))[:, :4]) <= 5e-6
+    # the five window configs build and run (their values:
+    # tests/test_torch_zeropad.py); keep_intermediate_order still waits
+    # for item 8 (8.2)
+    windowed = [
         dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DCT, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DST, rr_type=1, zeropad_output=((8, 16),)),
         dict(zeropad_input=((0, 8),)),
         dict(zeropad_output=((8, 16),)),
-        dict(keep_intermediate_order=True),
     ]
-    for kw in refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            vt.FFTApplication(vt.FFTConfig(shape=(16,), **kw), engine="cuda")
+    for kw in windowed:
+        app = vt.FFTApplication(vt.FFTConfig(shape=(16,), **kw),
+                                engine="cuda", device="cpu")
+        data = x if app.config.kind is vt.TransformKind.C2C else x.re
+        assert app.forward(data).shape[-1] in (9, 16)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        vt.FFTApplication(vt.FFTConfig(shape=(16,),
+                                       keep_intermediate_order=True),
+                          engine="cuda")
     # the storage tiers of C2C build and run on the cuda engine's routing
     for prec in (vt.Precision.BFLOAT16, vt.Precision.HALF):
         app = vt.FFTApplication(vt.FFTConfig(shape=(16,), precision=prec),

@@ -424,15 +424,22 @@ def test_real_refusals_and_checks():
         vt.rfft(torch.complex(x, x))
     with pytest.raises(TypeError):
         vt.rfft(np.ones((2, 8), np.complex64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.R2C,
-                                       zeropad_input=((0, 8),)))
-    # R2R kinds run since DCT/DST were ported (queue 1 item 9); their
-    # zero-pad windows still wait for item 8
+    # zero-pad windows run since queue 1 item 8.1: the real kinds mask the
+    # forward's input, as the JAX package's do
+    app = vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.R2C,
+                                         zeropad_input=((0, 8),)),
+                            device="cpu")
+    masked = x.numpy().copy()
+    masked[:, :8] = 0
+    assert _rel(app.forward(x).numpy(), np.fft.rfft(masked)) <= NUMPY_TOL
+    # R2R kinds run since DCT/DST were ported (queue 1 item 9), and their
+    # zero-pad windows since item 8.1
     vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.DST))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.DST,
-                                       zeropad_input=((0, 8),)))
+    app = vt.FFTApplication(vt.FFTConfig(shape=(16,), kind=vt.TransformKind.DST,
+                                         zeropad_input=((0, 8),)),
+                            device="cpu")
+    assert _rel(np.asarray(app.forward(x)),
+                np.asarray(vt.dst(torch.from_numpy(masked)))) <= NUMPY_TOL
     # an s that crops a complex axis: numpy's answer, not a refusal
     X = np.fft.rfftn(_real((4, 16), seed=3)).astype(np.complex64)
     assert _rel(vt.irfftn(X, s=(3, 16), device="cpu"),

@@ -291,9 +291,17 @@ def test_application_launches(monkeypatch, shape, axes):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vt.FFTApplication(vt.FFTConfig(shape=(64,), kind=vt.TransformKind.DCT,
-                                       zeropad_input=((0, 32),)))
+    # zero-pad windows run since queue 1 item 8.1: the forward's input
+    # masked, as the JAX package's DCT does
+    app = vt.FFTApplication(vt.FFTConfig(shape=(64,), kind=vt.TransformKind.DCT,
+                                         zeropad_input=((0, 32),)),
+                            device="cpu")
+    x = np.random.default_rng(64).standard_normal((2, 64)).astype(np.float32)
+    masked = x.copy()
+    masked[:, :32] = 0
+    got = np.asarray(app.forward(torch.from_numpy(x)))
+    want = np.asarray(vt.dct(torch.from_numpy(masked)))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     with pytest.raises(TypeError):
         vt.dct(torch.zeros(4, 8, dtype=torch.complex64))
     with pytest.raises(TypeError):

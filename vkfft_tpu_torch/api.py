@@ -81,9 +81,22 @@ at the input's dtype, as the JAX package's do (``_real_transform``,
 fp32 kernels, float64 on the CPU's plain engine (the cuda engine refuses
 it, ROADMAP queue 1 item 10).
 
+Zero-pad windows (``zeropad_input`` / ``zeropad_output``, the reference's
+``vkFFT_Zeropad.h``) run on both engines, routed once per engine and
+dtype by `FFTApplication._resolve_zeropad_route` (``zeropad_mode`` reports
+it in the JAX package's words): on the cuda engine the C2C prefix and
+interior windows its kernels elide run the windowed entries of
+`fft_lines`, `fft_twofactor`, `fft_strided` and `fft_pair` (routes
+``v3``, ``v2``, ``interior``, ``pair``, ``pair_out``, ``axes``: the
+declared-zero input never read, the declared-zero output written as zeros
+or restored once at the end); every other window, the torch engine, the
+R2C/DCT/DST kinds (the forward's input window only, as in the JAX
+package) and DOUBLE (both its routes, the dd tier's hi and lo planes
+alike, where the JAX package's dd tier ignores the windows) mask.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: zero-pad windows in `FFTApplication` (of every kind, R2R included)
-and keep_intermediate_order.
+item: keep_intermediate_order (queue 1 item 8.2, with Bluestein's read
+window and the convolution kernels' windows, which mask until then).
 """
 from __future__ import annotations
 
@@ -151,7 +164,7 @@ def check_precision_and_order(config: FFTConfig) -> None:
     convolution at the input's dtype, as in the JAX package)."""
     if config.keep_intermediate_order:
         raise NotImplementedError(
-            "keep_intermediate_order is ROADMAP queue 1 item 8")
+            "keep_intermediate_order is ROADMAP queue 1 item 8.2")
 
 
 def double_route(config: FFTConfig) -> str:
@@ -172,8 +185,62 @@ def _check_slice(config: FFTConfig) -> None:
             "(vkfft_tpu_torch.ConvolutionApplication, the reference's "
             "performConvolution app pair)")
     check_precision_and_order(config)
-    if config.zeropad_input is not None or config.zeropad_output is not None:
-        raise NotImplementedError("zero-pad windows are ROADMAP queue 1 item 8")
+
+
+def _pad_planar_tail(x: Planar, keeps) -> Planar:
+    """Zero-pad the trailing dims of a Planar from their kept extents back
+    to full size, the declared-zero region restored as literal zeros
+    (``vkfft_tpu/api.py:61 _pad_planar_tail``).  ``keeps``: one (kept,
+    full) pair per trailing dim (kept 0 = already full)."""
+    pad = []
+    for kept, full in reversed(keeps):
+        pad += [0, full - (kept or full)]
+    return Planar(*(torch.nn.functional.pad(t, pad) for t in (x.re, x.im)))
+
+
+def _prefix_keep_all(spec, shape):
+    """(minor_keep, outer_keeps) when every declared-zero window in
+    ``spec`` is a to-the-end prefix window (``vkfft_tpu/api.py:73``):
+    minor_keep = (ky, kz) for the two minor axes (0 = unwindowed),
+    outer_keeps maps outer axis -> kept prefix.  None when any window is
+    not in that form."""
+    ndim = len(shape)
+    minor = [0, 0]
+    outer = {}
+    any_w = False
+    for ax, w in enumerate(spec):
+        if w is None:
+            continue
+        if w[1] != shape[ax] or not (0 < w[0] < shape[ax]):
+            return None
+        if ax >= ndim - 2:
+            minor[ax - (ndim - 2)] = w[0]
+        else:
+            outer[ax] = w[0]
+        any_w = True
+    return (tuple(minor), outer) if any_w else None
+
+
+def _mask_real(x, spec, ndim: int):
+    """`apply_zeropad` on real data of every form the real kinds take (a
+    tensor, host data, or a `Planar`'s planes)."""
+    if spec is None:
+        return x
+    if isinstance(x, Planar):
+        return apply_zeropad(x, spec, ndim)
+    host = not isinstance(x, torch.Tensor)
+    t = torch.from_numpy(np.asarray(x)) if host else x
+    t = apply_zeropad(Planar(t, t), spec, ndim).re
+    return t.numpy() if host else t
+
+
+def _mask_dd(x: DDComplex, spec, ndim: int) -> DDComplex:
+    """`apply_zeropad` on double-double quad planes: hi and lo alike."""
+    if spec is None:
+        return x
+    re = apply_zeropad(Planar(x.re.hi, x.re.lo), spec, ndim)
+    im = apply_zeropad(Planar(x.im.hi, x.im.lo), spec, ndim)
+    return DDComplex(DD(re.re, re.im), DD(im.re, im.im))
 
 
 def apply_zeropad(x: Planar, spec, ndim: int) -> Planar:
@@ -230,6 +297,142 @@ class FFTApplication:
         self.double_route = (
             double_route(config) if config.precision is Precision.DOUBLE
             and config.kind is TransformKind.C2C else None)
+        # the zero-pad route of each (engine, dtype), resolved once
+        self._zp_routes: dict = {}
+
+    def zeropad_route(self, engine: str = "cuda",
+                      dtype: torch.dtype = torch.float32) -> dict:
+        """The zero-pad route of planes of ``dtype`` on ``engine``
+        (`_resolve_zeropad_route`), resolved once and kept."""
+        key = (engine, dtype)
+        if key not in self._zp_routes:
+            self._zp_routes[key] = self._resolve_zeropad_route(engine, dtype)
+        return self._zp_routes[key]
+
+    def _resolve_zeropad_route(self, engine: str, dtype: torch.dtype) -> dict:
+        """The one zero-pad routing decision (``vkfft_tpu/api.py:132-243``),
+        shared by `_transform` and `zeropad_mode`, on the port's own gates:
+
+        * ``none``: no window; ``masked``: an explicit zeroing pass (the
+          torch engine, the R2C/DCT/DST kinds, DOUBLE, and every window
+          the kernels below do not elide).
+        * ``v3`` / ``v2``: 1-D prefix windows on the minor axis of a
+          DIRECT plan that `cuda_engine.route` runs in `fft_lines` (v3) or
+          `fft_twofactor` (v2), input (``in_h``) and output (``out_h``;
+          the JAX package's v2 takes none) kept prefixes.
+        * ``interior``: a 1-D interior input window 0 < left < right < n
+          on those plans (``window``).
+        * ``pair`` / ``pair_out``: N-D prefix windows of the input / the
+          output, of at most three axes, every one transformed, the two
+          minor axes where `cuda_engine.pair_supports` holds at ``dtype``
+          and every other transformed axis DIRECT in `fft_strided`
+          (``minor`` = (ky, kz), ``outer`` = {axis: kept}).
+        * ``axes``: input prefix windows over every axis of at most three,
+          all DIRECT, the minor axis in `fft_lines` or `fft_twofactor`,
+          the others in `fft_strided` (``keeps`` = {axis: kept})."""
+        from vkfft_tpu_torch.ops import cuda_engine as ce
+        from vkfft_tpu_torch.ops import cuda_kernels as ck
+        from vkfft_tpu_torch.planner.factorize import Algorithm
+        cfg = self.config
+        zin, zout = cfg.zeropad_input, cfg.zeropad_output
+        if zin is None and zout is None:
+            return {"kind": "none"}
+        if (engine != "cuda" or cfg.kind is not TransformKind.C2C
+                or cfg.precision is Precision.DOUBLE):
+            return {"kind": "masked"}
+        ndim = len(cfg.shape)
+        n = cfg.shape[-1]
+        plans = self.axis_plans
+        axes = set(cfg.axes)
+
+        def windowed(spec):
+            return {ax for ax, w in enumerate(spec or ()) if w is not None}
+
+        def prefix(spec):
+            """The kept prefix of the minor axis: 0 = unwindowed, -1 = a
+            window that is not a to-the-end prefix, or on another axis."""
+            if spec is None or not windowed(spec):
+                return 0
+            if windowed(spec) != {ndim - 1}:
+                return -1
+            w = spec[-1]
+            return w[0] if w[1] == n and 0 < w[0] < n else -1
+
+        def strided(ax):
+            p = plans[ax]
+            return (p.algorithm is Algorithm.DIRECT
+                    and ck.kernel_supports(p.n, dtype))
+
+        if cfg.axes == (ndim - 1,):
+            kernel = ce.window_kernel(plans[ndim - 1])
+            if kernel is None:
+                return {"kind": "masked"}
+            in_h, out_h = prefix(zin), prefix(zout)
+            w = zin[-1] if zin is not None else None
+            if (in_h == -1 and out_h == 0 and windowed(zin) == {ndim - 1}
+                    and 0 < w[0] < w[1] < n):
+                return {"kind": "interior", "window": tuple(w)}
+            if in_h >= 0 and out_h >= 0 and (in_h or out_h):
+                return {"kind": "v3" if kernel == "fft_lines" else "v2",
+                        "in_h": in_h, "out_h": out_h}
+            return {"kind": "masked"}
+        if len(axes) < 2 or ndim > 3:
+            return {"kind": "masked"}
+        ay, az = ndim - 2, ndim - 1
+        spec = zin if zin is not None else zout
+        if ((zin is None) != (zout is None) and {ay, az} <= axes
+                and windowed(spec) <= axes
+                and ce.pair_supports(cfg.shape[ay], cfg.shape[az], dtype)
+                and all(strided(ax) for ax in axes if ax < ay)):
+            keeps = _prefix_keep_all(spec, cfg.shape)
+            if keeps is not None:
+                return {"kind": "pair" if zin is not None else "pair_out",
+                        "minor": keeps[0], "outer": keeps[1]}
+        if (zout is None and axes == set(range(ndim))
+                and ce.window_kernel(plans[az]) is not None
+                and all(strided(ax) for ax in range(az))):
+            keeps = _prefix_keep_all(zin, cfg.shape)
+            if keeps is not None:
+                minor, outer = keeps
+                kd = dict(outer)
+                if minor[0]:
+                    kd[ay] = minor[0]
+                if minor[1]:
+                    kd[az] = minor[1]
+                return {"kind": "axes", "keeps": kd}
+        return {"kind": "masked"}
+
+    @property
+    def zeropad_mode(self) -> Optional[str]:
+        """Which strategy the configured zero-pad windows get, in the JAX
+        package's words (``vkfft_tpu/api.py:245-276``): 'elided-prefix'
+        (the kernel never reads the zero input tail), 'elided-output' (the
+        declared-zero spectrum region is never written / read), 'elided-
+        prefix+output' (both), 'elided-interior (...)' (the zero middle is
+        never read; forward reads, the inverse writing the zeros in its
+        store), 'elided-pair' / 'elided-pair-output' (through the fused
+        two-axis kernel and the outer axes' strided passes),
+        'elided-axes' (each axis pass elides its own window), or 'masked'
+        (an explicit zeroing pass).  None: no window configured.  The
+        route of the application's ``engine`` (``cuda`` when None) on
+        float32 planes, from the resolver the execution path uses."""
+        r = self.zeropad_route(self.engine_name or "cuda")
+        kind = r["kind"]
+        if kind == "none":
+            return None
+        if kind == "masked":
+            return "masked"
+        if kind == "interior":
+            return "elided-interior (forward reads; inverse in-kernel restore)"
+        if kind == "pair":
+            return "elided-pair"
+        if kind == "pair_out":
+            return "elided-pair-output"
+        if kind == "axes":
+            return "elided-axes"
+        if r["in_h"] and r["out_h"]:
+            return "elided-prefix+output"
+        return "elided-output" if r["out_h"] else "elided-prefix"
 
     def _check_batch(self, x, trailing_ndim: int):
         """Validate the declared batch count (reference ``numberBatches``,
@@ -251,7 +454,8 @@ class FFTApplication:
                 f"input trailing shape {x.shape[-ndim:]} != configured "
                 f"{cfg.shape}")
         self._check_batch(x, ndim)
-        eng = get_engine(self.engine_name or engine_for(x))
+        name = self.engine_name or engine_for(x)
+        eng = get_engine(name)
         check_walk = getattr(eng, "check_walk", None)
         if check_walk is not None:
             # refuse an axis the planes' dtype has no kernel for before the
@@ -274,6 +478,37 @@ class FFTApplication:
                 return 1.0 / math.prod(cfg.shape[a] for a in pass_axes)
             return norm_scale if last else 1.0
 
+        # zero-pad work elision (reference ``vkFFT_Zeropad.h``; output
+        # windows: frequencyZeroPadding, ``vkFFT_Structs.h:264``), routed
+        # by the resolver `zeropad_mode` reports
+        route = self.zeropad_route(name, x.dtype)
+        kind = route["kind"]
+        if kind != "masked":
+            # the elided walks read corners of the planes in place through
+            # one set of strides: planes of two layouts (a transposed im) or
+            # interleaved ones (Planar(z.real, z.imag)) are copied once
+            x = x.contiguous()
+        if kind in ("v3", "v2", "interior"):
+            return self._elided_lines(x, eng, route, inverse,
+                                      scale_of((ndim - 1,), True))
+        if kind in ("pair", "pair_out"):
+            return self._elided_pair(x, eng, route, inverse, axes, scale_of)
+        if kind == "axes":
+            return self._elided_axes(x, eng, route, inverse, axes, scale_of)
+        # masked (``vkfft_tpu/api.py:734-742``): the forward's input and
+        # output windows, the inverse's result under the input's
+        if not inverse:
+            x = apply_zeropad(x, cfg.zeropad_input, ndim)
+        y = self._walk(x, eng, inverse, axes, scale_of)
+        return apply_zeropad(
+            y, cfg.zeropad_input if inverse else cfg.zeropad_output, ndim)
+
+    def _walk(self, x: Planar, eng, inverse: bool, axes, scale_of) -> Planar:
+        """The axes' passes (``VkFFTAppend``): the two minor axes as one
+        pass where the engine's pair kernel takes them, else one pass an
+        axis."""
+        cfg = self.config
+        ndim = len(cfg.shape)
         lead = x.ndim - ndim
         owned = owned_by_walk(x.re, x.im)
         ay, az = ndim - 2, ndim - 1
@@ -300,6 +535,116 @@ class FFTApplication:
             x = eng.fft_axis_p(x, lead + ax, self.axis_plans[ax], inverse,
                                scale=scale_of((ax,), i == len(axes) - 1),
                                donate=owned(x))
+        return x
+
+    def _elided_lines(self, x: Planar, eng, route: dict, inverse: bool,
+                      scale: float) -> Planar:
+        """Routes ``v3``, ``v2`` and ``interior`` (``vkfft_tpu/api.py:
+        566-620``): one windowed pass over the minor axis's lines.  v3 /
+        v2: the forward reads the input's kept prefix and writes the
+        spectrum's, the inverse the mirror (the spectrum's declared-zero
+        tail never read); the declared-zero output region is written as
+        zeros by the kernel's store.  interior: the forward never reads
+        the zero middle, the inverse writes it as zeros."""
+        n = self.config.shape[-1]
+        plan = self.axis_plans[len(self.config.shape) - 1]
+        flat = x.reshape(-1, n)
+        if route["kind"] == "interior":
+            side = "out_zero_window" if inverse else "in_window"
+            y = eng.fft_lines_p(flat, plan, inverse, scale=scale,
+                                **{side: route["window"]})
+        else:
+            ik, ok = ((route["in_h"], route["out_h"]) if not inverse
+                      else (route["out_h"], route["in_h"]))
+            y = eng.fft_lines_p(flat, plan, inverse, scale=scale, in_keep=ik,
+                                out_keep=ok, out_fill=bool(ok))
+        return y.reshape(*x.shape)
+
+    def _elided_pair(self, x: Planar, eng, route: dict, inverse: bool, axes,
+                     scale_of) -> Planar:
+        """Routes ``pair`` and ``pair_out`` (``vkfft_tpu/api.py:622-704``).
+        Reads elided (the forward of input windows, the inverse of output
+        windows): the outer axes' passes first, on the (ky, kz) corner of
+        the planes read in place, then the pair kernel from the corner.
+        Writes elided: the pair kernel first, cropping to the corner, the
+        outer passes on the corner only, and the zeros restored once at
+        the end (`_pad_planar_tail`)."""
+        cfg = self.config
+        ndim = len(cfg.shape)
+        lead = x.ndim - ndim
+        ay, az = ndim - 2, ndim - 1
+        ny, nz = cfg.shape[ay], cfg.shape[az]
+        minor, outer = route["minor"], route["outer"]
+        reads = (route["kind"] == "pair") != inverse
+        pair_in, outer_in = (minor, outer) if reads else ((0, 0), {})
+        pair_out, outer_out = ((0, 0), {}) if reads else (minor, outer)
+        rest = [ax for ax in axes if ax < ay]
+        pscale = scale_of((ay, az), True)
+
+        def outer_pass(x, ax, **keep):
+            return eng.axis_window(x, lead + ax, self.axis_plans[ax], inverse,
+                                   scale=scale_of((ax,), False), **keep)
+
+        def refill(x):
+            return _pad_planar_tail(
+                x, [(outer_out.get(ax, 0), cfg.shape[ax]) for ax in range(ay)]
+                + [(pair_out[0], ny), (pair_out[1], nz)])
+
+        ky, kz = pair_in[0] or ny, pair_in[1] or nz
+        if reads and rest and (ky < ny or kz < nz):
+            x = x[..., :ky, :kz]
+            for ax in rest:
+                x = outer_pass(x, ax, in_keep=outer_in.get(ax, 0))
+            return eng.fft_pair_p(x, ny, nz, inverse, scale=pscale,
+                                  in_keep=pair_in)
+        if not reads and rest:
+            x = eng.fft_pair_p(x, ny, nz, inverse, scale=pscale,
+                               out_keep=pair_out)
+            for ax in rest:
+                x = outer_pass(x, ax, out_keep=outer_out.get(ax, 0))
+            return refill(x)
+        if not inverse:
+            x = eng.fft_pair_p(x, ny, nz, False, in_keep=pair_in,
+                               out_keep=pair_out)
+            for ax in rest:
+                x = outer_pass(x, ax, in_keep=outer_in.get(ax, 0))
+            return x if reads else refill(x)
+        for ax in rest:
+            x = outer_pass(x, ax, in_keep=outer_in.get(ax, 0),
+                           out_keep=outer_out.get(ax, 0))
+        x = eng.fft_pair_p(x, ny, nz, True, scale=pscale, in_keep=pair_in,
+                           out_keep=pair_out)
+        return x if reads else refill(x)
+
+    def _elided_axes(self, x: Planar, eng, route: dict, inverse: bool, axes,
+                     scale_of) -> Planar:
+        """Route ``axes`` (``vkfft_tpu/api.py:690-733``): each axis pass
+        elides its own window.  The forward runs minor-first on the corner
+        of every windowed non-minor axis, read in place, so each pass
+        transforms only the lines the later passes keep, and each pass
+        re-expands its own axis; the inverse runs outer-first, each pass
+        writing only its axis's kept prefix, and the zeros are restored
+        once at the end."""
+        cfg = self.config
+        ndim = len(cfg.shape)
+        lead = x.ndim - ndim
+        keeps = route["keeps"]
+        order = tuple(reversed(axes))
+        if not inverse:
+            sl = [slice(None)] * x.ndim
+            for a, k in keeps.items():
+                if a != ndim - 1:
+                    sl[lead + a] = slice(0, k)
+            x = x[tuple(sl)]
+        for i, ax in enumerate(order):
+            k = keeps.get(ax, 0)
+            x = eng.axis_window(
+                x, lead + ax, self.axis_plans[ax], inverse,
+                scale=scale_of((ax,), i == len(order) - 1),
+                in_keep=0 if inverse else k, out_keep=k if inverse else 0)
+        if inverse:
+            x = _pad_planar_tail(
+                x, [(keeps.get(a, 0), cfg.shape[a]) for a in range(ndim)])
         return x
 
     def _real_transform(self, x, inverse: bool):
@@ -331,6 +676,11 @@ class FFTApplication:
                 f"shape {tuple(x.shape[-ndim:])} != {tuple(want)}")
         self._check_batch(x, ndim)
         kw = dict(engine=self.engine_name, device=self.device)
+        if not inverse:
+            # the forward's input window only, as the JAX package's real
+            # kinds mask (``vkfft_tpu/api.py:311-312``, ``:325-326``); the
+            # output window is not applied there either
+            x = _mask_real(x, cfg.zeropad_input, ndim)
         if r2c_kind:
             if not inverse:
                 return r2c.rfftn(x, axes=axes, **kw)
@@ -363,11 +713,16 @@ class FFTApplication:
         if inverse and cfg.normalize:
             scale = 1.0 / math.prod(cfg.shape[ax] for ax in cfg.axes)
         x = x.contiguous()
+        if not inverse:
+            x = _mask_dd(x, cfg.zeropad_input, ndim)
         lead = x.ndim - ndim
         for i, ax in enumerate(axes):
             x = dd_fft.fft_axis_dd(x, lead + ax, cfg.shape[ax], inverse,
                                    scale if i == len(axes) - 1 else 1.0)
-        return x
+        # the windows masked as on the other tiers (the JAX package's dd
+        # tier returns before its masks, ``vkfft_tpu/api.py:391-416``)
+        return _mask_dd(
+            x, cfg.zeropad_input if inverse else cfg.zeropad_output, ndim)
 
     def _run_double(self, x, inverse: bool):
         """DOUBLE on every input form (see the module docstring): the

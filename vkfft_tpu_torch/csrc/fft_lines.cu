@@ -1,7 +1,9 @@
 // fft_lines: batched C2C FFT of contiguous (B, n) fp32 re/im planes, n <=
 // 8192 with primes <= 64, natural order in and out, forward or inverse,
 // times a scale.  Replaces vkfft_tpu/ops/pallas_engine.py:1563
-// _fft_kernel_v3 (plain fp32 form: no zero-pad windows, no tl layout).
+// _fft_kernel_v3 (the fp32 form and, in the windowed entries below, its
+// zero-pad windows in_nonzero, in_window, out_keep, out_fill and
+// out_zero_window; no tl layout).
 //
 // Bound: bytes.  Each point is read once and written once (16 B of
 // planes); at n <= 8192 the FFT's ~5 n log2 n flops are far below the
@@ -40,6 +42,17 @@
 // through registers (inplace.cuh's load_lines: four halves a plane in one
 // 8-byte load, widened), and the write narrows each value once, rounding
 // to nearest even.
+//
+// Zero-pad windows (fft_lines_zp_kernel and its fp64 and half twins; C
+// entries vk_fft_lines_zp, vk_fft_lines_zp_f64, vk_fft_lines_zp_f16,
+// vk_fft_lines_zp_bf16): the same passes on the same layout, between a
+// read that skips the declared-zero points of each line (a prefix past a
+// kept head, or an interior window; the lines may be a corner of wider
+// planes, inplace.cuh's LineWindow) and a write of compact lines, cropped
+// to a kept prefix or whole with zeros written over a declared-zero
+// range.  The window's bytes are what it saves, so the read and the write
+// go point by point (a window's edge falls anywhere in a four-point
+// group).  Kernels of their own: the unwindowed kernels compile as before.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -91,6 +104,47 @@ fft_lines_f64_kernel(const double* xr, const double* xi, double* yr,
   extern __shared__ __align__(16) double2 smem64[];
   two_factor_block(smem64, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0,
                    lines, pitch, len1, len2, true);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_zp_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                    Plan p1, Plan p2, const float2* t1, const float2* t2,
+                    const float2* tw, int lines, int pitch, int len1,
+                    int len2, LineWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block_window(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, lines,
+                          pitch, len1, len2, w);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                        __half* yi, Plan p1, Plan p2, const float2* t1,
+                        const float2* t2, const float2* tw, int lines,
+                        int pitch, int len1, int len2, LineWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block_window(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, lines,
+                          pitch, len1, len2, w);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_zp_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                         __nv_bfloat16* yr, __nv_bfloat16* yi, Plan p1,
+                         Plan p2, const float2* t1, const float2* t2,
+                         const float2* tw, int lines, int pitch, int len1,
+                         int len2, LineWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block_window(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, lines,
+                          pitch, len1, len2, w);
+}
+
+__global__ void __launch_bounds__(kThreads64, 2)
+fft_lines_zp_f64_kernel(const double* xr, const double* xi, double* yr,
+                        double* yi, Plan p1, Plan p2, const double2* t1,
+                        const double2* t2, const double2* tw, int lines,
+                        int pitch, int len1, int len2, LineWindow w) {
+  extern __shared__ __align__(16) double2 smem64[];
+  two_factor_block_window(smem64, xr, xi, yr, yi, p1, p2, t1, t2, tw, lines,
+                          pitch, len1, len2, w);
 }
 
 template <typename K>
@@ -145,6 +199,34 @@ int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
       xr, xi, yr, yi, batch, p1, p2, reinterpret_cast<const C*>(table1),
       reinterpret_cast<const C*>(table2), reinterpret_cast<const C*>(twiddle),
       lines, p1.n | 1, table_len(p1), table_len(p2));
+  return (int)cudaGetLastError();
+}
+
+// launch under a window (the 11 ints of inplace.cuh's window_from_ints):
+// `batch` output lines, ceil(d2 / lines) blocks a group of d2.
+template <class C, class St, typename K>
+int launch_window(K kernel, int max_threads, const St* xr, const St* xi,
+                  St* yr, St* yi, long long batch, const int* plan1,
+                  const int* plan2, const vkfft::Real<C>* table1,
+                  const vkfft::Real<C>* table2, const vkfft::Real<C>* twiddle,
+                  int threads, int lines, int smem, const long long* window,
+                  void* stream) {
+  Plan p1, p2;
+  long long blocks;
+  LineWindow w;
+  int err = prepare<C>(batch, plan1, plan2, threads, lines, smem, max_threads,
+                       &p1, &p2, &blocks);
+  if (err) return err;
+  if (!window_from_ints(window, p1.n * p2.n, batch, &w))
+    return (int)cudaErrorInvalidValue;
+  blocks = batch / w.d2 * ((w.d2 + lines - 1) / lines);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  err = smem_opt_in(kernel, smem);
+  if (err) return err;
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, p1, p2, reinterpret_cast<const C*>(table1),
+      reinterpret_cast<const C*>(table2), reinterpret_cast<const C*>(twiddle),
+      lines, p1.n | 1, table_len(p1), table_len(p2), w);
   return (int)cudaGetLastError();
 }
 
@@ -215,6 +297,53 @@ int vk_fft_lines_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   return launch<float2>(fft_lines_bf16_kernel, kThreads, xr, xi, yr, yi,
                         batch, plan1, plan2, table1, table2, twiddle, threads,
                         lines, smem, stream);
+}
+
+// vk_fft_lines under a zero-pad window: `window` points to the 11 ints
+// of inplace.cuh's LineWindow (s0, s1, d1, d2, s2, len, z0, z1, out, o0,
+// o1); `batch` is the count of output lines, written compact at `out`
+// points a line.  A window that is not one is refused.
+int vk_fft_lines_zp(const float* xr, const float* xi, float* yr, float* yi,
+                    long long batch, const int* plan1, const int* plan2,
+                    const float* table1, const float* table2,
+                    const float* twiddle, int threads, int lines, int smem,
+                    const long long* window, void* stream) {
+  return launch_window<float2>(fft_lines_zp_kernel, kThreads, xr, xi, yr, yi,
+                               batch, plan1, plan2, table1, table2, twiddle,
+                               threads, lines, smem, window, stream);
+}
+
+int vk_fft_lines_zp_f64(const double* xr, const double* xi, double* yr,
+                        double* yi, long long batch, const int* plan1,
+                        const int* plan2, const double* table1,
+                        const double* table2, const double* twiddle,
+                        int threads, int lines, int smem,
+                        const long long* window, void* stream) {
+  return launch_window<double2>(fft_lines_zp_f64_kernel, kThreads64, xr, xi,
+                                yr, yi, batch, plan1, plan2, table1, table2,
+                                twiddle, threads, lines, smem, window, stream);
+}
+
+int vk_fft_lines_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                        __half* yi, long long batch, const int* plan1,
+                        const int* plan2, const float* table1,
+                        const float* table2, const float* twiddle,
+                        int threads, int lines, int smem,
+                        const long long* window, void* stream) {
+  return launch_window<float2>(fft_lines_zp_f16_kernel, kThreads, xr, xi, yr,
+                               yi, batch, plan1, plan2, table1, table2,
+                               twiddle, threads, lines, smem, window, stream);
+}
+
+int vk_fft_lines_zp_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                         __nv_bfloat16* yr, __nv_bfloat16* yi,
+                         long long batch, const int* plan1, const int* plan2,
+                         const float* table1, const float* table2,
+                         const float* twiddle, int threads, int lines,
+                         int smem, const long long* window, void* stream) {
+  return launch_window<float2>(fft_lines_zp_bf16_kernel, kThreads, xr, xi,
+                               yr, yi, batch, plan1, plan2, table1, table2,
+                               twiddle, threads, lines, smem, window, stream);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`

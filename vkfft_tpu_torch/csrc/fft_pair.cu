@@ -1,7 +1,8 @@
 // fft_pair: 2-D C2C FFT of the two minor axes of (B, ny, nz) fp32 re/im
 // planes in one pass, natural order in and out, times a scale (in the y
 // axis's twiddle table).  Replaces vkfft_tpu/ops/pallas_engine.py:1982
-// _pair_kernel (plain fp32 form: no zero-pad windows, no tl layout).
+// _pair_kernel (the fp32 form and, in the windowed entries below, its
+// corner in_keep / out_keep windows; no tl layout).
 //
 // Bound: bytes, one read and one write of each point (16 B of planes) for
 // both axes together, where two axis passes move twice that.
@@ -51,6 +52,17 @@
 // stay fp32; the row tile comes in through registers (inplace.cuh's
 // load_lines: cp.async has no 2-byte copy), each value widened, and the
 // column tile goes out narrowed once, to nearest even (store_columns).
+//
+// Zero-pad windows (fft_pair_zp_kernel and its fp64 and half twins; C
+// entries vk_fft_pair_zp, vk_fft_pair_zp_f64, vk_fft_pair_zp_f16,
+// vk_fft_pair_zp_bf16; PairWindow): the row tile reads only the (ky, kz)
+// corner of its plane, from cropped planes or from full ones (planes and
+// rows at pitches of their own), and holds zeros elsewhere, so the
+// exchange moves whole rows as it does unwindowed; the column tile writes
+// only the (oy, oz) corner, into cropped planes or full ones.  Point by
+// point (a corner's edge falls anywhere in a four-point group).  The rows
+// of a row tile past ky hold zeros and skip the z stages.  The same body
+// (pair_block<true>), so the unwindowed kernels compile as before.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -63,6 +75,7 @@ namespace {
 
 using vkfft::Plan;
 using vkfft::Real;
+using vkfft::cx;
 using namespace vkfft::walk;
 using vkfft::cluster::kXchg;
 using vkfft::cluster::remote;
@@ -179,6 +192,62 @@ __device__ void store_columns(const C* buf, int ny, int cols, RowPerm yout,
   }
 }
 
+// A zero-pad window on a pair pass: the input's rows y < ky and columns
+// z < kz of plane b (at real offset b * in_plane + y * in_row + z) are
+// read and the rest of the plane is declared zero, never read; the
+// output's rows y < oy and columns z < oz are written, at b * out_plane +
+// y * out_row + z.
+struct PairWindow {
+  long long in_plane, out_plane;
+  int in_row, out_row, ky, kz, oy, oz;
+};
+
+// The block's row tile (rows r0.. of its plane) under a window, point by
+// point: a declared-zero point is a zero written to shared memory.
+template <class C, class St>
+__device__ void load_rows_window(const St* xr, const St* xi, long long g0,
+                                 int r0, int rows, const PairWindow& w,
+                                 const Map& mp, C* home) {
+  const int nz = (int)mp.dn.d;
+  for (int u = threadIdx.x; u < rows * nz; u += blockDim.x) {
+    const int r = quot(u, mp.dn);
+    const int z = u - r * nz;
+    C* d = home + position(u, mp);
+    if (r0 + r >= w.ky || z >= w.kz) {
+      *d = cx<C>(Real<C>(0), Real<C>(0));
+      continue;
+    }
+    const long long g = g0 + (long long)(r0 + r) * w.in_row + z;
+    if constexpr (kNarrow<St>) {
+      *d = cx<C>(widen(xr[g]), widen(xi[g]));
+    } else {
+      Real<C>* p = reinterpret_cast<Real<C>*>(d);
+      cp_async_real(p, xr + g);
+      cp_async_real(p + 1, xi + g);
+    }
+  }
+  if constexpr (!kNarrow<St>) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The column tile (columns c0.. of its plane, at yout(ky) * cols) under a
+// window: rows ky < w.oy of the columns below w.oz, point by point.
+template <class C, class St>
+__device__ void store_columns_window(const C* buf, int cols, RowPerm yout,
+                                     St* yr, St* yi, long long g0, int c0,
+                                     const PairWindow& w) {
+  const int live = min(cols, w.oz - c0);
+  if (live <= 0) return;
+  const Div dc = make_div(live);
+  for (int u = threadIdx.x; u < w.oy * live; u += blockDim.x) {
+    const int ky = quot(u, dc);
+    const int c = u - ky * live;
+    const C v = buf[yout(ky) * cols + c];
+    const long long g = g0 + (long long)ky * w.out_row + c0 + c;
+    put(yr[g], v.x);
+    put(yi[g], v.y);
+  }
+}
+
 // Where a block's pieces sit, computed once by the host and read from the
 // kernel's parameters where they are used (not held in registers through
 // a pass): the row tile's rows and the column tile's columns, the z
@@ -198,13 +267,14 @@ __device__ __forceinline__ long long plane_base(cg::cluster_group& cluster,
   return (long long)(blockIdx.x / cluster.num_blocks()) * ny * nz;
 }
 
-// The block body on points of type C and planes of storage type St.
-template <class C, class St>
+// The block body on points of type C and planes of storage type St; with
+// kWindow, under the window w.
+template <bool kWindow = false, class C, class St>
 __device__ __forceinline__ void pair_block(
     C* smem, const St* xr, const St* xi, St* yr, St* yi,
     const Plan& pz1, const Plan& pz2, const Plan& py1, const Plan& py2,
     const C* tz1, const C* tz2, const C* ty1, const C* ty2, const C* twz,
-    const C* twy, const Geo& geo) {
+    const C* twy, const Geo& geo, const PairWindow& w = PairWindow{}) {
   cg::cluster_group cluster = cg::this_cluster();
   const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
   C* tab = smem + geo.area;
@@ -218,7 +288,13 @@ __device__ __forceinline__ void pair_block(
     tab[t] = __ldg(src);
   }
   // the row tile in natural order
-  if constexpr (kNarrow<St>)
+  if constexpr (kWindow)
+    load_rows_window(xr, xi,
+                     (long long)(blockIdx.x / cluster.num_blocks()) *
+                         w.in_plane,
+                     (int)cluster.block_rank() * geo.rows, geo.rows, w,
+                     make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  else if constexpr (kNarrow<St>)
     load_lines(xr, xi,
                plane_base(cluster, ny, nz) +
                    (long long)cluster.block_rank() * geo.rows * nz,
@@ -244,13 +320,19 @@ __device__ __forceinline__ void pair_block(
                    (int)cluster.block_rank() * geo.rows);
     const bool row = (k & 1) == 1;
     const int n1 = y ? py1.n : pz1.n, n2 = y ? py2.n : pz2.n;
+    // under a window the row tile's rows past the kept corner hold zeros,
+    // whose z stages are skipped
+    const int zrows =
+        kWindow ? min(geo.rows, max(0, w.ky - (int)cluster.block_rank() *
+                                                 geo.rows))
+                : geo.rows;
     // z: line r at r * sz, point j2 * n1 + j1 at j2 * pz + j1; y: column c
     // at c, point j at j * cols
     const Pass g =
         y ? (row ? Pass{geo.cols * n2, 1, n1 * geo.cols, geo.cols, make_div(n2)}
                  : Pass{geo.cols * n1, 1, geo.cols, n1 * geo.cols, make_div(n1)})
-          : (row ? Pass{geo.rows * n2, geo.sz, geo.pz, 1, make_div(n2)}
-                 : Pass{geo.rows * n1, geo.sz, 1, geo.pz, make_div(n1)});
+          : (row ? Pass{zrows * n2, geo.sz, geo.pz, 1, make_div(n2)}
+                 : Pass{zrows * n1, geo.sz, 1, geo.pz, make_div(n1)});
     const C* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
     // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
     const bool twiddled = n2 > 1 || tlo[kTwLo].x != Real<C>(1) ||
@@ -265,9 +347,18 @@ __device__ __forceinline__ void pair_block(
                                              : geo.y2),
              InterTwiddleT<C>{fuse ? tlo : nullptr, tlo + kTwLo});
   }
-  store_columns(smem, ny, geo.cols, RowPerm{make_div(py2.n), py1.n}, yr, yi,
-                plane_base(cluster, ny, nz) + cluster.block_rank() * geo.cols,
-                nz);
+  if constexpr (kWindow)
+    store_columns_window(smem, geo.cols, RowPerm{make_div(py2.n), py1.n}, yr,
+                         yi,
+                         (long long)(blockIdx.x / cluster.num_blocks()) *
+                             w.out_plane,
+                         (int)cluster.block_rank() * geo.cols, w);
+  else
+    store_columns(smem, ny, geo.cols, RowPerm{make_div(py2.n), py1.n}, yr,
+                  yi,
+                  plane_base(cluster, ny, nz) +
+                      cluster.block_rank() * geo.cols,
+                  nz);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -313,6 +404,53 @@ fft_pair_f64_kernel(const double* xr, const double* xi, double* yr,
              twz, twy, geo);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_zp_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                   Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                   const float2* tz2, const float2* ty1, const float2* ty2,
+                   const float2* twz, const float2* twy, Geo geo,
+                   PairWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block<true>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                   ty2, twz, twy, geo, w);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                       const float2* tz1, const float2* tz2,
+                       const float2* ty1, const float2* ty2,
+                       const float2* twz, const float2* twy, Geo geo,
+                       PairWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block<true>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                   ty2, twz, twy, geo, w);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_zp_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi, Plan pz1,
+                        Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                        const float2* tz2, const float2* ty1,
+                        const float2* ty2, const float2* twz,
+                        const float2* twy, Geo geo, PairWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block<true>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                   ty2, twz, twy, geo, w);
+}
+
+__global__ void __launch_bounds__(kThreads64, 2)
+fft_pair_zp_f64_kernel(const double* xr, const double* xi, double* yr,
+                       double* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                       const double2* tz1, const double2* tz2,
+                       const double2* ty1, const double2* ty2,
+                       const double2* twz, const double2* twy, Geo geo,
+                       PairWindow w) {
+  extern __shared__ __align__(16) double2 smem64[];
+  pair_block<true>(smem64, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                   ty2, twz, twy, geo, w);
+}
+
 // The layout of the plans (cuda_kernels.pair_layout) as a Geo, or false
 // when (cluster, threads, smem) is not it: every stage's round holds a
 // whole sequence, a thread moves at most kXchg points of an exchange, and
@@ -348,14 +486,18 @@ bool layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
 
 // The checks and the cluster launch at points of type C on planes of
 // storage type St.
-template <class C, class St, typename K>
+// With kWindow, the windowed kernel under the PairWindow of `window` (8
+// ints: in_plane, out_plane, in_row, out_row, ky, kz, oy, oz), refused
+// where it is not one: corners of 1..ny rows and 1..nz columns.
+template <class C, bool kWindow = false, class St, typename K>
 int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
            St* yi, long long planes, const int* plan_z1,
            const int* plan_z2, const int* plan_y1, const int* plan_y2,
            const Real<C>* table_z1, const Real<C>* table_z2,
            const Real<C>* table_y1, const Real<C>* table_y2,
            const Real<C>* twiddle_z, const Real<C>* twiddle_y, int cluster,
-           int threads, int smem, void* stream) {
+           int threads, int smem, void* stream,
+           const long long* window = nullptr) {
   Plan pz1, pz2, py1, py2;
   if (planes < 1 || !vkfft::plan_from_ints(plan_z1, &pz1) ||
       !vkfft::subplan_from_ints(plan_z2, &pz2) ||
@@ -369,14 +511,36 @@ int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
       !layout_of<C>(pz1, pz2, py1, py2, cluster, threads, max_threads, smem,
                     &geo))
     return (int)cudaErrorInvalidValue;
-  return vkfft::cluster::launch_cluster(
-      kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr, yi,
-      pz1, pz2, py1, py2, reinterpret_cast<const C*>(table_z1),
-      reinterpret_cast<const C*>(table_z2),
-      reinterpret_cast<const C*>(table_y1),
-      reinterpret_cast<const C*>(table_y2),
-      reinterpret_cast<const C*>(twiddle_z),
-      reinterpret_cast<const C*>(twiddle_y), geo);
+  if constexpr (kWindow) {
+    const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
+    if (window == nullptr) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < 8; ++k)
+      if (window[k] < 0 || (k >= 2 && window[k] > 0x7fffffffLL))
+        return (int)cudaErrorInvalidValue;
+    const PairWindow w{window[0],      window[1],      (int)window[2],
+                       (int)window[3], (int)window[4], (int)window[5],
+                       (int)window[6], (int)window[7]};
+    if (w.ky < 1 || w.ky > ny || w.kz < 1 || w.kz > nz || w.oy < 1 ||
+        w.oy > ny || w.oz < 1 || w.oz > nz)
+      return (int)cudaErrorInvalidValue;
+    return vkfft::cluster::launch_cluster(
+        kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr,
+        yi, pz1, pz2, py1, py2, reinterpret_cast<const C*>(table_z1),
+        reinterpret_cast<const C*>(table_z2),
+        reinterpret_cast<const C*>(table_y1),
+        reinterpret_cast<const C*>(table_y2),
+        reinterpret_cast<const C*>(twiddle_z),
+        reinterpret_cast<const C*>(twiddle_y), geo, w);
+  } else {
+    return vkfft::cluster::launch_cluster(
+        kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr,
+        yi, pz1, pz2, py1, py2, reinterpret_cast<const C*>(table_z1),
+        reinterpret_cast<const C*>(table_z2),
+        reinterpret_cast<const C*>(table_y1),
+        reinterpret_cast<const C*>(table_y2),
+        reinterpret_cast<const C*>(twiddle_z),
+        reinterpret_cast<const C*>(twiddle_y), geo);
+  }
 }
 
 template <typename K>
@@ -460,6 +624,71 @@ int vk_fft_pair_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                         planes, plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
                         table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
                         cluster, threads, smem, stream);
+}
+
+// vk_fft_pair under a zero-pad window: `window` points to the 8 ints of
+// PairWindow (in_plane, out_plane, in_row, out_row, ky, kz, oy, oz); the
+// planes read and written are the windows' corners at those pitches.  A
+// window that is not one is refused.
+int vk_fft_pair_zp(const float* xr, const float* xi, float* yr, float* yi,
+                   long long planes, const int* plan_z1, const int* plan_z2,
+                   const int* plan_y1, const int* plan_y2,
+                   const float* table_z1, const float* table_z2,
+                   const float* table_y1, const float* table_y2,
+                   const float* twiddle_z, const float* twiddle_y,
+                   int cluster, int threads, int smem,
+                   const long long* window, void* stream) {
+  return launch<float2, true>(fft_pair_zp_kernel, kThreads, xr, xi, yr, yi,
+                              planes, plan_z1, plan_z2, plan_y1, plan_y2,
+                              table_z1, table_z2, table_y1, table_y2,
+                              twiddle_z, twiddle_y, cluster, threads, smem,
+                              stream, window);
+}
+
+int vk_fft_pair_zp_f64(const double* xr, const double* xi, double* yr,
+                       double* yi, long long planes, const int* plan_z1,
+                       const int* plan_z2, const int* plan_y1,
+                       const int* plan_y2, const double* table_z1,
+                       const double* table_z2, const double* table_y1,
+                       const double* table_y2, const double* twiddle_z,
+                       const double* twiddle_y, int cluster, int threads,
+                       int smem, const long long* window, void* stream) {
+  return launch<double2, true>(fft_pair_zp_f64_kernel, kThreads64, xr, xi, yr,
+                               yi, planes, plan_z1, plan_z2, plan_y1,
+                               plan_y2, table_z1, table_z2, table_y1,
+                               table_y2, twiddle_z, twiddle_y, cluster,
+                               threads, smem, stream, window);
+}
+
+int vk_fft_pair_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, long long planes, const int* plan_z1,
+                       const int* plan_z2, const int* plan_y1,
+                       const int* plan_y2, const float* table_z1,
+                       const float* table_z2, const float* table_y1,
+                       const float* table_y2, const float* twiddle_z,
+                       const float* twiddle_y, int cluster, int threads,
+                       int smem, const long long* window, void* stream) {
+  return launch<float2, true>(fft_pair_zp_f16_kernel, kThreads, xr, xi, yr,
+                              yi, planes, plan_z1, plan_z2, plan_y1, plan_y2,
+                              table_z1, table_z2, table_y1, table_y2,
+                              twiddle_z, twiddle_y, cluster, threads, smem,
+                              stream, window);
+}
+
+int vk_fft_pair_zp_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi,
+                        long long planes, const int* plan_z1,
+                        const int* plan_z2, const int* plan_y1,
+                        const int* plan_y2, const float* table_z1,
+                        const float* table_z2, const float* table_y1,
+                        const float* table_y2, const float* twiddle_z,
+                        const float* twiddle_y, int cluster, int threads,
+                        int smem, const long long* window, void* stream) {
+  return launch<float2, true>(fft_pair_zp_bf16_kernel, kThreads, xr, xi, yr,
+                              yi, planes, plan_z1, plan_z2, plan_y1, plan_y2,
+                              table_z1, table_z2, table_y1, table_y2,
+                              twiddle_z, twiddle_y, cluster, threads, smem,
+                              stream, window);
 }
 
 // Resident clusters on the card and blocks an SM of the kernel at

@@ -43,6 +43,15 @@
 // (load_columns: four halves a plane in one 8-byte load where every run is
 // 8-byte aligned, else single halves), each widened to float, and go out
 // narrowed once, to nearest even (store_columns).
+//
+// Zero-pad windows (fft_strided_zp_kernel and its fp64 and half twins; C
+// entries vk_fft_strided_zp, vk_fft_strided_zp_f64, vk_fft_strided_zp_f16,
+// vk_fft_strided_zp_bf16; ColWindow): the tile reads only the rows below
+// its kept prefix, from planes and rows at pitches of their own (a corner
+// of wider planes: columns in runs of cw at a pitch cs), holds zeros in
+// the other rows, and writes only the rows below its output keep, into
+// (P, out_keep, S) planes.  The same body (strided_block<true>), so the
+// unwindowed kernels compile as before.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -175,6 +184,62 @@ __device__ void store_columns(const C* tile, RowPerm yout, St* yr, St* yi,
   }
 }
 
+// A zero-pad window on a strided pass (the reference's in_keep / out_keep
+// of _strided_kernel_v3 and _outer_kernel): the input's rows j < in_keep
+// are read, row j of plane p at real offset p * in_plane + j * in_row and
+// its column s at (s / cw) * cs + s % cw (a corner of wider planes: runs
+// of cw columns cs apart; cw = 0: one run, s at s); the other rows are
+// declared zero, never read.  The output's rows k < out_keep are written,
+// (P, out_keep, S) planes.
+struct ColWindow {
+  long long in_plane, in_row, cs;
+  int cw, in_keep, out_keep;
+};
+
+// The tile of plane pi from column s0 under a window, point by point (the
+// corner's runs break a row's run of ts columns): a row past the kept
+// prefix is zeros written to shared memory, never read.
+template <class C, class St>
+__device__ void load_columns_window(const St* xr, const St* xi, long long pi,
+                                    long long s0, int n, int ts, int cols,
+                                    const ColWindow& w, C* tile) {
+  long long base = pi * w.in_plane;
+  int r0 = 0;   // s0's place in its run
+  if (w.cw) {
+    const long long g = s0 / w.cw;
+    base += g * w.cs;
+    r0 = (int)(s0 - g * w.cw);
+  } else {
+    base += s0;
+  }
+  const Div dc = make_div(cols), dw = make_div(w.cw ? w.cw : 1);
+  for (int u = threadIdx.x; u < n * cols; u += blockDim.x) {
+    const int j = quot(u, dc);
+    const int c = u - j * cols;
+    C* d = tile + j * ts + c;
+    if (j >= w.in_keep) {
+      *d = cx<C>(Real<C>(0), Real<C>(0));
+      continue;
+    }
+    long long g = base + j * w.in_row;
+    if (w.cw) {
+      const int r = r0 + c;
+      const int q = quot(r, dw);
+      g += q * w.cs + (r - q * w.cw);
+    } else {
+      g += c;
+    }
+    if constexpr (kNarrow<St>) {
+      *d = cx<C>(widen(xr[g]), widen(xi[g]));
+    } else {
+      Real<C>* r = reinterpret_cast<Real<C>*>(d);
+      cp_async_real(r, xr + g);
+      cp_async_real(r + 1, xi + g);
+    }
+  }
+  if constexpr (!kNarrow<St>) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // The tile of block b: where kSpread divides a plane's tiles, consecutive
 // blocks take tiles a kSpread-th of the plane's rows apart, so the blocks
 // in flight at once cover kSpread parts of every row rather than one
@@ -191,12 +256,14 @@ __device__ __forceinline__ long long tile_of(long long b, long long tiles) {
   return p * tiles + (t % kSpread) * (tiles / kSpread) + t / kSpread;
 }
 
-// The block body on points of type C and planes of storage type St.
-template <class C, class St>
+// The block body on points of type C and planes of storage type St; with
+// kWindow, under the window w.
+template <bool kWindow = false, class C, class St>
 __device__ __forceinline__ void strided_block(
     C* smem, const St* xr, const St* xi, St* yr, St* yi, long long S,
     long long tiles, const Plan& p1, const Plan& p2, const C* t1, const C* t2,
-    const C* tw, int ts, int len1, int len2) {
+    const C* tw, int ts, int len1, int len2,
+    const ColWindow& w = ColWindow{}) {
   const int n = p1.n * p2.n;
   C* s1 = smem + n * ts;
   const int ntab = len1 + len2 + kTwLo + (n + kTwLo - 1) / kTwLo;
@@ -207,7 +274,10 @@ __device__ __forceinline__ void strided_block(
   const long long bt = tile_of(blockIdx.x, tiles);
   const long long pi = bt / tiles;
   const long long s0 = (bt - pi * tiles) * ts;
-  if constexpr (kNarrow<St>)
+  if constexpr (kWindow)
+    load_columns_window(xr, xi, pi, s0, n, ts,
+                        (int)min((long long)ts, S - s0), w, smem);
+  else if constexpr (kNarrow<St>)
     load_columns(xr, xi, pi * n * S + s0, S, n, ts,
                  (int)min((long long)ts, S - s0), smem);
   else
@@ -236,8 +306,13 @@ __device__ __forceinline__ void strided_block(
   const long long bu = tile_of(blockIdx.x, tiles);
   const long long pj = bu / tiles;
   const long long sj = (bu - pj * tiles) * ts;
-  store_columns(smem, RowPerm{make_div(p2.n), p1.n}, yr, yi,
-                pj * n * S + sj, S, n, ts, (int)min((long long)ts, S - sj));
+  if constexpr (kWindow)
+    store_columns(smem, RowPerm{make_div(p2.n), p1.n}, yr, yi,
+                  pj * w.out_keep * S + sj, S, w.out_keep, ts,
+                  (int)min((long long)ts, S - sj));
+  else
+    store_columns(smem, RowPerm{make_div(p2.n), p1.n}, yr, yi,
+                  pj * n * S + sj, S, n, ts, (int)min((long long)ts, S - sj));
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -281,6 +356,50 @@ fft_strided_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                 len2);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_zp_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                      long long S, long long tiles, Plan p1, Plan p2,
+                      const float2* t1, const float2* t2, const float2* tw,
+                      int ts, int len1, int len2, ColWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_block<true>(smem, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts,
+                      len1, len2, w);
+}
+
+__global__ void __launch_bounds__(kThreads64, 1)
+fft_strided_zp_f64_kernel(const double* xr, const double* xi, double* yr,
+                          double* yi, long long S, long long tiles, Plan p1,
+                          Plan p2, const double2* t1, const double2* t2,
+                          const double2* tw, int ts, int len1, int len2,
+                          ColWindow w) {
+  extern __shared__ __align__(16) double2 smem64[];
+  strided_block<true>(smem64, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw,
+                      ts, len1, len2, w);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                          __half* yi, long long S, long long tiles, Plan p1,
+                          Plan p2, const float2* t1, const float2* t2,
+                          const float2* tw, int ts, int len1, int len2,
+                          ColWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_block<true>(smem, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts,
+                      len1, len2, w);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_zp_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                           __nv_bfloat16* yr, __nv_bfloat16* yi, long long S,
+                           long long tiles, Plan p1, Plan p2,
+                           const float2* t1, const float2* t2,
+                           const float2* tw, int ts, int len1, int len2,
+                           ColWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_block<true>(smem, xr, xi, yr, yi, S, tiles, p1, p2, t1, t2, tw, ts,
+                      len1, len2, w);
+}
+
 template <typename K>
 int smem_opt_in(K kernel, int smem) {
   if (smem <= 48 * 1024) return 0;
@@ -291,12 +410,16 @@ int smem_opt_in(K kernel, int smem) {
 // The checks and the launch at points of type C on planes of storage type
 // St (the layout of cuda_kernels.strided_layout, at most `max_threads` a
 // block).
-template <class C, class St, typename K>
+// With `window` (6 ints: in_plane, in_row, cs, cw, in_keep, out_keep),
+// the windowed kernel under that ColWindow; a window that is not one is
+// refused: keeps of 1..n rows, runs of at most 2^15 columns that divide
+// S.
+template <class C, bool kWindow = false, class St, typename K>
 int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
            St* yi, long long P, long long S,
            const int* plan1, const int* plan2, const Real<C>* table1,
            const Real<C>* table2, const Real<C>* twiddle, int ts, int threads,
-           int smem, void* stream) {
+           int smem, void* stream, const long long* window = nullptr) {
   Plan p1, p2;
   if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
       !vkfft::subplan_from_ints(plan2, &p2) || twiddle == nullptr)
@@ -313,12 +436,28 @@ int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
     return (int)cudaErrorInvalidValue;
   const long long tiles = (S + ts - 1) / ts;
   if (P * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  ColWindow w{};
+  if (kWindow) {
+    if (window == nullptr) return (int)cudaErrorInvalidValue;
+    w = {window[0], window[1], window[2], (int)window[3], (int)window[4],
+         (int)window[5]};
+    if (window[0] < 0 || window[1] < 0 || window[2] < 0 || window[3] < 0 ||
+        window[3] > 32768 || (window[3] && S % window[3]) ||
+        window[4] < 1 || window[4] > n || window[5] < 1 || window[5] > n)
+      return (int)cudaErrorInvalidValue;
+  }
   const int err = smem_opt_in(kernel, smem);
   if (err) return err;
-  kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, S, tiles, p1, p2, reinterpret_cast<const C*>(table1),
-      reinterpret_cast<const C*>(table2), reinterpret_cast<const C*>(twiddle),
-      ts, len1, len2);
+  if constexpr (kWindow)
+    kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, S, tiles, p1, p2, reinterpret_cast<const C*>(table1),
+        reinterpret_cast<const C*>(table2),
+        reinterpret_cast<const C*>(twiddle), ts, len1, len2, w);
+  else
+    kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, S, tiles, p1, p2, reinterpret_cast<const C*>(table1),
+        reinterpret_cast<const C*>(table2),
+        reinterpret_cast<const C*>(twiddle), ts, len1, len2);
   return (int)cudaGetLastError();
 }
 
@@ -392,6 +531,53 @@ int vk_fft_strided_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   return launch<float2>(fft_strided_bf16_kernel, kThreads, xr, xi, yr, yi, P,
                         S, plan1, plan2, table1, table2, twiddle, ts, threads,
                         smem, stream);
+}
+
+// vk_fft_strided under a zero-pad window: `window` points to the 6 ints
+// of ColWindow (in_plane, in_row, cs, cw, in_keep, out_keep); the output
+// is (P, out_keep, S) planes.  A window that is not one is refused.
+int vk_fft_strided_zp(const float* xr, const float* xi, float* yr, float* yi,
+                      long long P, long long S, const int* plan1,
+                      const int* plan2, const float* table1,
+                      const float* table2, const float* twiddle, int ts,
+                      int threads, int smem, const long long* window,
+                      void* stream) {
+  return launch<float2, true>(fft_strided_zp_kernel, kThreads, xr, xi, yr, yi, P, S,
+                        plan1, plan2, table1, table2, twiddle, ts, threads,
+                        smem, stream, window);
+}
+
+int vk_fft_strided_zp_f64(const double* xr, const double* xi, double* yr,
+                          double* yi, long long P, long long S,
+                          const int* plan1, const int* plan2,
+                          const double* table1, const double* table2,
+                          const double* twiddle, int ts, int threads,
+                          int smem, const long long* window, void* stream) {
+  return launch<double2, true>(fft_strided_zp_f64_kernel, kThreads64, xr, xi, yr,
+                         yi, P, S, plan1, plan2, table1, table2, twiddle, ts,
+                         threads, smem, stream, window);
+}
+
+int vk_fft_strided_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                          __half* yi, long long P, long long S,
+                          const int* plan1, const int* plan2,
+                          const float* table1, const float* table2,
+                          const float* twiddle, int ts, int threads,
+                          int smem, const long long* window, void* stream) {
+  return launch<float2, true>(fft_strided_zp_f16_kernel, kThreads, xr, xi, yr, yi,
+                        P, S, plan1, plan2, table1, table2, twiddle, ts,
+                        threads, smem, stream, window);
+}
+
+int vk_fft_strided_zp_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                           __nv_bfloat16* yr, __nv_bfloat16* yi, long long P,
+                           long long S, const int* plan1, const int* plan2,
+                           const float* table1, const float* table2,
+                           const float* twiddle, int ts, int threads,
+                           int smem, const long long* window, void* stream) {
+  return launch<float2, true>(fft_strided_zp_bf16_kernel, kThreads, xr, xi, yr, yi,
+                        P, S, plan1, plan2, table1, table2, twiddle, ts,
+                        threads, smem, stream, window);
 }
 
 int vk_fft_strided_occupancy(int threads, int smem, int* blocks) {

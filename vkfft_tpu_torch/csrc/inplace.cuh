@@ -948,6 +948,128 @@ __device__ __forceinline__ void two_factor_block(
               yi, block_line0(lines) * n, block_lines(lines, batch) * n);
 }
 
+// A zero-pad window on a block of lines (the reference's vkFFT_Zeropad.h
+// read and write guards; the windowed entries of fft_lines and
+// fft_twofactor).  The input lines are a view (d0, d1, d2) of lines:
+// line (i0, i1, i2) starts at point i0 * s0 + i1 * s1 + i2 * s2 of the
+// planes (a corner of wider planes, or one run of lines at pitch s2).  Of
+// each line the points t < len outside [z0, z1) are read; the others are
+// declared zero, never read, and held as zeros.  The output is compact,
+// `out` points a line (a cropped prefix, or the whole line), and the
+// points [o0, o1) of each are written as zeros, not as computed values.
+struct LineWindow {
+  long long s0, s1;
+  int d1, d2, s2;
+  int len, z0, z1;
+  int out, o0, o1;
+};
+
+// Points [o0, o1) of each line stored as zeros (store_lines' functor).
+struct ZeroRange {
+  int o0, o1;
+  template <class C>
+  __device__ __forceinline__ C operator()(C v, int, int t) const {
+    return t >= o0 && t < o1 ? cx<C>(Real<C>(0), Real<C>(0)) : v;
+  }
+};
+
+// The block's lines under a window: a block takes up to `lines` lines of
+// one group of d2 (ceil(d2 / lines) blocks a group).  Returns its count
+// of lines, the input's first point into in0 and the output's into out0;
+// blockIdx.x read afresh, so nothing is held through the passes.
+__device__ __forceinline__ int window_lines(const LineWindow& w, int lines,
+                                            long long& in0, long long& out0) {
+  unsigned b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  const unsigned per = ((unsigned)w.d2 + lines - 1) / lines;
+  const unsigned g = b / per;
+  const int first = (int)(b - g * per) * lines;
+  const unsigned i0 = g / (unsigned)w.d1;
+  in0 = (long long)i0 * w.s0 + (long long)(g - i0 * w.d1) * w.s1 +
+        (long long)first * w.s2;
+  out0 = ((long long)g * w.d2 + first) * w.out;
+  return min(lines, w.d2 - first);
+}
+
+// The `nl` lines of n points from point g0 of the planes (line pitch
+// w.s2) into their places `mp` in `home`, point by point: a declared-zero
+// point is a zero written to shared memory, never read; a kept one goes
+// by cp.async straight to its place (fp32, fp64) or through registers,
+// widened (halves).  A window's edges fall anywhere in a line, so the
+// copy takes no four-point groups.
+template <class C, class St>
+__device__ void load_window(const St* xr, const St* xi, long long g0, int nl,
+                            const LineWindow& w, const Map& mp, C* home) {
+  const int n = (int)mp.dn.d;
+  for (int u = threadIdx.x; u < nl * n; u += blockDim.x) {
+    const int line = quot(u, mp.dn);
+    const int t = u - line * n;
+    C* d = home + position(u, mp);
+    if (t >= w.len || (t >= w.z0 && t < w.z1)) {
+      *d = cx<C>(Real<C>(0), Real<C>(0));
+      continue;
+    }
+    const long long g = g0 + (long long)line * w.s2 + t;
+    if constexpr (kNarrow<St>) {
+      *d = cx<C>(widen(xr[g]), widen(xi[g]));
+    } else {
+      Real<C>* r = reinterpret_cast<Real<C>*>(d);
+      cp_async_real(r, xr + g);
+      cp_async_real(r + 1, xi + g);
+    }
+  }
+  if constexpr (!kNarrow<St>) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// two_factor_block under a window (LineWindow), natural order both ways:
+// the lines' kept points read (load_window), the same passes, and the
+// compact output stored through store_lines at w.out points a line with
+// zeros over [w.o0, w.o1).  A block reads all of its lines before it
+// writes, so an output of the input's own layout (one run of whole lines)
+// may alias it.
+template <class C, class St>
+__device__ __forceinline__ void two_factor_block_window(
+    C* smem, const St* xr, const St* xi, St* yr, St* yi, const Plan& p1,
+    const Plan& p2, const C* t1, const C* t2, const C* tw, int lines,
+    int pitch, int len1, int len2, const LineWindow& w) {
+  const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
+  const int S = n2 * pitch;
+  C* home = smem;
+  C* s1 = home + lines * S;
+  C* s2 = s1 + len1;
+  C* tlo = s2 + len2;
+  C* thi = tlo + kTwLo;
+  load_tables(s1, t1, t2, tw, len1, len2, rotation_points(n));
+  const bool inverse = p1.inverse != 0;
+  long long in0, out0;
+  const int nl = window_lines(w, lines, in0, out0);
+  load_window(xr, xi, in0, nl, w, make_map(n, S, inverse, n1, n2, pitch),
+              home);
+  __syncthreads();
+  two_factor_passes(home, nl, p1, p2, s1, s2, tlo, thi, pitch);
+  Map mp = make_map(n, S, !inverse, n1, n2, pitch);
+  mp.dn = make_div(w.out);
+  const int count = window_lines(w, lines, in0, out0) * w.out;
+  store_lines(home, mp, yr, yi, out0, count, ZeroRange{w.o0, w.o1});
+}
+
+// A LineWindow from its 11 ints (s0, s1, d1, d2, s2, len, z0, z1, out,
+// o0, o1) for lines of n points, `batch` of them in all, or false where
+// it is not one: groups of d2 lines that divide the batch, a kept read
+// inside the line, an output of 1..n points with its zeros inside it.
+inline bool window_from_ints(const long long* v, int n, long long batch,
+                             LineWindow* w) {
+  if (v == nullptr) return false;
+  for (int k = 2; k < 11; ++k)
+    if (v[k] < 0 || v[k] > 0x7fffffffLL) return false;
+  *w = {v[0], v[1], (int)v[2], (int)v[3], (int)v[4], (int)v[5],
+        (int)v[6], (int)v[7], (int)v[8], (int)v[9], (int)v[10]};
+  return v[0] >= 0 && v[1] >= 0 && w->d1 >= 1 && w->d2 >= 1 &&
+         batch % ((long long)w->d1 * w->d2) == 0 && w->len >= 1 &&
+         w->len <= n && w->s2 >= w->len && w->z0 <= w->z1 && w->z1 <= n &&
+         w->out >= 1 && w->out <= n && w->o0 <= w->o1 && w->o1 <= w->out;
+}
+
 // Shared bytes of a block of `lines` lines of the plans' n1 * n2 points at
 // the pitch n1 | 1, their stage tables and `ntw` twiddle points, a point a
 // C.

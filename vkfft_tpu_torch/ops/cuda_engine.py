@@ -104,12 +104,24 @@ last), as SPLIT's inverse does its first factor, so no unnormalized
 intermediate leaves float16's range; fp32 keeps the whole scale on the
 last pass.
 
+Zero-pad windows (the API's elided routes): `fft_lines_p` takes the
+reference's ``in_nonzero``/``in_window``/``out_keep``/``out_fill``/
+``out_zero_window`` on DIRECT plans of `fft_lines` and `fft_twofactor`
+(`window_kernel`), `fft_axis_p` prefix keeps (`axis_window`: the windowed
+lines entry on the minor axis, the windowed `fft_strided` on any other
+DIRECT axis of its lengths), `fft_pair_p` (ky, kz) corners; each reads a
+corner of wider planes in place through its strides (planes of two
+layouts, or whose last dim is not contiguous, are copied first:
+`_one_layout`), and off those kernels honours the window with a mask and
+a slice (``pallas_engine.fft_axis_p``'s contract).
+Bluestein's read window and the convolution kernels' windows are queue 1
+item 8.2.
+
 What raises ``NotImplementedError`` naming its ROADMAP item: float64 on
 every route but the fp64 kernels' DIRECT lengths, float64 real data and
 convolution, R2R data on any dtype but float32 (the transforms widen half
-R2R data first), and every other dtype (queue 1 item 10); zero-pad keeps
-(queue 1 item 8).  `check_walk` refuses a C2C walk with such an axis
-before its first launch.  `route`
+R2R data first), and every other dtype (queue 1 item 10).  `check_walk`
+refuses a C2C walk with such an axis before its first launch.  `route`
 raises ValueError for a length no split of the long tier holds (beyond
 2^40, or more primes above 64 than three uploads can place).  Nothing
 here falls back to the plain engine or to a kernel's plain version.
@@ -645,11 +657,45 @@ def fft_long3_p(x: Planar, n: int, inverse: bool = False, scale: float = 1.0,
     return Planar(yr, yi).reshape(B, n)
 
 
+def window_kernel(plan: AxisPlan) -> Optional[str]:
+    """The kernel whose windowed entry runs a zero-pad window on lines of
+    ``plan``: `fft_lines` or `fft_twofactor` for a DIRECT plan that
+    `route` runs in one of them, else None (the window is then a mask and
+    a slice around the plan's route)."""
+    if plan.algorithm is not Algorithm.DIRECT or plan.n <= 4:
+        return None
+    kernel = route(plan)[0][0]
+    return kernel if kernel in ("fft_lines", "fft_twofactor") else None
+
+
+def _masked_lines(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
+                  w: ck.LineWindow) -> Planar:
+    """A window off the windowed kernels (``pallas_engine.fft_axis_p``'s
+    contract, l.756-767): the read points of the (..., L) lines, zeros
+    elsewhere, the plan's route, then the crop or the zeros written."""
+    y = fft_lines_p(ck._window_lines_in(x.re, x.im, w), plan, inverse,
+                    donate=True, scale=scale)
+    return Planar(*ck._window_lines_out(y, w, x.shape[:-1]))
+
+
 def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
-                donate: bool = False, scale: float = 1.0) -> Planar:
+                donate: bool = False, scale: float = 1.0, in_keep: int = 0,
+                out_keep: int = 0, out_fill: bool = False, in_window=None,
+                out_zero_window=None) -> Planar:
     """Planar DFT over (B, n) planes, scaled by ``scale`` in the kernels.
-    ``donate=True`` lets a DIRECT plan overwrite the caller's planes."""
+    ``donate=True`` lets a DIRECT plan overwrite the caller's planes.
+
+    Zero-pad windows (``in_keep`` or ``in_window``; ``out_keep`` with or
+    without ``out_fill``, or ``out_zero_window``; `ck.line_window`) run
+    the windowed entry of `window_kernel`'s kernel; the planes may then be
+    any view (..., L) of lines, L = n or the kept prefix, and the result
+    is (..., n) or, cropped, (..., out_keep).  Off those kernels the
+    window is a mask and a slice around the plan's route."""
     _check_dtype(x, lambda dt: axis_supports(plan, dt))
+    w = ck.line_window(plan.n, in_keep, out_keep, out_fill, in_window,
+                       out_zero_window, "fft_lines_p")
+    if w is not None:
+        return _windowed_lines(x, plan, inverse, scale, w, donate)
     n = plan.n
     if n == 1:
         return x * scale if scale != 1.0 else x
@@ -674,6 +720,96 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
     return _rader_p(x, n, scale, kernel)
 
 
+def _one_layout(x: Planar) -> Planar:
+    """``x`` where both planes share one layout with a contiguous last dim,
+    as the windowed kernels read them in place through one set of strides;
+    else a contiguous copy (planes of two layouts, such as a transposed
+    ``im``, or interleaved ones, such as ``Planar(z.real, z.imag)``)."""
+    re, im = x.re, x.im
+    if re.stride() == im.stride() and (re.ndim == 0 or re.shape[-1] <= 1
+                                       or re.stride(-1) == 1):
+        return x
+    return x.contiguous()
+
+
+def _windowed_lines(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
+                    w: ck.LineWindow, donate: bool = False) -> Planar:
+    """The window ``w`` on the (..., L) lines of ``x``: the windowed entry
+    of `window_kernel`'s kernel, reading the planes in place, else
+    `_masked_lines`."""
+    kernel = window_kernel(plan)
+    if kernel is None:
+        return _masked_lines(x, plan, inverse, scale, w)
+    x = _one_layout(x)
+    run = ck.fft_lines if kernel == "fft_lines" else ck.fft_twofactor
+    own = (donate and x.re.is_contiguous() and x.im.is_contiguous()
+           and x.shape[-1] == w.n == w.out)
+    return Planar(*run(x.re, x.im, inverse, scale,
+                       out=(x.re, x.im) if own else None, window=w))
+
+
+def _views(x: Planar, dims) -> tuple:
+    """Both planes of ``x`` as the view of (size, stride) ``dims`` over
+    their storage (no copy); the planes must share one layout
+    (`_one_layout`), since ``dims`` come from one of them."""
+    if x.re.stride() != x.im.stride():
+        raise ValueError(f"planes of strides {x.re.stride()} and "
+                         f"{x.im.stride()} (one layout: _one_layout)")
+    return tuple(t.as_strided([d for d, _ in dims], [s for _, s in dims],
+                              t.storage_offset()) for t in (x.re, x.im))
+
+
+def axis_window(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
+                scale: float = 1.0, in_keep: int = 0,
+                out_keep: int = 0) -> Planar:
+    """`fft_axis_p` on a view with prefix keeps along ``axis`` (``pallas_
+    engine.fft_axis_p``, l.744-790): the minor axis on the windowed lines
+    entry of `window_kernel`, any other DIRECT axis of `fft_strided`'s
+    lengths on its windowed entry, both reading the planes in place
+    through their strides (a corner of wider planes; the identity window
+    where the axis has no keep); elsewhere a mask and a slice.  The axis of
+    ``x`` may hold n points or the kept ones; the result holds ``out_keep``
+    (or n).  Contiguous planes without keeps take `fft_axis_p`'s route."""
+    n, axis = plan.n, axis % x.ndim
+    in_keep = ck._check_keep(in_keep, n, "axis_window")
+    out_keep = ck._check_keep(out_keep, n, "axis_window")
+    if not (in_keep or out_keep) and x.re.is_contiguous() \
+            and x.im.is_contiguous():
+        return fft_axis_p(x, axis, plan, inverse, scale=scale)
+    if x.shape[axis] != n and not (in_keep and x.shape[axis] == in_keep):
+        raise ValueError(
+            f"axis {axis} has length {x.shape[axis]}, plan is for {n}")
+    _check_dtype(x, lambda dt: axis_supports(plan, dt))
+    x = _one_layout(x)
+    shape = x.shape
+    rows_in = in_keep or n
+    rows_out = out_keep or n
+    out_shape = shape[:axis] + (rows_out,) + shape[axis + 1:]
+    if axis == x.ndim - 1:
+        w = (ck.line_window(n, in_keep, out_keep, what="axis_window")
+             or ck.LineWindow(n, n, (0, 0), n, (0, 0)))
+        return _windowed_lines(x, plan, inverse, scale, w)
+    lead = merged = None
+    if plan.algorithm is Algorithm.DIRECT and ck.kernel_supports(n):
+        lead = ck.merged_dims(shape[:axis], x.re.stride()[:axis])
+        merged = ck.merged_dims(shape[axis + 1:], x.re.stride()[axis + 1:])
+    if (lead is not None and len(lead) <= 1 and len(merged) <= 2
+            and (not merged or merged[-1][1] == 1)):
+        dims = ((lead or [(1, 0)]) + [(shape[axis], x.re.stride(axis))]
+                + [(1, 1)] * (2 - len(merged)) + merged)
+        y = ck.fft_strided(*_views(x, dims), inverse, scale, in_keep=in_keep,
+                           out_keep=out_keep, n=n)
+        return Planar(y[0].reshape(out_shape), y[1].reshape(out_shape))
+    # the contract off the kernels: the kept rows, zeros to n, the axis
+    # pass, the kept rows of the result
+    pad = [0, 0] * (x.ndim - 1 - axis) + [0, n - rows_in]
+    x = Planar(*(torch.nn.functional.pad(
+        t.narrow(axis, 0, rows_in), pad).contiguous() for t in (x.re, x.im)))
+    y = fft_axis_p(x, axis, plan, inverse, donate=True, scale=scale)
+    return Planar(y.re.narrow(axis, 0, rows_out).contiguous(),
+                  y.im.narrow(axis, 0, rows_out).contiguous())
+
+
 def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
                donate: bool = False, scale: float = 1.0, in_keep: int = 0,
                out_keep: int = 0) -> Planar:
@@ -681,16 +817,24 @@ def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
     minor axis runs the lines kernel on the (-1, n) view; any other axis
     runs the strided kernel on the (P, n, S) view.  ``donate=True`` lets
     the kernel write over the caller's planes (dead intermediates of an N-D
-    walk)."""
+    walk).
+
+    ``in_keep``/``out_keep``: prefix zero-pad keeps along the axis (the
+    JAX package's ``fft_axis_p`` contract): only the first ``in_keep``
+    points of the axis are read, the rest declared zero (the axis may
+    hold n points or just those), and only the first ``out_keep`` are
+    written (the result's axis has that length); on the windowed entries
+    of the lines kernels and `fft_strided`, reading views in place
+    (`axis_window`, which an elided walk also calls without keeps on a
+    corner of wider planes)."""
     axis = axis % x.ndim
-    if x.shape[axis] != plan.n:
-        raise ValueError(
-            f"axis {axis} has length {x.shape[axis]}, plan is for {plan.n}")
-    _check_dtype(x, lambda dt: axis_supports(plan, dt))
-    if in_keep or out_keep:
-        raise NotImplementedError(
-            "zero-pad keeps on the CUDA engine are ROADMAP queue 1 item 8")
     n = plan.n
+    if in_keep or out_keep:
+        return axis_window(x, axis, plan, inverse, scale, in_keep, out_keep)
+    if x.shape[axis] != n:
+        raise ValueError(
+            f"axis {axis} has length {x.shape[axis]}, plan is for {n}")
+    _check_dtype(x, lambda dt: axis_supports(plan, dt))
     if n == 1:
         return x * scale if scale != 1.0 else x
     shape = x.shape
@@ -716,11 +860,36 @@ def fft_axis_p(x: Planar, axis: int, plan: AxisPlan, inverse: bool = False,
 
 
 def fft_pair_p(x: Planar, ny: int, nz: int, inverse: bool = False,
-               donate: bool = False, scale: float = 1.0) -> Planar:
+               donate: bool = False, scale: float = 1.0, in_keep=None,
+               out_keep=None) -> Planar:
     """Planar 2-D DFT over the two minor axes (..., ny, nz) in one kernel
-    pass, scaled by ``scale``; ``donate`` as for `fft_axis_p`."""
+    pass, scaled by ``scale``; ``donate`` as for `fft_axis_p`.
+
+    ``in_keep`` = (ky, kz): only that corner of each plane is read, the
+    rest declared zero (the planes may be (..., ny, nz) or the corner
+    itself, a view read in place); ``out_keep`` = (oy, oz): only that
+    corner is written, (..., oy, oz) planes; 0 for an axis without a keep
+    (the windowed entry of `fft_pair`)."""
     _check_dtype(x, lambda dt: pair_supports(ny, nz, dt))
     shape = x.shape
+    if tuple(in_keep or (0, 0)) != (0, 0) or tuple(out_keep or (0, 0)) != (0, 0):
+        ky, kz = in_keep or (0, 0)
+        oy, oz = out_keep or (0, 0)
+        if (shape[-2] not in (ny, ky) or shape[-1] not in (nz, kz)):
+            raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)} "
+                             f"or the ({ky}, {kz}) corner")
+        x = _one_layout(x)
+        lead = ck.merged_dims(shape[:-2], x.re.stride()[:-2])
+        if len(lead) > 1:   # planes of more than one stride
+            x = x.contiguous()
+            lead = ck.merged_dims(shape[:-2], x.re.stride()[:-2])
+        dims = (lead or [(1, 0)]) + [(shape[-2], x.re.stride(-2)),
+                                     (shape[-1], x.re.stride(-1))]
+        rr, ii = ck.fft_pair(*_views(x, dims), inverse, scale,
+                             in_keep=(ky, kz), out_keep=(oy, oz),
+                             plane=(ny, nz))
+        out = shape[:-2] + (oy or ny, oz or nz)
+        return Planar(rr.reshape(out), ii.reshape(out))
     if shape[-2:] != (ny, nz):
         raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)}")
     x = x.contiguous()

@@ -94,6 +94,17 @@ memory (8 B a point, so every fp32 layout rule holds as it is) and every
 stage fp32.  Every other kernel (the real and R2R kernels) takes float32
 planes only (other precisions are ROADMAP queue 1 item 10).
 
+`fft_lines`, `fft_twofactor`, `fft_strided` and `fft_pair` have windowed
+entries (`ZP_KERNELS`; C entries ``vk_<name>_zp`` and their ``_f64``,
+``_f16``, ``_bf16`` twins where the kernel has that instantiation, counted
+in `zp_launches`): the zero-pad options of the TPU kernels they replace
+(`line_window`: kept prefixes, interior windows, cropped, filled and
+zero-windowed outputs; `fft_strided`'s row keeps; `fft_pair`'s corners),
+the declared-zero input never read and held as zeros in shared memory,
+the output cropped or written with exact zeros, the planes read in place
+through their strides (a corner of wider planes).  Their kernels are
+instantiations of their own, so the unwindowed kernels compile as before.
+
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
 notes in the ``.cu`` files say how.  `fft_lines`, `fft_strided` and
@@ -134,6 +145,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -279,9 +291,27 @@ f64_launches = {name: 0 for name in F64_KERNELS}
 storage_launches = {name + _SUFFIX[dt]: 0 for name in STORAGE_ENTRIES
                     for dt in STORAGE_DTYPES}
 
+# The kernels with zero-pad windows (the reference's in_nonzero, in_window,
+# out_keep, out_fill, out_zero_window and corner keeps): C entries
+# ``vk_<name>_zp`` and their instantiations ``_zp_f64``, ``_zp_f16``,
+# ``_zp_bf16`` in the kernel's own source, counted apart in `zp_launches`
+# by entry (``fft_lines_zp``, ``fft_pair_zp_bf16``, ...).
+ZP_KERNELS = ("fft_lines", "fft_twofactor", "fft_strided", "fft_pair")
+ZP_DTYPES = {name: ((torch.float32,) + STORAGE_DTYPES
+                    + ((torch.float64,) if name in F64_KERNELS else ()))
+             for name in ZP_KERNELS}
+ZP_ENTRIES = tuple(name + "_zp" + _SUFFIX[dt] for name in ZP_KERNELS
+                   for dt in ZP_DTYPES[name])
+zp_launches = {entry: 0 for entry in ZP_ENTRIES}
+
+
+def zp_entry(name: str, dtype: torch.dtype) -> str:
+    """The windowed C entry of kernel ``name`` on planes of ``dtype``."""
+    return name + "_zp" + _SUFFIX[dtype]
+
 
 def reset_launches() -> None:
-    for counts in (launches, f64_launches, storage_launches):
+    for counts in (launches, f64_launches, storage_launches, zp_launches):
         for name in counts:
             counts[name] = 0
 
@@ -1785,10 +1815,118 @@ def _storage_plain(plain):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Zero-pad windows (the reference's vkFFT_Zeropad.h; ``pallas_engine.py``'s
+# in_nonzero / in_window / out_keep / out_fill / out_zero_window of
+# _fft_kernel_v3, in_nonzero / out_keep of _fft_kernel_v2, the corner
+# keeps of _pair_kernel and the row keeps of _strided_kernel_v3 and
+# _outer_kernel).  A window's function is its plain version's: the
+# declared-zero input is never read and counts as zero, a cropped output
+# has the kept length, a filled output holds exact zeros.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LineWindow:
+    """The windows of a lines pass of n points: the input's points t <
+    ``length`` outside ``zero`` = [z0, z1) are read (the rest declared zero);
+    the output is ``out`` points a line, with zeros written over ``fill`` =
+    [o0, o1)."""
+    n: int
+    length: int
+    zero: tuple
+    out: int
+    fill: tuple
+
+    def __post_init__(self):
+        n, (z0, z1), (f0, f1) = self.n, self.zero, self.fill
+        if not (0 < self.length <= n and 0 < self.out <= n
+                and ((z0, z1) == (0, 0) or 0 < z0 < z1 < n)
+                and ((f0, f1) == (0, 0) or 0 < f0 < f1 <= n)):
+            raise ValueError(f"{self}: reads 0 < length <= n, writes 0 < out "
+                             "<= n, zero 0 < z0 < z1 < n, fill 0 < f0 < f1 "
+                             "<= n, (0, 0) for none (line_window)")
+
+
+def _check_keep(keep: int, n: int, what: str) -> int:
+    keep = int(keep or 0)
+    if keep and not 0 < keep < n:
+        raise ValueError(f"{what}: a kept prefix of {keep} points of {n} "
+                         f"(0 < keep < {n}; 0 for none)")
+    return keep
+
+
+def _check_window(win, n: int, what: str) -> tuple:
+    if win is None:
+        return (0, 0)
+    left, right = (int(v) for v in win)
+    if not 0 < left < right < n:
+        raise ValueError(f"{what}: an interior window ({left}, {right}) of "
+                         f"{n} points (0 < left < right < {n})")
+    return (left, right)
+
+
+def line_window(n: int, in_keep: int = 0, out_keep: int = 0,
+                out_fill: bool = False, in_window=None,
+                out_zero_window=None,
+                what: str = "fft_lines") -> Optional[LineWindow]:
+    """The `LineWindow` of these options on lines of n points, None where
+    there is none: ``in_keep`` (a kept prefix of the input; 0 none) or
+    ``in_window`` (an interior declared-zero window of the input);
+    ``out_keep`` (the output cropped to a kept prefix, or with
+    ``out_fill`` written whole with zeros past it) or ``out_zero_window``
+    (zeros written over an interior window).  Raises ValueError for a
+    keep outside 0 < keep < n, a window outside 0 < left < right < n, or
+    two options on one side."""
+    ik = _check_keep(in_keep, n, what)
+    ok = _check_keep(out_keep, n, what)
+    iw = _check_window(in_window, n, what)
+    ow = _check_window(out_zero_window, n, what)
+    if ik and iw != (0, 0) or ok and ow != (0, 0):
+        raise ValueError(f"{what}: a kept prefix and a window on one side")
+    if out_fill and not ok:
+        raise ValueError(f"{what}: out_fill needs out_keep")
+    if not (ik or ok or iw != (0, 0) or ow != (0, 0)):
+        return None
+    fill = (ok, n) if out_fill else ow
+    return LineWindow(n, ik or n, iw, ok if ok and not out_fill else n, fill)
+
+
+def _window_lines_in(re, im, w: LineWindow) -> Planar:
+    """The (B, n) lines a windowed kernel sees: the read points of the
+    input's lines (..., L), zeros elsewhere (new planes)."""
+    L = re.shape[-1]
+    x = Planar(re.reshape(-1, L)[:, :w.length], im.reshape(-1, L)[:, :w.length])
+    x = Planar(*(torch.nn.functional.pad(t, (0, w.n - w.length))
+                 for t in (x.re, x.im)))
+    if w.zero != (0, 0):
+        t = torch.arange(w.n, device=re.device)
+        keep = (t < w.zero[0]) | (t >= w.zero[1])
+        x = Planar(torch.where(keep, x.re, 0.0), torch.where(keep, x.im, 0.0))
+    return x
+
+
+def _window_lines_out(y: Planar, w: LineWindow, lead: tuple):
+    """The output of the windowed kernel from the whole lines' DFT: the
+    kept prefix, zeros written over the fill range."""
+    yr, yi = y.re[:, :w.out], y.im[:, :w.out]
+    if w.fill != (0, 0):
+        t = torch.arange(w.out, device=yr.device)
+        keep = (t < w.fill[0]) | (t >= w.fill[1])
+        yr, yi = torch.where(keep, yr, 0.0), torch.where(keep, yi, 0.0)
+    return (yr.reshape(*lead, w.out).contiguous(),
+            yi.reshape(*lead, w.out).contiguous())
+
+
 @_storage_plain
 def fft_lines_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                    scale: float = 1.0):
-    """Plain torch version of `fft_lines`."""
+                    scale: float = 1.0, window: Optional[LineWindow] = None):
+    """Plain torch version of `fft_lines`; with ``window``, of its
+    windowed entry: the read points of the lines (..., L), zeros elsewhere,
+    transformed, then cropped or filled (`LineWindow`)."""
+    if window is not None:
+        y = torch_engine.lines_plain(_window_lines_in(re, im, window),
+                                     plan_axis(window.n), inverse, scale)
+        return _window_lines_out(y, window, re.shape[:-1])
     y = torch_engine.lines_plain(Planar(re, im), plan_axis(re.shape[1]),
                                  inverse, scale)
     return y.re, y.im
@@ -1830,8 +1968,12 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                       post: Optional[Factor] = None, plane=None,
                       out_len: Optional[int] = None, in_interleave: int = 1,
                       out_interleave: int = 1, in_transposed: bool = False,
-                      out_transposed: bool = False):
-    """Plain torch version of `fft_strided`: the planes (with ``plane``,
+                      out_transposed: bool = False,
+                      window: Optional[tuple] = None):
+    """Plain torch version of `fft_strided`; with ``window`` = (n, rows
+    read, rows written), of its windowed entry: the first rows of the
+    (P, R, ...) planes, zero rows to n, transformed, the first rows kept,
+    (P, rows written, ...).  Else: the planes (with ``plane``,
     (P, L) lines zero-padded to the (n, S) plane; with ``in_interleave``,
     read from the interleaved layout; with ``in_transposed``, (P, S, n)
     planes transposed) times the ``pre`` factor, the transform dim moved
@@ -1839,6 +1981,15 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     ``plane``, the first ``out_len`` points of each plane; with
     ``out_interleave``, laid out interleaved; with ``out_transposed``, as
     (P, S, n) planes)."""
+    if window is not None:
+        n, rows_in, rows_out = window
+        P, tail = re.shape[0], re.shape[2:]
+        x = [torch.nn.functional.pad(
+            t.reshape(P, t.shape[1], -1)[:, :rows_in],
+            (0, 0, 0, n - rows_in)) for t in (re, im)]
+        yr, yi = fft_strided_plain(*x, inverse, scale)
+        return (yr[:, :rows_out].reshape(P, rows_out, *tail).contiguous(),
+                yi[:, :rows_out].reshape(P, rows_out, *tail).contiguous())
     if in_transposed:
         re, im = (t.transpose(1, 2) for t in (re, im))
     if plane is None:
@@ -1875,9 +2026,17 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
 
 @_storage_plain
 def fft_pair_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                   scale: float = 1.0):
+                   scale: float = 1.0, window: Optional[tuple] = None):
     """Plain torch version of `fft_pair`: the z axis as lines, then the y
-    axis as a strided pass with the scale."""
+    axis as a strided pass with the scale.  With ``window`` = (ny, nz, ky,
+    kz, oy, oz), of its windowed entry: the (ky, kz) corner of each plane
+    (B, Ry, Rz), zeros to (ny, nz), transformed, the (oy, oz) corner kept."""
+    if window is not None:
+        ny, nz, ky, kz, oy, oz = window
+        x = [torch.nn.functional.pad(t[:, :ky, :kz], (0, nz - kz, 0, ny - ky))
+             for t in (re, im)]
+        yr, yi = fft_pair_plain(*x, inverse, scale)
+        return (yr[:, :oy, :oz].contiguous(), yi[:, :oy, :oz].contiguous())
     B, ny, nz = re.shape
     zr, zi = fft_lines_plain(re.reshape(B * ny, nz), im.reshape(B * ny, nz),
                              inverse)
@@ -1989,10 +2148,16 @@ def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
 
 @_storage_plain
 def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                        scale: float = 1.0, swapped: bool = False):
+                        scale: float = 1.0, swapped: bool = False,
+                        window: Optional[LineWindow] = None):
     """Plain torch version of `fft_twofactor`: the DFT of each line times
     ``scale``; with ``swapped`` the forward's output and the inverse's input
-    are in the swapped digit order of `twofactor_split`."""
+    are in the swapped digit order of `twofactor_split`.  With ``window``,
+    of its windowed entry (natural order), as `fft_lines_plain`'s."""
+    if window is not None:
+        y = torch_engine.lines_plain(_window_lines_in(re, im, window),
+                                     plan_axis(window.n), inverse, scale)
+        return _window_lines_out(y, window, re.shape[:-1])
     n = re.shape[1]
     n1, n2 = twofactor_split(n)
     x = Planar(re, im)
@@ -2277,7 +2442,21 @@ def _with_instantiations(entries: dict) -> dict:
     return out
 
 
-_ENTRIES = _with_instantiations(_ENTRIES)
+def _with_windows(entries: dict) -> dict:
+    """`_ENTRIES` with the windowed C entries (`ZP_ENTRIES`): each its
+    kernel's arguments (`fft_twofactor`'s without ``swapped``: the windows
+    run natural order) and the window's ints by pointer."""
+    out = {name: dict(sigs) for name, sigs in entries.items()}
+    for name in ZP_KERNELS:
+        sig = entries[name][name]
+        if name == "fft_twofactor":
+            sig = "ppppqpppppiii"
+        for dt in ZP_DTYPES[name]:
+            out[name][zp_entry(name, dt)] = sig + "p"
+    return out
+
+
+_ENTRIES = _with_windows(_with_instantiations(_ENTRIES))
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int,
            "f": ctypes.c_float}
 
@@ -2315,7 +2494,9 @@ def _launch(name: str, entry: str, device: torch.device, args,
     if err:
         msg = lib.vk_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
-    if dtype == torch.float64:
+    if entry in zp_launches:
+        zp_launches[entry] += 1
+    elif dtype == torch.float64:
         f64_launches[name] += 1
     elif dtype in STORAGE_DTYPES:
         storage_launches[entry] += 1
@@ -2449,8 +2630,109 @@ def _apply(name: str, re, im, out, plain, kernel_args, entry=None):
     return yr, yi
 
 
+def merged_dims(shape, strides) -> list:
+    """(size, stride) of the dims of a view, length-1 dims dropped and
+    neighbours merged where the outer one's stride spans the inner one:
+    the fewest strides that address it."""
+    out = []
+    for size, stride in zip(shape, strides):
+        if size == 1:
+            continue
+        if out and out[-1][1] == size * stride:
+            out[-1] = (out[-1][0] * size, stride)
+        else:
+            out.append((size, stride))
+    return out
+
+
+def _check_view(re, im, what: str, dtypes: tuple, ndims=None) -> None:
+    """Planes of a windowed launch: views of one dtype, device, shape and
+    strides, their last dim contiguous (a corner of wider planes, read
+    through its strides in place)."""
+    if not (isinstance(re, torch.Tensor) and isinstance(im, torch.Tensor)):
+        raise TypeError(f"{what}: re and im must be torch tensors")
+    if re.shape != im.shape or re.stride() != im.stride():
+        raise ValueError(f"{what}: planes of shapes {tuple(re.shape)} and "
+                         f"{tuple(im.shape)}, strides {re.stride()} and "
+                         f"{im.stride()}")
+    if ndims is not None and re.ndim not in ndims:
+        raise ValueError(f"{what}: planes must be {ndims}-D, got "
+                         f"{tuple(re.shape)}")
+    if re.dtype not in dtypes or im.dtype != re.dtype:
+        kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{what}: planes must be {kinds}, got {re.dtype} "
+                        "(other precisions are ROADMAP queue 1 item 10)")
+    if re.device != im.device:
+        raise ValueError(f"{what}: planes on {re.device} and {im.device}")
+    if re.ndim and re.shape[-1] > 1 and re.stride(-1) != 1:
+        raise ValueError(f"{what}: the planes' last dim must be contiguous")
+
+
+def _window_out(re, im, out, shape) -> None:
+    """``out`` of a windowed launch: planes of the output's shape, the
+    input's dtype and device, contiguous; they may be the input planes
+    only where the output has the input's shape and layout (whole
+    contiguous lines or planes), never on a cropped write or a corner
+    read."""
+    if out is None:
+        return
+    for y in out:
+        if (tuple(y.shape) != tuple(shape) or y.dtype != re.dtype
+                or y.device != re.device or not y.is_contiguous()):
+            raise ValueError(f"out planes must be contiguous {tuple(shape)} "
+                             f"planes of {re.dtype}")
+    theirs = {t.untyped_storage().data_ptr() for t in (re, im)}
+    if ({y.untyped_storage().data_ptr() for y in out} & theirs
+            and (tuple(shape) != tuple(re.shape)
+                 or not (re.is_contiguous() and im.is_contiguous()))):
+        raise ValueError("out= aliases the input on a cropped write or a "
+                         "corner read")
+
+
+def _windowed_lines(name: str, re, im, inverse: bool, scale: float, out,
+                    w: LineWindow, dtypes: tuple, layout, plain):
+    """A windowed launch of `fft_lines` or `fft_twofactor` (C entry
+    ``vk_<name>_zp``): the lines are the leading dims of the (..., L)
+    view, L = n or the kept prefix, addressed through at most three
+    strides (inplace.cuh's LineWindow); the output is (..., w.out)."""
+    _check_view(re, im, name, dtypes)
+    if re.ndim < 2:
+        raise ValueError(f"{name}: planes must be at least 2-D")
+    L = re.shape[-1]
+    if L not in (w.n, w.length) or L < w.length:
+        raise ValueError(f"{name}: lines of {L} points for a window of "
+                         f"{w.length} read of {w.n}")
+    lead = tuple(re.shape[:-1])
+    shape = lead + (w.out,)
+    _window_out(re, im, out, shape)
+    if re.device.type == "cpu":
+        yr, yi = plain()
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    groups = merged_dims(lead, re.stride()[:-1])
+    if len(groups) > 3:
+        raise ValueError(f"{name}: lines of {len(groups)} strides (at most 3; "
+                         "copy the planes)")
+    (d0, s0), (d1, s1), (d2, s2) = [(1, 0)] * (3 - len(groups)) + groups
+    if len(groups) == 0:
+        s2 = L
+    B = d0 * d1 * d2
+    yr, yi = out if out is not None else (re.new_empty(shape),
+                                          im.new_empty(shape))
+    if B:
+        win = (ctypes.c_longlong * 11)(s0, s1, d1, d2, s2, w.length,
+                                       *w.zero, w.out, *w.fill)
+        _launch(name, zp_entry(name, re.dtype), re.device,
+                [re, im, yr, yi, B, *layout(), win], re.dtype)
+    return yr, yi
+
+
 def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
-              scale: float = 1.0, out=None):
+              scale: float = 1.0, out=None,
+              window: Optional[LineWindow] = None):
     """DFT of each line of (B, n) float32, float64, float16 or bfloat16
     planes, times ``scale``.  ``out`` may name the output planes, which may
     be the input planes themselves (in place).  CPU tensors run
@@ -2465,7 +2747,33 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     runs their stages in place on the walk of ``csrc/inplace.cuh``, as one
     pass or, where a stage's sequences do not fit a round, two factors
     (`lines_split`), so device memory sees only that traffic
-    (``csrc/fft_lines.cu``)."""
+    (``csrc/fft_lines.cu``).
+
+    A zero-pad ``window`` (a `LineWindow` of n points, `line_window`:
+    ``in_keep`` or ``in_window``, ``out_keep`` with or without
+    ``out_fill``, or ``out_zero_window``) launches the windowed entry
+    (``vk_fft_lines_zp`` and its instantiations, counted in
+    `zp_launches`), which replaces the options of the same names of
+    ``_fft_kernel_v3``: the planes may then be any view (..., L) whose
+    lines three strides address (a corner of wider planes, read in
+    place; the identity window reads such a view whole), L = n or the
+    kept prefix, and the output is (..., window.out).  Bound by the bytes of
+    the kept reads and writes."""
+    if window is not None:
+        n = window.n
+        _check_length(n)
+        dt = re.dtype
+
+        def layout():
+            (p1, t1), (p2, t2) = _walk_plans(lines_split(n, dt), inverse,
+                                             re.device, dt)
+            tw = _twiddle_pair(n, inverse, scale, re.device, dt)
+            return (p1, p2, t1, t2, tw, *lines_layout(n, dt))
+
+        return _windowed_lines("fft_lines", re, im, inverse, scale, out, window,
+                               _C2C_DTYPES, layout,
+                               lambda: fft_lines_plain(re, im, inverse, scale,
+                                                       window=window))
     _check_planes(re, im, 2, "fft_lines", _C2C_DTYPES)
     B, n = re.shape
     _check_length(n)
@@ -2486,7 +2794,8 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
                 post: Optional[Factor] = None, plane=None,
                 out_len: Optional[int] = None, in_interleave: int = 1,
                 out_interleave: int = 1, in_transposed: bool = False,
-                out_transposed: bool = False):
+                out_transposed: bool = False, in_keep: int = 0,
+                out_keep: int = 0, n: Optional[int] = None):
     """DFT along the middle dim of (P, n, S) float32, float64, float16 or
     bfloat16 planes, times ``scale``.  ``out`` as for `fft_lines`.  CPU
     tensors run `fft_strided_plain`; CUDA tensors launch the kernel
@@ -2521,7 +2830,26 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     one run of n points, and ``in_transposed`` reads the input as (P, S,
     n) planes (whole planes, no interleave, not in place): the long
     tier's first pass stores the four-step reorder, and its inverse reads
-    it."""
+    it.
+
+    Zero-pad keeps (``in_keep``: only the first rows are read, the rest
+    declared zero; ``out_keep``: only the first rows are written, (P,
+    out_keep, ...) planes; 0 < keep < n) launch the windowed entry
+    (``vk_fft_strided_zp`` and its instantiations, counted in
+    `zp_launches`), which replaces the in_keep / out_keep of
+    ``_strided_kernel_v3`` and ``_outer_kernel``.  The planes may then be
+    a view (P, R, S) or (P, R, G, W) with its last dim contiguous (a
+    corner of wider planes, read in place through its strides), R = ``n``
+    (default R) or the kept rows; the output is contiguous (P, out_keep or
+    n, ...) of the input's trailing shape.  Bound by the bytes of the kept
+    rows read and written."""
+    if in_keep or out_keep or n is not None:
+        if (pre is not None or post is not None or plane is not None
+                or in_interleave != 1 or out_interleave != 1
+                or in_transposed or out_transposed):
+            raise ValueError("fft_strided: keeps do not take the factor mode")
+        return _fft_strided_window(re, im, inverse, scale, out, in_keep,
+                                   out_keep, n)
     if (pre is not None or post is not None or plane is not None
             or in_interleave != 1 or out_interleave != 1 or in_transposed
             or out_transposed):
@@ -2541,6 +2869,51 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     return _apply("fft_strided", re, im, out,
                   lambda: fft_strided_plain(re, im, inverse, scale), args)
+
+
+def _fft_strided_window(re, im, inverse: bool, scale: float, out,
+                        in_keep: int, out_keep: int, n: Optional[int]):
+    """The windowed mode of `fft_strided` (C entry ``vk_fft_strided_zp``
+    of ``csrc/fft_strided.cu``, its ColWindow)."""
+    what = "fft_strided"
+    _check_view(re, im, what, _C2C_DTYPES, (3, 4))
+    P, R = re.shape[:2]
+    n = R if n is None else n
+    _check_length(n)
+    rows_in = _check_keep(in_keep, n, what) or n
+    rows_out = _check_keep(out_keep, n, what) or n
+    if R not in (n, rows_in):
+        raise ValueError(f"{what}: {R} rows for {rows_in} read of {n}")
+    tail = tuple(re.shape[2:])
+    S = math.prod(tail)
+    shape = (P, rows_out) + tail
+    _window_out(re, im, out, shape)
+    if re.device.type == "cpu":
+        yr, yi = fft_strided_plain(re, im, inverse, scale,
+                                   window=(n, rows_in, rows_out))
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    cols = merged_dims(tail, re.stride()[2:])
+    if len(cols) > 2 or cols and cols[-1][1] != 1:
+        raise ValueError(f"{what}: columns of {len(cols)} strides (at most "
+                         "2, the last contiguous; copy the planes)")
+    cw, cs = (cols[1][0], cols[0][1]) if len(cols) == 2 else (0, 0)
+    dt = re.dtype
+    yr, yi = out if out is not None else (re.new_empty(shape),
+                                          im.new_empty(shape))
+    if P and S:
+        (p1, t1), (p2, t2) = _walk_plans(strided_split(n, S, dt), inverse,
+                                         re.device, dt)
+        tw = _twiddle_pair(n, inverse, scale, re.device, dt)
+        win = (ctypes.c_longlong * 6)(re.stride(0) if P > 1 else 0,
+                                      re.stride(1), cs, cw, rows_in, rows_out)
+        _launch(what, zp_entry(what, dt), re.device,
+                [re, im, yr, yi, P, S, p1, p2, t1, t2, tw,
+                 *strided_layout(n, S, dt), win], dt)
+    return yr, yi
 
 
 def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
@@ -2625,7 +2998,8 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
 
 
 def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
-             scale: float = 1.0, out=None):
+             scale: float = 1.0, out=None, in_keep=None, out_keep=None,
+             plane: Optional[tuple] = None):
     """2-D DFT over the two minor axes of (B, ny, nz) float32, float64,
     float16 or bfloat16 planes, times ``scale``, in one pass.  ``out`` as
     for `fft_lines`.  CPU tensors run `fft_pair_plain`; CUDA tensors launch
@@ -2639,7 +3013,21 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     of ``csrc/inplace.cuh``, runs the z stages on rows, exchanges the tiles
     between its blocks over distributed shared memory and runs the y
     stages down the columns (``csrc/fft_pair.cu``); the planes are those
-    `pair_cluster` serves at the planes' dtype."""
+    `pair_cluster` serves at the planes' dtype.
+
+    Zero-pad corners (``in_keep`` = (ky, kz): only that corner of each
+    plane is read, the rest declared zero; ``out_keep`` = (oy, oz): only
+    that corner is written, (B, oy, oz) planes; 0 for an axis without a
+    keep, else 0 < keep < its length) launch the windowed entry
+    (``vk_fft_pair_zp`` and its instantiations, counted in `zp_launches`),
+    which replaces ``_pair_kernel``'s in_keep / out_keep.  The planes may
+    then be a view (B, Ry, Rz) with its last dim contiguous: a corner of
+    wider planes read in place, or the cropped corner itself, of the
+    (ny, nz) ``plane`` (default (Ry, Rz)).  Bound by the bytes of the kept
+    corners read and written."""
+    if in_keep is not None or out_keep is not None or plane is not None:
+        return _fft_pair_window(re, im, inverse, scale, out,
+                                in_keep or (0, 0), out_keep or (0, 0), plane)
     _check_planes(re, im, 3, "fft_pair", _C2C_DTYPES)
     B, ny, nz = re.shape
     _check_length(ny)
@@ -2659,6 +3047,53 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
 
     return _apply("fft_pair", re, im, out,
                   lambda: fft_pair_plain(re, im, inverse, scale), args)
+
+
+def _fft_pair_window(re, im, inverse: bool, scale: float, out, in_keep,
+                     out_keep, plane):
+    """The windowed mode of `fft_pair` (C entry ``vk_fft_pair_zp`` of
+    ``csrc/fft_pair.cu``, its PairWindow)."""
+    what = "fft_pair"
+    _check_view(re, im, what, _C2C_DTYPES, (3,))
+    B, Ry, Rz = re.shape
+    ny, nz = plane or (Ry, Rz)
+    _check_length(ny)
+    _check_length(nz)
+    dt = re.dtype
+    if pair_cluster(ny, nz, dt) is None:
+        raise _no_cluster(what, ny, nz)
+    ky = _check_keep(in_keep[0], ny, what) or ny
+    kz = _check_keep(in_keep[1], nz, what) or nz
+    oy = _check_keep(out_keep[0], ny, what) or ny
+    oz = _check_keep(out_keep[1], nz, what) or nz
+    if Ry not in (ny, ky) or Rz not in (nz, kz):
+        raise ValueError(f"{what}: ({Ry}, {Rz}) planes for a ({ky}, {kz}) "
+                         f"corner of ({ny}, {nz})")
+    shape = (B, oy, oz)
+    _window_out(re, im, out, shape)
+    window = (ny, nz, ky, kz, oy, oz)
+    if re.device.type == "cpu":
+        yr, yi = fft_pair_plain(re, im, inverse, scale, window=window)
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    yr, yi = out if out is not None else (re.new_empty(shape),
+                                          im.new_empty(shape))
+    if B:
+        layout = pair_layout(ny, nz, dt)
+        (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz, dt)
+        plans = _walk_plans((n1z, n2z, n1y, n2y), inverse, re.device, dt)
+        tw = [_twiddle_pair(k, inverse, s, re.device, dt)
+              for k, s in ((nz, 1.0), (ny, scale))]
+        win = (ctypes.c_longlong * 8)(re.stride(0) if B > 1 else 0, oy * oz,
+                                      re.stride(1) if Ry > 1 else Rz, oz,
+                                      ky, kz, oy, oz)
+        _launch(what, zp_entry(what, dt), re.device,
+                [re, im, yr, yi, B, *(p for p, _ in plans),
+                 *(t for _, t in plans), *tw, *layout, win], dt)
+    return yr, yi
 
 
 def _no_cluster(what: str, ny: int, nz: int) -> NotImplementedError:
@@ -2961,7 +3396,8 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
 
 def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
-                  scale: float = 1.0, swapped: bool = False, out=None):
+                  scale: float = 1.0, swapped: bool = False, out=None,
+                  window: Optional[LineWindow] = None):
     """DFT of each line of (B, n) float32, float16 or bfloat16 planes, n =
     n1*n2 (`twofactor_split`), times ``scale``.  The forward reads natural
     order and writes natural order, or with ``swapped`` the digit order
@@ -2978,7 +3414,27 @@ def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     at 16384; two blocks an SM at 7918, 10240 and 12288) and runs the
     n2-point column DFTs and the n1-point row DFTs in place on the whole
     line, the twiddle computed from its exponent in the last stage's
-    write (``csrc/fft_twofactor.cu``)."""
+    write (``csrc/fft_twofactor.cu``).
+
+    A zero-pad ``window``, natural order (not with ``swapped``), as for
+    `fft_lines`: the windowed entry ``vk_fft_twofactor_zp`` (float32 and
+    the half dtypes), which replaces ``_fft_kernel_v2``'s in_nonzero and
+    out_keep."""
+    if window is not None:
+        n = window.n
+        if swapped:
+            raise ValueError("fft_twofactor: windows run natural order")
+        _check_twofactor(n, "fft_twofactor")
+
+        def layout():
+            p1, p2, t1, t2 = _two_plans(n, inverse, re.device)
+            tw = _twiddle_pair(n, inverse, scale, re.device)
+            return (p1, p2, t1, t2, tw, *twofactor_layout(n))
+
+        return _windowed_lines("fft_twofactor", re, im, inverse, scale, out,
+                               window, _HALF_DTYPES, layout,
+                               lambda: fft_twofactor_plain(
+                                   re, im, inverse, scale, window=window))
     _check_planes(re, im, 2, "fft_twofactor", _HALF_DTYPES)
     B, n = re.shape
     _check_twofactor(n, "fft_twofactor")
