@@ -246,7 +246,31 @@ Phases (each asserts; any failure exits non-zero before the result line):
      enqueue time, the device time replayed from a CUDA graph and the
      points moved (the byte ratio), and each windowed fp32 kernel beside
      its unwindowed launch on the same planes, its plain version,
-     torch.fft and its bound at the kept bytes.
+     torch.fft and its bound at the kept bytes.  The convolution's "pair"
+     mode with windows rides the same phases: fft_conv_pair's windowed
+     2-D entry (vk_fft_conv2d_zp, _bf16, _f16) in zeropad_kernels at input
+     corners (1, 1), (7, 13), (ny / 2, nz / 2), (ny - 1, nz - 1) read from
+     whole and cropped planes and the same output corners; windowed
+     ConvolutionApplication calls in zeropad_routes; sample 51's benchmark
+     (256 planes of 256^2, half-pad^2 input windows: one fft_conv2d_zp
+     launch, no mask) and a 3-D (8, 256, 256) convolution windowed on
+     every axis in zeropad_main_path; both beside their dense twins, the
+     masked route and the torch.fft composition in zeropad_times.
+ 15. keep_intermediate_order: keep_order_kernels, fft_lines' and
+     fft_pair's tl entries (vk_<name>_tl, _bf16, _f16) and fft_twofactor
+     swapped at split_lane_major (every length where that is not its
+     own split, 8208 on) against their plain versions, both directions,
+     inside sentinel guards, with their ptxas lines; keep_order_routes,
+     FFTApplication with the flag on each form (n <= 4, fft_lines'
+     lengths, the v2 lengths, pairs) in fp32 and bf16, each round trip's
+     exact launches, the forward decoded against fp64; keep_order_main_
+     path, sample 5's rows (vkfft_tpu/cli.py:770-805: n = 4096 and 65536
+     at 64 MiB, the 256^2 pair) held to their exact launches (2 tl
+     launches a round trip, 65536 its natural long route);
+     keep_order_times, each round trip beside its natural twin and
+     torch.fft with the host's enqueue time, and each tl kernel beside its
+     natural launch, plain version, torch.fft and bound.  The toolchain
+     phase holds the new kernels' ptxas lines to NEW_PTXAS.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -260,7 +284,9 @@ kernels and DOUBLE's native route,
 toolchain,storage_kernels,storage_routes,storage_main_path,storage_times
 on the half-storage kernels and the HALF / BFLOAT16 tiers,
 toolchain,zeropad_kernels,zeropad_routes,zeropad_main_path,zeropad_times
-on the windowed entries and the zero-pad routes,
+on the windowed entries and the zero-pad routes (with the convolution's),
+toolchain,keep_order_kernels,keep_order_routes,keep_order_main_path,
+keep_order_times on the tl entries and keep_intermediate_order,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -453,6 +479,15 @@ def phase_toolchain(ck) -> dict:
          f"{changed or ''}; fp64 kernels {f64}; half-storage kernels as "
          f"their fp32 twins: {not off_twin} {off_twin or ''}")
     assert not changed, changed
+    # the kept-order entries and the windowed 2-D conv's as pinned
+    fresh = {k: v for k, v in lines.items()
+             if "_tl_" in k or k.startswith("fft_conv2d_zp")}
+    for k, v in sorted(fresh.items()):
+        _log(f"[toolchain] {k}: {v}")
+    moved = {k: (lines.get(k), v) for k, v in NEW_PTXAS.items()
+             if lines.get(k) != v}
+    info["new_ptxas"] = fresh
+    assert not moved, moved
     assert all(st == ld == 0 for _, st, ld in f64.values()), f64
     assert all(v is not None for v in storage.values()), storage
     assert not off_twin, off_twin
@@ -5057,6 +5092,32 @@ FP32_PTXAS = {
 }
 
 
+# the ptxas lines of the kept-order entries (fft_lines_tl_kernel,
+# fft_pair_tl_kernel and their half twins) and of fft_conv_pair's windowed
+# 2-D entry (fft_conv2d_zp_kernel and its twins), pinned from an H100
+# build of this tree
+ZERO_SPILL_64 = ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                 "loads | Used 64 registers, used 1 barriers")
+# the tl inverse spills 8 B / 4 B (ROADMAP queue 3)
+PAIR_TL_INVERSE_LINE = ("8 bytes stack frame, 8 bytes spill stores, 4 bytes "
+                        "spill loads | Used 64 registers, used 1 barriers, 8 "
+                        "bytes cumulative stack size")
+NEW_PTXAS = {
+    "fft_lines_tl_kernel": ZERO_SPILL_64,
+    "fft_lines_tl_f16_kernel": ZERO_SPILL_64,
+    "fft_lines_tl_bf16_kernel": ZERO_SPILL_64,
+    "fft_pair_tl_kernel<0>": ZERO_SPILL_64,
+    "fft_pair_tl_f16_kernel<0>": ZERO_SPILL_64,
+    "fft_pair_tl_bf16_kernel<0>": ZERO_SPILL_64,
+    "fft_pair_tl_kernel<1>": PAIR_TL_INVERSE_LINE,
+    "fft_pair_tl_f16_kernel<1>": PAIR_TL_INVERSE_LINE,
+    "fft_pair_tl_bf16_kernel<1>": PAIR_TL_INVERSE_LINE,
+    "fft_conv2d_zp_kernel": ZERO_SPILL_64,
+    "fft_conv2d_zp_f16_kernel": ZERO_SPILL_64,
+    "fft_conv2d_zp_bf16_kernel": ZERO_SPILL_64,
+}
+
+
 # the half-storage instantiations (C entries vk_<name>_f16 / _bf16) and
 # their fp32 twins: the same body at the same bounds, the conversions at
 # the edge of device memory, so the same registers and no spill beyond the
@@ -6825,7 +6886,7 @@ def phase_zeropad_kernels(ck, dev) -> dict:
     kernels' ptxas lines."""
     out = {}
     lines_log = {}
-    for name in ck.ZP_KERNELS:
+    for name in ck.ZP_KERNELS + ("fft_conv_pair",):
         with open(ck.library_path(name)[:-3] + ".log") as f:
             lines_log.update({k: v for k, v in _ptxas_lines(f.read()).items()
                               if "_zp" in k})
@@ -6948,11 +7009,63 @@ def phase_zeropad_kernels(ck, dev) -> dict:
                 _zp_case(ck, out, key, lambda out: ck.fft_pair(
                     *x, inv, in_keep=(ky, kz), out_keep=(ky, kz), out=out),
                     p, (B, cy, cz), dt, dev)
+    _conv2d_zp_cases(ck, out, dev)
     torch.cuda.synchronize()
     for key, rec in out.items():
         if key != "ptxas":
             _log(f"[zeropad kernels] {key}: {rec}")
     return out
+
+
+# (B, ny, nz, hp) of fft_conv_pair's windowed 2-D entry: sample 51's
+# 256^2, the tests' 128 x 256 with per-slice spectra, an odd plane
+# (cluster 1), several clusters
+ZP_CONV2D = ((2, 256, 256, 1), (4, 128, 256, 2), (3, 47, 60, 1),
+             (3, 16, 64, 3))
+
+
+def _conv2d_zp_cases(ck, out, dev) -> None:
+    """fft_conv_pair's windowed 2-D entry (vk_fft_conv2d_zp, _bf16, _f16)
+    against its plain version: input corners (1, 1), (7, 13), (ny / 2, nz /
+    2) and (ny - 1, nz - 1) read from whole planes (NaN outside the corner)
+    and from cropped ones, the same corners as output windows, the flags
+    in turn; guarded as the other windowed entries."""
+    for B, ny, nz, hp in ZP_CONV2D:
+        g = torch.Generator(device=dev).manual_seed(ny * nz + hp)
+        tab = torch.randn((hp * ny * nz, 2), generator=g, device=dev)
+        corners = ((1, 1), (7, 13), (ny // 2, nz // 2), (ny - 1, nz - 1))
+        for dt in (torch.float32,) + ck.STORAGE_DTYPES:
+            key = f"fft_conv2d_zp{ck._SUFFIX[dt]}_{ny}x{nz}"
+            yy = torch.arange(ny, device=dev)[:, None]
+            zz = torch.arange(nz, device=dev)[None, :]
+            for i, (ky, kz) in enumerate(corners):
+                ky, kz = min(ky, ny - 1), min(kz, nz - 1)
+                flags = dict(conj_data=i % 2 == 1, xpow=i == 3)
+                s = 1.0 / (ny * nz)
+                zero = ((yy >= ky) | (zz >= kz))[None].expand(B, ny, nz)
+                x, x0 = _zp_input((B, ny, nz), ny + nz + i, dev, dt, zero)
+                win = (ny, nz, ky, kz, ny, nz)
+                p = ck.fft_conv_pair_plain(*x0, tab, None, scale=s,
+                                           window=win, **flags)
+                _zp_case(ck, out, key, lambda out: ck.fft_conv_pair(
+                    *x, tab, out=out, scale=s, in_keep=(ky, kz), **flags),
+                    p, (B, ny, nz), dt, dev)
+                xc = [v[:, :ky, :kz].contiguous() for v in x]
+                _zp_case(ck, out, key, lambda out: ck.fft_conv_pair(
+                    *xc, tab, out=out, scale=s, in_keep=(ky, kz),
+                    plane=(ny, nz), **flags), p, (B, ny, nz), dt, dev)
+                win = (ny, nz, ny, nz, ky, kz)
+                p = ck.fft_conv_pair_plain(*x0, tab, None, scale=s,
+                                           window=win, **flags)
+                _zp_case(ck, out, key, lambda out: ck.fft_conv_pair(
+                    *x0, tab, out=out, scale=s, out_keep=(ky, kz), **flags),
+                    p, (B, ky, kz), dt, dev)
+                win = (ny, nz, ky, kz, ky, kz)
+                p = ck.fft_conv_pair_plain(*x0, tab, None, scale=s,
+                                           window=win, **flags)
+                _zp_case(ck, out, key, lambda out: ck.fft_conv_pair(
+                    *x, tab, out=out, scale=s, in_keep=(ky, kz),
+                    out_keep=(ky, kz), **flags), p, (B, ky, kz), dt, dev)
 
 
 def _zp_mask(t: torch.Tensor, spec, ndim: int) -> torch.Tensor:
@@ -7076,6 +7189,70 @@ ZP_ROUTES = (
 )
 
 
+# ConvolutionApplication's "pair" mode with windows (the 2-D mode's
+# windowed entry): (name, config keywords, batch, {launch key: count} of a
+# call: windowed entries and the unwindowed launches beside them)
+ZP_CONV_ROUTES = (
+    ("conv2d_in", dict(shape=(64, 128), zeropad_input=((33, 64), (64, 128))),
+     3, {"fft_conv2d_zp": 1}),
+    ("conv2d_out", dict(shape=(64, 128), zeropad_output=((40, 64),
+                                                         (50, 128))),
+     3, {"fft_conv2d_zp": 1}),
+    ("conv2d_both", dict(shape=(47, 60), zeropad_input=((20, 47), (31, 60)),
+                         zeropad_output=((11, 47), (59, 60))),
+     2, {"fft_conv2d_zp": 1}),
+    ("conv3d_all_axes", dict(shape=(8, 64, 128), zeropad_input=(
+        (3, 8), (33, 64), (61, 128))), 2,
+     {"fft_strided_zp": 1, "fft_conv2d_zp": 1, "fft_strided": 1}),
+    ("conv2d_masked_interior", dict(shape=(64, 128),
+                                    zeropad_input=((5, 9), None)), 3,
+     {"fft_conv_pair": 1}),
+)
+
+
+def _zp_conv_call(vt, ck, torch_engine, cfg, x, h, want, what):
+    """A ConvolutionApplication(``cfg``) call on Planar ``x`` with kernel
+    planes ``h`` (its spectrum made before the count), counted from 0 and
+    held to ``want`` ({launch key: count} over every counter), no
+    plain-engine call: (the application, the result, the launches)."""
+    app = vt.ConvolutionApplication(cfg, h)
+    assert app.fusion_mode == "pair", (what, app.fusion_mode)
+    app(x)   # the spectrum's table made once, outside the count
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch_engine.calls = 0
+    y = app(x)
+    torch.cuda.synchronize()
+    got = {k: v for d in (ck.launches, ck.storage_launches, ck.zp_launches,
+                          ck.tl_launches, ck.f64_launches)
+           for k, v in d.items() if v}
+    assert got == want and torch_engine.calls == 0, (what, got, want)
+    assert _finite(y), what
+    return app, y, got
+
+
+def _zp_conv_check(cfg, x, h, y, dt, what) -> float:
+    """The call's result against fp64 (torch.fft complex128) of the masked
+    input convolved with the kernel, masked by the output windows; the
+    declared-zero output exactly 0; at the gates."""
+    nd = len(cfg.shape)
+    dims = tuple(range(x.ndim - nd, x.ndim))
+    xm = _zp_mask(torch.complex(x.re.to(dt).double(), x.im.to(dt).double()),
+                  cfg.zeropad_input, nd)
+    H = torch.fft.fftn(torch.complex(h.re.double(), h.im.double()),
+                       dim=tuple(range(-nd, 0)))
+    ref = _zp_mask(torch.fft.ifftn(torch.fft.fftn(xm, dim=dims) * H,
+                                   dim=dims), cfg.zeropad_output, nd)
+    del xm, H
+    e = _rel(torch.complex(y.re.double(), y.im.double()), ref)
+    zo = _zp_zero(y.shape, cfg.zeropad_output, nd, y.re.device)
+    exact = bool((y.re[zo] == 0).all() and (y.im[zo] == 0).all())
+    tol = (NUMPY_TOL if dt == torch.float32
+           else STORAGE_NUMPY_TOL["bf16" if dt == torch.bfloat16 else "f16"])
+    assert e <= tol and exact, (what, e, exact)
+    return e
+
+
 def phase_zeropad_routes(vt, ck, torch_engine, dev) -> dict:
     """Each zeropad_mode kind through FFTApplication on the card (ZP_ROUTES)
     in fp32 and at bfloat16: its exact windowed launches (a masked route:
@@ -7113,6 +7290,25 @@ def phase_zeropad_routes(vt, ck, torch_engine, dev) -> dict:
             _log(f"[zeropad routes] {row}")
             assert max(e_cf, e_ci) <= tol, row
             rows.append(row)
+    # the convolution's "pair" mode with windows (ZP_CONV_ROUTES), fp32 and
+    # bf16 data, each call held to its exact launches and fp64
+    for name, kw, B, want in ZP_CONV_ROUTES:
+        for dt in (torch.float32, torch.bfloat16):
+            cfg = vt.FFTConfig(convolution=True, **kw)
+            shape = (B,) + cfg.shape
+            x = vt.Planar(*_planes(shape, len(name), dev)).astype(dt)
+            h = vt.Planar(*_planes(cfg.shape, len(name) + 1, dev))
+            # the half tier's entries (the 2-D mode's: fft_conv2d_<dtype>)
+            w = {({"fft_conv_pair": "fft_conv2d"}.get(k, k) + "_bf16"
+                  if dt == torch.bfloat16 else k): v
+                 for k, v in want.items()}
+            app, y, got = _zp_conv_call(vt, ck, torch_engine, cfg, x, h, w,
+                                        f"{name}_{dt}")
+            e = _zp_conv_check(cfg, x, h, y, dt, name)
+            row = {"route": name, "dtype": str(dt), "shape": list(shape),
+                   "launches": got, "rel_err_vs_fp64": e}
+            _log(f"[zeropad routes] {row}")
+            rows.append(row)
     return {"rows": rows}
 
 
@@ -7145,6 +7341,20 @@ ZP_MAIN_ROWS = (
     ("ex05_8x128x256", dict(shape=(8, 128, 256), zeropad_input=(
         (4, 8), (64, 128), (128, 256))), TARGET_BYTES // (8 * 8 * 128 * 256),
      {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+)
+# the convolution rows: sample 51's benchmark (vkfft_tpu/cli.py:907-950:
+# 256 planes of 256^2, half-pad^2 input windows, 128 MiB) and a 3-D (8,
+# 256, 256) convolution windowed on every axis (tests/test_conv.py:277's
+# pattern at full plane width, 32 volumes, 128 MiB): (name, config
+# keywords, batch, {launch key: count} of a call)
+ZP_CONV_MAIN_ROWS = (
+    ("sample51_bench_256x256^2", dict(shape=(256, 256), zeropad_input=(
+        _zp_half(256), _zp_half(256))), TARGET_BYTES // (8 * 65536),
+     {"fft_conv2d_zp": 1}),
+    ("conv3d_8x256x256", dict(shape=(8, 256, 256), zeropad_input=(
+        _zp_half(8), _zp_half(256), _zp_half(256))),
+     TARGET_BYTES // (8 * 8 * 65536),
+     {"fft_strided_zp": 1, "fft_conv2d_zp": 1, "fft_strided": 1}),
 )
 ZP_MODES = {"sample4_256^3": "elided-pair", "sample4_512^3": "elided-axes",
             "sample4_2048x4096": "elided-axes", "v3_n4096": "elided-prefix",
@@ -7180,6 +7390,22 @@ def phase_zeropad_main_path(vt, ck, torch_engine, dev) -> dict:
         _log(f"[zeropad main] {row}")
         rows.append(row)
         del x, y, z
+        torch.cuda.empty_cache()
+    for name, kw, B, want in ZP_CONV_MAIN_ROWS:
+        cfg = vt.FFTConfig(convolution=True, **kw)
+        shape = (B,) + cfg.shape
+        x = vt.Planar(*_planes(shape, len(name), dev))
+        h = vt.Planar(*_planes(cfg.shape, len(name) + 1, dev))
+        app, y, got = _zp_conv_call(vt, ck, torch_engine, cfg, x, h, want,
+                                    name)
+        by_row[name] = {k: got.get(k, 0) for k in ck.zp_launches}
+        # 4 items against fp64
+        e = _zp_conv_check(cfg, x[:4], h, y[:4], torch.float32, name)
+        row = {"row": name, "mode": app.fusion_mode, "shape": list(shape),
+               "launches": got, "rel_err_vs_fp64": e}
+        _log(f"[zeropad main] {row}")
+        rows.append(row)
+        del x, y, app
         torch.cuda.empty_cache()
     totals = {k: sum(c[k] for c in by_row.values()) for k in ck.zp_launches}
     _log(f"[zeropad main] launches over the path {totals}")
@@ -7333,8 +7559,63 @@ def phase_zeropad_times(vt, ck, dev) -> dict:
         rows.append(row)
         del x, xc, app, full
         torch.cuda.empty_cache()
+    rows += _zp_conv_times(vt, dev)
     kernels = _zp_kernel_times(ck, dev)
     return {"rows": rows, "kernels": kernels}
+
+
+def _zp_conv_times(vt, dev) -> list:
+    """The convolution rows (ZP_CONV_MAIN_ROWS): the windowed call beside
+    its dense twin (the same config without windows, on the same planes),
+    the masked route (the input masked, the dense call) and the torch.fft
+    composition of the windowed function (the input masked, fftn, the
+    multiply, ifftn), in turns, with the host's enqueue time."""
+    from vkfft_tpu_torch.api import apply_zeropad as mask
+    rows = []
+    for name, kw, B, _ in ZP_CONV_MAIN_ROWS:
+        cfg = vt.FFTConfig(convolution=True, **kw)
+        nd = len(cfg.shape)
+        shape = (B,) + cfg.shape
+        x = vt.Planar(*_planes(shape, len(name), dev))
+        h = vt.Planar(*_planes(cfg.shape, len(name) + 1, dev))
+        app = vt.ConvolutionApplication(cfg, h)
+        dense = vt.ConvolutionApplication(
+            vt.FFTConfig(convolution=True, shape=cfg.shape), h)
+        dims = tuple(range(1, nd + 1))
+        H = torch.fft.fftn(torch.complex(h.re, h.im),
+                           dim=tuple(range(-nd, 0)))
+
+        def windowed():
+            app(x)
+
+        def twin():
+            dense(x)
+
+        def masked():
+            dense(mask(x, cfg.zeropad_input, nd))
+
+        def torch_fft():
+            xm = mask(x, cfg.zeropad_input, nd)
+            torch.fft.ifftn(torch.fft.fftn(torch.complex(xm.re, xm.im),
+                                           dim=dims) * H, dim=dims)
+
+        t = {k: [] for k in ("windowed", "dense", "masked", "torch")}
+        for fn, k in ((twin, "dense"), (windowed, "windowed"),
+                      (masked, "masked"), (masked, "masked"),
+                      (windowed, "windowed"), (twin, "dense"),
+                      (torch_fft, "torch")):
+            t[k].append(_time_ms(fn))
+        row = {"row": name, "mode": app.fusion_mode, "shape": list(shape),
+               "ms": min(t["windowed"]), "dense_ms": min(t["dense"]),
+               "masked_ms": min(t["masked"]), "torch_fft_ms": t["torch"][0],
+               "host_ms": _host_ms(windowed), "dense_host_ms": _host_ms(twin)}
+        row["speedup_vs_dense"] = row["dense_ms"] / row["ms"]
+        row["speedup_vs_masked"] = row["masked_ms"] / row["ms"]
+        _log(f"[zeropad times] {row}")
+        rows.append(row)
+        del x, app, dense, H
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _zp_kernel_times(ck, dev) -> dict:
@@ -7395,10 +7676,25 @@ def _zp_kernel_times(ck, dev) -> dict:
                       256, 256, 128, 128, 256, 256)),
                   lambda: torch.fft.fft2(torch.complex(*pf)),
                   256 * 128 * 128 + 256 ** 3, 256 ** 3, 256 * 256))
+    tab = torch.stack(_planes((256 * 256,), 6, dev), -1).contiguous()
+    cases.append(("fft_conv_pair", "fft_conv2d_zp", pf,
+                  lambda: ck.fft_conv_pair(*pf, tab, scale=1 / 65536,
+                                           in_keep=(128, 128)),
+                  lambda: ck.fft_conv_pair(*pf, tab, scale=1 / 65536),
+                  lambda: ck.fft_conv_pair_plain(
+                      *pf, tab, None, scale=1 / 65536,
+                      window=(256, 256, 128, 128, 256, 256)),
+                  lambda: torch.fft.ifft2(torch.fft.fft2(
+                      torch.complex(*pf)) * torch.complex(
+                          tab[:, 0], tab[:, 1]).view(256, 256)),
+                  256 * 128 * 128 + 256 ** 3 + 65536, 2 * 256 ** 3,
+                  256 * 256))
     shapes = ["4096 x 4096, in_keep 2048", "1638 x 10240, in_keep 5120",
               "256^3 x pass from the (128, 128, 128) corner",
               "256 x 512 x 512 from 256 rows",
-              "256 x 256^2 from (128, 128) corners"]
+              "256 x 256^2 from (128, 128) corners",
+              "sample 51: 256 x 256^2 convolved from (128, 128) corners of "
+              "the whole planes, read in place"]
     for shape, (name, entry, _, win, whole, plain, lib, pts, full_pts,
                 n) in zip(shapes, cases):
         got, ref = win(), plain()
@@ -7407,7 +7703,10 @@ def _zp_kernel_times(ck, dev) -> dict:
         plain_ms = _time_ms(plain, 5, 2)
         lib_ms = _time_ms(lib)
         bound, by = _bound(8.0 * pts, _fft_ops(full_pts, n))
-        full_bound = _bound(16.0 * full_pts, _fft_ops(full_pts, n))[0]
+        # a convolution's full_pts counts its two 2-D FFTs' points; its
+        # unwindowed launch moves each point once each way
+        moved = full_pts // 2 if name == "fft_conv_pair" else full_pts
+        full_bound = _bound(16.0 * moved, _fft_ops(full_pts, n))[0]
         row = {"kernel": entry, "ms": min(tw[1], tw[2]),
                "unwindowed_ms": min(tw[0], tw[3]), "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
@@ -7420,6 +7719,366 @@ def _zp_kernel_times(ck, dev) -> dict:
         out.setdefault(entry, []).append(row)
         del got, ref
     del x, y, c, cv, cf, m, mf, pc, pf
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keep_intermediate_order: fft_lines' and fft_pair's tl entries and
+# fft_twofactor at split_lane_major (the kept-order phases)
+# ---------------------------------------------------------------------------
+
+TL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# (lines, n) of fft_lines' tl entry: one pass (256), two factors (1024 as
+# 64 x 16, 4096 as 256 x 16, 8192 as 128 x 64)
+TL_LINES = ((64, 256), (17, 1024), (5, 4096), (3, 8192))
+# fft_twofactor at split_lane_major: the lengths where it is twofactor_split
+# too (134) or not (10240's (128, 80); and every length of _tl_differ)
+TL_TWOFACTOR_NAMED = (134, 10240)
+TL_TWOFACTOR_HALF_STRIDE = 10   # every 10th differing length at bf16/f16
+# (B, ny, nz) of fft_pair's tl entry: sample 5's 256^2, the tests' 128 x
+# 256, two-factor axes on either side, an odd plane (cluster 1), a column
+# tile of odd width, several clusters
+TL_PAIR = ((3, 256, 256), (2, 128, 256), (2, 2, 8064), (2, 8064, 2),
+           (3, 47, 60), (2, 64, 12), (3, 16, 64))
+
+
+def _tl_differ(ck, ce) -> list:
+    """The lengths where the kept-order route runs fft_twofactor at a split
+    other than its own twofactor_split (121 of them, 8208 on)."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    return [n for n in range(8193, ck.TWOFACTOR_MAX_N + 1)
+            if ce.keep_order_kernel(plan_axis(n)) == "fft_twofactor"
+            and ck.split_lane_major(n) != ck.twofactor_split(n)]
+
+
+def phase_keep_order_kernels(ck, ce, dev) -> dict:
+    """The kept-order entries against their plain versions on the same
+    inputs, both directions, fp32 within KERNEL_TOL and the half dtypes
+    within 2 storage ulps, every output inside sentinel guards that must
+    stay unwritten: fft_lines' tl entry (TL_LINES; and in place),
+    fft_twofactor swapped at split_lane_major (every length where that is
+    not its own twofactor_split, at bf16 / f16 every TL_TWOFACTOR_HALF_
+    STRIDE-th, and TL_TWOFACTOR_NAMED), fft_pair's tl entry (TL_PAIR: the
+    forward to the transposed planes, the inverse from them).  Prints the
+    tl kernels' ptxas lines."""
+    out = {}
+    lines_log = {}
+    for name in ck.TL_KERNELS:
+        with open(ck.library_path(name)[:-3] + ".log") as f:
+            lines_log.update({k: v for k, v in _ptxas_lines(f.read()).items()
+                              if "_tl" in k})
+    for k, v in sorted(lines_log.items()):
+        _log(f"[keep_order ptxas] {k}: {v}")
+    out["ptxas"] = lines_log
+    for B, n in TL_LINES:
+        for dt in TL_DTYPES:
+            key = f"fft_lines_tl{ck._SUFFIX[dt]}_n{n}"
+            for inv in (False, True):
+                s = 1.0 / n if inv else 1.0
+                x, _ = _zp_input((B, n), n + inv, dev, dt, None)
+                p = ck.fft_lines_plain(*x, inv, s, tl=True)
+                _zp_case(ck, out, key, lambda out: ck.fft_lines(
+                    *x, inv, s, out=out, tl=True), p, (B, n), dt, dev)
+                y = [t.clone() for t in x]
+                ck.fft_lines(*y, inv, s, out=y, tl=True)
+                _zp_case(ck, out, key, lambda out: [
+                    o.copy_(t) for o, t in zip(out, y)], p, (B, n), dt, dev)
+    differ = _tl_differ(ck, ce)
+    assert len(differ) == 121 and differ[0] == 8208, differ[:3]
+    for dt in TL_DTYPES:
+        ns = (differ if dt == torch.float32
+              else differ[::TL_TWOFACTOR_HALF_STRIDE]) + list(
+                  TL_TWOFACTOR_NAMED)
+        for n in ns:
+            split = ck.split_lane_major(n)
+            key = f"fft_twofactor{ck._SUFFIX[dt]}_split_lane_major"
+            for inv in (False, True):
+                s = 1.0 / n if inv else 1.0
+                x, _ = _zp_input((3, n), n + inv, dev, dt, None)
+                p = ck.fft_twofactor_plain(*x, inv, s, True, split=split)
+                _zp_case(ck, out, key, lambda out: ck.fft_twofactor(
+                    *x, inv, s, swapped=True, split=split, out=out),
+                    p, (3, n), dt, dev)
+    for B, ny, nz in TL_PAIR:
+        for dt in TL_DTYPES:
+            if ck.pair_cluster(ny, nz, dt) is None:
+                continue
+            key = f"fft_pair_tl{ck._SUFFIX[dt]}_{ny}x{nz}"
+            x, _ = _zp_input((B, ny, nz), ny + nz, dev, dt, None)
+            p = ck.fft_pair_plain(*x, False, 1.0, tl=True)
+            _zp_case(ck, out, key, lambda out: ck.fft_pair(
+                *x, out=out, tl=True), p, (B, nz, ny), dt, dev)
+            s = 1.0 / (ny * nz)
+            x, _ = _zp_input((B, nz, ny), ny + nz + 1, dev, dt, None)
+            p = ck.fft_pair_plain(*x, True, s, tl=True)
+            _zp_case(ck, out, key, lambda out: ck.fft_pair(
+                *x, True, s, out=out, tl=True), p, (B, ny, nz), dt, dev)
+    torch.cuda.synchronize()
+    for key, rec in out.items():
+        if key != "ptxas":
+            _log(f"[keep_order kernels] {key}: {rec}")
+    return out
+
+
+# (name, shape, batch, the kept-order launches of a round trip by entry
+# stem: the tl entries' or fft_twofactor's; {} for n <= 4) of keep_order
+# routes; the kinds of the forward's result
+TL_ROUTES = (
+    ("tiny_n4", (4,), 5, {}, "tl"),
+    ("lines_n256", (256,), 9, {"fft_lines_tl": 2}, "tl"),
+    ("lines_n1024", (1024,), 3, {"fft_lines_tl": 2}, "tl"),
+    ("lines_n4096", (4096,), 3, {"fft_lines_tl": 2}, "tl"),
+    ("lines_n8192", (8192,), 2, {"fft_lines_tl": 2}, "tl"),
+    ("v2_n134", (134,), 5, {"fft_twofactor": 2}, "v2"),
+    ("v2_n8208", (8208,), 2, {"fft_twofactor": 2}, "v2"),
+    ("v2_n8320", (8320,), 2, {"fft_twofactor": 2}, "v2"),
+    ("v2_n10240", (10240,), 2, {"fft_twofactor": 2}, "v2"),
+    ("pair_128x256", (128, 256), 2, {"fft_pair_tl": 2}, "tl"),
+    ("pair_2x8064", (2, 8064), 2, {"fft_pair_tl": 2}, "tl"),
+    ("pair_47x60", (47, 60), 3, {"fft_pair_tl": 2}, "tl"),
+)
+
+
+def _tl_launches(ck, torch_engine, want, dt, what) -> dict:
+    """Exactly ``want`` ({entry stem: count}, at ``dt``'s instantiations)
+    kept-order launches since the last reset and no other launch, no
+    plain-engine call."""
+    sfx = ck._SUFFIX[dt]
+    want = {k + sfx: v for k, v in want.items()}
+    got = {k: v for d in (ck.launches, ck.storage_launches, ck.tl_launches,
+                          ck.zp_launches, ck.f64_launches)
+           for k, v in d.items() if v}
+    assert got == want, (what, got, want)
+    assert torch_engine.calls == 0, (what, torch_engine.calls)
+    return got
+
+
+def _tl_natural(ck, y, shape, kind) -> torch.Tensor:
+    """The forward's kept-order result as a complex128 natural spectrum:
+    a TlSpectrum decoded by itself, the v2 swapped order of
+    split_lane_major by its digits."""
+    if kind == "tl":
+        y = y.natural()
+        return torch.complex(y.re.double(), y.im.double())
+    n1, n2 = ck.split_lane_major(shape[-1])
+    lead = y.shape[:-1]
+    return torch.complex(*(t.double().reshape(*lead, n2, n1).transpose(-1, -2)
+                           .reshape(*lead, n1 * n2) for t in (y.re, y.im)))
+
+
+def phase_keep_order_routes(vt, ck, torch_engine, dev) -> dict:
+    """FFTApplication(keep_intermediate_order=True) on the card (TL_ROUTES)
+    in fp32 and at bfloat16: each round trip counted from 0 and held to
+    its exact launches (a fresh application of the config runs the
+    inverse), the forward's form (a TlSpectrum or the v2 swapped Planar)
+    decoded to natural order against torch.fft complex128 of the input,
+    the round trip against the input, at the gates (NUMPY_TOL; the half
+    tier's STORAGE_NUMPY_TOL); a complex tensor with the flag runs the
+    natural route."""
+    rows = []
+    for name, shape, B, want, kind in TL_ROUTES:
+        for prec, dt in ((vt.Precision.SINGLE, torch.float32),
+                         (vt.Precision.BFLOAT16, torch.bfloat16)):
+            cfg = vt.FFTConfig(shape=shape, normalize=True, precision=prec,
+                               keep_intermediate_order=True)
+            x = vt.Planar(*_planes((B,) + shape, len(name), dev))
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            torch_engine.calls = 0
+            y = vt.FFTApplication(cfg).forward(x)
+            z = vt.FFTApplication(cfg).inverse(y)
+            torch.cuda.synchronize()
+            got = _tl_launches(ck, torch_engine, want, dt, name)
+            assert isinstance(y, vt.TlSpectrum) == (kind == "tl"), name
+            assert y.dtype == dt and z.dtype == dt and z.shape == x.shape
+            dims = tuple(range(1, len(shape) + 1))
+            xw = torch.complex(x.re.to(dt).double(), x.im.to(dt).double())
+            e_f = _rel(_tl_natural(ck, y, shape, kind),
+                       torch.fft.fftn(xw, dim=dims))
+            e_i = _rel(torch.complex(z.re.double(), z.im.double()), xw)
+            tol = NUMPY_TOL if dt == torch.float32 else STORAGE_NUMPY_TOL[
+                "bf16"]
+            row = {"route": name, "dtype": str(dt), "shape": [B, *shape],
+                   "launches": got, "rel_err_fwd_vs_fp64": e_f,
+                   "rel_err_inv_vs_input": e_i}
+            _log(f"[keep_order routes] {row}")
+            assert e_f <= tol and e_i <= tol, row
+            rows.append(row)
+    # a complex tensor ignores the flag: natural, the unflagged launches
+    x = torch.complex(*_planes((3, 4096), 5, dev))
+    y = vt.FFTApplication(vt.FFTConfig(shape=(4096,),
+                                       keep_intermediate_order=True)).forward(x)
+    assert torch.is_tensor(y) and _rel(
+        y.to(torch.complex128), torch.fft.fft(x.to(torch.complex128))) \
+        <= NUMPY_TOL
+    return {"rows": rows}
+
+
+# sample 5 (vkfft_tpu/cli.py:770-805: keep_intermediate_order round trips
+# at 64 MiB of complex64): (name, shape, batch, {launch key: count} of a
+# round trip)
+SAMPLE_5_BYTES = 64 * 1024 * 1024
+TL_MAIN_ROWS = (
+    ("sample5_n4096", (4096,), SAMPLE_5_BYTES // (8 * 4096),
+     {"fft_lines_tl": 2}),
+    ("sample5_n65536", (65536,), SAMPLE_5_BYTES // (8 * 65536), None),
+    ("sample5_pair_256^2", (256, 256), SAMPLE_5_BYTES // (8 * 65536),
+     {"fft_pair_tl": 2}),
+)
+
+
+def phase_keep_order_main_path(vt, ck, ce, torch_engine, dev) -> dict:
+    """Sample 5's rows at full width through FFTApplication(normalize=True,
+    keep_intermediate_order=True) on fp32 Planar input (TL_MAIN_ROWS): the
+    4096-point lines and the 256^2 pair as kept-order round trips (2
+    launches of the tl entry each, nothing else: no reorder op), 65536 on
+    its natural long route (the reference takes no other length,
+    vkfft_tpu/api.py:449-477) with that route's launches; each counted
+    from 0, no plain-engine call, finite, 16 lines or planes of the
+    forward against torch.fft complex128 and the round trip against the
+    input."""
+    rows, by_row = [], {}
+    for name, shape, B, want in TL_MAIN_ROWS:
+        if want is None:
+            want = _route_launches(ce, shape[-1])
+        cfg = vt.FFTConfig(shape=shape, normalize=True,
+                           keep_intermediate_order=True)
+        x = vt.Planar(*_planes((B,) + shape, len(name), dev))
+        app = vt.FFTApplication(cfg)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        y = app.forward(x)
+        z = app.inverse(y)
+        torch.cuda.synchronize()
+        got = _tl_launches(ck, torch_engine, want, torch.float32, name)
+        by_row[name] = {k: got.get(k, 0) for k in ck.tl_launches}
+        kind = "tl" if isinstance(y, vt.TlSpectrum) else "natural"
+        assert (kind == "tl") == (name != "sample5_n65536"), name
+        assert _finite(y, z), name
+        dims = tuple(range(1, len(shape) + 1))
+        nat = y.natural() if kind == "tl" else y
+        xs = torch.complex(x.re[:16].double(), x.im[:16].double())
+        e_f = _rel(torch.complex(nat.re[:16].double(), nat.im[:16].double()),
+                   torch.fft.fftn(xs, dim=dims))
+        e_i = _rel(torch.complex(z.re.double(), z.im.double()),
+                   torch.complex(x.re.double(), x.im.double()))
+        row = {"row": name, "form": kind, "shape": [B, *shape],
+               "launches": got, "rel_err_fwd_vs_fp64": e_f,
+               "rel_err_inv_vs_input": e_i}
+        _log(f"[keep_order main] {row}")
+        assert e_f <= NUMPY_TOL and e_i <= NUMPY_TOL, row
+        rows.append(row)
+        del x, y, z, nat
+        torch.cuda.empty_cache()
+    totals = {k: sum(c[k] for c in by_row.values()) for k in ck.tl_launches}
+    _log(f"[keep_order main] launches over the path {totals}")
+    assert totals["fft_lines_tl"] > 0 and totals["fft_pair_tl"] > 0, totals
+    return {"tl_launches": totals, "tl_launches_by_path": by_row,
+            "plain_engine_calls": 0, "rows": rows}
+
+
+def phase_keep_order_times(vt, ck, dev) -> dict:
+    """Sample 5's round trips (TL_MAIN_ROWS) kept-order beside the same
+    config without the flag (the natural twin) and torch.fft's fft + ifft
+    of the complex64 data, in turns on the same planes, each with the
+    host's enqueue time; and the kept-order kernels at the rows' shapes
+    (fft_lines' tl entry on 2048 x 4096, fft_pair's on 128 x 256^2, both
+    directions; fft_twofactor swapped at split_lane_major on 1022 x 8208)
+    beside the natural launch on the same planes (fft_twofactor: swapped
+    at its own twofactor_split), the plain version, torch.fft of the same
+    function, and the bound of their bytes (16 B a point, read and
+    written once) and operations."""
+    rows = []
+    for name, shape, B, _ in TL_MAIN_ROWS:
+        x = vt.Planar(*_planes((B,) + shape, len(name), dev))
+        tl = vt.FFTApplication(vt.FFTConfig(shape=shape, normalize=True,
+                                            keep_intermediate_order=True))
+        nat = vt.FFTApplication(vt.FFTConfig(shape=shape, normalize=True))
+        xc = torch.complex(x.re, x.im)
+        dims = tuple(range(1, len(shape) + 1))
+
+        def kept():
+            tl.inverse(tl.forward(x))
+
+        def natural():
+            nat.inverse(nat.forward(x))
+
+        def torch_fft():
+            torch.fft.ifftn(torch.fft.fftn(xc, dim=dims), dim=dims)
+
+        t = {k: [] for k in ("kept", "natural", "torch")}
+        for fn, k in ((natural, "natural"), (kept, "kept"), (kept, "kept"),
+                      (natural, "natural"), (torch_fft, "torch")):
+            t[k].append(_time_ms(fn))
+        pts = B * math.prod(shape)
+        # the function's bound: each point read and written once a
+        # direction, whatever the route's passes
+        bound, by = _bound(2 * 16.0 * pts, 2 * _fft_ops(pts, pts // B))
+        row = {"row": name, "shape": [B, *shape], "ms": min(t["kept"]),
+               "natural_ms": min(t["natural"]), "torch_fft_ms": t["torch"][0],
+               "host_ms": _host_ms(kept), "natural_host_ms": _host_ms(natural),
+               "bound_ms": bound, "bound_by": by,
+               "kept_vs_natural": min(t["natural"]) / min(t["kept"])}
+        _log(f"[keep_order times] {row}")
+        rows.append(row)
+        del x, xc, tl, nat
+        torch.cuda.empty_cache()
+    return {"rows": rows, "kernels": _tl_kernel_times(ck, dev)}
+
+
+def _tl_kernel_times(ck, dev) -> dict:
+    out = {}
+    lx = _planes((2048, 4096), 11, dev)
+    ltl = [t.clone() for t in lx]
+    px = _planes((128, 256, 256), 12, dev)
+    ptl = _planes((128, 256, 256), 13, dev)
+    n2 = 8208
+    tx = _planes((SAMPLE_5_BYTES // (8 * n2), n2), 14, dev)
+    sl = ck.split_lane_major(n2)
+    cases = [
+        ("fft_lines_tl", "2048 x 4096 forward",
+         lambda: ck.fft_lines(*lx, tl=True), lambda: ck.fft_lines(*lx),
+         lambda: ck.fft_lines_plain(*lx, False, tl=True),
+         lambda: torch.fft.fft(torch.complex(*lx)), 2048 * 4096, 4096),
+        ("fft_lines_tl", "2048 x 4096 inverse",
+         lambda: ck.fft_lines(*ltl, True, 1 / 4096, tl=True),
+         lambda: ck.fft_lines(*ltl, True, 1 / 4096),
+         lambda: ck.fft_lines_plain(*ltl, True, 1 / 4096, tl=True),
+         lambda: torch.fft.ifft(torch.complex(*ltl)), 2048 * 4096, 4096),
+        ("fft_pair_tl", "128 x 256^2 forward",
+         lambda: ck.fft_pair(*px, tl=True), lambda: ck.fft_pair(*px),
+         lambda: ck.fft_pair_plain(*px, False, tl=True),
+         lambda: torch.fft.fft2(torch.complex(*px)), 128 * 65536, 65536),
+        ("fft_pair_tl", "128 x 256^2 inverse",
+         lambda: ck.fft_pair(*ptl, True, 1 / 65536, tl=True),
+         lambda: ck.fft_pair(*ptl, True, 1 / 65536),
+         lambda: ck.fft_pair_plain(*ptl, True, 1 / 65536, tl=True),
+         lambda: torch.fft.ifft2(torch.complex(*ptl)), 128 * 65536, 65536),
+        ("fft_twofactor_split", f"{tx[0].shape[0]} x {n2} swapped at "
+         f"split_lane_major {sl} (its own {ck.twofactor_split(n2)})",
+         lambda: ck.fft_twofactor(*tx, swapped=True, split=sl),
+         lambda: ck.fft_twofactor(*tx, swapped=True),
+         lambda: ck.fft_twofactor_plain(*tx, False, swapped=True, split=sl),
+         lambda: torch.fft.fft(torch.complex(*tx)), tx[0].numel(), n2),
+    ]
+    for key, shape, run, twin, plain, lib, pts, n in cases:
+        got, ref = run(), plain()
+        err = _zp_check(got, ref, torch.float32, key)
+        tt = [_time_ms(f) for f in (twin, run, run, twin)]
+        row = {"kernel": key, "shape": shape, "ms": min(tt[1], tt[2]),
+               "natural_ms": min(tt[0], tt[3]),
+               "plain_ms": _time_ms(plain, 5, 2), "library_ms": _time_ms(lib),
+               "max_abs_err": max((a - b).abs().max().item()
+                                  for a, b in zip(got, ref)),
+               "rel_err": err}
+        row["bound_ms"], row["bound_by"] = _bound(16.0 * pts,
+                                                  _fft_ops(pts, n))
+        _log(f"[keep_order times] {row}")
+        out.setdefault(key, []).append(row)
+        del got, ref
+    del lx, ltl, px, ptl, tx
     torch.cuda.empty_cache()
     return out
 
@@ -7502,7 +8161,16 @@ def main(argv=None) -> int:
                lambda: phase_zeropad_routes(vt, ck, torch_engine, dev)),
               ("zeropad_main_path",
                lambda: phase_zeropad_main_path(vt, ck, torch_engine, dev)),
-              ("zeropad_times", lambda: phase_zeropad_times(vt, ck, dev))]
+              ("zeropad_times", lambda: phase_zeropad_times(vt, ck, dev)),
+              ("keep_order_kernels",
+               lambda: phase_keep_order_kernels(ck, ce, dev)),
+              ("keep_order_routes",
+               lambda: phase_keep_order_routes(vt, ck, torch_engine, dev)),
+              ("keep_order_main_path",
+               lambda: phase_keep_order_main_path(vt, ck, ce, torch_engine,
+                                                  dev)),
+              ("keep_order_times",
+               lambda: phase_keep_order_times(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
     if only:
         unknown = set(only) - {name for name, _ in phases}
@@ -7649,6 +8317,26 @@ def main(argv=None) -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "unwindowed_ms": head["unwindowed_ms"], "shape": head["shape"],
+            "also_replaces": also.get(name, []), "per_shape": rows})
+    # the tl entries of fft_lines and fft_pair (the same sources), launched
+    # on the kept-order main path (fft_twofactor at split_lane_major is
+    # fft_twofactor's own entry: its row stays in the record)
+    tl_by_path = record["keep_order_main_path"]["tl_launches_by_path"]
+    for key, rows in record["keep_order_times"]["kernels"].items():
+        if key not in ck.tl_launches:
+            continue
+        name = key[:-len("_tl")]
+        head = rows[0]
+        entries.append({
+            "name": key, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": sum(c[key] for c in tl_by_path.values()),
+            "launches_by_path": {p: c[key] for p, c in tl_by_path.items()
+                                 if c[key]},
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "natural_ms": head["natural_ms"], "shape": head["shape"],
             "also_replaces": also.get(name, []), "per_shape": rows})
     _log(f"[phase] all done in {record['total_s']:.1f} s")
     record["kernels_line"] = entries

@@ -285,8 +285,7 @@ def test_cuda_route_refuses_options_outside_the_slice():
     assert y.shape == (2, 4)
     assert _rel(_c(y), np.fft.fft(_c(x))[:, :4]) <= 5e-6
     # the five window configs build and run (their values:
-    # tests/test_torch_zeropad.py); keep_intermediate_order still waits
-    # for item 8 (8.2)
+    # tests/test_torch_zeropad.py)
     windowed = [
         dict(kind=vt.TransformKind.R2C, zeropad_input=((0, 8),)),
         dict(kind=vt.TransformKind.DCT, zeropad_input=((0, 8),)),
@@ -299,10 +298,26 @@ def test_cuda_route_refuses_options_outside_the_slice():
                                 engine="cuda", device="cpu")
         data = x if app.config.kind is vt.TransformKind.C2C else x.re
         assert app.forward(data).shape[-1] in (9, 16)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vt.FFTApplication(vt.FFTConfig(shape=(16,),
-                                       keep_intermediate_order=True),
-                          engine="cuda")
+    # keep_intermediate_order runs (queue 1 item 8.2): the kept-order
+    # forward matches the JAX package's tl kernel in interpret mode, and
+    # the inverse gives the input back (tests/test_torch_keep_order.py)
+    kio = vt.FFTConfig(shape=(16,), keep_intermediate_order=True,
+                       normalize=True)
+    Y = vt.FFTApplication(kio, engine="cuda").forward(x)
+    assert isinstance(Y, vt.TlSpectrum) and Y.split == (16, 1)
+    pallas_engine.set_interpret(True)
+    try:
+        Yr = vk.FFTApplication(vk.FFTConfig(shape=(16,), normalize=True,
+                                            keep_intermediate_order=True),
+                               engine="pallas").forward(
+            vk.Planar(jnp.asarray(x.re.numpy()), jnp.asarray(x.im.numpy())))
+    finally:
+        pallas_engine.set_interpret(False)
+    steps, n, gb = Yr.re.shape
+    want = np.moveaxis(_c(Yr), 1, 2).reshape(steps * gb, n)[:2]
+    assert _rel(_c(Y.natural()), want) <= REF_TOL
+    assert _rel(_c(vt.FFTApplication(kio, engine="cuda").inverse(Y)),
+                _c(x)) <= NUMPY_TOL
     # the storage tiers of C2C build and run on the cuda engine's routing
     for prec in (vt.Precision.BFLOAT16, vt.Precision.HALF):
         app = vt.FFTApplication(vt.FFTConfig(shape=(16,), precision=prec),

@@ -78,6 +78,33 @@ def test_layout_rule_every_length():
         assert smem <= ck.MAX_SMEM_BYTES, (n, smem)
 
 
+def test_layout_rule_at_split_lane_major():
+    """The keep_intermediate_order route runs fft_twofactor at the JAX
+    package's split_lane_major where that differs from twofactor_split (121
+    lengths from 8208 on): the layout of that split is one the C entry
+    accepts (n1 >= n2, every stage within a round, the exact shared
+    bytes), and the wrapper takes the split."""
+    from vkfft_tpu_torch.ops import cuda_engine
+    from vkfft_tpu_torch.planner import plan_axis
+    differ = [n for n in LENGTHS
+              if cuda_engine.keep_order_kernel(plan_axis(n)) == "fft_twofactor"
+              and ck.split_lane_major(n) != ck.twofactor_split(n)]
+    assert len(differ) == 121 and differ[0] == 8208
+    for n in differ:
+        n1, n2 = ck.split_lane_major(n)
+        threads, lines, smem = ck.twofactor_layout(n, (n1, n2))
+        assert n1 >= n2 and n1 <= ck.TWOFACTOR_TILE, n
+        assert threads % 32 == 0 and 32 <= threads <= ck.TWOFACTOR_THREADS
+        assert lines == 1
+        assert _rounds_fit(n1, threads) and _rounds_fit(n2, threads), n
+        points = (n2 * (n1 | 1) + _plan_table_points(n1)
+                  + _plan_table_points(n2) + 64 + -(-n // 64))
+        assert smem == 8 * points <= ck.MAX_SMEM_BYTES, n
+    with pytest.raises(ValueError):
+        ck.fft_twofactor(torch.zeros(1, 8208), torch.zeros(1, 8208),
+                         split=(108, 75))
+
+
 @pytest.mark.parametrize("n", [n for n in LENGTHS if n < 200]
                          + [4095, 8190, 15979, 16384])
 def test_table_points_match_the_c_rule(n):

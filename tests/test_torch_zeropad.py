@@ -129,7 +129,7 @@ MODES = [
     ("bluestein_10007", (10007,), ((3000, 10007),), None, "masked",
      "elided-prefix (bluestein: forward reads; inverse masked)",
      "Bluestein's read window waits for fft_conv's windows (ROADMAP queue 1 "
-     "item 8.2)"),
+     "item 8.3)"),
     ("not_prefix_16", (16,), ((0, 8),), None, "masked", "masked", None),
     ("interior_60", (60,), ((7, 53),), None, INTERIOR, "masked",
      "any interior window of a DIRECT length elides in the port; the "
@@ -159,12 +159,29 @@ def test_zeropad_mode_table(name, shape, zin, zout, port, ref, gate):
 
 
 def test_zeropad_mode_none_and_refusals():
-    """No window: no mode.  keep_intermediate_order still waits for item
-    8.2 of queue 1 item 8."""
+    """No window: no mode.  keep_intermediate_order runs (queue 1 item
+    8.2): without a window it has no zero-pad mode either; with one the
+    flag is ignored, as the JAX package ignores it, and the elided route
+    returns the reference's natural values."""
     assert vt.FFTApplication(vt.FFTConfig(shape=(16,))).zeropad_mode is None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vt.FFTApplication(vt.FFTConfig(shape=(16,),
-                                       keep_intermediate_order=True))
+    assert vt.FFTApplication(vt.FFTConfig(
+        shape=(16,), keep_intermediate_order=True)).zeropad_mode is None
+    cfg = dict(shape=(64,), zeropad_input=((20, 64),),
+               keep_intermediate_order=True, normalize=True)
+    app = vt.FFTApplication(vt.FFTConfig(**cfg), engine="cuda")
+    assert app.zeropad_mode == "elided-prefix"
+    re, im = _data((3, 64), 16)
+    x = re + 1j * im
+    y = app.forward(_port(x))
+    assert type(y) is vt.Planar
+    pallas_engine.set_interpret(True)
+    try:
+        ref = vk.FFTApplication(vk.FFTConfig(**cfg), engine="pallas")
+        assert ref.zeropad_mode == "elided-prefix"
+        want = _np(ref.forward(_jax(x)))
+    finally:
+        pallas_engine.set_interpret(False)
+    assert _rel(_np(y), want) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

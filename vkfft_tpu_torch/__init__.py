@@ -26,6 +26,9 @@ half the bytes and computing in fp32, a Planar of the storage dtype out
 length; half real data and half convolution run on the card too (a half
 rfft returns the reference's float32 planes, a convolution the data's
 dtype); float16's range ends at 65504
+keep_intermediate_order — the forward on the kernels' DIRECT lengths
+returns a TlSpectrum (1-D, the 2-D pair) or the swapped digit order,
+which any application of the config inverts (api module docstring)
 set_compute_mode / get_compute_mode — the JAX package's process-wide
 compute mode ("fp32", "fp32_int8", "bf16"), recorded; every mode runs
 the fp32 kernels
@@ -41,6 +44,7 @@ from vkfft_tpu_torch.config import (
 from vkfft_tpu_torch.errors import FFTError, FFTResult, error_string
 from vkfft_tpu_torch.pcomplex import (
     Planar,
+    TlSpectrum,
     from_complex,
     from_numpy_planar,
     planar_table,

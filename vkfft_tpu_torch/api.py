@@ -94,9 +94,25 @@ R2C/DCT/DST kinds (the forward's input window only, as in the JAX
 package) and DOUBLE (both its routes, the dd tier's hi and lo planes
 alike, where the JAX package's dd tier ignores the windows) mask.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: keep_intermediate_order (queue 1 item 8.2, with Bluestein's read
-window and the convolution kernels' windows, which mask until then).
+``keep_intermediate_order`` (the reference's ``disableReorderFourStep``,
+``vkFFT_Structs.h:221``) follows the JAX package's branches
+(``vkfft_tpu/api.py:355-477``), decided by `FFTApplication._keep_order`:
+on the cuda engine, for `Planar` input of a C2C config without zero-pad
+windows, under SINGLE and the storage tiers (DOUBLE returns first, as the
+reference's dd tier does), the forward of a 1-D transform of the minor
+axis whose DIRECT length runs in `fft_lines` (or is 2..4) returns a
+`TlSpectrum` of its lines in that kernel's swapped digit order (natural at
+one pass and n <= 4); one of a length the JAX package's v2 kernel takes
+(`fft_twofactor`'s) returns, both ways, a plain `Planar` in the swapped
+order of ``split_lane_major`` (`cuda_kernels.split_lane_major`), the
+inverse reading that order; the forward of a 2-D pair of DIRECT axes
+(`cuda_engine.pair_supports`) returns a `TlSpectrum` of transposed (...,
+nz, ny) planes.  The inverse of any application of the same config takes
+a `TlSpectrum` back to natural order (a mismatched config raises
+`InvalidConfigError`).  Every other case (the torch engine, complex
+tensors and host arrays, the R2C/DCT/DST kinds, DOUBLE, windowed configs,
+other lengths and axes) ignores the flag and returns the natural result,
+as the JAX package does; `ConvolutionApplication` ignores it too.
 """
 from __future__ import annotations
 
@@ -111,6 +127,7 @@ from vkfft_tpu_torch.config import FFTConfig, Precision, TransformKind
 from vkfft_tpu_torch.errors import InvalidConfigError
 from vkfft_tpu_torch.pcomplex import (
     Planar,
+    TlSpectrum,
     from_complex,
     from_numpy_planar,
     to_complex,
@@ -158,15 +175,6 @@ def resolve_device(device) -> torch.device:
 STORAGE = {Precision.HALF: torch.float16, Precision.BFLOAT16: torch.bfloat16}
 
 
-def check_precision_and_order(config: FFTConfig) -> None:
-    """The refusals every application of the port shares (the precision
-    flags all run: the storage tiers on C2C, the other kinds and
-    convolution at the input's dtype, as in the JAX package)."""
-    if config.keep_intermediate_order:
-        raise NotImplementedError(
-            "keep_intermediate_order is ROADMAP queue 1 item 8.2")
-
-
 def double_route(config: FFTConfig) -> str:
     """The route of a C2C config under DOUBLE, from its plans before any
     launch and whatever device the data lies on: ``"native"`` where every
@@ -184,7 +192,6 @@ def _check_slice(config: FFTConfig) -> None:
             "convolution configs are executed by ConvolutionApplication "
             "(vkfft_tpu_torch.ConvolutionApplication, the reference's "
             "performConvolution app pair)")
-    check_precision_and_order(config)
 
 
 def _pad_planar_tail(x: Planar, keeps) -> Planar:
@@ -219,6 +226,16 @@ def _prefix_keep_all(spec, shape):
             outer[ax] = w[0]
         any_w = True
     return (tuple(minor), outer) if any_w else None
+
+
+def _pair_prefix_keep(spec, shape):
+    """(keep_y, keep_z) when the windows of ``spec`` are prefix windows of
+    the two minor axes only, which the pair kernels elide alone
+    (``vkfft_tpu/api.py:95``); None otherwise."""
+    keeps = _prefix_keep_all(spec, shape)
+    if keeps is None or keeps[1]:
+        return None
+    return keeps[0]
 
 
 def _mask_real(x, spec, ndim: int):
@@ -297,8 +314,10 @@ class FFTApplication:
         self.double_route = (
             double_route(config) if config.precision is Precision.DOUBLE
             and config.kind is TransformKind.C2C else None)
-        # the zero-pad route of each (engine, dtype), resolved once
+        # the zero-pad route and the kept-order form of each (engine,
+        # dtype), resolved once
         self._zp_routes: dict = {}
+        self._keep_routes: dict = {}
 
     def zeropad_route(self, engine: str = "cuda",
                       dtype: torch.dtype = torch.float32) -> dict:
@@ -445,6 +464,112 @@ class FFTApplication:
                 raise InvalidConfigError(
                     f"configured batch={self.config.batch} but input leading "
                     f"dims {lead} give {total}")
+
+    def keep_order_route(self, engine: str = "cuda",
+                         dtype: torch.dtype = torch.float32) -> dict:
+        """The form ``keep_intermediate_order`` takes on planes of
+        ``dtype`` on ``engine``, resolved once and kept: ``kind`` "pair"
+        (the 2-D forward to a `TlSpectrum` of transposed planes), "lines"
+        (the 1-D forward to a `TlSpectrum` in the digit order ``split``),
+        "v2" (a plain `Planar` in `cuda_kernels.split_lane_major`'s swapped
+        order, both ways) or None (the flag is off or ignored: the
+        natural walk)."""
+        key = (engine, dtype)
+        if key not in self._keep_routes:
+            self._keep_routes[key] = self._resolve_keep_order(engine, dtype)
+        return self._keep_routes[key]
+
+    def _resolve_keep_order(self, engine: str, dtype: torch.dtype) -> dict:
+        """The JAX package's branches (``vkfft_tpu/api.py:418-477``) on the
+        port's gates: the cuda engine, a C2C config without windows,
+        float32 or half planes; the 2-D pair of DIRECT axes where
+        `cuda_engine.pair_supports` holds, else the minor axis of a 1-D
+        walk by `cuda_engine.keep_order_kernel`."""
+        from vkfft_tpu_torch.ops import cuda_engine as ce
+        from vkfft_tpu_torch.planner.factorize import Algorithm
+        cfg = self.config
+        ndim = len(cfg.shape)
+        if (not cfg.keep_intermediate_order or engine != "cuda"
+                or cfg.kind is not TransformKind.C2C
+                or cfg.zeropad_input is not None
+                or cfg.zeropad_output is not None
+                or dtype not in (torch.float32,) + tuple(STORAGE.values())):
+            return {"kind": None}
+        if ndim == 2 and len(cfg.axes) == 2:
+            if (all(p.algorithm is Algorithm.DIRECT
+                    for p in self.axis_plans.values())
+                    and ce.pair_supports(*cfg.shape, dtype)):
+                return {"kind": "pair"}
+            return {"kind": None}
+        if cfg.axes != (ndim - 1,):
+            return {"kind": None}
+        plan = self.axis_plans[ndim - 1]
+        kernel = ce.keep_order_kernel(plan)
+        if kernel in ("tiny", "fft_lines"):
+            return {"kind": "lines", "split": ce.keep_order_split(plan, dtype)}
+        return {"kind": "v2" if kernel == "fft_twofactor" else None}
+
+    def _keep_order(self, x: Planar, inverse: bool) -> Optional[Planar]:
+        """``keep_intermediate_order`` on `Planar` input (`keep_order_route`):
+        the kept-order result where the flag takes effect, else None (the
+        natural walk runs)."""
+        from vkfft_tpu_torch.ops import cuda_engine as ce
+        cfg = self.config
+        if not cfg.keep_intermediate_order:
+            return None
+        ndim = len(cfg.shape)
+        kind = self.keep_order_route(self.engine_name or engine_for(x),
+                                     x.dtype)["kind"]
+        if (kind is None or (inverse and kind != "v2")
+                or x.shape[-ndim:] != cfg.shape):
+            return None
+        self._check_batch(x, ndim)
+        if kind == "pair":
+            lead = x.shape[:-2]
+            y = ce.keep_order_pair_p(x, *cfg.shape, False)
+            return TlSpectrum(y.re, y.im, lead, math.prod(lead), *cfg.shape)
+        plan = self.axis_plans[ndim - 1]
+        n = plan.n
+        if kind == "v2":
+            # a plain Planar in the swapped order both ways
+            s = 1.0 / n if inverse and cfg.normalize else 1.0
+            return ce.keep_order_lines_p(x.reshape(-1, n), plan, inverse,
+                                         s).reshape(*x.shape)
+        lead = x.shape[:-1]
+        y = ce.keep_order_lines_p(x.reshape(-1, n), plan, False)
+        return TlSpectrum(y.re.reshape(x.shape), y.im.reshape(x.shape), lead,
+                          math.prod(lead), n, 0,
+                          self.keep_order_route("cuda", x.dtype)["split"])
+
+    def _tl_inverse(self, x: TlSpectrum) -> Planar:
+        """The inverse of a `TlSpectrum` from any application of this
+        config (``vkfft_tpu/api.py:365-386``), to natural order, normalized
+        as ``normalize`` says."""
+        from vkfft_tpu_torch.ops import cuda_engine as ce
+        cfg = self.config
+        ndim = len(cfg.shape)
+        p = Planar(x.re, x.im)
+        if x.n2:
+            ny, nz = x.n, x.n2
+            if ndim != 2 or cfg.shape != (ny, nz):
+                raise InvalidConfigError(
+                    f"TlSpectrum carries pair ({ny}, {nz}) but this "
+                    f"application is configured for shape {cfg.shape}")
+            s = 1.0 / (ny * nz) if cfg.normalize else 1.0
+            return ce.keep_order_pair_p(p, ny, nz, True,
+                                        s).reshape(*x.lead, ny, nz)
+        n = x.n
+        plan = self.axis_plans.get(ndim - 1)
+        if (cfg.axes != (ndim - 1,) or cfg.shape[-1] != n
+                or ce.keep_order_kernel(plan) not in ("tiny", "fft_lines")
+                or tuple(x.split) != ce.keep_order_split(plan, x.dtype)):
+            raise InvalidConfigError(
+                f"TlSpectrum carries n={n} (digit order {x.split}) but this "
+                f"application is configured for shape {cfg.shape}, axes "
+                f"{cfg.axes}")
+        s = 1.0 / n if cfg.normalize else 1.0
+        return ce.keep_order_lines_p(p.reshape(-1, n), plan, True,
+                                     s).reshape(*x.lead, n)
 
     def _transform(self, x: Planar, inverse: bool) -> Planar:
         cfg = self.config
@@ -766,6 +891,10 @@ class FFTApplication:
     def _run(self, x, inverse: bool):
         if self.config.kind is not TransformKind.C2C:
             return self._real_transform(x, inverse)
+        if inverse and isinstance(x, TlSpectrum):
+            # the kept-order form goes back whatever the precision says,
+            # its contract riding the value (``vkfft_tpu/api.py:365-386``)
+            return self._tl_inverse(x)
         if (self.config.precision is Precision.DOUBLE
                 or isinstance(x, DDComplex)):
             return self._run_double(x, inverse)
@@ -775,6 +904,9 @@ class FFTApplication:
                 # the storage tiers narrow the planes (``vkfft_tpu/api.py:
                 # 418-423``, reference halfPrecisionMemoryOnly)
                 x = x.astype(storage)
+            y = self._keep_order(x, inverse)
+            if y is not None:
+                return y
             return self._transform(x, inverse)
         if isinstance(x, torch.Tensor):
             return to_complex(self._transform(from_complex(x), inverse))

@@ -96,6 +96,17 @@
 // by store_lines narrowed to nearest even, 8 bytes a plane at once; the
 // stages, the cluster exchanges, the multiply, the spectrum and the tables
 // stay fp32.
+//
+// Zero-pad windows of the 2-D mode (fft_conv2d_zp_kernel and its half
+// twins; C entries vk_fft_conv2d_zp, vk_fft_conv2d_zp_f16,
+// vk_fft_conv2d_zp_bf16; inplace.cuh's PairWindow): _conv_pair_kernel's
+// in_keep / out_keep.  The row tile reads only the (ky, kz) corner of its
+// plane, in place from full planes or from cropped ones at their pitches,
+// point by point, and holds zeros elsewhere, so the exchanges move whole
+// rows as unwindowed; the rows past ky skip the forward's z stages, the
+// rows past oy the inverse's, and only the (oy, oz) corner is written, at
+// the output's pitches.  The same body (conv2d_block<true>), so the
+// unwindowed kernels compile as before.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -425,20 +436,24 @@ struct PlaneGeo {
 // first, the twiddle on its last stage: transposed order in, natural out).
 // Every pass runs the forward plans: the inverse is the forward DFT of the
 // conjugated data, conjugated again on the write.
+// With kWindow, the z passes run `zrows` rows of the row tile (the others
+// hold zeros, or rows the window does not write).
+template <bool kWindow = false>
 __device__ __forceinline__ void plane_pass(float2* smem, const PlaneGeo& geo,
                                            int k, const Plan& pz1,
                                            const Plan& pz2, const Plan& py1,
-                                           const Plan& py2) {
+                                           const Plan& py2, int zrows = 0) {
   const bool y = k >= 2 && k < 6, mirrored = k >= 4;
   const bool row = ((k & 1) != 0) != mirrored;
   const int n1 = y ? py1.n : pz1.n, n2 = y ? py2.n : pz2.n;
+  const int rows = kWindow ? zrows : geo.rows;
   const walk::Pass g =
       y ? (row ? walk::Pass{geo.cols * n2, 1, n1 * geo.cols, geo.cols,
                             walk::make_div(n2)}
                : walk::Pass{geo.cols * n1, 1, geo.cols, n1 * geo.cols,
                             walk::make_div(n1)})
-        : (row ? walk::Pass{geo.rows * n2, geo.sz, geo.pz, 1, walk::make_div(n2)}
-               : walk::Pass{geo.rows * n1, geo.sz, 1, geo.pz, walk::make_div(n1)});
+        : (row ? walk::Pass{rows * n2, geo.sz, geo.pz, 1, walk::make_div(n2)}
+               : walk::Pass{rows * n1, geo.sz, 1, geo.pz, walk::make_div(n1)});
   const float2* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
   const bool fuse = n2 > 1 && row == mirrored;
   const int which = (y ? 2 : 0) + (row ? 0 : 1);
@@ -604,21 +619,49 @@ struct Conj {
   }
 };
 
+// The row tile under a window: rows r0 + r < w.oy, columns z < w.oz of
+// plane b, at b * out_plane + (r0 + r) * out_row + z, conjugated (the end
+// of the inverse), point by point, narrowed to the planes' storage type.
+template <class St>
+__device__ void store_rows_window(const float2* buf, const PlaneGeo& geo,
+                                  const walk::Map& mp, St* yr, St* yi,
+                                  const walk::PairWindow& w) {
+  const int r0 = block_rank() * geo.rows;
+  const int live = min(geo.rows, w.oy - r0);
+  if (live <= 0) return;
+  const walk::Div dz = walk::make_div(w.oz);
+  const long long g0 = plane_index() * w.out_plane + (long long)r0 * w.out_row;
+  for (int u = threadIdx.x; u < live * w.oz; u += blockDim.x) {
+    const int r = walk::quot(u, dz);
+    const int z = u - r * w.oz;
+    const float2 v = buf[walk::position(r * geo.nz + z, mp)];
+    const long long g = g0 + (long long)r * w.out_row + z;
+    walk::put(yr[g], v.x);
+    walk::put(yi[g], -v.y);
+  }
+}
+
 // The 2-D block body on planes of storage type St (float, or a half type
 // on the same fp32 plane: the row tile read through registers, as
 // cp.async has no 2-byte copy, each real widened, and written by
 // store_lines narrowed to nearest even).
-template <class St>
+template <bool kWindow = false, class St>
 __device__ __forceinline__ void conv2d_block(
     float2* smem, const St* xr, const St* xi, St* yr, St* yi, const Plan& pz1,
     const Plan& pz2, const Plan& py1, const Plan& py2, const float2* tz1,
     const float2* tz2, const float2* ty1, const float2* ty2,
     const float2* twz, const float2* twy, const float2* spec,
-    const PlaneGeo& geo) {
+    const PlaneGeo& geo, const walk::PairWindow& w = walk::PairWindow{}) {
   cg::cluster_group cluster = cg::this_cluster();
   copy_plane_tables(smem + geo.area, geo, tz1, tz2, ty1, ty2, twz, twy);
-  // the row tile in natural order, one contiguous run
-  if constexpr (walk::kNarrow<St>)
+  // the row tile in natural order, one contiguous run (under a window, its
+  // (ky, kz) corner point by point, zeros elsewhere)
+  if constexpr (kWindow)
+    walk::load_rows_window(
+        xr, xi, plane_index() * w.in_plane, block_rank() * geo.rows,
+        geo.rows, w,
+        walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  else if constexpr (walk::kNarrow<St>)
     walk::load_lines(
         xr, xi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
                     geo.nz,
@@ -639,13 +682,27 @@ __device__ __forceinline__ void conv2d_block(
     if (k == 2) push_plane_columns(cluster, smem, geo);
     if (k == 4) multiply_spectrum(smem, geo, py2.n, spec);
     if (k == 6) pull_plane_rows(cluster, smem, geo);
-    plane_pass(smem, geo, k, pz1, pz2, py1, py2);
+    if constexpr (kWindow) {
+      // the z passes of the rows the window reads (forward) or writes
+      // (inverse); the rest hold zeros or are never written
+      const int edge = k < 2 ? w.ky : k >= 6 ? w.oy : geo.ny;
+      plane_pass<true>(smem, geo, k, pz1, pz2, py1, py2,
+                       min(geo.rows, max(0, edge - block_rank() * geo.rows)));
+    } else {
+      plane_pass(smem, geo, k, pz1, pz2, py1, py2);
+    }
   }
-  walk::store_lines(
-      smem, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz), yr,
-      yi, (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
-              geo.nz,
-      geo.tile, Conj{});
+  if constexpr (kWindow)
+    store_rows_window(
+        smem, geo, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
+        yr, yi, w);
+  else
+    walk::store_lines(
+        smem, walk::make_map(geo.nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
+        yr, yi,
+        (plane_index() * geo.ny + (long long)block_rank() * geo.rows) *
+            geo.nz,
+        geo.tile, Conj{});
 }
 
 __global__ void __launch_bounds__(kPlaneThreads, 1)
@@ -680,6 +737,43 @@ fft_conv2d_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   extern __shared__ __align__(16) float2 smem[];
   conv2d_block(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1, ty2,
                twz, twy, spec, geo);
+}
+
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_zp_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                     Plan pz1, Plan pz2, Plan py1, Plan py2,
+                     const float2* tz1, const float2* tz2, const float2* ty1,
+                     const float2* ty2, const float2* twz, const float2* twy,
+                     const float2* spec, PlaneGeo geo, walk::PairWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv2d_block<true>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                     ty2, twz, twy, spec, geo, w);
+}
+
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                         __half* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                         const float2* tz1, const float2* tz2,
+                         const float2* ty1, const float2* ty2,
+                         const float2* twz, const float2* twy,
+                         const float2* spec, PlaneGeo geo,
+                         walk::PairWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv2d_block<true>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                     ty2, twz, twy, spec, geo, w);
+}
+
+__global__ void __launch_bounds__(kPlaneThreads, 1)
+fft_conv2d_zp_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                          __nv_bfloat16* yr, __nv_bfloat16* yi, Plan pz1,
+                          Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                          const float2* tz2, const float2* ty1,
+                          const float2* ty2, const float2* twz,
+                          const float2* twy, const float2* spec, PlaneGeo geo,
+                          walk::PairWindow w) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv2d_block<true>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2, ty1,
+                     ty2, twz, twy, spec, geo, w);
 }
 
 // Shared bytes of a Bluestein block: its tile at the row pitch ns | 1,
@@ -805,7 +899,9 @@ bool plane_layout_of(const Plan& pz1, const Plan& pz2, const Plan& py1,
 
 // The checks and the cluster launch of the 2-D `kernel` on planes of
 // storage type St, as vk_fft_conv2d describes them.
-template <class St, typename K>
+// With kWindow, the windowed `kernel` under the PairWindow of `window` (its
+// 8 ints), refused where it is not one.
+template <bool kWindow = false, class St, typename K>
 int launch_conv2d(K kernel, const St* xr, const St* xi, St* yr, St* yi,
                   long long planes, int hp, int flags, float scale,
                   const int* plan_z1, const int* plan_z2, const int* plan_y1,
@@ -813,7 +909,8 @@ int launch_conv2d(K kernel, const St* xr, const St* xi, St* yr, St* yi,
                   const float* table_z2, const float* table_y1,
                   const float* table_y2, const float* twiddle_z,
                   const float* twiddle_y, const float* spectrum, int cluster,
-                  int threads, int smem, void* stream) {
+                  int threads, int smem, void* stream,
+                  const long long* window = nullptr) {
   Plan pz1, pz2, py1, py2;
   if (planes < 1 || hp < 1 || (flags & ~(kConjData | kXpow)) ||
       spectrum == nullptr || twiddle_z == nullptr || twiddle_y == nullptr ||
@@ -830,15 +927,30 @@ int launch_conv2d(K kernel, const St* xr, const St* xi, St* yr, St* yi,
   geo.hp = hp;
   geo.flags = flags;
   geo.scale = scale;
-  return launch_cluster(
-      kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr, yi,
-      pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
-      reinterpret_cast<const float2*>(table_z2),
-      reinterpret_cast<const float2*>(table_y1),
-      reinterpret_cast<const float2*>(table_y2),
-      reinterpret_cast<const float2*>(twiddle_z),
-      reinterpret_cast<const float2*>(twiddle_y),
-      reinterpret_cast<const float2*>(spectrum), geo);
+  if constexpr (kWindow) {
+    walk::PairWindow w;
+    if (!walk::pair_window_from_ints(window, geo.ny, geo.nz, &w))
+      return (int)cudaErrorInvalidValue;
+    return launch_cluster(
+        kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr,
+        yi, pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
+        reinterpret_cast<const float2*>(table_z2),
+        reinterpret_cast<const float2*>(table_y1),
+        reinterpret_cast<const float2*>(table_y2),
+        reinterpret_cast<const float2*>(twiddle_z),
+        reinterpret_cast<const float2*>(twiddle_y),
+        reinterpret_cast<const float2*>(spectrum), geo, w);
+  } else {
+    return launch_cluster(
+        kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr,
+        yi, pz1, pz2, py1, py2, reinterpret_cast<const float2*>(table_z1),
+        reinterpret_cast<const float2*>(table_z2),
+        reinterpret_cast<const float2*>(table_y1),
+        reinterpret_cast<const float2*>(table_y2),
+        reinterpret_cast<const float2*>(twiddle_z),
+        reinterpret_cast<const float2*>(twiddle_y),
+        reinterpret_cast<const float2*>(spectrum), geo);
+  }
 }
 
 // Resident clusters and blocks an SM of the 2-D `kernel`.
@@ -989,6 +1101,62 @@ int vk_fft_conv2d_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                        flags, scale, plan_z1, plan_z2, plan_y1, plan_y2,
                        table_z1, table_z2, table_y1, table_y2, twiddle_z,
                        twiddle_y, spectrum, cluster, threads, smem, stream);
+}
+
+// vk_fft_conv2d under a zero-pad window (fp32, fp16 and bf16 planes):
+// `window` points to the 8 ints of inplace.cuh's PairWindow (in_plane,
+// out_plane, in_row, out_row, ky, kz, oy, oz).  Only the (ky, kz) corner of
+// each input plane is read (the rest is declared zero) and only the (oy,
+// oz) corner of each output plane is written, each at its pitches: a
+// corner of wider planes, or compact.  A window that is not one is
+// refused.
+int vk_fft_conv2d_zp(const float* xr, const float* xi, float* yr, float* yi,
+                     long long planes, int hp, int flags, float scale,
+                     const int* plan_z1, const int* plan_z2,
+                     const int* plan_y1, const int* plan_y2,
+                     const float* table_z1, const float* table_z2,
+                     const float* table_y1, const float* table_y2,
+                     const float* twiddle_z, const float* twiddle_y,
+                     const float* spectrum, int cluster, int threads, int smem,
+                     const long long* window, void* stream) {
+  return launch_conv2d<true>(fft_conv2d_zp_kernel, xr, xi, yr, yi, planes, hp,
+                             flags, scale, plan_z1, plan_z2, plan_y1, plan_y2,
+                             table_z1, table_z2, table_y1, table_y2,
+                             twiddle_z, twiddle_y, spectrum, cluster, threads,
+                             smem, stream, window);
+}
+
+int vk_fft_conv2d_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                         __half* yi, long long planes, int hp, int flags,
+                         float scale, const int* plan_z1, const int* plan_z2,
+                         const int* plan_y1, const int* plan_y2,
+                         const float* table_z1, const float* table_z2,
+                         const float* table_y1, const float* table_y2,
+                         const float* twiddle_z, const float* twiddle_y,
+                         const float* spectrum, int cluster, int threads,
+                         int smem, const long long* window, void* stream) {
+  return launch_conv2d<true>(fft_conv2d_zp_f16_kernel, xr, xi, yr, yi, planes,
+                             hp, flags, scale, plan_z1, plan_z2, plan_y1,
+                             plan_y2, table_z1, table_z2, table_y1, table_y2,
+                             twiddle_z, twiddle_y, spectrum, cluster, threads,
+                             smem, stream, window);
+}
+
+int vk_fft_conv2d_zp_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                          __nv_bfloat16* yr, __nv_bfloat16* yi,
+                          long long planes, int hp, int flags, float scale,
+                          const int* plan_z1, const int* plan_z2,
+                          const int* plan_y1, const int* plan_y2,
+                          const float* table_z1, const float* table_z2,
+                          const float* table_y1, const float* table_y2,
+                          const float* twiddle_z, const float* twiddle_y,
+                          const float* spectrum, int cluster, int threads,
+                          int smem, const long long* window, void* stream) {
+  return launch_conv2d<true>(fft_conv2d_zp_bf16_kernel, xr, xi, yr, yi,
+                             planes, hp, flags, scale, plan_z1, plan_z2,
+                             plan_y1, plan_y2, table_z1, table_z2, table_y1,
+                             table_y2, twiddle_z, twiddle_y, spectrum,
+                             cluster, threads, smem, stream, window);
 }
 
 // Resident clusters on the card and blocks an SM of the 2-D mode's kernel

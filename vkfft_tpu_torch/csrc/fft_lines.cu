@@ -3,7 +3,7 @@
 // times a scale.  Replaces vkfft_tpu/ops/pallas_engine.py:1563
 // _fft_kernel_v3 (the fp32 form and, in the windowed entries below, its
 // zero-pad windows in_nonzero, in_window, out_keep, out_fill and
-// out_zero_window; no tl layout).
+// out_zero_window; in the tl entries, its tl layout).
 //
 // Bound: bytes.  Each point is read once and written once (16 B of
 // planes); at n <= 8192 the FFT's ~5 n log2 n flops are far below the
@@ -53,6 +53,18 @@
 // range.  The window's bytes are what it saves, so the read and the write
 // go point by point (a window's edge falls anywhere in a four-point
 // group).  Kernels of their own: the unwindowed kernels compile as before.
+//
+// Kept intermediate order (fft_lines_tl_kernel and its half twins; C
+// entries vk_fft_lines_tl, vk_fft_lines_tl_f16, vk_fft_lines_tl_bf16): the
+// keep_intermediate_order form.  The forward leaves a two-factor line in
+// its factors' swapped digit order, X[k1 * n2 + k2] at k2 * n1 + k1 (the
+// row-major store of the walk's matrix, no transposed shared-memory read),
+// and the inverse reads that order (no transposed write); a line of one
+// pass is in natural order both ways.  fp32 and the half planes; the same
+// body (two_factor_block with `swapped`) in kernels of their own, so the
+// natural ones compile as before.  The flag goes in through fresh_int: as
+// a constant the compiler specialized the maps and spilled 16 B (the
+// runtime flag, as fft_twofactor's, spills none).
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -94,6 +106,37 @@ fft_lines_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   extern __shared__ __align__(16) float2 smem[];
   two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw, 0, lines,
                    pitch, len1, len2);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_tl_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                    long long batch, Plan p1, Plan p2, const float2* t1,
+                    const float2* t2, const float2* tw, int lines, int pitch,
+                    int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw,
+                   fresh_int(1), lines, pitch, len1, len2, true);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_tl_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                        __half* yi, long long batch, Plan p1, Plan p2,
+                        const float2* t1, const float2* t2, const float2* tw,
+                        int lines, int pitch, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw,
+                   fresh_int(1), lines, pitch, len1, len2);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_lines_tl_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                         __nv_bfloat16* yr, __nv_bfloat16* yi,
+                         long long batch, Plan p1, Plan p2, const float2* t1,
+                         const float2* t2, const float2* tw, int lines,
+                         int pitch, int len1, int len2) {
+  extern __shared__ __align__(16) float2 smem[];
+  two_factor_block(smem, xr, xi, yr, yi, batch, p1, p2, t1, t2, tw,
+                   fresh_int(1), lines, pitch, len1, len2);
 }
 
 __global__ void __launch_bounds__(kThreads64, 2)
@@ -299,6 +342,41 @@ int vk_fft_lines_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                         lines, smem, stream);
 }
 
+// vk_fft_lines in the kept intermediate order (the tl form): the forward
+// writes each two-factor line in its factors' swapped digit order and the
+// inverse reads that order; arguments and layout as vk_fft_lines's, on
+// fp32, fp16 or bf16 planes.
+int vk_fft_lines_tl(const float* xr, const float* xi, float* yr, float* yi,
+                    long long batch, const int* plan1, const int* plan2,
+                    const float* table1, const float* table2,
+                    const float* twiddle, int threads, int lines, int smem,
+                    void* stream) {
+  return launch<float2>(fft_lines_tl_kernel, kThreads, xr, xi, yr, yi, batch,
+                        plan1, plan2, table1, table2, twiddle, threads, lines,
+                        smem, stream);
+}
+
+int vk_fft_lines_tl_f16(const __half* xr, const __half* xi, __half* yr,
+                        __half* yi, long long batch, const int* plan1,
+                        const int* plan2, const float* table1,
+                        const float* table2, const float* twiddle,
+                        int threads, int lines, int smem, void* stream) {
+  return launch<float2>(fft_lines_tl_f16_kernel, kThreads, xr, xi, yr, yi,
+                        batch, plan1, plan2, table1, table2, twiddle, threads,
+                        lines, smem, stream);
+}
+
+int vk_fft_lines_tl_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                         __nv_bfloat16* yr, __nv_bfloat16* yi,
+                         long long batch, const int* plan1, const int* plan2,
+                         const float* table1, const float* table2,
+                         const float* twiddle, int threads, int lines,
+                         int smem, void* stream) {
+  return launch<float2>(fft_lines_tl_bf16_kernel, kThreads, xr, xi, yr, yi,
+                        batch, plan1, plan2, table1, table2, twiddle, threads,
+                        lines, smem, stream);
+}
+
 // vk_fft_lines under a zero-pad window: `window` points to the 11 ints
 // of inplace.cuh's LineWindow (s0, s1, d1, d2, s2, len, z0, z1, out, o0,
 // o1); `batch` is the count of output lines, written compact at `out`
@@ -362,6 +440,10 @@ int vk_fft_lines_f16_occupancy(int threads, int smem, int* blocks) {
 
 int vk_fft_lines_bf16_occupancy(int threads, int smem, int* blocks) {
   return occupancy(fft_lines_bf16_kernel, kThreads, threads, smem, blocks);
+}
+
+int vk_fft_lines_tl_occupancy(int threads, int smem, int* blocks) {
+  return occupancy(fft_lines_tl_kernel, kThreads, threads, smem, blocks);
 }
 
 const char* vk_error_string(int code) {

@@ -1,8 +1,9 @@
 // fft_pair: 2-D C2C FFT of the two minor axes of (B, ny, nz) fp32 re/im
 // planes in one pass, natural order in and out, times a scale (in the y
 // axis's twiddle table).  Replaces vkfft_tpu/ops/pallas_engine.py:1982
-// _pair_kernel (the fp32 form and, in the windowed entries below, its
-// corner in_keep / out_keep windows; no tl layout).
+// _pair_kernel (the fp32 form; in the windowed entries below, its corner
+// in_keep / out_keep windows; in the tl entries, its tl_in / tl_out
+// layout, fft_pair_tl_planar).
 //
 // Bound: bytes, one read and one write of each point (16 B of planes) for
 // both axes together, where two axis passes move twice that.
@@ -63,6 +64,20 @@
 // point (a corner's edge falls anywhere in a four-point group).  The rows
 // of a row tile past ky hold zeros and skip the z stages.  The same body
 // (pair_block<true>), so the unwindowed kernels compile as before.
+//
+// Kept intermediate order (fft_pair_tl_kernel and its half twins; C
+// entries vk_fft_pair_tl, vk_fft_pair_tl_f16, vk_fft_pair_tl_bf16): the
+// keep_intermediate_order form, the spectrum as the transposed (nz, ny)
+// plane.  The forward writes each column tile as contiguous rows of the
+// transposed plane, with no exchange back; the inverse reads its column
+// tile contiguously from it, runs the ny stages first, pulls the row tiles
+// back out of the column tiles (the reverse of the forward's exchange, as
+// fft_conv_pair.cu's 2-D mode does) and runs the nz stages, writing whole
+// rows.  An axis on two factors runs in the forward's order both ways, so
+// the transposed plane holds each axis in natural order.  Kernels of
+// their own (pair_block_tl), one a direction (fft_pair_tl_kernel<0> and
+// <1>, picked by the C entry from the plans), so the natural ones compile
+// as before.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -78,6 +93,8 @@ using vkfft::Real;
 using vkfft::cx;
 using namespace vkfft::walk;
 using vkfft::cluster::kXchg;
+using vkfft::cluster::ld_remote2;
+using vkfft::cluster::ld_remote4;
 using vkfft::cluster::remote;
 using vkfft::cluster::st_remote2;
 using vkfft::cluster::st_remote4;
@@ -190,43 +207,6 @@ __device__ void store_columns(const C* buf, int ny, int cols, RowPerm yout,
     put(yr[g], v.x);
     put(yi[g], v.y);
   }
-}
-
-// A zero-pad window on a pair pass: the input's rows y < ky and columns
-// z < kz of plane b (at real offset b * in_plane + y * in_row + z) are
-// read and the rest of the plane is declared zero, never read; the
-// output's rows y < oy and columns z < oz are written, at b * out_plane +
-// y * out_row + z.
-struct PairWindow {
-  long long in_plane, out_plane;
-  int in_row, out_row, ky, kz, oy, oz;
-};
-
-// The block's row tile (rows r0.. of its plane) under a window, point by
-// point: a declared-zero point is a zero written to shared memory.
-template <class C, class St>
-__device__ void load_rows_window(const St* xr, const St* xi, long long g0,
-                                 int r0, int rows, const PairWindow& w,
-                                 const Map& mp, C* home) {
-  const int nz = (int)mp.dn.d;
-  for (int u = threadIdx.x; u < rows * nz; u += blockDim.x) {
-    const int r = quot(u, mp.dn);
-    const int z = u - r * nz;
-    C* d = home + position(u, mp);
-    if (r0 + r >= w.ky || z >= w.kz) {
-      *d = cx<C>(Real<C>(0), Real<C>(0));
-      continue;
-    }
-    const long long g = g0 + (long long)(r0 + r) * w.in_row + z;
-    if constexpr (kNarrow<St>) {
-      *d = cx<C>(widen(xr[g]), widen(xi[g]));
-    } else {
-      Real<C>* p = reinterpret_cast<Real<C>*>(d);
-      cp_async_real(p, xr + g);
-      cp_async_real(p + 1, xi + g);
-    }
-  }
-  if constexpr (!kNarrow<St>) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The column tile (columns c0.. of its plane, at yout(ky) * cols) under a
@@ -359,6 +339,265 @@ __device__ __forceinline__ void pair_block(
                   plane_base(cluster, ny, nz) +
                       cluster.block_rank() * geo.cols,
                   nz);
+}
+
+// The kept intermediate order (the tl form): the transposed (nz, ny) plane
+// holds the natural 2-D spectrum, Xt[kz][ky] = X[ky][kz].  A block's column
+// tile (columns c0.. of its plane, all ny rows) is then the contiguous run
+// of rows c0.. of the transposed plane, from real offset g0.  Each thread
+// moves four neighbouring ky of one column (four reals a plane at once),
+// the column fastest across threads: a warp's shared reads or writes at
+// pitch cols fall on distinct banks, and its four-real runs fill whole
+// 32-byte sectors of device memory.  Planes whose rows or offset are not
+// aligned to four go point by point.
+template <class C, class St>
+__device__ void store_columns_tl(const C* buf, int ny, int cols, RowPerm yout,
+                                 St* yr, St* yi, long long g0) {
+  const int T = blockDim.x;
+  if ((ny & 3) == 0 && (g0 & 3) == 0 && group_aligned(yr, yi)) {
+    const Div dc = make_div(cols);
+    for (int f = threadIdx.x; f < (ny >> 2) * cols; f += T) {
+      const int kb = quot(f, dc);
+      const int c = f - kb * cols;
+      C v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = buf[yout(4 * kb + j) * cols + c];
+      const long long g = g0 + (long long)c * ny + 4 * kb;
+      store4(yr + g, v[0].x, v[1].x, v[2].x, v[3].x);
+      store4(yi + g, v[0].y, v[1].y, v[2].y, v[3].y);
+    }
+    return;
+  }
+  const Div dn = make_div(ny);
+  for (int u = threadIdx.x; u < ny * cols; u += T) {
+    const int c = quot(u, dn);
+    const C v = buf[yout(u - c * ny) * cols + c];
+    put(yr[g0 + u], v.x);
+    put(yi[g0 + u], v.y);
+  }
+}
+
+// The column tile from rows c0.. of the transposed plane (real offset g0),
+// natural order: point ky of column c at ky * cols + c.
+template <class C, class St>
+__device__ void load_columns_tl(const St* xr, const St* xi, long long g0,
+                                int ny, int cols, C* buf) {
+  const int T = blockDim.x;
+  if ((ny & 3) == 0 && (g0 & 3) == 0 && group_aligned(xr, xi)) {
+    const Div dc = make_div(cols);
+    for (int f = threadIdx.x; f < (ny >> 2) * cols; f += T) {
+      const int kb = quot(f, dc);
+      const int c = f - kb * cols;
+      const long long g = g0 + (long long)c * ny + 4 * kb;
+      const auto r = load4(xr + g);
+      const auto i = load4(xi + g);
+      C* d = buf + 4 * kb * cols + c;
+      d[0] = cx<C>(r.x, i.x);
+      d[cols] = cx<C>(r.y, i.y);
+      d[2 * cols] = cx<C>(r.z, i.z);
+      d[3 * cols] = cx<C>(r.w, i.w);
+    }
+    return;
+  }
+  const Div dn = make_div(ny);
+  for (int u = threadIdx.x; u < ny * cols; u += T) {
+    const int c = quot(u, dn);
+    buf[(u - c * ny) * cols + c] =
+        cx<C>(widen(xr[g0 + u]), widen(xi[g0 + u]));
+  }
+}
+
+// Column tiles -> row tile, the reverse of push_columns: point (r, kz) of
+// this block's row tile, at its place `zin`, is point (yout(r0 + r), kz %
+// cols) of owner kz / cols's column tile (the y axis in its factors'
+// order).  The cluster meets (every block's column passes are done), each
+// thread pulls its points (pairs along kz when cols is even) into
+// registers, the cluster meets (the column tiles are free), and it writes
+// them.  fp32 points (float2) only.
+__device__ void pull_rows(cg::cluster_group& cluster, float2* buf, int nz,
+                          int rows, int cols, const Map& zin, int r0,
+                          RowPerm yout) {
+  const int T = blockDim.x;
+  const int tile = rows * nz;
+  cluster.sync();   // every block's column passes are done
+  if ((cols & 1) == 0) {
+    const int half = tile >> 1;
+    const Div dn = make_div(fresh_int(nz) >> 1), dc = make_div(cols >> 1);
+    float4 v[kXchg / 2];
+    int v0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      const int p = min(v0, half - 1);
+      const int r = quot(p, dn);
+      const int kz2 = p - r * (int)dn.d;
+      const int owner = quot(kz2, dc);
+      v[j] = ld_remote4(remote(
+          buf, 2 * (yout(r0 + r) * (int)dc.d + kz2 - owner * (int)dc.d),
+          owner));
+    }
+    cluster.sync();   // every pull is done: the column tiles are free
+    v0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg / 2; ++j, v0 += T) {
+      if (v0 < half) {
+        buf[position(2 * v0, zin)] = make_float2(v[j].x, v[j].y);
+        buf[position(2 * v0 + 1, zin)] = make_float2(v[j].z, v[j].w);
+      }
+    }
+  } else {
+    const Div dn = make_div(fresh_int(nz)), dc = make_div(cols);
+    float2 v[kXchg];
+    int u0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T) {
+      const int u = min(u0, tile - 1);
+      const int r = quot(u, dn);
+      const int kz = u - r * nz;
+      const int owner = quot(kz, dc);
+      v[j] = ld_remote2(
+          remote(buf, yout(r0 + r) * cols + kz - owner * cols, owner));
+    }
+    cluster.sync();   // every pull is done: the column tiles are free
+    u0 = fresh_tid();
+#pragma unroll
+    for (int j = 0; j < kXchg; ++j, u0 += T)
+      if (u0 < tile) buf[position(u0, zin)] = v[j];
+  }
+  __syncthreads();
+}
+
+// The tl block body on fp32 points and planes of storage type St.  The
+// forward is pair_block's up to the write, which stores the column tile
+// as rows of the transposed plane (store_columns_tl).  The inverse reads
+// its column tile from the transposed plane (load_columns_tl), runs the y
+// axis first, moves the columns back to row tiles (pull_rows), runs the z
+// axis and writes its rows, one contiguous run.  Both directions run each
+// axis in the forward's order (natural in, the factors' transposed order
+// out; the inverse by its plans and conjugate twiddle), which the
+// exchanges and the writes follow; the y axis's twiddle carries the
+// scale.  Pass k runs axis kk: the forward z, z, y, y, the inverse y, y,
+// z, z, at one call site of run_pass.  One kernel a direction (kInverse,
+// which the plans must match): with both in one kernel the forward
+// spilled 12 B too (ptxas, sm_90a).
+template <int kInverse, class St>
+__device__ __forceinline__ void pair_block_tl(
+    float2* smem, const St* xr, const St* xi, St* yr, St* yi,
+    const Plan& pz1, const Plan& pz2, const Plan& py1, const Plan& py2,
+    const float2* tz1, const float2* tz2, const float2* ty1,
+    const float2* ty2, const float2* twz, const float2* twy, const Geo& geo) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
+  constexpr bool inverse = kInverse != 0;
+  float2* tab = smem + geo.area;
+  for (int t = threadIdx.x; t < geo.ntab; t += blockDim.x) {
+    const float2* src = t < geo.z2    ? tz1 + t
+                        : t < geo.y1  ? tz2 + (t - geo.z2)
+                        : t < geo.y2  ? ty1 + (t - geo.y1)
+                        : t < geo.twz ? ty2 + (t - geo.y2)
+                        : t < geo.twy ? twz + (t - geo.twz)
+                                      : twy + (t - geo.twy);
+    tab[t] = __ldg(src);
+  }
+  if constexpr (inverse)
+    load_columns_tl(xr, xi,
+                    plane_base(cluster, ny, nz) +
+                        (long long)cluster.block_rank() * geo.cols * ny,
+                    ny, geo.cols, smem);
+  else if constexpr (kNarrow<St>)
+    load_lines(xr, xi,
+               plane_base(cluster, ny, nz) +
+                   (long long)cluster.block_rank() * geo.rows * nz,
+               geo.rows * nz,
+               make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  else
+    load_lines_async(xr, xi,
+                     plane_base(cluster, ny, nz) +
+                         (long long)cluster.block_rank() * geo.rows * nz,
+                     geo.rows * nz,
+                     make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz), smem);
+  __syncthreads();
+  for (int k = 0; k < 4; ++k) {
+    const int kk = inverse ? (k + 2) & 3 : k;
+    const bool y = kk >= 2;
+    if (k == 2) {
+      if constexpr (inverse)
+        pull_rows(cluster, smem, nz, geo.rows, geo.cols,
+                  make_map(nz, geo.sz, false, pz1.n, pz2.n, geo.pz),
+                  (int)cluster.block_rank() * geo.rows,
+                  RowPerm{make_div(py2.n), py1.n});
+      else
+        push_columns(cluster, smem, nz, geo.rows, geo.cols,
+                     make_map(nz, geo.sz, true, pz1.n, pz2.n, geo.pz),
+                     (int)cluster.block_rank() * geo.rows);
+    }
+    const bool row = (kk & 1) == 1;
+    const int n1 = y ? py1.n : pz1.n, n2 = y ? py2.n : pz2.n;
+    const Pass g =
+        y ? (row ? Pass{geo.cols * n2, 1, n1 * geo.cols, geo.cols, make_div(n2)}
+                 : Pass{geo.cols * n1, 1, geo.cols, n1 * geo.cols, make_div(n1)})
+          : (row ? Pass{geo.rows * n2, geo.sz, geo.pz, 1, make_div(n2)}
+                 : Pass{geo.rows * n1, geo.sz, 1, geo.pz, make_div(n1)});
+    const float2* tlo = smem + geo.area + (y ? geo.twy : geo.twz);
+    // With n2 = 1 the twiddle is the scale alone, skipped when it is 1.
+    const bool twiddled =
+        n2 > 1 || tlo[kTwLo].x != 1.f || tlo[kTwLo].y != 0.f;
+    const bool fuse = twiddled && row == (n2 == 1);
+    const int which = (y ? 2 : 0) + (row ? 0 : 1);
+    run_pass(smem, g,
+             which == 0 ? pz1 : which == 1 ? pz2 : which == 2 ? py1 : py2,
+             smem + geo.area + (which == 0   ? 0
+                                : which == 1 ? geo.z2
+                                : which == 2 ? geo.y1
+                                             : geo.y2),
+             InterTwiddleT<float2>{fuse ? tlo : nullptr, tlo + kTwLo});
+  }
+  if constexpr (inverse)
+    store_lines(smem, make_map(nz, geo.sz, true, pz1.n, pz2.n, geo.pz), yr,
+                yi,
+                plane_base(cluster, ny, nz) +
+                    (long long)cluster.block_rank() * geo.rows * nz,
+                geo.rows * nz);
+  else
+    store_columns_tl(smem, ny, geo.cols, RowPerm{make_div(py2.n), py1.n}, yr,
+                     yi,
+                     plane_base(cluster, ny, nz) +
+                         (long long)cluster.block_rank() * geo.cols * ny);
+}
+
+template <int kInverse>
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_tl_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                   Plan pz1, Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                   const float2* tz2, const float2* ty1, const float2* ty2,
+                   const float2* twz, const float2* twy, Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block_tl<kInverse>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2,
+                          ty1, ty2, twz, twy, geo);
+}
+
+template <int kInverse>
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_tl_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, Plan pz1, Plan pz2, Plan py1, Plan py2,
+                       const float2* tz1, const float2* tz2,
+                       const float2* ty1, const float2* ty2,
+                       const float2* twz, const float2* twy, Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block_tl<kInverse>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2,
+                          ty1, ty2, twz, twy, geo);
+}
+
+template <int kInverse>
+__global__ void __launch_bounds__(kThreads, 1)
+fft_pair_tl_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi, Plan pz1,
+                        Plan pz2, Plan py1, Plan py2, const float2* tz1,
+                        const float2* tz2, const float2* ty1,
+                        const float2* ty2, const float2* twz,
+                        const float2* twy, Geo geo) {
+  extern __shared__ __align__(16) float2 smem[];
+  pair_block_tl<kInverse>(smem, xr, xi, yr, yi, pz1, pz2, py1, py2, tz1, tz2,
+                          ty1, ty2, twz, twy, geo);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -512,16 +751,8 @@ int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
                     &geo))
     return (int)cudaErrorInvalidValue;
   if constexpr (kWindow) {
-    const int nz = pz1.n * pz2.n, ny = py1.n * py2.n;
-    if (window == nullptr) return (int)cudaErrorInvalidValue;
-    for (int k = 0; k < 8; ++k)
-      if (window[k] < 0 || (k >= 2 && window[k] > 0x7fffffffLL))
-        return (int)cudaErrorInvalidValue;
-    const PairWindow w{window[0],      window[1],      (int)window[2],
-                       (int)window[3], (int)window[4], (int)window[5],
-                       (int)window[6], (int)window[7]};
-    if (w.ky < 1 || w.ky > ny || w.kz < 1 || w.kz > nz || w.oy < 1 ||
-        w.oy > ny || w.oz < 1 || w.oz > nz)
+    PairWindow w;
+    if (!pair_window_from_ints(window, py1.n * py2.n, pz1.n * pz2.n, &w))
       return (int)cudaErrorInvalidValue;
     return vkfft::cluster::launch_cluster(
         kernel, planes, cluster, threads, (size_t)smem, stream, xr, xi, yr,
@@ -542,6 +773,10 @@ int launch(K kernel, int max_threads, const St* xr, const St* xi, St* yr,
         reinterpret_cast<const C*>(twiddle_y), geo);
   }
 }
+
+// Whether the int form of a plan is an inverse one (its third int; a
+// plan the launch's checks refuse picks either kernel).
+inline bool tl_inverse(const int* plan) { return plan != nullptr && plan[2]; }
 
 template <typename K>
 int occupancy(K kernel, int max_threads, int cluster, int threads, int smem,
@@ -624,6 +859,58 @@ int vk_fft_pair_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                         planes, plan_z1, plan_z2, plan_y1, plan_y2, table_z1,
                         table_z2, table_y1, table_y2, twiddle_z, twiddle_y,
                         cluster, threads, smem, stream);
+}
+
+// vk_fft_pair in the kept intermediate order (the tl form, fp32, fp16 and
+// bf16 planes): the forward reads natural (B, ny, nz) planes and writes
+// the transposed (B, nz, ny) planes of their spectrum; the inverse reads
+// those and writes natural planes.  Arguments and layout as vk_fft_pair's.
+int vk_fft_pair_tl(const float* xr, const float* xi, float* yr, float* yi,
+                   long long planes, const int* plan_z1, const int* plan_z2,
+                   const int* plan_y1, const int* plan_y2,
+                   const float* table_z1, const float* table_z2,
+                   const float* table_y1, const float* table_y2,
+                   const float* twiddle_z, const float* twiddle_y,
+                   int cluster, int threads, int smem, void* stream) {
+  return launch<float2>(tl_inverse(plan_z1) ? fft_pair_tl_kernel<1>
+                                            : fft_pair_tl_kernel<0>,
+                        kThreads, xr, xi, yr, yi, planes, plan_z1, plan_z2,
+                        plan_y1, plan_y2, table_z1, table_z2, table_y1,
+                        table_y2, twiddle_z, twiddle_y, cluster, threads,
+                        smem, stream);
+}
+
+int vk_fft_pair_tl_f16(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, long long planes, const int* plan_z1,
+                       const int* plan_z2, const int* plan_y1,
+                       const int* plan_y2, const float* table_z1,
+                       const float* table_z2, const float* table_y1,
+                       const float* table_y2, const float* twiddle_z,
+                       const float* twiddle_y, int cluster, int threads,
+                       int smem, void* stream) {
+  return launch<float2>(tl_inverse(plan_z1) ? fft_pair_tl_f16_kernel<1>
+                                            : fft_pair_tl_f16_kernel<0>,
+                        kThreads, xr, xi, yr, yi, planes, plan_z1, plan_z2,
+                        plan_y1, plan_y2, table_z1, table_z2, table_y1,
+                        table_y2, twiddle_z, twiddle_y, cluster, threads,
+                        smem, stream);
+}
+
+int vk_fft_pair_tl_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi,
+                        long long planes, const int* plan_z1,
+                        const int* plan_z2, const int* plan_y1,
+                        const int* plan_y2, const float* table_z1,
+                        const float* table_z2, const float* table_y1,
+                        const float* table_y2, const float* twiddle_z,
+                        const float* twiddle_y, int cluster, int threads,
+                        int smem, void* stream) {
+  return launch<float2>(tl_inverse(plan_z1) ? fft_pair_tl_bf16_kernel<1>
+                                            : fft_pair_tl_bf16_kernel<0>,
+                        kThreads, xr, xi, yr, yi, planes, plan_z1, plan_z2,
+                        plan_y1, plan_y2, table_z1, table_z2, table_y1,
+                        table_y2, twiddle_z, twiddle_y, cluster, threads,
+                        smem, stream);
 }
 
 // vk_fft_pair under a zero-pad window: `window` points to the 8 ints of
@@ -715,6 +1002,12 @@ int vk_fft_pair_f16_occupancy(int cluster, int threads, int smem,
 int vk_fft_pair_bf16_occupancy(int cluster, int threads, int smem,
                                int* clusters, int* blocks) {
   return occupancy(fft_pair_bf16_kernel, kThreads, cluster, threads, smem,
+                   clusters, blocks);
+}
+
+int vk_fft_pair_tl_occupancy(int cluster, int threads, int smem,
+                             int* clusters, int* blocks) {
+  return occupancy(fft_pair_tl_kernel<0>, kThreads, cluster, threads, smem,
                    clusters, blocks);
 }
 

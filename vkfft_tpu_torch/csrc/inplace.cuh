@@ -747,6 +747,58 @@ __device__ void load_lines_async(const Real<C>* xr, const Real<C>* xi,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// A zero-pad window on a plane pass (fft_pair.cu's windowed entries,
+// fft_conv_pair.cu's windowed 2-D mode): the input's rows y < ky and columns
+// z < kz of plane b (at real offset b * in_plane + y * in_row + z) are
+// read and the rest of the plane is declared zero, never read; the
+// output's rows y < oy and columns z < oz are written, at b * out_plane +
+// y * out_row + z.
+struct PairWindow {
+  long long in_plane, out_plane;
+  int in_row, out_row, ky, kz, oy, oz;
+};
+
+// A PairWindow from its 8 ints (in_plane, out_plane, in_row, out_row, ky,
+// kz, oy, oz), or false where they are not one of an (ny, nz) plane:
+// corners of 1..ny rows and 1..nz columns, pitches that fit an int.
+inline bool pair_window_from_ints(const long long* v, int ny, int nz,
+                                  PairWindow* w) {
+  if (v == nullptr) return false;
+  for (int k = 0; k < 8; ++k)
+    if (v[k] < 0 || (k >= 2 && v[k] > 0x7fffffffLL)) return false;
+  *w = PairWindow{v[0],      v[1],      (int)v[2], (int)v[3],
+                  (int)v[4], (int)v[5], (int)v[6], (int)v[7]};
+  return w->ky >= 1 && w->ky <= ny && w->kz >= 1 && w->kz <= nz &&
+         w->oy >= 1 && w->oy <= ny && w->oz >= 1 && w->oz <= nz;
+}
+
+// The block's row tile (rows r0.. of its plane) under a window, point by
+// point: a declared-zero point is a zero written to shared memory.
+template <class C, class St>
+__device__ void load_rows_window(const St* xr, const St* xi, long long g0,
+                                 int r0, int rows, const PairWindow& w,
+                                 const Map& mp, C* home) {
+  const int nz = (int)mp.dn.d;
+  for (int u = threadIdx.x; u < rows * nz; u += blockDim.x) {
+    const int r = quot(u, mp.dn);
+    const int z = u - r * nz;
+    C* d = home + position(u, mp);
+    if (r0 + r >= w.ky || z >= w.kz) {
+      *d = cx<C>(Real<C>(0), Real<C>(0));
+      continue;
+    }
+    const long long g = g0 + (long long)(r0 + r) * w.in_row + z;
+    if constexpr (kNarrow<St>) {
+      *d = cx<C>(widen(xr[g]), widen(xi[g]));
+    } else {
+      Real<C>* p = reinterpret_cast<Real<C>*>(d);
+      cp_async_real(p, xr + g);
+      cp_async_real(p + 1, xi + g);
+    }
+  }
+  if constexpr (!kNarrow<St>) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)

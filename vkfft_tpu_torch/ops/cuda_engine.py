@@ -114,8 +114,15 @@ corner of wider planes in place through its strides (planes of two
 layouts, or whose last dim is not contiguous, are copied first:
 `_one_layout`), and off those kernels honours the window with a mask and
 a slice (``pallas_engine.fft_axis_p``'s contract).
-Bluestein's read window and the convolution kernels' windows are queue 1
-item 8.2.
+`fft_conv_pair`'s 2-D mode takes the (ky, kz) / (oy, oz) corners of the
+"pair" fusion mode (`conv_fused_pair`'s ``in_keep`` / ``out_keep``);
+Bluestein's read window is queue 1 item 8.3.
+
+The kept intermediate order (``keep_intermediate_order``):
+`keep_order_kernel` names the form of a minor-axis DIRECT plan,
+`keep_order_lines_p` runs it (`fft_lines`' tl entry, `fft_twofactor`
+swapped at `ck.split_lane_major`), `keep_order_pair_p` the 2-D pair
+(`fft_pair`'s tl entry, transposed planes).
 
 What raises ``NotImplementedError`` naming its ROADMAP item: float64 on
 every route but the fp64 kernels' DIRECT lengths, float64 real data and
@@ -128,6 +135,7 @@ here falls back to the plain engine or to a kernel's plain version.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -720,6 +728,86 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
     return _rader_p(x, n, scale, kernel)
 
 
+def keep_order_kernel(plan: AxisPlan) -> Optional[str]:
+    """What runs lines of ``plan`` in the kept intermediate order (the
+    JAX package's ``keep_intermediate_order`` branches on its ``pallas``
+    engine, ``vkfft_tpu/api.py:449-477``): "tiny" for n = 2..4 (tensor
+    butterflies, natural order), "fft_lines" for the DIRECT lengths `route`
+    runs there (its tl entry: the swapped digit order of `ck.lines_split`),
+    "fft_twofactor" for those it runs in `fft_twofactor` where the JAX
+    package's v2 kernel takes them (`ck.split_lane_major` with n1 >= 8: its
+    swapped order of that split); None elsewhere (natural order).  Kept
+    per length (the plan is plan_axis(n)'s)."""
+    return _keep_order_kernel(plan.n)
+
+
+@functools.lru_cache(maxsize=4096)
+def _keep_order_kernel(n: int) -> Optional[str]:
+    plan = plan_axis(n)
+    if plan.algorithm is not Algorithm.DIRECT or n < 2:
+        return None
+    if n <= 4:
+        return "tiny"
+    kernel = route(plan)[0][0]
+    if kernel == "fft_lines":
+        return kernel
+    split = ck.split_lane_major(n)
+    if kernel == "fft_twofactor" and split is not None and split[0] >= 8:
+        return kernel
+    return None
+
+
+def keep_order_split(plan: AxisPlan, dtype: torch.dtype) -> tuple:
+    """The (n1, n2) digit order of `keep_order_lines_p` on lines of
+    ``plan`` and ``dtype``: bin k1 * n2 + k2 at k2 * n1 + k1, natural where
+    n2 = 1."""
+    kernel = keep_order_kernel(plan)
+    if kernel == "fft_lines":
+        return ck.lines_split(plan.n, dtype)
+    if kernel == "fft_twofactor":
+        return ck.split_lane_major(plan.n)
+    return (plan.n, 1)
+
+
+def keep_order_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
+                       scale: float = 1.0) -> Planar:
+    """(B, n) lines in the kept intermediate order of `keep_order_kernel`:
+    the forward from natural order to `keep_order_split`'s, the inverse
+    back, in one launch (`fft_lines`' tl entry, or `fft_twofactor` swapped
+    at `ck.split_lane_major`)."""
+    _check_dtype(x, _storage)
+    kernel = keep_order_kernel(plan)
+    n = plan.n
+    if kernel == "tiny":
+        return _tiny_dft_p(x, n, inverse, scale)
+    x = x.contiguous()
+    if kernel == "fft_lines":
+        return Planar(*ck.fft_lines(x.re, x.im, inverse, scale, tl=True))
+    if kernel == "fft_twofactor":
+        return Planar(*ck.fft_twofactor(x.re, x.im, inverse, scale,
+                                        swapped=True,
+                                        split=ck.split_lane_major(n)))
+    raise ValueError(f"length {n} has no kept order (keep_order_kernel)")
+
+
+def keep_order_pair_p(x: Planar, ny: int, nz: int, inverse: bool = False,
+                      scale: float = 1.0) -> Planar:
+    """The 2-D pair in the kept intermediate order, one `fft_pair` tl
+    launch: the forward from (..., ny, nz) planes to the transposed (...,
+    nz, ny) planes of their spectrum, the inverse back (the JAX package's
+    ``fft_pair_tl_planar``)."""
+    _check_dtype(x, lambda dt: _storage(dt) and pair_supports(ny, nz, dt))
+    want = (nz, ny) if inverse else (ny, nz)
+    if x.shape[-2:] != want:
+        raise ValueError(f"minor axes are {x.shape[-2:]}, not {want}")
+    lead = x.shape[:-2]
+    x = x.contiguous()
+    a, b = want
+    rr, ii = ck.fft_pair(x.re.reshape(-1, a, b), x.im.reshape(-1, a, b),
+                         inverse, scale, tl=True)
+    return Planar(rr.reshape(*lead, b, a), ii.reshape(*lead, b, a))
+
+
 def _one_layout(x: Planar) -> Planar:
     """``x`` where both planes share one layout with a contiguous last dim,
     as the windowed kernels read them in place through one set of strides;
@@ -1014,7 +1102,16 @@ def conv_route(config, kernel_ndim: int) -> Optional[str]:
     "pair" for N-D where the (ny, nz) plane fits a cluster of
     `fft_conv_pair`; "v3_rows" for N-D where it does not but `fft_conv`
     takes the last axis; "v3_mat" for 1-D m x m where
-    `conv_matrix_supports` holds."""
+    `conv_matrix_supports` holds.
+
+    Zero-pad windows do not change the mode.  The "pair" mode elides prefix
+    windows in its kernels (`ConvolutionApplication._pair_windows`); every
+    other window, and every window of the other modes, is a mask around
+    the fused call.  Where the JAX package falls back to its composition
+    under an output window (an output window off the minor pair's
+    prefixes, or any output window off the pair mode,
+    ``vkfft_tpu/transforms/conv.py:137-158, 189-190``), the port keeps its
+    fused mode and masks: the values agree."""
     m, shape = config.matrix_convolution, config.shape
     ndim, n = len(shape), shape[-1]
     if (config.number_kernels != 1 or config.coordinate_features not in (1, m)
@@ -1104,15 +1201,42 @@ def conv_fused_v3_matrix(x: Planar, n: int, m: int, table: torch.Tensor,
 
 def conv_fused_pair(x: Planar, ny: int, nz: int, table: torch.Tensor,
                     scale: float, conj_data: bool = False, xpow: bool = False,
-                    donate: bool = False) -> Planar:
+                    donate: bool = False, in_keep=None,
+                    out_keep=None) -> Planar:
     """Circular convolution over the two minor axes of (..., ny, nz) planes
     in one `fft_conv_pair` launch (``pallas_engine.py:2392
-    conv_fused_pair``, without its zero-pad windows): ``table`` holds the
-    (ny, nz) spectrum or (hp, ny, nz) per-slice spectra in natural order
-    (the TPU's is the (nz, ny) transpose), plane b of the flattened batch
-    multiplied by spectrum b % hp."""
+    conv_fused_pair``): ``table`` holds the (ny, nz) spectrum or (hp, ny,
+    nz) per-slice spectra in natural order (the TPU's is the (nz, ny)
+    transpose), plane b of the flattened batch multiplied by spectrum b %
+    hp.
+
+    Zero-pad corners (the reference's ``in_keep`` / ``out_keep``): with
+    ``in_keep`` = (ky, kz) only that corner of each plane is read, the
+    rest declared zero (the planes may be (..., ny, nz) or the corner
+    itself, a view read in place); with ``out_keep`` = (oy, oz) only that
+    corner is written, (..., oy, oz) planes; 0 for an axis without a keep
+    (the 2-D mode's windowed entry)."""
     _check_dtype(x, _storage)
     shape = x.shape
+    ky, kz = in_keep or (0, 0)
+    oy, oz = out_keep or (0, 0)
+    if (ky, kz, oy, oz) != (0, 0, 0, 0):
+        if shape[-2] not in (ny, ky) or shape[-1] not in (nz, kz):
+            raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)} "
+                             f"or the ({ky}, {kz}) corner")
+        x = _one_layout(x)
+        lead = ck.merged_dims(shape[:-2], x.re.stride()[:-2])
+        if len(lead) > 1:   # planes of more than one stride
+            x = x.contiguous()
+            lead = ck.merged_dims(shape[:-2], x.re.stride()[:-2])
+        dims = (lead or [(1, 0)]) + [(shape[-2], x.re.stride(-2)),
+                                     (shape[-1], x.re.stride(-1))]
+        rr, ii = ck.fft_conv_pair(*_views(x, dims), table,
+                                  conj_data=conj_data, xpow=xpow, scale=scale,
+                                  in_keep=(ky, kz), out_keep=(oy, oz),
+                                  plane=(ny, nz))
+        out = shape[:-2] + (oy or ny, oz or nz)
+        return Planar(rr.reshape(out), ii.reshape(out))
     if shape[-2:] != (ny, nz):
         raise ValueError(f"minor axes are {shape[-2:]}, not {(ny, nz)}")
     x = x.contiguous()

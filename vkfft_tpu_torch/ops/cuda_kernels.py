@@ -104,6 +104,18 @@ the declared-zero input never read and held as zeros in shared memory,
 the output cropped or written with exact zeros, the planes read in place
 through their strides (a corner of wider planes).  Their kernels are
 instantiations of their own, so the unwindowed kernels compile as before.
+`fft_conv_pair`'s 2-D mode has windowed entries too (``vk_fft_conv2d_zp``,
+``_f16``, ``_bf16``, `ZP_CONV2D_ENTRIES`: `_conv_pair_kernel`'s in_keep /
+out_keep corners).
+
+`fft_lines` and `fft_pair` have tl entries (`TL_KERNELS`; C entries
+``vk_<name>_tl``, ``_f16``, ``_bf16``, counted in `tl_launches`): the
+keep_intermediate_order forms of the TPU kernels they replace, `fft_lines`
+leaving a two-factor line in its factors' swapped digit order (`tl_order`)
+and `fft_pair` the transposed (nz, ny) planes of the spectrum, and reading
+them back.  `fft_twofactor` takes its factors from its caller (``split``),
+so the kept order of the JAX package's v2 lengths, `split_lane_major`'s,
+runs on it.
 
 The FFT kernels are bound by bytes (one read and one write of each point)
 and keep every stage of a line or column tile in shared memory; the source
@@ -302,7 +314,21 @@ ZP_DTYPES = {name: ((torch.float32,) + STORAGE_DTYPES
              for name in ZP_KERNELS}
 ZP_ENTRIES = tuple(name + "_zp" + _SUFFIX[dt] for name in ZP_KERNELS
                    for dt in ZP_DTYPES[name])
-zp_launches = {entry: 0 for entry in ZP_ENTRIES}
+# fft_conv_pair's 2-D mode has windowed entries too (``vk_fft_conv2d_zp``,
+# ``_f16``, ``_bf16``: _conv_pair_kernel's in_keep / out_keep), counted in
+# `zp_launches` beside the four kernels'.
+ZP_CONV2D_ENTRIES = tuple("fft_conv2d_zp" + _SUFFIX[dt]
+                          for dt in (torch.float32,) + STORAGE_DTYPES)
+zp_launches = {entry: 0 for entry in ZP_ENTRIES + ZP_CONV2D_ENTRIES}
+
+# The kernels with entries in the kept intermediate order (the reference's
+# keep_intermediate_order, its tl layouts): C entries ``vk_<name>_tl`` and
+# their ``_f16``, ``_bf16`` twins in the kernel's own source, counted apart
+# in `tl_launches` by entry (``fft_lines_tl``, ``fft_pair_tl_bf16``, ...).
+TL_KERNELS = ("fft_lines", "fft_pair")
+TL_ENTRIES = tuple(name + "_tl" + _SUFFIX[dt] for name in TL_KERNELS
+                   for dt in (torch.float32,) + STORAGE_DTYPES)
+tl_launches = {entry: 0 for entry in TL_ENTRIES}
 
 
 def zp_entry(name: str, dtype: torch.dtype) -> str:
@@ -311,7 +337,8 @@ def zp_entry(name: str, dtype: torch.dtype) -> str:
 
 
 def reset_launches() -> None:
-    for counts in (launches, f64_launches, storage_launches, zp_launches):
+    for counts in (launches, f64_launches, storage_launches, zp_launches,
+                   tl_launches):
         for name in counts:
             counts[name] = 0
 
@@ -423,6 +450,37 @@ def twofactor_split(n: int) -> Optional[tuple[int, int]]:
                 and n1 <= TWOFACTOR_TILE):
             best = (n1, n2)
     return best
+
+
+@functools.lru_cache(maxsize=4096)
+def split_lane_major(n: int) -> Optional[tuple[int, int]]:
+    """(n1, n2) of the JAX package's v2 kernel, its ``split_lane_major``
+    (``pallas_engine.py:857``): n1 the largest divisor of n up to 128, n2 =
+    n // n1, None where n2 > 128.  The port's own copy: the digit order of
+    the keep_intermediate_order route on `fft_twofactor`'s lengths, which
+    `fft_twofactor` takes as its ``split`` (its own rule, `twofactor_split`,
+    picks other factors at 121 lengths from 8208 on, 8208 as (108, 76)
+    where this gives (114, 72)).  n1 >= n2 always: a larger n2 would be a
+    divisor up to 128 above n1."""
+    best = next(((n1, n // n1) for n1 in range(min(n, 128), 0, -1)
+                 if n % n1 == 0), None)
+    return best if best is not None and best[1] <= 128 else None
+
+
+def _check_split(n: int, split, what: str) -> tuple[int, int]:
+    """``split`` (n1, n2) of `fft_twofactor` at length n, or its own
+    `twofactor_split` for None: n = n1 * n2, n1 >= n2, each factor a
+    Stockham run (n2 may be 1), n1 <= TWOFACTOR_TILE."""
+    if split is None:
+        return twofactor_split(n)
+    n1, n2 = (int(f) for f in split)
+    if not (n1 * n2 == n and n1 >= n2 >= 1 and n1 <= TWOFACTOR_TILE
+            and stage_radices(n1) is not None
+            and (n2 == 1 or stage_radices(n2) is not None)):
+        raise ValueError(f"{what}: ({n1}, {n2}) is no split of {n} "
+                         "(n1 * n2 = n, n1 >= n2, each a Stockham run, n1 <= "
+                         f"{TWOFACTOR_TILE})")
+    return n1, n2
 
 
 def twofactor_supports(n: int, dtype: torch.dtype = torch.float32) -> bool:
@@ -1681,14 +1739,16 @@ def _occupancy(name: str, threads: int, smem: int,
 
 
 @functools.lru_cache(maxsize=4096)
-def twofactor_layout(n: int) -> tuple[int, int, int]:
+def twofactor_layout(n: int, split: Optional[tuple] = None
+                     ) -> tuple[int, int, int]:
     """(threads, lines, shared bytes) of an `fft_twofactor` block for
-    length n, the one layout rule (the C entry refuses any other).  A block
-    holds ``lines`` = max(1, 2048 // n) lines, each once as the (n2, n1)
-    matrix with an odd row pitch n1 | 1 in float2, beside both factors'
-    stage tables and the twiddle's two tables; ``threads`` is a multiple
-    of 32 near one thread for 8 points, at most 512."""
-    n1, n2 = twofactor_split(n)
+    length n at ``split`` (default `twofactor_split`), the one layout rule
+    (the C entry refuses any other).  A block holds ``lines`` = max(1,
+    2048 // n) lines, each once as the (n2, n1) matrix with an odd row
+    pitch n1 | 1 in float2, beside both factors' stage tables and the
+    twiddle's two tables; ``threads`` is a multiple of 32 near one thread
+    for 8 points, at most 512."""
+    n1, n2 = split or twofactor_split(n)
     lines = max(1, TWOFACTOR_BLOCK_POINTS // n)
     points = (lines * n2 * (n1 | 1) + _table_points(n1) + _table_points(n2)
               + TWOFACTOR_TW_LO + -(-n // TWOFACTOR_TW_LO))
@@ -1919,17 +1979,36 @@ def _window_lines_out(y: Planar, w: LineWindow, lead: tuple):
 
 @_storage_plain
 def fft_lines_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                    scale: float = 1.0, window: Optional[LineWindow] = None):
+                    scale: float = 1.0, window: Optional[LineWindow] = None,
+                    tl: bool = False):
     """Plain torch version of `fft_lines`; with ``window``, of its
     windowed entry: the read points of the lines (..., L), zeros elsewhere,
-    transformed, then cropped or filled (`LineWindow`)."""
+    transformed, then cropped or filled (`LineWindow`); with ``tl``, of its
+    tl entry: the forward's output and the inverse's input in the swapped
+    digit order of `lines_split` (`tl_order`)."""
     if window is not None:
         y = torch_engine.lines_plain(_window_lines_in(re, im, window),
                                      plan_axis(window.n), inverse, scale)
         return _window_lines_out(y, window, re.shape[:-1])
-    y = torch_engine.lines_plain(Planar(re, im), plan_axis(re.shape[1]),
-                                 inverse, scale)
-    return y.re, y.im
+    n = re.shape[1]
+    x = Planar(re, im)
+    if tl and inverse:
+        x = tl_order(x, lines_split(n, re.dtype), natural=True)
+    y = torch_engine.lines_plain(x, plan_axis(n), inverse, scale)
+    if tl and not inverse:
+        y = tl_order(y, lines_split(n, re.dtype))
+    return y.re.contiguous(), y.im.contiguous()
+
+
+def tl_order(x: Planar, split, natural: bool = False) -> Planar:
+    """(B, n) lines of natural order in the swapped digit order of
+    ``split`` = (n1, n2), bin k1 * n2 + k2 at k2 * n1 + k1 (`fft_lines`'
+    and `fft_twofactor`'s forward with the order kept); with ``natural``
+    the other way.  A split of one factor (n2 = 1) is the natural order."""
+    n1, n2 = split
+    if n2 == 1:
+        return x
+    return swap_digits(x, n2, n1) if natural else swap_digits(x, n1, n2)
 
 
 def _factor_planes(f: Factor, P: int, n: int, S: int, device) -> Planar:
@@ -2026,17 +2105,29 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
 
 @_storage_plain
 def fft_pair_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
-                   scale: float = 1.0, window: Optional[tuple] = None):
+                   scale: float = 1.0, window: Optional[tuple] = None,
+                   tl: bool = False):
     """Plain torch version of `fft_pair`: the z axis as lines, then the y
     axis as a strided pass with the scale.  With ``window`` = (ny, nz, ky,
     kz, oy, oz), of its windowed entry: the (ky, kz) corner of each plane
-    (B, Ry, Rz), zeros to (ny, nz), transformed, the (oy, oz) corner kept."""
+    (B, Ry, Rz), zeros to (ny, nz), transformed, the (oy, oz) corner kept.
+    With ``tl``, of its tl entry: the forward writes, and the inverse
+    reads, the transposed (B, nz, ny) planes of the spectrum."""
     if window is not None:
         ny, nz, ky, kz, oy, oz = window
         x = [torch.nn.functional.pad(t[:, :ky, :kz], (0, nz - kz, 0, ny - ky))
              for t in (re, im)]
         yr, yi = fft_pair_plain(*x, inverse, scale)
         return (yr[:, :oy, :oz].contiguous(), yi[:, :oy, :oz].contiguous())
+    if tl:
+        # the transposed (B, nz, ny) planes of the spectrum: the forward's
+        # output, the inverse's input
+        if inverse:
+            re, im = (t.transpose(1, 2).contiguous() for t in (re, im))
+        yr, yi = fft_pair_plain(re, im, inverse, scale)
+        if inverse:
+            return yr, yi
+        return yr.transpose(1, 2).contiguous(), yi.transpose(1, 2).contiguous()
     B, ny, nz = re.shape
     zr, zi = fft_lines_plain(re.reshape(B * ny, nz), im.reshape(B * ny, nz),
                              inverse)
@@ -2149,17 +2240,19 @@ def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
 @_storage_plain
 def fft_twofactor_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                         scale: float = 1.0, swapped: bool = False,
-                        window: Optional[LineWindow] = None):
+                        window: Optional[LineWindow] = None,
+                        split: Optional[tuple] = None):
     """Plain torch version of `fft_twofactor`: the DFT of each line times
     ``scale``; with ``swapped`` the forward's output and the inverse's input
-    are in the swapped digit order of `twofactor_split`.  With ``window``,
-    of its windowed entry (natural order), as `fft_lines_plain`'s."""
+    are in the swapped digit order of ``split`` (default
+    `twofactor_split`).  With ``window``, of its windowed entry (natural
+    order), as `fft_lines_plain`'s."""
     if window is not None:
         y = torch_engine.lines_plain(_window_lines_in(re, im, window),
                                      plan_axis(window.n), inverse, scale)
         return _window_lines_out(y, window, re.shape[:-1])
     n = re.shape[1]
-    n1, n2 = twofactor_split(n)
+    n1, n2 = _check_split(n, split, "fft_twofactor")
     x = Planar(re, im)
     if inverse and swapped:
         x = swap_digits(x, n2, n1)
@@ -2190,13 +2283,22 @@ def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
                         spectrum: torch.Tensor,
                         chirp: Optional[torch.Tensor] = None,
                         conj_data: bool = False, xpow: bool = False,
-                        scale: float = 1.0):
+                        scale: float = 1.0, window: Optional[tuple] = None):
     """Plain torch version of `fft_conv_pair`.  With ``chirp`` (Bluestein
     mode): `fft_conv_plain` with the spectrum back in natural order.
     Without (2-D mode, (B, ny, nz) planes): the 2-D DFT of each plane
     (conjugated with ``conj_data``) times spectrum b % hp of the (hp, ny,
     nz) table, divided by its modulus with ``xpow``, and the inverse 2-D
-    DFT times ``scale``."""
+    DFT times ``scale``.  With ``window`` = (ny, nz, ky, kz, oy, oz), of the
+    2-D mode's windowed entry: the (ky, kz) corner of each plane (B, Ry,
+    Rz), zeros to (ny, nz), convolved, the (oy, oz) corner kept."""
+    if window is not None:
+        ny, nz, ky, kz, oy, oz = window
+        x = [torch.nn.functional.pad(t[:, :ky, :kz], (0, nz - kz, 0, ny - ky))
+             for t in (re, im)]
+        yr, yi = fft_conv_pair_plain(*x, spectrum, None, conj_data, xpow,
+                                     scale)
+        return (yr[:, :oy, :oz].contiguous(), yi[:, :oy, :oz].contiguous())
     if chirp is not None:
         m = spectrum.shape[0]
         nc, ns, _ = conv_pair_plan(m)
@@ -2453,10 +2555,22 @@ def _with_windows(entries: dict) -> dict:
             sig = "ppppqpppppiii"
         for dt in ZP_DTYPES[name]:
             out[name][zp_entry(name, dt)] = sig + "p"
+    for entry in ZP_CONV2D_ENTRIES:
+        out["fft_conv_pair"][entry] = entries["fft_conv_pair"]["fft_conv2d"] + "p"
     return out
 
 
-_ENTRIES = _with_windows(_with_instantiations(_ENTRIES))
+def _with_tl(entries: dict) -> dict:
+    """`_ENTRIES` with the tl C entries (`TL_ENTRIES`), each with its
+    kernel's arguments."""
+    out = {name: dict(sigs) for name, sigs in entries.items()}
+    for entry in TL_ENTRIES:
+        name = entry[:entry.index("_tl")]
+        out[name][entry] = entries[name][name]
+    return out
+
+
+_ENTRIES = _with_tl(_with_windows(_with_instantiations(_ENTRIES)))
 _CTYPES = {"p": ctypes.c_void_p, "q": ctypes.c_longlong, "i": ctypes.c_int,
            "f": ctypes.c_float}
 
@@ -2482,8 +2596,10 @@ def _launch(name: str, entry: str, device: torch.device, args,
     """One launch of C entry ``vk_<entry>`` of library ``name`` on the
     current stream of ``device``; tensors pass as their data pointers and
     ctypes arrays by address.  Raises on a refused launch and counts it
-    in `launches` otherwise (in `f64_launches` for a float64 instantiation,
-    in `storage_launches` under its entry for a half-storage one)."""
+    in `launches` otherwise (a tl or windowed entry in `tl_launches` or
+    `zp_launches` under its entry, a float64 instantiation in
+    `f64_launches`, a half-storage one in `storage_launches` under its
+    entry)."""
     lib = _library(name)
     c_args = [ctypes.addressof(a) if isinstance(a, ctypes.Array)
               else a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -2494,7 +2610,9 @@ def _launch(name: str, entry: str, device: torch.device, args,
     if err:
         msg = lib.vk_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
-    if entry in zp_launches:
+    if entry in tl_launches:
+        tl_launches[entry] += 1
+    elif entry in zp_launches:
         zp_launches[entry] += 1
     elif dtype == torch.float64:
         f64_launches[name] += 1
@@ -2732,7 +2850,7 @@ def _windowed_lines(name: str, re, im, inverse: bool, scale: float, out,
 
 def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
               scale: float = 1.0, out=None,
-              window: Optional[LineWindow] = None):
+              window: Optional[LineWindow] = None, tl: bool = False):
     """DFT of each line of (B, n) float32, float64, float16 or bfloat16
     planes, times ``scale``.  ``out`` may name the output planes, which may
     be the input planes themselves (in place).  CPU tensors run
@@ -2758,7 +2876,20 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     lines three strides address (a corner of wider planes, read in
     place; the identity window reads such a view whole), L = n or the
     kept prefix, and the output is (..., window.out).  Bound by the bytes of
-    the kept reads and writes."""
+    the kept reads and writes.
+
+    ``tl`` (float32, float16 or bfloat16 planes): the kept intermediate
+    order, the tl entry (``vk_fft_lines_tl`` and its half twins, counted in
+    `tl_launches`), which replaces ``_fft_kernel_v3``'s tl layout: the
+    forward writes each line in the swapped digit order of `lines_split`'s
+    (n1, n2), bin k1 * n2 + k2 at k2 * n1 + k1 (natural for a length of one
+    pass), and the inverse reads that order (`tl_order`).  The same
+    passes; the two-factor store and read skip the walk's transposed
+    shared-memory access."""
+    if tl:
+        if window is not None:
+            raise ValueError("fft_lines: a window runs natural order")
+        _check_planes(re, im, 2, "fft_lines", _HALF_DTYPES)
     if window is not None:
         n = window.n
         _check_length(n)
@@ -2786,7 +2917,8 @@ def fft_lines(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
         return (B, p1, p2, t1, t2, tw, *lines_layout(n, dt))
 
     return _apply("fft_lines", re, im, out,
-                  lambda: fft_lines_plain(re, im, inverse, scale), args)
+                  lambda: fft_lines_plain(re, im, inverse, scale, tl=tl), args,
+                  entry="fft_lines_tl" if tl else None)
 
 
 def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -2999,7 +3131,7 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
 
 def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
              scale: float = 1.0, out=None, in_keep=None, out_keep=None,
-             plane: Optional[tuple] = None):
+             plane: Optional[tuple] = None, tl: bool = False):
     """2-D DFT over the two minor axes of (B, ny, nz) float32, float64,
     float16 or bfloat16 planes, times ``scale``, in one pass.  ``out`` as
     for `fft_lines`.  CPU tensors run `fft_pair_plain`; CUDA tensors launch
@@ -3024,7 +3156,21 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     then be a view (B, Ry, Rz) with its last dim contiguous: a corner of
     wider planes read in place, or the cropped corner itself, of the
     (ny, nz) ``plane`` (default (Ry, Rz)).  Bound by the bytes of the kept
-    corners read and written."""
+    corners read and written.
+
+    ``tl`` (float32, float16 or bfloat16 planes): the kept intermediate
+    order, the tl entry (``vk_fft_pair_tl`` and its half twins, counted in
+    `tl_launches`), which replaces ``_pair_kernel``'s tl layout
+    (``fft_pair_tl_planar``): the forward takes (B, ny, nz) planes and
+    returns the transposed (B, nz, ny) planes of their spectrum, each axis
+    in natural order; the inverse takes those and returns (B, ny, nz)
+    planes.  The forward writes each column tile as rows of the transposed
+    plane, the inverse reads it so and runs the y axis first, so neither
+    moves the plane back between the cluster's blocks."""
+    if tl:
+        if in_keep is not None or out_keep is not None or plane is not None:
+            raise ValueError("fft_pair: corners run natural order")
+        return _fft_pair_tl(re, im, inverse, scale, out)
     if in_keep is not None or out_keep is not None or plane is not None:
         return _fft_pair_window(re, im, inverse, scale, out,
                                 in_keep or (0, 0), out_keep or (0, 0), plane)
@@ -3036,17 +3182,52 @@ def fft_pair(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     if pair_cluster(ny, nz, dt) is None:
         raise _no_cluster("fft_pair", ny, nz)
 
-    def args():
-        layout = pair_layout(ny, nz, dt)
-        (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz, dt)
-        plans = _walk_plans((n1z, n2z, n1y, n2y), inverse, re.device, dt)
-        tw = [_twiddle_pair(k, inverse, s, re.device, dt)
-              for k, s in ((nz, 1.0), (ny, scale))]
-        return (B, *(p for p, _ in plans), *(t for _, t in plans), *tw,
-                *layout)
-
     return _apply("fft_pair", re, im, out,
-                  lambda: fft_pair_plain(re, im, inverse, scale), args)
+                  lambda: fft_pair_plain(re, im, inverse, scale),
+                  lambda: (B, *_pair_args(ny, nz, inverse, scale, re.device,
+                                          dt)))
+
+
+def _pair_args(ny: int, nz: int, inverse: bool, scale: float, device,
+               dt: torch.dtype) -> tuple:
+    """`fft_pair`'s launch arguments after the batch: the plans, tables and
+    twiddles of its axes' factors, then its layout (`pair_layout`)."""
+    layout = pair_layout(ny, nz, dt)
+    (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz, dt)
+    plans = _walk_plans((n1z, n2z, n1y, n2y), inverse, device, dt)
+    tw = [_twiddle_pair(k, inverse, s, device, dt)
+          for k, s in ((nz, 1.0), (ny, scale))]
+    return (*(p for p, _ in plans), *(t for _, t in plans), *tw, *layout)
+
+
+def _fft_pair_tl(re, im, inverse: bool, scale: float, out):
+    """The tl mode of `fft_pair` (C entry ``vk_fft_pair_tl``): (B, ny, nz)
+    planes to the transposed (B, nz, ny) ones of the spectrum, or back."""
+    what = "fft_pair"
+    _check_planes(re, im, 3, what, _HALF_DTYPES)
+    B, a, b = re.shape
+    ny, nz = (b, a) if inverse else (a, b)
+    _check_length(ny)
+    _check_length(nz)
+    dt = re.dtype
+    if pair_cluster(ny, nz, dt) is None:
+        raise _no_cluster(what, ny, nz)
+    shape = (B, b, a)
+    _window_out(re, im, out, shape)
+    if re.device.type == "cpu":
+        yr, yi = fft_pair_plain(re, im, inverse, scale, tl=True)
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    yr, yi = out if out is not None else (re.new_empty(shape),
+                                          im.new_empty(shape))
+    if B:
+        _launch(what, "fft_pair_tl" + _SUFFIX[dt], re.device,
+                [re, im, yr, yi, B,
+                 *_pair_args(ny, nz, inverse, scale, re.device, dt)], dt)
+    return yr, yi
 
 
 def _fft_pair_window(re, im, inverse: bool, scale: float, out, in_keep,
@@ -3082,17 +3263,12 @@ def _fft_pair_window(re, im, inverse: bool, scale: float, out, in_keep,
     yr, yi = out if out is not None else (re.new_empty(shape),
                                           im.new_empty(shape))
     if B:
-        layout = pair_layout(ny, nz, dt)
-        (n1z, n2z), (n1y, n2y) = pair_splits(ny, nz, dt)
-        plans = _walk_plans((n1z, n2z, n1y, n2y), inverse, re.device, dt)
-        tw = [_twiddle_pair(k, inverse, s, re.device, dt)
-              for k, s in ((nz, 1.0), (ny, scale))]
         win = (ctypes.c_longlong * 8)(re.stride(0) if B > 1 else 0, oy * oz,
                                       re.stride(1) if Ry > 1 else Rz, oz,
                                       ky, kz, oy, oz)
         _launch(what, zp_entry(what, dt), re.device,
-                [re, im, yr, yi, B, *(p for p, _ in plans),
-                 *(t for _, t in plans), *tw, *layout, win], dt)
+                [re, im, yr, yi, B,
+                 *_pair_args(ny, nz, inverse, scale, re.device, dt), win], dt)
     return yr, yi
 
 
@@ -3295,8 +3471,8 @@ def _check_table(tab, length: int, like: torch.Tensor, what: str) -> None:
                          f"{like.device}")
 
 
-def _two_plans(n: int, inverse: bool, device):
-    n1, n2 = twofactor_split(n)
+def _two_plans(n: int, inverse: bool, device, split=None):
+    n1, n2 = split or twofactor_split(n)
     p1, t1 = _plan(n1, inverse, 1.0, device)
     p2, t2 = _plan(n2, inverse, 1.0, device)
     return p1, p2, t1, t2
@@ -3397,15 +3573,17 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 
 def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
                   scale: float = 1.0, swapped: bool = False, out=None,
-                  window: Optional[LineWindow] = None):
+                  window: Optional[LineWindow] = None,
+                  split: Optional[tuple] = None):
     """DFT of each line of (B, n) float32, float16 or bfloat16 planes, n =
-    n1*n2 (`twofactor_split`), times ``scale``.  The forward reads natural
-    order and writes natural order, or with ``swapped`` the digit order
-    [k2][k1] (position k2*n1 + k1 holds bin k1*n2 + k2); the inverse reads
-    natural or, with ``swapped``, that order and writes natural order.
-    ``out`` as for `fft_lines`.  CPU tensors run `fft_twofactor_plain`;
-    CUDA tensors launch the kernel (float16 / bfloat16: its half-storage
-    instantiation, computing in fp32).
+    n1*n2 (``split``, default `twofactor_split`; the keep_intermediate_order
+    route passes `split_lane_major`), times ``scale``.  The forward reads
+    natural order and writes natural order, or with ``swapped`` the digit
+    order [k2][k1] (position k2*n1 + k1 holds bin k1*n2 + k2); the inverse
+    reads natural or, with ``swapped``, that order and writes natural
+    order.  ``out`` as for `fft_lines`.  CPU tensors run
+    `fft_twofactor_plain`; CUDA tensors launch the kernel (float16 /
+    bfloat16: its half-storage instantiation, computing in fp32).
 
     Replaces ``vkfft_tpu/ops/pallas_engine.py:897 _fft_kernel_v2``.  Bound
     by bytes (16 B a point, one read and one write; 8 B on half planes): a
@@ -3438,14 +3616,17 @@ def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     _check_planes(re, im, 2, "fft_twofactor", _HALF_DTYPES)
     B, n = re.shape
     _check_twofactor(n, "fft_twofactor")
+    split = _check_split(n, split, "fft_twofactor")
 
     def args():
-        p1, p2, t1, t2 = _two_plans(n, inverse, re.device)
+        p1, p2, t1, t2 = _two_plans(n, inverse, re.device, split)
         tw = _twiddle_pair(n, inverse, scale, re.device)
-        return (B, p1, p2, t1, t2, tw, int(swapped), *twofactor_layout(n))
+        return (B, p1, p2, t1, t2, tw, int(swapped),
+                *twofactor_layout(n, split))
 
     return _apply("fft_twofactor", re, im, out,
-                  lambda: fft_twofactor_plain(re, im, inverse, scale, swapped),
+                  lambda: fft_twofactor_plain(re, im, inverse, scale, swapped,
+                                              split=split),
                   args)
 
 
@@ -3495,7 +3676,8 @@ def fft_conv_inv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
 def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
                   chirp: Optional[torch.Tensor] = None, out=None,
                   conj_data: bool = False, xpow: bool = False,
-                  scale: float = 1.0):
+                  scale: float = 1.0, in_keep=None, out_keep=None,
+                  plane: Optional[tuple] = None):
     """A plane held in a thread-block cluster, in one of two modes.
 
     With ``chirp`` (an (n, 2) table), the Bluestein mode: each line of (B,
@@ -3531,7 +3713,23 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     tile to the column tiles over distributed shared memory, runs the ny
     stages, multiplies in one sweep, and runs the inverse (the forward
     stages on conjugated data) back to its row tile, which it writes
-    (``csrc/fft_conv_pair.cu``)."""
+    (``csrc/fft_conv_pair.cu``).
+
+    Zero-pad corners of the 2-D mode (``in_keep`` = (ky, kz): only that
+    corner of each plane is read, the rest declared zero; ``out_keep`` =
+    (oy, oz): only that corner is written, (B, oy, oz) planes; 0 for an
+    axis without a keep) launch its windowed entry (``vk_fft_conv2d_zp``
+    and its half twins, counted in `zp_launches`), which replaces
+    ``_conv_pair_kernel``'s in_keep / out_keep: the planes may then be a
+    view (B, Ry, Rz) with its last dim contiguous, a corner of wider
+    planes read in place or the corner itself, of the (ny, nz) ``plane``
+    (default (Ry, Rz)); the rows past ky skip the forward's z stages, the
+    rows past oy the inverse's."""
+    if chirp is None and (in_keep is not None or out_keep is not None
+                          or plane is not None):
+        return _fft_conv2d_window(re, im, spectrum, out, conj_data, xpow,
+                                  scale, in_keep or (0, 0),
+                                  out_keep or (0, 0), plane)
     if chirp is None:
         return _fft_conv2d(re, im, spectrum, out, conj_data, xpow, scale)
     _check_planes(re, im, 2, "fft_conv_pair", _HALF_DTYPES)
@@ -3585,22 +3783,75 @@ def _fft_conv2d(re, im, spectrum, out, conj_data: bool, xpow: bool,
         raise ValueError(f"fft_conv_pair: a spectrum of (hp, {ny}, {nz}) "
                          f"points, got {L}")
     _check_table(spectrum, L, re, "fft_conv_pair")
-
-    def args():
-        dev = re.device
-        c, threads, smem, ((n1z, n2z), (n1y, n2y)) = conv2d_layout(ny, nz)
-        plans = [_plan(k, False, 1.0, dev, True) for k in (n1z, n2z, n1y, n2y)]
-        tw = [device_array(("twofactor_pair", k, False, 1.0), dev,
-                           lambda k=k: twofactor_twiddle_pair(k, False))
-              for k in (nz, ny)]
-        return (B, L // (ny * nz), _conv_flags(conj_data, xpow), scale,
-                *(p for p, _ in plans), *(t for _, t in plans), *tw,
-                spectrum, c, threads, smem)
-
     return _apply("fft_conv_pair", re, im, out,
                   lambda: fft_conv_pair_plain(re, im, spectrum, None,
                                               conj_data, xpow, scale),
-                  args, entry="fft_conv2d")
+                  lambda: (B, *_conv2d_args(ny, nz, L, spectrum, conj_data,
+                                            xpow, scale, re.device)),
+                  entry="fft_conv2d")
+
+
+def _conv2d_args(ny: int, nz: int, L: int, spectrum, conj_data: bool,
+                 xpow: bool, scale: float, dev) -> tuple:
+    """The 2-D mode's launch arguments after the batch: hp, flags, scale,
+    the plans, tables and twiddles of its axes' factors, the spectrum,
+    then its layout (`conv2d_layout`)."""
+    c, threads, smem, ((n1z, n2z), (n1y, n2y)) = conv2d_layout(ny, nz)
+    plans = [_plan(k, False, 1.0, dev, True) for k in (n1z, n2z, n1y, n2y)]
+    tw = [device_array(("twofactor_pair", k, False, 1.0), dev,
+                       lambda k=k: twofactor_twiddle_pair(k, False))
+          for k in (nz, ny)]
+    return (L // (ny * nz), _conv_flags(conj_data, xpow), scale,
+            *(p for p, _ in plans), *(t for _, t in plans), *tw,
+            spectrum, c, threads, smem)
+
+
+def _fft_conv2d_window(re, im, spectrum, out, conj_data: bool, xpow: bool,
+                       scale: float, in_keep, out_keep, plane):
+    """The windowed 2-D mode of `fft_conv_pair` (C entry
+    ``vk_fft_conv2d_zp``, its PairWindow)."""
+    what = "fft_conv_pair"
+    _check_view(re, im, what, _HALF_DTYPES, (3,))
+    B, Ry, Rz = re.shape
+    ny, nz = plane or (Ry, Rz)
+    _check_length(ny)
+    _check_length(nz)
+    if pair_cluster(ny, nz) is None:
+        raise _no_cluster(what, ny, nz)
+    ky = _check_keep(in_keep[0], ny, what) or ny
+    kz = _check_keep(in_keep[1], nz, what) or nz
+    oy = _check_keep(out_keep[0], ny, what) or ny
+    oz = _check_keep(out_keep[1], nz, what) or nz
+    if Ry not in (ny, ky) or Rz not in (nz, kz):
+        raise ValueError(f"{what}: ({Ry}, {Rz}) planes for a ({ky}, {kz}) "
+                         f"corner of ({ny}, {nz})")
+    L = _table_length(spectrum, what)
+    if L % (ny * nz) or not L:
+        raise ValueError(f"{what}: a spectrum of (hp, {ny}, {nz}) points, "
+                         f"got {L}")
+    _check_table(spectrum, L, re, what)
+    shape = (B, oy, oz)
+    _window_out(re, im, out, shape)
+    window = (ny, nz, ky, kz, oy, oz)
+    if re.device.type == "cpu":
+        yr, yi = fft_conv_pair_plain(re, im, spectrum, None, conj_data, xpow,
+                                     scale, window=window)
+        if out is None:
+            return yr, yi
+        out[0].copy_(yr)
+        out[1].copy_(yi)
+        return out
+    yr, yi = out if out is not None else (re.new_empty(shape),
+                                          im.new_empty(shape))
+    if B:
+        win = (ctypes.c_longlong * 8)(re.stride(0) if B > 1 else 0, oy * oz,
+                                      re.stride(1) if Ry > 1 else Rz, oz,
+                                      ky, kz, oy, oz)
+        _launch(what, "fft_conv2d_zp" + _SUFFIX[re.dtype], re.device,
+                [re, im, yr, yi, B,
+                 *_conv2d_args(ny, nz, L, spectrum, conj_data, xpow, scale,
+                               re.device), win], re.dtype)
+    return yr, yi
 
 
 # ---------------------------------------------------------------------------

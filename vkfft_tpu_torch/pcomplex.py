@@ -78,6 +78,60 @@ class Planar:
         return Planar(self.re, -self.im)
 
 
+@dataclasses.dataclass
+class TlSpectrum(Planar):
+    """The kept-intermediate-order spectrum: the ``keep_intermediate_order``
+    forward result of ``FFTApplication`` on its kernels' lengths (the JAX
+    package's ``TlSpectrum``, ``vkfft_tpu/pcomplex.py:84``; reference
+    ``disableReorderFourStep``, ``vkFFT_Structs.h:221``).
+
+    The planes hold the kernels' own layout.  1-D (``n2`` = 0): (*lead,
+    n) lines in the swapped digit order of ``split`` = (n1, n2): bin k1 *
+    n2 + k2 at k2 * n1 + k1 (natural where n2 = 1).  2-D pair (``n2`` > 0):
+    (*lead, n2, n) transposed planes holding the natural 2-D spectrum of
+    (n, n2) planes, as the JAX package's.  The round-trip contract rides
+    the value: ``lead`` (the leading dims), ``batch`` (their product),
+    ``n``/``n2`` (the transform lengths) and ``split``, so any application
+    of the same configuration inverts it.  Elementwise arithmetic (a
+    spectrum-domain table in the same layout, a scale) keeps the wrapper."""
+
+    lead: tuple = ()
+    batch: int = 0
+    n: int = 0
+    n2: int = 0
+    split: tuple = ()
+
+    def _like(self, p: Planar) -> "TlSpectrum":
+        return TlSpectrum(p.re, p.im, self.lead, self.batch, self.n, self.n2,
+                          self.split)
+
+    def __add__(self, other):
+        return self._like(Planar.__add__(self, other))
+
+    def __sub__(self, other):
+        return self._like(Planar.__sub__(self, other))
+
+    def __mul__(self, other):
+        return self._like(Planar.__mul__(self, other))
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def conj(self):
+        return self._like(Planar.conj(self))
+
+    def natural(self) -> Planar:
+        """The spectrum in natural order: (*lead, n) lines, or (*lead, n,
+        n2) planes of the 2-D pair."""
+        if self.n2:
+            return Planar(self.re.transpose(-1, -2).contiguous(),
+                          self.im.transpose(-1, -2).contiguous())
+        n1, n2 = self.split or (self.n, 1)
+        return Planar(*(t.reshape(*self.lead, n2, n1).transpose(-1, -2)
+                        .reshape(*self.lead, self.n)
+                        for t in (self.re, self.im)))
+
+
 def _torch_index(idx, shape, device):
     """A numpy-style index as torch takes it: integer arrays become index
     tensors on ``device``, and slices with a negative step (which torch

@@ -12,9 +12,20 @@ einsum and the cross-power normalization as torch ops, as the JAX package
 does.
 
 Like the reference, convolutions are circular; a linear convolution comes
-from zero padding (README.md:15-16): a config's ``zeropad_input`` masks the
-data before the forward pass and its ``zeropad_output`` the result after the
-inverse (`api.apply_zeropad`), on every mode.
+from zero padding (README.md:15-16): a config's ``zeropad_input`` declares
+the data zero outside its window before the forward pass and its
+``zeropad_output`` the result outside its window after the inverse.  In
+the "pair" mode on the card, prefix windows run in the kernels, as the
+JAX package's pair mode does (``vkfft_tpu/transforms/conv.py:218-276``):
+input windows on every axis (`api._prefix_keep_all`) are read only where
+kept (the outer axes' forward passes on `fft_strided`'s windowed entry,
+the minor pair's (ky, kz) corner read in place by `fft_conv_pair`'s
+windowed 2-D entry), and output windows of the two minor axes
+(`api._pair_prefix_keep`) are written only where kept, the rest zeros
+restored once at the end; every other mode and window, and the
+composition, mask (`api.apply_zeropad`) before the forward and after the
+inverse.  ``keep_intermediate_order`` leaves a convolution as it is, as in
+the JAX package.
 
 Inputs follow the port's conventions: a ``Planar`` gives a ``Planar`` on its
 device, a torch tensor (complex, or real read as complex) a complex tensor,
@@ -101,7 +112,6 @@ class ConvolutionApplication:
             raise InvalidConfigError("config.convolution must be True")
         if engine is not None and engine not in api.ENGINES:
             raise InvalidConfigError(f"unknown engine {engine!r}")
-        api.check_precision_and_order(config)
         self.config = config
         self.engine = engine
         self.device = torch.device(device)
@@ -155,9 +165,26 @@ class ConvolutionApplication:
             self._tables[key] = kf
         return self._tables[key]
 
-    def _fused_call(self, x: Planar, owned) -> Planar:
+    def _pair_windows(self):
+        """(input keeps, output keep) of the "pair" mode's elided windows
+        (``_convolve``, :218-236): `api._prefix_keep_all` of the input
+        windows ((ky, kz), {outer axis: kept}), `api._pair_prefix_keep` of
+        the output windows ((oy, oz)); None for a window the kernels do
+        not elide, which is masked."""
+        cfg = self.config
+        keeps = (None if cfg.zeropad_input is None
+                 else api._prefix_keep_all(cfg.zeropad_input, cfg.shape))
+        keep = (None if cfg.zeropad_output is None
+                else api._pair_prefix_keep(cfg.zeropad_output, cfg.shape))
+        return keeps, keep
+
+    def _fused_call(self, x: Planar, owned, keeps=None,
+                    keep_out=None) -> Planar:
         """The fused mode on the card (``_convolve``, :238-307); ``owned``
-        tells planes the call made, which a pass may write over."""
+        tells planes the call made, which a pass may write over.  The
+        "pair" mode's elided windows (`_pair_windows`): ``keeps`` read only
+        the kept corner, ``keep_out`` writes only its corner and restores
+        the zeros once at the end."""
         cfg = self.config
         mode = self._mode
         spec = self._table("fused", x.device)
@@ -186,12 +213,23 @@ class ConvolutionApplication:
         inner = 2 if mode == "pair" else 1
         off = x.ndim - ndim
         outer = range(ndim - inner)
+        pair_in, outer_in = keeps or ((0, 0), {})
+        ny = shape[-2]
+        if keeps is not None and outer:
+            # the outer passes on the kept corner of the minor pair only,
+            # read in place
+            x = x[..., :pair_in[0] or ny, :pair_in[1] or n]
         for ax in outer:
-            x = ce.fft_axis_p(x, off + ax, plan_axis(shape[ax]), False,
-                              donate=owned(x))
+            if keeps is None:
+                x = ce.fft_axis_p(x, off + ax, plan_axis(shape[ax]), False,
+                                  donate=owned(x))
+            else:
+                x = ce.axis_window(x, off + ax, plan_axis(shape[ax]), False,
+                                   in_keep=outer_in.get(ax, 0))
         if mode == "pair":
-            x = ce.conv_fused_pair(x, shape[-2], n, spec, scale=1.0 / total,
-                                   donate=owned(x), **kw)
+            x = ce.conv_fused_pair(x, ny, n, spec, scale=1.0 / total,
+                                   donate=owned(x), in_keep=pair_in,
+                                   out_keep=keep_out, **kw)
         else:
             lines = x.reshape(-1, n)
             x = ce.conv_fused_v3_rows(
@@ -200,6 +238,10 @@ class ConvolutionApplication:
         for ax in reversed(outer):
             x = ce.fft_axis_p(x, off + ax, plan_axis(shape[ax]), True,
                               donate=owned(x))
+        if keep_out is not None:
+            x = api._pad_planar_tail(
+                x, [(0, shape[a]) for a in outer]
+                + [(keep_out[0], ny), (keep_out[1], n)])
         return x
 
     def _composition(self, x: Planar, engine: str) -> Planar:
@@ -247,13 +289,20 @@ class ConvolutionApplication:
                 f"input trailing shape {x.shape[x.ndim - len(want):]} != "
                 f"configured {want}")
         owned = api.owned_by_walk(x.re, x.im)
-        x = api.apply_zeropad(x, cfg.zeropad_input, ndim)
         engine = self.engine or api.engine_for(x)
-        if self._mode is not None and engine == "cuda":
-            y = self._fused_call(x, owned)
+        fused = self._mode is not None and engine == "cuda"
+        keeps = keep_out = None
+        if fused and self._mode == "pair":
+            keeps, keep_out = self._pair_windows()
+        if keeps is None:
+            x = api.apply_zeropad(x, cfg.zeropad_input, ndim)
+        if fused:
+            y = self._fused_call(x, owned, keeps, keep_out)
         else:
             y = self._composition(x, engine)
-        return api.apply_zeropad(y, cfg.zeropad_output, ndim)
+        if keep_out is None:
+            y = api.apply_zeropad(y, cfg.zeropad_output, ndim)
+        return y
 
     def __call__(self, x):
         """Convolve ``x`` with the kernel (``__call__``, :341); the input
