@@ -309,6 +309,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
@@ -479,9 +480,8 @@ def phase_toolchain(ck) -> dict:
          f"{changed or ''}; fp64 kernels {f64}; half-storage kernels as "
          f"their fp32 twins: {not off_twin} {off_twin or ''}")
     assert not changed, changed
-    # the kept-order entries and the windowed 2-D conv's as pinned
-    fresh = {k: v for k, v in lines.items()
-             if "_tl_" in k or k.startswith("fft_conv2d_zp")}
+    # the kept-order entries and the windowed ones as pinned
+    fresh = {k: v for k, v in lines.items() if "_tl_" in k or "_zp" in k}
     for k, v in sorted(fresh.items()):
         _log(f"[toolchain] {k}: {v}")
     moved = {k: (lines.get(k), v) for k, v in NEW_PTXAS.items()
@@ -491,7 +491,87 @@ def phase_toolchain(ck) -> dict:
     assert all(st == ld == 0 for _, st, ld in f64.values()), f64
     assert all(v is not None for v in storage.values()), storage
     assert not off_twin, off_twin
+    # the two choices of the Bluestein windows' first stage, built now for
+    # the zero-pad phases (`_prune_libraries`)
+    _start_prune_builds(ck)
     return info
+
+
+# Bluestein's read window prunes its first stage where the source's
+# kPruneWindow says so (VKFFT_PRUNE: 0 in all three sources, the pruned
+# stage measured slower, PERF.md section 6); the zero-pad phases
+# check and time both choices, each built with -DVKFFT_PRUNE=0 or 1 into a
+# library of its own beside the package's
+PRUNE_SOURCES = ("fft_conv", "fft_conv_pair", "fft_strided_tw")
+_PRUNE_BUILDS: dict = {}
+
+
+def _prune_path(ck, name: str, prune: int) -> str:
+    return os.path.join(ck.BUILD_DIR,
+                        f"{name}-prune{prune}-{ck._source_key()}.so")
+
+
+def _start_prune_builds(ck) -> None:
+    """Start one nvcc for each (source, choice) not built yet, all
+    together, in the background."""
+    os.makedirs(ck.BUILD_DIR, exist_ok=True)
+    for name in PRUNE_SOURCES:
+        for prune in (0, 1):
+            path = _prune_path(ck, name, prune)
+            if (name, prune) in _PRUNE_BUILDS or os.path.exists(path):
+                continue
+            log = open(path[:-3] + ".log", "w")
+            _PRUNE_BUILDS[name, prune] = (subprocess.Popen(
+                [ck._nvcc(), *ck.NVCC_FLAGS, f"-DVKFFT_PRUNE={prune}", "-o",
+                 path, os.path.join(ck.CSRC_DIR, name + ".cu")],
+                stdout=log, stderr=subprocess.STDOUT), log)
+
+
+def _prune_libraries(ck) -> dict:
+    """{(source, choice): (library, its ptxas lines)} of the two builds of
+    each PRUNE_SOURCES source, waited for (started here where the toolchain
+    phase did not), loaded with the package's C signatures."""
+    import ctypes
+    _start_prune_builds(ck)
+    out = {}
+    for name in PRUNE_SOURCES:
+        for prune in (0, 1):
+            path = _prune_path(ck, name, prune)
+            build = _PRUNE_BUILDS.pop((name, prune), None)
+            if build is not None:
+                rc = build[0].wait()
+                build[1].close()
+                assert rc == 0, open(path[:-3] + ".log").read()[-3000:]
+            lib = ctypes.CDLL(path)
+            for entry, sig in ck._ENTRIES[name].items():
+                fn = getattr(lib, "vk_" + entry)
+                fn.argtypes = ([ck._CTYPES[c] for c in sig]
+                               + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            lib.vk_error_string.argtypes = [ctypes.c_int]
+            lib.vk_error_string.restype = ctypes.c_char_p
+            with open(path[:-3] + ".log") as f:
+                lines = {k: v for k, v in _ptxas_lines(f.read()).items()
+                         if "_zp" in k}
+            out[name, prune] = (lib, lines)
+    return out
+
+
+class _with_library:
+    """The package's launches of library ``name`` go to ``lib`` inside the
+    block (ck._LIBS, which `cuda_kernels._library` reads first)."""
+
+    def __init__(self, ck, name, lib):
+        self.ck, self.name, self.lib = ck, name, lib
+
+    def __enter__(self):
+        self.ck._library(self.name)
+        self.saved = self.ck._LIBS[self.name]
+        self.ck._LIBS[self.name] = self.lib
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.ck._LIBS[self.name] = self.saved
 
 
 # fft_lines' named lengths: the shortest, odd and prime lines several to a
@@ -5102,6 +5182,9 @@ ZERO_SPILL_64 = ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
 PAIR_TL_INVERSE_LINE = ("8 bytes stack frame, 8 bytes spill stores, 4 bytes "
                         "spill loads | Used 64 registers, used 1 barriers, 8 "
                         "bytes cumulative stack size")
+ZP_LINES_SPILL = ("8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+                  "loads | Used 64 registers, used 1 barriers, 8 bytes "
+                  "cumulative stack size")
 NEW_PTXAS = {
     "fft_lines_tl_kernel": ZERO_SPILL_64,
     "fft_lines_tl_f16_kernel": ZERO_SPILL_64,
@@ -5115,6 +5198,16 @@ NEW_PTXAS = {
     "fft_conv2d_zp_kernel": ZERO_SPILL_64,
     "fft_conv2d_zp_f16_kernel": ZERO_SPILL_64,
     "fft_conv2d_zp_bf16_kernel": ZERO_SPILL_64,
+    # Bluestein's read window: the windowed entries of fft_conv,
+    # fft_conv_pair and fft_strided_tw
+    **{f"{k}_zp{t}_kernel": ZERO_SPILL_64
+       for k in ("fft_conv", "fft_conv_pair", "fft_strided_tw")
+       for t in ("", "_f16", "_bf16")},
+    # the windowed lines entries, their 4 B spill (ROADMAP queue 3:
+    # the block's count of lines, stored after the read and loaded in the
+    # passes' stage loop)
+    **{f"{k}_zp{t}_kernel": ZP_LINES_SPILL
+       for k in ("fft_lines", "fft_twofactor") for t in ("", "_f16", "_bf16")},
 }
 
 
@@ -6886,7 +6979,7 @@ def phase_zeropad_kernels(ck, dev) -> dict:
     kernels' ptxas lines."""
     out = {}
     lines_log = {}
-    for name in ck.ZP_KERNELS + ("fft_conv_pair",):
+    for name in ck.ZP_KERNELS + ck.ZP_BLUESTEIN_KERNELS:
         with open(ck.library_path(name)[:-3] + ".log") as f:
             lines_log.update({k: v for k, v in _ptxas_lines(f.read()).items()
                               if "_zp" in k})
@@ -7010,11 +7103,102 @@ def phase_zeropad_kernels(ck, dev) -> dict:
                     *x, inv, in_keep=(ky, kz), out_keep=(ky, kz), out=out),
                     p, (B, cy, cz), dt, dev)
     _conv2d_zp_cases(ck, out, dev)
+    _blu_zp_cases(ck, out, dev)
     torch.cuda.synchronize()
     for key, rec in out.items():
-        if key != "ptxas":
+        if key not in ("ptxas", "prune_ptxas"):
             _log(f"[zeropad kernels] {key}: {rec}")
     return out
+
+
+# Bluestein's read window: the lengths of each windowed entry's kernel
+# mode (fft_conv: m = 539, 770, 8125 in one pass and two factors;
+# fft_conv_pair: m = 8192 and sample 7's 32768; fft_strided_tw's plane
+# mode: the long tier's 32771 and 65537)
+ZP_BLU_LENGTHS = (263, 383, 4054, 4073, 10007, 32771, 65537)
+
+
+def _blu_kernel(ck, n, dev):
+    """(windowed entry, its call on planes with a read window, its plain
+    version, whether the call takes ``out``) of the kernel of n's
+    Bluestein route."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    m = plan_axis(n).decomp.bluestein_size
+    chirp = ck.bluestein_chirp(n, m, False, dev)
+    if ck.kernel_supports(m):
+        spec = ck.bluestein_spectrum(n, m, False, 1.0, dev)
+        return ("fft_conv",
+                lambda x, k, out=None: ck.fft_conv(*x, spec, chirp, out=out,
+                                                   in_keep=k),
+                lambda x: ck.fft_conv_plain(*x, spec, chirp), True)
+    if ck.conv_pair_plan(m) is not None:
+        spec = ck.bluestein_spectrum(n, m, False, 1.0, dev, "pair")
+        return ("fft_conv_pair",
+                lambda x, k, out=None: ck.fft_conv_pair(
+                    *x, spec, chirp, out=out, in_keep=k),
+                lambda x: ck.fft_conv_pair_plain(*x, spec, chirp), True)
+    kw = dict(pre=ck.chirp(n, False), post=ck.twiddle(m),
+              plane=ck.bluestein_long_split(m))
+    return ("fft_strided_tw",
+            lambda x, k, out=None: ck.fft_strided(*x, False, 1.0, in_keep=k,
+                                                  **kw),
+            lambda x: ck.fft_strided_plain(*x, False, 1.0, **kw), False)
+
+
+def _blu_zp_cases(ck, out, dev) -> None:
+    """The windowed entries of Bluestein's read window (vk_fft_conv_zp,
+    vk_fft_conv_pair_zp, vk_fft_strided_tw_zp and their _bf16, _f16 twins)
+    against the unwindowed plain versions on the zeroed lines: windows 1,
+    7, n / 3 + 1 and n - 1 of each length of ZP_BLU_LENGTHS, the
+    declared-zero tail NaN, fp32 within KERNEL_TOL and the half tiers
+    within 2 storage ulps; the two conv entries' outputs inside sentinel
+    guards, and in place over their input; both builds of the pruned first
+    stage (`_prune_libraries`) at fp32 and bf16, their ptxas lines
+    recorded."""
+    libs = _prune_libraries(ck)
+    out["prune_ptxas"] = {f"{name}-prune{p}": lines
+                          for (name, p), (_, lines) in libs.items()}
+    for k, v in sorted(out["prune_ptxas"].items()):
+        _log(f"[zeropad ptxas] {k}: {v}")
+    for n in ZP_BLU_LENGTHS:
+        name, run, plain, guarded = _blu_kernel(ck, n, dev)
+        B = 3 if n < 20000 else 2
+        t = torch.arange(n, device=dev)
+        for dt in (torch.float32,) + ck.STORAGE_DTYPES:
+            key = f"{ck.zp_entry(name, dt)}_n{n}"
+            for i, k in enumerate(_zp_keeps(n)):
+                x, x0 = _zp_input((B, n), n + k, dev, dt, (t >= k)[None, :])
+                p = plain(x0)
+                shape = tuple(p[0].shape)
+                if guarded:
+                    _zp_case(ck, out, key, lambda out: run(x, k, out),
+                             p, shape, dt, dev)
+                    if i == 0:
+                        # in place over the input's planes
+                        xi = [v.clone() for v in x]
+                        got = run(xi, k, tuple(xi))
+                        _zp_check(got, p, dt, key)
+                else:
+                    got = run(x, k)
+                    rec = out.setdefault(key, {"cases": 0,
+                                               "worst_rel_err": 0.0})
+                    rec["cases"] += 1
+                    rec["worst_rel_err"] = max(rec["worst_rel_err"],
+                                               _zp_check(got, p, dt, key))
+            if dt == torch.float16:
+                continue
+            # both builds of the first stage, the window n / 3 + 1
+            k = n // 3 + 1
+            x, x0 = _zp_input((B, n), 3 * n, dev, dt, (t >= k)[None, :])
+            p = plain(x0)
+            for prune in (0, 1):
+                with _with_library(ck, name, libs[name, prune][0]):
+                    got = run(x, k)
+                e = _zp_check(got, p, dt, (key, prune))
+                rec = out.setdefault(f"{key}_prune{prune}",
+                                     {"cases": 0, "worst_rel_err": 0.0})
+                rec["cases"] += 1
+                rec["worst_rel_err"] = max(rec["worst_rel_err"], e)
 
 
 # (B, ny, nz, hp) of fft_conv_pair's windowed 2-D entry: sample 51's
@@ -7094,8 +7278,9 @@ def _zp_zero(shape, spec, ndim, dev):
 
 
 def _zp_launches(ck, torch_engine, want, what):
-    """Exactly ``want`` ({entry: count}) windowed launches since the last
-    reset, no other launch of kind or dtype, no plain-engine call."""
+    """Exactly ``want`` ({entry: count}) launches since the last reset,
+    windowed and unwindowed (a masked route: no windowed one), no other
+    launch of kind or dtype, no plain-engine call."""
     got = {k: v for k, v in ck.zp_launches.items() if v}
     others = {k: v for d in (ck.launches, ck.f64_launches,
                              ck.storage_launches) for k, v in d.items() if v}
@@ -7104,9 +7289,40 @@ def _zp_launches(ck, torch_engine, want, what):
         del want["masked"]
         assert not got and others == want, (what, got, others)
     else:
-        assert got == want and not others, (what, got, others)
+        assert {**got, **others} == want, (what, got, others)
     assert torch_engine.calls == 0, (what, torch_engine.calls)
-    return dict(got or others)
+    return {**got, **others}
+
+
+class _AtenOps(TorchDispatchMode):
+    """The names of the aten ops run inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _blu_forward_unmasked(app, x, what) -> None:
+    """The forward of the blu route runs no mask pass (no aten.where): the
+    declared-zero tail is left unread by the kernels, not zeroed first."""
+    ops = _AtenOps()
+    with ops:
+        app.forward(x)
+    assert not any("where" in o for o in ops.names), (what, ops.names)
+
+
+def _blu_twin(ce, n: int, suffix: str = "") -> dict:
+    """{kernel: launches} of the dense twin's round trip on n (each kernel
+    of the route, both ways), the entries of the planes' dtype."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    out = {}
+    for k, _, _ in ce.route(plan_axis(n)):
+        out[k + suffix] = out.get(k + suffix, 0) + 2
+    return out
 
 
 def _zp_round_trip(vt, ck, torch_engine, cfg, x, want, what):
@@ -7181,8 +7397,23 @@ ZP_ROUTES = (
     ("axes_3d", dict(shape=(6, 40, 205),
                      zeropad_input=((2, 6), (17, 40), (100, 205))), 2,
      {"fft_lines_zp": 2, "fft_strided_zp": 4}),
+    # Bluestein's read window on each route: the forward's first kernel
+    # its windowed entry (fft_twofactor + fft_conv_inv: the chirp over the
+    # window), the masked inverse the unwindowed kernels
+    ("blu_fft_conv", dict(shape=(383,), zeropad_input=((127, 383),)), 33,
+     {"fft_conv_zp": 1, "fft_conv": 1}),
+    ("blu_fft_conv_m8125", dict(shape=(4054,),
+                                zeropad_input=((1351, 4054),)), 5,
+     {"fft_conv_zp": 1, "fft_conv": 1}),
+    ("blu_twofactor", dict(shape=(4213,), zeropad_input=((1404, 4213),)), 5,
+     {"fft_twofactor": 2, "fft_conv_inv": 2}),
+    ("blu_fft_conv_pair", dict(shape=(10007,),
+                               zeropad_input=((3000, 10007),)), 2,
+     {"fft_conv_pair_zp": 1, "fft_conv_pair": 1}),
+    ("blu_long", dict(shape=(65537,), zeropad_input=((32768, 65537),)), 2,
+     {"fft_strided_tw_zp": 1, "fft_conv": 2, "fft_strided_tw": 3}),
     ("masked_bluestein", dict(shape=(10007,),
-                              zeropad_input=((3000, 10007),)), 2,
+                              zeropad_input=((3000, 5000),)), 2,
      {"masked": True, "fft_conv_pair": 2}),
     ("masked_not_prefix", dict(shape=(16,), zeropad_input=((0, 8),)), 5,
      {"masked": True, "fft_lines": 2}),
@@ -7260,7 +7491,10 @@ def phase_zeropad_routes(vt, ck, torch_engine, dev) -> dict:
     the forward and the round trip against fp64 of the masked input at the
     gates, declared-zero outputs exactly 0; and both against the same
     call on the CPU's torch engine (KERNEL_TOL in fp32, the half tier's
-    STORAGE_ROUTE_TOL)."""
+    STORAGE_ROUTE_TOL).  The blu rows (Bluestein's read window on each
+    Bluestein route) launch as many kernels as their dense twin and run no
+    mask pass in the forward."""
+    from vkfft_tpu_torch.ops import cuda_engine as ce
     rows = []
     for name, kw, B, want in ZP_ROUTES:
         for prec, dt in ((vt.Precision.SINGLE, torch.float32),
@@ -7273,6 +7507,14 @@ def phase_zeropad_routes(vt, ck, torch_engine, dev) -> dict:
                  for k, v in want.items()}
             app, y, z, got = _zp_round_trip(vt, ck, torch_engine, cfg, x,
                                             w, f"{name}_{dt}")
+            if name.startswith("blu_"):
+                # as many launches as the dense twin, no mask pass forward
+                twin = _blu_twin(ce, cfg.shape[-1],
+                                 "" if dt == torch.float32 else "_bf16")
+                assert sum(got.values()) == sum(twin.values()), (got, twin)
+                assert {k.replace("_zp", ""): 0 for k in got} == {
+                    k: 0 for k in twin}, (got, twin)
+                _blu_forward_unmasked(app, x, name)
             e_f, e_i = _zp_check_values(vt, cfg, x, y, z, dt, name)
             cpu = vt.FFTApplication(cfg, engine="torch", device="cpu")
             xc = vt.Planar(x.re.cpu(), x.im.cpu())
@@ -7341,6 +7583,22 @@ ZP_MAIN_ROWS = (
     ("ex05_8x128x256", dict(shape=(8, 128, 256), zeropad_input=(
         (4, 8), (64, 128), (128, 256))), TARGET_BYTES // (8 * 8 * 128 * 256),
      {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+    # Bluestein's read window on one length of each Bluestein route, 64
+    # MiB of fp32 planes (sample 7's batching): fft_conv at 4054 (m =
+    # 8125), fft_twofactor + fft_conv_inv at 4213, sample 7's 10007 in
+    # fft_conv_pair with the window of the JAX package's test (3000), the
+    # fused long tier at 65537; half prefixes elsewhere
+    ("blu_n4054", dict(shape=(4054,), zeropad_input=(_zp_half(4054),)),
+     SAMPLE_7_BYTES // (8 * 4054), {"fft_conv_zp": 1, "fft_conv": 1}),
+    ("blu_n4213", dict(shape=(4213,), zeropad_input=(_zp_half(4213),)),
+     SAMPLE_7_BYTES // (8 * 4213), {"fft_twofactor": 2, "fft_conv_inv": 2}),
+    ("blu_sample7_n10007", dict(shape=(10007,),
+                                zeropad_input=((3000, 10007),)),
+     SAMPLE_7_BYTES // (8 * 10007),
+     {"fft_conv_pair_zp": 1, "fft_conv_pair": 1}),
+    ("blu_n65537", dict(shape=(65537,), zeropad_input=(_zp_half(65537),)),
+     SAMPLE_7_BYTES // (8 * 65537),
+     {"fft_strided_tw_zp": 1, "fft_conv": 2, "fft_strided_tw": 3}),
 )
 # the convolution rows: sample 51's benchmark (vkfft_tpu/cli.py:907-950:
 # 256 planes of 256^2, half-pad^2 input windows, 128 MiB) and a 3-D (8,
@@ -7362,16 +7620,22 @@ ZP_MODES = {"sample4_256^3": "elided-pair", "sample4_512^3": "elided-axes",
                 "elided-interior (forward reads; inverse in-kernel restore)",
             "v2_n10240": "elided-prefix",
             "pair_out_256^3": "elided-pair-output",
-            "ex05_8x128x256": "elided-pair"}
+            "ex05_8x128x256": "elided-pair",
+            **{name: "elided-prefix (bluestein: forward reads; inverse "
+                     "masked)" for name in ("blu_n4054", "blu_n4213",
+                                             "blu_sample7_n10007",
+                                             "blu_n65537")}}
 
 
 def phase_zeropad_main_path(vt, ck, torch_engine, dev) -> dict:
     """The reference's sample 4 rows (256^3 on the pair corner route, 512^3
     and 2048 x 4096 on the axes route: the port's 512^2 and 2048 x 4096
     planes are past pair_cluster) and the other elided routes at full size
-    (ZP_MAIN_ROWS) through FFTApplication(normalize=True) on fp32 Planar
+    (ZP_MAIN_ROWS, Bluestein's read window among them) through
+    FFTApplication(normalize=True) on fp32 Planar
     input: each round trip counted from 0 and held to its exact windowed
-    launches with no plain-engine call, its zeropad_mode, finite, the
+    (and, on the blu route's masked inverse, unwindowed) launches with no
+    plain-engine call, its zeropad_mode, finite, the
     forward and the round trip against fp64 of the masked input at the
     gates, the declared-zero outputs exactly 0."""
     rows, by_row = [], {}
@@ -7410,7 +7674,7 @@ def phase_zeropad_main_path(vt, ck, torch_engine, dev) -> dict:
     totals = {k: sum(c[k] for c in by_row.values()) for k in ck.zp_launches}
     _log(f"[zeropad main] launches over the path {totals}")
     assert all(totals[ck.zp_entry(k, torch.float32)] > 0
-               for k in ck.ZP_KERNELS), totals
+               for k in ck.ZP_KERNELS + ck.ZP_BLUESTEIN_KERNELS), totals
     return {"zp_launches": totals, "zp_launches_by_path": by_row,
             "plain_engine_calls": 0, "rows": rows}
 
@@ -7433,6 +7697,11 @@ def _zp_points(cfg, route: dict, B: int) -> tuple:
         n = shape[-1]
         h, o = route["in_h"] or n, route["out_h"] or n
         return B * h + N + B * o + N, whole
+    if kind == "blu":
+        # the lines' own points (each route's m-point intermediates, the
+        # same with and without the window, left out): the forward's kept
+        # read and its write, the inverse's read and write and its mask
+        return B * route["in_h"] + N + 2 * N + 2 * N, whole
     if kind == "interior":
         left, right = route["window"]
         return N - B * (right - left) + N + 2 * N, whole
@@ -7561,6 +7830,7 @@ def phase_zeropad_times(vt, ck, dev) -> dict:
         torch.cuda.empty_cache()
     rows += _zp_conv_times(vt, dev)
     kernels = _zp_kernel_times(ck, dev)
+    kernels.update(_zp_blu_kernel_times(ck, dev))
     return {"rows": rows, "kernels": kernels}
 
 
@@ -7720,6 +7990,87 @@ def _zp_kernel_times(ck, dev) -> dict:
         del got, ref
     del x, y, c, cv, cf, m, mf, pc, pf
     torch.cuda.empty_cache()
+    return out
+
+
+# the windowed kernels of Bluestein's read window at the main path's rows:
+# (route, n, the read window)
+ZP_BLU_TIMES = (("fft_conv", 4054, 2027), ("fft_conv_pair", 10007, 3000),
+                ("fft_strided_tw", 65537, 32768))
+
+
+def _zp_blu_kernel_times(ck, dev) -> dict:
+    """The three windowed entries of Bluestein's read window at the blu
+    main-path rows' shapes (ZP_BLU_TIMES, 64 MiB of fp32 planes): the
+    package's build beside both builds of the pruned first stage
+    (`_prune_libraries`: pruned, unpruned), the unwindowed launch on the
+    same planes, the plain version, torch.fft of the same lines (the same
+    function for the two conv kernels, their library_ms; the long tier's
+    first pass has none), each timed in turns, and the bound at the kept
+    bytes (the window's reads, every write, the tables once) and the
+    operations of the kernel's m-point work."""
+    from vkfft_tpu_torch.planner.plan import plan_axis
+    libs = _prune_libraries(ck)
+    out = {}
+    for route, n, keep in ZP_BLU_TIMES:
+        B = SAMPLE_7_BYTES // (8 * n)
+        m = plan_axis(n).decomp.bluestein_size
+        name, run, plain, _ = _blu_kernel(ck, n, dev)
+        assert name == route, (name, route)
+        t = torch.arange(n, device=dev)
+        x, x0 = _zp_input((B, n), n, dev, torch.float32, (t >= keep)[None, :])
+        got, ref = run(x, keep), plain(x0)
+        err = _zp_check(got, ref, torch.float32, name)
+        xc = torch.complex(*x0)
+        if name == "fft_strided_tw":
+            nc, ns = ck.bluestein_long_split(m)
+            kept = 8.0 * (B * keep + B * m)
+            ops = _fft_ops(B * m, nc) + 2 * _cmul_ops(B * m)
+            whole = 8.0 * (B * n + B * m)
+        else:
+            kept = 8.0 * (B * keep + B * n + m + n)
+            ops = B * (2 * _fft_ops(m, m) + _cmul_ops(m))
+            whole = 8.0 * (2 * B * n + m + n)
+        bound, by = _bound(kept, ops)
+
+        def windowed():
+            run(x, keep)
+
+        def unwindowed():
+            run(x0, 0)
+
+        # (what, call, the library it runs on: None for the package's)
+        seq = (("unwindowed", unwindowed, None), ("windowed", windowed, None),
+               ("unpruned", windowed, 0), ("pruned", windowed, 1),
+               ("pruned", windowed, 1), ("unpruned", windowed, 0),
+               ("windowed", windowed, None), ("unwindowed", unwindowed, None))
+        t_ms = {}
+        for k, fn, p in seq:
+            if p is None:
+                t_ms.setdefault(k, []).append(_time_ms(fn))
+                continue
+            with _with_library(ck, name, libs[name, p][0]):
+                t_ms.setdefault(k, []).append(_time_ms(fn))
+        fft_ms = _time_ms(lambda: torch.fft.fft(xc))
+        row = {"kernel": ck.zp_entry(name, torch.float32),
+               "ms": min(t_ms["windowed"]),
+               "pruned_ms": min(t_ms["pruned"]),
+               "unpruned_ms": min(t_ms["unpruned"]),
+               "unwindowed_ms": min(t_ms["unwindowed"]),
+               "plain_ms": _time_ms(lambda: plain(x0), 5, 2),
+               "library_ms": None if name == "fft_strided_tw" else fft_ms,
+               "torch_fft_n_ms": fft_ms, "bound_ms": bound, "bound_by": by,
+               "unwindowed_bound_ms": _bound(whole, ops)[0],
+               "max_abs_err": max((a - b).abs().max().item()
+                                  for a, b in zip(got, ref)),
+               "rel_err": err, "shape": f"{B} x {n}, in_keep {keep} (m = "
+                                        f"{m})",
+               "kept_bytes": kept,
+               "prune_ptxas": {p: libs[name, p][1] for p in (0, 1)}}
+        _log(f"[zeropad times] {row}")
+        out.setdefault(row["kernel"], []).append(row)
+        del x, x0, xc, got, ref
+        torch.cuda.empty_cache()
     return out
 
 

@@ -263,10 +263,14 @@ def test_factor_mode_checks():
     # two factors, their tables, the twiddle, the factors, the two
     # interleaves, the mode, then the layout
     assert set(ck._ENTRIES) == set(ck.KERNEL_SOURCES)
-    # (and its half-storage entries, the same arguments on half planes)
+    # (and its half-storage entries, the same arguments on half planes;
+    # the windowed entries of Bluestein's read window, the read bound after
+    # the layout)
     assert ck._ENTRIES["fft_strided_tw"] == {
-        f"fft_strided_tw{sfx}": "ppppqqqqppppppiiiiii"
-        for sfx in ("", "_f16", "_bf16")}
+        **{f"fft_strided_tw{sfx}": "ppppqqqqppppppiiiiii"
+           for sfx in ("", "_f16", "_bf16")},
+        **{f"fft_strided_tw_zp{sfx}": "ppppqqqqppppppiiiiiiq"
+           for sfx in ("", "_f16", "_bf16")}}
 
 
 # ---------------------------------------------------------------------------

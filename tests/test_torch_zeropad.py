@@ -102,6 +102,7 @@ def _jax(x):
 
 PREFIX = "elided-prefix"
 INTERIOR = "elided-interior (forward reads; inverse in-kernel restore)"
+BLU = "elided-prefix (bluestein: forward reads; inverse masked)"
 # (name, shape, zeropad_input, zeropad_output, the port's cuda mode, the
 # JAX package's pallas mode, the gate that decides where they differ)
 MODES = [
@@ -126,10 +127,16 @@ MODES = [
      "elided-pair", "elided-pair", None),
     ("cube_512", (512, 512, 512), ((256, 512),) * 3, None, "elided-axes",
      "elided-axes", None),
-    ("bluestein_10007", (10007,), ((3000, 10007),), None, "masked",
-     "elided-prefix (bluestein: forward reads; inverse masked)",
-     "Bluestein's read window waits for fft_conv's windows (ROADMAP queue 1 "
-     "item 8.3)"),
+    ("bluestein_10007", (10007,), ((3000, 10007),), None, BLU, BLU, None),
+    # Bluestein's read window on each of the port's Bluestein routes:
+    # fft_conv, fft_twofactor + fft_conv_inv, the fused long tier
+    ("bluestein_383", (383,), ((127, 383),), None, BLU, BLU, None),
+    ("bluestein_4054", (4054,), ((2027, 4054),), None, BLU, BLU, None),
+    ("bluestein_4213", (4213,), ((1404, 4213),), None, BLU, "masked",
+     "the port's fft_twofactor + fft_conv_inv route reads the window at m = "
+     "8470; the reference's blu gate (_use_v3(m) or _long_conv_ok(m)) "
+     "fails there"),
+    ("bluestein_65537", (65537,), ((32768, 65537),), None, BLU, BLU, None),
     ("not_prefix_16", (16,), ((0, 8),), None, "masked", "masked", None),
     ("interior_60", (60,), ((7, 53),), None, INTERIOR, "masked",
      "any interior window of a DIRECT length elides in the port; the "
@@ -207,7 +214,12 @@ ROUTES = [
      "axes", True),
     ("pair_odd", (5, 12, 20), ((3, 5), (7, 12), (9, 20)), None, 2, "pair",
      False),
-    ("masked_bluestein", (10007,), ((3000, 10007),), None, 2, "masked",
+    # Bluestein's read window: the JAX package's pallas engine reads the
+    # declared-zero tail at 10007 (its forward of a nonzero tail is the
+    # whole line's DFT, ROADMAP queue 3's records of the reference), so the
+    # port, which never reads it, is held to its jnp engine (the masked
+    # route: the same function on inputs that respect the declaration)
+    ("masked_bluestein", (10007,), ((3000, 10007),), None, 2, "blu",
      False),
     ("masked_not_prefix", (16,), ((0, 8),), None, 3, "masked", True),
 ]
@@ -834,7 +846,7 @@ def test_elided_launches_half(monkeypatch, tier):
 
 @pytest.mark.parametrize("shape,zin,want", [
     ((16,), ((0, 8),), {"fft_lines": 2}),
-    ((10007,), ((3000, 10007),), {"fft_conv_pair": 2}),
+    ((10007,), ((3000, 5000),), {"fft_conv_pair": 2}),
     ((4, 16, 8), (None, (0, 4), None), {"fft_pair": 2, "fft_strided": 2})])
 def test_masked_launches(monkeypatch, shape, zin, want):
     """A masked route runs its kernels unwindowed: no windowed launch."""

@@ -348,7 +348,14 @@ class FFTApplication:
           (``minor`` = (ky, kz), ``outer`` = {axis: kept}).
         * ``axes``: input prefix windows over every axis of at most three,
           all DIRECT, the minor axis in `fft_lines` or `fft_twofactor`,
-          the others in `fft_strided` (``keeps`` = {axis: kept})."""
+          the others in `fft_strided` (``keeps`` = {axis: kept}).
+        * ``blu``: Bluestein's read window (``vkfft_tpu/api.py:191-201``),
+          an input prefix window alone on the minor axis of a BLUESTEIN
+          plan, float32 or half planes: the forward reads the kept prefix
+          ``in_h`` only, on every route `cuda_engine.route` gives the plan
+          (the windowed entries of `fft_conv`, `fft_conv_pair` and the long
+          tier's first `fft_strided_tw`, or the composed routes' chirp over
+          the kept points); the inverse runs masked, as the reference's."""
         from vkfft_tpu_torch.ops import cuda_engine as ce
         from vkfft_tpu_torch.ops import cuda_kernels as ck
         from vkfft_tpu_torch.planner.factorize import Algorithm
@@ -383,7 +390,15 @@ class FFTApplication:
                     and ck.kernel_supports(p.n, dtype))
 
         if cfg.axes == (ndim - 1,):
-            kernel = ce.window_kernel(plans[ndim - 1])
+            plan = plans[ndim - 1]
+            if plan.algorithm is Algorithm.BLUESTEIN:
+                in_h, out_h = prefix(zin), prefix(zout)
+                if (in_h > 0 and out_h == 0 and ce.supports(plan)
+                        and dtype in (torch.float32,)
+                        + tuple(STORAGE.values())):
+                    return {"kind": "blu", "in_h": in_h}
+                return {"kind": "masked"}
+            kernel = ce.window_kernel(plan)
             if kernel is None:
                 return {"kind": "masked"}
             in_h, out_h = prefix(zin), prefix(zout)
@@ -431,10 +446,12 @@ class FFTApplication:
         never read; forward reads, the inverse writing the zeros in its
         store), 'elided-pair' / 'elided-pair-output' (through the fused
         two-axis kernel and the outer axes' strided passes),
-        'elided-axes' (each axis pass elides its own window), or 'masked'
-        (an explicit zeroing pass).  None: no window configured.  The
-        route of the application's ``engine`` (``cuda`` when None) on
-        float32 planes, from the resolver the execution path uses."""
+        'elided-axes' (each axis pass elides its own window), 'elided-
+        prefix (bluestein: forward reads; inverse masked)' (Bluestein's
+        read window), or 'masked' (an explicit zeroing pass).  None: no
+        window configured.  The route of the application's ``engine``
+        (``cuda`` when None) on float32 planes, from the resolver the
+        execution path uses."""
         r = self.zeropad_route(self.engine_name or "cuda")
         kind = r["kind"]
         if kind == "none":
@@ -449,6 +466,8 @@ class FFTApplication:
             return "elided-pair-output"
         if kind == "axes":
             return "elided-axes"
+        if kind == "blu":
+            return "elided-prefix (bluestein: forward reads; inverse masked)"
         if r["in_h"] and r["out_h"]:
             return "elided-prefix+output"
         return "elided-output" if r["out_h"] else "elided-prefix"
@@ -616,6 +635,15 @@ class FFTApplication:
         if kind in ("v3", "v2", "interior"):
             return self._elided_lines(x, eng, route, inverse,
                                       scale_of((ndim - 1,), True))
+        if kind == "blu" and not inverse:
+            # Bluestein's read window (``vkfft_tpu/api.py:485-501``): the
+            # forward reads the kept prefix; the inverse runs the masked
+            # walk below, as the reference's does
+            n = cfg.shape[-1]
+            y = eng.fft_lines_p(x.reshape(-1, n), self.axis_plans[ndim - 1],
+                                False, scale=scale_of((ndim - 1,), True),
+                                in_keep=route["in_h"])
+            return y.reshape(*x.shape)
         if kind in ("pair", "pair_out"):
             return self._elided_pair(x, eng, route, inverse, axes, scale_of)
         if kind == "axes":

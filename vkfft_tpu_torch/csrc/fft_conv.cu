@@ -51,6 +51,18 @@
 // so the lines come in through registers (inplace.cuh's load_lines: four
 // halves a plane in one 8-byte load), widened, and go out narrowed once,
 // to nearest even, after the chirp (store_lines).
+//
+// Bluestein's read window (fft_conv_zp_kernel and its half twins; C
+// entries vk_fft_conv_zp, vk_fft_conv_zp_f16, vk_fft_conv_zp_bf16):
+// _conv_v3_kernel's blu_in.  A declared-zero input tail [keep, n) of each
+// line is never read: the read takes the first `keep` points of each line
+// at the line pitch n (inplace.cuh's load_prefix; the pitch and the read
+// bound are two numbers), the chirp sweep zeroes [keep, m), and the
+// write keeps all n points.  Pruning the first stage of the forward's
+// first pass to the live rows (run_pass's kPrune: the column pass reads
+// rows j2 < ceil(keep / n1); in one pass, the points j < keep) cost more
+// than it saved, so kPruneWindow leaves it out.  The same body (conv_block<St, true>), so the
+// unwindowed kernels compile as before.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -64,6 +76,16 @@ constexpr int kThreads = 512;  // most threads a block
 constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
 constexpr int kConjData = 1;
 constexpr int kXpow = 2;
+
+// Whether the windowed entries prune their first stage (run_pass's
+// kPrune), a design choice measured on the card (PERF.md section 6);
+// -DVKFFT_PRUNE=1 builds the pruned stage for that comparison.  Left out:
+// 0.6486 ms pruned against 0.5860 unpruned at 2069 x 4054, in_keep
+// 2027 (H100, PERF.md section 6).
+#ifndef VKFFT_PRUNE
+#define VKFFT_PRUNE 0
+#endif
+constexpr bool kPruneWindow = VKFFT_PRUNE != 0;
 
 // A launch's geometry, every count and divisor from the host: the device
 // line's points n, the first factor n1 and the spectrum's rows; m = n1 *
@@ -130,14 +152,16 @@ struct ChirpOut {
 };
 
 // The block body on planes of storage type St (float, or a half type on
-// the same fp32 walk).
-template <class St>
+// the same fp32 walk).  With kWindow, Bluestein's read window: the first
+// `keep` points of each line read, the rest zeros.
+template <class St, bool kWindow = false>
 __device__ __forceinline__ void conv_block(
     float2* smem, const St* xr, const St* xi, St* yr, St* yi,
     long long batch, const Geo& geo, const Plan& pf1, const Plan& pf2,
     const Plan& pi1, const Plan& pi2, const float2* tf1, const float2* tf2,
     const float2* ti1, const float2* ti2, const float2* twf,
-    const float2* twi, const float2* spec, const float2* chirp) {
+    const float2* twi, const float2* spec, const float2* chirp,
+    int keep = 0) {
   const int n1 = pf1.n, n2 = pf2.n, m = geo.m, n = (int)geo.dn.d;
   const int P = geo.pitch, S = n2 * P;
   const int nl = block_lines(geo.lines, batch);
@@ -151,7 +175,10 @@ __device__ __forceinline__ void conv_block(
   load_tables(tab + set, ti1, ti2, twi, geo.len1, geo.len2, ntw);
   // point j < n of a line at (j / n1) * P + j % n1, on the read and on
   // the store
-  if constexpr (kNarrow<St>)
+  if constexpr (kWindow)
+    load_prefix(xr, xi, block_line0(geo.lines) * n, nl, keep,
+                Map{geo.dn, geo.d1, S, P, 1}, home);
+  else if constexpr (kNarrow<St>)
     load_lines(xr, xi, block_line0(geo.lines) * n, nl * n,
                Map{geo.dn, geo.d1, S, P, 1}, home);
   else
@@ -160,13 +187,14 @@ __device__ __forceinline__ void conv_block(
   __syncthreads();
   if (chirp != nullptr) {
     const Div dm = make_div(m);
+    const int live = kWindow ? keep : n;
     for (int u = threadIdx.x; u < nl * m; u += blockDim.x) {
       const int line = quot(u, dm);
       const int j = u - line * m;
       const int r = quot(j, geo.d1);
       const int at = line * S + r * P + j - r * n1;
-      home[at] = j < n ? cmul(home[at], __ldg(&chirp[j]))
-                       : make_float2(0.f, 0.f);
+      home[at] = j < live ? cmul(home[at], __ldg(&chirp[j]))
+                          : make_float2(0.f, 0.f);
     }
     __syncthreads();
   }
@@ -191,9 +219,20 @@ __device__ __forceinline__ void conv_block(
                        : Pass{nl * n1, S, 1, P, geo.d1};
     const float2* tables = tab + (k < 2 ? 0 : set);
     const float2* tlo = tables + geo.len1 + geo.len2;
-    run_pass(home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
-             tables + (row ? 0 : geo.len1),
-             InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo});
+    if constexpr (kWindow && kPruneWindow) {
+      // the forward's first pass with stages sees the live rows j2 <
+      // ceil(keep / n1) (the columns), or in one pass the points j < keep
+      const int live = k == 0 ? (keep + n1 - 1) / n1
+                       : k == 1 && n2 == 1 ? keep : m;
+      run_pass<true, true>(
+          home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
+          tables + (row ? 0 : geo.len1),
+          InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo}, live);
+    } else {
+      run_pass(home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
+               tables + (row ? 0 : geo.len1),
+               InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo});
+    }
   }
   store_lines(home, Map{geo.dn, geo.d1, n2 * P, P, 1}, yr, yi,
               block_line0(geo.lines) * n, block_lines(geo.lines, batch) * n,
@@ -235,9 +274,55 @@ fft_conv_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
              ti1, ti2, twf, twi, spec, chirp);
 }
 
+// Bluestein's read window: conv_block<St, true>, the first `keep` points
+// of each line read.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_zp_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                   long long batch, Geo geo, Plan pf1, Plan pf2, Plan pi1,
+                   Plan pi2, const float2* tf1, const float2* tf2,
+                   const float2* ti1, const float2* ti2, const float2* twf,
+                   const float2* twi, const float2* spec, const float2* chirp,
+                   int keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_block<float, true>(smem, xr, xi, yr, yi, batch, geo, pf1, pf2, pi1,
+                          pi2, tf1, tf2, ti1, ti2, twf, twi, spec, chirp,
+                          keep);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, long long batch, Geo geo, Plan pf1,
+                       Plan pf2, Plan pi1, Plan pi2, const float2* tf1,
+                       const float2* tf2, const float2* ti1,
+                       const float2* ti2, const float2* twf,
+                       const float2* twi, const float2* spec,
+                       const float2* chirp, int keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_block<__half, true>(smem, xr, xi, yr, yi, batch, geo, pf1, pf2, pi1,
+                           pi2, tf1, tf2, ti1, ti2, twf, twi, spec, chirp,
+                           keep);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fft_conv_zp_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi,
+                        long long batch, Geo geo, Plan pf1, Plan pf2,
+                        Plan pi1, Plan pi2, const float2* tf1,
+                        const float2* tf2, const float2* ti1,
+                        const float2* ti2, const float2* twf,
+                        const float2* twi, const float2* spec,
+                        const float2* chirp, int keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_block<__nv_bfloat16, true>(smem, xr, xi, yr, yi, batch, geo, pf1, pf2,
+                                  pi1, pi2, tf1, tf2, ti1, ti2, twf, twi,
+                                  spec, chirp, keep);
+}
+
 // The checks and the launch of `kernel` on planes of storage type St, as
-// vk_fft_conv describes them.
-template <class St, typename K>
+// vk_fft_conv describes them; with kWindow, the windowed `kernel` reading
+// the first `in_keep` points of each line (1 <= in_keep <= n, 0 for all
+// n; the Bluestein mode only).
+template <bool kWindow = false, class St, typename K>
 int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi,
            long long lines, int n, int mm, int rows, int flags,
            const int* plan_f1, const int* plan_f2, const int* plan_i1,
@@ -245,7 +330,7 @@ int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi,
            const float* table_i1, const float* table_i2,
            const float* twiddle_f, const float* twiddle_i,
            const float* spectrum, const float* chirp, int threads, int per,
-           int smem, void* stream) {
+           int smem, void* stream, int in_keep = 0) {
   Plan pf1, pf2, pi1, pi2;
   if (lines < 1 || !vkfft::plan_from_ints(plan_f1, &pf1) ||
       !vkfft::subplan_from_ints(plan_f2, &pf2) ||
@@ -277,18 +362,23 @@ int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi,
     return (int)cudaErrorInvalidValue;
   const long long blocks = (lines + per - 1) / per;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (kWindow && (chirp == nullptr || in_keep < 0 || in_keep > n))
+    return (int)cudaErrorInvalidValue;
   const int err = smem_opt_in(kernel, smem);
   if (err) return err;
-  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, lines, geo, pf1, pf2, pi1, pi2,
-      reinterpret_cast<const float2*>(table_f1),
-      reinterpret_cast<const float2*>(table_f2),
-      reinterpret_cast<const float2*>(table_i1),
-      reinterpret_cast<const float2*>(table_i2),
-      reinterpret_cast<const float2*>(twiddle_f),
-      reinterpret_cast<const float2*>(twiddle_i),
-      reinterpret_cast<const float2*>(spectrum),
-      reinterpret_cast<const float2*>(chirp));
+  const auto tab = [](const float* t) {
+    return reinterpret_cast<const float2*>(t);
+  };
+  if constexpr (kWindow)
+    kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, lines, geo, pf1, pf2, pi1, pi2, tab(table_f1),
+        tab(table_f2), tab(table_i1), tab(table_i2), tab(twiddle_f),
+        tab(twiddle_i), tab(spectrum), tab(chirp), in_keep ? in_keep : n);
+  else
+    kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, lines, geo, pf1, pf2, pi1, pi2, tab(table_f1),
+        tab(table_f2), tab(table_i1), tab(table_i2), tab(twiddle_f),
+        tab(twiddle_i), tab(spectrum), tab(chirp));
   return (int)cudaGetLastError();
 }
 
@@ -370,6 +460,60 @@ int vk_fft_conv_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                 flags, plan_f1, plan_f2, plan_i1, plan_i2, table_f1, table_f2,
                 table_i1, table_i2, twiddle_f, twiddle_i, spectrum, chirp,
                 threads, per, smem, stream);
+}
+
+// vk_fft_conv's Bluestein mode under Bluestein's read window (fp32, fp16
+// and bf16 planes): the first `in_keep` points of each line are read at
+// the line pitch n and the rest are declared zero, never read (1 <=
+// in_keep <= n; 0 for all n); every n points of a line are written.  The
+// other modes are refused.
+int vk_fft_conv_zp(const float* xr, const float* xi, float* yr, float* yi,
+                   long long lines, int n, int mm, int rows, int flags,
+                   const int* plan_f1, const int* plan_f2, const int* plan_i1,
+                   const int* plan_i2, const float* table_f1,
+                   const float* table_f2, const float* table_i1,
+                   const float* table_i2, const float* twiddle_f,
+                   const float* twiddle_i, const float* spectrum,
+                   const float* chirp, int threads, int per, int smem,
+                   int in_keep, void* stream) {
+  return launch<true>(fft_conv_zp_kernel, xr, xi, yr, yi, lines, n, mm, rows,
+                      flags, plan_f1, plan_f2, plan_i1, plan_i2, table_f1,
+                      table_f2, table_i1, table_i2, twiddle_f, twiddle_i,
+                      spectrum, chirp, threads, per, smem, stream, in_keep);
+}
+
+int vk_fft_conv_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                       __half* yi, long long lines, int n, int mm, int rows,
+                       int flags, const int* plan_f1, const int* plan_f2,
+                       const int* plan_i1, const int* plan_i2,
+                       const float* table_f1, const float* table_f2,
+                       const float* table_i1, const float* table_i2,
+                       const float* twiddle_f, const float* twiddle_i,
+                       const float* spectrum, const float* chirp, int threads,
+                       int per, int smem, int in_keep, void* stream) {
+  return launch<true>(fft_conv_zp_f16_kernel, xr, xi, yr, yi, lines, n, mm,
+                      rows, flags, plan_f1, plan_f2, plan_i1, plan_i2,
+                      table_f1, table_f2, table_i1, table_i2, twiddle_f,
+                      twiddle_i, spectrum, chirp, threads, per, smem, stream,
+                      in_keep);
+}
+
+int vk_fft_conv_zp_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                        __nv_bfloat16* yr, __nv_bfloat16* yi, long long lines,
+                        int n, int mm, int rows, int flags,
+                        const int* plan_f1, const int* plan_f2,
+                        const int* plan_i1, const int* plan_i2,
+                        const float* table_f1, const float* table_f2,
+                        const float* table_i1, const float* table_i2,
+                        const float* twiddle_f, const float* twiddle_i,
+                        const float* spectrum, const float* chirp,
+                        int threads, int per, int smem, int in_keep,
+                        void* stream) {
+  return launch<true>(fft_conv_zp_bf16_kernel, xr, xi, yr, yi, lines, n, mm,
+                      rows, flags, plan_f1, plan_f2, plan_i1, plan_i2,
+                      table_f1, table_f2, table_i1, table_i2, twiddle_f,
+                      twiddle_i, spectrum, chirp, threads, per, smem, stream,
+                      in_keep);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`

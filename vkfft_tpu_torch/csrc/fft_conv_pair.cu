@@ -107,6 +107,16 @@
 // rows past oy the inverse's, and only the (oy, oz) corner is written, at
 // the output's pitches.  The same body (conv2d_block<true>), so the
 // unwindowed kernels compile as before.
+//
+// Bluestein's read window (fft_conv_pair_zp_kernel and its half twins; C
+// entries vk_fft_conv_pair_zp, vk_fft_conv_pair_zp_f16,
+// vk_fft_conv_pair_zp_bf16): _conv_pair_kernel's in_keep in its Bluestein
+// form.  Step 1 reads the points k < keep of each line at the line pitch
+// n (the pitch and the read bound are two numbers) and holds zeros past
+// them; step 9 still writes k < n.  Pruning the nc stages' first stage to
+// the rows kc < ceil(keep / ns) (run_pass's kPrune) cost more than it
+// saved, so kPruneWindow leaves it out.  The same body (conv_pair_block<St, true>), so the unwindowed
+// kernels compile as before.
 #include <cooperative_groups.h>
 
 #include "cluster.cuh"
@@ -135,6 +145,16 @@ using vkfft::cluster::st_remote4;
 
 constexpr int kPairThreads = 512;   // most threads a block
 constexpr int kPairMinBlocks = 2;   // blocks an SM the register budget keeps
+
+// Whether Bluestein's windowed entries prune their first stage (run_pass's
+// kPrune), a design choice measured on the card (PERF.md section 6);
+// -DVKFFT_PRUNE=1 builds the pruned stage for that comparison.  Left out:
+// 0.7093 ms pruned against 0.6789 unpruned at 838 x 10007,
+// in_keep 3000 (H100, PERF.md section 6).
+#ifndef VKFFT_PRUNE
+#define VKFFT_PRUNE 0
+#endif
+constexpr bool kPruneWindow = VKFFT_PRUNE != 0;
 
 // The hook of the Bluestein mode's four passes: the four-step twiddle
 // w_m^(row * k) (row = row0 + seq, the sequence's row or column in the
@@ -283,14 +303,15 @@ struct Lens {
 };
 
 // The Bluestein block body on lines of storage type St (float, or a half
-// type on the same fp32 plane).
-template <class St>
+// type on the same fp32 plane).  With kWindow, Bluestein's read window:
+// the points k < keep of each line read, the rest zeros.
+template <class St, bool kWindow = false>
 __device__ __forceinline__ void conv_pair_block(
     float2* smem, const St* xr, const St* xi, St* yr, St* yi, int n,
     const Plan& pcf, const Plan& psf, const Plan& psi, const Plan& pci,
     const float2* tcf, const float2* tsf, const float2* tsi,
     const float2* tci, const float2* tw, const float2* spec,
-    const float2* chirp, const Lens& len) {
+    const float2* chirp, const Lens& len, int keep = 0) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -320,7 +341,7 @@ __device__ __forceinline__ void conv_pair_block(
     const int kc = walk::quot(t, dcols);
     const int k = kc * ns + c0 + t - kc * cols;
     float2 v = make_float2(0.f, 0.f);
-    if (k < n)
+    if (k < (kWindow ? keep : n))
       v = cmul(make_float2(walk::widen(xr[base + k]), walk::widen(xi[base + k])),
                __ldg(&chirp[k]));
     buf[t] = v;
@@ -344,8 +365,16 @@ __device__ __forceinline__ void conv_pair_block(
                         (k > 1 ? len.sf : 0) + (k > 2 ? len.si : 0);
     const float2* tlo = smem + rows * Pr + len.cf + len.sf + len.si + len.ci;
     const ConvHook h{k == 1 ? spec : tlo, col ? c0 : r0, ns << 2 | mode};
-    walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
-                   tab, h);
+    if constexpr (kWindow && kPruneWindow) {
+      // the nc stages down the columns see the live rows kc < ceil(keep /
+      // ns)
+      walk::run_pass<true, true>(
+          buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci, tab, h,
+          k == 0 ? (keep + ns - 1) / ns : m);
+    } else {
+      walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
+                     tab, h);
+    }
   }
   // 9. the crop and the chirp
   for (int t = threadIdx.x; t < tile; t += blockDim.x) {
@@ -393,6 +422,49 @@ fft_conv_pair_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   extern __shared__ __align__(16) float2 smem[];
   conv_pair_block(smem, xr, xi, yr, yi, n, pcf, psf, psi, pci, tcf, tsf, tsi,
                   tci, tw, spec, chirp, len);
+}
+
+// Bluestein's read window: conv_pair_block<St, true>, the points k < keep
+// of each line read.
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+fft_conv_pair_zp_kernel(const float* xr, const float* xi, float* yr,
+                        float* yi, int n, Plan pcf, Plan psf, Plan psi,
+                        Plan pci, const float2* tcf, const float2* tsf,
+                        const float2* tsi, const float2* tci,
+                        const float2* tw, const float2* spec,
+                        const float2* chirp, Lens len, int keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_pair_block<float, true>(smem, xr, xi, yr, yi, n, pcf, psf, psi, pci,
+                               tcf, tsf, tsi, tci, tw, spec, chirp, len,
+                               keep);
+}
+
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+fft_conv_pair_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                            __half* yi, int n, Plan pcf, Plan psf, Plan psi,
+                            Plan pci, const float2* tcf, const float2* tsf,
+                            const float2* tsi, const float2* tci,
+                            const float2* tw, const float2* spec,
+                            const float2* chirp, Lens len, int keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_pair_block<__half, true>(smem, xr, xi, yr, yi, n, pcf, psf, psi, pci,
+                                tcf, tsf, tsi, tci, tw, spec, chirp, len,
+                                keep);
+}
+
+__global__ void __launch_bounds__(kPairThreads, kPairMinBlocks)
+fft_conv_pair_zp_bf16_kernel(const __nv_bfloat16* xr,
+                             const __nv_bfloat16* xi, __nv_bfloat16* yr,
+                             __nv_bfloat16* yi, int n, Plan pcf, Plan psf,
+                             Plan psi, Plan pci, const float2* tcf,
+                             const float2* tsf, const float2* tsi,
+                             const float2* tci, const float2* tw,
+                             const float2* spec, const float2* chirp,
+                             Lens len, int keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  conv_pair_block<__nv_bfloat16, true>(smem, xr, xi, yr, yi, n, pcf, psf,
+                                       psi, pci, tcf, tsf, tsi, tci, tw, spec,
+                                       chirp, len, keep);
 }
 
 constexpr int kConjData = 1;
@@ -803,8 +875,10 @@ bool pair_layout_ok(const Plan& pcf, const Plan& psf, const Plan& psi,
 }
 
 // The checks and the cluster launch of the Bluestein `kernel` on lines of
-// storage type St, as vk_fft_conv_pair describes them.
-template <class St, typename K>
+// storage type St, as vk_fft_conv_pair describes them; with kWindow, the
+// windowed `kernel` reading the points k < in_keep of each line (1 <=
+// in_keep <= n; 0 for all n).
+template <bool kWindow = false, class St, typename K>
 int launch_pair(K kernel, const St* xr, const St* xi, St* yr, St* yi,
                 long long batch, int n, const int* plan_cf,
                 const int* plan_sf, const int* plan_si, const int* plan_ci,
@@ -812,7 +886,7 @@ int launch_pair(K kernel, const St* xr, const St* xi, St* yr, St* yi,
                 const float* table_si, const float* table_ci,
                 const float* twiddle, const float* spectrum,
                 const float* chirp, int cluster, int threads, int smem,
-                void* stream) {
+                void* stream, int in_keep = 0) {
   Plan pcf, psf, psi, pci;
   if (batch < 1 || !vkfft::plan_from_ints(plan_cf, &pcf) ||
       !vkfft::plan_from_ints(plan_sf, &psf) || !vkfft::plan_from_ints(plan_si, &psi) ||
@@ -829,13 +903,24 @@ int launch_pair(K kernel, const St* xr, const St* xi, St* yr, St* yi,
                  walk::table_len(psi), walk::table_len(pci)};
   if (!pair_layout_ok(pcf, psf, psi, pci, cluster, threads, smem, len))
     return (int)cudaErrorInvalidValue;
-  return launch_cluster(
-      kernel, batch, cluster, threads, (size_t)smem,
-      stream, xr, xi, yr, yi, n, pcf, psf, psi, pci,
-      reinterpret_cast<const float2*>(table_cf), reinterpret_cast<const float2*>(table_sf),
-      reinterpret_cast<const float2*>(table_si), reinterpret_cast<const float2*>(table_ci),
-      reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(spectrum),
-      reinterpret_cast<const float2*>(chirp), len);
+  if constexpr (kWindow) {
+    if (in_keep < 0 || in_keep > n) return (int)cudaErrorInvalidValue;
+    return launch_cluster(
+        kernel, batch, cluster, threads, (size_t)smem,
+        stream, xr, xi, yr, yi, n, pcf, psf, psi, pci,
+        reinterpret_cast<const float2*>(table_cf), reinterpret_cast<const float2*>(table_sf),
+        reinterpret_cast<const float2*>(table_si), reinterpret_cast<const float2*>(table_ci),
+        reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(spectrum),
+        reinterpret_cast<const float2*>(chirp), len, in_keep ? in_keep : n);
+  } else {
+    return launch_cluster(
+        kernel, batch, cluster, threads, (size_t)smem,
+        stream, xr, xi, yr, yi, n, pcf, psf, psi, pci,
+        reinterpret_cast<const float2*>(table_cf), reinterpret_cast<const float2*>(table_sf),
+        reinterpret_cast<const float2*>(table_si), reinterpret_cast<const float2*>(table_ci),
+        reinterpret_cast<const float2*>(twiddle), reinterpret_cast<const float2*>(spectrum),
+        reinterpret_cast<const float2*>(chirp), len);
+  }
 }
 
 // Resident clusters and blocks an SM of the Bluestein `kernel`.
@@ -1023,6 +1108,58 @@ int vk_fft_conv_pair_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                      plan_cf, plan_sf, plan_si, plan_ci, table_cf, table_sf,
                      table_si, table_ci, twiddle, spectrum, chirp, cluster,
                      threads, smem, stream);
+}
+
+// vk_fft_conv_pair under Bluestein's read window (fp32, fp16 and bf16
+// lines): the points k < in_keep of each line are read at the line pitch
+// n and the rest are declared zero, never read (1 <= in_keep <= n; 0 for
+// all n); every n points of a line are written.
+int vk_fft_conv_pair_zp(const float* xr, const float* xi, float* yr,
+                        float* yi, long long batch, int n, const int* plan_cf,
+                        const int* plan_sf, const int* plan_si,
+                        const int* plan_ci, const float* table_cf,
+                        const float* table_sf, const float* table_si,
+                        const float* table_ci, const float* twiddle,
+                        const float* spectrum, const float* chirp,
+                        int cluster, int threads, int smem, int in_keep,
+                        void* stream) {
+  return launch_pair<true>(fft_conv_pair_zp_kernel, xr, xi, yr, yi, batch, n,
+                           plan_cf, plan_sf, plan_si, plan_ci, table_cf,
+                           table_sf, table_si, table_ci, twiddle, spectrum,
+                           chirp, cluster, threads, smem, stream, in_keep);
+}
+
+int vk_fft_conv_pair_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                            __half* yi, long long batch, int n,
+                            const int* plan_cf, const int* plan_sf,
+                            const int* plan_si, const int* plan_ci,
+                            const float* table_cf, const float* table_sf,
+                            const float* table_si, const float* table_ci,
+                            const float* twiddle, const float* spectrum,
+                            const float* chirp, int cluster, int threads,
+                            int smem, int in_keep, void* stream) {
+  return launch_pair<true>(fft_conv_pair_zp_f16_kernel, xr, xi, yr, yi,
+                           batch, n, plan_cf, plan_sf, plan_si, plan_ci,
+                           table_cf, table_sf, table_si, table_ci, twiddle,
+                           spectrum, chirp, cluster, threads, smem, stream,
+                           in_keep);
+}
+
+int vk_fft_conv_pair_zp_bf16(const __nv_bfloat16* xr,
+                             const __nv_bfloat16* xi, __nv_bfloat16* yr,
+                             __nv_bfloat16* yi, long long batch, int n,
+                             const int* plan_cf, const int* plan_sf,
+                             const int* plan_si, const int* plan_ci,
+                             const float* table_cf, const float* table_sf,
+                             const float* table_si, const float* table_ci,
+                             const float* twiddle, const float* spectrum,
+                             const float* chirp, int cluster, int threads,
+                             int smem, int in_keep, void* stream) {
+  return launch_pair<true>(fft_conv_pair_zp_bf16_kernel, xr, xi, yr, yi,
+                           batch, n, plan_cf, plan_sf, plan_si, plan_ci,
+                           table_cf, table_sf, table_si, table_ci, twiddle,
+                           spectrum, chirp, cluster, threads, smem, stream,
+                           in_keep);
 }
 
 // Resident clusters on the card and blocks an SM of the Bluestein kernel

@@ -81,6 +81,21 @@
 // halves), widened, with or without the factor; every write, the post
 // factor and the transposed and interleaved layouts included, narrows
 // once, to nearest even, after the fp32 product.
+//
+// Bluestein's read window (fft_strided_tw_zp_kernel and its half twins; C
+// entries vk_fft_strided_tw_zp, vk_fft_strided_tw_zp_f16,
+// vk_fft_strided_tw_zp_bf16): the in_keep of _strided_kernel's Bluestein
+// pass (_bluestein_long_fused_p).  A read bound `in_keep` apart from the
+// plane pitch in_len: a point j >= in_keep of a plane is read as zero,
+// never read from device memory, and the output is written as in_len /
+// out_len say.  Forward plans in the natural mode only (the long
+// Bluestein's first pass).  The window's planes are never whole, so the
+// reads take the single-real path, half planes one half at a time, and
+// no group of four straddles the window's edge.  Pruning the first stage
+// of the first pass to the live rows j < ceil(in_keep / S) (run_pass's
+// kPrune) gained nothing, so kPruneWindow leaves it out.  The same body
+// (strided_tw_block<St, true>), so the unwindowed kernels compile as
+// before.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -92,6 +107,16 @@ using namespace vkfft::walk;
 
 // Most threads a block; the bound holds the kernel to 64 registers.
 constexpr int kThreads = 1024;
+
+// Whether the windowed entries prune their first stage (run_pass's
+// kPrune), a design choice measured on the card (PERF.md section 6);
+// -DVKFFT_PRUNE=1 builds the pruned stage for that comparison.  Left out:
+// 0.2956 ms pruned against 0.2878 unpruned at 127 x 65537,
+// in_keep 32768 (H100, PERF.md section 6).
+#ifndef VKFFT_PRUNE
+#define VKFFT_PRUNE 0
+#endif
+constexpr bool kPruneWindow = VKFFT_PRUNE != 0;
 
 // How the tile meets device memory: rows in and out, the columns read
 // from (P, S, n), or written to it.
@@ -233,15 +258,17 @@ __device__ __forceinline__ float4 ld4(const St* p) {
 // (j, c) straight to tile_pos(c, j): by cp.async, each float to its place,
 // or with a pre factor or from half planes through registers (four
 // columns at once where the plane is whole and every run aligned to
-// four), times the factor; points past the live length as zeros.
-// Returns when this thread's copies have landed.
-template <class St>
+// four), times the factor; points past the live length (with kWindow,
+// past the read bound `keep`) as zeros.  Returns when this thread's
+// copies have landed.
+template <bool kWindow = false, class St>
 __device__ void load_rows(const St* xr, const St* xi, const Place& at,
                           const Geo& g, const Map& mp, const Factor& f,
-                          float2* home) {
+                          float2* home, long long keep = 0) {
   const int n = mp.dn.d;
-  const long long S = g.S, pd = g.in_pd, len = g.in_len;
-  const long long base = (at.p / pd) * pd * len + (at.p % pd) * S + at.s0;
+  const long long S = g.S, pd = g.in_pd, len = kWindow ? keep : g.in_len;
+  const long long base =
+      (at.p / pd) * pd * g.in_len + (at.p % pd) * S + at.s0;
   const long long rs = pd * S;
   const bool whole = len == n * S;
   if ((kNarrow<St> || f.kind) && whole && at.cols == g.ts &&
@@ -429,9 +456,14 @@ __device__ void store_columns_factored(const float2* home, const Map& mp,
 // scale on its last stage (on the row pass's where n2 = 1), then the row
 // pass; the inverse mirrored.  The factors, the flags and the tables are
 // found again in each pass from the parameters, not held through it (held,
-// two flags and the count of columns spilled).
+// two flags and the count of columns spilled).  With kPrune (a forward
+// under Bluestein's read window), the first pass with stages sees only
+// the rows j < `rows` of each column: the column pass the rows j2 <
+// ceil(rows / n1), or in one pass the row pass the points j < rows.
+template <bool kPrune = false>
 __device__ __forceinline__ void tile_passes(float2* smem, const Geo& g,
-                                            const Plan& p1, const Plan& p2) {
+                                            const Plan& p1, const Plan& p2,
+                                            int rows = 0) {
   for (int k = 0; k < 2; ++k) {
     const int n1 = fresh_int(p1.n), n2 = p2.n;
     const bool inverse = fresh_int(p1.inverse) != 0;
@@ -444,17 +476,27 @@ __device__ __forceinline__ void tile_passes(float2* smem, const Geo& g,
     const Pass ps = row ? Pass{g.ts * n2, g.stride, n1 | 1, 1, make_div(n2)}
                         : Pass{g.ts * n1, g.stride, 1, n1 | 1, make_div(n1)};
     const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
-    run_pass(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
-             InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
+    if constexpr (kPrune) {
+      const int live = k == 0 ? (rows + n1 - 1) / n1 : n2 == 1 ? rows : n1;
+      run_pass<true, true>(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
+                           InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo},
+                           live);
+    } else {
+      run_pass(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
+               InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
+    }
   }
 }
 
-// The block body on planes of storage type St.
-template <class St>
+// The block body on planes of storage type St; with kWindow, Bluestein's
+// read window (a forward in the natural mode): the points j < keep of
+// each plane read, the rest zeros.
+template <class St, bool kWindow = false>
 __device__ __forceinline__ void strided_tw_block(
     float2* smem, const St* xr, const St* xi, St* yr, St* yi, const Plan& p1,
     const Plan& p2, const float2* t1, const float2* t2, const float2* tw,
-    const Geo& g, const Factor& pre, const Factor& post) {
+    const Geo& g, const Factor& pre, const Factor& post,
+    long long keep = 0) {
   const int n1 = p1.n, n2 = p2.n, n = n1 * n2;
   const int pitch = n1 | 1;
   float2* s1 = smem + g.ts * g.stride;
@@ -465,13 +507,19 @@ __device__ __forceinline__ void strided_tw_block(
   {
     const Place at = place_of(g);
     const Map in = make_map(n, g.stride, inverse, n1, n2, pitch);
-    if (g.mode == kReadTransposed)
+    if constexpr (kWindow)
+      load_rows<true>(xr, xi, at, g, in, pre, smem, keep);
+    else if (g.mode == kReadTransposed)
       load_columns(xr, xi, (at.p * g.S + at.s0) * n, at, g.S, in, pre, smem);
     else
       load_rows(xr, xi, at, g, in, pre, smem);
     __syncthreads();
   }
-  tile_passes(smem, g, p1, p2);
+  if constexpr (kWindow && kPruneWindow)
+    tile_passes<true>(smem, g, p1, p2,
+                      (int)min((long long)n, (keep + g.S - 1) / g.S));
+  else
+    tile_passes(smem, g, p1, p2);
   const Place at = place_of(g);
   const Map out = make_map(n, g.stride, !inverse, n1, n2, pitch);
   if (g.mode == kStoreTransposed && post.kind)
@@ -509,6 +557,40 @@ fft_strided_tw_bf16_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   strided_tw_block(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, g, pre, post);
 }
 
+// Bluestein's read window: strided_tw_block<St, true>, the points j <
+// keep of each plane read.
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_tw_zp_kernel(const float* xr, const float* xi, float* yr,
+                         float* yi, Plan p1, Plan p2, const float2* t1,
+                         const float2* t2, const float2* tw, Geo g,
+                         Factor pre, Factor post, long long keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_tw_block<float, true>(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, g,
+                                pre, post, keep);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_tw_zp_f16_kernel(const __half* xr, const __half* xi, __half* yr,
+                             __half* yi, Plan p1, Plan p2, const float2* t1,
+                             const float2* t2, const float2* tw, Geo g,
+                             Factor pre, Factor post, long long keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_tw_block<__half, true>(smem, xr, xi, yr, yi, p1, p2, t1, t2, tw, g,
+                                 pre, post, keep);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fft_strided_tw_zp_bf16_kernel(const __nv_bfloat16* xr,
+                              const __nv_bfloat16* xi, __nv_bfloat16* yr,
+                              __nv_bfloat16* yi, Plan p1, Plan p2,
+                              const float2* t1, const float2* t2,
+                              const float2* tw, Geo g, Factor pre,
+                              Factor post, long long keep) {
+  extern __shared__ __align__(16) float2 smem[];
+  strided_tw_block<__nv_bfloat16, true>(smem, xr, xi, yr, yi, p1, p2, t1, t2,
+                                        tw, g, pre, post, keep);
+}
+
 // Factor from its host form: kind, sign, N, a, pm, b, sd, sm.
 bool factor_from(const long long* v, Factor* f) {
   f->kind = (int)v[0];
@@ -534,14 +616,16 @@ bool factor_from(const long long* v, Factor* f) {
 
 // The checks and the launch of `kernel` on planes of storage type St
 // (float, or a half type on the same fp32 walk), as vk_fft_strided_tw
-// describes them.
-template <class St, typename K>
+// describes them; with kWindow, the windowed `kernel` reading the points
+// j < in_keep of each plane (1 <= in_keep <= in_len, 0 for all in_len; a
+// forward in the natural mode without interleave).
+template <bool kWindow = false, class St, typename K>
 int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi, long long P,
            long long S, long long in_len, long long out_len, const int* plan1,
            const int* plan2, const float* table1, const float* table2,
            const float* twiddle, const long long* factors, int in_pd,
            int out_pd, int mode, int ts, int threads, int smem,
-           void* stream) {
+           void* stream, long long in_keep = 0) {
   Plan p1, p2;
   Factor pre, post;
   if (P < 1 || S < 1 || !vkfft::plan_from_ints(plan1, &p1) ||
@@ -573,14 +657,24 @@ int launch(K kernel, const St* xr, const St* xi, St* yr, St* yi, long long P,
     return (int)cudaErrorInvalidValue;
   const long long tiles = (S + ts - 1) / ts;
   if (P * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (kWindow && (in_keep < 0 || in_keep > in_len || p1.inverse ||
+                  mode != kNatural || in_pd != 1))
+    return (int)cudaErrorInvalidValue;
   const int err = smem_opt_in(kernel, smem);
   if (err) return err;
   const Geo g{S, tiles, in_len, out_len, in_pd, out_pd, ts, stride, mode,
               len1, len2};
-  kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, p1, p2, reinterpret_cast<const float2*>(table1),
-      reinterpret_cast<const float2*>(table2),
-      reinterpret_cast<const float2*>(twiddle), g, pre, post);
+  if constexpr (kWindow)
+    kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, p1, p2, reinterpret_cast<const float2*>(table1),
+        reinterpret_cast<const float2*>(table2),
+        reinterpret_cast<const float2*>(twiddle), g, pre, post,
+        in_keep ? in_keep : in_len);
+  else
+    kernel<<<(unsigned)(P * tiles), threads, smem, (cudaStream_t)stream>>>(
+        xr, xi, yr, yi, p1, p2, reinterpret_cast<const float2*>(table1),
+        reinterpret_cast<const float2*>(table2),
+        reinterpret_cast<const float2*>(twiddle), g, pre, post);
   return (int)cudaGetLastError();
 }
 
@@ -653,6 +747,56 @@ int vk_fft_strided_tw_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   return launch(fft_strided_tw_bf16_kernel, xr, xi, yr, yi, P, S, in_len,
                 out_len, plan1, plan2, table1, table2, twiddle, factors,
                 in_pd, out_pd, mode, ts, threads, smem, stream);
+}
+
+// vk_fft_strided_tw under Bluestein's read window (fp32, fp16 and bf16
+// planes): the points j < in_keep of each plane are read, at the plane
+// pitch in_len, and the rest are declared zero, never read (1 <= in_keep
+// <= in_len; 0 for all in_len); the output as vk_fft_strided_tw writes
+// it.  Forward plans, the natural mode and no input interleave only.
+int vk_fft_strided_tw_zp(const float* xr, const float* xi, float* yr,
+                         float* yi, long long P, long long S,
+                         long long in_len, long long out_len,
+                         const int* plan1, const int* plan2,
+                         const float* table1, const float* table2,
+                         const float* twiddle, const long long* factors,
+                         int in_pd, int out_pd, int mode, int ts, int threads,
+                         int smem, long long in_keep, void* stream) {
+  return launch<true>(fft_strided_tw_zp_kernel, xr, xi, yr, yi, P, S, in_len,
+                      out_len, plan1, plan2, table1, table2, twiddle, factors,
+                      in_pd, out_pd, mode, ts, threads, smem, stream,
+                      in_keep);
+}
+
+int vk_fft_strided_tw_zp_f16(const __half* xr, const __half* xi, __half* yr,
+                             __half* yi, long long P, long long S,
+                             long long in_len, long long out_len,
+                             const int* plan1, const int* plan2,
+                             const float* table1, const float* table2,
+                             const float* twiddle, const long long* factors,
+                             int in_pd, int out_pd, int mode, int ts,
+                             int threads, int smem, long long in_keep,
+                             void* stream) {
+  return launch<true>(fft_strided_tw_zp_f16_kernel, xr, xi, yr, yi, P, S,
+                      in_len, out_len, plan1, plan2, table1, table2, twiddle,
+                      factors, in_pd, out_pd, mode, ts, threads, smem, stream,
+                      in_keep);
+}
+
+int vk_fft_strided_tw_zp_bf16(const __nv_bfloat16* xr,
+                              const __nv_bfloat16* xi, __nv_bfloat16* yr,
+                              __nv_bfloat16* yi, long long P, long long S,
+                              long long in_len, long long out_len,
+                              const int* plan1, const int* plan2,
+                              const float* table1, const float* table2,
+                              const float* twiddle, const long long* factors,
+                              int in_pd, int out_pd, int mode, int ts,
+                              int threads, int smem, long long in_keep,
+                              void* stream) {
+  return launch<true>(fft_strided_tw_zp_bf16_kernel, xr, xi, yr, yi, P, S,
+                      in_len, out_len, plan1, plan2, table1, table2, twiddle,
+                      factors, in_pd, out_pd, mode, ts, threads, smem, stream,
+                      in_keep);
 }
 
 // Resident blocks an SM of the kernel at `threads` a block and `smem`

@@ -235,11 +235,13 @@ __host__ __device__ constexpr int round_butterflies(int R) {
 // registers before the barrier, so only its values and its output
 // address live across it.  When the hook is on, output i of butterfly l
 // of sequence (hi, lo) goes through hook(v, lo, i * L + l) (the last
-// stage: Mp = 1).
-template <int R, class C, class Hook>
+// stage: Mp = 1).  With kPrune (a pass's pruned first stage, run_pass),
+// input j of a butterfly is read only for j < `live` (its live input
+// groups), the others held as the zeros they are.
+template <int R, bool kPrune = false, class C, class Hook>
 __device__ void stage_fixed(C* buf, const Pass& g, int L, int Mp,
                             const C* tw, const C* w, int inverse,
-                            const Hook& hook) {
+                            const Hook& hook, int live = R) {
   constexpr int K = round_butterflies(R);
   const int T = blockDim.x;
   const int per_seq = L * Mp;
@@ -261,7 +263,13 @@ __device__ void stage_fixed(C* buf, const Pass& g, int L, int Mp,
       const int base = seq_base(g, q0 + q, lo);
       const C* s = buf + base + (l * R * Mp + m) * g.es;
 #pragma unroll
-      for (int j = 0; j < R; ++j) v[k][j] = s[j * jstep];
+      for (int j = 0; j < R; ++j) {
+        if constexpr (kPrune)
+          v[k][j] = j == 0 || j < live ? s[j * jstep]
+                                       : cx<C>(Real<C>(0), Real<C>(0));
+        else
+          v[k][j] = s[j * jstep];
+      }
       dft<R>(v[k], inverse, w);
 #pragma unroll
       for (int i = 1; i < R; ++i) v[k][i] = cmul(v[k][i], tw[i * Mp + m]);
@@ -304,11 +312,13 @@ __host__ __device__ __forceinline__ int generic_groups(int R) {
 // threads, so a warp's root reads are broadcasts.  A pair past H (i <= H +
 // 3 < R, an index of the butterfly) is computed as any other and only its
 // store is predicated; so is an idle slot's clamped item.  The item's
-// indices are found again after its sums, not held through them.
-template <class C, class Hook>
+// indices are found again after its sums, not held through them.  With
+// kPrune (a pass's pruned first stage), inputs j >= `live` (its live input
+// groups) are the zeros they are, not read.
+template <bool kPrune = false, class C, class Hook>
 __device__ void stage_generic(C* buf, const Pass& g, int R, int L,
                               int Mp, const C* tw, const C* w,
-                              const Hook& hook) {
+                              const Hook& hook, int live = 0) {
   constexpr int G = kGenericPairs, K = kItems<C>;
   const int T = blockDim.x;
   const int H = R >> 1;
@@ -345,7 +355,15 @@ __device__ void stage_generic(C* buf, const Pass& g, int R, int L,
         int ie = grp * G << 16;
 #pragma unroll 1
         for (int j = 1; 2 * j < R; ++j) {
-          const C a = s[j * jstep], b = s[(R - j) * jstep];
+          C a, b;
+          if constexpr (kPrune) {
+            const C zero = cx<C>(Real<C>(0), Real<C>(0));
+            a = j < live ? s[j * jstep] : zero;
+            b = R - j < live ? s[(R - j) * jstep] : zero;
+          } else {
+            a = s[j * jstep];
+            b = s[(R - j) * jstep];
+          }
           const C sj = cadd(a, b), dj = csub(a, b);
           ie += ie >> 16;
           if ((ie & 0xffff) >= R) ie -= R;
@@ -435,9 +453,16 @@ inline bool has_generic(const Plan& p) {
 // shared memory; `hook` rides the last stage's write.  Without kGeneric
 // the generic stage is left out of the kernel (its caller refuses plans
 // that need it, has_generic).
-template <bool kGeneric = true, class C, class Hook>
+//
+// With kPrune, the first stage is pruned to the inputs a declared-zero
+// tail leaves live (the reference's stage-1 compute guards): only the
+// first `live` points of each sequence may be nonzero, so of the first
+// stage's r groups of n / r points (input j of every butterfly) only the
+// first ceil(live / (n / r)) are read; the others are the zeros they are.
+// The later stages, which see every point, read all of their inputs.
+template <bool kGeneric = true, bool kPrune = false, class C, class Hook>
 __device__ void run_pass(C* buf, const Pass& g, const Plan& p, const C* tab,
-                         const Hook& hook) {
+                         const Hook& hook, int live = 0) {
   int L = 1, M = p.n;
   for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
@@ -445,19 +470,36 @@ __device__ void run_pass(C* buf, const Pass& g, const Plan& p, const C* tab,
     const C* tw = tab + p.tw_off[s];
     const C* w = tab + (p.dft_off[s] >= 0 ? p.dft_off[s] : 0);
     const Hook h = s == p.n_stages - 1 ? hook : hook.off();
+    // the live input groups of the stage (all but a pruned first one's)
+    int lg = r;
+    if constexpr (kPrune)
+      if (s == 0) lg = min(r, (live + Mp - 1) / Mp);
     switch (r) {
-      case 2: stage_fixed<2>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      case 3: stage_fixed<3>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      case 4: stage_fixed<4>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      case 5: stage_fixed<5>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      case 7: stage_fixed<7>(buf, g, L, Mp, tw, w, p.inverse, h); break;
-      case 8: stage_fixed<8>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 2:
+        stage_fixed<2, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
+        break;
+      case 3:
+        stage_fixed<3, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
+        break;
+      case 4:
+        stage_fixed<4, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
+        break;
+      case 5:
+        stage_fixed<5, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
+        break;
+      case 7:
+        stage_fixed<7, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
+        break;
+      case 8:
+        stage_fixed<8, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
+        break;
       case 16:
         if constexpr (kRadix16<C>)
-          stage_fixed<16>(buf, g, L, Mp, tw, w, p.inverse, h);
+          stage_fixed<16, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
         break;
       default:
-        if constexpr (kGeneric) stage_generic(buf, g, r, L, Mp, tw, w, h);
+        if constexpr (kGeneric)
+          stage_generic<kPrune>(buf, g, r, L, Mp, tw, w, h, lg);
         break;
     }
     L *= r;
@@ -745,6 +787,38 @@ __device__ void load_lines_async(const Real<C>* xr, const Real<C>* xi,
     cp_async_real(d + 1, i0 + u);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Bluestein's read window (fft_conv.cu's windowed entries): the first
+// `keep` points of each of `nl` lines of n points from real offset g0 of
+// the planes into their places `mp` in `home`; the points past `keep` are
+// declared zero, never read, and not written here (the caller's chirp
+// sweep writes their zeros).  fp32 planes by cp.async, each real straight
+// to its place, returning when this thread's copies have landed; half
+// planes through registers line by line (load_lines: 8-byte groups of
+// four halves, single halves at a line's unaligned head and at a window
+// edge inside a group).
+template <class C, class St>
+__device__ void load_prefix(const St* xr, const St* xi, long long g0, int nl,
+                            int keep, const Map& mp, C* home) {
+  const int n = (int)mp.dn.d;
+  if constexpr (kNarrow<St>) {
+    for (int line = 0; line < nl; ++line)
+      load_lines(xr, xi, g0 + (long long)line * n, keep, mp,
+                 home + line * mp.S);
+  } else {
+    const Div dk = make_div(keep);
+    for (int u = threadIdx.x; u < nl * keep; u += blockDim.x) {
+      const int line = quot(u, dk);
+      const int t = u - line * keep;
+      Real<C>* d =
+          reinterpret_cast<Real<C>*>(home + position(line * n + t, mp));
+      const long long gi = g0 + (long long)line * n + t;
+      cp_async_real(d, xr + gi);
+      cp_async_real(d + 1, xi + gi);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
 }
 
 // A zero-pad window on a plane pass (fft_pair.cu's windowed entries,

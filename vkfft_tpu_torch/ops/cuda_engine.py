@@ -115,8 +115,11 @@ layouts, or whose last dim is not contiguous, are copied first:
 `_one_layout`), and off those kernels honours the window with a mask and
 a slice (``pallas_engine.fft_axis_p``'s contract).
 `fft_conv_pair`'s 2-D mode takes the (ky, kz) / (oy, oz) corners of the
-"pair" fusion mode (`conv_fused_pair`'s ``in_keep`` / ``out_keep``);
-Bluestein's read window is queue 1 item 8.3.
+"pair" fusion mode (`conv_fused_pair`'s ``in_keep`` / ``out_keep``).
+Bluestein's read window (`read_window`: a kept input prefix of a Bluestein
+plan's lines) runs the windowed entries of `fft_conv`, `fft_conv_pair` and
+the long tier's first `fft_strided_tw`, or the composed routes' chirp over
+the kept points (`_bluestein_p`'s ``in_keep``).
 
 The kept intermediate order (``keep_intermediate_order``):
 `keep_order_kernel` names the form of a minor-axis DIRECT plan,
@@ -453,8 +456,19 @@ def _rader_p(x: Planar, p: int, scale: float, kernel: str) -> Planar:
                   torch.cat([X0.im, val.im[:, order]], 1))
 
 
+def _chirp_pad(x: Planar, a: Planar, m: int, in_keep: int = 0) -> Planar:
+    """The composed routes' read: the lines times the chirp ``a`` (fp32,
+    narrowed once to the planes' dtype), zero-padded to m; with
+    ``in_keep``, Bluestein's read window: only the first in_keep points
+    taken, the declared-zero tail never read."""
+    k = in_keep or x.shape[1]
+    y = _narrow(x[:, :k] * a[:, :k], x.dtype)
+    return Planar(*(torch.nn.functional.pad(t, (0, m - k))
+                    for t in (y.re, y.im)))
+
+
 def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
-                 kernels: tuple) -> Planar:
+                 kernels: tuple, in_keep: int = 0) -> Planar:
     """Bluestein DFT through the padded length m
     (``pallas_engine.py:648-672``), on the ``kernels`` `route` names, in
     its order: `fft_conv` (Bluestein mode); `fft_conv_pair`; the chirp and
@@ -462,24 +476,31 @@ def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
     `fft_conv_inv`; the fused long tier (`_bluestein_long_p`); the
     composition on the long DIRECT routes (`_bluestein_composed_p`).  1/m
     and the caller's scale ride the spectrum or the last kernel.  On half
-    planes the tensor-op chirps compute in fp32 and narrow once."""
+    planes the tensor-op chirps compute in fp32 and narrow once.
+
+    ``in_keep`` (0 < in_keep <= n; 0 for none): Bluestein's read window
+    (the JAX package's ``blu`` route, ``vkfft_tpu/api.py:485-501``): the
+    points past in_keep of each line are declared zero and never read,
+    the windowed entries of `fft_conv`, `fft_conv_pair` and the long
+    tier's first `fft_strided_tw`, or the composed routes' chirp taken
+    over the first in_keep points only; every n points are written."""
     n, m = plan.n, plan.decomp.bluestein_size
     dev = x.device
     kernel = kernels[0][0]
     if kernel == "fft_strided_tw":
         if kernels[1][0] == "fft_conv":
-            return _bluestein_long_p(x, n, m, inverse, scale)
-        return _bluestein_composed_p(x, n, m, inverse, scale)
+            return _bluestein_long_p(x, n, m, inverse, scale, in_keep)
+        return _bluestein_composed_p(x, n, m, inverse, scale, in_keep)
     chirp = ck.bluestein_chirp(n, m, inverse, dev)
     if kernel == "fft_conv":
         spec = ck.bluestein_spectrum(n, m, inverse, scale, dev)
-        return Planar(*ck.fft_conv(x.re, x.im, spec, chirp))
+        return Planar(*ck.fft_conv(x.re, x.im, spec, chirp, in_keep=in_keep))
     if kernel == "fft_conv_pair":
         spec = ck.bluestein_spectrum(n, m, inverse, scale, dev, "pair")
-        return Planar(*ck.fft_conv_pair(x.re, x.im, spec, chirp))
+        return Planar(*ck.fft_conv_pair(x.re, x.im, spec, chirp,
+                                        in_keep=in_keep))
     a = ck.table_planar(chirp)[None]
-    y = _narrow(x * a, x.dtype)
-    y = Planar(*(torch.nn.functional.pad(t, (0, m - n)) for t in (y.re, y.im)))
+    y = _chirp_pad(x, a, m, in_keep)
     fr, fi = ck.fft_twofactor(y.re, y.im, swapped=True, out=(y.re, y.im))
     spec = ck.bluestein_spectrum(n, m, inverse, scale, dev, "swapped")
     vr, vi = ck.fft_conv_inv(fr, fi, spec, out=(fr, fi))
@@ -487,7 +508,7 @@ def _bluestein_p(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
 
 
 def _bluestein_long_p(x: Planar, n: int, m: int, inverse: bool,
-                      scale: float) -> Planar:
+                      scale: float, in_keep: int = 0) -> Planar:
     """The fused long Bluestein (``pallas_engine.py:452-519
     _bluestein_long_fused_p``) on m = nc*ns (`bluestein_long_split`), three
     kernels: the strided nc pass reading each (B, n) line as the first n
@@ -496,11 +517,12 @@ def _bluestein_long_p(x: Planar, n: int, m: int, inverse: bool,
     the swapped layout, line (b, kc) times row kc of the spectrum; the
     inverse strided pass, the conjugate twiddle on the read, the chirp on
     the write and the caller's scale in its stages, writing only the first
-    n points."""
+    n points.  ``in_keep``: the first pass's read window (its windowed
+    entry)."""
     nc, ns = ck.bluestein_long_split(m)
     B = x.shape[0]
     t = ck.fft_strided(x.re, x.im, False, 1.0, pre=ck.chirp(n, inverse),
-                       post=ck.twiddle(m), plane=(nc, ns))
+                       post=ck.twiddle(m), plane=(nc, ns), in_keep=in_keep)
     spec = ck.bluestein_spectrum(n, m, inverse, 1.0, x.device, "long")
     c = ck.fft_conv(t[0].reshape(B * nc, ns), t[1].reshape(B * nc, ns), spec,
                     out=tuple(u.reshape(B * nc, ns) for u in t))
@@ -511,18 +533,18 @@ def _bluestein_long_p(x: Planar, n: int, m: int, inverse: bool,
 
 
 def _bluestein_composed_p(x: Planar, n: int, m: int, inverse: bool,
-                          scale: float) -> Planar:
+                          scale: float, in_keep: int = 0) -> Planar:
     """Bluestein where m's ns-point lines fit no `fft_conv`
     (``pallas_engine.py:665-672`` with ``:400-402``): the chirp and the pad
     as tensor ops, the long forward in the swapped order, the spectrum (in
     that order) multiplied as a tensor op, the long inverse from the
     swapped order with the caller's scale, the crop and the chirp (on half
     planes the three multiplies in fp32, each narrowed once; the long
-    inverse's per-upload scale, `_pass_scales`)."""
+    inverse's per-upload scale, `_pass_scales`; ``in_keep``: the chirp over
+    the read window only)."""
     dev, dt = x.device, x.dtype
     a = ck.table_planar(ck.bluestein_chirp(n, m, inverse, dev))[None]
-    y = _narrow(x * a, dt)
-    y = Planar(*(torch.nn.functional.pad(t, (0, m - n)) for t in (y.re, y.im)))
+    y = _chirp_pad(x, a, m, in_keep)
     Y = fft_long_p(y, m, False, order="swapped", donate=True)
     spec = ck.table_planar(ck.bluestein_spectrum(n, m, inverse, 1.0, dev,
                                                  "long_swapped"))
@@ -676,6 +698,17 @@ def window_kernel(plan: AxisPlan) -> Optional[str]:
     return kernel if kernel in ("fft_lines", "fft_twofactor") else None
 
 
+def read_window(plan: AxisPlan, w: ck.LineWindow) -> int:
+    """The read window (kept prefix) that a Bluestein plan's windowed
+    entries run for the window ``w``: its kept input prefix where that is
+    all of it (no interior window; the output whole, nothing written as
+    zeros), else 0 (the window is then a mask and a slice)."""
+    if (plan.algorithm is Algorithm.BLUESTEIN and w.length < w.n
+            and w.zero == (0, 0) and w.out == w.n and w.fill == (0, 0)):
+        return w.length
+    return 0
+
+
 def _masked_lines(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
                   w: ck.LineWindow) -> Planar:
     """A window off the windowed kernels (``pallas_engine.fft_axis_p``'s
@@ -697,8 +730,10 @@ def fft_lines_p(x: Planar, plan: AxisPlan, inverse: bool = False,
     without ``out_fill``, or ``out_zero_window``; `ck.line_window`) run
     the windowed entry of `window_kernel`'s kernel; the planes may then be
     any view (..., L) of lines, L = n or the kept prefix, and the result
-    is (..., n) or, cropped, (..., out_keep).  Off those kernels the
-    window is a mask and a slice around the plan's route."""
+    is (..., n) or, cropped, (..., out_keep).  A kept input prefix alone on
+    lines of n points of a Bluestein plan is its read window
+    (`read_window`, `_bluestein_p`).  Off those kernels the window is a
+    mask and a slice around the plan's route."""
     _check_dtype(x, lambda dt: axis_supports(plan, dt))
     w = ck.line_window(plan.n, in_keep, out_keep, out_fill, in_window,
                        out_zero_window, "fft_lines_p")
@@ -823,10 +858,16 @@ def _one_layout(x: Planar) -> Planar:
 def _windowed_lines(x: Planar, plan: AxisPlan, inverse: bool, scale: float,
                     w: ck.LineWindow, donate: bool = False) -> Planar:
     """The window ``w`` on the (..., L) lines of ``x``: the windowed entry
-    of `window_kernel`'s kernel, reading the planes in place, else
-    `_masked_lines`."""
+    of `window_kernel`'s kernel, reading the planes in place; Bluestein's
+    read window (`read_window`) on lines of n points through the windowed
+    entries of its route (`_bluestein_p`); else `_masked_lines`."""
     kernel = window_kernel(plan)
     if kernel is None:
+        keep = read_window(plan, w)
+        if keep and x.shape[-1] == plan.n:
+            y = _bluestein_p(x.reshape(-1, plan.n).contiguous(), plan,
+                             inverse, scale, route(plan), keep)
+            return y.reshape(*x.shape)
         return _masked_lines(x, plan, inverse, scale, w)
     x = _one_layout(x)
     run = ck.fft_lines if kernel == "fft_lines" else ck.fft_twofactor

@@ -319,7 +319,18 @@ ZP_ENTRIES = tuple(name + "_zp" + _SUFFIX[dt] for name in ZP_KERNELS
 # `zp_launches` beside the four kernels'.
 ZP_CONV2D_ENTRIES = tuple("fft_conv2d_zp" + _SUFFIX[dt]
                           for dt in (torch.float32,) + STORAGE_DTYPES)
-zp_launches = {entry: 0 for entry in ZP_ENTRIES + ZP_CONV2D_ENTRIES}
+# The kernels of the Bluestein routes have windowed entries of Bluestein's
+# read window (``vk_fft_conv_zp``, ``vk_fft_conv_pair_zp`` in its
+# Bluestein mode, ``vk_fft_strided_tw_zp`` in its plane mode, each with
+# ``_f16`` and ``_bf16`` twins: _conv_v3_kernel's blu_in, _conv_pair_kernel's
+# and _strided_kernel's in_keep), the read bound ``in_keep`` an argument of
+# its own beside the line's pitch, counted in `zp_launches`.
+ZP_BLUESTEIN_KERNELS = ("fft_conv", "fft_conv_pair", "fft_strided_tw")
+ZP_BLUESTEIN_ENTRIES = tuple(name + "_zp" + _SUFFIX[dt]
+                             for name in ZP_BLUESTEIN_KERNELS
+                             for dt in (torch.float32,) + STORAGE_DTYPES)
+zp_launches = {entry: 0 for entry in ZP_ENTRIES + ZP_CONV2D_ENTRIES
+               + ZP_BLUESTEIN_ENTRIES}
 
 # The kernels with entries in the kept intermediate order (the reference's
 # keep_intermediate_order, its tl layouts): C entries ``vk_<name>_tl`` and
@@ -2048,12 +2059,14 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
                       out_len: Optional[int] = None, in_interleave: int = 1,
                       out_interleave: int = 1, in_transposed: bool = False,
                       out_transposed: bool = False,
-                      window: Optional[tuple] = None):
+                      window: Optional[tuple] = None, in_keep: int = 0):
     """Plain torch version of `fft_strided`; with ``window`` = (n, rows
     read, rows written), of its windowed entry: the first rows of the
     (P, R, ...) planes, zero rows to n, transformed, the first rows kept,
     (P, rows written, ...).  Else: the planes (with ``plane``,
-    (P, L) lines zero-padded to the (n, S) plane; with ``in_interleave``,
+    (P, L) lines zero-padded to the (n, S) plane, and with ``in_keep``
+    their points past in_keep zero first, Bluestein's read window of
+    `fft_strided_tw`'s windowed entry; with ``in_interleave``,
     read from the interleaved layout; with ``in_transposed``, (P, S, n)
     planes transposed) times the ``pre`` factor, the transform dim moved
     last, `fft_lines_plain`, moved back, times the ``post`` factor (with
@@ -2078,6 +2091,7 @@ def fft_strided_plain(re: torch.Tensor, im: torch.Tensor, inverse: bool,
     else:
         n, S = plane
         P = re.shape[0]
+        re, im = _keep_prefix(re, im, in_keep)
         x = Planar(*(torch.nn.functional.pad(t, (0, n * S - t.shape[1]))
                      .reshape(P, n, S) for t in (re, im)))
     if pre is not None:
@@ -2192,20 +2206,33 @@ def _by_line(tab: Planar, count: int, period: int) -> Planar:
     return Planar(tab.re[idx], tab.im[idx])
 
 
+def _keep_prefix(re, im, in_keep: int):
+    """(B, n) lines with the points past ``in_keep`` zero (new planes; 0
+    keeps all): Bluestein's read window as a plain version sees it, the
+    declared-zero tail never taking part, whatever it holds."""
+    n = re.shape[-1]
+    if not in_keep or in_keep >= n:
+        return re, im
+    return tuple(torch.nn.functional.pad(t[..., :in_keep], (0, n - in_keep))
+                 for t in (re, im))
+
+
 @_storage_plain
 def fft_conv_plain(re: torch.Tensor, im: torch.Tensor,
                    spectrum: torch.Tensor, chirp: Optional[torch.Tensor] = None,
                    conj_data: bool = False, xpow: bool = False,
-                   scale: float = 1.0):
+                   scale: float = 1.0, in_keep: int = 0):
     """Plain torch version of `fft_conv`: the inverse DFT, times ``scale``,
     of DFT(x) (conjugated with ``conj_data``) times the spectrum (over its
     rows, line j row j % rows; for (B, mm, n) planes mixed by the (mm, mm,
     n) matrix), divided by its modulus with ``xpow``; with ``chirp``, x * a
     zero-padded to m = len(spectrum) on the way in and the first n points
-    times a on the way out."""
+    times a on the way out (with ``in_keep``, of the windowed entry: the
+    points past in_keep zero first)."""
     tab = table_planar(spectrum)
     if chirp is not None:
         m, n = spectrum.shape[0], re.shape[1]
+        re, im = _keep_prefix(re, im, in_keep)
         a = table_planar(chirp)[None]
         x = Planar(re, im) * a
         x = Planar(*(torch.nn.functional.pad(t, (0, m - n))
@@ -2283,9 +2310,12 @@ def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
                         spectrum: torch.Tensor,
                         chirp: Optional[torch.Tensor] = None,
                         conj_data: bool = False, xpow: bool = False,
-                        scale: float = 1.0, window: Optional[tuple] = None):
+                        scale: float = 1.0, window: Optional[tuple] = None,
+                        in_keep: int = 0):
     """Plain torch version of `fft_conv_pair`.  With ``chirp`` (Bluestein
-    mode): `fft_conv_plain` with the spectrum back in natural order.
+    mode): `fft_conv_plain` with the spectrum back in natural order (with
+    ``in_keep``, of the windowed entry: the points past in_keep zero
+    first).
     Without (2-D mode, (B, ny, nz) planes): the 2-D DFT of each plane
     (conjugated with ``conj_data``) times spectrum b % hp of the (hp, ny,
     nz) table, divided by its modulus with ``xpow``, and the inverse 2-D
@@ -2303,7 +2333,7 @@ def fft_conv_pair_plain(re: torch.Tensor, im: torch.Tensor,
         m = spectrum.shape[0]
         nc, ns, _ = conv_pair_plan(m)
         natural = spectrum.reshape(nc, ns, 2).transpose(0, 1).reshape(m, 2)
-        return fft_conv_plain(re, im, natural, chirp)
+        return fft_conv_plain(re, im, natural, chirp, in_keep=in_keep)
     B, ny, nz = re.shape
     X = Planar(*fft_pair_plain(re, im, False))
     if conj_data:
@@ -2557,6 +2587,12 @@ def _with_windows(entries: dict) -> dict:
             out[name][zp_entry(name, dt)] = sig + "p"
     for entry in ZP_CONV2D_ENTRIES:
         out["fft_conv_pair"][entry] = entries["fft_conv_pair"]["fft_conv2d"] + "p"
+    # Bluestein's read window: the kernel's arguments and in_keep (an int;
+    # a 64-bit one for the plane mode's live lengths)
+    for entry in ZP_BLUESTEIN_ENTRIES:
+        name = entry[:entry.index("_zp")]
+        out[name][entry] = entries[name][name] + (
+            "q" if name == "fft_strided_tw" else "i")
     return out
 
 
@@ -2954,7 +2990,12 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     points of each (n, S) plane (the rest read
     as zero), and the output is the first ``out_len`` (default n*S) points
     of each transformed plane, (P, out_len): the long Bluestein's live
-    rows, with no pad or crop in device memory.  ``in_interleave`` /
+    rows, with no pad or crop in device memory; ``in_keep`` (1 <= in_keep
+    <= L, 0 for none) with ``plane`` is Bluestein's read window of a
+    forward pass (the windowed entry ``vk_fft_strided_tw_zp`` and its half
+    twins, counted in `zp_launches`, which replaces the in_keep of
+    ``_strided_kernel``'s Bluestein pass): only the first in_keep points of
+    each line are read, the rest declared zero.  ``in_interleave`` /
     ``out_interleave`` d > 1 (whole planes only) read / write the planes p
     = b*d + q interleaved row by row, (P/d, n, d, S) in memory: three
     uploads' last pass writes the long tier's natural order so.
@@ -2975,10 +3016,11 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
     (default R) or the kept rows; the output is contiguous (P, out_keep or
     n, ...) of the input's trailing shape.  Bound by the bytes of the kept
     rows read and written."""
-    if in_keep or out_keep or n is not None:
-        if (pre is not None or post is not None or plane is not None
-                or in_interleave != 1 or out_interleave != 1
-                or in_transposed or out_transposed):
+    if plane is not None and (out_keep or n is not None):
+        raise ValueError("fft_strided: the plane mode's window is in_keep")
+    if (in_keep or out_keep or n is not None) and plane is None:
+        if (pre is not None or post is not None or in_interleave != 1
+                or out_interleave != 1 or in_transposed or out_transposed):
             raise ValueError("fft_strided: keeps do not take the factor mode")
         return _fft_strided_window(re, im, inverse, scale, out, in_keep,
                                    out_keep, n)
@@ -2987,7 +3029,7 @@ def fft_strided(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
             or out_transposed):
         return _fft_strided_tw(re, im, inverse, scale, out, pre, post, plane,
                                out_len, in_interleave, out_interleave,
-                               in_transposed, out_transposed)
+                               in_transposed, out_transposed, in_keep)
     _check_planes(re, im, 3, "fft_strided", _C2C_DTYPES)
     P, n, S = re.shape
     _check_length(n)
@@ -3052,11 +3094,12 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
                     pre: Optional[Factor], post: Optional[Factor], plane,
                     out_len: Optional[int], in_pd: int, out_pd: int,
                     in_transposed: bool = False,
-                    out_transposed: bool = False):
+                    out_transposed: bool = False, in_keep: int = 0):
     """The factor mode of `fft_strided` (C entry ``vk_fft_strided_tw`` of
     ``csrc/fft_strided_tw.cu``, counted as ``fft_strided_tw``; on float16 /
     bfloat16 planes its half-storage instantiation, the factors and tables
-    fp32)."""
+    fp32); with ``in_keep`` (plane mode), its windowed entry
+    ``vk_fft_strided_tw_zp``."""
     what = "fft_strided_tw"
     mode = 1 if in_transposed else 2 if out_transposed else 0
     if mode and (in_transposed and out_transposed or plane is not None
@@ -3088,6 +3131,9 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
         if not (1 <= in_len <= n * S and 1 <= keep <= n * S):
             raise ValueError(f"{what}: live lengths {in_len} in and {keep} "
                              f"out of an ({n}, {S}) plane")
+        in_keep = _check_read_window(in_keep, in_len, what)
+        if in_keep and inverse:
+            raise ValueError(f"{what}: a read window on a forward pass")
         shape = (P, keep)
     if not strided_tw_supports(n):
         raise NotImplementedError(
@@ -3105,7 +3151,7 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
     if re.device.type == "cpu":
         yr, yi = fft_strided_plain(re, im, inverse, scale, pre, post, plane,
                                    out_len, in_pd, out_pd, in_transposed,
-                                   out_transposed)
+                                   out_transposed, in_keep=in_keep)
         if out is None:
             return yr, yi
         out[0].copy_(yr)
@@ -3122,10 +3168,11 @@ def _fft_strided_tw(re, im, inverse: bool, scale: float, out,
         factors = (ctypes.c_longlong * 16)(
             *(pre.ints() if pre else [0] * 8),
             *(post.ints() if post else [0] * 8))
-        _launch(what, what + _SUFFIX[re.dtype], re.device,
+        _launch(what, what + ("_zp" if in_keep else "") + _SUFFIX[re.dtype],
+                re.device,
                 [re, im, yr, yi, P, S, in_len, keep, p1, p2, t1, t2, tw,
-                 factors, in_pd, out_pd, mode, *strided_tw_layout(n, S)],
-                re.dtype)
+                 factors, in_pd, out_pd, mode, *strided_tw_layout(n, S)]
+                + ([in_keep] if in_keep else []), re.dtype)
     return yr, yi
 
 
@@ -3491,9 +3538,20 @@ def _conv_flags(conj_data: bool, xpow: bool) -> int:
     return (CONV_CONJ_DATA if conj_data else 0) | (CONV_XPOW if xpow else 0)
 
 
+def _check_read_window(in_keep, n: int, what: str) -> int:
+    """Bluestein's read window: the kept prefix ``in_keep`` of lines of n
+    points, 1 <= in_keep <= n (0: none)."""
+    in_keep = int(in_keep or 0)
+    if not 0 <= in_keep <= n:
+        raise ValueError(f"{what}: a read window of {in_keep} points of "
+                         f"{n} (1 <= in_keep <= {n}; 0 for none)")
+    return in_keep
+
+
 def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
              chirp: Optional[torch.Tensor] = None, out=None,
-             conj_data: bool = False, xpow: bool = False, scale: float = 1.0):
+             conj_data: bool = False, xpow: bool = False, scale: float = 1.0,
+             in_keep: int = 0):
     """Circular convolution of each line of float32, float16 or bfloat16
     planes with a fixed kernel given by its spectrum: the inverse DFT,
     times ``scale``, of DFT(x) times the spectrum (an (L, 2) table,
@@ -3522,7 +3580,13 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     holds its lines once each in shared memory (`conv_layout`: whole items
     of mm lines in the matrix mode) and runs the forward and the inverse
     passes of the walk in place, the multiply in one sweep between them;
-    the pad never exists in device memory (``csrc/fft_conv.cu``)."""
+    the pad never exists in device memory (``csrc/fft_conv.cu``).
+
+    ``in_keep`` (the Bluestein mode; 1 <= in_keep <= n, 0 for none):
+    Bluestein's read window, the windowed entry ``vk_fft_conv_zp`` (and its
+    half twins, counted in `zp_launches`), which replaces
+    ``_conv_v3_kernel``'s blu_in: only the first in_keep points of each
+    line are read, the rest declared zero, and every n points written."""
     matrix = re.ndim == 3
     _check_planes(re, im, 3 if matrix else 2, "fft_conv", _HALF_DTYPES)
     mm = re.shape[1] if matrix else 1
@@ -3540,6 +3604,9 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
             raise ValueError("fft_conv: the Bluestein mode has no "
                              "conj_data or xpow")
         _check_table(chirp, n, re, "fft_conv chirp")
+        in_keep = _check_read_window(in_keep, n, "fft_conv")
+    elif in_keep:
+        raise ValueError("fft_conv: a read window needs the Bluestein mode")
     elif matrix:
         if L != mm * mm * n:
             raise ValueError(f"fft_conv: a ({mm}, {mm}, {n}) matrix "
@@ -3564,11 +3631,12 @@ def fft_conv(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
                            lambda: twofactor_twiddle_pair(m, True, scale))
         return (B * mm, n, mm, rows, _conv_flags(conj_data, xpow), pf1, pf2,
                 pi1, pi2, tf1, tf2, ti1, ti2, twf, twi, spectrum, chirp,
-                *conv_layout(m, mm))
+                *conv_layout(m, mm)) + ((in_keep,) if in_keep else ())
 
     return _apply("fft_conv", re, im, out,
                   lambda: fft_conv_plain(re, im, spectrum, chirp, conj_data,
-                                         xpow, scale), args)
+                                         xpow, scale, in_keep), args,
+                  entry="fft_conv_zp" if in_keep else None)
 
 
 def fft_twofactor(re: torch.Tensor, im: torch.Tensor, inverse: bool = False,
@@ -3724,7 +3792,14 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     view (B, Ry, Rz) with its last dim contiguous, a corner of wider
     planes read in place or the corner itself, of the (ny, nz) ``plane``
     (default (Ry, Rz)); the rows past ky skip the forward's z stages, the
-    rows past oy the inverse's."""
+    rows past oy the inverse's.
+
+    In the Bluestein mode ``in_keep`` (1 <= in_keep <= n, 0 or None for
+    none) is Bluestein's read window: the windowed entry
+    ``vk_fft_conv_pair_zp`` (and its half twins, counted in `zp_launches`),
+    which replaces ``_conv_pair_kernel``'s in_keep in its Bluestein form,
+    reads only the first in_keep points of each line (the rest declared
+    zero) and writes every n points."""
     if chirp is None and (in_keep is not None or out_keep is not None
                           or plane is not None):
         return _fft_conv2d_window(re, im, spectrum, out, conj_data, xpow,
@@ -3746,11 +3821,13 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
     if not 1 <= n < m:
         raise ValueError(f"fft_conv_pair: lines of {n} points for a padded "
                          f"length {m}")
-    if conj_data or xpow or scale != 1.0:
+    if conj_data or xpow or scale != 1.0 or out_keep is not None \
+            or plane is not None:
         raise ValueError("fft_conv_pair: the Bluestein mode has no "
-                         "conj_data, xpow or scale (the scale rides the "
-                         "spectrum)")
+                         "conj_data, xpow, scale (the scale rides the "
+                         "spectrum), out_keep or plane")
     _check_table(chirp, n, re, "fft_conv_pair chirp")
+    in_keep = _check_read_window(in_keep, n, "fft_conv_pair")
 
     def args():
         dev = re.device
@@ -3761,10 +3838,12 @@ def fft_conv_pair(re: torch.Tensor, im: torch.Tensor, spectrum: torch.Tensor,
         tw = device_array(("twofactor_pair", m, False, 1.0), dev,
                            lambda: twofactor_twiddle_pair(m, False))
         return (B, n, pcf, psf, psi, pci, tcf, tsf, tsi, tci, tw, spectrum,
-                chirp, *layout[2:])
+                chirp, *layout[2:]) + ((in_keep,) if in_keep else ())
 
     return _apply("fft_conv_pair", re, im, out,
-                  lambda: fft_conv_pair_plain(re, im, spectrum, chirp), args)
+                  lambda: fft_conv_pair_plain(re, im, spectrum, chirp,
+                                              in_keep=in_keep), args,
+                  entry="fft_conv_pair_zp" if in_keep else None)
 
 
 def _fft_conv2d(re, im, spectrum, out, conj_data: bool, xpow: bool,
