@@ -220,14 +220,16 @@ __device__ __forceinline__ void conv_block(
     const float2* tables = tab + (k < 2 ? 0 : set);
     const float2* tlo = tables + geo.len1 + geo.len2;
     if constexpr (kWindow && kPruneWindow) {
-      // the forward's first pass with stages sees the live rows j2 <
+      // the forward's first stage with work sees the live rows j2 <
       // ceil(keep / n1) (the columns), or in one pass the points j < keep
-      const int live = k == 0 ? (keep + n1 - 1) / n1
-                       : k == 1 && n2 == 1 ? keep : m;
-      run_pass<true, true>(
-          home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
-          tables + (row ? 0 : geo.len1),
-          InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo}, live);
+      const Plan& pl = k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2;
+      const float2* pt = tables + (row ? 0 : geo.len1);
+      const InterTwiddle h{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo};
+      int from = 0;
+      if (k == 0 || (k == 1 && n2 == 1))
+        from = run_first_stage(home, g, pl, pt, h,
+                               k == 0 ? (keep + n1 - 1) / n1 : keep);
+      run_pass(home, g, pl, pt, h, from);
     } else {
       run_pass(home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
                tables + (row ? 0 : geo.len1),

@@ -366,11 +366,13 @@ __device__ __forceinline__ void conv_pair_block(
     const float2* tlo = smem + rows * Pr + len.cf + len.sf + len.si + len.ci;
     const ConvHook h{k == 1 ? spec : tlo, col ? c0 : r0, ns << 2 | mode};
     if constexpr (kWindow && kPruneWindow) {
-      // the nc stages down the columns see the live rows kc < ceil(keep /
-      // ns)
-      walk::run_pass<true, true>(
-          buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci, tab, h,
-          k == 0 ? (keep + ns - 1) / ns : m);
+      // the first of the nc stages down the columns sees the live rows kc
+      // < ceil(keep / ns)
+      const Plan& pl = k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci;
+      const int from = k == 0 ? walk::run_first_stage(buf, g, pl, tab, h,
+                                                      (keep + ns - 1) / ns)
+                              : 0;
+      walk::run_pass(buf, g, pl, tab, h, from);
     } else {
       walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
                      tab, h);

@@ -477,10 +477,14 @@ __device__ __forceinline__ void tile_passes(float2* smem, const Geo& g,
                         : Pass{g.ts * n1, g.stride, 1, n1 | 1, make_div(n1)};
     const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
     if constexpr (kPrune) {
-      const int live = k == 0 ? (rows + n1 - 1) / n1 : n2 == 1 ? rows : n1;
-      run_pass<true, true>(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
-                           InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo},
-                           live);
+      const Plan& pl = row ? p1 : p2;
+      const float2* pt = row ? s1 : s1 + g.len1;
+      const InterTwiddle h{fuse ? tlo : nullptr, tlo + kTwLo};
+      int from = 0;
+      if (k == 0 || n2 == 1)
+        from = run_first_stage(smem, ps, pl, pt, h,
+                               k == 0 ? (rows + n1 - 1) / n1 : rows);
+      run_pass(smem, ps, pl, pt, h, from);
     } else {
       run_pass(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
                InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
