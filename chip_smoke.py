@@ -491,87 +491,7 @@ def phase_toolchain(ck) -> dict:
     assert all(st == ld == 0 for _, st, ld in f64.values()), f64
     assert all(v is not None for v in storage.values()), storage
     assert not off_twin, off_twin
-    # the two choices of the Bluestein windows' first stage, built now for
-    # the zero-pad phases (`_prune_libraries`)
-    _start_prune_builds(ck)
     return info
-
-
-# Bluestein's read window prunes its first stage where the source's
-# kPruneWindow says so (VKFFT_PRUNE: 0 in all three sources, the pruned
-# stage measured slower, PERF.md section 6); the zero-pad phases
-# check and time both choices, each built with -DVKFFT_PRUNE=0 or 1 into a
-# library of its own beside the package's
-PRUNE_SOURCES = ("fft_conv", "fft_conv_pair", "fft_strided_tw")
-_PRUNE_BUILDS: dict = {}
-
-
-def _prune_path(ck, name: str, prune: int) -> str:
-    return os.path.join(ck.BUILD_DIR,
-                        f"{name}-prune{prune}-{ck._source_key()}.so")
-
-
-def _start_prune_builds(ck) -> None:
-    """Start one nvcc for each (source, choice) not built yet, all
-    together, in the background."""
-    os.makedirs(ck.BUILD_DIR, exist_ok=True)
-    for name in PRUNE_SOURCES:
-        for prune in (0, 1):
-            path = _prune_path(ck, name, prune)
-            if (name, prune) in _PRUNE_BUILDS or os.path.exists(path):
-                continue
-            log = open(path[:-3] + ".log", "w")
-            _PRUNE_BUILDS[name, prune] = (subprocess.Popen(
-                [ck._nvcc(), *ck.NVCC_FLAGS, f"-DVKFFT_PRUNE={prune}", "-o",
-                 path, os.path.join(ck.CSRC_DIR, name + ".cu")],
-                stdout=log, stderr=subprocess.STDOUT), log)
-
-
-def _prune_libraries(ck) -> dict:
-    """{(source, choice): (library, its ptxas lines)} of the two builds of
-    each PRUNE_SOURCES source, waited for (started here where the toolchain
-    phase did not), loaded with the package's C signatures."""
-    import ctypes
-    _start_prune_builds(ck)
-    out = {}
-    for name in PRUNE_SOURCES:
-        for prune in (0, 1):
-            path = _prune_path(ck, name, prune)
-            build = _PRUNE_BUILDS.pop((name, prune), None)
-            if build is not None:
-                rc = build[0].wait()
-                build[1].close()
-                assert rc == 0, open(path[:-3] + ".log").read()[-3000:]
-            lib = ctypes.CDLL(path)
-            for entry, sig in ck._ENTRIES[name].items():
-                fn = getattr(lib, "vk_" + entry)
-                fn.argtypes = ([ck._CTYPES[c] for c in sig]
-                               + [ctypes.c_void_p])
-                fn.restype = ctypes.c_int
-            lib.vk_error_string.argtypes = [ctypes.c_int]
-            lib.vk_error_string.restype = ctypes.c_char_p
-            with open(path[:-3] + ".log") as f:
-                lines = {k: v for k, v in _ptxas_lines(f.read()).items()
-                         if "_zp" in k}
-            out[name, prune] = (lib, lines)
-    return out
-
-
-class _with_library:
-    """The package's launches of library ``name`` go to ``lib`` inside the
-    block (ck._LIBS, which `cuda_kernels._library` reads first)."""
-
-    def __init__(self, ck, name, lib):
-        self.ck, self.name, self.lib = ck, name, lib
-
-    def __enter__(self):
-        self.ck._library(self.name)
-        self.saved = self.ck._LIBS[self.name]
-        self.ck._LIBS[self.name] = self.lib
-
-    def __exit__(self, *exc):
-        torch.cuda.synchronize()
-        self.ck._LIBS[self.name] = self.saved
 
 
 # fft_lines' named lengths: the shortest, odd and prime lines several to a
@@ -7106,7 +7026,7 @@ def phase_zeropad_kernels(ck, dev) -> dict:
     _blu_zp_cases(ck, out, dev)
     torch.cuda.synchronize()
     for key, rec in out.items():
-        if key not in ("ptxas", "prune_ptxas"):
+        if key != "ptxas":
             _log(f"[zeropad kernels] {key}: {rec}")
     return out
 
@@ -7152,14 +7072,7 @@ def _blu_zp_cases(ck, out, dev) -> None:
     7, n / 3 + 1 and n - 1 of each length of ZP_BLU_LENGTHS, the
     declared-zero tail NaN, fp32 within KERNEL_TOL and the half tiers
     within 2 storage ulps; the two conv entries' outputs inside sentinel
-    guards, and in place over their input; both builds of the pruned first
-    stage (`_prune_libraries`) at fp32 and bf16, their ptxas lines
-    recorded."""
-    libs = _prune_libraries(ck)
-    out["prune_ptxas"] = {f"{name}-prune{p}": lines
-                          for (name, p), (_, lines) in libs.items()}
-    for k, v in sorted(out["prune_ptxas"].items()):
-        _log(f"[zeropad ptxas] {k}: {v}")
+    guards, and in place over their input."""
     for n in ZP_BLU_LENGTHS:
         name, run, plain, guarded = _blu_kernel(ck, n, dev)
         B = 3 if n < 20000 else 2
@@ -7185,20 +7098,6 @@ def _blu_zp_cases(ck, out, dev) -> None:
                     rec["cases"] += 1
                     rec["worst_rel_err"] = max(rec["worst_rel_err"],
                                                _zp_check(got, p, dt, key))
-            if dt == torch.float16:
-                continue
-            # both builds of the first stage, the window n / 3 + 1
-            k = n // 3 + 1
-            x, x0 = _zp_input((B, n), 3 * n, dev, dt, (t >= k)[None, :])
-            p = plain(x0)
-            for prune in (0, 1):
-                with _with_library(ck, name, libs[name, prune][0]):
-                    got = run(x, k)
-                e = _zp_check(got, p, dt, (key, prune))
-                rec = out.setdefault(f"{key}_prune{prune}",
-                                     {"cases": 0, "worst_rel_err": 0.0})
-                rec["cases"] += 1
-                rec["worst_rel_err"] = max(rec["worst_rel_err"], e)
 
 
 # (B, ny, nz, hp) of fft_conv_pair's windowed 2-D entry: sample 51's
@@ -8002,15 +7901,13 @@ ZP_BLU_TIMES = (("fft_conv", 4054, 2027), ("fft_conv_pair", 10007, 3000),
 def _zp_blu_kernel_times(ck, dev) -> dict:
     """The three windowed entries of Bluestein's read window at the blu
     main-path rows' shapes (ZP_BLU_TIMES, 64 MiB of fp32 planes): the
-    package's build beside both builds of the pruned first stage
-    (`_prune_libraries`: pruned, unpruned), the unwindowed launch on the
-    same planes, the plain version, torch.fft of the same lines (the same
+    windowed launch, the unwindowed launch on the same planes, the plain
+    version, torch.fft of the same lines (the same
     function for the two conv kernels, their library_ms; the long tier's
     first pass has none), each timed in turns, and the bound at the kept
     bytes (the window's reads, every write, the tables once) and the
     operations of the kernel's m-point work."""
     from vkfft_tpu_torch.planner.plan import plan_axis
-    libs = _prune_libraries(ck)
     out = {}
     for route, n, keep in ZP_BLU_TIMES:
         B = SAMPLE_7_BYTES // (8 * n)
@@ -8039,23 +7936,14 @@ def _zp_blu_kernel_times(ck, dev) -> dict:
         def unwindowed():
             run(x0, 0)
 
-        # (what, call, the library it runs on: None for the package's)
-        seq = (("unwindowed", unwindowed, None), ("windowed", windowed, None),
-               ("unpruned", windowed, 0), ("pruned", windowed, 1),
-               ("pruned", windowed, 1), ("unpruned", windowed, 0),
-               ("windowed", windowed, None), ("unwindowed", unwindowed, None))
+        seq = (("unwindowed", unwindowed), ("windowed", windowed),
+               ("windowed", windowed), ("unwindowed", unwindowed))
         t_ms = {}
-        for k, fn, p in seq:
-            if p is None:
-                t_ms.setdefault(k, []).append(_time_ms(fn))
-                continue
-            with _with_library(ck, name, libs[name, p][0]):
-                t_ms.setdefault(k, []).append(_time_ms(fn))
+        for k, fn in seq:
+            t_ms.setdefault(k, []).append(_time_ms(fn))
         fft_ms = _time_ms(lambda: torch.fft.fft(xc))
         row = {"kernel": ck.zp_entry(name, torch.float32),
                "ms": min(t_ms["windowed"]),
-               "pruned_ms": min(t_ms["pruned"]),
-               "unpruned_ms": min(t_ms["unpruned"]),
                "unwindowed_ms": min(t_ms["unwindowed"]),
                "plain_ms": _time_ms(lambda: plain(x0), 5, 2),
                "library_ms": None if name == "fft_strided_tw" else fft_ms,
@@ -8065,8 +7953,7 @@ def _zp_blu_kernel_times(ck, dev) -> dict:
                                   for a, b in zip(got, ref)),
                "rel_err": err, "shape": f"{B} x {n}, in_keep {keep} (m = "
                                         f"{m})",
-               "kept_bytes": kept,
-               "prune_ptxas": {p: libs[name, p][1] for p in (0, 1)}}
+               "kept_bytes": kept}
         _log(f"[zeropad times] {row}")
         out.setdefault(row["kernel"], []).append(row)
         del x, x0, xc, got, ref

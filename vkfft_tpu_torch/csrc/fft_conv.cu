@@ -58,11 +58,10 @@
 // line is never read: the read takes the first `keep` points of each line
 // at the line pitch n (inplace.cuh's load_prefix; the pitch and the read
 // bound are two numbers), the chirp sweep zeroes [keep, m), and the
-// write keeps all n points.  Pruning the first stage of the forward's
-// first pass to the live rows (run_pass's kPrune: the column pass reads
-// rows j2 < ceil(keep / n1); in one pass, the points j < keep) cost more
-// than it saved, so kPruneWindow leaves it out.  The same body (conv_block<St, true>), so the
-// unwindowed kernels compile as before.
+// write keeps all n points.  Every stage reads all of its inputs: a
+// first stage pruned to the live rows spilled and saved nothing (PERF.md
+// section 6).  The same body (conv_block<St, true>), so the unwindowed
+// kernels compile as before.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -76,16 +75,6 @@ constexpr int kThreads = 512;  // most threads a block
 constexpr int kMinBlocks = 2;  // blocks an SM the register budget keeps
 constexpr int kConjData = 1;
 constexpr int kXpow = 2;
-
-// Whether the windowed entries prune their first stage (run_pass's
-// kPrune), a design choice measured on the card (PERF.md section 6);
-// -DVKFFT_PRUNE=1 builds the pruned stage for that comparison.  Left out:
-// 0.6486 ms pruned against 0.5860 unpruned at 2069 x 4054, in_keep
-// 2027 (H100, PERF.md section 6).
-#ifndef VKFFT_PRUNE
-#define VKFFT_PRUNE 0
-#endif
-constexpr bool kPruneWindow = VKFFT_PRUNE != 0;
 
 // A launch's geometry, every count and divisor from the host: the device
 // line's points n, the first factor n1 and the spectrum's rows; m = n1 *
@@ -219,22 +208,9 @@ __device__ __forceinline__ void conv_block(
                        : Pass{nl * n1, S, 1, P, geo.d1};
     const float2* tables = tab + (k < 2 ? 0 : set);
     const float2* tlo = tables + geo.len1 + geo.len2;
-    if constexpr (kWindow && kPruneWindow) {
-      // the forward's first stage with work sees the live rows j2 <
-      // ceil(keep / n1) (the columns), or in one pass the points j < keep
-      const Plan& pl = k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2;
-      const float2* pt = tables + (row ? 0 : geo.len1);
-      const InterTwiddle h{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo};
-      int from = 0;
-      if (k == 0 || (k == 1 && n2 == 1))
-        from = run_first_stage(home, g, pl, pt, h,
-                               k == 0 ? (keep + n1 - 1) / n1 : keep);
-      run_pass(home, g, pl, pt, h, from);
-    } else {
-      run_pass(home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
-               tables + (row ? 0 : geo.len1),
-               InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo});
-    }
+    run_pass(home, g, k == 0 ? pf2 : k == 1 ? pf1 : k == 2 ? pi1 : pi2,
+             tables + (row ? 0 : geo.len1),
+             InterTwiddle{k == 0 || k == 2 ? tlo : nullptr, tlo + kTwLo});
   }
   store_lines(home, Map{geo.dn, geo.d1, n2 * P, P, 1}, yr, yi,
               block_line0(geo.lines) * n, block_lines(geo.lines, batch) * n,

@@ -113,9 +113,9 @@
 // vk_fft_conv_pair_zp_bf16): _conv_pair_kernel's in_keep in its Bluestein
 // form.  Step 1 reads the points k < keep of each line at the line pitch
 // n (the pitch and the read bound are two numbers) and holds zeros past
-// them; step 9 still writes k < n.  Pruning the nc stages' first stage to
-// the rows kc < ceil(keep / ns) (run_pass's kPrune) cost more than it
-// saved, so kPruneWindow leaves it out.  The same body (conv_pair_block<St, true>), so the unwindowed
+// them; step 9 still writes k < n.  Every stage reads all of its inputs:
+// a first stage pruned to the live rows saved nothing (PERF.md section
+// 6).  The same body (conv_pair_block<St, true>), so the unwindowed
 // kernels compile as before.
 #include <cooperative_groups.h>
 
@@ -145,16 +145,6 @@ using vkfft::cluster::st_remote4;
 
 constexpr int kPairThreads = 512;   // most threads a block
 constexpr int kPairMinBlocks = 2;   // blocks an SM the register budget keeps
-
-// Whether Bluestein's windowed entries prune their first stage (run_pass's
-// kPrune), a design choice measured on the card (PERF.md section 6);
-// -DVKFFT_PRUNE=1 builds the pruned stage for that comparison.  Left out:
-// 0.7093 ms pruned against 0.6789 unpruned at 838 x 10007,
-// in_keep 3000 (H100, PERF.md section 6).
-#ifndef VKFFT_PRUNE
-#define VKFFT_PRUNE 0
-#endif
-constexpr bool kPruneWindow = VKFFT_PRUNE != 0;
 
 // The hook of the Bluestein mode's four passes: the four-step twiddle
 // w_m^(row * k) (row = row0 + seq, the sequence's row or column in the
@@ -365,18 +355,8 @@ __device__ __forceinline__ void conv_pair_block(
                         (k > 1 ? len.sf : 0) + (k > 2 ? len.si : 0);
     const float2* tlo = smem + rows * Pr + len.cf + len.sf + len.si + len.ci;
     const ConvHook h{k == 1 ? spec : tlo, col ? c0 : r0, ns << 2 | mode};
-    if constexpr (kWindow && kPruneWindow) {
-      // the first of the nc stages down the columns sees the live rows kc
-      // < ceil(keep / ns)
-      const Plan& pl = k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci;
-      const int from = k == 0 ? walk::run_first_stage(buf, g, pl, tab, h,
-                                                      (keep + ns - 1) / ns)
-                              : 0;
-      walk::run_pass(buf, g, pl, tab, h, from);
-    } else {
-      walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
-                     tab, h);
-    }
+    walk::run_pass(buf, g, k == 0 ? pcf : k == 1 ? psf : k == 2 ? psi : pci,
+                   tab, h);
   }
   // 9. the crop and the chirp
   for (int t = threadIdx.x; t < tile; t += blockDim.x) {

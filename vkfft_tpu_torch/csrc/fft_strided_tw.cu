@@ -91,11 +91,10 @@
 // out_len say.  Forward plans in the natural mode only (the long
 // Bluestein's first pass).  The window's planes are never whole, so the
 // reads take the single-real path, half planes one half at a time, and
-// no group of four straddles the window's edge.  Pruning the first stage
-// of the first pass to the live rows j < ceil(in_keep / S) (run_pass's
-// kPrune) gained nothing, so kPruneWindow leaves it out.  The same body
-// (strided_tw_block<St, true>), so the unwindowed kernels compile as
-// before.
+// no group of four straddles the window's edge.  Every stage reads all
+// of its inputs: a first stage pruned to the live rows spilled and saved
+// nothing (PERF.md section 6).  The same body (strided_tw_block<St,
+// true>), so the unwindowed kernels compile as before.
 #include "inplace.cuh"
 #include "twofactor.cuh"
 
@@ -107,16 +106,6 @@ using namespace vkfft::walk;
 
 // Most threads a block; the bound holds the kernel to 64 registers.
 constexpr int kThreads = 1024;
-
-// Whether the windowed entries prune their first stage (run_pass's
-// kPrune), a design choice measured on the card (PERF.md section 6);
-// -DVKFFT_PRUNE=1 builds the pruned stage for that comparison.  Left out:
-// 0.2956 ms pruned against 0.2878 unpruned at 127 x 65537,
-// in_keep 32768 (H100, PERF.md section 6).
-#ifndef VKFFT_PRUNE
-#define VKFFT_PRUNE 0
-#endif
-constexpr bool kPruneWindow = VKFFT_PRUNE != 0;
 
 // How the tile meets device memory: rows in and out, the columns read
 // from (P, S, n), or written to it.
@@ -456,14 +445,9 @@ __device__ void store_columns_factored(const float2* home, const Map& mp,
 // scale on its last stage (on the row pass's where n2 = 1), then the row
 // pass; the inverse mirrored.  The factors, the flags and the tables are
 // found again in each pass from the parameters, not held through it (held,
-// two flags and the count of columns spilled).  With kPrune (a forward
-// under Bluestein's read window), the first pass with stages sees only
-// the rows j < `rows` of each column: the column pass the rows j2 <
-// ceil(rows / n1), or in one pass the row pass the points j < rows.
-template <bool kPrune = false>
+// two flags and the count of columns spilled).
 __device__ __forceinline__ void tile_passes(float2* smem, const Geo& g,
-                                            const Plan& p1, const Plan& p2,
-                                            int rows = 0) {
+                                            const Plan& p1, const Plan& p2) {
   for (int k = 0; k < 2; ++k) {
     const int n1 = fresh_int(p1.n), n2 = p2.n;
     const bool inverse = fresh_int(p1.inverse) != 0;
@@ -476,19 +460,8 @@ __device__ __forceinline__ void tile_passes(float2* smem, const Geo& g,
     const Pass ps = row ? Pass{g.ts * n2, g.stride, n1 | 1, 1, make_div(n2)}
                         : Pass{g.ts * n1, g.stride, 1, n1 | 1, make_div(n1)};
     const bool fuse = twiddled && (inverse ? row : row == (n2 == 1));
-    if constexpr (kPrune) {
-      const Plan& pl = row ? p1 : p2;
-      const float2* pt = row ? s1 : s1 + g.len1;
-      const InterTwiddle h{fuse ? tlo : nullptr, tlo + kTwLo};
-      int from = 0;
-      if (k == 0 || n2 == 1)
-        from = run_first_stage(smem, ps, pl, pt, h,
-                               k == 0 ? (rows + n1 - 1) / n1 : rows);
-      run_pass(smem, ps, pl, pt, h, from);
-    } else {
-      run_pass(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
-               InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
-    }
+    run_pass(smem, ps, row ? p1 : p2, row ? s1 : s1 + g.len1,
+             InterTwiddle{fuse ? tlo : nullptr, tlo + kTwLo});
   }
 }
 
@@ -519,11 +492,7 @@ __device__ __forceinline__ void strided_tw_block(
       load_rows(xr, xi, at, g, in, pre, smem);
     __syncthreads();
   }
-  if constexpr (kWindow && kPruneWindow)
-    tile_passes<true>(smem, g, p1, p2,
-                      (int)min((long long)n, (keep + g.S - 1) / g.S));
-  else
-    tile_passes(smem, g, p1, p2);
+  tile_passes(smem, g, p1, p2);
   const Place at = place_of(g);
   const Map out = make_map(n, g.stride, !inverse, n1, n2, pitch);
   if (g.mode == kStoreTransposed && post.kind)

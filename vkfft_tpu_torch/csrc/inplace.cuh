@@ -235,13 +235,11 @@ __host__ __device__ constexpr int round_butterflies(int R) {
 // registers before the barrier, so only its values and its output
 // address live across it.  When the hook is on, output i of butterfly l
 // of sequence (hi, lo) goes through hook(v, lo, i * L + l) (the last
-// stage: Mp = 1).  With kPrune (a pass's pruned first stage,
-// run_first_stage), input j of a butterfly is read only for j < `live` (its live input
-// groups), the others held as the zeros they are.
-template <int R, bool kPrune = false, class C, class Hook>
+// stage: Mp = 1).
+template <int R, class C, class Hook>
 __device__ void stage_fixed(C* buf, const Pass& g, int L, int Mp,
                             const C* tw, const C* w, int inverse,
-                            const Hook& hook, int live = R) {
+                            const Hook& hook) {
   constexpr int K = round_butterflies(R);
   const int T = blockDim.x;
   const int per_seq = L * Mp;
@@ -263,13 +261,7 @@ __device__ void stage_fixed(C* buf, const Pass& g, int L, int Mp,
       const int base = seq_base(g, q0 + q, lo);
       const C* s = buf + base + (l * R * Mp + m) * g.es;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if constexpr (kPrune)
-          v[k][j] = j == 0 || j < live ? s[j * jstep]
-                                       : cx<C>(Real<C>(0), Real<C>(0));
-        else
-          v[k][j] = s[j * jstep];
-      }
+      for (int j = 0; j < R; ++j) v[k][j] = s[j * jstep];
       dft<R>(v[k], inverse, w);
 #pragma unroll
       for (int i = 1; i < R; ++i) v[k][i] = cmul(v[k][i], tw[i * Mp + m]);
@@ -312,13 +304,11 @@ __host__ __device__ __forceinline__ int generic_groups(int R) {
 // threads, so a warp's root reads are broadcasts.  A pair past H (i <= H +
 // 3 < R, an index of the butterfly) is computed as any other and only its
 // store is predicated; so is an idle slot's clamped item.  The item's
-// indices are found again after its sums, not held through them.  With
-// kPrune (a pass's pruned first stage), inputs j >= `live` (its live input
-// groups) are the zeros they are, not read.
-template <bool kPrune = false, class C, class Hook>
+// indices are found again after its sums, not held through them.
+template <class C, class Hook>
 __device__ void stage_generic(C* buf, const Pass& g, int R, int L,
                               int Mp, const C* tw, const C* w,
-                              const Hook& hook, int live = 0) {
+                              const Hook& hook) {
   constexpr int G = kGenericPairs, K = kItems<C>;
   const int T = blockDim.x;
   const int H = R >> 1;
@@ -355,15 +345,7 @@ __device__ void stage_generic(C* buf, const Pass& g, int R, int L,
         int ie = grp * G << 16;
 #pragma unroll 1
         for (int j = 1; 2 * j < R; ++j) {
-          C a, b;
-          if constexpr (kPrune) {
-            const C zero = cx<C>(Real<C>(0), Real<C>(0));
-            a = j < live ? s[j * jstep] : zero;
-            b = R - j < live ? s[(R - j) * jstep] : zero;
-          } else {
-            a = s[j * jstep];
-            b = s[(R - j) * jstep];
-          }
+          const C a = s[j * jstep], b = s[(R - j) * jstep];
           const C sj = cadd(a, b), dj = csub(a, b);
           ie += ie >> 16;
           if ((ie & 0xffff) >= R) ie -= R;
@@ -449,89 +431,38 @@ inline bool has_generic(const Plan& p) {
   return false;
 }
 
-// Stage s of plan p (radix r = p.radix[s], L the product of the radices
-// before it, Mp its points a group) over the sequences of g, `h` on its
-// write.  With kPrune (a pass's pruned first stage, run_first_stage),
-// input j of each butterfly is read only for j < `lg` (its live input
-// groups).
-template <bool kGeneric, bool kPrune, class C, class Hook>
-__device__ __forceinline__ void run_stage(C* buf, const Pass& g,
-                                          const Plan& p, const C* tab,
-                                          const Hook& h, int s, int L,
-                                          int Mp, int lg) {
-  const int r = p.radix[s];
-  const C* tw = tab + p.tw_off[s];
-  const C* w = tab + (p.dft_off[s] >= 0 ? p.dft_off[s] : 0);
-  switch (r) {
-    case 2:
-      stage_fixed<2, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    case 3:
-      stage_fixed<3, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    case 4:
-      stage_fixed<4, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    case 5:
-      stage_fixed<5, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    case 7:
-      stage_fixed<7, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    case 8:
-      stage_fixed<8, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    case 16:
-      if constexpr (kRadix16<C>)
-        stage_fixed<16, kPrune>(buf, g, L, Mp, tw, w, p.inverse, h, lg);
-      break;
-    default:
-      if constexpr (kGeneric)
-        stage_generic<kPrune>(buf, g, r, L, Mp, tw, w, h, lg);
-      break;
-  }
-}
-
-// Every stage of plan p from stage `from` on over the sequences of g, its
-// table `tab` in shared memory; `hook` rides the last stage's write.
-// Without kGeneric the generic stage is left out of the kernel (its caller
-// refuses plans that need it, has_generic).
+// Every stage of plan p over the sequences of g, its table `tab` in
+// shared memory; `hook` rides the last stage's write.  Without kGeneric
+// the generic stage is left out of the kernel (its caller refuses plans
+// that need it, has_generic).
 template <bool kGeneric = true, class C, class Hook>
 __device__ void run_pass(C* buf, const Pass& g, const Plan& p, const C* tab,
-                         const Hook& hook, int from = 0) {
+                         const Hook& hook) {
   int L = 1, M = p.n;
-  for (int s = 0; s < from; ++s) {
-    L *= p.radix[s];
-    M /= p.radix[s];
-  }
-  for (int s = from; s < p.n_stages; ++s) {
+  for (int s = 0; s < p.n_stages; ++s) {
     const int r = p.radix[s];
     const int Mp = M / r;
-    run_stage<kGeneric, false>(buf, g, p, tab,
-                               s == p.n_stages - 1 ? hook : hook.off(), s, L,
-                               Mp, r);
+    const C* tw = tab + p.tw_off[s];
+    const C* w = tab + (p.dft_off[s] >= 0 ? p.dft_off[s] : 0);
+    const Hook h = s == p.n_stages - 1 ? hook : hook.off();
+    switch (r) {
+      case 2: stage_fixed<2>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 3: stage_fixed<3>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 4: stage_fixed<4>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 5: stage_fixed<5>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 7: stage_fixed<7>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 8: stage_fixed<8>(buf, g, L, Mp, tw, w, p.inverse, h); break;
+      case 16:
+        if constexpr (kRadix16<C>)
+          stage_fixed<16>(buf, g, L, Mp, tw, w, p.inverse, h);
+        break;
+      default:
+        if constexpr (kGeneric) stage_generic(buf, g, r, L, Mp, tw, w, h);
+        break;
+    }
     L *= r;
     M = Mp;
   }
-}
-
-// The first stage of plan p alone, pruned to the inputs a declared-zero
-// tail leaves live (the reference's stage-1 compute guards): only the
-// first `live` points of each sequence may be nonzero, so of the stage's
-// r groups of n / r points (input j of every butterfly) only the first
-// ceil(live / (n / r)) are read, the others the zeros they are.  Returns
-// the stages it ran (0 for a plan without stages), the `from` of the
-// run_pass that finishes the pass.
-template <bool kGeneric = true, class C, class Hook>
-__device__ int run_first_stage(C* buf, const Pass& g, const Plan& p,
-                               const C* tab, const Hook& hook, int live) {
-  if (p.n_stages == 0) return 0;
-  const int r = p.radix[0];
-  const int Mp = p.n / r;
-  run_stage<kGeneric, true>(buf, g, p, tab,
-                            p.n_stages == 1 ? hook : hook.off(), 0, 1, Mp,
-                            min(r, (live + Mp - 1) / Mp));
-  return 1;
 }
 
 // Points of a plan's stage table (0 for the empty plan of a length-1
