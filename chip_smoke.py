@@ -271,6 +271,31 @@ Phases (each asserts; any failure exits non-zero before the result line):
      torch.fft with the host's enqueue time, and each tl kernel beside its
      natural launch, plain version, torch.fft and bound.  The toolchain
      phase holds the new kernels' ptxas lines to NEW_PTXAS.
+ 16. the distributed layer (vkfft_tpu_torch.parallel), run last:
+     parallel_routes, on a world of one rank on NCCL in this process,
+     transpose_back (slab and pencil), the real pencil, complex64 and
+     complex128 tensors against the single-device transforms, then a gloo
+     world of PAR_WORLD ranks spawned on the one card (NCCL refuses two
+     ranks on one GPU; gloo stages the exchanges through the host):
+     __graft_entry__.dryrun_multichip's checks at 256^3 (slab, pencil (2,
+     2), the real slab, pfft, a hybrid mesh with overlap_chunks=2), each
+     rank's shard against its block of the single-device result, and its
+     slab round trip timed by the host clock (host-staged, not a
+     yardstick); parallel_main_path, the world of one: slab (chunk 1 and
+     2) and pencil (1, 1) round trips of the 256^3 cube, prfftn / pirfftn
+     of the real cube, DistributedConvolution at 256^3 and pfft of 65536
+     lines of 256, each counted from 0 and held to its exact launches and
+     exchanges with no plain-engine call, against the port's single-device
+     transform (<= KERNEL_TOL) and fp64 (<= NUMPY_TOL), chunk 2 bit for bit
+     chunk 1; parallel_times, the world of one's slab and pencil round
+     trips at 256^3 and 512^3 beside FFTApplication on the same cube, with
+     each exchange's time, its pack's, their share, the host's enqueue
+     time, and at 256^3 where the host's and the card's time go.
+     parallel_multi_gpu, run only when named and on a machine with
+     PAR_WORLD cards (a machine of four): a NCCL world of a rank a card,
+     the same checks, the launches of each rank's slab round trip, and
+     the slab and pencil round trips at 256^3 and 512^3 beside
+     FFTApplication on one card.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -287,6 +312,8 @@ toolchain,zeropad_kernels,zeropad_routes,zeropad_main_path,zeropad_times
 on the windowed entries and the zero-pad routes (with the convolution's),
 toolchain,keep_order_kernels,keep_order_routes,keep_order_main_path,
 keep_order_times on the tl entries and keep_intermediate_order,
+toolchain,parallel_routes,parallel_main_path,parallel_times on the
+distributed layer, toolchain,parallel_multi_gpu on four cards,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -8321,6 +8348,494 @@ def _tl_kernel_times(ck, dev) -> dict:
     return out
 
 
+# --- the distributed layer (vkfft_tpu_torch.parallel) ------------------------
+
+PAR_PFFT = (65536, 256)          # pfft: 65536 lines of 256, 128 MiB of planes
+PAR_CUBES = ((256, 256, 256), (512, 512, 512))
+PAR_WORLD = 4                    # the gloo world on the one card
+PAR_JOIN_S = 300                 # its deadline: a hung collective fails
+# each world-of-1 part's launches, forward and inverse (the convolution:
+# its call; pfft: its forward), and its exchanges
+PAR_LAUNCHES = {
+    "slab_256^3": {"fft_pair": 2, "fft_strided": 2},
+    "slab_chunks2_256^3": {"fft_pair": 2, "fft_strided": 4},
+    "pencil_256^3": {"fft_lines": 2, "fft_strided": 4},
+    "prfftn_256^3": {"fft_r2c": 2, "fft_strided": 4},
+    "conv_256^3": {"fft_pair": 2, "fft_strided": 2},
+    "pfft_65536x256": {"fft_lines": 1},
+}
+PAR_EXCHANGES = {"slab_256^3": 2, "slab_chunks2_256^3": 4,
+                 "pencil_256^3": 4, "prfftn_256^3": 2, "conv_256^3": 2,
+                 "pfft_65536x256": 0}
+
+
+def _nccl_world() -> None:
+    """A world of one rank on NCCL in this process, on its own store."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+
+
+def _local(y):
+    """The local planes or tensor of a facade's DTensor result."""
+    if isinstance(y, tuple):
+        return tuple(_local(t) for t in y)
+    if hasattr(y, "re"):
+        return type(y)(_local(y.re), _local(y.im))
+    return y.to_local() if hasattr(y, "to_local") else y
+
+
+def _c(p) -> torch.Tensor:
+    return torch.complex(p.re, p.im) if hasattr(p, "re") else p
+
+
+def phase_parallel_main_path(vt, ck, torch_engine, dev) -> dict:
+    """The distributed layer on a world of one rank on NCCL, through the
+    entry points a user calls: slab (chunk 1 and 2) and pencil (1, 1)
+    forward and inverse of the 256^3 cube, prfftn / pirfftn of the real
+    cube, DistributedConvolution at 256^3 and pfft of 65536 lines of 256,
+    each counted from 0 and held to its exact launches and exchanges, no
+    plain-engine call; each result against the port's single-device
+    transform on the card (<= KERNEL_TOL) and the forward against
+    torch.fft complex128 or numpy (<= NUMPY_TOL)."""
+    from vkfft_tpu_torch import parallel as par
+    from vkfft_tpu_torch.parallel import pencil
+    _nccl_world()
+    slab = par.fft_mesh()
+    pen = par.fft_mesh((1, 1), ("px", "py"))
+    x = vt.Planar(*_planes(CUBE, 51, dev))
+    xr = _planes(CUBE, 52, dev)[0]
+    k = vt.Planar(*_planes(CUBE, 53, dev))
+    lines = vt.Planar(*_planes(PAR_PFFT, 54, dev))
+    keep = [t.clone() for t in (x.re, x.im, xr, lines.re)]
+    conv = par.DistributedConvolution(CUBE, slab, k)
+    apps = {"slab_256^3": par.DistributedFFT(CUBE, slab),
+            "slab_chunks2_256^3": par.DistributedFFT(CUBE, slab,
+                                                     overlap_chunks=2),
+            "pencil_256^3": par.DistributedFFT(CUBE, pen)}
+    assert apps["slab_256^3"]._tail_pair
+
+    def round_trip(app):
+        y = app.forward(app.shard_input(x))
+        return y, app.inverse(y)
+
+    def real_round_trip():
+        Y = par.prfftn(xr, slab)
+        return Y, par.pirfftn(Y, CUBE, slab)
+
+    paths = [(name, (lambda a=a: round_trip(a))) for name, a in apps.items()]
+    paths += [("prfftn_256^3", real_round_trip),
+              ("conv_256^3", lambda: (conv(x),)),
+              ("pfft_65536x256", lambda: (par.pfft(lines, slab),))]
+    torch.cuda.synchronize()
+    results, by_path, xchg_by_path = {}, {}, {}
+    for name, drive in paths:
+        ck.reset_launches()
+        torch_engine.calls = 0
+        before = pencil.exchanges
+        results[name] = _local(drive())
+        torch.cuda.synchronize()
+        got = dict(ck.launches)
+        by_path[name] = got
+        xchg_by_path[name] = pencil.exchanges - before
+        _log(f"[main par] {name}: launches {got}, exchanges "
+             f"{xchg_by_path[name]}, plain engine calls {torch_engine.calls}")
+        want = PAR_LAUNCHES[name]
+        assert got == {k: want.get(k, 0) for k in got}, (name, got, want)
+        assert xchg_by_path[name] == PAR_EXCHANGES[name], name
+        assert torch_engine.calls == 0, (name, torch_engine.calls)
+
+    assert all(torch.equal(a, b) for a, b in
+               zip(keep, (x.re, x.im, xr, lines.re))), "inputs changed"
+    del keep
+    rows = []
+
+    def row(name, **errs):
+        r = {"row": name, **errs}
+        _log(f"[main par] {r}")
+        for key, err in errs.items():
+            assert err <= (NUMPY_TOL if key.endswith("fp64")
+                           or key.endswith("round_trip") else KERNEL_TOL), r
+        rows.append(r)
+
+    xc = _c(x)
+    ref = vt.fftn(x)
+    ref64 = torch.fft.fftn(xc.to(torch.complex128))
+    y, z = results["slab_256^3"]
+    row("slab_256^3", vs_single_device=_rel(_c(y), _c(ref)),
+        vs_fp64=_rel(_c(y).to(torch.complex128), ref64),
+        round_trip=_rel(_c(z), xc))
+    y2, z2 = results["slab_chunks2_256^3"]
+    bitwise = bool(torch.equal(y2.re, y.re) and torch.equal(y2.im, y.im)
+                   and torch.equal(z2.re, z.re) and torch.equal(z2.im, z.im))
+    row("slab_chunks2_256^3", vs_single_device=_rel(_c(y2), _c(ref)),
+        round_trip=_rel(_c(z2), xc))
+    # chunking changes the schedule, not one bit of the result
+    assert bitwise, "overlap_chunks=2 differs from the monolithic slab"
+    rows[-1]["bitwise_equal_to_chunk_1"] = bitwise
+    y3, z3 = results["pencil_256^3"]
+    row("pencil_256^3", vs_single_device=_rel(_c(y3), _c(ref)),
+        vs_fp64=_rel(_c(y3).to(torch.complex128), ref64),
+        round_trip=_rel(_c(z3), xc))
+    del ref64
+    Y, back = results["prfftn_256^3"]
+    rref = vt.rfftn(xr)
+    row("prfftn_256^3", vs_single_device=_rel(_c(Y), rref),
+        vs_fp64=_rel(_c(Y).to(torch.complex128),
+                     torch.fft.rfftn(xr.to(torch.float64))),
+        round_trip=_rel(back, xr))
+    (cy,) = results["conv_256^3"]
+    want = vt.ifftn(vt.fftn(x) * vt.fftn(k))
+    row("conv_256^3", vs_single_device=_rel(_c(cy), _c(want)))
+    (ly,) = results["pfft_65536x256"]
+    head = _c(lines)[:1024].cpu().numpy().astype(np.complex128)
+    row("pfft_65536x256", vs_single_device=_rel(_c(ly), _c(vt.fft(lines))),
+        vs_numpy_fp64=float(np.abs(_c(ly)[:1024].cpu().numpy()
+                                   - np.fft.fft(head)).max()
+                            / np.abs(np.fft.fft(head)).max()))
+    assert all(_finite(p) for p in (y, z, y2, z2, y3, z3, cy, ly))
+    return {"launches": {k: sum(c[k] for c in by_path.values())
+                         for k in ck.launches},
+            "launches_by_path": {f"parallel_{k}": v
+                                 for k, v in by_path.items()},
+            "exchanges_by_path": xchg_by_path, "plain_engine_calls": 0,
+            "nccl": str(torch.cuda.nccl.version()),
+            "rows": rows}
+
+
+def _world_rank(rank: int, path: str, backend: str, world: int) -> None:
+    """One rank of a spawned world (`_world`): gloo with every rank on the
+    one card, or NCCL with rank r on card r; its checks and times
+    (`_world_checks`) written for the parent."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{path}/store", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=PAR_JOIN_S))
+    try:
+        out = _world_checks(rank, world, dev, backend == "nccl")
+    except Exception:   # the parent reports it and fails the phase
+        out = {"failed": traceback.format_exc()}
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    if "failed" not in out:
+        dist.destroy_process_group()
+
+
+def _world_checks(rank: int, world: int, dev, timed: bool) -> dict:
+    """`__graft_entry__.dryrun_multichip`'s checks at 256^3 on a world of
+    ``world`` ranks: slab, pencil (2, world / 2), the real slab, pfft and a
+    hybrid mesh with overlap_chunks=2; each rank's shard held against its
+    block of the port's single-device result on its card, the slab's
+    launches and exchanges counted on every rank, the errors gathered to
+    rank 0.  The slab and pencil round trips timed: by CUDA events where
+    ``timed`` (NCCL), else by the host clock over a few runs (gloo, whose
+    exchanges go through the host)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    import vkfft_tpu_torch as vt
+    from vkfft_tpu_torch import parallel as par
+    from vkfft_tpu_torch.ops import cuda_kernels as ck
+    from vkfft_tpu_torch.ops import torch_engine
+    from vkfft_tpu_torch.parallel import pencil
+    from vkfft_tpu_torch.parallel.pencil import _slices
+    x = vt.Planar(*_planes(CUBE, 61, dev))     # the same on every rank
+    xr = _planes(CUBE, 62, dev)[0]
+    lines = vt.Planar(*_planes(PAR_PFFT, 63, dev))
+    slab = par.fft_mesh((world,), ("fft",))
+    pen = par.fft_mesh((2, world // 2), ("px", "py"))
+    hyb = par.hybrid_fft_mesh((1, world // 2), (2, 1), ("px", "py"))
+    ref = _c(vt.fftn(x))
+    xc = _c(x)
+
+    def block(t, mesh, placements):
+        return t[_slices(mesh, t.shape, placements)]
+
+    errs = {}
+
+    def hold(name, got, want, mesh, placements):
+        errs[name] = _rel(_c(_local(got)), block(want, mesh, placements))
+
+    app = par.DistributedFFT(CUBE, slab)
+    xl = app.shard_input(x)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    torch_engine.calls = 0
+    before = pencil.exchanges
+    y = app.forward(xl)
+    app.inverse(y)
+    torch.cuda.synchronize()
+    counts = {"launches": {k: v for k, v in ck.launches.items() if v},
+              "exchanges": pencil.exchanges - before,
+              "plain_engine_calls": torch_engine.calls}
+    assert counts["launches"] == {"fft_pair": 2, "fft_strided": 2}, counts
+    assert counts["exchanges"] == 2 and torch_engine.calls == 0, counts
+    for name, mesh, oc in (("slab", slab, 1), ("pencil", pen, 1),
+                           ("hybrid_chunks2", hyb, 2)):
+        app = par.DistributedFFT(CUBE, mesh, overlap_chunks=oc)
+        y = par.pfftn(x, mesh, overlap_chunks=oc)
+        hold(f"{name}_fwd", y, ref, mesh, app.output_spec())
+        hold(f"{name}_round_trip", par.pifftn(y, mesh, overlap_chunks=oc),
+             xc, mesh, app.input_spec())
+    app = par.DistributedFFT(CUBE, slab, real=True)
+    Y = par.prfftn(xr, slab)
+    hold("real_fwd", Y, vt.rfftn(xr), slab, app.output_spec())
+    hold("real_round_trip", par.pirfftn(Y, CUBE, slab), xr, slab,
+         app.input_spec())
+    hold("pfft", par.pfft(lines, slab), _c(vt.fft(lines)), slab,
+         (Shard(0),))
+    del x, xr, lines, ref, xc, y, Y
+    torch.cuda.empty_cache()
+    times = {}
+    for cube in (PAR_CUBES if timed else PAR_CUBES[:1]):
+        name = "x".join(map(str, cube))
+        for kind, mesh in (("slab", slab), ("pencil", pen)):
+            app = par.DistributedFFT(cube, mesh)
+            xl = app.shard_input(vt.Planar(*_planes(cube, 64, dev)))
+            fn = lambda: app.inverse(app.forward(xl))
+            if timed:
+                ms = _time_ms(fn, reps=10, inner=5)
+            else:
+                runs = []
+                for _ in range(4):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                ms = statistics.median(runs[1:])
+            times[f"{kind}_{name}"] = ms
+            if timed and kind == "slab":
+                X = app._xchg[0]
+                times[f"exchange_{name}"] = _time_ms(
+                    lambda: X.run(xl, 1, 0), reps=10, inner=5)
+            del xl
+            torch.cuda.empty_cache()
+    gathered = [None] * world
+    dist.all_gather_object(gathered, {"errs": errs, "counts": counts,
+                                      "times_ms": times})
+    return {"ranks": gathered} if rank == 0 else {}
+
+
+def _world(ck, backend: str, world: int) -> dict:
+    """A world of ``world`` ranks spawned from this process: gloo with
+    every rank on the one card (NCCL refuses two ranks on one GPU), or
+    NCCL with a card a rank; joined within PAR_JOIN_S, stopped if not."""
+    import tempfile
+    import torch.multiprocessing as mp
+    ck.build_kernels()   # the ranks load the libraries, not build them
+    with tempfile.TemporaryDirectory() as path:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_world_rank,
+                             args=(r, path, backend, world))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, PAR_JOIN_S - (time.perf_counter() - t0)))
+        hung = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        outs = []
+        for r in range(world):
+            f = os.path.join(path, f"rank{r}.json")
+            outs.append(json.load(open(f)) if os.path.exists(f) else None)
+    failed = [o["failed"] for o in outs if o and "failed" in o]
+    assert not failed, failed[0]
+    assert not hung, f"ranks still running after {PAR_JOIN_S} s: {hung}"
+    assert [p.exitcode for p in procs] == [0] * world, \
+        [p.exitcode for p in procs]
+    out = outs[0]
+    for rk in out["ranks"]:
+        for key, err in rk["errs"].items():
+            assert err <= (NUMPY_TOL if key.endswith("round_trip")
+                           else KERNEL_TOL), (key, err, rk)
+    out["seconds"] = time.perf_counter() - t0
+    out["times_ms"] = {k: statistics.median(rk["times_ms"][k]
+                                            for rk in out["ranks"])
+                       for k in out["ranks"][0]["times_ms"]}
+    return out
+
+
+def phase_parallel_routes(vt, ck, dev) -> dict:
+    """The distributed layer's other forms on the world of one rank:
+    transpose_back (slab and pencil), the real pencil, complex64 and
+    complex128 tensors (the fp64 kernels), every result against the port's
+    single-device transform; then the gloo world of PAR_WORLD ranks on the
+    one card at 256^3 (`_world`)."""
+    from vkfft_tpu_torch import parallel as par
+    _nccl_world()
+    slab = par.fft_mesh()
+    pen = par.fft_mesh((1, 1), ("px", "py"))
+    x = vt.Planar(*_planes(CUBE, 71, dev))
+    xc = _c(x)
+    ref = _c(vt.fftn(x))
+    rows = []
+    for name, mesh in (("slab", slab), ("pencil", pen)):
+        app = par.DistributedFFT(CUBE, mesh, transpose_back=True)
+        assert app.output_spec() == app.input_spec()
+        y = app.forward(x)
+        rows.append({"row": f"{name}_transpose_back",
+                     "vs_single_device": _rel(_c(y), ref),
+                     "round_trip": _rel(_c(app.inverse(y)), xc)})
+    xr = _planes(CUBE, 72, dev)[0]
+    app = par.DistributedFFT(CUBE, pen, real=True)
+    Y = app.forward(xr)
+    rows.append({"row": "real_pencil", "vs_single_device": _rel(
+        Y, vt.rfftn(xr)), "round_trip": _rel(app.inverse(Y), xr)})
+    app = par.DistributedFFT(CUBE, slab)
+    y = app.forward(xc)
+    assert y.is_complex() and y.dtype == torch.complex64
+    rows.append({"row": "slab_complex64_tensor", "vs_single_device": _rel(
+        y, ref), "round_trip": _rel(app.inverse(y), xc)})
+    del y, Y
+    x64 = xc.to(torch.complex128)
+    y = app.forward(x64)
+    rows.append({"row": "slab_complex128_tensor", "vs_fp64": _rel(
+        y, torch.fft.fftn(x64)), "round_trip_fp64": _rel(app.inverse(y), x64)})
+    assert y.dtype == torch.complex128
+    for r in rows:
+        _log(f"[routes par] {r}")
+        for key, err in r.items():
+            if key != "row":
+                tol = (F64_NUMPY_TOL if key.endswith("fp64") else NUMPY_TOL
+                       if key == "round_trip" else KERNEL_TOL)
+                assert err <= tol, r
+    del x64, y
+    torch.cuda.empty_cache()
+    gloo = _world(ck, "gloo", PAR_WORLD)
+    _log(f"[routes par] gloo world of {PAR_WORLD} on one card, host-staged: "
+         f"{gloo}")
+    return {"rows": rows, "gloo_world": gloo}
+
+
+def phase_parallel_multi_gpu(vt, ck, dev) -> dict:
+    """The distributed layer across PAR_WORLD cards of one host, one rank
+    a card on NCCL (over NVLink): `_world_checks` and the slab and pencil
+    round trips at 256^3 and 512^3, beside FFTApplication on one card in
+    this process.  Run only when named (--phases), on a machine with
+    PAR_WORLD cards."""
+    count = torch.cuda.device_count()
+    assert count >= PAR_WORLD, f"{count} cards, the phase needs {PAR_WORLD}"
+    single = {}
+    for cube in PAR_CUBES:
+        x = vt.Planar(*_planes(cube, 64, dev))
+        single["x".join(map(str, cube))] = _time_ms(
+            lambda: vt.ifftn(vt.fftn(x)), reps=10, inner=5)
+        del x
+    torch.cuda.empty_cache()
+    out = _world(ck, "nccl", PAR_WORLD)
+    out["single_device_ms"] = single
+    out["cards"] = [torch.cuda.get_device_name(i) for i in range(count)]
+    _log(f"[multi par] NCCL world of {PAR_WORLD} cards: {out}")
+    return out
+
+
+def phase_parallel_times(vt, dev) -> dict:
+    """World-of-1 round trips (NCCL) of the slab and the pencil (1, 1) at
+    256^3 and 512^3 beside FFTApplication (fftn / ifftn) on the same cube,
+    with the exchanges' share (each exchange timed alone: its pack, and
+    pack + all_to_all_single + unpack), the host's enqueue time and the
+    HBM bound of the transform's own passes."""
+    from vkfft_tpu_torch import parallel as par
+    _nccl_world()
+    _log(f"[time par] card: {_smi()}")
+    slab = par.fft_mesh()
+    pen = par.fft_mesh((1, 1), ("px", "py"))
+    rows = []
+    for cube in PAR_CUBES:
+        x = vt.Planar(*_planes(cube, 81, dev))
+        points = math.prod(cube)
+        name = "x".join(map(str, cube))
+        single = _time_ms(lambda: vt.ifftn(vt.fftn(x)))
+        # bench.py: fwd + inv, read + write, per axis pass (pair + strided)
+        bound, by = _bound(2 * 2 * 2 * 8.0 * points,
+                           2 * _fft_ops(points, points))
+        kinds = [("slab", slab, 1), ("pencil", pen, 1)]
+        if cube == CUBE:
+            kinds.append(("slab_chunks2", slab, 2))
+        for kind, mesh, oc in kinds:
+            app = par.DistributedFFT(cube, mesh, overlap_chunks=oc)
+            fn = lambda: app.inverse(app.forward(x))
+            ms = _time_ms(fn)
+            X = app._xchg[-1]
+            # each exchange of the round trip moves the whole cube
+            n_xchg = (2 if kind.startswith("slab") else 4)
+            xchg_ms = _time_ms(lambda: X.run(x, 1, 0))
+            pack_ms = _time_ms(lambda: X.pack(x, 1))
+            r = {"row": f"{kind}_{name}", "shape": list(cube), "ms": ms,
+                 "single_device_ms": single, "vs_single_device": single / ms,
+                 "exchange_ms": xchg_ms, "pack_ms": pack_ms,
+                 "exchanges": n_xchg,
+                 "exchange_share": n_xchg * xchg_ms / ms,
+                 "host_ms": _host_ms(fn), "bound_ms": bound, "bound_by": by,
+                 "GBs": 2 * 2 * 2 * 8.0 * points / ms / 1e6}
+            _log(f"[time par] {r}")
+            rows.append(r)
+        del x
+        torch.cuda.empty_cache()
+    return {"rows": rows, "breakdown_256^3": _par_breakdown(vt, slab, dev)}
+
+
+def _par_breakdown(vt, slab, dev) -> dict:
+    """Where the slab's 256^3 round trip spends host and device time: the
+    host's enqueue time (`_host_ms`) of each piece, and the device time of
+    the bare collective beside a copy of the same bytes."""
+    import torch.distributed as dist
+    from vkfft_tpu_torch import parallel as par
+    x = vt.Planar(*_planes(CUBE, 82, dev))
+    app = par.DistributedFFT(CUBE, slab)
+    X = app._xchg[0]
+    send = X.pack(x, 1)
+    recv = torch.empty_like(send)
+    a2a = lambda: dist.all_to_all_single(recv, send, group=X.group)
+    host = {"pack": _host_ms(lambda: X.pack(x, 1)),
+            "all_to_all_single": _host_ms(a2a),
+            "all_to_all_single_async_wait": _host_ms(
+                lambda: dist.all_to_all_single(recv, send, group=X.group,
+                                               async_op=True).wait()),
+            "exchange": _host_ms(lambda: X.run(x, 1, 0)),
+            "tail_pair": _host_ms(lambda: app._tail(x, False, False)),
+            "axis0_strided": _host_ms(lambda: app._fft(x, 0, False, False)),
+            "slab_forward": _host_ms(lambda: app.forward(x)),
+            "slab_round_trip": _host_ms(lambda: app.inverse(app.forward(x))),
+            "single_device_round_trip": _host_ms(
+                lambda: vt.ifftn(vt.fftn(x)))}
+    device = {"all_to_all_single": _time_ms(a2a),
+              "copy_same_bytes": _time_ms(lambda: recv.copy_(send)),
+              "pack": _time_ms(lambda: X.pack(x, 1))}
+    out = {"host_ms": host, "device_ms": device}
+    _log(f"[time par] breakdown 256^3: {out}")
+    return out
+
+
+def _run_phases(phases, record: dict) -> bool:
+    """Run each (name, fn) into ``record``; True as soon as one fails
+    (its traceback printed)."""
+    for name, fn in phases:
+        t = time.perf_counter()
+        try:
+            record[name] = fn()
+        except Exception as e:   # report the phase, then fail the run
+            import traceback
+            traceback.print_exc()
+            print(f"chip_smoke: phase {name} failed: {e!r}", file=sys.stderr)
+            return True
+        record.setdefault("phase_s", {})[name] = time.perf_counter() - t
+        _log(f"[phase] {name} done in {record['phase_s'][name]:.1f} s")
+        torch.cuda.empty_cache()
+    return False
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8408,7 +8923,13 @@ def main(argv=None) -> int:
                lambda: phase_keep_order_main_path(vt, ck, ce, torch_engine,
                                                   dev)),
               ("keep_order_times",
-               lambda: phase_keep_order_times(vt, ck, dev))]
+               lambda: phase_keep_order_times(vt, ck, dev)),
+              ("parallel_routes", lambda: phase_parallel_routes(vt, ck, dev)),
+              ("parallel_main_path",
+               lambda: phase_parallel_main_path(vt, ck, torch_engine, dev)),
+              ("parallel_times", lambda: phase_parallel_times(vt, dev)),
+              ("parallel_multi_gpu",
+               lambda: phase_parallel_multi_gpu(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
     if only:
         unknown = set(only) - {name for name, _ in phases}
@@ -8416,18 +8937,17 @@ def main(argv=None) -> int:
             print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)
             return 2
         phases = [(name, fn) for name, fn in phases if name in only]
-    for name, fn in phases:
-        t = time.perf_counter()
-        try:
-            record[name] = fn()
-        except Exception as e:   # report the phase, then fail the run
-            import traceback
-            traceback.print_exc()
-            print(f"chip_smoke: phase {name} failed: {e!r}", file=sys.stderr)
-            return 1
-        record.setdefault("phase_s", {})[name] = time.perf_counter() - t
-        _log(f"[phase] {name} done in {record['phase_s'][name]:.1f} s")
-        torch.cuda.empty_cache()
+    else:   # a run with no arguments needs one card
+        phases = [(name, fn) for name, fn in phases
+                  if name != "parallel_multi_gpu"]
+    try:
+        failed = _run_phases(phases, record)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():   # the parallel phases' world of one
+            dist.destroy_process_group()
+    if failed:
+        return 1
     record["total_s"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     if only:
@@ -8446,7 +8966,8 @@ def main(argv=None) -> int:
                    **record["conv_main_path"]["launches_by_path"],
                    **record["long_main_path"]["launches_by_path"],
                    **record["dd_main_path"]["launches_by_path"],
-                   **record["f64_main_path"]["launches_by_path"])
+                   **record["f64_main_path"]["launches_by_path"],
+                   **record["parallel_main_path"]["launches_by_path"])
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"

@@ -36,20 +36,27 @@ calls = 0
 
 
 def apply_stages_p(x: Planar, plan: AxisPlan, tables) -> Planar:
-    """Planar Stockham core over (B, core_n) planes."""
+    """Planar Stockham core over (B, core_n) planes.  Each stage contracts
+    every line on its own, a batch of B (r, r) @ (r, L*Mp) products whose
+    shapes do not depend on B, so a line's result is the same bits in any
+    batch (one (r, r) @ (r, B*L*Mp) product, as an einsum makes it, rounds
+    differently below a few lines); the distributed layer's chunked
+    exchanges rely on it."""
     B = x.shape[0]
     dt, dev = x.dtype, x.device
     xr, xi = x.re, x.im
+
+    def lines(d, z):   # (r, r) x (B, L, r, Mp) -> (B, r, L, Mp)
+        return torch.matmul(d, z.transpose(1, 2).reshape(B, r, L * Mp))
+
     for stage, (D, tw) in zip(plan.stages, tables):
         r, L, Mp = stage.r, stage.L, stage.Mp
         d = planar_table(D, dt, dev)
         t = planar_table(tw, dt, dev)
         zr = xr.reshape(B, L, r, Mp)
         zi = xi.reshape(B, L, r, Mp)
-        yr = (torch.einsum("ij,bljm->bilm", d.re, zr)
-              - torch.einsum("ij,bljm->bilm", d.im, zi))
-        yi = (torch.einsum("ij,bljm->bilm", d.re, zi)
-              + torch.einsum("ij,bljm->bilm", d.im, zr))
+        yr = (lines(d.re, zr) - lines(d.im, zi)).reshape(B, r, L, Mp)
+        yi = (lines(d.re, zi) + lines(d.im, zr)).reshape(B, r, L, Mp)
         twr = t.re[None, :, None, :]
         twi = t.im[None, :, None, :]
         xr = (yr * twr - yi * twi).reshape(B, L * r, Mp)
