@@ -271,7 +271,7 @@ Phases (each asserts; any failure exits non-zero before the result line):
      torch.fft with the host's enqueue time, and each tl kernel beside its
      natural launch, plain version, torch.fft and bound.  The toolchain
      phase holds the new kernels' ptxas lines to NEW_PTXAS.
- 16. the distributed layer (vkfft_tpu_torch.parallel), run last:
+ 16. the distributed layer (vkfft_tpu_torch.parallel):
      parallel_routes, on a world of one rank on NCCL in this process,
      transpose_back (slab and pencil), the real pencil, complex64 and
      complex128 tensors against the single-device transforms, then a gloo
@@ -296,6 +296,25 @@ Phases (each asserts; any failure exits non-zero before the result line):
      the same checks, the launches of each rank's slab round trip, and
      the slab and pencil round trips at 256^3 and 512^3 beside
      FFTApplication on one card.
+ 17. plan blobs, the build cache, debug introspection and the examples
+     (vkfft_tpu_torch.cache, .debug, .planner.native, examples_torch/):
+     cache_main_path, six applications at full width (CACHE_ROWS: 1-D
+     C2C 1024 at 128 MB, the 256^3 cube, R2C 1024, DOUBLE 256, kept order
+     4096, sample 4's windowed 256^3) built, their plan blobs saved and
+     run, then reloaded from the blob files in a second Python process
+     that points the build cache at this run's build directory and reruns
+     the same inputs (and inverts this process's TlSpectrum): every output
+     torch.equal, the same launches, the native core loaded there, the
+     build directory's listing unchanged (no compiler ran); the cold
+     build's seconds against the warm process's time to its first result,
+     and the planning of n = 1 .. 2^16 on the native core against the
+     Python body; debug_main_path, describe / memory_layout / dump_kernels
+     of those applications and sample 7's lengths against the launch
+     counters and cuda_engine.route, and a profile_trace of the 256^3
+     round trip read back (the route's device kernels in it, no
+     torch_engine frame, its five longest device operations); examples,
+     every examples_torch/ex*.py on the card (ex09 a NCCL world of a rank
+     a visible card), each printing "ok", nothing compiled.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -314,6 +333,8 @@ toolchain,keep_order_kernels,keep_order_routes,keep_order_main_path,
 keep_order_times on the tl entries and keep_intermediate_order,
 toolchain,parallel_routes,parallel_main_path,parallel_times on the
 distributed layer, toolchain,parallel_multi_gpu on four cards,
+toolchain,cache_main_path,debug_main_path,examples on the plan blobs, the
+build cache, debug introspection and the example twins,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -8818,6 +8839,409 @@ def _par_breakdown(vt, slab, dev) -> dict:
     return out
 
 
+# --- plan blobs and the build cache, debug introspection, the examples ------
+
+# The applications of cache_main_path, saved as plan blobs and reloaded in
+# a second process: (name, FFTConfig fields as config_from_reference takes
+# them (enums by value: they go to the second process as JSON), input
+# shape, input form, the launches a forward plus an inverse makes, by
+# counter entry: fp32 kernels by name, the fp64 instantiations as
+# <kernel>_f64, the windowed and tl entries by C entry).
+CACHE_ROWS = (
+    ("c2c_n1024", dict(shape=(1024,), normalize=True),
+     (TARGET_BYTES // (8 * 1024), 1024), "planar", {"fft_lines": 2}),
+    ("c2c_256^3", dict(shape=CUBE, normalize=True), CUBE, "planar",
+     {"fft_pair": 2, "fft_strided": 2}),
+    ("r2c_n1024", dict(shape=(R2C_N,), kind="r2c"), (R2C_LINES, R2C_N),
+     "real", {"fft_r2c": 2}),
+    ("double_n256", dict(shape=(256,), precision="double", normalize=True),
+     (TARGET_BYTES // (16 * 256), 256), "complex128", {"fft_lines_f64": 2}),
+    ("keep_order_n4096", dict(shape=(4096,), normalize=True,
+                              keep_intermediate_order=True),
+     (TARGET_BYTES // (8 * 4096), 4096), "planar", {"fft_lines_tl": 2}),
+    ("sample4_256^3", dict(shape=CUBE, normalize=True,
+                           zeropad_input=tuple((n // 2, n) for n in CUBE)),
+     CUBE, "planar", {"fft_pair_zp": 2, "fft_strided_zp": 2}),
+)
+CACHE_CHILD_S = 600      # the second process's deadline
+PLAN_SWEEP_N = 1 << 16   # the planning comparison: n = 1 .. 2^16
+
+
+def _cache_input(vt, shape, form: str, seed: int, dev):
+    """A row's input, made alike in both processes from its seed."""
+    re, im = _planes(shape, seed, dev)
+    if form == "real":
+        return vt.Planar(re, torch.zeros_like(re))
+    if form == "complex128":
+        return torch.complex(re.double(), im.double())
+    return vt.Planar(re, im)
+
+
+def _tensors(y) -> list:
+    """The tensors of a result (planes or a tensor), in order."""
+    return [y.re, y.im] if hasattr(y, "re") else [y]
+
+
+def _same(a, b) -> bool:
+    """Bit for bit the same result: each tensor torch.equal, and a
+    TlSpectrum's layout fields equal."""
+    if type(a) is not type(b):
+        return False
+    if hasattr(a, "lead") and (a.lead, a.batch, a.n, a.n2, a.split) != (
+            b.lead, b.batch, b.n, b.n2, b.split):
+        return False
+    ta, tb = _tensors(a), _tensors(b)
+    return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(ta, tb))
+
+
+def _listing(path: str) -> dict:
+    """{file: (size, mtime_ns)} of a build directory."""
+    return {f: (os.stat(os.path.join(path, f)).st_size,
+                os.stat(os.path.join(path, f)).st_mtime_ns)
+            for f in sorted(os.listdir(path))}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _run_rows(vt, cache, dev, workdir: str, rows, reload: bool) -> tuple:
+    """Each application of ``rows`` ((name, FFTConfig fields, input shape,
+    input form)) forward and inverse on its input: built and its blob
+    written (the first process, which also saves its kept-order forward),
+    or reloaded from that blob (the second).  Returns ({name: (y, z)},
+    {name: app})."""
+    out, apps = {}, {}
+    for i, (name, kw, shape, form) in enumerate(rows):
+        blob_path = os.path.join(workdir, f"{name}.blob")
+        if reload:
+            with open(blob_path, "rb") as f:
+                app = cache.load_application_from_string(f.read())
+        else:
+            app = vt.FFTApplication(vt.config_from_reference(kw))
+            with open(blob_path, "wb") as f:
+                f.write(cache.save_application_to_string(app))
+        x = _cache_input(vt, tuple(shape), form, 301 + i, dev)
+        y = app.forward(x)
+        out[name], apps[name] = (y, app.inverse(y)), app
+        if name.startswith("keep_order") and not reload:
+            torch.save(y, os.path.join(workdir, f"{name}.tl.pt"))
+    _sync(dev)
+    return out, apps
+
+
+def cache_child(workdir: str, t_start: float) -> int:
+    """The second process of cache_main_path: reads each row's plan blob
+    from ``workdir``, points the build cache at the first process's build
+    directory, reruns the same inputs on the same device and writes its
+    outputs, its launches and its times back to ``workdir``."""
+    t_import = time.perf_counter()
+    import vkfft_tpu_torch as vt
+    from vkfft_tpu_torch import cache, debug
+    from vkfft_tpu_torch.ops import cuda_kernels as ck
+    from vkfft_tpu_torch.planner import native
+    with open(os.path.join(workdir, "request.json")) as f:
+        req = json.load(f)
+    cache.enable_persistent_cache(req["build_dir"])
+    dev = torch.device(req["device"])
+    name, kw, shape, form = req["rows"][0]
+    with open(os.path.join(workdir, f"{name}.blob"), "rb") as f:
+        app = cache.load_application_from_string(f.read(), device=dev)
+    first = app.forward(_cache_input(vt, tuple(shape), form, 301, dev))
+    _sync(dev)
+    t_first = time.perf_counter()
+    del app, first
+    ck.reset_launches()
+    outs, apps = _run_rows(vt, cache, dev, workdir, req["rows"], reload=True)
+    counts = {k: v for k, v in debug.launch_counts().items() if v}
+    for name in outs:
+        if name.startswith("keep_order"):   # the first process's TlSpectrum
+            theirs = torch.load(os.path.join(workdir, f"{name}.tl.pt"),
+                                map_location=dev, weights_only=False)
+            outs[name] += (apps[name].inverse(theirs),)
+    for name, res in outs.items():
+        torch.save(res, os.path.join(workdir, f"{name}.child.pt"))
+    with open(os.path.join(workdir, "child.json"), "w") as f:
+        json.dump({"start_to_first_result_s": t_first - t_start,
+                   "import_to_first_result_s": t_first - t_import,
+                   "launches": counts, "native_loaded":
+                   native.get_lib() is not None, "native_error": native.error,
+                   "build_dir": ck.BUILD_DIR}, f)
+    return 0
+
+
+def _planning_ms(factorize, native_on: bool) -> float:
+    """Host ms to plan every n = 1 .. PLAN_SWEEP_N with the planner's caches
+    emptied first: on the native core, or on the Python body (the core
+    switched off)."""
+    key = "VKFFT_TPU_TORCH_NATIVE"
+    old = os.environ.get(key)
+    if not native_on:
+        os.environ[key] = "0"
+    try:
+        factorize.decompose.cache_clear()
+        factorize.next_smooth.cache_clear()
+        t0 = time.perf_counter()
+        for n in range(1, PLAN_SWEEP_N + 1):
+            factorize.decompose(n)
+        return (time.perf_counter() - t0) * 1e3
+    finally:
+        if old is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = old
+        factorize.decompose.cache_clear()
+        factorize.next_smooth.cache_clear()
+
+
+def phase_cache_main_path(vt, ck, torch_engine, dev, cold_build_s) -> dict:
+    """Plan blobs and the build cache at full width (CACHE_ROWS): each
+    application built here, its blob saved, forward and inverse run on its
+    input (the launches counted from 0, no plain-engine call); then a
+    second Python process reads each blob from its file, points the build
+    cache at this process's build directory, reruns the same inputs (and
+    inverts this process's TlSpectrum) and writes its outputs: each
+    torch.equal to this process's, the same launches, the native core
+    loaded there, and the build directory's listing unchanged (no nvcc, no
+    c++).  Prints the cold build's seconds (the toolchain phase's build,
+    and the native core's own into an empty directory) against the warm
+    process's time to its first result, and the planning of n = 1 .. 2^16
+    on the native core against the Python body."""
+    import shutil
+    import tempfile
+    from vkfft_tpu_torch import cache, debug
+    from vkfft_tpu_torch.planner import factorize, native
+    assert native.get_lib() is not None, f"native core: {native.error}"
+    card = _smi()
+    plan_native = _planning_ms(factorize, True)
+    plan_python = _planning_ms(factorize, False)
+    _log(f"[cache] planning n = 1..{PLAN_SWEEP_N}: native core "
+         f"{plan_native:.1f} ms, Python body {plan_python:.1f} ms "
+         f"({plan_python / plan_native:.2f}x), host, {card}")
+    build_dir = ck.BUILD_DIR
+    workdir = tempfile.mkdtemp(prefix="vkfft_cache_phase")
+    try:
+        native_dir = os.path.join(workdir, "native_cold")
+        old = native.BUILD_DIR
+        native.set_build_dir(native_dir)
+        t0 = time.perf_counter()
+        native.build()
+        native_cold_s = time.perf_counter() - t0
+        native.set_build_dir(old)
+        assert native.get_lib() is not None, native.error
+        cache.enable_persistent_cache(build_dir)
+        apps = [row[:4] for row in CACHE_ROWS]
+        with open(os.path.join(workdir, "request.json"), "w") as f:
+            json.dump({"build_dir": build_dir, "device": str(dev),
+                       "rows": apps}, f)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        mine, _ = _run_rows(vt, cache, dev, workdir, apps, reload=False)
+        counts = {k: v for k, v in debug.launch_counts().items() if v}
+        plain_calls = torch_engine.calls
+        want = {}
+        for *_, launches in CACHE_ROWS:
+            for k, v in launches.items():
+                want[k] = want.get(k, 0) + v
+        _log(f"[cache] launches of the path {counts}, plain engine calls "
+             f"{plain_calls}")
+        assert counts == want, (counts, want)
+        assert plain_calls == 0
+        before = _listing(build_dir)
+        code = ("import time; t0 = time.perf_counter(); import sys; "
+                f"sys.path.insert(0, {os.getcwd()!r}); import chip_smoke; "
+                "sys.exit(chip_smoke.cache_child(sys.argv[1], t0))")
+        t_spawn = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code, workdir],
+                             capture_output=True, text=True,
+                             timeout=CACHE_CHILD_S)
+        child_wall_s = time.perf_counter() - t_spawn
+        assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+        after = _listing(build_dir)
+        assert after == before, (before, after)
+        with open(os.path.join(workdir, "child.json")) as f:
+            child = json.load(f)
+        assert child["native_loaded"], child["native_error"]
+        assert child["build_dir"] == build_dir
+        assert child["launches"] == counts, (child["launches"], counts)
+        rows = []
+        for name, _, shape, form, _ in CACHE_ROWS:
+            theirs = torch.load(os.path.join(workdir, f"{name}.child.pt"),
+                                map_location=dev, weights_only=False)
+            y, z = mine[name]
+            same = [_same(theirs[0], y), _same(theirs[1], z)]
+            if name.startswith("keep_order"):
+                assert isinstance(y, vt.TlSpectrum)
+                same.append(_same(theirs[2], z))
+            row = {"row": name, "shape": list(shape), "form": form,
+                   "output": type(y).__name__, "equal": same,
+                   "finite": all(bool(torch.isfinite(t).all())
+                                 for t in _tensors(y) + _tensors(z))}
+            _log(f"[cache] {row}")
+            assert all(same) and row["finite"], row
+            rows.append(row)
+            del theirs
+        info = {"card": card, "cold_build_s": cold_build_s,
+                "native_cold_build_s": native_cold_s,
+                "warm_start_to_first_result_s":
+                    child["start_to_first_result_s"],
+                "warm_import_to_first_result_s":
+                    child["import_to_first_result_s"],
+                "warm_process_wall_s": child_wall_s,
+                "planning_native_ms": plan_native,
+                "planning_python_ms": plan_python,
+                "build_dir_files": len(after)}
+        _log(f"[cache] {info}")
+        return {**info, "launches": counts, "plain_engine_calls": plain_calls,
+                "rows": rows}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _debug_rows(vt, ce, dev) -> list:
+    """The applications debug_main_path reads: (name, app, input, the
+    launches of one forward, by counter entry)."""
+    from vkfft_tpu_torch.planner import plan_axis
+
+    def route(n):
+        want = {}
+        for k, _, _ in ce.route(plan_axis(n)):
+            want[k] = want.get(k, 0) + 1
+        return want
+
+    rows = []
+    for i, (name, kw, shape, form, _) in enumerate(CACHE_ROWS):
+        if name.startswith("r2c"):
+            continue   # the real kinds' kernels are not the C2C route
+        want = {"c2c_n1024": route(1024),
+                "c2c_256^3": {"fft_pair": 1, "fft_strided": 1},
+                "double_n256": {"fft_lines_f64": 1},
+                "keep_order_n4096": {"fft_lines_tl": 1},
+                "sample4_256^3": {"fft_pair_zp": 1, "fft_strided_zp": 1}}[name]
+        rows.append((name, vt.FFTApplication(vt.config_from_reference(kw)),
+                     _cache_input(vt, shape, form, 401 + i, dev), want))
+    for n in (10007, 7919, 10006):   # sample 7's Bluestein, Rader, SPLIT
+        app = vt.FFTApplication(vt.FFTConfig(shape=(n,)))
+        x = vt.Planar(*_planes((SAMPLE_7_BYTES // (8 * n), n), n, dev))
+        rows.append((f"sample7_n{n}", app, x, route(n)))
+    return rows
+
+
+def phase_debug_main_path(vt, ck, ce, torch_engine, dev) -> dict:
+    """describe, memory_layout and dump_kernels of the cache path's C2C
+    applications and sample 7's 10007 / 7919 / 10006 at full width, held
+    to the launches the counters record for one forward (and to
+    cuda_engine.route's kernels), no plain-engine call; then profile_trace
+    of the 256^3 round trip, its Chrome trace read back: the route's
+    device kernels (fft_pair, fft_strided) in it, no torch_engine frame,
+    and its five longest device operations printed with their ms."""
+    import shutil
+    import tempfile
+    from vkfft_tpu_torch import debug
+    out = {"rows": []}
+    for name, app, x, want in _debug_rows(vt, ce, dev):
+        torch.cuda.synchronize()
+        torch_engine.calls = 0
+        got = debug.launched(app.forward, x)
+        text = debug.dump_kernels(app, x)
+        desc = debug.describe(app)
+        layout = debug.memory_layout(app)
+        torch.cuda.synchronize()
+        assert got == want, (name, got, want)
+        assert torch_engine.calls == 0, name
+        assert text.splitlines()[0] == (
+            f"forward: {sum(got.values())} kernel launches"), text
+        for entry, count in got.items():
+            lib = debug.library_of(entry)
+            assert f"{entry} x{count}: C entry vk_{entry} of {lib}" in text
+            assert ck.library_path(lib) in text and os.path.exists(
+                ck.library_path(lib))
+            if entry == lib and app.config.axes == (0,):
+                assert f"{lib}(" in desc, (name, desc)
+        assert layout.count("pass axis") == len(app.config.axes)
+        assert layout.endswith("-> output")
+        _log(f"[debug] {name}: launches {got}\n{desc}\n{layout}\n{text}")
+        out["rows"].append({"row": name, "launches": got, "describe": desc,
+                            "memory_layout": layout, "dump_kernels": text})
+    app = vt.FFTApplication(vt.FFTConfig(shape=CUBE, normalize=True))
+    x = vt.Planar(*_planes(CUBE, 451, dev))
+    outdir = tempfile.mkdtemp(prefix="vkfft_trace")
+    try:
+        iters = 5
+        calls = torch_engine.calls
+        debug.profile_trace(lambda: app.inverse(app.forward(x)),
+                            outdir=outdir, iters=iters)
+        assert torch_engine.calls == calls
+        ops = debug.device_ops(outdir)
+        frames = [e["name"] for e in debug.trace_events(outdir)
+                  if e.get("cat") == "python_function"]
+        trace_mb = os.path.getsize(os.path.join(outdir, "trace.json")) / 2**20
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    names = [name for name, _, _ in ops]
+    top = [{"op": name[:120], "ms_per_round_trip": ms / iters,
+            "count": count} for name, ms, count in ops[:5]]
+    _log(f"[debug] profile_trace of the 256^3 round trip x{iters} "
+         f"({trace_mb:.1f} MiB of trace), {_smi()}: the five longest device "
+         f"operations {top}")
+    for kernel in ("fft_pair", "fft_strided"):
+        assert any(kernel in n for n in names), (kernel, names)
+    assert not any("torch_engine.py" in f for f in frames)
+    assert any("cuda_kernels.py" in f and "_launch" in f for f in frames)
+    out["profile_top5"] = top
+    out["device_op_names"] = [n[:200] for n in names]
+    return out
+
+
+EXAMPLES_S = 600         # each example's deadline
+
+
+def phase_examples(ck, dev) -> dict:
+    """Every examples_torch/ex*.py twin as a subprocess on the card (ex09 a
+    NCCL world of one rank a visible card), all started together, ex08's
+    build cache at this run's build directory: each exits 0 and prints
+    "ok" last, and no example compiles anything (the build directory's
+    listing unchanged)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    scripts = sorted(f for f in os.listdir(os.path.join(root, "examples_torch"))
+                     if f.startswith("ex") and f.endswith(".py"))
+    assert len(scripts) == 10, scripts
+    env = dict(os.environ, PYTHONPATH=root,
+               VKFFT_TPU_TORCH_CACHE=ck.BUILD_DIR)
+    env.pop("VKFFT_TPU_TORCH_EXAMPLES_CPU", None)
+    before = _listing(ck.BUILD_DIR)
+    t0 = time.perf_counter()
+    procs = {s: subprocess.Popen(
+        [sys.executable, s], cwd=os.path.join(root, "examples_torch"),
+        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for s in scripts}
+    rows, failed = [], []
+    try:
+        for s, p in procs.items():
+            stdout, stderr = p.communicate(timeout=EXAMPLES_S)
+            lines = stdout.strip().splitlines()
+            ok = p.returncode == 0 and lines and lines[-1] == "ok"
+            rows.append({"example": s, "rc": p.returncode,
+                         "done_by_s": time.perf_counter() - t0,
+                         "stdout": lines[-8:]})
+            _log(f"[examples] {s}: rc {p.returncode}, last lines "
+                 f"{lines[-4:]}")
+            if not ok:
+                failed.append((s, stdout[-2000:], stderr[-4000:]))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert not failed, failed
+    assert _listing(ck.BUILD_DIR) == before
+    return {"rows": rows, "wall_s": time.perf_counter() - t0,
+            "devices": torch.cuda.device_count()}
+
+
 def _run_phases(phases, record: dict) -> bool:
     """Run each (name, fn) into ``record``; True as soon as one fails
     (its traceback printed)."""
@@ -8928,6 +9352,13 @@ def main(argv=None) -> int:
               ("parallel_main_path",
                lambda: phase_parallel_main_path(vt, ck, torch_engine, dev)),
               ("parallel_times", lambda: phase_parallel_times(vt, dev)),
+              ("cache_main_path",
+               lambda: phase_cache_main_path(
+                   vt, ck, torch_engine, dev,
+                   record["toolchain"]["build_s"])),
+              ("debug_main_path",
+               lambda: phase_debug_main_path(vt, ck, ce, torch_engine, dev)),
+              ("examples", lambda: phase_examples(ck, dev)),
               ("parallel_multi_gpu",
                lambda: phase_parallel_multi_gpu(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
@@ -8968,6 +9399,9 @@ def main(argv=None) -> int:
                    **record["dd_main_path"]["launches_by_path"],
                    **record["f64_main_path"]["launches_by_path"],
                    **record["parallel_main_path"]["launches_by_path"])
+    # the cache path's launches (plan blobs built and run here), by counter
+    cache_counts = record["cache_main_path"]["launches"]
+    by_path["cache"] = {k: cache_counts.get(k, 0) for k in ck.KERNEL_SOURCES}
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -9028,7 +9462,9 @@ def main(argv=None) -> int:
             "per_shape": rows})
     # the fp64 instantiations of fft_lines, fft_strided and fft_pair (the
     # same sources), launched on DOUBLE's main path
-    f64_by_path = record["f64_main_path"]["f64_launches_by_path"]
+    f64_by_path = dict(record["f64_main_path"]["f64_launches_by_path"],
+                       cache={k: cache_counts.get(k + "_f64", 0)
+                              for k in ck.F64_KERNELS})
     for name in ck.F64_KERNELS:
         rows = record["f64_times"]["kernels"][name]
         head = rows[0]
@@ -9062,7 +9498,9 @@ def main(argv=None) -> int:
             "also_replaces": also.get(name, []), "per_shape": rows})
     # the windowed entries of fft_lines, fft_twofactor, fft_strided and
     # fft_pair (the same sources), launched on the zero-pad main path
-    zp_by_path = record["zeropad_main_path"]["zp_launches_by_path"]
+    zp_by_path = dict(record["zeropad_main_path"]["zp_launches_by_path"],
+                      cache={k: cache_counts.get(k, 0)
+                             for k in ck.zp_launches})
     for key, rows in record["zeropad_times"]["kernels"].items():
         name = key.rsplit("_", 1)[0]
         head = rows[0]
@@ -9080,7 +9518,9 @@ def main(argv=None) -> int:
     # the tl entries of fft_lines and fft_pair (the same sources), launched
     # on the kept-order main path (fft_twofactor at split_lane_major is
     # fft_twofactor's own entry: its row stays in the record)
-    tl_by_path = record["keep_order_main_path"]["tl_launches_by_path"]
+    tl_by_path = dict(record["keep_order_main_path"]["tl_launches_by_path"],
+                      cache={k: cache_counts.get(k, 0)
+                             for k in ck.tl_launches})
     for key, rows in record["keep_order_times"]["kernels"].items():
         if key not in ck.tl_launches:
             continue

@@ -47,10 +47,15 @@ def prime_factors(n: int) -> list[int]:
     """Ascending prime factorization by trial division (reference:
     ``vkFFT_Scheduler.h:2295-2301`` does registered-radix division 2..13).
 
-    The pure-Python cascade only: the native C++ planner core of the JAX
-    package is not ported yet (ROADMAP queue 1 item 11)."""
+    Delegates to the native C++ planner core when it builds (same
+    algorithm, ``native/planner_core.cpp``, `planner.native`); this Python
+    body is the fallback."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
+    from vkfft_tpu_torch.planner import native
+    nat = native.prime_factors(n)
+    if nat is not None:
+        return nat
     out: list[int] = []
     for p in (2, 3, 5, 7, 11, 13):
         while n % p == 0:
@@ -167,6 +172,11 @@ def next_smooth(n: int, smooth_primes: tuple[int, ...] = (2, 3, 5, 7, 11, 13)) -
     stage cost directly over smooth candidates."""
     if n <= 1:
         return 1
+    if smooth_primes == (2, 3, 5, 7, 11, 13):
+        from vkfft_tpu_torch.planner import native
+        nat = native.next_smooth(n)
+        if nat is not None:
+            return nat
     best = 1 << (n - 1).bit_length()  # next power of two always works
 
     def rec(value: int, idx: int) -> None:
@@ -250,16 +260,36 @@ def decompose(n: int, allow_rader: bool = True) -> SizeDecomposition:
     Mirrors the decision cascade at ``vkFFT_Scheduler.h:2289-2578``:
     registered radices -> Rader primes -> Bluestein, except that "registered
     radices" here covers every prime <= MAX_DIRECT_PRIME via direct DFT
-    stages.  The JAX package runs this in its native C++ planner core when
-    built; the port keeps the pure-Python cascade, which is bit-identical
-    to it (``tests/test_native.py``)."""
+    stages.  Runs in the native C++ planner core when it builds
+    (``vt_decompose``, ``native/planner_core.cpp``, `planner.native`: the
+    reference's scheduler is native C, ours likewise); ``_decompose_py`` is
+    the bit-identical fallback (parity asserted in
+    ``tests/test_torch_native.py``)."""
     if n < 1:
         raise ValueError(f"FFT length must be positive, got {n}")
+    from vkfft_tpu_torch.planner import native
+    nat = native.decompose(n, allow_rader, MAX_DIRECT_PRIME, MAX_GROUP_RADIX,
+                           RADER_MAX_PRIME)
+    if nat is not None:
+        algo, aux1, aux2, radices = nat
+        if algo == 0:
+            return SizeDecomposition(n=n, algorithm=Algorithm.DIRECT,
+                                     radices=tuple(radices))
+        if algo == 1:
+            return SizeDecomposition(n=n, algorithm=Algorithm.RADER,
+                                     radices=tuple(radices), rader_prime=aux1)
+        if algo == 2:
+            return SizeDecomposition(n=n, algorithm=Algorithm.BLUESTEIN,
+                                     radices=tuple(radices),
+                                     bluestein_size=aux1)
+        return SizeDecomposition(n=n, algorithm=Algorithm.SPLIT, radices=(),
+                                 split=(aux1, aux2))
     return _decompose_py(n, allow_rader)
 
 
 def _decompose_py(n: int, allow_rader: bool = True) -> SizeDecomposition:
-    """Pure-Python decomposition cascade."""
+    """Pure-Python decomposition cascade (fallback + parity oracle for the
+    native core)."""
     if n == 1:
         return SizeDecomposition(n=1, algorithm=Algorithm.DIRECT, radices=())
 
