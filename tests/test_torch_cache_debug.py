@@ -90,6 +90,23 @@ def test_load_rejects_another_algorithm():
             load(bad)
 
 
+@pytest.mark.parametrize("n", (1024, 10007))
+def test_load_rejects_other_radices(n):
+    """A blob whose axis names other radices than this planner's, as one
+    from a planner with other radix limits would, is refused."""
+    plan = plan_axis(n)
+    blob = cache.save_plan(vt.FFTConfig(shape=(n,)), {0: plan})
+    payload = json.loads(blob[len(cache._MAGIC):])
+    radices = payload["plans"]["0"]["radices"]
+    payload["plans"]["0"]["radices"] = radices[::-1]
+    assert radices[::-1] != radices
+    bad = cache._MAGIC + json.dumps(payload).encode()
+    with pytest.raises(ValueError, match="radices"):
+        cache.load_plan(bad)
+    with pytest.raises(ValueError, match="radices"):
+        cache.load_application_from_string(bad, engine="torch", device="cpu")
+
+
 def test_describe_and_memory_layout():
     cfg = vt.FFTConfig(shape=(131, 1024))
     app = vt.FFTApplication(cfg, engine="torch", device="cpu")

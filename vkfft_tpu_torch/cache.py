@@ -102,7 +102,7 @@ def save_plan(config: FFTConfig, plans: dict[int, AxisPlan]) -> bytes:
 def load_plan(blob: bytes) -> tuple[FFTConfig, dict[int, AxisPlan]]:
     """The config and per-axis plans of a blob, each axis replanned by this
     planner; raises ValueError for a foreign blob, another version, or an
-    axis this planner gives another algorithm."""
+    axis this planner gives another algorithm or other radices."""
     if not blob.startswith(_MAGIC):
         raise ValueError("not a vkfft_tpu plan blob")
     payload = json.loads(blob[len(_MAGIC):].decode("utf-8"))
@@ -116,6 +116,11 @@ def load_plan(blob: bytes) -> tuple[FFTConfig, dict[int, AxisPlan]]:
             raise ValueError(
                 f"plan blob algorithm {rec['algorithm']!r} for n={rec['n']} "
                 f"does not match this planner ({plan.algorithm.value!r})")
+        radices = tuple(s.r for s in plan.stages)
+        if tuple(rec["radices"]) != radices:
+            raise ValueError(
+                f"plan blob radices {tuple(rec['radices'])} for n={rec['n']} "
+                f"do not match this planner's {radices}")
         plans[int(ax_str)] = plan
     return config, plans
 
