@@ -315,6 +315,20 @@ Phases (each asserts; any failure exits non-zero before the result line):
      torch_engine frame, its five longest device operations); examples,
      every examples_torch/ex*.py on the card (ex09 a NCCL world of a rank
      a visible card), each printing "ok", nothing compiled.
+ 18. the CLI (python -m vkfft_tpu_torch.cli, the twin of vkfft_tpu/cli.py):
+     cli, every sample of the taxonomy (0-19, 50-52, 100, 101, 200,
+     1000-1004) through cli.main in this process at the JAX package's
+     sizes on the cuda engine, each with its deadline, sample 4 also with
+     --full, sample 200 with -X 1024 -B 16384 plain, -R2C 1, -DCT 2, -P 1
+     and -save (its blob then loaded by -load in a second process with
+     this run's build cache), and -compare on samples 0 and 7 (the torch
+     engine and torch.fft beside the kernels); each run counted from 0
+     and held to the kernels of CLI_KERNELS, no plain-engine or dd plain
+     call, rc 0, no FAIL line, its verdicts PASS, every timed row finite
+     and > 0, the build directory's listing unchanged (nothing compiled);
+     sample 0's n = 1024 row beside the same round trip by this script's
+     _time_ms (and phase times').  Each run's whole output goes to
+     chiprun_out/cli/.
 
 Every number is printed as it is measured; the whole record also goes to
 chiprun_out/chip_smoke.json.  The last lines are a JSON object describing
@@ -334,7 +348,8 @@ keep_order_times on the tl entries and keep_intermediate_order,
 toolchain,parallel_routes,parallel_main_path,parallel_times on the
 distributed layer, toolchain,parallel_multi_gpu on four cards,
 toolchain,cache_main_path,debug_main_path,examples on the plan blobs, the
-build cache, debug introspection and the example twins,
+build cache, debug introspection and the example twins, toolchain,cli on
+the CLI's samples,
 toolchain,any_kernels,any_times on fft_twofactor and fft_conv_pair,
 toolchain,conv_kernels,conv_times on fft_conv and fft_conv_inv (with the
 layout sweep), toolchain,walk_times beside an older tree,
@@ -350,6 +365,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -8311,7 +8327,59 @@ def phase_keep_order_times(vt, ck, dev) -> dict:
         rows.append(row)
         del x, xc, tl, nat
         torch.cuda.empty_cache()
-    return {"rows": rows, "kernels": _tl_kernel_times(ck, dev)}
+    return {"rows": rows, "kernels": _tl_kernel_times(ck, dev),
+            "half_kernels": _tl_half_kernel_times(ck, dev)}
+
+
+def _tl_half_kernel_times(ck, dev) -> dict:
+    """The half tl entries (vk_fft_lines_tl_bf16 / _f16, vk_fft_pair_tl_bf16
+    / _f16) at the fp32 rows' shapes, both directions, each beside its
+    natural launch on the same planes (in turns), its plain version,
+    torch.fft complex32 of the same planes (f16; bf16 has no complex
+    dtype) and the bound of 8 B a point (each half read and written
+    once)."""
+    out = {}
+    for tag, dt in STORAGE.items():
+        lx = [t.to(dt) for t in _planes((2048, 4096), 21, dev)]
+        px = [t.to(dt) for t in _planes((128, 256, 256), 22, dev)]
+        lib = ({"fft_lines_tl": (torch.fft.fft, torch.fft.ifft),
+                "fft_pair_tl": (torch.fft.fft2, torch.fft.ifft2)}
+               if tag == "f16" else None)
+        for name, x, n, call, plain in (
+                ("fft_lines_tl", lx, 4096, ck.fft_lines, ck.fft_lines_plain),
+                ("fft_pair_tl", px, 65536, ck.fft_pair, ck.fft_pair_plain)):
+            pts = x[0].numel()
+            for inverse in (False, True):
+                s = 1.0 / n if inverse else 1.0
+                run = lambda: call(*x, inverse, s, tl=True)
+                twin = lambda: call(*x, inverse, s)
+                got, ref = run(), plain(*x, inverse, s, tl=True)
+                err = _zp_check(got, ref, dt, (name, tag, inverse))
+                tt = [_time_ms(f) for f in (twin, run, run, twin)]
+                c32 = _c32(x) if lib else None
+                row = {"kernel": f"{name}_{tag}",
+                       "shape": f"{' x '.join(map(str, x[0].shape))} "
+                                f"{'inverse' if inverse else 'forward'}",
+                       "ms": min(tt[1], tt[2]),
+                       "natural_ms": min(tt[0], tt[3]),
+                       "plain_ms": _time_ms(lambda: plain(*x, inverse, s,
+                                                          tl=True), 5, 2),
+                       "library_ms": (_time_ms(lambda: lib[name][inverse](
+                           c32)) if lib else None),
+                       "library": ("torch.fft complex32" if lib
+                                   else "none (no complex bfloat16)"),
+                       "max_abs_err": max(
+                           (a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, ref)),
+                       "rel_err": err}
+                row["bound_ms"], row["bound_by"] = _bound(8.0 * pts,
+                                                          _fft_ops(pts, n))
+                _log(f"[keep_order times] {row}")
+                out.setdefault(f"{name}_{tag}", []).append(row)
+                del got, ref, c32
+        del lx, px
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tl_kernel_times(ck, dev) -> dict:
@@ -9242,6 +9310,231 @@ def phase_examples(ck, dev) -> dict:
             "devices": torch.cuda.device_count()}
 
 
+# --- the CLI (vkfft_tpu_torch.cli) ------------------------------------------
+
+# The kernels each sample's cuda-engine run must launch, by counter entry of
+# debug.launch_counts() (PERF.md section 6 rows): an fp64 instantiation as
+# <kernel>_f64, the half, windowed and tl ones by C entry.
+CLI_KERNELS = {
+    0: {"fft_lines"},
+    1: {"fft_lines_f64"},
+    2: {"fft_lines_bf16"},
+    3: {"fft_pair", "fft_strided"},
+    4: {"fft_pair_zp", "fft_strided_zp", "fft_lines_zp", "fft_lines"},
+    5: {"fft_lines_tl", "fft_pair_tl", "fft_strided_tw", "fft_strided"},
+    6: {"fft_r2c"},
+    7: {"fft_conv_pair", "fft_twofactor", "fft_conv_inv", "fft_conv"},
+    8: {"fft_dd"},
+    9: {"fft_dd"},
+    10: {"fft_lines"},
+    11: {"fft_lines", "fft_pair", "fft_strided", "fft_strided_tw"},
+    12: {"fft_lines_f64", "fft_dd"},
+    13: {"fft_lines_bf16", "fft_lines_f16"},
+    14: {"fft_lines", "fft_conv", "fft_conv_pair", "fft_twofactor",
+         "fft_strided_tw"},
+    15: {"fft_r2c"},
+    16: {"fft_dct1", "fft_dct23", "fft_dct4"},
+    17: {"fft_dct1", "fft_dct23", "fft_dct4"},
+    18: {"fft_lines_f64", "fft_dd"},
+    19: {"fft_dd"},
+    50: {"fft_conv"},
+    51: {"fft_conv_pair"},
+    52: {"fft_conv_pair"},
+    100: {"fft_dct23", "fft_dct4"},
+    101: {"fft_dct23"},
+    1000: {"fft_lines", "fft_twofactor", "fft_conv", "fft_conv_pair",
+           "fft_conv_inv"},
+    1001: {"fft_lines_f64", "fft_dd"},
+    1002: {"fft_lines_bf16"},
+    1003: {"fft_dd"},
+    1004: {"fft_pair", "fft_strided"},
+}
+# (run, argv, kernels, deadline s) of phase cli: every sample at the JAX
+# package's sizes on the cuda engine (the default on the card; the sweeps
+# 1000 and 1001 at every n in 2..4096), sample 4 also with --full, sample 200 on user flags and with -save (then -load in
+# a second process); then -compare on samples 0 and 7
+CLI_USER = ["-X", "1024", "-B", "16384"]
+CLI_RUNS = tuple((str(n), ["-vkfft", str(n)], CLI_KERNELS[n],
+                  900 if n >= 1000 else 300)
+                 for n in sorted(CLI_KERNELS)) + (
+    ("4 --full", ["-vkfft", "4", "--full"], CLI_KERNELS[4], 600),
+    ("200", ["-vkfft", "200", *CLI_USER], {"fft_lines"}, 300),
+    ("200 -R2C 1", ["-vkfft", "200", *CLI_USER, "-R2C", "1"], {"fft_r2c"},
+     300),
+    ("200 -DCT 2", ["-vkfft", "200", *CLI_USER, "-DCT", "2"],
+     {"fft_dct23"}, 300),
+    ("200 -P 1", ["-vkfft", "200", *CLI_USER, "-P", "1"], {"fft_lines_f64"},
+     300),
+    ("200 -save", ["-vkfft", "200", *CLI_USER, "-save"], {"fft_lines"}, 300),
+    ("0 -compare", ["-vkfft", "0", "-compare"], None, 300),
+    ("7 -compare", ["-vkfft", "7", "-compare"], None, 300))
+CLI_CHILD_S = 300                # the -load process's deadline
+_CLI_MS = re.compile(r"(\S+) ms")
+
+
+def _cli_in_process(cli, argv, deadline: float) -> tuple:
+    """(rc, stdout, seconds) of ``cli.main(argv)`` in this process, run on a
+    thread so that a run past ``deadline`` seconds fails (TimeoutError)
+    rather than hang the script; an exception of the run is raised here."""
+    import contextlib
+    import io
+    import threading
+    box, buf = {}, io.StringIO()
+
+    def target():
+        try:
+            box["rc"] = cli.main(argv)
+        except BaseException as e:   # raised again below, in this thread
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        th = threading.Thread(target=target, daemon=True)
+        th.start()
+        th.join(deadline)
+    if th.is_alive():
+        raise TimeoutError(f"cli {argv}: past its deadline of {deadline} s")
+    if "error" in box:
+        raise box["error"]
+    return box["rc"], buf.getvalue(), time.perf_counter() - t0
+
+
+def _cli_check(name: str, rc: int, out: str, precision: bool) -> list:
+    """The checks of a run's output: rc 0, no FAIL, a precision sample's
+    verdicts PASS, every timed row finite and > 0.  Returns the ms of its
+    rows."""
+    assert rc == 0, (name, out[-4000:])
+    assert "FAIL" not in out, (name, out[-4000:])
+    if precision:
+        assert any("PASS" in ln for ln in out.splitlines()), (name, out)
+    ms = [float(v) for v in _CLI_MS.findall(out)]
+    assert all(math.isfinite(v) and v > 0 for v in ms), (name, ms)
+    return ms
+
+
+def _cli_runs(runs, ck, torch_engine, dk, card: str, workdir: str) -> tuple:
+    """Each of ``runs`` through cli.main in this process, the launch
+    counters, the plain engine's and the dd plain versions' counts set to
+    0 just before and read just after; every cuda-engine run held to its
+    kernels, no plain call, and its output checks.  Returns (rows, the
+    launches summed over the cuda-engine runs)."""
+    from vkfft_tpu_torch import cli, debug
+    rows, total, failed = [], {}, []
+    for name, argv, kernels, deadline in runs:
+        argv = list(argv)
+        if argv[-1] == "-save":
+            argv.append(os.path.join(workdir, "sample200.blob"))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch_engine.calls = 0
+        dk.plain_calls = 0
+        try:
+            rc, out, secs = _cli_in_process(cli, argv, deadline)
+        except TimeoutError:
+            raise
+        except Exception as e:   # reported with the others at the end
+            import traceback
+            _log(f"[cli] {name}: raised\n{traceback.format_exc()}")
+            failed.append((name, repr(e)))
+            continue
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in debug.launch_counts().items() if v}
+        plain = (torch_engine.calls, dk.plain_calls)
+        precision = any(w in out for w in ("max_eps", "rel err", "max err",
+                                           "bitwise"))
+        row = {"run": name, "argv": argv, "rc": rc, "s": secs,
+               "launches": counts, "plain_calls": list(plain),
+               "rows": [ln for ln in out.splitlines() if " ms" in ln][:60],
+               "verdicts": [ln.strip() for ln in out.splitlines()
+                            if "PASS" in ln or "FAIL" in ln]}
+        _log(f"[cli] {name}: {secs:.1f} s, launches {counts}, plain calls "
+             f"{plain}\n{out.rstrip()}")
+        # each run's whole output, past what the end of the log keeps
+        os.makedirs(os.path.join("chiprun_out", "cli"), exist_ok=True)
+        with open(os.path.join("chiprun_out", "cli",
+                               name.replace(" ", "_") + ".txt"), "w") as f:
+            f.write(f"{card}\nlaunches {counts}\n{out}")
+        rows.append(row)
+        try:
+            ms = _cli_check(name, rc, out, precision)
+            if kernels is not None:   # a cuda-engine run
+                missing = sorted(k for k in kernels if not counts.get(k))
+                row["missing"] = missing
+                assert not missing, (name, missing, counts)
+                assert plain == (0, 0), (name, plain)
+                assert ms or precision, (name, out)
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+        except AssertionError as e:
+            failed.append((name, str(e)[:2000]))
+        torch.cuda.empty_cache()
+    assert not failed, failed
+    return rows, total
+
+
+def phase_cli(ck, torch_engine, dk, dev, record: dict) -> dict:
+    """The CLI (python -m vkfft_tpu_torch.cli) on the card: each sample of
+    the taxonomy through cli.main in this process at the JAX package's
+    sizes (CLI_RUNS), each run counted from 0 and held to CLI_KERNELS, no plain-engine or dd
+    plain call, rc 0, no FAIL line, its verdicts PASS and its timed rows
+    finite; sample 200's plan blob reloaded by -load in a second process
+    with this run's build cache; nothing compiled (the build directory's
+    listing unchanged).  Prints sample 0's n = 1024 row beside the same
+    round trip timed by this script's _time_ms (and phase times' where it
+    ran)."""
+    import shutil
+    import tempfile
+    from vkfft_tpu_torch import cli
+    from vkfft_tpu_torch.planner import native
+    native.get_lib()   # the planner's core loaded (or built) before the listing
+    card = _smi()
+    before = _listing(ck.BUILD_DIR)
+    workdir = tempfile.mkdtemp(prefix="vkfft_cli_phase")
+    t0 = time.perf_counter()
+    try:
+        rows, total = _cli_runs(CLI_RUNS, ck, torch_engine, dk, card,
+                                workdir)
+        out = {"card": card, "rows": rows, "launches": total}
+        # the blob of "200 -save" loaded in a second process
+        blob = os.path.join(workdir, "sample200.blob")
+        env = dict(os.environ, VKFFT_TPU_TORCH_CACHE=ck.BUILD_DIR,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "vkfft_tpu_torch.cli", "-vkfft", "200",
+             *CLI_USER, "-load", blob], env=env, capture_output=True,
+            text=True, timeout=CLI_CHILD_S)
+        _log(f"[cli] 200 -load (second process): rc {res.returncode}, "
+             f"{time.perf_counter() - t1:.1f} s\n{res.stdout.rstrip()}")
+        _cli_check("200 -load", res.returncode, res.stdout + res.stderr,
+                   False)
+        assert f"loaded plan blob from {blob}" in res.stdout, res.stdout
+        out["load_child"] = {"rc": res.returncode, "stdout": res.stdout,
+                             "s": time.perf_counter() - t1}
+        after = _listing(ck.BUILD_DIR)
+        assert after == before, (before, after)
+        # sample 0's n = 1024 row against this script's timer on the same
+        # round trip (FFTApplication, normalize=False, 128 MiB of planes)
+        import vkfft_tpu_torch as vt
+        text = "\n".join(next(r for r in rows if r["run"] == "0")["rows"])
+        m = re.search(r"^\s+1024 batch\s+(\d+):\s+(\S+) ms", text, re.M)
+        B = int(m.group(1))
+        app = vt.FFTApplication(vt.FFTConfig(shape=(1024,), normalize=False))
+        x = vt.Planar(*_planes((B, 1024), 1024, dev))
+        check = {"cli_ms": float(m.group(2)), "batch": B,
+                 "time_ms": _time_ms(lambda: app.inverse(app.forward(x))),
+                 "times_phase_ms": next(
+                     (r["ms"] for r in record.get("times", {}).get("e2e", [])
+                      if r["row"] == "1d_n1024"), None)}
+        _log(f"[cli] sample 0 n = 1024 row {check}, {card}")
+        del x
+        out["timer_check"] = check
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def _run_phases(phases, record: dict) -> bool:
     """Run each (name, fn) into ``record``; True as soon as one fails
     (its traceback printed)."""
@@ -9359,6 +9652,7 @@ def main(argv=None) -> int:
               ("debug_main_path",
                lambda: phase_debug_main_path(vt, ck, ce, torch_engine, dev)),
               ("examples", lambda: phase_examples(ck, dev)),
+              ("cli", lambda: phase_cli(ck, torch_engine, dk, dev, record)),
               ("parallel_multi_gpu",
                lambda: phase_parallel_multi_gpu(vt, ck, dev))]
     only = args.phases.split(",") if args.phases else None
@@ -9402,6 +9696,9 @@ def main(argv=None) -> int:
     # the cache path's launches (plan blobs built and run here), by counter
     cache_counts = record["cache_main_path"]["launches"]
     by_path["cache"] = {k: cache_counts.get(k, 0) for k in ck.KERNEL_SOURCES}
+    # the CLI's cuda-engine runs (phase cli), summed, by counter
+    cli_counts = record["cli"]["launches"]
+    by_path["cli"] = {k: cli_counts.get(k, 0) for k in ck.KERNEL_SOURCES}
     launches = {k: sum(c[k] for c in by_path.values())
                 for k in ck.KERNEL_SOURCES}
     pe = "vkfft_tpu/ops/pallas_engine.py"
@@ -9464,7 +9761,9 @@ def main(argv=None) -> int:
     # same sources), launched on DOUBLE's main path
     f64_by_path = dict(record["f64_main_path"]["f64_launches_by_path"],
                        cache={k: cache_counts.get(k + "_f64", 0)
-                              for k in ck.F64_KERNELS})
+                              for k in ck.F64_KERNELS},
+                       cli={k: cli_counts.get(k + "_f64", 0)
+                            for k in ck.F64_KERNELS})
     for name in ck.F64_KERNELS:
         rows = record["f64_times"]["kernels"][name]
         head = rows[0]
@@ -9481,7 +9780,9 @@ def main(argv=None) -> int:
     # the half-storage instantiations of every C2C kernel and of the fused
     # convolutions (the same sources), launched on the storage tiers' main
     # path
-    st_by_path = record["storage_main_path"]["storage_launches_by_path"]
+    st_by_path = dict(record["storage_main_path"]["storage_launches_by_path"],
+                      cli={k: cli_counts.get(k, 0)
+                           for k in ck.storage_launches})
     for key, rows in record["storage_times"]["kernels"].items():
         name, tag = key.rsplit("_", 1)
         head = rows[0]
@@ -9500,7 +9801,8 @@ def main(argv=None) -> int:
     # fft_pair (the same sources), launched on the zero-pad main path
     zp_by_path = dict(record["zeropad_main_path"]["zp_launches_by_path"],
                       cache={k: cache_counts.get(k, 0)
-                             for k in ck.zp_launches})
+                             for k in ck.zp_launches},
+                      cli={k: cli_counts.get(k, 0) for k in ck.zp_launches})
     for key, rows in record["zeropad_times"]["kernels"].items():
         name = key.rsplit("_", 1)[0]
         head = rows[0]
@@ -9520,7 +9822,8 @@ def main(argv=None) -> int:
     # fft_twofactor's own entry: its row stays in the record)
     tl_by_path = dict(record["keep_order_main_path"]["tl_launches_by_path"],
                       cache={k: cache_counts.get(k, 0)
-                             for k in ck.tl_launches})
+                             for k in ck.tl_launches},
+                      cli={k: cli_counts.get(k, 0) for k in ck.tl_launches})
     for key, rows in record["keep_order_times"]["kernels"].items():
         if key not in ck.tl_launches:
             continue

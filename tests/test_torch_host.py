@@ -137,6 +137,7 @@ def test_import_isolation_subprocess():
         "import vkfft_tpu_torch.precision.dd_fft\n"
         "import vkfft_tpu_torch.cache, vkfft_tpu_torch.debug\n"
         "import vkfft_tpu_torch.planner.native\n"
+        "import vkfft_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vkfft_tpu')]\n"
         "print(bad)\n"
@@ -155,7 +156,8 @@ def test_import_isolation_source_scan():
     files = sorted((REPO / "vkfft_tpu_torch").rglob("*.py"))
     assert {"doubledouble.py", "dd_kernel.py", "dd_fft.py"} <= {
         f.name for f in files if f.parent.name == "precision"}
-    assert {"cache.py", "debug.py", "native.py"} <= {f.name for f in files}
+    assert {"cache.py", "debug.py", "native.py", "cli.py"} <= {
+        f.name for f in files}
     examples = sorted((REPO / "examples_torch").glob("*.py"))
     assert len(examples) == 11   # _common.py and the ten twins
     files += examples + [REPO / "chip_smoke.py", REPO / "bench_torch_long.py"]
